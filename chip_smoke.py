@@ -6,19 +6,38 @@
 Phases, each printed as it runs; any failure exits non-zero with no result:
 
   1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
-  2. the build of every kernel from the sources in the checkout, timed;
-  3. every kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it (8192 rays x 64 and 192 samples,
-     hidden 256, float32 and bfloat16; TF32 off): max abs errors against
-     stated tolerances, median times in turns (plain, kernel, kernel,
-     plain), the least time the card could take, and the share reached;
+  2. the build of every kernel library from the sources in the checkout
+     (one nvcc per source, started together), timed;
+  3. every kernel against its plain PyTorch version on the card (TF32 off):
+     the forward render at the serving shapes (8192 rays x 64 and 192
+     samples), the train pass and the render backward at the training
+     shapes (1024 rays x 64, 192 and 256 samples), hidden 256, float32 and
+     bfloat16: max errors against stated tolerances, the two backward
+     routes against each other, median times in turns (plain, kernel,
+     kernel, plain), the least time the card could take, and the share
+     reached;
   4. serving: a synthetic 400x400 Blender scene, the configs/lego.txt model
      (full width, hierarchical 64+128, bfloat16) initialised from a seed and
      saved as a checkpoint, RenderService on cuda behind the HTTP server on
      loopback, four requests (/health, /pose/0, /pose/1, /render?m=...).
      Each image request must give a 400x400 PNG and launch the fused render
      kernel exactly 2 x ceil(160000/8192) = 40 times; one served image is
-     held against the unfused PyTorch render of the same request.
+     held against the unfused PyTorch render of the same request;
+  5. training: fit() on configs/lego.txt with the synthetic scene, 200
+     iterations, logs every 10, validation and saves every 100: finite
+     losses, the mse at iteration 190 under half of the one at 0, exactly
+     2 x 200 train-kernel launches and 40 forward launches (the
+     validation image), the interval and final checkpoints; then a resume
+     from the step-100 checkpoint to 120 that restores step, parameters and
+     Adam moments exactly and repeats the first run's mse bit for bit; then
+     three steps through the render route (render_rays through the
+     forward kernel, then its backward kernel under autograd); the train
+     rate of the lego.txt step;
+  6. bench.py's headline protocol (flat NeRF, bf16, 1024 rays x 256
+     samples, white background, a 1<<20 synthetic pool on the card, warm-up,
+     timed chained steps) in rays/s, and a torch.profiler trace of one
+     lego.txt step: the train kernel's share of wall time, the other
+     kernels, the device idle share.
 
 The last lines are a JSON object of per-kernel numbers, the card, and
 ``{"ok": true, "device": {...}}``. Needs a CUDA device and this checkout;
@@ -57,6 +76,17 @@ TOL = {"float32": {"rgb": 1e-5, "acc": 1e-5, "weights": 1e-5, "depth": 1e-4},
 # PNG truncates to 1/255, and bfloat16 rounding points and the fast sine
 # differ between the two paths, which also moves the fine samples a little.
 SERVE_TOL_MEAN = 1e-2
+R_TRAIN = 1024          # rays per train step (num_random_rays of lego.txt)
+# Train pass / backward kernel vs plain version. Loss, rgb, acc, weights as
+# the forward above (loss relative). Gradients, atol = tol * max|g| per
+# tensor: float32 sums over ~2e5 points in another order, and the b10s and
+# w10s gradients are sums of terms that cancel (measured 1.3e-3 of the
+# max); bfloat16 rounds every dz to bf16 before each product, so one flipped
+# rounding is carried through nine layers (measured 8e-3 of the max).
+GRAD_TOL = {"float32": 5e-3, "bfloat16": 5e-2}
+# per-sample MACs of the backward's skipped input-gradient products
+# (dz1 w1^T, dz6 w6p^T, dzr0 wr0d^T at the real widths 63/63/27)
+SKIPPED_MACS = 256 * 63 + 256 * 63 + 128 * 27
 
 
 def fail(msg: str) -> None:
@@ -309,15 +339,20 @@ def serve(torch, dev, tmp: str):
 
 
 def profile_request(torch, svc) -> None:
-    """Where one request's time goes: a torch.profiler trace of a direct
-    render_pose call (after the launch count was read), its device busy
-    share and the fused render kernel's share of the wall time."""
+    """Where one request's time goes (after the launch count was read)."""
+    profile_device(torch, lambda: svc.render_pose(svc.orbit_pose(2), key_idx=2),
+                   "fused_render_fwd", "one request")
+
+
+def profile_device(torch, fn, kernel: str, what: str) -> None:
+    """A torch.profiler trace of ``fn()``: wall time, device busy and idle
+    share, the named kernel's share and the other kernels' time and count."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.render_pose(svc.orbit_pose(2), key_idx=2)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev_events = [e for e in prof.events()
@@ -335,16 +370,348 @@ def profile_request(torch, svc) -> None:
         else:
             cur_end = max(cur_end, end)
     busy += cur_end - cur_start
-    fused = sum(e.time_range.elapsed_us() for e in dev_events
-                if "fused_render_fwd" in e.name)
-    other = sum(e.time_range.elapsed_us() for e in dev_events
-                if "fused_render_fwd" not in e.name)
-    say(f"profile: one request {wall_us / 1e3:.1f} ms wall; device busy "
+    mine = [e for e in dev_events if kernel in e.name]
+    others = [e for e in dev_events if kernel not in e.name]
+    t_mine = sum(e.time_range.elapsed_us() for e in mine)
+    t_other = sum(e.time_range.elapsed_us() for e in others)
+    say(f"profile: {what} {wall_us / 1e3:.1f} ms wall; device busy "
         f"{busy / 1e3:.1f} ms ({busy / wall_us:.4f} of wall, idle "
-        f"{1 - busy / wall_us:.4f}); fused_render_fwd {fused / 1e3:.1f} ms "
-        f"({fused / wall_us:.4f}), other kernels {other / 1e3:.1f} ms in "
-        f"{len(dev_events) - sum('fused_render_fwd' in e.name for e in dev_events)} "
-        "launches")
+        f"{1 - busy / wall_us:.4f}); {kernel} {t_mine / 1e3:.1f} ms "
+        f"({t_mine / wall_us:.4f}) in {len(mine)} launches, other kernels "
+        f"{t_other / 1e3:.1f} ms in {len(others)} launches")
+    by_name: dict = {}
+    for e in others:
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
+    for name, (c, t) in sorted(by_name.items(), key=lambda x: -x[1][1])[:6]:
+        say(f"  other: {t / 1e3:.2f} ms in {c} launches: {name[:90]}")
+
+
+# ---------------------------------------------------------------- phase 3b
+
+
+def grad_bound_ms(num_rays: int, s: int, cdt: str, weight_bytes: int,
+                  grad_bytes: int, train: bool) -> tuple:
+    """Least time of one train pass / render backward: the forward's MACs
+    and twice them for the backward, less the skipped input products,
+    against the bytes that must move (rays, t, target or cotangent,
+    weights, gradients, and the train pass's rgb, acc and weights)."""
+    flops = 2 * (3 * mlp_macs(256, 63, 27) - SKIPPED_MACS) * num_rays * s
+    nbytes = (3 * num_rays * 3 * 4 + num_rays * s * 4 + weight_bytes + grad_bytes
+              + num_rays * (3 if train else 8) * 4)
+    if train:
+        nbytes += num_rays * 4 * 4 + num_rays * s * 4
+    t_ops = flops / PEAK_FLOPS[cdt] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def grad_errors(torch, got, ref) -> dict:
+    """Per gradient tensor, max |kernel - plain| over max |plain|, the max
+    floored at 1e-2 of the model's largest gradient element (b10s is one
+    sum of terms of both signs, whose residue alone is no scale)."""
+    from nerf_tpu_torch.ops.cuda.fused_render import grad_views
+
+    g, r = grad_views(*got, 256), grad_views(*ref, 256)
+    floor = 1e-2 * max(float(v.abs().max()) for v in r.values())
+    out = {}
+    for k in r:
+        if not torch.isfinite(g[k]).all():
+            fail(f"non-finite gradient {k}")
+        out[k] = float((g[k] - r[k]).abs().max()) / max(float(r[k].abs().max()), floor)
+    return out
+
+
+def check_grad_kernels(torch, dev):
+    """The train pass and the render backward against their plain
+    versions at 1024 rays x S in {64, 192, 256}, and the two backward
+    routes (train kernel; backward kernel from the MSE head's cotangent)
+    against each other."""
+    from nerf_tpu_torch.models.nerf import NeRFModel
+    from nerf_tpu_torch.ops.cuda.fused_render import (
+        FusedNerfRender, fused_render_bwd_plain, fused_train_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for cdt in ("float32", "bfloat16"):
+        model = NeRFModel(compute_dtype=cdt,
+                          generator=torch.Generator().manual_seed(7)).to(dev)
+        fr = FusedNerfRender(model, 2.0, 6.0, normalize=True)
+        with torch.no_grad():
+            packed = fr.pack(model)
+        weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
+                        + packed.vec.numel() * 4)
+        grad_bytes = (packed.wmat.numel() + packed.vec.numel()) * 4
+        for s in (64, 192, 256):
+            g = torch.Generator(device=dev).manual_seed(2000 + s)
+            cam = torch.nn.functional.normalize(
+                torch.randn(R_TRAIN, 3, generator=g, device=dev), dim=-1) * 4.0
+            look = torch.randn(R_TRAIN, 3, generator=g, device=dev) * 0.3 - cam
+            rd = torch.nn.functional.normalize(look, dim=-1)
+            t = torch.sort(2.0 + 4.0 * torch.rand(R_TRAIN, s, generator=g,
+                                                  device=dev), dim=-1).values
+            tgt = torch.rand(R_TRAIN, 3, generator=g, device=dev)
+            o_aff, d_aff = fr.affine(cam, rd)
+            with torch.no_grad():
+                ref = fused_train_plain(packed, o_aff, d_aff, rd, t, tgt, True, 10, 4)
+                got = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+                torch.cuda.synchronize()
+                errs = {"loss": float(abs(got[0] - ref[0]) / abs(ref[0]))}
+                for i, k in ((1, "rgb"), (2, "acc"), (3, "weights")):
+                    if not torch.isfinite(got[i]).all():
+                        fail(f"train kernel {cdt} S={s}: non-finite {k}")
+                    errs[k] = float((got[i] - ref[i]).abs().max())
+                gerr = grad_errors(torch, got[4], ref[4])
+                # the MSE head's cotangent, for the backward kernel
+                scale = 1.0 / (3.0 * R_TRAIN)
+                err = ref[1] + (1.0 - ref[2])[:, None] - tgt
+                g_ray = torch.zeros(R_TRAIN, 8, device=dev)
+                g_ray[:, :3] = 2.0 * scale * err
+                g_ray[:, 3] = -g_ray[:, :3].sum(-1)
+                ref_b = fused_render_bwd_plain(packed, o_aff, d_aff, rd, t, g_ray,
+                                               10, 4)
+                got_b = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+                torch.cuda.synchronize()
+                berr = grad_errors(torch, got_b, ref_b)
+                cross = grad_errors(torch, got_b, got[4])
+                del ref, got, ref_b, got_b
+                torch.cuda.empty_cache()
+                fns = {
+                    ("fused_render_train", "plain"): lambda: fused_train_plain(
+                        packed, o_aff, d_aff, rd, t, tgt, True, 10, 4),
+                    ("fused_render_train", "kernel"): lambda: fr._train(
+                        packed, o_aff, d_aff, rd, t, tgt, True),
+                    ("fused_render_bwd", "plain"): lambda: fused_render_bwd_plain(
+                        packed, o_aff, d_aff, rd, t, g_ray, 10, 4),
+                    ("fused_render_bwd", "kernel"): lambda: fr._backward(
+                        packed, o_aff, d_aff, rd, t, g_ray),
+                }
+                times = {k: [] for k in fns}
+                for f in fns.values():
+                    f()                                # warm-up
+                for name in ("fused_render_train", "fused_render_bwd"):
+                    for which in ("plain", "kernel", "kernel", "plain"):
+                        times[(name, which)] += time_calls(torch, fns[(name, which)], 2)
+                torch.cuda.empty_cache()
+            tol = TOL[cdt]
+            bad = {k: v for k, v in errs.items() if v > tol["rgb"]}
+            for label, e in (("train", gerr), ("bwd", berr), ("bwd vs train", cross)):
+                worst = max(e, key=e.get)
+                say(f"kernel {label} {cdt} R={R_TRAIN} S={s}: gradient error "
+                    f"(max abs over max |g|) worst {worst}={e[worst]:.3e} "
+                    f"(tol {GRAD_TOL[cdt]:.0e}), median "
+                    f"{statistics.median(e.values()):.3e}; "
+                    + " ".join(f"{k}={v:.1e}" for k, v in e.items()))
+                bad.update({f"{label}:{k}": v for k, v in e.items()
+                            if v > GRAD_TOL[cdt]})
+            say(f"kernel train {cdt} R={R_TRAIN} S={s}: "
+                + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+                + f" (tol {tol['rgb']:.0e})")
+            for name in ("fused_render_train", "fused_render_bwd"):
+                ms = statistics.median(times[(name, "kernel")])
+                plain_ms = statistics.median(times[(name, "plain")])
+                bms, by = grad_bound_ms(R_TRAIN, s, cdt, weight_bytes, grad_bytes,
+                                        name == "fused_render_train")
+                say(f"kernel {name} {cdt} R={R_TRAIN} S={s}: kernel {ms:.3f} ms, "
+                    f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), "
+                    f"share of bound {bms / ms:.4f}")
+                e = gerr if name == "fused_render_train" else berr
+                worst = max(list(e.values()) + (list(errs.values())
+                                                if name == "fused_render_train" else []))
+                results[(name, cdt, s)] = dict(err=worst, ms=ms, plain_ms=plain_ms,
+                                               bound_ms=bms, bound_by=by)
+            if bad:
+                fail(f"train/backward kernels {cdt} S={s} disagree: {bad}")
+    return results
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def read_scalars(log_dir: str) -> dict:
+    """{tag: {step: value}} from the train.log of the one run under
+    ``log_dir``."""
+    runs = os.listdir(log_dir)
+    if len(runs) != 1:
+        fail(f"{log_dir}: expected one run directory, found {runs}")
+    out: dict = {}
+    with open(os.path.join(log_dir, runs[0], "train.log")) as f:
+        for line in f:
+            if line.startswith("scalar "):
+                _, tag, step, value = line.split()
+                out.setdefault(tag, {})[int(step)] = float(value)
+    return out
+
+
+def train(torch, dev, tmp: str) -> dict:
+    import dataclasses
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.data.pipeline import load_scene
+    from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
+    from nerf_tpu_torch.render.renderer import render_rays
+    from nerf_tpu_torch.train.loop import fit, render_settings_from_config
+    from nerf_tpu_torch.train.state import create_train_state
+    from nerf_tpu_torch.utils.checkpoint import load_checkpoint, restore_train_state
+
+    cfg = parse_config_file(os.path.join(ROOT, "configs", "lego.txt"))
+    cfg = dataclasses.replace(
+        cfg, dataset_path=os.path.join(tmp, "scene"), num_iters=200,
+        log_interval=10, val_interval=100, save_interval=100,
+        save_path=os.path.join(tmp, "train_models"),
+        log_dir=os.path.join(tmp, "train_logs"))
+    lines: list = []
+    FusedNerfRender.launches = FusedNerfRender.train_launches = 0
+    FusedNerfRender.bwd_launches = 0        # the main path's counts start here
+    t0 = time.perf_counter()
+    state = fit(cfg, device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (FusedNerfRender.train_launches, FusedNerfRender.launches,
+              FusedNerfRender.bwd_launches)
+    say(f"train: fit lego.txt 200 iterations in {wall:.1f} s; launches: "
+        f"train {counts[0]}, forward {counts[1]}, backward {counts[2]}")
+    for line in lines:
+        if "[Iter" in line or "Validation" in line:
+            say(f"  {line}")
+    want = (2 * cfg.num_iters, 2 * math.ceil(HW * HW / cfg.chunk_size), 0)
+    if counts != want:
+        fail(f"fit launched (train, forward, backward) {counts}, want {want}")
+    scal = read_scalars(cfg.log_dir)
+    loss = scal["loss"]
+    if sorted(loss) != list(range(0, 200, 10)):
+        fail(f"logged iterations {sorted(loss)}")
+    if not all(math.isfinite(v) for v in loss.values()):
+        fail(f"non-finite logged loss {loss}")
+    if not loss[190] < 0.5 * loss[0]:
+        fail(f"mse at 190 ({loss[190]}) is not under half of that at 0 ({loss[0]})")
+    for step in (100, 200):
+        path = os.path.join(cfg.save_path, f"nerf_model_{step:06d}")
+        if not (os.path.exists(path) and os.path.exists(path + ".meta.json")):
+            fail(f"missing checkpoint {path}")
+    lego_rps = scal["rays_per_sec"][190]
+    say(f"train: mse {loss[0]:.6f} at 0 -> {loss[190]:.6f} at 190; lego.txt "
+        f"step {lego_rps:.0f} rays/s ({cfg.num_random_rays} rays, "
+        f"{cfg.num_samples}+{cfg.num_fine_samples} samples, {cfg.compute_dtype})")
+
+    # resume: the restore is exact, and every resumed step repeats the
+    # first run's mse at the same state.step (the loop restarts at the
+    # saved iteration while state.step is one ahead)
+    ckpt = os.path.join(cfg.save_path, "nerf_model_000100")
+    saved = load_checkpoint(ckpt)
+    probe = create_train_state(cfg, device=dev)
+    restore_train_state(probe, ckpt)
+    same = probe.step == saved["train_step"] == 101
+    for m, sd in ((probe.params, saved["params"]), (probe.fine_params, saved["fine_params"])):
+        same &= all(torch.equal(v.cpu(), sd[k]) for k, v in m.state_dict().items())
+    for mine, theirs in ((probe.optimizer.mu, saved["optimizer"]["mu"]),
+                         (probe.optimizer.nu, saved["optimizer"]["nu"])):
+        same &= all(torch.equal(a.cpu(), b) for a, b in zip(mine, theirs))
+    if not same:
+        fail("the restored step, parameters or Adam moments differ from the save")
+    del probe
+    cfg2 = dataclasses.replace(cfg, num_iters=120, log_interval=1,
+                               save_path=os.path.join(tmp, "resume_models"),
+                               log_dir=os.path.join(tmp, "resume_logs"))
+    lines2: list = []
+    resumed = fit(cfg2, resume_path=ckpt, device=dev, log=lines2.append)
+    loss2 = read_scalars(cfg2.log_dir)["loss"]
+    pairs = [(i, i + 1) for i in sorted(loss2) if i + 1 in loss]
+    if resumed.step != 121 or len(pairs) != 2:
+        fail(f"resume: state.step {resumed.step}, comparable steps {pairs}")
+    for i, j in pairs:
+        say(f"train: resumed iteration {i} (state.step {i + 2}) mse "
+            f"{loss2[i]!r}, first run iteration {j} mse {loss[j]!r}")
+        if loss2[i] != loss[j]:
+            fail("the resumed run does not repeat the first run bit for bit")
+    del resumed
+
+    # the render route: render_rays through the forward kernel, the loss,
+    # and its backward under autograd (the backward kernel), then Adam
+    scene = load_scene(cfg, device=dev)
+    settings = render_settings_from_config(cfg)
+    fr = FusedNerfRender(state.params, cfg.near, cfg.far)
+    FusedNerfRender.launches = FusedNerfRender.train_launches = 0
+    FusedNerfRender.bwd_launches = 0        # this path's counts start here
+    mses = []
+    for i in range(3):
+        g = torch.Generator(device=dev).manual_seed(cfg.seed + i)
+        batch = scene.pool.sample(g, cfg.num_random_rays)
+        for m in state.models():
+            m.zero_grad(set_to_none=True)
+        out = render_rays(state.params, batch.rays_o, batch.rays_d, settings,
+                          generator=g, fine_params=state.fine_params,
+                          viewdirs=batch.viewdirs, fused_render=fr)
+        mse = torch.mean((out.rgb - batch.rgb) ** 2)
+        (mse + torch.mean((out.rgb_coarse - batch.rgb) ** 2)).backward()
+        state.optimizer.step()
+        mses.append(float(mse.detach()))
+    counts = (FusedNerfRender.train_launches, FusedNerfRender.launches,
+              FusedNerfRender.bwd_launches)
+    say(f"train: render route 3 steps, mse {mses}; launches: train {counts[0]}, "
+        f"forward {counts[1]}, backward {counts[2]}")
+    if counts != (0, 6, 6) or not all(math.isfinite(v) for v in mses):
+        fail(f"render route launched {counts}, want (0, 6, 6)")
+    profile_step(torch, state, scene.pool, settings, cfg)
+    return {"train_launches": 2 * cfg.num_iters, "bwd_launches": counts[2],
+            "lego_rps": lego_rps}
+
+
+def profile_step(torch, state, pool, settings, cfg) -> None:
+    """One lego.txt train step under torch.profiler."""
+    from nerf_tpu_torch.train.step import make_train_step
+
+    step = make_train_step(state.params, settings, cfg.num_random_rays, cfg.seed)
+    step(state, pool)
+    profile_device(torch, lambda: step(state, pool), "fused_render_grad",
+                   "one lego.txt train step")
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def bench_headline(torch, dev) -> float:
+    """bench.py's headline: flat NeRF, bf16, 1024 rays x 256 samples per
+    ray (per-ray jitter), white background, a 1<<20 synthetic pool made on
+    the card, 5 warm-up steps, then 30 chained steps timed to a scalar
+    fetched on the host."""
+    from nerf_tpu_torch.config import Config
+    from nerf_tpu_torch.data.pipeline import RayPool
+    from nerf_tpu_torch.models.nerf import NeRFModel
+    from nerf_tpu_torch.render.renderer import RenderSettings
+    from nerf_tpu_torch.train.optim import make_optimizer
+    from nerf_tpu_torch.train.state import TrainState
+    from nerf_tpu_torch.train.step import make_train_step
+
+    model = NeRFModel(compute_dtype="bfloat16",
+                      generator=torch.Generator().manual_seed(0)).to(dev)
+    state = TrainState(step=0, params=model, fine_params=None,
+                       optimizer=make_optimizer(Config(), list(model.parameters())))
+    g = torch.Generator(device=dev).manual_seed(1)
+    n = 1 << 20
+    rays_d = torch.nn.functional.normalize(
+        torch.randn(n, 3, generator=g, device=dev), dim=-1)
+    pool = RayPool(rays_o=torch.randn(n, 3, generator=g, device=dev) * 0.1,
+                   rays_d=rays_d, rgb=torch.rand(n, 3, generator=g, device=dev),
+                   viewdirs=rays_d)
+    settings = RenderSettings(near=2.0, far=6.0, num_samples=256,
+                              white_background=True, jitter_mode="per_ray")
+    step = make_train_step(model, settings, 1024, seed=2)
+    for _ in range(5):
+        m = step(state, pool)
+    float(m["loss"])
+    t0 = time.perf_counter()
+    for _ in range(30):
+        m = step(state, pool)
+    loss = float(m["loss"])
+    dt = time.perf_counter() - t0
+    if not math.isfinite(loss):
+        fail("headline protocol: non-finite loss")
+    rps = 30 * 1024 / dt
+    say(f"bench headline (bench.py protocol, flat NeRF bf16 1024x256): "
+        f"{rps:.0f} rays/s, {dt / 30 * 1e3:.2f} ms per step")
+    return rps
 
 
 def main() -> int:
@@ -372,16 +739,22 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    info = fused_render.build()
-    say(f"build: fused_render_fwd in {time.perf_counter() - t0:.1f} s -> "
-        f"{os.path.relpath(info.path, ROOT)}")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            say(f"  ptxas: {line.strip()}")
+    infos = fused_render.build()
+    say(f"build: {len(infos)} libraries in {time.perf_counter() - t0:.1f} s "
+        "(one nvcc per source, in parallel)")
+    for info in infos:
+        say(f"build: {info.name} {info.seconds:.1f} s -> "
+            f"{os.path.relpath(info.path, ROOT)}")
+        for line in info.log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                say(f"  ptxas: {line.strip()}")
 
     checks = check_kernel(torch, dev)
+    grad_checks = check_grad_kernels(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = serve(torch, dev, tmp)
+        trained = train(torch, dev, tmp)
+    bench_headline(torch, dev)
 
     main_shape = checks[("bfloat16", 192)]
     kernels = [{
@@ -397,6 +770,24 @@ def main() -> int:
         "bound_by": main_shape["bound_by"],
         "library_ms": None,
     }]
+    for name, line, launched in (
+            ("fused_render_train", 315, trained["train_launches"]),
+            ("fused_render_bwd", 242, trained["bwd_launches"])):
+        c = grad_checks[(name, "bfloat16", 192)]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "nerf_tpu_torch/csrc/fused_render_train.cu",
+            "replaces": f"nerf_tpu/ops/pallas/fused_render.py:{line}",
+            "launches": launched,
+            "max_abs_err": max(v["err"] for k, v in grad_checks.items()
+                               if k[0] == name),
+            "ms": c["ms"],
+            "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"],
+            "library_ms": None,
+        })
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")
     say(json.dumps({"ok": True, "device": {

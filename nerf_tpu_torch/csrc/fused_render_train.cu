@@ -1,0 +1,534 @@
+// Fused NeRF train pass and render backward for Hopper (sm_90a).
+//
+// Replaces two TPU kernels of nerf_tpu/ops/pallas/fused_render.py:
+//   * _train_kernel (FusedNerfRender.train): forward, white-background MSE
+//     (loss partial and its analytic per-ray cotangent, _mse_cotangent),
+//     the backward through compositing (_composite_bwd) and the MLP
+//     backward (fused_nerf.py::_mlp_bwd_core without input gradients),
+//     one pass over the rays;
+//   * _bwd_kernel (the custom VJP of FusedNerfRender.__call__): the same,
+//     with the per-ray cotangent [g_rgb, g_acc, g_depth] given instead of
+//     the MSE head, and the depth cotangent reaching dL/dw as g_depth * t.
+// Both give the 28 float32 weight gradients of the packed layout
+// (fused_render_common.cuh), the train pass also the loss, rgb, acc and the
+// compositing weights. One template body, two entry points.
+//
+// What bounds it on this card: operations. A sample costs the forward's
+// 658,944 MACs plus twice that for the backward, less the three products
+// the TPU kernel also skips (dz1 w1^T, dz6 w6p^T, dzr0 wr0d^T): about 1.95M
+// MACs. float32 mode runs on the CUDA cores (67 TFLOP/s); bfloat16 mode
+// rounds at the TPU kernel's points and sums in float32, also on the CUDA
+// cores in this first version (its bound is the tensor cores' 989 TFLOP/s).
+//
+// Design. The TPU kernel keeps a whole-ray tile's activations in VMEM and
+// adds into one gradient block across a grid that runs in order. Neither
+// holds here: a 64-point chunk's eleven activations are ~700 KB against
+// 227 KB of shared memory, a ray of 192 samples spans several chunks whose
+// cotangent needs the whole ray first, and CTAs run in no order.
+//   1. Forward (as fused_render_fwd.cu, chunk by chunk over the CTA's whole
+//      rays) that also stashes every activation, point-major, in a per-CTA
+//      scratch area in device memory (~13 KB per point; L2 and HBM). No
+//      forward is recomputed: three forward-equivalents of work, as on the
+//      TPU.
+//   2. One thread per ray: transmittance, weights and ray sums, the
+//      cotangent (MSE head or the given one), then the compositing
+//      backward in reverse sample order (the suffix sum of g_w * w).
+//   3. The MLP backward layer by layer over all of the CTA's points: each
+//      dz (points x 256, float32, unrounded) is computed chunk by chunk
+//      into the next scratch buffer (dz W^T on the same register-tiled
+//      gemm as the forward, against transposed weights), and each weight
+//      gradient is one product A^T dz over all the CTA's points with its
+//      64 x 256 output strip in registers, so every gradient element is
+//      written once per CTA. Bias and w10s gradients are column sums.
+//   4. A second small kernel adds the per-CTA partials (and loss terms) in
+//      CTA order. Nothing is atomic, so a step is deterministic from run to
+//      run.
+// Rounding in bfloat16 mode follows _mlp_bwd_core: both operands of every
+// dW product and the dz of every dz W^T are rounded to bf16, sums are
+// float32, the bias, w10s and b10s gradients are float32 sums of the
+// unrounded values, and h9, sigma_pre and the rgb sigmoid are read in
+// float32.
+//
+// Built by nerf_tpu_torch/ops/cuda/fused_render.py with nvcc into a shared
+// library with a plain C interface (loaded by ctypes).
+
+#include "fused_render_common.cuh"
+
+namespace {
+
+using namespace nerf;
+
+constexpr int LDZ = H;                           // row stride of dz buffers
+constexpr int N_TOT = N_W + N_B;                 // gradient floats
+constexpr int NPART = (N_TOT + 1 + 3) / 4 * 4;   // per-CTA: gradients, loss
+// per-point columns of the stash
+constexpr int C_SIGP = 0, C_RGB = 1, C_T = 4, C_ONEM = 5, C_W = 6,
+              C_DZR1 = 7, C_DSIG = 10, N_COLS = 12;
+constexpr int FLOATS_PER_POINT = 9 * H + H + HR + PP + PP + 2 * LDZ + N_COLS;
+static_assert(FLOATS_PER_POINT % 4 == 0, "stash rows must stay 16-byte aligned");
+// dW staging (in the second activation buffer): 2 x KT x 64 + 2 x KT x 256
+static_assert(2 * KT * 64 + 2 * KT * H <= H * LDA, "dW stage does not fit");
+
+struct Scratch {
+  Stash st;
+  float* dz[2];
+  float* cols;            // N_COLS x cap
+};
+
+__device__ Scratch carve(float* p, int cap) {
+  Scratch s;
+  const size_t c = static_cast<size_t>(cap);
+  for (int i = 0; i < 9; ++i) { s.st.h[i] = p; p += c * H; }
+  s.st.feat = p; p += c * H;
+  s.st.y = p; p += c * HR;
+  s.st.penc = p; p += c * PP;
+  s.st.denc = p; p += c * PP;
+  s.dz[0] = p; p += c * LDZ;
+  s.dz[1] = p; p += c * LDZ;
+  s.cols = p;
+  s.st.sigma_pre = p + C_SIGP * c;
+  s.st.rgb = p + C_RGB * c;
+  s.st.cap = cap;
+  return s;
+}
+
+// out[l][col] = (sum_n dz[l][n] W[col][n] (+ dsig[l] w10s[col])), zeroed
+// where mref[l][col] <= 0 when MASK, for the CTA's points l < cap_c, chunk
+// by chunk. `wT` is W transposed: K rows of 256.
+template <int K, bool BF16, bool MASK, bool DH9, typename WT>
+__device__ void dact(const float* dz, const WT* __restrict__ wT,
+                     const float* mref, int ldm, const float* dsig,
+                     const float* __restrict__ w10s, float* out, int cap_c,
+                     float* smem) {
+  float* in_s = smem + SM_ACT0;
+  WT* wst = reinterpret_cast<WT*>(smem + SM_WST);
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
+  constexpr int K4 = K / 4;
+  for (int l0 = 0; l0 < cap_c; l0 += P) {
+    for (int idx = tid; idx < P * K4; idx += THREADS) {
+      const int p = idx / K4, n4 = idx % K4;
+      float4 v = *reinterpret_cast<const float4*>(
+          dz + static_cast<size_t>(l0 + p) * LDZ + n4 * 4);
+      if (BF16) {
+        v.x = round_bf16(v.x); v.y = round_bf16(v.y);
+        v.z = round_bf16(v.z); v.w = round_bf16(v.w);
+      }
+      in_s[(n4 * 4 + 0) * LDA + p] = v.x;
+      in_s[(n4 * 4 + 1) * LDA + p] = v.y;
+      in_s[(n4 * 4 + 2) * LDA + p] = v.z;
+      in_s[(n4 * 4 + 3) * LDA + p] = v.w;
+    }
+    float acc[8][8];
+    zero<2>(acc);
+    gemm_acc<K, 2>(acc, in_s, wT, wst);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int col = q * 128 + tx * 4;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const size_t row = static_cast<size_t>(l0 + ty * 8 + i);
+        float v[4] = {acc[i][q * 4], acc[i][q * 4 + 1], acc[i][q * 4 + 2],
+                      acc[i][q * 4 + 3]};
+        if (DH9) {
+          const float ds = dsig[row];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) v[u] = v[u] + ds * __ldg(w10s + col + u);
+        }
+        if (MASK) {
+          const float4 m = *reinterpret_cast<const float4*>(mref + row * ldm + col);
+          v[0] = m.x > 0.f ? v[0] : 0.f;
+          v[1] = m.y > 0.f ? v[1] : 0.f;
+          v[2] = m.z > 0.f ? v[2] : 0.f;
+          v[3] = m.w > 0.f ? v[3] : 0.f;
+        }
+        *reinterpret_cast<float4*>(out + row * LDZ + col) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+}
+
+// Stage KT points of an A strip (64 columns from m0) and of B (NN columns).
+template <int NQ>
+__device__ __forceinline__ void stage_dw(const float* A, int lda, int m0,
+                                         const float* B, int kt, float* as,
+                                         float* bs) {
+  constexpr int NN = 128 * NQ;
+  const int tid = threadIdx.x;
+  {
+    const int row = tid >> 4, c4 = (tid & 15) * 4;
+    cp_async16(as + row * 64 + c4,
+               A + static_cast<size_t>(kt * KT + row) * lda + m0 + c4);
+  }
+#pragma unroll
+  for (int c = 0; c < 2 * NQ; ++c) {
+    const int e = c * THREADS + tid;
+    const int row = e / (32 * NQ), c4 = (e % (32 * NQ)) * 4;
+    cp_async16(bs + row * NN + c4, B + static_cast<size_t>(kt * KT + row) * LDZ + c4);
+  }
+  cp_async_commit();
+}
+
+// part[m][n] = sum_l A[l][m] B[l][n] for m < mrows, n < 128*NQ, over the
+// CTA's points l < cap_c, in 64-row strips of A (width M, stride lda); B
+// has stride LDZ. RA/RB round the operand to bf16 as it is read.
+template <int NQ, bool RA, bool RB>
+__device__ void dweight(const float* A, int lda, int M, int mrows,
+                        const float* B, int cap_c, float* part, float* smem) {
+  constexpr int NN = 128 * NQ;
+  float* As = smem + SM_ACT1;             // 2 x KT x 64
+  float* Bs = As + 2 * KT * 64;           // 2 x KT x NN
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
+  const int nt = cap_c / KT;
+  for (int m0 = 0; m0 < M; m0 += 64) {
+    float acc[8][4 * NQ];
+    zero<NQ>(acc);
+    stage_dw<NQ>(A, lda, m0, B, 0, As, Bs);
+    for (int kt = 0; kt < nt; ++kt) {
+      if (kt + 1 < nt) {
+        const int nb = (kt + 1) & 1;
+        stage_dw<NQ>(A, lda, m0, B, kt + 1, As + nb * KT * 64, Bs + nb * KT * NN);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* as = As + (kt & 1) * KT * 64 + ty * 8;
+      const float* bs = Bs + (kt & 1) * KT * NN + tx * 4;
+#pragma unroll
+      for (int k = 0; k < KT; ++k) {
+        const float4 a0 = *reinterpret_cast<const float4*>(as + k * 64);
+        const float4 a1 = *reinterpret_cast<const float4*>(as + k * 64 + 4);
+        float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        float b[4 * NQ];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const float4 bv = *reinterpret_cast<const float4*>(bs + k * NN + q * 128);
+          b[4 * q] = bv.x; b[4 * q + 1] = bv.y; b[4 * q + 2] = bv.z; b[4 * q + 3] = bv.w;
+        }
+        if (RA) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) a[i] = round_bf16(a[i]);
+        }
+        if (RB) {
+#pragma unroll
+          for (int j = 0; j < 4 * NQ; ++j) b[j] = round_bf16(b[j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + ty * 8 + i;
+      if (m >= mrows) continue;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        *reinterpret_cast<float4*>(part + static_cast<size_t>(m) * NN + q * 128 + tx * 4) =
+            make_float4(acc[i][q * 4], acc[i][q * 4 + 1], acc[i][q * 4 + 2],
+                        acc[i][q * 4 + 3]);
+      }
+    }
+  }
+}
+
+// out[c] = sum over the CTA's points of B[l][c], for c < n (in point order).
+__device__ void colsum(const float* B, int n, int cap_c, float* out) {
+  for (int c = threadIdx.x; c < n; c += THREADS) {
+    float s = 0.f;
+    for (int l = 0; l < cap_c; ++l) s += B[static_cast<size_t>(l) * LDZ + c];
+    out[c] = s;
+  }
+}
+
+// One hidden layer of the backward: from cur = dz_L, the next dz
+// (dz_L W_L^T masked by h_prev > 0) into nxt, dW_L = h_prev^T dz_L and
+// db_L = sum dz_L.
+template <bool BF16, typename WT>
+__device__ void back_layer(const float* cur, const WT* __restrict__ wT,
+                           const float* h_prev, float* nxt, float* part_w,
+                           float* part_b, int cap_c, float* smem) {
+  if (nxt != nullptr)
+    dact<H, BF16, true, false>(cur, wT, h_prev, H, nullptr, nullptr, nxt, cap_c, smem);
+  dweight<2, false, BF16>(h_prev, H, H, H, cur, cap_c, part_w, smem);
+  colsum(cur, H, cap_c, part_b);
+  __syncthreads();
+}
+
+template <bool BF16, bool TRAIN, typename WT>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_render_grad_kernel(RayInputs in, const WT* __restrict__ wmat,
+                         const WT* __restrict__ wmat_t,
+                         const float* __restrict__ given, float white_bg,
+                         float scale, int rays_per_cta, int cap,
+                         float* __restrict__ scratch, float* __restrict__ partial,
+                         float* __restrict__ rgb_out, float* __restrict__ acc_out,
+                         float* __restrict__ weights_out) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int S = in.S;
+  const int ray0 = blockIdx.x * rays_per_cta;
+  const int ray1 = min(ray0 + rays_per_cta, in.num_rays);
+  if (ray0 >= ray1) return;
+  const int nr = ray1 - ray0;
+  const int npts = nr * S;
+  const int cap_c = (npts + P - 1) / P * P;
+  const size_t cz = static_cast<size_t>(cap);
+  Scratch sc = carve(scratch + static_cast<size_t>(blockIdx.x) * cz * FLOATS_PER_POINT, cap);
+  float* part = partial + static_cast<size_t>(blockIdx.x) * NPART;
+  float* cols = sc.cols;
+  const float* vec = in.vec;
+
+  // ---- 1. forward, stashing every activation ----
+  for (int c0 = 0; c0 < npts; c0 += P)
+    forward_chunk<BF16, true>(in, wmat, ray0 * S + c0, min(P, npts - c0), smem,
+                              sc.st, static_cast<size_t>(c0));
+
+  // ---- 2. compositing, cotangent, compositing backward (thread per ray) ----
+  float* lossr = smem + SM_ACT1;
+  for (int r = tid; r < nr; r += THREADS) {
+    const int ray = ray0 + r;
+    const size_t lb = static_cast<size_t>(r) * S;
+    float T = 1.f, s0 = 0.f, s1 = 0.f, s2 = 0.f, sa = 0.f, sd = 0.f;
+    for (int i = 0; i < S; ++i) {
+      const size_t l = lb + i;
+      const int g = ray * S + i;
+      const float sigma = fmaxf(cols[C_SIGP * cz + l], 0.f);
+      const float tv = in.t[g];
+      const float delta = (i == S - 1) ? 1e10f : __fsub_rn(in.t[g + 1], tv);
+      const float one_m = expf(-sigma * delta);
+      const float w = T * (1.f - one_m);
+      cols[C_T * cz + l] = T;
+      cols[C_ONEM * cz + l] = one_m;
+      cols[C_W * cz + l] = w;
+      if (TRAIN) weights_out[g] = w;
+      s0 = fmaf(w, cols[(C_RGB + 0) * cz + l], s0);
+      s1 = fmaf(w, cols[(C_RGB + 1) * cz + l], s1);
+      s2 = fmaf(w, cols[(C_RGB + 2) * cz + l], s2);
+      sa += w;
+      sd = fmaf(w, tv, sd);
+      T *= one_m;
+    }
+    float g0, g1, g2, ga, gd;
+    if (TRAIN) {
+      rgb_out[ray * 3 + 0] = s0;
+      rgb_out[ray * 3 + 1] = s1;
+      rgb_out[ray * 3 + 2] = s2;
+      acc_out[ray] = sa;
+      const float bg = white_bg * (1.f - sa);
+      const float e0 = (s0 + bg) - given[ray * 3 + 0];
+      const float e1 = (s1 + bg) - given[ray * 3 + 1];
+      const float e2 = (s2 + bg) - given[ray * 3 + 2];
+      lossr[r] = e0 * e0 + e1 * e1 + e2 * e2;
+      g0 = (2.f * scale) * e0;
+      g1 = (2.f * scale) * e1;
+      g2 = (2.f * scale) * e2;
+      ga = -white_bg * (g0 + g1 + g2);
+      gd = 0.f;
+    } else {
+      g0 = given[ray * 8 + 0];
+      g1 = given[ray * 8 + 1];
+      g2 = given[ray * 8 + 2];
+      ga = given[ray * 8 + 3];
+      gd = given[ray * 8 + 4];
+    }
+    float suffix = 0.f;
+    for (int i = S - 1; i >= 0; --i) {
+      const size_t l = lb + i;
+      const int g = ray * S + i;
+      const float tv = in.t[g];
+      const float delta = (i == S - 1) ? 1e10f : __fsub_rn(in.t[g + 1], tv);
+      const float w = cols[C_W * cz + l];
+      const float r0 = cols[(C_RGB + 0) * cz + l];
+      const float r1 = cols[(C_RGB + 1) * cz + l];
+      const float r2 = cols[(C_RGB + 2) * cz + l];
+      const float gw = g0 * r0 + g1 * r1 + g2 * r2 + ga + gd * tv;
+      const float gsig = (gw * cols[C_T * cz + l] * cols[C_ONEM * cz + l] - suffix) * delta;
+      suffix += gw * w;
+      cols[C_DSIG * cz + l] = cols[C_SIGP * cz + l] > 0.f ? gsig : 0.f;
+      cols[(C_DZR1 + 0) * cz + l] = (g0 * w * r0) * (1.f - r0);
+      cols[(C_DZR1 + 1) * cz + l] = (g1 * w * r1) * (1.f - r1);
+      cols[(C_DZR1 + 2) * cz + l] = (g2 * w * r2) * (1.f - r2);
+    }
+  }
+  for (int l = npts + tid; l < cap_c; l += THREADS) {
+    cols[C_DSIG * cz + l] = 0.f;
+    for (int c = 0; c < 3; ++c) cols[(C_DZR1 + c) * cz + l] = 0.f;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.f;
+    if (TRAIN)
+      for (int r = 0; r < nr; ++r) s += lossr[r];
+    part[N_TOT] = scale * s;
+  }
+
+  // ---- 3. MLP backward, layer by layer over the CTA's points ----
+  const float* dsig = cols + C_DSIG * cz;
+  const float* h9 = sc.st.h[8];
+  float* dzA = sc.dz[0];
+  float* dzB = sc.dz[1];
+  float* pvec = part + N_W;
+  // rgb output layer: dy = dzr1 wr1^T (3 live columns), dzr0 = dy * (y > 0)
+  for (int idx = tid; idx < cap_c * HR; idx += THREADS) {
+    const int l = idx / HR, k = idx % HR;
+    float dy = 0.f;
+    for (int c = 0; c < 3; ++c) {
+      float d = cols[(C_DZR1 + c) * cz + l];
+      if (BF16) d = round_bf16(d);
+      dy = fmaf(d, load1(wmat + OFF_WR1 + k * 8 + c), dy);
+    }
+    dzA[static_cast<size_t>(l) * LDZ + k] =
+        sc.st.y[static_cast<size_t>(l) * HR + k] > 0.f ? dy : 0.f;
+  }
+  for (int o = tid; o < HR * 8; o += THREADS) {
+    const int k = o / 8, c = o % 8;
+    float s = 0.f;
+    if (c < 3) {
+      for (int l = 0; l < cap_c; ++l) {
+        float d = cols[(C_DZR1 + c) * cz + l];
+        if (BF16) d = round_bf16(d);
+        s = fmaf(sc.st.y[static_cast<size_t>(l) * HR + k], d, s);
+      }
+    }
+    part[OFF_WR1 + o] = s;
+  }
+  for (int c = tid; c < 8; c += THREADS) {
+    float s = 0.f;
+    if (c < 3)
+      for (int l = 0; l < cap_c; ++l) s += cols[(C_DZR1 + c) * cz + l];
+    pvec[OFF_BR1 + c] = s;
+  }
+  if (tid == 0) {
+    float s = 0.f;
+    for (int l = 0; l < cap_c; ++l) s += dsig[l];
+    pvec[OFF_B10S] = s;
+  }
+  for (int k = tid; k < H; k += THREADS) {
+    float s = 0.f;
+    for (int l = 0; l < cap_c; ++l)
+      s = fmaf(h9[static_cast<size_t>(l) * H + k], dsig[l], s);
+    pvec[OFF_W10S + k] = s;
+  }
+  __syncthreads();
+  // rgb hidden layer: dfeat = dzr0 wr0f^T; wr0f, wr0d, br0
+  dact<HR, BF16, false, false>(dzA, wmat_t + OFF_WR0F, nullptr, 0, nullptr,
+                               nullptr, dzB, cap_c, smem);
+  dweight<1, false, BF16>(sc.st.feat, H, H, H, dzA, cap_c, part + OFF_WR0F, smem);
+  dweight<1, false, BF16>(sc.st.denc, PP, PP, DP, dzA, cap_c, part + OFF_WR0D, smem);
+  colsum(dzA, HR, cap_c, pvec + OFF_BR0);
+  __syncthreads();
+  // feature head: dz9 = (dfeat w10f^T + dsig w10s) * (h9 > 0); w10f, b10f
+  dact<H, BF16, true, true>(dzB, wmat_t + OFF_W10F, h9, H, dsig, vec + OFF_W10S,
+                            dzA, cap_c, smem);
+  dweight<2, BF16, BF16>(h9, H, H, H, dzB, cap_c, part + OFF_W10F, smem);
+  colsum(dzB, H, cap_c, pvec + OFF_B10F);
+  __syncthreads();
+  // block2 and block1
+  back_layer<BF16>(dzA, wmat_t + OFF_W9, sc.st.h[7], dzB, part + OFF_W9, pvec + 8 * H, cap_c, smem);
+  back_layer<BF16>(dzB, wmat_t + OFF_W8, sc.st.h[6], dzA, part + OFF_W8, pvec + 7 * H, cap_c, smem);
+  back_layer<BF16>(dzA, wmat_t + OFF_W7, sc.st.h[5], dzB, part + OFF_W7, pvec + 6 * H, cap_c, smem);
+  // the skip layer: dz5 from w6h; w6h from h5, w6p from the position encoding
+  dweight<2, false, BF16>(sc.st.penc, PP, PP, PP, dzB, cap_c, part + OFF_W6P, smem);
+  back_layer<BF16>(dzB, wmat_t + OFF_W6H, sc.st.h[4], dzA, part + OFF_W6H, pvec + 5 * H, cap_c, smem);
+  back_layer<BF16>(dzA, wmat_t + OFF_W5, sc.st.h[3], dzB, part + OFF_W5, pvec + 4 * H, cap_c, smem);
+  back_layer<BF16>(dzB, wmat_t + OFF_W4, sc.st.h[2], dzA, part + OFF_W4, pvec + 3 * H, cap_c, smem);
+  back_layer<BF16>(dzA, wmat_t + OFF_W3, sc.st.h[1], dzB, part + OFF_W3, pvec + 2 * H, cap_c, smem);
+  back_layer<BF16>(dzB, wmat_t + OFF_W2, sc.st.h[0], dzA, part + OFF_W2, pvec + 1 * H, cap_c, smem);
+  // first layer: w1 from the position encoding, no input gradient
+  dweight<2, false, BF16>(sc.st.penc, PP, PP, PP, dzA, cap_c, part + OFF_W1, smem);
+  colsum(dzA, H, cap_c, pvec + 0 * H);
+}
+
+// out[i] = sum over CTAs, in CTA order, of partial[cta][i] (gradients and
+// the loss in the last slot).
+__global__ void reduce_partials(const float* __restrict__ partial, int ctas,
+                                float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i > N_TOT) return;
+  float s = 0.f;
+  for (int b = 0; b < ctas; ++b) s += partial[static_cast<size_t>(b) * NPART + i];
+  out[i] = s;
+}
+
+template <bool BF16, bool TRAIN, typename WT>
+int launch(const RayInputs& in, const void* wmat, const void* wmat_t,
+           const float* given, float white_bg, float scale, int rays_per_cta,
+           int cap, float* scratch, float* partial, float* out, float* rgb,
+           float* acc, float* weights, cudaStream_t stream) {
+  auto kernel = fused_render_grad_kernel<BF16, TRAIN, WT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (in.num_rays + rays_per_cta - 1) / rays_per_cta;
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
+      in, static_cast<const WT*>(wmat), static_cast<const WT*>(wmat_t), given,
+      white_bg, scale, rays_per_cta, cap, scratch, partial, rgb, acc, weights);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_partials<<<(N_TOT + 1 + 255) / 256, 256, 0, stream>>>(partial, grid, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Sizes the caller allocates: scratch floats per stashed point, floats per
+// CTA partial, floats of the output (the gradients, then the loss).
+void fused_render_grad_sizes(int* floats_per_point, int* npart, int* n_out) {
+  *floats_per_point = FLOATS_PER_POINT;
+  *npart = NPART;
+  *n_out = N_TOT + 1;
+}
+
+// train != 0: `given` is the (R, 3) target and rgb/acc/weights are written;
+// train == 0: `given` is the (R, 8) cotangent [g_rgb, g_acc, g_depth, 0..]
+// and only the gradients are. `scratch` holds grid * cap * floats_per_point
+// floats, `partial` grid * npart, `out` n_out, where grid =
+// ceil(num_rays / rays_per_cta) and cap >= ceil(rays_per_cta * S / 64) * 64.
+// Returns 0 on success, a cudaError_t code after a failed launch, or -1
+// when the packed buffers or the shapes do not fit this kernel.
+int fused_render_grad(const float* o_aff, const float* d_aff,
+                      const float* viewdirs, const float* t, const void* wmat,
+                      const void* wmat_t, const float* vec, int n_w, int n_b,
+                      int bf16, int train, const float* given, float white_bg,
+                      float scale, int num_rays, int S, int rays_per_cta,
+                      int cap, int real_p, int real_d, float* scratch,
+                      float* partial, float* out, float* rgb, float* acc,
+                      float* weights, void* stream) {
+  if (n_w != N_W || n_b != N_B || num_rays <= 0 || S <= 0 ||
+      rays_per_cta <= 0 || rays_per_cta > H * LDA || real_p > PP ||
+      real_d > DP || cap % P != 0 || cap < (rays_per_cta * S + P - 1) / P * P)
+    return -1;
+  const RayInputs in{o_aff, d_aff, viewdirs, t, vec, num_rays, S, real_p, real_d};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    if (train)
+      return launch<true, true, __nv_bfloat16>(in, wmat, wmat_t, given, white_bg,
+                                               scale, rays_per_cta, cap, scratch,
+                                               partial, out, rgb, acc, weights, s);
+    return launch<true, false, __nv_bfloat16>(in, wmat, wmat_t, given, white_bg,
+                                              scale, rays_per_cta, cap, scratch,
+                                              partial, out, rgb, acc, weights, s);
+  }
+  if (train)
+    return launch<false, true, float>(in, wmat, wmat_t, given, white_bg, scale,
+                                      rays_per_cta, cap, scratch, partial, out,
+                                      rgb, acc, weights, s);
+  return launch<false, false, float>(in, wmat, wmat_t, given, white_bg, scale,
+                                     rays_per_cta, cap, scratch, partial, out,
+                                     rgb, acc, weights, s);
+}
+
+const char* fused_render_grad_error(int code) {
+  if (code == -1) return "packed weights or shapes do not fit the kernel";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -53,3 +53,42 @@ def export_jax_params(module) -> dict:
             "b": lyr.bias.detach().cpu().numpy().copy(),
         })
     return tree
+
+
+def export_jax_grads(module) -> dict:
+    """The ``.grad`` of every parameter of ``module`` as a ``nerf_tpu``
+    gradient pytree (numpy, (in, out) weights), to hold against
+    ``jax.grad`` tensor by tensor."""
+    tree: dict = {"block1": [], "block2": [], "rgb": []}
+    for jax_name, lyr in _layers(module):
+        tree[jax_name].append({
+            "w": lyr.weight.grad.detach().cpu().numpy().T.copy(),
+            "b": lyr.bias.grad.detach().cpu().numpy().copy(),
+        })
+    return tree
+
+
+def _flat_in_param_order(tree: dict) -> list[np.ndarray]:
+    """A NeRF pytree's leaves in ``NeRFModel.parameters()`` order, each in
+    the ``nn.Linear`` layout."""
+    out = []
+    for name in ("block1", "block2", "rgb"):
+        for lyr in tree[name]:
+            out += [np.asarray(lyr["w"], np.float32).T, np.asarray(lyr["b"], np.float32)]
+    return out
+
+
+def load_jax_opt_state(optimizer, opt_state, trees: int = 2) -> None:
+    """Copy optax's Adam state (``ScaleByAdamState`` first in the chain;
+    ``mu``/``nu`` over the ``(params, fine_params)`` pair, ``fine_params``
+    possibly ``{}``) into the port's ``Adam`` in place."""
+    adam = opt_state[0]
+    mu, nu = [], []
+    for i in range(trees):
+        if adam.mu[i]:
+            mu += _flat_in_param_order(adam.mu[i])
+            nu += _flat_in_param_order(adam.nu[i])
+    optimizer.load_state_dict({
+        "count": int(np.asarray(adam.count)),
+        "mu": [torch.from_numpy(np.array(x, np.float32)) for x in mu],
+        "nu": [torch.from_numpy(np.array(x, np.float32)) for x in nu]})

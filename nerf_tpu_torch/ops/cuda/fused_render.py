@@ -1,21 +1,36 @@
-"""Fused NeRF forward render: positional encoding, the NeRF MLP and volume
-compositing of a (rays, samples) batch in one CUDA kernel.
+"""Fused NeRF render, train pass and render backward: positional encoding,
+the NeRF MLP and volume compositing of a (rays, samples) batch, with their
+gradients, in CUDA kernels.
 
-The kernel (``nerf_tpu_torch/csrc/fused_render_fwd.cu``) replaces
-``nerf_tpu/ops/pallas/fused_render.py::_fwd_kernel``; its source says what
-bounds it on an H100 and how its design answers that. This module holds
+Three kernels, each replacing one of ``nerf_tpu/ops/pallas/fused_render.py``
+(their sources say what bounds each on an H100 and how the design answers):
 
-  * ``pack_params``: a ``NeRFModel`` in the kernel's layout, one matrix
-    buffer in the compute dtype and one float32 vector buffer;
-  * ``fused_render_plain``: the same function in plain PyTorch, rounding to
-    bfloat16 at the same points and using the same degree-11 sine, so that
-    it matches the kernel in either compute dtype;
+  * ``csrc/fused_render_fwd.cu`` (``_fwd_kernel``): the forward render;
+  * ``csrc/fused_render_train.cu``, train entry (``_train_kernel``):
+    forward, white-background MSE and the full backward in one pass;
+  * ``csrc/fused_render_train.cu``, backward entry (``_bwd_kernel``): the
+    parameter gradients of the forward render from a per-ray cotangent.
+
+This module holds
+
+  * ``pack_f32`` / ``cast_packed`` / ``pack_params``: a ``NeRFModel`` in the
+    kernels' layout. ``pack_f32`` is differentiable float32 (autograd maps
+    the kernels' packed gradients back onto the ``nn.Linear`` parameters);
+    ``cast_packed`` rounds the matrices to the compute dtype, as the JAX
+    package's ``_cast_weights`` does inside its custom VJPs;
+  * the plain PyTorch versions ``fused_render_plain``, ``fused_train_plain``
+    and ``fused_render_bwd_plain``, rounding to bfloat16 at the kernels'
+    points (the backward at ``fused_nerf.py::_mlp_bwd_core``'s), so that
+    each matches its kernel in either compute dtype;
   * ``FusedNerfRender``: the wrapper. On CPU tensors it runs the plain
-    version; on CUDA tensors it launches the kernel or raises. It never
-    falls back from one to the other.
+    versions; on CUDA tensors it launches the kernels or raises. It never
+    falls back from one to the other. ``__call__`` is differentiable in the
+    parameters (the backward kernel behind a ``torch.autograd.Function``);
+    ``train`` returns the loss with its gradient already computed.
 
-The library is compiled with ``nvcc`` from the package's ``csrc/`` into
-``build/`` beside the package on the first CUDA call, and loaded by ctypes.
+The libraries are compiled with ``nvcc`` from the package's ``csrc/`` into
+``build/`` beside the package on the first CUDA call, one ``nvcc`` per
+source, all started together, and loaded by ctypes.
 """
 
 from __future__ import annotations
@@ -41,22 +56,43 @@ from nerf_tpu_torch.ops.volume import exclusive_cumprod
 PP, DP = 64, 32          # padded position / direction encoding widths
 _HALF_PI = math.pi / 2   # rounds to the same float32 phase as the kernel's
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "fused_render_fwd.cu"
+_CSRC = Path(__file__).resolve().parents[2] / "csrc"
+_LIBS = ("fused_render_fwd", "fused_render_train")   # one per .cu source
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# (name, rows) of the packed matrices, in buffer order; each is (rows, cols)
-# in (in, out) layout. Must match the OFF_* table of the CUDA source.
+# The packed matrices and vectors, in buffer order (must match the OFF_*
+# tables of csrc/fused_render_common.cuh). Matrices are (in, out).
 _MATS = ("w1", "w2", "w3", "w4", "w5", "w6h", "w6p", "w7", "w8", "w9",
          "w10f", "wr0f", "wr0d", "wr1")
 _VECS = ("b1", "b2", "b3", "b4", "b5", "b6", "b7", "b8", "b9", "b10f",
          "w10s", "br0", "br1", "b10s")
 
 
+def _shapes(h: int) -> tuple[dict, dict]:
+    hr = h // 2
+    mats = {"w1": (PP, h), **{f"w{i}": (h, h) for i in range(2, 6)},
+            "w6h": (h, h), "w6p": (PP, h),
+            **{f"w{i}": (h, h) for i in range(7, 10)},
+            "w10f": (h, h), "wr0f": (h, hr), "wr0d": (DP, hr), "wr1": (hr, 8)}
+    vecs = {**{f"b{i}": (h,) for i in range(1, 10)}, "b10f": (h,),
+            "w10s": (h,), "br0": (hr,), "br1": (8,), "b10s": (1,)}
+    return mats, vecs
+
+
+def _views(flat: torch.Tensor, shapes: dict, names) -> dict:
+    out, off = {}, 0
+    for k in names:
+        n = math.prod(shapes[k])
+        out[k] = flat[off:off + n].view(shapes[k])
+        off += n
+    return out
+
+
 @dataclass(frozen=True)
 class PackedNeRF:
-    """A NeRF in the kernel's layout. ``wmat`` holds every matrix in the
+    """A NeRF in the kernels' layout. ``wmat`` holds every matrix in the
     compute dtype, ``vec`` the biases and the density-head row (float32,
     the row rounded to the compute dtype); ``mats``/``vecs`` are views."""
 
@@ -67,11 +103,10 @@ class PackedNeRF:
     cdt: torch.dtype
 
 
-def pack_params(model) -> PackedNeRF:
-    """Pad and split ``model``'s layers into the kernel layout (the float32
-    layout of ``nerf_tpu.ops.pallas.fused_nerf.pack_params``, cast once to
-    the model's compute dtype)."""
-    cdt = model.cdt
+def pack_f32(model) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(wflat, vec)``: every matrix and every vector of ``model`` padded
+    and split into the kernel layout, float32 and differentiable (the float32
+    layout of ``nerf_tpu.ops.pallas.fused_nerf.pack_params``)."""
     h = model.hidden_dim
     b1 = model.linears(model.block1)
     b2 = model.linears(model.block2)
@@ -97,24 +132,39 @@ def pack_params(model) -> PackedNeRF:
         **{f"b{i}": b1[i - 1].bias for i in range(1, 6)},
         **{f"b{i}": b2[i - 6].bias for i in range(6, 10)},
         "b10f": b2[4].bias[:h],
-        "w10s": round_to(w10[:, h], cdt),
+        "w10s": w10[:, h],
         "br0": r0.bias,
         "br1": F.pad(r1.bias, (0, 8 - r1.bias.shape[0])),
         "b10s": b2[4].bias[h:],
     }
-    wmat = torch.cat([mats[k].reshape(-1) for k in _MATS]).to(cdt).contiguous()
-    vec = torch.cat([vecs[k].reshape(-1) for k in _VECS]).float().contiguous()
+    wflat = torch.cat([mats[k].reshape(-1) for k in _MATS]).float()
+    vec = torch.cat([vecs[k].reshape(-1) for k in _VECS]).float()
+    return wflat, vec
 
-    def views(flat, parts, names):
-        out, off = {}, 0
-        for k in names:
-            n = parts[k].numel()
-            out[k] = flat[off:off + n].view(parts[k].shape)
-            off += n
-        return out
 
-    return PackedNeRF(wmat=wmat, vec=vec, mats=views(wmat, mats, _MATS),
-                      vecs=views(vec, vecs, _VECS), cdt=cdt)
+def cast_packed(wflat: torch.Tensor, vec: torch.Tensor, cdt: torch.dtype,
+                hidden: int) -> PackedNeRF:
+    """The float32 packing as the kernels read it: matrices in ``cdt``, the
+    density row rounded to ``cdt`` (biases stay float32)."""
+    mat_shapes, vec_shapes = _shapes(hidden)
+    o = 10 * hidden                                   # offset of w10s
+    vec = torch.cat([vec[:o], round_to(vec[o:o + hidden], cdt),
+                     vec[o + hidden:]]).contiguous()
+    wmat = wflat.to(cdt).contiguous()
+    return PackedNeRF(wmat=wmat, vec=vec, mats=_views(wmat, mat_shapes, _MATS),
+                      vecs=_views(vec, vec_shapes, _VECS), cdt=cdt)
+
+
+def pack_params(model) -> PackedNeRF:
+    """``model`` in the kernel layout, cast once to its compute dtype."""
+    wflat, vec = pack_f32(model)
+    return cast_packed(wflat, vec, model.cdt, model.hidden_dim)
+
+
+def grad_views(gw: torch.Tensor, gv: torch.Tensor, hidden: int) -> dict:
+    """The 28 gradient tensors of a flat ``(gw, gv)`` pair, by name."""
+    mat_shapes, vec_shapes = _shapes(hidden)
+    return {**_views(gw, mat_shapes, _MATS), **_views(gv, vec_shapes, _VECS)}
 
 
 def fast_sin(x: torch.Tensor) -> torch.Tensor:
@@ -142,11 +192,11 @@ def _encode(x: torch.Tensor, num_freqs: int, width: int, sin) -> torch.Tensor:
     return F.pad(out, (0, width - out.shape[-1]))
 
 
-def fused_render_plain(packed: PackedNeRF, o_aff: torch.Tensor,
-                       d_aff: torch.Tensor, viewdirs: torch.Tensor,
-                       t: torch.Tensor, pos_freqs: int, dir_freqs: int):
-    """The kernel's function in plain PyTorch: (rgb (R,3), acc (R,),
-    depth (R,), weights (R,S)), all float32, rgb without background."""
+def _forward_acts(packed: PackedNeRF, o_aff, d_aff, viewdirs, t,
+                  pos_freqs: int, dir_freqs: int) -> dict:
+    """Every activation of the kernels' forward, (R, S, width) float32:
+    matmul inputs rounded to the compute dtype as the kernels round them,
+    h9 and sigma_pre unrounded, rgb after the sigmoid (3 channels)."""
     cdt = packed.cdt
     m = {k: v.float() for k, v in packed.mats.items()}
     v = packed.vecs
@@ -156,30 +206,149 @@ def fused_render_plain(packed: PackedNeRF, o_aff: torch.Tensor,
 
     sin = fast_sin if cdt == torch.bfloat16 else torch.sin
     p = o_aff[:, None, :] + t[..., None] * d_aff[:, None, :]           # (R,S,3)
-    penc = r(_encode(p, pos_freqs, m["w1"].shape[0], sin))
+    a = {"penc": r(_encode(p, pos_freqs, m["w1"].shape[0], sin))}
     denc = r(_encode(viewdirs, dir_freqs, m["wr0d"].shape[0], torch.sin))
-    denc = denc[:, None, :].expand(*t.shape, denc.shape[-1])
+    a["denc"] = denc[:, None, :].expand(*t.shape, denc.shape[-1])
 
-    x = penc
+    x = a["penc"]
     for i in range(1, 6):
-        x = r(torch.relu(x @ m[f"w{i}"] + v[f"b{i}"]))
-    x = r(torch.relu(x @ m["w6h"] + penc @ m["w6p"] + v["b6"]))
+        x = a[f"h{i}"] = r(torch.relu(x @ m[f"w{i}"] + v[f"b{i}"]))
+    x = a["h6"] = r(torch.relu(x @ m["w6h"] + a["penc"] @ m["w6p"] + v["b6"]))
     for i in (7, 8):
-        x = r(torch.relu(x @ m[f"w{i}"] + v[f"b{i}"]))
-    h9 = torch.relu(x @ m["w9"] + v["b9"])
-    sigma = torch.relu(torch.sum(h9 * v["w10s"], dim=-1) + v["b10s"])
-    feat = r(r(h9) @ m["w10f"] + v["b10f"])
-    y = r(torch.relu(feat @ m["wr0f"] + denc @ m["wr0d"] + v["br0"]))
-    rgb = torch.sigmoid(y @ m["wr1"] + v["br1"])[..., :3]
+        x = a[f"h{i}"] = r(torch.relu(x @ m[f"w{i}"] + v[f"b{i}"]))
+    h9 = a["h9"] = torch.relu(x @ m["w9"] + v["b9"])
+    a["sigma_pre"] = torch.sum(h9 * v["w10s"], dim=-1) + v["b10s"]
+    a["feat"] = r(r(h9) @ m["w10f"] + v["b10f"])
+    a["y"] = r(torch.relu(a["feat"] @ m["wr0f"] + a["denc"] @ m["wr0d"] + v["br0"]))
+    a["rgb"] = torch.sigmoid(a["y"] @ m["wr1"] + v["br1"])[..., :3]
+    return a
 
-    one_m = torch.exp(-sigma * deltas_from_t(t))
-    weights = exclusive_cumprod(one_m, dim=-1) * (1.0 - one_m)
-    return (torch.sum(weights[..., None] * rgb, dim=-2),
-            torch.sum(weights, dim=-1), torch.sum(weights * t, dim=-1), weights)
+
+def _composite(acts: dict, t: torch.Tensor):
+    """(one_m, T, weights) of each sample, and the ray sums (rgb without
+    background, acc, depth)."""
+    one_m = torch.exp(-torch.relu(acts["sigma_pre"]) * deltas_from_t(t))
+    trans = exclusive_cumprod(one_m, dim=-1)
+    weights = trans * (1.0 - one_m)
+    return (one_m, trans, weights, torch.sum(weights[..., None] * acts["rgb"], dim=-2),
+            torch.sum(weights, dim=-1), torch.sum(weights * t, dim=-1))
+
+
+def fused_render_plain(packed: PackedNeRF, o_aff: torch.Tensor,
+                       d_aff: torch.Tensor, viewdirs: torch.Tensor,
+                       t: torch.Tensor, pos_freqs: int, dir_freqs: int):
+    """The forward kernel's function in plain PyTorch: (rgb (R,3), acc
+    (R,), depth (R,), weights (R,S)), all float32, rgb without
+    background."""
+    acts = _forward_acts(packed, o_aff, d_aff, viewdirs, t, pos_freqs, dir_freqs)
+    _, _, weights, rgb, acc, depth = _composite(acts, t)
+    return rgb, acc, depth, weights
+
+
+def _composite_bwd(acts: dict, one_m, trans, weights, t, g_ray):
+    """Backward through compositing (``fused_render.py::_composite_bwd``):
+    a per-ray cotangent (R, >=5) = [g_rgb, g_acc, g_depth] -> the sigmoid
+    pre-activation's cotangent dzr1 (R,S,3) and the density's (R,S)."""
+    rgb = acts["rgb"]
+    g_rgb = g_ray[:, None, :3]
+    g_w = (torch.sum(g_rgb * rgb, dim=-1) + g_ray[:, None, 3]
+           + g_ray[:, None, 4] * t)
+    gww = g_w * weights
+    # suffix[i] = sum over the later samples of the ray
+    suffix = torch.flip(torch.cumsum(torch.flip(gww[:, 1:], [-1]), -1), [-1])
+    suffix = F.pad(suffix, (0, 1))
+    g_sigma = (g_w * trans * one_m - suffix) * deltas_from_t(t)
+    dzr1 = g_rgb * weights[..., None] * rgb * (1.0 - rgb)
+    dsig = torch.where(acts["sigma_pre"] > 0, g_sigma, torch.zeros_like(g_sigma))
+    return dzr1, dsig
+
+
+def _mlp_bwd(packed: PackedNeRF, acts: dict, dzr1, dsig):
+    """Backward of the MLP from the cotangents of the sigmoid input and the
+    density (``fused_nerf.py::_mlp_bwd_core`` without input gradients):
+    the flat float32 gradients ``(gw, gv)`` in the packed layout."""
+    cdt = packed.cdt
+    m = {k: v.float() for k, v in packed.mats.items()}
+    a = {k: v.reshape(-1, v.shape[-1]) for k, v in acts.items()
+         if k not in ("sigma_pre", "rgb")}
+    dzr1 = dzr1.reshape(-1, 3)
+    dsig = dsig.reshape(-1, 1)
+    hidden = m["w2"].shape[0]
+    gw = torch.zeros(packed.wmat.numel(), dtype=torch.float32, device=dzr1.device)
+    gv = torch.zeros(packed.vec.numel(), dtype=torch.float32, device=dzr1.device)
+    g = grad_views(gw, gv, hidden)
+
+    def r(x):
+        return round_to(x, cdt)
+
+    def dw(name, x, dz):
+        g[name].copy_(r(x).T @ r(dz))
+
+    def dact(dz, name):
+        return r(dz) @ m[name].T
+
+    g["wr1"][:, :3] = r(a["y"]).T @ r(dzr1)
+    g["br1"][:3] = dzr1.sum(0)
+    dz = (r(dzr1) @ m["wr1"][:, :3].T) * (a["y"] > 0)         # dzr0
+    dw("wr0f", a["feat"], dz)
+    dw("wr0d", a["denc"], dz)
+    g["br0"].copy_(dz.sum(0))
+    dfeat = dact(dz, "wr0f")
+    h9 = a["h9"]
+    dw("w10f", h9, dfeat)
+    g["b10f"].copy_(dfeat.sum(0))
+    g["w10s"].copy_((h9 * dsig).sum(0))
+    g["b10s"].copy_(dsig.sum(0))
+    dz = (dact(dfeat, "w10f") + dsig * packed.vecs["w10s"]) * (h9 > 0)   # dz9
+    for i in (9, 8, 7, 6, 5, 4, 3, 2):
+        w = "w6h" if i == 6 else f"w{i}"
+        prev = a[f"h{i - 1}"]
+        dw(w, prev, dz)
+        if i == 6:
+            dw("w6p", a["penc"], dz)
+        g[f"b{i}"].copy_(dz.sum(0))
+        dz = dact(dz, w) * (prev > 0)
+    dw("w1", a["penc"], dz)
+    g["b1"].copy_(dz.sum(0))
+    return gw, gv
+
+
+def fused_train_plain(packed: PackedNeRF, o_aff, d_aff, viewdirs, t, target,
+                      white_bg: bool, pos_freqs: int, dir_freqs: int):
+    """The train kernel's function in plain PyTorch: ``(loss, rgb, acc,
+    weights, (gw, gv))`` with loss = mean((rgb + white_bg (1 - acc) -
+    target)^2) over all rays and channels, rgb without background, and the
+    flat float32 gradients of the loss."""
+    acts = _forward_acts(packed, o_aff, d_aff, viewdirs, t, pos_freqs, dir_freqs)
+    one_m, trans, weights, rgb, acc, _ = _composite(acts, t)
+    scale = 1.0 / (3.0 * max(t.shape[0], 1))
+    wb = 1.0 if white_bg else 0.0
+    err = rgb + wb * (1.0 - acc[:, None]) - target
+    loss = scale * torch.sum(err * err)
+    g_rgbw = (2.0 * scale) * err
+    g_ray = torch.cat([g_rgbw, -wb * g_rgbw.sum(-1, keepdim=True),
+                       torch.zeros_like(acc)[:, None]], dim=-1)
+    dzr1, dsig = _composite_bwd(acts, one_m, trans, weights, t, g_ray)
+    return loss, rgb, acc, weights, _mlp_bwd(packed, acts, dzr1, dsig)
+
+
+def fused_render_bwd_plain(packed: PackedNeRF, o_aff, d_aff, viewdirs, t,
+                           g_ray, pos_freqs: int, dir_freqs: int):
+    """The backward kernel's function in plain PyTorch: the flat float32
+    gradients ``(gw, gv)`` of sum(g_ray * [rgb, acc, depth]) over the rays;
+    ``g_ray`` is (R, 8) with columns 5.. ignored."""
+    acts = _forward_acts(packed, o_aff, d_aff, viewdirs, t, pos_freqs, dir_freqs)
+    one_m, trans, weights, _, _, _ = _composite(acts, t)
+    dzr1, dsig = _composite_bwd(acts, one_m, trans, weights, t, g_ray)
+    return _mlp_bwd(packed, acts, dzr1, dsig)
+
+
+# ---------------------------------------------------------------- build
 
 
 @dataclass(frozen=True)
 class BuildInfo:
+    name: str
     path: Path
     seconds: float
     log: str
@@ -193,51 +362,145 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); "
-                       "the fused render kernel is built from source at first use")
+                       "the fused render kernels are built from source at first use")
 
 
 @functools.cache
-def build() -> BuildInfo:
-    """Compile the kernel library into ``build/`` (once per source and flag
-    set: the file name carries their hash)."""
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"fused_render_fwd-{digest}.so"
-    if out.exists():
-        return BuildInfo(out, 0.0, "cached")
+def build() -> tuple[BuildInfo, ...]:
+    """Compile every kernel library into ``build/``: one ``nvcc`` per
+    source, all started together. A library's file name carries the hash of
+    every source in ``csrc/`` and of the flags, so a change to a shared
+    header rebuilds both. Raises ``RuntimeError`` if any build fails."""
+    sources = sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources:
+        h.update(p.name.encode() + p.read_bytes())
+    digest = h.hexdigest()[:16]
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return BuildInfo(out, time.perf_counter() - t0, proc.stdout + proc.stderr)
+    jobs, infos = {}, {}
+    for name in _LIBS:
+        out = _BUILD_DIR / f"{name}-{digest}.so"
+        if out.exists():
+            infos[name] = BuildInfo(name, out, 0.0, "cached")
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, out, time.perf_counter())
+    errors = []
+    for name, (proc, tmp, out, t0) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        infos[name] = BuildInfo(name, out, time.perf_counter() - t0, log)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return tuple(infos[n] for n in _LIBS)
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build().path))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fused_render_fwd.argtypes = [vp] * 6 + [ci] * 8 + [vp] * 5
-    lib.fused_render_fwd.restype = ci
-    lib.fused_render_fwd_error.argtypes = [ci]
-    lib.fused_render_fwd_error.restype = ctypes.c_char_p
+def _library(name: str) -> ctypes.CDLL:
+    path = {b.name: b.path for b in build()}[name]
+    lib = ctypes.CDLL(str(path))
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "fused_render_fwd":
+        lib.fused_render_fwd.argtypes = [vp] * 6 + [ci] * 8 + [vp] * 5
+        lib.fused_render_fwd.restype = ci
+        lib.fused_render_fwd_error.argtypes = [ci]
+        lib.fused_render_fwd_error.restype = ctypes.c_char_p
+    else:
+        lib.fused_render_grad.argtypes = ([vp] * 7 + [ci] * 4 + [vp, cf, cf]
+                                          + [ci] * 6 + [vp] * 7)
+        lib.fused_render_grad.restype = ci
+        lib.fused_render_grad_error.argtypes = [ci]
+        lib.fused_render_grad_error.restype = ctypes.c_char_p
+        lib.fused_render_grad_sizes.argtypes = [ctypes.POINTER(ci)] * 3
+        lib.fused_render_grad_sizes.restype = None
     return lib
 
 
+@functools.cache
+def _grad_sizes() -> tuple[int, int, int]:
+    vals = [ctypes.c_int() for _ in range(3)]
+    _library("fused_render_train").fused_render_grad_sizes(
+        *(ctypes.byref(v) for v in vals))
+    return tuple(v.value for v in vals)
+
+
+# ---------------------------------------------------------------- autograd
+
+
+class _RenderFn(torch.autograd.Function):
+    """The forward render as a function of the float32 packing; its
+    backward is the backward kernel (the plain version on the CPU). The
+    weights output and the ray/t inputs carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, wflat, vec, fr, o_aff, d_aff, viewdirs, t):
+        packed = cast_packed(wflat.detach(), vec.detach(), fr.cdt, fr.h)
+        rgb, acc, depth, weights = fr._forward(packed, o_aff, d_aff, viewdirs, t)
+        ctx.fr, ctx.packed = fr, packed
+        ctx.save_for_backward(o_aff, d_aff, viewdirs, t)
+        ctx.mark_non_differentiable(weights)
+        return rgb, acc, depth, weights
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_acc, g_depth, _g_weights):
+        o_aff, d_aff, viewdirs, t = ctx.saved_tensors
+        g_ray = torch.zeros((t.shape[0], 8), dtype=torch.float32, device=t.device)
+        if g_rgb is not None:
+            g_ray[:, :3] = g_rgb
+        if g_acc is not None:
+            g_ray[:, 3] = g_acc
+        if g_depth is not None:
+            g_ray[:, 4] = g_depth
+        gw, gv = ctx.fr._backward(ctx.packed, o_aff, d_aff, viewdirs, t, g_ray)
+        return gw, gv, None, None, None, None, None
+
+
+class _TrainFn(torch.autograd.Function):
+    """The train pass as a function of the float32 packing: the loss, with
+    the kernel's gradients kept for the backward (scaled by the loss
+    cotangent); rgb, acc and weights are stop-gradient byproducts."""
+
+    @staticmethod
+    def forward(ctx, wflat, vec, fr, o_aff, d_aff, viewdirs, t, target, white_bg):
+        packed = cast_packed(wflat.detach(), vec.detach(), fr.cdt, fr.h)
+        loss, rgb, acc, weights, (gw, gv) = fr._train(
+            packed, o_aff, d_aff, viewdirs, t, target, white_bg)
+        ctx.save_for_backward(gw, gv)
+        ctx.mark_non_differentiable(rgb, acc, weights)
+        return loss, rgb, acc, weights
+
+    @staticmethod
+    def backward(ctx, g_loss, _g_rgb, _g_acc, _g_weights):
+        gw, gv = ctx.saved_tensors
+        return gw * g_loss, gv * g_loss, None, None, None, None, None, None, None
+
+
+# ---------------------------------------------------------------- wrapper
+
+
 class FusedNerfRender:
-    """Fused render of a (rays, samples) batch of a NeRF.
+    """Fused render, train pass and render backward of a NeRF.
 
     ``__call__(params, rays_o, rays_d, viewdirs, t)`` with ``params`` a
     ``NeRFModel`` or its ``pack`` returns ``rgb (R,3)``, ``acc (R,)``,
-    ``depth (R,)`` and ``weights (R,S)``, float32. White background and
-    disparity are left to the caller. ``launches`` counts kernel launches
-    over all instances.
+    ``depth (R,)`` and ``weights (R,S)``, float32; with a model whose
+    parameters require grad (and grad enabled) rgb/acc/depth are
+    differentiable in them. ``train(...)`` returns the MSE loss (its
+    gradient computed in the same pass) and stop-gradient byproducts. White
+    background and disparity are left to the caller of ``__call__``.
+    ``launches``, ``train_launches`` and ``bwd_launches`` count kernel
+    launches over all instances.
     """
 
     launches = 0
+    train_launches = 0
+    bwd_launches = 0
 
     def __init__(self, model, near: float, far: float, normalize: bool = True):
         self.near, self.far, self.normalize = float(near), float(far), normalize
@@ -249,7 +512,7 @@ class FusedNerfRender:
         self.cdt = model.cdt
 
     def supported(self) -> bool:
-        """The shapes the kernel covers: hidden 256 (as the TPU kernel's
+        """The shapes the kernels cover: hidden 256 (as the TPU kernel's
         ``supported``) and encodings that fit their padded widths."""
         return self.h == 256 and self.real_p <= PP and self.real_d <= DP
 
@@ -265,49 +528,96 @@ class FusedNerfRender:
         return a * rays_o + b, a * rays_d
 
     def __call__(self, params, rays_o, rays_d, viewdirs, t) -> dict:
-        packed = params if isinstance(params, PackedNeRF) else self.pack(params)
         o_aff, d_aff = self.affine(rays_o, rays_d)
-        if t.device.type == "cpu":
-            rgb, acc, depth, weights = fused_render_plain(
-                packed, o_aff, d_aff, viewdirs, t, self.pos_freqs, self.dir_freqs)
-        elif t.device.type == "cuda":
-            rgb, acc, depth, weights = self._launch(packed, o_aff, d_aff,
-                                                    viewdirs, t)
+        if isinstance(params, PackedNeRF):
+            outs = self._forward(params, o_aff, d_aff, viewdirs, t)
+        elif torch.is_grad_enabled() and any(p.requires_grad
+                                             for p in params.parameters()):
+            outs = _RenderFn.apply(*pack_f32(params), self, o_aff, d_aff,
+                                   viewdirs, t)
         else:
-            raise ValueError(f"fused render runs on cuda or cpu, not {t.device}")
-        return {"rgb": rgb, "acc": acc, "depth": depth, "weights": weights}
+            outs = self._forward(self.pack(params), o_aff, d_aff, viewdirs, t)
+        return dict(zip(("rgb", "acc", "depth", "weights"), outs))
 
-    def _launch(self, packed: PackedNeRF, o_aff, d_aff, viewdirs, t):
+    def train(self, params, rays_o, rays_d, viewdirs, t, target,
+              white_bg: bool):
+        """One fused train pass of the model ``params``: returns
+        ``(mse_loss, aux)`` with ``aux`` holding ``rgb``/``acc``/``weights``
+        (stop-gradient). The loss is ``mean((rgb + white_bg (1 - acc) -
+        target)^2)`` over all rays and channels; its gradient reaches the
+        parameters through ``loss.backward()`` (float32, from the same
+        kernel pass)."""
+        o_aff, d_aff = self.affine(rays_o, rays_d)
+        loss, rgb, acc, weights = _TrainFn.apply(
+            *pack_f32(params), self, o_aff, d_aff, viewdirs, t, target,
+            bool(white_bg))
+        return loss, {"rgb": rgb, "acc": acc, "weights": weights}
+
+    # -- routes: the plain versions for CPU tensors, the kernels for CUDA
+
+    def _route(self, t) -> str:
+        if t.device.type in ("cpu", "cuda"):
+            return t.device.type
+        raise ValueError(f"fused render runs on cuda or cpu, not {t.device}")
+
+    def _forward(self, packed, o_aff, d_aff, viewdirs, t):
+        if self._route(t) == "cpu":
+            return fused_render_plain(packed, o_aff, d_aff, viewdirs, t,
+                                      self.pos_freqs, self.dir_freqs)
+        return self._launch_fwd(packed, o_aff, d_aff, viewdirs, t)
+
+    def _backward(self, packed, o_aff, d_aff, viewdirs, t, g_ray):
+        if self._route(t) == "cpu":
+            return fused_render_bwd_plain(packed, o_aff, d_aff, viewdirs, t,
+                                          g_ray, self.pos_freqs, self.dir_freqs)
+        out = self._launch_grad(packed, o_aff, d_aff, viewdirs, t, g_ray,
+                                train=False, white_bg=False)
+        FusedNerfRender.bwd_launches += 1
+        return out[0]
+
+    def _train(self, packed, o_aff, d_aff, viewdirs, t, target, white_bg):
+        if self._route(t) == "cpu":
+            return fused_train_plain(packed, o_aff, d_aff, viewdirs, t, target,
+                                     white_bg, self.pos_freqs, self.dir_freqs)
+        (gw, gv), loss, rgb, acc, weights = self._launch_grad(
+            packed, o_aff, d_aff, viewdirs, t, target, train=True,
+            white_bg=white_bg)
+        FusedNerfRender.train_launches += 1
+        return loss, rgb, acc, weights, (gw, gv)
+
+    def _check(self, packed: PackedNeRF, named: tuple) -> None:
         if not self.supported():
             raise NotImplementedError(
-                f"the fused render kernel covers hidden 256 with encodings of at "
-                f"most {PP}/{DP} columns; got hidden {self.h}, "
-                f"{self.real_p}/{self.real_d} (render on the CPU, or with "
+                f"the fused render kernels cover hidden 256 with encodings of "
+                f"at most {PP}/{DP} columns; got hidden {self.h}, "
+                f"{self.real_p}/{self.real_d} (run on the CPU, or with "
                 "use_pallas = false)")
-        ins = (o_aff, d_aff, viewdirs, t, packed.wmat, packed.vec)
-        if torch.is_grad_enabled() and any(x.requires_grad for x in ins):
-            raise NotImplementedError(
-                "the fused render kernel is forward-only; its backward "
-                "(fused_render.py::_bwd_kernel) is not ported yet")
-        num_rays, s = t.shape
-        dev = t.device
-        for name, x, shape, dtype in (
-                ("rays_o", o_aff, (num_rays, 3), torch.float32),
-                ("rays_d", d_aff, (num_rays, 3), torch.float32),
-                ("viewdirs", viewdirs, (num_rays, 3), torch.float32),
-                ("t", t, (num_rays, s), torch.float32),
+        dev = named[0][1].device
+        for name, x, shape, dtype in named + (
                 ("wmat", packed.wmat, packed.wmat.shape, self.cdt),
                 ("vec", packed.vec, packed.vec.shape, torch.float32)):
             if x.device != dev or x.dtype != dtype or tuple(x.shape) != tuple(shape):
                 raise ValueError(f"{name}: want {dtype} {tuple(shape)} on {dev}, "
                                  f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-        o_aff, d_aff, viewdirs, t = (x.contiguous() for x in (o_aff, d_aff,
-                                                               viewdirs, t))
+
+    def _ray_args(self, o_aff, d_aff, viewdirs, t):
+        num_rays, s = t.shape
+        return (("rays_o", o_aff, (num_rays, 3), torch.float32),
+                ("rays_d", d_aff, (num_rays, 3), torch.float32),
+                ("viewdirs", viewdirs, (num_rays, 3), torch.float32),
+                ("t", t, (num_rays, s), torch.float32))
+
+    def _launch_fwd(self, packed: PackedNeRF, o_aff, d_aff, viewdirs, t):
+        self._check(packed, self._ray_args(o_aff, d_aff, viewdirs, t))
+        num_rays, s = t.shape
+        dev = t.device
+        o_aff, d_aff, viewdirs, t = (x.detach().contiguous()
+                                     for x in (o_aff, d_aff, viewdirs, t))
         rgb = torch.empty((num_rays, 3), dtype=torch.float32, device=dev)
         acc = torch.empty((num_rays,), dtype=torch.float32, device=dev)
         depth = torch.empty((num_rays,), dtype=torch.float32, device=dev)
         weights = torch.empty((num_rays, s), dtype=torch.float32, device=dev)
-        lib = _library()
+        lib = _library("fused_render_fwd")
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         rays_per_cta = -(-num_rays // n_sm)
         with torch.cuda.device(dev):
@@ -325,3 +635,47 @@ class FusedNerfRender:
         FusedNerfRender.launches += 1
         return rgb, acc, depth, weights
 
+    def _launch_grad(self, packed: PackedNeRF, o_aff, d_aff, viewdirs, t,
+                     given, train: bool, white_bg: bool):
+        """One launch of the train kernel (``given`` the (R,3) target) or of
+        the backward kernel (``given`` the (R,8) cotangent). Returns
+        ``((gw, gv), loss, rgb, acc, weights)``."""
+        num_rays, s = t.shape
+        named = self._ray_args(o_aff, d_aff, viewdirs, t) + (
+            ("given", given, (num_rays, 3 if train else 8), torch.float32),)
+        self._check(packed, named)
+        dev = t.device
+        o_aff, d_aff, viewdirs, t, given = (
+            x.detach().contiguous() for x in (o_aff, d_aff, viewdirs, t, given))
+        lib = _library("fused_render_train")
+        per_point, npart, n_out = _grad_sizes()
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        rays_per_cta = -(-num_rays // n_sm)
+        grid = -(-num_rays // rays_per_cta)
+        cap = -(-rays_per_cta * s // 64) * 64
+        # transposed matrices (same offsets) for the dz W^T products
+        wmat_t = torch.cat([packed.mats[k].t().reshape(-1) for k in _MATS])
+        scratch = torch.empty(grid * cap * per_point, dtype=torch.float32, device=dev)
+        partial = torch.empty(grid * npart, dtype=torch.float32, device=dev)
+        out = torch.empty(n_out, dtype=torch.float32, device=dev)
+        rgb = torch.empty((num_rays, 3), dtype=torch.float32, device=dev)
+        acc = torch.empty((num_rays,), dtype=torch.float32, device=dev)
+        weights = torch.empty((num_rays, s), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = lib.fused_render_grad(
+                o_aff.data_ptr(), d_aff.data_ptr(), viewdirs.data_ptr(),
+                t.data_ptr(), packed.wmat.data_ptr(), wmat_t.data_ptr(),
+                packed.vec.data_ptr(), packed.wmat.numel(), packed.vec.numel(),
+                int(self.cdt == torch.bfloat16), int(train), given.data_ptr(),
+                1.0 if white_bg else 0.0, 1.0 / (3.0 * num_rays), num_rays, s,
+                rays_per_cta, cap, self.real_p, self.real_d, scratch.data_ptr(),
+                partial.data_ptr(), out.data_ptr(), rgb.data_ptr(),
+                acc.data_ptr(), weights.data_ptr(), stream)
+        if code != 0:
+            raise RuntimeError(("fused train kernel: " if train else
+                                "fused render backward kernel: ")
+                               + lib.fused_render_grad_error(code).decode())
+        n_w = packed.wmat.numel()
+        return ((out[:n_w], out[n_w:n_out - 1]), out[n_out - 1], rgb, acc,
+                weights)

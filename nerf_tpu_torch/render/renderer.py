@@ -121,6 +121,36 @@ def render_rays(params, rays_o: torch.Tensor, rays_d: torch.Tensor,
                         disparity=fine.disparity, rgb_coarse=coarse.rgb)
 
 
+def render_rays_train(fused_render, params, rays_o: torch.Tensor,
+                      rays_d: torch.Tensor, settings: RenderSettings,
+                      target: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      fine_params=None, viewdirs: Optional[torch.Tensor] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training loss through the fused train pass(es), as
+    ``nerf_tpu.render.renderer.render_rays_train``: ``(loss, mse)`` with
+    loss = mse_fine + mse_coarse when hierarchical (else both the coarse
+    mse). Each pass is one train-kernel launch on the card (forward, MSE
+    and backward together); ``loss.backward()`` hands the parameters the
+    gradients that pass computed. The fine samples come from the coarse
+    pass's weights, which carry no gradient."""
+    if viewdirs is None:
+        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    t = stratified_sample(settings.near, settings.far, settings.num_samples,
+                          rays_o.shape[0], jitter_mode=settings.jitter_mode,
+                          perturb=settings.perturb, generator=generator,
+                          device=rays_o.device)
+    loss_c, aux_c = fused_render.train(params, rays_o, rays_d, viewdirs, t,
+                                       target, settings.white_background)
+    if settings.num_fine_samples <= 0:
+        return loss_c, loss_c
+    t_all = _fine_t(settings, t, aux_c["weights"], generator)
+    loss_f, _ = fused_render.train(
+        fine_params if fine_params is not None else params, rays_o, rays_d,
+        viewdirs, t_all, target, settings.white_background)
+    return loss_f + loss_c, loss_f
+
+
 def render_image(params, rays_o: torch.Tensor, rays_d: torch.Tensor,
                  settings: RenderSettings,
                  generator: Optional[torch.Generator] = None,

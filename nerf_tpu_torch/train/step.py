@@ -1,20 +1,132 @@
-"""The full-image render behind validation, eval and serving.
+"""The training step and the full-image render behind validation, eval and
+serving.
 
-Counterpart of ``nerf_tpu.train.step.make_eval_render`` for one device.
-There is no probe and no downgrade: a NeRF renders through the fused
-render (the CUDA kernel for CUDA tensors, which raises on shapes it does
-not cover; its plain version for CPU tensors) unless the caller asks for
-the unfused module path with ``fused=False``.
+Counterpart of ``nerf_tpu.train.step`` for one device. A step draws a ray
+batch on the device, runs the fused train pass of each model (one
+train-kernel launch each on the card: forward, MSE and backward together),
+maps the packed gradients back onto the parameters with ``backward()`` and
+takes one Adam update, all in place. Per-step randomness comes from
+``torch.Generator``s seeded from (seed, step, stream), so a resumed run or
+a chunk of N steps repeats the same draws as N single steps.
+
+There is no probe and no downgrade: a NeRF trains and renders through the
+fused kernels for CUDA tensors (which raise on shapes they do not cover)
+and their plain versions for CPU tensors, unless the caller asks for the
+unfused module path with ``use_pallas = false`` / ``fused=False``.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
+from nerf_tpu_torch.data.pipeline import RayBatch, RayPool
 from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
-from nerf_tpu_torch.render.renderer import RenderOutput, RenderSettings, render_image
+from nerf_tpu_torch.render.renderer import (
+    RenderOutput,
+    RenderSettings,
+    render_image,
+    render_rays,
+    render_rays_train,
+)
+from nerf_tpu_torch.train.state import TrainState
+
+SAMPLE, RENDER, VALIDATE = 0, 1, 2     # generator streams of a step
+
+
+def step_seed(seed: int, step: int, stream: int) -> int:
+    """One 63-bit generator seed per (seed, step, stream)."""
+    state = np.random.SeedSequence([int(seed), int(step), int(stream)]
+                                   ).generate_state(2)
+    return (int(state[0]) << 31) ^ int(state[1])
+
+
+def _generator(device, seed: int) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def _make_step_body(model, settings: RenderSettings, batch_size: int,
+                    seed: int, use_pallas: bool = True,
+                    epoch_sampling: bool = False):
+    """``(sample, train_on_batch)``: ``sample(state, pool) -> RayBatch``
+    draws the batch of ``state.step``; ``train_on_batch(state, batch) ->
+    metrics`` renders, takes the loss and its gradient, and updates
+    ``state`` in place (the step counter too). ``metrics`` holds ``loss``,
+    ``mse`` and ``psnr`` as device scalars. With ``use_pallas`` each pass is
+    one train-kernel launch; without, the unfused module path under
+    autograd."""
+    fused_render = None
+    if use_pallas:
+        fused_render = FusedNerfRender(model, settings.near, settings.far,
+                                       normalize=settings.normalize_positions)
+
+    def sample(state: TrainState, pool: RayPool) -> RayBatch:
+        if epoch_sampling:
+            return pool.sample_epoch(seed, state.step, batch_size)
+        gen = _generator(pool.rays_o.device, step_seed(seed, state.step, SAMPLE))
+        return pool.sample(gen, batch_size)
+
+    def loss_fn(state: TrainState, batch: RayBatch, gen):
+        if fused_render is not None:
+            return render_rays_train(
+                fused_render, state.params, batch.rays_o, batch.rays_d,
+                settings, batch.rgb, generator=gen,
+                fine_params=state.fine_params, viewdirs=batch.viewdirs)
+        out = render_rays(state.params, batch.rays_o, batch.rays_d, settings,
+                          generator=gen, fine_params=state.fine_params,
+                          viewdirs=batch.viewdirs)
+        mse = torch.mean((out.rgb - batch.rgb) ** 2)
+        loss = mse
+        if settings.num_fine_samples > 0:
+            loss = loss + torch.mean((out.rgb_coarse - batch.rgb) ** 2)
+        return loss, mse
+
+    def train_on_batch(state: TrainState, batch: RayBatch) -> dict:
+        gen = _generator(batch.rays_o.device, step_seed(seed, state.step, RENDER))
+        for m in state.models():
+            m.zero_grad(set_to_none=True)
+        loss, mse = loss_fn(state, batch, gen)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        mse = mse.detach()
+        return {"loss": loss.detach(), "mse": mse, "psnr": -10.0 * torch.log10(mse)}
+
+    return sample, train_on_batch
+
+
+def make_train_step(model, settings: RenderSettings, batch_size: int,
+                    seed: int, use_pallas: bool = True,
+                    epoch_sampling: bool = False):
+    """``step(state, pool) -> metrics``: one iteration, ``state`` updated
+    in place."""
+    sample, train_on_batch = _make_step_body(model, settings, batch_size, seed,
+                                             use_pallas, epoch_sampling)
+
+    def step(state: TrainState, pool: RayPool) -> dict:
+        return train_on_batch(state, sample(state, pool))
+
+    return step
+
+
+def make_scan_train_step(model, settings: RenderSettings, batch_size: int,
+                         seed: int, num_steps: int, use_pallas: bool = True,
+                         epoch_sampling: bool = False):
+    """``step_n(state, pool) -> metrics``: ``num_steps`` iterations in a
+    Python loop, each metric stacked to ``(num_steps,)``. The draws key off
+    ``state.step``, so N steps here equal N single steps."""
+    step = make_train_step(model, settings, batch_size, seed, use_pallas,
+                           epoch_sampling)
+
+    def step_n(state: TrainState, pool: RayPool) -> dict:
+        ms = [step(state, pool) for _ in range(num_steps)]
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    return step_n
 
 
 def make_eval_render(model, settings: RenderSettings, fused: bool = True):

@@ -2,11 +2,14 @@
 
 A checkpoint is one file ``{save_path}/{model_type}_model_{step:06d}``
 holding ``{step, model_type, params, fine_params}`` (state dicts; an empty
-dict when there is no separate fine model), beside a ``.meta.json``
-sidecar with the step and model type, as ``nerf_tpu.utils.checkpoint``
-lays them out. The file is written under a temporary name and renamed, so
-a checkpoint that exists is complete. Checkpoints of the JAX package
-(Orbax directories) are not read here.
+dict when there is no separate fine model) and, for a training state,
+``train_step`` (the state's step counter) and ``optimizer`` (Adam's count
+and moments), beside a ``.meta.json`` sidecar with the step and model
+type, as ``nerf_tpu.utils.checkpoint`` lays them out. Serving reads only
+the models. The file is written under a temporary name and renamed, so a
+checkpoint that exists is complete. ``AsyncCheckpointSaver`` copies the
+tensors to the CPU and writes on a thread while training goes on.
+Checkpoints of the JAX package (Orbax directories) are not read here.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import threading
 from typing import Optional
 
 import torch
@@ -28,23 +32,97 @@ def _state_path(save_path: str, model_type: str, step: int) -> str:
 def _cpu_state(module) -> dict:
     if module is None:
         return {}
-    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+    # a copy even for CPU tensors: an async save must not see later updates
+    return {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
 
 
-def save_checkpoint(model, fine_model, save_path: str, model_type: str,
-                    step: int) -> str:
-    """Save ``model`` (and ``fine_model``, or None) at ``step``; returns the
-    checkpoint path."""
+def _write(payload: dict, save_path: str, model_type: str, step: int) -> str:
     path = _state_path(save_path, model_type, step)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"step": int(step), "model_type": model_type,
-                "params": _cpu_state(model),
-                "fine_params": _cpu_state(fine_model)}, tmp)
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    torch.save(payload, tmp)
     os.replace(tmp, path)
     with open(path + ".meta.json", "w") as f:
         json.dump({"step": int(step), "model_type": model_type}, f)
     return path
+
+
+def _payload(model, fine_model, model_type: str, step: int, optimizer=None,
+             train_step: Optional[int] = None) -> dict:
+    out = {"step": int(step), "model_type": model_type,
+           "params": _cpu_state(model), "fine_params": _cpu_state(fine_model)}
+    if optimizer is not None:
+        out["optimizer"] = optimizer.state_dict()
+        out["train_step"] = int(train_step)
+    return out
+
+
+def save_checkpoint(model, fine_model, save_path: str, model_type: str,
+                    step: int, optimizer=None,
+                    train_step: Optional[int] = None) -> str:
+    """Save ``model`` (and ``fine_model``, or None) at ``step``, with the
+    optimizer state and the train state's step counter when given; returns
+    the checkpoint path."""
+    return _write(_payload(model, fine_model, model_type, step, optimizer,
+                           train_step), save_path, model_type, step)
+
+
+def save_train_state(state, save_path: str, model_type: str, step: int) -> str:
+    """Save a whole ``TrainState`` (models, optimizer, step counter) under
+    the loop's ``step``."""
+    return save_checkpoint(state.params, state.fine_params, save_path,
+                           model_type, step, optimizer=state.optimizer,
+                           train_step=state.step)
+
+
+def restore_train_state(state, path: str):
+    """Load a checkpoint written by ``save_train_state`` into ``state`` in
+    place (models, optimizer, step counter); returns ``state``."""
+    ckpt = load_checkpoint(path)
+    if "optimizer" not in ckpt:
+        raise ValueError(f"{path} holds models only, not a training state")
+    state.params.load_state_dict(ckpt["params"])
+    if state.fine_params is not None:
+        state.fine_params.load_state_dict(ckpt["fine_params"])
+    elif ckpt["fine_params"]:
+        raise ValueError(f"{path} has a fine model; this state has none")
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.step = int(ckpt["train_step"])
+    return state
+
+
+class AsyncCheckpointSaver:
+    """Interval saves that overlap with training: ``save`` copies the state
+    to the CPU (so training may go on changing it) and writes the file on a
+    thread; a second save first waits for the one in flight. Call ``wait``
+    before the final save and before exit; it re-raises a failed write."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, state, save_path: str, model_type: str, step: int) -> str:
+        self.wait()
+        payload = _payload(state.params, state.fine_params, model_type, step,
+                           state.optimizer, state.step)
+
+        def run():
+            try:
+                _write(payload, save_path, model_type, step)
+            except Exception as e:  # noqa: BLE001 — re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        return _state_path(save_path, model_type, step)
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
 
 def load_checkpoint(path: str) -> dict:

@@ -15,13 +15,19 @@ import numpy as np
 import pytest
 import torch
 
+from nerf_tpu_torch.config import Config
+from nerf_tpu_torch.data.pipeline import RayBatch
 from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.ops.cuda.fused_render import (
     FusedNerfRender,
+    fused_render_bwd_plain,
     fused_render_plain,
+    fused_train_plain,
+    grad_views,
 )
 from nerf_tpu_torch.render.renderer import RenderSettings
-from nerf_tpu_torch.train.step import make_eval_render
+from nerf_tpu_torch.train.state import create_train_state
+from nerf_tpu_torch.train.step import _make_step_body, make_eval_render
 
 pytestmark = pytest.mark.cuda
 
@@ -29,6 +35,9 @@ NEAR, FAR = 2.0, 6.0
 # kernel vs plain on the same card (see chip_smoke.py for the reasoning):
 # float32 sums in another order; bfloat16 rounding flips after such sums
 TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+# gradients, atol = tol * max|g|: float32 sums over thousands of points in
+# another order (the b10s/w10s sums cancel), bfloat16 as chip_smoke.py says
+GRAD_TOL = {"float32": 5e-3, "bfloat16": 5e-2}
 
 
 @pytest.fixture
@@ -84,12 +93,103 @@ def test_kernel_refuses_unsupported_width(dev):
     assert FusedNerfRender.launches == before
 
 
-def test_kernel_refuses_grad(dev):
-    model = NeRFModel().to(dev)
+def _assert_grads(got, ref, cdt):
+    """Each gradient tensor within tol of its max |g|, the max floored at
+    1e-2 of the largest gradient element of the model: b10s is one sum of
+    terms of both signs, whose residue alone is no scale."""
+    g, r = grad_views(*got, 256), grad_views(*ref, 256)
+    floor = 1e-2 * max(float(v.abs().max()) for v in r.values())
+    for k in r:
+        assert torch.isfinite(g[k]).all(), k
+        scale = max(float(r[k].abs().max()), floor)
+        err = float((g[k] - r[k]).abs().max())
+        assert err <= GRAD_TOL[cdt] * scale, (k, err, scale)
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(300, 37), (5, 8), (133, 64)])
+@pytest.mark.parametrize("white_bg", [True, False])
+def test_train_kernel_matches_plain(dev, cdt, shape, white_bg):
+    """Odd S (chunks span rays), a ray count that leaves CTAs idle, and 133
+    rays (one more than the SMs: two rays on some CTAs)."""
+    model = NeRFModel(compute_dtype=cdt,
+                      generator=torch.Generator().manual_seed(4)).to(dev)
     fr = FusedNerfRender(model, NEAR, FAR)
-    ro, rd, t = _inputs(4, 8, dev)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        fr(model, ro, rd, rd, t)
+    ro, rd, t = _inputs(*shape, dev, seed=1)
+    tgt = torch.rand(shape[0], 3, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+    with torch.no_grad():
+        packed = fr.pack(model)
+        o_aff, d_aff = fr.affine(ro, rd)
+        before = FusedNerfRender.train_launches
+        got = fr._train(packed, o_aff, d_aff, rd, t, tgt, white_bg)
+        torch.cuda.synchronize()
+        assert FusedNerfRender.train_launches == before + 1
+        ref = fused_train_plain(packed, o_aff, d_aff, rd, t, tgt, white_bg, 10, 4)
+    torch.testing.assert_close(got[0], ref[0], rtol=TOL[cdt], atol=0)
+    for i in (1, 2, 3):
+        torch.testing.assert_close(got[i], ref[i], atol=TOL[cdt], rtol=0)
+    _assert_grads(got[4], ref[4], cdt)
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(300, 37), (7, 13)])
+def test_backward_kernel_matches_plain_and_autograd(dev, cdt, shape):
+    """The backward kernel against its plain version, and through autograd
+    (the forward kernel, then the backward kernel) from a loss on rgb, acc
+    and depth."""
+    model = NeRFModel(compute_dtype=cdt,
+                      generator=torch.Generator().manual_seed(5)).to(dev)
+    fr = FusedNerfRender(model, NEAR, FAR)
+    ro, rd, t = _inputs(*shape, dev, seed=3)
+    g_ray = torch.randn(shape[0], 8, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(6))
+    g_ray[:, 5:] = 0
+    with torch.no_grad():
+        packed = fr.pack(model)
+        o_aff, d_aff = fr.affine(ro, rd)
+        got = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+        ref = fused_render_bwd_plain(packed, o_aff, d_aff, rd, t, g_ray, 10, 4)
+    _assert_grads(got, ref, cdt)
+    before = (FusedNerfRender.launches, FusedNerfRender.bwd_launches)
+    out = fr(model, ro, rd, rd, t)
+    loss = (torch.sum(out["rgb"] * g_ray[:, :3]) + torch.sum(out["acc"] * g_ray[:, 3])
+            + torch.sum(out["depth"] * g_ray[:, 4]))
+    loss.backward()
+    assert (FusedNerfRender.launches, FusedNerfRender.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    b1 = model.linears(model.block1)[0]
+    assert b1.weight.grad.dtype == torch.float32
+    torch.testing.assert_close(b1.weight.grad.T[:63],
+                               grad_views(*got, 256)["w1"][:63])
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_train_step_on_card_matches_cpu(dev, cdt):
+    """Two hierarchical 8+16 steps of the same state on one batch (perturb
+    off), on the card through the kernels and on the CPU through the plain
+    versions: loss and mse within the kernel tolerance; parameters within
+    the Adam sign noise of tests/test_torch_port_train.py (2 lr per step)."""
+    kw = dict(near=NEAR, far=FAR, num_samples=8, num_fine_samples=16,
+              perturb=False, white_background=True)
+    cfg = Config(hidden_dim=256, compute_dtype=cdt, **kw)
+    states = [create_train_state(cfg, device=d) for d in ("cpu", dev)]
+    ro, rd, _ = _inputs(64, 1, "cpu", seed=7)
+    tgt = torch.rand(64, 3, generator=torch.Generator().manual_seed(8))
+    metrics = []
+    for st in states:
+        _, train_on_batch = _make_step_body(st.params, RenderSettings(**kw), 64, 0)
+        d = st.params.block1[0].weight.device
+        batch = RayBatch(*(x.to(d) for x in (ro, rd, tgt, rd)))
+        before = FusedNerfRender.train_launches
+        metrics.append([train_on_batch(st, batch) for _ in range(2)])
+        assert FusedNerfRender.train_launches - before == (4 if d.type == "cuda" else 0)
+    for m_cpu, m_gpu in zip(*metrics):
+        for k in ("loss", "mse"):
+            torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k],
+                                       rtol=10 * TOL[cdt], atol=0)
+    for a, b in zip(states[0].params.parameters(), states[1].params.parameters()):
+        torch.testing.assert_close(b.detach().cpu(), a.detach(), atol=4 * 5e-4, rtol=0)
 
 
 @pytest.mark.parametrize("fine_sampling", ["merge", "resample"])
