@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Bit-for-bit check of the NeRF kernels across two checkouts, on one GPU.
+
+A change to the kernel pieces that several families share
+(``nerf_tpu_torch/csrc/render_common.cuh``) must leave the kernels of the
+families it did not mean to touch computing what they computed. This script
+runs the NeRF forward render, train pass and render backward on seeded
+inputs (300 x 37 and 1024 x 64, float32 and bfloat16) with the checkout it
+is given, saves every output, and compares two such files with
+``torch.equal``:
+
+    # in each checkout (this one, and e.g. the parent unpacked by
+    # `git archive` into a directory .gitignore lists)
+    python3 chip_build_check.py save OUT.pt [CHECKOUT]
+    python3 chip_build_check.py compare A.pt B.pt
+
+``CHECKOUT`` (default: this script's directory) is put first on the path,
+so that one copy of this script can drive an older checkout. Needs a CUDA
+device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+
+def _inputs(torch, dev, num_rays: int, s: int, seed: int):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cam = torch.nn.functional.normalize(
+        torch.randn(num_rays, 3, generator=g, device=dev), dim=-1) * 4.0
+    look = torch.randn(num_rays, 3, generator=g, device=dev) * 0.3 - cam
+    rays_d = torch.nn.functional.normalize(look, dim=-1)
+    t = torch.sort(2.0 + 4.0 * torch.rand(num_rays, s, generator=g, device=dev),
+                   dim=-1).values
+    return cam, rays_d, t, torch.rand(num_rays, 3, generator=g, device=dev)
+
+
+def save(out: str, checkout: str) -> int:
+    sys.path.insert(0, checkout)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_build_check: no CUDA device", file=sys.stderr)
+        return 2
+    from nerf_tpu_torch.models.nerf import NeRFModel
+    from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    res = {}
+    for cdt in ("float32", "bfloat16"):
+        model = NeRFModel(compute_dtype=cdt,
+                          generator=torch.Generator().manual_seed(7)).to(dev)
+        fr = FusedNerfRender(model, 2.0, 6.0)
+        with torch.no_grad():
+            packed = fr.pack(model)
+            for r, s in ((300, 37), (1024, 64)):
+                key = f"{cdt} {r}x{s}"
+                ro, rd, t, tgt = _inputs(torch, dev, r, s, r + s)
+                for k, v in fr(packed, ro, rd, rd, t).items():
+                    res[f"fwd {key} {k}"] = v.cpu()
+                o_aff, d_aff = fr.affine(ro, rd)
+                loss, rgb, acc, weights, (gw, gv) = fr._train(
+                    packed, o_aff, d_aff, rd, t, tgt, True)
+                for k, v in (("loss", loss), ("rgb", rgb), ("acc", acc),
+                             ("weights", weights), ("gw", gw), ("gv", gv)):
+                    res[f"train {key} {k}"] = v.cpu()
+                g_ray = torch.randn(r, 8, device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(3))
+                g_ray[:, 5:] = 0
+                gw, gv = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+                res[f"bwd {key} gw"], res[f"bwd {key} gv"] = gw.cpu(), gv.cpu()
+    torch.cuda.synchronize()
+    torch.save(res, out)
+    print(f"chip_build_check: saved {len(res)} outputs of {checkout} to {out}")
+    return 0
+
+
+def compare(a_path: str, b_path: str) -> int:
+    import torch
+
+    a, b = torch.load(a_path), torch.load(b_path)
+    if set(a) != set(b):
+        print(f"chip_build_check: the files hold other outputs: "
+              f"{sorted(set(a) ^ set(b))}", file=sys.stderr)
+        return 1
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    for k in differ:
+        print(f"  differs: {k}, max abs {float((a[k] - b[k]).abs().max()):.3e}")
+    print(f"chip_build_check: {len(a) - len(differ)} of {len(a)} outputs "
+          f"bit-identical")
+    return 1 if differ else 0
+
+
+def main(argv) -> int:
+    if len(argv) >= 2 and argv[0] == "save":
+        return save(argv[1], argv[2] if len(argv) > 2
+                    else os.path.dirname(os.path.abspath(__file__)))
+    if len(argv) == 3 and argv[0] == "compare":
+        return compare(argv[1], argv[2])
+    print(__doc__, file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -37,10 +37,27 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      samples, white background, a 1<<20 synthetic pool on the card, warm-up,
      timed chained steps) in rays/s, and a torch.profiler trace of one
      lego.txt step: the train kernel's share of wall time, the other
-     kernels, the device idle share.
+     kernels, the device idle share;
+  7. the SIREN kernels against their plain versions on the card (TF32
+     off): the forward render at configs/lego_siren.txt's chunk and samples
+     (1024 rays x 256), a ragged ray count (1000 x 256) and an odd S (1024 x
+     37), the train pass and the render backward at 1024 x 256, float32 and
+     bfloat16, timed in turns against their plain versions and their bound;
+  8. serving configs/lego_siren.txt (SIREN, coarse-only 256 samples, chunk
+     1024, bf16) as in 4: each image request must give a 400x400 PNG and
+     launch the SIREN forward kernel exactly ceil(160000/1024) = 157 times,
+     one image held against the unfused render;
+  9. training configs/lego_siren.txt as in 5: 200 iterations, finite losses,
+     the mse at 190 under that at 0 (the ratio is printed), exactly 200
+     train-kernel launches and 157 forward launches (the validation image),
+     a bit-identical resume from step 100 to 120, three render-route steps
+     with 3 backward launches, the train rate of the lego_siren step and a
+     profile of one step; then bench.py's train_siren protocol (flat SIREN,
+     bf16, 1024 x 256, the 1<<20 pool, warm-up, 50 chained steps timed to a
+     host fetch) in rays/s.
 
-The last lines are a JSON object of per-kernel numbers, the card, and
-``{"ok": true, "device": {...}}``. Needs a CUDA device and this checkout;
+The last lines are a JSON object of per-kernel numbers (all six kernels),
+the card, and ``{"ok": true, "device": {...}}``. Needs a CUDA device and this checkout;
 imports nothing of JAX or of the JAX package.
 """
 
@@ -87,6 +104,14 @@ GRAD_TOL = {"float32": 5e-3, "bfloat16": 5e-2}
 # per-sample MACs of the backward's skipped input-gradient products
 # (dz1 w1^T, dz6 w6p^T, dzr0 wr0d^T at the real widths 63/63/27)
 SKIPPED_MACS = 256 * 63 + 256 * 63 + 128 * 27
+# SIREN at the real widths, per sample: forward MACs (3x256, 7 x 256x256,
+# the 256 density row, 256x256, 283x128, 128x3), sines of the forward
+# (8 x 256 + 128; the backward takes as many cosines), and the backward's
+# skipped input products (dz1 w1^T, dzr0 wr0d^T)
+SIREN_MACS = 3 * 256 + 7 * 256 * 256 + 256 + 256 * 256 + 283 * 128 + 128 * 3
+SIREN_TRIG = 8 * 256 + 128
+SIREN_SKIPPED = 256 * 3 + 128 * 27
+R_SIREN, S_SIREN = 1024, 256   # lego_siren.txt: chunk_size, num_samples
 
 
 def fail(msg: str) -> None:
@@ -114,11 +139,29 @@ def mlp_macs(h: int, real_p: int, real_d: int) -> int:
             + h * (h + 1) + (h + real_d) * (h // 2) + (h // 2) * 3)
 
 
-def bound_ms(num_rays: int, s: int, cdt: str, weight_bytes: int) -> tuple:
-    flops = 2 * mlp_macs(256, 63, 27) * num_rays * s
-    nbytes = (3 * num_rays * 3 * 4 + num_rays * s * 4 + weight_bytes
-              + num_rays * 3 * 4 + 2 * num_rays * 4 + num_rays * s * 4)
-    t_ops = flops / PEAK_FLOPS[cdt] * 1e3
+def bound_ms(num_rays: int, s: int, cdt: str, weight_bytes: int, macs: int,
+             trig: int = 0, grad_bytes: int | None = None,
+             train: bool = False) -> tuple:
+    """Least time of a forward render (``grad_bytes`` None) or of a train
+    pass / render backward over num_rays x s samples: the products (``macs``
+    per sample, 2 operations each) over the compute dtype's peak, and the
+    sines and cosines (``trig`` per sample, one operation each) over the
+    float32 CUDA-core rate; in float32 both share the CUDA cores (their
+    sum), in bfloat16 the products have the tensor cores beside them (the
+    larger). Against the bytes that must move: rays, t, weights, the
+    target or cotangent and the gradients, and the outputs (rgb, acc,
+    depth, compositing weights)."""
+    n = num_rays * s
+    nbytes = 3 * num_rays * 3 * 4 + n * 4 + weight_bytes
+    if grad_bytes is None:
+        nbytes += num_rays * 5 * 4 + n * 4
+    else:
+        nbytes += grad_bytes + num_rays * (3 if train else 8) * 4
+        if train:
+            nbytes += num_rays * 4 * 4 + n * 4
+    t_mm = 2 * macs * n / PEAK_FLOPS[cdt] * 1e3
+    t_trig = trig * n / PEAK_FLOPS["float32"] * 1e3
+    t_ops = t_mm + t_trig if cdt == "float32" else max(t_mm, t_trig)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -134,6 +177,19 @@ def time_calls(torch, fn, reps: int) -> list:
         b.synchronize()
         out.append(a.elapsed_time(b))
     return out
+
+
+def camera_batch(torch, dev, num_rays: int, s: int, seed: int) -> tuple:
+    """(rays_o, rays_d, t, target): cameras on a radius-4 sphere looking
+    at the scene, as an orbit, sorted t in [2, 6], random targets."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cam = torch.nn.functional.normalize(
+        torch.randn(num_rays, 3, generator=g, device=dev), dim=-1) * 4.0
+    look = torch.randn(num_rays, 3, generator=g, device=dev) * 0.3 - cam
+    rays_d = torch.nn.functional.normalize(look, dim=-1)
+    t = torch.sort(2.0 + 4.0 * torch.rand(num_rays, s, generator=g, device=dev),
+                   dim=-1).values
+    return cam, rays_d, t, torch.rand(num_rays, 3, generator=g, device=dev)
 
 
 def check_kernel(torch, dev):
@@ -153,15 +209,7 @@ def check_kernel(torch, dev):
         weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
                         + packed.vec.numel() * 4)
         for s in (64, 192):
-            g = torch.Generator(device=dev).manual_seed(1000 + s)
-            # cameras on a radius-4 sphere looking at the scene, as an orbit
-            cam = torch.nn.functional.normalize(
-                torch.randn(R_CHECK, 3, generator=g, device=dev), dim=-1) * 4.0
-            look = torch.randn(R_CHECK, 3, generator=g, device=dev) * 0.3 - cam
-            rays_d = torch.nn.functional.normalize(look, dim=-1)
-            rays_o = cam
-            t = torch.sort(2.0 + 4.0 * torch.rand(R_CHECK, s, generator=g,
-                                                  device=dev), dim=-1).values
+            rays_o, rays_d, t, _ = camera_batch(torch, dev, R_CHECK, s, 1000 + s)
             o_aff, d_aff = fr.affine(rays_o, rays_d)
 
             def plain():
@@ -192,7 +240,8 @@ def check_kernel(torch, dev):
                 torch.cuda.empty_cache()
             ms = statistics.median(times["kernel"])
             plain_ms = statistics.median(times["plain"])
-            bms, by = bound_ms(R_CHECK, s, cdt, weight_bytes)
+            bms, by = bound_ms(R_CHECK, s, cdt, weight_bytes,
+                               mlp_macs(256, 63, 27))
             bad = {k: v for k, v in errs.items() if v > TOL[cdt][k]}
             say(f"kernel fused_render_fwd {cdt} R={R_CHECK} S={s}: max_abs_err "
                 + " ".join(f"{k}={v:.3e}(tol {TOL[cdt][k]:.0e})"
@@ -247,12 +296,15 @@ def get(url: str) -> tuple:
         return r.status, r.headers.get("Content-Type"), r.read()
 
 
-def serve(torch, dev, tmp: str):
+def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str):
+    """Phase 4 (``config`` lego.txt, the NeRF kernels) or 8 (lego_siren.txt,
+    the SIREN kernels): a checkpoint of ``config`` from its seed, served on
+    cuda over loopback; returns the kernel launches of the three image
+    requests."""
     import dataclasses
 
     from nerf_tpu_torch.config import parse_config_file
     from nerf_tpu_torch.models.registry import model_from_config
-    from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
     from nerf_tpu_torch.serve import RenderService, make_http_server, request_seed
     from nerf_tpu_torch.train.loop import render_settings_from_config
     from nerf_tpu_torch.train.step import make_eval_render
@@ -260,18 +312,22 @@ def serve(torch, dev, tmp: str):
     from nerf_tpu_torch.utils.png import decode_png
 
     scene = os.path.join(tmp, "scene")
-    write_sphere_scene(scene, HW)
-    cfg = parse_config_file(os.path.join(ROOT, "configs", "lego.txt"))
+    if not os.path.isdir(scene):
+        write_sphere_scene(scene, HW)
+    cfg = parse_config_file(os.path.join(ROOT, "configs", config))
     cfg = dataclasses.replace(cfg, dataset_path=scene,
                               save_path=os.path.join(tmp, "models"))
     gen = torch.Generator().manual_seed(cfg.seed)
     model = model_from_config(cfg, generator=gen)
-    fine = model_from_config(cfg, generator=gen)
+    fine = None
+    if cfg.num_fine_samples > 0 and cfg.separate_fine_model:
+        fine = model_from_config(cfg, generator=gen)
     ckpt = save_checkpoint(model, fine, cfg.save_path, cfg.model_type, 0)
     svc = RenderService.from_checkpoint(cfg, ckpt, device=dev, log=say)
     if svc.hw != (HW, HW):
         fail(f"service hw {svc.hw}")
-    per_image = 2 * math.ceil(HW * HW / cfg.chunk_size)
+    passes = 2 if cfg.num_fine_samples > 0 else 1
+    per_image = passes * math.ceil(HW * HW / cfg.chunk_size)
 
     server = make_http_server(svc, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -279,37 +335,37 @@ def serve(torch, dev, tmp: str):
     base = f"http://127.0.0.1:{server.server_address[1]}"
     m = ",".join(str(x) for x in svc.orbit_pose(5)[:3].reshape(-1))
     images, times = {}, []
-    FusedNerfRender.launches = 0        # the main path's count starts here
+    fused_cls.launches = 0              # the main path's count starts here
     try:
         code, ctype, body = get(base + "/health")
         health = json.loads(body)
         if code != 200 or health["status"] != "ok" or health["hw"] != [HW, HW]:
             fail(f"/health: {code} {health}")
         for route in ("/pose/0", "/pose/1", f"/render?m={m}"):
-            before = FusedNerfRender.launches
+            before = fused_cls.launches
             t0 = time.perf_counter()
             code, ctype, body = get(base + route)
             dt = time.perf_counter() - t0
-            n = FusedNerfRender.launches - before
+            n = fused_cls.launches - before
             if code != 200 or ctype != "image/png" or body[:8] != b"\x89PNG\r\n\x1a\n":
-                fail(f"{route}: status {code}, type {ctype}")
+                fail(f"{config} {route}: status {code}, type {ctype}")
             img = decode_png(body)
             if img.shape != (HW, HW, 3):
-                fail(f"{route}: image shape {img.shape}")
+                fail(f"{config} {route}: image shape {img.shape}")
             if n != per_image:
-                fail(f"{route}: {n} fused render launches, want {per_image}")
+                fail(f"{config} {route}: {n} fused render launches, want {per_image}")
             images[route.split("?")[0]] = img
             times.append(dt)
-            say(f"serve {route.split('?')[0]}: 200 image/png {HW}x{HW}, "
+            say(f"serve {config} {route.split('?')[0]}: 200 image/png {HW}x{HW}, "
                 f"{n} kernel launches, {dt * 1e3:.1f} ms, "
                 f"{HW * HW / dt:.0f} rays/s")
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
-    launches = FusedNerfRender.launches
+    launches = fused_cls.launches
     if launches != 3 * per_image:
-        fail(f"main path launched the kernel {launches} times")
+        fail(f"{config}: main path launched the kernel {launches} times")
 
     # the served /pose/1 against the unfused render of the same request
     ref_render = make_eval_render(svc.params[0], render_settings_from_config(cfg),
@@ -323,25 +379,20 @@ def serve(torch, dev, tmp: str):
                      torch.from_numpy(d).to(dev), g).rgb
     ref = ref.reshape(h, w, 3).clamp(0, 1).cpu().numpy()
     if not np.isfinite(ref).all():
-        fail("unfused reference render is not finite")
+        fail(f"{config}: unfused reference render is not finite")
     diff = np.abs(images["/pose/1"].astype(np.float32) / 255.0 - ref)
-    say(f"serve /pose/1 vs unfused render: mean abs {diff.mean():.3e} "
+    say(f"serve {config} /pose/1 vs unfused render: mean abs {diff.mean():.3e} "
         f"(tol {SERVE_TOL_MEAN:.0e}), max abs {diff.max():.3e}")
     if diff.mean() > SERVE_TOL_MEAN:
-        fail("served image disagrees with the unfused render")
+        fail(f"{config}: served image disagrees with the unfused render")
     med = statistics.median(times)
     say(f"serve: {med * 1e3:.1f} ms per {HW}x{HW} request (median of "
         f"{len(times)}), {HW * HW / med:.0f} rays/s, {per_image} launches "
-        f"per request, model lego.txt ({cfg.compute_dtype}, "
+        f"per request, model {config} ({cfg.compute_dtype}, "
         f"{cfg.num_samples}+{cfg.num_fine_samples})")
-    profile_request(torch, svc)
-    return launches
-
-
-def profile_request(torch, svc) -> None:
-    """Where one request's time goes (after the launch count was read)."""
     profile_device(torch, lambda: svc.render_pose(svc.orbit_pose(2), key_idx=2),
-                   "fused_render_fwd", "one request")
+                   kernel, f"one {config} request")
+    return launches
 
 
 def profile_device(torch, fn, kernel: str, what: str) -> None:
@@ -390,29 +441,15 @@ def profile_device(torch, fn, kernel: str, what: str) -> None:
 # ---------------------------------------------------------------- phase 3b
 
 
-def grad_bound_ms(num_rays: int, s: int, cdt: str, weight_bytes: int,
-                  grad_bytes: int, train: bool) -> tuple:
-    """Least time of one train pass / render backward: the forward's MACs
-    and twice them for the backward, less the skipped input products,
-    against the bytes that must move (rays, t, target or cotangent,
-    weights, gradients, and the train pass's rgb, acc and weights)."""
-    flops = 2 * (3 * mlp_macs(256, 63, 27) - SKIPPED_MACS) * num_rays * s
-    nbytes = (3 * num_rays * 3 * 4 + num_rays * s * 4 + weight_bytes + grad_bytes
-              + num_rays * (3 if train else 8) * 4)
-    if train:
-        nbytes += num_rays * 4 * 4 + num_rays * s * 4
-    t_ops = flops / PEAK_FLOPS[cdt] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def grad_errors(torch, got, ref) -> dict:
+def grad_errors(torch, got, ref, views=None) -> dict:
     """Per gradient tensor, max |kernel - plain| over max |plain|, the max
     floored at 1e-2 of the model's largest gradient element (b10s is one
-    sum of terms of both signs, whose residue alone is no scale)."""
+    sum of terms of both signs, whose residue alone is no scale). ``views``
+    names the tensors of a flat pair (default: the NeRF layout)."""
     from nerf_tpu_torch.ops.cuda.fused_render import grad_views
 
-    g, r = grad_views(*got, 256), grad_views(*ref, 256)
+    views = views or grad_views
+    g, r = views(*got, 256), views(*ref, 256)
     floor = 1e-2 * max(float(v.abs().max()) for v in r.values())
     out = {}
     for k in r:
@@ -444,14 +481,7 @@ def check_grad_kernels(torch, dev):
                         + packed.vec.numel() * 4)
         grad_bytes = (packed.wmat.numel() + packed.vec.numel()) * 4
         for s in (64, 192, 256):
-            g = torch.Generator(device=dev).manual_seed(2000 + s)
-            cam = torch.nn.functional.normalize(
-                torch.randn(R_TRAIN, 3, generator=g, device=dev), dim=-1) * 4.0
-            look = torch.randn(R_TRAIN, 3, generator=g, device=dev) * 0.3 - cam
-            rd = torch.nn.functional.normalize(look, dim=-1)
-            t = torch.sort(2.0 + 4.0 * torch.rand(R_TRAIN, s, generator=g,
-                                                  device=dev), dim=-1).values
-            tgt = torch.rand(R_TRAIN, 3, generator=g, device=dev)
+            cam, rd, t, tgt = camera_batch(torch, dev, R_TRAIN, s, 2000 + s)
             o_aff, d_aff = fr.affine(cam, rd)
             with torch.no_grad():
                 ref = fused_train_plain(packed, o_aff, d_aff, rd, t, tgt, True, 10, 4)
@@ -511,8 +541,10 @@ def check_grad_kernels(torch, dev):
             for name in ("fused_render_train", "fused_render_bwd"):
                 ms = statistics.median(times[(name, "kernel")])
                 plain_ms = statistics.median(times[(name, "plain")])
-                bms, by = grad_bound_ms(R_TRAIN, s, cdt, weight_bytes, grad_bytes,
-                                        name == "fused_render_train")
+                bms, by = bound_ms(R_TRAIN, s, cdt, weight_bytes,
+                                   3 * mlp_macs(256, 63, 27) - SKIPPED_MACS,
+                                   grad_bytes=grad_bytes,
+                                   train=name == "fused_render_train")
                 say(f"kernel {name} {cdt} R={R_TRAIN} S={s}: kernel {ms:.3f} ms, "
                     f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), "
                     f"share of bound {bms / ms:.4f}")
@@ -523,6 +555,155 @@ def check_grad_kernels(torch, dev):
                                                bound_ms=bms, bound_by=by)
             if bad:
                 fail(f"train/backward kernels {cdt} S={s} disagree: {bad}")
+    return results
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def check_siren_kernels(torch, dev):
+    """The SIREN forward at 1024 x 256 (lego_siren.txt's chunk and
+    samples), 1000 x 256 (ragged) and 1024 x 37 (odd S); the train pass and
+    the render backward at 1024 x 256, and the two backward routes against
+    each other; float32 and bfloat16, TF32 off; the tolerances of the NeRF
+    kernels."""
+    from nerf_tpu_torch.models.siren import SirenModel
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import (
+        FusedSirenRender, fused_siren_render_bwd_plain, fused_siren_render_plain,
+        fused_siren_train_plain, grad_views)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for cdt in ("float32", "bfloat16"):
+        model = SirenModel(compute_dtype=cdt,
+                           generator=torch.Generator().manual_seed(7)).to(dev)
+        fr = FusedSirenRender(model, 2.0, 6.0, normalize=True)
+        k = fr.consts
+        with torch.no_grad():
+            packed = fr.pack(model)
+        weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
+                        + packed.vec.numel() * 4)
+        grad_bytes = (packed.wmat.numel() + packed.vec.numel()) * 4
+        worst = 0.0
+        for r, s in ((R_SIREN, S_SIREN), (1000, S_SIREN), (R_SIREN, 37)):
+            ro, rd, t, _ = camera_batch(torch, dev, r, s, 3000 + r + s)
+            o_aff, d_aff = fr.affine(ro, rd)
+
+            def plain():
+                return fused_siren_render_plain(packed, o_aff, d_aff, rd, t, k)
+
+            def kern():
+                return fr._forward(packed, o_aff, d_aff, rd, t)
+
+            with torch.no_grad():
+                ref = plain()
+                out = kern()
+                torch.cuda.synchronize()
+                errs = {}
+                for i, name in enumerate(("rgb", "acc", "depth", "weights")):
+                    if not torch.isfinite(out[i]).all():
+                        fail(f"siren kernel {cdt} R={r} S={s}: non-finite {name}")
+                    errs[name] = float((out[i] - ref[i]).abs().max())
+                del ref, out
+                torch.cuda.empty_cache()
+                timed = (r, s) == (R_SIREN, S_SIREN)
+                if timed:
+                    times = {"plain": [], "kernel": []}
+                    plain(); kern()                       # warm-up
+                    for name in ("plain", "kernel", "kernel", "plain"):
+                        fn = plain if name == "plain" else kern
+                        times[name] += time_calls(torch, fn, 3)
+                    torch.cuda.empty_cache()
+            bad = {n: v for n, v in errs.items() if v > TOL[cdt][n]}
+            line = (f"kernel fused_render_siren_fwd {cdt} R={r} S={s}: max_abs_err "
+                    + " ".join(f"{n}={v:.3e}(tol {TOL[cdt][n]:.0e})"
+                               for n, v in errs.items()))
+            if timed:
+                ms = statistics.median(times["kernel"])
+                plain_ms = statistics.median(times["plain"])
+                bms, by = bound_ms(r, s, cdt, weight_bytes, SIREN_MACS, SIREN_TRIG)
+                line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                         f"{bms:.3f} ms ({by}), share of bound {bms / ms:.4f}")
+                results[("fused_render_siren_fwd", cdt)] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            say(line)
+            if bad:
+                fail(f"siren kernel {cdt} R={r} S={s} disagrees with its plain "
+                     f"version: {bad}")
+            worst = max(worst, max(errs.values()))
+        results[("fused_render_siren_fwd", cdt)]["err"] = worst
+
+        # the train pass and the render backward at lego_siren.txt's shape
+        r, s = R_TRAIN, S_SIREN
+        cam, rd, t, tgt = camera_batch(torch, dev, r, s, 4000 + s)
+        o_aff, d_aff = fr.affine(cam, rd)
+        with torch.no_grad():
+            ref = fused_siren_train_plain(packed, o_aff, d_aff, rd, t, tgt, True, k)
+            got = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+            torch.cuda.synchronize()
+            errs = {"loss": float(abs(got[0] - ref[0]) / abs(ref[0]))}
+            for i, name in ((1, "rgb"), (2, "acc"), (3, "weights")):
+                if not torch.isfinite(got[i]).all():
+                    fail(f"siren train kernel {cdt}: non-finite {name}")
+                errs[name] = float((got[i] - ref[i]).abs().max())
+            gerr = grad_errors(torch, got[4], ref[4], grad_views)
+            scale = 1.0 / (3.0 * r)
+            err = ref[1] + (1.0 - ref[2])[:, None] - tgt
+            g_ray = torch.zeros(r, 8, device=dev)
+            g_ray[:, :3] = 2.0 * scale * err
+            g_ray[:, 3] = -g_ray[:, :3].sum(-1)
+            ref_b = fused_siren_render_bwd_plain(packed, o_aff, d_aff, rd, t, g_ray, k)
+            got_b = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+            torch.cuda.synchronize()
+            berr = grad_errors(torch, got_b, ref_b, grad_views)
+            cross = grad_errors(torch, got_b, got[4], grad_views)
+            del ref, got, ref_b, got_b
+            torch.cuda.empty_cache()
+            fns = {
+                ("fused_render_siren_train", "plain"): lambda: fused_siren_train_plain(
+                    packed, o_aff, d_aff, rd, t, tgt, True, k),
+                ("fused_render_siren_train", "kernel"): lambda: fr._train(
+                    packed, o_aff, d_aff, rd, t, tgt, True),
+                ("fused_render_siren_bwd", "plain"): lambda: fused_siren_render_bwd_plain(
+                    packed, o_aff, d_aff, rd, t, g_ray, k),
+                ("fused_render_siren_bwd", "kernel"): lambda: fr._backward(
+                    packed, o_aff, d_aff, rd, t, g_ray),
+            }
+            times = {key: [] for key in fns}
+            for f in fns.values():
+                f()                                    # warm-up
+            for name in ("fused_render_siren_train", "fused_render_siren_bwd"):
+                for which in ("plain", "kernel", "kernel", "plain"):
+                    times[(name, which)] += time_calls(torch, fns[(name, which)], 2)
+            torch.cuda.empty_cache()
+        bad = {n: v for n, v in errs.items() if v > TOL[cdt]["rgb"]}
+        for label, e in (("train", gerr), ("bwd", berr), ("bwd vs train", cross)):
+            w = max(e, key=e.get)
+            say(f"kernel siren {label} {cdt} R={r} S={s}: gradient error (max abs "
+                f"over max |g|) worst {w}={e[w]:.3e} (tol {GRAD_TOL[cdt]:.0e}), "
+                f"median {statistics.median(e.values()):.3e}; "
+                + " ".join(f"{n}={v:.1e}" for n, v in e.items()))
+            bad.update({f"{label}:{n}": v for n, v in e.items() if v > GRAD_TOL[cdt]})
+        say(f"kernel siren train {cdt} R={r} S={s}: "
+            + " ".join(f"{n}={v:.3e}" for n, v in errs.items())
+            + f" (tol {TOL[cdt]['rgb']:.0e})")
+        for name in ("fused_render_siren_train", "fused_render_siren_bwd"):
+            ms = statistics.median(times[(name, "kernel")])
+            plain_ms = statistics.median(times[(name, "plain")])
+            bms, by = bound_ms(r, s, cdt, weight_bytes,
+                               3 * SIREN_MACS - SIREN_SKIPPED, 2 * SIREN_TRIG,
+                               grad_bytes, name == "fused_render_siren_train")
+            say(f"kernel {name} {cdt} R={r} S={s}: kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), share of bound "
+                f"{bms / ms:.4f}")
+            e = gerr if name == "fused_render_siren_train" else berr
+            worst = max(list(e.values()) + (list(errs.values()) if name ==
+                                            "fused_render_siren_train" else []))
+            results[(name, cdt)] = dict(err=worst, ms=ms, plain_ms=plain_ms,
+                                        bound_ms=bms, bound_by=by)
+        if bad:
+            fail(f"siren train/backward kernels {cdt} disagree: {bad}")
     return results
 
 
@@ -544,66 +725,75 @@ def read_scalars(log_dir: str) -> dict:
     return out
 
 
-def train(torch, dev, tmp: str) -> dict:
+def train(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
+          max_ratio: float) -> dict:
+    """Phase 5 (``config`` lego.txt, the NeRF kernels, the mse at 190 under
+    ``max_ratio`` = 0.5 of that at 0) or 9 (lego_siren.txt, the SIREN
+    kernels, ``max_ratio`` 1)."""
     import dataclasses
 
     from nerf_tpu_torch.config import parse_config_file
     from nerf_tpu_torch.data.pipeline import load_scene
-    from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
     from nerf_tpu_torch.render.renderer import render_rays
     from nerf_tpu_torch.train.loop import fit, render_settings_from_config
     from nerf_tpu_torch.train.state import create_train_state
     from nerf_tpu_torch.utils.checkpoint import load_checkpoint, restore_train_state
 
-    cfg = parse_config_file(os.path.join(ROOT, "configs", "lego.txt"))
+    cfg = parse_config_file(os.path.join(ROOT, "configs", config))
+    name = cfg.model_type
     cfg = dataclasses.replace(
         cfg, dataset_path=os.path.join(tmp, "scene"), num_iters=200,
         log_interval=10, val_interval=100, save_interval=100,
-        save_path=os.path.join(tmp, "train_models"),
-        log_dir=os.path.join(tmp, "train_logs"))
+        save_path=os.path.join(tmp, f"train_models_{name}"),
+        log_dir=os.path.join(tmp, f"train_logs_{name}"))
+    passes = 2 if cfg.num_fine_samples > 0 else 1
     lines: list = []
-    FusedNerfRender.launches = FusedNerfRender.train_launches = 0
-    FusedNerfRender.bwd_launches = 0        # the main path's counts start here
+    fused_cls.launches = fused_cls.train_launches = 0
+    fused_cls.bwd_launches = 0              # the main path's counts start here
     t0 = time.perf_counter()
     state = fit(cfg, device=dev, log=lines.append)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = (FusedNerfRender.train_launches, FusedNerfRender.launches,
-              FusedNerfRender.bwd_launches)
-    say(f"train: fit lego.txt 200 iterations in {wall:.1f} s; launches: "
+    counts = (fused_cls.train_launches, fused_cls.launches, fused_cls.bwd_launches)
+    say(f"train: fit {config} 200 iterations in {wall:.1f} s; launches: "
         f"train {counts[0]}, forward {counts[1]}, backward {counts[2]}")
     for line in lines:
         if "[Iter" in line or "Validation" in line:
             say(f"  {line}")
-    want = (2 * cfg.num_iters, 2 * math.ceil(HW * HW / cfg.chunk_size), 0)
+    want = (passes * cfg.num_iters, passes * math.ceil(HW * HW / cfg.chunk_size), 0)
     if counts != want:
-        fail(f"fit launched (train, forward, backward) {counts}, want {want}")
+        fail(f"fit {config} launched (train, forward, backward) {counts}, want {want}")
     scal = read_scalars(cfg.log_dir)
     loss = scal["loss"]
     if sorted(loss) != list(range(0, 200, 10)):
         fail(f"logged iterations {sorted(loss)}")
     if not all(math.isfinite(v) for v in loss.values()):
         fail(f"non-finite logged loss {loss}")
-    if not loss[190] < 0.5 * loss[0]:
-        fail(f"mse at 190 ({loss[190]}) is not under half of that at 0 ({loss[0]})")
+    if not loss[190] < max_ratio * loss[0]:
+        fail(f"{config}: mse at 190 ({loss[190]}) is not under {max_ratio} of "
+             f"that at 0 ({loss[0]})")
     for step in (100, 200):
-        path = os.path.join(cfg.save_path, f"nerf_model_{step:06d}")
+        path = os.path.join(cfg.save_path, f"{name}_model_{step:06d}")
         if not (os.path.exists(path) and os.path.exists(path + ".meta.json")):
             fail(f"missing checkpoint {path}")
-    lego_rps = scal["rays_per_sec"][190]
-    say(f"train: mse {loss[0]:.6f} at 0 -> {loss[190]:.6f} at 190; lego.txt "
-        f"step {lego_rps:.0f} rays/s ({cfg.num_random_rays} rays, "
-        f"{cfg.num_samples}+{cfg.num_fine_samples} samples, {cfg.compute_dtype})")
+    step_rps = scal["rays_per_sec"][190]
+    say(f"train: mse {loss[0]:.6f} at 0 -> {loss[190]:.6f} at 190 (ratio "
+        f"{loss[190] / loss[0]:.4f}); {config} step {step_rps:.0f} rays/s "
+        f"({cfg.num_random_rays} rays, {cfg.num_samples}+{cfg.num_fine_samples} "
+        f"samples, {cfg.compute_dtype})")
 
     # resume: the restore is exact, and every resumed step repeats the
     # first run's mse at the same state.step (the loop restarts at the
     # saved iteration while state.step is one ahead)
-    ckpt = os.path.join(cfg.save_path, "nerf_model_000100")
+    ckpt = os.path.join(cfg.save_path, f"{name}_model_000100")
     saved = load_checkpoint(ckpt)
     probe = create_train_state(cfg, device=dev)
     restore_train_state(probe, ckpt)
     same = probe.step == saved["train_step"] == 101
     for m, sd in ((probe.params, saved["params"]), (probe.fine_params, saved["fine_params"])):
+        if m is None:
+            same &= sd == {}
+            continue
         same &= all(torch.equal(v.cpu(), sd[k]) for k, v in m.state_dict().items())
     for mine, theirs in ((probe.optimizer.mu, saved["optimizer"]["mu"]),
                          (probe.optimizer.nu, saved["optimizer"]["nu"])):
@@ -612,8 +802,8 @@ def train(torch, dev, tmp: str) -> dict:
         fail("the restored step, parameters or Adam moments differ from the save")
     del probe
     cfg2 = dataclasses.replace(cfg, num_iters=120, log_interval=1,
-                               save_path=os.path.join(tmp, "resume_models"),
-                               log_dir=os.path.join(tmp, "resume_logs"))
+                               save_path=os.path.join(tmp, f"resume_models_{name}"),
+                               log_dir=os.path.join(tmp, f"resume_logs_{name}"))
     lines2: list = []
     resumed = fit(cfg2, resume_path=ckpt, device=dev, log=lines2.append)
     loss2 = read_scalars(cfg2.log_dir)["loss"]
@@ -631,9 +821,9 @@ def train(torch, dev, tmp: str) -> dict:
     # and its backward under autograd (the backward kernel), then Adam
     scene = load_scene(cfg, device=dev)
     settings = render_settings_from_config(cfg)
-    fr = FusedNerfRender(state.params, cfg.near, cfg.far)
-    FusedNerfRender.launches = FusedNerfRender.train_launches = 0
-    FusedNerfRender.bwd_launches = 0        # this path's counts start here
+    fr = fused_cls(state.params, cfg.near, cfg.far)
+    fused_cls.launches = fused_cls.train_launches = 0
+    fused_cls.bwd_launches = 0              # this path's counts start here
     mses = []
     for i in range(3):
         g = torch.Generator(device=dev).manual_seed(cfg.seed + i)
@@ -644,48 +834,49 @@ def train(torch, dev, tmp: str) -> dict:
                           generator=g, fine_params=state.fine_params,
                           viewdirs=batch.viewdirs, fused_render=fr)
         mse = torch.mean((out.rgb - batch.rgb) ** 2)
-        (mse + torch.mean((out.rgb_coarse - batch.rgb) ** 2)).backward()
+        loss = mse
+        if passes == 2:
+            loss = loss + torch.mean((out.rgb_coarse - batch.rgb) ** 2)
+        loss.backward()
         state.optimizer.step()
         mses.append(float(mse.detach()))
-    counts = (FusedNerfRender.train_launches, FusedNerfRender.launches,
-              FusedNerfRender.bwd_launches)
-    say(f"train: render route 3 steps, mse {mses}; launches: train {counts[0]}, "
-        f"forward {counts[1]}, backward {counts[2]}")
-    if counts != (0, 6, 6) or not all(math.isfinite(v) for v in mses):
-        fail(f"render route launched {counts}, want (0, 6, 6)")
-    profile_step(torch, state, scene.pool, settings, cfg)
-    return {"train_launches": 2 * cfg.num_iters, "bwd_launches": counts[2],
-            "lego_rps": lego_rps}
+    counts = (fused_cls.train_launches, fused_cls.launches, fused_cls.bwd_launches)
+    say(f"train: {config} render route 3 steps, mse {mses}; launches: train "
+        f"{counts[0]}, forward {counts[1]}, backward {counts[2]}")
+    want = (0, 3 * passes, 3 * passes)
+    if counts != want or not all(math.isfinite(v) for v in mses):
+        fail(f"{config} render route launched {counts}, want {want}")
+    profile_step(torch, state, scene.pool, settings, cfg, kernel, config)
+    return {"train_launches": passes * cfg.num_iters, "bwd_launches": counts[2],
+            "step_rps": step_rps}
 
 
-def profile_step(torch, state, pool, settings, cfg) -> None:
-    """One lego.txt train step under torch.profiler."""
+def profile_step(torch, state, pool, settings, cfg, kernel: str,
+                 config: str) -> None:
+    """One train step of ``config`` under torch.profiler."""
     from nerf_tpu_torch.train.step import make_train_step
 
     step = make_train_step(state.params, settings, cfg.num_random_rays, cfg.seed)
     step(state, pool)
-    profile_device(torch, lambda: step(state, pool), "fused_render_grad",
-                   "one lego.txt train step")
+    profile_device(torch, lambda: step(state, pool), kernel,
+                   f"one {config} train step")
 
 
 # ---------------------------------------------------------------- phase 6
 
 
-def bench_headline(torch, dev) -> float:
-    """bench.py's headline: flat NeRF, bf16, 1024 rays x 256 samples per
-    ray (per-ray jitter), white background, a 1<<20 synthetic pool made on
-    the card, 5 warm-up steps, then 30 chained steps timed to a scalar
-    fetched on the host."""
+def bench_train(torch, dev, model, steps: int, warmup: int, label: str) -> float:
+    """bench.py's train protocol for ``model`` (bf16): 1024 rays x 256
+    samples per ray (per-ray jitter), white background, a 1<<20 synthetic
+    pool made on the card, ``warmup`` steps, then ``steps`` chained steps
+    timed to a scalar fetched on the host."""
     from nerf_tpu_torch.config import Config
     from nerf_tpu_torch.data.pipeline import RayPool
-    from nerf_tpu_torch.models.nerf import NeRFModel
     from nerf_tpu_torch.render.renderer import RenderSettings
     from nerf_tpu_torch.train.optim import make_optimizer
     from nerf_tpu_torch.train.state import TrainState
     from nerf_tpu_torch.train.step import make_train_step
 
-    model = NeRFModel(compute_dtype="bfloat16",
-                      generator=torch.Generator().manual_seed(0)).to(dev)
     state = TrainState(step=0, params=model, fine_params=None,
                        optimizer=make_optimizer(Config(), list(model.parameters())))
     g = torch.Generator(device=dev).manual_seed(1)
@@ -698,20 +889,41 @@ def bench_headline(torch, dev) -> float:
     settings = RenderSettings(near=2.0, far=6.0, num_samples=256,
                               white_background=True, jitter_mode="per_ray")
     step = make_train_step(model, settings, 1024, seed=2)
-    for _ in range(5):
+    for _ in range(warmup):
         m = step(state, pool)
     float(m["loss"])
     t0 = time.perf_counter()
-    for _ in range(30):
+    for _ in range(steps):
         m = step(state, pool)
     loss = float(m["loss"])
     dt = time.perf_counter() - t0
     if not math.isfinite(loss):
-        fail("headline protocol: non-finite loss")
-    rps = 30 * 1024 / dt
-    say(f"bench headline (bench.py protocol, flat NeRF bf16 1024x256): "
-        f"{rps:.0f} rays/s, {dt / 30 * 1e3:.2f} ms per step")
+        fail(f"{label}: non-finite loss")
+    rps = steps * 1024 / dt
+    say(f"{label}: {rps:.0f} rays/s, {dt / steps * 1e3:.2f} ms per step "
+        f"({steps} chained steps)")
     return rps
+
+
+def bench_headline(torch, dev) -> float:
+    """bench.py's headline: flat NeRF, bf16, 5 warm-up steps, 30 timed."""
+    from nerf_tpu_torch.models.nerf import NeRFModel
+
+    model = NeRFModel(compute_dtype="bfloat16",
+                      generator=torch.Generator().manual_seed(0)).to(dev)
+    return bench_train(torch, dev, model, 30, 5, "bench headline (bench.py "
+                       "protocol, flat NeRF bf16 1024x256)")
+
+
+def bench_siren(torch, dev) -> float:
+    """bench.py's train_siren row: flat SIREN, bf16, warm-up (two calls of
+    10 steps there: 20 steps), then 5 x 10 = 50 timed steps."""
+    from nerf_tpu_torch.models.siren import SirenModel
+
+    model = SirenModel(compute_dtype="bfloat16",
+                       generator=torch.Generator().manual_seed(0)).to(dev)
+    return bench_train(torch, dev, model, 50, 20, "bench train_siren (bench.py "
+                       "protocol, flat SIREN bf16 1024x256)")
 
 
 def main() -> int:
@@ -726,7 +938,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
-        from nerf_tpu_torch.ops.cuda import fused_render
+        from nerf_tpu_torch.ops.cuda import build
+        from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
+        from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
     except ImportError as e:
         print(f"chip_smoke: nerf_tpu_torch not found beside this script ({e})",
               file=sys.stderr)
@@ -739,7 +953,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    infos = fused_render.build()
+    infos = build.build()
     say(f"build: {len(infos)} libraries in {time.perf_counter() - t0:.1f} s "
         "(one nvcc per source, in parallel)")
     for info in infos:
@@ -751,43 +965,50 @@ def main() -> int:
 
     checks = check_kernel(torch, dev)
     grad_checks = check_grad_kernels(torch, dev)
+    siren_checks = check_siren_kernels(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = serve(torch, dev, tmp)
-        trained = train(torch, dev, tmp)
+        launches = serve(torch, dev, tmp, "lego.txt", FusedNerfRender,
+                         "fused_render_fwd")
+        trained = train(torch, dev, tmp, "lego.txt", FusedNerfRender,
+                        "fused_render_grad", 0.5)
+        siren_launches = serve(torch, dev, tmp, "lego_siren.txt", FusedSirenRender,
+                               "fused_siren_fwd")
+        siren_trained = train(torch, dev, tmp, "lego_siren.txt", FusedSirenRender,
+                              "fused_siren_grad", 1.0)
     bench_headline(torch, dev)
+    bench_siren(torch, dev)
 
-    main_shape = checks[("bfloat16", 192)]
-    kernels = [{
-        "name": "fused_render_fwd",
-        "route": "cuda",
-        "source": "nerf_tpu_torch/csrc/fused_render_fwd.cu",
-        "replaces": "nerf_tpu/ops/pallas/fused_render.py:222",
-        "launches": launches,
-        "max_abs_err": max(c["err"] for c in checks.values()),
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": None,
-    }]
+    def row(name, source, line, launched, c, err):
+        return {"name": name, "route": "cuda",
+                "source": f"nerf_tpu_torch/csrc/{source}", "replaces": line,
+                "launches": launched, "max_abs_err": err, "ms": c["ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": None}
+
+    nerf_tpu = "nerf_tpu/ops/pallas/"
+    kernels = [row("fused_render_fwd", "fused_render_fwd.cu",
+                   f"{nerf_tpu}fused_render.py:222", launches,
+                   checks[("bfloat16", 192)],
+                   max(c["err"] for c in checks.values()))]
     for name, line, launched in (
             ("fused_render_train", 315, trained["train_launches"]),
             ("fused_render_bwd", 242, trained["bwd_launches"])):
-        c = grad_checks[(name, "bfloat16", 192)]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "nerf_tpu_torch/csrc/fused_render_train.cu",
-            "replaces": f"nerf_tpu/ops/pallas/fused_render.py:{line}",
-            "launches": launched,
-            "max_abs_err": max(v["err"] for k, v in grad_checks.items()
-                               if k[0] == name),
-            "ms": c["ms"],
-            "plain_ms": c["plain_ms"],
-            "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"],
-            "library_ms": None,
-        })
+        kernels.append(row(name, "fused_render_train.cu",
+                           f"{nerf_tpu}fused_render.py:{line}", launched,
+                           grad_checks[(name, "bfloat16", 192)],
+                           max(v["err"] for k, v in grad_checks.items()
+                               if k[0] == name)))
+    for name, source, line, launched in (
+            ("fused_render_siren_fwd", "fused_render_siren_fwd.cu", 60,
+             siren_launches),
+            ("fused_render_siren_train", "fused_render_siren_train.cu", 110,
+             siren_trained["train_launches"]),
+            ("fused_render_siren_bwd", "fused_render_siren_train.cu", 82,
+             siren_trained["bwd_launches"])):
+        kernels.append(row(name, source, f"{nerf_tpu}fused_render_siren.py:{line}",
+                           launched, siren_checks[(name, "bfloat16")],
+                           max(siren_checks[(name, c)]["err"]
+                               for c in ("float32", "bfloat16"))))
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")
     say(json.dumps({"ok": True, "device": {

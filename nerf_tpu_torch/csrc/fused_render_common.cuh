@@ -1,8 +1,10 @@
-// Shared pieces of the fused NeRF render kernels for Hopper (sm_90a):
+// The NeRF family's pieces of the fused render kernels for Hopper (sm_90a):
 // the packed weight layout, the shared-memory plan, and the forward of one
 // 64-point chunk (positional encoding, the 11-matmul NeRF MLP, density and
 // colour). fused_render_fwd.cu composites the chunk straight away;
 // fused_render_train.cu also stashes every activation for its backward.
+// The generic pieces (gemm, compositing, backward blocks) are in
+// render_common.cuh, shared with the SIREN family.
 //
 // The MLP is the one of nerf_tpu/ops/pallas/fused_nerf.py::_mlp_tile: block1
 // (5 layers), block2 with the skip input (4 layers), a split 257-wide head
@@ -12,20 +14,11 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "render_common.cuh"
 
 namespace nerf {
 
-constexpr int H = 256;        // hidden width (the only one supported)
-constexpr int HR = H / 2;     // rgb-head width
 constexpr int PP = 64;        // padded position-encoding width
-constexpr int DP = 32;        // padded direction-encoding width
-constexpr int P = 64;         // points per chunk
-constexpr int LDA = P + 4;    // row stride (floats) of activation tiles
-constexpr int KT = 16;        // weight rows per staged tile
-constexpr int THREADS = 256;
 
 // Packed matrix buffer: each matrix (K, N) row-major, (in, out) order, K
 // padded with zero rows (w1/w6p to PP, wr0d to DP), wr1 padded to 8 columns.
@@ -54,10 +47,9 @@ constexpr int OFF_BR1 = OFF_BR0 + HR;
 constexpr int OFF_B10S = OFF_BR1 + 8;
 constexpr int N_B = OFF_B10S + 1;
 
-// Shared memory (floats): two activation buffers, the two encodings, the
-// per-point chunk columns, then the weight stage (2 x KT x H of float32).
-constexpr int SM_ACT0 = 0;
-constexpr int SM_ACT1 = SM_ACT0 + H * LDA;
+// Shared memory (floats) after the two activation buffers: the two
+// encodings, the per-point chunk columns, then the weight stage (2 x KT x H
+// of float32).
 constexpr int SM_PENC = SM_ACT1 + H * LDA;
 constexpr int SM_DENC = SM_PENC + PP * LDA;
 constexpr int SM_T = SM_DENC + DP * LDA;
@@ -68,183 +60,6 @@ constexpr int SM_WST = SM_RGB + 3 * P;
 constexpr int SMEM_BYTES = SM_WST * 4 + 2 * KT * H * 4;
 static_assert(SM_WST % 4 == 0, "weight stage must be 16-byte aligned");
 static_assert(SMEM_BYTES <= 232448, "exceeds the per-block shared memory");
-
-constexpr float HALF_PI = 1.5707963267948966f;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Four consecutive weights as float32.
-__device__ __forceinline__ void load4(const float* p, float* w) {
-  float4 v = *reinterpret_cast<const float4*>(p);
-  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* w) {
-  uint2 v = *reinterpret_cast<const uint2*>(p);
-  w[0] = __uint_as_float(v.x << 16);
-  w[1] = __uint_as_float(v.x & 0xffff0000u);
-  w[2] = __uint_as_float(v.y << 16);
-  w[3] = __uint_as_float(v.y & 0xffff0000u);
-}
-__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// The degree-11 sine of nerf_tpu/ops/pallas/fused_nerf.py::_fast_sin, with
-// every operation rounded as written (no FMA contraction), so that it
-// matches the plain PyTorch version bit for bit.
-__device__ __forceinline__ float fast_sin(float x) {
-  const float two_pi = 6.283185307179586f;
-  const float inv_two_pi = 0.15915494309189535f;
-  float r = __fsub_rn(x, __fmul_rn(two_pi, rintf(__fmul_rn(x, inv_two_pi))));
-  float r2 = __fmul_rn(r, r);
-  float q = __fmul_rn(r2, -2.0534080101e-08f);
-  q = __fmul_rn(r2, __fadd_rn(2.7040473315e-06f, q));
-  q = __fmul_rn(r2, __fadd_rn(-1.9812572238e-04f, q));
-  q = __fmul_rn(r2, __fadd_rn(8.3325579984e-03f, q));
-  q = __fmul_rn(r2, __fadd_rn(-1.6666577198e-01f, q));
-  return __fmul_rn(r, __fadd_rn(9.9999970696e-01f, q));
-}
-
-// Start the cp.async copies of weight rows [kt*KT, kt*KT+KT) into a stage.
-template <int N, typename WT>
-__device__ __forceinline__ void stage_tile(const WT* __restrict__ wg, WT* dst,
-                                           int kt) {
-  constexpr int TILE = KT * N;
-  constexpr int VEC = 16 / sizeof(WT);
-  constexpr int COPIES = TILE / VEC / THREADS;
-  static_assert(COPIES * VEC * THREADS == TILE, "tile must split evenly");
-  const WT* src = wg + static_cast<size_t>(kt) * TILE;
-#pragma unroll
-  for (int c = 0; c < COPIES; ++c) {
-    int e = (c * THREADS + threadIdx.x) * VEC;
-    cp_async16(dst + e, src + e);
-  }
-  cp_async_commit();
-}
-
-// acc[i][j] += sum_k in[k][ty*8+i] * W[k][col(j)] over K rows, where
-// col(j) = (j/4)*128 + tx*4 + j%4. `in_s` is feature-major (stride LDA).
-// Starts and ends with every thread past a barrier, so the caller may write
-// any buffer the previous layer read.
-template <int K, int NQ, typename WT>
-__device__ __forceinline__ void gemm_acc(float (&acc)[8][4 * NQ],
-                                         const float* in_s,
-                                         const WT* __restrict__ wg, WT* wst) {
-  constexpr int N = 128 * NQ;
-  constexpr int TILE = KT * N;
-  constexpr int NT = K / KT;
-  static_assert(NT * KT == K, "K must be a multiple of KT");
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  stage_tile<N>(wg, wst, 0);
-  for (int kt = 0; kt < NT; ++kt) {
-    if (kt + 1 < NT) {
-      stage_tile<N>(wg, wst + ((kt + 1) & 1) * TILE, kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const WT* ws = wst + (kt & 1) * TILE + tx * 4;
-    const float* as = in_s + kt * KT * LDA + ty * 8;
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      float4 a0 = *reinterpret_cast<const float4*>(as + k * LDA);
-      float4 a1 = *reinterpret_cast<const float4*>(as + k * LDA + 4);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float w[4 * NQ];
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) load4(ws + k * N + q * 128, w + 4 * q);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <int NQ>
-__device__ __forceinline__ void zero(float (&acc)[8][4 * NQ]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = 0.f;
-  }
-}
-
-// out[col][ty*8+i] = act(acc[i][j] + bias[col]), rounded to bf16 when the
-// value is next a matmul input in bf16 mode. With `stash`, the same values
-// also go to a point-major copy in device memory: row l0+ty*8+i, stride ld.
-template <int NQ, bool BF16>
-__device__ __forceinline__ void epilogue(const float (&acc)[8][4 * NQ],
-                                         const float* __restrict__ bias,
-                                         bool relu, float* out_s,
-                                         float* stash = nullptr, int ld = 0,
-                                         size_t l0 = 0) {
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    float v[4][8];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int col = q * 128 + tx * 4 + u;
-      const float b = __ldg(bias + col);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float x = acc[i][q * 4 + u] + b;
-        if (relu) x = fmaxf(x, 0.f);
-        v[u][i] = BF16 ? round_bf16(x) : x;
-      }
-      float* dst = out_s + col * LDA + ty * 8;
-      *reinterpret_cast<float4*>(dst) = make_float4(v[u][0], v[u][1], v[u][2], v[u][3]);
-      *reinterpret_cast<float4*>(dst + 4) = make_float4(v[u][4], v[u][5], v[u][6], v[u][7]);
-    }
-    if (stash != nullptr) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float* g = stash + (l0 + ty * 8 + i) * ld + q * 128 + tx * 4;
-        *reinterpret_cast<float4*>(g) = make_float4(v[0][i], v[1][i], v[2][i], v[3][i]);
-      }
-    }
-  }
-}
-
-// Positional encoding of one coordinate, column c of [x, sin(2^j x),
-// sin(2^j x + pi/2), ...] (the cos columns as a phase-shifted sine, as the
-// TPU kernel builds them).
-template <bool FAST>
-__device__ __forceinline__ float encode_col(float x, int c) {
-  if (c < 3) return x;
-  const int j = (c - 3) / 6;
-  const float phase = (((c - 3) / 3) & 1) ? HALF_PI : 0.f;
-  const float arg = __fadd_rn(__fmul_rn(x, static_cast<float>(1 << j)), phase);
-  return FAST ? fast_sin(arg) : sinf(arg);
-}
-
-struct RayInputs {
-  const float* o_aff;     // (R, 3) ray origins, [near,far] map folded in
-  const float* d_aff;     // (R, 3) ray directions, map folded in
-  const float* viewdirs;  // (R, 3) unit view directions
-  const float* t;         // (R, S) sample depths
-  const float* vec;       // packed float32 vector buffer
-  int num_rays, S, real_p, real_d;
-};
 
 // Where the train kernels keep one CTA's activations, point-major with the
 // CTA-local point index as the row: h[0..8] = h1..h9 (h9 unrounded), feat,

@@ -32,8 +32,9 @@
 // weights and the per-ray sums.
 //
 // The layout, the shared-memory plan and the chunk forward are in
-// fused_render_common.cuh (shared with fused_render_train.cu). Built by
-// nerf_tpu_torch/ops/cuda/fused_render.py with nvcc into a shared library
+// fused_render_common.cuh (shared with fused_render_train.cu), the
+// compositing scan in render_common.cuh (shared with SIREN). Built by
+// nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared library
 // with a plain C interface (loaded by ctypes).
 
 #include "fused_render_common.cuh"
@@ -63,40 +64,15 @@ fused_render_fwd_kernel(RayInputs in, const WT* __restrict__ wmat,
   if (ray0 >= ray1) return;
   const int pt_end = ray1 * S;
   const Stash none{};
-
-  // compositing carry (thread 0 only): transmittance and the running sums
-  // of the ray in progress
-  float T = 1.f, sum_r = 0.f, sum_g = 0.f, sum_b = 0.f, sum_a = 0.f, sum_d = 0.f;
+  RaySums sums;             // compositing carry (thread 0 only)
 
   for (int chunk0 = ray0 * S; chunk0 < pt_end; chunk0 += P) {
     const int nvalid = min(P, pt_end - chunk0);
     forward_chunk<BF16, false>(in, wmat, chunk0, nvalid, smem, none, 0);
-
     // ---- compositing, in sample order ----
-    if (tid == 0) {
-      for (int p = 0; p < nvalid; ++p) {
-        const int g = chunk0 + p;
-        const float one_m = expf(-sig_s[p] * delta_s[p]);
-        const float w = T * (1.f - one_m);
-        weights_out[g] = w;
-        sum_r = fmaf(w, rgb_s[p], sum_r);
-        sum_g = fmaf(w, rgb_s[P + p], sum_g);
-        sum_b = fmaf(w, rgb_s[2 * P + p], sum_b);
-        sum_a += w;
-        sum_d = fmaf(w, t_s[p], sum_d);
-        T *= one_m;
-        if (g % S == S - 1) {
-          const int ray = g / S;
-          rgb_out[ray * 3 + 0] = sum_r;
-          rgb_out[ray * 3 + 1] = sum_g;
-          rgb_out[ray * 3 + 2] = sum_b;
-          acc_out[ray] = sum_a;
-          depth_out[ray] = sum_d;
-          T = 1.f;
-          sum_r = sum_g = sum_b = sum_a = sum_d = 0.f;
-        }
-      }
-    }
+    if (tid == 0)
+      composite_chunk(sums, t_s, delta_s, sig_s, rgb_s, chunk0, nvalid, S,
+                      rgb_out, acc_out, depth_out, weights_out);
     __syncthreads();
   }
 }

@@ -1,0 +1,125 @@
+// Fused SIREN forward render for Hopper (sm_90a): raw sample positions, the
+// 8-layer sine MLP and volume compositing in one kernel.
+//
+// Replaces: nerf_tpu/ops/pallas/fused_render_siren.py::_fwd_kernel (the
+// forward route of FusedSirenRender.__call__). Same function: for every
+// sample p = o_aff + t * d_aff (o_aff/d_aff already carry the
+// [near,far]->[-1,1] map), the MLP of
+// nerf_tpu/ops/pallas/fused_siren.py::_mlp_tile on p and on the L_dir
+// frequency encoding of the view direction, deltas from t with the 1e10
+// tail, one_m = exp(-sigma*delta), exclusive-cumprod transmittance,
+// w = T*(1-one_m), and per ray rgb = sum w*c, acc = sum w, depth = sum w*t.
+// The weights (R,S) leave the kernel; positions and the (points x 256)
+// activations never do.
+//
+// What bounds it on this card: operations. One sample costs 561,920 MACs at
+// the real widths (3x256, 7 x 256x256, 256 for the density, 256x256,
+// 283x128, 128x3) and 2,176 sines (8 x 256 + 128). A 1024-ray x 256-sample
+// launch is 0.29 TFLOP of products against a few MB of device-memory
+// traffic. float32 mode must be true float32 with the exact sinf (|w0 z|
+// reaches tens of radians), so it runs on the CUDA cores (67 TFLOP/s);
+// bfloat16 mode rounds every matmul input and weight to bf16 and sums in
+// float32, which this first version also does on the CUDA cores (its bound
+// is the tensor cores' 989 TFLOP/s, far above what this design reaches).
+// The sines (0.57 G per launch, ~20-40 instructions each in float32) are
+// under a tenth of the products' instructions.
+//
+// Design: as the NeRF forward (fused_render_fwd.cu). A CTA owns whole rays
+// and walks their samples in chunks of 64 points, activations in shared
+// memory (feature-major, ping-ponged between two 256 x 68 float buffers),
+// weights from L2 through a double-buffered cp.async stage, an 8-point x
+// 8-column register tile per thread. The first layer (K = 3) is computed
+// straight from the positions instead of through the staged gemm. Each
+// sine layer's epilogue applies sin(w0 (acc + b)); the last one also sums
+// the density row in float32 on the unrounded h8 (warp shuffles). Thread 0
+// then runs the transmittance scan over the chunk in sample order, carrying
+// T from chunk to chunk (render_common.cuh).
+//
+// The layout, the shared-memory plan and the chunk forward are in
+// fused_render_siren_common.cuh (shared with fused_render_siren_train.cu).
+// Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared library
+// with a plain C interface (loaded by ctypes).
+
+#include "fused_render_siren_common.cuh"
+
+namespace {
+
+using namespace siren;
+
+template <bool BF16, typename WT>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_siren_fwd_kernel(RayInputs in, Siren sp, const WT* __restrict__ wmat,
+                       int rays_per_cta, float* __restrict__ rgb_out,
+                       float* __restrict__ acc_out, float* __restrict__ depth_out,
+                       float* __restrict__ weights_out) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const float* t_s = smem + SM_T;
+  const float* delta_s = smem + SM_DELTA;
+  const float* sig_s = smem + SM_SIGMA;
+  const float* rgb_s = smem + SM_RGB;
+
+  const int tid = threadIdx.x;
+  const int S = in.S;
+  const int ray0 = blockIdx.x * rays_per_cta;
+  const int ray1 = min(ray0 + rays_per_cta, in.num_rays);
+  if (ray0 >= ray1) return;
+  const int pt_end = ray1 * S;
+  const Stash none{};
+  RaySums sums;             // compositing carry (thread 0 only)
+
+  for (int chunk0 = ray0 * S; chunk0 < pt_end; chunk0 += P) {
+    const int nvalid = min(P, pt_end - chunk0);
+    forward_chunk<BF16, false>(in, wmat, sp, chunk0, nvalid, smem, none, 0);
+    if (tid == 0)
+      composite_chunk(sums, t_s, delta_s, sig_s, rgb_s, chunk0, nvalid, S,
+                      rgb_out, acc_out, depth_out, weights_out);
+    __syncthreads();
+  }
+}
+
+template <bool BF16, typename WT>
+int launch(const RayInputs& in, const Siren& sp, const void* wmat, int rays_per_cta,
+           float* rgb, float* acc, float* depth, float* weights,
+           cudaStream_t stream) {
+  auto kernel = fused_siren_fwd_kernel<BF16, WT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (in.num_rays + rays_per_cta - 1) / rays_per_cta;
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
+      in, sp, static_cast<const WT*>(wmat), rays_per_cta, rgb, acc, depth, weights);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns 0 on success, a cudaError_t code after a failed launch, or -1
+// when the packed buffers or the shapes do not fit this kernel.
+int fused_siren_fwd(const float* o_aff, const float* d_aff,
+                    const float* viewdirs, const float* t, const void* wmat,
+                    const float* vec, int n_w, int n_b, int bf16, int num_rays,
+                    int S, int rays_per_cta, int real_d, float w0, float w0h,
+                    float sigma_mul, float rgb_mul, float* rgb, float* acc,
+                    float* depth, float* weights, void* stream) {
+  if (n_w != N_W || n_b != N_B || num_rays <= 0 || S <= 0 ||
+      rays_per_cta <= 0 || real_d > DP)
+    return -1;
+  const RayInputs in{o_aff, d_aff, viewdirs, t, vec, num_rays, S, 0, real_d};
+  const Siren sp{w0, w0h, sigma_mul, rgb_mul};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<true, __nv_bfloat16>(in, sp, wmat, rays_per_cta, rgb, acc,
+                                       depth, weights, s);
+  return launch<false, float>(in, sp, wmat, rays_per_cta, rgb, acc, depth,
+                              weights, s);
+}
+
+const char* fused_siren_fwd_error(int code) {
+  if (code == -1) return "packed weights or shapes do not fit the kernel";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -49,7 +49,7 @@
 // unrounded values, and h9, sigma_pre and the rgb sigmoid are read in
 // float32.
 //
-// Built by nerf_tpu_torch/ops/cuda/fused_render.py with nvcc into a shared
+// Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared
 // library with a plain C interface (loaded by ctypes).
 
 #include "fused_render_common.cuh"
@@ -58,16 +58,11 @@ namespace {
 
 using namespace nerf;
 
-constexpr int LDZ = H;                           // row stride of dz buffers
 constexpr int N_TOT = N_W + N_B;                 // gradient floats
 constexpr int NPART = (N_TOT + 1 + 3) / 4 * 4;   // per-CTA: gradients, loss
-// per-point columns of the stash
-constexpr int C_SIGP = 0, C_RGB = 1, C_T = 4, C_ONEM = 5, C_W = 6,
-              C_DZR1 = 7, C_DSIG = 10, N_COLS = 12;
+constexpr int N_COLS = 12;                       // per-point columns (C_*)
 constexpr int FLOATS_PER_POINT = 9 * H + H + HR + PP + PP + 2 * LDZ + N_COLS;
 static_assert(FLOATS_PER_POINT % 4 == 0, "stash rows must stay 16-byte aligned");
-// dW staging (in the second activation buffer): 2 x KT x 64 + 2 x KT x 256
-static_assert(2 * KT * 64 + 2 * KT * H <= H * LDA, "dW stage does not fit");
 
 struct Scratch {
   Stash st;
@@ -92,159 +87,6 @@ __device__ Scratch carve(float* p, int cap) {
   return s;
 }
 
-// out[l][col] = (sum_n dz[l][n] W[col][n] (+ dsig[l] w10s[col])), zeroed
-// where mref[l][col] <= 0 when MASK, for the CTA's points l < cap_c, chunk
-// by chunk. `wT` is W transposed: K rows of 256.
-template <int K, bool BF16, bool MASK, bool DH9, typename WT>
-__device__ void dact(const float* dz, const WT* __restrict__ wT,
-                     const float* mref, int ldm, const float* dsig,
-                     const float* __restrict__ w10s, float* out, int cap_c,
-                     float* smem) {
-  float* in_s = smem + SM_ACT0;
-  WT* wst = reinterpret_cast<WT*>(smem + SM_WST);
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  constexpr int K4 = K / 4;
-  for (int l0 = 0; l0 < cap_c; l0 += P) {
-    for (int idx = tid; idx < P * K4; idx += THREADS) {
-      const int p = idx / K4, n4 = idx % K4;
-      float4 v = *reinterpret_cast<const float4*>(
-          dz + static_cast<size_t>(l0 + p) * LDZ + n4 * 4);
-      if (BF16) {
-        v.x = round_bf16(v.x); v.y = round_bf16(v.y);
-        v.z = round_bf16(v.z); v.w = round_bf16(v.w);
-      }
-      in_s[(n4 * 4 + 0) * LDA + p] = v.x;
-      in_s[(n4 * 4 + 1) * LDA + p] = v.y;
-      in_s[(n4 * 4 + 2) * LDA + p] = v.z;
-      in_s[(n4 * 4 + 3) * LDA + p] = v.w;
-    }
-    float acc[8][8];
-    zero<2>(acc);
-    gemm_acc<K, 2>(acc, in_s, wT, wst);
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int col = q * 128 + tx * 4;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const size_t row = static_cast<size_t>(l0 + ty * 8 + i);
-        float v[4] = {acc[i][q * 4], acc[i][q * 4 + 1], acc[i][q * 4 + 2],
-                      acc[i][q * 4 + 3]};
-        if (DH9) {
-          const float ds = dsig[row];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) v[u] = v[u] + ds * __ldg(w10s + col + u);
-        }
-        if (MASK) {
-          const float4 m = *reinterpret_cast<const float4*>(mref + row * ldm + col);
-          v[0] = m.x > 0.f ? v[0] : 0.f;
-          v[1] = m.y > 0.f ? v[1] : 0.f;
-          v[2] = m.z > 0.f ? v[2] : 0.f;
-          v[3] = m.w > 0.f ? v[3] : 0.f;
-        }
-        *reinterpret_cast<float4*>(out + row * LDZ + col) =
-            make_float4(v[0], v[1], v[2], v[3]);
-      }
-    }
-  }
-}
-
-// Stage KT points of an A strip (64 columns from m0) and of B (NN columns).
-template <int NQ>
-__device__ __forceinline__ void stage_dw(const float* A, int lda, int m0,
-                                         const float* B, int kt, float* as,
-                                         float* bs) {
-  constexpr int NN = 128 * NQ;
-  const int tid = threadIdx.x;
-  {
-    const int row = tid >> 4, c4 = (tid & 15) * 4;
-    cp_async16(as + row * 64 + c4,
-               A + static_cast<size_t>(kt * KT + row) * lda + m0 + c4);
-  }
-#pragma unroll
-  for (int c = 0; c < 2 * NQ; ++c) {
-    const int e = c * THREADS + tid;
-    const int row = e / (32 * NQ), c4 = (e % (32 * NQ)) * 4;
-    cp_async16(bs + row * NN + c4, B + static_cast<size_t>(kt * KT + row) * LDZ + c4);
-  }
-  cp_async_commit();
-}
-
-// part[m][n] = sum_l A[l][m] B[l][n] for m < mrows, n < 128*NQ, over the
-// CTA's points l < cap_c, in 64-row strips of A (width M, stride lda); B
-// has stride LDZ. RA/RB round the operand to bf16 as it is read.
-template <int NQ, bool RA, bool RB>
-__device__ void dweight(const float* A, int lda, int M, int mrows,
-                        const float* B, int cap_c, float* part, float* smem) {
-  constexpr int NN = 128 * NQ;
-  float* As = smem + SM_ACT1;             // 2 x KT x 64
-  float* Bs = As + 2 * KT * 64;           // 2 x KT x NN
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  const int nt = cap_c / KT;
-  for (int m0 = 0; m0 < M; m0 += 64) {
-    float acc[8][4 * NQ];
-    zero<NQ>(acc);
-    stage_dw<NQ>(A, lda, m0, B, 0, As, Bs);
-    for (int kt = 0; kt < nt; ++kt) {
-      if (kt + 1 < nt) {
-        const int nb = (kt + 1) & 1;
-        stage_dw<NQ>(A, lda, m0, B, kt + 1, As + nb * KT * 64, Bs + nb * KT * NN);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const float* as = As + (kt & 1) * KT * 64 + ty * 8;
-      const float* bs = Bs + (kt & 1) * KT * NN + tx * 4;
-#pragma unroll
-      for (int k = 0; k < KT; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(as + k * 64);
-        const float4 a1 = *reinterpret_cast<const float4*>(as + k * 64 + 4);
-        float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        float b[4 * NQ];
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) {
-          const float4 bv = *reinterpret_cast<const float4*>(bs + k * NN + q * 128);
-          b[4 * q] = bv.x; b[4 * q + 1] = bv.y; b[4 * q + 2] = bv.z; b[4 * q + 3] = bv.w;
-        }
-        if (RA) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) a[i] = round_bf16(a[i]);
-        }
-        if (RB) {
-#pragma unroll
-          for (int j = 0; j < 4 * NQ; ++j) b[j] = round_bf16(b[j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + ty * 8 + i;
-      if (m >= mrows) continue;
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        *reinterpret_cast<float4*>(part + static_cast<size_t>(m) * NN + q * 128 + tx * 4) =
-            make_float4(acc[i][q * 4], acc[i][q * 4 + 1], acc[i][q * 4 + 2],
-                        acc[i][q * 4 + 3]);
-      }
-    }
-  }
-}
-
-// out[c] = sum over the CTA's points of B[l][c], for c < n (in point order).
-__device__ void colsum(const float* B, int n, int cap_c, float* out) {
-  for (int c = threadIdx.x; c < n; c += THREADS) {
-    float s = 0.f;
-    for (int l = 0; l < cap_c; ++l) s += B[static_cast<size_t>(l) * LDZ + c];
-    out[c] = s;
-  }
-}
-
 // One hidden layer of the backward: from cur = dz_L, the next dz
 // (dz_L W_L^T masked by h_prev > 0) into nxt, dW_L = h_prev^T dz_L and
 // db_L = sum dz_L.
@@ -253,7 +95,8 @@ __device__ void back_layer(const float* cur, const WT* __restrict__ wT,
                            const float* h_prev, float* nxt, float* part_w,
                            float* part_b, int cap_c, float* smem) {
   if (nxt != nullptr)
-    dact<H, BF16, true, false>(cur, wT, h_prev, H, nullptr, nullptr, nxt, cap_c, smem);
+    dact<H, BF16, Epi::Relu, false>(cur, wT, h_prev, H, nullptr, nullptr, 1.f, nxt,
+                                    cap_c, smem, reinterpret_cast<WT*>(smem + SM_WST));
   dweight<2, false, BF16>(h_prev, H, H, H, cur, cap_c, part_w, smem);
   colsum(cur, H, cap_c, part_b);
   __syncthreads();
@@ -291,76 +134,8 @@ fused_render_grad_kernel(RayInputs in, const WT* __restrict__ wmat,
 
   // ---- 2. compositing, cotangent, compositing backward (thread per ray) ----
   float* lossr = smem + SM_ACT1;
-  for (int r = tid; r < nr; r += THREADS) {
-    const int ray = ray0 + r;
-    const size_t lb = static_cast<size_t>(r) * S;
-    float T = 1.f, s0 = 0.f, s1 = 0.f, s2 = 0.f, sa = 0.f, sd = 0.f;
-    for (int i = 0; i < S; ++i) {
-      const size_t l = lb + i;
-      const int g = ray * S + i;
-      const float sigma = fmaxf(cols[C_SIGP * cz + l], 0.f);
-      const float tv = in.t[g];
-      const float delta = (i == S - 1) ? 1e10f : __fsub_rn(in.t[g + 1], tv);
-      const float one_m = expf(-sigma * delta);
-      const float w = T * (1.f - one_m);
-      cols[C_T * cz + l] = T;
-      cols[C_ONEM * cz + l] = one_m;
-      cols[C_W * cz + l] = w;
-      if (TRAIN) weights_out[g] = w;
-      s0 = fmaf(w, cols[(C_RGB + 0) * cz + l], s0);
-      s1 = fmaf(w, cols[(C_RGB + 1) * cz + l], s1);
-      s2 = fmaf(w, cols[(C_RGB + 2) * cz + l], s2);
-      sa += w;
-      sd = fmaf(w, tv, sd);
-      T *= one_m;
-    }
-    float g0, g1, g2, ga, gd;
-    if (TRAIN) {
-      rgb_out[ray * 3 + 0] = s0;
-      rgb_out[ray * 3 + 1] = s1;
-      rgb_out[ray * 3 + 2] = s2;
-      acc_out[ray] = sa;
-      const float bg = white_bg * (1.f - sa);
-      const float e0 = (s0 + bg) - given[ray * 3 + 0];
-      const float e1 = (s1 + bg) - given[ray * 3 + 1];
-      const float e2 = (s2 + bg) - given[ray * 3 + 2];
-      lossr[r] = e0 * e0 + e1 * e1 + e2 * e2;
-      g0 = (2.f * scale) * e0;
-      g1 = (2.f * scale) * e1;
-      g2 = (2.f * scale) * e2;
-      ga = -white_bg * (g0 + g1 + g2);
-      gd = 0.f;
-    } else {
-      g0 = given[ray * 8 + 0];
-      g1 = given[ray * 8 + 1];
-      g2 = given[ray * 8 + 2];
-      ga = given[ray * 8 + 3];
-      gd = given[ray * 8 + 4];
-    }
-    float suffix = 0.f;
-    for (int i = S - 1; i >= 0; --i) {
-      const size_t l = lb + i;
-      const int g = ray * S + i;
-      const float tv = in.t[g];
-      const float delta = (i == S - 1) ? 1e10f : __fsub_rn(in.t[g + 1], tv);
-      const float w = cols[C_W * cz + l];
-      const float r0 = cols[(C_RGB + 0) * cz + l];
-      const float r1 = cols[(C_RGB + 1) * cz + l];
-      const float r2 = cols[(C_RGB + 2) * cz + l];
-      const float gw = g0 * r0 + g1 * r1 + g2 * r2 + ga + gd * tv;
-      const float gsig = (gw * cols[C_T * cz + l] * cols[C_ONEM * cz + l] - suffix) * delta;
-      suffix += gw * w;
-      cols[C_DSIG * cz + l] = cols[C_SIGP * cz + l] > 0.f ? gsig : 0.f;
-      cols[(C_DZR1 + 0) * cz + l] = (g0 * w * r0) * (1.f - r0);
-      cols[(C_DZR1 + 1) * cz + l] = (g1 * w * r1) * (1.f - r1);
-      cols[(C_DZR1 + 2) * cz + l] = (g2 * w * r2) * (1.f - r2);
-    }
-  }
-  for (int l = npts + tid; l < cap_c; l += THREADS) {
-    cols[C_DSIG * cz + l] = 0.f;
-    for (int c = 0; c < 3; ++c) cols[(C_DZR1 + c) * cz + l] = 0.f;
-  }
-  __syncthreads();
+  composite_rays<TRAIN>(in, ray0, nr, cap_c, cols, cz, 1.f, 1.f, given, white_bg,
+                        scale, rgb_out, acc_out, weights_out, lossr);
   if (tid == 0) {
     float s = 0.f;
     if (TRAIN)
@@ -417,15 +192,16 @@ fused_render_grad_kernel(RayInputs in, const WT* __restrict__ wmat,
   }
   __syncthreads();
   // rgb hidden layer: dfeat = dzr0 wr0f^T; wr0f, wr0d, br0
-  dact<HR, BF16, false, false>(dzA, wmat_t + OFF_WR0F, nullptr, 0, nullptr,
-                               nullptr, dzB, cap_c, smem);
+  WT* wst = reinterpret_cast<WT*>(smem + SM_WST);
+  dact<HR, BF16, Epi::None, false>(dzA, wmat_t + OFF_WR0F, nullptr, 0, nullptr,
+                                   nullptr, 1.f, dzB, cap_c, smem, wst);
   dweight<1, false, BF16>(sc.st.feat, H, H, H, dzA, cap_c, part + OFF_WR0F, smem);
   dweight<1, false, BF16>(sc.st.denc, PP, PP, DP, dzA, cap_c, part + OFF_WR0D, smem);
   colsum(dzA, HR, cap_c, pvec + OFF_BR0);
   __syncthreads();
   // feature head: dz9 = (dfeat w10f^T + dsig w10s) * (h9 > 0); w10f, b10f
-  dact<H, BF16, true, true>(dzB, wmat_t + OFF_W10F, h9, H, dsig, vec + OFF_W10S,
-                            dzA, cap_c, smem);
+  dact<H, BF16, Epi::Relu, true>(dzB, wmat_t + OFF_W10F, h9, H, dsig, vec + OFF_W10S,
+                                 1.f, dzA, cap_c, smem, wst);
   dweight<2, BF16, BF16>(h9, H, H, H, dzB, cap_c, part + OFF_W10F, smem);
   colsum(dzB, H, cap_c, pvec + OFF_B10F);
   __syncthreads();
@@ -445,17 +221,6 @@ fused_render_grad_kernel(RayInputs in, const WT* __restrict__ wmat,
   colsum(dzA, H, cap_c, pvec + 0 * H);
 }
 
-// out[i] = sum over CTAs, in CTA order, of partial[cta][i] (gradients and
-// the loss in the last slot).
-__global__ void reduce_partials(const float* __restrict__ partial, int ctas,
-                                float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i > N_TOT) return;
-  float s = 0.f;
-  for (int b = 0; b < ctas; ++b) s += partial[static_cast<size_t>(b) * NPART + i];
-  out[i] = s;
-}
-
 template <bool BF16, bool TRAIN, typename WT>
 int launch(const RayInputs& in, const void* wmat, const void* wmat_t,
            const float* given, float white_bg, float scale, int rays_per_cta,
@@ -471,7 +236,7 @@ int launch(const RayInputs& in, const void* wmat, const void* wmat_t,
       white_bg, scale, rays_per_cta, cap, scratch, partial, rgb, acc, weights);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_partials<<<(N_TOT + 1 + 255) / 256, 256, 0, stream>>>(partial, grid, out);
+  reduce_partials<N_TOT, NPART><<<(N_TOT + 1 + 255) / 256, 256, 0, stream>>>(partial, grid, out);
   return static_cast<int>(cudaGetLastError());
 }
 

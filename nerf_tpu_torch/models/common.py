@@ -28,16 +28,38 @@ def linear(layer: nn.Linear, x: torch.Tensor,
     return round_to(x, compute_dtype) @ w.T + layer.bias
 
 
+def uniform_init(shape: tuple[int, ...], bound: float,
+                 generator: torch.Generator) -> torch.Tensor:
+    """A float32 CPU tensor from U(-bound, bound), drawn from ``generator``
+    (counterpart of ``nerf_tpu.models.common.uniform_init``)."""
+    return torch.empty(shape).uniform_(-bound, bound, generator=generator)
+
+
+def _uniform_linear(in_dim: int, out_dim: int, bound: float,
+                    generator: torch.Generator) -> nn.Linear:
+    """A CPU ``nn.Linear`` with weight AND bias from U(-bound, bound),
+    weight first."""
+    # built on the meta device so that torch's own init draws nothing from
+    # the global generator; the values come from ``generator`` alone
+    layer = nn.Linear(in_dim, out_dim, device="meta").to_empty(device="cpu")
+    with torch.no_grad():
+        for p in (layer.weight, layer.bias):
+            p.copy_(uniform_init(tuple(p.shape), bound, generator))
+    return layer
+
+
 def linear_init(in_dim: int, out_dim: int,
                 generator: torch.Generator) -> nn.Linear:
     """A CPU ``nn.Linear`` under torch's own default law, weight AND bias
     from U(-1/sqrt(fan_in), 1/sqrt(fan_in)), drawn from ``generator`` (a
     CPU generator; move the module afterwards)."""
-    # built on the meta device so that torch's own init draws nothing from
-    # the global generator; the values come from ``generator`` alone
-    layer = nn.Linear(in_dim, out_dim, device="meta").to_empty(device="cpu")
-    bound = 1.0 / (in_dim ** 0.5)
-    with torch.no_grad():
-        for p in (layer.weight, layer.bias):
-            p.uniform_(-bound, bound, generator=generator)
-    return layer
+    return _uniform_linear(in_dim, out_dim, 1.0 / (in_dim ** 0.5), generator)
+
+
+def siren_init(in_dim: int, out_dim: int, w0: float, is_first: bool,
+               generator: torch.Generator, c: float = 6.0) -> nn.Linear:
+    """A CPU ``nn.Linear`` under the SIREN law of
+    ``nerf_tpu.models.common.siren_init``: weight AND bias from U(-b, b)
+    with b = 1/in_dim for the first layer, else sqrt(c/in_dim)/w0."""
+    bound = (1.0 / in_dim) if is_first else ((c / in_dim) ** 0.5 / w0)
+    return _uniform_linear(in_dim, out_dim, bound, generator)

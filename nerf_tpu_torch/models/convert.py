@@ -1,9 +1,15 @@
 """Weights across the two packages.
 
-``nerf_tpu`` keeps a NeRF as a pytree ``{"block1": [{"w", "b"}, ...],
-"block2": [...], "rgb": [...]}`` with ``w`` of shape (in, out); ``nn.Linear``
-stores (out, in). ``load_jax_params`` copies such a tree (as numpy arrays)
-into a ``NeRFModel``; ``export_jax_params`` is its inverse.
+``nerf_tpu`` keeps a model as a pytree of ``{"w", "b"}`` layers with ``w``
+of shape (in, out); ``nn.Linear`` stores (out, in). A NeRF is ``{"block1":
+[...], "block2": [...], "rgb": [...]}``, a SIREN ``{"base": [...],
+"sigma", "remap", "rgb0", "rgb1"}``. ``load_jax_params`` copies such a tree
+(as numpy arrays) into the port's module; ``export_jax_params`` is its
+inverse, ``export_jax_grads`` gives the ``.grad``s the same way, and
+``load_jax_opt_state`` copies optax's Adam moments. Each picks the family
+from the module's type (the moments from their tree's keys) and maps every
+layer by its name in the tree, never by leaf position: JAX flattens dicts
+in sorted-key order.
 """
 
 from __future__ import annotations
@@ -12,69 +18,99 @@ import numpy as np
 import torch
 from torch import nn
 
+from nerf_tpu_torch.models.siren import SirenModel
+
 _BLOCKS = (("block1", "block1"), ("block2", "block2"), ("rgb", "rgb_head"))
+_SIREN_HEADS = ("sigma", "remap", "rgb0", "rgb1")
 
 
-def _layers(module) -> list[tuple[str, nn.Linear]]:
-    return [(jax_name, lyr)
-            for jax_name, torch_name in _BLOCKS
+def _paths(module) -> list[tuple]:
+    """The tree path of each layer of ``module``, in parameter order:
+    ``(name, i)`` for the i-th layer of a list, ``(name,)`` for a layer."""
+    if isinstance(module, SirenModel):
+        return ([("base", i) for i in range(len(module.base))]
+                + [(k,) for k in _SIREN_HEADS])
+    return [(jax_name, i) for jax_name, torch_name in _BLOCKS
+            for i in range(len(module.linears(getattr(module, torch_name))))]
+
+
+def _linears(module) -> list[nn.Linear]:
+    """The layers of ``module`` in the order of ``_paths``."""
+    if isinstance(module, SirenModel):
+        return list(module.base) + [getattr(module, k) for k in _SIREN_HEADS]
+    return [lyr for _, torch_name in _BLOCKS
             for lyr in module.linears(getattr(module, torch_name))]
 
 
+def _get(tree: dict, path: tuple):
+    node = tree[path[0]]
+    return node[path[1]] if len(path) == 2 else node
+
+
+def _tree_of(module, leaf) -> dict:
+    """The pytree of ``leaf(layer) -> {"w", "b"}`` over ``module``'s layers."""
+    tree: dict = {}
+    for path, lyr in zip(_paths(module), _linears(module)):
+        if len(path) == 2:
+            tree.setdefault(path[0], []).append(leaf(lyr))
+        else:
+            tree[path[0]] = leaf(lyr)
+    return tree
+
+
 def load_jax_params(module, tree: dict) -> None:
-    """Copy a ``nerf_tpu`` NeRF pytree (numpy or array-likes) into
-    ``module`` in place, transposing each (in, out) weight."""
-    index = {"block1": 0, "block2": 0, "rgb": 0}
+    """Copy a ``nerf_tpu`` pytree of the module's family (numpy or
+    array-likes) into ``module`` in place, transposing each (in, out)
+    weight."""
+    paths = _paths(module)
+    for name in {p[0] for p in paths if len(p) == 2}:
+        want = sum(1 for p in paths if p[0] == name)
+        if len(tree[name]) != want:
+            raise ValueError(f"{name}: tree has {len(tree[name])} layers, "
+                             f"module {want}")
     with torch.no_grad():
-        for jax_name, lyr in _layers(module):
-            src = tree[jax_name][index[jax_name]]
-            index[jax_name] += 1
+        for path, lyr in zip(paths, _linears(module)):
+            src = _get(tree, path)
             w = torch.from_numpy(np.asarray(src["w"], np.float32).T.copy())
             b = torch.from_numpy(np.asarray(src["b"], np.float32).copy())
             if w.shape != lyr.weight.shape or b.shape != lyr.bias.shape:
                 raise ValueError(
-                    f"{jax_name}[{index[jax_name] - 1}]: shape {tuple(w.shape)} "
+                    f"{'/'.join(map(str, path))}: shape {tuple(w.shape)} "
                     f"does not fit {tuple(lyr.weight.shape)}")
             lyr.weight.copy_(w)
             lyr.bias.copy_(b)
-    for name, n in index.items():
-        if n != len(tree[name]):
-            raise ValueError(f"{name}: tree has {len(tree[name])} layers, "
-                             f"module {n}")
 
 
 def export_jax_params(module) -> dict:
     """The ``nerf_tpu`` pytree (numpy float32, (in, out) weights) of
     ``module``."""
-    tree: dict = {"block1": [], "block2": [], "rgb": []}
-    for jax_name, lyr in _layers(module):
-        tree[jax_name].append({
-            "w": lyr.weight.detach().cpu().numpy().T.copy(),
-            "b": lyr.bias.detach().cpu().numpy().copy(),
-        })
-    return tree
+    return _tree_of(module, lambda lyr: {
+        "w": lyr.weight.detach().cpu().numpy().T.copy(),
+        "b": lyr.bias.detach().cpu().numpy().copy()})
 
 
 def export_jax_grads(module) -> dict:
     """The ``.grad`` of every parameter of ``module`` as a ``nerf_tpu``
     gradient pytree (numpy, (in, out) weights), to hold against
     ``jax.grad`` tensor by tensor."""
-    tree: dict = {"block1": [], "block2": [], "rgb": []}
-    for jax_name, lyr in _layers(module):
-        tree[jax_name].append({
-            "w": lyr.weight.grad.detach().cpu().numpy().T.copy(),
-            "b": lyr.bias.grad.detach().cpu().numpy().copy(),
-        })
-    return tree
+    return _tree_of(module, lambda lyr: {
+        "w": lyr.weight.grad.detach().cpu().numpy().T.copy(),
+        "b": lyr.bias.grad.detach().cpu().numpy().copy()})
 
 
 def _flat_in_param_order(tree: dict) -> list[np.ndarray]:
-    """A NeRF pytree's leaves in ``NeRFModel.parameters()`` order, each in
-    the ``nn.Linear`` layout."""
+    """A model pytree's leaves in the port module's ``parameters()`` order,
+    each in the ``nn.Linear`` layout, found by name (the family from the
+    tree's keys)."""
+    if "base" in tree:
+        paths = [("base", i) for i in range(len(tree["base"]))] + [
+            (k,) for k in _SIREN_HEADS]
+    else:
+        paths = [(name, i) for name, _ in _BLOCKS for i in range(len(tree[name]))]
     out = []
-    for name in ("block1", "block2", "rgb"):
-        for lyr in tree[name]:
-            out += [np.asarray(lyr["w"], np.float32).T, np.asarray(lyr["b"], np.float32)]
+    for path in paths:
+        lyr = _get(tree, path)
+        out += [np.asarray(lyr["w"], np.float32).T, np.asarray(lyr["b"], np.float32)]
     return out
 
 

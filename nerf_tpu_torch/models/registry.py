@@ -1,17 +1,20 @@
-"""Model construction by name. Only ``nerf`` is ported so far; every other
-family of ``nerf_tpu.models.registry`` raises and names the ROADMAP row
-(queue 1) that will port it."""
+"""Model construction by name. ``nerf`` and ``siren`` are ported; every
+other family of ``nerf_tpu.models.registry`` raises and names the ROADMAP
+row (queue 1) that will port it."""
 
 from __future__ import annotations
 
+import inspect
+
 import torch
+from torch import nn
 
 from nerf_tpu_torch.models.nerf import NeRFModel
+from nerf_tpu_torch.models.siren import SirenModel
 
-MODEL_REGISTRY = {"nerf": NeRFModel}
+MODEL_REGISTRY = {"nerf": NeRFModel, "siren": SirenModel}
 
 _NOT_YET = {
-    "siren": "row 10 (SIREN)",
     "gabor": "row 11 (GaborNet)",
     "kilonerf": "row 12 (KiloNeRF)",
     "fastnerf": "row 13 (grid families)",
@@ -22,7 +25,10 @@ _NOT_YET = {
 
 
 def create_model(model_type: str, generator: torch.Generator | None = None,
-                 **kwargs) -> NeRFModel:
+                 **kwargs) -> nn.Module:
+    """A CPU model of the family ``model_type``; kwargs the family does not
+    take are dropped (configs carry shared knobs), as in
+    ``nerf_tpu.models.registry.create_model``."""
     model_type = model_type.lower()
     if model_type in _NOT_YET:
         raise NotImplementedError(
@@ -30,13 +36,13 @@ def create_model(model_type: str, generator: torch.Generator | None = None,
             f"(ROADMAP.md queue 1, {_NOT_YET[model_type]})")
     if model_type not in MODEL_REGISTRY:
         raise ValueError(f"Invalid model type: {model_type}")
-    names = ("pos_encoding_dim", "dir_encoding_dim", "hidden_dim",
-             "compute_dtype", "reference_init")
-    return MODEL_REGISTRY[model_type](
-        generator=generator, **{k: v for k, v in kwargs.items() if k in names})
+    cls = MODEL_REGISTRY[model_type]
+    names = set(inspect.signature(cls).parameters) - {"generator"}
+    return cls(generator=generator,
+               **{k: v for k, v in kwargs.items() if k in names})
 
 
-def model_from_config(cfg, generator: torch.Generator | None = None) -> NeRFModel:
+def model_from_config(cfg, generator: torch.Generator | None = None) -> nn.Module:
     """A CPU model from a ``Config``; move it with ``.to(device)``."""
     return create_model(
         cfg.model_type, generator=generator,

@@ -28,39 +28,28 @@ This module holds
     parameters (the backward kernel behind a ``torch.autograd.Function``);
     ``train`` returns the loss with its gradient already computed.
 
-The libraries are compiled with ``nvcc`` from the package's ``csrc/`` into
-``build/`` beside the package on the first CUDA call, one ``nvcc`` per
-source, all started together, and loaded by ctypes.
+``FusedRender`` is what the wrappers of every family share (the routes,
+the autograd Functions, the launches); ``fused_render_siren.py`` holds the
+SIREN family on it. The libraries are built by ``build.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
 from dataclasses import dataclass
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 from nerf_tpu_torch.models.common import round_to
+from nerf_tpu_torch.ops.cuda.build import library
 from nerf_tpu_torch.ops.sampling import deltas_from_t
 from nerf_tpu_torch.ops.volume import exclusive_cumprod
 
 PP, DP = 64, 32          # padded position / direction encoding widths
 _HALF_PI = math.pi / 2   # rounds to the same float32 phase as the kernel's
-
-_CSRC = Path(__file__).resolve().parents[2] / "csrc"
-_LIBS = ("fused_render_fwd", "fused_render_train")   # one per .cu source
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # The packed matrices and vectors, in buffer order (must match the OFF_*
 # tables of csrc/fused_render_common.cuh). Matrices are (in, out).
@@ -91,9 +80,9 @@ def _views(flat: torch.Tensor, shapes: dict, names) -> dict:
 
 
 @dataclass(frozen=True)
-class PackedNeRF:
-    """A NeRF in the kernels' layout. ``wmat`` holds every matrix in the
-    compute dtype, ``vec`` the biases and the density-head row (float32,
+class Packed:
+    """A model in its family's kernel layout. ``wmat`` holds every matrix in
+    the compute dtype, ``vec`` the biases and the density-head row (float32,
     the row rounded to the compute dtype); ``mats``/``vecs`` are views."""
 
     wmat: torch.Tensor
@@ -143,7 +132,7 @@ def pack_f32(model) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def cast_packed(wflat: torch.Tensor, vec: torch.Tensor, cdt: torch.dtype,
-                hidden: int) -> PackedNeRF:
+                hidden: int) -> Packed:
     """The float32 packing as the kernels read it: matrices in ``cdt``, the
     density row rounded to ``cdt`` (biases stay float32)."""
     mat_shapes, vec_shapes = _shapes(hidden)
@@ -151,11 +140,11 @@ def cast_packed(wflat: torch.Tensor, vec: torch.Tensor, cdt: torch.dtype,
     vec = torch.cat([vec[:o], round_to(vec[o:o + hidden], cdt),
                      vec[o + hidden:]]).contiguous()
     wmat = wflat.to(cdt).contiguous()
-    return PackedNeRF(wmat=wmat, vec=vec, mats=_views(wmat, mat_shapes, _MATS),
+    return Packed(wmat=wmat, vec=vec, mats=_views(wmat, mat_shapes, _MATS),
                       vecs=_views(vec, vec_shapes, _VECS), cdt=cdt)
 
 
-def pack_params(model) -> PackedNeRF:
+def pack_params(model) -> Packed:
     """``model`` in the kernel layout, cast once to its compute dtype."""
     wflat, vec = pack_f32(model)
     return cast_packed(wflat, vec, model.cdt, model.hidden_dim)
@@ -192,7 +181,7 @@ def _encode(x: torch.Tensor, num_freqs: int, width: int, sin) -> torch.Tensor:
     return F.pad(out, (0, width - out.shape[-1]))
 
 
-def _forward_acts(packed: PackedNeRF, o_aff, d_aff, viewdirs, t,
+def _forward_acts(packed: Packed, o_aff, d_aff, viewdirs, t,
                   pos_freqs: int, dir_freqs: int) -> dict:
     """Every activation of the kernels' forward, (R, S, width) float32:
     matmul inputs rounded to the compute dtype as the kernels round them,
@@ -224,17 +213,18 @@ def _forward_acts(packed: PackedNeRF, o_aff, d_aff, viewdirs, t,
     return a
 
 
-def _composite(acts: dict, t: torch.Tensor):
+def _composite(acts: dict, t: torch.Tensor, sigma_mul: float = 1.0):
     """(one_m, T, weights) of each sample, and the ray sums (rgb without
-    background, acc, depth)."""
-    one_m = torch.exp(-torch.relu(acts["sigma_pre"]) * deltas_from_t(t))
+    background, acc, depth); sigma = relu(sigma_pre) * sigma_mul."""
+    sigma = torch.relu(acts["sigma_pre"]) * sigma_mul
+    one_m = torch.exp(-sigma * deltas_from_t(t))
     trans = exclusive_cumprod(one_m, dim=-1)
     weights = trans * (1.0 - one_m)
     return (one_m, trans, weights, torch.sum(weights[..., None] * acts["rgb"], dim=-2),
             torch.sum(weights, dim=-1), torch.sum(weights * t, dim=-1))
 
 
-def fused_render_plain(packed: PackedNeRF, o_aff: torch.Tensor,
+def fused_render_plain(packed: Packed, o_aff: torch.Tensor,
                        d_aff: torch.Tensor, viewdirs: torch.Tensor,
                        t: torch.Tensor, pos_freqs: int, dir_freqs: int):
     """The forward kernel's function in plain PyTorch: (rgb (R,3), acc
@@ -245,10 +235,12 @@ def fused_render_plain(packed: PackedNeRF, o_aff: torch.Tensor,
     return rgb, acc, depth, weights
 
 
-def _composite_bwd(acts: dict, one_m, trans, weights, t, g_ray):
+def _composite_bwd(acts: dict, one_m, trans, weights, t, g_ray,
+                   sigma_mul: float = 1.0, rgb_mul: float = 1.0):
     """Backward through compositing (``fused_render.py::_composite_bwd``):
     a per-ray cotangent (R, >=5) = [g_rgb, g_acc, g_depth] -> the sigmoid
-    pre-activation's cotangent dzr1 (R,S,3) and the density's (R,S)."""
+    input's cotangent dzr1 (R,S,3) (times ``rgb_mul``, the sigmoid taking
+    ``rgb_mul`` times that input) and the density pre-activation's (R,S)."""
     rgb = acts["rgb"]
     g_rgb = g_ray[:, None, :3]
     g_w = (torch.sum(g_rgb * rgb, dim=-1) + g_ray[:, None, 3]
@@ -258,12 +250,13 @@ def _composite_bwd(acts: dict, one_m, trans, weights, t, g_ray):
     suffix = torch.flip(torch.cumsum(torch.flip(gww[:, 1:], [-1]), -1), [-1])
     suffix = F.pad(suffix, (0, 1))
     g_sigma = (g_w * trans * one_m - suffix) * deltas_from_t(t)
-    dzr1 = g_rgb * weights[..., None] * rgb * (1.0 - rgb)
-    dsig = torch.where(acts["sigma_pre"] > 0, g_sigma, torch.zeros_like(g_sigma))
+    dzr1 = g_rgb * weights[..., None] * rgb * (1.0 - rgb) * rgb_mul
+    dsig = torch.where(acts["sigma_pre"] > 0, g_sigma * sigma_mul,
+                       torch.zeros_like(g_sigma))
     return dzr1, dsig
 
 
-def _mlp_bwd(packed: PackedNeRF, acts: dict, dzr1, dsig):
+def _mlp_bwd(packed: Packed, acts: dict, dzr1, dsig):
     """Backward of the MLP from the cotangents of the sigmoid input and the
     density (``fused_nerf.py::_mlp_bwd_core`` without input gradients):
     the flat float32 gradients ``(gw, gv)`` in the packed layout."""
@@ -313,7 +306,7 @@ def _mlp_bwd(packed: PackedNeRF, acts: dict, dzr1, dsig):
     return gw, gv
 
 
-def fused_train_plain(packed: PackedNeRF, o_aff, d_aff, viewdirs, t, target,
+def fused_train_plain(packed: Packed, o_aff, d_aff, viewdirs, t, target,
                       white_bg: bool, pos_freqs: int, dir_freqs: int):
     """The train kernel's function in plain PyTorch: ``(loss, rgb, acc,
     weights, (gw, gv))`` with loss = mean((rgb + white_bg (1 - acc) -
@@ -332,7 +325,7 @@ def fused_train_plain(packed: PackedNeRF, o_aff, d_aff, viewdirs, t, target,
     return loss, rgb, acc, weights, _mlp_bwd(packed, acts, dzr1, dsig)
 
 
-def fused_render_bwd_plain(packed: PackedNeRF, o_aff, d_aff, viewdirs, t,
+def fused_render_bwd_plain(packed: Packed, o_aff, d_aff, viewdirs, t,
                            g_ray, pos_freqs: int, dir_freqs: int):
     """The backward kernel's function in plain PyTorch: the flat float32
     gradients ``(gw, gv)`` of sum(g_ray * [rgb, acc, depth]) over the rays;
@@ -343,68 +336,12 @@ def fused_render_bwd_plain(packed: PackedNeRF, o_aff, d_aff, viewdirs, t,
     return _mlp_bwd(packed, acts, dzr1, dsig)
 
 
-# ---------------------------------------------------------------- build
-
-
-@dataclass(frozen=True)
-class BuildInfo:
-    name: str
-    path: Path
-    seconds: float
-    log: str
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); "
-                       "the fused render kernels are built from source at first use")
-
-
-@functools.cache
-def build() -> tuple[BuildInfo, ...]:
-    """Compile every kernel library into ``build/``: one ``nvcc`` per
-    source, all started together. A library's file name carries the hash of
-    every source in ``csrc/`` and of the flags, so a change to a shared
-    header rebuilds both. Raises ``RuntimeError`` if any build fails."""
-    sources = sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources:
-        h.update(p.name.encode() + p.read_bytes())
-    digest = h.hexdigest()[:16]
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs, infos = {}, {}
-    for name in _LIBS:
-        out = _BUILD_DIR / f"{name}-{digest}.so"
-        if out.exists():
-            infos[name] = BuildInfo(name, out, 0.0, "cached")
-            continue
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, out, time.perf_counter())
-    errors = []
-    for name, (proc, tmp, out, t0) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
-        infos[name] = BuildInfo(name, out, time.perf_counter() - t0, log)
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return tuple(infos[n] for n in _LIBS)
+# ---------------------------------------------------------------- libraries
 
 
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
-    path = {b.name: b.path for b in build()}[name]
-    lib = ctypes.CDLL(str(path))
+    lib = library(name)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "fused_render_fwd":
         lib.fused_render_fwd.argtypes = [vp] * 6 + [ci] * 8 + [vp] * 5
@@ -422,11 +359,11 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
-def _grad_sizes() -> tuple[int, int, int]:
+def grad_sizes(sizes_fn) -> tuple[int, int, int]:
+    """(floats per stashed point, floats per CTA partial, output floats) as
+    a train library's ``*_grad_sizes`` gives them."""
     vals = [ctypes.c_int() for _ in range(3)]
-    _library("fused_render_train").fused_render_grad_sizes(
-        *(ctypes.byref(v) for v in vals))
+    sizes_fn(*(ctypes.byref(v) for v in vals))
     return tuple(v.value for v in vals)
 
 
@@ -434,13 +371,13 @@ def _grad_sizes() -> tuple[int, int, int]:
 
 
 class _RenderFn(torch.autograd.Function):
-    """The forward render as a function of the float32 packing; its
-    backward is the backward kernel (the plain version on the CPU). The
+    """The forward render of a ``FusedRender`` as a function of its float32
+    packing; its backward is the backward kernel (the plain version on the CPU). The
     weights output and the ray/t inputs carry no gradient."""
 
     @staticmethod
     def forward(ctx, wflat, vec, fr, o_aff, d_aff, viewdirs, t):
-        packed = cast_packed(wflat.detach(), vec.detach(), fr.cdt, fr.h)
+        packed = fr.cast(wflat.detach(), vec.detach())
         rgb, acc, depth, weights = fr._forward(packed, o_aff, d_aff, viewdirs, t)
         ctx.fr, ctx.packed = fr, packed
         ctx.save_for_backward(o_aff, d_aff, viewdirs, t)
@@ -468,7 +405,7 @@ class _TrainFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, wflat, vec, fr, o_aff, d_aff, viewdirs, t, target, white_bg):
-        packed = cast_packed(wflat.detach(), vec.detach(), fr.cdt, fr.h)
+        packed = fr.cast(wflat.detach(), vec.detach())
         loss, rgb, acc, weights, (gw, gv) = fr._train(
             packed, o_aff, d_aff, viewdirs, t, target, white_bg)
         ctx.save_for_backward(gw, gv)
@@ -484,40 +421,42 @@ class _TrainFn(torch.autograd.Function):
 # ---------------------------------------------------------------- wrapper
 
 
-class FusedNerfRender:
-    """Fused render, train pass and render backward of a NeRF.
+class FusedRender:
+    """Fused render, train pass and render backward of one model family.
 
     ``__call__(params, rays_o, rays_d, viewdirs, t)`` with ``params`` a
-    ``NeRFModel`` or its ``pack`` returns ``rgb (R,3)``, ``acc (R,)``,
-    ``depth (R,)`` and ``weights (R,S)``, float32; with a model whose
-    parameters require grad (and grad enabled) rgb/acc/depth are
-    differentiable in them. ``train(...)`` returns the MSE loss (its
-    gradient computed in the same pass) and stop-gradient byproducts. White
-    background and disparity are left to the caller of ``__call__``.
-    ``launches``, ``train_launches`` and ``bwd_launches`` count kernel
-    launches over all instances.
+    model or its ``pack`` returns ``rgb (R,3)``, ``acc (R,)``, ``depth
+    (R,)`` and ``weights (R,S)``, float32; with a model whose parameters
+    require grad (and grad enabled) rgb/acc/depth are differentiable in
+    them. ``train(...)`` returns the MSE loss (its gradient computed in the
+    same pass) and stop-gradient byproducts. White background and disparity
+    are left to the caller of ``__call__``. Each family's class counts its
+    kernel launches over all its instances in ``launches``,
+    ``train_launches`` and ``bwd_launches``.
+
+    A family gives ``pack_f32`` (its float32 kernel layout, differentiable),
+    ``cast`` (the layout as the kernels read it), ``supported``, its plain
+    versions (``_plain_forward``, ``_plain_train``, ``_plain_backward``),
+    its libraries' entry points (``_fwd_entry``, ``_grad_entry``), the
+    family arguments of both (``_family_args``) and its matrix names in
+    buffer order (``mat_names``).
     """
 
     launches = 0
     train_launches = 0
     bwd_launches = 0
+    mat_names: tuple = ()
 
     def __init__(self, model, near: float, far: float, normalize: bool = True):
         self.near, self.far, self.normalize = float(near), float(far), normalize
         self.h = model.hidden_dim
-        self.pos_freqs = model.pos_encoding_dim
         self.dir_freqs = model.dir_encoding_dim
-        self.real_p = 3 * (1 + 2 * self.pos_freqs)
         self.real_d = 3 * (1 + 2 * self.dir_freqs)
         self.cdt = model.cdt
 
-    def supported(self) -> bool:
-        """The shapes the kernels cover: hidden 256 (as the TPU kernel's
-        ``supported``) and encodings that fit their padded widths."""
-        return self.h == 256 and self.real_p <= PP and self.real_d <= DP
-
-    def pack(self, model) -> PackedNeRF:
-        return pack_params(model)
+    def pack(self, model) -> Packed:
+        """``model`` in the kernel layout, cast once to its compute dtype."""
+        return self.cast(*self.pack_f32(model))
 
     def affine(self, rays_o, rays_d):
         """The [near,far] -> [-1,1] map folded into the rays (O(rays))."""
@@ -529,11 +468,11 @@ class FusedNerfRender:
 
     def __call__(self, params, rays_o, rays_d, viewdirs, t) -> dict:
         o_aff, d_aff = self.affine(rays_o, rays_d)
-        if isinstance(params, PackedNeRF):
+        if isinstance(params, Packed):
             outs = self._forward(params, o_aff, d_aff, viewdirs, t)
         elif torch.is_grad_enabled() and any(p.requires_grad
                                              for p in params.parameters()):
-            outs = _RenderFn.apply(*pack_f32(params), self, o_aff, d_aff,
+            outs = _RenderFn.apply(*self.pack_f32(params), self, o_aff, d_aff,
                                    viewdirs, t)
         else:
             outs = self._forward(self.pack(params), o_aff, d_aff, viewdirs, t)
@@ -549,7 +488,7 @@ class FusedNerfRender:
         kernel pass)."""
         o_aff, d_aff = self.affine(rays_o, rays_d)
         loss, rgb, acc, weights = _TrainFn.apply(
-            *pack_f32(params), self, o_aff, d_aff, viewdirs, t, target,
+            *self.pack_f32(params), self, o_aff, d_aff, viewdirs, t, target,
             bool(white_bg))
         return loss, {"rgb": rgb, "acc": acc, "weights": weights}
 
@@ -562,36 +501,30 @@ class FusedNerfRender:
 
     def _forward(self, packed, o_aff, d_aff, viewdirs, t):
         if self._route(t) == "cpu":
-            return fused_render_plain(packed, o_aff, d_aff, viewdirs, t,
-                                      self.pos_freqs, self.dir_freqs)
+            return self._plain_forward(packed, o_aff, d_aff, viewdirs, t)
         return self._launch_fwd(packed, o_aff, d_aff, viewdirs, t)
 
     def _backward(self, packed, o_aff, d_aff, viewdirs, t, g_ray):
         if self._route(t) == "cpu":
-            return fused_render_bwd_plain(packed, o_aff, d_aff, viewdirs, t,
-                                          g_ray, self.pos_freqs, self.dir_freqs)
+            return self._plain_backward(packed, o_aff, d_aff, viewdirs, t, g_ray)
         out = self._launch_grad(packed, o_aff, d_aff, viewdirs, t, g_ray,
                                 train=False, white_bg=False)
-        FusedNerfRender.bwd_launches += 1
+        type(self).bwd_launches += 1
         return out[0]
 
     def _train(self, packed, o_aff, d_aff, viewdirs, t, target, white_bg):
         if self._route(t) == "cpu":
-            return fused_train_plain(packed, o_aff, d_aff, viewdirs, t, target,
-                                     white_bg, self.pos_freqs, self.dir_freqs)
+            return self._plain_train(packed, o_aff, d_aff, viewdirs, t, target,
+                                     white_bg)
         (gw, gv), loss, rgb, acc, weights = self._launch_grad(
             packed, o_aff, d_aff, viewdirs, t, target, train=True,
             white_bg=white_bg)
-        FusedNerfRender.train_launches += 1
+        type(self).train_launches += 1
         return loss, rgb, acc, weights, (gw, gv)
 
-    def _check(self, packed: PackedNeRF, named: tuple) -> None:
+    def _check(self, packed: Packed, named: tuple) -> None:
         if not self.supported():
-            raise NotImplementedError(
-                f"the fused render kernels cover hidden 256 with encodings of "
-                f"at most {PP}/{DP} columns; got hidden {self.h}, "
-                f"{self.real_p}/{self.real_d} (run on the CPU, or with "
-                "use_pallas = false)")
+            raise NotImplementedError(self._unsupported())
         dev = named[0][1].device
         for name, x, shape, dtype in named + (
                 ("wmat", packed.wmat, packed.wmat.shape, self.cdt),
@@ -607,7 +540,7 @@ class FusedNerfRender:
                 ("viewdirs", viewdirs, (num_rays, 3), torch.float32),
                 ("t", t, (num_rays, s), torch.float32))
 
-    def _launch_fwd(self, packed: PackedNeRF, o_aff, d_aff, viewdirs, t):
+    def _launch_fwd(self, packed: Packed, o_aff, d_aff, viewdirs, t):
         self._check(packed, self._ray_args(o_aff, d_aff, viewdirs, t))
         num_rays, s = t.shape
         dev = t.device
@@ -617,25 +550,25 @@ class FusedNerfRender:
         acc = torch.empty((num_rays,), dtype=torch.float32, device=dev)
         depth = torch.empty((num_rays,), dtype=torch.float32, device=dev)
         weights = torch.empty((num_rays, s), dtype=torch.float32, device=dev)
-        lib = _library("fused_render_fwd")
+        fn, err = self._fwd_entry()
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         rays_per_cta = -(-num_rays // n_sm)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            code = lib.fused_render_fwd(
+            code = fn(
                 o_aff.data_ptr(), d_aff.data_ptr(), viewdirs.data_ptr(),
                 t.data_ptr(), packed.wmat.data_ptr(), packed.vec.data_ptr(),
                 packed.wmat.numel(), packed.vec.numel(),
                 int(self.cdt == torch.bfloat16), num_rays, s, rays_per_cta,
-                self.real_p, self.real_d, rgb.data_ptr(), acc.data_ptr(),
+                *self._family_args(), rgb.data_ptr(), acc.data_ptr(),
                 depth.data_ptr(), weights.data_ptr(), stream)
         if code != 0:
-            raise RuntimeError("fused render kernel: "
-                               + lib.fused_render_fwd_error(code).decode())
-        FusedNerfRender.launches += 1
+            raise RuntimeError(f"{type(self).__name__} forward kernel: "
+                               + err(code).decode())
+        type(self).launches += 1
         return rgb, acc, depth, weights
 
-    def _launch_grad(self, packed: PackedNeRF, o_aff, d_aff, viewdirs, t,
+    def _launch_grad(self, packed: Packed, o_aff, d_aff, viewdirs, t,
                      given, train: bool, white_bg: bool):
         """One launch of the train kernel (``given`` the (R,3) target) or of
         the backward kernel (``given`` the (R,8) cotangent). Returns
@@ -647,14 +580,13 @@ class FusedNerfRender:
         dev = t.device
         o_aff, d_aff, viewdirs, t, given = (
             x.detach().contiguous() for x in (o_aff, d_aff, viewdirs, t, given))
-        lib = _library("fused_render_train")
-        per_point, npart, n_out = _grad_sizes()
+        fn, err, (per_point, npart, n_out) = self._grad_entry()
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         rays_per_cta = -(-num_rays // n_sm)
         grid = -(-num_rays // rays_per_cta)
         cap = -(-rays_per_cta * s // 64) * 64
         # transposed matrices (same offsets) for the dz W^T products
-        wmat_t = torch.cat([packed.mats[k].t().reshape(-1) for k in _MATS])
+        wmat_t = torch.cat([packed.mats[k].t().reshape(-1) for k in self.mat_names])
         scratch = torch.empty(grid * cap * per_point, dtype=torch.float32, device=dev)
         partial = torch.empty(grid * npart, dtype=torch.float32, device=dev)
         out = torch.empty(n_out, dtype=torch.float32, device=dev)
@@ -663,19 +595,75 @@ class FusedNerfRender:
         weights = torch.empty((num_rays, s), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            code = lib.fused_render_grad(
+            code = fn(
                 o_aff.data_ptr(), d_aff.data_ptr(), viewdirs.data_ptr(),
                 t.data_ptr(), packed.wmat.data_ptr(), wmat_t.data_ptr(),
                 packed.vec.data_ptr(), packed.wmat.numel(), packed.vec.numel(),
                 int(self.cdt == torch.bfloat16), int(train), given.data_ptr(),
                 1.0 if white_bg else 0.0, 1.0 / (3.0 * num_rays), num_rays, s,
-                rays_per_cta, cap, self.real_p, self.real_d, scratch.data_ptr(),
+                rays_per_cta, cap, *self._family_args(), scratch.data_ptr(),
                 partial.data_ptr(), out.data_ptr(), rgb.data_ptr(),
                 acc.data_ptr(), weights.data_ptr(), stream)
         if code != 0:
-            raise RuntimeError(("fused train kernel: " if train else
-                                "fused render backward kernel: ")
-                               + lib.fused_render_grad_error(code).decode())
+            raise RuntimeError(f"{type(self).__name__} "
+                               + ("train kernel: " if train else "backward kernel: ")
+                               + err(code).decode())
         n_w = packed.wmat.numel()
         return ((out[:n_w], out[n_w:n_out - 1]), out[n_out - 1], rgb, acc,
                 weights)
+
+
+class FusedNerfRender(FusedRender):
+    """Fused render, train pass and render backward of a NeRF (see
+    ``FusedRender`` for the contract)."""
+
+    launches = 0
+    train_launches = 0
+    bwd_launches = 0
+    mat_names = _MATS
+
+    def __init__(self, model, near: float, far: float, normalize: bool = True):
+        super().__init__(model, near, far, normalize)
+        self.pos_freqs = model.pos_encoding_dim
+        self.real_p = 3 * (1 + 2 * self.pos_freqs)
+
+    def supported(self) -> bool:
+        """The shapes the kernels cover: hidden 256 (as the TPU kernel's
+        ``supported``) and encodings that fit their padded widths."""
+        return self.h == 256 and self.real_p <= PP and self.real_d <= DP
+
+    def _unsupported(self) -> str:
+        return (f"the fused render kernels cover hidden 256 with encodings of "
+                f"at most {PP}/{DP} columns; got hidden {self.h}, "
+                f"{self.real_p}/{self.real_d} (run on the CPU, or with "
+                "use_pallas = false)")
+
+    def pack_f32(self, model):
+        return pack_f32(model)
+
+    def cast(self, wflat, vec) -> Packed:
+        return cast_packed(wflat, vec, self.cdt, self.h)
+
+    def _plain_forward(self, packed, o_aff, d_aff, viewdirs, t):
+        return fused_render_plain(packed, o_aff, d_aff, viewdirs, t,
+                                  self.pos_freqs, self.dir_freqs)
+
+    def _plain_backward(self, packed, o_aff, d_aff, viewdirs, t, g_ray):
+        return fused_render_bwd_plain(packed, o_aff, d_aff, viewdirs, t, g_ray,
+                                      self.pos_freqs, self.dir_freqs)
+
+    def _plain_train(self, packed, o_aff, d_aff, viewdirs, t, target, white_bg):
+        return fused_train_plain(packed, o_aff, d_aff, viewdirs, t, target,
+                                 white_bg, self.pos_freqs, self.dir_freqs)
+
+    def _family_args(self) -> tuple:
+        return (self.real_p, self.real_d)
+
+    def _fwd_entry(self):
+        lib = _library("fused_render_fwd")
+        return lib.fused_render_fwd, lib.fused_render_fwd_error
+
+    def _grad_entry(self):
+        lib = _library("fused_render_train")
+        return (lib.fused_render_grad, lib.fused_render_grad_error,
+                grad_sizes(lib.fused_render_grad_sizes))

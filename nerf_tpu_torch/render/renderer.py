@@ -4,9 +4,9 @@ Counterpart of ``nerf_tpu.render.renderer``: stratified samples (shared or
 per-ray jitter), deltas with the 1e10 tail, the componentwise
 [near,far] -> [-1,1] position map, exclusive-cumprod transmittance, a white
 background, and hierarchical coarse/fine sampling (``merge`` or
-``resample``). A pass runs either through the fused render (one kernel on
-the card, its plain version on the CPU) or through the unfused module path
-(``NeRFModel`` forward + ``composite``). ``render_image`` bounds memory by
+``resample``). A pass runs either through the fused render of the model's
+family (one kernel on the card, its plain version on the CPU) or through the
+unfused module path (the model's forward + ``composite``). ``render_image`` bounds memory by
 a Python loop over ``chunk_size`` ray tiles.
 """
 
@@ -52,8 +52,9 @@ class RenderOutput(NamedTuple):
 
 def _render_pass(params, rays_o, rays_d, viewdirs, t, settings: RenderSettings,
                  fused_render=None) -> CompositeOutput:
-    """One pass over the samples ``t``. ``params`` is a ``NeRFModel`` or,
-    with ``fused_render``, anything that renderer takes (its ``pack``)."""
+    """One pass over the samples ``t``. ``params`` is a model (``NeRFModel``,
+    ``SirenModel``) or, with ``fused_render``, anything that renderer takes
+    (its ``pack``)."""
     if fused_render is not None:
         out = fused_render(params, rays_o, rays_d, viewdirs, t)
         rgb, acc, depth = out["rgb"], out["acc"], out["depth"]

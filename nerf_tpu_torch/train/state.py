@@ -10,8 +10,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch import nn
 
-from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.models.registry import model_from_config
 from nerf_tpu_torch.train.optim import Adam, make_optimizer
 from nerf_tpu_torch.utils.device import resolve_device
@@ -20,8 +20,8 @@ from nerf_tpu_torch.utils.device import resolve_device
 @dataclass
 class TrainState:
     step: int                           # iterations taken so far
-    params: NeRFModel                   # coarse (or only) model
-    fine_params: Optional[NeRFModel]    # fine model, or None
+    params: nn.Module                   # coarse (or only) model
+    fine_params: Optional[nn.Module]    # fine model, or None
     optimizer: Adam                     # over params, then fine_params
 
     def models(self) -> list:

@@ -9,10 +9,11 @@ takes one Adam update, all in place. Per-step randomness comes from
 ``torch.Generator``s seeded from (seed, step, stream), so a resumed run or
 a chunk of N steps repeats the same draws as N single steps.
 
-There is no probe and no downgrade: a NeRF trains and renders through the
-fused kernels for CUDA tensors (which raise on shapes they do not cover)
-and their plain versions for CPU tensors, unless the caller asks for the
-unfused module path with ``use_pallas = false`` / ``fused=False``.
+There is no probe and no downgrade: a NeRF or a SIREN trains and renders
+through its family's fused kernels for CUDA tensors (which raise on shapes
+they do not cover) and their plain versions for CPU tensors, unless the
+caller asks for the unfused module path with ``use_pallas = false`` /
+``fused=False``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,10 @@ import numpy as np
 import torch
 
 from nerf_tpu_torch.data.pipeline import RayBatch, RayPool
-from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
+from nerf_tpu_torch.models.nerf import NeRFModel
+from nerf_tpu_torch.models.siren import SirenModel
+from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender, FusedRender
+from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
 from nerf_tpu_torch.render.renderer import (
     RenderOutput,
     RenderSettings,
@@ -43,6 +47,25 @@ def step_seed(seed: int, step: int, stream: int) -> int:
     return (int(state[0]) << 31) ^ int(state[1])
 
 
+_FUSED = {NeRFModel: FusedNerfRender, SirenModel: FusedSirenRender}
+
+
+def fused_render_for(model, settings: RenderSettings) -> FusedRender:
+    """The fused render of ``model``'s family (counterpart of
+    ``nerf_tpu.ops.pallas.get_fused_render`` and
+    ``nerf_tpu.train.step.resolve_fused_render``, without their probe and
+    their downgrade). Raises ``NotImplementedError`` for a family whose
+    fused kernels are not ported."""
+    cls = _FUSED.get(type(model))
+    if cls is None:
+        raise NotImplementedError(
+            f"no fused render for {type(model).__name__} in nerf_tpu_torch "
+            "yet (ROADMAP.md queue 2; use_pallas = false renders through the "
+            "module)")
+    return cls(model, settings.near, settings.far,
+               normalize=settings.normalize_positions)
+
+
 def _generator(device, seed: int) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -59,10 +82,7 @@ def _make_step_body(model, settings: RenderSettings, batch_size: int,
     ``mse`` and ``psnr`` as device scalars. With ``use_pallas`` each pass is
     one train-kernel launch; without, the unfused module path under
     autograd."""
-    fused_render = None
-    if use_pallas:
-        fused_render = FusedNerfRender(model, settings.near, settings.far,
-                                       normalize=settings.normalize_positions)
+    fused_render = fused_render_for(model, settings) if use_pallas else None
 
     def sample(state: TrainState, pool: RayPool) -> RayBatch:
         if epoch_sampling:
@@ -132,12 +152,9 @@ def make_scan_train_step(model, settings: RenderSettings, batch_size: int,
 def make_eval_render(model, settings: RenderSettings, fused: bool = True):
     """Returns ``render(params, fine_params, rays_o, rays_d, generator=None,
     viewdirs=None) -> RenderOutput``, where ``params``/``fine_params`` are
-    ``NeRFModel``s (``fine_params`` None: the coarse model renders both
-    passes). Memory is bounded by ``settings.chunk_size`` ray tiles."""
-    fused_render = None
-    if fused:
-        fused_render = FusedNerfRender(model, settings.near, settings.far,
-                                       normalize=settings.normalize_positions)
+    models of ``model``'s family (``fine_params`` None: the coarse model
+    renders both passes). Memory is bounded by ``settings.chunk_size`` ray tiles."""
+    fused_render = fused_render_for(model, settings) if fused else None
 
     @torch.no_grad()
     def render(params, fine_params, rays_o: torch.Tensor, rays_d: torch.Tensor,

@@ -211,3 +211,169 @@ def test_eval_render_on_card_matches_cpu(dev, fine_sampling):
         scale = 10.0 if name == "depth" else 1.0
         torch.testing.assert_close(getattr(got, name).cpu(), getattr(ref, name),
                                    atol=1e-4 * scale, rtol=0, msg=name)
+
+
+# ---------------------------------------------------------------- SIREN
+
+# SIREN kernel vs plain. float32 as for the NeRF kernels. bfloat16: a sum
+# that lands on the other side of a bf16 rounding boundary moves one
+# activation by 2^-8 relative, and SIREN multiplies the density by
+# sigma_mul = 10 (and its first layer by w0 = 30), so a flip moves a
+# compositing weight about ten times as far as in the NeRF: 5e-3 on the
+# forward outputs (5e-2 on depth). Gradients: with a few dozen points a
+# flip is a sizable share of a cancelling sum such as bs (one sum of
+# dsig): 0.1 of the max (measured 6.9e-2 for bs at 7 rays x 13; at 1024 x
+# 256 every gradient is within 5.3e-4, chip_smoke.py).
+SIREN_TOL = {"float32": TOL["float32"], "bfloat16": 5e-3}
+SIREN_GRAD_TOL = {"float32": GRAD_TOL["float32"], "bfloat16": 0.1}
+
+
+def _siren_grads_close(got, ref, cdt):
+    """As _assert_grads, over the SIREN layout's 25 gradient tensors."""
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import grad_views as siren_views
+
+    g, r = siren_views(*got, 256), siren_views(*ref, 256)
+    floor = 1e-2 * max(float(v.abs().max()) for v in r.values())
+    for k in r:
+        assert torch.isfinite(g[k]).all(), k
+        scale = max(float(r[k].abs().max()), floor)
+        err = float((g[k] - r[k]).abs().max())
+        assert err <= SIREN_GRAD_TOL[cdt] * scale, (k, err, scale)
+
+
+def _siren(cdt, seed, dev, **kw):
+    from nerf_tpu_torch.models.siren import SirenModel
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
+
+    model = SirenModel(compute_dtype=cdt, generator=torch.Generator().manual_seed(seed),
+                       **kw).to(dev)
+    return model, FusedSirenRender(model, NEAR, FAR)
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(300, 37), (5, 8), (1000, 64), (133, 256)])
+def test_siren_kernel_matches_plain(dev, cdt, shape):
+    """Odd S (chunks span rays), few rays (idle CTAs), 133 rays (one more
+    than the SMs) at lego_siren.txt's 256 samples."""
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import (
+        FusedSirenRender, fused_siren_render_plain)
+
+    model, fr = _siren(cdt, 1, dev)
+    ro, rd, t = _inputs(*shape, dev)
+    with torch.no_grad():
+        packed = fr.pack(model)
+        before = FusedSirenRender.launches
+        got = fr(packed, ro, rd, rd, t)
+        torch.cuda.synchronize()
+        assert FusedSirenRender.launches == before + 1
+        o_aff, d_aff = fr.affine(ro, rd)
+        ref = fused_siren_render_plain(packed, o_aff, d_aff, rd, t, fr.consts)
+    for i, k in enumerate(("rgb", "acc", "depth", "weights")):
+        assert got[k].shape == ref[i].shape
+        assert torch.isfinite(got[k]).all()
+        scale = 10.0 if k == "depth" else 1.0
+        err = float((got[k] - ref[i]).abs().max())
+        assert err <= SIREN_TOL[cdt] * scale, (k, err)
+
+
+def test_siren_kernel_refuses_unsupported_shapes(dev):
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
+
+    ro, rd, t = _inputs(4, 8, dev)
+    model, fr = _siren("float32", 0, dev, hidden_dim=512)
+    before = FusedSirenRender.launches
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="hidden 256"):
+        fr(model, ro, rd, rd, t)
+    assert FusedSirenRender.launches == before
+    with pytest.raises(NotImplementedError, match="8 sine layers"):
+        _siren("float32", 0, dev, num_layers=6)
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(300, 37), (5, 8), (133, 64)])
+@pytest.mark.parametrize("white_bg", [True, False])
+def test_siren_train_kernel_matches_plain(dev, cdt, shape, white_bg):
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import (
+        FusedSirenRender, fused_siren_train_plain)
+
+    model, fr = _siren(cdt, 4, dev)
+    ro, rd, t = _inputs(*shape, dev, seed=1)
+    tgt = torch.rand(shape[0], 3, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+    with torch.no_grad():
+        packed = fr.pack(model)
+        o_aff, d_aff = fr.affine(ro, rd)
+        before = FusedSirenRender.train_launches
+        got = fr._train(packed, o_aff, d_aff, rd, t, tgt, white_bg)
+        torch.cuda.synchronize()
+        assert FusedSirenRender.train_launches == before + 1
+        ref = fused_siren_train_plain(packed, o_aff, d_aff, rd, t, tgt, white_bg,
+                                      fr.consts)
+    torch.testing.assert_close(got[0], ref[0], rtol=SIREN_TOL[cdt], atol=0)
+    for i in (1, 2, 3):
+        torch.testing.assert_close(got[i], ref[i], atol=SIREN_TOL[cdt], rtol=0)
+    _siren_grads_close(got[4], ref[4], cdt)
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(300, 37), (7, 13)])
+def test_siren_backward_kernel_matches_plain_and_autograd(dev, cdt, shape):
+    """The backward kernel against its plain version, and through autograd
+    (the forward kernel, then the backward kernel) from a loss on rgb, acc
+    and depth."""
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import (
+        FusedSirenRender, fused_siren_render_bwd_plain, grad_views)
+
+    model, fr = _siren(cdt, 5, dev)
+    ro, rd, t = _inputs(*shape, dev, seed=3)
+    g_ray = torch.randn(shape[0], 8, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(6))
+    g_ray[:, 5:] = 0
+    with torch.no_grad():
+        packed = fr.pack(model)
+        o_aff, d_aff = fr.affine(ro, rd)
+        got = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+        ref = fused_siren_render_bwd_plain(packed, o_aff, d_aff, rd, t, g_ray,
+                                           fr.consts)
+    _siren_grads_close(got, ref, cdt)
+    before = (FusedSirenRender.launches, FusedSirenRender.bwd_launches)
+    out = fr(model, ro, rd, rd, t)
+    loss = (torch.sum(out["rgb"] * g_ray[:, :3]) + torch.sum(out["acc"] * g_ray[:, 3])
+            + torch.sum(out["depth"] * g_ray[:, 4]))
+    loss.backward()
+    assert (FusedSirenRender.launches, FusedSirenRender.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert model.base[0].weight.grad.dtype == torch.float32
+    torch.testing.assert_close(model.base[0].weight.grad.T,
+                               grad_views(*got, 256)["w1"][:3])
+    torch.testing.assert_close(model.sigma.weight.grad[0], grad_views(*got, 256)["ws"])
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_siren_train_step_on_card_matches_cpu(dev, cdt):
+    """Two coarse-only 32-sample steps of the same SIREN state on one batch
+    (perturb off), on the card through the train kernel and on the CPU
+    through its plain version: loss and mse within the kernel tolerance;
+    parameters within the Adam sign noise (2 lr per step)."""
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
+
+    kw = dict(near=NEAR, far=FAR, num_samples=32, perturb=False,
+              white_background=True)
+    cfg = Config(model_type="siren", hidden_dim=256, compute_dtype=cdt, **kw)
+    states = [create_train_state(cfg, device=d) for d in ("cpu", dev)]
+    ro, rd, _ = _inputs(64, 1, "cpu", seed=7)
+    tgt = torch.rand(64, 3, generator=torch.Generator().manual_seed(8))
+    metrics = []
+    for st in states:
+        _, train_on_batch = _make_step_body(st.params, RenderSettings(**kw), 64, 0)
+        d = st.params.base[0].weight.device
+        batch = RayBatch(*(x.to(d) for x in (ro, rd, tgt, rd)))
+        before = FusedSirenRender.train_launches
+        metrics.append([train_on_batch(st, batch) for _ in range(2)])
+        assert FusedSirenRender.train_launches - before == (2 if d.type == "cuda" else 0)
+    for m_cpu, m_gpu in zip(*metrics):
+        for k in ("loss", "mse"):
+            torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k],
+                                       rtol=10 * TOL[cdt], atol=0)
+    for a, b in zip(states[0].params.parameters(), states[1].params.parameters()):
+        torch.testing.assert_close(b.detach().cpu(), a.detach(), atol=4 * 5e-4, rtol=0)

@@ -158,7 +158,7 @@ def test_model_from_config():
     assert m.cdt == torch.bfloat16
 
 
-@pytest.mark.parametrize("family", ["siren", "gabor", "kilonerf", "fastnerf",
+@pytest.mark.parametrize("family", ["gabor", "kilonerf", "fastnerf",
                                     "plenoctree", "ngp", "plenoxels"])
 def test_unported_families_raise(family):
     from nerf_tpu.models.registry import MODEL_REGISTRY

@@ -356,7 +356,7 @@ def test_scan_steps_equal_single_steps(scene_root):
     ("occupancy_res", 8, "row 13"), ("upsample_steps", "5:16", "row 13"),
     ("distill_from", "x", "row 12"), ("tv_lambda", 0.1, "row 13"),
     ("mesh_shape", "2,1", "row 14"), ("dataset_type", "llff", "row 9"),
-    ("model_type", "siren", "row 10")])
+    ("model_type", "gabor", "row 11")])
 def test_fit_refuses_unported_options(scene_root, field, value, row):
     cfg = dataclasses.replace(_cfg(scene_root), **{field: value})
     with pytest.raises(NotImplementedError, match=row):
