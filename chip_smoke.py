@@ -54,9 +54,25 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      with 3 backward launches, the train rate of the lego_siren step and a
      profile of one step; then bench.py's train_siren protocol (flat SIREN,
      bf16, 1024 x 256, the 1<<20 pool, warm-up, 50 chained steps timed to a
-     host fetch) in rays/s.
+     host fetch) in rays/s;
+ 10. the GaborNet kernels against their plain versions on the card (TF32
+     off): the forward render at 1024 x 256, 1000 x 256 and 1024 x 37, the
+     train pass at 1024 x 256 (loss, rgb, acc, weights, every weight
+     gradient, the coefficient cotangents dA..dR, and the filter gradients
+     after autograd through the prep), float32 and bfloat16, timed in turns
+     against their plain versions and their bound;
+ 11. serving configs/lego_siren.txt with model_type = gabor (GaborNet, 8
+     stages, hidden 256, coarse-only 256 samples, chunk 1024, bf16) as in 8:
+     157 Gabor forward launches per request, one image held against the
+     unfused render;
+ 12. training it as in 9 (200 train launches, 157 validation forward
+     launches, the mse at 190 under that at 0, a bit-identical resume, a
+     profile of one step); the forward render under autograd must raise
+     NotImplementedError (the JAX render route has no VJP either); then
+     bench.py's train_gabor protocol (flat GaborNet, bf16, 1024 x 256, as
+     train_siren) in rays/s.
 
-The last lines are a JSON object of per-kernel numbers (all six kernels),
+The last lines are a JSON object of per-kernel numbers (all eight kernels),
 the card, and ``{"ok": true, "device": {...}}``. Needs a CUDA device and this checkout;
 imports nothing of JAX or of the JAX package.
 """
@@ -112,6 +128,16 @@ SIREN_MACS = 3 * 256 + 7 * 256 * 256 + 256 + 256 * 256 + 283 * 128 + 128 * 3
 SIREN_TRIG = 8 * 256 + 128
 SIREN_SKIPPED = 256 * 3 + 128 * 27
 R_SIREN, S_SIREN = 1024, 256   # lego_siren.txt: chunk_size, num_samples
+# GaborNet at the real widths, per sample: forward MACs (7 x 256x256, the
+# 256 density row, 256x256, 283x128, 128x3), transcendentals of the forward
+# (a sine and an exponential per filter element, 8 x 256; the backward
+# takes a sine and a cosine), and the backward's skipped input product
+# (dzr0 wr0d^T). The kernels also read the per-ray coefficients (5 x 8 x
+# 256 floats a ray; the train pass writes as many cotangents).
+GABOR_MACS = 7 * 256 * 256 + 256 + 256 * 256 + 283 * 128 + 128 * 3
+GABOR_TRIG = 2 * 8 * 256
+GABOR_SKIPPED = 128 * 27
+GABOR_COEF_BYTES = 5 * 8 * 256 * 4
 
 
 def fail(msg: str) -> None:
@@ -296,11 +322,14 @@ def get(url: str) -> tuple:
         return r.status, r.headers.get("Content-Type"), r.read()
 
 
-def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str):
-    """Phase 4 (``config`` lego.txt, the NeRF kernels) or 8 (lego_siren.txt,
-    the SIREN kernels): a checkpoint of ``config`` from its seed, served on
+def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
+          model_type: str | None = None):
+    """Phase 4 (``config`` lego.txt, the NeRF kernels), 8 (lego_siren.txt,
+    the SIREN kernels) or 11 (lego_siren.txt with ``model_type`` gabor, the
+    GaborNet kernels): a checkpoint of ``config`` from its seed, served on
     cuda over loopback; returns the kernel launches of the three image
     requests."""
+    label = config if model_type is None else f"{config} (model_type = {model_type})"
     import dataclasses
 
     from nerf_tpu_torch.config import parse_config_file
@@ -316,7 +345,8 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str):
         write_sphere_scene(scene, HW)
     cfg = parse_config_file(os.path.join(ROOT, "configs", config))
     cfg = dataclasses.replace(cfg, dataset_path=scene,
-                              save_path=os.path.join(tmp, "models"))
+                              save_path=os.path.join(tmp, "models"),
+                              model_type=model_type or cfg.model_type)
     gen = torch.Generator().manual_seed(cfg.seed)
     model = model_from_config(cfg, generator=gen)
     fine = None
@@ -348,15 +378,15 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str):
             dt = time.perf_counter() - t0
             n = fused_cls.launches - before
             if code != 200 or ctype != "image/png" or body[:8] != b"\x89PNG\r\n\x1a\n":
-                fail(f"{config} {route}: status {code}, type {ctype}")
+                fail(f"{label} {route}: status {code}, type {ctype}")
             img = decode_png(body)
             if img.shape != (HW, HW, 3):
-                fail(f"{config} {route}: image shape {img.shape}")
+                fail(f"{label} {route}: image shape {img.shape}")
             if n != per_image:
-                fail(f"{config} {route}: {n} fused render launches, want {per_image}")
+                fail(f"{label} {route}: {n} fused render launches, want {per_image}")
             images[route.split("?")[0]] = img
             times.append(dt)
-            say(f"serve {config} {route.split('?')[0]}: 200 image/png {HW}x{HW}, "
+            say(f"serve {label} {route.split('?')[0]}: 200 image/png {HW}x{HW}, "
                 f"{n} kernel launches, {dt * 1e3:.1f} ms, "
                 f"{HW * HW / dt:.0f} rays/s")
     finally:
@@ -365,7 +395,7 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str):
         thread.join(timeout=30)
     launches = fused_cls.launches
     if launches != 3 * per_image:
-        fail(f"{config}: main path launched the kernel {launches} times")
+        fail(f"{label}: main path launched the kernel {launches} times")
 
     # the served /pose/1 against the unfused render of the same request
     ref_render = make_eval_render(svc.params[0], render_settings_from_config(cfg),
@@ -379,19 +409,19 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str):
                      torch.from_numpy(d).to(dev), g).rgb
     ref = ref.reshape(h, w, 3).clamp(0, 1).cpu().numpy()
     if not np.isfinite(ref).all():
-        fail(f"{config}: unfused reference render is not finite")
+        fail(f"{label}: unfused reference render is not finite")
     diff = np.abs(images["/pose/1"].astype(np.float32) / 255.0 - ref)
-    say(f"serve {config} /pose/1 vs unfused render: mean abs {diff.mean():.3e} "
+    say(f"serve {label} /pose/1 vs unfused render: mean abs {diff.mean():.3e} "
         f"(tol {SERVE_TOL_MEAN:.0e}), max abs {diff.max():.3e}")
     if diff.mean() > SERVE_TOL_MEAN:
-        fail(f"{config}: served image disagrees with the unfused render")
+        fail(f"{label}: served image disagrees with the unfused render")
     med = statistics.median(times)
     say(f"serve: {med * 1e3:.1f} ms per {HW}x{HW} request (median of "
         f"{len(times)}), {HW * HW / med:.0f} rays/s, {per_image} launches "
-        f"per request, model {config} ({cfg.compute_dtype}, "
+        f"per request, model {label} ({cfg.compute_dtype}, "
         f"{cfg.num_samples}+{cfg.num_fine_samples})")
     profile_device(torch, lambda: svc.render_pose(svc.orbit_pose(2), key_idx=2),
-                   kernel, f"one {config} request")
+                   kernel, f"one {label} request")
     return launches
 
 
@@ -707,6 +737,165 @@ def check_siren_kernels(torch, dev):
     return results
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+def check_gabor_kernels(torch, dev):
+    """The GaborNet forward at 1024 x 256 (lego_siren.txt's chunk and
+    samples), 1000 x 256 (ragged) and 1024 x 37 (odd S: chunks span rays);
+    the train pass at 1024 x 256, its coefficient cotangents dA..dR (max abs
+    over max |d| per coefficient) and the filter gradients after autograd
+    through the prep (as grad_errors); float32 and bfloat16, TF32 off; the
+    tolerances of the NeRF kernels."""
+    from nerf_tpu_torch.models.gabor import GaborModel
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import (
+        FusedGaborRender, fused_gabor_render_plain, fused_gabor_train_plain,
+        gabor_coeffs, grad_views, stack_filters)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for cdt in ("float32", "bfloat16"):
+        model = GaborModel(compute_dtype=cdt,
+                           generator=torch.Generator().manual_seed(7)).to(dev)
+        fr = FusedGaborRender(model, 2.0, 6.0, normalize=True)
+        k = fr.consts
+        gpack = fr.pack(model)
+        packed = gpack.packed
+        weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
+                        + packed.vec.numel() * 4)
+        grad_bytes = (packed.wmat.numel() + packed.vec.numel()) * 4
+        worst = 0.0
+        for r, s in ((R_SIREN, S_SIREN), (1000, S_SIREN), (R_SIREN, 37)):
+            ro, rd, t, _ = camera_batch(torch, dev, r, s, 5000 + r + s)
+            o_aff, d_aff = fr.affine(ro, rd)
+            with torch.no_grad():
+                coeffs = gabor_coeffs(*gpack.filters, o_aff, d_aff)
+
+            def plain():
+                return fused_gabor_render_plain(packed, coeffs, rd, t, k)
+
+            def kern():
+                return fr._forward(packed, coeffs, rd, t)
+
+            with torch.no_grad():
+                ref = plain()
+                out = kern()
+                torch.cuda.synchronize()
+                errs = {}
+                for i, name in enumerate(("rgb", "acc", "depth", "weights")):
+                    if not torch.isfinite(out[i]).all():
+                        fail(f"gabor kernel {cdt} R={r} S={s}: non-finite {name}")
+                    errs[name] = float((out[i] - ref[i]).abs().max())
+                del ref, out
+                torch.cuda.empty_cache()
+                timed = (r, s) == (R_SIREN, S_SIREN)
+                if timed:
+                    times = {"plain": [], "kernel": []}
+                    plain(); kern()                       # warm-up
+                    for name in ("plain", "kernel", "kernel", "plain"):
+                        fn = plain if name == "plain" else kern
+                        times[name] += time_calls(torch, fn, 3)
+                    torch.cuda.empty_cache()
+            bad = {n: v for n, v in errs.items() if v > TOL[cdt][n]}
+            line = (f"kernel fused_render_gabor_fwd {cdt} R={r} S={s}: max_abs_err "
+                    + " ".join(f"{n}={v:.3e}(tol {TOL[cdt][n]:.0e})"
+                               for n, v in errs.items()))
+            if timed:
+                ms = statistics.median(times["kernel"])
+                plain_ms = statistics.median(times["plain"])
+                bms, by = bound_ms(r, s, cdt, weight_bytes + r * GABOR_COEF_BYTES,
+                                   GABOR_MACS, GABOR_TRIG)
+                line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                         f"{bms:.3f} ms ({by}), share of bound {bms / ms:.4f}")
+                results[("fused_render_gabor_fwd", cdt)] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            say(line)
+            if bad:
+                fail(f"gabor kernel {cdt} R={r} S={s} disagrees with its plain "
+                     f"version: {bad}")
+            worst = max(worst, max(errs.values()))
+        results[("fused_render_gabor_fwd", cdt)]["err"] = worst
+
+        # the train pass at lego_siren.txt's shape, then the filter gradients
+        # through the prep from each side's dA..dR
+        r, s = R_TRAIN, S_SIREN
+        cam, rd, t, tgt = camera_batch(torch, dev, r, s, 6000 + s)
+        o_aff, d_aff = fr.affine(cam, rd)
+        filters = stack_filters(model)
+        coeffs = gabor_coeffs(*filters, o_aff, d_aff)
+        cdet = coeffs.detach()
+        with torch.no_grad():
+            ref = fused_gabor_train_plain(packed, cdet, rd, t, tgt, True, k)
+            got = fr._train(packed, cdet, rd, t, tgt, True)
+            torch.cuda.synchronize()
+        errs = {"loss": float(abs(got[0] - ref[0]) / abs(ref[0]))}
+        for i, name in ((1, "rgb"), (2, "acc"), (3, "weights")):
+            if not torch.isfinite(got[i]).all():
+                fail(f"gabor train kernel {cdt}: non-finite {name}")
+            errs[name] = float((got[i] - ref[i]).abs().max())
+        gerr = grad_errors(torch, got[4], ref[4], grad_views)
+        if not torch.isfinite(got[5]).all():
+            fail(f"gabor train kernel {cdt}: non-finite coefficient cotangents")
+        derr = {f"d{c}": float((got[5][j] - ref[5][j]).abs().max() / ref[5][j].abs().max())
+                for j, c in enumerate("ABPQR")}
+        h = model.hidden_dim
+
+        def per_stage(grads):
+            om, ph, mu, ga = grads
+            out = {}
+            for i in range(model.num_layers):
+                cols = slice(i * h, (i + 1) * h)
+                out.update({f"omega{i}": om[:, cols], f"phi{i}": ph[cols],
+                            f"mu{i}": mu[cols], f"gamma{i}": ga[cols]})
+            return out
+
+        ref_f = per_stage(torch.autograd.grad(coeffs, filters, ref[5], retain_graph=True))
+        got_f = per_stage(torch.autograd.grad(coeffs, filters, got[5]))
+        floor = 1e-2 * max(float(v.abs().max()) for v in ref_f.values())
+        ferr = {n: float((got_f[n] - ref_f[n]).abs().max())
+                / max(float(ref_f[n].abs().max()), floor) for n in ref_f}
+        del ref, got, ref_f, got_f, coeffs, filters
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            fns = {"plain": lambda: fused_gabor_train_plain(packed, cdet, rd, t, tgt,
+                                                             True, k),
+                   "kernel": lambda: fr._train(packed, cdet, rd, t, tgt, True)}
+            times = {key: [] for key in fns}
+            for f in fns.values():
+                f()                                    # warm-up
+            for which in ("plain", "kernel", "kernel", "plain"):
+                times[which] += time_calls(torch, fns[which], 2)
+            torch.cuda.empty_cache()
+        bad = {n: v for n, v in errs.items() if v > TOL[cdt]["rgb"]}
+        for label, e in (("train", gerr), ("dA..dR", derr), ("filters", ferr)):
+            w = max(e, key=e.get)
+            say(f"kernel gabor {label} {cdt} R={r} S={s}: gradient error (max abs "
+                f"over max |g|) worst {w}={e[w]:.3e} (tol {GRAD_TOL[cdt]:.0e}), "
+                f"median {statistics.median(e.values()):.3e}"
+                + ("" if label == "filters" else "; " + " ".join(
+                    f"{n}={v:.1e}" for n, v in e.items())))
+            bad.update({f"{label}:{n}": v for n, v in e.items() if v > GRAD_TOL[cdt]})
+        say(f"kernel gabor train {cdt} R={r} S={s}: "
+            + " ".join(f"{n}={v:.3e}" for n, v in errs.items())
+            + f" (tol {TOL[cdt]['rgb']:.0e})")
+        ms = statistics.median(times["kernel"])
+        plain_ms = statistics.median(times["plain"])
+        bms, by = bound_ms(r, s, cdt, weight_bytes + r * GABOR_COEF_BYTES,
+                           3 * GABOR_MACS - GABOR_SKIPPED, 2 * GABOR_TRIG,
+                           grad_bytes + r * GABOR_COEF_BYTES, True)
+        say(f"kernel fused_render_gabor_train {cdt} R={r} S={s}: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), share of bound "
+            f"{bms / ms:.4f}")
+        worst = max(list(gerr.values()) + list(derr.values()) + list(ferr.values())
+                    + list(errs.values()))
+        results[("fused_render_gabor_train", cdt)] = dict(
+            err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        if bad:
+            fail(f"gabor train kernel {cdt} disagrees: {bad}")
+    return results
+
+
 # ---------------------------------------------------------------- phase 5
 
 
@@ -726,10 +915,13 @@ def read_scalars(log_dir: str) -> dict:
 
 
 def train(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
-          max_ratio: float) -> dict:
+          max_ratio: float, model_type: str | None = None) -> dict:
     """Phase 5 (``config`` lego.txt, the NeRF kernels, the mse at 190 under
-    ``max_ratio`` = 0.5 of that at 0) or 9 (lego_siren.txt, the SIREN
-    kernels, ``max_ratio`` 1)."""
+    ``max_ratio`` = 0.5 of that at 0), 9 (lego_siren.txt, the SIREN kernels,
+    ``max_ratio`` 1) or 12 (lego_siren.txt with ``model_type`` gabor, the
+    GaborNet kernels, ``max_ratio`` 1; its forward render has no backward,
+    so the render route must raise instead)."""
+    label = config if model_type is None else f"{config} (model_type = {model_type})"
     import dataclasses
 
     from nerf_tpu_torch.config import parse_config_file
@@ -740,9 +932,9 @@ def train(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
     from nerf_tpu_torch.utils.checkpoint import load_checkpoint, restore_train_state
 
     cfg = parse_config_file(os.path.join(ROOT, "configs", config))
-    name = cfg.model_type
+    name = model_type or cfg.model_type
     cfg = dataclasses.replace(
-        cfg, dataset_path=os.path.join(tmp, "scene"), num_iters=200,
+        cfg, model_type=name, dataset_path=os.path.join(tmp, "scene"), num_iters=200,
         log_interval=10, val_interval=100, save_interval=100,
         save_path=os.path.join(tmp, f"train_models_{name}"),
         log_dir=os.path.join(tmp, f"train_logs_{name}"))
@@ -755,14 +947,14 @@ def train(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = (fused_cls.train_launches, fused_cls.launches, fused_cls.bwd_launches)
-    say(f"train: fit {config} 200 iterations in {wall:.1f} s; launches: "
+    say(f"train: fit {label} 200 iterations in {wall:.1f} s; launches: "
         f"train {counts[0]}, forward {counts[1]}, backward {counts[2]}")
     for line in lines:
         if "[Iter" in line or "Validation" in line:
             say(f"  {line}")
     want = (passes * cfg.num_iters, passes * math.ceil(HW * HW / cfg.chunk_size), 0)
     if counts != want:
-        fail(f"fit {config} launched (train, forward, backward) {counts}, want {want}")
+        fail(f"fit {label} launched (train, forward, backward) {counts}, want {want}")
     scal = read_scalars(cfg.log_dir)
     loss = scal["loss"]
     if sorted(loss) != list(range(0, 200, 10)):
@@ -770,7 +962,7 @@ def train(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
     if not all(math.isfinite(v) for v in loss.values()):
         fail(f"non-finite logged loss {loss}")
     if not loss[190] < max_ratio * loss[0]:
-        fail(f"{config}: mse at 190 ({loss[190]}) is not under {max_ratio} of "
+        fail(f"{label}: mse at 190 ({loss[190]}) is not under {max_ratio} of "
              f"that at 0 ({loss[0]})")
     for step in (100, 200):
         path = os.path.join(cfg.save_path, f"{name}_model_{step:06d}")
@@ -778,7 +970,7 @@ def train(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
             fail(f"missing checkpoint {path}")
     step_rps = scal["rays_per_sec"][190]
     say(f"train: mse {loss[0]:.6f} at 0 -> {loss[190]:.6f} at 190 (ratio "
-        f"{loss[190] / loss[0]:.4f}); {config} step {step_rps:.0f} rays/s "
+        f"{loss[190] / loss[0]:.4f}); {label} step {step_rps:.0f} rays/s "
         f"({cfg.num_random_rays} rays, {cfg.num_samples}+{cfg.num_fine_samples} "
         f"samples, {cfg.compute_dtype})")
 
@@ -817,11 +1009,31 @@ def train(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
             fail("the resumed run does not repeat the first run bit for bit")
     del resumed
 
-    # the render route: render_rays through the forward kernel, the loss,
-    # and its backward under autograd (the backward kernel), then Adam
     scene = load_scene(cfg, device=dev)
     settings = render_settings_from_config(cfg)
     fr = fused_cls(state.params, cfg.near, cfg.far)
+    if model_type == "gabor":
+        # the forward render has no backward (the JAX one's VJP raises): under
+        # autograd it must refuse before launching anything
+        g = torch.Generator(device=dev).manual_seed(cfg.seed)
+        batch = scene.pool.sample(g, cfg.num_random_rays)
+        fused_cls.launches = 0
+        try:
+            render_rays(state.params, batch.rays_o, batch.rays_d, settings,
+                        generator=g, viewdirs=batch.viewdirs, fused_render=fr)
+        except NotImplementedError as e:
+            say(f"train: {label} render route under autograd raises "
+                f"NotImplementedError ({e}); forward launches {fused_cls.launches}")
+        else:
+            fail(f"{label}: the forward render under autograd did not raise")
+        if fused_cls.launches != 0:
+            fail(f"{label}: the refused render route launched a kernel")
+        profile_step(torch, state, scene.pool, settings, cfg, kernel, label)
+        return {"train_launches": cfg.num_iters, "bwd_launches": 0,
+                "step_rps": step_rps}
+
+    # the render route: render_rays through the forward kernel, the loss,
+    # and its backward under autograd (the backward kernel), then Adam
     fused_cls.launches = fused_cls.train_launches = 0
     fused_cls.bwd_launches = 0              # this path's counts start here
     mses = []
@@ -841,12 +1053,12 @@ def train(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
         state.optimizer.step()
         mses.append(float(mse.detach()))
     counts = (fused_cls.train_launches, fused_cls.launches, fused_cls.bwd_launches)
-    say(f"train: {config} render route 3 steps, mse {mses}; launches: train "
+    say(f"train: {label} render route 3 steps, mse {mses}; launches: train "
         f"{counts[0]}, forward {counts[1]}, backward {counts[2]}")
     want = (0, 3 * passes, 3 * passes)
     if counts != want or not all(math.isfinite(v) for v in mses):
-        fail(f"{config} render route launched {counts}, want {want}")
-    profile_step(torch, state, scene.pool, settings, cfg, kernel, config)
+        fail(f"{label} render route launched {counts}, want {want}")
+    profile_step(torch, state, scene.pool, settings, cfg, kernel, label)
     return {"train_launches": passes * cfg.num_iters, "bwd_launches": counts[2],
             "step_rps": step_rps}
 
@@ -926,6 +1138,17 @@ def bench_siren(torch, dev) -> float:
                        "protocol, flat SIREN bf16 1024x256)")
 
 
+def bench_gabor(torch, dev) -> float:
+    """bench.py's train_gabor row: flat GaborNet, bf16, the train_siren
+    protocol (20 warm-up steps, 50 timed)."""
+    from nerf_tpu_torch.models.gabor import GaborModel
+
+    model = GaborModel(compute_dtype="bfloat16",
+                       generator=torch.Generator().manual_seed(0)).to(dev)
+    return bench_train(torch, dev, model, 50, 20, "bench train_gabor (bench.py "
+                       "protocol, flat GaborNet bf16 1024x256)")
+
+
 def main() -> int:
     try:
         import torch
@@ -940,6 +1163,7 @@ def main() -> int:
     try:
         from nerf_tpu_torch.ops.cuda import build
         from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
+        from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
         from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
     except ImportError as e:
         print(f"chip_smoke: nerf_tpu_torch not found beside this script ({e})",
@@ -966,6 +1190,7 @@ def main() -> int:
     checks = check_kernel(torch, dev)
     grad_checks = check_grad_kernels(torch, dev)
     siren_checks = check_siren_kernels(torch, dev)
+    gabor_checks = check_gabor_kernels(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = serve(torch, dev, tmp, "lego.txt", FusedNerfRender,
                          "fused_render_fwd")
@@ -975,8 +1200,13 @@ def main() -> int:
                                "fused_siren_fwd")
         siren_trained = train(torch, dev, tmp, "lego_siren.txt", FusedSirenRender,
                               "fused_siren_grad", 1.0)
+        gabor_launches = serve(torch, dev, tmp, "lego_siren.txt", FusedGaborRender,
+                               "fused_gabor_fwd", "gabor")
+        gabor_trained = train(torch, dev, tmp, "lego_siren.txt", FusedGaborRender,
+                              "fused_gabor_train", 1.0, "gabor")
     bench_headline(torch, dev)
     bench_siren(torch, dev)
+    bench_gabor(torch, dev)
 
     def row(name, source, line, launched, c, err):
         return {"name": name, "route": "cuda",
@@ -1008,6 +1238,13 @@ def main() -> int:
         kernels.append(row(name, source, f"{nerf_tpu}fused_render_siren.py:{line}",
                            launched, siren_checks[(name, "bfloat16")],
                            max(siren_checks[(name, c)]["err"]
+                               for c in ("float32", "bfloat16"))))
+    for name, line, launched in (
+            ("fused_render_gabor_fwd", 166, gabor_launches),
+            ("fused_render_gabor_train", 186, gabor_trained["train_launches"])):
+        kernels.append(row(name, f"{name}.cu", f"{nerf_tpu}fused_render_gabor.py:{line}",
+                           launched, gabor_checks[(name, "bfloat16")],
+                           max(gabor_checks[(name, c)]["err"]
                                for c in ("float32", "bfloat16"))))
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")

@@ -3,9 +3,11 @@
 ``nerf_tpu`` keeps a model as a pytree of ``{"w", "b"}`` layers with ``w``
 of shape (in, out); ``nn.Linear`` stores (out, in). A NeRF is ``{"block1":
 [...], "block2": [...], "rgb": [...]}``, a SIREN ``{"base": [...],
-"sigma", "remap", "rgb0", "rgb1"}``. ``load_jax_params`` copies such a tree
-(as numpy arrays) into the port's module; ``export_jax_params`` is its
-inverse, ``export_jax_grads`` gives the ``.grad``s the same way, and
+"sigma", "remap", "rgb0", "rgb1"}``, a GaborNet ``{"filters": [{"omega",
+"phi", "mu", "gamma"}, ...], "linears": [...], "sigma", "remap", "rgb0",
+"rgb1"}`` (filter leaves keep their shapes). ``load_jax_params`` copies
+such a tree (as numpy arrays) into the port's module; ``export_jax_params``
+is its inverse, ``export_jax_grads`` gives the ``.grad``s the same way, and
 ``load_jax_opt_state`` copies optax's Adam moments. Each picks the family
 from the module's type (the moments from their tree's keys) and maps every
 layer by its name in the tree, never by leaf position: JAX flattens dicts
@@ -18,10 +20,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.siren import SirenModel
 
 _BLOCKS = (("block1", "block1"), ("block2", "block2"), ("rgb", "rgb_head"))
-_SIREN_HEADS = ("sigma", "remap", "rgb0", "rgb1")
+_HEADS = ("sigma", "remap", "rgb0", "rgb1")     # SIREN's and GaborNet's
+# a Gabor filter's leaves in the port's parameter order
+FILTER_LEAVES = ("omega", "phi", "mu", "gamma")
 
 
 def _paths(module) -> list[tuple]:
@@ -29,7 +34,10 @@ def _paths(module) -> list[tuple]:
     ``(name, i)`` for the i-th layer of a list, ``(name,)`` for a layer."""
     if isinstance(module, SirenModel):
         return ([("base", i) for i in range(len(module.base))]
-                + [(k,) for k in _SIREN_HEADS])
+                + [(k,) for k in _HEADS])
+    if isinstance(module, GaborModel):
+        return ([("linears", i) for i in range(len(module.linears))]
+                + [(k,) for k in _HEADS])
     return [(jax_name, i) for jax_name, torch_name in _BLOCKS
             for i in range(len(module.linears(getattr(module, torch_name))))]
 
@@ -37,7 +45,9 @@ def _paths(module) -> list[tuple]:
 def _linears(module) -> list[nn.Linear]:
     """The layers of ``module`` in the order of ``_paths``."""
     if isinstance(module, SirenModel):
-        return list(module.base) + [getattr(module, k) for k in _SIREN_HEADS]
+        return list(module.base) + [getattr(module, k) for k in _HEADS]
+    if isinstance(module, GaborModel):
+        return list(module.linears) + [getattr(module, k) for k in _HEADS]
     return [lyr for _, torch_name in _BLOCKS
             for lyr in module.linears(getattr(module, torch_name))]
 
@@ -48,13 +58,18 @@ def _get(tree: dict, path: tuple):
 
 
 def _tree_of(module, leaf) -> dict:
-    """The pytree of ``leaf(layer) -> {"w", "b"}`` over ``module``'s layers."""
+    """The pytree of ``module`` with ``leaf(param) -> numpy`` at each leaf
+    (weights transposed to (in, out))."""
     tree: dict = {}
     for path, lyr in zip(_paths(module), _linears(module)):
+        node = {"w": leaf(lyr.weight).T.copy(), "b": leaf(lyr.bias)}
         if len(path) == 2:
-            tree.setdefault(path[0], []).append(leaf(lyr))
+            tree.setdefault(path[0], []).append(node)
         else:
-            tree[path[0]] = leaf(lyr)
+            tree[path[0]] = node
+    if isinstance(module, GaborModel):
+        tree["filters"] = [{k: leaf(getattr(f, k)) for k in FILTER_LEAVES}
+                           for f in module.filters]
     return tree
 
 
@@ -68,7 +83,19 @@ def load_jax_params(module, tree: dict) -> None:
         if len(tree[name]) != want:
             raise ValueError(f"{name}: tree has {len(tree[name])} layers, "
                              f"module {want}")
+    if isinstance(module, GaborModel) and len(tree["filters"]) != len(module.filters):
+        raise ValueError(f"filters: tree has {len(tree['filters'])} filters, "
+                         f"module {len(module.filters)}")
     with torch.no_grad():
+        if isinstance(module, GaborModel):
+            for i, (src, f) in enumerate(zip(tree["filters"], module.filters)):
+                for k in FILTER_LEAVES:
+                    x = torch.from_numpy(np.asarray(src[k], np.float32).copy())
+                    p = getattr(f, k)
+                    if x.shape != p.shape:
+                        raise ValueError(f"filters/{i}/{k}: shape {tuple(x.shape)} "
+                                         f"does not fit {tuple(p.shape)}")
+                    p.copy_(x)
         for path, lyr in zip(paths, _linears(module)):
             src = _get(tree, path)
             w = torch.from_numpy(np.asarray(src["w"], np.float32).T.copy())
@@ -84,30 +111,31 @@ def load_jax_params(module, tree: dict) -> None:
 def export_jax_params(module) -> dict:
     """The ``nerf_tpu`` pytree (numpy float32, (in, out) weights) of
     ``module``."""
-    return _tree_of(module, lambda lyr: {
-        "w": lyr.weight.detach().cpu().numpy().T.copy(),
-        "b": lyr.bias.detach().cpu().numpy().copy()})
+    return _tree_of(module, lambda p: p.detach().cpu().numpy().copy())
 
 
 def export_jax_grads(module) -> dict:
     """The ``.grad`` of every parameter of ``module`` as a ``nerf_tpu``
     gradient pytree (numpy, (in, out) weights), to hold against
     ``jax.grad`` tensor by tensor."""
-    return _tree_of(module, lambda lyr: {
-        "w": lyr.weight.grad.detach().cpu().numpy().T.copy(),
-        "b": lyr.bias.grad.detach().cpu().numpy().copy()})
+    return _tree_of(module, lambda p: p.grad.detach().cpu().numpy().copy())
 
 
 def _flat_in_param_order(tree: dict) -> list[np.ndarray]:
     """A model pytree's leaves in the port module's ``parameters()`` order,
     each in the ``nn.Linear`` layout, found by name (the family from the
     tree's keys)."""
-    if "base" in tree:
+    out = []
+    if "filters" in tree:
+        out += [np.asarray(f[k], np.float32) for f in tree["filters"]
+                for k in FILTER_LEAVES]
+        paths = [("linears", i) for i in range(len(tree["linears"]))] + [
+            (k,) for k in _HEADS]
+    elif "base" in tree:
         paths = [("base", i) for i in range(len(tree["base"]))] + [
-            (k,) for k in _SIREN_HEADS]
+            (k,) for k in _HEADS]
     else:
         paths = [(name, i) for name, _ in _BLOCKS for i in range(len(tree[name]))]
-    out = []
     for path in paths:
         lyr = _get(tree, path)
         out += [np.asarray(lyr["w"], np.float32).T, np.asarray(lyr["b"], np.float32)]

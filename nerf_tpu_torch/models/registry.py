@@ -1,6 +1,6 @@
-"""Model construction by name. ``nerf`` and ``siren`` are ported; every
-other family of ``nerf_tpu.models.registry`` raises and names the ROADMAP
-row (queue 1) that will port it."""
+"""Model construction by name. ``nerf``, ``siren`` and ``gabor`` are
+ported; every other family of ``nerf_tpu.models.registry`` raises and names
+the ROADMAP row (queue 1) that will port it."""
 
 from __future__ import annotations
 
@@ -9,13 +9,13 @@ import inspect
 import torch
 from torch import nn
 
+from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.models.siren import SirenModel
 
-MODEL_REGISTRY = {"nerf": NeRFModel, "siren": SirenModel}
+MODEL_REGISTRY = {"nerf": NeRFModel, "siren": SirenModel, "gabor": GaborModel}
 
 _NOT_YET = {
-    "gabor": "row 11 (GaborNet)",
     "kilonerf": "row 12 (KiloNeRF)",
     "fastnerf": "row 13 (grid families)",
     "plenoctree": "row 13 (grid families)",

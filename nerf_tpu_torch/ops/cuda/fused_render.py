@@ -29,8 +29,9 @@ This module holds
     ``train`` returns the loss with its gradient already computed.
 
 ``FusedRender`` is what the wrappers of every family share (the routes,
-the autograd Functions, the launches); ``fused_render_siren.py`` holds the
-SIREN family on it. The libraries are built by ``build.py``.
+the autograd Functions, the launches); ``fused_render_siren.py`` and
+``fused_render_gabor.py`` hold the SIREN and GaborNet families on it. The
+libraries are built by ``build.py``.
 """
 
 from __future__ import annotations
@@ -164,6 +165,19 @@ def fast_sin(x: torch.Tensor) -> torch.Tensor:
     return r * (9.9999970696e-01 + r2 * (-1.6666577198e-01 + r2 * (
         8.3325579984e-03 + r2 * (-1.9812572238e-04 + r2 * (
             2.7040473315e-06 + r2 * -2.0534080101e-08)))))
+
+
+def trig(cdt: torch.dtype):
+    """(sin, cos) of the sine layers and filters: exact in float32; in
+    bfloat16 the degree-11 sine and cos x = fast_sin(x + pi/2), as the TPU
+    kernels' ``fused_nerf.py::_trig``."""
+    if cdt != torch.bfloat16:
+        return torch.sin, torch.cos
+
+    def cos(x):
+        return fast_sin(x + torch.tensor(_HALF_PI, dtype=x.dtype, device=x.device))
+
+    return fast_sin, cos
 
 
 def _encode(x: torch.Tensor, num_freqs: int, width: int, sin) -> torch.Tensor:

@@ -43,15 +43,14 @@ from nerf_tpu_torch.models.common import round_to
 from nerf_tpu_torch.ops.cuda.build import library
 from nerf_tpu_torch.ops.cuda.fused_render import (
     DP,
-    _HALF_PI,
     FusedRender,
     Packed,
     _composite,
     _composite_bwd,
     _encode,
     _views,
-    fast_sin,
     grad_sizes,
+    trig,
 )
 
 NUM_LAYERS = 8           # sine layers the kernels take
@@ -151,19 +150,6 @@ def grad_views(gw: torch.Tensor, gv: torch.Tensor, hidden: int) -> dict:
     return {**_views(gw, mat_shapes, _MATS), **_views(gv, vec_shapes, _VECS)}
 
 
-def _trig(cdt: torch.dtype):
-    """(sin, cos) of the layers: exact in float32; in bfloat16 the
-    degree-11 sine and cos x = fast_sin(x + pi/2), as the TPU kernels'
-    ``fused_nerf.py::_trig``."""
-    if cdt != torch.bfloat16:
-        return torch.sin, torch.cos
-
-    def cos(x):
-        return fast_sin(x + torch.tensor(_HALF_PI, dtype=x.dtype, device=x.device))
-
-    return fast_sin, cos
-
-
 def _forward_acts(packed: Packed, o_aff, d_aff, viewdirs, t,
                   k: SirenConsts) -> dict:
     """Every activation of the kernels' forward, (R, S, width) float32:
@@ -173,7 +159,7 @@ def _forward_acts(packed: Packed, o_aff, d_aff, viewdirs, t,
     cdt = packed.cdt
     m = {name: w.float() for name, w in packed.mats.items()}
     v = packed.vecs
-    sin, _ = _trig(cdt)
+    sin, _ = trig(cdt)
 
     def r(x):
         return round_to(x, cdt)
@@ -215,7 +201,7 @@ def _mlp_bwd(packed: Packed, acts: dict, dzr1, dsig, k: SirenConsts):
     gradients): the flat float32 gradients ``(gw, gv)`` in the packed
     layout."""
     cdt = packed.cdt
-    _, cos = _trig(cdt)
+    _, cos = trig(cdt)
     m = {name: w.float() for name, w in packed.mats.items()}
     a = {name: x.reshape(-1, x.shape[-1]) for name, x in acts.items()
          if name not in ("sigma_pre", "rgb")}

@@ -9,11 +9,11 @@ takes one Adam update, all in place. Per-step randomness comes from
 ``torch.Generator``s seeded from (seed, step, stream), so a resumed run or
 a chunk of N steps repeats the same draws as N single steps.
 
-There is no probe and no downgrade: a NeRF or a SIREN trains and renders
-through its family's fused kernels for CUDA tensors (which raise on shapes
-they do not cover) and their plain versions for CPU tensors, unless the
-caller asks for the unfused module path with ``use_pallas = false`` /
-``fused=False``.
+There is no probe and no downgrade: a NeRF, a SIREN or a GaborNet trains
+and renders through its family's fused kernels for CUDA tensors (which
+raise on shapes they do not cover) and their plain versions for CPU
+tensors, unless the caller asks for the unfused module path with
+``use_pallas = false`` / ``fused=False``.
 """
 
 from __future__ import annotations
@@ -24,9 +24,11 @@ import numpy as np
 import torch
 
 from nerf_tpu_torch.data.pipeline import RayBatch, RayPool
+from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.models.siren import SirenModel
 from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender, FusedRender
+from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
 from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
 from nerf_tpu_torch.render.renderer import (
     RenderOutput,
@@ -47,7 +49,8 @@ def step_seed(seed: int, step: int, stream: int) -> int:
     return (int(state[0]) << 31) ^ int(state[1])
 
 
-_FUSED = {NeRFModel: FusedNerfRender, SirenModel: FusedSirenRender}
+_FUSED = {NeRFModel: FusedNerfRender, SirenModel: FusedSirenRender,
+          GaborModel: FusedGaborRender}
 
 
 def fused_render_for(model, settings: RenderSettings) -> FusedRender:

@@ -377,3 +377,144 @@ def test_siren_train_step_on_card_matches_cpu(dev, cdt):
                                        rtol=10 * TOL[cdt], atol=0)
     for a, b in zip(states[0].params.parameters(), states[1].params.parameters()):
         torch.testing.assert_close(b.detach().cpu(), a.detach(), atol=4 * 5e-4, rtol=0)
+
+
+# ---------------------------------------------------------------- GaborNet
+
+# The GaborNet kernels against their plain versions: the tolerances of the
+# SIREN kernels (sigma_mul = 10 here too). The coefficient cotangents dA..dR
+# are compared per coefficient with atol = tol * max|d| (float32 sums of a
+# ray's samples in another order; measured 3.9e-4 of the max in bf16 at
+# 1024 x 256, chip_smoke.py).
+GABOR_TOL = SIREN_TOL
+GABOR_GRAD_TOL = SIREN_GRAD_TOL
+
+
+def _gabor(cdt, seed, dev, **kw):
+    from nerf_tpu_torch.models.gabor import GaborModel
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
+
+    model = GaborModel(compute_dtype=cdt, generator=torch.Generator().manual_seed(seed),
+                       **kw).to(dev)
+    return model, FusedGaborRender(model, NEAR, FAR)
+
+
+def _gabor_coeffs(fr, model, ro, rd):
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import gabor_coeffs, stack_filters
+
+    with torch.no_grad():
+        return gabor_coeffs(*stack_filters(model), *fr.affine(ro, rd))
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(5, 13), (7, 37), (300, 37), (133, 256)])
+def test_gabor_kernel_matches_plain(dev, cdt, shape):
+    """Few rays (idle CTAs) with odd S (chunks span rays), 300 x 37 and 133
+    rays (one more than the SMs) at lego_siren.txt's 256 samples."""
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import (
+        FusedGaborRender, fused_gabor_render_plain)
+
+    model, fr = _gabor(cdt, 1, dev)
+    ro, rd, t = _inputs(*shape, dev)
+    with torch.no_grad():
+        before = FusedGaborRender.launches
+        got = fr(model, ro, rd, rd, t)
+        torch.cuda.synchronize()
+        assert FusedGaborRender.launches == before + 1
+        ref = fused_gabor_render_plain(fr.pack(model).packed,
+                                       _gabor_coeffs(fr, model, ro, rd), rd, t, fr.consts)
+    for i, k in enumerate(("rgb", "acc", "depth", "weights")):
+        assert got[k].shape == ref[i].shape
+        assert torch.isfinite(got[k]).all()
+        scale = 10.0 if k == "depth" else 1.0
+        err = float((got[k] - ref[i]).abs().max())
+        assert err <= GABOR_TOL[cdt] * scale, (k, err)
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(5, 13), (7, 37), (300, 37)])
+@pytest.mark.parametrize("white_bg", [True, False])
+def test_gabor_train_kernel_matches_plain(dev, cdt, shape, white_bg):
+    """Loss, rgb, acc, weights, the 23 weight gradients and dA..dR."""
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import (
+        FusedGaborRender, fused_gabor_train_plain, grad_views)
+
+    model, fr = _gabor(cdt, 4, dev)
+    ro, rd, t = _inputs(*shape, dev, seed=1)
+    tgt = torch.rand(shape[0], 3, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+    coeffs = _gabor_coeffs(fr, model, ro, rd)
+    with torch.no_grad():
+        packed = fr.pack(model).packed
+        before = FusedGaborRender.train_launches
+        got = fr._train(packed, coeffs, rd, t, tgt, white_bg)
+        torch.cuda.synchronize()
+        assert FusedGaborRender.train_launches == before + 1
+        ref = fused_gabor_train_plain(packed, coeffs, rd, t, tgt, white_bg, fr.consts)
+    torch.testing.assert_close(got[0], ref[0], rtol=GABOR_TOL[cdt], atol=0)
+    for i in (1, 2, 3):
+        torch.testing.assert_close(got[i], ref[i], atol=GABOR_TOL[cdt], rtol=0)
+    g, r = grad_views(*got[4], 256), grad_views(*ref[4], 256)
+    floor = 1e-2 * max(float(v.abs().max()) for v in r.values())
+    for k in r:
+        assert torch.isfinite(g[k]).all(), k
+        scale = max(float(r[k].abs().max()), floor)
+        err = float((g[k] - r[k]).abs().max())
+        assert err <= GABOR_GRAD_TOL[cdt] * scale, (k, err, scale)
+    assert got[5].shape == coeffs.shape and torch.isfinite(got[5]).all()
+    for j in range(5):
+        err = float((got[5][j] - ref[5][j]).abs().max())
+        assert err <= GABOR_GRAD_TOL[cdt] * float(ref[5][j].abs().max()), (j, err)
+
+
+def test_gabor_kernels_refuse_unsupported_shapes_and_the_render_vjp(dev):
+    """Hidden 256 with 8 stages only (the plain versions take any shape on
+    the CPU); the forward render under autograd raises before launching."""
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
+
+    ro, rd, t = _inputs(4, 8, dev)
+    tgt = torch.rand(4, 3, device=dev)
+    for kw in ({"hidden_dim": 128}, {"num_layers": 4}):
+        model, fr = _gabor("float32", 0, dev, **kw)
+        before = (FusedGaborRender.launches, FusedGaborRender.train_launches)
+        with torch.no_grad(), pytest.raises(NotImplementedError, match="hidden 256"):
+            fr(model, ro, rd, rd, t)
+        with pytest.raises(NotImplementedError, match="8 stages"):
+            fr.train(model, ro, rd, rd, t, tgt, True)
+        assert (FusedGaborRender.launches, FusedGaborRender.train_launches) == before
+    model, fr = _gabor("float32", 0, dev)
+    before = FusedGaborRender.launches
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        fr(model, ro, rd, rd, t)
+    assert FusedGaborRender.launches == before
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_gabor_train_step_on_card_matches_cpu(dev, cdt):
+    """Two coarse-only 32-sample steps of the same GaborNet state on one
+    batch (perturb off), on the card through the train kernel and on the
+    CPU through its plain version (the filters through the prep on both):
+    loss and mse within the kernel tolerance; parameters within the Adam
+    sign noise (2 lr per step)."""
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
+
+    kw = dict(near=NEAR, far=FAR, num_samples=32, perturb=False,
+              white_background=True)
+    cfg = Config(model_type="gabor", hidden_dim=256, compute_dtype=cdt, **kw)
+    states = [create_train_state(cfg, device=d) for d in ("cpu", dev)]
+    ro, rd, _ = _inputs(64, 1, "cpu", seed=7)
+    tgt = torch.rand(64, 3, generator=torch.Generator().manual_seed(8))
+    metrics = []
+    for st in states:
+        _, train_on_batch = _make_step_body(st.params, RenderSettings(**kw), 64, 0)
+        d = st.params.remap.weight.device
+        batch = RayBatch(*(x.to(d) for x in (ro, rd, tgt, rd)))
+        before = FusedGaborRender.train_launches
+        metrics.append([train_on_batch(st, batch) for _ in range(2)])
+        assert FusedGaborRender.train_launches - before == (2 if d.type == "cuda" else 0)
+    for m_cpu, m_gpu in zip(*metrics):
+        for k in ("loss", "mse"):
+            torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k],
+                                       rtol=10 * TOL[cdt], atol=0)
+    for a, b in zip(states[0].params.parameters(), states[1].params.parameters()):
+        torch.testing.assert_close(b.detach().cpu(), a.detach(), atol=4 * 5e-4, rtol=0)

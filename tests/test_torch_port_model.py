@@ -158,7 +158,7 @@ def test_model_from_config():
     assert m.cdt == torch.bfloat16
 
 
-@pytest.mark.parametrize("family", ["gabor", "kilonerf", "fastnerf",
+@pytest.mark.parametrize("family", ["kilonerf", "fastnerf",
                                     "plenoctree", "ngp", "plenoxels"])
 def test_unported_families_raise(family):
     from nerf_tpu.models.registry import MODEL_REGISTRY
@@ -166,6 +166,24 @@ def test_unported_families_raise(family):
     assert family in MODEL_REGISTRY
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(family)
+
+
+@pytest.mark.parametrize("family", ["nerf", "siren", "gabor"])
+def test_ported_families_build_from_a_config(family):
+    """Each ported family builds from a config by name (the JAX registry's
+    names), knobs it does not take dropped, and renders a batch."""
+    from nerf_tpu.models.registry import MODEL_REGISTRY
+
+    assert family in MODEL_REGISTRY
+    m = model_from_config(Config(model_type=family, hidden_dim=32),
+                          generator=torch.Generator().manual_seed(0))
+    assert type(m).__name__.lower().startswith(family)
+    pts = torch.rand(5, 7, 3) * 2 - 1
+    dirs = torch.nn.functional.normalize(torch.randn(5, 7, 3), dim=-1)
+    with torch.no_grad():
+        rgb, sigma = m(pts, dirs)
+    assert rgb.shape == (5, 7, 3) and sigma.shape == (5, 7)
+    assert torch.isfinite(rgb).all() and torch.isfinite(sigma).all()
 
 
 def test_unknown_family_raises():

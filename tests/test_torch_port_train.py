@@ -356,11 +356,32 @@ def test_scan_steps_equal_single_steps(scene_root):
     ("occupancy_res", 8, "row 13"), ("upsample_steps", "5:16", "row 13"),
     ("distill_from", "x", "row 12"), ("tv_lambda", 0.1, "row 13"),
     ("mesh_shape", "2,1", "row 14"), ("dataset_type", "llff", "row 9"),
-    ("model_type", "gabor", "row 11")])
+    ("model_type", "kilonerf", "row 12")])
 def test_fit_refuses_unported_options(scene_root, field, value, row):
     cfg = dataclasses.replace(_cfg(scene_root), **{field: value})
     with pytest.raises(NotImplementedError, match=row):
         fit(cfg, device="cpu", log=lambda *_: None)
+
+
+@pytest.mark.parametrize("fine", [0, 8])
+def test_fit_trains_gabor(scene_root, fine):
+    """model_type = gabor fits through its fused train pass (the plain
+    version on the CPU), coarse-only and hierarchical with a separate fine
+    GaborNet: finite losses, a checkpoint named for the family, and both
+    models' filters moved by the steps."""
+    cfg = _cfg(scene_root, model_type="gabor", num_fine_samples=fine, num_iters=3,
+               save_path=os.path.join(scene_root, f"gabor_{fine}"),
+               log_dir=os.path.join(scene_root, f"gabor_logs_{fine}"))
+    init = create_train_state(cfg, device="cpu")
+    lines: list = []
+    state = fit(cfg, device="cpu", log=lines.append)
+    mses = _mses(lines)
+    assert sorted(mses) == [0, 1, 2] and all(np.isfinite(list(mses.values())))
+    assert os.path.exists(os.path.join(cfg.save_path, "gabor_model_000003"))
+    for before, after in zip(init.models(), state.models()):
+        assert type(after).__name__ == "GaborModel"
+        assert not torch.equal(before.filters[0].omega, after.filters[0].omega)
+    assert (state.fine_params is None) == (fine == 0)
 
 
 def test_fit_on_cuda_without_a_card_raises(scene_root):
