@@ -70,9 +70,29 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      profile of one step); the forward render under autograd must raise
      NotImplementedError (the JAX render route has no VJP either); then
      bench.py's train_gabor protocol (flat GaborNet, bf16, 1024 x 256, as
-     train_siren) in rays/s.
+     train_siren) in rays/s;
+ 13. the KiloNeRF field kernels (forward and backward) against their plain
+     versions on the card (TF32 off), 512 networks of hidden 32 at L =
+     10/4, float32 and bfloat16, on 1024 x 256 camera-ray samples
+     normalised like the renderer's, 16,384 points uniform over the domain
+     (the distillation batch), 5,000 points in one voxel and 37 points
+     (empty networks: exactly zero gradients); both timed in turns at the
+     camera set (runs of 20 launches per pair of events) against their
+     bound;
+ 14. serving the kilonerf config (lego_siren.txt with model_type =
+     kilonerf, hidden_dim = 32, grid_res = 8: coarse-only 256 samples,
+     chunk 1024, bf16) as in 8: 157 forward launches per request, one
+     image held against the unfused module render;
+ 15. training it with distillation: a teacher (the same config with
+     model_type = nerf, use_pallas = false) for 100 steps, then fit() of
+     kilonerf distilling it (100 steps of 16,384 points; the last loss under
+     the first) and training 200 steps (the mse at 190 under that at 0),
+     with the launches of both kernels counted, a bit-identical resume from
+     step 100 (no distillation) and a profile of one step;
+ 16. bench.py's train_kilonerf protocol (bf16, 1024 x 256, the 1<<20 pool,
+     16 warm-up steps, 40 timed chained steps) in rays/s.
 
-The last lines are a JSON object of per-kernel numbers (all eight kernels),
+The last lines are a JSON object of per-kernel numbers (all ten kernels),
 the card, and ``{"ok": true, "device": {...}}``. Needs a CUDA device and this checkout;
 imports nothing of JAX or of the JAX package.
 """
@@ -138,6 +158,32 @@ GABOR_MACS = 7 * 256 * 256 + 256 + 256 * 256 + 283 * 128 + 128 * 3
 GABOR_TRIG = 2 * 8 * 256
 GABOR_SKIPPED = 128 * 27
 GABOR_COEF_BYTES = 5 * 8 * 256 * 4
+# KiloNeRF at bench.py's shape (512 networks of hidden 32, L = 10/4), per
+# point: forward MACs (63x32 + 32x32 + 32x33 + 59x32 + 32x3) and sines (the
+# 84 encoding columns past the coordinates, one operation each on the CUDA
+# cores); the backward recomputes the forward, takes the cotangent products
+# (dz W^T, without dz1 W1^T and dzy Wr1d^T) and the gradient products
+# (A^T dz). Bytes a point: its position and direction in (24) and its rgb
+# and sigma out (16), or position, direction and the (rgb, sigma) cotangent
+# in; the packed weights in (4 bytes a value in f32, 2 in bf16) and,
+# backward, the float32 gradients out.
+KILO_OVERRIDES = {"hidden_dim": 32, "grid_res": 8}   # lego_siren.txt -> kilonerf
+KILO_MACS = 63 * 32 + 32 * 32 + 32 * 33 + 59 * 32 + 32 * 3
+KILO_BWD_MACS = 3 * KILO_MACS - 63 * 32 - 27 * 32
+KILO_TRIG = 60 + 24
+KILO_R = 6212                    # packed floats per network
+KILO_DOMAIN = (-2.75, -1.25)     # grid_domain of lego_siren.txt's settings
+# Kernel vs plain version, same inputs on the card. Outputs (rgb, sigma):
+# float32 sums of 32-63 products in another order, 1e-5 (as the NeRF
+# kernels); bfloat16 roundings flip after such sums and move one activation
+# by 2^-8 relative, 1e-3. Gradients, max abs over max |g| per tensor (the
+# max floored at 1e-2 of the model's largest gradient): float32 sums over
+# up to 262,144 points in another order, 1e-4; bfloat16 rounds every
+# activation and cotangent before each gradient product, so one flipped
+# rounding of a cotangent moves a network's sum by one term's 2^-8: 5e-4.
+KILO_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+KILO_BATCH = 20        # launches per timed run of a KiloNeRF kernel
+KILO_GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-4}
 
 
 def fail(msg: str) -> None:
@@ -323,12 +369,14 @@ def get(url: str) -> tuple:
 
 
 def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
-          model_type: str | None = None):
+          model_type: str | None = None, overrides: dict | None = None):
     """Phase 4 (``config`` lego.txt, the NeRF kernels), 8 (lego_siren.txt,
-    the SIREN kernels) or 11 (lego_siren.txt with ``model_type`` gabor, the
-    GaborNet kernels): a checkpoint of ``config`` from its seed, served on
-    cuda over loopback; returns the kernel launches of the three image
-    requests."""
+    the SIREN kernels), 11 (lego_siren.txt with ``model_type`` gabor, the
+    GaborNet kernels) or 14 (the kilonerf config: lego_siren.txt with
+    ``model_type`` kilonerf and ``overrides`` hidden_dim 32, grid_res 8;
+    the KiloNeRF field kernels): a checkpoint of ``config`` from its seed,
+    served on cuda over loopback; returns the kernel launches of the three
+    image requests."""
     label = config if model_type is None else f"{config} (model_type = {model_type})"
     import dataclasses
 
@@ -346,7 +394,8 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
     cfg = parse_config_file(os.path.join(ROOT, "configs", config))
     cfg = dataclasses.replace(cfg, dataset_path=scene,
                               save_path=os.path.join(tmp, "models"),
-                              model_type=model_type or cfg.model_type)
+                              model_type=model_type or cfg.model_type,
+                              **(overrides or {}))
     gen = torch.Generator().manual_seed(cfg.seed)
     model = model_from_config(cfg, generator=gen)
     fine = None
@@ -460,12 +509,15 @@ def profile_device(torch, fn, kernel: str, what: str) -> None:
         f"{1 - busy / wall_us:.4f}); {kernel} {t_mine / 1e3:.1f} ms "
         f"({t_mine / wall_us:.4f}) in {len(mine)} launches, other kernels "
         f"{t_other / 1e3:.1f} ms in {len(others)} launches")
-    by_name: dict = {}
-    for e in others:
-        c, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
-    for name, (c, t) in sorted(by_name.items(), key=lambda x: -x[1][1])[:6]:
-        say(f"  other: {t / 1e3:.2f} ms in {c} launches: {name[:90]}")
+    for label, events, top in (("kernel", mine, 3), ("other", others, 6)):
+        by_name: dict = {}
+        for e in events:
+            c, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
+        if label == "kernel" and len(by_name) < 2:
+            continue
+        for name, (c, t) in sorted(by_name.items(), key=lambda x: -x[1][1])[:top]:
+            say(f"  {label}: {t / 1e3:.2f} ms in {c} launches: {name[:90]}")
 
 
 # ---------------------------------------------------------------- phase 3b
@@ -896,6 +948,232 @@ def check_gabor_kernels(torch, dev):
     return results
 
 
+# ---------------------------------------------------------------- phase 13
+
+
+def kilo_bound_ms(n: int, cdt: str, g3: int, backward: bool) -> tuple:
+    """Least time of the KiloNeRF forward (or backward) over ``n`` points:
+    the products (2 operations a MAC) over the compute dtype's peak and the
+    sines over the float32 CUDA-core rate (their sum in float32, the larger
+    in bfloat16), against the bytes that must move (see KILO_MACS)."""
+    macs = KILO_BWD_MACS if backward else KILO_MACS
+    wbytes = g3 * KILO_R * (4 if cdt == "float32" else 2)
+    nbytes = n * (24 + 16) + wbytes + (g3 * KILO_R * 4 if backward else 0)
+    t_mm = 2 * macs * n / PEAK_FLOPS[cdt] * 1e3
+    t_trig = KILO_TRIG * n / PEAK_FLOPS["float32"] * 1e3
+    t_ops = t_mm + t_trig if cdt == "float32" else max(t_mm, t_trig)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kilo_point_sets(torch, dev) -> dict:
+    """The phase-13 point sets: 1024 x 256 camera-ray samples normalised as
+    the renderer normalises them (the serve and train shape), 16,384 points
+    uniform over the domain (the distillation batch), 5,000 points in one
+    voxel, and 37 points (most of the 512 networks empty)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    ro, rd, t, _ = camera_batch(torch, dev, R_SIREN, S_SIREN, 13)
+    pts = ro[:, None, :] + t[..., None] * rd[:, None, :]
+    pts = 2.0 * (pts - 2.0) / (6.0 - 2.0) - 1.0
+    dirs = rd[:, None, :].expand(pts.shape)
+    lo, hi = KILO_DOMAIN
+
+    def unit(n):
+        d = torch.randn(n, 3, generator=g, device=dev)
+        return d / torch.linalg.norm(d, dim=-1, keepdim=True)
+
+    uni = torch.rand(16384, 3, generator=g, device=dev) * (hi - lo) + lo
+    vox = lo + (hi - lo) * (0.3 + 0.0125 * torch.rand(5000, 3, generator=g, device=dev))
+    few = torch.rand(37, 3, generator=g, device=dev) * (hi - lo) + lo
+    return {"camera 1024x256": (pts.reshape(-1, 3), dirs.reshape(-1, 3)),
+            "uniform 16384": (uni, unit(16384)), "one voxel 5000": (vox, unit(5000)),
+            "37 points": (few, unit(37))}
+
+
+def check_kilonerf_kernels(torch, dev):
+    """Both KiloNeRF kernels against their plain versions on every phase-13
+    point set, float32 and bfloat16 with TF32 off: outputs (max abs) and
+    gradients (max abs over max |g| per tensor), the exact zeros of empty
+    networks; both timed in turns (plain, kernel, kernel, plain) at the
+    camera set against their bound."""
+    from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
+    from nerf_tpu_torch.ops.cuda.fused_kilonerf import (
+        KiloNeRFField, cast_packed, dispatch, kilonerf_bwd_plain, kilonerf_fwd_plain,
+        pack_f32, unpack)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    sets = kilo_point_sets(torch, dev)
+    for cdt in ("float32", "bfloat16"):
+        model = KiloNeRFModel(grid_res=8, hidden_dim=32, compute_dtype=cdt,
+                              domain=KILO_DOMAIN,
+                              generator=torch.Generator().manual_seed(7)).to(dev)
+        field = KiloNeRFField(model)
+        with torch.no_grad():
+            wc = cast_packed(pack_f32(model), model.cdt)
+        worst = {"fwd": 0.0, "bwd": 0.0}
+        for label, (pts, dirs) in sets.items():
+            n = pts.shape[0]
+            disp = dispatch(model, pts, dirs)
+            cot = torch.randn(n, 4, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(n))
+            with torch.no_grad():
+                ref = kilonerf_fwd_plain(wc, disp, 32, 10, 4)
+                out = field._forward(wc, disp)
+                ref_g = kilonerf_bwd_plain(wc, disp, cot, 32, 10, 4)
+                got_g = field._backward(wc, disp, cot)
+                torch.cuda.synchronize()
+            if not (torch.isfinite(out).all() and torch.isfinite(got_g).all()):
+                fail(f"kilonerf kernels {cdt} {label}: non-finite output or gradient")
+            err = float((out - ref).abs().max())
+            g, r = unpack(got_g, 32, 63, 27), unpack(ref_g, 32, 63, 27)
+            floor = 1e-2 * max(float(v.abs().max()) for v in r.values())
+            gerr = {k: float((g[k] - r[k]).abs().max()) / max(float(r[k].abs().max()), floor)
+                    for k in r}
+            empty = disp.counts == 0
+            zeros = bool((got_g[empty] == 0).all())
+            w = max(gerr, key=gerr.get)
+            say(f"kernel kilonerf {cdt} {label}: forward max_abs_err {err:.3e} "
+                f"(tol {KILO_TOL[cdt]:.0e}); gradient error (max abs over max |g|) "
+                f"worst {w}={gerr[w]:.3e} (tol {KILO_GRAD_TOL[cdt]:.0e}), median "
+                f"{statistics.median(gerr.values()):.3e}; {int(empty.sum())} empty "
+                f"networks, gradients exactly 0: {zeros}")
+            if err > KILO_TOL[cdt] or gerr[w] > KILO_GRAD_TOL[cdt] or not zeros:
+                fail(f"kilonerf kernels {cdt} {label} disagree with their plain versions")
+            worst["fwd"] = max(worst["fwd"], err)
+            worst["bwd"] = max(worst["bwd"], gerr[w])
+            if label.startswith("camera"):
+                with torch.no_grad():
+                    fns = {
+                        ("fused_kilonerf_fwd", "plain"):
+                            lambda: kilonerf_fwd_plain(wc, disp, 32, 10, 4),
+                        ("fused_kilonerf_fwd", "kernel"):
+                            lambda: field._forward(wc, disp),
+                        ("fused_kilonerf_bwd", "plain"):
+                            lambda: kilonerf_bwd_plain(wc, disp, cot, 32, 10, 4),
+                        ("fused_kilonerf_bwd", "kernel"):
+                            lambda: field._backward(wc, disp, cot),
+                    }
+                    times = {k: [] for k in fns}
+                    for f in fns.values():
+                        f()                                    # warm-up
+                    # a kernel of ~0.4 ms is as long as the host takes to
+                    # issue it: time runs of KILO_BATCH launches between
+                    # two events, so that the queue stays full and host
+                    # gaps do not count
+                    for name in ("fused_kilonerf_fwd", "fused_kilonerf_bwd"):
+                        for which in ("plain", "kernel", "kernel", "plain"):
+                            f = fns[(name, which)]
+                            times[(name, which)] += [
+                                t / KILO_BATCH for t in time_calls(
+                                    torch, lambda f=f: [f() for _ in range(KILO_BATCH)], 3)]
+                    torch.cuda.empty_cache()
+                for name in ("fused_kilonerf_fwd", "fused_kilonerf_bwd"):
+                    ms = statistics.median(times[(name, "kernel")])
+                    plain_ms = statistics.median(times[(name, "plain")])
+                    bms, by = kilo_bound_ms(n, cdt, 512, name.endswith("bwd"))
+                    say(f"kernel {name} {cdt} {label}: kernel {ms:.3f} ms, plain "
+                        f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), share of bound "
+                        f"{bms / ms:.4f}")
+                    results[(name, cdt)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                                bound_by=by)
+            del ref, out, ref_g, got_g, disp
+            torch.cuda.empty_cache()
+        results[("fused_kilonerf_fwd", cdt)]["err"] = worst["fwd"]
+        results[("fused_kilonerf_bwd", cdt)]["err"] = worst["bwd"]
+    return results
+
+
+# ---------------------------------------------------------------- phase 15
+
+
+def train_kilonerf(torch, dev, tmp: str) -> dict:
+    """Phase 15: the kilonerf config's teacher (model_type nerf, hidden 32,
+    use_pallas = false: the module path, as the JAX package runs a hidden-32
+    NeRF) for 100 steps; then fit() of kilonerf distilling it (100 steps of
+    16,384 points, the last loss under the first) and training 200
+    photometric steps (the mse at 190 under that at 0) through the field
+    kernels; a bit-identical resume from step 100 (no distillation); the
+    launch counts; a profile of one step."""
+    import dataclasses
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.data.pipeline import load_scene
+    from nerf_tpu_torch.ops.cuda.fused_kilonerf import KiloNeRFField
+    from nerf_tpu_torch.train.loop import fit, render_settings_from_config
+
+    base = parse_config_file(os.path.join(ROOT, "configs", "lego_siren.txt"))
+    common = dict(dataset_path=os.path.join(tmp, "scene"), log_interval=10,
+                  val_interval=100, save_interval=100, **KILO_OVERRIDES)
+    tcfg = dataclasses.replace(base, model_type="nerf", use_pallas=False, num_iters=100,
+                               save_path=os.path.join(tmp, "teacher_models"),
+                               log_dir=os.path.join(tmp, "teacher_logs"), **common)
+    t0 = time.perf_counter()
+    fit(tcfg, device=dev, log=lambda *_: None)
+    teacher = os.path.join(tcfg.save_path, "nerf_model_000100")
+    tloss = read_scalars(tcfg.log_dir)["loss"]
+    say(f"train: teacher (lego_siren.txt, model_type = nerf, hidden 32, module path) "
+        f"100 iterations in {time.perf_counter() - t0:.1f} s, mse {tloss[0]:.6f} at 0 -> "
+        f"{tloss[90]:.6f} at 90")
+    cfg = dataclasses.replace(base, model_type="kilonerf", num_iters=200,
+                              distill_from=teacher, distill_steps=100, distill_batch=16384,
+                              save_path=os.path.join(tmp, "train_models_kilonerf"),
+                              log_dir=os.path.join(tmp, "train_logs_kilonerf"), **common)
+    lines: list = []
+    KiloNeRFField.launches = KiloNeRFField.bwd_launches = 0   # the main path's counts
+    t0 = time.perf_counter()
+    fit(cfg, device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (KiloNeRFField.launches, KiloNeRFField.bwd_launches)
+    say(f"train: fit kilonerf (distillation 100 x 16384 points, then 200 iterations) in "
+        f"{wall:.1f} s; launches: forward {counts[0]}, backward {counts[1]}")
+    for line in lines:
+        if "[Iter" in line or "Validation" in line or "Distill" in line:
+            say(f"  {line}")
+    per_image = math.ceil(HW * HW / cfg.chunk_size)
+    want = (100 + 200 + per_image, 100 + 200)
+    if counts != want:
+        fail(f"fit kilonerf launched (forward, backward) {counts}, want {want}")
+    scal = read_scalars(cfg.log_dir)
+    dl = scal["distill_loss"]
+    if sorted(dl) != list(range(100)) or not dl[99] < dl[0]:
+        fail(f"distillation loss {dl.get(0)} at 0 -> {dl.get(99)} at 99 does not fall")
+    loss = scal["loss"]
+    if sorted(loss) != list(range(0, 200, 10)) or not all(
+            math.isfinite(v) for v in loss.values()):
+        fail(f"kilonerf logged mse {loss}")
+    if not loss[190] < loss[0]:
+        fail(f"kilonerf: mse at 190 ({loss[190]}) is not under that at 0 ({loss[0]})")
+    step_rps = scal["rays_per_sec"][190]
+    say(f"train: distill loss {dl[0]:.6f} at 0 -> {dl[99]:.6f} at 99; mse {loss[0]:.6f} "
+        f"at 0 -> {loss[190]:.6f} at 190 (ratio {loss[190] / loss[0]:.4f}); kilonerf "
+        f"step {step_rps:.0f} rays/s ({cfg.num_random_rays} rays, {cfg.num_samples} "
+        f"samples, {cfg.compute_dtype})")
+    check_resume(torch, dev, tmp, cfg, "kilonerf", loss)
+    from nerf_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(cfg, device=dev)
+    scene = load_scene(cfg, device=dev)
+    profile_step(torch, state, scene.pool, render_settings_from_config(cfg), cfg,
+                 "fused_kilonerf", "kilonerf")
+    return {"fwd_launches": counts[0], "bwd_launches": counts[1], "step_rps": step_rps}
+
+
+def bench_kilonerf(torch, dev) -> float:
+    """bench.py's train_kilonerf row: 512 networks of hidden 32 (grid 8,
+    L = 10/4) over grid_domain, bf16, 1024 x 256, the 1<<20 pool, warm-up
+    (2 calls of 8 steps there: 16 steps), then 5 x 8 = 40 timed steps."""
+    from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
+
+    model = KiloNeRFModel(grid_res=8, hidden_dim=32, compute_dtype="bfloat16",
+                          domain=KILO_DOMAIN,
+                          generator=torch.Generator().manual_seed(0)).to(dev)
+    return bench_train(torch, dev, model, 40, 16, "bench train_kilonerf (bench.py "
+                       "protocol, KiloNeRF 512 x h32 bf16 1024x256)")
+
+
 # ---------------------------------------------------------------- phase 5
 
 
@@ -914,6 +1192,50 @@ def read_scalars(log_dir: str) -> dict:
     return out
 
 
+def check_resume(torch, dev, tmp: str, cfg, name: str, loss: dict) -> None:
+    """A resume from the step-100 checkpoint of ``fit``'s run: the restore
+    is exact, and every resumed step to 120 repeats the first run's mse
+    (``loss``) at the same state.step (the loop restarts at the saved
+    iteration while state.step is one ahead)."""
+    import dataclasses
+
+    from nerf_tpu_torch.train.loop import fit
+    from nerf_tpu_torch.train.state import create_train_state
+    from nerf_tpu_torch.utils.checkpoint import load_checkpoint, restore_train_state
+
+    ckpt = os.path.join(cfg.save_path, f"{name}_model_000100")
+    saved = load_checkpoint(ckpt)
+    probe = create_train_state(cfg, device=dev)
+    restore_train_state(probe, ckpt)
+    same = probe.step == saved["train_step"] == 101
+    for m, sd in ((probe.params, saved["params"]), (probe.fine_params, saved["fine_params"])):
+        if m is None:
+            same &= sd == {}
+            continue
+        same &= all(torch.equal(v.cpu(), sd[k]) for k, v in m.state_dict().items())
+    for mine, theirs in ((probe.optimizer.mu, saved["optimizer"]["mu"]),
+                         (probe.optimizer.nu, saved["optimizer"]["nu"])):
+        same &= all(torch.equal(a.cpu(), b) for a, b in zip(mine, theirs))
+    if not same:
+        fail("the restored step, parameters or Adam moments differ from the save")
+    del probe
+    cfg2 = dataclasses.replace(cfg, num_iters=120, log_interval=1,
+                               save_path=os.path.join(tmp, f"resume_models_{name}"),
+                               log_dir=os.path.join(tmp, f"resume_logs_{name}"))
+    lines2: list = []
+    resumed = fit(cfg2, resume_path=ckpt, device=dev, log=lines2.append)
+    loss2 = read_scalars(cfg2.log_dir)["loss"]
+    pairs = [(i, i + 1) for i in sorted(loss2) if i + 1 in loss]
+    if resumed.step != 121 or len(pairs) != 2:
+        fail(f"resume: state.step {resumed.step}, comparable steps {pairs}")
+    for i, j in pairs:
+        say(f"train: resumed iteration {i} (state.step {i + 2}) mse "
+            f"{loss2[i]!r}, first run iteration {j} mse {loss[j]!r}")
+        if loss2[i] != loss[j]:
+            fail("the resumed run does not repeat the first run bit for bit")
+    del resumed
+
+
 def train(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
           max_ratio: float, model_type: str | None = None) -> dict:
     """Phase 5 (``config`` lego.txt, the NeRF kernels, the mse at 190 under
@@ -928,8 +1250,6 @@ def train(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
     from nerf_tpu_torch.data.pipeline import load_scene
     from nerf_tpu_torch.render.renderer import render_rays
     from nerf_tpu_torch.train.loop import fit, render_settings_from_config
-    from nerf_tpu_torch.train.state import create_train_state
-    from nerf_tpu_torch.utils.checkpoint import load_checkpoint, restore_train_state
 
     cfg = parse_config_file(os.path.join(ROOT, "configs", config))
     name = model_type or cfg.model_type
@@ -974,40 +1294,7 @@ def train(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
         f"({cfg.num_random_rays} rays, {cfg.num_samples}+{cfg.num_fine_samples} "
         f"samples, {cfg.compute_dtype})")
 
-    # resume: the restore is exact, and every resumed step repeats the
-    # first run's mse at the same state.step (the loop restarts at the
-    # saved iteration while state.step is one ahead)
-    ckpt = os.path.join(cfg.save_path, f"{name}_model_000100")
-    saved = load_checkpoint(ckpt)
-    probe = create_train_state(cfg, device=dev)
-    restore_train_state(probe, ckpt)
-    same = probe.step == saved["train_step"] == 101
-    for m, sd in ((probe.params, saved["params"]), (probe.fine_params, saved["fine_params"])):
-        if m is None:
-            same &= sd == {}
-            continue
-        same &= all(torch.equal(v.cpu(), sd[k]) for k, v in m.state_dict().items())
-    for mine, theirs in ((probe.optimizer.mu, saved["optimizer"]["mu"]),
-                         (probe.optimizer.nu, saved["optimizer"]["nu"])):
-        same &= all(torch.equal(a.cpu(), b) for a, b in zip(mine, theirs))
-    if not same:
-        fail("the restored step, parameters or Adam moments differ from the save")
-    del probe
-    cfg2 = dataclasses.replace(cfg, num_iters=120, log_interval=1,
-                               save_path=os.path.join(tmp, f"resume_models_{name}"),
-                               log_dir=os.path.join(tmp, f"resume_logs_{name}"))
-    lines2: list = []
-    resumed = fit(cfg2, resume_path=ckpt, device=dev, log=lines2.append)
-    loss2 = read_scalars(cfg2.log_dir)["loss"]
-    pairs = [(i, i + 1) for i in sorted(loss2) if i + 1 in loss]
-    if resumed.step != 121 or len(pairs) != 2:
-        fail(f"resume: state.step {resumed.step}, comparable steps {pairs}")
-    for i, j in pairs:
-        say(f"train: resumed iteration {i} (state.step {i + 2}) mse "
-            f"{loss2[i]!r}, first run iteration {j} mse {loss[j]!r}")
-        if loss2[i] != loss[j]:
-            fail("the resumed run does not repeat the first run bit for bit")
-    del resumed
+    check_resume(torch, dev, tmp, cfg, name, loss)
 
     scene = load_scene(cfg, device=dev)
     settings = render_settings_from_config(cfg)
@@ -1165,6 +1452,7 @@ def main() -> int:
         from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
         from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
         from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
+        from nerf_tpu_torch.ops.cuda.fused_kilonerf import KiloNeRFField
     except ImportError as e:
         print(f"chip_smoke: nerf_tpu_torch not found beside this script ({e})",
               file=sys.stderr)
@@ -1191,6 +1479,7 @@ def main() -> int:
     grad_checks = check_grad_kernels(torch, dev)
     siren_checks = check_siren_kernels(torch, dev)
     gabor_checks = check_gabor_kernels(torch, dev)
+    kilo_checks = check_kilonerf_kernels(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = serve(torch, dev, tmp, "lego.txt", FusedNerfRender,
                          "fused_render_fwd")
@@ -1204,9 +1493,13 @@ def main() -> int:
                                "fused_gabor_fwd", "gabor")
         gabor_trained = train(torch, dev, tmp, "lego_siren.txt", FusedGaborRender,
                               "fused_gabor_train", 1.0, "gabor")
+        kilo_launches = serve(torch, dev, tmp, "lego_siren.txt", KiloNeRFField,
+                              "fused_kilonerf_fwd", "kilonerf", KILO_OVERRIDES)
+        kilo_trained = train_kilonerf(torch, dev, tmp)
     bench_headline(torch, dev)
     bench_siren(torch, dev)
     bench_gabor(torch, dev)
+    bench_kilonerf(torch, dev)
 
     def row(name, source, line, launched, c, err):
         return {"name": name, "route": "cuda",
@@ -1245,6 +1538,13 @@ def main() -> int:
         kernels.append(row(name, f"{name}.cu", f"{nerf_tpu}fused_render_gabor.py:{line}",
                            launched, gabor_checks[(name, "bfloat16")],
                            max(gabor_checks[(name, c)]["err"]
+                               for c in ("float32", "bfloat16"))))
+    for name, line, launched in (
+            ("fused_kilonerf_fwd", 367, kilo_launches + kilo_trained["fwd_launches"]),
+            ("fused_kilonerf_bwd", 394, kilo_trained["bwd_launches"])):
+        kernels.append(row(name, f"{name}.cu", f"{nerf_tpu}fused_kilonerf.py:{line}",
+                           launched, kilo_checks[(name, "bfloat16")],
+                           max(kilo_checks[(name, c)]["err"]
                                for c in ("float32", "bfloat16"))))
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")

@@ -28,6 +28,15 @@ def linear(layer: nn.Linear, x: torch.Tensor,
     return round_to(x, compute_dtype) @ w.T + layer.bias
 
 
+def remap_domain(p: torch.Tensor, domain: tuple[float, float]) -> torch.Tensor:
+    """Affine map of a grid family's ``domain`` cube (lo, hi) onto [-1, 1]
+    (``nerf_tpu.models.common.remap_domain``); the identity for (-1, 1)."""
+    lo, hi = float(domain[0]), float(domain[1])
+    if (lo, hi) == (-1.0, 1.0):
+        return p
+    return (p - lo) * (2.0 / (hi - lo)) - 1.0
+
+
 def uniform_init(shape: tuple[int, ...], bound: float,
                  generator: torch.Generator) -> torch.Tensor:
     """A float32 CPU tensor from U(-bound, bound), drawn from ``generator``

@@ -5,7 +5,10 @@ of shape (in, out); ``nn.Linear`` stores (out, in). A NeRF is ``{"block1":
 [...], "block2": [...], "rgb": [...]}``, a SIREN ``{"base": [...],
 "sigma", "remap", "rgb0", "rgb1"}``, a GaborNet ``{"filters": [{"omega",
 "phi", "mu", "gamma"}, ...], "linears": [...], "sigma", "remap", "rgb0",
-"rgb1"}`` (filter leaves keep their shapes). ``load_jax_params`` copies
+"rgb1"}`` (filter leaves keep their shapes), a KiloNeRF ``{"l1", "l2",
+"trunk", "rgb1", "rgb2"}`` of ``{"w", "b"}`` batched over the networks
+(``w`` (G^3, in, out), the layout the port keeps, so nothing is
+transposed). ``load_jax_params`` copies
 such a tree (as numpy arrays) into the port's module; ``export_jax_params``
 is its inverse, ``export_jax_grads`` gives the ``.grad``s the same way, and
 ``load_jax_opt_state`` copies optax's Adam moments. Each picks the family
@@ -21,6 +24,8 @@ import torch
 from torch import nn
 
 from nerf_tpu_torch.models.gabor import GaborModel
+from nerf_tpu_torch.models.kilonerf import LAYERS as KILO_LAYERS
+from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.siren import SirenModel
 
 _BLOCKS = (("block1", "block1"), ("block2", "block2"), ("rgb", "rgb_head"))
@@ -60,6 +65,9 @@ def _get(tree: dict, path: tuple):
 def _tree_of(module, leaf) -> dict:
     """The pytree of ``module`` with ``leaf(param) -> numpy`` at each leaf
     (weights transposed to (in, out))."""
+    if isinstance(module, KiloNeRFModel):
+        return {k: {"w": leaf(module.layer(k).w), "b": leaf(module.layer(k).b)}
+                for k in KILO_LAYERS}
     tree: dict = {}
     for path, lyr in zip(_paths(module), _linears(module)):
         node = {"w": leaf(lyr.weight).T.copy(), "b": leaf(lyr.bias)}
@@ -73,10 +81,26 @@ def _tree_of(module, leaf) -> dict:
     return tree
 
 
+def _copy_leaf(param: torch.Tensor, src, name: str) -> None:
+    """``param`` <- the array-like ``src`` of the same shape (no transpose)."""
+    x = torch.from_numpy(np.asarray(src, np.float32).copy())
+    if x.shape != param.shape:
+        raise ValueError(f"{name}: shape {tuple(x.shape)} does not fit "
+                         f"{tuple(param.shape)}")
+    param.copy_(x)
+
+
 def load_jax_params(module, tree: dict) -> None:
     """Copy a ``nerf_tpu`` pytree of the module's family (numpy or
     array-likes) into ``module`` in place, transposing each (in, out)
-    weight."""
+    weight (a KiloNeRF's batched weights keep their layout)."""
+    if isinstance(module, KiloNeRFModel):
+        with torch.no_grad():
+            for k in KILO_LAYERS:
+                for leaf in ("w", "b"):
+                    _copy_leaf(getattr(module.layer(k), leaf), tree[k][leaf],
+                               f"{k}/{leaf}")
+        return
     paths = _paths(module)
     for name in {p[0] for p in paths if len(p) == 2}:
         want = sum(1 for p in paths if p[0] == name)
@@ -90,12 +114,7 @@ def load_jax_params(module, tree: dict) -> None:
         if isinstance(module, GaborModel):
             for i, (src, f) in enumerate(zip(tree["filters"], module.filters)):
                 for k in FILTER_LEAVES:
-                    x = torch.from_numpy(np.asarray(src[k], np.float32).copy())
-                    p = getattr(f, k)
-                    if x.shape != p.shape:
-                        raise ValueError(f"filters/{i}/{k}: shape {tuple(x.shape)} "
-                                         f"does not fit {tuple(p.shape)}")
-                    p.copy_(x)
+                    _copy_leaf(getattr(f, k), src[k], f"filters/{i}/{k}")
         for path, lyr in zip(paths, _linears(module)):
             src = _get(tree, path)
             w = torch.from_numpy(np.asarray(src["w"], np.float32).T.copy())
@@ -126,6 +145,9 @@ def _flat_in_param_order(tree: dict) -> list[np.ndarray]:
     each in the ``nn.Linear`` layout, found by name (the family from the
     tree's keys)."""
     out = []
+    if "trunk" in tree:
+        return [np.asarray(tree[k][leaf], np.float32) for k in KILO_LAYERS
+                for leaf in ("w", "b")]
     if "filters" in tree:
         out += [np.asarray(f[k], np.float32) for f in tree["filters"]
                 for k in FILTER_LEAVES]

@@ -1,6 +1,6 @@
-"""Model construction by name. ``nerf``, ``siren`` and ``gabor`` are
-ported; every other family of ``nerf_tpu.models.registry`` raises and names
-the ROADMAP row (queue 1) that will port it."""
+"""Model construction by name. ``nerf``, ``siren``, ``gabor`` and
+``kilonerf`` are ported; every other family of ``nerf_tpu.models.registry``
+raises and names the ROADMAP row (queue 1) that will port it."""
 
 from __future__ import annotations
 
@@ -10,13 +10,14 @@ import torch
 from torch import nn
 
 from nerf_tpu_torch.models.gabor import GaborModel
+from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.models.siren import SirenModel
 
-MODEL_REGISTRY = {"nerf": NeRFModel, "siren": SirenModel, "gabor": GaborModel}
+MODEL_REGISTRY = {"nerf": NeRFModel, "siren": SirenModel, "gabor": GaborModel,
+                  "kilonerf": KiloNeRFModel}
 
 _NOT_YET = {
-    "kilonerf": "row 12 (KiloNeRF)",
     "fastnerf": "row 13 (grid families)",
     "plenoctree": "row 13 (grid families)",
     "ngp": "row 13 (grid families)",
@@ -42,13 +43,32 @@ def create_model(model_type: str, generator: torch.Generator | None = None,
                **{k: v for k, v in kwargs.items() if k in names})
 
 
+def grid_domain(cfg) -> tuple[float, float]:
+    """The cube (lo, hi) a grid family covers in the model's input space
+    (``nerf_tpu.models.registry.grid_domain``): the image of the world cube
+    [-scene_bound, scene_bound]^3 under the renderer's componentwise
+    [near, far] -> [-1, 1] map; (-1, 1) for NDC scenes, whose points are
+    already there."""
+    if cfg.dataset_type == "llff" and cfg.ndc:
+        return (-1.0, 1.0)
+    s = float(cfg.scene_bound)
+    lo = 2.0 * (-s - cfg.near) / (cfg.far - cfg.near) - 1.0
+    hi = 2.0 * (s - cfg.near) / (cfg.far - cfg.near) - 1.0
+    return (lo, hi)
+
+
 def model_from_config(cfg, generator: torch.Generator | None = None) -> nn.Module:
-    """A CPU model from a ``Config``; move it with ``.to(device)``."""
-    return create_model(
-        cfg.model_type, generator=generator,
+    """A CPU model from a ``Config``; move it with ``.to(device)``. Grid
+    families also take ``domain`` and, when the config sets it (> 0),
+    ``grid_res``."""
+    common = dict(
         hidden_dim=cfg.hidden_dim,
         pos_encoding_dim=cfg.pos_encoding_dim,
         dir_encoding_dim=cfg.dir_encoding_dim,
         compute_dtype=cfg.compute_dtype,
         reference_init=cfg.reference_init,
+        domain=grid_domain(cfg),
     )
+    if cfg.grid_res > 0:
+        common["grid_res"] = cfg.grid_res
+    return create_model(cfg.model_type, generator=generator, **common)

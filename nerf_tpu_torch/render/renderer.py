@@ -6,8 +6,10 @@ per-ray jitter), deltas with the 1e10 tail, the componentwise
 background, and hierarchical coarse/fine sampling (``merge`` or
 ``resample``). A pass runs either through the fused render of the model's
 family (one kernel on the card, its plain version on the CPU) or through the
-unfused module path (the model's forward + ``composite``). ``render_image`` bounds memory by
-a Python loop over ``chunk_size`` ray tiles.
+unfused path: a field (the model's forward, or a field of
+``train/step.py::fused_field_for`` such as ``KiloNeRFField``) + ``composite``.
+``render_image`` bounds memory by a Python loop over ``chunk_size`` ray
+tiles.
 """
 
 from __future__ import annotations
@@ -52,9 +54,10 @@ class RenderOutput(NamedTuple):
 
 def _render_pass(params, rays_o, rays_d, viewdirs, t, settings: RenderSettings,
                  fused_render=None) -> CompositeOutput:
-    """One pass over the samples ``t``. ``params`` is a model (``NeRFModel``,
-    ``SirenModel``) or, with ``fused_render``, anything that renderer takes
-    (its ``pack``)."""
+    """One pass over the samples ``t``. ``params`` is a field: a model or
+    any callable ``(points, dirs) -> (rgb, sigma)`` (a ``KiloNeRFField``),
+    or, with ``fused_render``, anything that renderer takes (its
+    ``pack``)."""
     if fused_render is not None:
         out = fused_render(params, rays_o, rays_d, viewdirs, t)
         rgb, acc, depth = out["rgb"], out["acc"], out["depth"]
@@ -100,9 +103,11 @@ def render_rays(params, rays_o: torch.Tensor, rays_d: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 fine_params=None, viewdirs: Optional[torch.Tensor] = None,
                 fused_render=None) -> RenderOutput:
-    """Render a batch of rays (R, 3). ``generator`` (on the rays' device)
-    drives the stratified jitter and the inverse-CDF draws; ``fine_params``
-    defaults to ``params``; ``viewdirs`` defaults to normalised ``rays_d``."""
+    """Render a batch of rays (R, 3). ``params`` / ``fine_params`` are
+    fields (models, or callables ``(points, dirs) -> (rgb, sigma)``) or what
+    ``fused_render`` takes. ``generator`` (on the rays' device) drives the
+    stratified jitter and the inverse-CDF draws; ``fine_params`` defaults to
+    ``params``; ``viewdirs`` defaults to normalised ``rays_d``."""
     num_rays = rays_o.shape[0]
     if viewdirs is None:
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)

@@ -1,9 +1,9 @@
 """Serving: load a checkpoint once, render many poses.
 
 Counterpart of ``nerf_tpu.serve``. ``RenderService`` owns the full-image
-renderer (the fused render kernel on the card) and renders arbitrary
-camera poses; ``serve_http`` wraps a service in a stdlib threaded HTTP
-server:
+renderer (the fused render kernel on the card; the field kernels for
+KiloNeRF) and renders arbitrary camera poses; ``serve_http`` wraps a
+service in a stdlib threaded HTTP server:
 
     GET /health            -> {"status": "ok", ...}
     GET /pose/<idx>        -> PNG of orbit pose idx
@@ -89,6 +89,7 @@ class RenderService:
                else parse_config_file(config))
         meta = read_metadata(checkpoint)
         cfg.model_type = meta.get("model_type", cfg.model_type).lower()
+        cfg.grid_res = int(meta.get("grid_res", cfg.grid_res))
         if cfg.dataset_type != "blender":
             raise NotImplementedError(
                 f"dataset_type {cfg.dataset_type!r} is not ported to "

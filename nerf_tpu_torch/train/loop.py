@@ -8,7 +8,10 @@ by ``next_event``); metrics stay on the device except on log steps.
 
 Bookkeeping mirrors the JAX loop exactly: a checkpoint records the last
 executed iteration as its step while ``state.step`` is one ahead, and a
-resumed run restarts the loop counter at the recorded step.
+resumed run restarts the loop counter at the recorded step. A fresh run
+with ``distill_from`` first distils that teacher into the model
+(``train/distill.py``) and then trains from step 0; a resumed run skips it
+(the checkpoint already carries it).
 """
 
 from __future__ import annotations
@@ -61,8 +64,6 @@ def check_ported(cfg: Config) -> None:
         rows.append("occupancy_res (row 13: ops/occupancy.py)")
     if cfg.upsample_steps.strip():
         rows.append("upsample_steps (row 13: grid families)")
-    if cfg.distill_from:
-        rows.append("distill_from (row 12: KiloNeRF and distillation)")
     if cfg.tv_lambda or cfg.tv_sh_lambda:
         rows.append("tv_lambda / tv_sh_lambda (row 13: grid families)")
     if cfg.mesh_shape.strip() or cfg.multihost:
@@ -113,10 +114,12 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
 
     dev = resolve_device(device)
     if resume_path is not None:
-        # the checkpoint is self-describing: its model_type wins
+        # the checkpoint is self-describing: its model_type and (for grid
+        # families) its grid_res win, so the restored shapes match
         meta = read_metadata(resume_path)
         cfg = dataclasses.replace(
-            cfg, model_type=meta.get("model_type", cfg.model_type).lower())
+            cfg, model_type=meta.get("model_type", cfg.model_type).lower(),
+            grid_res=int(meta.get("grid_res", cfg.grid_res)))
     check_ported(cfg)
     np.random.seed(cfg.seed)
     print_config_summary(cfg, dev, log)
@@ -174,6 +177,13 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
     logger = MetricLogger(log_dir=cfg.log_dir, model_type=cfg.model_type,
                           dataset_name=scene.name, config_text=str(cfg),
                           echo=log)
+    if resume_path is None and cfg.distill_from and cfg.distill_steps > 0:
+        from nerf_tpu_torch.train.distill import run_distillation
+
+        log(f"Distilling from teacher {cfg.distill_from} "
+            f"({cfg.distill_steps} field-matching steps)...")
+        state = run_distillation(cfg, state, device=dev, log=log,
+                                 log_scalar=logger.log_scalar)
     start_time = datetime.datetime.now()
 
     def run_validation(step: int) -> None:

@@ -13,7 +13,11 @@ There is no probe and no downgrade: a NeRF, a SIREN or a GaborNet trains
 and renders through its family's fused kernels for CUDA tensors (which
 raise on shapes they do not cover) and their plain versions for CPU
 tensors, unless the caller asks for the unfused module path with
-``use_pallas = false`` / ``fused=False``.
+``use_pallas = false`` / ``fused=False``. A family without a fused render
+but with field kernels (KiloNeRF) takes the field route instead, as the JAX
+step does when ``resolve_fused_render`` gives None: ``render_rays`` on the
+field of ``fused_field_for`` (its kernels, or their plain versions on the
+CPU), the loss and its gradient through autograd.
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ import torch
 
 from nerf_tpu_torch.data.pipeline import RayBatch, RayPool
 from nerf_tpu_torch.models.gabor import GaborModel
+from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.models.siren import SirenModel
+from nerf_tpu_torch.ops.cuda.fused_kilonerf import KiloNeRFField
 from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender, FusedRender
 from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
 from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
@@ -39,7 +45,7 @@ from nerf_tpu_torch.render.renderer import (
 )
 from nerf_tpu_torch.train.state import TrainState
 
-SAMPLE, RENDER, VALIDATE = 0, 1, 2     # generator streams of a step
+SAMPLE, RENDER, VALIDATE, DISTILL = 0, 1, 2, 3   # generator streams of a step
 
 
 def step_seed(seed: int, step: int, stream: int) -> int:
@@ -69,6 +75,69 @@ def fused_render_for(model, settings: RenderSettings) -> FusedRender:
                normalize=settings.normalize_positions)
 
 
+def _unported_field_row(model) -> str | None:
+    """The row of PERF.md's table of the field kernel that nerf_tpu's
+    ``get_fused_apply`` takes for ``model`` and the port lacks, or None where
+    it takes none: ``make_fused_{nerf,gabor}_apply`` at widths with
+    h % 128 == 0 and (h/2) % 128 == 0, ``make_fused_siren_apply`` there at 8
+    sine layers only."""
+    h = model.hidden_dim
+    if h % 128 or (h // 2) % 128:
+        return None
+    if isinstance(model, NeRFModel):
+        return "row 1 (fused_nerf.py::_fwd_kernel)"
+    if isinstance(model, SirenModel) and model.num_layers == 8:
+        return "row 9 (fused_siren.py::_fwd_kernel)"
+    if isinstance(model, GaborModel):
+        return "row 13 (fused_gabor.py::_fwd_kernel)"
+    return None
+
+
+def _on_card(model) -> bool:
+    return next(model.parameters()).device.type == "cuda"
+
+
+def fused_field_for(model):
+    """The field ``(points, dirs) -> (rgb, sigma)`` that nerf_tpu's
+    ``resolve_apply_fn`` picks for ``model``, without its probe and its
+    downgrade: a KiloNeRF through its field kernels (``KiloNeRFField``,
+    bound to the module); a NeRF, SIREN or GaborNet through its module where
+    nerf_tpu takes no field kernel, and on the CPU. Raises
+    ``NotImplementedError`` on the card where nerf_tpu would take a field
+    kernel not ported yet (naming its row of PERF.md's table), and for a
+    family the port does not have."""
+    if isinstance(model, KiloNeRFModel):
+        return KiloNeRFField(model)
+    if not isinstance(model, (NeRFModel, SirenModel, GaborModel)):
+        raise NotImplementedError(
+            f"no field for {type(model).__name__} in nerf_tpu_torch yet "
+            "(ROADMAP.md queue 2)")
+    row = _unported_field_row(model)
+    if row is not None and _on_card(model):
+        raise NotImplementedError(
+            f"{type(model).__name__} at hidden {model.hidden_dim} runs through a "
+            f"field kernel in nerf_tpu that is not ported to nerf_tpu_torch yet "
+            f"(PERF.md {row}; ROADMAP.md queue 2); use_pallas = false evaluates "
+            "the module")
+    return model
+
+
+def _kernel_route(model, settings: RenderSettings, use_kernels: bool):
+    """``(fused_render, field)``: the family's fused render, or for KiloNeRF,
+    which has none, the factory of its field (``KiloNeRFField``); raises for
+    any other family; ``(None, None)`` for the module path."""
+    if not use_kernels:
+        return None, None
+    if type(model) in _FUSED:
+        return fused_render_for(model, settings), None
+    if not isinstance(model, KiloNeRFModel):
+        raise NotImplementedError(
+            f"no fused render and no field kernels for {type(model).__name__} in "
+            "nerf_tpu_torch yet (ROADMAP.md queue 2; use_pallas = false renders "
+            "through the module)")
+    return None, KiloNeRFField
+
+
 def _generator(device, seed: int) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -83,9 +152,10 @@ def _make_step_body(model, settings: RenderSettings, batch_size: int,
     metrics`` renders, takes the loss and its gradient, and updates
     ``state`` in place (the step counter too). ``metrics`` holds ``loss``,
     ``mse`` and ``psnr`` as device scalars. With ``use_pallas`` each pass is
-    one train-kernel launch; without, the unfused module path under
-    autograd."""
-    fused_render = fused_render_for(model, settings) if use_pallas else None
+    one train-kernel launch of the family's fused render, or, for a family
+    without one, the field route (its field kernels under autograd); without,
+    the unfused module path under autograd."""
+    fused_render, field = _kernel_route(model, settings, use_pallas)
 
     def sample(state: TrainState, pool: RayPool) -> RayBatch:
         if epoch_sampling:
@@ -99,8 +169,12 @@ def _make_step_body(model, settings: RenderSettings, batch_size: int,
                 fused_render, state.params, batch.rays_o, batch.rays_d,
                 settings, batch.rgb, generator=gen,
                 fine_params=state.fine_params, viewdirs=batch.viewdirs)
-        out = render_rays(state.params, batch.rays_o, batch.rays_d, settings,
-                          generator=gen, fine_params=state.fine_params,
+        params, fine = state.params, state.fine_params
+        if field is not None:
+            params = field(params)
+            fine = field(fine) if fine is not None else None
+        out = render_rays(params, batch.rays_o, batch.rays_d, settings,
+                          generator=gen, fine_params=fine,
                           viewdirs=batch.viewdirs)
         mse = torch.mean((out.rgb - batch.rgb) ** 2)
         loss = mse
@@ -156,18 +230,25 @@ def make_eval_render(model, settings: RenderSettings, fused: bool = True):
     """Returns ``render(params, fine_params, rays_o, rays_d, generator=None,
     viewdirs=None) -> RenderOutput``, where ``params``/``fine_params`` are
     models of ``model``'s family (``fine_params`` None: the coarse model
-    renders both passes). Memory is bounded by ``settings.chunk_size`` ray tiles."""
-    fused_render = fused_render_for(model, settings) if fused else None
+    renders both passes). With ``fused`` each pass runs the family's fused
+    render, or for a family without one its field kernels (the field route);
+    otherwise the module. Memory is bounded by ``settings.chunk_size`` ray
+    tiles."""
+    fused_render, field = _kernel_route(model, settings, fused)
 
     @torch.no_grad()
     def render(params, fine_params, rays_o: torch.Tensor, rays_d: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                viewdirs: Optional[torch.Tensor] = None) -> RenderOutput:
+        # pack the weights once per image, not once per tile
         if fused_render is not None:
-            # pack the weights once per image, not once per tile
             params = fused_render.pack(params)
             if fine_params is not None:
                 fine_params = fused_render.pack(fine_params)
+        elif field is not None:
+            params = field(params).pack()
+            if fine_params is not None:
+                fine_params = field(fine_params).pack()
         return render_image(params, rays_o, rays_d, settings,
                             generator=generator, fine_params=fine_params,
                             viewdirs=viewdirs, fused_render=fused_render)

@@ -4,9 +4,11 @@ A checkpoint is one file ``{save_path}/{model_type}_model_{step:06d}``
 holding ``{step, model_type, params, fine_params}`` (state dicts; an empty
 dict when there is no separate fine model) and, for a training state,
 ``train_step`` (the state's step counter) and ``optimizer`` (Adam's count
-and moments), beside a ``.meta.json`` sidecar with the step and model
-type, as ``nerf_tpu.utils.checkpoint`` lays them out. Serving reads only
-the models. The file is written under a temporary name and renamed, so a
+and moments), beside a ``.meta.json`` sidecar with the step, the model
+type and, for a family that has one (KiloNeRF), ``grid_res``, as
+``nerf_tpu.utils.checkpoint`` lays them out; resume, serving and a
+distillation teacher read the family and ``grid_res`` back from it.
+Serving reads only the models. The file is written under a temporary name and renamed, so a
 checkpoint that exists is complete. ``AsyncCheckpointSaver`` copies the
 tensors to the CPU and writes on a thread while training goes on.
 Checkpoints of the JAX package (Orbax directories) are not read here.
@@ -42,8 +44,11 @@ def _write(payload: dict, save_path: str, model_type: str, step: int) -> str:
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+    meta = {"step": int(step), "model_type": model_type}
+    if "grid_res" in payload:
+        meta["grid_res"] = payload["grid_res"]
     with open(path + ".meta.json", "w") as f:
-        json.dump({"step": int(step), "model_type": model_type}, f)
+        json.dump(meta, f)
     return path
 
 
@@ -51,6 +56,8 @@ def _payload(model, fine_model, model_type: str, step: int, optimizer=None,
              train_step: Optional[int] = None) -> dict:
     out = {"step": int(step), "model_type": model_type,
            "params": _cpu_state(model), "fine_params": _cpu_state(fine_model)}
+    if hasattr(model, "grid_res"):
+        out["grid_res"] = int(model.grid_res)
     if optimizer is not None:
         out["optimizer"] = optimizer.state_dict()
         out["train_step"] = int(train_step)

@@ -518,3 +518,162 @@ def test_gabor_train_step_on_card_matches_cpu(dev, cdt):
                                        rtol=10 * TOL[cdt], atol=0)
     for a, b in zip(states[0].params.parameters(), states[1].params.parameters()):
         torch.testing.assert_close(b.detach().cpu(), a.detach(), atol=4 * 5e-4, rtol=0)
+
+
+# ---------------------------------------------------------------- KiloNeRF
+
+# kernel vs plain (chip_smoke.py states the same): float32 sums over 32-63
+# terms in another order; bfloat16 roundings flip after such sums and move
+# one activation by 2^-8 relative. Gradients: atol = tol * max|g| per
+# tensor, the max floored at 1e-2 of the model's largest gradient.
+KILO_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+KILO_GRAD_TOL = {"float32": 5e-4, "bfloat16": 5e-3}
+KILO_DOMAIN = (-2.75, -1.25)
+
+
+def _kilo(cdt, seed, dev, grid=8, **kw):
+    from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
+
+    return KiloNeRFModel(grid_res=grid, hidden_dim=32, compute_dtype=cdt, domain=KILO_DOMAIN,
+                         generator=torch.Generator().manual_seed(seed), **kw).to(dev)
+
+
+def _kilo_points(kind, n, dev, seed=0):
+    """(points, dirs): ``uniform`` over the domain, ``camera`` samples of
+    rays from a radius-4 sphere normalised like the renderer's (many in the
+    border voxels, most networks empty at small n), ``voxel`` all in one
+    voxel."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dirs = torch.nn.functional.normalize(torch.randn(n, 3, generator=g, device=dev), dim=-1)
+    lo, hi = KILO_DOMAIN
+    if kind == "uniform":
+        pts = torch.rand(n, 3, generator=g, device=dev) * (hi - lo) + lo
+    elif kind == "voxel":
+        pts = lo + (hi - lo) * (0.3 + 0.1 * torch.rand(n, 3, generator=g, device=dev) / 8)
+    else:
+        cam = torch.nn.functional.normalize(
+            torch.randn(n, 3, generator=g, device=dev), dim=-1) * 4.0
+        t = 2.0 + 4.0 * torch.rand(n, 1, generator=g, device=dev)
+        pts = 2.0 * (cam + t * (-cam / 4.0 + 0.1 * dirs) - NEAR) / (FAR - NEAR) - 1.0
+    return pts, dirs
+
+
+def _kilo_grad_errors(got, ref):
+    from nerf_tpu_torch.ops.cuda.fused_kilonerf import unpack
+
+    g, r = unpack(got, 32, 63, 27), unpack(ref, 32, 63, 27)
+    floor = 1e-2 * max(float(v.abs().max()) for v in r.values())
+    return {k: float((g[k] - r[k]).abs().max()) / max(float(r[k].abs().max()), floor)
+            for k in r}
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,n", [("uniform", 1000), ("uniform", 37), ("voxel", 700),
+                                    ("camera", 5003), ("camera", 262144)])
+def test_kilonerf_kernels_match_plain(dev, cdt, kind, n):
+    """Both kernels against their plain versions at ragged counts, 37
+    points (most of the 512 networks empty: their gradients exactly 0),
+    every point in one voxel (one network's runs and pieces) and the
+    1024 x 256 serving/training count; one launch each."""
+    from nerf_tpu_torch.ops.cuda.fused_kilonerf import (
+        KiloNeRFField, cast_packed, dispatch, kilonerf_bwd_plain, kilonerf_fwd_plain,
+        pack_f32)
+
+    model = _kilo(cdt, 3, dev)
+    field = KiloNeRFField(model)
+    pts, dirs = _kilo_points(kind, n, dev, seed=n)
+    disp = dispatch(model, pts, dirs)
+    if kind == "voxel":
+        assert int((disp.counts > 0).sum()) == 1
+    wc = cast_packed(pack_f32(model), model.cdt)
+    cot = torch.randn(n, 4, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    before = (KiloNeRFField.launches, KiloNeRFField.bwd_launches)
+    with torch.no_grad():
+        out = field._forward(wc, disp)
+        grad = field._backward(wc, disp, cot)
+        torch.cuda.synchronize()
+        ref = kilonerf_fwd_plain(wc, disp, 32, 10, 4)
+        ref_g = kilonerf_bwd_plain(wc, disp, cot, 32, 10, 4)
+    assert (KiloNeRFField.launches, KiloNeRFField.bwd_launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+    assert out.shape == (n, 4) and torch.isfinite(out).all() and torch.isfinite(grad).all()
+    assert float((out - ref).abs().max()) <= KILO_TOL[cdt] * max(1.0, float(ref.abs().max()))
+    errs = _kilo_grad_errors(grad, ref_g)
+    assert max(errs.values()) <= KILO_GRAD_TOL[cdt], errs
+    empty = disp.counts == 0
+    assert bool((grad[empty] == 0).all())
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_kilonerf_field_autograd_on_card_matches_cpu(dev, cdt):
+    """The field under autograd (forward kernel, then backward kernel via
+    loss.backward()) against the same model on the CPU (plain versions):
+    outputs within KILO_TOL, parameter gradients within KILO_GRAD_TOL of
+    their max; no gradient reaches the points."""
+    from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
+    from nerf_tpu_torch.ops.cuda.fused_kilonerf import KiloNeRFField
+
+    model = _kilo(cdt, 5, dev, grid=4)
+    cpu = KiloNeRFModel(grid_res=4, hidden_dim=32, compute_dtype=cdt, domain=KILO_DOMAIN)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    pts, dirs = _kilo_points("uniform", 3000, dev, seed=5)
+    outs = []
+    for m, p, d in ((model, pts, dirs), (cpu, pts.cpu(), dirs.cpu())):
+        p = p.clone().requires_grad_(True)
+        rgb, sigma = KiloNeRFField(m)(p, d)
+        (torch.sum(rgb ** 2) + 0.1 * torch.sum(sigma)).backward()
+        assert p.grad is None
+        outs.append((rgb.detach().cpu(), sigma.detach().cpu(),
+                     [q.grad.detach().cpu() for q in m.parameters()]))
+    (rg, sg, gg), (rc, sc, gc) = outs
+    torch.testing.assert_close(rg, rc, atol=KILO_TOL[cdt], rtol=0)
+    torch.testing.assert_close(sg, sc, atol=KILO_TOL[cdt] * max(1.0, float(sc.abs().max())),
+                               rtol=0)
+    floor = 1e-2 * max(float(x.abs().max()) for x in gc)
+    for a, b in zip(gg, gc):
+        assert float((a - b).abs().max()) <= KILO_GRAD_TOL[cdt] * max(float(b.abs().max()), floor)
+
+
+def test_kilonerf_kernels_refuse_unsupported_widths(dev):
+    """Hidden 32 with encodings of at most 64 / 32 columns only (the plain
+    versions take any width on the CPU): NotImplementedError naming the
+    width, before any launch."""
+    from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
+    from nerf_tpu_torch.ops.cuda.fused_kilonerf import KiloNeRFField
+
+    pts, dirs = _kilo_points("uniform", 100, dev)
+    for kw in ({"hidden_dim": 64}, {"hidden_dim": 32, "dir_encoding_dim": 6}):
+        model = KiloNeRFModel(grid_res=2, domain=KILO_DOMAIN, **kw).to(dev)
+        before = KiloNeRFField.launches
+        with torch.no_grad(), pytest.raises(NotImplementedError, match="hidden 32"):
+            KiloNeRFField(model)(pts, dirs)
+        assert KiloNeRFField.launches == before
+
+
+def test_kilonerf_train_step_on_card_matches_cpu(dev):
+    """Two coarse-only 32-sample steps of the same float32 KiloNeRF state
+    (grid 4) on one batch (perturb off), on the card through the field
+    kernels and on the CPU through their plain versions: loss and mse
+    within 10x the kernel tolerance; parameters within the Adam sign noise
+    (2 lr per step)."""
+    from nerf_tpu_torch.ops.cuda.fused_kilonerf import KiloNeRFField
+
+    kw = dict(near=NEAR, far=FAR, num_samples=32, perturb=False, white_background=True)
+    cfg = Config(model_type="kilonerf", hidden_dim=32, grid_res=4, **kw)
+    states = [create_train_state(cfg, device=d) for d in ("cpu", dev)]
+    ro, rd, _ = _inputs(64, 1, "cpu", seed=7)
+    tgt = torch.rand(64, 3, generator=torch.Generator().manual_seed(8))
+    metrics = []
+    for st in states:
+        _, train_on_batch = _make_step_body(st.params, RenderSettings(**kw), 64, 0)
+        d = st.params.l1.w.device
+        batch = RayBatch(*(x.to(d) for x in (ro, rd, tgt, rd)))
+        before = (KiloNeRFField.launches, KiloNeRFField.bwd_launches)
+        metrics.append([train_on_batch(st, batch) for _ in range(2)])
+        n = 2 if d.type == "cuda" else 0
+        assert (KiloNeRFField.launches - before[0], KiloNeRFField.bwd_launches - before[1]) == (n, n)
+    for m_cpu, m_gpu in zip(*metrics):
+        for k in ("loss", "mse"):
+            torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=10 * TOL["float32"], atol=0)
+    for a, b in zip(states[0].params.parameters(), states[1].params.parameters()):
+        torch.testing.assert_close(b.detach().cpu(), a.detach(), atol=4 * 5e-4, rtol=0)

@@ -158,8 +158,7 @@ def test_model_from_config():
     assert m.cdt == torch.bfloat16
 
 
-@pytest.mark.parametrize("family", ["kilonerf", "fastnerf",
-                                    "plenoctree", "ngp", "plenoxels"])
+@pytest.mark.parametrize("family", ["fastnerf", "plenoctree", "ngp", "plenoxels"])
 def test_unported_families_raise(family):
     from nerf_tpu.models.registry import MODEL_REGISTRY
 
@@ -168,7 +167,7 @@ def test_unported_families_raise(family):
         create_model(family)
 
 
-@pytest.mark.parametrize("family", ["nerf", "siren", "gabor"])
+@pytest.mark.parametrize("family", ["nerf", "siren", "gabor", "kilonerf"])
 def test_ported_families_build_from_a_config(family):
     """Each ported family builds from a config by name (the JAX registry's
     names), knobs it does not take dropped, and renders a batch."""

@@ -354,9 +354,8 @@ def test_scan_steps_equal_single_steps(scene_root):
 
 @pytest.mark.parametrize("field,value,row", [
     ("occupancy_res", 8, "row 13"), ("upsample_steps", "5:16", "row 13"),
-    ("distill_from", "x", "row 12"), ("tv_lambda", 0.1, "row 13"),
-    ("mesh_shape", "2,1", "row 14"), ("dataset_type", "llff", "row 9"),
-    ("model_type", "kilonerf", "row 12")])
+    ("tv_lambda", 0.1, "row 13"), ("mesh_shape", "2,1", "row 14"),
+    ("dataset_type", "llff", "row 9"), ("model_type", "ngp", "row 13")])
 def test_fit_refuses_unported_options(scene_root, field, value, row):
     cfg = dataclasses.replace(_cfg(scene_root), **{field: value})
     with pytest.raises(NotImplementedError, match=row):
@@ -381,6 +380,35 @@ def test_fit_trains_gabor(scene_root, fine):
     for before, after in zip(init.models(), state.models()):
         assert type(after).__name__ == "GaborModel"
         assert not torch.equal(before.filters[0].omega, after.filters[0].omega)
+    assert (state.fine_params is None) == (fine == 0)
+
+
+@pytest.mark.parametrize("fine", [0, 8])
+def test_fit_trains_kilonerf(scene_root, fine):
+    """model_type = kilonerf (grid 2, hidden 32) fits through the field
+    route (the field kernels' plain versions on the CPU), coarse-only and
+    hierarchical with a separate fine KiloNeRF: finite losses, a checkpoint
+    named for the family with grid_res in its metadata, and both models'
+    networks moved by the steps; the launch counters stay untouched on the
+    CPU."""
+    from nerf_tpu_torch.ops.cuda.fused_kilonerf import KiloNeRFField
+    from nerf_tpu_torch.utils.checkpoint import read_metadata
+
+    cfg = _cfg(scene_root, model_type="kilonerf", grid_res=2, num_fine_samples=fine,
+               num_iters=3, save_path=os.path.join(scene_root, f"kilonerf_{fine}"),
+               log_dir=os.path.join(scene_root, f"kilonerf_logs_{fine}"))
+    init = create_train_state(cfg, device="cpu")
+    counts = (KiloNeRFField.launches, KiloNeRFField.bwd_launches)
+    lines: list = []
+    state = fit(cfg, device="cpu", log=lines.append)
+    assert (KiloNeRFField.launches, KiloNeRFField.bwd_launches) == counts
+    mses = _mses(lines)
+    assert sorted(mses) == [0, 1, 2] and all(np.isfinite(list(mses.values())))
+    path = os.path.join(cfg.save_path, "kilonerf_model_000003")
+    assert read_metadata(path)["grid_res"] == 2
+    for before, after in zip(init.models(), state.models()):
+        assert type(after).__name__ == "KiloNeRFModel" and after.num_networks == 8
+        assert not torch.equal(before.l1.w, after.l1.w)
     assert (state.fine_params is None) == (fine == 0)
 
 
