@@ -90,10 +90,34 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      with the launches of both kernels counted, a bit-identical resume from
      step 100 (no distillation) and a profile of one step;
  16. bench.py's train_kilonerf protocol (bf16, 1024 x 256, the 1<<20 pool,
-     16 warm-up steps, 40 timed chained steps) in rays/s.
+     16 warm-up steps, 40 timed chained steps) in rays/s;
+ 17. the NeRF field kernels (forward and backward) against their plain
+     versions on the card (TF32 off), configs/lego.txt's model (hidden 256,
+     L = 10/4), float32 and bfloat16: rgb, sigma and every gradient
+     (weights, points, directions) on the first 65,536 points of the 64^3
+     occupancy lattice over grid_domain, 16,384 uniform points with
+     normal-then-normalised directions (the distillation draw), 1,000 and
+     37 points (ragged chunks); both timed in turns at 65,536 and 16,384
+     points (runs of 20 launches per pair of events) against their bound;
+ 18. serving lego.txt with --occupancy 64 from phase 5's trained
+     checkpoint: the bake's four field-kernel launches and occupied share,
+     the kernel-baked grid against the grids baked through the field's
+     plain version (equal) and through the module (cells counted), three
+     400x400 requests (40 render launches each, no field launch), each
+     within mean abs 1e-2 of the unfused render with the same grid, their
+     times and a profile of one; then a prior baked at the lattice's
+     median density, which must move the coarse samples into occupied
+     cells and render within 1e-2 of the unfused render with it;
+ 19. training lego.txt with NeRF distillation and occupancy: phase 5's
+     checkpoint as the teacher of a seeded student, 100 distillation steps
+     of 16,384 points (the loss falls; 200 field forward and 100 field
+     backward launches), then 200 photometric steps with occupancy_res = 64
+     and occupancy_interval = 100 (the mse at 190 under half of that at 0),
+     a bit-identical resume from step 100, the step's rate and a profile of
+     one occupancy-guided step.
 
-The last lines are a JSON object of per-kernel numbers (all ten kernels),
-the card, and ``{"ok": true, "device": {...}}``. Needs a CUDA device and this checkout;
+The last lines are a JSON object of per-kernel numbers (all twelve
+kernels), the card, and ``{"ok": true, "device": {...}}``. Needs a CUDA device and this checkout;
 imports nothing of JAX or of the JAX package.
 """
 
@@ -184,6 +208,28 @@ KILO_DOMAIN = (-2.75, -1.25)     # grid_domain of lego_siren.txt's settings
 KILO_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 KILO_BATCH = 20        # launches per timed run of a KiloNeRF kernel
 KILO_GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-4}
+# The NeRF field (lego.txt's MLP at L = 10/4), per point: the forward's MACs
+# (mlp_macs(256, 63, 27) = 658,944) and its 84 sines; the backward
+# recomputes the forward and takes the dz W^T products with the three input
+# products and the A^T dz products (3 x the forward's MACs) and 84 cosines
+# more. Bytes a point: position and direction in (24), rgb and sigma out
+# (16); backward, the (rgb, sigma) cotangent in (16) and the point and
+# direction cotangents out (24); the weights in and, backward, their
+# float32 gradients out. Outputs against the plain version as the render
+# kernels (TOL), gradients as the train kernels (GRAD_TOL: every dz W^T
+# chain of ten layers is shared with them).
+FIELD_TRIG = 84
+FIELD_BATCH = 20       # launches per timed run of a field kernel
+# The point and direction cotangents are per point, not sums: a point whose
+# ReLU pre-activation lies within rounding of zero takes another mask in
+# either version and moves its own cotangent by up to a few percent of the
+# max (float32 against float64 on the CPU: 39 of the 65,536 lattice points
+# beyond 1e-4 of the max, the worst at 3.7e-2; the median 1.9e-7). So each
+# point's error (max abs over its coordinates, over the max |g| of the set)
+# is held at its 99.9th percentile, and at most 0.1% of the points may lie
+# beyond the bound; the worst is printed.
+FIELD_PT_TOL = {"float32": 1e-4, "bfloat16": 5e-3}
+FIELD_DOMAIN = (-2.75, -1.25)   # grid_domain of lego.txt's settings
 
 
 def fail(msg: str) -> None:
@@ -369,14 +415,17 @@ def get(url: str) -> tuple:
 
 
 def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
-          model_type: str | None = None, overrides: dict | None = None):
+          model_type: str | None = None, overrides: dict | None = None,
+          svc=None, compare: tuple = ("/pose/1",)):
     """Phase 4 (``config`` lego.txt, the NeRF kernels), 8 (lego_siren.txt,
     the SIREN kernels), 11 (lego_siren.txt with ``model_type`` gabor, the
     GaborNet kernels) or 14 (the kilonerf config: lego_siren.txt with
     ``model_type`` kilonerf and ``overrides`` hidden_dim 32, grid_res 8;
     the KiloNeRF field kernels): a checkpoint of ``config`` from its seed,
-    served on cuda over loopback; returns the kernel launches of the three
-    image requests."""
+    served on cuda over loopback; or phase 18 (``svc`` a service of
+    lego.txt already built with an occupancy prior, every request in
+    ``compare``); returns the kernel launches of the three image
+    requests."""
     label = config if model_type is None else f"{config} (model_type = {model_type})"
     import dataclasses
 
@@ -391,18 +440,23 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
     scene = os.path.join(tmp, "scene")
     if not os.path.isdir(scene):
         write_sphere_scene(scene, HW)
-    cfg = parse_config_file(os.path.join(ROOT, "configs", config))
-    cfg = dataclasses.replace(cfg, dataset_path=scene,
-                              save_path=os.path.join(tmp, "models"),
-                              model_type=model_type or cfg.model_type,
-                              **(overrides or {}))
-    gen = torch.Generator().manual_seed(cfg.seed)
-    model = model_from_config(cfg, generator=gen)
-    fine = None
-    if cfg.num_fine_samples > 0 and cfg.separate_fine_model:
-        fine = model_from_config(cfg, generator=gen)
-    ckpt = save_checkpoint(model, fine, cfg.save_path, cfg.model_type, 0)
-    svc = RenderService.from_checkpoint(cfg, ckpt, device=dev, log=say)
+    if svc is None:
+        cfg = parse_config_file(os.path.join(ROOT, "configs", config))
+        cfg = dataclasses.replace(cfg, dataset_path=scene,
+                                  save_path=os.path.join(tmp, "models"),
+                                  model_type=model_type or cfg.model_type,
+                                  **(overrides or {}))
+        gen = torch.Generator().manual_seed(cfg.seed)
+        model = model_from_config(cfg, generator=gen)
+        fine = None
+        if cfg.num_fine_samples > 0 and cfg.separate_fine_model:
+            fine = model_from_config(cfg, generator=gen)
+        ckpt = save_checkpoint(model, fine, cfg.save_path, cfg.model_type, 0)
+        svc = RenderService.from_checkpoint(cfg, ckpt, device=dev, log=say)
+    cfg = svc.cfg
+    occ = svc._renderer.occupancy
+    if occ is not None:
+        label += f" --occupancy {occ.grid.shape[0]}"
     if svc.hw != (HW, HW):
         fail(f"service hw {svc.hw}")
     passes = 2 if cfg.num_fine_samples > 0 else 1
@@ -446,24 +500,29 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
     if launches != 3 * per_image:
         fail(f"{label}: main path launched the kernel {launches} times")
 
-    # the served /pose/1 against the unfused render of the same request
+    # served images against the unfused render of the same request (with
+    # the same occupancy prior)
     ref_render = make_eval_render(svc.params[0], render_settings_from_config(cfg),
-                                  fused=False)
+                                  fused=False, occupancy=occ)
     h, w = svc.hw
     from nerf_tpu_torch.data.rays import compute_rays_single
 
-    o, d = compute_rays_single(h, w, svc.focal, svc.orbit_pose(1))
-    g = torch.Generator(device=dev).manual_seed(request_seed(cfg.seed, 1))
-    ref = ref_render(*svc.params, torch.from_numpy(o).to(dev),
-                     torch.from_numpy(d).to(dev), g).rgb
-    ref = ref.reshape(h, w, 3).clamp(0, 1).cpu().numpy()
-    if not np.isfinite(ref).all():
-        fail(f"{label}: unfused reference render is not finite")
-    diff = np.abs(images["/pose/1"].astype(np.float32) / 255.0 - ref)
-    say(f"serve {label} /pose/1 vs unfused render: mean abs {diff.mean():.3e} "
-        f"(tol {SERVE_TOL_MEAN:.0e}), max abs {diff.max():.3e}")
-    if diff.mean() > SERVE_TOL_MEAN:
-        fail(f"{label}: served image disagrees with the unfused render")
+    requests = {"/pose/0": (svc.orbit_pose(0), 0), "/pose/1": (svc.orbit_pose(1), 1),
+                "/render": (svc.orbit_pose(5), 0)}
+    for route in compare:
+        c2w, key_idx = requests[route]
+        o, d = compute_rays_single(h, w, svc.focal, c2w)
+        g = torch.Generator(device=dev).manual_seed(request_seed(cfg.seed, key_idx))
+        ref = ref_render(*svc.params, torch.from_numpy(o).to(dev),
+                         torch.from_numpy(d).to(dev), g).rgb
+        ref = ref.reshape(h, w, 3).clamp(0, 1).cpu().numpy()
+        if not np.isfinite(ref).all():
+            fail(f"{label}: unfused reference render is not finite")
+        diff = np.abs(images[route].astype(np.float32) / 255.0 - ref)
+        say(f"serve {label} {route} vs unfused render: mean abs {diff.mean():.3e} "
+            f"(tol {SERVE_TOL_MEAN:.0e}), max abs {diff.max():.3e}")
+        if diff.mean() > SERVE_TOL_MEAN:
+            fail(f"{label}: served image {route} disagrees with the unfused render")
     med = statistics.median(times)
     say(f"serve: {med * 1e3:.1f} ms per {HW}x{HW} request (median of "
         f"{len(times)}), {HW * HW / med:.0f} rays/s, {per_image} launches "
@@ -1085,6 +1144,154 @@ def check_kilonerf_kernels(torch, dev):
     return results
 
 
+# ---------------------------------------------------------------- phase 17
+
+
+def field_bound_ms(n: int, cdt: str, weight_bytes: int,
+                   grad_bytes: int | None = None) -> tuple:
+    """Least time of the NeRF field forward (``grad_bytes`` None) or
+    backward over ``n`` points: the products (2 operations a MAC) over the
+    compute dtype's peak and the sines (and cosines) over the float32
+    CUDA-core rate (their sum in float32, the larger in bfloat16), against
+    the bytes that must move (see FIELD_TRIG)."""
+    macs = mlp_macs(256, 63, 27) * (1 if grad_bytes is None else 3)
+    trig = FIELD_TRIG * (1 if grad_bytes is None else 2)
+    nbytes = n * (24 + 16) + weight_bytes
+    if grad_bytes is not None:
+        nbytes += n * 24 + grad_bytes
+    t_mm = 2 * macs * n / PEAK_FLOPS[cdt] * 1e3
+    t_trig = trig * n / PEAK_FLOPS["float32"] * 1e3
+    t_ops = t_mm + t_trig if cdt == "float32" else max(t_mm, t_trig)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def field_point_sets(torch, dev) -> dict:
+    """The phase-17 point sets: the first 65,536 points of the 64^3
+    occupancy lattice over grid_domain with the bake's directions (0, 0, 1)
+    (one chunk of the serve bake), 16,384 uniform points with
+    normal-then-normalised directions (the distillation draw), and 1,000 and
+    37 points (ragged last chunks)."""
+    from nerf_tpu_torch.ops.occupancy import lattice
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    lo, hi = FIELD_DOMAIN
+
+    def uniform(n):
+        d = torch.randn(n, 3, generator=g, device=dev)
+        return (torch.rand(n, 3, generator=g, device=dev) * (hi - lo) + lo,
+                d / torch.linalg.norm(d, dim=-1, keepdim=True))
+
+    lat = lattice(64, FIELD_DOMAIN, dev)[:65536]
+    up = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(lat.shape).contiguous()
+    return {"lattice 65536": (lat, up), "uniform 16384": uniform(16384),
+            "uniform 1000": uniform(1000), "uniform 37": uniform(37)}
+
+
+def check_nerf_field_kernels(torch, dev):
+    """Both NeRF field kernels against their plain versions on every
+    phase-17 point set, float32 and bfloat16 with TF32 off: rgb and sigma
+    (max abs), the weight gradients (grad_errors) and the point and
+    direction cotangents (max abs over max |g|) of a random cotangent; both
+    timed in turns (plain, kernel, kernel, plain) at 65,536 and 16,384
+    points against their bound."""
+    from nerf_tpu_torch.models.nerf import NeRFModel
+    from nerf_tpu_torch.ops.cuda.fused_nerf import (
+        NerfField, nerf_field_bwd_plain, nerf_field_plain)
+    from nerf_tpu_torch.ops.cuda.fused_render import pack_f32
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    sets = field_point_sets(torch, dev)
+    for cdt in ("float32", "bfloat16"):
+        model = NeRFModel(compute_dtype=cdt,
+                          generator=torch.Generator().manual_seed(7)).to(dev)
+        field = NerfField(model)
+        with torch.no_grad():
+            packed = field.cast(*pack_f32(model))
+        weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
+                        + packed.vec.numel() * 4)
+        grad_bytes = (packed.wmat.numel() + packed.vec.numel()) * 4
+        worst = {"fwd": 0.0, "bwd": 0.0}
+        for label, (pts, dirs) in sets.items():
+            n = pts.shape[0]
+            cot = torch.randn(n, 4, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(n))
+            with torch.no_grad():
+                ref = nerf_field_plain(packed, pts, dirs, 10, 4)
+                out = field._forward(packed, pts, dirs)
+                ref_g = nerf_field_bwd_plain(packed, pts, dirs, cot, 10, 4)
+                got_g = field._backward(packed, pts, dirs, cot)
+                torch.cuda.synchronize()
+            for x in out + got_g:
+                if not torch.isfinite(x).all():
+                    fail(f"nerf field kernels {cdt} {label}: non-finite output or gradient")
+            errs = {"rgb": float((out[0] - ref[0]).abs().max()),
+                    "sigma": float((out[1] - ref[1]).abs().max())}
+            gerr = grad_errors(torch, got_g[:2], ref_g[:2])
+            w = max(gerr, key=gerr.get)
+            pt, bad_pts = {}, 0
+            for name, i in (("points", 2), ("dirs", 3)):
+                e = ((got_g[i] - ref_g[i]).abs().max(dim=1).values
+                     / ref_g[i].abs().max())
+                pt[name] = (float(torch.quantile(e, 0.999)), float(e.max()))
+                bad_pts = max(bad_pts, int((e > FIELD_PT_TOL[cdt]).sum()))
+            say(f"kernel nerf field {cdt} {label}: forward max_abs_err rgb="
+                f"{errs['rgb']:.3e} sigma={errs['sigma']:.3e} (tol {TOL[cdt]['rgb']:.0e}); "
+                f"weight gradient error (max abs over max |g|) worst {w}={gerr[w]:.3e} "
+                f"(tol {GRAD_TOL[cdt]:.0e}), median {statistics.median(gerr.values()):.3e}; "
+                + "; ".join(f"{k} cotangent error 99.9% {q:.3e} (tol "
+                            f"{FIELD_PT_TOL[cdt]:.0e}), worst {m:.3e}"
+                            for k, (q, m) in pt.items())
+                + f"; points beyond the tol: {bad_pts} of {n}")
+            if (max(errs.values()) > TOL[cdt]["rgb"] or gerr[w] > GRAD_TOL[cdt]
+                    or max(q for q, _ in pt.values()) > FIELD_PT_TOL[cdt]
+                    or bad_pts > 0.001 * n):
+                fail(f"nerf field kernels {cdt} {label} disagree with their plain versions")
+            worst["fwd"] = max(worst["fwd"], *errs.values())
+            worst["bwd"] = max(worst["bwd"], gerr[w], *(q for q, _ in pt.values()))
+            del ref, out, ref_g, got_g
+            torch.cuda.empty_cache()
+            if n not in (65536, 16384):
+                continue
+            with torch.no_grad():
+                fns = {
+                    ("fused_nerf_fwd", "plain"):
+                        lambda: nerf_field_plain(packed, pts, dirs, 10, 4),
+                    ("fused_nerf_fwd", "kernel"):
+                        lambda: field._forward(packed, pts, dirs),
+                    ("fused_nerf_bwd", "plain"):
+                        lambda: nerf_field_bwd_plain(packed, pts, dirs, cot, 10, 4),
+                    ("fused_nerf_bwd", "kernel"):
+                        lambda: field._backward(packed, pts, dirs, cot),
+                }
+                times = {k: [] for k in fns}
+                for f in fns.values():
+                    f()                                    # warm-up
+                for name in ("fused_nerf_fwd", "fused_nerf_bwd"):
+                    for which in ("plain", "kernel", "kernel", "plain"):
+                        f = fns[(name, which)]
+                        times[(name, which)] += [
+                            t / FIELD_BATCH for t in time_calls(
+                                torch, lambda f=f: [f() for _ in range(FIELD_BATCH)], 2)]
+                torch.cuda.empty_cache()
+            for name in ("fused_nerf_fwd", "fused_nerf_bwd"):
+                ms = statistics.median(times[(name, "kernel")])
+                plain_ms = statistics.median(times[(name, "plain")])
+                bms, by = field_bound_ms(n, cdt, weight_bytes,
+                                         grad_bytes if name.endswith("bwd") else None)
+                say(f"kernel {name} {cdt} {label}: kernel {ms:.3f} ms, plain "
+                    f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), share of bound "
+                    f"{bms / ms:.4f}")
+                results[(name, cdt, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                               bound_by=by)
+        for name, key in (("fused_nerf_fwd", "fwd"), ("fused_nerf_bwd", "bwd")):
+            for n in (65536, 16384):
+                results[(name, cdt, n)]["err"] = worst[key]
+    return results
+
+
 # ---------------------------------------------------------------- phase 15
 
 
@@ -1192,11 +1399,13 @@ def read_scalars(log_dir: str) -> dict:
     return out
 
 
-def check_resume(torch, dev, tmp: str, cfg, name: str, loss: dict) -> None:
+def check_resume(torch, dev, tmp: str, cfg, name: str, loss: dict,
+                 tag: str | None = None) -> None:
     """A resume from the step-100 checkpoint of ``fit``'s run: the restore
     is exact, and every resumed step to 120 repeats the first run's mse
     (``loss``) at the same state.step (the loop restarts at the saved
-    iteration while state.step is one ahead)."""
+    iteration while state.step is one ahead). The resumed run saves and
+    logs under ``tag`` (default ``name``)."""
     import dataclasses
 
     from nerf_tpu_torch.train.loop import fit
@@ -1220,8 +1429,8 @@ def check_resume(torch, dev, tmp: str, cfg, name: str, loss: dict) -> None:
         fail("the restored step, parameters or Adam moments differ from the save")
     del probe
     cfg2 = dataclasses.replace(cfg, num_iters=120, log_interval=1,
-                               save_path=os.path.join(tmp, f"resume_models_{name}"),
-                               log_dir=os.path.join(tmp, f"resume_logs_{name}"))
+                               save_path=os.path.join(tmp, f"resume_models_{tag or name}"),
+                               log_dir=os.path.join(tmp, f"resume_logs_{tag or name}"))
     lines2: list = []
     resumed = fit(cfg2, resume_path=ckpt, device=dev, log=lines2.append)
     loss2 = read_scalars(cfg2.log_dir)["loss"]
@@ -1351,14 +1560,226 @@ def train(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
 
 
 def profile_step(torch, state, pool, settings, cfg, kernel: str,
-                 config: str) -> None:
-    """One train step of ``config`` under torch.profiler."""
+                 config: str, occ_grid=None) -> None:
+    """One train step of ``config`` under torch.profiler (with ``occ_grid``
+    an occupancy-guided one, over grid_domain as fit's)."""
+    from nerf_tpu_torch.models.registry import grid_domain
     from nerf_tpu_torch.train.step import make_train_step
 
-    step = make_train_step(state.params, settings, cfg.num_random_rays, cfg.seed)
-    step(state, pool)
-    profile_device(torch, lambda: step(state, pool), kernel,
+    opts = None if occ_grid is None else (grid_domain(cfg), 64, 1e-2)
+    step = make_train_step(state.params, settings, cfg.num_random_rays, cfg.seed,
+                           occupancy_opts=opts)
+    step(state, pool, occ_grid)
+    profile_device(torch, lambda: step(state, pool, occ_grid), kernel,
                    f"one {config} train step")
+
+
+# ---------------------------------------------------------------- phase 18
+
+
+def serve_occupancy(torch, dev, tmp: str, ckpt: str) -> dict:
+    """Phase 18: lego.txt served from phase 5's trained checkpoint with
+    --occupancy 64. The bake: four NeRF field forward launches (64^3 points
+    in chunks of 65,536), its occupied share, the grid equal to the one
+    baked through the field's plain version, the cells that a bake through
+    the module flips, the lattice's densities and the two bakes compared at
+    their median; then the three requests of ``serve`` (no field launch),
+    each against the unfused render with the same grid; then a prior that
+    carves (``check_carving_prior``)."""
+    import dataclasses
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.models.registry import grid_domain
+    from nerf_tpu_torch.ops.cuda.fused_nerf import NerfField, nerf_field_plain
+    from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
+    from nerf_tpu_torch.ops.occupancy import bake_occupancy, lattice, sigma_field
+    from nerf_tpu_torch.serve import RenderService
+
+    cfg = parse_config_file(os.path.join(ROOT, "configs", "lego.txt"))
+    cfg = dataclasses.replace(cfg, dataset_path=os.path.join(tmp, "scene"))
+    NerfField.launches = 0                     # the main path's count starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc = RenderService.from_checkpoint(cfg, ckpt, occupancy=64, device=dev, log=say)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    bake_launches = NerfField.launches
+    occ = svc._renderer.occupancy
+    grid = occ.grid
+    if bake_launches != 4 or grid.shape != (64, 64, 64, 1):
+        fail(f"occupancy bake: {bake_launches} field launches, grid {tuple(grid.shape)}")
+    src = svc.params[1]
+    field = NerfField(src).pack()
+    domain = grid_domain(cfg)
+
+    def plain_field(p, d):
+        return nerf_field_plain(field.packed, p, d, 10, 4)
+
+    def bake(f, **kw):
+        return bake_occupancy(sigma_field(f), grid_res=64, domain=domain, device=dev, **kw)
+
+    with torch.no_grad():
+        plain, plain0 = bake(plain_field), bake(plain_field, dilate=0)
+        kern0, module = bake(field, dilate=0), bake(src)
+        # the lattice's densities, and both bakes thresholded at their
+        # median, where half the cells are empty
+        sig = sigma_field(field)(lattice(64, domain, dev))
+        q = torch.quantile(sig[::16], torch.tensor([0.0, 0.01, 0.5, 0.99], device=dev))
+        med = float(q[2])
+        kern_m = bake(field, threshold=med, dilate=0)
+        plain_m = bake(plain_field, threshold=med, dilate=0)
+    share = float(grid.mean())
+    say(f"serve occupancy: the 64^3 bake launched the NeRF field forward {bake_launches} "
+        f"times (service set-up {setup:.2f} s); occupied share {share:.4f} (before "
+        f"dilation {float(kern0.mean()):.4f}); cells that differ from the plain-version "
+        f"bake: {int((grid != plain).sum())} dilated, {int((kern0 != plain0).sum())} "
+        f"before dilation; cells the module bake flips: {int((grid != module).sum())}")
+    say(f"serve occupancy: lattice densities min {float(q[0]):.4g}, 1% {float(q[1]):.4g}, "
+        f"median {med:.4g}, 99% {float(q[3]):.4g} (threshold 1e-2); thresholded at the "
+        f"median, undilated: occupied share {float(kern_m.mean()):.4f}, cells that "
+        f"differ from the plain-version bake {int((kern_m != plain_m).sum())} of 262144")
+    if not torch.equal(grid, plain):
+        fail("the kernel-baked occupancy grid differs from the plain version's")
+    before = NerfField.launches
+    launches = serve(torch, dev, tmp, "lego.txt", FusedNerfRender, "fused_render_fwd",
+                     svc=svc, compare=("/pose/0", "/pose/1", "/render"))
+    if NerfField.launches != before:
+        fail(f"occupancy requests launched the field kernel "
+             f"{NerfField.launches - before} times")
+    check_carving_prior(torch, dev, svc, field, med)
+    return {"bake_launches": bake_launches, "launches": launches}
+
+
+def check_carving_prior(torch, dev, svc, field, threshold: float) -> None:
+    """The served checkpoint's prior fills its grid, so phase 18 also bakes
+    one that carves (``threshold`` the lattice's median density, dilated as
+    a bake dilates) and shows on request /pose/1's rays that it moves the
+    coarse samples into occupied cells (their share against stratified
+    sampling's) and that the fused render with it stays within mean abs
+    1e-2 of the unfused render with it."""
+    from nerf_tpu_torch.data.rays import compute_rays_single
+    from nerf_tpu_torch.models.common import remap_domain
+    from nerf_tpu_torch.ops.occupancy import (
+        OccupancyGrid, _occ_trilinear, bake_occupancy, occupancy_t, sigma_field)
+    from nerf_tpu_torch.ops.sampling import (
+        normalize_positions, sample_positions, stratified_sample)
+    from nerf_tpu_torch.serve import request_seed
+    from nerf_tpu_torch.train.loop import render_settings_from_config
+    from nerf_tpu_torch.train.step import make_eval_render
+
+    cfg = svc.cfg
+    domain = svc._renderer.occupancy.domain
+    occ = OccupancyGrid(grid=bake_occupancy(sigma_field(field), grid_res=64,
+                                            domain=domain, threshold=threshold,
+                                            device=dev), domain=domain)
+    settings = render_settings_from_config(cfg)
+    h, w = svc.hw
+    o, d = (torch.from_numpy(x).to(dev)
+            for x in compute_rays_single(h, w, svc.focal, svc.orbit_pose(1)))
+    images = []
+    for fused in (True, False):
+        g = torch.Generator(device=dev).manual_seed(request_seed(cfg.seed, 1))
+        render = make_eval_render(svc.params[0], settings, fused=fused, occupancy=occ)
+        images.append(render(*svc.params, o, d, g).rgb.clamp(0, 1))
+    diff = float((images[0] - images[1]).abs().mean())
+
+    def occupied(t):
+        p = normalize_positions(sample_positions(o, d, t), cfg.near, cfg.far)
+        return float((_occ_trilinear(occ.grid, remap_domain(p, domain).reshape(-1, 3))
+                      > 0.5).float().mean())
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    with_prior = occupied(occupancy_t(occ, o, d, cfg.near, cfg.far, cfg.num_samples,
+                                      generator=g))
+    stratified = occupied(stratified_sample(cfg.near, cfg.far, cfg.num_samples,
+                                            o.shape[0], generator=g, device=dev))
+    say(f"serve occupancy: a carving prior (median density, dilated) occupies "
+        f"{float(occ.grid.mean()):.4f} of its grid; coarse samples in occupied cells "
+        f"{with_prior:.4f} with it, {stratified:.4f} stratified; /pose/1's rays "
+        f"through the fused render with it within mean abs {diff:.3e} of the "
+        f"unfused render (tol {SERVE_TOL_MEAN:.0e})")
+    if not with_prior > stratified or diff > SERVE_TOL_MEAN:
+        fail("the carving prior does not move samples into occupied cells, or its "
+             "fused render disagrees with the unfused one")
+
+
+# ---------------------------------------------------------------- phase 19
+
+
+def train_distill_occupancy(torch, dev, tmp: str, teacher: str) -> dict:
+    """Phase 19: lego.txt distilled from phase 5's checkpoint (``teacher``)
+    into a seeded student (100 steps of 16,384 points through the NeRF field
+    kernels: teacher forward, student forward and backward), then 200
+    photometric steps with occupancy_res = 64 and occupancy_interval = 100
+    (the bakes through the module, as the fused render engages); the
+    launch counts, the distillation loss falling, the mse at 190 under half
+    of that at 0, a bit-identical resume from step 100 and a profile of one
+    occupancy-guided step."""
+    import dataclasses
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.data.pipeline import load_scene
+    from nerf_tpu_torch.models.registry import grid_domain
+    from nerf_tpu_torch.ops.cuda.fused_nerf import NerfField
+    from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
+    from nerf_tpu_torch.ops.occupancy import bake_occupancy, sigma_field
+    from nerf_tpu_torch.train.loop import fit, render_settings_from_config
+    from nerf_tpu_torch.train.state import create_train_state
+
+    base = parse_config_file(os.path.join(ROOT, "configs", "lego.txt"))
+    cfg = dataclasses.replace(
+        base, dataset_path=os.path.join(tmp, "scene"), num_iters=200, log_interval=10,
+        val_interval=100, save_interval=100, distill_from=teacher, distill_steps=100,
+        distill_batch=16384, occupancy_res=64, occupancy_interval=100,
+        save_path=os.path.join(tmp, "train_models_distill_occ"),
+        log_dir=os.path.join(tmp, "train_logs_distill_occ"))
+    lines: list = []
+    NerfField.launches = NerfField.bwd_launches = 0       # the main path's counts
+    FusedNerfRender.launches = FusedNerfRender.train_launches = 0
+    FusedNerfRender.bwd_launches = 0
+    t0 = time.perf_counter()
+    fit(cfg, device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (NerfField.launches, NerfField.bwd_launches)
+    render = (FusedNerfRender.train_launches, FusedNerfRender.launches,
+              FusedNerfRender.bwd_launches)
+    say(f"train: fit lego.txt with distillation (100 x 16384 points from the phase-5 "
+        f"checkpoint) and occupancy 64 every 100 steps, 200 iterations in {wall:.1f} s; "
+        f"launches: field forward {counts[0]}, field backward {counts[1]}; render "
+        f"train {render[0]}, forward {render[1]}, backward {render[2]}")
+    for line in lines:
+        if "[Iter" in line or "Validation" in line or "Distill" in line:
+            say(f"  {line}")
+    per_image = 2 * math.ceil(HW * HW / cfg.chunk_size)
+    if counts != (200, 100) or render != (400, per_image, 0):
+        fail(f"fit with distillation and occupancy launched (field forward, backward) "
+             f"{counts}, want (200, 100); (render train, forward, backward) {render}, "
+             f"want (400, {per_image}, 0)")
+    scal = read_scalars(cfg.log_dir)
+    dl = scal["distill_loss"]
+    if sorted(dl) != list(range(100)) or not dl[99] < dl[0]:
+        fail(f"distillation loss {dl.get(0)} at 0 -> {dl.get(99)} at 99 does not fall")
+    loss = scal["loss"]
+    if sorted(loss) != list(range(0, 200, 10)) or not all(
+            math.isfinite(v) for v in loss.values()):
+        fail(f"distill + occupancy logged mse {loss}")
+    if not loss[190] < 0.5 * loss[0]:
+        fail(f"distill + occupancy: mse at 190 ({loss[190]}) is not under half of that "
+             f"at 0 ({loss[0]})")
+    step_rps = scal["rays_per_sec"][190]
+    say(f"train: distill loss {dl[0]:.6f} at 0 -> {dl[99]:.6f} at 99; mse {loss[0]:.6f} "
+        f"at 0 -> {loss[190]:.6f} at 190 (ratio {loss[190] / loss[0]:.4f}); lego.txt "
+        f"occupancy-guided step {step_rps:.0f} rays/s ({cfg.num_random_rays} rays, "
+        f"{cfg.num_samples}+{cfg.num_fine_samples} samples, {cfg.compute_dtype})")
+    check_resume(torch, dev, tmp, cfg, "nerf", loss, tag="distill_occ")
+    state = create_train_state(cfg, device=dev)
+    scene = load_scene(cfg, device=dev)
+    occ_grid = bake_occupancy(sigma_field(state.params), grid_res=64,
+                              domain=grid_domain(cfg), device=dev)
+    profile_step(torch, state, scene.pool, render_settings_from_config(cfg), cfg,
+                 "fused_render_grad", "lego.txt occupancy-guided", occ_grid)
+    return {"fwd_launches": counts[0], "bwd_launches": counts[1], "step_rps": step_rps}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1480,6 +1901,7 @@ def main() -> int:
     siren_checks = check_siren_kernels(torch, dev)
     gabor_checks = check_gabor_kernels(torch, dev)
     kilo_checks = check_kilonerf_kernels(torch, dev)
+    field_checks = check_nerf_field_kernels(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = serve(torch, dev, tmp, "lego.txt", FusedNerfRender,
                          "fused_render_fwd")
@@ -1496,6 +1918,9 @@ def main() -> int:
         kilo_launches = serve(torch, dev, tmp, "lego_siren.txt", KiloNeRFField,
                               "fused_kilonerf_fwd", "kilonerf", KILO_OVERRIDES)
         kilo_trained = train_kilonerf(torch, dev, tmp)
+        lego_ckpt = os.path.join(tmp, "train_models_nerf", "nerf_model_000200")
+        occ_served = serve_occupancy(torch, dev, tmp, lego_ckpt)
+        distilled = train_distill_occupancy(torch, dev, tmp, lego_ckpt)
     bench_headline(torch, dev)
     bench_siren(torch, dev)
     bench_gabor(torch, dev)
@@ -1545,6 +1970,14 @@ def main() -> int:
         kernels.append(row(name, f"{name}.cu", f"{nerf_tpu}fused_kilonerf.py:{line}",
                            launched, kilo_checks[(name, "bfloat16")],
                            max(kilo_checks[(name, c)]["err"]
+                               for c in ("float32", "bfloat16"))))
+    for name, line, launched, n in (
+            ("fused_nerf_fwd", 233,
+             occ_served["bake_launches"] + distilled["fwd_launches"], 65536),
+            ("fused_nerf_bwd", 333, distilled["bwd_launches"], 16384)):
+        kernels.append(row(name, f"{name}.cu", f"{nerf_tpu}fused_nerf.py:{line}",
+                           launched, field_checks[(name, "bfloat16", n)],
+                           max(field_checks[(name, c, n)]["err"]
                                for c in ("float32", "bfloat16"))))
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")

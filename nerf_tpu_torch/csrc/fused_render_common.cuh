@@ -1,10 +1,14 @@
-// The NeRF family's pieces of the fused render kernels for Hopper (sm_90a):
-// the packed weight layout, the shared-memory plan, and the forward of one
-// 64-point chunk (positional encoding, the 11-matmul NeRF MLP, density and
-// colour). fused_render_fwd.cu composites the chunk straight away;
-// fused_render_train.cu also stashes every activation for its backward.
-// The generic pieces (gemm, compositing, backward blocks) are in
-// render_common.cuh, shared with the SIREN family.
+// The NeRF family's pieces of the fused render kernels and of the NeRF field
+// kernels for Hopper (sm_90a): the packed weight layout, the shared-memory
+// plan, the encodings of one 64-point chunk (of ray samples, or of given
+// points and directions), the MLP of the chunk (the 11-matmul NeRF MLP,
+// density and colour), and the MLP backward over a CTA's stashed points.
+// fused_render_fwd.cu composites each chunk straight away;
+// fused_render_train.cu also stashes every activation for its backward;
+// fused_nerf_fwd.cu writes each point's rgb and density, and
+// fused_nerf_bwd.cu stashes, runs the backward with its input products and
+// the encodings' backward. The generic pieces (gemm, compositing, backward
+// blocks) are in render_common.cuh, shared with the other families.
 //
 // The MLP is the one of nerf_tpu/ops/pallas/fused_nerf.py::_mlp_tile: block1
 // (5 layers), block2 with the skip input (4 layers), a split 257-wide head
@@ -76,28 +80,19 @@ struct Stash {
   int cap;
 };
 
-// The forward of points [chunk0, chunk0 + nvalid) (nvalid <= P): leaves t,
-// delta, sigma (after the ReLU) and rgb of each point in shared memory. With
-// STASH every activation also goes to `st` at local rows l0.. (all P rows,
-// the ones past nvalid from zero encodings).
-template <bool BF16, bool STASH, typename WT>
-__device__ void forward_chunk(const RayInputs& in, const WT* __restrict__ wmat,
-                              int chunk0, int nvalid, float* smem,
-                              const Stash& st, size_t l0) {
-  float* act0 = smem + SM_ACT0;
-  float* act1 = smem + SM_ACT1;
+// The encodings of ray samples [chunk0, chunk0 + nvalid) (nvalid <= P) into
+// shared memory, zero past nvalid, and their t and delta columns. Ends past
+// a barrier.
+template <bool BF16>
+__device__ void encode_ray_chunk(const RayInputs& in, int chunk0, int nvalid,
+                                 float* smem) {
   float* penc = smem + SM_PENC;
   float* denc = smem + SM_DENC;
   float* t_s = smem + SM_T;
   float* delta_s = smem + SM_DELTA;
-  float* sig_s = smem + SM_SIGMA;
-  float* rgb_s = smem + SM_RGB;
-  WT* wst = reinterpret_cast<WT*>(smem + SM_WST);
-  const float* vec = in.vec;
   const int tid = threadIdx.x;
   const int S = in.S;
 
-  // ---- encodings and per-point columns ----
   for (int idx = tid; idx < PP * P; idx += THREADS) {
     const int c = idx / P, p = idx % P;
     float v = 0.f;
@@ -134,6 +129,60 @@ __device__ void forward_chunk(const RayInputs& in, const WT* __restrict__ wmat,
     delta_s[tid] = dv;
   }
   __syncthreads();
+}
+
+// The encodings of field points [p0, p0 + nvalid) (nvalid <= P), given with
+// their directions, into shared memory, zero past nvalid: the positional and
+// the direction encoding both take the degree-11 sine in BF16 mode, as the
+// TPU field kernel's _forward_tile (the render kernels encode the view
+// direction with the exact sine). Ends past a barrier.
+template <bool BF16>
+__device__ void encode_point_chunk(const float* __restrict__ pts,
+                                   const float* __restrict__ dirs, int p0,
+                                   int nvalid, int real_p, int real_d,
+                                   float* smem) {
+  float* penc = smem + SM_PENC;
+  float* denc = smem + SM_DENC;
+  const int tid = threadIdx.x;
+  for (int idx = tid; idx < PP * P; idx += THREADS) {
+    const int c = idx / P, p = idx % P;
+    float v = 0.f;
+    if (p < nvalid && c < real_p) {
+      const int d = c < 3 ? c : (c - 3) % 3;
+      v = encode_col<BF16>(pts[static_cast<size_t>(p0 + p) * 3 + d], c);
+      if (BF16) v = round_bf16(v);
+    }
+    penc[c * LDA + p] = v;
+  }
+  for (int idx = tid; idx < DP * P; idx += THREADS) {
+    const int c = idx / P, p = idx % P;
+    float v = 0.f;
+    if (p < nvalid && c < real_d) {
+      const int d = c < 3 ? c : (c - 3) % 3;
+      v = encode_col<BF16>(dirs[static_cast<size_t>(p0 + p) * 3 + d], c);
+      if (BF16) v = round_bf16(v);
+    }
+    denc[c * LDA + p] = v;
+  }
+  __syncthreads();
+}
+
+// The MLP of the chunk whose encodings are in shared memory: leaves sigma
+// (after the ReLU) and rgb of each of its P points in shared memory. With
+// STASH every activation also goes to `st` at local rows l0.. (all P rows,
+// the ones past the chunk's points from zero encodings).
+template <bool BF16, bool STASH, typename WT>
+__device__ void mlp_chunk(const float* __restrict__ vec, const WT* __restrict__ wmat,
+                          float* smem, const Stash& st, size_t l0) {
+  float* act0 = smem + SM_ACT0;
+  float* act1 = smem + SM_ACT1;
+  float* penc = smem + SM_PENC;
+  float* denc = smem + SM_DENC;
+  float* sig_s = smem + SM_SIGMA;
+  float* rgb_s = smem + SM_RGB;
+  WT* wst = reinterpret_cast<WT*>(smem + SM_WST);
+  const int tid = threadIdx.x;
+
   if (STASH) {
     for (int idx = tid; idx < P * PP; idx += THREADS) {
       const int p = idx / PP, c = idx % PP;
@@ -257,6 +306,189 @@ __device__ void forward_chunk(const RayInputs& in, const WT* __restrict__ wmat,
     if (STASH) st.rgb[static_cast<size_t>(c) * st.cap + l0 + p] = r;
   }
   __syncthreads();
+}
+
+// The forward of ray samples [chunk0, chunk0 + nvalid) (nvalid <= P): leaves
+// t, delta, sigma (after the ReLU) and rgb of each point in shared memory,
+// and with STASH every activation in `st` (see mlp_chunk).
+template <bool BF16, bool STASH, typename WT>
+__device__ void forward_chunk(const RayInputs& in, const WT* __restrict__ wmat,
+                              int chunk0, int nvalid, float* smem,
+                              const Stash& st, size_t l0) {
+  encode_ray_chunk<BF16>(in, chunk0, nvalid, smem);
+  mlp_chunk<BF16, STASH>(in.vec, wmat, smem, st, l0);
+}
+
+// ---------------------------------------------------------------- backward
+
+constexpr int N_TOT = N_W + N_B;                 // gradient floats
+constexpr int NPART = (N_TOT + 1 + 3) / 4 * 4;   // per-CTA: gradients, loss
+constexpr int N_COLS = 12;                       // per-point columns (C_*)
+
+// Scratch floats per stashed point of a backward kernel with NDZ dz buffers
+// (points x LDZ each): the stash, the dz buffers and the per-point columns.
+template <int NDZ>
+__host__ __device__ constexpr int floats_per_point() {
+  return 9 * H + H + HR + PP + PP + NDZ * LDZ + N_COLS;
+}
+
+// One CTA's scratch: the stash, up to three dz buffers, the columns.
+struct Scratch {
+  Stash st;
+  float* dz[3];
+  float* cols;            // N_COLS x cap
+};
+
+template <int NDZ>
+__device__ Scratch carve(float* p, int cap) {
+  static_assert(floats_per_point<NDZ>() % 4 == 0,
+                "stash rows must stay 16-byte aligned");
+  Scratch s;
+  const size_t c = static_cast<size_t>(cap);
+  for (int i = 0; i < 9; ++i) { s.st.h[i] = p; p += c * H; }
+  s.st.feat = p; p += c * H;
+  s.st.y = p; p += c * HR;
+  s.st.penc = p; p += c * PP;
+  s.st.denc = p; p += c * PP;
+  for (int i = 0; i < NDZ; ++i) { s.dz[i] = p; p += c * LDZ; }
+  for (int i = NDZ; i < 3; ++i) s.dz[i] = nullptr;
+  s.cols = p;
+  s.st.sigma_pre = p + C_SIGP * c;
+  s.st.rgb = p + C_RGB * c;
+  s.st.cap = cap;
+  return s;
+}
+
+// One hidden layer of the backward: from cur = dz_L, the next dz
+// (dz_L W_L^T masked by h_prev > 0) into nxt, dW_L = h_prev^T dz_L and
+// db_L = sum dz_L.
+template <bool BF16, typename WT>
+__device__ void back_layer(const float* cur, const WT* __restrict__ wT,
+                           const float* h_prev, float* nxt, float* part_w,
+                           float* part_b, int cap_c, float* smem) {
+  if (nxt != nullptr)
+    dact<H, BF16, Epi::Relu, false>(cur, wT, h_prev, H, nullptr, nullptr, 1.f, nxt,
+                                    cap_c, smem, reinterpret_cast<WT*>(smem + SM_WST));
+  dweight<2, false, BF16>(h_prev, H, H, H, cur, cap_c, part_w, smem);
+  colsum(cur, H, cap_c, part_b);
+  __syncthreads();
+}
+
+// Offsets in the field backward's buffer of input-product matrices: w1^T and
+// w6p^T (H rows) and wr0d^T (HR rows), each zero-padded to HR columns.
+constexpr int OFF_T_W1 = 0;
+constexpr int OFF_T_W6P = OFF_T_W1 + H * HR;
+constexpr int OFF_T_WR0D = OFF_T_W6P + H * HR;
+constexpr int N_T_IN = OFF_T_WR0D + HR * HR;
+
+// The MLP backward (fused_nerf.py::_mlp_bwd_core) over the CTA's points
+// l < cap_c, layer by layer, from the stash and the cotangent columns dzr1
+// and dsig: each dz (points x 256, float32, unrounded) is computed chunk by
+// chunk into the next dz buffer (dz W^T on the register-tiled gemm, against
+// the transposed matrices wmat_t), and each weight gradient is one product
+// A^T dz over all the CTA's points, written once per CTA into `part`
+// (offsets of the packed layout, the vectors from N_W); bias and w10s
+// gradients are column sums. With INPUTS (the field backward) also the
+// input products, against `wt_in` (OFF_T_*): dz6 w6p^T into columns
+// [0, HR) and dzr0 wr0d^T into [HR, H) of sc.dz[2], and dz1 w1^T into
+// columns [0, HR) of sc.dz[1]; it then ends past a barrier. Rounding in
+// BF16 mode follows _mlp_bwd_core: both operands of every dW product and
+// the dz of every dz W^T are rounded to bf16, sums are float32, and h9,
+// sigma_pre and the rgb sigmoid are read in float32.
+template <bool BF16, bool INPUTS, typename WT>
+__device__ void mlp_backward(const Scratch& sc, size_t cz, const float* __restrict__ vec,
+                             const WT* __restrict__ wmat, const WT* __restrict__ wmat_t,
+                             const WT* __restrict__ wt_in, float* part, int cap_c,
+                             float* smem) {
+  const int tid = threadIdx.x;
+  const float* cols = sc.cols;
+  const float* dsig = cols + C_DSIG * cz;
+  const float* h9 = sc.st.h[8];
+  float* dzA = sc.dz[0];
+  float* dzB = sc.dz[1];
+  float* pvec = part + N_W;
+  // rgb output layer: dy = dzr1 wr1^T (3 live columns), dzr0 = dy * (y > 0)
+  for (int idx = tid; idx < cap_c * HR; idx += THREADS) {
+    const int l = idx / HR, k = idx % HR;
+    float dy = 0.f;
+    for (int c = 0; c < 3; ++c) {
+      float d = cols[(C_DZR1 + c) * cz + l];
+      if (BF16) d = round_bf16(d);
+      dy = fmaf(d, load1(wmat + OFF_WR1 + k * 8 + c), dy);
+    }
+    dzA[static_cast<size_t>(l) * LDZ + k] =
+        sc.st.y[static_cast<size_t>(l) * HR + k] > 0.f ? dy : 0.f;
+  }
+  for (int o = tid; o < HR * 8; o += THREADS) {
+    const int k = o / 8, c = o % 8;
+    float s = 0.f;
+    if (c < 3) {
+      for (int l = 0; l < cap_c; ++l) {
+        float d = cols[(C_DZR1 + c) * cz + l];
+        if (BF16) d = round_bf16(d);
+        s = fmaf(sc.st.y[static_cast<size_t>(l) * HR + k], d, s);
+      }
+    }
+    part[OFF_WR1 + o] = s;
+  }
+  for (int c = tid; c < 8; c += THREADS) {
+    float s = 0.f;
+    if (c < 3)
+      for (int l = 0; l < cap_c; ++l) s += cols[(C_DZR1 + c) * cz + l];
+    pvec[OFF_BR1 + c] = s;
+  }
+  if (tid == 0) {
+    float s = 0.f;
+    for (int l = 0; l < cap_c; ++l) s += dsig[l];
+    pvec[OFF_B10S] = s;
+  }
+  for (int k = tid; k < H; k += THREADS) {
+    float s = 0.f;
+    for (int l = 0; l < cap_c; ++l)
+      s = fmaf(h9[static_cast<size_t>(l) * H + k], dsig[l], s);
+    pvec[OFF_W10S + k] = s;
+  }
+  __syncthreads();
+  // rgb hidden layer: dfeat = dzr0 wr0f^T; wr0f, wr0d, br0 (and ddenc)
+  WT* wst = reinterpret_cast<WT*>(smem + SM_WST);
+  dact<HR, BF16, Epi::None, false>(dzA, wmat_t + OFF_WR0F, nullptr, 0, nullptr,
+                                   nullptr, 1.f, dzB, cap_c, smem, wst);
+  if constexpr (INPUTS)
+    dact<HR, BF16, Epi::None, false, WT, 1>(dzA, wt_in + OFF_T_WR0D, nullptr, 0,
+                                            nullptr, nullptr, 1.f, sc.dz[2] + HR,
+                                            cap_c, smem, wst);
+  dweight<1, false, BF16>(sc.st.feat, H, H, H, dzA, cap_c, part + OFF_WR0F, smem);
+  dweight<1, false, BF16>(sc.st.denc, PP, PP, DP, dzA, cap_c, part + OFF_WR0D, smem);
+  colsum(dzA, HR, cap_c, pvec + OFF_BR0);
+  __syncthreads();
+  // feature head: dz9 = (dfeat w10f^T + dsig w10s) * (h9 > 0); w10f, b10f
+  dact<H, BF16, Epi::Relu, true>(dzB, wmat_t + OFF_W10F, h9, H, dsig, vec + OFF_W10S,
+                                 1.f, dzA, cap_c, smem, wst);
+  dweight<2, BF16, BF16>(h9, H, H, H, dzB, cap_c, part + OFF_W10F, smem);
+  colsum(dzB, H, cap_c, pvec + OFF_B10F);
+  __syncthreads();
+  // block2 and block1
+  back_layer<BF16>(dzA, wmat_t + OFF_W9, sc.st.h[7], dzB, part + OFF_W9, pvec + 8 * H, cap_c, smem);
+  back_layer<BF16>(dzB, wmat_t + OFF_W8, sc.st.h[6], dzA, part + OFF_W8, pvec + 7 * H, cap_c, smem);
+  back_layer<BF16>(dzA, wmat_t + OFF_W7, sc.st.h[5], dzB, part + OFF_W7, pvec + 6 * H, cap_c, smem);
+  // the skip layer: dz5 from w6h; w6h from h5, w6p from the position encoding
+  dweight<2, false, BF16>(sc.st.penc, PP, PP, PP, dzB, cap_c, part + OFF_W6P, smem);
+  if constexpr (INPUTS)
+    dact<H, BF16, Epi::None, false, WT, 1>(dzB, wt_in + OFF_T_W6P, nullptr, 0, nullptr,
+                                           nullptr, 1.f, sc.dz[2], cap_c, smem, wst);
+  back_layer<BF16>(dzB, wmat_t + OFF_W6H, sc.st.h[4], dzA, part + OFF_W6H, pvec + 5 * H, cap_c, smem);
+  back_layer<BF16>(dzA, wmat_t + OFF_W5, sc.st.h[3], dzB, part + OFF_W5, pvec + 4 * H, cap_c, smem);
+  back_layer<BF16>(dzB, wmat_t + OFF_W4, sc.st.h[2], dzA, part + OFF_W4, pvec + 3 * H, cap_c, smem);
+  back_layer<BF16>(dzA, wmat_t + OFF_W3, sc.st.h[1], dzB, part + OFF_W3, pvec + 2 * H, cap_c, smem);
+  back_layer<BF16>(dzB, wmat_t + OFF_W2, sc.st.h[0], dzA, part + OFF_W2, pvec + 1 * H, cap_c, smem);
+  // first layer: w1 from the position encoding (and dz1 w1^T)
+  dweight<2, false, BF16>(sc.st.penc, PP, PP, PP, dzA, cap_c, part + OFF_W1, smem);
+  colsum(dzA, H, cap_c, pvec + 0 * H);
+  if constexpr (INPUTS) {
+    dact<H, BF16, Epi::None, false, WT, 1>(dzA, wt_in + OFF_T_W1, nullptr, 0, nullptr,
+                                           nullptr, 1.f, dzB, cap_c, smem, wst);
+    __syncthreads();
+  }
 }
 
 }  // namespace nerf

@@ -33,7 +33,9 @@
 //   2. One thread per ray: transmittance, weights and ray sums, the
 //      cotangent (MSE head or the given one), then the compositing
 //      backward in reverse sample order (the suffix sum of g_w * w).
-//   3. The MLP backward layer by layer over all of the CTA's points: each
+//   3. The MLP backward layer by layer over all of the CTA's points
+//      (fused_render_common.cuh::mlp_backward, shared with the NeRF field
+//      backward of fused_nerf_bwd.cu): each
 //      dz (points x 256, float32, unrounded) is computed chunk by chunk
 //      into the next scratch buffer (dz W^T on the same register-tiled
 //      gemm as the forward, against transposed weights), and each weight
@@ -58,49 +60,7 @@ namespace {
 
 using namespace nerf;
 
-constexpr int N_TOT = N_W + N_B;                 // gradient floats
-constexpr int NPART = (N_TOT + 1 + 3) / 4 * 4;   // per-CTA: gradients, loss
-constexpr int N_COLS = 12;                       // per-point columns (C_*)
-constexpr int FLOATS_PER_POINT = 9 * H + H + HR + PP + PP + 2 * LDZ + N_COLS;
-static_assert(FLOATS_PER_POINT % 4 == 0, "stash rows must stay 16-byte aligned");
-
-struct Scratch {
-  Stash st;
-  float* dz[2];
-  float* cols;            // N_COLS x cap
-};
-
-__device__ Scratch carve(float* p, int cap) {
-  Scratch s;
-  const size_t c = static_cast<size_t>(cap);
-  for (int i = 0; i < 9; ++i) { s.st.h[i] = p; p += c * H; }
-  s.st.feat = p; p += c * H;
-  s.st.y = p; p += c * HR;
-  s.st.penc = p; p += c * PP;
-  s.st.denc = p; p += c * PP;
-  s.dz[0] = p; p += c * LDZ;
-  s.dz[1] = p; p += c * LDZ;
-  s.cols = p;
-  s.st.sigma_pre = p + C_SIGP * c;
-  s.st.rgb = p + C_RGB * c;
-  s.st.cap = cap;
-  return s;
-}
-
-// One hidden layer of the backward: from cur = dz_L, the next dz
-// (dz_L W_L^T masked by h_prev > 0) into nxt, dW_L = h_prev^T dz_L and
-// db_L = sum dz_L.
-template <bool BF16, typename WT>
-__device__ void back_layer(const float* cur, const WT* __restrict__ wT,
-                           const float* h_prev, float* nxt, float* part_w,
-                           float* part_b, int cap_c, float* smem) {
-  if (nxt != nullptr)
-    dact<H, BF16, Epi::Relu, false>(cur, wT, h_prev, H, nullptr, nullptr, 1.f, nxt,
-                                    cap_c, smem, reinterpret_cast<WT*>(smem + SM_WST));
-  dweight<2, false, BF16>(h_prev, H, H, H, cur, cap_c, part_w, smem);
-  colsum(cur, H, cap_c, part_b);
-  __syncthreads();
-}
+constexpr int FLOATS_PER_POINT = floats_per_point<2>();
 
 template <bool BF16, bool TRAIN, typename WT>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -122,10 +82,9 @@ fused_render_grad_kernel(RayInputs in, const WT* __restrict__ wmat,
   const int npts = nr * S;
   const int cap_c = (npts + P - 1) / P * P;
   const size_t cz = static_cast<size_t>(cap);
-  Scratch sc = carve(scratch + static_cast<size_t>(blockIdx.x) * cz * FLOATS_PER_POINT, cap);
+  Scratch sc = carve<2>(scratch + static_cast<size_t>(blockIdx.x) * cz * FLOATS_PER_POINT, cap);
   float* part = partial + static_cast<size_t>(blockIdx.x) * NPART;
   float* cols = sc.cols;
-  const float* vec = in.vec;
 
   // ---- 1. forward, stashing every activation ----
   for (int c0 = 0; c0 < npts; c0 += P)
@@ -144,81 +103,8 @@ fused_render_grad_kernel(RayInputs in, const WT* __restrict__ wmat,
   }
 
   // ---- 3. MLP backward, layer by layer over the CTA's points ----
-  const float* dsig = cols + C_DSIG * cz;
-  const float* h9 = sc.st.h[8];
-  float* dzA = sc.dz[0];
-  float* dzB = sc.dz[1];
-  float* pvec = part + N_W;
-  // rgb output layer: dy = dzr1 wr1^T (3 live columns), dzr0 = dy * (y > 0)
-  for (int idx = tid; idx < cap_c * HR; idx += THREADS) {
-    const int l = idx / HR, k = idx % HR;
-    float dy = 0.f;
-    for (int c = 0; c < 3; ++c) {
-      float d = cols[(C_DZR1 + c) * cz + l];
-      if (BF16) d = round_bf16(d);
-      dy = fmaf(d, load1(wmat + OFF_WR1 + k * 8 + c), dy);
-    }
-    dzA[static_cast<size_t>(l) * LDZ + k] =
-        sc.st.y[static_cast<size_t>(l) * HR + k] > 0.f ? dy : 0.f;
-  }
-  for (int o = tid; o < HR * 8; o += THREADS) {
-    const int k = o / 8, c = o % 8;
-    float s = 0.f;
-    if (c < 3) {
-      for (int l = 0; l < cap_c; ++l) {
-        float d = cols[(C_DZR1 + c) * cz + l];
-        if (BF16) d = round_bf16(d);
-        s = fmaf(sc.st.y[static_cast<size_t>(l) * HR + k], d, s);
-      }
-    }
-    part[OFF_WR1 + o] = s;
-  }
-  for (int c = tid; c < 8; c += THREADS) {
-    float s = 0.f;
-    if (c < 3)
-      for (int l = 0; l < cap_c; ++l) s += cols[(C_DZR1 + c) * cz + l];
-    pvec[OFF_BR1 + c] = s;
-  }
-  if (tid == 0) {
-    float s = 0.f;
-    for (int l = 0; l < cap_c; ++l) s += dsig[l];
-    pvec[OFF_B10S] = s;
-  }
-  for (int k = tid; k < H; k += THREADS) {
-    float s = 0.f;
-    for (int l = 0; l < cap_c; ++l)
-      s = fmaf(h9[static_cast<size_t>(l) * H + k], dsig[l], s);
-    pvec[OFF_W10S + k] = s;
-  }
-  __syncthreads();
-  // rgb hidden layer: dfeat = dzr0 wr0f^T; wr0f, wr0d, br0
-  WT* wst = reinterpret_cast<WT*>(smem + SM_WST);
-  dact<HR, BF16, Epi::None, false>(dzA, wmat_t + OFF_WR0F, nullptr, 0, nullptr,
-                                   nullptr, 1.f, dzB, cap_c, smem, wst);
-  dweight<1, false, BF16>(sc.st.feat, H, H, H, dzA, cap_c, part + OFF_WR0F, smem);
-  dweight<1, false, BF16>(sc.st.denc, PP, PP, DP, dzA, cap_c, part + OFF_WR0D, smem);
-  colsum(dzA, HR, cap_c, pvec + OFF_BR0);
-  __syncthreads();
-  // feature head: dz9 = (dfeat w10f^T + dsig w10s) * (h9 > 0); w10f, b10f
-  dact<H, BF16, Epi::Relu, true>(dzB, wmat_t + OFF_W10F, h9, H, dsig, vec + OFF_W10S,
-                                 1.f, dzA, cap_c, smem, wst);
-  dweight<2, BF16, BF16>(h9, H, H, H, dzB, cap_c, part + OFF_W10F, smem);
-  colsum(dzB, H, cap_c, pvec + OFF_B10F);
-  __syncthreads();
-  // block2 and block1
-  back_layer<BF16>(dzA, wmat_t + OFF_W9, sc.st.h[7], dzB, part + OFF_W9, pvec + 8 * H, cap_c, smem);
-  back_layer<BF16>(dzB, wmat_t + OFF_W8, sc.st.h[6], dzA, part + OFF_W8, pvec + 7 * H, cap_c, smem);
-  back_layer<BF16>(dzA, wmat_t + OFF_W7, sc.st.h[5], dzB, part + OFF_W7, pvec + 6 * H, cap_c, smem);
-  // the skip layer: dz5 from w6h; w6h from h5, w6p from the position encoding
-  dweight<2, false, BF16>(sc.st.penc, PP, PP, PP, dzB, cap_c, part + OFF_W6P, smem);
-  back_layer<BF16>(dzB, wmat_t + OFF_W6H, sc.st.h[4], dzA, part + OFF_W6H, pvec + 5 * H, cap_c, smem);
-  back_layer<BF16>(dzA, wmat_t + OFF_W5, sc.st.h[3], dzB, part + OFF_W5, pvec + 4 * H, cap_c, smem);
-  back_layer<BF16>(dzB, wmat_t + OFF_W4, sc.st.h[2], dzA, part + OFF_W4, pvec + 3 * H, cap_c, smem);
-  back_layer<BF16>(dzA, wmat_t + OFF_W3, sc.st.h[1], dzB, part + OFF_W3, pvec + 2 * H, cap_c, smem);
-  back_layer<BF16>(dzB, wmat_t + OFF_W2, sc.st.h[0], dzA, part + OFF_W2, pvec + 1 * H, cap_c, smem);
-  // first layer: w1 from the position encoding, no input gradient
-  dweight<2, false, BF16>(sc.st.penc, PP, PP, PP, dzA, cap_c, part + OFF_W1, smem);
-  colsum(dzA, H, cap_c, pvec + 0 * H);
+  mlp_backward<BF16, false>(sc, cz, in.vec, wmat, wmat_t, static_cast<const WT*>(nullptr),
+                            part, cap_c, smem);
 }
 
 template <bool BF16, bool TRAIN, typename WT>

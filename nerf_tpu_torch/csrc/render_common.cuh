@@ -355,10 +355,10 @@ constexpr int LDZ = H;                // row stride of the dz buffers
 enum class Epi { None, Relu, Cos };
 
 // out[l][col] = EPI(sum_n dz[l][n] W[col][n] (+ dsig[l] wsig[col])) for the
-// CTA's points l < cap_c, chunk by chunk. `wT` is W transposed: K rows of
-// 256. The dz chunk is staged (rounded to bf16 in BF16 mode) into the first
-// activation buffer; `wst` is the weight stage.
-template <int K, bool BF16, Epi EPI, bool DSIG, typename WT>
+// CTA's points l < cap_c, chunk by chunk, col < 128 * NQ. `wT` is W
+// transposed: K rows of 128 * NQ. The dz chunk is staged (rounded to bf16 in
+// BF16 mode) into the first activation buffer; `wst` is the weight stage.
+template <int K, bool BF16, Epi EPI, bool DSIG, typename WT, int NQ = 2>
 __device__ void dact(const float* dz, const WT* __restrict__ wT,
                      const float* mref, int ldm, const float* dsig,
                      const float* __restrict__ wsig, float w0, float* out,
@@ -380,11 +380,11 @@ __device__ void dact(const float* dz, const WT* __restrict__ wT,
       in_s[(n4 * 4 + 2) * LDA + p] = v.z;
       in_s[(n4 * 4 + 3) * LDA + p] = v.w;
     }
-    float acc[8][8];
-    zero<2>(acc);
-    gemm_acc<K, 2>(acc, in_s, wT, wst);
+    float acc[8][4 * NQ];
+    zero<NQ>(acc);
+    gemm_acc<K, NQ>(acc, in_s, wT, wst);
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
+    for (int q = 0; q < NQ; ++q) {
       const int col = q * 128 + tx * 4;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {

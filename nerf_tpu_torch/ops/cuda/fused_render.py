@@ -201,18 +201,27 @@ def _forward_acts(packed: Packed, o_aff, d_aff, viewdirs, t,
     matmul inputs rounded to the compute dtype as the kernels round them,
     h9 and sigma_pre unrounded, rgb after the sigmoid (3 channels)."""
     cdt = packed.cdt
+    sin = fast_sin if cdt == torch.bfloat16 else torch.sin
+    p = o_aff[:, None, :] + t[..., None] * d_aff[:, None, :]           # (R,S,3)
+    penc = round_to(_encode(p, pos_freqs, PP, sin), cdt)
+    denc = round_to(_encode(viewdirs, dir_freqs, DP, torch.sin), cdt)
+    return mlp_acts(packed, penc, denc[:, None, :].expand(*t.shape, DP))
+
+
+def mlp_acts(packed: Packed, penc: torch.Tensor, denc: torch.Tensor) -> dict:
+    """Every activation of the NeRF MLP of the kernels (``fused_nerf.py::
+    _mlp_tile``) on encodings already rounded to the compute dtype, float32
+    with the encodings' leading shape: matmul inputs rounded as the kernels
+    round them, h9 and sigma_pre unrounded, rgb after the sigmoid (3
+    channels)."""
+    cdt = packed.cdt
     m = {k: v.float() for k, v in packed.mats.items()}
     v = packed.vecs
 
     def r(x):
         return round_to(x, cdt)
 
-    sin = fast_sin if cdt == torch.bfloat16 else torch.sin
-    p = o_aff[:, None, :] + t[..., None] * d_aff[:, None, :]           # (R,S,3)
-    a = {"penc": r(_encode(p, pos_freqs, m["w1"].shape[0], sin))}
-    denc = r(_encode(viewdirs, dir_freqs, m["wr0d"].shape[0], torch.sin))
-    a["denc"] = denc[:, None, :].expand(*t.shape, denc.shape[-1])
-
+    a = {"penc": penc, "denc": denc}
     x = a["penc"]
     for i in range(1, 6):
         x = a[f"h{i}"] = r(torch.relu(x @ m[f"w{i}"] + v[f"b{i}"]))
@@ -270,10 +279,11 @@ def _composite_bwd(acts: dict, one_m, trans, weights, t, g_ray,
     return dzr1, dsig
 
 
-def _mlp_bwd(packed: Packed, acts: dict, dzr1, dsig):
+def mlp_bwd(packed: Packed, acts: dict, dzr1, dsig, inputs: bool = False):
     """Backward of the MLP from the cotangents of the sigmoid input and the
-    density (``fused_nerf.py::_mlp_bwd_core`` without input gradients):
-    the flat float32 gradients ``(gw, gv)`` in the packed layout."""
+    density (``fused_nerf.py::_mlp_bwd_core``): the flat float32 gradients
+    ``(gw, gv)`` in the packed layout and, with ``inputs``, the cotangents
+    of the two encodings ``(dpenc, ddenc)`` after them."""
     cdt = packed.cdt
     m = {k: v.float() for k, v in packed.mats.items()}
     a = {k: v.reshape(-1, v.shape[-1]) for k, v in acts.items()
@@ -297,6 +307,8 @@ def _mlp_bwd(packed: Packed, acts: dict, dzr1, dsig):
     g["wr1"][:, :3] = r(a["y"]).T @ r(dzr1)
     g["br1"][:3] = dzr1.sum(0)
     dz = (r(dzr1) @ m["wr1"][:, :3].T) * (a["y"] > 0)         # dzr0
+    if inputs:
+        ddenc = dact(dz, "wr0d")
     dw("wr0f", a["feat"], dz)
     dw("wr0d", a["denc"], dz)
     g["br0"].copy_(dz.sum(0))
@@ -313,10 +325,14 @@ def _mlp_bwd(packed: Packed, acts: dict, dzr1, dsig):
         dw(w, prev, dz)
         if i == 6:
             dw("w6p", a["penc"], dz)
+            if inputs:
+                dpenc = dact(dz, "w6p")
         g[f"b{i}"].copy_(dz.sum(0))
         dz = dact(dz, w) * (prev > 0)
     dw("w1", a["penc"], dz)
     g["b1"].copy_(dz.sum(0))
+    if inputs:
+        return gw, gv, dpenc + dact(dz, "w1"), ddenc
     return gw, gv
 
 
@@ -336,7 +352,7 @@ def fused_train_plain(packed: Packed, o_aff, d_aff, viewdirs, t, target,
     g_ray = torch.cat([g_rgbw, -wb * g_rgbw.sum(-1, keepdim=True),
                        torch.zeros_like(acc)[:, None]], dim=-1)
     dzr1, dsig = _composite_bwd(acts, one_m, trans, weights, t, g_ray)
-    return loss, rgb, acc, weights, _mlp_bwd(packed, acts, dzr1, dsig)
+    return loss, rgb, acc, weights, mlp_bwd(packed, acts, dzr1, dsig)
 
 
 def fused_render_bwd_plain(packed: Packed, o_aff, d_aff, viewdirs, t,
@@ -347,7 +363,7 @@ def fused_render_bwd_plain(packed: Packed, o_aff, d_aff, viewdirs, t,
     acts = _forward_acts(packed, o_aff, d_aff, viewdirs, t, pos_freqs, dir_freqs)
     one_m, trans, weights, _, _, _ = _composite(acts, t)
     dzr1, dsig = _composite_bwd(acts, one_m, trans, weights, t, g_ray)
-    return _mlp_bwd(packed, acts, dzr1, dsig)
+    return mlp_bwd(packed, acts, dzr1, dsig)
 
 
 # ---------------------------------------------------------------- libraries

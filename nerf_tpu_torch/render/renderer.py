@@ -9,7 +9,9 @@ family (one kernel on the card, its plain version on the CPU) or through the
 unfused path: a field (the model's forward, or a field of
 ``train/step.py::fused_field_for`` such as ``KiloNeRFField``) + ``composite``.
 ``render_image`` bounds memory by a Python loop over ``chunk_size`` ray
-tiles.
+tiles. With an ``occupancy`` prior (``ops/occupancy.py``) the coarse pass
+draws its samples from the prior's inverse CDF instead of uniform
+stratification; everything after it is unchanged.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from nerf_tpu_torch.ops.occupancy import OccupancyGrid, occupancy_t
 from nerf_tpu_torch.ops.sampling import (
     deltas_from_t,
     merge_samples,
@@ -74,6 +77,21 @@ def _render_pass(params, rays_o, rays_d, viewdirs, t, settings: RenderSettings,
                      white_background=settings.white_background)
 
 
+def _coarse_t(settings: RenderSettings, rays_o, rays_d,
+              generator: Optional[torch.Generator],
+              occupancy: Optional[OccupancyGrid]) -> torch.Tensor:
+    """The coarse pass's t: stratified, or drawn from the occupancy prior."""
+    if occupancy is not None:
+        return occupancy_t(occupancy, rays_o, rays_d, settings.near, settings.far,
+                           settings.num_samples,
+                           normalize=settings.normalize_positions,
+                           perturb=settings.perturb, generator=generator)
+    return stratified_sample(settings.near, settings.far, settings.num_samples,
+                             rays_o.shape[0], jitter_mode=settings.jitter_mode,
+                             perturb=settings.perturb, generator=generator,
+                             device=rays_o.device)
+
+
 def _fine_t(settings: RenderSettings, t, weights,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """The fine pass's t from the coarse weights (no gradient)."""
@@ -102,19 +120,17 @@ def render_rays(params, rays_o: torch.Tensor, rays_d: torch.Tensor,
                 settings: RenderSettings,
                 generator: Optional[torch.Generator] = None,
                 fine_params=None, viewdirs: Optional[torch.Tensor] = None,
-                fused_render=None) -> RenderOutput:
+                fused_render=None,
+                occupancy: Optional[OccupancyGrid] = None) -> RenderOutput:
     """Render a batch of rays (R, 3). ``params`` / ``fine_params`` are
     fields (models, or callables ``(points, dirs) -> (rgb, sigma)``) or what
     ``fused_render`` takes. ``generator`` (on the rays' device) drives the
-    stratified jitter and the inverse-CDF draws; ``fine_params`` defaults to
-    ``params``; ``viewdirs`` defaults to normalised ``rays_d``."""
-    num_rays = rays_o.shape[0]
+    stratified (or occupancy) jitter and the inverse-CDF draws;
+    ``fine_params`` defaults to ``params``; ``viewdirs`` defaults to
+    normalised ``rays_d``."""
     if viewdirs is None:
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    t = stratified_sample(settings.near, settings.far, settings.num_samples,
-                          num_rays, jitter_mode=settings.jitter_mode,
-                          perturb=settings.perturb, generator=generator,
-                          device=rays_o.device)
+    t = _coarse_t(settings, rays_o, rays_d, generator, occupancy)
     coarse = _render_pass(params, rays_o, rays_d, viewdirs, t, settings,
                           fused_render)
     if settings.num_fine_samples <= 0:
@@ -131,7 +147,8 @@ def render_rays_train(fused_render, params, rays_o: torch.Tensor,
                       rays_d: torch.Tensor, settings: RenderSettings,
                       target: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
-                      fine_params=None, viewdirs: Optional[torch.Tensor] = None
+                      fine_params=None, viewdirs: Optional[torch.Tensor] = None,
+                      occupancy: Optional[OccupancyGrid] = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """The training loss through the fused train pass(es), as
     ``nerf_tpu.render.renderer.render_rays_train``: ``(loss, mse)`` with
@@ -142,10 +159,7 @@ def render_rays_train(fused_render, params, rays_o: torch.Tensor,
     pass's weights, which carry no gradient."""
     if viewdirs is None:
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    t = stratified_sample(settings.near, settings.far, settings.num_samples,
-                          rays_o.shape[0], jitter_mode=settings.jitter_mode,
-                          perturb=settings.perturb, generator=generator,
-                          device=rays_o.device)
+    t = _coarse_t(settings, rays_o, rays_d, generator, occupancy)
     loss_c, aux_c = fused_render.train(params, rays_o, rays_d, viewdirs, t,
                                        target, settings.white_background)
     if settings.num_fine_samples <= 0:
@@ -161,7 +175,8 @@ def render_image(params, rays_o: torch.Tensor, rays_d: torch.Tensor,
                  settings: RenderSettings,
                  generator: Optional[torch.Generator] = None,
                  fine_params=None, viewdirs: Optional[torch.Tensor] = None,
-                 fused_render=None) -> RenderOutput:
+                 fused_render=None,
+                 occupancy: Optional[OccupancyGrid] = None) -> RenderOutput:
     """Render many rays (a full image) in ``chunk_size`` tiles; the last
     tile is ragged. Tiles draw their randomness from ``generator`` in
     turn."""
@@ -171,7 +186,8 @@ def render_image(params, rays_o: torch.Tensor, rays_d: torch.Tensor,
     outs = [
         render_rays(params, rays_o[i:i + tile], rays_d[i:i + tile], settings,
                     generator=generator, fine_params=fine_params,
-                    viewdirs=viewdirs[i:i + tile], fused_render=fused_render)
+                    viewdirs=viewdirs[i:i + tile], fused_render=fused_render,
+                    occupancy=occupancy)
         for i in range(0, rays_o.shape[0], tile)
     ]
     return RenderOutput(*(torch.cat(parts, dim=0) for parts in zip(*outs)))

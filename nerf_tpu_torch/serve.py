@@ -2,8 +2,9 @@
 
 Counterpart of ``nerf_tpu.serve``. ``RenderService`` owns the full-image
 renderer (the fused render kernel on the card; the field kernels for
-KiloNeRF) and renders arbitrary camera poses; ``serve_http`` wraps a
-service in a stdlib threaded HTTP server:
+KiloNeRF), optionally guided by an occupancy prior baked once at start-up
+(``--occupancy``), and renders arbitrary camera poses; ``serve_http`` wraps
+a service in a stdlib threaded HTTP server:
 
     GET /health            -> {"status": "ok", ...}
     GET /pose/<idx>        -> PNG of orbit pose idx
@@ -31,26 +32,46 @@ from nerf_tpu_torch.data.poses import spherical_orbit
 from nerf_tpu_torch.data.rays import compute_rays_single
 from nerf_tpu_torch.models.registry import model_from_config
 from nerf_tpu_torch.train.loop import render_settings_from_config
-from nerf_tpu_torch.train.step import make_eval_render
+from nerf_tpu_torch.train.step import fused_field_for, make_eval_render, packed_field
 from nerf_tpu_torch.utils.checkpoint import load_checkpoint, read_metadata
 from nerf_tpu_torch.utils.device import resolve_device
 from nerf_tpu_torch.utils.png import encode_png
 
 
 def build_renderer(model, fine_model, cfg: Config, settings, bake: int = 0,
-                   occupancy: int = 0):
+                   occupancy: int = 0, log=print):
     """The renderer behind ``RenderService``: ``(renderer, render_params)``,
     called as ``renderer(*render_params, rays_o, rays_d, generator,
-    viewdirs=...)``. Baked caches and occupancy priors are not ported."""
+    viewdirs=...)``. With ``occupancy = R`` an R^3 occupancy prior is baked
+    first, from the fine model of a hierarchical config (else the model),
+    through the field of ``fused_field_for`` (the NeRF field kernels for a
+    NeRF at hidden 256 on the card), over ``grid_domain(cfg)``, as
+    nerf_tpu's ``build_renderer`` does; the renderer's coarse pass then
+    samples from it (``renderer.occupancy``). Baked caches are not
+    ported."""
     if bake:
         raise NotImplementedError(
             "bake: baked caches (fastnerf/plenoctree) are not ported to "
             "nerf_tpu_torch yet (ROADMAP.md queue 1, row 13)")
+    occ = None
     if occupancy:
-        raise NotImplementedError(
-            "occupancy: occupancy priors are not ported to nerf_tpu_torch "
-            "yet (ROADMAP.md queue 1, row 13)")
-    renderer = make_eval_render(model, settings, fused=cfg.use_pallas)
+        from nerf_tpu_torch.models.registry import grid_domain
+        from nerf_tpu_torch.ops.occupancy import (
+            OccupancyGrid,
+            bake_occupancy,
+            sigma_field,
+        )
+
+        log(f"Baking a {occupancy}^3 occupancy prior...")
+        src = (fine_model if cfg.num_fine_samples > 0 and fine_model is not None
+               else model)
+        field = packed_field(fused_field_for(src)) if cfg.use_pallas else src
+        dom = grid_domain(cfg)
+        occ = OccupancyGrid(
+            grid=bake_occupancy(sigma_field(field), grid_res=occupancy, domain=dom,
+                                device=next(src.parameters()).device),
+            domain=dom)
+    renderer = make_eval_render(model, settings, fused=cfg.use_pallas, occupancy=occ)
     return renderer, (model, fine_model)
 
 
@@ -113,7 +134,7 @@ class RenderService:
         model = model.to(dev).eval()
         settings = render_settings_from_config(cfg)
         renderer, render_params = build_renderer(
-            model, fine_model, cfg, settings, bake=bake, occupancy=occupancy)
+            model, fine_model, cfg, settings, bake=bake, occupancy=occupancy, log=log)
         log(f"Loaded {cfg.model_type} from {checkpoint} on {dev} "
             f"({int(h)}x{int(w)}, {cfg.compute_dtype})")
         return cls(cfg, renderer, render_params, (int(h), int(w)), focal, dev)
@@ -221,7 +242,7 @@ def make_http_server(service: RenderService, port: int = 0,
 
 def main(argv=None) -> None:
     """``nerf-tpu-torch-serve --config cfg.txt --checkpoint ckpt [--port 8000]
-    [--hw H W] [--device cuda|cpu]``"""
+    [--occupancy RES] [--hw H W] [--device cuda|cpu]``"""
     import argparse
 
     parser = argparse.ArgumentParser(description=main.__doc__)
@@ -231,14 +252,17 @@ def main(argv=None) -> None:
     parser.add_argument("--host", default="127.0.0.1",
                         help="bind address (default loopback; the endpoint "
                              "is unauthenticated, widen deliberately)")
+    parser.add_argument("--occupancy", type=int, default=0,
+                        help="bake a RES^3 occupancy prior and sample the coarse "
+                             "pass from it (0: off)")
     parser.add_argument("--hw", type=int, nargs=2, default=None)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; cuda without a card raises")
     args = parser.parse_args(argv)
 
     svc = RenderService.from_checkpoint(
-        args.config, args.checkpoint, hw=tuple(args.hw) if args.hw else None,
-        device=args.device)
+        args.config, args.checkpoint, occupancy=args.occupancy,
+        hw=tuple(args.hw) if args.hw else None, device=args.device)
     svc.render_pose(svc.orbit_pose(0))   # build the kernel before traffic
     serve_http(svc, port=args.port, host=args.host)
 

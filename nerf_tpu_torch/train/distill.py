@@ -15,10 +15,13 @@ Each step draws from a generator seeded by ``(seed, step, DISTILL)``
 (``train/step.py::step_seed``); the JAX ``_DISTILL_SALT`` key stream has no
 torch counterpart. Student and teacher are evaluated through the field
 that ``train/step.py::fused_field_for`` picks: a KiloNeRF student through
-its field kernels, a hidden-32 NeRF teacher through its module (as the JAX
-package runs it: its field kernel takes hidden 256 only); one that the JAX
-package would run through a field kernel not ported yet raises on the card
-and names that kernel's row of PERF.md's table.
+its field kernels, a NeRF teacher or student at hidden 256 on the card
+through the NeRF field kernels (``NerfField``: the teacher's forward, the
+student's forward and backward), a hidden-32 NeRF through its module (as
+the JAX package runs it); one that the JAX package would run through a
+field kernel the port lacks raises on the card and names that kernel's row
+of PERF.md's table. With ``debug_nans`` a non-finite loss or gradient
+raises ``FloatingPointError`` naming the step.
 """
 
 from __future__ import annotations
@@ -28,7 +31,13 @@ import dataclasses
 import torch
 
 from nerf_tpu_torch.train.state import TrainState
-from nerf_tpu_torch.train.step import DISTILL, fused_field_for, step_seed
+from nerf_tpu_torch.train.step import (
+    DISTILL,
+    check_finite,
+    fused_field_for,
+    packed_field,
+    step_seed,
+)
 
 
 def distill_loss(student, teacher, pts: torch.Tensor, dirs: torch.Tensor):
@@ -44,7 +53,7 @@ def distill_loss(student, teacher, pts: torch.Tensor, dirs: torch.Tensor):
 
 
 def make_distill_step(student, teacher, batch_size: int, seed: int,
-                      domain: tuple, num_steps: int):
+                      domain: tuple, num_steps: int, debug_nans: bool = False):
     """``step_n(state) -> metrics``: ``num_steps`` field-matching iterations
     updating ``state`` in place (its step counter too); ``student`` and
     ``teacher`` are fields ``(points, dirs) -> (rgb, sigma)``, the student
@@ -63,6 +72,8 @@ def make_distill_step(student, teacher, batch_size: int, seed: int,
             m.zero_grad(set_to_none=True)
         loss, rgb_mse, sigma_mse = distill_loss(student, teacher, pts, d)
         loss.backward()
+        if debug_nans:
+            check_finite(f"distillation step {state.step}", loss, state.models())
         state.optimizer.step()
         state.step += 1
         return {"loss": loss.detach(), "rgb_mse": rgb_mse.detach(),
@@ -90,8 +101,7 @@ def load_teacher(cfg, ckpt_path: str, device: str | torch.device = "cuda"):
     teacher = model_from_config(tcfg)
     teacher.load_state_dict(load_checkpoint(ckpt_path)["params"])
     teacher = teacher.to(resolve_device(device)).eval().requires_grad_(False)
-    field = fused_field_for(teacher) if cfg.use_pallas else teacher
-    return field.pack() if hasattr(field, "pack") else field
+    return packed_field(fused_field_for(teacher)) if cfg.use_pallas else teacher
 
 
 def run_distillation(cfg, state: TrainState, device: str | torch.device = "cuda",
@@ -115,7 +125,7 @@ def run_distillation(cfg, state: TrainState, device: str | torch.device = "cuda"
         c = min(chunk, total - done)
         if c not in step_fns:
             step_fns[c] = make_distill_step(student, teacher, cfg.distill_batch,
-                                            cfg.seed, domain, c)
+                                            cfg.seed, domain, c, cfg.debug_nans)
         metrics = step_fns[c](state)
         if log_scalar is not None:
             for i, v in enumerate(metrics["loss"].tolist()):

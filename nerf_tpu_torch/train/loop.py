@@ -12,6 +12,18 @@ resumed run restarts the loop counter at the recorded step. A fresh run
 with ``distill_from`` first distils that teacher into the model
 (``train/distill.py``) and then trains from step 0; a resumed run skips it
 (the checkpoint already carries it).
+
+With ``occupancy_res`` the loop bakes an occupancy prior from the live
+field before the first step (after distillation, or from the restored
+parameters of a resume) and rebakes it after every ``occupancy_interval``-th
+optimizer step, outside the throughput window, as nerf_tpu's loop does; the
+field is the module where a fused render engages, else the field route's.
+The rebakes key off the optimizer step, which runs one ahead of the loop
+counter after a resume, so a run resumed from a checkpoint taken at a
+rebake repeats the first run bit for bit (nerf_tpu's loop keys them off its
+counter and rebakes once more after a resume's first step). With
+``debug_nans`` a non-finite loss or gradient raises ``FloatingPointError``
+naming the step.
 """
 
 from __future__ import annotations
@@ -60,8 +72,6 @@ def check_ported(cfg: Config) -> None:
     the ROADMAP.md (queue 1) row that ports them. (Other model families
     and LLFF scenes raise where the model and the scene are built.)"""
     rows = []
-    if cfg.occupancy_res > 0:
-        rows.append("occupancy_res (row 13: ops/occupancy.py)")
     if cfg.upsample_steps.strip():
         rows.append("upsample_steps (row 13: grid families)")
     if cfg.tv_lambda or cfg.tv_sh_lambda:
@@ -96,10 +106,11 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
     from nerf_tpu_torch.train.optim import lr_schedule
     from nerf_tpu_torch.train.state import create_train_state
     from nerf_tpu_torch.train.step import (
-        make_eval_render,
         VALIDATE,
+        make_eval_render,
         make_scan_train_step,
         step_seed,
+        train_field,
     )
     from nerf_tpu_torch.utils.checkpoint import (
         AsyncCheckpointSaver,
@@ -147,12 +158,23 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
                                  cfg.save_interval), 100)
     step_fns: dict = {}
 
+    occ_opts = None
+    if cfg.occupancy_res > 0:
+        from nerf_tpu_torch.models.registry import grid_domain
+
+        occ_opts = (grid_domain(cfg), 64, 1e-2)
+
     def get_step_fn(c: int):
         if c not in step_fns:
             step_fns[c] = make_scan_train_step(
                 model, settings, cfg.num_random_rays, cfg.seed, num_steps=c,
-                use_pallas=cfg.use_pallas, epoch_sampling=cfg.epoch_sampling)
+                use_pallas=cfg.use_pallas, epoch_sampling=cfg.epoch_sampling,
+                occupancy_opts=occ_opts, debug_nans=cfg.debug_nans)
         return step_fns[c]
+
+    # the optimizer step runs ``occ_lead`` ahead of the loop counter (1 after
+    # a resume); the rebakes follow the optimizer step
+    occ_lead = state.step - start_step
 
     def next_event(i: int) -> int:
         """Smallest step >= i at which the host must act (log/save/val)."""
@@ -167,6 +189,9 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
         if v == 0 and not cfg.first_step_render:
             v = cfg.val_interval
         candidates.append(v)
+        if occ_opts is not None:
+            candidates.append(next_mult(max(i + occ_lead, 1), cfg.occupancy_interval)
+                              - occ_lead)
         return min(candidates)
 
     eval_render = make_eval_render(model, settings, fused=cfg.use_pallas)
@@ -184,6 +209,18 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
             f"({cfg.distill_steps} field-matching steps)...")
         state = run_distillation(cfg, state, device=dev, log=log,
                                  log_scalar=logger.log_scalar)
+    occ_grid = None
+    if occ_opts is not None:
+        from nerf_tpu_torch.ops.occupancy import bake_occupancy, sigma_field
+
+        bake_from = train_field(model, settings, cfg.use_pallas)
+
+        def bake_occ():
+            return bake_occupancy(sigma_field(bake_from), grid_res=cfg.occupancy_res,
+                                  domain=occ_opts[0], threshold=cfg.occupancy_thresh,
+                                  device=dev)
+
+        occ_grid = bake_occ()
     start_time = datetime.datetime.now()
 
     def run_validation(step: int) -> None:
@@ -211,9 +248,9 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
             c = min(max_chunk, boundary - pos)
             if cfg.profile_dir and chunk_idx == 2:
                 with trace(cfg.profile_dir):
-                    metrics = get_step_fn(c)(state, scene.pool)
+                    metrics = get_step_fn(c)(state, scene.pool, occ_grid)
             else:
-                metrics = get_step_fn(c)(state, scene.pool)
+                metrics = get_step_fn(c)(state, scene.pool, occ_grid)
             step = pos + c - 1          # last executed iteration
             throughput.update(c * cfg.num_random_rays)
             chunk_idx += 1
@@ -221,6 +258,10 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
             if step % cfg.log_interval == 0:
                 logger.log_train(step, schedule(step), float(metrics["mse"][-1]))
                 logger.log_scalar("rays_per_sec", throughput.rays_per_sec, step)
+            if (occ_grid is not None and step + occ_lead > 0
+                    and (step + occ_lead) % cfg.occupancy_interval == 0):
+                with throughput.exclude():
+                    occ_grid = bake_occ()
             if step % cfg.save_interval == 0 and 0 < step < num_iters - 1:
                 with throughput.exclude():
                     path = saver.save(state, cfg.save_path, cfg.model_type, step)

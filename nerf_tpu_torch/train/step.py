@@ -9,15 +9,20 @@ takes one Adam update, all in place. Per-step randomness comes from
 ``torch.Generator``s seeded from (seed, step, stream), so a resumed run or
 a chunk of N steps repeats the same draws as N single steps.
 
-There is no probe and no downgrade: a NeRF, a SIREN or a GaborNet trains
-and renders through its family's fused kernels for CUDA tensors (which
-raise on shapes they do not cover) and their plain versions for CPU
-tensors, unless the caller asks for the unfused module path with
-``use_pallas = false`` / ``fused=False``. A family without a fused render
-but with field kernels (KiloNeRF) takes the field route instead, as the JAX
-step does when ``resolve_fused_render`` gives None: ``render_rays`` on the
-field of ``fused_field_for`` (its kernels, or their plain versions on the
-CPU), the loss and its gradient through autograd.
+There is no probe and no downgrade, and the route is nerf_tpu's: a NeRF, a
+SIREN or a GaborNet that nerf_tpu's ``make_fused_*_render`` takes (hidden
+h with h % 128 == 0 and (h/2) % 128 == 0; a SIREN at 8 layers only)
+trains and renders through its family's fused kernels for CUDA tensors
+(which raise on shapes they do not cover) and their plain versions for
+CPU tensors, unless the caller asks for the unfused module path with
+``use_pallas = false`` / ``fused=False``. Any other model takes the field
+route, as the JAX step does when ``resolve_fused_render`` gives None:
+``render_rays`` on the field of ``fused_field_for`` (a family's field
+kernels where nerf_tpu takes them and the port has them, else the module),
+the loss and its gradient through autograd. With an occupancy grid (the
+``occ_grid`` step argument) the coarse samples come from the prior
+(``ops/occupancy.py``); with ``debug_nans`` a non-finite loss or gradient
+raises ``FloatingPointError`` before the update.
 """
 
 from __future__ import annotations
@@ -33,9 +38,11 @@ from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.models.siren import SirenModel
 from nerf_tpu_torch.ops.cuda.fused_kilonerf import KiloNeRFField
+from nerf_tpu_torch.ops.cuda.fused_nerf import NerfField
 from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender, FusedRender
 from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
 from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
+from nerf_tpu_torch.ops.occupancy import OccupancyGrid
 from nerf_tpu_torch.render.renderer import (
     RenderOutput,
     RenderSettings,
@@ -75,22 +82,27 @@ def fused_render_for(model, settings: RenderSettings) -> FusedRender:
                normalize=settings.normalize_positions)
 
 
-def _unported_field_row(model) -> str | None:
-    """The row of PERF.md's table of the field kernel that nerf_tpu's
-    ``get_fused_apply`` takes for ``model`` and the port lacks, or None where
-    it takes none: ``make_fused_{nerf,gabor}_apply`` at widths with
-    h % 128 == 0 and (h/2) % 128 == 0, ``make_fused_siren_apply`` there at 8
-    sine layers only."""
+def _tpu_kernel_width(model) -> bool:
+    """Whether nerf_tpu's NeRF, SIREN and GaborNet kernels take ``model``:
+    both its ``make_fused_*_render`` and its ``make_fused_*_apply`` give
+    one for hidden h with h % 128 == 0 and (h/2) % 128 == 0, for a SIREN
+    at 8 layers only."""
     h = model.hidden_dim
     if h % 128 or (h // 2) % 128:
-        return None
+        return False
+    if isinstance(model, SirenModel):
+        return model.num_layers == 8
+    return isinstance(model, (NeRFModel, GaborModel))
+
+
+def _unported_field_row(model) -> str:
+    """The row of PERF.md's table of the field kernel that nerf_tpu takes
+    for ``model`` (``_tpu_kernel_width``) and the port does not."""
     if isinstance(model, NeRFModel):
         return "row 1 (fused_nerf.py::_fwd_kernel)"
-    if isinstance(model, SirenModel) and model.num_layers == 8:
+    if isinstance(model, SirenModel):
         return "row 9 (fused_siren.py::_fwd_kernel)"
-    if isinstance(model, GaborModel):
-        return "row 13 (fused_gabor.py::_fwd_kernel)"
-    return None
+    return "row 13 (fused_gabor.py::_fwd_kernel)"
 
 
 def _on_card(model) -> bool:
@@ -100,42 +112,76 @@ def _on_card(model) -> bool:
 def fused_field_for(model):
     """The field ``(points, dirs) -> (rgb, sigma)`` that nerf_tpu's
     ``resolve_apply_fn`` picks for ``model``, without its probe and its
-    downgrade: a KiloNeRF through its field kernels (``KiloNeRFField``,
-    bound to the module); a NeRF, SIREN or GaborNet through its module where
-    nerf_tpu takes no field kernel, and on the CPU. Raises
-    ``NotImplementedError`` on the card where nerf_tpu would take a field
-    kernel not ported yet (naming its row of PERF.md's table), and for a
-    family the port does not have."""
+    downgrade: a KiloNeRF through its field kernels (``KiloNeRFField``) where
+    ``make_fused_kilonerf_apply`` takes it (8 <= h <= 128, h % 8 == 0); a
+    NeRF at hidden 256 on the card through its field kernels
+    (``NerfField``); otherwise the module, as on the CPU and wherever
+    nerf_tpu takes no field kernel. Raises ``NotImplementedError`` on the
+    card where nerf_tpu would take a field kernel that the port lacks or
+    does not cover (naming its row of PERF.md's table: NeRF at hidden 512,
+    SIREN and GaborNet at hidden 256), and for a family the port does not
+    have."""
     if isinstance(model, KiloNeRFModel):
-        return KiloNeRFField(model)
+        h = model.hidden_dim
+        return KiloNeRFField(model) if 8 <= h <= 128 and h % 8 == 0 else model
     if not isinstance(model, (NeRFModel, SirenModel, GaborModel)):
         raise NotImplementedError(
             f"no field for {type(model).__name__} in nerf_tpu_torch yet "
             "(ROADMAP.md queue 2)")
-    row = _unported_field_row(model)
-    if row is not None and _on_card(model):
-        raise NotImplementedError(
-            f"{type(model).__name__} at hidden {model.hidden_dim} runs through a "
-            f"field kernel in nerf_tpu that is not ported to nerf_tpu_torch yet "
-            f"(PERF.md {row}; ROADMAP.md queue 2); use_pallas = false evaluates "
-            "the module")
-    return model
+    if not _tpu_kernel_width(model) or not _on_card(model):
+        return model
+    if isinstance(model, NeRFModel) and NerfField(model).supported():
+        return NerfField(model)
+    raise NotImplementedError(
+        f"{type(model).__name__} at hidden {model.hidden_dim} runs through a field "
+        f"kernel in nerf_tpu that nerf_tpu_torch does not have for it "
+        f"(PERF.md {_unported_field_row(model)}; ROADMAP.md queue 2); "
+        "use_pallas = false evaluates the module")
+
+
+def packed_field(field):
+    """``field`` with its weights packed once where it packs (the field
+    kernels' wrappers), else the field itself (a module)."""
+    return field.pack() if hasattr(field, "pack") else field
 
 
 def _kernel_route(model, settings: RenderSettings, use_kernels: bool):
-    """``(fused_render, field)``: the family's fused render, or for KiloNeRF,
-    which has none, the factory of its field (``KiloNeRFField``); raises for
-    any other family; ``(None, None)`` for the module path."""
+    """``(fused_render, field)``: the family's fused render where nerf_tpu
+    takes one (``_tpu_kernel_width``), else ``fused_field_for`` as the
+    field factory (the field route); raises for a family the port does not
+    have; ``(None, None)`` for the module path."""
     if not use_kernels:
         return None, None
-    if type(model) in _FUSED:
-        return fused_render_for(model, settings), None
-    if not isinstance(model, KiloNeRFModel):
+    if not isinstance(model, (NeRFModel, SirenModel, GaborModel, KiloNeRFModel)):
         raise NotImplementedError(
             f"no fused render and no field kernels for {type(model).__name__} in "
             "nerf_tpu_torch yet (ROADMAP.md queue 2; use_pallas = false renders "
             "through the module)")
-    return None, KiloNeRFField
+    if type(model) in _FUSED and _tpu_kernel_width(model):
+        return fused_render_for(model, settings), None
+    return None, fused_field_for
+
+
+def train_field(model, settings: RenderSettings, use_kernels: bool):
+    """The field through which ``fit`` bakes ``model``'s occupancy prior, as
+    nerf_tpu's loop picks its ``apply_fn``: the module where a fused render
+    engages (or without kernels), else the field route's field."""
+    _, field = _kernel_route(model, settings, use_kernels)
+    return model if field is None else field(model)
+
+
+def check_finite(what: str, loss: torch.Tensor, models) -> None:
+    """``debug_nans``: raise ``FloatingPointError`` naming ``what`` (the
+    step) if ``loss`` or any gradient of ``models`` is not finite (the
+    counterpart of ``jax_debug_nans`` in nerf_tpu's loop)."""
+    if not bool(torch.isfinite(loss).all()):
+        raise FloatingPointError(
+            f"debug_nans: non-finite loss ({float(loss.detach())}) at {what}")
+    for m in models:
+        for name, p in m.named_parameters():
+            if p.grad is not None and not bool(torch.isfinite(p.grad).all()):
+                raise FloatingPointError(
+                    f"debug_nans: non-finite gradient of {name} at {what}")
 
 
 def _generator(device, seed: int) -> torch.Generator:
@@ -146,16 +192,31 @@ def _generator(device, seed: int) -> torch.Generator:
 
 def _make_step_body(model, settings: RenderSettings, batch_size: int,
                     seed: int, use_pallas: bool = True,
-                    epoch_sampling: bool = False):
+                    epoch_sampling: bool = False,
+                    occupancy_opts: Optional[tuple] = None,
+                    debug_nans: bool = False):
     """``(sample, train_on_batch)``: ``sample(state, pool) -> RayBatch``
-    draws the batch of ``state.step``; ``train_on_batch(state, batch) ->
-    metrics`` renders, takes the loss and its gradient, and updates
-    ``state`` in place (the step counter too). ``metrics`` holds ``loss``,
-    ``mse`` and ``psnr`` as device scalars. With ``use_pallas`` each pass is
-    one train-kernel launch of the family's fused render, or, for a family
-    without one, the field route (its field kernels under autograd); without,
-    the unfused module path under autograd."""
+    draws the batch of ``state.step``; ``train_on_batch(state, batch,
+    occ_grid=None) -> metrics`` renders, takes the loss and its gradient,
+    and updates ``state`` in place (the step counter too). ``metrics`` holds
+    ``loss``, ``mse`` and ``psnr`` as device scalars. With ``use_pallas``
+    each pass is one train-kernel launch of the family's fused render, or,
+    for a model without one, the field route (its field under autograd);
+    without, the unfused module path under autograd.
+
+    ``occupancy_opts = (domain, num_bins, floor)`` gives meaning to the
+    ``occ_grid`` argument: an (R, R, R, 1) {0, 1} prior (``fit`` rebakes it
+    at intervals) from which the coarse pass draws its samples. With
+    ``debug_nans`` a non-finite loss or gradient raises
+    ``FloatingPointError`` before the update."""
     fused_render, field = _kernel_route(model, settings, use_pallas)
+
+    def _occ(occ_grid) -> Optional[OccupancyGrid]:
+        if occ_grid is None:
+            return None
+        domain, num_bins, floor = occupancy_opts
+        return OccupancyGrid(grid=occ_grid, domain=domain, num_bins=num_bins,
+                             floor=floor)
 
     def sample(state: TrainState, pool: RayPool) -> RayBatch:
         if epoch_sampling:
@@ -163,31 +224,34 @@ def _make_step_body(model, settings: RenderSettings, batch_size: int,
         gen = _generator(pool.rays_o.device, step_seed(seed, state.step, SAMPLE))
         return pool.sample(gen, batch_size)
 
-    def loss_fn(state: TrainState, batch: RayBatch, gen):
+    def loss_fn(state: TrainState, batch: RayBatch, gen, occupancy):
         if fused_render is not None:
             return render_rays_train(
                 fused_render, state.params, batch.rays_o, batch.rays_d,
                 settings, batch.rgb, generator=gen,
-                fine_params=state.fine_params, viewdirs=batch.viewdirs)
+                fine_params=state.fine_params, viewdirs=batch.viewdirs,
+                occupancy=occupancy)
         params, fine = state.params, state.fine_params
         if field is not None:
             params = field(params)
             fine = field(fine) if fine is not None else None
         out = render_rays(params, batch.rays_o, batch.rays_d, settings,
                           generator=gen, fine_params=fine,
-                          viewdirs=batch.viewdirs)
+                          viewdirs=batch.viewdirs, occupancy=occupancy)
         mse = torch.mean((out.rgb - batch.rgb) ** 2)
         loss = mse
         if settings.num_fine_samples > 0:
             loss = loss + torch.mean((out.rgb_coarse - batch.rgb) ** 2)
         return loss, mse
 
-    def train_on_batch(state: TrainState, batch: RayBatch) -> dict:
+    def train_on_batch(state: TrainState, batch: RayBatch, occ_grid=None) -> dict:
         gen = _generator(batch.rays_o.device, step_seed(seed, state.step, RENDER))
         for m in state.models():
             m.zero_grad(set_to_none=True)
-        loss, mse = loss_fn(state, batch, gen)
+        loss, mse = loss_fn(state, batch, gen, _occ(occ_grid))
         loss.backward()
+        if debug_nans:
+            check_finite(f"step {state.step}", loss, state.models())
         state.optimizer.step()
         state.step += 1
         mse = mse.detach()
@@ -198,42 +262,50 @@ def _make_step_body(model, settings: RenderSettings, batch_size: int,
 
 def make_train_step(model, settings: RenderSettings, batch_size: int,
                     seed: int, use_pallas: bool = True,
-                    epoch_sampling: bool = False):
-    """``step(state, pool) -> metrics``: one iteration, ``state`` updated
-    in place."""
+                    epoch_sampling: bool = False,
+                    occupancy_opts: Optional[tuple] = None,
+                    debug_nans: bool = False):
+    """``step(state, pool, occ_grid=None) -> metrics``: one iteration,
+    ``state`` updated in place (``_make_step_body`` for the options)."""
     sample, train_on_batch = _make_step_body(model, settings, batch_size, seed,
-                                             use_pallas, epoch_sampling)
+                                             use_pallas, epoch_sampling,
+                                             occupancy_opts, debug_nans)
 
-    def step(state: TrainState, pool: RayPool) -> dict:
-        return train_on_batch(state, sample(state, pool))
+    def step(state: TrainState, pool: RayPool, occ_grid=None) -> dict:
+        return train_on_batch(state, sample(state, pool), occ_grid)
 
     return step
 
 
 def make_scan_train_step(model, settings: RenderSettings, batch_size: int,
                          seed: int, num_steps: int, use_pallas: bool = True,
-                         epoch_sampling: bool = False):
-    """``step_n(state, pool) -> metrics``: ``num_steps`` iterations in a
-    Python loop, each metric stacked to ``(num_steps,)``. The draws key off
-    ``state.step``, so N steps here equal N single steps."""
+                         epoch_sampling: bool = False,
+                         occupancy_opts: Optional[tuple] = None,
+                         debug_nans: bool = False):
+    """``step_n(state, pool, occ_grid=None) -> metrics``: ``num_steps``
+    iterations in a Python loop, each metric stacked to ``(num_steps,)``.
+    The draws key off ``state.step``, so N steps here equal N single
+    steps."""
     step = make_train_step(model, settings, batch_size, seed, use_pallas,
-                           epoch_sampling)
+                           epoch_sampling, occupancy_opts, debug_nans)
 
-    def step_n(state: TrainState, pool: RayPool) -> dict:
-        ms = [step(state, pool) for _ in range(num_steps)]
+    def step_n(state: TrainState, pool: RayPool, occ_grid=None) -> dict:
+        ms = [step(state, pool, occ_grid) for _ in range(num_steps)]
         return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
     return step_n
 
 
-def make_eval_render(model, settings: RenderSettings, fused: bool = True):
+def make_eval_render(model, settings: RenderSettings, fused: bool = True,
+                     occupancy: Optional[OccupancyGrid] = None):
     """Returns ``render(params, fine_params, rays_o, rays_d, generator=None,
     viewdirs=None) -> RenderOutput``, where ``params``/``fine_params`` are
     models of ``model``'s family (``fine_params`` None: the coarse model
     renders both passes). With ``fused`` each pass runs the family's fused
-    render, or for a family without one its field kernels (the field route);
-    otherwise the module. Memory is bounded by ``settings.chunk_size`` ray
-    tiles."""
+    render where nerf_tpu takes one, else the field of ``fused_field_for``
+    (the field route); otherwise the module. With ``occupancy`` the coarse
+    samples come from that prior. Memory is bounded by
+    ``settings.chunk_size`` ray tiles."""
     fused_render, field = _kernel_route(model, settings, fused)
 
     @torch.no_grad()
@@ -246,11 +318,13 @@ def make_eval_render(model, settings: RenderSettings, fused: bool = True):
             if fine_params is not None:
                 fine_params = fused_render.pack(fine_params)
         elif field is not None:
-            params = field(params).pack()
+            params = packed_field(field(params))
             if fine_params is not None:
-                fine_params = field(fine_params).pack()
+                fine_params = packed_field(field(fine_params))
         return render_image(params, rays_o, rays_d, settings,
                             generator=generator, fine_params=fine_params,
-                            viewdirs=viewdirs, fused_render=fused_render)
+                            viewdirs=viewdirs, fused_render=fused_render,
+                            occupancy=occupancy)
 
+    render.occupancy = occupancy
     return render

@@ -677,3 +677,136 @@ def test_kilonerf_train_step_on_card_matches_cpu(dev):
             torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=10 * TOL["float32"], atol=0)
     for a, b in zip(states[0].params.parameters(), states[1].params.parameters()):
         torch.testing.assert_close(b.detach().cpu(), a.detach(), atol=4 * 5e-4, rtol=0)
+
+
+# ---------------------------------------------------------------- NeRF field
+
+
+def _field_points(n, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = torch.randn(n, 3, generator=g, device=dev)
+    return (torch.rand(n, 3, generator=g, device=dev) * 1.5 - 2.75,
+            d / torch.linalg.norm(d, dim=-1, keepdim=True))
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [37, 1000, 4096])
+def test_nerf_field_kernels_match_plain_versions(dev, cdt, n):
+    """Both NeRF field kernels against their plain versions on the card
+    (ragged chunks included): rgb and sigma within TOL, the weight
+    gradients and the point and direction cotangents within GRAD_TOL of
+    their max; one launch each."""
+    from nerf_tpu_torch.ops.cuda.fused_nerf import (
+        NerfField, nerf_field_bwd_plain, nerf_field_plain)
+
+    model = NeRFModel(compute_dtype=cdt, generator=torch.Generator().manual_seed(3)).to(dev)
+    field = NerfField(model).pack()
+    pts, dirs = _field_points(n, dev, seed=n)
+    cot = torch.randn(n, 4, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    before = (NerfField.launches, NerfField.bwd_launches)
+    with torch.no_grad():
+        rgb, sigma = field._forward(field.packed, pts, dirs)
+        got = field._backward(field.packed, pts, dirs, cot)
+        ref_rgb, ref_sigma = nerf_field_plain(field.packed, pts, dirs, 10, 4)
+        ref = nerf_field_bwd_plain(field.packed, pts, dirs, cot, 10, 4)
+    torch.cuda.synchronize()
+    assert (NerfField.launches - before[0], NerfField.bwd_launches - before[1]) == (1, 1)
+    torch.testing.assert_close(rgb, ref_rgb, atol=TOL[cdt], rtol=0)
+    torch.testing.assert_close(sigma, ref_sigma, atol=TOL[cdt], rtol=0)
+    g, r = grad_views(got[0], got[1], 256), grad_views(ref[0], ref[1], 256)
+    floor = 1e-2 * max(float(v.abs().max()) for v in r.values())
+    for k in r:
+        assert float((g[k] - r[k]).abs().max()) <= GRAD_TOL[cdt] * max(
+            float(r[k].abs().max()), floor), k
+    for a, b in zip(got[2:], ref[2:]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= GRAD_TOL[cdt] * float(b.abs().max())
+
+
+def test_nerf_field_autograd_on_card_matches_cpu(dev):
+    """The float32 field under autograd (forward kernel, then the backward
+    kernel through loss.backward()) against the same model on the CPU
+    (plain versions): outputs within TOL, parameter and point gradients
+    within GRAD_TOL of their max."""
+    from nerf_tpu_torch.ops.cuda.fused_nerf import NerfField
+
+    model = NeRFModel(generator=torch.Generator().manual_seed(5)).to(dev)
+    cpu = NeRFModel()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    pts, dirs = _field_points(2000, dev, seed=5)
+    outs = []
+    for m, p, d in ((model, pts, dirs), (cpu, pts.cpu(), dirs.cpu())):
+        p = p.clone().requires_grad_(True)
+        rgb, sigma = NerfField(m)(p, d)
+        (torch.sum(rgb ** 2) + 0.1 * torch.sum(sigma)).backward()
+        outs.append((rgb.detach().cpu(), sigma.detach().cpu(), p.grad.cpu(),
+                     [q.grad.detach().cpu() for q in m.parameters()]))
+    (rg, sg, pg, gg), (rc, sc, pc, gc) = outs
+    torch.testing.assert_close(rg, rc, atol=TOL["float32"], rtol=0)
+    torch.testing.assert_close(sg, sc, atol=TOL["float32"], rtol=0)
+    for a, b in zip(gg + [pg], gc + [pc]):
+        assert float((a - b).abs().max()) <= GRAD_TOL["float32"] * float(b.abs().max())
+
+
+def test_nerf_field_kernels_refuse_unsupported_widths(dev):
+    """Hidden 256 with encodings of at most 64 / 32 columns only:
+    NotImplementedError before any launch (the plain versions take any
+    width on the CPU)."""
+    from nerf_tpu_torch.ops.cuda.fused_nerf import NerfField
+
+    pts, dirs = _field_points(100, dev)
+    for kw in ({"hidden_dim": 128}, {"dir_encoding_dim": 6}):
+        model = NeRFModel(**kw).to(dev)
+        before = NerfField.launches
+        with torch.no_grad(), pytest.raises(NotImplementedError, match="hidden 256"):
+            NerfField(model)(pts, dirs)
+        assert NerfField.launches == before
+
+
+def test_field_route_trains_unsupported_widths_through_the_module(dev):
+    """A NeRF at hidden 128 (no kernel of nerf_tpu's takes it) trains on
+    the card through the module, launching no kernel and raising nothing;
+    a NeRF at 256 takes the NerfField in fused_field_for, one at 512 raises
+    naming row 1."""
+    from nerf_tpu_torch.ops.cuda.fused_nerf import NerfField
+    from nerf_tpu_torch.train.step import fused_field_for
+
+    kw = dict(near=NEAR, far=FAR, num_samples=16, num_fine_samples=8, perturb=False)
+    st = create_train_state(Config(hidden_dim=128, **kw), device=dev)
+    ro, rd, _ = _inputs(64, 1, dev, seed=2)
+    batch = RayBatch(ro, rd, torch.rand(64, 3, device=dev), rd)
+    _, train_on_batch = _make_step_body(st.params, RenderSettings(**kw), 64, 0)
+    before = (FusedNerfRender.launches, FusedNerfRender.train_launches, NerfField.launches)
+    m = train_on_batch(st, batch)
+    assert bool(torch.isfinite(m["loss"])) and st.step == 1
+    assert (FusedNerfRender.launches, FusedNerfRender.train_launches,
+            NerfField.launches) == before
+    assert type(fused_field_for(NeRFModel().to(dev))) is NerfField
+    with pytest.raises(NotImplementedError, match="row 1"):
+        fused_field_for(NeRFModel(hidden_dim=512).to(dev))
+
+
+def test_occupancy_bake_on_card_matches_cpu(dev):
+    """A 32^3 bake of a float32 NeRF at hidden 256 through the field
+    kernel (one launch) against the same bake on the CPU through the plain
+    version, thresholded in the widest gap of the densities near their
+    median: the same grid."""
+    from nerf_tpu_torch.ops.cuda.fused_nerf import NerfField
+    from nerf_tpu_torch.ops.occupancy import bake_occupancy, lattice, sigma_field
+
+    model = NeRFModel(generator=torch.Generator().manual_seed(6)).to(dev)
+    cpu = NeRFModel()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    dom = (-2.75, -1.25)
+    with torch.no_grad():
+        s = torch.sort(sigma_field(NerfField(cpu).pack())(lattice(32, dom))).values
+    mid = s.shape[0] // 2
+    k = mid - 200 + int(torch.argmax(s[mid - 200:mid + 200].diff()))
+    thresh = float(0.5 * (s[k] + s[k + 1]))
+    before = NerfField.launches
+    grid = bake_occupancy(sigma_field(NerfField(model).pack()), grid_res=32,
+                          domain=dom, threshold=thresh, device=dev)
+    assert NerfField.launches - before == 1
+    ref = bake_occupancy(sigma_field(NerfField(cpu).pack()), grid_res=32,
+                         domain=dom, threshold=thresh)
+    assert torch.equal(grid.cpu(), ref)

@@ -36,6 +36,7 @@ from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.models.siren import SirenModel
 from nerf_tpu_torch.ops.cuda.fused_kilonerf import KiloNeRFField
+from nerf_tpu_torch.ops.cuda.fused_nerf import NerfField
 from nerf_tpu_torch.train.distill import (
     distill_loss,
     load_teacher,
@@ -226,7 +227,7 @@ def test_load_teacher_reads_the_metadata(root, teacher_ckpt):
     torch.testing.assert_close(a[0], b[0], atol=1e-5, rtol=0)
     torch.testing.assert_close(a[1], b[1], atol=1e-4, rtol=0)
     # a NeRF at hidden 256 takes nerf_tpu's field kernel there: the module
-    # on the CPU (the card raises and names PERF.md's row 1)
+    # on the CPU (the card takes the port's NerfField)
     big = NeRFModel(hidden_dim=256)
     assert fused_field_for(big) is big
 
@@ -238,15 +239,16 @@ _FAMILIES = {"nerf": (NeRFModel, JaxNeRF, make_fused_nerf_apply),
 
 
 @pytest.mark.parametrize("family,hidden,layers,row", [
-    ("nerf", 32, 8, None), ("nerf", 256, 8, "row 1"), ("siren", 256, 8, "row 9"),
-    ("siren", 256, 4, None), ("gabor", 128, 8, None), ("gabor", 256, 8, "row 13"),
-    ("gabor", 256, 4, "row 13")])
+    ("nerf", 32, 8, None), ("nerf", 256, 8, "kernel"), ("nerf", 512, 8, "row 1"),
+    ("siren", 256, 8, "row 9"), ("siren", 256, 4, None), ("gabor", 128, 8, None),
+    ("gabor", 256, 8, "row 13"), ("gabor", 256, 4, "row 13")])
 def test_teacher_field_route_follows_nerf_tpu(monkeypatch, family, hidden, layers, row):
     """A NeRF, SIREN or GaborNet teacher takes a field kernel exactly where
     nerf_tpu's make_fused_*_apply gives one (NeRF and GaborNet by width,
-    SIREN by width and 8 layers): on the card that kernel is not ported, so
-    fused_field_for raises and names its row of PERF.md's table; elsewhere,
-    and on the CPU, the teacher is its module."""
+    SIREN by width and 8 layers): on the card a NeRF at hidden 256 takes the
+    port's NerfField; where the port lacks that kernel (NeRF at 512, SIREN,
+    GaborNet) fused_field_for raises and names its row of PERF.md's table;
+    elsewhere, and on the CPU, the teacher is its module."""
     cls, jcls, make = _FAMILIES[family]
     kw = dict(hidden_dim=hidden) if family == "nerf" else dict(hidden_dim=hidden,
                                                               num_layers=layers)
@@ -256,6 +258,8 @@ def test_teacher_field_route_follows_nerf_tpu(monkeypatch, family, hidden, layer
     monkeypatch.setattr(step_mod, "_on_card", lambda m: True)
     if row is None:
         assert fused_field_for(model) is model
+    elif row == "kernel":
+        assert type(fused_field_for(model)) is NerfField
     else:
         with pytest.raises(NotImplementedError, match=re.escape(f"PERF.md {row} ")):
             fused_field_for(model)

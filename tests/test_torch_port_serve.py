@@ -35,6 +35,7 @@ from nerf_tpu_torch.models.convert import load_jax_params
 from nerf_tpu_torch.models.registry import model_from_config
 from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
 from nerf_tpu_torch.serve import RenderService, build_renderer, make_http_server
+from nerf_tpu_torch.train.loop import render_settings_from_config
 from nerf_tpu_torch.utils.checkpoint import (
     latest_checkpoint,
     load_checkpoint,
@@ -160,12 +161,16 @@ def test_http_routes(services):
 
 
 def test_bake_and_occupancy_are_not_ported(services):
+    """Baked caches still raise and name their ROADMAP row; occupancy
+    priors are ported now (tests/test_torch_port_occupancy.py): the
+    renderer samples from a baked grid."""
     cfg = services["cfg"]
     m = model_from_config(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_renderer(m, None, cfg, None, bake=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_renderer(m, None, cfg, None, occupancy=32)
+    renderer, params = build_renderer(m, None, cfg, render_settings_from_config(cfg),
+                                      occupancy=8, log=lambda *a: None)
+    assert renderer.occupancy.grid.shape == (8, 8, 8, 1) and params[0] is m
 
 
 # ---------------------------------------------------------------- checkpoints

@@ -353,7 +353,7 @@ def test_scan_steps_equal_single_steps(scene_root):
 
 
 @pytest.mark.parametrize("field,value,row", [
-    ("occupancy_res", 8, "row 13"), ("upsample_steps", "5:16", "row 13"),
+    ("tv_sh_lambda", 0.1, "row 13"), ("upsample_steps", "5:16", "row 13"),
     ("tv_lambda", 0.1, "row 13"), ("mesh_shape", "2,1", "row 14"),
     ("dataset_type", "llff", "row 9"), ("model_type", "ngp", "row 13")])
 def test_fit_refuses_unported_options(scene_root, field, value, row):
