@@ -114,9 +114,29 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      backward launches), then 200 photometric steps with occupancy_res = 64
      and occupancy_interval = 100 (the mse at 190 under half of that at 0),
      a bit-identical resume from step 100, the step's rate and a profile of
-     one occupancy-guided step.
+     one occupancy-guided step;
+ 20. the SIREN and GaborNet field kernels (forward and backward) against
+     their plain versions on the card (TF32 off), lego_siren.txt's model
+     (hidden 256, 8 layers / stages), float32 and bfloat16, on phase 17's
+     point sets: rgb, sigma and every gradient (weights, the GaborNet's
+     filter banks after autograd through the packing, points, directions);
+     each timed in turns at 65,536 and 16,384 points (runs of 20 launches
+     per pair of events) against its bound;
+ 21. serving lego_siren.txt and its GaborNet variant with --occupancy 64
+     from phase 9's and phase 12's checkpoints: four field-kernel launches
+     per bake, the grid equal to the one baked through the plain version,
+     three 400x400 requests (157 render launches each, no field launch),
+     each within mean abs 1e-2 of the unfused render with the same grid,
+     their times and a profile of one;
+ 22. cross-family distillation through fit(): a GaborNet student of
+     lego_siren.txt from phase 9's SIREN checkpoint, and a SIREN student
+     from phase 12's GaborNet checkpoint, each 100 distillation steps of
+     16,384 points (the loss falls; 100 teacher forward, 100 student
+     forward and 100 student backward launches), then 100 photometric
+     steps (the mse at 90 under that at 0; one validation image, 157
+     forward launches) and the step's rate.
 
-The last lines are a JSON object of per-kernel numbers (all twelve
+The last lines are a JSON object of per-kernel numbers (all sixteen
 kernels), the card, and ``{"ok": true, "device": {...}}``. Needs a CUDA device and this checkout;
 imports nothing of JAX or of the JAX package.
 """
@@ -230,6 +250,32 @@ FIELD_BATCH = 20       # launches per timed run of a field kernel
 # beyond the bound; the worst is printed.
 FIELD_PT_TOL = {"float32": 1e-4, "bfloat16": 5e-3}
 FIELD_DOMAIN = (-2.75, -1.25)   # grid_domain of lego.txt's settings
+# The SIREN and GaborNet fields (lego_siren.txt's model, hidden 256, 8 layers
+# / stages, L = 4 for the direction), per point: forward MACs (SIREN_MACS;
+# GABOR_MACS plus the filters' two 3-long products per element, 8 x 2 x 3 x
+# 256) and transcendentals (SIREN: a sine per layer output and head element,
+# SIREN_TRIG; GaborNet: a sine and an exponential per filter element; both
+# the 24 sines of the direction encoding); the backward recomputes the
+# forward and takes the dz W^T products with the input products and the A^T
+# dz products (3 x the forward's MACs), and the derivatives' cosines (SIREN:
+# a sine and a cosine per element; GaborNet: sine, exponential and cosine
+# per filter element; the encoding's 24 cosines). Bytes as the NeRF field's,
+# the GaborNet's filter banks (8 x 9 x 256 floats) with the weights.
+# Kernel vs plain version: (outputs, gradients, point cotangents at the
+# 99.9th percentile), each as the NeRF field's (TOL, GRAD_TOL,
+# FIELD_PT_TOL) but the SIREN in bfloat16. There w0 = 30 and sigma_mul = 10
+# magnify one bf16 rounding that a float32 sum in another order flips: at
+# 37 points (where the plain version's products run in another summation
+# order than at 1,000 or more rows) the kernel and the plain version
+# differed by 5.8e-4 in rgb, 1.5e-3 of max sigma in sigma and 4.2e-3 of the
+# max in a point cotangent (NVIDIA H100 80GB HBM3, 700.00 W; 6e-5 and 2e-4
+# at 1,000 points and more), as the port's plain version and nerf_tpu's
+# Pallas kernel differ on the CPU (8.8e-4, 3.0e-3, 8.5e-3;
+# tests/test_torch_port_siren_gabor_field.py): 1e-2, 5e-2 and 5e-2.
+SG_TOL = {("siren", "bfloat16"): (1e-2, 5e-2, 5e-2)}
+SG_FIELD = {"siren": {"macs": SIREN_MACS, "trig": (SIREN_TRIG + 24, 2 * SIREN_TRIG + 48)},
+            "gabor": {"macs": GABOR_MACS + 8 * 2 * 3 * 256,
+                      "trig": (2 * 8 * 256 + 24, 3 * 8 * 256 + 48)}}
 
 
 def fail(msg: str) -> None:
@@ -1148,14 +1194,20 @@ def check_kilonerf_kernels(torch, dev):
 
 
 def field_bound_ms(n: int, cdt: str, weight_bytes: int,
-                   grad_bytes: int | None = None) -> tuple:
-    """Least time of the NeRF field forward (``grad_bytes`` None) or
-    backward over ``n`` points: the products (2 operations a MAC) over the
-    compute dtype's peak and the sines (and cosines) over the float32
-    CUDA-core rate (their sum in float32, the larger in bfloat16), against
-    the bytes that must move (see FIELD_TRIG)."""
-    macs = mlp_macs(256, 63, 27) * (1 if grad_bytes is None else 3)
-    trig = FIELD_TRIG * (1 if grad_bytes is None else 2)
+                   grad_bytes: int | None = None, family: str = "nerf") -> tuple:
+    """Least time of a field forward (``grad_bytes`` None) or backward over
+    ``n`` points (the NeRF field's, or ``family`` "siren" / "gabor"): the
+    products (2 operations a MAC) over the compute dtype's peak and the
+    transcendentals over the float32 CUDA-core rate (their sum in float32,
+    the larger in bfloat16), against the bytes that must move (see
+    FIELD_TRIG and SG_FIELD)."""
+    fwd = grad_bytes is None
+    if family == "nerf":
+        macs = mlp_macs(256, 63, 27) * (1 if fwd else 3)
+        trig = FIELD_TRIG * (1 if fwd else 2)
+    else:
+        macs = SG_FIELD[family]["macs"] * (1 if fwd else 3)
+        trig = SG_FIELD[family]["trig"][0 if fwd else 1]
     nbytes = n * (24 + 16) + weight_bytes
     if grad_bytes is not None:
         nbytes += n * 24 + grad_bytes
@@ -1289,6 +1341,181 @@ def check_nerf_field_kernels(torch, dev):
         for name, key in (("fused_nerf_fwd", "fwd"), ("fused_nerf_bwd", "bwd")):
             for n in (65536, 16384):
                 results[(name, cdt, n)]["err"] = worst[key]
+    return results
+
+
+# ---------------------------------------------------------------- phase 20
+
+
+def sg_plain(model):
+    """The field wrapper class of a SIREN or GaborNet ``model`` and the
+    plain versions ``(fwd, bwd)`` of its kernels bound to the model's
+    scalars."""
+    from nerf_tpu_torch.models.siren import SirenModel
+    from nerf_tpu_torch.ops.cuda.fused_gabor import (
+        GaborField, gabor_field_bwd_plain, gabor_field_plain)
+    from nerf_tpu_torch.ops.cuda.fused_siren import (
+        SirenField, siren_field_bwd_plain, siren_field_plain)
+
+    wrapper, fwd, bwd = ((SirenField, siren_field_plain, siren_field_bwd_plain)
+                         if isinstance(model, SirenModel) else
+                         (GaborField, gabor_field_plain, gabor_field_bwd_plain))
+    k = wrapper(model).consts
+    return wrapper, (lambda pk, p, d: fwd(pk, p, d, k),
+                     lambda pk, p, d, c: bwd(pk, p, d, c, k))
+
+
+def sg_field(torch, family: str, cdt: str, dev):
+    """A seeded lego_siren.txt-width model of ``family`` ("siren" or
+    "gabor": hidden 256, 8 layers / stages) on ``dev``, with ``sg_plain``'s
+    wrapper class and plain versions."""
+    from nerf_tpu_torch.models.gabor import GaborModel
+    from nerf_tpu_torch.models.siren import SirenModel
+
+    cls = {"siren": SirenModel, "gabor": GaborModel}[family]
+    model = cls(compute_dtype=cdt, generator=torch.Generator().manual_seed(7)).to(dev)
+    return (model, *sg_plain(model))
+
+
+def bank_grads(torch, model, gf) -> dict:
+    """The GaborNet's filter-bank gradients ``gf`` (``pack_filters``'
+    layout) carried by autograd through the packing onto omega, phi, mu and
+    gamma of every stage, by name."""
+    from nerf_tpu_torch.ops.cuda.fused_gabor import pack_filters
+
+    names = [(f"{kind}{i}", getattr(f, kind)) for i, f in enumerate(model.filters)
+             for kind in ("omega", "phi", "mu", "gamma")]
+    with torch.enable_grad():
+        grads = torch.autograd.grad(pack_filters(model), [p for _, p in names],
+                                    grad_outputs=gf)
+    return {name: g for (name, _), g in zip(names, grads)}
+
+
+def check_siren_gabor_field_kernels(torch, dev):
+    """The SIREN and GaborNet field kernels (forward and backward) against
+    their plain versions on every phase-17 point set, float32 and bfloat16
+    with TF32 off: rgb, sigma, the weight gradients, the GaborNet's filter
+    banks after autograd through the packing, and the point and direction
+    cotangents of a random cotangent; each timed in turns (plain, kernel,
+    kernel, plain) at 65,536 and 16,384 points against its bound."""
+    from nerf_tpu_torch.ops.cuda import fused_render_gabor, fused_render_siren
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    sets = field_point_sets(torch, dev)
+    views = {"siren": fused_render_siren.grad_views, "gabor": fused_render_gabor.grad_views}
+    for family in ("siren", "gabor"):
+        kname = {"siren": "fused_siren", "gabor": "fused_gabor"}[family]
+        for cdt in ("float32", "bfloat16"):
+            model, wrapper, (plain_fwd, plain_bwd) = sg_field(torch, family, cdt, dev)
+            field = wrapper(model).pack()
+            pk = field.packed
+            packed = pk if family == "siren" else pk.packed
+            n_f = 0 if family == "siren" else pk.filters.numel()
+            weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
+                            + (packed.vec.numel() + n_f) * 4)
+            grad_bytes = (packed.wmat.numel() + packed.vec.numel() + n_f) * 4
+            tol_out, tol_grad, tol_pt = SG_TOL.get(
+                (family, cdt), (TOL[cdt]["rgb"], GRAD_TOL[cdt], FIELD_PT_TOL[cdt]))
+            worst = {"fwd": 0.0, "bwd": 0.0}
+            for label, (pts, dirs) in sets.items():
+                n = pts.shape[0]
+                cot = torch.randn(n, 4, device=dev,
+                                  generator=torch.Generator(device=dev).manual_seed(n))
+                with torch.no_grad():
+                    ref = plain_fwd(pk, pts, dirs)
+                    out = field._forward(pk, pts, dirs)
+                    ref_g = plain_bwd(pk, pts, dirs, cot)
+                    got_g = field._backward(pk, pts, dirs, cot)
+                    torch.cuda.synchronize()
+                    if n < 1000:
+                        # the plain version itself at these points inside a
+                        # larger batch (its products in another order)
+                        big_p, big_d = sets["uniform 1000"]
+                        alt = plain_fwd(pk, torch.cat([pts, big_p]),
+                                        torch.cat([dirs, big_d]))
+                        say(f"kernel {family} field {cdt} {label}: the plain version "
+                            f"alone against inside a {n + 1000}-point batch: rgb "
+                            f"{float((alt[0][:n] - ref[0]).abs().max()):.3e}, sigma "
+                            f"{float((alt[1][:n] - ref[1]).abs().max()):.3e}; the kernel "
+                            f"against the batched plain version: rgb "
+                            f"{float((alt[0][:n] - out[0]).abs().max()):.3e}, sigma "
+                            f"{float((alt[1][:n] - out[1]).abs().max()):.3e}")
+                for x in out + got_g:
+                    if not torch.isfinite(x).all():
+                        fail(f"{family} field kernels {cdt} {label}: non-finite output "
+                             "or gradient")
+                smax = float(ref[1].abs().max())
+                errs = {"rgb": float((out[0] - ref[0]).abs().max()),
+                        "sigma": float((out[1] - ref[1]).abs().max()) / max(smax, 1.0)}
+                gerr = grad_errors(torch, got_g[:2], ref_g[:2], views[family])
+                if family == "gabor":
+                    bg, br = bank_grads(torch, model, got_g[2]), bank_grads(torch, model, ref_g[2])
+                    floor = 1e-2 * max(float(v.abs().max()) for v in br.values())
+                    for name in br:
+                        gerr[name] = float((bg[name] - br[name]).abs().max()) / max(
+                            float(br[name].abs().max()), floor)
+                w = max(gerr, key=gerr.get)
+                pt, bad_pts = {}, 0
+                for name, i in (("points", -2), ("dirs", -1)):
+                    e = ((got_g[i] - ref_g[i]).abs().max(dim=1).values
+                         / ref_g[i].abs().max())
+                    pt[name] = (float(torch.quantile(e, 0.999)), float(e.max()))
+                    bad_pts = max(bad_pts, int((e > tol_pt).sum()))
+                say(f"kernel {family} field {cdt} {label}: forward max_abs_err rgb="
+                    f"{errs['rgb']:.3e} sigma={errs['sigma']:.3e} (over max(1, max "
+                    f"sigma) = {max(smax, 1.0):.3g}; tol {tol_out:.0e}); gradient "
+                    f"error (max abs over max |g|) worst {w}={gerr[w]:.3e} (tol "
+                    f"{tol_grad:.0e}), median {statistics.median(gerr.values()):.3e}; "
+                    + "; ".join(f"{k} cotangent error 99.9% {q:.3e} (tol "
+                                f"{tol_pt:.0e}), worst {m:.3e}"
+                                for k, (q, m) in pt.items())
+                    + f"; points beyond the tol: {bad_pts} of {n}")
+                if (max(errs.values()) > tol_out or gerr[w] > tol_grad
+                        or max(q for q, _ in pt.values()) > tol_pt
+                        or bad_pts > 0.001 * n):
+                    fail(f"{family} field kernels {cdt} {label} disagree with their "
+                         "plain versions")
+                worst["fwd"] = max(worst["fwd"], *errs.values())
+                worst["bwd"] = max(worst["bwd"], gerr[w], *(q for q, _ in pt.values()))
+                del ref, out, ref_g, got_g
+                torch.cuda.empty_cache()
+                if n not in (65536, 16384):
+                    continue
+                with torch.no_grad():
+                    fns = {
+                        (f"{kname}_fwd", "plain"): lambda: plain_fwd(pk, pts, dirs),
+                        (f"{kname}_fwd", "kernel"): lambda: field._forward(pk, pts, dirs),
+                        (f"{kname}_bwd", "plain"): lambda: plain_bwd(pk, pts, dirs, cot),
+                        (f"{kname}_bwd", "kernel"):
+                            lambda: field._backward(pk, pts, dirs, cot),
+                    }
+                    times = {key: [] for key in fns}
+                    for f in fns.values():
+                        f()                                    # warm-up
+                    for name in (f"{kname}_fwd", f"{kname}_bwd"):
+                        for which in ("plain", "kernel", "kernel", "plain"):
+                            f = fns[(name, which)]
+                            times[(name, which)] += [
+                                t / FIELD_BATCH for t in time_calls(
+                                    torch, lambda f=f: [f() for _ in range(FIELD_BATCH)],
+                                    2)]
+                    torch.cuda.empty_cache()
+                for name in (f"{kname}_fwd", f"{kname}_bwd"):
+                    ms = statistics.median(times[(name, "kernel")])
+                    plain_ms = statistics.median(times[(name, "plain")])
+                    bms, by = field_bound_ms(
+                        n, cdt, weight_bytes, grad_bytes if name.endswith("bwd") else None,
+                        family)
+                    say(f"kernel {name} {cdt} {label}: kernel {ms:.3f} ms, plain "
+                        f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), share of bound "
+                        f"{bms / ms:.4f}")
+                    results[(name, cdt, n)] = dict(ms=ms, plain_ms=plain_ms,
+                                                   bound_ms=bms, bound_by=by)
+            for name, key in ((f"{kname}_fwd", "fwd"), (f"{kname}_bwd", "bwd")):
+                for n in (65536, 16384):
+                    results[(name, cdt, n)]["err"] = worst[key]
     return results
 
 
@@ -1782,6 +2009,146 @@ def train_distill_occupancy(torch, dev, tmp: str, teacher: str) -> dict:
     return {"fwd_launches": counts[0], "bwd_launches": counts[1], "step_rps": step_rps}
 
 
+# ---------------------------------------------------------------- phase 21
+
+
+def serve_occupancy_sg(torch, dev, tmp: str, family: str, ckpt: str) -> dict:
+    """Phase 21: lego_siren.txt (``family`` "siren") or its GaborNet variant
+    ("gabor") served from its phase-9 / phase-12 checkpoint with
+    --occupancy 64. The bake: four launches of the family's field forward
+    kernel (64^3 points in chunks of 65,536), its occupied share, the grid
+    equal to the one baked through the field's plain version; then the three
+    requests of ``serve`` (157 render launches each, no field launch), each
+    against the unfused render with the same grid, their times and a
+    profile of one."""
+    import dataclasses
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.models.registry import grid_domain
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
+    from nerf_tpu_torch.ops.occupancy import bake_occupancy, sigma_field
+    from nerf_tpu_torch.serve import RenderService
+
+    cfg = parse_config_file(os.path.join(ROOT, "configs", "lego_siren.txt"))
+    cfg = dataclasses.replace(cfg, dataset_path=os.path.join(tmp, "scene"),
+                              model_type=family)
+    from nerf_tpu_torch.ops.cuda.fused_gabor import GaborField
+    from nerf_tpu_torch.ops.cuda.fused_siren import SirenField
+
+    wrapper = {"siren": SirenField, "gabor": GaborField}[family]
+    wrapper.launches = 0                     # the main path's count starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc = RenderService.from_checkpoint(cfg, ckpt, occupancy=64, device=dev, log=say)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    bake_launches = wrapper.launches
+    grid = svc._renderer.occupancy.grid
+    if bake_launches != 4 or grid.shape != (64, 64, 64, 1):
+        fail(f"{family} occupancy bake: {bake_launches} field launches, grid "
+             f"{tuple(grid.shape)}")
+    src = svc.params[0]
+    _, (plain_fwd, _) = sg_plain(src)
+    field = wrapper(src).pack()
+    with torch.no_grad():
+        plain = bake_occupancy(
+            sigma_field(lambda p, d: plain_fwd(field.packed, p, d)), grid_res=64,
+            domain=grid_domain(cfg), device=dev)
+    diff = int((grid != plain).sum())
+    say(f"serve occupancy {family}: the 64^3 bake launched the {family} field forward "
+        f"{bake_launches} times (service set-up {setup:.2f} s); occupied share "
+        f"{float(grid.mean()):.4f}; cells that differ from the plain-version bake: "
+        f"{diff} of 262144")
+    if diff:
+        fail(f"the kernel-baked {family} occupancy grid differs from the plain version's")
+    fused_cls = {"siren": FusedSirenRender, "gabor": FusedGaborRender}[family]
+    before = wrapper.launches
+    launches = serve(torch, dev, tmp, "lego_siren.txt", fused_cls,
+                     f"fused_{family}_fwd", family, svc=svc,
+                     compare=("/pose/0", "/pose/1", "/render"))
+    if wrapper.launches != before:
+        fail(f"{family} occupancy requests launched the field kernel "
+             f"{wrapper.launches - before} times")
+    return {"bake_launches": bake_launches, "launches": launches}
+
+
+# ---------------------------------------------------------------- phase 22
+
+
+def train_distill_cross(torch, dev, tmp: str, student: str, teacher: str) -> dict:
+    """Phase 22: fit() of lego_siren.txt with model_type ``student``
+    ("siren" or "gabor") distilled from ``teacher``, a checkpoint of the
+    other family (phase 9's or 12's): 100 distillation steps of 16,384
+    points (teacher forward, student forward and backward through the field
+    kernels; the loss falls), then 100 photometric steps through the
+    student's fused render (the mse at 90 under that at 0, one validation
+    image at 50); the launch counts and the step's rate."""
+    import dataclasses
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.ops.cuda.fused_gabor import GaborField
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
+    from nerf_tpu_torch.ops.cuda.fused_siren import SirenField
+    from nerf_tpu_torch.train.loop import fit
+
+    fields = {"siren": SirenField, "gabor": GaborField}
+    s_field = fields[student]
+    t_field = fields["gabor" if student == "siren" else "siren"]
+    fused_cls = {"siren": FusedSirenRender, "gabor": FusedGaborRender}[student]
+    base = parse_config_file(os.path.join(ROOT, "configs", "lego_siren.txt"))
+    cfg = dataclasses.replace(
+        base, model_type=student, dataset_path=os.path.join(tmp, "scene"),
+        num_iters=100, log_interval=10, val_interval=50, save_interval=100,
+        distill_from=teacher, distill_steps=100, distill_batch=16384,
+        save_path=os.path.join(tmp, f"train_models_distill_{student}"),
+        log_dir=os.path.join(tmp, f"train_logs_distill_{student}"))
+    lines: list = []
+    for cls in (SirenField, GaborField):                  # the main path's counts
+        cls.launches = cls.bwd_launches = 0
+    fused_cls.launches = fused_cls.train_launches = 0
+    t0 = time.perf_counter()
+    fit(cfg, device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (t_field.launches, t_field.bwd_launches, s_field.launches,
+              s_field.bwd_launches)
+    render = (fused_cls.train_launches, fused_cls.launches)
+    per_image = math.ceil(HW * HW / cfg.chunk_size)
+    say(f"train: fit a {student} student of lego_siren.txt distilled from the "
+        f"{t_field.family} checkpoint (100 x 16384 points), 100 iterations in "
+        f"{wall:.1f} s; launches: teacher field forward {counts[0]}, backward "
+        f"{counts[1]}; student field forward {counts[2]}, backward {counts[3]}; "
+        f"render train {render[0]}, forward {render[1]}")
+    for line in lines:
+        if "[Iter" in line or "Validation" in line or "Distill" in line:
+            say(f"  {line}")
+    if counts != (100, 0, 100, 100) or render != (100, per_image):
+        fail(f"cross-family distillation into {student} launched (teacher forward, "
+             f"backward, student forward, backward) {counts}, want (100, 0, 100, "
+             f"100); (render train, forward) {render}, want (100, {per_image})")
+    scal = read_scalars(cfg.log_dir)
+    dl = scal["distill_loss"]
+    if sorted(dl) != list(range(100)) or not dl[99] < dl[0]:
+        fail(f"{student} distillation loss {dl.get(0)} at 0 -> {dl.get(99)} at 99 "
+             "does not fall")
+    loss = scal["loss"]
+    if sorted(loss) != list(range(0, 100, 10)) or not all(
+            math.isfinite(v) for v in loss.values()):
+        fail(f"{student} after distillation logged mse {loss}")
+    if not loss[90] < loss[0]:
+        fail(f"{student} after distillation: mse at 90 ({loss[90]}) is not under that "
+             f"at 0 ({loss[0]})")
+    step_rps = scal["rays_per_sec"][90]
+    say(f"train: {student} distill loss {dl[0]:.6f} at 0 -> {dl[99]:.6f} at 99; mse "
+        f"{loss[0]:.6f} at 0 -> {loss[90]:.6f} at 90 (ratio {loss[90] / loss[0]:.4f}); "
+        f"photometric step {step_rps:.0f} rays/s ({cfg.num_random_rays} rays, "
+        f"{cfg.num_samples} samples, {cfg.compute_dtype})")
+    return {"teacher_fwd": counts[0], "fwd": counts[2], "bwd": counts[3],
+            "step_rps": step_rps}
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -1902,6 +2269,7 @@ def main() -> int:
     gabor_checks = check_gabor_kernels(torch, dev)
     kilo_checks = check_kilonerf_kernels(torch, dev)
     field_checks = check_nerf_field_kernels(torch, dev)
+    sg_checks = check_siren_gabor_field_kernels(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = serve(torch, dev, tmp, "lego.txt", FusedNerfRender,
                          "fused_render_fwd")
@@ -1921,6 +2289,13 @@ def main() -> int:
         lego_ckpt = os.path.join(tmp, "train_models_nerf", "nerf_model_000200")
         occ_served = serve_occupancy(torch, dev, tmp, lego_ckpt)
         distilled = train_distill_occupancy(torch, dev, tmp, lego_ckpt)
+        sg_ckpt = {f: os.path.join(tmp, f"train_models_{f}", f"{f}_model_000200")
+                   for f in ("siren", "gabor")}
+        sg_served = {f: serve_occupancy_sg(torch, dev, tmp, f, sg_ckpt[f])
+                     for f in ("siren", "gabor")}
+        sg_distilled = {f: train_distill_cross(torch, dev, tmp, f,
+                                               sg_ckpt["gabor" if f == "siren" else "siren"])
+                        for f in ("gabor", "siren")}
     bench_headline(torch, dev)
     bench_siren(torch, dev)
     bench_gabor(torch, dev)
@@ -1979,6 +2354,18 @@ def main() -> int:
                            launched, field_checks[(name, "bfloat16", n)],
                            max(field_checks[(name, c, n)]["err"]
                                for c in ("float32", "bfloat16"))))
+    for family, other in (("siren", "gabor"), ("gabor", "siren")):
+        fwd_launched = (sg_served[family]["bake_launches"] + sg_distilled[family]["fwd"]
+                        + sg_distilled[other]["teacher_fwd"])
+        for name, line, launched, n in (
+                (f"fused_{family}_fwd", {"siren": 103, "gabor": 96}[family],
+                 fwd_launched, 65536),
+                (f"fused_{family}_bwd", {"siren": 117, "gabor": 110}[family],
+                 sg_distilled[family]["bwd"], 16384)):
+            kernels.append(row(name, f"{name}.cu", f"{nerf_tpu}fused_{family}.py:{line}",
+                               launched, sg_checks[(name, "bfloat16", n)],
+                               max(sg_checks[(name, c, n)]["err"]
+                                   for c in ("float32", "bfloat16"))))
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")
     say(json.dumps({"ok": True, "device": {

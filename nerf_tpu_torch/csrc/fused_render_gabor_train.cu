@@ -69,36 +69,8 @@ namespace {
 
 using namespace gabor;
 
-constexpr int N_TOT = N_W + N_B;                 // gradient floats
 constexpr int NPART = (N_TOT + 1 + 3) / 4 * 4;   // per-CTA: gradients, loss
-constexpr int N_COLS = 12;                       // per-point columns (C_*)
-constexpr int FLOATS_PER_POINT =
-    NL * H + (NL - 1) * H + H + HR + DENC_LD + 2 * LDZ + N_COLS;
-static_assert(FLOATS_PER_POINT % 4 == 0, "stash rows must stay 16-byte aligned");
-static_assert(C_DSIG < N_COLS, "column plan");
-
-struct Scratch {
-  Stash st;
-  float* dz[2];
-  float* cols;            // N_COLS x cap
-};
-
-__device__ Scratch carve(float* p, int cap) {
-  Scratch s;
-  const size_t c = static_cast<size_t>(cap);
-  for (int i = 0; i < NL; ++i) { s.st.z[i] = p; p += c * H; }
-  for (int i = 0; i < NL - 1; ++i) { s.st.u[i] = p; p += c * H; }
-  s.st.feat = p; p += c * H;
-  s.st.y = p; p += c * HR;
-  s.st.denc = p; p += c * DENC_LD;
-  s.dz[0] = p; p += c * LDZ;
-  s.dz[1] = p; p += c * LDZ;
-  s.cols = p;
-  s.st.sigma_pre = p + C_SIGP * c;
-  s.st.rgb = p + C_RGB * c;
-  s.st.cap = cap;
-  return s;
-}
+constexpr int FLOATS_PER_POINT = floats_per_point<2>();
 
 // The per-ray pass of stage `stage` (0-based), thread = column: for each of
 // the CTA's rays (rows from 0) and its samples in order, the filter again
@@ -167,7 +139,7 @@ fused_gabor_train_kernel(RayInputs in, Gabor gp, const WT* __restrict__ wmat,
   const int npts = nr * S;
   const int cap_c = (npts + P - 1) / P * P;
   const size_t cz = static_cast<size_t>(cap);
-  Scratch sc = carve(scratch + static_cast<size_t>(blockIdx.x) * cz * FLOATS_PER_POINT, cap);
+  Scratch sc = carve<2>(scratch + static_cast<size_t>(blockIdx.x) * cz * FLOATS_PER_POINT, cap);
   float* part = partial + static_cast<size_t>(blockIdx.x) * NPART;
   float* cols = sc.cols;
   const float* vec = in.vec;
@@ -187,89 +159,14 @@ fused_gabor_train_kernel(RayInputs in, Gabor gp, const WT* __restrict__ wmat,
     part[N_TOT] = scale * s;
   }
 
-  // ---- 3. backward: the heads, then stage by stage ----
-  const float* dsig = cols + C_DSIG * cz;
-  const float* z8 = sc.st.z[NL - 1];
-  float* dzA = sc.dz[0];
-  float* dzB = sc.dz[1];
-  float* pvec = part + N_W;
-  WT* wst = reinterpret_cast<WT*>(smem + SM_WST);
-  // rgb output layer: dy = dzr1 wr1^T (3 live columns), dzr0 = dy * (y > 0)
-  for (int idx = tid; idx < cap_c * HR; idx += THREADS) {
-    const int l = idx / HR, k = idx % HR;
-    float dy = 0.f;
-    for (int c = 0; c < 3; ++c) {
-      float d = cols[(C_DZR1 + c) * cz + l];
-      if (BF16) d = round_bf16(d);
-      dy = fmaf(d, load1(wmat + OFF_WR1 + k * 8 + c), dy);
-    }
-    dzA[static_cast<size_t>(l) * LDZ + k] =
-        sc.st.y[static_cast<size_t>(l) * HR + k] > 0.f ? dy : 0.f;
-  }
-  for (int o = tid; o < HR * 8; o += THREADS) {
-    const int k = o / 8, c = o % 8;
-    float s = 0.f;
-    if (c < 3) {
-      for (int l = 0; l < cap_c; ++l) {
-        float d = cols[(C_DZR1 + c) * cz + l];
-        if (BF16) d = round_bf16(d);
-        s = fmaf(sc.st.y[static_cast<size_t>(l) * HR + k], d, s);
-      }
-    }
-    part[OFF_WR1 + o] = s;
-  }
-  for (int c = tid; c < 8; c += THREADS) {
-    float s = 0.f;
-    if (c < 3)
-      for (int l = 0; l < cap_c; ++l) s += cols[(C_DZR1 + c) * cz + l];
-    pvec[OFF_BR1 + c] = s;
-  }
-  if (tid == 0) {
-    float s = 0.f;
-    for (int l = 0; l < cap_c; ++l) s += dsig[l];
-    pvec[OFF_BS] = s;
-  }
-  for (int k = tid; k < H; k += THREADS) {
-    float s = 0.f;
-    for (int l = 0; l < cap_c; ++l)
-      s = fmaf(z8[static_cast<size_t>(l) * H + k], dsig[l], s);
-    pvec[OFF_WS + k] = s;
-  }
-  __syncthreads();
-  // rgb hidden layer: dfeat = dzr0 wr0f^T; wr0f, wr0d, br0
-  dact<HR, BF16, Epi::None, false>(dzA, wmat_t + OFF_WR0F, nullptr, 0, nullptr,
-                                   nullptr, 1.f, dzB, cap_c, smem, wst);
-  dweight<1, false, BF16>(sc.st.feat, H, H, H, dzA, cap_c, part + OFF_WR0F, smem);
-  dweight<1, false, BF16>(sc.st.denc, DENC_LD, DENC_LD, DP, dzA, cap_c,
-                          part + OFF_WR0D, smem);
-  colsum(dzA, HR, cap_c, pvec + OFF_BR0);
-  __syncthreads();
-  // feature remap: dz8 = dfeat wre^T + dsig ws; wre from the unrounded z8, bre
-  dact<H, BF16, Epi::None, true>(dzB, wmat_t + OFF_WRE, nullptr, 0, dsig,
-                                 vec + OFF_WS, 1.f, dzA, cap_c, smem, wst);
-  dweight<2, BF16, BF16>(z8, H, H, H, dzB, cap_c, part + OFF_WRE, smem);
-  colsum(dzB, H, cap_c, pvec + OFF_BRE);
-  __syncthreads();
-  // stages 8..2: filter cotangents and du in place, then w_{i-1}, b_{i-1}
-  // and dz_{i-1}
-  float* cur = dzA;
-  float* nxt = dzB;
-#pragma unroll 1
-  for (int stage = NL - 1; stage >= 1; --stage) {
-    filter_cotangents<BF16>(in, gp, ray0, nr, stage, cur, sc.st.u[stage - 1], dcoef);
-    __syncthreads();
-    dweight<2, false, BF16>(sc.st.z[stage - 1], H, H, H, cur, cap_c,
-                            part + off_w(stage), smem);
-    colsum(cur, H, cap_c, pvec + (stage - 1) * H);
-    dact<H, BF16, Epi::None, false>(cur, wmat_t + off_w(stage), nullptr, 0, nullptr,
-                                    nullptr, 1.f, nxt, cap_c, smem, wst);
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-  // stage 1: dg_1 = dz_1, no weight before it
-  filter_cotangents<BF16>(in, gp, ray0, nr, 0, cur, nullptr, dcoef);
+  // ---- 3. backward: the heads, then stage by stage, each stage's filter
+  //      cotangents per ray ----
+  net_backward<BF16>(sc, cz, vec, wmat, wmat_t, part, cap_c, smem,
+                     [](const float*) {},
+                     [&](int stage, float* dz, const float* u) {
+                       filter_cotangents<BF16>(in, gp, ray0, nr, stage, dz, u, dcoef);
+                       __syncthreads();
+                     });
 }
 
 template <bool BF16, typename WT>

@@ -1,12 +1,16 @@
-// The SIREN family's pieces of the fused render kernels for Hopper (sm_90a):
-// the packed weight layout, the shared-memory plan, and the forward of one
-// 64-point chunk. fused_render_siren_fwd.cu composites the chunk straight
-// away; fused_render_siren_train.cu also stashes what its backward needs.
-// The generic pieces (gemm, compositing, backward blocks) are in
+// The SIREN family's pieces of the fused render and field kernels for Hopper
+// (sm_90a): the packed weight layout, the shared-memory plan, the inputs of
+// one 64-point chunk (ray samples, or field points), its forward, and the
+// MLP backward over a CTA's stashed points. fused_render_siren_fwd.cu
+// composites the chunk straight away; fused_render_siren_train.cu also
+// stashes what its backward needs; fused_siren_fwd.cu / fused_siren_bwd.cu
+// (the field) run the same chain and backward on given points. The
+// generic pieces (gemm, compositing, backward blocks) are in
 // render_common.cuh, shared with the NeRF family.
 //
 // The MLP is the one of nerf_tpu/ops/pallas/fused_siren.py::_mlp_tile on
-// raw positions p = o_aff + t d_aff (no positional encoding):
+// raw positions (p = o_aff + t d_aff, or the field's points; no positional
+// encoding):
 //   h_l = sin(w0_l (h_{l-1} W_l + b_l)), l = 1..8, h_0 = p, w0_1 = w0 (30),
 //         w0_l = w0h (1) after it;
 //   sigma = relu(h8 . ws + bs) * sigma_mul, in float32 from the UNROUNDED h8;
@@ -154,28 +158,19 @@ __device__ __forceinline__ void sine_epilogue(float (&acc)[8][4 * NQ],
   }
 }
 
-// The forward of points [chunk0, chunk0 + nvalid) (nvalid <= P): leaves t,
-// delta, sigma (after the ReLU and sigma_mul) and rgb of each point in
-// shared memory. With STASH what the backward needs also goes to `st` at
-// local rows l0.. (all P rows, the ones past nvalid from zero inputs).
-template <bool BF16, bool STASH, typename WT>
-__device__ void forward_chunk(const RayInputs& in, const WT* __restrict__ wmat,
-                              const Siren& sp, int chunk0, int nvalid,
-                              float* smem, const Stash& st, size_t l0) {
-  float* act0 = smem + SM_ACT0;
-  float* act1 = smem + SM_ACT1;
+// The inputs of ray samples [chunk0, chunk0 + nvalid) (nvalid <= P) into
+// shared memory: the raw positions o_aff + t d_aff (rounded to bf16 in BF16
+// mode), the view direction's encoding (exact sine), t and delta; zero past
+// nvalid. Ends past a barrier.
+template <bool BF16>
+__device__ void load_ray_chunk(const RayInputs& in, int chunk0, int nvalid,
+                               float* smem) {
   float* pos = smem + SM_POS;
   float* denc = smem + SM_DENC;
   float* t_s = smem + SM_T;
   float* delta_s = smem + SM_DELTA;
-  float* sig_s = smem + SM_SIGMA;
-  float* rgb_s = smem + SM_RGB;
-  WT* wst = reinterpret_cast<WT*>(smem + SM_WST);
-  const float* vec = in.vec;
   const int tid = threadIdx.x;
   const int S = in.S;
-
-  // ---- raw positions, direction encoding, per-point columns ----
   for (int idx = tid; idx < 3 * P; idx += THREADS) {
     const int c = idx / P, p = idx % P;
     float v = 0.f;
@@ -209,6 +204,60 @@ __device__ void forward_chunk(const RayInputs& in, const WT* __restrict__ wmat,
     delta_s[tid] = dv;
   }
   __syncthreads();
+}
+
+// The inputs of field points [p0, p0 + nvalid) (nvalid <= P), given with
+// their directions (n, 3), into shared memory, zero past nvalid: the points
+// themselves (rounded to bf16 in BF16 mode, as _mm rounds pts8) and the
+// direction encoding with the EXACT sine (fused_siren.py::_forward_tile
+// encodes with jnp.sin in both modes; only the layers take the fast sine).
+// Ends past a barrier.
+template <bool BF16>
+__device__ void load_point_chunk(const float* __restrict__ pts,
+                                 const float* __restrict__ dirs, int p0, int nvalid,
+                                 int real_d, float* smem) {
+  float* pos = smem + SM_POS;
+  float* denc = smem + SM_DENC;
+  const int tid = threadIdx.x;
+  for (int idx = tid; idx < 3 * P; idx += THREADS) {
+    const int c = idx / P, p = idx % P;
+    float v = 0.f;
+    if (p < nvalid) {
+      v = pts[static_cast<size_t>(p0 + p) * 3 + c];
+      if (BF16) v = round_bf16(v);
+    }
+    pos[c * P + p] = v;
+  }
+  for (int idx = tid; idx < DP * P; idx += THREADS) {
+    const int c = idx / P, p = idx % P;
+    float v = 0.f;
+    if (p < nvalid && c < real_d) {
+      const int d = c < 3 ? c : (c - 3) % 3;
+      v = encode_col<false>(dirs[static_cast<size_t>(p0 + p) * 3 + d], c);
+      if (BF16) v = round_bf16(v);
+    }
+    denc[c * LDA + p] = v;
+  }
+  __syncthreads();
+}
+
+// The SIREN chain of the chunk whose positions and direction encoding are
+// in shared memory: leaves sigma (after the ReLU and sigma_mul) and rgb of
+// each of its P points in shared memory. With STASH what the backward
+// needs also goes to `st` at local rows l0.. (all P rows, the ones past the
+// chunk's points from zero inputs).
+template <bool BF16, bool STASH, typename WT>
+__device__ void mlp_chunk(const float* __restrict__ vec, const WT* __restrict__ wmat,
+                          const Siren& sp, float* smem, const Stash& st, size_t l0) {
+  float* act0 = smem + SM_ACT0;
+  float* act1 = smem + SM_ACT1;
+  float* pos = smem + SM_POS;
+  float* denc = smem + SM_DENC;
+  float* sig_s = smem + SM_SIGMA;
+  float* rgb_s = smem + SM_RGB;
+  WT* wst = reinterpret_cast<WT*>(smem + SM_WST);
+  const int tid = threadIdx.x;
+
   if (STASH) {
     for (int idx = tid; idx < P * DENC_LD; idx += THREADS) {
       const int p = idx / DENC_LD, c = idx % DENC_LD;
@@ -306,6 +355,194 @@ __device__ void forward_chunk(const RayInputs& in, const WT* __restrict__ wmat,
     if (STASH) st.rgb[static_cast<size_t>(c) * st.cap + l0 + p] = r;
   }
   __syncthreads();
+}
+
+// The forward of ray samples [chunk0, chunk0 + nvalid) (nvalid <= P): leaves
+// t, delta, sigma and rgb of each point in shared memory (see mlp_chunk).
+template <bool BF16, bool STASH, typename WT>
+__device__ void forward_chunk(const RayInputs& in, const WT* __restrict__ wmat,
+                              const Siren& sp, int chunk0, int nvalid,
+                              float* smem, const Stash& st, size_t l0) {
+  load_ray_chunk<BF16>(in, chunk0, nvalid, smem);
+  mlp_chunk<BF16, STASH>(in.vec, wmat, sp, smem, st, l0);
+}
+
+// ---------------------------------------------------------------- backward
+
+constexpr int N_TOT = N_W + N_B;                 // gradient floats
+constexpr int NPART = (N_TOT + 1 + 3) / 4 * 4;   // per-CTA: gradients, loss
+constexpr int C_POS = 11;                        // after the shared C_* columns
+constexpr int N_COLS = 16;
+constexpr int FLOATS_PER_POINT =
+    2 * NL * H + H + 2 * HR + DENC_LD + 2 * LDZ + N_COLS;
+static_assert(FLOATS_PER_POINT % 4 == 0, "stash rows must stay 16-byte aligned");
+static_assert(C_POS > C_DSIG && C_POS + 3 <= N_COLS, "column plan");
+
+// One CTA's scratch in device memory: the stash, two dz buffers (points x
+// LDZ each) and the per-point columns.
+struct Scratch {
+  Stash st;
+  float* dz[2];
+  float* cols;            // N_COLS x cap
+};
+
+__device__ inline Scratch carve(float* p, int cap) {
+  Scratch s;
+  const size_t c = static_cast<size_t>(cap);
+  for (int i = 0; i < NL; ++i) { s.st.h[i] = p; p += c * H; }
+  for (int i = 0; i < NL; ++i) { s.st.c[i] = p; p += c * H; }
+  s.st.feat = p; p += c * H;
+  s.st.y = p; p += c * HR;
+  s.st.cr0 = p; p += c * HR;
+  s.st.denc = p; p += c * DENC_LD;
+  s.dz[0] = p; p += c * LDZ;
+  s.dz[1] = p; p += c * LDZ;
+  s.cols = p;
+  s.st.sigma_pre = p + C_SIGP * c;
+  s.st.rgb = p + C_RGB * c;
+  s.st.pos = p + C_POS * c;
+  s.st.cap = cap;
+  return s;
+}
+
+// One sine layer of the backward, l = 8..2: from cur = dz_l, the next
+// dz_{l-1} = ((dz_l W_l^T) * w0_{l-1}) * cos(w0_{l-1} z_{l-1}) into nxt,
+// dW_l = h_{l-1}^T dz_l and db_l = sum dz_l.
+template <bool BF16, typename WT>
+__device__ void back_layer(const float* cur, const WT* __restrict__ wT,
+                           const float* h_prev, const float* c_prev, float w0_prev,
+                           float* nxt, float* part_w, float* part_b, int cap_c,
+                           float* smem) {
+  dact<H, BF16, Epi::Cos, false>(cur, wT, c_prev, H, nullptr, nullptr, w0_prev, nxt,
+                                 cap_c, smem, reinterpret_cast<WT*>(smem + SM_WST));
+  dweight<2, false, BF16>(h_prev, H, H, H, cur, cap_c, part_w, smem);
+  colsum(cur, H, cap_c, part_b);
+  __syncthreads();
+}
+
+// The MLP backward (fused_siren.py::_mlp_bwd_core) over the CTA's points
+// l < cap_c, layer by layer, from the stash and the cotangent columns dzr1
+// (the sigmoid input's, times rgb_mul) and dsig (the density
+// pre-activation's, times sigma_mul): each dz (points x 256, float32,
+// unrounded) chunk by chunk into the other dz buffer (dz W^T on the
+// forward's register-tiled gemm against the transposed matrices wmat_t,
+// its epilogue multiplying by w0 and the stashed cosine), and each weight
+// gradient as one product A^T dz over the CTA's points with its 64 x 256
+// output strip in registers, written once per CTA into `part` (offsets of
+// the packed layout, the vectors from N_W). The first layer's gradient (K
+// = 3) is a plain column loop; bias, ws and bs gradients are column sums.
+// `on_dzr0(dzr0)` runs once dzr0 (points x HR at stride LDZ) is complete,
+// before its buffer is reused (the field backward takes the direction
+// cotangent there). Returns the buffer holding dz1; ends past a barrier.
+// Rounding in BF16 mode follows _mlp_bwd_core: both operands of every dW
+// product and the dz of every dz W^T are rounded to bf16, sums are
+// float32, and h8, sigma_pre and the rgb sigmoid are read in float32.
+template <bool BF16, typename WT, typename OnDzr0>
+__device__ const float* mlp_backward(const Scratch& sc, size_t cz,
+                                     const float* __restrict__ vec,
+                                     const WT* __restrict__ wmat,
+                                     const WT* __restrict__ wmat_t, const Siren& sp,
+                                     float* part, int cap_c, float* smem,
+                                     OnDzr0 on_dzr0) {
+  const int tid = threadIdx.x;
+  const float* cols = sc.cols;
+  const float* dsig = cols + C_DSIG * cz;
+  const float* h8 = sc.st.h[NL - 1];
+  float* dzA = sc.dz[0];
+  float* dzB = sc.dz[1];
+  float* pvec = part + N_W;
+  WT* wst = reinterpret_cast<WT*>(smem + SM_WST);
+  // rgb output layer: dy = dzr1 wr1^T (3 live columns),
+  // dzr0 = (dy * w0h) * cos(w0h zr0)
+  for (int idx = tid; idx < cap_c * HR; idx += THREADS) {
+    const int l = idx / HR, k = idx % HR;
+    float dy = 0.f;
+    for (int c = 0; c < 3; ++c) {
+      float d = cols[(C_DZR1 + c) * cz + l];
+      if (BF16) d = round_bf16(d);
+      dy = fmaf(d, load1(wmat + OFF_WR1 + k * 8 + c), dy);
+    }
+    dzA[static_cast<size_t>(l) * LDZ + k] =
+        (dy * sp.w0h) * sc.st.cr0[static_cast<size_t>(l) * HR + k];
+  }
+  for (int o = tid; o < HR * 8; o += THREADS) {
+    const int k = o / 8, c = o % 8;
+    float s = 0.f;
+    if (c < 3) {
+      for (int l = 0; l < cap_c; ++l) {
+        float d = cols[(C_DZR1 + c) * cz + l];
+        if (BF16) d = round_bf16(d);
+        s = fmaf(sc.st.y[static_cast<size_t>(l) * HR + k], d, s);
+      }
+    }
+    part[OFF_WR1 + o] = s;
+  }
+  for (int c = tid; c < 8; c += THREADS) {
+    float s = 0.f;
+    if (c < 3)
+      for (int l = 0; l < cap_c; ++l) s += cols[(C_DZR1 + c) * cz + l];
+    pvec[OFF_BR1 + c] = s;
+  }
+  if (tid == 0) {
+    float s = 0.f;
+    for (int l = 0; l < cap_c; ++l) s += dsig[l];
+    pvec[OFF_BS] = s;
+  }
+  for (int k = tid; k < H; k += THREADS) {
+    float s = 0.f;
+    for (int l = 0; l < cap_c; ++l)
+      s = fmaf(h8[static_cast<size_t>(l) * H + k], dsig[l], s);
+    pvec[OFF_WS + k] = s;
+  }
+  __syncthreads();
+  // rgb sine layer: dfeat = dzr0 wr0f^T; wr0f, wr0d, br0
+  dact<HR, BF16, Epi::None, false>(dzA, wmat_t + OFF_WR0F, nullptr, 0, nullptr,
+                                   nullptr, 1.f, dzB, cap_c, smem, wst);
+  dweight<1, false, BF16>(sc.st.feat, H, H, H, dzA, cap_c, part + OFF_WR0F, smem);
+  dweight<1, false, BF16>(sc.st.denc, DENC_LD, DENC_LD, DP, dzA, cap_c,
+                          part + OFF_WR0D, smem);
+  colsum(dzA, HR, cap_c, pvec + OFF_BR0);
+  __syncthreads();
+  on_dzr0(static_cast<const float*>(dzA));
+  // feature remap: dz8 = ((dfeat wre^T + dsig ws) * w0h) * cos(w0h z8);
+  // wre from the unrounded h8, bre (dact's first barrier also orders
+  // on_dzr0's reads of dzA before its writes)
+  dact<H, BF16, Epi::Cos, true>(dzB, wmat_t + OFF_WRE, sc.st.c[NL - 1], H, dsig,
+                                vec + OFF_WS, sp.w0h, dzA, cap_c, smem, wst);
+  dweight<2, BF16, BF16>(h8, H, H, H, dzB, cap_c, part + OFF_WRE, smem);
+  colsum(dzB, H, cap_c, pvec + OFF_BRE);
+  __syncthreads();
+  // sine layers 8..2
+  float* cur = dzA;
+  float* nxt = dzB;
+#pragma unroll 1
+  for (int l = NL; l >= 2; --l) {
+    back_layer<BF16>(cur, wmat_t + off_w(l), sc.st.h[l - 2], sc.st.c[l - 2],
+                     l == 2 ? sp.w0 : sp.w0h, nxt, part + off_w(l),
+                     pvec + (l - 1) * H, cap_c, smem);
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+  // first layer: dW1 = pos^T dz1 (rows 3..7 zero), db1
+  const float* pos = cols + C_POS * cz;
+  for (int n = tid; n < H; n += THREADS) {
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+    for (int l = 0; l < cap_c; ++l) {
+      float d = cur[static_cast<size_t>(l) * LDZ + n];
+      if (BF16) d = round_bf16(d);
+      s0 = fmaf(pos[l], d, s0);
+      s1 = fmaf(pos[cz + l], d, s1);
+      s2 = fmaf(pos[2 * cz + l], d, s2);
+    }
+    part[OFF_W1 + 0 * H + n] = s0;
+    part[OFF_W1 + 1 * H + n] = s1;
+    part[OFF_W1 + 2 * H + n] = s2;
+    for (int k = 3; k < 8; ++k) part[OFF_W1 + k * H + n] = 0.f;
+  }
+  colsum(cur, H, cap_c, pvec + 0 * H);
+  __syncthreads();
+  return cur;
 }
 
 }  // namespace siren

@@ -62,55 +62,6 @@ namespace {
 
 using namespace siren;
 
-constexpr int N_TOT = N_W + N_B;                 // gradient floats
-constexpr int NPART = (N_TOT + 1 + 3) / 4 * 4;   // per-CTA: gradients, loss
-constexpr int C_POS = 11;                        // after the shared C_* columns
-constexpr int N_COLS = 16;
-constexpr int FLOATS_PER_POINT =
-    2 * NL * H + H + 2 * HR + DENC_LD + 2 * LDZ + N_COLS;
-static_assert(FLOATS_PER_POINT % 4 == 0, "stash rows must stay 16-byte aligned");
-static_assert(C_POS > C_DSIG && C_POS + 3 <= N_COLS, "column plan");
-
-struct Scratch {
-  Stash st;
-  float* dz[2];
-  float* cols;            // N_COLS x cap
-};
-
-__device__ Scratch carve(float* p, int cap) {
-  Scratch s;
-  const size_t c = static_cast<size_t>(cap);
-  for (int i = 0; i < NL; ++i) { s.st.h[i] = p; p += c * H; }
-  for (int i = 0; i < NL; ++i) { s.st.c[i] = p; p += c * H; }
-  s.st.feat = p; p += c * H;
-  s.st.y = p; p += c * HR;
-  s.st.cr0 = p; p += c * HR;
-  s.st.denc = p; p += c * DENC_LD;
-  s.dz[0] = p; p += c * LDZ;
-  s.dz[1] = p; p += c * LDZ;
-  s.cols = p;
-  s.st.sigma_pre = p + C_SIGP * c;
-  s.st.rgb = p + C_RGB * c;
-  s.st.pos = p + C_POS * c;
-  s.st.cap = cap;
-  return s;
-}
-
-// One sine layer of the backward, l = 8..2: from cur = dz_l, the next
-// dz_{l-1} = ((dz_l W_l^T) * w0_{l-1}) * cos(w0_{l-1} z_{l-1}) into nxt,
-// dW_l = h_{l-1}^T dz_l and db_l = sum dz_l.
-template <bool BF16, typename WT>
-__device__ void back_layer(const float* cur, const WT* __restrict__ wT,
-                           const float* h_prev, const float* c_prev, float w0_prev,
-                           float* nxt, float* part_w, float* part_b, int cap_c,
-                           float* smem) {
-  dact<H, BF16, Epi::Cos, false>(cur, wT, c_prev, H, nullptr, nullptr, w0_prev, nxt,
-                                 cap_c, smem, reinterpret_cast<WT*>(smem + SM_WST));
-  dweight<2, false, BF16>(h_prev, H, H, H, cur, cap_c, part_w, smem);
-  colsum(cur, H, cap_c, part_b);
-  __syncthreads();
-}
-
 template <bool BF16, bool TRAIN, typename WT>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_siren_grad_kernel(RayInputs in, Siren sp, const WT* __restrict__ wmat,
@@ -153,99 +104,8 @@ fused_siren_grad_kernel(RayInputs in, Siren sp, const WT* __restrict__ wmat,
   }
 
   // ---- 3. MLP backward, layer by layer over the CTA's points ----
-  const float* dsig = cols + C_DSIG * cz;
-  const float* h8 = sc.st.h[NL - 1];
-  float* dzA = sc.dz[0];
-  float* dzB = sc.dz[1];
-  float* pvec = part + N_W;
-  WT* wst = reinterpret_cast<WT*>(smem + SM_WST);
-  // rgb output layer: dy = dzr1 wr1^T (3 live columns),
-  // dzr0 = (dy * w0h) * cos(w0h zr0)
-  for (int idx = tid; idx < cap_c * HR; idx += THREADS) {
-    const int l = idx / HR, k = idx % HR;
-    float dy = 0.f;
-    for (int c = 0; c < 3; ++c) {
-      float d = cols[(C_DZR1 + c) * cz + l];
-      if (BF16) d = round_bf16(d);
-      dy = fmaf(d, load1(wmat + OFF_WR1 + k * 8 + c), dy);
-    }
-    dzA[static_cast<size_t>(l) * LDZ + k] =
-        (dy * sp.w0h) * sc.st.cr0[static_cast<size_t>(l) * HR + k];
-  }
-  for (int o = tid; o < HR * 8; o += THREADS) {
-    const int k = o / 8, c = o % 8;
-    float s = 0.f;
-    if (c < 3) {
-      for (int l = 0; l < cap_c; ++l) {
-        float d = cols[(C_DZR1 + c) * cz + l];
-        if (BF16) d = round_bf16(d);
-        s = fmaf(sc.st.y[static_cast<size_t>(l) * HR + k], d, s);
-      }
-    }
-    part[OFF_WR1 + o] = s;
-  }
-  for (int c = tid; c < 8; c += THREADS) {
-    float s = 0.f;
-    if (c < 3)
-      for (int l = 0; l < cap_c; ++l) s += cols[(C_DZR1 + c) * cz + l];
-    pvec[OFF_BR1 + c] = s;
-  }
-  if (tid == 0) {
-    float s = 0.f;
-    for (int l = 0; l < cap_c; ++l) s += dsig[l];
-    pvec[OFF_BS] = s;
-  }
-  for (int k = tid; k < H; k += THREADS) {
-    float s = 0.f;
-    for (int l = 0; l < cap_c; ++l)
-      s = fmaf(h8[static_cast<size_t>(l) * H + k], dsig[l], s);
-    pvec[OFF_WS + k] = s;
-  }
-  __syncthreads();
-  // rgb sine layer: dfeat = dzr0 wr0f^T; wr0f, wr0d, br0
-  dact<HR, BF16, Epi::None, false>(dzA, wmat_t + OFF_WR0F, nullptr, 0, nullptr,
-                                   nullptr, 1.f, dzB, cap_c, smem, wst);
-  dweight<1, false, BF16>(sc.st.feat, H, H, H, dzA, cap_c, part + OFF_WR0F, smem);
-  dweight<1, false, BF16>(sc.st.denc, DENC_LD, DENC_LD, DP, dzA, cap_c,
-                          part + OFF_WR0D, smem);
-  colsum(dzA, HR, cap_c, pvec + OFF_BR0);
-  __syncthreads();
-  // feature remap: dz8 = ((dfeat wre^T + dsig ws) * w0h) * cos(w0h z8);
-  // wre from the unrounded h8, bre
-  dact<H, BF16, Epi::Cos, true>(dzB, wmat_t + OFF_WRE, sc.st.c[NL - 1], H, dsig,
-                                vec + OFF_WS, sp.w0h, dzA, cap_c, smem, wst);
-  dweight<2, BF16, BF16>(h8, H, H, H, dzB, cap_c, part + OFF_WRE, smem);
-  colsum(dzB, H, cap_c, pvec + OFF_BRE);
-  __syncthreads();
-  // sine layers 8..2
-  float* cur = dzA;
-  float* nxt = dzB;
-#pragma unroll 1
-  for (int l = NL; l >= 2; --l) {
-    back_layer<BF16>(cur, wmat_t + off_w(l), sc.st.h[l - 2], sc.st.c[l - 2],
-                     l == 2 ? sp.w0 : sp.w0h, nxt, part + off_w(l),
-                     pvec + (l - 1) * H, cap_c, smem);
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-  // first layer: dW1 = pos^T dz1 (rows 3..7 zero), db1; no input gradient
-  const float* pos = cols + C_POS * cz;
-  for (int n = tid; n < H; n += THREADS) {
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    for (int l = 0; l < cap_c; ++l) {
-      float d = cur[static_cast<size_t>(l) * LDZ + n];
-      if (BF16) d = round_bf16(d);
-      s0 = fmaf(pos[l], d, s0);
-      s1 = fmaf(pos[cz + l], d, s1);
-      s2 = fmaf(pos[2 * cz + l], d, s2);
-    }
-    part[OFF_W1 + 0 * H + n] = s0;
-    part[OFF_W1 + 1 * H + n] = s1;
-    part[OFF_W1 + 2 * H + n] = s2;
-    for (int k = 3; k < 8; ++k) part[OFF_W1 + k * H + n] = 0.f;
-  }
-  colsum(cur, H, cap_c, pvec + 0 * H);
+  mlp_backward<BF16>(sc, cz, vec, wmat, wmat_t, sp, part, cap_c, smem,
+                     [](const float*) {});
 }
 
 template <bool BF16, bool TRAIN, typename WT>

@@ -517,6 +517,39 @@ __device__ __forceinline__ void colsum(const float* B, int n, int cap_c, float* 
   }
 }
 
+// The direction cotangent of the field kernels' points [p0, p0 + npts)
+// (fused_siren.py / fused_gabor.py: _encode_bwd of dzr0 wr0d^T), one thread
+// a (point, coordinate): each encoding column's cotangent g_c = sum_k
+// dzr0[l][k] wr0d[c][k] over the HR columns of dzr0 (stride LDZ, rounded to
+// bf16 in BF16 mode; wr0d is DP x HR), then dx = g_x + sum_c g_c cos(2^j x
+// + phase) 2^j with the exact cosine, as the TPU kernels take it.
+template <bool BF16, typename WT>
+__device__ void direction_cotangent(const float* dzr0, const WT* __restrict__ wr0d,
+                                    const float* __restrict__ dirs, int p0, int npts,
+                                    int real_d, float* __restrict__ ddirs) {
+  for (int idx = threadIdx.x; idx < npts * 3; idx += THREADS) {
+    const int l = idx / 3, d = idx % 3;
+    const float* row = dzr0 + static_cast<size_t>(l) * LDZ;
+    auto g = [&](int c) {
+      float s = 0.f;
+      for (int k = 0; k < HR; ++k)
+        s = fmaf(BF16 ? round_bf16(row[k]) : row[k], load1(wr0d + c * HR + k), s);
+      return s;
+    };
+    const size_t at = static_cast<size_t>(p0 + l) * 3 + d;
+    const float x = dirs[at];
+    float s = 0.f;
+    for (int c = 3 + d; c < real_d; c += 3) {
+      const int j = (c - 3) / 6;
+      const float phase = (((c - 3) / 3) & 1) ? HALF_PI : 0.f;
+      const float scale = static_cast<float>(1 << j);
+      const float arg = __fadd_rn(__fmul_rn(x, scale), phase);
+      s = fmaf(g(c) * cosf(arg), scale, s);
+    }
+    ddirs[at] = g(d) + s;
+  }
+}
+
 // out[i] = sum over CTAs, in CTA order, of partial[cta][i], i <= N_TOT (the
 // gradients, and the loss in the last slot).
 template <int N_TOT, int NPART>

@@ -22,12 +22,14 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 # one library per .cu source: the NeRF, SIREN and GaborNet forward renders,
 # their train passes (NeRF and SIREN with the render backward), and the
-# KiloNeRF and NeRF field forward and backward
+# KiloNeRF, NeRF, SIREN and GaborNet field forward and backward
 LIBS = ("fused_render_fwd", "fused_render_train",
         "fused_render_siren_fwd", "fused_render_siren_train",
         "fused_render_gabor_fwd", "fused_render_gabor_train",
         "fused_kilonerf_fwd", "fused_kilonerf_bwd",
-        "fused_nerf_fwd", "fused_nerf_bwd")
+        "fused_nerf_fwd", "fused_nerf_bwd",
+        "fused_siren_fwd", "fused_siren_bwd",
+        "fused_gabor_fwd", "fused_gabor_bwd")
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

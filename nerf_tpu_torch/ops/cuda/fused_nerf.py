@@ -23,13 +23,11 @@ JAX weights across unchanged. This module holds
     exact cosine in both modes. They are not the module's path, which
     rounds elsewhere (``models/nerf.py``);
   * ``NerfField``: the field ``(points, dirs) -> (rgb, sigma)`` of one
-    ``NeRFModel``. On CPU tensors it runs the plain versions; on CUDA
-    tensors it launches the kernels or raises. It never falls back from one
-    to the other. Under autograd (the model's parameters, or the points or
-    directions, requiring grad) it is differentiable through a
-    ``torch.autograd.Function`` whose backward is the backward kernel;
-    ``launches`` and ``bwd_launches`` count the kernels' launches over all
-    instances.
+    ``NeRFModel``, with the contract of ``field.py::FusedField``: on CPU
+    tensors the plain versions, on CUDA tensors the kernels or a raise,
+    never one for the other; differentiable under autograd through the
+    backward kernel; ``launches`` and ``bwd_launches`` count the kernels'
+    launches over all instances.
 """
 
 from __future__ import annotations
@@ -43,6 +41,7 @@ import torch.nn.functional as F
 from nerf_tpu_torch.models.common import round_to
 from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.ops.cuda.build import library
+from nerf_tpu_torch.ops.cuda.field import FusedField
 from nerf_tpu_torch.ops.cuda.fused_render import (
     DP,
     PP,
@@ -143,131 +142,52 @@ def input_transposes(packed: Packed) -> torch.Tensor:
                             ).reshape(-1) for k in ("w1", "w6p", "wr0d")])
 
 
-# ---------------------------------------------------------------- autograd
-
-
-class _FieldFn(torch.autograd.Function):
-    """The field as a function of the float32 packing, the points and the
-    directions (n, 3); its backward is the backward kernel (the plain version
-    on the CPU), giving all three their cotangents as the TPU kernel's VJP
-    does."""
-
-    @staticmethod
-    def forward(ctx, wflat, vec, pts, dirs, field):
-        packed = field.cast(wflat.detach(), vec.detach())
-        rgb, sigma = field._forward(packed, pts.detach(), dirs.detach())
-        ctx.field, ctx.packed = field, packed
-        ctx.save_for_backward(pts, dirs)
-        return rgb, sigma
-
-    @staticmethod
-    def backward(ctx, g_rgb, g_sigma):
-        pts, dirs = ctx.saved_tensors
-        cot = torch.zeros((pts.shape[0], 4), dtype=torch.float32, device=pts.device)
-        if g_rgb is not None:
-            cot[:, :3] = g_rgb
-        if g_sigma is not None:
-            cot[:, 3] = g_sigma
-        gw, gv, dpts, ddirs = ctx.field._backward(ctx.packed, pts.detach(),
-                                                  dirs.detach(), cot)
-        return gw, gv, dpts, ddirs, None
-
-
 # ---------------------------------------------------------------- wrapper
 
 
-class NerfField:
+class NerfField(FusedField):
     """The field ``(points (..., 3), dirs (..., 3)) -> (rgb (..., 3), sigma
     (...,))`` of ``model`` through the field kernels (the counterpart of
-    ``make_fused_nerf_apply``'s ``apply``). ``packed`` fixes the weights (a
-    ``cast_packed`` packing, no gradient), as an occupancy bake or a
-    distillation teacher wants; otherwise each call packs the model's
-    current parameters and, under autograd, gives them, the points and the
-    directions their gradients."""
+    ``make_fused_nerf_apply``'s ``apply``), with ``FusedField``'s contract:
+    ``packed`` a ``cast_packed`` packing or None."""
 
     launches = 0
     bwd_launches = 0
+    family = "NeRF"
 
     def __init__(self, model: NeRFModel, packed: Packed | None = None):
-        self.model = model
-        self.cdt = model.cdt
-        self.h = model.hidden_dim
+        super().__init__(model, packed)
         self.pos_freqs = model.pos_encoding_dim
         self.dir_freqs = model.dir_encoding_dim
         self.real_p = 3 * (1 + 2 * self.pos_freqs)
         self.real_d = 3 * (1 + 2 * self.dir_freqs)
-        self.packed = packed
+
+    def params_f32(self) -> tuple:
+        return pack_f32(self.model)
 
     def cast(self, wflat: torch.Tensor, vec: torch.Tensor) -> Packed:
         return cast_packed(wflat, vec, self.cdt, self.h)
-
-    def pack(self) -> "NerfField":
-        """This field with the model's current weights packed once."""
-        with torch.no_grad():
-            return NerfField(self.model, self.cast(*pack_f32(self.model)))
 
     def supported(self) -> bool:
         """The shapes the kernels cover: hidden 256 (as the render kernels)
         and encodings of at most 64 / 32 columns."""
         return self.h == HIDDEN and self.real_p <= PP and self.real_d <= DP
 
-    def __call__(self, points: torch.Tensor, dirs: torch.Tensor):
-        shape = points.shape[:-1]
-        pts = points.reshape(-1, 3).float()
-        drs = dirs.reshape(-1, 3).float()
-        if torch.is_grad_enabled() and (
-                pts.requires_grad or drs.requires_grad or (self.packed is None and any(
-                    p.requires_grad for p in self.model.parameters()))):
-            if self.packed is None:
-                wflat, vec = pack_f32(self.model)
-            else:                       # fixed weights: no weight gradient
-                wflat, vec = self.packed.wmat.float(), self.packed.vec
-            rgb, sigma = _FieldFn.apply(wflat, vec, pts, drs, self)
-        else:
-            packed = self.packed
-            if packed is None:
-                with torch.no_grad():
-                    packed = self.cast(*pack_f32(self.model))
-            rgb, sigma = self._forward(packed, pts, drs)
-        return rgb.reshape(*shape, 3), sigma.reshape(shape)
-
-    # -- routes: the plain versions for CPU tensors, the kernels for CUDA
-
-    def _route(self, x: torch.Tensor) -> str:
-        if x.device.type in ("cpu", "cuda"):
-            return x.device.type
-        raise ValueError(f"NeRF field runs on cuda or cpu, not {x.device}")
-
-    def _forward(self, packed: Packed, pts: torch.Tensor, dirs: torch.Tensor):
-        if self._route(pts) == "cpu":
-            return nerf_field_plain(packed, pts, dirs, self.pos_freqs, self.dir_freqs)
-        return self._launch_fwd(packed, pts, dirs)
-
-    def _backward(self, packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
-                  cot: torch.Tensor):
-        if self._route(pts) == "cpu":
-            return nerf_field_bwd_plain(packed, pts, dirs, cot, self.pos_freqs,
-                                        self.dir_freqs)
-        return self._launch_bwd(packed, pts, dirs, cot)
-
-    def _check(self, packed: Packed, named: tuple) -> None:
-        if not self.supported():
-            raise NotImplementedError(
-                f"the NeRF field kernels cover hidden {HIDDEN} with encodings of at "
+    def _unsupported(self) -> str:
+        return (f"the NeRF field kernels cover hidden {HIDDEN} with encodings of at "
                 f"most {PP}/{DP} columns; got hidden {self.h}, {self.real_p}/"
                 f"{self.real_d} (run on the CPU, or with use_pallas = false)")
-        dev = named[0][1].device
-        for name, x, shape, dtype in named + (
-                ("wmat", packed.wmat, packed.wmat.shape, self.cdt),
-                ("vec", packed.vec, packed.vec.shape, torch.float32)):
-            if x.device != dev or x.dtype != dtype or tuple(x.shape) != tuple(shape):
-                raise ValueError(f"{name}: want {dtype} {tuple(shape)} on {dev}, "
-                                 f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+    def _plain_forward(self, packed: Packed, pts, dirs):
+        return nerf_field_plain(packed, pts, dirs, self.pos_freqs, self.dir_freqs)
+
+    def _plain_backward(self, packed: Packed, pts, dirs, cot):
+        return nerf_field_bwd_plain(packed, pts, dirs, cot, self.pos_freqs,
+                                    self.dir_freqs)
 
     def _launch_fwd(self, packed: Packed, pts: torch.Tensor, dirs: torch.Tensor):
         n = pts.shape[0]
-        self._check(packed, (("points", pts, (n, 3), torch.float32),
-                             ("dirs", dirs, (n, 3), torch.float32)))
+        self._check(packed, pts, dirs)
         dev = pts.device
         rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
         sigma = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -291,9 +211,7 @@ class NerfField:
     def _launch_bwd(self, packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
                     cot: torch.Tensor):
         n = pts.shape[0]
-        self._check(packed, (("points", pts, (n, 3), torch.float32),
-                             ("dirs", dirs, (n, 3), torch.float32),
-                             ("cotangent", cot, (n, 4), torch.float32)))
+        self._check(packed, pts, dirs, cot)
         dev = pts.device
         dpts = torch.empty((n, 3), dtype=torch.float32, device=dev)
         ddirs = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -306,10 +224,7 @@ class NerfField:
         vals = [ctypes.c_int() for _ in range(4)]
         lib.fused_nerf_bwd_sizes(*(ctypes.byref(v) for v in vals))
         per_point, npart, n_out, n_t = (v.value for v in vals)
-        # about one run of points an SM, whole 64-point chunks
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        run = -(-(-(-n // n_sm)) // 64) * 64
-        grid = -(-n // run)
+        run, grid = self._runs(n, dev)
         wmat_t = torch.cat([packed.mats[k].t().reshape(-1) for k in _MATS])
         wt_in = input_transposes(packed)
         if wt_in.numel() != n_t:

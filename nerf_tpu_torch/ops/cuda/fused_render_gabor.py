@@ -217,8 +217,10 @@ def _filters(coeffs: torch.Tensor, t: torch.Tensor, n: int, sin):
     return out
 
 
-def _forward_acts(packed: Packed, coeffs, viewdirs, t, k: GaborConsts) -> dict:
-    """Every activation of the kernels' forward, (R, S, width) float32:
+def net_acts(packed: Packed, filt: list, denc: torch.Tensor, k: GaborConsts) -> dict:
+    """Every activation of the kernels' network (``fused_render_gabor.py::
+    _mlp_tile``) given each stage's filter values (``filt[i][2]``, float32)
+    and the direction encodings ``denc`` (..., DP) (exact sine), float32:
     matmul inputs rounded to the compute dtype as the kernels round them,
     the last z and sigma_pre unrounded (the density comes from the UNROUNDED
     z, as the TPU kernel's, where the JAX module rounds it), rgb after the
@@ -226,12 +228,10 @@ def _forward_acts(packed: Packed, coeffs, viewdirs, t, k: GaborConsts) -> dict:
     cdt = packed.cdt
     m = {name: w.float() for name, w in packed.mats.items()}
     v = packed.vecs
-    sin, _ = trig(cdt)
 
     def r(x):
         return round_to(x, cdt)
 
-    filt = _filters(coeffs, t, k.num_layers, sin)
     a = {"filt": filt}
     zs, us = [filt[0][2]], []
     for i in range(1, k.num_layers):
@@ -242,11 +242,18 @@ def _forward_acts(packed: Packed, coeffs, viewdirs, t, k: GaborConsts) -> dict:
     z = zs[-1]
     a["sigma_pre"] = torch.sum(z * v["ws"], dim=-1) + v["bs"]
     a["feat"] = r(r(z) @ m["wre"] + v["bre"])
-    denc = r(_encode(viewdirs, k.dir_freqs, DP, torch.sin))
-    a["denc"] = denc[:, None, :].expand(*t.shape, DP)
+    a["denc"] = r(denc)
     a["y"] = r(torch.relu(a["feat"] @ m["wr0f"] + a["denc"] @ m["wr0d"] + v["br0"]))
     a["rgb"] = torch.sigmoid((a["y"] @ m["wr1"] + v["br1"]) * k.rgb_mul)[..., :3]
     return a
+
+
+def _forward_acts(packed: Packed, coeffs, viewdirs, t, k: GaborConsts) -> dict:
+    """``net_acts`` of the samples (R, S) of the rays, with their filters
+    from the per-ray coefficients."""
+    filt = _filters(coeffs, t, k.num_layers, trig(packed.cdt)[0])
+    denc = _encode(viewdirs, k.dir_freqs, DP, torch.sin)
+    return net_acts(packed, filt, denc[:, None, :].expand(*t.shape, DP), k)
 
 
 def fused_gabor_render_plain(packed: Packed, coeffs: torch.Tensor,
@@ -260,18 +267,16 @@ def fused_gabor_render_plain(packed: Packed, coeffs: torch.Tensor,
     return rgb, acc, depth, weights
 
 
-def _mlp_bwd(packed: Packed, acts: dict, dzr1, dsig, t, k: GaborConsts):
+def net_bwd(packed: Packed, acts: dict, dzr1, dsig, k: GaborConsts):
     """Backward of the network from the cotangents of the sigmoid input and
-    the density pre-activation (``_train_kernel``'s): the flat float32
-    weight gradients ``(gw, gv)`` in the packed layout, and the per-ray
-    coefficient cotangents (5, R, n h), each the float32 sum over the ray's
-    samples."""
+    the density pre-activation (``_train_kernel``'s; ``fused_gabor.py::
+    _bwd_kernel``'s chain): ``((gw, gv), dgs, dzr0)``, the flat float32
+    weight gradients in the packed layout, each stage's filter cotangent
+    (points, h) and the rgb head's dzr0 (points, h/2)."""
     cdt = packed.cdt
     n = k.num_layers
-    sin, cos = trig(cdt)
     m = {name: w.float() for name, w in packed.mats.items()}
     width = m["wre"].shape[0]
-    num_rays, s = t.shape
 
     def flat(x):
         return x.reshape(-1, x.shape[-1])
@@ -294,11 +299,11 @@ def _mlp_bwd(packed: Packed, acts: dict, dzr1, dsig, t, k: GaborConsts):
     y = flat(acts["y"])
     g["wr1"][:, :3] = r(y).T @ r(dzr1)
     g["br1"][:3] = dzr1.sum(0)
-    dz = (r(dzr1) @ m["wr1"][:, :3].T) * (y > 0)                   # dzr0
-    dw("wr0f", acts["feat"], dz)
-    dw("wr0d", acts["denc"], dz)
-    g["br0"].copy_(dz.sum(0))
-    dfeat = dact(dz, "wr0f")
+    dzr0 = (r(dzr1) @ m["wr1"][:, :3].T) * (y > 0)
+    dw("wr0f", acts["feat"], dzr0)
+    dw("wr0d", acts["denc"], dzr0)
+    g["br0"].copy_(dzr0.sum(0))
+    dfeat = dact(dzr0, "wr0f")
     z = flat(acts["z"][-1])
     dw("wre", z, dfeat)
     g["bre"].copy_(dfeat.sum(0))
@@ -313,10 +318,20 @@ def _mlp_bwd(packed: Packed, acts: dict, dzr1, dsig, t, k: GaborConsts):
         g[f"b{i}"].copy_(du.sum(0))
         dz = dact(du, f"w{i}")
     dgs[0] = dz
+    return (gw, gv), dgs, dzr0
+
+
+def _mlp_bwd(packed: Packed, acts: dict, dzr1, dsig, t, k: GaborConsts):
+    """``net_bwd`` and the per-ray coefficient cotangents (5, R, n h) of its
+    filter cotangents, each the float32 sum over the ray's samples:
+    ``((gw, gv), dcoef)``."""
+    sin, cos = trig(packed.cdt)
+    grads, dgs, _ = net_bwd(packed, acts, dzr1, dsig, k)
+    num_rays, s = t.shape
     tt = t[..., None]
     t2 = tt * tt
     dcoef = [[] for _ in range(NUM_COEFFS)]
-    for i in range(n):
+    for i in range(k.num_layers):
         sinarg, big_e, _ = acts["filt"][i]
         dg = dgs[i].reshape(num_rays, s, -1)
         dsinarg = dg * cos(sinarg) * big_e
@@ -324,7 +339,7 @@ def _mlp_bwd(packed: Packed, acts: dict, dzr1, dsig, t, k: GaborConsts):
         for j, val in enumerate((dsinarg, dsinarg * tt, de, de * tt, de * t2)):
             dcoef[j].append(val.sum(1))
     dcoef = torch.stack([torch.cat(parts, dim=-1) for parts in dcoef])
-    return (gw, gv), dcoef
+    return grads, dcoef
 
 
 def fused_gabor_train_plain(packed: Packed, coeffs, viewdirs, t, target,

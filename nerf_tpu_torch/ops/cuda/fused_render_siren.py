@@ -150,12 +150,14 @@ def grad_views(gw: torch.Tensor, gv: torch.Tensor, hidden: int) -> dict:
     return {**_views(gw, mat_shapes, _MATS), **_views(gv, vec_shapes, _VECS)}
 
 
-def _forward_acts(packed: Packed, o_aff, d_aff, viewdirs, t,
-                  k: SirenConsts) -> dict:
-    """Every activation of the kernels' forward, (R, S, width) float32:
-    matmul inputs rounded to the compute dtype as the kernels round them
-    (the raw positions too), each sine layer's argument w0 z, h8 and
-    sigma_pre unrounded, rgb after the sigmoid (3 channels)."""
+def mlp_acts(packed: Packed, pos: torch.Tensor, denc: torch.Tensor,
+             k: SirenConsts) -> dict:
+    """Every activation of the kernels' SIREN chain (``fused_siren.py::
+    _mlp_tile``) of raw positions ``pos`` (..., 3) and direction encodings
+    ``denc`` (..., DP) (exact sine), float32: matmul inputs rounded to the
+    compute dtype as the kernels round them (the raw positions too), each
+    sine layer's argument w0 z, h8 and sigma_pre unrounded, rgb after the
+    sigmoid (3 channels)."""
     cdt = packed.cdt
     m = {name: w.float() for name, w in packed.mats.items()}
     v = packed.vecs
@@ -164,10 +166,7 @@ def _forward_acts(packed: Packed, o_aff, d_aff, viewdirs, t,
     def r(x):
         return round_to(x, cdt)
 
-    p = o_aff[:, None, :] + t[..., None] * d_aff[:, None, :]           # (R,S,3)
-    a = {"pos": r(p)}
-    denc = r(_encode(viewdirs, k.dir_freqs, DP, torch.sin))
-    a["denc"] = denc[:, None, :].expand(*t.shape, DP)
+    a = {"pos": r(pos), "denc": r(denc)}
     x = a["pos"]
     for i, w0 in enumerate(k.w0s, start=1):
         w = m["w1"][:3] if i == 1 else m[f"w{i}"]
@@ -184,6 +183,14 @@ def _forward_acts(packed: Packed, o_aff, d_aff, viewdirs, t,
     return a
 
 
+def _forward_acts(packed: Packed, o_aff, d_aff, viewdirs, t,
+                  k: SirenConsts) -> dict:
+    """``mlp_acts`` of the samples o_aff + t d_aff (R, S) of the rays."""
+    p = o_aff[:, None, :] + t[..., None] * d_aff[:, None, :]           # (R,S,3)
+    denc = _encode(viewdirs, k.dir_freqs, DP, torch.sin)
+    return mlp_acts(packed, p, denc[:, None, :].expand(*t.shape, DP), k)
+
+
 def fused_siren_render_plain(packed: Packed, o_aff: torch.Tensor,
                              d_aff: torch.Tensor, viewdirs: torch.Tensor,
                              t: torch.Tensor, k: SirenConsts):
@@ -195,11 +202,14 @@ def fused_siren_render_plain(packed: Packed, o_aff: torch.Tensor,
     return rgb, acc, depth, weights
 
 
-def _mlp_bwd(packed: Packed, acts: dict, dzr1, dsig, k: SirenConsts):
+def mlp_bwd(packed: Packed, acts: dict, dzr1, dsig, k: SirenConsts,
+            inputs: bool = False):
     """Backward of the MLP from the cotangents of the sigmoid input and the
-    density pre-activation (``fused_siren.py::_mlp_bwd_core`` without input
-    gradients): the flat float32 gradients ``(gw, gv)`` in the packed
-    layout."""
+    density pre-activation (``fused_siren.py::_mlp_bwd_core``): the flat
+    float32 gradients ``(gw, gv)`` in the packed layout; with ``inputs``
+    also the input products ``dpos`` = dz1 w1^T (the 3 coordinates) and
+    ``ddenc`` = dzr0 wr0d^T (DP columns), dz rounded to the compute dtype,
+    ``(gw, gv, dpos, ddenc)``."""
     cdt = packed.cdt
     _, cos = trig(cdt)
     m = {name: w.float() for name, w in packed.mats.items()}
@@ -226,6 +236,7 @@ def _mlp_bwd(packed: Packed, acts: dict, dzr1, dsig, k: SirenConsts):
     g["br1"][:3] = dzr1.sum(0)
     dy = r(dzr1) @ m["wr1"][:, :3].T
     dz = (dy * k.hidden_w0) * cos(a["argr0"])                     # dzr0
+    ddenc = dact(dz, "wr0d") if inputs else None
     dw("wr0f", a["feat"], dz)
     dw("wr0d", a["denc"], dz)
     g["br0"].copy_(dz.sum(0))
@@ -243,6 +254,8 @@ def _mlp_bwd(packed: Packed, acts: dict, dzr1, dsig, k: SirenConsts):
         dz = (dact(dz, f"w{i}") * w0s[i - 2]) * cos(a[f"arg{i - 1}"])
     g["w1"][:3] = r(a["pos"]).T @ r(dz)
     g["b1"].copy_(dz.sum(0))
+    if inputs:
+        return gw, gv, r(dz) @ m["w1"][:3].T, ddenc
     return gw, gv
 
 
@@ -263,7 +276,7 @@ def fused_siren_train_plain(packed: Packed, o_aff, d_aff, viewdirs, t, target,
                        torch.zeros_like(acc)[:, None]], dim=-1)
     dzr1, dsig = _composite_bwd(acts, one_m, trans, weights, t, g_ray,
                                 k.sigma_mul, k.rgb_mul)
-    return loss, rgb, acc, weights, _mlp_bwd(packed, acts, dzr1, dsig, k)
+    return loss, rgb, acc, weights, mlp_bwd(packed, acts, dzr1, dsig, k)
 
 
 def fused_siren_render_bwd_plain(packed: Packed, o_aff, d_aff, viewdirs, t,
@@ -275,7 +288,7 @@ def fused_siren_render_bwd_plain(packed: Packed, o_aff, d_aff, viewdirs, t,
     one_m, trans, weights, _, _, _ = _composite(acts, t, k.sigma_mul)
     dzr1, dsig = _composite_bwd(acts, one_m, trans, weights, t, g_ray,
                                 k.sigma_mul, k.rgb_mul)
-    return _mlp_bwd(packed, acts, dzr1, dsig, k)
+    return mlp_bwd(packed, acts, dzr1, dsig, k)
 
 
 # ---------------------------------------------------------------- libraries

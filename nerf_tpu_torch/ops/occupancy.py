@@ -11,9 +11,10 @@ quantiles, so t stays monotonic for the compositor. The fused render and
 train kernels take that t unchanged: occupancy only moves the samples.
 
 The bake evaluates the field in chunks of 65,536 points: through a field of
-``train/step.py::fused_field_for`` (``NerfField``'s forward kernel for a
-NeRF at hidden 256 on the card, four launches for a 64^3 grid) or through
-the module. The lookup is plain gathers; no kernel of the JAX package is
+``train/step.py::fused_field_for`` (the forward kernel of ``NerfField``,
+``SirenField`` or ``GaborField`` for a NeRF, a SIREN or a GaborNet at
+hidden 256 on the card, four launches for a 64^3 grid) or through the
+module. The lookup is plain gathers; no kernel of the JAX package is
 behind it.
 """
 

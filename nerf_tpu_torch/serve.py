@@ -44,8 +44,8 @@ def build_renderer(model, fine_model, cfg: Config, settings, bake: int = 0,
     called as ``renderer(*render_params, rays_o, rays_d, generator,
     viewdirs=...)``. With ``occupancy = R`` an R^3 occupancy prior is baked
     first, from the fine model of a hierarchical config (else the model),
-    through the field of ``fused_field_for`` (the NeRF field kernels for a
-    NeRF at hidden 256 on the card), over ``grid_domain(cfg)``, as
+    through the field of ``fused_field_for`` (the NeRF, SIREN or GaborNet
+    field kernels at hidden 256 on the card), over ``grid_domain(cfg)``, as
     nerf_tpu's ``build_renderer`` does; the renderer's coarse pass then
     samples from it (``renderer.occupancy``). Baked caches are not
     ported."""

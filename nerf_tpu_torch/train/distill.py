@@ -15,12 +15,14 @@ Each step draws from a generator seeded by ``(seed, step, DISTILL)``
 (``train/step.py::step_seed``); the JAX ``_DISTILL_SALT`` key stream has no
 torch counterpart. Student and teacher are evaluated through the field
 that ``train/step.py::fused_field_for`` picks: a KiloNeRF student through
-its field kernels, a NeRF teacher or student at hidden 256 on the card
-through the NeRF field kernels (``NerfField``: the teacher's forward, the
-student's forward and backward), a hidden-32 NeRF through its module (as
-the JAX package runs it); one that the JAX package would run through a
-field kernel the port lacks raises on the card and names that kernel's row
-of PERF.md's table. With ``debug_nans`` a non-finite loss or gradient
+its field kernels, a NeRF, SIREN or GaborNet teacher or student at hidden
+256 on the card through its family's field kernels (``NerfField``,
+``SirenField``, ``GaborField``: the teacher's forward, the student's
+forward and backward; a teacher of one family distils into a student of
+another), a hidden-32 NeRF through its module (as the JAX package runs
+it); one that the JAX package would run through a field kernel at a shape
+the port's do not cover raises on the card and names that kernel's row of
+PERF.md's table. With ``debug_nans`` a non-finite loss or gradient
 raises ``FloatingPointError`` naming the step.
 """
 

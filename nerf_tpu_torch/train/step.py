@@ -18,7 +18,8 @@ CPU tensors, unless the caller asks for the unfused module path with
 ``use_pallas = false`` / ``fused=False``. Any other model takes the field
 route, as the JAX step does when ``resolve_fused_render`` gives None:
 ``render_rays`` on the field of ``fused_field_for`` (a family's field
-kernels where nerf_tpu takes them and the port has them, else the module),
+kernels where nerf_tpu takes them and the port's cover the shape, else the
+module),
 the loss and its gradient through autograd. With an occupancy grid (the
 ``occ_grid`` step argument) the coarse samples come from the prior
 (``ops/occupancy.py``); with ``debug_nans`` a non-finite loss or gradient
@@ -37,11 +38,13 @@ from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.models.siren import SirenModel
+from nerf_tpu_torch.ops.cuda.fused_gabor import GaborField
 from nerf_tpu_torch.ops.cuda.fused_kilonerf import KiloNeRFField
 from nerf_tpu_torch.ops.cuda.fused_nerf import NerfField
 from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender, FusedRender
 from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
 from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
+from nerf_tpu_torch.ops.cuda.fused_siren import SirenField
 from nerf_tpu_torch.ops.occupancy import OccupancyGrid
 from nerf_tpu_torch.render.renderer import (
     RenderOutput,
@@ -95,14 +98,18 @@ def _tpu_kernel_width(model) -> bool:
     return isinstance(model, (NeRFModel, GaborModel))
 
 
+# each family's field wrapper, and the row of PERF.md's table of the TPU
+# field kernel it ports
+_FIELDS = {NeRFModel: (NerfField, "row 1 (fused_nerf.py::_fwd_kernel)"),
+           SirenModel: (SirenField, "row 9 (fused_siren.py::_fwd_kernel)"),
+           GaborModel: (GaborField, "row 13 (fused_gabor.py::_fwd_kernel)")}
+
+
 def _unported_field_row(model) -> str:
     """The row of PERF.md's table of the field kernel that nerf_tpu takes
-    for ``model`` (``_tpu_kernel_width``) and the port does not."""
-    if isinstance(model, NeRFModel):
-        return "row 1 (fused_nerf.py::_fwd_kernel)"
-    if isinstance(model, SirenModel):
-        return "row 9 (fused_siren.py::_fwd_kernel)"
-    return "row 13 (fused_gabor.py::_fwd_kernel)"
+    for ``model`` (``_tpu_kernel_width``) at a shape that the port's kernels
+    do not cover."""
+    return _FIELDS[type(model)][1]
 
 
 def _on_card(model) -> bool:
@@ -113,28 +120,31 @@ def fused_field_for(model):
     """The field ``(points, dirs) -> (rgb, sigma)`` that nerf_tpu's
     ``resolve_apply_fn`` picks for ``model``, without its probe and its
     downgrade: a KiloNeRF through its field kernels (``KiloNeRFField``) where
-    ``make_fused_kilonerf_apply`` takes it (8 <= h <= 128, h % 8 == 0); a
-    NeRF at hidden 256 on the card through its field kernels
-    (``NerfField``); otherwise the module, as on the CPU and wherever
-    nerf_tpu takes no field kernel. Raises ``NotImplementedError`` on the
-    card where nerf_tpu would take a field kernel that the port lacks or
-    does not cover (naming its row of PERF.md's table: NeRF at hidden 512,
-    SIREN and GaborNet at hidden 256), and for a family the port does not
-    have."""
+    ``make_fused_kilonerf_apply`` takes it (8 <= h <= 128, h % 8 == 0); on
+    the card, a NeRF, SIREN or GaborNet that nerf_tpu's
+    ``make_fused_*_apply`` takes (``_tpu_kernel_width``) through its
+    family's field kernels (``NerfField``, ``SirenField``, ``GaborField``)
+    where they cover the shape (hidden 256; a GaborNet of 8 stages);
+    otherwise the module, as on the CPU and wherever nerf_tpu takes no field
+    kernel. Raises ``NotImplementedError`` on the card where nerf_tpu would
+    take a field kernel at a shape the port's do not cover (naming its row
+    of PERF.md's table: any of the three at hidden 512, a GaborNet of
+    another depth than 8), and for a family the port does not have."""
     if isinstance(model, KiloNeRFModel):
         h = model.hidden_dim
         return KiloNeRFField(model) if 8 <= h <= 128 and h % 8 == 0 else model
-    if not isinstance(model, (NeRFModel, SirenModel, GaborModel)):
+    if type(model) not in _FIELDS:
         raise NotImplementedError(
             f"no field for {type(model).__name__} in nerf_tpu_torch yet "
             "(ROADMAP.md queue 2)")
     if not _tpu_kernel_width(model) or not _on_card(model):
         return model
-    if isinstance(model, NeRFModel) and NerfField(model).supported():
-        return NerfField(model)
+    field = _FIELDS[type(model)][0](model)
+    if field.supported():
+        return field
     raise NotImplementedError(
         f"{type(model).__name__} at hidden {model.hidden_dim} runs through a field "
-        f"kernel in nerf_tpu that nerf_tpu_torch does not have for it "
+        f"kernel in nerf_tpu that nerf_tpu_torch does not cover at this shape "
         f"(PERF.md {_unported_field_row(model)}; ROADMAP.md queue 2); "
         "use_pallas = false evaluates the module")
 

@@ -810,3 +810,104 @@ def test_occupancy_bake_on_card_matches_cpu(dev):
     ref = bake_occupancy(sigma_field(NerfField(cpu).pack()), grid_res=32,
                          domain=dom, threshold=thresh)
     assert torch.equal(grid.cpu(), ref)
+
+
+# ---------------------------------------------------------------- SIREN and GaborNet fields
+
+
+def _sg_model(family, cdt, dev, seed=3, **kw):
+    from nerf_tpu_torch.models.gabor import GaborModel
+    from nerf_tpu_torch.models.siren import SirenModel
+
+    cls = {"siren": SirenModel, "gabor": GaborModel}[family]
+    return cls(compute_dtype=cdt, generator=torch.Generator().manual_seed(seed),
+               **kw).to(dev)
+
+
+def _sg_wrapper(family):
+    from nerf_tpu_torch.ops.cuda import fused_gabor, fused_siren
+
+    if family == "siren":
+        return (fused_siren.SirenField, fused_siren.siren_field_plain,
+                fused_siren.siren_field_bwd_plain)
+    return (fused_gabor.GaborField, fused_gabor.gabor_field_plain,
+            fused_gabor.gabor_field_bwd_plain)
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [37, 16384])
+@pytest.mark.parametrize("family", ["siren", "gabor"])
+def test_siren_gabor_field_kernels_match_plain_versions(dev, family, cdt, n):
+    """Both field kernels of the family against their plain versions on the
+    card (a ragged chunk at 37 points, the distillation batch at 16,384):
+    rgb within TOL and sigma within TOL of max(1, max |sigma|), every
+    gradient (weights, the GaborNet's filter banks, points, directions)
+    within GRAD_TOL of its max (the max floored at 1e-2 of the largest, as
+    chip_smoke.py's grad_errors; a point's cotangent, whose ReLU masks can
+    flip alone, at the 99.9th percentile); the SIREN in bfloat16 within
+    chip_smoke.py's SG_TOL (1e-2 and 5e-2: w0 = 30 and sigma_mul = 10
+    magnify a flipped bf16 rounding); one launch each."""
+    wrapper, plain_fwd, plain_bwd = _sg_wrapper(family)
+    model = _sg_model(family, cdt, dev)
+    field = wrapper(model).pack()
+    k = field.consts
+    pts, dirs = _field_points(n, dev, seed=n)
+    cot = torch.randn(n, 4, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    before = (wrapper.launches, wrapper.bwd_launches)
+    with torch.no_grad():
+        rgb, sigma = field._forward(field.packed, pts, dirs)
+        got = field._backward(field.packed, pts, dirs, cot)
+        ref_rgb, ref_sigma = plain_fwd(field.packed, pts, dirs, k)
+        ref = plain_bwd(field.packed, pts, dirs, cot, k)
+    torch.cuda.synchronize()
+    assert (wrapper.launches - before[0], wrapper.bwd_launches - before[1]) == (1, 1)
+    tol, gtol = ((1e-2, 5e-2) if (family, cdt) == ("siren", "bfloat16")
+                 else (TOL[cdt], GRAD_TOL[cdt]))
+    torch.testing.assert_close(rgb, ref_rgb, atol=tol, rtol=0)
+    scale = max(1.0, float(ref_sigma.abs().max()))
+    torch.testing.assert_close(sigma, ref_sigma, atol=tol * scale, rtol=0)
+    floor = 1e-2 * max(float(g.abs().max()) for g in ref[:-2])
+    for a, b in zip(got[:-2], ref[:-2]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= gtol * max(float(b.abs().max()), floor)
+    for a, b in zip(got[-2:], ref[-2:]):
+        e = (a - b).abs().max(dim=1).values / b.abs().max()
+        assert float(torch.quantile(e, 0.999)) <= gtol
+
+
+@pytest.mark.parametrize("family,kw", [("siren", {"hidden_dim": 128}),
+                                       ("gabor", {"hidden_dim": 128}),
+                                       ("gabor", {"num_layers": 4})])
+def test_siren_gabor_field_kernels_refuse_unsupported_shapes(dev, family, kw):
+    """Hidden 256 (and 8 GaborNet stages) only: NotImplementedError for a
+    CUDA tensor before any launch (the plain versions take the shape on the
+    CPU)."""
+    wrapper, _, _ = _sg_wrapper(family)
+    model = _sg_model(family, "float32", dev, **kw)
+    pts, dirs = _field_points(100, dev)
+    before = (wrapper.launches, wrapper.bwd_launches)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="hidden 256"):
+        wrapper(model)(pts, dirs)
+    p = pts.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="hidden 256"):
+        wrapper(model)(p, dirs)
+    assert (wrapper.launches, wrapper.bwd_launches) == before
+
+
+@pytest.mark.parametrize("family", ["siren", "gabor"])
+def test_occupancy_bake_of_siren_gabor_launches_the_field_forward(dev, family):
+    """Serving with --occupancy 64 (serve.py::build_renderer) bakes a SIREN
+    or a GaborNet at hidden 256 through its field forward kernel: 64^3
+    points in four launches of 65,536, no backward."""
+    from nerf_tpu_torch.serve import build_renderer
+    from nerf_tpu_torch.train.loop import render_settings_from_config
+
+    wrapper, _, _ = _sg_wrapper(family)
+    cfg = Config(model_type=family, near=NEAR, far=FAR, num_samples=64,
+                 num_fine_samples=0, compute_dtype="bfloat16")
+    model = _sg_model(family, "bfloat16", dev)
+    before = (wrapper.launches, wrapper.bwd_launches)
+    renderer, _ = build_renderer(model, None, cfg, render_settings_from_config(cfg),
+                                 occupancy=64, log=lambda *_: None)
+    assert (wrapper.launches - before[0], wrapper.bwd_launches - before[1]) == (4, 0)
+    assert renderer.occupancy.grid.shape == (64, 64, 64, 1)

@@ -35,8 +35,10 @@ from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.models.siren import SirenModel
+from nerf_tpu_torch.ops.cuda.fused_gabor import GaborField
 from nerf_tpu_torch.ops.cuda.fused_kilonerf import KiloNeRFField
 from nerf_tpu_torch.ops.cuda.fused_nerf import NerfField
+from nerf_tpu_torch.ops.cuda.fused_siren import SirenField
 from nerf_tpu_torch.train.distill import (
     distill_loss,
     load_teacher,
@@ -233,6 +235,7 @@ def test_load_teacher_reads_the_metadata(root, teacher_ckpt):
 
 
 
+_WRAPPERS = {"nerf": NerfField, "siren": SirenField, "gabor": GaborField}
 _FAMILIES = {"nerf": (NeRFModel, JaxNeRF, make_fused_nerf_apply),
              "siren": (SirenModel, JaxSiren, make_fused_siren_apply),
              "gabor": (GaborModel, JaxGabor, make_fused_gabor_apply)}
@@ -240,15 +243,18 @@ _FAMILIES = {"nerf": (NeRFModel, JaxNeRF, make_fused_nerf_apply),
 
 @pytest.mark.parametrize("family,hidden,layers,row", [
     ("nerf", 32, 8, None), ("nerf", 256, 8, "kernel"), ("nerf", 512, 8, "row 1"),
-    ("siren", 256, 8, "row 9"), ("siren", 256, 4, None), ("gabor", 128, 8, None),
-    ("gabor", 256, 8, "row 13"), ("gabor", 256, 4, "row 13")])
+    ("siren", 256, 8, "kernel"), ("siren", 512, 8, "row 9"), ("siren", 256, 4, None),
+    ("gabor", 128, 8, None), ("gabor", 256, 8, "kernel"), ("gabor", 512, 8, "row 13"),
+    ("gabor", 256, 4, "row 13")])
 def test_teacher_field_route_follows_nerf_tpu(monkeypatch, family, hidden, layers, row):
     """A NeRF, SIREN or GaborNet teacher takes a field kernel exactly where
     nerf_tpu's make_fused_*_apply gives one (NeRF and GaborNet by width,
-    SIREN by width and 8 layers): on the card a NeRF at hidden 256 takes the
-    port's NerfField; where the port lacks that kernel (NeRF at 512, SIREN,
-    GaborNet) fused_field_for raises and names its row of PERF.md's table;
-    elsewhere, and on the CPU, the teacher is its module."""
+    SIREN by width and 8 layers): on the card one at hidden 256 (a GaborNet
+    of 8 stages) takes the port's field wrapper (NerfField, SirenField,
+    GaborField); where the port's kernels do not cover the shape (hidden
+    512, a GaborNet of 4 stages) fused_field_for raises and names its row of
+    PERF.md's table; elsewhere, and on the CPU, the teacher is its
+    module."""
     cls, jcls, make = _FAMILIES[family]
     kw = dict(hidden_dim=hidden) if family == "nerf" else dict(hidden_dim=hidden,
                                                               num_layers=layers)
@@ -259,7 +265,7 @@ def test_teacher_field_route_follows_nerf_tpu(monkeypatch, family, hidden, layer
     if row is None:
         assert fused_field_for(model) is model
     elif row == "kernel":
-        assert type(fused_field_for(model)) is NerfField
+        assert type(fused_field_for(model)) is _WRAPPERS[family]
     else:
         with pytest.raises(NotImplementedError, match=re.escape(f"PERF.md {row} ")):
             fused_field_for(model)

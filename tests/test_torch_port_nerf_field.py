@@ -51,6 +51,7 @@ from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.models.siren import SirenModel
+from nerf_tpu_torch.ops.cuda.fused_gabor import GaborField
 from nerf_tpu_torch.ops.cuda.fused_kilonerf import KiloNeRFField
 from nerf_tpu_torch.ops.cuda.fused_nerf import (
     NerfField,
@@ -59,6 +60,7 @@ from nerf_tpu_torch.ops.cuda.fused_nerf import (
     nerf_field_plain,
 )
 from nerf_tpu_torch.ops.cuda.fused_render import PP, pack_params
+from nerf_tpu_torch.ops.cuda.fused_siren import SirenField
 from nerf_tpu_torch.render.renderer import RenderSettings
 from nerf_tpu_torch.train import step as step_mod
 from nerf_tpu_torch.train.step import _kernel_route, fused_field_for
@@ -216,9 +218,11 @@ _MODELS = {"nerf": (NeRFModel, JaxNeRF), "siren": (SirenModel, JaxSiren),
     ("nerf", dict(hidden_dim=128), "module", None),
     ("nerf", dict(hidden_dim=256), NerfField, None),
     ("nerf", dict(hidden_dim=512), "raise", "row 1"),
-    ("siren", dict(hidden_dim=256, num_layers=8), "raise", "row 9"),
+    ("siren", dict(hidden_dim=256, num_layers=8), SirenField, None),
+    ("siren", dict(hidden_dim=512, num_layers=8), "raise", "row 9"),
     ("siren", dict(hidden_dim=256, num_layers=4), "module", None),
-    ("gabor", dict(hidden_dim=256), "raise", "row 13"),
+    ("gabor", dict(hidden_dim=256), GaborField, None),
+    ("gabor", dict(hidden_dim=512), "raise", "row 13"),
     ("kilonerf", dict(hidden_dim=32, grid_res=2), KiloNeRFField, None),
     ("kilonerf", dict(hidden_dim=256, grid_res=2), "module", None)])
 def test_route_follows_nerf_tpu(monkeypatch, family, kw, field, row):
@@ -226,8 +230,9 @@ def test_route_follows_nerf_tpu(monkeypatch, family, kw, field, row):
     ``make_fused_*_render`` gives one (its own kernels where they cover the
     shape: hidden 256), and otherwise the field route, whose field is a
     field kernel where nerf_tpu's ``make_fused_*_apply`` gives one and the
-    port has it, the module where nerf_tpu gives none, and a raise naming
-    PERF.md's row where nerf_tpu takes a field kernel the port lacks. On
+    port's covers the shape (hidden 256), the module where nerf_tpu gives
+    none, and a raise naming PERF.md's row where nerf_tpu takes a field
+    kernel at a shape the port's do not cover (hidden 512). On
     the CPU the field is the module wherever nerf_tpu's is (KiloNeRF keeps
     its field's plain versions)."""
     cls, jcls = _MODELS[family]
