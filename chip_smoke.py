@@ -136,7 +136,34 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      steps (the mse at 90 under that at 0; one validation image, 157
      forward launches) and the step's rate.
 
-The last lines are a JSON object of per-kernel numbers (all sixteen
+ 23. the voxel-grid kernels against their plain versions on the card (TF32
+     off), a 128^3 x 28 grid (the plenoxels config's) with seeded values:
+     the trilinear interpolation (row 17) at 1024 x 64 and 1024 x 256
+     points of random training rays and of tile-ordered camera rays,
+     float32 and bfloat16, beside F.grid_sample; the sorted scatter-add
+     (row 19) at the training step's 8 x 262,144 rows x 28 (the step's
+     corner ids, uniform ids, one id 65,536 times) against float64 sums,
+     twice for identical bits, beside index_add_ on unsorted and sorted
+     ids; the fused grid render (row 18) at 1024 x 256, 1000 x 256 and
+     1024 x 37, float32 and bfloat16; each timed in turns against its bytes
+     bound;
+ 24. serving the plenoxels config (lego_siren.txt with model_type =
+     plenoxels, learning_rate = 0.01; grid 128^3, bf16 interpolation,
+     chunk 1024, 256 samples) from a seeded checkpoint as in 8: 157 fused
+     grid render launches per request (rays in 8x8 pixel blocks), one image
+     within mean abs 1e-2 of the unfused render through the module with
+     float32 interpolation;
+ 25. training it: 200 iterations with tv_lambda 1e-5 and tv_sh_lambda 1e-3
+     (finite losses, the mse at 190 under that at 0, one interpolation and
+     one scatter launch a step, 157 render launches for the validation
+     image), a bit-identical resume from step 100, a profile of one step;
+     then 100 iterations from grid_res 64 with upsample_steps = 50:128,
+     whose checkpoint reads grid_res 128 and whose resume restores 128^3;
+ 26. bench.py's train_plenoxels (S = 64), train_plenoxels_occ (S = 16, an
+     all-ones 32^3 prior) and render_plenoxels_dense (400x400, S = 256)
+     protocols in rays/s.
+
+The last lines are a JSON object of per-kernel numbers (all nineteen
 kernels), the card, and ``{"ok": true, "device": {...}}``. Needs a CUDA device and this checkout;
 imports nothing of JAX or of the JAX package.
 """
@@ -276,6 +303,30 @@ SG_TOL = {("siren", "bfloat16"): (1e-2, 5e-2, 5e-2)}
 SG_FIELD = {"siren": {"macs": SIREN_MACS, "trig": (SIREN_TRIG + 24, 2 * SIREN_TRIG + 48)},
             "gabor": {"macs": GABOR_MACS + 8 * 2 * 3 * 256,
                       "trig": (2 * 8 * 256 + 24, 3 * 8 * 256 + 48)}}
+
+
+# The voxel grids (PERF.md rows 17-19) at the plenoxels config's size: the
+# 128^3 x 28 grid (1 density + 3 x 9 SH channels) over lego_siren.txt's
+# grid_domain. Row 17 and its plain version take the same float32 operations
+# in the same order (grid_common.cuh rounds each product and sum alone, as
+# PyTorch's elementwise ops do): 1e-6 on values of a few units. Row 18 adds
+# exp, log1p and the sigmoid (libm against PyTorch's, an ulp or two) and
+# the plain version's cumprod and sums in another order: 1e-5 on rgb, acc
+# and weights (in [0, 1]), 1e-4 on depth (t up to 6). Row 19 is held to
+# float64 sums: a run of n rows, summed in pieces of at most K = 256 rows
+# and then the pieces in order, errs by at most (K + n / K + 2) ulps of its
+# sum of magnitudes; its plain version (each run in order) by (n + 2).
+GRID_R, GRID_C = 128, 28
+GRID_DOMAIN = (-2.75, -1.25)     # grid_domain of lego_siren.txt's settings
+GRID_TOL = 1e-6
+GRID_RENDER_TOL = {"rgb": 1e-5, "acc": 1e-5, "weights": 1e-5, "depth": 1e-4}
+GRID_BATCH = 20        # launches per timed run of a grid kernel
+SCATTER_ULPS = 256     # the scatter kernel's chunk, K
+# the plenoxels config: lego_siren.txt with model_type = plenoxels and
+# these overrides (models/plenoxels.py:23; the grid keeps its defaults:
+# grid_res 128, sh_degree 2, interp_dtype bfloat16)
+PLENOXELS_OVERRIDES = {"learning_rate": 0.01}
+UPSAMPLE = (64, 128)   # phase 25's coarse-to-fine fit: from 64^3, to 128^3 at 50
 
 
 def fail(msg: str) -> None:
@@ -462,7 +513,7 @@ def get(url: str) -> tuple:
 
 def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
           model_type: str | None = None, overrides: dict | None = None,
-          svc=None, compare: tuple = ("/pose/1",)):
+          svc=None, compare: tuple = ("/pose/1",), init=None, reference=None):
     """Phase 4 (``config`` lego.txt, the NeRF kernels), 8 (lego_siren.txt,
     the SIREN kernels), 11 (lego_siren.txt with ``model_type`` gabor, the
     GaborNet kernels) or 14 (the kilonerf config: lego_siren.txt with
@@ -470,7 +521,9 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
     the KiloNeRF field kernels): a checkpoint of ``config`` from its seed,
     served on cuda over loopback; or phase 18 (``svc`` a service of
     lego.txt already built with an occupancy prior, every request in
-    ``compare``); returns the kernel launches of the three image
+    ``compare``); or phase 24 (the plenoxels config, ``init`` applied to
+    the seeded model before the save, the unfused render through
+    ``reference(model)``); returns the kernel launches of the three image
     requests."""
     label = config if model_type is None else f"{config} (model_type = {model_type})"
     import dataclasses
@@ -497,6 +550,8 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
         fine = None
         if cfg.num_fine_samples > 0 and cfg.separate_fine_model:
             fine = model_from_config(cfg, generator=gen)
+        if init is not None:
+            init(model)
         ckpt = save_checkpoint(model, fine, cfg.save_path, cfg.model_type, 0)
         svc = RenderService.from_checkpoint(cfg, ckpt, device=dev, log=say)
     cfg = svc.cfg
@@ -548,7 +603,8 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
 
     # served images against the unfused render of the same request (with
     # the same occupancy prior)
-    ref_render = make_eval_render(svc.params[0], render_settings_from_config(cfg),
+    ref_model = svc.params[0] if reference is None else reference(svc.params[0])
+    ref_render = make_eval_render(ref_model, render_settings_from_config(cfg),
                                   fused=False, occupancy=occ)
     h, w = svc.hw
     from nerf_tpu_torch.data.rays import compute_rays_single
@@ -559,8 +615,8 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
         c2w, key_idx = requests[route]
         o, d = compute_rays_single(h, w, svc.focal, c2w)
         g = torch.Generator(device=dev).manual_seed(request_seed(cfg.seed, key_idx))
-        ref = ref_render(*svc.params, torch.from_numpy(o).to(dev),
-                         torch.from_numpy(d).to(dev), g).rgb
+        ref = ref_render(ref_model, svc.params[1], torch.from_numpy(o).to(dev),
+                         torch.from_numpy(d).to(dev), g, hw=svc.hw).rgb
         ref = ref.reshape(h, w, 3).clamp(0, 1).cpu().numpy()
         if not np.isfinite(ref).all():
             fail(f"{label}: unfused reference render is not finite")
@@ -581,7 +637,8 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
 
 def profile_device(torch, fn, kernel: str, what: str) -> None:
     """A torch.profiler trace of ``fn()``: wall time, device busy and idle
-    share, the named kernel's share and the other kernels' time and count."""
+    share, the named kernel's share (``kernel`` a name or a tuple of names,
+    each one's share listed) and the other kernels' time and count."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -605,8 +662,10 @@ def profile_device(torch, fn, kernel: str, what: str) -> None:
         else:
             cur_end = max(cur_end, end)
     busy += cur_end - cur_start
-    mine = [e for e in dev_events if kernel in e.name]
-    others = [e for e in dev_events if kernel not in e.name]
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    mine = [e for e in dev_events if any(k in e.name for k in names)]
+    others = [e for e in dev_events if not any(k in e.name for k in names)]
+    kernel = " + ".join(names)
     t_mine = sum(e.time_range.elapsed_us() for e in mine)
     t_other = sum(e.time_range.elapsed_us() for e in others)
     say(f"profile: {what} {wall_us / 1e3:.1f} ms wall; device busy "
@@ -622,7 +681,14 @@ def profile_device(torch, fn, kernel: str, what: str) -> None:
         if label == "kernel" and len(by_name) < 2:
             continue
         for name, (c, t) in sorted(by_name.items(), key=lambda x: -x[1][1])[:top]:
-            say(f"  {label}: {t / 1e3:.2f} ms in {c} launches: {name[:90]}")
+            say(f"  {label}: {t / 1e3:.2f} ms ({t / wall_us:.4f}) in {c} launches: "
+                f"{name[:90]}")
+    adam = [e for e in others if "multi_tensor_apply" in e.name]
+    if adam:
+        t_adam = sum(e.time_range.elapsed_us() for e in adam)
+        say(f"  other: multi_tensor_apply kernels (Adam's _foreach ops) {t_adam / 1e3:.2f} ms "
+            f"({t_adam / wall_us:.4f}) in {len(adam)} launches; the rest "
+            f"{(t_other - t_adam) / 1e3:.2f} ms in {len(others) - len(adam)} launches")
 
 
 # ---------------------------------------------------------------- phase 3b
@@ -1791,11 +1857,13 @@ def profile_step(torch, state, pool, settings, cfg, kernel: str,
     """One train step of ``config`` under torch.profiler (with ``occ_grid``
     an occupancy-guided one, over grid_domain as fit's)."""
     from nerf_tpu_torch.models.registry import grid_domain
+    from nerf_tpu_torch.train.loop import make_regularizer
     from nerf_tpu_torch.train.step import make_train_step
 
     opts = None if occ_grid is None else (grid_domain(cfg), 64, 1e-2)
     step = make_train_step(state.params, settings, cfg.num_random_rays, cfg.seed,
-                           occupancy_opts=opts)
+                           occupancy_opts=opts,
+                           regularizer=make_regularizer(cfg, state.params))
     step(state, pool, occ_grid)
     profile_device(torch, lambda: step(state, pool, occ_grid), kernel,
                    f"one {config} train step")
@@ -2149,14 +2217,473 @@ def train_distill_cross(torch, dev, tmp: str, student: str, teacher: str) -> dic
             "step_rps": step_rps}
 
 
+# ---------------------------------------------------------------- phase 23
+
+
+def grid_model(torch, dev, interp_dtype: str, seed: int = 11, r: int = GRID_R):
+    """The plenoxels config's model (128^3 x 28 over lego_siren.txt's
+    grid_domain) with its init plus seeded N(0, 0.5) noise on every channel,
+    so that interpolation and decode see varied values."""
+    from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
+
+    model = PlenoxelsModel(grid_res=r, interp_dtype=interp_dtype, domain=GRID_DOMAIN).to(dev)
+    with torch.no_grad():
+        model.grid.add_(0.5 * torch.randn(model.grid.shape, device=dev,
+                                          generator=torch.Generator(device=dev).manual_seed(seed)))
+    return model
+
+
+def image_rays(torch, dev, n: int, s: int, seed: int) -> tuple:
+    """(rays_o, rays_d, t): the first ``n`` rays of a 400x400 orbit image in
+    tile order (8x8 pixel blocks), sorted stratified t in [2, 6]."""
+    from nerf_tpu_torch.data.poses import spherical_orbit
+    from nerf_tpu_torch.data.rays import compute_rays_single
+    from nerf_tpu_torch.ops.cuda.fused_grid import tile_ray_order
+
+    focal = 0.5 * HW / np.tan(0.5 * CAMERA_ANGLE_X)
+    o, d = compute_rays_single(HW, HW, focal, spherical_orbit(8)[1])
+    perm = tile_ray_order(HW, HW)[:n]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = 2.0 + 4.0 * (torch.arange(s, device=dev) + torch.rand(n, s, generator=g, device=dev)) / s
+    return (torch.from_numpy(o[perm]).to(dev), torch.from_numpy(d[perm]).to(dev), t)
+
+
+def grid_points(torch, dev, kind: str, n: int, s: int, seed: int):
+    """(R_rays, S, 3) points in the grid's [-1, 1] space (normalised like
+    the renderer's, then remapped from grid_domain): ``train`` rays of
+    ``camera_batch`` (random cameras, incoherent), ``image`` tile-ordered
+    rays of one view."""
+    from nerf_tpu_torch.models.common import remap_domain
+
+    if kind == "train":
+        o, d, t, _ = camera_batch(torch, dev, n, s, seed)
+    else:
+        o, d, t = image_rays(torch, dev, n, s, seed)
+    pts = o[:, None, :] + t[..., None] * d[:, None, :]
+    return remap_domain(2.0 * (pts - 2.0) / 4.0 - 1.0, GRID_DOMAIN).contiguous()
+
+
+def distinct_rows(torch, cells, r: int) -> int:
+    """Grid rows with a nonzero-or-not corner weight at the float cell
+    coordinates ``cells`` (..., 3): the rows a kernel must read."""
+    x0 = torch.floor(cells).clamp(0, r - 2).long().reshape(-1, 3)
+    base = (x0[:, 0] * r + x0[:, 1]) * r + x0[:, 2]
+    ids = torch.cat([base + dx * r * r + dy * r + dz
+                     for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)])
+    return int(torch.unique(ids).numel())
+
+
+def timed(torch, fns: dict, order: tuple, batch: int = GRID_BATCH) -> dict:
+    """Median ms of each named function in ``fns``, in runs of ``batch``
+    calls between two events, in the turns of ``order`` (3 runs a turn)."""
+    times = {k: [] for k in fns}
+    for f in fns.values():
+        f()                                                     # warm-up
+    for name in order:
+        f = fns[name]
+        times[name] += [t / batch for t in time_calls(
+            torch, lambda f=f: [f() for _ in range(batch)], 3)]
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def check_grid_interp_kernel(torch, dev) -> dict:
+    """Row 17 (csrc/fused_grid.cu) against its plain version: 1024 x 64 and
+    1024 x 256 points of random training rays and of tile-ordered camera
+    rays, float32 and bfloat16, on a 128^3 x 28 grid; timed in turns
+    (plain, kernel, library, library, kernel, plain) with F.grid_sample on
+    the grid laid out as (1, C, R, R, R) (made once, outside the timing)
+    as the library call, against the bytes bound."""
+    import torch.nn.functional as F
+
+    from nerf_tpu_torch.ops.cuda.fused_grid import (
+        cells_of, grid_interp, interp_cells_plain, pack_grid)
+
+    results = {}
+    for cdt in ("float32", "bfloat16"):
+        model = grid_model(torch, dev, cdt)
+        grid = model.grid.detach()
+        src = pack_grid(grid, cdt)
+        src = grid if src is None else src
+        lib_grid = grid.permute(3, 0, 1, 2)[None].contiguous()        # (1, C, X, Y, Z)
+        for kind in ("train", "image"):
+            for s in (64, 256):
+                pts = grid_points(torch, dev, kind, 1024, s, seed=s)
+                flat = pts.reshape(-1, 3)
+                coords = pts[..., [2, 1, 0]][None, :, :, None, :].contiguous()
+
+                def plain():
+                    return interp_cells_plain(src, cells_of(flat, GRID_R))
+
+                def kern():
+                    return grid_interp(src, flat)
+
+                def lib():
+                    return F.grid_sample(lib_grid, coords, mode="bilinear",
+                                         padding_mode="border", align_corners=True)
+
+                with torch.no_grad():
+                    ref, out = plain(), kern()
+                    libv = lib()[0, :, :, :, 0].permute(1, 2, 0).reshape(-1, GRID_C)
+                    torch.cuda.synchronize()
+                    if not torch.isfinite(out).all():
+                        fail(f"grid_interp {cdt} {kind} S={s}: non-finite output")
+                    err = float((out - ref).abs().max())
+                    lib_err = float((libv - interp_cells_plain(grid, cells_of(flat, GRID_R)))
+                                    .abs().max())
+                    ms = timed(torch, {"plain": plain, "kernel": kern, "library": lib},
+                               ("plain", "kernel", "library", "library", "kernel", "plain"))
+                    rows = distinct_rows(torch, cells_of(flat, GRID_R), GRID_R)
+                n = flat.shape[0]
+                nbytes = n * 12 + n * GRID_C * 4 + rows * GRID_C * src.element_size()
+                bms = nbytes / PEAK_BYTES * 1e3
+                say(f"kernel grid_interp {cdt} {kind} 1024x{s}: max_abs_err {err:.3e} "
+                    f"(tol {GRID_TOL:.0e}) | kernel {ms['kernel']:.4f} ms, plain "
+                    f"{ms['plain']:.4f} ms, library (F.grid_sample, float32) "
+                    f"{ms['library']:.4f} ms (vs float32 plain {lib_err:.1e}), bound {bms:.4f} ms "
+                    f"(bytes; {rows} distinct rows), share of bound {bms / ms['kernel']:.4f}")
+                if err > GRID_TOL:
+                    fail(f"grid_interp {cdt} {kind} S={s} disagrees with its plain version")
+                results[(cdt, kind, s)] = dict(err=err, ms=ms["kernel"], plain_ms=ms["plain"],
+                                               library_ms=ms["library"], bound_ms=bms,
+                                               bound_by="bytes")
+                del ref, out, libv
+                torch.cuda.empty_cache()
+        del model, grid, src, lib_grid
+        torch.cuda.empty_cache()
+    return results
+
+
+def check_scatter_kernel(torch, dev) -> dict:
+    """Row 19 (csrc/scatter_add.cu) at the training step's 8 x 262,144 rows
+    x 28 into 128^3: the corner ids of 1024 x 256 training-ray points, uniform
+    ids, and uniform ids with one id repeated 65,536 times; values N(0, 1).
+    Each row within (K + pieces) ulps of its float64 sum's magnitude
+    (``SCATTER_ULPS``), the plain version within (n + 2) ulps; two runs
+    identical bit for bit; timed in turns against the plain version and
+    index_add_ on unsorted and sorted ids (the library calls)."""
+    from nerf_tpu_torch.ops.cuda.fused_grid import cells_of
+    from nerf_tpu_torch.ops.cuda.scatter_add import scatter_add_plain, scatter_add_rows
+
+    rows = GRID_R ** 3
+    pts = grid_points(torch, dev, "train", 1024, 256, seed=19).reshape(-1, 3)
+    x0 = torch.floor(cells_of(pts, GRID_R)).clamp(0, GRID_R - 2).long()
+    base = (x0[:, 0] * GRID_R + x0[:, 1]) * GRID_R + x0[:, 2]
+    step_ids = torch.cat([base + dx * GRID_R * GRID_R + dy * GRID_R + dz
+                          for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)])
+    m = step_ids.shape[0]
+    g = torch.Generator(device=dev).manual_seed(23)
+    uniform = torch.randint(0, rows, (m,), generator=g, device=dev)
+    repeated = uniform.clone()
+    repeated[torch.randperm(m, generator=g, device=dev)[:65536]] = rows // 2 + 77
+    vals = torch.randn(m, GRID_C, generator=g, device=dev)
+    results = {}
+    for label, ids in (("step", step_ids), ("uniform", uniform), ("one id x 65536", repeated)):
+        with torch.no_grad():
+            a = scatter_add_rows(ids, vals, rows)
+            b = scatter_add_rows(ids, vals, rows)
+            plain = scatter_add_plain(ids, vals, rows)
+            torch.cuda.synchronize()
+            same = torch.equal(a, b)
+            exact = torch.zeros(rows, GRID_C, dtype=torch.float64, device=dev).index_add_(
+                0, ids, vals.double())
+            mags = torch.zeros(rows, GRID_C, dtype=torch.float64, device=dev).index_add_(
+                0, ids, vals.abs().double())
+            counts = torch.bincount(ids, minlength=rows).double()[:, None]
+            ulp = 2.0 ** -24
+            k_ratio = float(((a.double() - exact).abs()
+                             / ((SCATTER_ULPS + counts / SCATTER_ULPS + 2) * ulp * mags
+                                + 1e-30)).max())
+            p_ratio = float(((plain.double() - exact).abs()
+                             / ((counts + 2) * ulp * mags + 1e-30)).max())
+            err = float((a - plain).abs().max())
+            touched = int((counts > 0).sum())
+            longest = int(counts.max())
+            zeros = bool((a[counts[:, 0] == 0] == 0).all())
+            del exact, mags, b
+            torch.cuda.empty_cache()
+            sorted_ids, perm = torch.sort(ids, stable=True)
+            sorted_vals = vals[perm]
+            ms = timed(torch, {
+                "plain": lambda: scatter_add_plain(ids, vals, rows),
+                "kernel": lambda: scatter_add_rows(ids, vals, rows),
+                "index_add_": lambda: torch.zeros(rows, GRID_C, device=dev).index_add_(
+                    0, ids, vals),
+                "index_add_ sorted": lambda: torch.zeros(rows, GRID_C, device=dev).index_add_(
+                    0, sorted_ids, sorted_vals),
+                "sort": lambda: torch.sort(ids.to(torch.int32), stable=True)},
+                ("plain", "kernel", "index_add_", "index_add_ sorted", "sort", "sort",
+                 "index_add_ sorted", "index_add_", "kernel", "plain"), batch=5)
+        nbytes = m * 4 + m * GRID_C * 4 + rows * GRID_C * 4
+        bms = nbytes / PEAK_BYTES * 1e3
+        say(f"kernel scatter_add {label} {m}x{GRID_C} -> {rows} rows ({touched} touched, "
+            f"longest run {longest}): error over its bound {k_ratio:.3f} (tol 1), plain "
+            f"{p_ratio:.3f}; kernel vs plain max_abs_err {err:.3e}; two runs identical: "
+            f"{same}; untouched rows zero: {zeros} | kernel (sort + zeros + kernel) "
+            f"{ms['kernel']:.4f} ms (the stable sort alone {ms['sort']:.4f} ms), plain "
+            f"{ms['plain']:.4f} ms, library index_add_ "
+            f"{ms['index_add_']:.4f} ms (sorted ids {ms['index_add_ sorted']:.4f} ms), "
+            f"bound {bms:.4f} ms (bytes), share of bound {bms / ms['kernel']:.4f}")
+        if not (same and zeros and k_ratio <= 1.0 and p_ratio <= 1.0):
+            fail(f"scatter_add {label}: not exact within its bound or not deterministic")
+        results[label] = dict(err=err, ms=ms["kernel"], plain_ms=ms["plain"],
+                              library_ms=ms["index_add_"], bound_ms=bms, bound_by="bytes")
+        del a, plain, sorted_vals
+        torch.cuda.empty_cache()
+    return results
+
+
+def check_grid_render_kernel(torch, dev) -> dict:
+    """Row 18 (csrc/fused_grid_render.cu) against its plain version at 1024 x
+    256, 1000 x 256 and 1024 x 37 tile-ordered camera rays, float32 and
+    bfloat16, on a 128^3 x 28 grid; timed in turns against the bytes
+    bound. No single PyTorch call computes this function (no library
+    time)."""
+    from nerf_tpu_torch.models.plenoxels import sh_basis
+    from nerf_tpu_torch.ops.cuda.fused_grid_render import (
+        FusedGridRender, _expand_basis, grid_render_plain)
+
+    results = {}
+    for cdt in ("float32", "bfloat16"):
+        model = grid_model(torch, dev, cdt)
+        fr = FusedGridRender(model, 2.0, 6.0)
+        with torch.no_grad():
+            pack = fr.pack(model)
+        src = model.grid.detach() if pack.packed is None else pack.packed
+        for n, s in ((1024, 256), (1000, 256), (1024, 37)):
+            o, d, t = image_rays(torch, dev, n, s, seed=n + s)
+            o_aff, d_aff = fr.affine(o, d, GRID_R)
+            bexp = _expand_basis(sh_basis(d, 2)).contiguous()
+
+            def plain():
+                return grid_render_plain(src, o_aff, d_aff, t, bexp, fr.sel)
+
+            def kern():
+                return fr._launch(src, o_aff, d_aff, t, bexp)
+
+            def wrapper():
+                return fr(pack, o, d, d, t)
+
+            with torch.no_grad():
+                ref, out = plain(), wrapper()
+                torch.cuda.synchronize()
+                errs = {}
+                for i, k in enumerate(("rgb", "acc", "depth", "weights")):
+                    if not torch.isfinite(out[k]).all():
+                        fail(f"grid_render {cdt} {n}x{s}: non-finite {k}")
+                    errs[k] = float((out[k] - ref[i]).abs().max())
+                ms = timed(torch, {"plain": plain, "kernel": kern, "wrapper": wrapper},
+                           ("plain", "kernel", "wrapper", "wrapper", "kernel", "plain"))
+                cells = (o_aff[:, None, :] + d_aff[:, None, :] * t[..., None]).clamp(0, GRID_R - 1)
+                rows = distinct_rows(torch, cells, GRID_R)
+            nbytes = n * (24 + 12 + 20) + 2 * n * s * 4 + rows * GRID_C * src.element_size()
+            bms = nbytes / PEAK_BYTES * 1e3
+            bad = {k: v for k, v in errs.items() if v > GRID_RENDER_TOL[k]}
+            say(f"kernel grid_render {cdt} {n}x{s}: max_abs_err "
+                + " ".join(f"{k}={v:.3e}(tol {GRID_RENDER_TOL[k]:.0e})" for k, v in errs.items())
+                + f" | kernel {ms['kernel']:.4f} ms (with the wrapper's affine and basis "
+                f"{ms['wrapper']:.4f} ms), plain {ms['plain']:.4f} ms, bound "
+                f"{bms:.4f} ms (bytes; {rows} distinct rows), share of bound "
+                f"{bms / ms['kernel']:.4f}")
+            if bad:
+                fail(f"grid_render {cdt} {n}x{s} disagrees with its plain version: {bad}")
+            results[(cdt, n, s)] = dict(err=max(errs.values()), ms=ms["kernel"],
+                                        plain_ms=ms["plain"], library_ms=None, bound_ms=bms,
+                                        bound_by="bytes")
+            del ref, out
+            torch.cuda.empty_cache()
+        del model, pack, src
+        torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------- phase 24
+
+
+def serve_plenoxels(torch, dev, tmp: str) -> int:
+    """Phase 24: the plenoxels config (lego_siren.txt with
+    PLENOXELS_OVERRIDES) from a seeded checkpoint (grid_model's noise on the
+    init) served as phase 8: 157 fused grid render launches a request (tile
+    order), one image held within mean abs 1e-2 of the unfused render
+    through the module with float32 interpolation (row 17)."""
+    from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedGridRender
+
+    def init(model):
+        with torch.no_grad():
+            g = torch.Generator().manual_seed(11)
+            model.grid.add_(0.5 * torch.randn(model.grid.shape, generator=g))
+
+    def float32_module(model):
+        import copy
+
+        ref = copy.copy(model)
+        ref.interp_dtype = "float32"
+        return ref
+
+    return serve(torch, dev, tmp, "lego_siren.txt", FusedGridRender, "grid_render_kernel",
+                 "plenoxels", PLENOXELS_OVERRIDES, init=init, reference=float32_module)
+
+
+# ---------------------------------------------------------------- phase 25
+
+
+def train_plenoxels(torch, dev, tmp: str) -> dict:
+    """Phase 25: fit() on the plenoxels config, 200 iterations with
+    tv_lambda = 1e-5 and tv_sh_lambda = 1e-3 (logs every 10, validation and
+    saves every 100): finite losses, the mse at 190 under that at 0, exactly
+    one row-17 and one row-19 launch a step and 157 row-18 launches for the
+    validation image; a bit-identical resume from step 100; then a fit from
+    grid_res = 64 with upsample_steps = "50:128" (100 iterations) whose
+    checkpoint reads grid_res 128 and whose resume restores a 128^3 grid;
+    the step's rate and a profile of one step."""
+    import dataclasses
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.data.pipeline import load_scene
+    from nerf_tpu_torch.ops.cuda.fused_grid import GridKernel
+    from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedGridRender
+    from nerf_tpu_torch.ops.cuda.scatter_add import ScatterKernel
+    from nerf_tpu_torch.train.loop import fit, render_settings_from_config
+    from nerf_tpu_torch.utils.checkpoint import read_metadata
+
+    base = parse_config_file(os.path.join(ROOT, "configs", "lego_siren.txt"))
+    cfg = dataclasses.replace(
+        base, model_type="plenoxels", dataset_path=os.path.join(tmp, "scene"), num_iters=200,
+        log_interval=10, val_interval=100, save_interval=100, tv_lambda=1e-5,
+        tv_sh_lambda=1e-3, save_path=os.path.join(tmp, "train_models_plenoxels"),
+        log_dir=os.path.join(tmp, "train_logs_plenoxels"), **PLENOXELS_OVERRIDES)
+    lines: list = []
+    GridKernel.launches = ScatterKernel.launches = FusedGridRender.launches = 0
+    t0 = time.perf_counter()
+    state = fit(cfg, device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (GridKernel.launches, ScatterKernel.launches, FusedGridRender.launches)
+    say(f"train: fit plenoxels (lego_siren.txt, {PLENOXELS_OVERRIDES}, tv_lambda 1e-5, "
+        f"tv_sh_lambda 1e-3) 200 iterations in {wall:.1f} s; launches: grid_interp "
+        f"{counts[0]}, scatter_add {counts[1]}, grid_render {counts[2]}")
+    for line in lines:
+        if "[Iter" in line or "Validation" in line:
+            say(f"  {line}")
+    want = (200, 200, math.ceil(HW * HW / cfg.chunk_size))
+    if counts != want:
+        fail(f"fit plenoxels launched (grid_interp, scatter_add, grid_render) {counts}, "
+             f"want {want}")
+    scal = read_scalars(cfg.log_dir)
+    loss = scal["loss"]
+    if sorted(loss) != list(range(0, 200, 10)) or not all(
+            math.isfinite(v) for v in loss.values()):
+        fail(f"plenoxels logged mse {loss}")
+    if not loss[190] < loss[0]:
+        fail(f"plenoxels: mse at 190 ({loss[190]}) is not under that at 0 ({loss[0]})")
+    step_rps = scal["rays_per_sec"][190]
+    say(f"train: mse {loss[0]:.6f} at 0 -> {loss[190]:.6f} at 190 (ratio "
+        f"{loss[190] / loss[0]:.4f}); plenoxels step {step_rps:.0f} rays/s "
+        f"({cfg.num_random_rays} rays, {cfg.num_samples} samples, grid "
+        f"{state.params.grid_res}^3 x {GRID_C} float32)")
+    check_resume(torch, dev, tmp, cfg, "plenoxels", loss)
+    scene = load_scene(cfg, device=dev)
+    profile_step(torch, state, scene.pool, render_settings_from_config(cfg), cfg,
+                 ("grid_interp_kernel", "scatter_pieces_kernel", "scatter_runs_kernel"),
+                 "plenoxels (tv)")
+    del state, scene
+    torch.cuda.empty_cache()
+
+    up = dataclasses.replace(cfg, grid_res=UPSAMPLE[0], upsample_steps=f"50:{UPSAMPLE[1]}",
+                             num_iters=100,
+                             val_interval=1000, save_path=os.path.join(tmp, "upsample_models"),
+                             log_dir=os.path.join(tmp, "upsample_logs"))
+    lines = []
+    t0 = time.perf_counter()
+    fit(up, device=dev, log=lines.append)
+    ckpt = os.path.join(up.save_path, "plenoxels_model_000100")
+    meta = read_metadata(ckpt)
+    ups = [line for line in lines if "Upsampled" in line]
+    say(f"train: fit plenoxels from grid_res {UPSAMPLE[0]} with upsample_steps "
+        f"{up.upsample_steps}, 100 iterations in {time.perf_counter() - t0:.1f} s: {ups}; "
+        f"checkpoint metadata {meta}")
+    if meta.get("grid_res") != UPSAMPLE[1] or len(ups) != 1 or "iteration 50" not in ups[0]:
+        fail(f"upsample: checkpoint grid_res {meta.get('grid_res')}, log {ups}")
+    resumed = fit(dataclasses.replace(up, num_iters=110,
+                                      save_path=os.path.join(tmp, "upsample_resume")),
+                  resume_path=ckpt, device=dev, log=lambda *_: None)
+    shape = tuple(resumed.params.grid.shape)
+    say(f"train: resume from the upsampled checkpoint (config grid_res {UPSAMPLE[0]}) "
+        f"restores grid {shape}, state.step {resumed.step}")
+    if shape != (UPSAMPLE[1],) * 3 + (GRID_C,) or resumed.step != 110:
+        fail(f"upsample resume: grid {shape}, state.step {resumed.step}")
+    del resumed
+    torch.cuda.empty_cache()
+    return {"grid_interp": counts[0], "scatter_add": counts[1], "grid_render": counts[2],
+            "step_rps": step_rps}
+
+
+# ---------------------------------------------------------------- phase 26
+
+
+def bench_plenoxels(torch, dev) -> dict:
+    """bench.py's plenoxels protocols on the card: train_plenoxels (S = 64)
+    and train_plenoxels_occ (S = 16, an all-ones 32^3 prior at fit's
+    options), each 2 warm-up steps then 12 timed chained steps (per-step
+    dispatch, 1024 rays, the 1<<20 pool), and
+    render_plenoxels_dense (400x400, 256 samples, no fine pass, tile order,
+    chunk 8192: one warm-up frame, 3 timed), in rays/s."""
+    from nerf_tpu_torch.config import Config
+    from nerf_tpu_torch.data.poses import spherical_orbit
+    from nerf_tpu_torch.data.rays import compute_rays_single
+    from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
+    from nerf_tpu_torch.models.registry import grid_domain
+    from nerf_tpu_torch.train.loop import render_settings_from_config
+    from nerf_tpu_torch.train.step import make_eval_render
+
+    def model():
+        return PlenoxelsModel(domain=grid_domain(Config())).to(dev)
+
+    out = {}
+    out["train_plenoxels"] = bench_train(
+        torch, dev, model(), 12, 2, "bench train_plenoxels (bench.py protocol, Plenoxels "
+        "128^3 1024x64)", num_samples=64)
+    torch.cuda.empty_cache()
+    occ = torch.ones((32, 32, 32, 1), device=dev)
+    out["train_plenoxels_occ"] = bench_train(
+        torch, dev, model(), 12, 2, "bench train_plenoxels_occ (bench.py protocol, Plenoxels "
+        "128^3 1024x16, occupancy 32^3)", num_samples=16,
+        occupancy=(occ, (grid_domain(Config()), 64, 1e-2)))
+    torch.cuda.empty_cache()
+    cfg = Config(num_samples=256, num_fine_samples=0, model_type="plenoxels")
+    settings = render_settings_from_config(cfg)
+    m = model()
+    render = make_eval_render(m, settings)
+    focal = 0.5 * HW / np.tan(0.5 * 0.6911)
+    ro, rd = compute_rays_single(HW, HW, focal, spherical_orbit(4)[0])
+    ro, rd = torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev)
+
+    def frame(i):
+        g = torch.Generator(device=dev).manual_seed(i)
+        return float(render(m, None, ro, rd, g, hw=(HW, HW)).rgb[0, 0])
+
+    frame(0)
+    t0 = time.perf_counter()
+    for i in range(3):
+        frame(i + 1)
+    dt = (time.perf_counter() - t0) / 3
+    out["render_plenoxels_dense"] = HW * HW / dt
+    say(f"bench render_plenoxels_dense (bench.py protocol, {HW}x{HW}, 256 samples, chunk "
+        f"{settings.chunk_size}): {HW * HW / dt:.0f} rays/s, {dt * 1e3:.1f} ms per frame")
+    del m, render
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- phase 6
 
 
-def bench_train(torch, dev, model, steps: int, warmup: int, label: str) -> float:
-    """bench.py's train protocol for ``model`` (bf16): 1024 rays x 256
-    samples per ray (per-ray jitter), white background, a 1<<20 synthetic
-    pool made on the card, ``warmup`` steps, then ``steps`` chained steps
-    timed to a scalar fetched on the host."""
+def bench_train(torch, dev, model, steps: int, warmup: int, label: str,
+                num_samples: int = 256, occupancy: tuple | None = None) -> float:
+    """bench.py's train protocol for ``model`` (bf16): 1024 rays x
+    ``num_samples`` samples per ray (per-ray jitter), white background, a
+    1<<20 synthetic pool made on the card, ``warmup`` steps, then ``steps``
+    chained steps timed to a scalar fetched on the host; ``occupancy`` =
+    (grid, options) samples the coarse pass from that prior."""
     from nerf_tpu_torch.config import Config
     from nerf_tpu_torch.data.pipeline import RayPool
     from nerf_tpu_torch.render.renderer import RenderSettings
@@ -2173,15 +2700,16 @@ def bench_train(torch, dev, model, steps: int, warmup: int, label: str) -> float
     pool = RayPool(rays_o=torch.randn(n, 3, generator=g, device=dev) * 0.1,
                    rays_d=rays_d, rgb=torch.rand(n, 3, generator=g, device=dev),
                    viewdirs=rays_d)
-    settings = RenderSettings(near=2.0, far=6.0, num_samples=256,
+    settings = RenderSettings(near=2.0, far=6.0, num_samples=num_samples,
                               white_background=True, jitter_mode="per_ray")
-    step = make_train_step(model, settings, 1024, seed=2)
+    occ_grid, opts = occupancy if occupancy is not None else (None, None)
+    step = make_train_step(model, settings, 1024, seed=2, occupancy_opts=opts)
     for _ in range(warmup):
-        m = step(state, pool)
+        m = step(state, pool, occ_grid)
     float(m["loss"])
     t0 = time.perf_counter()
     for _ in range(steps):
-        m = step(state, pool)
+        m = step(state, pool, occ_grid)
     loss = float(m["loss"])
     dt = time.perf_counter() - t0
     if not math.isfinite(loss):
@@ -2270,6 +2798,9 @@ def main() -> int:
     kilo_checks = check_kilonerf_kernels(torch, dev)
     field_checks = check_nerf_field_kernels(torch, dev)
     sg_checks = check_siren_gabor_field_kernels(torch, dev)
+    interp_checks = check_grid_interp_kernel(torch, dev)
+    scatter_checks = check_scatter_kernel(torch, dev)
+    render_checks = check_grid_render_kernel(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = serve(torch, dev, tmp, "lego.txt", FusedNerfRender,
                          "fused_render_fwd")
@@ -2296,10 +2827,13 @@ def main() -> int:
         sg_distilled = {f: train_distill_cross(torch, dev, tmp, f,
                                                sg_ckpt["gabor" if f == "siren" else "siren"])
                         for f in ("gabor", "siren")}
+        grid_served = serve_plenoxels(torch, dev, tmp)
+        grid_trained = train_plenoxels(torch, dev, tmp)
     bench_headline(torch, dev)
     bench_siren(torch, dev)
     bench_gabor(torch, dev)
     bench_kilonerf(torch, dev)
+    bench_plenoxels(torch, dev)
 
     def row(name, source, line, launched, c, err):
         return {"name": name, "route": "cuda",
@@ -2366,6 +2900,17 @@ def main() -> int:
                                launched, sg_checks[(name, "bfloat16", n)],
                                max(sg_checks[(name, c, n)]["err"]
                                    for c in ("float32", "bfloat16"))))
+    for name, source, line, launched, c, err in (
+            ("grid_interp", "fused_grid.cu", "fused_grid.py:160", grid_trained["grid_interp"],
+             interp_checks[("float32", "train", 256)],
+             max(v["err"] for v in interp_checks.values())),
+            ("grid_render", "fused_grid_render.cu", "fused_grid_render.py:76",
+             grid_served + grid_trained["grid_render"], render_checks[("bfloat16", 1024, 256)],
+             max(v["err"] for v in render_checks.values())),
+            ("scatter_add", "scatter_add.cu", "scatter_add.py:56", grid_trained["scatter_add"],
+             scatter_checks["step"], max(v["err"] for v in scatter_checks.values()))):
+        kernels.append(dict(row(name, source, f"{nerf_tpu}{line}", launched, c, err),
+                            library_ms=c["library_ms"]))
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")
     say(json.dumps({"ok": True, "device": {

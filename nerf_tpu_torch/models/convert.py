@@ -8,7 +8,8 @@ of shape (in, out); ``nn.Linear`` stores (out, in). A NeRF is ``{"block1":
 "rgb1"}`` (filter leaves keep their shapes), a KiloNeRF ``{"l1", "l2",
 "trunk", "rgb1", "rgb2"}`` of ``{"w", "b"}`` batched over the networks
 (``w`` (G^3, in, out), the layout the port keeps, so nothing is
-transposed). ``load_jax_params`` copies
+transposed), a Plenoxels model ``{"grid": (R, R, R, C)}`` (the port's
+``grid`` parameter as it is). ``load_jax_params`` copies
 such a tree (as numpy arrays) into the port's module; ``export_jax_params``
 is its inverse, ``export_jax_grads`` gives the ``.grad``s the same way, and
 ``load_jax_opt_state`` copies optax's Adam moments. Each picks the family
@@ -26,6 +27,7 @@ from torch import nn
 from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.kilonerf import LAYERS as KILO_LAYERS
 from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
+from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
 from nerf_tpu_torch.models.siren import SirenModel
 
 _BLOCKS = (("block1", "block1"), ("block2", "block2"), ("rgb", "rgb_head"))
@@ -68,6 +70,8 @@ def _tree_of(module, leaf) -> dict:
     if isinstance(module, KiloNeRFModel):
         return {k: {"w": leaf(module.layer(k).w), "b": leaf(module.layer(k).b)}
                 for k in KILO_LAYERS}
+    if isinstance(module, PlenoxelsModel):
+        return {"grid": leaf(module.grid)}
     tree: dict = {}
     for path, lyr in zip(_paths(module), _linears(module)):
         node = {"w": leaf(lyr.weight).T.copy(), "b": leaf(lyr.bias)}
@@ -100,6 +104,10 @@ def load_jax_params(module, tree: dict) -> None:
                 for leaf in ("w", "b"):
                     _copy_leaf(getattr(module.layer(k), leaf), tree[k][leaf],
                                f"{k}/{leaf}")
+        return
+    if isinstance(module, PlenoxelsModel):
+        with torch.no_grad():
+            _copy_leaf(module.grid, tree["grid"], "grid")
         return
     paths = _paths(module)
     for name in {p[0] for p in paths if len(p) == 2}:
@@ -148,6 +156,8 @@ def _flat_in_param_order(tree: dict) -> list[np.ndarray]:
     if "trunk" in tree:
         return [np.asarray(tree[k][leaf], np.float32) for k in KILO_LAYERS
                 for leaf in ("w", "b")]
+    if "grid" in tree:
+        return [np.asarray(tree["grid"], np.float32)]
     if "filters" in tree:
         out += [np.asarray(f[k], np.float32) for f in tree["filters"]
                 for k in FILTER_LEAVES]

@@ -1,6 +1,7 @@
-"""Model construction by name. ``nerf``, ``siren``, ``gabor`` and
-``kilonerf`` are ported; every other family of ``nerf_tpu.models.registry``
-raises and names the ROADMAP row (queue 1) that will port it."""
+"""Model construction by name. ``nerf``, ``siren``, ``gabor``, ``kilonerf``
+and ``plenoxels`` are ported; every other family of
+``nerf_tpu.models.registry`` raises and names the ROADMAP row (queue 1)
+that will port it."""
 
 from __future__ import annotations
 
@@ -12,16 +13,16 @@ from torch import nn
 from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
+from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
 from nerf_tpu_torch.models.siren import SirenModel
 
 MODEL_REGISTRY = {"nerf": NeRFModel, "siren": SirenModel, "gabor": GaborModel,
-                  "kilonerf": KiloNeRFModel}
+                  "kilonerf": KiloNeRFModel, "plenoxels": PlenoxelsModel}
 
 _NOT_YET = {
     "fastnerf": "row 13 (grid families)",
     "plenoctree": "row 13 (grid families)",
     "ngp": "row 13 (grid families)",
-    "plenoxels": "row 13 (grid families)",
 }
 
 
@@ -59,14 +60,15 @@ def grid_domain(cfg) -> tuple[float, float]:
 
 def model_from_config(cfg, generator: torch.Generator | None = None) -> nn.Module:
     """A CPU model from a ``Config``; move it with ``.to(device)``. Grid
-    families also take ``domain`` and, when the config sets it (> 0),
-    ``grid_res``."""
+    families also take ``domain``, ``use_grid_kernel`` (``use_pallas``)
+    and, when the config sets it (> 0), ``grid_res``."""
     common = dict(
         hidden_dim=cfg.hidden_dim,
         pos_encoding_dim=cfg.pos_encoding_dim,
         dir_encoding_dim=cfg.dir_encoding_dim,
         compute_dtype=cfg.compute_dtype,
         reference_init=cfg.reference_init,
+        use_grid_kernel=cfg.use_pallas,
         domain=grid_domain(cfg),
     )
     if cfg.grid_res > 0:

@@ -21,15 +21,17 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 # one library per .cu source: the NeRF, SIREN and GaborNet forward renders,
-# their train passes (NeRF and SIREN with the render backward), and the
-# KiloNeRF, NeRF, SIREN and GaborNet field forward and backward
+# their train passes (NeRF and SIREN with the render backward), the
+# KiloNeRF, NeRF, SIREN and GaborNet field forward and backward, and the
+# voxel grids' interpolation, fused grid render and sorted scatter-add
 LIBS = ("fused_render_fwd", "fused_render_train",
         "fused_render_siren_fwd", "fused_render_siren_train",
         "fused_render_gabor_fwd", "fused_render_gabor_train",
         "fused_kilonerf_fwd", "fused_kilonerf_bwd",
         "fused_nerf_fwd", "fused_nerf_bwd",
         "fused_siren_fwd", "fused_siren_bwd",
-        "fused_gabor_fwd", "fused_gabor_bwd")
+        "fused_gabor_fwd", "fused_gabor_bwd",
+        "fused_grid", "fused_grid_render", "scatter_add")
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -51,7 +53,7 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); "
-                       "the fused render kernels are built from source at first use")
+                       "the kernels are built from source at first use")
 
 
 @functools.cache

@@ -2,7 +2,8 @@
 
 Counterpart of ``nerf_tpu.serve``. ``RenderService`` owns the full-image
 renderer (the fused render kernel on the card; the field kernels for
-KiloNeRF), optionally guided by an occupancy prior baked once at start-up
+KiloNeRF; the fused grid render for Plenoxels, over rays in 8x8 pixel
+blocks), optionally guided by an occupancy prior baked once at start-up
 (``--occupancy``), and renders arbitrary camera poses; ``serve_http`` wraps
 a service in a stdlib threaded HTTP server:
 
@@ -45,7 +46,8 @@ def build_renderer(model, fine_model, cfg: Config, settings, bake: int = 0,
     viewdirs=...)``. With ``occupancy = R`` an R^3 occupancy prior is baked
     first, from the fine model of a hierarchical config (else the model),
     through the field of ``fused_field_for`` (the NeRF, SIREN or GaborNet
-    field kernels at hidden 256 on the card), over ``grid_domain(cfg)``, as
+    field kernels at hidden 256 on the card; a Plenoxels model's module),
+    over ``grid_domain(cfg)``, as
     nerf_tpu's ``build_renderer`` does; the renderer's coarse pass then
     samples from it (``renderer.occupancy``). Baked caches are not
     ported."""
@@ -152,7 +154,7 @@ class RenderService:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(request_seed(self.cfg.seed, key_idx))
         with self._lock:
-            out = self._renderer(*self.params, rays_o, rays_d, gen)
+            out = self._renderer(*self.params, rays_o, rays_d, gen, hw=(h, w))
             img = out.rgb.reshape(h, w, 3).cpu().numpy()
         return np.clip(img, 0.0, 1.0)
 

@@ -24,6 +24,13 @@ rebake repeats the first run bit for bit (nerf_tpu's loop keys them off its
 counter and rebakes once more after a resume's first step). With
 ``debug_nans`` a non-finite loss or gradient raises ``FloatingPointError``
 naming the step.
+
+Grid families (Plenoxels): ``tv_lambda`` / ``tv_sh_lambda`` add the total-
+variation prior to the loss (``make_regularizer``), and ``upsample_steps``
+(``"step:res,..."``) resamples the grid to ``res`` before iteration
+``step`` and restarts Adam at the new shape (``do_upsample``); entries at
+or before a resume's step, or not above the restored grid's resolution,
+are already in the checkpoint and drop out.
 """
 
 from __future__ import annotations
@@ -72,16 +79,54 @@ def check_ported(cfg: Config) -> None:
     the ROADMAP.md (queue 1) row that ports them. (Other model families
     and LLFF scenes raise where the model and the scene are built.)"""
     rows = []
-    if cfg.upsample_steps.strip():
-        rows.append("upsample_steps (row 13: grid families)")
-    if cfg.tv_lambda or cfg.tv_sh_lambda:
-        rows.append("tv_lambda / tv_sh_lambda (row 13: grid families)")
     if cfg.mesh_shape.strip() or cfg.multihost:
         rows.append("mesh_shape / multihost (row 14: parallel)")
     if rows:
         raise NotImplementedError(
             "not ported to nerf_tpu_torch yet (ROADMAP.md queue 1): "
             + "; ".join(rows))
+
+
+def make_regularizer(cfg: Config, model):
+    """``cfg.tv_lambda`` / ``cfg.tv_sh_lambda`` -> ``reg(state) -> scalar``
+    over the state's models (coarse and fine), or None when both are 0, as
+    ``nerf_tpu.train.loop.make_regularizer``. Only grid families have a
+    ``tv`` (Plenoxels); the knobs on any other family are a config error."""
+    if cfg.tv_lambda == 0.0 and cfg.tv_sh_lambda == 0.0:
+        return None
+    if not hasattr(model, "tv"):
+        raise ValueError(
+            f"tv_lambda/tv_sh_lambda set but model '{cfg.model_type}' has no TV "
+            "regularizer (voxel-grid families only)")
+
+    def reg(state):
+        total = 0.0
+        for m in state.models():
+            tv_sigma, tv_sh = m.tv()
+            total = total + cfg.tv_lambda * tv_sigma + cfg.tv_sh_lambda * tv_sh
+        return total
+
+    return reg
+
+
+def parse_upsample_steps(spec: str) -> list:
+    """``"2000:64,5000:128"`` -> ``[(2000, 64), (5000, 128)]``, the
+    coarse-to-fine schedule; steps and resolutions must strictly
+    increase."""
+    if not spec.strip():
+        return []
+    out = []
+    for item in spec.split(","):
+        s, _, r = item.strip().partition(":")
+        if not r:
+            raise ValueError(f"upsample_steps entries are 'step:res', got '{item}'")
+        out.append((int(s), int(r)))
+    if out[0][0] <= 0:
+        raise ValueError("upsample steps must be > 0")
+    for (s0, r0), (s1, r1) in zip(out, out[1:]):
+        if s1 <= s0 or r1 <= r0:
+            raise ValueError(f"upsample_steps must increase in step and res: '{spec}'")
+    return out
 
 
 def print_config_summary(cfg: Config, device: torch.device, log=print) -> None:
@@ -103,7 +148,7 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
         max_steps: Optional[int] = None, device: str | torch.device = "cuda",
         log=print):
     """Train per the config on ``device``; returns the final TrainState."""
-    from nerf_tpu_torch.train.optim import lr_schedule
+    from nerf_tpu_torch.train.optim import lr_schedule, make_optimizer
     from nerf_tpu_torch.train.state import create_train_state
     from nerf_tpu_torch.train.step import (
         VALIDATE,
@@ -152,6 +197,13 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
         log(f"Resuming training from iteration {start_step}")
 
     model = state.params
+    regularizer = make_regularizer(cfg, model)
+    upsample_sched = parse_upsample_steps(cfg.upsample_steps)
+    if upsample_sched and not hasattr(model, "upsample"):
+        raise ValueError(f"upsample_steps set but model '{cfg.model_type}' has no "
+                         "upsample hook (voxel-grid families only)")
+    upsample_sched = [(s, r) for s, r in upsample_sched
+                      if s > start_step and r > model.grid_res]
     max_chunk = cfg.steps_per_call
     if max_chunk <= 0:
         max_chunk = min(math.gcd(math.gcd(cfg.log_interval, cfg.val_interval),
@@ -169,7 +221,8 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
             step_fns[c] = make_scan_train_step(
                 model, settings, cfg.num_random_rays, cfg.seed, num_steps=c,
                 use_pallas=cfg.use_pallas, epoch_sampling=cfg.epoch_sampling,
-                occupancy_opts=occ_opts, debug_nans=cfg.debug_nans)
+                occupancy_opts=occ_opts, debug_nans=cfg.debug_nans,
+                regularizer=regularizer)
         return step_fns[c]
 
     # the optimizer step runs ``occ_lead`` ahead of the loop counter (1 after
@@ -192,9 +245,24 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
         if occ_opts is not None:
             candidates.append(next_mult(max(i + occ_lead, 1), cfg.occupancy_interval)
                               - occ_lead)
+        if upsample_sched and upsample_sched[0][0] - 1 >= i:
+            # a chunk ends right before an upsample step
+            candidates.append(upsample_sched[0][0] - 1)
         return min(candidates)
 
     eval_render = make_eval_render(model, settings, fused=cfg.use_pallas)
+
+    def do_upsample(new_res: int) -> None:
+        """Resample the grid(s) to ``new_res`` and restart Adam at the new
+        shape (the paper restarts it too); the draws key off state.step and
+        are untouched. The eval render is rebuilt for the new grid."""
+        nonlocal eval_render
+        for m in state.models():
+            m.set_grid(m.upsample(new_res))
+        state.optimizer = make_optimizer(
+            cfg, [p for m in state.models() for p in m.parameters()])
+        eval_render = make_eval_render(model, settings, fused=cfg.use_pallas)
+
     schedule = lr_schedule(cfg.learning_rate, cfg.lr_decay, cfg.lr_decay_factor,
                            cfg.lr_min)
     os.makedirs(cfg.save_path, exist_ok=True)
@@ -233,7 +301,7 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
         gen.manual_seed(step_seed(cfg.seed, step, VALIDATE))
         out = eval_render(state.params, state.fine_params,
                           torch.from_numpy(rays_o[0]).to(dev),
-                          torch.from_numpy(rays_d[0]).to(dev), gen)
+                          torch.from_numpy(rays_d[0]).to(dev), gen, hw=scene.hw)
         pred = out.rgb.reshape(*scene.hw, 3).cpu().numpy()
         val_psnr = float(mse_to_psnr(float(np.mean((pred - val_img) ** 2))))
         logger.log_validation(step, val_psnr, pred)
@@ -244,6 +312,12 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
         pos = start_step
         chunk_idx = 0
         while pos < num_iters:
+            while upsample_sched and pos >= upsample_sched[0][0]:
+                _, new_res = upsample_sched.pop(0)
+                with throughput.exclude():
+                    do_upsample(new_res)
+                log(f"[{format_elapsed_time(start_time)}] Upsampled grid to "
+                    f"{new_res}^3 at iteration {pos}")
             boundary = min(next_event(pos) + 1, num_iters)
             c = min(max_chunk, boundary - pos)
             if cfg.profile_dir and chunk_idx == 2:

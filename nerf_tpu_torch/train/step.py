@@ -20,10 +20,16 @@ route, as the JAX step does when ``resolve_fused_render`` gives None:
 ``render_rays`` on the field of ``fused_field_for`` (a family's field
 kernels where nerf_tpu takes them and the port's cover the shape, else the
 module),
-the loss and its gradient through autograd. With an occupancy grid (the
-``occ_grid`` step argument) the coarse samples come from the prior
-(``ops/occupancy.py``); with ``debug_nans`` a non-finite loss or gradient
-raises ``FloatingPointError`` before the update.
+the loss and its gradient through autograd. A Plenoxels model trains
+through its module (its ``apply`` reaches the grid-interpolation kernel and
+the scatter-add of its backward itself) and renders full images through
+the eval-only fused grid render (``ops/cuda/fused_grid_render.py``), which
+training routes skip, as nerf_tpu's ``for_train`` does. With an occupancy
+grid (the ``occ_grid`` step argument) the coarse samples come from the
+prior (``ops/occupancy.py``); a ``regularizer`` (the grid families' TV
+prior, ``train/loop.py::make_regularizer``) adds to the loss; with
+``debug_nans`` a non-finite loss or gradient raises ``FloatingPointError``
+before the update.
 """
 
 from __future__ import annotations
@@ -37,8 +43,11 @@ from nerf_tpu_torch.data.pipeline import RayBatch, RayPool
 from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
+from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
 from nerf_tpu_torch.models.siren import SirenModel
 from nerf_tpu_torch.ops.cuda.fused_gabor import GaborField
+from nerf_tpu_torch.ops.cuda.fused_grid import tile_ray_order
+from nerf_tpu_torch.ops.cuda.fused_grid_render import make_fused_grid_render
 from nerf_tpu_torch.ops.cuda.fused_kilonerf import KiloNeRFField
 from nerf_tpu_torch.ops.cuda.fused_nerf import NerfField
 from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender, FusedRender
@@ -126,13 +135,16 @@ def fused_field_for(model):
     family's field kernels (``NerfField``, ``SirenField``, ``GaborField``)
     where they cover the shape (hidden 256; a GaborNet of 8 stages);
     otherwise the module, as on the CPU and wherever nerf_tpu takes no field
-    kernel. Raises ``NotImplementedError`` on the card where nerf_tpu would
-    take a field kernel at a shape the port's do not cover (naming its row
-    of PERF.md's table: any of the three at hidden 512, a GaborNet of
-    another depth than 8), and for a family the port does not have."""
+    kernel (a Plenoxels model: its ``apply`` reaches the grid kernel).
+    Raises ``NotImplementedError`` on the card where nerf_tpu would take a
+    field kernel at a shape the port's do not cover (naming its row of
+    PERF.md's table: any of the three at hidden 512, a GaborNet of another
+    depth than 8), and for a family the port does not have."""
     if isinstance(model, KiloNeRFModel):
         h = model.hidden_dim
         return KiloNeRFField(model) if 8 <= h <= 128 and h % 8 == 0 else model
+    if isinstance(model, PlenoxelsModel):
+        return model
     if type(model) not in _FIELDS:
         raise NotImplementedError(
             f"no field for {type(model).__name__} in nerf_tpu_torch yet "
@@ -155,13 +167,22 @@ def packed_field(field):
     return field.pack() if hasattr(field, "pack") else field
 
 
-def _kernel_route(model, settings: RenderSettings, use_kernels: bool):
+def _kernel_route(model, settings: RenderSettings, use_kernels: bool,
+                  for_train: bool = True):
     """``(fused_render, field)``: the family's fused render where nerf_tpu
-    takes one (``_tpu_kernel_width``), else ``fused_field_for`` as the
-    field factory (the field route); raises for a family the port does not
-    have; ``(None, None)`` for the module path."""
+    takes one (``_tpu_kernel_width``; for a Plenoxels model the eval-only
+    fused grid render, which a training route skips), else
+    ``fused_field_for`` as the field factory (the field route); raises for
+    a family the port does not have; ``(None, None)`` for the module
+    path."""
     if not use_kernels:
         return None, None
+    if isinstance(model, PlenoxelsModel):
+        fr = make_fused_grid_render(model, settings.near, settings.far,
+                                    normalize=settings.normalize_positions)
+        if fr is not None and not (for_train and fr.eval_only):
+            return fr, None
+        return None, fused_field_for
     if not isinstance(model, (NeRFModel, SirenModel, GaborModel, KiloNeRFModel)):
         raise NotImplementedError(
             f"no fused render and no field kernels for {type(model).__name__} in "
@@ -204,7 +225,7 @@ def _make_step_body(model, settings: RenderSettings, batch_size: int,
                     seed: int, use_pallas: bool = True,
                     epoch_sampling: bool = False,
                     occupancy_opts: Optional[tuple] = None,
-                    debug_nans: bool = False):
+                    debug_nans: bool = False, regularizer=None):
     """``(sample, train_on_batch)``: ``sample(state, pool) -> RayBatch``
     draws the batch of ``state.step``; ``train_on_batch(state, batch,
     occ_grid=None) -> metrics`` renders, takes the loss and its gradient,
@@ -216,8 +237,9 @@ def _make_step_body(model, settings: RenderSettings, batch_size: int,
 
     ``occupancy_opts = (domain, num_bins, floor)`` gives meaning to the
     ``occ_grid`` argument: an (R, R, R, 1) {0, 1} prior (``fit`` rebakes it
-    at intervals) from which the coarse pass draws its samples. With
-    ``debug_nans`` a non-finite loss or gradient raises
+    at intervals) from which the coarse pass draws its samples.
+    ``regularizer(state) -> scalar`` adds to the loss (not to the mse).
+    With ``debug_nans`` a non-finite loss or gradient raises
     ``FloatingPointError`` before the update."""
     fused_render, field = _kernel_route(model, settings, use_pallas)
 
@@ -259,6 +281,8 @@ def _make_step_body(model, settings: RenderSettings, batch_size: int,
         for m in state.models():
             m.zero_grad(set_to_none=True)
         loss, mse = loss_fn(state, batch, gen, _occ(occ_grid))
+        if regularizer is not None:
+            loss = loss + regularizer(state)
         loss.backward()
         if debug_nans:
             check_finite(f"step {state.step}", loss, state.models())
@@ -274,12 +298,13 @@ def make_train_step(model, settings: RenderSettings, batch_size: int,
                     seed: int, use_pallas: bool = True,
                     epoch_sampling: bool = False,
                     occupancy_opts: Optional[tuple] = None,
-                    debug_nans: bool = False):
+                    debug_nans: bool = False, regularizer=None):
     """``step(state, pool, occ_grid=None) -> metrics``: one iteration,
     ``state`` updated in place (``_make_step_body`` for the options)."""
     sample, train_on_batch = _make_step_body(model, settings, batch_size, seed,
                                              use_pallas, epoch_sampling,
-                                             occupancy_opts, debug_nans)
+                                             occupancy_opts, debug_nans,
+                                             regularizer)
 
     def step(state: TrainState, pool: RayPool, occ_grid=None) -> dict:
         return train_on_batch(state, sample(state, pool), occ_grid)
@@ -291,13 +316,13 @@ def make_scan_train_step(model, settings: RenderSettings, batch_size: int,
                          seed: int, num_steps: int, use_pallas: bool = True,
                          epoch_sampling: bool = False,
                          occupancy_opts: Optional[tuple] = None,
-                         debug_nans: bool = False):
+                         debug_nans: bool = False, regularizer=None):
     """``step_n(state, pool, occ_grid=None) -> metrics``: ``num_steps``
     iterations in a Python loop, each metric stacked to ``(num_steps,)``.
     The draws key off ``state.step``, so N steps here equal N single
     steps."""
     step = make_train_step(model, settings, batch_size, seed, use_pallas,
-                           epoch_sampling, occupancy_opts, debug_nans)
+                           epoch_sampling, occupancy_opts, debug_nans, regularizer)
 
     def step_n(state: TrainState, pool: RayPool, occ_grid=None) -> dict:
         ms = [step(state, pool, occ_grid) for _ in range(num_steps)]
@@ -309,32 +334,57 @@ def make_scan_train_step(model, settings: RenderSettings, batch_size: int,
 def make_eval_render(model, settings: RenderSettings, fused: bool = True,
                      occupancy: Optional[OccupancyGrid] = None):
     """Returns ``render(params, fine_params, rays_o, rays_d, generator=None,
-    viewdirs=None) -> RenderOutput``, where ``params``/``fine_params`` are
-    models of ``model``'s family (``fine_params`` None: the coarse model
-    renders both passes). With ``fused`` each pass runs the family's fused
-    render where nerf_tpu takes one, else the field of ``fused_field_for``
-    (the field route); otherwise the module. With ``occupancy`` the coarse
-    samples come from that prior. Memory is bounded by
+    viewdirs=None, hw=None) -> RenderOutput``, where ``params``/
+    ``fine_params`` are models of ``model``'s family (``fine_params`` None:
+    the coarse model renders both passes). With ``fused`` each pass runs the
+    family's fused render where nerf_tpu takes one (eval-only renders
+    included), else the field of ``fused_field_for`` (the field route);
+    otherwise the module. A model's ``precompute`` hook (the Plenoxels
+    grid's bfloat16 copy) runs once per image. For a model that
+    ``wants_tile_order`` (with its grid kernels), ``hw = (h, w)`` of a
+    whole image reorders the rays into 8x8 pixel blocks
+    (``tile_ray_order``) and the outputs back. With ``occupancy`` the
+    coarse samples come from that prior. Memory is bounded by
     ``settings.chunk_size`` ray tiles."""
-    fused_render, field = _kernel_route(model, settings, fused)
+    fused_render, field = _kernel_route(model, settings, fused, for_train=False)
+    precompute = hasattr(model, "precompute")
+    tile_order = (getattr(model, "wants_tile_order", False)
+                  and getattr(model, "use_grid_kernel", True))
+    perm_cache: dict = {}
+
+    def prepare(p):
+        # pack the weights once per image, not once per tile
+        if p is None:
+            return None
+        if fused_render is not None:
+            return fused_render.pack(p)
+        if field is not None:
+            p = packed_field(field(p))
+        return p.precompute() if precompute else p
 
     @torch.no_grad()
     def render(params, fine_params, rays_o: torch.Tensor, rays_d: torch.Tensor,
                generator: Optional[torch.Generator] = None,
-               viewdirs: Optional[torch.Tensor] = None) -> RenderOutput:
-        # pack the weights once per image, not once per tile
-        if fused_render is not None:
-            params = fused_render.pack(params)
-            if fine_params is not None:
-                fine_params = fused_render.pack(fine_params)
-        elif field is not None:
-            params = packed_field(field(params))
-            if fine_params is not None:
-                fine_params = packed_field(field(fine_params))
-        return render_image(params, rays_o, rays_d, settings,
-                            generator=generator, fine_params=fine_params,
-                            viewdirs=viewdirs, fused_render=fused_render,
-                            occupancy=occupancy)
+               viewdirs: Optional[torch.Tensor] = None,
+               hw: Optional[tuple] = None) -> RenderOutput:
+        if viewdirs is None:
+            viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        inv = None
+        if tile_order and hw is not None and hw[0] * hw[1] == rays_o.shape[0]:
+            key = (tuple(hw), rays_o.device)
+            if key not in perm_cache:
+                p = tile_ray_order(hw[0], hw[1])
+                perm_cache[key] = (torch.from_numpy(p).to(rays_o.device),
+                                   torch.from_numpy(np.argsort(p)).to(rays_o.device))
+            perm, inv = perm_cache[key]
+            rays_o, rays_d, viewdirs = rays_o[perm], rays_d[perm], viewdirs[perm]
+        out = render_image(prepare(params), rays_o, rays_d, settings,
+                           generator=generator, fine_params=prepare(fine_params),
+                           viewdirs=viewdirs, fused_render=fused_render,
+                           occupancy=occupancy)
+        if inv is not None:
+            out = RenderOutput(*(x[inv] for x in out))
+        return out
 
     render.occupancy = occupancy
     return render

@@ -911,3 +911,193 @@ def test_occupancy_bake_of_siren_gabor_launches_the_field_forward(dev, family):
                                  occupancy=64, log=lambda *_: None)
     assert (wrapper.launches - before[0], wrapper.bwd_launches - before[1]) == (4, 0)
     assert renderer.occupancy.grid.shape == (64, 64, 64, 1)
+
+
+# ---------------------------------------------------------------- voxel grids
+
+
+def _grid_points(kind, n, dev, seed=0):
+    """Points in [-1, 1]-ish: ``uniform`` over [-1.2, 1.2]^3 (a third clamp to
+    the border), ``lines`` the lattice lines of an upsample."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "uniform":
+        return torch.rand(n, 3, generator=g, device=dev) * 2.4 - 1.2
+    lin = torch.linspace(-1.0, 1.0, 10, device=dev)
+    return torch.stack(torch.meshgrid(lin, lin, lin, indexing="ij"), -1).reshape(-1, 3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,kind,n", [(16, "uniform", 5000), (7, "uniform", 37),
+                                      (2, "uniform", 1), (16, "lines", 1000)])
+def test_grid_interp_kernel_matches_plain(dev, dtype, r, kind, n):
+    """Row 17 against its plain version on the card: the same float32
+    operations in the same order (no fused multiply-add), so to 1e-6 of
+    the values (measured equal on the H100); one launch."""
+    from nerf_tpu_torch.ops.cuda.fused_grid import (
+        GridKernel, cells_of, grid_interp, interp_cells_plain, pack_grid)
+
+    grid = torch.randn(r, r, r, 28, device=dev, generator=torch.Generator(device=dev).manual_seed(r))
+    src = pack_grid(grid, dtype)
+    src = grid if src is None else src
+    pts = _grid_points(kind, n, dev, seed=n)
+    before = GridKernel.launches
+    got = grid_interp(src, pts)
+    torch.cuda.synchronize()
+    assert GridKernel.launches == before + 1
+    ref = interp_cells_plain(src, cells_of(pts, r))
+    assert got.shape == (pts.shape[0], 28) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["uniform", "runs", "one_id", "channels"])
+def test_scatter_add_kernel_exact_and_deterministic(dev, case):
+    """Row 19 against float64 sums: each row within (K + pieces) ulps of its
+    sum of magnitudes (the kernel sums pieces of at most K = 256 rows, then
+    the pieces in order); against the plain version within the two
+    bounds; two runs equal bit for bit; untouched rows exactly zero; one
+    launch. ``runs``: 3,000 rows of one id (12 chunks) among uniform ids;
+    ``one_id``: every row one id; ``channels``: 1 and 32 channels."""
+    from nerf_tpu_torch.ops.cuda.scatter_add import (
+        ScatterKernel, scatter_add_plain, scatter_add_rows)
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    m, rows = 20000, 5000
+    for c in ((1, 32) if case == "channels" else (28,)):
+        ids = torch.randint(0, rows, (m,), generator=g, device=dev)
+        if case == "runs":
+            ids[torch.randperm(m, generator=g, device=dev)[:3000]] = 17
+        elif case == "one_id":
+            ids[:] = 4321
+        vals = torch.randn(m, c, generator=g, device=dev)
+        before = ScatterKernel.launches
+        a = scatter_add_rows(ids, vals, rows)
+        b = scatter_add_rows(ids, vals, rows)
+        torch.cuda.synchronize()
+        assert ScatterKernel.launches == before + 2
+        assert torch.equal(a, b)
+        exact = torch.zeros(rows, c, dtype=torch.float64, device=dev).index_add_(
+            0, ids, vals.double())
+        mags = torch.zeros(rows, c, dtype=torch.float64, device=dev).index_add_(
+            0, ids, vals.abs().double())
+        counts = torch.bincount(ids, minlength=rows).double()[:, None]
+        ulp = 2.0 ** -24
+        assert bool(((a.double() - exact).abs() <= (256 + counts / 256 + 2) * ulp * mags).all())
+        plain = scatter_add_plain(ids, vals, rows)
+        assert bool(((plain.double() - exact).abs() <= (counts + 2) * ulp * mags).all())
+        assert bool((a[counts[:, 0] == 0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(100, 24), (37, 5), (64, 300), (1, 1)])
+def test_grid_render_kernel_matches_plain(dev, dtype, shape):
+    """Row 18 against its plain version on the card (a 16^3 x 28 grid over
+    the default grid_domain, camera rays towards the origin): rgb, acc and
+    weights within 1e-5, depth within 1e-4 (the plain version's cumprod and
+    sums run in another order; expf and the division round alike); one
+    launch; S = 300 spans ten 32-sample batches of t."""
+    from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
+    from nerf_tpu_torch.ops.cuda.fused_grid_render import (
+        FusedGridRender, _expand_basis, grid_render_plain)
+    from nerf_tpu_torch.models.plenoxels import sh_basis
+
+    model = PlenoxelsModel(grid_res=16, interp_dtype=dtype, domain=(-2.75, -1.25)).to(dev)
+    with torch.no_grad():
+        model.grid.normal_(0.0, 0.7, generator=torch.Generator(device=dev).manual_seed(5))
+    n, s = shape
+    ro, rd, t = _inputs(n, s, dev, seed=n + s)
+    rd = torch.nn.functional.normalize(-ro + 0.3 * rd, dim=-1)
+    fr = FusedGridRender(model, NEAR, FAR)
+    with torch.no_grad():
+        pack = fr.pack(model)
+        before = FusedGridRender.launches
+        got = fr(pack, ro, rd, rd, t)
+        torch.cuda.synchronize()
+        assert FusedGridRender.launches == before + 1
+        src = model.grid if pack.packed is None else pack.packed
+        o_aff, d_aff = fr.affine(ro, rd, 16)
+        ref = grid_render_plain(src, o_aff, d_aff, t, _expand_basis(sh_basis(rd, 2)), fr.sel)
+    for i, k in enumerate(("rgb", "acc", "depth", "weights")):
+        assert got[k].shape == ref[i].shape and torch.isfinite(got[k]).all()
+        torch.testing.assert_close(got[k], ref[i], atol=1e-4 if k == "depth" else 1e-5, rtol=0)
+
+
+def test_grid_kernels_refuse_unsupported_shapes(dev):
+    """More than 32 channels, or a grid of one cell a side: the three
+    wrappers raise NotImplementedError naming their row, before any
+    launch."""
+    from nerf_tpu_torch.ops.cuda.fused_grid import GridKernel, grid_interp
+    from nerf_tpu_torch.ops.cuda.scatter_add import ScatterKernel, scatter_add_rows
+    from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
+    from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedGridRender
+
+    pts = torch.zeros(5, 3, device=dev)
+    before = (GridKernel.launches, ScatterKernel.launches, FusedGridRender.launches)
+    for r, c in ((4, 33), (1, 28)):
+        with pytest.raises(NotImplementedError, match="row 17"):
+            grid_interp(torch.zeros(r, r, r, c, device=dev), pts)
+    with pytest.raises(NotImplementedError, match="row 19"):
+        scatter_add_rows(torch.zeros(5, dtype=torch.long, device=dev),
+                         torch.zeros(5, 33, device=dev), 10)
+    model = PlenoxelsModel(grid_res=4, sh_degree=3).to(dev)        # 49 channels
+    ro, rd, t = _inputs(4, 8, dev)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="row 18"):
+        FusedGridRender(model, NEAR, FAR)(model, ro, rd, rd, t)
+    assert before == (GridKernel.launches, ScatterKernel.launches, FusedGridRender.launches)
+
+
+def test_plenoxels_train_step_and_eval_on_card_match_cpu(dev):
+    """Two coarse-only 32-sample steps with TV of the same float32 Plenoxels
+    state (grid 12, lr 0.01) on one batch (perturb off), on the card (one
+    row-17 and one row-19 launch a step) and on the CPU (plain versions):
+    loss and mse within 1e-5 relative; the grids within the Adam noise of
+    near-zero gradients (0.05 lr); then a 16 x 8 eval render with tile
+    order (bfloat16 interp) on both within 1e-5, two row-18 launches (chunk
+    64)."""
+    from nerf_tpu_torch.ops.cuda.fused_grid import GridKernel
+    from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedGridRender
+    from nerf_tpu_torch.ops.cuda.scatter_add import ScatterKernel
+    from nerf_tpu_torch.train.loop import make_regularizer
+
+    kw = dict(near=NEAR, far=FAR, num_samples=32, perturb=False, white_background=True)
+    cfg = Config(model_type="plenoxels", grid_res=12, learning_rate=0.01, tv_lambda=1e-3,
+                 tv_sh_lambda=1e-2, chunk_size=64, **kw)
+    states = [create_train_state(cfg, device=d) for d in ("cpu", dev)]
+    with torch.no_grad():
+        noise = torch.randn(states[0].params.grid.shape, generator=torch.Generator().manual_seed(2))
+        for st in states:
+            st.params.grid.add_(0.5 * noise.to(st.params.grid.device))
+    ro, rd, _ = _inputs(64, 1, "cpu", seed=9)
+    rd = torch.nn.functional.normalize(-ro + 0.3 * rd, dim=-1)
+    tgt = torch.rand(64, 3, generator=torch.Generator().manual_seed(8))
+    metrics = []
+    for st in states:
+        _, train_on_batch = _make_step_body(st.params, RenderSettings(**kw), 64, 0,
+                                            regularizer=make_regularizer(cfg, st.params))
+        d = st.params.grid.device
+        batch = RayBatch(*(x.to(d) for x in (ro, rd, tgt, rd)))
+        before = (GridKernel.launches, ScatterKernel.launches)
+        metrics.append([train_on_batch(st, batch) for _ in range(2)])
+        n = 2 if d.type == "cuda" else 0
+        assert (GridKernel.launches - before[0], ScatterKernel.launches - before[1]) == (n, n)
+    for m_cpu, m_gpu in zip(*metrics):
+        for k in ("loss", "mse"):
+            torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=1e-5, atol=0)
+    torch.testing.assert_close(states[1].params.grid.detach().cpu(),
+                               states[0].params.grid.detach(), atol=0.05 * 0.01, rtol=0)
+    settings = RenderSettings(near=NEAR, far=FAR, num_samples=32, perturb=False, chunk_size=64)
+    o = torch.tensor([[0.0, 0.0, 4.0]]).repeat(128, 1)
+    jj, ii = torch.meshgrid(torch.arange(8.0), torch.arange(16.0), indexing="xy")
+    d = torch.nn.functional.normalize(torch.stack([(jj - 4) / 20, -(ii - 8) / 20,
+                                                   -torch.ones_like(ii)], -1).reshape(-1, 3), dim=-1)
+    outs = []
+    for st in states:
+        dv = st.params.grid.device
+        before = FusedGridRender.launches
+        out = make_eval_render(st.params, settings)(st.params, None, o.to(dv), d.to(dv), hw=(16, 8))
+        assert FusedGridRender.launches - before == (2 if dv.type == "cuda" else 0)
+        outs.append(out)
+    st_cpu = states[0].params
+    st_cpu.grid.data.copy_(states[1].params.grid.detach().cpu())
+    cpu_again = make_eval_render(st_cpu, settings)(st_cpu, None, o, d, hw=(16, 8))
+    torch.testing.assert_close(outs[1].rgb.cpu(), cpu_again.rgb, atol=1e-5, rtol=0)
+    torch.testing.assert_close(outs[1].acc.cpu(), cpu_again.acc, atol=1e-5, rtol=0)

@@ -158,7 +158,7 @@ def test_model_from_config():
     assert m.cdt == torch.bfloat16
 
 
-@pytest.mark.parametrize("family", ["fastnerf", "plenoctree", "ngp", "plenoxels"])
+@pytest.mark.parametrize("family", ["fastnerf", "plenoctree", "ngp"])
 def test_unported_families_raise(family):
     from nerf_tpu.models.registry import MODEL_REGISTRY
 
@@ -167,14 +167,15 @@ def test_unported_families_raise(family):
         create_model(family)
 
 
-@pytest.mark.parametrize("family", ["nerf", "siren", "gabor", "kilonerf"])
+@pytest.mark.parametrize("family", ["nerf", "siren", "gabor", "kilonerf", "plenoxels"])
 def test_ported_families_build_from_a_config(family):
     """Each ported family builds from a config by name (the JAX registry's
     names), knobs it does not take dropped, and renders a batch."""
     from nerf_tpu.models.registry import MODEL_REGISTRY
 
     assert family in MODEL_REGISTRY
-    m = model_from_config(Config(model_type=family, hidden_dim=32),
+    grid_res = 8 if family == "plenoxels" else 0     # 0: the family's default
+    m = model_from_config(Config(model_type=family, hidden_dim=32, grid_res=grid_res),
                           generator=torch.Generator().manual_seed(0))
     assert type(m).__name__.lower().startswith(family)
     pts = torch.rand(5, 7, 3) * 2 - 1

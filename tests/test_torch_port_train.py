@@ -353,12 +353,24 @@ def test_scan_steps_equal_single_steps(scene_root):
 
 
 @pytest.mark.parametrize("field,value,row", [
-    ("tv_sh_lambda", 0.1, "row 13"), ("upsample_steps", "5:16", "row 13"),
-    ("tv_lambda", 0.1, "row 13"), ("mesh_shape", "2,1", "row 14"),
+    ("model_type", "fastnerf", "row 13"), ("multihost", True, "row 14"),
+    ("model_type", "plenoctree", "row 13"), ("mesh_shape", "2,1", "row 14"),
     ("dataset_type", "llff", "row 9"), ("model_type", "ngp", "row 13")])
 def test_fit_refuses_unported_options(scene_root, field, value, row):
     cfg = dataclasses.replace(_cfg(scene_root), **{field: value})
     with pytest.raises(NotImplementedError, match=row):
+        fit(cfg, device="cpu", log=lambda *_: None)
+
+
+@pytest.mark.parametrize("field,value,match", [
+    ("tv_sh_lambda", 0.1, "TV regularizer"), ("upsample_steps", "5:16", "upsample hook"),
+    ("tv_lambda", 0.1, "TV regularizer")])
+def test_fit_refuses_grid_options_on_other_families(scene_root, field, value, match):
+    """The TV prior and the upsample schedule are ported for the grid
+    families; on a NeRF they are a config error (ValueError), as in
+    nerf_tpu's fit."""
+    cfg = dataclasses.replace(_cfg(scene_root), **{field: value})
+    with pytest.raises(ValueError, match=match):
         fit(cfg, device="cpu", log=lambda *_: None)
 
 
