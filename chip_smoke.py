@@ -7,15 +7,17 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
 
   1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
   2. the build of every kernel library from the sources in the checkout
-     (one nvcc per source, started together), timed;
+     (one nvcc per source, started together), timed, and the count of
+     tensor-core instructions in the bf16 train pass's SASS (cuobjdump);
   3. every kernel against its plain PyTorch version on the card (TF32 off):
      the forward render at the serving shapes (8192 rays x 64 and 192
      samples), the train pass and the render backward at the training
      shapes (1024 rays x 64, 192 and 256 samples), hidden 256, float32 and
-     bfloat16: max errors against stated tolerances, the two backward
-     routes against each other, median times in turns (plain, kernel,
-     kernel, plain), the least time the card could take, and the share
-     reached;
+     bfloat16 (the bfloat16 train pass on the tensor cores, run twice for
+     identical bits and timed beside the CUDA-core kernel it replaced):
+     max errors against stated tolerances, the two backward routes against
+     each other, median times in turns (plain, kernel, kernel, plain), the
+     least time the card could take, and the share reached;
   4. serving: a synthetic 400x400 Blender scene, the configs/lego.txt model
      (full width, hierarchical 64+128, bfloat16) initialised from a seed and
      saved as a checkpoint, RenderService on cuda behind the HTTP server on
@@ -35,9 +37,9 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      rate of the lego.txt step;
   6. bench.py's headline protocol (flat NeRF, bf16, 1024 rays x 256
      samples, white background, a 1<<20 synthetic pool on the card, warm-up,
-     timed chained steps) in rays/s, and a torch.profiler trace of one
-     lego.txt step: the train kernel's share of wall time, the other
-     kernels, the device idle share;
+     timed chained steps) in rays/s, and torch.profiler traces of one
+     lego.txt step and of one headline step: the train kernels' share of
+     wall time, the other kernels, the device idle share;
   7. the SIREN kernels against their plain versions on the card (TF32
      off): the forward render at configs/lego_siren.txt's chunk and samples
      (1024 rays x 256), a ragged ray count (1000 x 256) and an odd S (1024 x
@@ -140,8 +142,8 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      off), a 128^3 x 28 grid (the plenoxels config's) with seeded values:
      the trilinear interpolation (row 17) at 1024 x 64 and 1024 x 256
      points of random training rays and of tile-ordered camera rays,
-     float32 and bfloat16, beside F.grid_sample; the sorted scatter-add
-     (row 19) at the training step's 8 x 262,144 rows x 28 (the step's
+     float32 and bfloat16, beside F.grid_sample; the scatter-add (row 19,
+     its radix sort and every output row in the call) at the training step's 8 x 262,144 rows x 28 (the step's
      corner ids, uniform ids, one id 65,536 times) against float64 sums,
      twice for identical bits, beside index_add_ on unsorted and sorted
      ids; the fused grid render (row 18) at 1024 x 256, 1000 x 256 and
@@ -173,6 +175,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -208,6 +211,11 @@ R_TRAIN = 1024          # rays per train step (num_random_rays of lego.txt)
 # max); bfloat16 rounds every dz to bf16 before each product, so one flipped
 # rounding is carried through nine layers (measured 8e-3 of the max).
 GRAD_TOL = {"float32": 5e-3, "bfloat16": 5e-2}
+# Row 5's bfloat16 train pass on the CUDA cores, before it moved to the
+# tensor cores (csrc/fused_render_train.cu at 1024 rays x S; PERF.md row 5's
+# earlier times, NVIDIA H100 80GB HBM3, 700.00 W), printed beside the
+# tensor-core kernel's time.
+ROW5_BF16_CUDA_CORE_MS = {64: 10.851, 192: 30.608, 256: 40.164}
 # per-sample MACs of the backward's skipped input-gradient products
 # (dz1 w1^T, dz6 w6p^T, dzr0 wr0d^T at the real widths 63/63/27)
 SKIPPED_MACS = 256 * 63 + 256 * 63 + 128 * 27
@@ -336,6 +344,18 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def tensor_core_instructions(path: str) -> tuple | None:
+    """(HMMA, HGMMA) instruction counts in a built library's SASS, by the
+    toolkit's cuobjdump; None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout.splitlines()
+    return (sum("HMMA" in line for line in sass), sum("HGMMA" in line for line in sass))
 
 
 def card_line() -> str:
@@ -716,7 +736,9 @@ def check_grad_kernels(torch, dev):
     """The train pass and the render backward against their plain
     versions at 1024 rays x S in {64, 192, 256}, and the two backward
     routes (train kernel; backward kernel from the MSE head's cotangent)
-    against each other."""
+    against each other. The bfloat16 train pass runs on the tensor cores
+    (csrc/fused_render_train_tc.cu): two launches must give the same bits,
+    and its time is printed beside the CUDA-core kernel's it replaced."""
     from nerf_tpu_torch.models.nerf import NeRFModel
     from nerf_tpu_torch.ops.cuda.fused_render import (
         FusedNerfRender, fused_render_bwd_plain, fused_train_plain)
@@ -739,7 +761,13 @@ def check_grad_kernels(torch, dev):
             with torch.no_grad():
                 ref = fused_train_plain(packed, o_aff, d_aff, rd, t, tgt, True, 10, 4)
                 got = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+                again = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
                 torch.cuda.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip(got[:4] + got[4],
+                                                             again[:4] + again[4]))
+                del again
+                if not same:
+                    fail(f"train kernel {cdt} S={s}: two launches differ")
                 errs = {"loss": float(abs(got[0] - ref[0]) / abs(ref[0]))}
                 for i, k in ((1, "rgb"), (2, "acc"), (3, "weights")):
                     if not torch.isfinite(got[i]).all():
@@ -798,8 +826,13 @@ def check_grad_kernels(torch, dev):
                                    3 * mlp_macs(256, 63, 27) - SKIPPED_MACS,
                                    grad_bytes=grad_bytes,
                                    train=name == "fused_render_train")
-                say(f"kernel {name} {cdt} R={R_TRAIN} S={s}: kernel {ms:.3f} ms, "
-                    f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), "
+                tc = name == "fused_render_train" and cdt == "bfloat16"
+                say(f"kernel {name} {cdt} R={R_TRAIN} S={s}: kernel {ms:.3f} ms"
+                    + (f" (tensor cores; the CUDA-core kernel it replaced "
+                       f"{ROW5_BF16_CUDA_CORE_MS[s]:.3f} ms, x"
+                       f"{ROW5_BF16_CUDA_CORE_MS[s] / ms:.2f}; two launches "
+                       f"bit-identical)" if tc else "")
+                    + f", plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), "
                     f"share of bound {bms / ms:.4f}")
                 e = gerr if name == "fused_render_train" else berr
                 worst = max(list(e.values()) + (list(errs.values())
@@ -2073,7 +2106,7 @@ def train_distill_occupancy(torch, dev, tmp: str, teacher: str) -> dict:
     occ_grid = bake_occupancy(sigma_field(state.params), grid_res=64,
                               domain=grid_domain(cfg), device=dev)
     profile_step(torch, state, scene.pool, render_settings_from_config(cfg), cfg,
-                 "fused_render_grad", "lego.txt occupancy-guided", occ_grid)
+                 "fused_render_train_tc", "lego.txt occupancy-guided", occ_grid)
     return {"fwd_launches": counts[0], "bwd_launches": counts[1], "step_rps": step_rps}
 
 
@@ -2360,7 +2393,8 @@ def check_scatter_kernel(torch, dev) -> dict:
     Each row within (K + pieces) ulps of its float64 sum's magnitude
     (``SCATTER_ULPS``), the plain version within (n + 2) ulps; two runs
     identical bit for bit; timed in turns against the plain version and
-    index_add_ on unsorted and sorted ids (the library calls)."""
+    index_add_ on unsorted and sorted ids (the library calls; each with its
+    torch.zeros, while the kernel's call writes every row itself)."""
     from nerf_tpu_torch.ops.cuda.fused_grid import cells_of
     from nerf_tpu_torch.ops.cuda.scatter_add import scatter_add_plain, scatter_add_rows
 
@@ -2409,19 +2443,20 @@ def check_scatter_kernel(torch, dev) -> dict:
                 "index_add_": lambda: torch.zeros(rows, GRID_C, device=dev).index_add_(
                     0, ids, vals),
                 "index_add_ sorted": lambda: torch.zeros(rows, GRID_C, device=dev).index_add_(
-                    0, sorted_ids, sorted_vals),
-                "sort": lambda: torch.sort(ids.to(torch.int32), stable=True)},
-                ("plain", "kernel", "index_add_", "index_add_ sorted", "sort", "sort",
+                    0, sorted_ids, sorted_vals)},
+                ("plain", "kernel", "index_add_", "index_add_ sorted",
                  "index_add_ sorted", "index_add_", "kernel", "plain"), batch=5)
         nbytes = m * 4 + m * GRID_C * 4 + rows * GRID_C * 4
         bms = nbytes / PEAK_BYTES * 1e3
         say(f"kernel scatter_add {label} {m}x{GRID_C} -> {rows} rows ({touched} touched, "
             f"longest run {longest}): error over its bound {k_ratio:.3f} (tol 1), plain "
             f"{p_ratio:.3f}; kernel vs plain max_abs_err {err:.3e}; two runs identical: "
-            f"{same}; untouched rows zero: {zeros} | kernel (sort + zeros + kernel) "
-            f"{ms['kernel']:.4f} ms (the stable sort alone {ms['sort']:.4f} ms), plain "
+            f"{same}; untouched rows zero: {zeros} | kernel (the whole call: sort, "
+            f"row pointer, sums, every row written) {ms['kernel']:.4f} ms, plain "
             f"{ms['plain']:.4f} ms, library index_add_ "
             f"{ms['index_add_']:.4f} ms (sorted ids {ms['index_add_ sorted']:.4f} ms), "
+            f"faster than index_add_: {ms['kernel'] < ms['index_add_']} "
+            f"(x{ms['index_add_'] / ms['kernel']:.2f}), "
             f"bound {bms:.4f} ms (bytes), share of bound {bms / ms['kernel']:.4f}")
         if not (same and zeros and k_ratio <= 1.0 and p_ratio <= 1.0):
             fail(f"scatter_add {label}: not exact within its bound or not deterministic")
@@ -2583,7 +2618,7 @@ def train_plenoxels(torch, dev, tmp: str) -> dict:
     check_resume(torch, dev, tmp, cfg, "plenoxels", loss)
     scene = load_scene(cfg, device=dev)
     profile_step(torch, state, scene.pool, render_settings_from_config(cfg), cfg,
-                 ("grid_interp_kernel", "scatter_pieces_kernel", "scatter_runs_kernel"),
+                 ("grid_interp_kernel", "scatter_add_"),
                  "plenoxels (tv)")
     del state, scene
     torch.cuda.empty_cache()
@@ -2678,12 +2713,14 @@ def bench_plenoxels(torch, dev) -> dict:
 
 
 def bench_train(torch, dev, model, steps: int, warmup: int, label: str,
-                num_samples: int = 256, occupancy: tuple | None = None) -> float:
+                num_samples: int = 256, occupancy: tuple | None = None,
+                profile_kernel=None) -> float:
     """bench.py's train protocol for ``model`` (bf16): 1024 rays x
     ``num_samples`` samples per ray (per-ray jitter), white background, a
     1<<20 synthetic pool made on the card, ``warmup`` steps, then ``steps``
     chained steps timed to a scalar fetched on the host; ``occupancy`` =
-    (grid, options) samples the coarse pass from that prior."""
+    (grid, options) samples the coarse pass from that prior. With
+    ``profile_kernel``, one more step under torch.profiler."""
     from nerf_tpu_torch.config import Config
     from nerf_tpu_torch.data.pipeline import RayPool
     from nerf_tpu_torch.render.renderer import RenderSettings
@@ -2717,6 +2754,9 @@ def bench_train(torch, dev, model, steps: int, warmup: int, label: str,
     rps = steps * 1024 / dt
     say(f"{label}: {rps:.0f} rays/s, {dt / steps * 1e3:.2f} ms per step "
         f"({steps} chained steps)")
+    if profile_kernel is not None:
+        profile_device(torch, lambda: step(state, pool, occ_grid), profile_kernel,
+                       f"one {label.split(' (')[0]} step")
     return rps
 
 
@@ -2727,7 +2767,8 @@ def bench_headline(torch, dev) -> float:
     model = NeRFModel(compute_dtype="bfloat16",
                       generator=torch.Generator().manual_seed(0)).to(dev)
     return bench_train(torch, dev, model, 30, 5, "bench headline (bench.py "
-                       "protocol, flat NeRF bf16 1024x256)")
+                       "protocol, flat NeRF bf16 1024x256)",
+                       profile_kernel="fused_render_train_tc")
 
 
 def bench_siren(torch, dev) -> float:
@@ -2790,6 +2831,16 @@ def main() -> int:
         for line in info.log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 say(f"  ptxas: {line.strip()}")
+    tc_lib = {i.name: str(i.path) for i in infos}["fused_render_train_tc"]
+    mma = tensor_core_instructions(tc_lib)
+    if mma is None:
+        say("build: fused_render_train_tc SASS not read (no cuobjdump): tensor-core "
+            "instructions not measured")
+    else:
+        say(f"build: fused_render_train_tc SASS holds {mma[0]} HMMA and {mma[1]} HGMMA "
+            "instructions")
+        if sum(mma) == 0:
+            fail("the bf16 train pass's library holds no tensor-core instruction")
 
     checks = check_kernel(torch, dev)
     grad_checks = check_grad_kernels(torch, dev)
@@ -2805,7 +2856,7 @@ def main() -> int:
         launches = serve(torch, dev, tmp, "lego.txt", FusedNerfRender,
                          "fused_render_fwd")
         trained = train(torch, dev, tmp, "lego.txt", FusedNerfRender,
-                        "fused_render_grad", 0.5)
+                        "fused_render_train_tc", 0.5)
         siren_launches = serve(torch, dev, tmp, "lego_siren.txt", FusedSirenRender,
                                "fused_siren_fwd")
         siren_trained = train(torch, dev, tmp, "lego_siren.txt", FusedSirenRender,
@@ -2847,10 +2898,10 @@ def main() -> int:
                    f"{nerf_tpu}fused_render.py:222", launches,
                    checks[("bfloat16", 192)],
                    max(c["err"] for c in checks.values()))]
-    for name, line, launched in (
-            ("fused_render_train", 315, trained["train_launches"]),
-            ("fused_render_bwd", 242, trained["bwd_launches"])):
-        kernels.append(row(name, "fused_render_train.cu",
+    for name, source, line, launched in (
+            ("fused_render_train", "fused_render_train_tc.cu", 315, trained["train_launches"]),
+            ("fused_render_bwd", "fused_render_train.cu", 242, trained["bwd_launches"])):
+        kernels.append(row(name, source,
                            f"{nerf_tpu}fused_render.py:{line}", launched,
                            grad_checks[(name, "bfloat16", 192)],
                            max(v["err"] for k, v in grad_checks.items()

@@ -1,7 +1,8 @@
 // Fused NeRF train pass and render backward for Hopper (sm_90a).
 //
 // Replaces two TPU kernels of nerf_tpu/ops/pallas/fused_render.py:
-//   * _train_kernel (FusedNerfRender.train): forward, white-background MSE
+//   * _train_kernel (FusedNerfRender.train) in float32 mode (its bfloat16
+//     mode is fused_render_train_tc.cu): forward, white-background MSE
 //     (loss partial and its analytic per-ray cotangent, _mse_cotangent),
 //     the backward through compositing (_composite_bwd) and the MLP
 //     backward (fused_nerf.py::_mlp_bwd_core without input gradients),
@@ -17,8 +18,10 @@
 // 658,944 MACs plus twice that for the backward, less the three products
 // the TPU kernel also skips (dz1 w1^T, dz6 w6p^T, dzr0 wr0d^T): about 1.95M
 // MACs. float32 mode runs on the CUDA cores (67 TFLOP/s); bfloat16 mode
-// rounds at the TPU kernel's points and sums in float32, also on the CUDA
-// cores in this first version (its bound is the tensor cores' 989 TFLOP/s).
+// (the render backward only: the bfloat16 train pass runs on the tensor
+// cores, fused_render_train_tc.cu) rounds at the TPU kernel's points and
+// sums in float32, also on the CUDA cores (its bound is the tensor cores'
+// 989 TFLOP/s).
 //
 // Design. The TPU kernel keeps a whole-ray tile's activations in VMEM and
 // adds into one gradient block across a grid that runs in order. Neither
@@ -138,13 +141,15 @@ void fused_render_grad_sizes(int* floats_per_point, int* npart, int* n_out) {
   *n_out = N_TOT + 1;
 }
 
-// train != 0: `given` is the (R, 3) target and rgb/acc/weights are written;
+// train != 0: `given` is the (R, 3) target and rgb/acc/weights are written
+// (float32 only: fused_render_train_tc.cu has the bfloat16 train pass);
 // train == 0: `given` is the (R, 8) cotangent [g_rgb, g_acc, g_depth, 0..]
 // and only the gradients are. `scratch` holds grid * cap * floats_per_point
 // floats, `partial` grid * npart, `out` n_out, where grid =
 // ceil(num_rays / rays_per_cta) and cap >= ceil(rays_per_cta * S / 64) * 64.
-// Returns 0 on success, a cudaError_t code after a failed launch, or -1
-// when the packed buffers or the shapes do not fit this kernel.
+// Returns 0 on success, a cudaError_t code after a failed launch, -1 when
+// the packed buffers or the shapes do not fit this kernel, or -2 for a
+// bfloat16 train pass.
 int fused_render_grad(const float* o_aff, const float* d_aff,
                       const float* viewdirs, const float* t, const void* wmat,
                       const void* wmat_t, const float* vec, int n_w, int n_b,
@@ -160,10 +165,7 @@ int fused_render_grad(const float* o_aff, const float* d_aff,
   const RayInputs in{o_aff, d_aff, viewdirs, t, vec, num_rays, S, real_p, real_d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    if (train)
-      return launch<true, true, __nv_bfloat16>(in, wmat, wmat_t, given, white_bg,
-                                               scale, rays_per_cta, cap, scratch,
-                                               partial, out, rgb, acc, weights, s);
+    if (train) return -2;   // fused_render_train_tc.cu runs the bf16 train pass
     return launch<true, false, __nv_bfloat16>(in, wmat, wmat_t, given, white_bg,
                                               scale, rays_per_cta, cap, scratch,
                                               partial, out, rgb, acc, weights, s);
@@ -179,6 +181,7 @@ int fused_render_grad(const float* o_aff, const float* d_aff,
 
 const char* fused_render_grad_error(int code) {
   if (code == -1) return "packed weights or shapes do not fit the kernel";
+  if (code == -2) return "the bfloat16 train pass runs in fused_render_train_tc";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

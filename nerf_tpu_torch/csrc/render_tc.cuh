@@ -1,0 +1,287 @@
+// Tensor-core building blocks of the bfloat16 render kernels for Hopper
+// (sm_90a): warp-level mma.sync.m16n8k16 (bf16 operands, float32 sums) fed
+// from shared memory by ldmatrix, and three block-level products over
+// bf16 tiles, each with its operand tiles staged by cp.async in a ring of
+// stages of KTC rows (pipeline):
+//   * gemm_fwd:  a 64-point chunk's activations (shared memory, point-major)
+//                times a weight matrix W (K x N, the packed layout) streamed
+//                from device memory (L2: every CTA reads the same weights):
+//                a layer of the forward;
+//   * gemm_dact: a 64-point chunk of dz (shared memory, point-major) times
+//                W^T, read from the same packed W (256 x KP) without a
+//                transposed copy: the dz W^T product of the backward;
+//   * dweight_tc: A^T dz over all of a CTA's points (both point-major in
+//                device memory), in strips of A's columns with the strip's
+//                output in registers: a weight gradient.
+// Every product rounds nothing itself: its operands are bf16 as stored, and
+// its sums are float32 (the tensor cores' accumulation).
+
+#pragma once
+
+#include "fused_render_common.cuh"
+
+namespace nerf {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_P = 64;           // points per chunk
+constexpr int KTC = 32;            // rows a staged k-tile
+constexpr int WARPS = THREADS / 32;
+constexpr int LDS = H + 8;         // row stride (bf16) of [64][256] tiles
+constexpr int LDP = PP + 8;        // of the position-encoding tile
+constexpr int LDD = DP + 8;        // of the direction-encoding tile
+// ldmatrix reads 8 rows of 16 bytes at once: a row stride of 16 mod 128
+// bytes puts them in distinct banks
+static_assert((LDS * 2) % 128 == 16 && (LDP * 2) % 128 == 16, "bank-conflicting strides");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b for one 16x8 tile, k = 16: a (16x16, row-major fragment), b
+// (16x8, column-major fragment), float32 accumulators.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragment loads (lane l, g = l / 4, c = l % 4; accumulator element 2h + u
+// of tile (mt, j) is row mt * 16 + g + 8h, column j * 8 + 2c + u).
+// A 16x16 at (m0, k0) of a row-major [m][k] tile.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld, int m0, int k0) {
+  const int l = threadIdx.x & 31;
+  ldsm4(a, s + (m0 + (l & 15)) * ld + k0 + ((l >> 4) << 3));
+}
+// A 16x16 at (m0, k0) of a tile stored [k][m] (A transposed).
+__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16* s, int ld, int m0, int k0) {
+  const int l = threadIdx.x & 31, i = l >> 3;
+  ldsm4t(a, s + (k0 + ((i >> 1) << 3) + (l & 7)) * ld + m0 + ((i & 1) << 3));
+}
+// B of two 8-column tiles (n0, n0 + 8) over k0..k0+15 of a tile stored
+// [k][n]: b[0], b[1] the first tile, b[2], b[3] the second.
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* s, int ld, int n0, int k0) {
+  const int l = threadIdx.x & 31, i = l >> 3;
+  ldsm4t(b, s + (k0 + ((i & 1) << 3) + (l & 7)) * ld + n0 + ((i >> 1) << 3));
+}
+// The same from a tile stored [n][k].
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* s, int ld, int n0, int k0) {
+  const int l = threadIdx.x & 31, i = l >> 3;
+  ldsm4(b, s + (n0 + ((i >> 1) << 3) + (l & 7)) * ld + k0 + ((i & 1) << 3));
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][j][u] = 0.f;
+}
+
+// The k-loop of the products: tiles 0..ntiles-1 staged by `stage(kt,
+// slot)` (its cp.async copies, uncommitted) into a ring of NS slots, NS - 1
+// tiles in flight ahead of the one `compute(kt, slot)` reads. Any cp.async
+// group the caller committed before is complete by the first compute.
+// Starts with every thread past a barrier where the caller needs it;
+// ends with every thread past one.
+template <int NS, typename Stage, typename Compute>
+__device__ __forceinline__ void pipeline(int ntiles, Stage stage, Compute compute) {
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) {
+    if (t < ntiles) stage(t, t);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ntiles; ++kt) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    const int nx = kt + NS - 1;
+    if (nx < ntiles) stage(nx, nx % NS);
+    cp_async_commit();
+    compute(kt, kt % NS);
+  }
+  __syncthreads();
+}
+
+constexpr int NS_FWD = 2;    // weight stages of a forward product
+constexpr int NS_DACT = 3;   // of a dz W^T product
+constexpr int NS_DW = 4;     // of a weight gradient
+
+// acc (the warp's 64 x N/8 columns from warp * N/8) += A W over K, A the
+// chunk's [64][K] activations in shared memory (stride lda), W (K x N,
+// row-major) in device memory, streamed KTC rows at a time through NS_FWD
+// stages of KTC x (N + 8) in `wst`.
+template <int K, int N>
+__device__ __forceinline__ void gemm_fwd(float (&acc)[4][N / 64][4], const bf16* a_s, int lda,
+                                         const bf16* __restrict__ w, bf16* wst) {
+  constexpr int NT = N / 64, LB = N + 8, STG = KTC * LB, NKT = K / KTC, CPR = N / 8;
+  static_assert(NKT * KTC == K && NT % 2 == 0, "K must be a multiple of KTC, N of 128");
+  const int n0 = (threadIdx.x >> 5) * (N / 8);
+  pipeline<NS_FWD>(
+      NKT,
+      [&](int kt, int slot) {
+        bf16* dst = wst + slot * STG;
+        for (int e = threadIdx.x; e < KTC * CPR; e += THREADS) {
+          const int r = e / CPR, q = (e % CPR) * 8;
+          cp_async16(dst + r * LB + q, w + static_cast<size_t>(kt * KTC + r) * N + q);
+        }
+      },
+      [&](int kt, int slot) {
+        const bf16* bs = wst + slot * STG;
+#pragma unroll
+        for (int ks = 0; ks < KTC; ks += 16) {
+          uint32_t b[NT][2];
+#pragma unroll
+          for (int j = 0; j < NT; j += 2) {
+            uint32_t r[4];
+            load_b_kn(r, bs, LB, n0 + j * 8, ks);
+            b[j][0] = r[0]; b[j][1] = r[1]; b[j + 1][0] = r[2]; b[j + 1][1] = r[3];
+          }
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            uint32_t a[4];
+            load_a(a, a_s, lda, mt * 16, kt * KTC + ks);
+#pragma unroll
+            for (int j = 0; j < NT; ++j) mma16816(acc[mt][j], a, b[j][0], b[j][1]);
+          }
+        }
+      });
+}
+
+// acc (the warp's 64 x 32 columns from warp * 32) = dz W^T: dz the chunk's
+// [64][KP] in shared memory (stride LDS), W (256 x KP, row-major: the
+// packed (in, out) matrix) in device memory, streamed as [256][KTC] column
+// slices through NS_DACT stages of 256 x (KTC + 8) in `wst`.
+template <int KP>
+__device__ __forceinline__ void gemm_dact(float (&acc)[4][4][4], const bf16* a_s,
+                                          const bf16* __restrict__ w, bf16* wst) {
+  constexpr int LB = KTC + 8, STG = H * LB, NKT = KP / KTC, CPR = KTC / 8;
+  static_assert(NKT * KTC == KP, "KP must be a multiple of KTC");
+  const int n0 = (threadIdx.x >> 5) * 32;
+  pipeline<NS_DACT>(
+      NKT,
+      [&](int kt, int slot) {
+        bf16* dst = wst + slot * STG;
+        for (int e = threadIdx.x; e < H * CPR; e += THREADS) {
+          const int r = e / CPR, q = (e % CPR) * 8;
+          cp_async16(dst + r * LB + q, w + static_cast<size_t>(r) * KP + kt * KTC + q);
+        }
+      },
+      [&](int kt, int slot) {
+        const bf16* bs = wst + slot * STG;
+#pragma unroll
+        for (int ks = 0; ks < KTC; ks += 16) {
+          uint32_t b[4][2];
+#pragma unroll
+          for (int j = 0; j < 4; j += 2) {
+            uint32_t r[4];
+            load_b_nk(r, bs, LB, n0 + j * 8, ks);
+            b[j][0] = r[0]; b[j][1] = r[1]; b[j + 1][0] = r[2]; b[j + 1][1] = r[3];
+          }
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            uint32_t a[4];
+            load_a(a, a_s, LDS, mt * 16, kt * KTC + ks);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma16816(acc[mt][j], a, b[j][0], b[j][1]);
+          }
+        }
+      });
+}
+
+// Bytes of the stages of each product.
+constexpr int WST_FWD_BYTES = NS_FWD * KTC * LDS * 2;
+constexpr int WST_DACT_BYTES = NS_DACT * H * (KTC + 8) * 2;
+constexpr int DW_STAGE_BYTES = NS_DW * KTC * ((H + 8) + (HR + 8)) * 2;   // the largest strip
+
+// part[m][n] = sum over the CTA's points l < cap_c of A[l][m] dz[l][n], for
+// m < M (A point-major with stride lda, bf16) and n < N (dz point-major
+// with stride LDZ, bf16), both in device memory. Strips of MS columns of
+// A; the warps tile a strip's MS x N output WM x WN, each warp's tile in
+// registers over all the points. `stage` holds two stages of KTC points of
+// the strip of A and of dz. Starts and ends with every thread past a
+// barrier.
+template <int MS, int N, int WM, int WN>
+__device__ void dweight_tc(const bf16* __restrict__ A, int lda, int M,
+                           const bf16* __restrict__ dz, int cap_c, float* __restrict__ part,
+                           bf16* stage) {
+  static_assert(WM * WN == WARPS, "the warps tile the strip");
+  constexpr int WTM = MS / WM, WTN = N / WN;
+  constexpr int MT = WTM / 16, NT = WTN / 8;
+  static_assert(MT * 16 == WTM && NT * 8 == WTN && NT % 2 == 0, "warp tile shape");
+  constexpr int LA = MS + 8, LB = N + 8, SA = KTC * LA, SB = KTC * LB;
+  constexpr int CA = MS / 8, CB = N / 8;
+  bf16* as0 = stage;
+  bf16* bs0 = stage + NS_DW * SA;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / WN, wn = warp % WN;
+  const int g = lane >> 2, c = lane & 3;
+  for (int m0 = 0; m0 < M; m0 += MS) {
+    float acc[MT][NT][4];
+    zero_acc(acc);
+    pipeline<NS_DW>(
+        cap_c / KTC,
+        [&](int kt, int slot) {
+          const size_t r0 = static_cast<size_t>(kt) * KTC;
+          for (int e = tid; e < KTC * CA; e += THREADS) {
+            const int r = e / CA, q = (e % CA) * 8;
+            cp_async16(as0 + slot * SA + r * LA + q, A + (r0 + r) * lda + m0 + q);
+          }
+          for (int e = tid; e < KTC * CB; e += THREADS) {
+            const int r = e / CB, q = (e % CB) * 8;
+            cp_async16(bs0 + slot * SB + r * LB + q, dz + (r0 + r) * LDZ + q);
+          }
+        },
+        [&](int, int slot) {
+          const bf16* as = as0 + slot * SA;
+          const bf16* bs = bs0 + slot * SB;
+#pragma unroll
+          for (int ks = 0; ks < KTC; ks += 16) {
+            uint32_t b[NT][2];
+#pragma unroll
+            for (int j = 0; j < NT; j += 2) {
+              uint32_t r[4];
+              load_b_kn(r, bs, LB, wn * WTN + j * 8, ks);
+              b[j][0] = r[0]; b[j][1] = r[1]; b[j + 1][0] = r[2]; b[j + 1][1] = r[3];
+            }
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              uint32_t a[4];
+              load_a_t(a, as, LA, wm * WTM + mt * 16, ks);
+#pragma unroll
+              for (int j = 0; j < NT; ++j) mma16816(acc[mt][j], a, b[j][0], b[j][1]);
+            }
+          }
+        });
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + wm * WTM + mt * 16 + g + 8 * h;
+          const int col = wn * WTN + j * 8 + 2 * c;
+          if (row < M)
+            *reinterpret_cast<float2*>(part + static_cast<size_t>(row) * N + col) =
+                make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
+        }
+  }
+}
+
+}  // namespace nerf

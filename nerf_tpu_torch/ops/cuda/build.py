@@ -21,10 +21,11 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 # one library per .cu source: the NeRF, SIREN and GaborNet forward renders,
-# their train passes (NeRF and SIREN with the render backward), the
-# KiloNeRF, NeRF, SIREN and GaborNet field forward and backward, and the
-# voxel grids' interpolation, fused grid render and sorted scatter-add
-LIBS = ("fused_render_fwd", "fused_render_train",
+# their train passes (NeRF and SIREN with the render backward; the NeRF's
+# bfloat16 train pass on the tensor cores), the KiloNeRF, NeRF, SIREN and
+# GaborNet field forward and backward, and the voxel grids' interpolation,
+# fused grid render and sorted scatter-add
+LIBS = ("fused_render_fwd", "fused_render_train", "fused_render_train_tc",
         "fused_render_siren_fwd", "fused_render_siren_train",
         "fused_render_gabor_fwd", "fused_render_gabor_train",
         "fused_kilonerf_fwd", "fused_kilonerf_bwd",

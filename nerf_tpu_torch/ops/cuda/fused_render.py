@@ -6,8 +6,10 @@ Three kernels, each replacing one of ``nerf_tpu/ops/pallas/fused_render.py``
 (their sources say what bounds each on an H100 and how the design answers):
 
   * ``csrc/fused_render_fwd.cu`` (``_fwd_kernel``): the forward render;
-  * ``csrc/fused_render_train.cu``, train entry (``_train_kernel``):
-    forward, white-background MSE and the full backward in one pass;
+  * the train pass (``_train_kernel``): forward, white-background MSE and
+    the full backward in one pass; in bfloat16 on the tensor cores
+    (``csrc/fused_render_train_tc.cu``), in float32 the train entry of
+    ``csrc/fused_render_train.cu``;
   * ``csrc/fused_render_train.cu``, backward entry (``_bwd_kernel``): the
     parameter gradients of the forward render from a per-ray cotangent.
 
@@ -50,6 +52,11 @@ from nerf_tpu_torch.ops.sampling import deltas_from_t
 from nerf_tpu_torch.ops.volume import exclusive_cumprod
 
 PP, DP = 64, 32          # padded position / direction encoding widths
+# Stash bytes a point of the bfloat16 train pass on the tensor cores
+# (csrc/fused_render_train_tc.cu: h1..h8, r(h9), feat and two dz buffers of
+# 256 bf16, y 128, penc 64, denc 32, h9 256 and 12 per-point columns in
+# float32); its library's fused_render_train_tc_sizes gives the same.
+TC_BYTES_PER_POINT = 2 * (12 * 256 + 128 + PP + DP) + 4 * (256 + 12)
 _HALF_PI = math.pi / 2   # rounds to the same float32 phase as the kernel's
 
 # The packed matrices and vectors, in buffer order (must match the OFF_*
@@ -378,6 +385,14 @@ def _library(name: str) -> ctypes.CDLL:
         lib.fused_render_fwd.restype = ci
         lib.fused_render_fwd_error.argtypes = [ci]
         lib.fused_render_fwd_error.restype = ctypes.c_char_p
+    elif name == "fused_render_train_tc":
+        lib.fused_render_train_tc.argtypes = ([vp] * 6 + [ci] * 2 + [vp, cf, cf]
+                                              + [ci] * 6 + [vp] * 7)
+        lib.fused_render_train_tc.restype = ci
+        lib.fused_render_train_tc_error.argtypes = [ci]
+        lib.fused_render_train_tc_error.restype = ctypes.c_char_p
+        lib.fused_render_train_tc_sizes.argtypes = [ctypes.POINTER(ci)] * 3
+        lib.fused_render_train_tc_sizes.restype = None
     else:
         lib.fused_render_grad.argtypes = ([vp] * 7 + [ci] * 4 + [vp, cf, cf]
                                           + [ci] * 6 + [vp] * 7)
@@ -387,6 +402,14 @@ def _library(name: str) -> ctypes.CDLL:
         lib.fused_render_grad_sizes.argtypes = [ctypes.POINTER(ci)] * 3
         lib.fused_render_grad_sizes.restype = None
     return lib
+
+
+def launch_plan(num_rays: int, s: int, n_sm: int) -> tuple[int, int, int]:
+    """``(rays_per_cta, grid, cap)`` of a train or backward launch: the
+    rays split evenly over the ``n_sm`` SMs, one CTA each, and each CTA's
+    stash ``cap`` points long (its points rounded up to 64-point chunks)."""
+    rays_per_cta = -(-num_rays // n_sm)
+    return rays_per_cta, -(-num_rays // rays_per_cta), -(-rays_per_cta * s // 64) * 64
 
 
 def grad_sizes(sizes_fn) -> tuple[int, int, int]:
@@ -612,9 +635,7 @@ class FusedRender:
             x.detach().contiguous() for x in (o_aff, d_aff, viewdirs, t, given))
         fn, err, (per_point, npart, n_out) = self._grad_entry()
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        rays_per_cta = -(-num_rays // n_sm)
-        grid = -(-num_rays // rays_per_cta)
-        cap = -(-rays_per_cta * s // 64) * 64
+        rays_per_cta, grid, cap = launch_plan(num_rays, s, n_sm)
         # transposed matrices (same offsets) for the dz W^T products
         wmat_t = torch.cat([packed.mats[k].t().reshape(-1) for k in self.mat_names])
         scratch = torch.empty(grid * cap * per_point, dtype=torch.float32, device=dev)
@@ -697,3 +718,54 @@ class FusedNerfRender(FusedRender):
         lib = _library("fused_render_train")
         return (lib.fused_render_grad, lib.fused_render_grad_error,
                 grad_sizes(lib.fused_render_grad_sizes))
+
+    def grad_library(self, train: bool) -> str:
+        """The library of a train pass (``train``) or render backward: the
+        bfloat16 train pass runs on the tensor cores, the others on the
+        CUDA cores."""
+        if train and self.cdt == torch.bfloat16:
+            return "fused_render_train_tc"
+        return "fused_render_train"
+
+    def _launch_grad(self, packed: Packed, o_aff, d_aff, viewdirs, t,
+                     given, train: bool, white_bg: bool):
+        if self.grad_library(train) == "fused_render_train_tc":
+            return self._launch_train_tc(packed, o_aff, d_aff, viewdirs, t, given,
+                                         white_bg)
+        return super()._launch_grad(packed, o_aff, d_aff, viewdirs, t, given, train,
+                                    white_bg)
+
+    def _launch_train_tc(self, packed: Packed, o_aff, d_aff, viewdirs, t, target,
+                         white_bg: bool):
+        """One launch of the bfloat16 train pass on the tensor cores
+        (``csrc/fused_render_train_tc.cu``); returns as ``_launch_grad``."""
+        num_rays, s = t.shape
+        self._check(packed, self._ray_args(o_aff, d_aff, viewdirs, t) + (
+            ("given", target, (num_rays, 3), torch.float32),))
+        dev = t.device
+        o_aff, d_aff, viewdirs, t, target = (
+            x.detach().contiguous() for x in (o_aff, d_aff, viewdirs, t, target))
+        lib = _library("fused_render_train_tc")
+        per_point, npart, n_out = grad_sizes(lib.fused_render_train_tc_sizes)
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        rays_per_cta, grid, cap = launch_plan(num_rays, s, n_sm)
+        scratch = torch.empty(grid * cap * per_point, dtype=torch.uint8, device=dev)
+        partial = torch.empty(grid * npart, dtype=torch.float32, device=dev)
+        out = torch.empty(n_out, dtype=torch.float32, device=dev)
+        rgb = torch.empty((num_rays, 3), dtype=torch.float32, device=dev)
+        acc = torch.empty((num_rays,), dtype=torch.float32, device=dev)
+        weights = torch.empty((num_rays, s), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = lib.fused_render_train_tc(
+                o_aff.data_ptr(), d_aff.data_ptr(), viewdirs.data_ptr(), t.data_ptr(),
+                packed.wmat.data_ptr(), packed.vec.data_ptr(), packed.wmat.numel(),
+                packed.vec.numel(), target.data_ptr(), 1.0 if white_bg else 0.0,
+                1.0 / (3.0 * num_rays), num_rays, s, rays_per_cta, cap,
+                *self._family_args(), scratch.data_ptr(), partial.data_ptr(),
+                out.data_ptr(), rgb.data_ptr(), acc.data_ptr(), weights.data_ptr(), stream)
+        if code != 0:
+            raise RuntimeError(f"{type(self).__name__} train kernel: "
+                               + lib.fused_render_train_tc_error(code).decode())
+        n_w = packed.wmat.numel()
+        return ((out[:n_w], out[n_w:n_out - 1]), out[n_out - 1], rgb, acc, weights)

@@ -1,14 +1,15 @@
 """Exact, deterministic row scatter-add by id, in a CUDA kernel.
 
 ``scatter_add_rows(ids, vals, num_rows)`` is ``zeros((num_rows, C)).at[ids]
-.add(vals)`` of ``nerf_tpu/ops/pallas/scatter_add.py`` (C <= 32). The
-wrapper sorts the ids once (a stable ``torch.sort``, as nerf_tpu sorts with
-``lax.sort_key_val`` outside its kernel); the kernel
-(``csrc/scatter_add.cu``, which replaces ``_scatter_kernel``) sums each run
-of equal ids in a fixed order, reading the values through the sort
-permutation, and writes each touched row once: no float atomics, the same
-bits on every run. In the port it is the grid gradient of
-``ops/interp.py::trilinear``'s backward.
+.add(vals)`` of ``nerf_tpu/ops/pallas/scatter_add.py`` (C <= 32; ids outside
+[0, num_rows) skipped). The kernel library (``csrc/scatter_add.cu``, which
+replaces ``_scatter_kernel``) sorts the ids itself (a stable radix sort over
+``radix_plan(num_rows)``'s bits), builds a row pointer and gives each output
+row to one group of lanes, which sums its value rows in their input order
+(runs longer than a chunk as pieces, joined in order): every output row
+written once, zeros included, no float atomics, the same bits on every run.
+In the port it is the grid gradient of ``ops/interp.py::trilinear``'s
+backward.
 
 On CPU tensors the plain version runs (the sort and a segment sum in
 PyTorch); on CUDA tensors the kernel launches or the call raises, never
@@ -61,14 +62,24 @@ def scatter_add_plain(ids: torch.Tensor, vals: torch.Tensor, num_rows: int) -> t
     return out
 
 
+def radix_plan(num_rows: int) -> tuple[int, int]:
+    """``(passes, digit_bits)`` of the kernel's LSD radix sort: its keys are
+    the row ids and ``num_rows`` (the key of skipped ids), so it sorts
+    ``num_rows.bit_length()`` bits in passes of at most 8 bits, split
+    evenly (3 passes of 8 bits at 128^3 rows, 2 of 7 at 5,000)."""
+    bits = max(1, int(num_rows).bit_length())
+    passes = -(-bits // 8)
+    return passes, -(-bits // passes)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = library("scatter_add")
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.scatter_add_sorted.argtypes = [vp, vp, vp, cl, ci, ci, vp, vp, vp, vp]
-    lib.scatter_add_sorted.restype = ci
-    lib.scatter_add_chunk.argtypes = []
-    lib.scatter_add_chunk.restype = ci
+    lib.scatter_add.argtypes = [vp, ci, vp, cl, ci, ci, ci, ci, vp, vp, vp]
+    lib.scatter_add.restype = ci
+    lib.scatter_add_workspace.argtypes = [cl, ci, ci, ci, ci]
+    lib.scatter_add_workspace.restype = cl
     lib.scatter_add_error.argtypes = [ci]
     lib.scatter_add_error.restype = ctypes.c_char_p
     return lib
@@ -88,21 +99,21 @@ def scatter_add_rows(ids: torch.Tensor, vals: torch.Tensor, num_rows: int) -> to
         raise NotImplementedError(
             f"the scatter-add kernel (PERF.md row 19, scatter_add.py::_scatter_kernel) "
             f"covers 1..{LANES} channels, got {c}")
-    out = torch.zeros((num_rows, c), dtype=torch.float32, device=vals.device)
     m = ids.shape[0]
-    if m == 0:
-        return out
-    sid, perm = torch.sort(ids.to(torch.int32), stable=True)
-    vals = vals.contiguous()
+    ids, vals = ids.contiguous(), vals.contiguous()
     lib = _library()
-    chunks = -(-m // lib.scatter_add_chunk())
-    head = torch.empty((chunks, c), dtype=torch.float32, device=vals.device)
-    tail = torch.empty_like(head)
+    passes, bits = radix_plan(num_rows)
+    ws_bytes = lib.scatter_add_workspace(m, c, num_rows, passes, bits)
+    if ws_bytes <= 0:
+        raise ValueError(f"scatter-add of {m} rows into {num_rows}: "
+                         + lib.scatter_add_error(-1).decode())
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=vals.device)
+    out = torch.empty((num_rows, c), dtype=torch.float32, device=vals.device)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.scatter_add_sorted(sid.data_ptr(), perm.data_ptr(), vals.data_ptr(), m, c,
-                                      num_rows, head.data_ptr(), tail.data_ptr(),
-                                      out.data_ptr(), stream)
+        code = lib.scatter_add(ids.data_ptr(), int(ids.dtype == torch.int64), vals.data_ptr(),
+                               m, c, num_rows, passes, bits, ws.data_ptr(), out.data_ptr(),
+                               stream)
     if code != 0:
         raise RuntimeError("scatter-add kernel: " + lib.scatter_add_error(code).decode())
     ScatterKernel.launches += 1

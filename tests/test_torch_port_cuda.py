@@ -107,14 +107,18 @@ def _assert_grads(got, ref, cdt):
 
 
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(300, 37), (5, 8), (133, 64)])
+@pytest.mark.parametrize("shape", [(300, 37), (5, 8), (133, 64), (64, 192), (64, 256)])
 @pytest.mark.parametrize("white_bg", [True, False])
 def test_train_kernel_matches_plain(dev, cdt, shape, white_bg):
-    """Odd S (chunks span rays), a ray count that leaves CTAs idle, and 133
-    rays (one more than the SMs: two rays on some CTAs)."""
+    """Odd S (chunks span rays), a ray count that leaves CTAs idle, 133
+    rays (one more than the SMs: two rays on some CTAs), and the full S of
+    lego.txt's fine pass and of the headline step. bfloat16 runs on the
+    tensor cores (fused_render_train_tc), float32 on the CUDA cores."""
     model = NeRFModel(compute_dtype=cdt,
                       generator=torch.Generator().manual_seed(4)).to(dev)
     fr = FusedNerfRender(model, NEAR, FAR)
+    assert fr.grad_library(True) == {"float32": "fused_render_train",
+                                     "bfloat16": "fused_render_train_tc"}[cdt]
     ro, rd, t = _inputs(*shape, dev, seed=1)
     tgt = torch.rand(shape[0], 3, device=dev,
                      generator=torch.Generator(device=dev).manual_seed(2))
@@ -130,6 +134,38 @@ def test_train_kernel_matches_plain(dev, cdt, shape, white_bg):
     for i in (1, 2, 3):
         torch.testing.assert_close(got[i], ref[i], atol=TOL[cdt], rtol=0)
     _assert_grads(got[4], ref[4], cdt)
+
+
+@pytest.mark.parametrize("shape", [(133, 64), (64, 256)])
+def test_bf16_train_kernel_is_deterministic(dev, shape):
+    """The tensor-core train pass adds its per-CTA partials in CTA order and
+    nothing atomically: two launches on the same inputs give the same bits."""
+    model = NeRFModel(compute_dtype="bfloat16",
+                      generator=torch.Generator().manual_seed(9)).to(dev)
+    fr = FusedNerfRender(model, NEAR, FAR)
+    ro, rd, t = _inputs(*shape, dev, seed=4)
+    tgt = torch.rand(shape[0], 3, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(5))
+    with torch.no_grad():
+        packed = fr.pack(model)
+        o_aff, d_aff = fr.affine(ro, rd)
+        a = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+        b = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+    for x, y in zip(a[:4] + a[4], b[:4] + b[4]):
+        assert torch.equal(x, y)
+
+
+def test_bf16_train_library_sizes(dev):
+    """The tensor-core library's stash bytes a point are the host's
+    TC_BYTES_PER_POINT (tests/test_torch_port_kernel_plans.py), its
+    partials and outputs those of the CUDA-core train pass."""
+    from nerf_tpu_torch.ops.cuda.fused_render import (
+        TC_BYTES_PER_POINT, _library, grad_sizes)
+
+    tc = grad_sizes(_library("fused_render_train_tc").fused_render_train_tc_sizes)
+    old = grad_sizes(_library("fused_render_train").fused_render_grad_sizes)
+    assert tc[0] == TC_BYTES_PER_POINT
+    assert tc[1:] == old[1:]
 
 
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
@@ -949,25 +985,42 @@ def test_grid_interp_kernel_matches_plain(dev, dtype, r, kind, n):
     torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("case", ["uniform", "runs", "one_id", "channels"])
+@pytest.mark.parametrize("case", ["uniform", "runs", "one_id", "channels", "few_rows",
+                                  "outside", "long_run", "int64_big"])
 def test_scatter_add_kernel_exact_and_deterministic(dev, case):
     """Row 19 against float64 sums: each row within (K + pieces) ulps of its
     sum of magnitudes (the kernel sums pieces of at most K = 256 rows, then
     the pieces in order); against the plain version within the two
     bounds; two runs equal bit for bit; untouched rows exactly zero; one
     launch. ``runs``: 3,000 rows of one id (12 chunks) among uniform ids;
-    ``one_id``: every row one id; ``channels``: 1 and 32 channels."""
+    ``one_id``: every row one id; ``channels``: 1, 5 and 32 channels;
+    ``few_rows``: M = 100 < K int32 ids; ``outside``: ids below 0 and past
+    num_rows (skipped); ``long_run``: 20,000 rows of one id (79 chunks, a
+    run over more than 64 chunks); ``int64_big``: int64 ids >= 2^24 (4
+    radix passes)."""
     from nerf_tpu_torch.ops.cuda.scatter_add import (
         ScatterKernel, scatter_add_plain, scatter_add_rows)
 
     g = torch.Generator(device=dev).manual_seed(3)
-    m, rows = 20000, 5000
-    for c in ((1, 32) if case == "channels" else (28,)):
-        ids = torch.randint(0, rows, (m,), generator=g, device=dev)
+    m, rows, lo = 20000, 5000, 0
+    if case == "few_rows":
+        m = 100
+    elif case == "long_run":
+        m = 40000
+    elif case == "int64_big":
+        rows, lo = 2 ** 24 + 3000, 2 ** 24
+    for c in ((1, 5, 32) if case == "channels" else (28,)):
+        ids = torch.randint(lo, rows, (m,), generator=g, device=dev)
         if case == "runs":
             ids[torch.randperm(m, generator=g, device=dev)[:3000]] = 17
+        elif case == "long_run":
+            ids[torch.randperm(m, generator=g, device=dev)[:20000]] = 17
         elif case == "one_id":
             ids[:] = 4321
+        elif case == "outside":
+            ids = torch.randint(-50, rows + 50, (m,), generator=g, device=dev)
+        elif case == "few_rows":
+            ids = ids.int()
         vals = torch.randn(m, c, generator=g, device=dev)
         before = ScatterKernel.launches
         a = scatter_add_rows(ids, vals, rows)
@@ -975,14 +1028,16 @@ def test_scatter_add_kernel_exact_and_deterministic(dev, case):
         torch.cuda.synchronize()
         assert ScatterKernel.launches == before + 2
         assert torch.equal(a, b)
+        kept = (ids >= 0) & (ids < rows)
+        ik, vk = ids[kept].long(), vals[kept]
         exact = torch.zeros(rows, c, dtype=torch.float64, device=dev).index_add_(
-            0, ids, vals.double())
+            0, ik, vk.double())
         mags = torch.zeros(rows, c, dtype=torch.float64, device=dev).index_add_(
-            0, ids, vals.abs().double())
-        counts = torch.bincount(ids, minlength=rows).double()[:, None]
+            0, ik, vk.abs().double())
+        counts = torch.bincount(ik, minlength=rows).double()[:, None]
         ulp = 2.0 ** -24
         assert bool(((a.double() - exact).abs() <= (256 + counts / 256 + 2) * ulp * mags).all())
-        plain = scatter_add_plain(ids, vals, rows)
+        plain = scatter_add_plain(ik, vk, rows)
         assert bool(((plain.double() - exact).abs() <= (counts + 2) * ulp * mags).all())
         assert bool((a[counts[:, 0] == 0] == 0).all())
 

@@ -1,0 +1,87 @@
+"""Host-side plans of two of the port's kernels, checked on the CPU.
+
+* The bfloat16 train pass (PERF.md row 5) runs on the tensor cores
+  (``csrc/fused_render_train_tc.cu``); the float32 train pass and the render
+  backward (row 4) stay on ``csrc/fused_render_train.cu``. Its launch plan
+  and the bytes of its stash are computed here, on the host.
+* The scatter-add (row 19) sorts its keys by a radix sort whose passes and
+  digit width follow from the number of rows.
+
+The kernels themselves run only on the card (``tests/test_torch_port_cuda.py``).
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from nerf_tpu_torch.models.nerf import NeRFModel
+from nerf_tpu_torch.ops.cuda import build
+from nerf_tpu_torch.ops.cuda.fused_render import (
+    TC_BYTES_PER_POINT, FusedNerfRender, FusedRender, launch_plan)
+from nerf_tpu_torch.ops.cuda.scatter_add import radix_plan
+
+# the float32 stash of csrc/fused_render_train.cu: floats_per_point<2>() of
+# fused_render_common.cuh (9 x 256 + 256 + 128 + 2 x 64 + 2 x 256 + 12)
+F32_STASH_BYTES = 4 * (9 * 256 + 256 + 128 + 2 * 64 + 2 * 256 + 12)
+
+
+@pytest.mark.parametrize("shape, plan", [
+    ((1024, 256), (8, 128, 2048)),   # bench.py's headline step
+    ((1024, 64), (8, 128, 512)),     # lego.txt's coarse pass
+    ((1024, 192), (8, 128, 1536)),   # and its fine pass
+    ((5, 8), (1, 5, 64)),            # CTAs left idle
+    ((133, 64), (2, 67, 128)),       # two rays on a CTA
+    ((300, 37), (3, 100, 128)),      # chunks that span rays
+])
+def test_train_launch_plan_and_stash_bytes(shape, plan):
+    """The rays split over 132 SMs, each CTA's stash its points rounded up
+    to 64-point chunks; the tensor-core pass keeps 7,664 bytes a point,
+    0.57 of the float32 stash's."""
+    num_rays, s = shape
+    rays_per_cta, grid, cap = launch_plan(num_rays, s, 132)
+    assert (rays_per_cta, grid, cap) == plan
+    assert grid * rays_per_cta >= num_rays > (grid - 1) * rays_per_cta
+    assert cap % 64 == 0 and cap >= rays_per_cta * s > cap - 64
+    assert TC_BYTES_PER_POINT == 7664
+    assert TC_BYTES_PER_POINT / F32_STASH_BYTES == pytest.approx(0.5737, abs=1e-4)
+    if shape == (1024, 256):
+        assert grid * cap * TC_BYTES_PER_POINT == 2_009_071_616
+
+
+@pytest.mark.parametrize("num_rows, plan", [
+    (1, (1, 1)), (2, (1, 2)), (255, (1, 8)), (256, (2, 5)), (5000, (2, 7)),
+    (128 ** 3, (3, 8)), (2 ** 24 + 3000, (4, 7)), (2 ** 31 - 2, (4, 8)),
+])
+def test_scatter_radix_plan(num_rows, plan):
+    """The keys are the row ids and num_rows (skipped ids): bit_length(
+    num_rows) bits in the fewest passes of at most 8 bits, split evenly
+    (3 passes at the plenoxels grid's 128^3 rows, where a 32-bit sort
+    takes 4)."""
+    passes, bits = radix_plan(num_rows)
+    assert (passes, bits) == plan
+    need = num_rows.bit_length()
+    assert passes * bits >= need and bits <= 8
+    assert (passes - 1) * 8 < need
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_bf16_train_pass_routes_to_the_tensor_core_library(cdt, monkeypatch):
+    """Only the bfloat16 train pass goes to fused_render_train_tc; the
+    float32 train pass and the render backward (both dtypes) keep
+    fused_render_train. The dispatch of _launch_grad is checked with both
+    launchers replaced (no card here)."""
+    model = NeRFModel(compute_dtype=cdt, generator=torch.Generator().manual_seed(0))
+    fr = FusedNerfRender(model, 2.0, 6.0)
+    tc = cdt == "bfloat16"
+    assert fr.grad_library(True) == ("fused_render_train_tc" if tc else "fused_render_train")
+    assert fr.grad_library(False) == "fused_render_train"
+    assert "fused_render_train_tc" in build.LIBS and "fused_render_train" in build.LIBS
+    calls = []
+    monkeypatch.setattr(FusedNerfRender, "_launch_train_tc",
+                        lambda self, *a: calls.append("tc"))
+    monkeypatch.setattr(FusedRender, "_launch_grad", lambda self, *a: calls.append("cuda-core"))
+    x = torch.zeros(2, 3)
+    for train in (True, False):
+        fr._launch_grad(None, x, x, x, torch.zeros(2, 4), x, train, True)
+    assert calls == (["tc", "cuda-core"] if tc else ["cuda-core", "cuda-core"])
