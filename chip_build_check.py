@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Bit-for-bit check of the NeRF kernels across two checkouts, on one GPU.
+"""Bit-for-bit check of the NeRF and GaborNet render kernels across two
+checkouts, on one GPU.
 
 A change to the kernel pieces that several families share
 (``nerf_tpu_torch/csrc/render_common.cuh``) must leave the kernels of the
 families it did not mean to touch computing what they computed. This script
-runs the NeRF forward render, train pass and render backward on seeded
-inputs (300 x 37 and 1024 x 64, float32 and bfloat16) with the checkout it
-is given, saves every output, and compares two such files with
-``torch.equal``:
+runs the NeRF forward render, train pass and render backward and the
+GaborNet forward render on seeded inputs (300 x 37 and 1024 x 64, float32
+and bfloat16) with the checkout it is given, saves every output, and
+compares two such files with ``torch.equal``:
 
     # in each checkout (this one, and e.g. the parent unpacked by
     # `git archive` into a directory .gitignore lists)
@@ -43,8 +44,10 @@ def save(out: str, checkout: str) -> int:
     if not torch.cuda.is_available():
         print("chip_build_check: no CUDA device", file=sys.stderr)
         return 2
+    from nerf_tpu_torch.models.gabor import GaborModel
     from nerf_tpu_torch.models.nerf import NeRFModel
     from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -71,6 +74,14 @@ def save(out: str, checkout: str) -> int:
                 g_ray[:, 5:] = 0
                 gw, gv = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
                 res[f"bwd {key} gw"], res[f"bwd {key} gv"] = gw.cpu(), gv.cpu()
+        gabor = GaborModel(compute_dtype=cdt,
+                           generator=torch.Generator().manual_seed(7)).to(dev)
+        gr = FusedGaborRender(gabor, 2.0, 6.0)
+        with torch.no_grad():
+            for r, s in ((300, 37), (1024, 64)):
+                ro, rd, t, _ = _inputs(torch, dev, r, s, r + s)
+                for k, v in gr(gabor, ro, rd, rd, t).items():
+                    res[f"gabor fwd {cdt} {r}x{s} {k}"] = v.cpu()
     torch.cuda.synchronize()
     torch.save(res, out)
     print(f"chip_build_check: saved {len(res)} outputs of {checkout} to {out}")

@@ -8,16 +8,20 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
   1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
   2. the build of every kernel library from the sources in the checkout
      (one nvcc per source, started together), timed, and the count of
-     tensor-core instructions in the bf16 train pass's SASS (cuobjdump);
+     tensor-core instructions in the SASS of the three bf16 libraries on
+     the tensor cores (the NeRF train pass, the NeRF and GaborNet forward
+     renders; cuobjdump);
   3. every kernel against its plain PyTorch version on the card (TF32 off):
      the forward render at the serving shapes (8192 rays x 64 and 192
      samples), the train pass and the render backward at the training
      shapes (1024 rays x 64, 192 and 256 samples), hidden 256, float32 and
-     bfloat16 (the bfloat16 train pass on the tensor cores, run twice for
-     identical bits and timed beside the CUDA-core kernel it replaced):
-     max errors against stated tolerances, the two backward routes against
-     each other, median times in turns (plain, kernel, kernel, plain), the
-     least time the card could take, and the share reached;
+     bfloat16 (the bfloat16 forward render and train pass on the tensor
+     cores, each run twice for identical bits and timed beside the
+     CUDA-core kernel it replaced; the forward render's rgb, acc and
+     weights against the train pass's on one 1024 x 64 batch): max errors
+     against stated tolerances, the two backward routes against each
+     other, median times in turns (plain, kernel, kernel, plain), the least
+     time the card could take, and the share reached;
   4. serving: a synthetic 400x400 Blender scene, the configs/lego.txt model
      (full width, hierarchical 64+128, bfloat16) initialised from a seed and
      saved as a checkpoint, RenderService on cuda behind the HTTP server on
@@ -58,7 +62,9 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      bf16, 1024 x 256, the 1<<20 pool, warm-up, 50 chained steps timed to a
      host fetch) in rays/s;
  10. the GaborNet kernels against their plain versions on the card (TF32
-     off): the forward render at 1024 x 256, 1000 x 256 and 1024 x 37, the
+     off): the forward render at 1024 x 256, 1000 x 256 and 1024 x 37 (in
+     bfloat16 on the tensor cores, run twice for identical bits, timed
+     beside the CUDA-core kernel it replaced), the
      train pass at 1024 x 256 (loss, rgb, acc, weights, every weight
      gradient, the coefficient cotangents dA..dR, and the filter gradients
      after autograd through the prep), float32 and bfloat16, timed in turns
@@ -216,6 +222,15 @@ GRAD_TOL = {"float32": 5e-3, "bfloat16": 5e-2}
 # earlier times, NVIDIA H100 80GB HBM3, 700.00 W), printed beside the
 # tensor-core kernel's time.
 ROW5_BF16_CUDA_CORE_MS = {64: 10.851, 192: 30.608, 256: 40.164}
+# Rows 3 and 11's bfloat16 forward renders on the CUDA cores, before they
+# moved to the tensor cores (csrc/fused_render_fwd.cu at 8192 rays x S,
+# csrc/fused_render_gabor_fwd.cu at 1024 x 256; PERF.md's earlier times,
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside the tensor-core kernels.
+ROW3_BF16_CUDA_CORE_MS = {64: 21.164, 192: 62.040}
+ROW11_BF16_CUDA_CORE_MS = 10.264
+# the libraries of the bf16 kernels on the tensor cores (phase 2 reads
+# their SASS)
+TC_LIBS = ("fused_render_train_tc", "fused_render_fwd_tc", "fused_render_gabor_fwd_tc")
 # per-sample MACs of the backward's skipped input-gradient products
 # (dz1 w1^T, dz6 w6p^T, dzr0 wr0d^T at the real widths 63/63/27)
 SKIPPED_MACS = 256 * 63 + 256 * 63 + 128 * 27
@@ -428,6 +443,13 @@ def camera_batch(torch, dev, num_rays: int, s: int, seed: int) -> tuple:
 
 
 def check_kernel(torch, dev):
+    """The forward render against its plain version at 8192 rays x 64 and
+    192 samples, float32 and bfloat16, TF32 off. The bfloat16 one runs on
+    the tensor cores (csrc/fused_render_fwd_tc.cu): two launches must give
+    the same bits, its time is printed beside the CUDA-core kernel's it
+    replaced, and its rgb, acc and weights are held against those of the
+    bfloat16 train pass (the same chain, csrc/fused_render_train_tc.cu) on
+    one 1024 x 64 batch."""
     from nerf_tpu_torch.models.nerf import NeRFModel
     from nerf_tpu_torch.ops.cuda.fused_render import (
         FusedNerfRender, fused_render_plain)
@@ -458,14 +480,17 @@ def check_kernel(torch, dev):
             with torch.no_grad():
                 ref = plain()
                 out = kern()
+                again = kern()
                 torch.cuda.synchronize()
+                if not all(torch.equal(out[k], again[k]) for k in out):
+                    fail(f"kernel {cdt} S={s}: two launches differ")
                 errs = {}
                 for i, k in enumerate(("rgb", "acc", "depth", "weights")):
                     x = out[k]
                     if not torch.isfinite(x).all():
                         fail(f"kernel {cdt} S={s}: non-finite {k}")
                     errs[k] = float((x - ref[i]).abs().max())
-                del ref, out
+                del ref, out, again
                 torch.cuda.empty_cache()
                 times = {"plain": [], "kernel": []}
                 plain(); kern()                       # warm-up
@@ -478,15 +503,36 @@ def check_kernel(torch, dev):
             bms, by = bound_ms(R_CHECK, s, cdt, weight_bytes,
                                mlp_macs(256, 63, 27))
             bad = {k: v for k, v in errs.items() if v > TOL[cdt][k]}
+            tc = fr.fwd_library() == "fused_render_fwd_tc"
             say(f"kernel fused_render_fwd {cdt} R={R_CHECK} S={s}: max_abs_err "
                 + " ".join(f"{k}={v:.3e}(tol {TOL[cdt][k]:.0e})"
                            for k, v in errs.items())
-                + f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                + f" | kernel {ms:.3f} ms"
+                + (f" (tensor cores; the CUDA-core kernel it replaced "
+                   f"{ROW3_BF16_CUDA_CORE_MS[s]:.3f} ms, x"
+                   f"{ROW3_BF16_CUDA_CORE_MS[s] / ms:.2f})" if tc else "")
+                + f", two launches bit-identical, plain {plain_ms:.3f} ms, "
                 f"bound {bms:.3f} ms ({by}), share of bound {bms / ms:.4f}")
             if bad:
                 fail(f"kernel {cdt} S={s} disagrees with its plain version: {bad}")
             results[(cdt, s)] = dict(err=max(errs.values()), ms=ms,
                                      plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    # the bf16 forward render and train pass run one chain: on one batch
+    # their rgb, acc and compositing weights agree
+    rays_o, rays_d, t, target = camera_batch(torch, dev, R_TRAIN, 64, 3064)
+    o_aff, d_aff = fr.affine(rays_o, rays_d)
+    with torch.no_grad():
+        out = fr(packed, rays_o, rays_d, rays_d, t)
+        _, rgb, acc, weights, _ = fr._train(packed, o_aff, d_aff, rays_d, t, target, True)
+        torch.cuda.synchronize()
+    diff = {"rgb": float((out["rgb"] - rgb).abs().max()),
+            "acc": float((out["acc"] - acc).abs().max()),
+            "weights": float((out["weights"] - weights).abs().max())}
+    say(f"kernel fused_render_fwd bfloat16 R={R_TRAIN} S=64 against the train pass "
+        f"({fr.grad_library(True)}): max abs "
+        + " ".join(f"{k}={v:.3e}(tol {TOL['bfloat16'][k]:.0e})" for k, v in diff.items()))
+    if any(v > TOL["bfloat16"][k] for k, v in diff.items()):
+        fail(f"the bf16 forward render and train pass disagree: {diff}")
     return results
 
 
@@ -1002,7 +1048,10 @@ def check_gabor_kernels(torch, dev):
     the train pass at 1024 x 256, its coefficient cotangents dA..dR (max abs
     over max |d| per coefficient) and the filter gradients after autograd
     through the prep (as grad_errors); float32 and bfloat16, TF32 off; the
-    tolerances of the NeRF kernels."""
+    tolerances of the NeRF kernels. The bfloat16 forward runs on the tensor
+    cores (csrc/fused_render_gabor_fwd_tc.cu): two launches must give the
+    same bits at each shape, and its time is printed beside the CUDA-core
+    kernel's it replaced."""
     from nerf_tpu_torch.models.gabor import GaborModel
     from nerf_tpu_torch.ops.cuda.fused_render_gabor import (
         FusedGaborRender, fused_gabor_render_plain, fused_gabor_train_plain,
@@ -1037,13 +1086,16 @@ def check_gabor_kernels(torch, dev):
             with torch.no_grad():
                 ref = plain()
                 out = kern()
+                again = kern()
                 torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(out, again)):
+                    fail(f"gabor kernel {cdt} R={r} S={s}: two launches differ")
                 errs = {}
                 for i, name in enumerate(("rgb", "acc", "depth", "weights")):
                     if not torch.isfinite(out[i]).all():
                         fail(f"gabor kernel {cdt} R={r} S={s}: non-finite {name}")
                     errs[name] = float((out[i] - ref[i]).abs().max())
-                del ref, out
+                del ref, out, again
                 torch.cuda.empty_cache()
                 timed = (r, s) == (R_SIREN, S_SIREN)
                 if timed:
@@ -1054,15 +1106,21 @@ def check_gabor_kernels(torch, dev):
                         times[name] += time_calls(torch, fn, 3)
                     torch.cuda.empty_cache()
             bad = {n: v for n, v in errs.items() if v > TOL[cdt][n]}
+            tc = fr.fwd_library() == "fused_render_gabor_fwd_tc"
             line = (f"kernel fused_render_gabor_fwd {cdt} R={r} S={s}: max_abs_err "
                     + " ".join(f"{n}={v:.3e}(tol {TOL[cdt][n]:.0e})"
-                               for n, v in errs.items()))
+                               for n, v in errs.items())
+                    + ", two launches bit-identical")
             if timed:
                 ms = statistics.median(times["kernel"])
                 plain_ms = statistics.median(times["plain"])
                 bms, by = bound_ms(r, s, cdt, weight_bytes + r * GABOR_COEF_BYTES,
                                    GABOR_MACS, GABOR_TRIG)
-                line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                line += (f" | kernel {ms:.3f} ms"
+                         + (f" (tensor cores; the CUDA-core kernel it replaced "
+                            f"{ROW11_BF16_CUDA_CORE_MS:.3f} ms, x"
+                            f"{ROW11_BF16_CUDA_CORE_MS / ms:.2f})" if tc else "")
+                         + f", plain {plain_ms:.3f} ms, bound "
                          f"{bms:.3f} ms ({by}), share of bound {bms / ms:.4f}")
                 results[("fused_render_gabor_fwd", cdt)] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
@@ -2831,16 +2889,17 @@ def main() -> int:
         for line in info.log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 say(f"  ptxas: {line.strip()}")
-    tc_lib = {i.name: str(i.path) for i in infos}["fused_render_train_tc"]
-    mma = tensor_core_instructions(tc_lib)
-    if mma is None:
-        say("build: fused_render_train_tc SASS not read (no cuobjdump): tensor-core "
-            "instructions not measured")
-    else:
-        say(f"build: fused_render_train_tc SASS holds {mma[0]} HMMA and {mma[1]} HGMMA "
-            "instructions")
+    paths = {i.name: str(i.path) for i in infos}
+    for name in TC_LIBS:
+        mma = tensor_core_instructions(paths[name])
+        if mma is None:
+            say(f"build: {name} SASS not read (no cuobjdump): tensor-core "
+                "instructions not measured")
+            continue
+        say(f"build: {name} SASS holds {mma[0]} HMMA and {mma[1]} HGMMA instructions")
         if sum(mma) == 0:
-            fail("the bf16 train pass's library holds no tensor-core instruction")
+            fail(f"{name}, a bf16 kernel on the tensor cores, holds no tensor-core "
+                 "instruction")
 
     checks = check_kernel(torch, dev)
     grad_checks = check_grad_kernels(torch, dev)
@@ -2894,7 +2953,7 @@ def main() -> int:
                 "bound_by": c["bound_by"], "library_ms": None}
 
     nerf_tpu = "nerf_tpu/ops/pallas/"
-    kernels = [row("fused_render_fwd", "fused_render_fwd.cu",
+    kernels = [row("fused_render_fwd", "fused_render_fwd_tc.cu",
                    f"{nerf_tpu}fused_render.py:222", launches,
                    checks[("bfloat16", 192)],
                    max(c["err"] for c in checks.values()))]
@@ -2920,7 +2979,9 @@ def main() -> int:
     for name, line, launched in (
             ("fused_render_gabor_fwd", 166, gabor_launches),
             ("fused_render_gabor_train", 186, gabor_trained["train_launches"])):
-        kernels.append(row(name, f"{name}.cu", f"{nerf_tpu}fused_render_gabor.py:{line}",
+        source = {"fused_render_gabor_fwd": "fused_render_gabor_fwd_tc.cu"}.get(name,
+                                                                               f"{name}.cu")
+        kernels.append(row(name, source, f"{nerf_tpu}fused_render_gabor.py:{line}",
                            launched, gabor_checks[(name, "bfloat16")],
                            max(gabor_checks[(name, c)]["err"]
                                for c in ("float32", "bfloat16"))))

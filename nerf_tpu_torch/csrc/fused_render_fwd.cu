@@ -2,7 +2,8 @@
 // 11-matmul NeRF MLP and volume compositing in one kernel.
 //
 // Replaces: nerf_tpu/ops/pallas/fused_render.py::_fwd_kernel (the forward
-// route of FusedNerfRender.__call__). Same function: for every sample
+// route of FusedNerfRender.__call__) in float32 mode; its bfloat16 mode is
+// fused_render_fwd_tc.cu, on the tensor cores. Same function: for every sample
 // p = o_aff + t * d_aff (o_aff/d_aff already carry the [near,far]->[-1,1]
 // map), PE(p) with L_pos frequencies, PE(viewdir) with L_dir, the MLP of
 // nerf_tpu/ops/pallas/fused_nerf.py::_mlp_tile, deltas from t with the 1e10
@@ -14,16 +15,13 @@
 // What bounds it on this card: operations. One sample costs 658,944 MACs
 // at hidden 256, so a 8192-ray launch is 0.7 to 2.1 TFLOP, against a few MB
 // of device-memory traffic. float32 mode must be true float32 (no TF32, no
-// single bf16 pass), so it runs on the CUDA cores (67 TFLOP/s peak);
-// bfloat16 mode rounds every matmul input and weight to bf16 and sums in
-// float32, which this first version also does on the CUDA cores (its bound
-// is the tensor cores' 989 TFLOP/s, far above what this design reaches).
+// single bf16 pass), so it runs on the CUDA cores (67 TFLOP/s peak).
 //
 // Design: a CTA owns whole rays and walks their samples in chunks of 64
 // points. A chunk's activations live in shared memory, transposed
 // (feature-major, 64 points contiguous), ping-ponged between two 256 x 68
-// float buffers. Weights stay in global memory (in L2: 2.6 MB float32, 1.3
-// MB bf16) and stream through a double-buffered 16-row shared-memory stage
+// float buffers. Weights stay in global memory (in L2: 2.6 MB) and stream
+// through a double-buffered 16-row shared-memory stage
 // by cp.async. Each of 256 threads keeps an 8-point x 8-column register
 // tile, so every k step is 64 FMAs against two broadcast and two vector
 // shared loads. The density head is a float32 reduction of the unrounded
@@ -43,9 +41,8 @@ namespace {
 
 using namespace nerf;
 
-template <bool BF16, typename WT>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_render_fwd_kernel(RayInputs in, const WT* __restrict__ wmat,
+fused_render_fwd_kernel(RayInputs in, const float* __restrict__ wmat,
                         int rays_per_cta, float* __restrict__ rgb_out,
                         float* __restrict__ acc_out,
                         float* __restrict__ depth_out,
@@ -68,7 +65,7 @@ fused_render_fwd_kernel(RayInputs in, const WT* __restrict__ wmat,
 
   for (int chunk0 = ray0 * S; chunk0 < pt_end; chunk0 += P) {
     const int nvalid = min(P, pt_end - chunk0);
-    forward_chunk<BF16, false>(in, wmat, chunk0, nvalid, smem, none, 0);
+    forward_chunk<false, false>(in, wmat, chunk0, nvalid, smem, none, 0);
     // ---- compositing, in sample order ----
     if (tid == 0)
       composite_chunk(sums, t_s, delta_s, sig_s, rgb_s, chunk0, nvalid, S,
@@ -77,25 +74,13 @@ fused_render_fwd_kernel(RayInputs in, const WT* __restrict__ wmat,
   }
 }
 
-template <bool BF16, typename WT>
-int launch(const RayInputs& in, const void* wmat, int rays_per_cta, float* rgb,
-           float* acc, float* depth, float* weights, cudaStream_t stream) {
-  auto kernel = fused_render_fwd_kernel<BF16, WT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (in.num_rays + rays_per_cta - 1) / rays_per_cta;
-  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      in, static_cast<const WT*>(wmat), rays_per_cta, rgb, acc, depth, weights);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
-// Returns 0 on success, a cudaError_t code after a failed launch, or -1
-// when the packed buffers or the shapes do not fit this kernel.
+// Returns 0 on success, a cudaError_t code after a failed launch, -1 when
+// the packed buffers or the shapes do not fit this kernel, or -2 for
+// bfloat16 (fused_render_fwd_tc.cu runs it).
 int fused_render_fwd(const float* o_aff, const float* d_aff,
                      const float* viewdirs, const float* t, const void* wmat,
                      const float* vec, int n_w, int n_b, int bf16,
@@ -105,16 +90,20 @@ int fused_render_fwd(const float* o_aff, const float* d_aff,
   if (n_w != N_W || n_b != N_B || num_rays <= 0 || S <= 0 ||
       rays_per_cta <= 0 || real_p > PP || real_d > DP)
     return -1;
+  if (bf16) return -2;
   const RayInputs in{o_aff, d_aff, viewdirs, t, vec, num_rays, S, real_p, real_d};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<true, __nv_bfloat16>(in, wmat, rays_per_cta, rgb, acc, depth,
-                                       weights, s);
-  return launch<false, float>(in, wmat, rays_per_cta, rgb, acc, depth, weights, s);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_render_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (num_rays + rays_per_cta - 1) / rays_per_cta;
+  fused_render_fwd_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      in, static_cast<const float*>(wmat), rays_per_cta, rgb, acc, depth, weights);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* fused_render_fwd_error(int code) {
   if (code == -1) return "packed weights or shapes do not fit the kernel";
+  if (code == -2) return "the bfloat16 forward render runs in fused_render_fwd_tc";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

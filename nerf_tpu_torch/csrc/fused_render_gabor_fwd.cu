@@ -3,7 +3,9 @@
 // compositing in one kernel.
 //
 // Replaces: nerf_tpu/ops/pallas/fused_render_gabor.py::_fwd_kernel (the
-// forward route of FusedGaborRender.__call__). Same function: for every
+// forward route of FusedGaborRender.__call__) in float32 mode; its bfloat16
+// mode is fused_render_gabor_fwd_tc.cu, on the tensor cores. Same
+// function: for every
 // sample t of a ray, the filters g_i = sin(A_i + t B_i) exp(P_i + t Q_i +
 // t^2 R_i) from the ray's coefficients (the prep, outside the kernel), the
 // network of _mlp_tile on them and on the L_dir frequency encoding of the
@@ -17,13 +19,9 @@
 // 128x3) and 4,096 transcendentals (a sine and an exponential per filter
 // element, 8 x 256). A 1024-ray x 256-sample launch is 0.29 TFLOP of
 // products; its inputs are the coefficients (40 KB per ray, 42 MB per
-// launch) and t, 13 us at 3.35 TB/s against the products' 0.30 ms at the
-// bf16 tensor-core rate. float32 mode
-// must be true float32 with the exact sinf (|A + t B| reaches hundreds of
-// radians), so it runs on the CUDA cores (67 TFLOP/s); bfloat16 mode rounds
-// every matmul input and weight to bf16 and sums in float32, which this
-// first version also does on the CUDA cores (its bound is the tensor cores'
-// 989 TFLOP/s, far above what this design reaches).
+// launch) and t. float32 mode must be true float32 with the exact sinf
+// (|A + t B| reaches hundreds of radians), so it runs on the CUDA cores
+// (67 TFLOP/s).
 //
 // Design: as the SIREN forward (fused_render_siren_fwd.cu). A CTA owns
 // whole rays and walks their samples in chunks of 64 points, activations in
@@ -51,9 +49,8 @@ namespace {
 
 using namespace gabor;
 
-template <bool BF16, typename WT>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_gabor_fwd_kernel(RayInputs in, Gabor gp, const WT* __restrict__ wmat,
+fused_gabor_fwd_kernel(RayInputs in, Gabor gp, const float* __restrict__ wmat,
                        int rays_per_cta, float* __restrict__ rgb_out,
                        float* __restrict__ acc_out, float* __restrict__ depth_out,
                        float* __restrict__ weights_out) {
@@ -75,7 +72,7 @@ fused_gabor_fwd_kernel(RayInputs in, Gabor gp, const WT* __restrict__ wmat,
 
   for (int chunk0 = ray0 * S; chunk0 < pt_end; chunk0 += P) {
     const int nvalid = min(P, pt_end - chunk0);
-    forward_chunk<BF16, false>(in, gp, wmat, chunk0, nvalid, smem, none, 0);
+    forward_chunk<false, false>(in, gp, wmat, chunk0, nvalid, smem, none, 0);
     if (tid == 0)
       composite_chunk(sums, t_s, delta_s, sig_s, rgb_s, chunk0, nvalid, S,
                       rgb_out, acc_out, depth_out, weights_out);
@@ -83,27 +80,14 @@ fused_gabor_fwd_kernel(RayInputs in, Gabor gp, const WT* __restrict__ wmat,
   }
 }
 
-template <bool BF16, typename WT>
-int launch(const RayInputs& in, const Gabor& gp, const void* wmat, int rays_per_cta,
-           float* rgb, float* acc, float* depth, float* weights,
-           cudaStream_t stream) {
-  auto kernel = fused_gabor_fwd_kernel<BF16, WT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (in.num_rays + rays_per_cta - 1) / rays_per_cta;
-  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      in, gp, static_cast<const WT*>(wmat), rays_per_cta, rgb, acc, depth, weights);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
 // `coef` holds the (5, num_rays, 8 x 256) float32 coefficients A, B, P, Q,
-// R. Returns 0 on success, a cudaError_t code after a failed launch, or -1
-// when the packed buffers or the shapes do not fit this kernel.
+// R. Returns 0 on success, a cudaError_t code after a failed launch, -1
+// when the packed buffers or the shapes do not fit this kernel, or -2 for
+// bfloat16 (fused_render_gabor_fwd_tc.cu runs it).
 int fused_gabor_fwd(const float* coef, const float* viewdirs, const float* t,
                     const void* wmat, const float* vec, int n_w, int n_b, int bf16,
                     int num_rays, int S, int rays_per_cta, int real_d,
@@ -112,17 +96,21 @@ int fused_gabor_fwd(const float* coef, const float* viewdirs, const float* t,
   if (n_w != N_W || n_b != N_B || num_rays <= 0 || S <= 0 ||
       rays_per_cta <= 0 || real_d > DP)
     return -1;
+  if (bf16) return -2;
   const RayInputs in{nullptr, nullptr, viewdirs, t, vec, num_rays, S, 0, real_d};
   const Gabor gp{coef, static_cast<size_t>(num_rays) * NH, sigma_mul, rgb_mul};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<true, __nv_bfloat16>(in, gp, wmat, rays_per_cta, rgb, acc, depth,
-                                       weights, s);
-  return launch<false, float>(in, gp, wmat, rays_per_cta, rgb, acc, depth, weights, s);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_gabor_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (num_rays + rays_per_cta - 1) / rays_per_cta;
+  fused_gabor_fwd_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      in, gp, static_cast<const float*>(wmat), rays_per_cta, rgb, acc, depth, weights);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* fused_gabor_fwd_error(int code) {
   if (code == -1) return "packed weights or shapes do not fit the kernel";
+  if (code == -2) return "the bfloat16 forward render runs in fused_render_gabor_fwd_tc";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

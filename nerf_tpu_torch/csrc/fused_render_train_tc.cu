@@ -21,7 +21,8 @@
 // FMA on the CUDA cores with the bf16 roundings on top (0.024-0.026 of the
 // bound), a float32 stash of 13,360 bytes a point (3.5 GB at 1024 x 256).
 //
-// Design (render_tc.cuh holds the products):
+// Design (render_tc.cuh holds the products, fused_render_tc_common.cuh the
+// forward chain, shared with the bf16 forward render):
 //   1. Forward kernel, two CTAs a backward CTA's rays, each every other
 //      64-point chunk of them (two CTAs share an SM): the encodings and the
 //      activations are bf16 tiles in shared memory (one tile: each layer
@@ -61,22 +62,15 @@
 // Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared
 // library with a plain C interface (loaded by ctypes).
 
-#include "render_tc.cuh"
+#include "fused_render_tc_common.cuh"
 
 namespace {
 
 using namespace nerf;
 
-// Shared memory (bytes) of the forward kernel: one activation tile (each
-// layer's output overwrites its input once the product has read it), the
-// two encodings, the weight stages, the density partials. Two CTAs share
-// an SM.
-constexpr int FB_ACT = 0;
-constexpr int FB_PENC = FB_ACT + TC_P * LDS * 2;
-constexpr int FB_DENC = FB_PENC + TC_P * LDP * 2;
-constexpr int FB_WST = FB_DENC + TC_P * LDD * 2;
-constexpr int FB_SIG = FB_WST + WST_FWD_BYTES;
-constexpr int SMEM_FWD = FB_SIG + WARPS * TC_P * 4;
+// Shared memory (bytes) of the forward kernel (fused_render_tc_common.cuh's
+// plan without the forward render's columns). Two CTAs share an SM.
+constexpr int SMEM_FWD = FB_END;
 static_assert(2 * (SMEM_FWD + 1024) <= 233472, "two forward CTAs share an SM");
 constexpr int FWD_SPLIT = 2;       // forward CTAs a backward CTA's points
 
@@ -98,26 +92,12 @@ static_assert(SMEM_BWD <= 232448, "exceeds the per-block shared memory");
 static_assert(DW_STAGE_BYTES <= BB_WST, "weight-gradient stages fit");
 constexpr int MAX_RAYS_PER_CTA = TC_P * LDS * 2 / 4;   // per-ray losses in ACT1
 
-// One CTA's device-memory stash, point-major with the CTA-local point as
-// the row (`cap` rows each): h1..h8, r(h9), feat and the two dz buffers
-// (bf16, 256 columns), y (128), penc (64), denc (32), then h9 (float32, 256)
-// and the per-point columns (float32, N_COLS x cap; render_common.cuh C_*).
-struct Stash {
-  bf16* h[8];
-  bf16* h9b;
-  bf16* feat;
-  bf16* dz[2];
-  bf16* y;
-  bf16* penc;
-  bf16* denc;
-  float* h9f;
-  float* cols;
-};
+// The stash (fused_render_tc_common.cuh::TcStash), `cap` rows each.
 constexpr int BYTES_PER_POINT = 2 * (12 * H + HR + PP + DP) + 4 * (H + N_COLS);
 static_assert(BYTES_PER_POINT % 16 == 0, "stash rows must stay 16-byte aligned");
 
-__device__ Stash carve_stash(unsigned char* p, int cap) {
-  Stash s;
+__device__ TcStash carve_stash(unsigned char* p, int cap) {
+  TcStash s;
   const size_t c = static_cast<size_t>(cap);
   auto take = [&](int cols) {
     bf16* r = reinterpret_cast<bf16*>(p);
@@ -138,14 +118,6 @@ __device__ Stash carve_stash(unsigned char* p, int cap) {
   return s;
 }
 
-struct FwdSmem {
-  bf16* act;
-  bf16* penc;
-  bf16* denc;
-  bf16* wst;
-  float* sig;
-};
-
 struct BwdSmem {
   bf16* act0;
   bf16* act1;
@@ -154,182 +126,6 @@ struct BwdSmem {
   float* col;
   float* red;
 };
-
-// Each accumulator element of a warp's 64 x (8 NT) tile from column n0 with
-// its row and column: f(row, col, v[col], v[col + 1]) writes back through
-// the references.
-template <int NT, typename F>
-__device__ __forceinline__ void each_pair(float (&acc)[4][NT][4], int n0, F f) {
-  const int l = threadIdx.x & 31, g = l >> 2, c = l & 3;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        f(mt, j, h, mt * 16 + g + 8 * h, n0 + j * 8 + 2 * c, acc[mt][j][2 * h],
-          acc[mt][j][2 * h + 1]);
-}
-
-__device__ __forceinline__ void put2(bf16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-// out[row][col] = act(acc + bias[col]) rounded to bf16 (shared memory).
-template <int NT>
-__device__ __forceinline__ void store_act(float (&acc)[4][NT][4], const float* __restrict__ bias,
-                                          bool relu, bf16* out) {
-  each_pair<NT>(acc, (threadIdx.x >> 5) * NT * 8,
-                [&](int, int, int, int row, int col, float& v0, float& v1) {
-                  float x0 = v0 + __ldg(bias + col), x1 = v1 + __ldg(bias + col + 1);
-                  if (relu) {
-                    x0 = fmaxf(x0, 0.f);
-                    x1 = fmaxf(x1, 0.f);
-                  }
-                  put2(out + row * LDS + col, x0, x1);
-                });
-}
-
-// Rows l0 .. l0 + 63 of a device array of `ncols` columns from a [64][ncols]
-// shared-memory tile of row stride lds (16-byte copies).
-__device__ __forceinline__ void tile_out(const bf16* s, int lds, int ncols, bf16* g, size_t l0) {
-  const int cpr = ncols / 8;
-  for (int e = threadIdx.x; e < TC_P * cpr; e += THREADS) {
-    const int r = e / cpr, q = (e % cpr) * 8;
-    *reinterpret_cast<uint4*>(g + (l0 + r) * ncols + q) =
-        *reinterpret_cast<const uint4*>(s + r * lds + q);
-  }
-}
-
-// The encodings of ray samples [chunk0, chunk0 + nvalid) into shared memory,
-// point-major, rounded to bf16, zero past nvalid (as fused_render_common.cuh
-// ::encode_ray_chunk<true>). Ends past a barrier.
-__device__ void encode_chunk(const RayInputs& in, int chunk0, int nvalid, const FwdSmem& sm) {
-  const int tid = threadIdx.x, S = in.S;
-  for (int idx = tid; idx < TC_P * PP; idx += THREADS) {
-    const int p = idx / PP, c = idx % PP;
-    float v = 0.f;
-    if (p < nvalid && c < in.real_p) {
-      const int g = chunk0 + p;
-      const int ray = g / S;
-      const int d = c < 3 ? c : (c - 3) % 3;
-      const float x = __fadd_rn(in.o_aff[ray * 3 + d], __fmul_rn(in.t[g], in.d_aff[ray * 3 + d]));
-      v = encode_col<true>(x, c);
-    }
-    sm.penc[p * LDP + c] = __float2bfloat16_rn(v);
-  }
-  for (int idx = tid; idx < TC_P * DP; idx += THREADS) {
-    const int p = idx / DP, c = idx % DP;
-    float v = 0.f;
-    if (p < nvalid && c < in.real_d) {
-      const int ray = (chunk0 + p) / S;
-      const int d = c < 3 ? c : (c - 3) % 3;
-      v = encode_col<false>(in.viewdirs[ray * 3 + d], c);
-    }
-    sm.denc[p * LDD + c] = __float2bfloat16_rn(v);
-  }
-  __syncthreads();
-}
-
-// The forward of ray samples [chunk0, chunk0 + nvalid) (stash rows l0..):
-// every activation to the stash, sigma_pre and rgb to the per-point
-// columns. Ends past a barrier.
-__device__ void forward_chunk(const RayInputs& in, const bf16* __restrict__ wmat, int chunk0,
-                              int nvalid, const FwdSmem& sm, const Stash& st, size_t l0, int cap) {
-  const float* __restrict__ vec = in.vec;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  encode_chunk(in, chunk0, nvalid, sm);
-  tile_out(sm.penc, LDP, PP, st.penc, l0);
-  tile_out(sm.denc, LDD, DP, st.denc, l0);
-  float acc[4][4][4];
-  // one hidden layer: relu(act W + b) rounded, into act and the stash
-  auto layer = [&](int off_w, int bias, bf16* stash) {
-    zero_acc(acc);
-    gemm_fwd<H, H>(acc, sm.act, LDS, wmat + off_w, sm.wst);
-    store_act<4>(acc, vec + bias, true, sm.act);
-    __syncthreads();
-    tile_out(sm.act, LDS, H, stash, l0);
-  };
-  // ---- block1 ----
-  zero_acc(acc);
-  gemm_fwd<PP, H>(acc, sm.penc, LDP, wmat + OFF_W1, sm.wst);
-  store_act<4>(acc, vec + 0 * H, true, sm.act);
-  __syncthreads();
-  tile_out(sm.act, LDS, H, st.h[0], l0);
-  layer(OFF_W2, 1 * H, st.h[1]);
-  layer(OFF_W3, 2 * H, st.h[2]);
-  layer(OFF_W4, 3 * H, st.h[3]);
-  layer(OFF_W5, 4 * H, st.h[4]);
-  // ---- block2: the skip input, then 3 more layers ----
-  zero_acc(acc);
-  gemm_fwd<H, H>(acc, sm.act, LDS, wmat + OFF_W6H, sm.wst);
-  gemm_fwd<PP, H>(acc, sm.penc, LDP, wmat + OFF_W6P, sm.wst);
-  store_act<4>(acc, vec + 5 * H, true, sm.act);
-  __syncthreads();
-  tile_out(sm.act, LDS, H, st.h[5], l0);
-  layer(OFF_W7, 6 * H, st.h[6]);
-  layer(OFF_W8, 7 * H, st.h[7]);
-  // h9 = relu(acc + b9), float32 to the stash and rounded to the next
-  // product; sigma_pre the float32 reduction of the UNROUNDED h9 against
-  // w10s: each thread over its columns, the 4 lanes of a row by shuffle,
-  // the 8 warps in order through shared memory.
-  zero_acc(acc);
-  gemm_fwd<H, H>(acc, sm.act, LDS, wmat + OFF_W9, sm.wst);
-  {
-    float sp[4][2] = {};
-    each_pair<4>(acc, warp * 32, [&](int mt, int, int h, int row, int col, float& v0, float& v1) {
-      const float x0 = fmaxf(v0 + __ldg(vec + 8 * H + col), 0.f);
-      const float x1 = fmaxf(v1 + __ldg(vec + 8 * H + col + 1), 0.f);
-      sp[mt][h] = fmaf(x0, __ldg(vec + OFF_W10S + col), sp[mt][h]);
-      sp[mt][h] = fmaf(x1, __ldg(vec + OFF_W10S + col + 1), sp[mt][h]);
-      *reinterpret_cast<float2*>(st.h9f + (l0 + row) * H + col) = make_float2(x0, x1);
-      put2(sm.act + row * LDS + col, x0, x1);
-    });
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v = sp[mt][h];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        if ((lane & 3) == 0) sm.sig[warp * TC_P + mt * 16 + (lane >> 2) + 8 * h] = v;
-      }
-  }
-  __syncthreads();
-  if (tid < TC_P) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) s += sm.sig[w * TC_P + tid];
-    st.cols[C_SIGP * static_cast<size_t>(cap) + l0 + tid] = s + __ldg(vec + OFF_B10S);
-  }
-  tile_out(sm.act, LDS, H, st.h9b, l0);
-  // feature head: no activation
-  zero_acc(acc);
-  gemm_fwd<H, H>(acc, sm.act, LDS, wmat + OFF_W10F, sm.wst);
-  store_act<4>(acc, vec + OFF_B10F, false, sm.act);
-  __syncthreads();
-  tile_out(sm.act, LDS, H, st.feat, l0);
-  // ---- rgb head ----
-  {
-    float acc2[4][2][4];
-    zero_acc(acc2);
-    gemm_fwd<H, HR>(acc2, sm.act, LDS, wmat + OFF_WR0F, sm.wst);
-    gemm_fwd<DP, HR>(acc2, sm.denc, LDD, wmat + OFF_WR0D, sm.wst);
-    store_act<2>(acc2, vec + OFF_BR0, true, sm.act);
-  }
-  __syncthreads();
-  tile_out(sm.act, LDS, HR, st.y, l0);
-  if (tid < 3 * TC_P) {
-    const int c = tid / TC_P, p = tid % TC_P;
-    float z = 0.f;
-    for (int k = 0; k < HR; ++k)
-      z = fmaf(__bfloat162float(sm.act[p * LDS + k]), __bfloat162float(wmat[OFF_WR1 + k * 8 + c]),
-               z);
-    z += __ldg(vec + OFF_BR1 + c);
-    st.cols[(C_RGB + c) * static_cast<size_t>(cap) + l0 + p] = 1.f / (1.f + expf(-z));
-  }
-  __syncthreads();
-}
 
 enum class Mask { None, Bf16, F32 };
 
@@ -446,7 +242,7 @@ __device__ __forceinline__ int hidden_off(int i) {
 // over the CTA's points l < cap_c from the stash and the cotangent columns
 // dzr1 and dsig, into the CTA's partial (offsets of the packed layout, the
 // vectors from N_W).
-__device__ void backward(const Stash& st, int cap, const float* __restrict__ vec,
+__device__ void backward(const TcStash& st, int cap, const float* __restrict__ vec,
                          const bf16* __restrict__ wmat, float* __restrict__ part, int cap_c,
                          const BwdSmem& sm) {
   const int tid = threadIdx.x;
@@ -549,17 +345,17 @@ fused_render_train_tc_fwd(RayInputs in, const bf16* __restrict__ wmat, int rays_
   unsigned char* sb = reinterpret_cast<unsigned char*>(smem4);
   const FwdSmem sm{reinterpret_cast<bf16*>(sb + FB_ACT), reinterpret_cast<bf16*>(sb + FB_PENC),
                    reinterpret_cast<bf16*>(sb + FB_DENC), reinterpret_cast<bf16*>(sb + FB_WST),
-                   reinterpret_cast<float*>(sb + FB_SIG)};
+                   reinterpret_cast<float*>(sb + FB_SIG), nullptr};
   const int b = blockIdx.x / FWD_SPLIT, part = blockIdx.x % FWD_SPLIT;
   const int S = in.S;
   const int ray0 = b * rays_per_cta;
   const int ray1 = min(ray0 + rays_per_cta, in.num_rays);
   if (ray0 >= ray1) return;
   const int npts = (ray1 - ray0) * S;
-  const Stash st = carve_stash(scratch + static_cast<size_t>(b) * cap * BYTES_PER_POINT, cap);
+  const TcStash st = carve_stash(scratch + static_cast<size_t>(b) * cap * BYTES_PER_POINT, cap);
   for (int c0 = part * TC_P; c0 < npts; c0 += FWD_SPLIT * TC_P)
-    forward_chunk(in, wmat, ray0 * S + c0, min(TC_P, npts - c0), sm, st,
-                  static_cast<size_t>(c0), cap);
+    forward_chunk_tc<true>(in, wmat, ray0 * S + c0, min(TC_P, npts - c0), sm, st,
+                           static_cast<size_t>(c0), cap);
 }
 
 // Steps 2 and 3: compositing, the MSE cotangent and the compositing
@@ -581,7 +377,7 @@ fused_render_train_tc_bwd(RayInputs in, const bf16* __restrict__ wmat, const flo
   if (ray0 >= ray1) return;
   const int nr = ray1 - ray0;
   const int cap_c = (nr * S + TC_P - 1) / TC_P * TC_P;
-  const Stash st =
+  const TcStash st =
       carve_stash(scratch + static_cast<size_t>(blockIdx.x) * cap * BYTES_PER_POINT, cap);
   float* part = partial + static_cast<size_t>(blockIdx.x) * NPART;
   float* lossr = reinterpret_cast<float*>(sm.act1);

@@ -14,7 +14,8 @@
 //                device memory), in strips of A's columns with the strip's
 //                output in registers: a weight gradient.
 // Every product rounds nothing itself: its operands are bf16 as stored, and
-// its sums are float32 (the tensor cores' accumulation).
+// its sums are float32 (the tensor cores' accumulation). each_pair walks a
+// warp's accumulators with their rows and columns, for the epilogues.
 
 #pragma once
 
@@ -83,6 +84,41 @@ __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* s, int l
 __device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* s, int ld, int n0, int k0) {
   const int l = threadIdx.x & 31, i = l >> 3;
   ldsm4(b, s + (n0 + ((i >> 1) << 3) + (l & 7)) * ld + k0 + ((i & 1) << 3));
+}
+
+// Each accumulator element of a warp's 64 x (8 NT) tile from column n0 with
+// its row and column: f(mt, j, h, row, col, v[col], v[col + 1]) writes back
+// through the references.
+template <int NT, typename F>
+__device__ __forceinline__ void each_pair(float (&acc)[4][NT][4], int n0, F f) {
+  const int l = threadIdx.x & 31, g = l >> 2, c = l & 3;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f(mt, j, h, mt * 16 + g + 8 * h, n0 + j * 8 + 2 * c, acc[mt][j][2 * h],
+          acc[mt][j][2 * h + 1]);
+}
+
+__device__ __forceinline__ void put2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// out[row][col] = act(acc + bias[col]) rounded to bf16 (shared memory).
+template <int NT>
+__device__ __forceinline__ void store_act(float (&acc)[4][NT][4], const float* __restrict__ bias,
+                                          bool relu, bf16* out) {
+  each_pair<NT>(acc, (threadIdx.x >> 5) * NT * 8,
+                [&](int, int, int, int row, int col, float& v0, float& v1) {
+                  float x0 = v0 + __ldg(bias + col), x1 = v1 + __ldg(bias + col + 1);
+                  if (relu) {
+                    x0 = fmaxf(x0, 0.f);
+                    x1 = fmaxf(x1, 0.f);
+                  }
+                  put2(out + row * LDS + col, x0, x1);
+                });
 }
 
 template <int MT, int NT>

@@ -5,7 +5,8 @@ gradients, in CUDA kernels.
 Three kernels, each replacing one of ``nerf_tpu/ops/pallas/fused_render.py``
 (their sources say what bounds each on an H100 and how the design answers):
 
-  * ``csrc/fused_render_fwd.cu`` (``_fwd_kernel``): the forward render;
+  * the forward render (``_fwd_kernel``): in bfloat16 on the tensor cores
+    (``csrc/fused_render_fwd_tc.cu``), in float32 ``csrc/fused_render_fwd.cu``;
   * the train pass (``_train_kernel``): forward, white-background MSE and
     the full backward in one pass; in bfloat16 on the tensor cores
     (``csrc/fused_render_train_tc.cu``), in float32 the train entry of
@@ -380,11 +381,12 @@ def fused_render_bwd_plain(packed: Packed, o_aff, d_aff, viewdirs, t,
 def _library(name: str) -> ctypes.CDLL:
     lib = library(name)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "fused_render_fwd":
-        lib.fused_render_fwd.argtypes = [vp] * 6 + [ci] * 8 + [vp] * 5
-        lib.fused_render_fwd.restype = ci
-        lib.fused_render_fwd_error.argtypes = [ci]
-        lib.fused_render_fwd_error.restype = ctypes.c_char_p
+    if name in ("fused_render_fwd", "fused_render_fwd_tc"):
+        fn, err = getattr(lib, name), getattr(lib, name + "_error")
+        fn.argtypes = [vp] * 6 + [ci] * 8 + [vp] * 5
+        fn.restype = ci
+        err.argtypes = [ci]
+        err.restype = ctypes.c_char_p
     elif name == "fused_render_train_tc":
         lib.fused_render_train_tc.argtypes = ([vp] * 6 + [ci] * 2 + [vp, cf, cf]
                                               + [ci] * 6 + [vp] * 7)
@@ -402,6 +404,14 @@ def _library(name: str) -> ctypes.CDLL:
         lib.fused_render_grad_sizes.argtypes = [ctypes.POINTER(ci)] * 3
         lib.fused_render_grad_sizes.restype = None
     return lib
+
+
+def fwd_rays_per_cta(num_rays: int, n_sm: int, ctas_per_sm: int) -> int:
+    """Rays a CTA of a forward render takes: the rays split evenly over
+    ``ctas_per_sm`` CTAs on each of the ``n_sm`` SMs (two for the
+    tensor-core kernels, one for the CUDA-core ones), all resident at
+    once; the kernel's grid is ceil(num_rays / rays_per_cta)."""
+    return -(-num_rays // (ctas_per_sm * n_sm))
 
 
 def launch_plan(num_rays: int, s: int, n_sm: int) -> tuple[int, int, int]:
@@ -490,7 +500,8 @@ class FusedRender:
     A family gives ``pack_f32`` (its float32 kernel layout, differentiable),
     ``cast`` (the layout as the kernels read it), ``supported``, its plain
     versions (``_plain_forward``, ``_plain_train``, ``_plain_backward``),
-    its libraries' entry points (``_fwd_entry``, ``_grad_entry``), the
+    its libraries' entry points (``_fwd_entry``: the function, its error
+    string and the CTAs it runs on an SM; ``_grad_entry``), the
     family arguments of both (``_family_args``) and its matrix names in
     buffer order (``mat_names``).
     """
@@ -603,9 +614,9 @@ class FusedRender:
         acc = torch.empty((num_rays,), dtype=torch.float32, device=dev)
         depth = torch.empty((num_rays,), dtype=torch.float32, device=dev)
         weights = torch.empty((num_rays, s), dtype=torch.float32, device=dev)
-        fn, err = self._fwd_entry()
+        fn, err, ctas_per_sm = self._fwd_entry()
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        rays_per_cta = -(-num_rays // n_sm)
+        rays_per_cta = fwd_rays_per_cta(num_rays, n_sm, ctas_per_sm)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             code = fn(
@@ -710,9 +721,16 @@ class FusedNerfRender(FusedRender):
     def _family_args(self) -> tuple:
         return (self.real_p, self.real_d)
 
+    def fwd_library(self) -> str:
+        """The library of a forward render: the bfloat16 one runs on the
+        tensor cores (two CTAs an SM), the float32 one on the CUDA cores."""
+        return "fused_render_fwd_tc" if self.cdt == torch.bfloat16 else "fused_render_fwd"
+
     def _fwd_entry(self):
-        lib = _library("fused_render_fwd")
-        return lib.fused_render_fwd, lib.fused_render_fwd_error
+        name = self.fwd_library()
+        lib = _library(name)
+        return (getattr(lib, name), getattr(lib, name + "_error"),
+                2 if name.endswith("_tc") else 1)
 
     def _grad_entry(self):
         lib = _library("fused_render_train")

@@ -6,7 +6,9 @@ Two kernels, each replacing one of
 ``nerf_tpu/ops/pallas/fused_render_gabor.py`` (their sources say what bounds
 each on an H100 and how the design answers):
 
-  * ``csrc/fused_render_gabor_fwd.cu`` (``_fwd_kernel``): the forward render;
+  * the forward render (``_fwd_kernel``): in bfloat16 on the tensor cores
+    (``csrc/fused_render_gabor_fwd_tc.cu``), in float32
+    ``csrc/fused_render_gabor_fwd.cu``;
   * ``csrc/fused_render_gabor_train.cu`` (``_train_kernel``): forward,
     white-background MSE and the full backward in one pass, with the
     per-ray cotangents of the filter coefficients.
@@ -65,6 +67,7 @@ from nerf_tpu_torch.ops.cuda.fused_render import (
     _composite_bwd,
     _encode,
     _views,
+    fwd_rays_per_cta,
     grad_sizes,
     trig,
 )
@@ -367,15 +370,21 @@ def fused_gabor_train_plain(packed: Packed, coeffs, viewdirs, t, target,
 # ---------------------------------------------------------------- libraries
 
 
+# the forward render's library -> its C entry point
+_FWD_ENTRY = {"fused_render_gabor_fwd": "fused_gabor_fwd",
+              "fused_render_gabor_fwd_tc": "fused_gabor_fwd_tc"}
+
+
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
     lib = library(name)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "fused_render_gabor_fwd":
-        lib.fused_gabor_fwd.argtypes = [vp] * 5 + [ci] * 7 + [cf] * 2 + [vp] * 5
-        lib.fused_gabor_fwd.restype = ci
-        lib.fused_gabor_fwd_error.argtypes = [ci]
-        lib.fused_gabor_fwd_error.restype = ctypes.c_char_p
+    if name in _FWD_ENTRY:
+        fn, err = getattr(lib, _FWD_ENTRY[name]), getattr(lib, _FWD_ENTRY[name] + "_error")
+        fn.argtypes = [vp] * 5 + [ci] * 7 + [cf] * 2 + [vp] * 5
+        fn.restype = ci
+        err.argtypes = [ci]
+        err.restype = ctypes.c_char_p
     else:
         lib.fused_gabor_train.argtypes = ([vp] * 6 + [ci] * 3 + [vp, cf, cf]
                                           + [ci] * 5 + [cf] * 2 + [vp] * 8)
@@ -499,6 +508,21 @@ class FusedGaborRender(FusedRender):
         type(self).train_launches += 1
         return out
 
+    def fwd_library(self) -> str:
+        """The library of a forward render: the bfloat16 one runs on the
+        tensor cores (two CTAs an SM), the float32 one on the CUDA cores."""
+        if self.cdt == torch.bfloat16:
+            return "fused_render_gabor_fwd_tc"
+        return "fused_render_gabor_fwd"
+
+    def _fwd_entry(self):
+        """(function, error string, CTAs an SM) of the forward render."""
+        name = self.fwd_library()
+        lib = _library(name)
+        entry = _FWD_ENTRY[name]
+        return (getattr(lib, entry), getattr(lib, entry + "_error"),
+                2 if name.endswith("_tc") else 1)
+
     def _gabor_args(self, coeffs, viewdirs, t):
         num_rays, s = t.shape
         return (("coeffs", coeffs, (NUM_COEFFS, num_rays, self.n * self.h),
@@ -515,21 +539,22 @@ class FusedGaborRender(FusedRender):
         acc = torch.empty((num_rays,), dtype=torch.float32, device=dev)
         depth = torch.empty((num_rays,), dtype=torch.float32, device=dev)
         weights = torch.empty((num_rays, s), dtype=torch.float32, device=dev)
-        lib = _library("fused_render_gabor_fwd")
+        fn, err, ctas_per_sm = self._fwd_entry()
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        rays_per_cta = fwd_rays_per_cta(num_rays, n_sm, ctas_per_sm)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            code = lib.fused_gabor_fwd(
+            code = fn(
                 coeffs.data_ptr(), viewdirs.data_ptr(), t.data_ptr(),
                 packed.wmat.data_ptr(), packed.vec.data_ptr(),
                 packed.wmat.numel(), packed.vec.numel(),
                 int(self.cdt == torch.bfloat16), num_rays, s,
-                -(-num_rays // n_sm), self.real_d, self.consts.sigma_mul,
+                rays_per_cta, self.real_d, self.consts.sigma_mul,
                 self.consts.rgb_mul, rgb.data_ptr(), acc.data_ptr(),
                 depth.data_ptr(), weights.data_ptr(), stream)
         if code != 0:
             raise RuntimeError("FusedGaborRender forward kernel: "
-                               + lib.fused_gabor_fwd_error(code).decode())
+                               + err(code).decode())
         type(self).launches += 1
         return rgb, acc, depth, weights
 

@@ -372,7 +372,7 @@ class FusedSirenRender(FusedRender):
 
     def _fwd_entry(self):
         lib = _library("fused_render_siren_fwd")
-        return lib.fused_siren_fwd, lib.fused_siren_fwd_error
+        return lib.fused_siren_fwd, lib.fused_siren_fwd_error, 1
 
     def _grad_entry(self):
         lib = _library("fused_render_siren_train")

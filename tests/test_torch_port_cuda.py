@@ -83,6 +83,46 @@ def test_kernel_matches_plain(dev, cdt, shape):
                                    rtol=0, msg=k)
 
 
+@pytest.mark.parametrize("family, shape", [
+    ("nerf", (8192, 64)), ("nerf", (8192, 192)), ("nerf", (300, 37)),
+    ("gabor", (1024, 256)), ("gabor", (1000, 256)), ("gabor", (1024, 37))])
+def test_bf16_fwd_tc_kernel_matches_plain_and_is_deterministic(dev, family, shape):
+    """The bfloat16 forward renders on the tensor cores (fused_render_fwd_tc,
+    fused_render_gabor_fwd_tc) at lego.txt's serving chunk (8192 rays x 64
+    and 192 samples) and GaborNet's (1024 x 256), a ragged ray count and an
+    odd S (chunks span rays): within TOL of their plain versions, and two
+    launches give the same bits."""
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import fused_gabor_render_plain
+
+    ro, rd, t = _inputs(*shape, dev, seed=6)
+    with torch.no_grad():
+        if family == "nerf":
+            model = NeRFModel(compute_dtype="bfloat16",
+                              generator=torch.Generator().manual_seed(2)).to(dev)
+            fr = FusedNerfRender(model, NEAR, FAR)
+            packed = fr.pack(model)
+            o_aff, d_aff = fr.affine(ro, rd)
+            args = (packed, o_aff, d_aff, rd, t)
+            ref = fused_render_plain(packed, o_aff, d_aff, rd, t, 10, 4)
+        else:
+            model, fr = _gabor("bfloat16", 2, dev)
+            packed = fr.pack(model).packed
+            args = (packed, _gabor_coeffs(fr, model, ro, rd), rd, t)
+            ref = fused_gabor_render_plain(*args, fr.consts)
+        assert fr.fwd_library().endswith("_tc")
+        before = type(fr).launches
+        got = fr._forward(*args)
+        again = fr._forward(*args)
+        torch.cuda.synchronize()
+        assert type(fr).launches == before + 2
+    for i, k in enumerate(("rgb", "acc", "depth", "weights")):
+        assert torch.equal(got[i], again[i]), k
+        assert torch.isfinite(got[i]).all(), k
+        scale = 10.0 if k == "depth" else 1.0
+        err = float((got[i] - ref[i]).abs().max())
+        assert err <= TOL["bfloat16"] * scale, (k, err)
+
+
 def test_kernel_refuses_unsupported_width(dev):
     small = NeRFModel(hidden_dim=32).to(dev)
     fr = FusedNerfRender(small, NEAR, FAR)

@@ -1,9 +1,13 @@
-"""Host-side plans of two of the port's kernels, checked on the CPU.
+"""Host-side plans and routes of the port's kernels, checked on the CPU.
 
 * The bfloat16 train pass (PERF.md row 5) runs on the tensor cores
   (``csrc/fused_render_train_tc.cu``); the float32 train pass and the render
   backward (row 4) stay on ``csrc/fused_render_train.cu``. Its launch plan
   and the bytes of its stash are computed here, on the host.
+* The bfloat16 forward renders of NeRF and GaborNet (rows 3 and 11) run on
+  the tensor cores (``csrc/fused_render_fwd_tc.cu``,
+  ``csrc/fused_render_gabor_fwd_tc.cu``) at two CTAs an SM; the float32
+  ones stay on the CUDA-core kernels at one.
 * The scatter-add (row 19) sorts its keys by a radix sort whose passes and
   digit width follow from the number of rows.
 
@@ -15,10 +19,12 @@ from __future__ import annotations
 import pytest
 import torch
 
+from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.nerf import NeRFModel
-from nerf_tpu_torch.ops.cuda import build
+from nerf_tpu_torch.ops.cuda import build, fused_render, fused_render_gabor
 from nerf_tpu_torch.ops.cuda.fused_render import (
-    TC_BYTES_PER_POINT, FusedNerfRender, FusedRender, launch_plan)
+    TC_BYTES_PER_POINT, FusedNerfRender, FusedRender, fwd_rays_per_cta, launch_plan)
+from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
 from nerf_tpu_torch.ops.cuda.scatter_add import radix_plan
 
 # the float32 stash of csrc/fused_render_train.cu: floats_per_point<2>() of
@@ -85,3 +91,69 @@ def test_bf16_train_pass_routes_to_the_tensor_core_library(cdt, monkeypatch):
     for train in (True, False):
         fr._launch_grad(None, x, x, x, torch.zeros(2, 4), x, train, True)
     assert calls == (["tc", "cuda-core"] if tc else ["cuda-core", "cuda-core"])
+
+
+@pytest.mark.parametrize("shape, plan", [
+    ((8192, 64), (32, 256, 32)),     # lego.txt's coarse pass (chunk 8192)
+    ((8192, 192), (32, 256, 96)),    # and its fine pass
+    ((1024, 256), (4, 256, 16)),     # a GaborNet request's chunk
+    ((1000, 256), (4, 250, 16)),     # a ragged ray count
+    ((300, 37), (2, 150, 2)),        # chunks that span rays
+])
+def test_fwd_launch_plan_at_two_ctas_an_sm(shape, plan):
+    """The tensor-core forward renders split the rays over two CTAs on each
+    of 132 SMs (every CTA resident at once), a CTA walking its rays' samples
+    in 64-point chunks: (rays a CTA, CTAs, chunks a CTA). The CUDA-core
+    kernels take one CTA an SM."""
+    num_rays, s = shape
+    rays_per_cta = fwd_rays_per_cta(num_rays, 132, 2)
+    grid, chunks = -(-num_rays // rays_per_cta), -(-rays_per_cta * s // 64)
+    assert (rays_per_cta, grid, chunks) == plan
+    assert grid <= 2 * 132
+    assert grid * rays_per_cta >= num_rays > (grid - 1) * rays_per_cta
+    assert fwd_rays_per_cta(num_rays, 132, 1) == -(-num_rays // 132)
+
+
+class _FakeLib:
+    """Stands for a loaded library: each attribute names its entry point."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __getattr__(self, entry):
+        return f"{self.name}:{entry}"
+
+
+@pytest.mark.parametrize("family", ["nerf", "gabor"])
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_fwd_library_routes_bf16_to_the_tensor_cores(family, cdt, monkeypatch):
+    """The bfloat16 forward render goes to the tensor-core library at two
+    CTAs an SM, the float32 one to the CUDA-core library at one; the entry
+    the launch takes is checked with the libraries replaced (no card
+    here)."""
+    gen = torch.Generator().manual_seed(0)
+    if family == "nerf":
+        fr = FusedNerfRender(NeRFModel(compute_dtype=cdt, generator=gen), 2.0, 6.0)
+        module, lib, entry = fused_render, "fused_render_fwd", "fused_render_fwd"
+    else:
+        fr = FusedGaborRender(GaborModel(compute_dtype=cdt, generator=gen), 2.0, 6.0)
+        module, lib, entry = fused_render_gabor, "fused_render_gabor_fwd", "fused_gabor_fwd"
+    tc = cdt == "bfloat16"
+    if tc:
+        lib, entry = lib + "_tc", entry + "_tc"
+    assert fr.fwd_library() == lib
+    monkeypatch.setattr(module, "_library", _FakeLib)
+    fn, err, ctas_per_sm = fr._fwd_entry()
+    assert (fn, err) == (f"{lib}:{entry}", f"{lib}:{entry}_error")
+    assert ctas_per_sm == (2 if tc else 1)
+
+
+def test_build_lists_the_tensor_core_forward_renders():
+    """Twenty libraries, one per .cu source, the two tensor-core forward
+    renders beside the CUDA-core ones they took bfloat16 from."""
+    assert len(build.LIBS) == len(set(build.LIBS)) == 20
+    for name in ("fused_render_fwd_tc", "fused_render_gabor_fwd_tc",
+                 "fused_render_fwd", "fused_render_gabor_fwd"):
+        assert name in build.LIBS
+    sources = {p.stem for p in build._CSRC.glob("*.cu")}
+    assert sources == set(build.LIBS)
