@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Bit-for-bit check of the NeRF and GaborNet render kernels across two
-checkouts, on one GPU.
+"""Bit-for-bit check of the NeRF, SIREN and GaborNet render kernels across
+two checkouts, on one GPU.
 
 A change to the kernel pieces that several families share
 (``nerf_tpu_torch/csrc/render_common.cuh``) must leave the kernels of the
 families it did not mean to touch computing what they computed. This script
-runs the NeRF forward render, train pass and render backward and the
-GaborNet forward render on seeded inputs (300 x 37 and 1024 x 64, float32
-and bfloat16) with the checkout it is given, saves every output, and
+runs the NeRF and SIREN forward renders, train passes and render backwards
+and the GaborNet forward render on seeded inputs (300 x 37 and 1024 x 64,
+float32 and bfloat16) with the checkout it is given, saves every output, and
 compares two such files with ``torch.equal``:
 
     # in each checkout (this one, and e.g. the parent unpacked by
@@ -37,6 +37,29 @@ def _inputs(torch, dev, num_rays: int, s: int, seed: int):
     return cam, rays_d, t, torch.rand(num_rays, 3, generator=g, device=dev)
 
 
+def render(torch, dev, fr, model, label: str, res: dict) -> None:
+    """The forward render, train pass and render backward of ``fr`` (a
+    family's FusedRender of ``model``) at both shapes, into ``res``."""
+    with torch.no_grad():
+        packed = fr.pack(model)
+        for r, s in ((300, 37), (1024, 64)):
+            key = f"{label} {r}x{s}"
+            ro, rd, t, tgt = _inputs(torch, dev, r, s, r + s)
+            for k, v in fr(packed, ro, rd, rd, t).items():
+                res[f"fwd {key} {k}"] = v.cpu()
+            o_aff, d_aff = fr.affine(ro, rd)
+            loss, rgb, acc, weights, (gw, gv) = fr._train(
+                packed, o_aff, d_aff, rd, t, tgt, True)
+            for k, v in (("loss", loss), ("rgb", rgb), ("acc", acc),
+                         ("weights", weights), ("gw", gw), ("gv", gv)):
+                res[f"train {key} {k}"] = v.cpu()
+            g_ray = torch.randn(r, 8, device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(3))
+            g_ray[:, 5:] = 0
+            gw, gv = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+            res[f"bwd {key} gw"], res[f"bwd {key} gv"] = gw.cpu(), gv.cpu()
+
+
 def save(out: str, checkout: str) -> int:
     sys.path.insert(0, checkout)
     import torch
@@ -46,34 +69,20 @@ def save(out: str, checkout: str) -> int:
         return 2
     from nerf_tpu_torch.models.gabor import GaborModel
     from nerf_tpu_torch.models.nerf import NeRFModel
+    from nerf_tpu_torch.models.siren import SirenModel
     from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
     from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     res = {}
     for cdt in ("float32", "bfloat16"):
-        model = NeRFModel(compute_dtype=cdt,
-                          generator=torch.Generator().manual_seed(7)).to(dev)
-        fr = FusedNerfRender(model, 2.0, 6.0)
-        with torch.no_grad():
-            packed = fr.pack(model)
-            for r, s in ((300, 37), (1024, 64)):
-                key = f"{cdt} {r}x{s}"
-                ro, rd, t, tgt = _inputs(torch, dev, r, s, r + s)
-                for k, v in fr(packed, ro, rd, rd, t).items():
-                    res[f"fwd {key} {k}"] = v.cpu()
-                o_aff, d_aff = fr.affine(ro, rd)
-                loss, rgb, acc, weights, (gw, gv) = fr._train(
-                    packed, o_aff, d_aff, rd, t, tgt, True)
-                for k, v in (("loss", loss), ("rgb", rgb), ("acc", acc),
-                             ("weights", weights), ("gw", gw), ("gv", gv)):
-                    res[f"train {key} {k}"] = v.cpu()
-                g_ray = torch.randn(r, 8, device=dev,
-                                    generator=torch.Generator(device=dev).manual_seed(3))
-                g_ray[:, 5:] = 0
-                gw, gv = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
-                res[f"bwd {key} gw"], res[f"bwd {key} gv"] = gw.cpu(), gv.cpu()
+        for family, model_cls, render_cls in (("", NeRFModel, FusedNerfRender),
+                                              ("siren ", SirenModel, FusedSirenRender)):
+            model = model_cls(compute_dtype=cdt,
+                              generator=torch.Generator().manual_seed(7)).to(dev)
+            render(torch, dev, render_cls(model, 2.0, 6.0), model, family + cdt, res)
         gabor = GaborModel(compute_dtype=cdt,
                            generator=torch.Generator().manual_seed(7)).to(dev)
         gr = FusedGaborRender(gabor, 2.0, 6.0)

@@ -8,9 +8,9 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
   1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
   2. the build of every kernel library from the sources in the checkout
      (one nvcc per source, started together), timed, and the count of
-     tensor-core instructions in the SASS of the three bf16 libraries on
-     the tensor cores (the NeRF train pass, the NeRF and GaborNet forward
-     renders; cuobjdump);
+     tensor-core instructions in the SASS of the five bf16 libraries on
+     the tensor cores (the NeRF and SIREN train passes, the NeRF, SIREN and
+     GaborNet forward renders; cuobjdump);
   3. every kernel against its plain PyTorch version on the card (TF32 off):
      the forward render at the serving shapes (8192 rays x 64 and 192
      samples), the train pass and the render backward at the training
@@ -48,7 +48,11 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      off): the forward render at configs/lego_siren.txt's chunk and samples
      (1024 rays x 256), a ragged ray count (1000 x 256) and an odd S (1024 x
      37), the train pass and the render backward at 1024 x 256, float32 and
-     bfloat16, timed in turns against their plain versions and their bound;
+     bfloat16 (the bfloat16 forward render and train pass on the tensor
+     cores, each run twice for identical bits and timed beside the
+     CUDA-core kernel it replaced; the forward render's rgb, acc and
+     weights equal to the train pass's on one 1024 x 64 batch), timed in
+     turns against their plain versions and their bound;
   8. serving configs/lego_siren.txt (SIREN, coarse-only 256 samples, chunk
      1024, bf16) as in 4: each image request must give a 400x400 PNG and
      launch the SIREN forward kernel exactly ceil(160000/1024) = 157 times,
@@ -228,9 +232,16 @@ ROW5_BF16_CUDA_CORE_MS = {64: 10.851, 192: 30.608, 256: 40.164}
 # NVIDIA H100 80GB HBM3, 700.00 W), printed beside the tensor-core kernels.
 ROW3_BF16_CUDA_CORE_MS = {64: 21.164, 192: 62.040}
 ROW11_BF16_CUDA_CORE_MS = 10.264
+# Rows 6 and 8's bfloat16 SIREN forward render and train pass on the CUDA
+# cores, before they moved to the tensor cores (csrc/fused_render_siren_fwd.cu
+# and the train entry of csrc/fused_render_siren_train.cu at 1024 x 256;
+# PERF.md's earlier times, NVIDIA H100 80GB HBM3, 700.00 W).
+ROW6_BF16_CUDA_CORE_MS = 8.977
+ROW8_BF16_CUDA_CORE_MS = 38.388
 # the libraries of the bf16 kernels on the tensor cores (phase 2 reads
 # their SASS)
-TC_LIBS = ("fused_render_train_tc", "fused_render_fwd_tc", "fused_render_gabor_fwd_tc")
+TC_LIBS = ("fused_render_train_tc", "fused_render_fwd_tc", "fused_render_gabor_fwd_tc",
+           "fused_render_siren_fwd_tc", "fused_render_siren_train_tc")
 # per-sample MACs of the backward's skipped input-gradient products
 # (dz1 w1^T, dz6 w6p^T, dzr0 wr0d^T at the real widths 63/63/27)
 SKIPPED_MACS = 256 * 63 + 256 * 63 + 128 * 27
@@ -898,7 +909,12 @@ def check_siren_kernels(torch, dev):
     samples), 1000 x 256 (ragged) and 1024 x 37 (odd S); the train pass and
     the render backward at 1024 x 256, and the two backward routes against
     each other; float32 and bfloat16, TF32 off; the tolerances of the NeRF
-    kernels."""
+    kernels. The bfloat16 forward and train pass run on the tensor cores
+    (csrc/fused_render_siren_fwd_tc.cu, csrc/fused_render_siren_train_tc.cu):
+    two launches of each must give the same bits, their times are printed
+    beside the CUDA-core kernels' they replaced, and the forward's rgb, acc
+    and weights must equal the train pass's (one chain) on a 1024 x 64
+    batch."""
     from nerf_tpu_torch.models.siren import SirenModel
     from nerf_tpu_torch.ops.cuda.fused_render_siren import (
         FusedSirenRender, fused_siren_render_bwd_plain, fused_siren_render_plain,
@@ -931,13 +947,16 @@ def check_siren_kernels(torch, dev):
             with torch.no_grad():
                 ref = plain()
                 out = kern()
+                again = kern()
                 torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(out, again)):
+                    fail(f"siren kernel {cdt} R={r} S={s}: two launches differ")
                 errs = {}
                 for i, name in enumerate(("rgb", "acc", "depth", "weights")):
                     if not torch.isfinite(out[i]).all():
                         fail(f"siren kernel {cdt} R={r} S={s}: non-finite {name}")
                     errs[name] = float((out[i] - ref[i]).abs().max())
-                del ref, out
+                del ref, out, again
                 torch.cuda.empty_cache()
                 timed = (r, s) == (R_SIREN, S_SIREN)
                 if timed:
@@ -947,15 +966,20 @@ def check_siren_kernels(torch, dev):
                         fn = plain if name == "plain" else kern
                         times[name] += time_calls(torch, fn, 3)
                     torch.cuda.empty_cache()
+            tc = fr.fwd_library() == "fused_render_siren_fwd_tc"
             bad = {n: v for n, v in errs.items() if v > TOL[cdt][n]}
             line = (f"kernel fused_render_siren_fwd {cdt} R={r} S={s}: max_abs_err "
-                    + " ".join(f"{n}={v:.3e}(tol {TOL[cdt][n]:.0e})"
-                               for n, v in errs.items()))
+                    + " ".join(f"{n}={v:.3e}(tol {TOL[cdt][n]:.0e})" for n, v in errs.items())
+                    + ", two launches bit-identical")
             if timed:
                 ms = statistics.median(times["kernel"])
                 plain_ms = statistics.median(times["plain"])
                 bms, by = bound_ms(r, s, cdt, weight_bytes, SIREN_MACS, SIREN_TRIG)
-                line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                line += (f" | kernel {ms:.3f} ms"
+                         + (f" (tensor cores; the CUDA-core kernel it replaced "
+                            f"{ROW6_BF16_CUDA_CORE_MS:.3f} ms, x"
+                            f"{ROW6_BF16_CUDA_CORE_MS / ms:.2f})" if tc else "")
+                         + f", plain {plain_ms:.3f} ms, bound "
                          f"{bms:.3f} ms ({by}), share of bound {bms / ms:.4f}")
                 results[("fused_render_siren_fwd", cdt)] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
@@ -973,7 +997,12 @@ def check_siren_kernels(torch, dev):
         with torch.no_grad():
             ref = fused_siren_train_plain(packed, o_aff, d_aff, rd, t, tgt, True, k)
             got = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+            again = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
             torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got[:4] + got[4],
+                                                         again[:4] + again[4])):
+                fail(f"siren train kernel {cdt}: two launches differ")
+            del again
             errs = {"loss": float(abs(got[0] - ref[0]) / abs(ref[0]))}
             for i, name in ((1, "rgb"), (2, "acc"), (3, "weights")):
                 if not torch.isfinite(got[i]).all():
@@ -1026,9 +1055,14 @@ def check_siren_kernels(torch, dev):
             bms, by = bound_ms(r, s, cdt, weight_bytes,
                                3 * SIREN_MACS - SIREN_SKIPPED, 2 * SIREN_TRIG,
                                grad_bytes, name == "fused_render_siren_train")
-            say(f"kernel {name} {cdt} R={r} S={s}: kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), share of bound "
-                f"{bms / ms:.4f}")
+            tc = (name == "fused_render_siren_train"
+                  and fr.grad_library(True) == "fused_render_siren_train_tc")
+            say(f"kernel {name} {cdt} R={r} S={s}: kernel {ms:.3f} ms"
+                + (f" (tensor cores; the CUDA-core kernel it replaced "
+                   f"{ROW8_BF16_CUDA_CORE_MS:.3f} ms, x{ROW8_BF16_CUDA_CORE_MS / ms:.2f}; "
+                   f"two launches bit-identical)" if tc else "")
+                + f", plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), share of "
+                f"bound {bms / ms:.4f}")
             e = gerr if name == "fused_render_siren_train" else berr
             worst = max(list(e.values()) + (list(errs.values()) if name ==
                                             "fused_render_siren_train" else []))
@@ -1036,6 +1070,21 @@ def check_siren_kernels(torch, dev):
                                         bound_ms=bms, bound_by=by)
         if bad:
             fail(f"siren train/backward kernels {cdt} disagree: {bad}")
+    # the bf16 forward render and train pass run one chain: on one batch
+    # their rgb, acc and compositing weights are equal bit for bit
+    rays_o, rays_d, t, target = camera_batch(torch, dev, R_TRAIN, 64, 4064)
+    o_aff, d_aff = fr.affine(rays_o, rays_d)
+    with torch.no_grad():
+        out = fr._forward(packed, o_aff, d_aff, rays_d, t)
+        _, rgb, acc, weights, _ = fr._train(packed, o_aff, d_aff, rays_d, t, target, True)
+        torch.cuda.synchronize()
+    diff = {"rgb": float((out[0] - rgb).abs().max()), "acc": float((out[1] - acc).abs().max()),
+            "weights": float((out[3] - weights).abs().max())}
+    say(f"kernel fused_render_siren_fwd bfloat16 R={R_TRAIN} S=64 against the train pass "
+        f"({fr.grad_library(True)}): max abs "
+        + " ".join(f"{n}={v:.3e}" for n, v in diff.items()) + " (want 0: one chain)")
+    if any(diff.values()):
+        fail(f"the bf16 SIREN forward render and train pass disagree: {diff}")
     return results
 
 
@@ -2966,9 +3015,9 @@ def main() -> int:
                            max(v["err"] for k, v in grad_checks.items()
                                if k[0] == name)))
     for name, source, line, launched in (
-            ("fused_render_siren_fwd", "fused_render_siren_fwd.cu", 60,
+            ("fused_render_siren_fwd", "fused_render_siren_fwd_tc.cu", 60,
              siren_launches),
-            ("fused_render_siren_train", "fused_render_siren_train.cu", 110,
+            ("fused_render_siren_train", "fused_render_siren_train_tc.cu", 110,
              siren_trained["train_launches"]),
             ("fused_render_siren_bwd", "fused_render_siren_train.cu", 82,
              siren_trained["bwd_launches"])):

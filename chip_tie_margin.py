@@ -1,0 +1,179 @@
+#!/usr/bin/env python3
+"""The near-tie margin of the bfloat16 SIREN kernels on the tensor cores,
+swept on one GPU.
+
+``nerf_tpu_torch/csrc/fused_render_siren_tc_common.cuh`` recomputes, in the
+plain version's sequential k order, every hidden-layer element whose sine
+lies within ``TIE_ULPS`` * 2^-24 * w0 (|acc + b| + 1) of the midpoint between
+two bf16 values, so that it rounds as the plain version's does. This script
+builds the SIREN forward render and train pass (``fused_render_siren_fwd_tc``,
+``fused_render_siren_train_tc``) from copies of the sources with
+``TIE_ULPS`` replaced by each value given, and prints for each value:
+
+  * the forward render's max abs error against ``fused_siren_render_plain``
+    at 1024 x 256, 1000 x 256 and 1024 x 37, for two seeded SIRENs;
+  * the train pass's against ``fused_siren_train_plain`` at 1024 x 256 and
+    133 x 64: loss (relative), rgb, acc, weights, and the worst gradient
+    over its max (floored at 1e-2 of the largest);
+  * both kernels' times at 1024 x 256 (medians of 7 and 5 launches), in two
+    passes over the values, the second in reverse order.
+
+    python3 chip_tie_margin.py [TIE_ULPS ...]     (integers; default: 0 4 8 16 32 64)
+
+A value of 0 recomputes only exact midpoints. The builds go to
+``build/tie_margin/`` (which .gitignore lists). Needs a CUDA device and
+``nvcc``; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+LIBS = ("fused_render_siren_fwd_tc", "fused_render_siren_train_tc")
+LINE = "constexpr float TIE_ULPS = 32.f;"
+
+
+def build_variants(build, values) -> dict:
+    """One directory of sources and the two libraries per value, built by
+    one nvcc per library, all started together."""
+    out, jobs = {}, []
+    for v in values:
+        d = ROOT / "build" / "tie_margin" / f"ulps_{v}"
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(ROOT / "nerf_tpu_torch" / "csrc", d)
+        common = d / "fused_render_siren_tc_common.cuh"
+        src = common.read_text()
+        if LINE not in src:
+            raise SystemExit(f"{LINE!r} not in {common.name}")
+        common.write_text(src.replace(LINE, f"constexpr float TIE_ULPS = {v}.f;"))
+        out[v] = d
+        for lib in LIBS:
+            jobs.append(subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / f"{lib}.so"),
+                 str(d / f"{lib}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for p in jobs:
+        log, _ = p.communicate()
+        if p.returncode:
+            raise SystemExit(log)
+    return out
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from nerf_tpu_torch.models.siren import SirenModel
+    from nerf_tpu_torch.ops.cuda import build
+    from nerf_tpu_torch.ops.cuda import fused_render_siren as frs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    values = [int(x) for x in sys.argv[1:]] or [0, 4, 8, 16, 32, 64]
+    dirs = build_variants(build, values)
+    build.build()
+    library = build.library
+
+    def use(v):
+        frs.library = lambda name: (ctypes.CDLL(str(dirs[v] / f"{name}.so"))
+                                    if name in LIBS else library(name))
+        frs._library.cache_clear()
+
+    def inputs(r, s, seed):
+        rng = np.random.default_rng(seed)
+        ro = rng.uniform(2.5, 3.5, (r, 3))
+        rd = rng.normal(size=(r, 3))
+        rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+        t = np.sort(rng.uniform(2.0, 6.0, (r, s)), axis=-1)
+        return tuple(torch.from_numpy(x.astype(np.float32)).to(dev) for x in (ro, rd, t))
+
+    def siren(seed):
+        model = SirenModel(compute_dtype="bfloat16",
+                           generator=torch.Generator().manual_seed(seed)).to(dev)
+        return model, frs.FusedSirenRender(model, 2.0, 6.0)
+
+    def median_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b))
+        return statistics.median(out)
+
+    refs = {}
+    for v in values:
+        use(v)
+        with torch.no_grad():
+            for mseed, iseed in ((2, 6), (5, 11)):
+                model, fr = siren(mseed)
+                packed = fr.pack(model)
+                for r, s in ((1024, 256), (1000, 256), (1024, 37)):
+                    ro, rd, t = inputs(r, s, iseed)
+                    o_aff, d_aff = fr.affine(ro, rd)
+                    key = ("fwd", mseed, r, s)
+                    if key not in refs:
+                        refs[key] = frs.fused_siren_render_plain(packed, o_aff, d_aff, rd, t,
+                                                                 fr.consts)
+                    got = fr._forward(packed, o_aff, d_aff, rd, t)
+                    print(f"TIE_ULPS={v} forward SIREN seed {mseed} {r}x{s}: " + " ".join(
+                        f"{n}={float((a - b).abs().max()):.3e}" for n, a, b in
+                        zip(("rgb", "acc", "depth", "weights"), got, refs[key])), flush=True)
+            model, fr = siren(4)
+            packed = fr.pack(model)
+            for r, s in ((1024, 256), (133, 64)):
+                ro, rd, t = inputs(r, s, 1)
+                tgt = torch.rand(r, 3, device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(2))
+                o_aff, d_aff = fr.affine(ro, rd)
+                key = ("train", r, s)
+                if key not in refs:
+                    refs[key] = frs.fused_siren_train_plain(packed, o_aff, d_aff, rd, t, tgt,
+                                                            True, fr.consts)
+                ref = refs[key]
+                got = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+                g, gr = frs.grad_views(*got[4], 256), frs.grad_views(*ref[4], 256)
+                floor = 1e-2 * max(float(x.abs().max()) for x in gr.values())
+                ge = {k: float((g[k] - gr[k]).abs().max()) / max(float(gr[k].abs().max()), floor)
+                      for k in gr}
+                worst = max(ge, key=ge.get)
+                print(f"TIE_ULPS={v} train pass {r}x{s}: "
+                      f"loss={float(abs(got[0] - ref[0]) / abs(ref[0])):.2e} " + " ".join(
+                          f"{n}={float((got[i] - ref[i]).abs().max()):.3e}"
+                          for i, n in ((1, "rgb"), (2, "acc"), (3, "weights")))
+                      + f" worst gradient {worst}={ge[worst]:.2e}", flush=True)
+    times = {}
+    for v in values + values[::-1]:
+        use(v)
+        with torch.no_grad():
+            model, fr = siren(2)
+            packed = fr.pack(model)
+            ro, rd, t = inputs(1024, 256, 6)
+            o_aff, d_aff = fr.affine(ro, rd)
+            tgt = torch.rand(1024, 3, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(2))
+            fwd = lambda: fr._forward(packed, o_aff, d_aff, rd, t)  # noqa: E731
+            train = lambda: fr._train(packed, o_aff, d_aff, rd, t, tgt, True)  # noqa: E731
+            fwd(), train()
+            times.setdefault(v, []).append((median_ms(fwd, 7), median_ms(train, 5)))
+    for v in values:
+        print(f"TIE_ULPS={v} 1024x256: forward "
+              + " / ".join(f"{a:.3f}" for a, _ in times[v]) + " ms, train pass "
+              + " / ".join(f"{b:.3f}" for _, b in times[v]) + " ms", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

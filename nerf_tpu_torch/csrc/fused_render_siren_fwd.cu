@@ -2,8 +2,9 @@
 // 8-layer sine MLP and volume compositing in one kernel.
 //
 // Replaces: nerf_tpu/ops/pallas/fused_render_siren.py::_fwd_kernel (the
-// forward route of FusedSirenRender.__call__). Same function: for every
-// sample p = o_aff + t * d_aff (o_aff/d_aff already carry the
+// forward route of FusedSirenRender.__call__) in float32 mode; its bfloat16
+// mode is fused_render_siren_fwd_tc.cu, on the tensor cores. Same function:
+// for every sample p = o_aff + t * d_aff (o_aff/d_aff already carry the
 // [near,far]->[-1,1] map), the MLP of
 // nerf_tpu/ops/pallas/fused_siren.py::_mlp_tile on p and on the L_dir
 // frequency encoding of the view direction, deltas from t with the 1e10
@@ -17,10 +18,7 @@
 // 283x128, 128x3) and 2,176 sines (8 x 256 + 128). A 1024-ray x 256-sample
 // launch is 0.29 TFLOP of products against a few MB of device-memory
 // traffic. float32 mode must be true float32 with the exact sinf (|w0 z|
-// reaches tens of radians), so it runs on the CUDA cores (67 TFLOP/s);
-// bfloat16 mode rounds every matmul input and weight to bf16 and sums in
-// float32, which this first version also does on the CUDA cores (its bound
-// is the tensor cores' 989 TFLOP/s, far above what this design reaches).
+// reaches tens of radians), so it runs on the CUDA cores (67 TFLOP/s).
 // The sines (0.57 G per launch, ~20-40 instructions each in float32) are
 // under a tenth of the products' instructions.
 //
@@ -36,7 +34,8 @@
 // T from chunk to chunk (render_common.cuh).
 //
 // The layout, the shared-memory plan and the chunk forward are in
-// fused_render_siren_common.cuh (shared with fused_render_siren_train.cu).
+// fused_render_siren_common.cuh (shared with fused_render_siren_train.cu,
+// whose render backward recomputes this forward in both dtypes).
 // Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared library
 // with a plain C interface (loaded by ctypes).
 
@@ -46,9 +45,8 @@ namespace {
 
 using namespace siren;
 
-template <bool BF16, typename WT>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_siren_fwd_kernel(RayInputs in, Siren sp, const WT* __restrict__ wmat,
+fused_siren_fwd_kernel(RayInputs in, Siren sp, const float* __restrict__ wmat,
                        int rays_per_cta, float* __restrict__ rgb_out,
                        float* __restrict__ acc_out, float* __restrict__ depth_out,
                        float* __restrict__ weights_out) {
@@ -70,7 +68,7 @@ fused_siren_fwd_kernel(RayInputs in, Siren sp, const WT* __restrict__ wmat,
 
   for (int chunk0 = ray0 * S; chunk0 < pt_end; chunk0 += P) {
     const int nvalid = min(P, pt_end - chunk0);
-    forward_chunk<BF16, false>(in, wmat, sp, chunk0, nvalid, smem, none, 0);
+    forward_chunk<false, false>(in, wmat, sp, chunk0, nvalid, smem, none, 0);
     if (tid == 0)
       composite_chunk(sums, t_s, delta_s, sig_s, rgb_s, chunk0, nvalid, S,
                       rgb_out, acc_out, depth_out, weights_out);
@@ -78,26 +76,13 @@ fused_siren_fwd_kernel(RayInputs in, Siren sp, const WT* __restrict__ wmat,
   }
 }
 
-template <bool BF16, typename WT>
-int launch(const RayInputs& in, const Siren& sp, const void* wmat, int rays_per_cta,
-           float* rgb, float* acc, float* depth, float* weights,
-           cudaStream_t stream) {
-  auto kernel = fused_siren_fwd_kernel<BF16, WT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (in.num_rays + rays_per_cta - 1) / rays_per_cta;
-  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      in, sp, static_cast<const WT*>(wmat), rays_per_cta, rgb, acc, depth, weights);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
-// Returns 0 on success, a cudaError_t code after a failed launch, or -1
-// when the packed buffers or the shapes do not fit this kernel.
+// Returns 0 on success, a cudaError_t code after a failed launch, -1 when
+// the packed buffers or the shapes do not fit this kernel, or -2 for
+// bfloat16 (fused_render_siren_fwd_tc.cu runs it).
 int fused_siren_fwd(const float* o_aff, const float* d_aff,
                     const float* viewdirs, const float* t, const void* wmat,
                     const float* vec, int n_w, int n_b, int bf16, int num_rays,
@@ -107,18 +92,21 @@ int fused_siren_fwd(const float* o_aff, const float* d_aff,
   if (n_w != N_W || n_b != N_B || num_rays <= 0 || S <= 0 ||
       rays_per_cta <= 0 || real_d > DP)
     return -1;
+  if (bf16) return -2;
   const RayInputs in{o_aff, d_aff, viewdirs, t, vec, num_rays, S, 0, real_d};
   const Siren sp{w0, w0h, sigma_mul, rgb_mul};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<true, __nv_bfloat16>(in, sp, wmat, rays_per_cta, rgb, acc,
-                                       depth, weights, s);
-  return launch<false, float>(in, sp, wmat, rays_per_cta, rgb, acc, depth,
-                              weights, s);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_siren_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (num_rays + rays_per_cta - 1) / rays_per_cta;
+  fused_siren_fwd_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      in, sp, static_cast<const float*>(wmat), rays_per_cta, rgb, acc, depth, weights);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* fused_siren_fwd_error(int code) {
   if (code == -1) return "packed weights or shapes do not fit the kernel";
+  if (code == -2) return "the bfloat16 forward render runs in fused_render_siren_fwd_tc";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,0 +1,390 @@
+// The SIREN family's forward chain on Hopper's tensor cores (sm_90a), over
+// one 64-point chunk of ray samples, shared by the bfloat16 train pass
+// (fused_render_siren_train_tc.cu, which stashes what its backward needs)
+// and the bfloat16 forward render (fused_render_siren_fwd_tc.cu, which keeps
+// each point's density and colour in shared memory and composites them
+// straight away). One chain, so the train pass's forward outputs are the
+// forward render's bit for bit.
+//
+// The chain is nerf_tpu/ops/pallas/fused_siren.py::_mlp_tile in bfloat16,
+// at its rounding points:
+//   * the raw positions p = o_aff + t d_aff rounded to bf16, and layer 1
+//     (K = 3) on the CUDA cores in mlp_chunk's fmaf order (x0 w0, then x1
+//     w1, then x2 w2): at w0 = 30 one ulp of the argument flips bf16
+//     roundings downstream;
+//   * layers 2..8, the feature remap and the rgb head's [feat, denc]
+//     product on render_tc.cuh's gemm_fwd (mma.sync m16n8k16, bf16
+//     operands, float32 sums), each sine layer's epilogue in the
+//     accumulator layout: arg = w0 (acc + b) rounded as written, h =
+//     fast_sin(arg) (the degree-11 sine of the TPU kernel's _trig), h
+//     rounded to bf16 as the next product's operand;
+//   * the density: the UNROUNDED h8 . ws summed in float32 over the
+//     thread's columns, the 4 lanes of a row by shuffle, the 8 warps in
+//     order; plus bs, relu, times sigma_mul; the feature product reads the
+//     rounded h8;
+//   * the rgb head's sine (w0h) in its product's epilogue, its 128 x 3
+//     output layer and the sigmoid on the CUDA cores.
+// Near ties (layers 2..8). The mma sums a product's terms in its own
+// order; the plain version sums them in sequential k order (cuBLAS's
+// float32 GEMM: fmaf from k = 0, as the CUDA-core kernels'
+// render_common.cuh::gemm_acc). The two sums differ by a few ulps, which
+// changes nothing unless h lies that close to the midpoint between two
+// bf16 values: then the orders round h to different neighbours, and such a
+// flip spreads through the later sine layers into sigma (times sigma_mul)
+// and moves a sample's compositing weight by up to about 1e-3 (5e-3 at S =
+// 37). So an element whose h is within TIE_ULPS * 2^-24 * w0 (|acc + b| +
+// 1) of a midpoint is recomputed in sequential k order on the CUDA cores,
+// from the product's own operands, and rounds as the plain version's does.
+// The sums of all other elements round alike in either order, so every
+// bf16 activation is the plain version's. chip_tie_margin.py sweeps the
+// margin on the card: 8 left flips, 16 none; TIE_ULPS is twice that. Each
+// hidden layer reads one of two activation tiles and writes the other: its
+// input stays in shared memory until the ties are recomputed. The ties,
+// a small share of a layer's elements, are listed in shared memory and
+// shared out over the CTA's threads (past TIE_CAP a thread recomputes its
+// own).
+// With STASH each sine epilogue also writes cos(arg) = fast_sin(arg +
+// pi/2) in float32 (the backward's derivative factor, from the forward's
+// own argument), and h8 unrounded.
+
+#pragma once
+
+#include "render_tc.cuh"
+#include "fused_render_siren_common.cuh"
+
+namespace siren {
+
+// Shared memory (bytes) of a forward CTA: two activation tiles (a hidden
+// layer reads one and writes the other; the feature remap and the rgb head
+// overwrite their input once the product has read it), the direction
+// encoding, the weight stages, the density partials, then the chunk's
+// per-point columns (SC_*, floats, TC_P each): the rounded positions (3), t,
+// delta, sigma (after the ReLU), rgb (3). Two CTAs share an SM.
+constexpr int SB_ACT = 0;
+constexpr int SB_DENC = SB_ACT + 2 * TC_P * LDS * 2;
+constexpr int SB_WST = SB_DENC + TC_P * LDD * 2;
+constexpr int SB_SIG = SB_WST + WST_FWD_BYTES;
+constexpr int SB_COL = SB_SIG + WARPS * TC_P * 4;
+constexpr int SC_POS = 0, SC_T = 3, SC_DELTA = 4, SC_SIGMA = 5, SC_RGB = 6, N_SC = 9;
+// then the near ties of a layer (see the header): two counts (odd and even
+// layers: one is reset while the other is read) and their positions (row
+// << 8 | column)
+constexpr int TIE_CAP = 1024;
+constexpr float TIE_ULPS = 32.f;
+constexpr int SB_TIE = SB_COL + N_SC * TC_P * 4;
+constexpr int SB_END = SB_TIE + 16 + TIE_CAP * 2;
+static_assert(2 * (SB_END + 1024) <= 233472, "two forward CTAs share an SM");
+
+struct TcSmem {
+  bf16* act[2];
+  bf16* denc;
+  bf16* wst;
+  float* sig;
+  float* col;
+  int* tie_n;
+  unsigned short* tie_at;
+};
+
+__device__ __forceinline__ TcSmem carve_smem(unsigned char* sb) {
+  bf16* act = reinterpret_cast<bf16*>(sb + SB_ACT);
+  return TcSmem{{act, act + TC_P * LDS}, reinterpret_cast<bf16*>(sb + SB_DENC),
+                reinterpret_cast<bf16*>(sb + SB_WST), reinterpret_cast<float*>(sb + SB_SIG),
+                reinterpret_cast<float*>(sb + SB_COL), reinterpret_cast<int*>(sb + SB_TIE),
+                reinterpret_cast<unsigned short*>(sb + SB_TIE + 16)};
+}
+
+// One train CTA's device-memory stash, point-major with the CTA-local point
+// as the row: h1..h8 rounded, feat and the two dz buffers (bf16, 256
+// columns), y (128), denc (32), then h8 unrounded and c1..c8 = cos(w0_l
+// z_l) (float32, 256), cr0 = cos(w0h zr0) (128) and the per-point columns
+// (float32, N_COLS x cap; render_common.cuh C_* and C_POS).
+struct TcStash {
+  bf16* h[NL];
+  bf16* feat;
+  bf16* dz[2];
+  bf16* y;
+  bf16* denc;
+  float* h8f;
+  float* c[NL];
+  float* cr0;
+  float* cols;
+};
+
+// Rows l0 .. l0 + 63 of a device array of `ncols` columns from a [64][ncols]
+// shared-memory tile of row stride lds (16-byte copies).
+__device__ __forceinline__ void tile_out(const bf16* s, int lds, int ncols, bf16* g, size_t l0) {
+  const int cpr = ncols / 8;
+  for (int e = threadIdx.x; e < TC_P * cpr; e += THREADS) {
+    const int r = e / cpr, q = (e % cpr) * 8;
+    *reinterpret_cast<uint4*>(g + (l0 + r) * ncols + q) =
+        *reinterpret_cast<const uint4*>(s + r * lds + q);
+  }
+}
+
+// The inputs of ray samples [chunk0, chunk0 + nvalid) into shared memory,
+// zero past nvalid, as fused_render_siren_common.cuh::load_ray_chunk<true>:
+// the raw positions rounded to bf16 (float32 columns), the direction
+// encoding (exact sine) rounded to bf16 (point-major); with COLS also t and
+// delta (the 1e10 tail). Ends past a barrier.
+template <bool COLS>
+__device__ void load_chunk_tc(const RayInputs& in, int chunk0, int nvalid, const TcSmem& sm) {
+  const int tid = threadIdx.x, S = in.S;
+  if (tid < 3 * TC_P) {
+    const int c = tid / TC_P, p = tid % TC_P;
+    float v = 0.f;
+    if (p < nvalid) {
+      const int g = chunk0 + p;
+      const int ray = g / S;
+      v = round_bf16(__fadd_rn(in.o_aff[ray * 3 + c], __fmul_rn(in.t[g], in.d_aff[ray * 3 + c])));
+    }
+    sm.col[(SC_POS + c) * TC_P + p] = v;
+  }
+  for (int idx = tid; idx < TC_P * DP; idx += THREADS) {
+    const int p = idx / DP, c = idx % DP;
+    float v = 0.f;
+    if (p < nvalid && c < in.real_d) {
+      const int ray = (chunk0 + p) / S;
+      const int d = c < 3 ? c : (c - 3) % 3;
+      v = encode_col<false>(in.viewdirs[ray * 3 + d], c);
+    }
+    sm.denc[p * LDD + c] = __float2bfloat16_rn(v);
+  }
+  if constexpr (COLS) {
+    if (tid < TC_P) {
+      const int g = chunk0 + tid;
+      float tv = 0.f, dv = 0.f;
+      if (tid < nvalid) {
+        tv = in.t[g];
+        dv = (g % S == S - 1) ? 1e10f : __fsub_rn(in.t[g + 1], tv);
+      }
+      sm.col[SC_T * TC_P + tid] = tv;
+      sm.col[SC_DELTA * TC_P + tid] = dv;
+    }
+  }
+  __syncthreads();
+}
+
+// Whether h = fast_sin(w0 s) is a near tie (see the header), m = w0
+// TIE_ULPS 2^-24: within m (|s| + 1) of the midpoint between its two bf16
+// neighbours (h and the midpoint share sign and exponent, so their
+// difference is exact).
+__device__ __forceinline__ bool near_tie(float h, float s, float m) {
+  const float mid = __uint_as_float((__float_as_uint(h) & 0xffff0000u) | 0x8000u);
+  return fabsf(h - mid) <= fmaf(fabsf(s), m, m);
+}
+
+// bf16(fast_sin(w0 (a_row . W[:, col] + b))) with the dot product summed in
+// sequential k order from zero, as render_common.cuh::gemm_acc sums it (W
+// row-major, K = H). Out of line: it runs for a few elements a layer.
+__device__ __noinline__ bf16 seq_sine(const bf16* a_row, const bf16* __restrict__ w, int col,
+                                      float b, float w0) {
+  float acc = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < H; k += 8) {
+    const uint4 pk = *reinterpret_cast<const uint4*>(a_row + k);
+    const bf16* a8 = reinterpret_cast<const bf16*>(&pk);
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      acc = fmaf(__bfloat162float(a8[u]), __bfloat162float(w[(k + u) * H + col]), acc);
+  }
+  return __float2bfloat16_rn(fast_sin(__fmul_rn(w0, acc + b)));
+}
+
+// A sine layer's epilogue over the warp's 64 x 8 NT tile from column n0:
+// arg = w0 (acc + b), h = fast_sin(arg), out[row][col] = h rounded to bf16.
+// SIGMA (layer 8) also adds the unrounded h . ws of the thread's columns
+// into sp (by row slot). STASH: cos(arg) to cs (float32, row l0 + row,
+// stride ld) and, with SIGMA, the unrounded h to hf (float32, stride H).
+// TIES (a hidden layer of K = 256, its input tile `in` and weights `w`,
+// tie count `par` of sm): the near ties are recomputed in sequential k
+// order over `in` and overwritten in `out`; count par ^ 1 is reset for the
+// next layer. The caller's next barrier publishes `out`.
+template <int NT, bool STASH, bool SIGMA, bool TIES>
+__device__ __forceinline__ void sine_tc(float (&acc)[4][NT][4], int n0,
+                                        const float* __restrict__ bias, float w0, bf16* out,
+                                        float* cs, int ld, float* hf, size_t l0,
+                                        const float* __restrict__ ws, float (&sp)[4][2],
+                                        const bf16* in = nullptr,
+                                        const bf16* __restrict__ w = nullptr,
+                                        const TcSmem* sm = nullptr, int par = 0) {
+  // this thread's near ties, by element e = ((mt NT + j) 2 + hh) 2 + u in
+  // each_pair's order, and the row and column of element e
+  unsigned long long tie = 0;
+  const float m = w0 * (TIE_ULPS * 0x1p-24f);
+  const int lane = threadIdx.x & 31;
+  auto row_of = [&](int e) { return (e / (4 * NT)) * 16 + (lane >> 2) + 8 * (e >> 1 & 1); };
+  auto col_of = [&](int e) { return n0 + (e >> 2) % NT * 8 + 2 * (lane & 3) + (e & 1); };
+  each_pair<NT>(acc, n0, [&](int mt, int j, int hh, int row, int col, float& v0, float& v1) {
+    const float s0 = v0 + __ldg(bias + col), s1 = v1 + __ldg(bias + col + 1);
+    const float a0 = __fmul_rn(w0, s0), a1 = __fmul_rn(w0, s1);
+    const float h0 = fast_sin(a0), h1 = fast_sin(a1);
+    if constexpr (SIGMA) {
+      sp[mt][hh] = fmaf(h0, __ldg(ws + col), sp[mt][hh]);
+      sp[mt][hh] = fmaf(h1, __ldg(ws + col + 1), sp[mt][hh]);
+    }
+    if constexpr (STASH) {
+      *reinterpret_cast<float2*>(cs + (l0 + row) * ld + col) =
+          make_float2(cosine<true>(a0), cosine<true>(a1));
+      if constexpr (SIGMA)
+        *reinterpret_cast<float2*>(hf + (l0 + row) * H + col) = make_float2(h0, h1);
+    }
+    put2(out + row * LDS + col, h0, h1);
+    if constexpr (TIES) {
+      const int e = ((mt * NT + j) << 1 | hh) << 1;
+      tie |= static_cast<unsigned long long>(near_tie(h0, s0, m)) << e;
+      tie |= static_cast<unsigned long long>(near_tie(h1, s1, m)) << (e + 1);
+    }
+  });
+  if constexpr (TIES) {
+    unsigned long long own = 0;   // ties past TIE_CAP: this thread recomputes them
+    for (unsigned long long t = tie; t; t &= t - 1) {
+      const int e = __ffsll(static_cast<long long>(t)) - 1;
+      const int i = atomicAdd(sm->tie_n + par, 1);
+      if (i < TIE_CAP)
+        sm->tie_at[i] = static_cast<unsigned short>(row_of(e) << 8 | col_of(e));
+      else
+        own |= 1ull << e;
+    }
+    __syncthreads();
+    const int n = min(sm->tie_n[par], TIE_CAP);
+    for (int i = threadIdx.x; i < n; i += THREADS) {
+      const int row = sm->tie_at[i] >> 8, col = sm->tie_at[i] & 255;
+      out[row * LDS + col] = seq_sine(in + row * LDS, w, col, __ldg(bias + col), w0);
+    }
+    for (; own; own &= own - 1) {
+      const int e = __ffsll(static_cast<long long>(own)) - 1, row = row_of(e), col = col_of(e);
+      out[row * LDS + col] = seq_sine(in + row * LDS, w, col, __ldg(bias + col), w0);
+    }
+    if (threadIdx.x == 0) sm->tie_n[par ^ 1] = 0;
+  }
+}
+
+// The forward of ray samples [chunk0, chunk0 + nvalid). STASH (the train
+// pass): what the backward needs to the stash `st` at rows l0.., sigma_pre,
+// rgb and the rounded positions to its per-point columns (`cap` long).
+// Else (the forward render): t, delta, sigma (after the ReLU, times
+// sigma_mul) and rgb to the shared-memory columns sm.col (SC_*), nothing to
+// device memory. Ends past a barrier.
+template <bool STASH>
+__device__ void forward_chunk_siren_tc(const RayInputs& in, const Siren& sp,
+                                       const bf16* __restrict__ wmat, int chunk0, int nvalid,
+                                       const TcSmem& sm, const TcStash& st, size_t l0, int cap) {
+  const float* __restrict__ vec = in.vec;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3, n0 = warp * 32;
+  const size_t cz = static_cast<size_t>(cap);
+  if (tid < 2) sm.tie_n[tid] = 0;
+  load_chunk_tc<!STASH>(in, chunk0, nvalid, sm);
+  const float* pos = sm.col + SC_POS * TC_P;
+  if constexpr (STASH) {
+    tile_out(sm.denc, LDD, DP, st.denc, l0);
+    if (tid < 3 * TC_P)
+      st.cols[(C_POS + tid / TC_P) * cz + l0 + tid % TC_P] = pos[tid];
+  }
+  // the train pass's copy of the activation tile to the stash
+  auto stash_act = [&](const bf16* tile, int ncols, bf16* dst) {
+    if constexpr (STASH) {
+      __syncthreads();
+      tile_out(tile, LDS, ncols, dst, l0);
+    }
+  };
+  float acc[4][4][4];
+  float part[4][2] = {};
+  // ---- layer 1 (K = 3) on the CUDA cores, straight into the accumulators ----
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + j * 8 + 2 * c;
+    float w[3][2];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      w[k][0] = __bfloat162float(wmat[OFF_W1 + k * H + col]);
+      w[k][1] = __bfloat162float(wmat[OFF_W1 + k * H + col + 1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = mt * 16 + g + 8 * hh;
+        const float x0 = pos[row], x1 = pos[TC_P + row], x2 = pos[2 * TC_P + row];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float a = fmaf(x0, w[0][u], 0.f);
+          a = fmaf(x1, w[1][u], a);
+          acc[mt][j][2 * hh + u] = fmaf(x2, w[2][u], a);
+        }
+      }
+  }
+  sine_tc<4, STASH, false, false>(acc, n0, vec, sp.w0, sm.act[0], st.c[0], H, nullptr, l0,
+                                  nullptr, part);
+  stash_act(sm.act[0], H, st.h[0]);
+  // ---- sine layers 2..7: layer l reads tile l & 1 and writes the other ----
+#pragma unroll 1
+  for (int l = 2; l < NL; ++l) {
+    const bf16* a_in = (l & 1) ? sm.act[1] : sm.act[0];
+    bf16* a_out = (l & 1) ? sm.act[0] : sm.act[1];
+    zero_acc(acc);
+    gemm_fwd<H, H>(acc, a_in, LDS, wmat + off_w(l), sm.wst);
+    sine_tc<4, STASH, false, true>(acc, n0, vec + (l - 1) * H, sp.w0h, a_out, st.c[l - 1], H,
+                                   nullptr, l0, nullptr, part, a_in, wmat + off_w(l), &sm, l & 1);
+    stash_act(a_out, H, st.h[l - 1]);
+  }
+  // ---- layer 8 (tile 0 -> tile 1) and the density row ----
+  bf16* const act = sm.act[1];
+  zero_acc(acc);
+  gemm_fwd<H, H>(acc, sm.act[0], LDS, wmat + off_w(NL), sm.wst);
+  sine_tc<4, STASH, true, true>(acc, n0, vec + (NL - 1) * H, sp.w0h, act, st.c[NL - 1], H,
+                                st.h8f, l0, vec + OFF_WS, part, sm.act[0], wmat + off_w(NL), &sm,
+                                NL & 1);
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float v = part[mt][hh];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (c == 0) sm.sig[warp * TC_P + mt * 16 + g + 8 * hh] = v;
+    }
+  __syncthreads();
+  if (tid < TC_P) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s += sm.sig[w * TC_P + tid];
+    if constexpr (STASH)
+      st.cols[C_SIGP * cz + l0 + tid] = s + __ldg(vec + OFF_BS);
+    else
+      sm.col[SC_SIGMA * TC_P + tid] = fmaxf(s + __ldg(vec + OFF_BS), 0.f) * sp.sigma_mul;
+  }
+  if constexpr (STASH) tile_out(act, LDS, H, st.h[NL - 1], l0);
+  // ---- feature remap: no activation ----
+  zero_acc(acc);
+  gemm_fwd<H, H>(acc, act, LDS, wmat + OFF_WRE, sm.wst);
+  store_act<4>(acc, vec + OFF_BRE, false, act);
+  stash_act(act, H, st.feat);
+  // ---- rgb head: sine layer on [feat, denc], then the output ----
+  {
+    float acc2[4][2][4];
+    zero_acc(acc2);
+    gemm_fwd<H, HR>(acc2, act, LDS, wmat + OFF_WR0F, sm.wst);
+    gemm_fwd<DP, HR>(acc2, sm.denc, LDD, wmat + OFF_WR0D, sm.wst);
+    sine_tc<2, STASH, false, false>(acc2, warp * 16, vec + OFF_BR0, sp.w0h, act, st.cr0, HR,
+                                    nullptr, l0, nullptr, part);
+  }
+  __syncthreads();
+  if constexpr (STASH) tile_out(act, LDS, HR, st.y, l0);
+  if (tid < 3 * TC_P) {
+    const int ch = tid / TC_P, p = tid % TC_P;
+    float z = 0.f;
+    for (int k = 0; k < HR; ++k)
+      z = fmaf(__bfloat162float(act[p * LDS + k]), __bfloat162float(wmat[OFF_WR1 + k * 8 + ch]),
+               z);
+    z = (z + __ldg(vec + OFF_BR1 + ch)) * sp.rgb_mul;
+    const float r = 1.f / (1.f + expf(-z));
+    if constexpr (STASH)
+      st.cols[(C_RGB + ch) * cz + l0 + p] = r;
+    else
+      sm.col[(SC_RGB + ch) * TC_P + p] = r;
+  }
+  __syncthreads();
+}
+
+}  // namespace siren

@@ -1,7 +1,8 @@
 // Fused SIREN train pass and render backward for Hopper (sm_90a).
 //
 // Replaces two TPU kernels of nerf_tpu/ops/pallas/fused_render_siren.py:
-//   * _train_kernel (FusedSirenRender.train): forward, white-background MSE
+//   * _train_kernel (FusedSirenRender.train) in float32 mode (its bfloat16
+//     mode is fused_render_siren_train_tc.cu): forward, white-background MSE
 //     (loss partial and its analytic per-ray cotangent,
 //     fused_render.py::_mse_cotangent), the backward through compositing
 //     (fused_render.py::_composite_bwd) and the MLP backward
@@ -18,9 +19,11 @@
 // 561,920 MACs plus twice that for the backward, less the two products the
 // TPU kernel also skips (dz1 w1^T and dzr0 wr0d^T: input gradients are not
 // wanted): 1,681,536 MACs, and 2,176 sines and as many cosines. float32
-// mode runs on the CUDA cores (67 TFLOP/s); bfloat16 mode rounds at the TPU
-// kernel's points and sums in float32, also on the CUDA cores in this first
-// version (its bound is the tensor cores' 989 TFLOP/s).
+// mode runs on the CUDA cores (67 TFLOP/s); bfloat16 mode (the render
+// backward only: the bfloat16 train pass runs on the tensor cores,
+// fused_render_siren_train_tc.cu) rounds at the TPU kernel's points and
+// sums in float32, also on the CUDA cores (its bound is the tensor cores'
+// 989 TFLOP/s).
 //
 // Design: the NeRF train kernel's (fused_render_train.cu), for the same
 // reasons: a chunk's activations do not fit on chip, a ray's cotangent
@@ -128,21 +131,6 @@ int launch(const RayInputs& in, const Siren& sp, const void* wmat,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF16, typename WT>
-int launch_mode(int train, const RayInputs& in, const Siren& sp, const void* wmat,
-                const void* wmat_t, const float* given, float white_bg, float scale,
-                int rays_per_cta, int cap, float* scratch, float* partial,
-                float* out, float* rgb, float* acc, float* weights,
-                cudaStream_t stream) {
-  if (train)
-    return launch<BF16, true, WT>(in, sp, wmat, wmat_t, given, white_bg, scale,
-                                  rays_per_cta, cap, scratch, partial, out, rgb,
-                                  acc, weights, stream);
-  return launch<BF16, false, WT>(in, sp, wmat, wmat_t, given, white_bg, scale,
-                                 rays_per_cta, cap, scratch, partial, out, rgb,
-                                 acc, weights, stream);
-}
-
 }  // namespace
 
 extern "C" {
@@ -155,13 +143,15 @@ void fused_siren_grad_sizes(int* floats_per_point, int* npart, int* n_out) {
   *n_out = N_TOT + 1;
 }
 
-// train != 0: `given` is the (R, 3) target and rgb/acc/weights are written;
-// train == 0: `given` is the (R, 8) cotangent [g_rgb, g_acc, g_depth, 0..]
-// and only the gradients are. `scratch` holds grid * cap * floats_per_point
-// floats, `partial` grid * npart, `out` n_out, where grid =
-// ceil(num_rays / rays_per_cta) and cap >= ceil(rays_per_cta * S / 64) * 64.
-// Returns 0 on success, a cudaError_t code after a failed launch, or -1
-// when the packed buffers or the shapes do not fit this kernel.
+// train != 0: `given` is the (R, 3) target and rgb/acc/weights are written
+// (float32 only: fused_render_siren_train_tc.cu has the bfloat16 train
+// pass); train == 0: `given` is the (R, 8) cotangent [g_rgb, g_acc,
+// g_depth, 0..] and only the gradients are. `scratch` holds grid * cap *
+// floats_per_point floats, `partial` grid * npart, `out` n_out, where grid
+// = ceil(num_rays / rays_per_cta) and cap >= ceil(rays_per_cta * S / 64) *
+// 64. Returns 0 on success, a cudaError_t code after a failed launch, -1
+// when the packed buffers or the shapes do not fit this kernel, or -2 for
+// a bfloat16 train pass.
 int fused_siren_grad(const float* o_aff, const float* d_aff,
                      const float* viewdirs, const float* t, const void* wmat,
                      const void* wmat_t, const float* vec, int n_w, int n_b,
@@ -177,18 +167,24 @@ int fused_siren_grad(const float* o_aff, const float* d_aff,
   const RayInputs in{o_aff, d_aff, viewdirs, t, vec, num_rays, S, 0, real_d};
   const Siren sp{w0, w0h, sigma_mul, rgb_mul};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_mode<true, __nv_bfloat16>(train, in, sp, wmat, wmat_t, given,
-                                            white_bg, scale, rays_per_cta, cap,
-                                            scratch, partial, out, rgb, acc,
-                                            weights, s);
-  return launch_mode<false, float>(train, in, sp, wmat, wmat_t, given, white_bg,
-                                   scale, rays_per_cta, cap, scratch, partial, out,
-                                   rgb, acc, weights, s);
+  if (bf16) {
+    if (train) return -2;   // fused_render_siren_train_tc.cu runs the bf16 train pass
+    return launch<true, false, __nv_bfloat16>(in, sp, wmat, wmat_t, given, white_bg,
+                                              scale, rays_per_cta, cap, scratch,
+                                              partial, out, rgb, acc, weights, s);
+  }
+  if (train)
+    return launch<false, true, float>(in, sp, wmat, wmat_t, given, white_bg, scale,
+                                      rays_per_cta, cap, scratch, partial, out, rgb,
+                                      acc, weights, s);
+  return launch<false, false, float>(in, sp, wmat, wmat_t, given, white_bg, scale,
+                                     rays_per_cta, cap, scratch, partial, out, rgb,
+                                     acc, weights, s);
 }
 
 const char* fused_siren_grad_error(int code) {
   if (code == -1) return "packed weights or shapes do not fit the kernel";
+  if (code == -2) return "the bfloat16 train pass runs in fused_render_siren_train_tc";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -21,14 +21,15 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 # one library per .cu source: the NeRF, SIREN and GaborNet forward renders
-# (NeRF and GaborNet in bfloat16 on the tensor cores), their train passes
-# (NeRF and SIREN with the render backward; the NeRF's bfloat16 train pass
+# (each in bfloat16 on the tensor cores), their train passes (NeRF and SIREN
+# with the render backward; the NeRF's and the SIREN's bfloat16 train passes
 # on the tensor cores), the KiloNeRF, NeRF, SIREN and GaborNet field forward
 # and backward, and the voxel grids' interpolation, fused grid render and
 # sorted scatter-add
 LIBS = ("fused_render_fwd", "fused_render_fwd_tc", "fused_render_train",
         "fused_render_train_tc",
-        "fused_render_siren_fwd", "fused_render_siren_train",
+        "fused_render_siren_fwd", "fused_render_siren_fwd_tc",
+        "fused_render_siren_train", "fused_render_siren_train_tc",
         "fused_render_gabor_fwd", "fused_render_gabor_fwd_tc",
         "fused_render_gabor_train",
         "fused_kilonerf_fwd", "fused_kilonerf_bwd",

@@ -501,9 +501,13 @@ class FusedRender:
     ``cast`` (the layout as the kernels read it), ``supported``, its plain
     versions (``_plain_forward``, ``_plain_train``, ``_plain_backward``),
     its libraries' entry points (``_fwd_entry``: the function, its error
-    string and the CTAs it runs on an SM; ``_grad_entry``), the
-    family arguments of both (``_family_args``) and its matrix names in
-    buffer order (``mat_names``).
+    string and the CTAs it runs on an SM; ``_grad_entry``; where its
+    bfloat16 train pass runs on the tensor cores, ``_train_tc_entry``:
+    the function, its error string and its sizes), the library of each
+    gradient launch (``grad_library``: a name ending in ``_tc`` is the
+    tensor-core train pass), the family arguments of all of them
+    (``_family_args``) and its matrix names in buffer order
+    (``mat_names``).
     """
 
     launches = 0
@@ -634,9 +638,20 @@ class FusedRender:
 
     def _launch_grad(self, packed: Packed, o_aff, d_aff, viewdirs, t,
                      given, train: bool, white_bg: bool):
-        """One launch of the train kernel (``given`` the (R,3) target) or of
-        the backward kernel (``given`` the (R,8) cotangent). Returns
-        ``((gw, gv), loss, rgb, acc, weights)``."""
+        """One launch of the train pass (``given`` the (R,3) target) or of
+        the render backward (``given`` the (R,8) cotangent), on the
+        library ``grad_library`` names. Returns ``((gw, gv), loss, rgb,
+        acc, weights)``."""
+        if self.grad_library(train).endswith("_tc"):
+            return self._launch_train_tc(packed, o_aff, d_aff, viewdirs, t, given,
+                                         white_bg)
+        return self._launch_grad_cuda_core(packed, o_aff, d_aff, viewdirs, t, given,
+                                           train, white_bg)
+
+    def _launch_grad_cuda_core(self, packed: Packed, o_aff, d_aff, viewdirs, t,
+                               given, train: bool, white_bg: bool):
+        """``_launch_grad`` on the family's CUDA-core library
+        (``_grad_entry``)."""
         num_rays, s = t.shape
         named = self._ray_args(o_aff, d_aff, viewdirs, t) + (
             ("given", given, (num_rays, 3 if train else 8), torch.float32),)
@@ -673,6 +688,41 @@ class FusedRender:
         n_w = packed.wmat.numel()
         return ((out[:n_w], out[n_w:n_out - 1]), out[n_out - 1], rgb, acc,
                 weights)
+
+    def _launch_train_tc(self, packed: Packed, o_aff, d_aff, viewdirs, t, target,
+                         white_bg: bool):
+        """One launch of the family's bfloat16 train pass on the tensor cores
+        (``_train_tc_entry``: the function, its error string and its sizes);
+        returns as ``_launch_grad``."""
+        num_rays, s = t.shape
+        self._check(packed, self._ray_args(o_aff, d_aff, viewdirs, t) + (
+            ("given", target, (num_rays, 3), torch.float32),))
+        dev = t.device
+        o_aff, d_aff, viewdirs, t, target = (
+            x.detach().contiguous() for x in (o_aff, d_aff, viewdirs, t, target))
+        fn, err, sizes = self._train_tc_entry()
+        per_point, npart, n_out = grad_sizes(sizes)
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        rays_per_cta, grid, cap = launch_plan(num_rays, s, n_sm)
+        scratch = torch.empty(grid * cap * per_point, dtype=torch.uint8, device=dev)
+        partial = torch.empty(grid * npart, dtype=torch.float32, device=dev)
+        out = torch.empty(n_out, dtype=torch.float32, device=dev)
+        rgb = torch.empty((num_rays, 3), dtype=torch.float32, device=dev)
+        acc = torch.empty((num_rays,), dtype=torch.float32, device=dev)
+        weights = torch.empty((num_rays, s), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = fn(
+                o_aff.data_ptr(), d_aff.data_ptr(), viewdirs.data_ptr(), t.data_ptr(),
+                packed.wmat.data_ptr(), packed.vec.data_ptr(), packed.wmat.numel(),
+                packed.vec.numel(), target.data_ptr(), 1.0 if white_bg else 0.0,
+                1.0 / (3.0 * num_rays), num_rays, s, rays_per_cta, cap,
+                *self._family_args(), scratch.data_ptr(), partial.data_ptr(),
+                out.data_ptr(), rgb.data_ptr(), acc.data_ptr(), weights.data_ptr(), stream)
+        if code != 0:
+            raise RuntimeError(f"{type(self).__name__} train kernel: " + err(code).decode())
+        n_w = packed.wmat.numel()
+        return ((out[:n_w], out[n_w:n_out - 1]), out[n_out - 1], rgb, acc, weights)
 
 
 class FusedNerfRender(FusedRender):
@@ -745,45 +795,7 @@ class FusedNerfRender(FusedRender):
             return "fused_render_train_tc"
         return "fused_render_train"
 
-    def _launch_grad(self, packed: Packed, o_aff, d_aff, viewdirs, t,
-                     given, train: bool, white_bg: bool):
-        if self.grad_library(train) == "fused_render_train_tc":
-            return self._launch_train_tc(packed, o_aff, d_aff, viewdirs, t, given,
-                                         white_bg)
-        return super()._launch_grad(packed, o_aff, d_aff, viewdirs, t, given, train,
-                                    white_bg)
-
-    def _launch_train_tc(self, packed: Packed, o_aff, d_aff, viewdirs, t, target,
-                         white_bg: bool):
-        """One launch of the bfloat16 train pass on the tensor cores
-        (``csrc/fused_render_train_tc.cu``); returns as ``_launch_grad``."""
-        num_rays, s = t.shape
-        self._check(packed, self._ray_args(o_aff, d_aff, viewdirs, t) + (
-            ("given", target, (num_rays, 3), torch.float32),))
-        dev = t.device
-        o_aff, d_aff, viewdirs, t, target = (
-            x.detach().contiguous() for x in (o_aff, d_aff, viewdirs, t, target))
+    def _train_tc_entry(self):
         lib = _library("fused_render_train_tc")
-        per_point, npart, n_out = grad_sizes(lib.fused_render_train_tc_sizes)
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        rays_per_cta, grid, cap = launch_plan(num_rays, s, n_sm)
-        scratch = torch.empty(grid * cap * per_point, dtype=torch.uint8, device=dev)
-        partial = torch.empty(grid * npart, dtype=torch.float32, device=dev)
-        out = torch.empty(n_out, dtype=torch.float32, device=dev)
-        rgb = torch.empty((num_rays, 3), dtype=torch.float32, device=dev)
-        acc = torch.empty((num_rays,), dtype=torch.float32, device=dev)
-        weights = torch.empty((num_rays, s), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            code = lib.fused_render_train_tc(
-                o_aff.data_ptr(), d_aff.data_ptr(), viewdirs.data_ptr(), t.data_ptr(),
-                packed.wmat.data_ptr(), packed.vec.data_ptr(), packed.wmat.numel(),
-                packed.vec.numel(), target.data_ptr(), 1.0 if white_bg else 0.0,
-                1.0 / (3.0 * num_rays), num_rays, s, rays_per_cta, cap,
-                *self._family_args(), scratch.data_ptr(), partial.data_ptr(),
-                out.data_ptr(), rgb.data_ptr(), acc.data_ptr(), weights.data_ptr(), stream)
-        if code != 0:
-            raise RuntimeError(f"{type(self).__name__} train kernel: "
-                               + lib.fused_render_train_tc_error(code).decode())
-        n_w = packed.wmat.numel()
-        return ((out[:n_w], out[n_w:n_out - 1]), out[n_out - 1], rgb, acc, weights)
+        return (lib.fused_render_train_tc, lib.fused_render_train_tc_error,
+                lib.fused_render_train_tc_sizes)

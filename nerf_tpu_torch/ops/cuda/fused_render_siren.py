@@ -6,11 +6,17 @@ Three kernels, each replacing one of
 ``nerf_tpu/ops/pallas/fused_render_siren.py`` (their sources say what bounds
 each on an H100 and how the design answers):
 
-  * ``csrc/fused_render_siren_fwd.cu`` (``_fwd_kernel``): the forward render;
-  * ``csrc/fused_render_siren_train.cu``, train entry (``_train_kernel``):
-    forward, white-background MSE and the full backward in one pass;
+  * the forward render (``_fwd_kernel``): in bfloat16 on the tensor cores
+    (``csrc/fused_render_siren_fwd_tc.cu``), in float32
+    ``csrc/fused_render_siren_fwd.cu``;
+  * the train pass (``_train_kernel``): forward, white-background MSE and
+    the full backward in one pass; in bfloat16 on the tensor cores
+    (``csrc/fused_render_siren_train_tc.cu``, the forward render's chain in
+    ``csrc/fused_render_siren_tc_common.cuh``), in float32 the train entry
+    of ``csrc/fused_render_siren_train.cu``;
   * ``csrc/fused_render_siren_train.cu``, backward entry (``_bwd_kernel``):
-    the parameter gradients of the forward render from a per-ray cotangent.
+    the parameter gradients of the forward render from a per-ray cotangent,
+    in both dtypes.
 
 This module is the counterpart of ``fused_render_siren.py`` and of the parts
 of ``nerf_tpu/ops/pallas/fused_siren.py`` that it uses:
@@ -55,6 +61,12 @@ from nerf_tpu_torch.ops.cuda.fused_render import (
 
 NUM_LAYERS = 8           # sine layers the kernels take
 W1_ROWS = 8              # w1's contraction dimension, padded from 3
+# Stash bytes a point of the bfloat16 train pass on the tensor cores
+# (csrc/fused_render_siren_train_tc.cu: h1..h8, feat and two dz buffers of
+# 256 bf16, y 128, denc 32; h8 and the cosines c1..c8 256 each, cr0 128 and
+# 16 per-point columns in float32); its library's fused_siren_train_tc_sizes
+# gives the same.
+TC_BYTES_PER_POINT = 2 * (11 * 256 + 128 + DP) + 4 * (9 * 256 + 128 + 16)
 
 # The packed matrices and vectors, in buffer order (must match the OFF_*
 # tables of csrc/fused_render_siren_common.cuh). Matrices are (in, out).
@@ -294,21 +306,31 @@ def fused_siren_render_bwd_plain(packed: Packed, o_aff, d_aff, viewdirs, t,
 # ---------------------------------------------------------------- libraries
 
 
+# the entry point of each library
+_ENTRY = {"fused_render_siren_fwd": "fused_siren_fwd",
+          "fused_render_siren_fwd_tc": "fused_siren_fwd_tc",
+          "fused_render_siren_train_tc": "fused_siren_train_tc",
+          "fused_render_siren_train": "fused_siren_grad"}
+
+
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
     lib = library(name)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "fused_render_siren_fwd":
-        lib.fused_siren_fwd.argtypes = [vp] * 6 + [ci] * 7 + [cf] * 4 + [vp] * 5
-        lib.fused_siren_fwd.restype = ci
-        lib.fused_siren_fwd_error.argtypes = [ci]
-        lib.fused_siren_fwd_error.restype = ctypes.c_char_p
+    entry = _ENTRY[name]
+    fn, err = getattr(lib, entry), getattr(lib, entry + "_error")
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
+    fn.restype = ci
+    if name in ("fused_render_siren_fwd", "fused_render_siren_fwd_tc"):
+        fn.argtypes = [vp] * 6 + [ci] * 7 + [cf] * 4 + [vp] * 5
+    elif name == "fused_render_siren_train_tc":
+        fn.argtypes = [vp] * 6 + [ci] * 2 + [vp, cf, cf] + [ci] * 5 + [cf] * 4 + [vp] * 7
+        lib.fused_siren_train_tc_sizes.argtypes = [ctypes.POINTER(ci)] * 3
+        lib.fused_siren_train_tc_sizes.restype = None
     else:
-        lib.fused_siren_grad.argtypes = ([vp] * 7 + [ci] * 4 + [vp, cf, cf]
-                                         + [ci] * 5 + [cf] * 4 + [vp] * 7)
-        lib.fused_siren_grad.restype = ci
-        lib.fused_siren_grad_error.argtypes = [ci]
-        lib.fused_siren_grad_error.restype = ctypes.c_char_p
+        fn.argtypes = ([vp] * 7 + [ci] * 4 + [vp, cf, cf] + [ci] * 5 + [cf] * 4
+                       + [vp] * 7)
         lib.fused_siren_grad_sizes.argtypes = [ctypes.POINTER(ci)] * 3
         lib.fused_siren_grad_sizes.restype = None
     return lib
@@ -370,12 +392,34 @@ class FusedSirenRender(FusedRender):
         k = self.consts
         return (self.real_d, k.w0, k.hidden_w0, k.sigma_mul, k.rgb_mul)
 
+    def fwd_library(self) -> str:
+        """The library of a forward render: the bfloat16 one runs on the
+        tensor cores (two CTAs an SM), the float32 one on the CUDA cores."""
+        if self.cdt == torch.bfloat16:
+            return "fused_render_siren_fwd_tc"
+        return "fused_render_siren_fwd"
+
     def _fwd_entry(self):
-        lib = _library("fused_render_siren_fwd")
-        return lib.fused_siren_fwd, lib.fused_siren_fwd_error, 1
+        name = self.fwd_library()
+        lib, entry = _library(name), _ENTRY[name]
+        return (getattr(lib, entry), getattr(lib, entry + "_error"),
+                2 if name.endswith("_tc") else 1)
 
     def _grad_entry(self):
         lib = _library("fused_render_siren_train")
         return (lib.fused_siren_grad, lib.fused_siren_grad_error,
                 grad_sizes(lib.fused_siren_grad_sizes))
+
+    def grad_library(self, train: bool) -> str:
+        """The library of a train pass (``train``) or render backward: the
+        bfloat16 train pass runs on the tensor cores, the float32 one and
+        the render backward (both dtypes) on the CUDA cores."""
+        if train and self.cdt == torch.bfloat16:
+            return "fused_render_siren_train_tc"
+        return "fused_render_siren_train"
+
+    def _train_tc_entry(self):
+        lib = _library("fused_render_siren_train_tc")
+        return (lib.fused_siren_train_tc, lib.fused_siren_train_tc_error,
+                lib.fused_siren_train_tc_sizes)
 

@@ -85,14 +85,16 @@ def test_kernel_matches_plain(dev, cdt, shape):
 
 @pytest.mark.parametrize("family, shape", [
     ("nerf", (8192, 64)), ("nerf", (8192, 192)), ("nerf", (300, 37)),
-    ("gabor", (1024, 256)), ("gabor", (1000, 256)), ("gabor", (1024, 37))])
+    ("gabor", (1024, 256)), ("gabor", (1000, 256)), ("gabor", (1024, 37)),
+    ("siren", (1024, 256)), ("siren", (1000, 256)), ("siren", (1024, 37))])
 def test_bf16_fwd_tc_kernel_matches_plain_and_is_deterministic(dev, family, shape):
     """The bfloat16 forward renders on the tensor cores (fused_render_fwd_tc,
-    fused_render_gabor_fwd_tc) at lego.txt's serving chunk (8192 rays x 64
-    and 192 samples) and GaborNet's (1024 x 256), a ragged ray count and an
-    odd S (chunks span rays): within TOL of their plain versions, and two
-    launches give the same bits."""
+    fused_render_gabor_fwd_tc, fused_render_siren_fwd_tc) at lego.txt's
+    serving chunk (8192 rays x 64 and 192 samples) and lego_siren.txt's
+    (1024 x 256), a ragged ray count and an odd S (chunks span rays): within
+    TOL of their plain versions, and two launches give the same bits."""
     from nerf_tpu_torch.ops.cuda.fused_render_gabor import fused_gabor_render_plain
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import fused_siren_render_plain
 
     ro, rd, t = _inputs(*shape, dev, seed=6)
     with torch.no_grad():
@@ -104,11 +106,16 @@ def test_bf16_fwd_tc_kernel_matches_plain_and_is_deterministic(dev, family, shap
             o_aff, d_aff = fr.affine(ro, rd)
             args = (packed, o_aff, d_aff, rd, t)
             ref = fused_render_plain(packed, o_aff, d_aff, rd, t, 10, 4)
-        else:
+        elif family == "gabor":
             model, fr = _gabor("bfloat16", 2, dev)
             packed = fr.pack(model).packed
             args = (packed, _gabor_coeffs(fr, model, ro, rd), rd, t)
             ref = fused_gabor_render_plain(*args, fr.consts)
+        else:
+            model, fr = _siren("bfloat16", 2, dev)
+            o_aff, d_aff = fr.affine(ro, rd)
+            args = (fr.pack(model), o_aff, d_aff, rd, t)
+            ref = fused_siren_render_plain(*args, fr.consts)
         assert fr.fwd_library().endswith("_tc")
         before = type(fr).launches
         got = fr._forward(*args)
@@ -389,6 +396,74 @@ def test_siren_train_kernel_matches_plain(dev, cdt, shape, white_bg):
     for i in (1, 2, 3):
         torch.testing.assert_close(got[i], ref[i], atol=SIREN_TOL[cdt], rtol=0)
     _siren_grads_close(got[4], ref[4], cdt)
+
+
+@pytest.mark.parametrize("shape", [(1024, 256), (133, 64)])
+def test_bf16_siren_train_tc_kernel_matches_plain_and_is_deterministic(dev, shape):
+    """The bfloat16 SIREN train pass on the tensor cores
+    (fused_render_siren_train_tc) at lego_siren.txt's step (1024 x 256) and
+    a ragged 133 x 64 (two rays on some CTAs): loss, rgb, acc and weights
+    within TOL, every gradient within GRAD_TOL of its max (floored at 1e-2
+    of the largest), and two launches give the same bits."""
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import (
+        FusedSirenRender, fused_siren_train_plain, grad_views)
+
+    model, fr = _siren("bfloat16", 4, dev)
+    assert fr.grad_library(True) == "fused_render_siren_train_tc"
+    ro, rd, t = _inputs(*shape, dev, seed=1)
+    tgt = torch.rand(shape[0], 3, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+    with torch.no_grad():
+        packed = fr.pack(model)
+        o_aff, d_aff = fr.affine(ro, rd)
+        before = FusedSirenRender.train_launches
+        got = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+        again = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+        torch.cuda.synchronize()
+        assert FusedSirenRender.train_launches == before + 2
+        ref = fused_siren_train_plain(packed, o_aff, d_aff, rd, t, tgt, True, fr.consts)
+    for x, y in zip(got[:4] + got[4], again[:4] + again[4]):
+        assert torch.equal(x, y)
+    g, r = grad_views(*got[4], 256), grad_views(*ref[4], 256)
+    floor = 1e-2 * max(float(v.abs().max()) for v in r.values())
+    for k in r:
+        assert torch.isfinite(g[k]).all(), k
+        scale = max(float(r[k].abs().max()), floor)
+        err = float((g[k] - r[k]).abs().max())
+        assert err <= GRAD_TOL["bfloat16"] * scale, (k, err, scale)
+    torch.testing.assert_close(got[0], ref[0], rtol=TOL["bfloat16"], atol=0)
+    for i in (1, 2, 3):
+        torch.testing.assert_close(got[i], ref[i], atol=TOL["bfloat16"], rtol=0)
+
+
+def test_bf16_siren_render_and_train_pass_run_one_chain(dev):
+    """The bfloat16 SIREN forward render (fused_render_siren_fwd_tc) and
+    train pass (fused_render_siren_train_tc) share their forward chain: on
+    one 1024 x 64 batch their rgb, acc and compositing weights are equal
+    bit for bit."""
+    model, fr = _siren("bfloat16", 3, dev)
+    ro, rd, t = _inputs(1024, 64, dev, seed=8)
+    tgt = torch.rand(1024, 3, device=dev, generator=torch.Generator(device=dev).manual_seed(9))
+    with torch.no_grad():
+        packed = fr.pack(model)
+        o_aff, d_aff = fr.affine(ro, rd)
+        rgb, acc, _, weights = fr._forward(packed, o_aff, d_aff, rd, t)
+        _, rgb_t, acc_t, weights_t, _ = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+    assert torch.equal(rgb, rgb_t) and torch.equal(acc, acc_t)
+    assert torch.equal(weights, weights_t)
+
+
+def test_bf16_siren_train_library_sizes(dev):
+    """The SIREN tensor-core library's stash bytes a point are the host's
+    TC_BYTES_PER_POINT (tests/test_torch_port_kernel_plans.py), its
+    partials and outputs those of the CUDA-core train pass."""
+    from nerf_tpu_torch.ops.cuda.fused_render import grad_sizes
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import TC_BYTES_PER_POINT, _library
+
+    tc = grad_sizes(_library("fused_render_siren_train_tc").fused_siren_train_tc_sizes)
+    old = grad_sizes(_library("fused_render_siren_train").fused_siren_grad_sizes)
+    assert tc[0] == TC_BYTES_PER_POINT
+    assert tc[1:] == old[1:]
 
 
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
