@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Bit-for-bit check of the NeRF, SIREN and GaborNet render kernels across
-two checkouts, on one GPU.
+"""Bit-for-bit check of the port's kernels across two checkouts, on one
+GPU.
 
-A change to the kernel pieces that several families share
-(``nerf_tpu_torch/csrc/render_common.cuh``) must leave the kernels of the
-families it did not mean to touch computing what they computed. This script
-runs the NeRF and SIREN forward renders, train passes and render backwards
-and the GaborNet forward render on seeded inputs (300 x 37 and 1024 x 64,
-float32 and bfloat16) with the checkout it is given, saves every output, and
+A change to the kernel pieces that several kernels share
+(``nerf_tpu_torch/csrc/render_common.cuh``, ``fused_kilonerf_common.cuh``,
+``grid_common.cuh``) must leave the kernels it did not mean to touch
+computing what they computed. This script runs, on seeded inputs with the
+checkout it is given, the NeRF and SIREN forward renders, train passes and
+render backwards and the GaborNet forward render (300 x 37 and 1024 x 64,
+float32 and bfloat16); the KiloNeRF field's parameter gradients under a
+loss linear in its outputs (row 16's kernel, which the forward's outputs do
+not reach) and its float32 outputs (row 15's CUDA-core kernel); the grid
+interpolation of row 17 at training-ray and image-ray points; and row 19's
+sums at uniform, clustered and one-row ids. It saves every output and
 compares two such files with ``torch.equal``:
 
     # in each checkout (this one, and e.g. the parent unpacked by
@@ -60,6 +65,64 @@ def render(torch, dev, fr, model, label: str, res: dict) -> None:
             res[f"bwd {key} gw"], res[f"bwd {key} gv"] = gw.cpu(), gv.cpu()
 
 
+def kilonerf(torch, dev, res: dict) -> None:
+    """Row 16's parameter gradients (both dtypes) and row 15's float32
+    outputs, in point order, at 5,003 camera-ray points and 37 points."""
+    from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
+    from nerf_tpu_torch.ops.cuda.fused_kilonerf import KiloNeRFField
+
+    for cdt in ("float32", "bfloat16"):
+        model = KiloNeRFModel(grid_res=8, hidden_dim=32, compute_dtype=cdt,
+                              domain=(-2.75, -1.25),
+                              generator=torch.Generator().manual_seed(7)).to(dev)
+        for n in (5003, 37):
+            ro, rd, t, _ = _inputs(torch, dev, n, 1, n)
+            pts = 2.0 * (ro + t * rd - 2.0) / 4.0 - 1.0
+            g = torch.Generator(device=dev).manual_seed(n + 1)
+            a = torch.randn(n, 3, generator=g, device=dev)
+            b = torch.randn(n, generator=g, device=dev)
+            model.zero_grad(set_to_none=True)
+            rgb, sigma = KiloNeRFField(model)(pts, rd)
+            (torch.sum(rgb * a) + torch.sum(sigma * b)).backward()
+            for name, p in model.named_parameters():
+                res[f"kilonerf bwd {cdt} {n} {name}"] = p.grad.cpu()
+            if cdt == "float32":
+                res[f"kilonerf fwd {cdt} {n} rgb"] = rgb.detach().cpu()
+                res[f"kilonerf fwd {cdt} {n} sigma"] = sigma.detach().cpu()
+
+
+def grids(torch, dev, res: dict) -> None:
+    """Row 17 on a seeded 64^3 x 28 grid (float32 and its bfloat16 copy) at
+    2,048 x 16 points of random rays and of one view's rays; row 19 at
+    131,072 x 28 rows of uniform ids, of ids in a few hundred rows and of
+    one id."""
+    from nerf_tpu_torch.ops.cuda.fused_grid import grid_interp, pack_grid
+    from nerf_tpu_torch.ops.cuda.scatter_add import scatter_add_rows
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    grid = torch.randn(64, 64, 64, 28, generator=g, device=dev)
+    ro, rd, t, _ = _inputs(torch, dev, 2048, 16, 17)
+    look = torch.nn.functional.normalize(
+        torch.stack(torch.meshgrid(torch.linspace(-0.2, 0.2, 64, device=dev),
+                                   torch.linspace(-0.2, 0.2, 32, device=dev),
+                                   indexing="xy"), -1).reshape(-1, 2), dim=-1)
+    view = torch.nn.functional.normalize(
+        torch.cat([look, -torch.ones(2048, 1, device=dev)], -1), dim=-1)
+    cam = torch.tensor([0.0, 0.0, 4.0], device=dev).expand(2048, 3)
+    for label, o, d in (("random", ro, rd), ("view", cam, view)):
+        pts = 2.0 * (o[:, None, :] + t[..., None] * d[:, None, :] - 2.0) / 4.0 - 1.0
+        for dtype in ("float32", "bfloat16"):
+            src = pack_grid(grid, dtype)
+            src = grid if src is None else src
+            res[f"grid_interp {dtype} {label}"] = grid_interp(src, pts.reshape(-1, 3)).cpu()
+    rows, n = 64 ** 3, 131072
+    vals = torch.randn(n, 28, generator=g, device=dev)
+    for label, ids in (("uniform", torch.randint(0, rows, (n,), generator=g, device=dev)),
+                       ("clustered", torch.randint(0, 300, (n,), generator=g, device=dev) * 7),
+                       ("one id", torch.full((n,), 4242, device=dev, dtype=torch.long))):
+        res[f"scatter_add {label}"] = scatter_add_rows(ids, vals, rows).cpu()
+
+
 def save(out: str, checkout: str) -> int:
     sys.path.insert(0, checkout)
     import torch
@@ -91,6 +154,9 @@ def save(out: str, checkout: str) -> int:
                 ro, rd, t, _ = _inputs(torch, dev, r, s, r + s)
                 for k, v in gr(gabor, ro, rd, rd, t).items():
                     res[f"gabor fwd {cdt} {r}x{s} {k}"] = v.cpu()
+    kilonerf(torch, dev, res)
+    with torch.no_grad():
+        grids(torch, dev, res)
     torch.cuda.synchronize()
     torch.save(res, out)
     print(f"chip_build_check: saved {len(res)} outputs of {checkout} to {out}")

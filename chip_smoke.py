@@ -8,9 +8,9 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
   1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
   2. the build of every kernel library from the sources in the checkout
      (one nvcc per source, started together), timed, and the count of
-     tensor-core instructions in the SASS of the five bf16 libraries on
+     tensor-core instructions in the SASS of the six bf16 libraries on
      the tensor cores (the NeRF and SIREN train passes, the NeRF, SIREN and
-     GaborNet forward renders; cuobjdump);
+     GaborNet forward renders, the KiloNeRF forward; cuobjdump);
   3. every kernel against its plain PyTorch version on the card (TF32 off):
      the forward render at the serving shapes (8192 rays x 64 and 192
      samples), the train pass and the render backward at the training
@@ -88,9 +88,11 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      10/4, float32 and bfloat16, on 1024 x 256 camera-ray samples
      normalised like the renderer's, 16,384 points uniform over the domain
      (the distillation batch), 5,000 points in one voxel and 37 points
-     (empty networks: exactly zero gradients); both timed in turns at the
-     camera set (runs of 20 launches per pair of events) against their
-     bound;
+     (empty networks: exactly zero gradients), two forward launches
+     compared bit for bit, the bf16 forward's HMMA count; at the camera
+     set the forward's device time from a CUDA graph of 20 calls between
+     events, the backward and both plain versions timed in turns (runs of
+     20 launches per pair of events), against their bound;
  14. serving the kilonerf config (lego_siren.txt with model_type =
      kilonerf, hidden_dim = 32, grid_res = 8: coarse-only 256 samples,
      chunk 1024, bf16) as in 8: 157 forward launches per request, one
@@ -156,9 +158,11 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      its radix sort and every output row in the call) at the training step's 8 x 262,144 rows x 28 (the step's
      corner ids, uniform ids, one id 65,536 times) against float64 sums,
      twice for identical bits, beside index_add_ on unsorted and sorted
-     ids; the fused grid render (row 18) at 1024 x 256, 1000 x 256 and
-     1024 x 37, float32 and bfloat16; each timed in turns against its bytes
-     bound;
+     ids; the fused grid render (row 18) at 1024 x 256, 1000 x 256,
+     1024 x 37, 1024 x 1 and 64 x 1000, float32 and bfloat16, two launches
+     compared bit for bit (its device time from a CUDA graph of 20 calls
+     between events, its wrapper and plain version timed in turns); each
+     against its bytes bound;
  24. serving the plenoxels config (lego_siren.txt with model_type =
      plenoxels, learning_rate = 0.01; grid 128^3, bf16 interpolation,
      chunk 1024, 256 samples) from a seeded checkpoint as in 8: 157 fused
@@ -241,7 +245,7 @@ ROW8_BF16_CUDA_CORE_MS = 38.388
 # the libraries of the bf16 kernels on the tensor cores (phase 2 reads
 # their SASS)
 TC_LIBS = ("fused_render_train_tc", "fused_render_fwd_tc", "fused_render_gabor_fwd_tc",
-           "fused_render_siren_fwd_tc", "fused_render_siren_train_tc")
+           "fused_render_siren_fwd_tc", "fused_render_siren_train_tc", "fused_kilonerf_fwd_tc")
 # per-sample MACs of the backward's skipped input-gradient products
 # (dz1 w1^T, dz6 w6p^T, dzr0 wr0d^T at the real widths 63/63/27)
 SKIPPED_MACS = 256 * 63 + 256 * 63 + 128 * 27
@@ -750,7 +754,7 @@ def profile_device(torch, fn, kernel: str, what: str) -> None:
         f"{1 - busy / wall_us:.4f}); {kernel} {t_mine / 1e3:.1f} ms "
         f"({t_mine / wall_us:.4f}) in {len(mine)} launches, other kernels "
         f"{t_other / 1e3:.1f} ms in {len(others)} launches")
-    for label, events, top in (("kernel", mine, 3), ("other", others, 6)):
+    for label, events, top in (("kernel", mine, 3), ("other", others, 10)):
         by_name: dict = {}
         for e in events:
             c, t = by_name.get(e.name, (0, 0.0))
@@ -760,6 +764,10 @@ def profile_device(torch, fn, kernel: str, what: str) -> None:
         for name, (c, t) in sorted(by_name.items(), key=lambda x: -x[1][1])[:top]:
             say(f"  {label}: {t / 1e3:.2f} ms ({t / wall_us:.4f}) in {c} launches: "
                 f"{name[:90]}")
+    gathers = [e for e in others if "index" in e.name or "gather" in e.name]
+    t_gather = sum(e.time_range.elapsed_us() for e in gathers)
+    say(f"  other: indexing kernels (gathers and scatters by an index) {t_gather / 1e3:.2f} ms "
+        f"in {len(gathers)} launches")
     adam = [e for e in others if "multi_tensor_apply" in e.name]
     if adam:
         t_adam = sum(e.time_range.elapsed_us() for e in adam)
@@ -1266,7 +1274,11 @@ def kilo_bound_ms(n: int, cdt: str, g3: int, backward: bool) -> tuple:
     """Least time of the KiloNeRF forward (or backward) over ``n`` points:
     the products (2 operations a MAC) over the compute dtype's peak and the
     sines over the float32 CUDA-core rate (their sum in float32, the larger
-    in bfloat16), against the bytes that must move (see KILO_MACS)."""
+    in bfloat16), against the bytes that must move (see KILO_MACS): a
+    point's position and direction (24 bytes) and its 16-byte output, or
+    for the backward its cotangent, the weights, and the backward's float32
+    gradients. The sort order and the payload's layout are the design's,
+    not the function's, and are not counted."""
     macs = KILO_BWD_MACS if backward else KILO_MACS
     wbytes = g3 * KILO_R * (4 if cdt == "float32" else 2)
     nbytes = n * (24 + 16) + wbytes + (g3 * KILO_R * 4 if backward else 0)
@@ -1303,17 +1315,33 @@ def kilo_point_sets(torch, dev) -> dict:
 
 def check_kilonerf_kernels(torch, dev):
     """Both KiloNeRF kernels against their plain versions on every phase-13
-    point set, float32 and bfloat16 with TF32 off: outputs (max abs) and
-    gradients (max abs over max |g| per tensor), the exact zeros of empty
-    networks; both timed in turns (plain, kernel, kernel, plain) at the
-    camera set against their bound."""
+    point set, float32 and bfloat16 with TF32 off: outputs in point order
+    (max abs) and gradients (max abs over max |g| per tensor), the exact
+    zeros of empty networks, two forward launches compared bit for bit; the
+    HMMA count of the bfloat16 forward's library (0 fails); at the camera
+    set the forward's device time (``device_ms``) and the backward timed in
+    turns with the plain versions (plain, kernel, kernel, plain), against
+    their bound, with the times PERF.md §6 records for the earlier kernels
+    as "was"."""
     from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
+    from nerf_tpu_torch.ops.cuda import build
     from nerf_tpu_torch.ops.cuda.fused_kilonerf import (
         KiloNeRFField, cast_packed, dispatch, kilonerf_bwd_plain, kilonerf_fwd_plain,
         pack_f32, unpack)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    path = {b.name: str(b.path) for b in build.build()}["fused_kilonerf_fwd_tc"]
+    mma = tensor_core_instructions(path)
+    if mma is None:
+        say("kernel fused_kilonerf_fwd bfloat16: SASS not read (no cuobjdump): HMMA not measured")
+    else:
+        say(f"kernel fused_kilonerf_fwd bfloat16: fused_kilonerf_fwd_tc SASS holds {mma[0]} "
+            f"HMMA and {mma[1]} HGMMA instructions")
+        if mma[0] == 0:
+            fail("fused_kilonerf_fwd_tc, the bf16 KiloNeRF forward, holds no HMMA instruction")
+    was = {("fused_kilonerf_fwd", "bfloat16"): 0.291, ("fused_kilonerf_fwd", "float32"): 0.286,
+           ("fused_kilonerf_bwd", "bfloat16"): 1.498, ("fused_kilonerf_bwd", "float32"): 1.404}
     results = {}
     sets = kilo_point_sets(torch, dev)
     for cdt in ("float32", "bfloat16"):
@@ -1332,6 +1360,7 @@ def check_kilonerf_kernels(torch, dev):
             with torch.no_grad():
                 ref = kilonerf_fwd_plain(wc, disp, 32, 10, 4)
                 out = field._forward(wc, disp)
+                same = torch.equal(out, field._forward(wc, disp))
                 ref_g = kilonerf_bwd_plain(wc, disp, cot, 32, 10, 4)
                 got_g = field._backward(wc, disp, cot)
                 torch.cuda.synchronize()
@@ -1349,9 +1378,11 @@ def check_kilonerf_kernels(torch, dev):
                 f"(tol {KILO_TOL[cdt]:.0e}); gradient error (max abs over max |g|) "
                 f"worst {w}={gerr[w]:.3e} (tol {KILO_GRAD_TOL[cdt]:.0e}), median "
                 f"{statistics.median(gerr.values()):.3e}; {int(empty.sum())} empty "
-                f"networks, gradients exactly 0: {zeros}")
-            if err > KILO_TOL[cdt] or gerr[w] > KILO_GRAD_TOL[cdt] or not zeros:
-                fail(f"kilonerf kernels {cdt} {label} disagree with their plain versions")
+                f"networks, gradients exactly 0: {zeros}; two forward launches identical: "
+                f"{same}")
+            if err > KILO_TOL[cdt] or gerr[w] > KILO_GRAD_TOL[cdt] or not zeros or not same:
+                fail(f"kilonerf kernels {cdt} {label} disagree with their plain versions "
+                     "or are not deterministic")
             worst["fwd"] = max(worst["fwd"], err)
             worst["bwd"] = max(worst["bwd"], gerr[w])
             if label.startswith("camera"):
@@ -1359,8 +1390,6 @@ def check_kilonerf_kernels(torch, dev):
                     fns = {
                         ("fused_kilonerf_fwd", "plain"):
                             lambda: kilonerf_fwd_plain(wc, disp, 32, 10, 4),
-                        ("fused_kilonerf_fwd", "kernel"):
-                            lambda: field._forward(wc, disp),
                         ("fused_kilonerf_bwd", "plain"):
                             lambda: kilonerf_bwd_plain(wc, disp, cot, 32, 10, 4),
                         ("fused_kilonerf_bwd", "kernel"):
@@ -1369,24 +1398,28 @@ def check_kilonerf_kernels(torch, dev):
                     times = {k: [] for k in fns}
                     for f in fns.values():
                         f()                                    # warm-up
-                    # a kernel of ~0.4 ms is as long as the host takes to
-                    # issue it: time runs of KILO_BATCH launches between
-                    # two events, so that the queue stays full and host
-                    # gaps do not count
-                    for name in ("fused_kilonerf_fwd", "fused_kilonerf_bwd"):
-                        for which in ("plain", "kernel", "kernel", "plain"):
-                            f = fns[(name, which)]
-                            times[(name, which)] += [
-                                t / KILO_BATCH for t in time_calls(
-                                    torch, lambda f=f: [f() for _ in range(KILO_BATCH)], 3)]
+                    # time runs of KILO_BATCH launches between two events,
+                    # so that the queue stays full and host gaps do not
+                    # count; the forward kernel is shorter than the host's
+                    # work to issue it, so its time is the device's, from a
+                    # CUDA graph (the run plan's three small kernels and
+                    # the kernel)
+                    for key in (("fused_kilonerf_fwd", "plain"), ("fused_kilonerf_bwd", "plain"),
+                                ("fused_kilonerf_bwd", "kernel"), ("fused_kilonerf_bwd", "kernel"),
+                                ("fused_kilonerf_fwd", "plain"), ("fused_kilonerf_bwd", "plain")):
+                        f = fns[key]
+                        times[key] += [t / KILO_BATCH for t in time_calls(
+                            torch, lambda f=f: [f() for _ in range(KILO_BATCH)], 3)]
                     torch.cuda.empty_cache()
+                    times[("fused_kilonerf_fwd", "kernel")] = [
+                        device_ms(torch, lambda: field._forward(wc, disp))]
                 for name in ("fused_kilonerf_fwd", "fused_kilonerf_bwd"):
                     ms = statistics.median(times[(name, "kernel")])
                     plain_ms = statistics.median(times[(name, "plain")])
                     bms, by = kilo_bound_ms(n, cdt, 512, name.endswith("bwd"))
-                    say(f"kernel {name} {cdt} {label}: kernel {ms:.3f} ms, plain "
-                        f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), share of bound "
-                        f"{bms / ms:.4f}")
+                    say(f"kernel {name} {cdt} {label}: kernel {ms:.4f} ms (was "
+                        f"{was[(name, cdt)]:.3f}, PERF.md §6), plain {plain_ms:.3f} ms, bound "
+                        f"{bms:.4f} ms ({by}), share of bound {bms / ms:.4f}")
                     results[(name, cdt)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                                 bound_by=by)
             del ref, out, ref_g, got_g, disp
@@ -2426,6 +2459,28 @@ def timed(torch, fns: dict, order: tuple, batch: int = GRID_BATCH) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+def device_ms(torch, fn, reps: int = GRID_BATCH) -> float:
+    """Median device time (ms) of one call of ``fn``: ``reps`` calls
+    captured into a CUDA graph, the graph replayed between two events, 3
+    times. The device's time for the call's kernels, where a call's host
+    work outlasts them and events around back-to-back calls would time the
+    host instead. (torch.profiler's CUDA traces on the card lost every
+    launch of some windows, and are not used for this.)"""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return statistics.median(time_calls(torch, graph.replay, 3)) / reps
+
+
 def check_grid_interp_kernel(torch, dev) -> dict:
     """Row 17 (csrc/fused_grid.cu) against its plain version: 1024 x 64 and
     1024 x 256 points of random training rays and of tile-ordered camera
@@ -2575,15 +2630,19 @@ def check_scatter_kernel(torch, dev) -> dict:
 
 
 def check_grid_render_kernel(torch, dev) -> dict:
-    """Row 18 (csrc/fused_grid_render.cu) against its plain version at 1024 x
-    256, 1000 x 256 and 1024 x 37 tile-ordered camera rays, float32 and
-    bfloat16, on a 128^3 x 28 grid; timed in turns against the bytes
-    bound. No single PyTorch call computes this function (no library
+    """Row 18 (csrc/fused_grid_render.cu) against its plain composition
+    (the affine, sh_basis, _expand_basis and grid_render_plain, as the CPU
+    route runs them) at 1024 x 256, 1000 x 256, 1024 x 37, 1024 x 1 and 64
+    x 1000 tile-ordered camera rays, float32 and bfloat16, on a 128^3 x 28
+    grid; two launches compared bit for bit; timed in turns against the
+    bytes bound, with the earlier kernel's time at 1024 x 256 as "was"
+    (PERF.md §6). No single PyTorch call computes this function (no library
     time)."""
     from nerf_tpu_torch.models.plenoxels import sh_basis
     from nerf_tpu_torch.ops.cuda.fused_grid_render import (
-        FusedGridRender, _expand_basis, grid_render_plain)
+        FusedGridRender, _expand_basis, cells_affine, grid_render_plain)
 
+    was = {"float32": 0.2789, "bfloat16": 0.2989}
     results = {}
     for cdt in ("float32", "bfloat16"):
         model = grid_model(torch, dev, cdt)
@@ -2591,47 +2650,54 @@ def check_grid_render_kernel(torch, dev) -> dict:
         with torch.no_grad():
             pack = fr.pack(model)
         src = model.grid.detach() if pack.packed is None else pack.packed
-        for n, s in ((1024, 256), (1000, 256), (1024, 37)):
+        scale, off = fr.affine(GRID_R)
+        for n, s in ((1024, 256), (1000, 256), (1024, 37), (1024, 1), (64, 1000)):
             o, d, t = image_rays(torch, dev, n, s, seed=n + s)
-            o_aff, d_aff = fr.affine(o, d, GRID_R)
-            bexp = _expand_basis(sh_basis(d, 2)).contiguous()
+            o_aff, d_aff = cells_affine(o, d, scale, off)
 
             def plain():
+                bexp = _expand_basis(sh_basis(d, 2)).contiguous()
                 return grid_render_plain(src, o_aff, d_aff, t, bexp, fr.sel)
 
             def kern():
-                return fr._launch(src, o_aff, d_aff, t, bexp)
+                return fr._launch(src, o, d, d, t, scale, off)
 
             def wrapper():
                 return fr(pack, o, d, d, t)
 
             with torch.no_grad():
-                ref, out = plain(), wrapper()
+                ref, out, again = plain(), wrapper(), kern()
                 torch.cuda.synchronize()
                 errs = {}
                 for i, k in enumerate(("rgb", "acc", "depth", "weights")):
                     if not torch.isfinite(out[k]).all():
                         fail(f"grid_render {cdt} {n}x{s}: non-finite {k}")
                     errs[k] = float((out[k] - ref[i]).abs().max())
-                ms = timed(torch, {"plain": plain, "kernel": kern, "wrapper": wrapper},
-                           ("plain", "kernel", "wrapper", "wrapper", "kernel", "plain"))
+                same = all(torch.equal(out[k], again[i])
+                           for i, k in enumerate(("rgb", "acc", "depth", "weights")))
+                ms = timed(torch, {"plain": plain, "wrapper": wrapper},
+                           ("plain", "wrapper", "wrapper", "plain"))
+                kms = device_ms(torch, kern)
                 cells = (o_aff[:, None, :] + d_aff[:, None, :] * t[..., None]).clamp(0, GRID_R - 1)
                 rows = distinct_rows(torch, cells, GRID_R)
-            nbytes = n * (24 + 12 + 20) + 2 * n * s * 4 + rows * GRID_C * src.element_size()
+            nbytes = n * (36 + 20) + 2 * n * s * 4 + rows * GRID_C * src.element_size()
             bms = nbytes / PEAK_BYTES * 1e3
             bad = {k: v for k, v in errs.items() if v > GRID_RENDER_TOL[k]}
+            was_s = f" (was {was[cdt]:.4f}, PERF.md §6)" if (n, s) == (1024, 256) else ""
             say(f"kernel grid_render {cdt} {n}x{s}: max_abs_err "
                 + " ".join(f"{k}={v:.3e}(tol {GRID_RENDER_TOL[k]:.0e})" for k, v in errs.items())
-                + f" | kernel {ms['kernel']:.4f} ms (with the wrapper's affine and basis "
-                f"{ms['wrapper']:.4f} ms), plain {ms['plain']:.4f} ms, bound "
-                f"{bms:.4f} ms (bytes; {rows} distinct rows), share of bound "
-                f"{bms / ms['kernel']:.4f}")
-            if bad:
-                fail(f"grid_render {cdt} {n}x{s} disagrees with its plain version: {bad}")
-            results[(cdt, n, s)] = dict(err=max(errs.values()), ms=ms["kernel"],
+                + f"; two launches identical: {same} | kernel {kms:.4f} ms on the device "
+                f"(a CUDA graph){was_s}; a call timed by events through the wrapper "
+                f"{ms['wrapper']:.4f} ms (host-bound where above the kernel); plain "
+                f"{ms['plain']:.4f} ms, bound {bms:.4f} ms (bytes; {rows} distinct rows), "
+                f"share of bound {bms / kms:.4f}")
+            if bad or not same:
+                fail(f"grid_render {cdt} {n}x{s} disagrees with its plain version {bad} or "
+                     f"is not deterministic (identical: {same})")
+            results[(cdt, n, s)] = dict(err=max(errs.values()), ms=kms,
                                         plain_ms=ms["plain"], library_ms=None, bound_ms=bms,
                                         bound_by="bytes")
-            del ref, out
+            del ref, out, again
             torch.cuda.empty_cache()
         del model, pack, src
         torch.cuda.empty_cache()
@@ -3034,10 +3100,11 @@ def main() -> int:
                            launched, gabor_checks[(name, "bfloat16")],
                            max(gabor_checks[(name, c)]["err"]
                                for c in ("float32", "bfloat16"))))
-    for name, line, launched in (
-            ("fused_kilonerf_fwd", 367, kilo_launches + kilo_trained["fwd_launches"]),
-            ("fused_kilonerf_bwd", 394, kilo_trained["bwd_launches"])):
-        kernels.append(row(name, f"{name}.cu", f"{nerf_tpu}fused_kilonerf.py:{line}",
+    for name, source, line, launched in (
+            ("fused_kilonerf_fwd", "fused_kilonerf_fwd_tc.cu", 367,
+             kilo_launches + kilo_trained["fwd_launches"]),
+            ("fused_kilonerf_bwd", "fused_kilonerf_bwd.cu", 394, kilo_trained["bwd_launches"])):
+        kernels.append(row(name, source, f"{nerf_tpu}fused_kilonerf.py:{line}",
                            launched, kilo_checks[(name, "bfloat16")],
                            max(kilo_checks[(name, c)]["err"]
                                for c in ("float32", "bfloat16"))))

@@ -1,5 +1,6 @@
 // Shared pieces of the KiloNeRF field kernels for Hopper (sm_90a),
-// fused_kilonerf_fwd.cu and fused_kilonerf_bwd.cu:
+// fused_kilonerf_fwd.cu, fused_kilonerf_bwd.cu and (the run, the encoding
+// and the widths) fused_kilonerf_fwd_tc.cu:
 //   * the per-network parameter block in shared memory (an aligned,
 //     zero-padded float32 copy of the network's slice of the packed buffer)
 //     and the map between the two layouts;

@@ -1,22 +1,24 @@
-// KiloNeRF field forward for Hopper (sm_90a): every point through the tiny
-// MLP of the voxel it lies in.
+// KiloNeRF field forward in float32 for Hopper (sm_90a): every point
+// through the tiny MLP of the voxel it lies in, on the CUDA cores.
 //
 // Replaces: nerf_tpu/ops/pallas/fused_kilonerf.py::_fwd_kernel_mx (the
-// forward of make_fused_kilonerf_apply). Same function: for each point of
-// the payload, sorted by network, the L=10 encoding of its voxel-local
-// position and the L=4 encoding of its direction, then its network's
-// l1 -> l2 -> trunk (density) -> rgb1 -> rgb2 -> sigmoid, written as
-// (rgb, sigma) in sorted order. The sort, the segment offsets and the
-// gather back to point order stay outside, as in the JAX package
-// (ops/cuda/fused_kilonerf.py).
+// forward of make_fused_kilonerf_apply) in float32; bfloat16 runs on the
+// tensor cores (fused_kilonerf_fwd_tc.cu), and float32 stays here because
+// TF32 would change its results. Same function: for each point, sorted by
+// network, the L=10 encoding of its voxel-local position and the L=4
+// encoding of its direction, then its network's l1 -> l2 -> trunk
+// (density) -> rgb1 -> rgb2 -> sigmoid. The points are read through the
+// sort (point i of a run is payload row order[i]) and each (rgb, sigma) is
+// written to row order[i] of the point-order output: the sort and the
+// segment offsets stay outside, as in the JAX package
+// (ops/cuda/fused_kilonerf.py), but no gather of the payload or of the
+// output does.
 //
 // What bounds it on this card: operations. A point costs 6,080 MACs at h 32
 // (63x32 + 32x32 + 32x33 + 59x32 + 32x3) and 84 sines; at 262,144 points
 // (a 1024-ray x 256-sample step) that is 3.19 GFLOP, 0.048 ms at the
-// float32 CUDA-core rate and 0.003 ms on the bf16 tensor cores, against
-// 12.6 MB of payload in and out plus 12.7 MB of weights (512 networks),
-// 7.6 us at 3.35 TB/s. Both dtypes run on the CUDA cores here (bf16 rounds
-// every matmul input to bf16 and sums in float32).
+// float32 CUDA-core rate, against 12.6 MB of payload in and out plus 12.7
+// MB of weights (512 networks), 7.6 us at 3.35 TB/s.
 //
 // Design: the TPU kernel's lane-slotted block-diagonal packing, dummy rows
 // and two-pass boundary tiles exist for Mosaic's static shapes and the MXU's
@@ -41,11 +43,10 @@ using namespace kilo;
 
 constexpr int THREADS = 128;   // points per run: one per thread
 
-template <bool BF16, typename WT>
 __global__ void __launch_bounds__(THREADS)
-fused_kilonerf_fwd_kernel(const float4* __restrict__ pay, const int* __restrict__ offsets,
-                          const int* __restrict__ run_end, int g3,
-                          const WT* __restrict__ wpack, Dims dims,
+fused_kilonerf_fwd_kernel(const float4* __restrict__ pay, const long long* __restrict__ order,
+                          const int* __restrict__ offsets, const int* __restrict__ run_end,
+                          int g3, const float* __restrict__ wpack, Dims dims,
                           float4* __restrict__ out) {
   __shared__ __align__(16) float w[NW];
   int g, start, end;
@@ -54,47 +55,38 @@ fused_kilonerf_fwd_kernel(const float4* __restrict__ pay, const int* __restrict_
   __syncthreads();
   const int i = start + threadIdx.x;
   if (i >= end) return;
-  const float4 a = pay[2 * i], b = pay[2 * i + 1];
+  const long long row = order[i];
+  const float4 a = pay[2 * row], b = pay[2 * row + 1];
   const float loc[3] = {a.x, a.y, a.z};
   const float dir[3] = {b.x, b.y, b.z};
   float rgb[3], sigma_pre;
   unsigned m1, my;
-  point_forward<BF16, false>(w, loc, dir, dims, nullptr, rgb, sigma_pre, m1, my);
-  out[i] = make_float4(rgb[0], rgb[1], rgb[2], fmaxf(sigma_pre, 0.0f));
-}
-
-template <bool BF16, typename WT>
-int launch(const float* pay, const int* offsets, const int* run_end, int g3,
-           const void* wpack, const Dims& dims, int grid, float* out,
-           cudaStream_t stream) {
-  fused_kilonerf_fwd_kernel<BF16, WT><<<grid, THREADS, 0, stream>>>(
-      reinterpret_cast<const float4*>(pay), offsets, run_end, g3,
-      static_cast<const WT*>(wpack), dims, reinterpret_cast<float4*>(out));
-  return static_cast<int>(cudaGetLastError());
+  point_forward<false, false>(w, loc, dir, dims, nullptr, rgb, sigma_pre, m1, my);
+  out[row] = make_float4(rgb[0], rgb[1], rgb[2], fmaxf(sigma_pre, 0.0f));
 }
 
 }  // namespace
 
 extern "C" {
 
-// `pay` is the sorted (n, 8) float32 payload (cols 0-2 voxel-local
-// position, 4-6 direction), `offsets` the (g3 + 1) segment starts, `run_end`
+// `pay` is the (n, 8) float32 payload in point order (cols 0-2 voxel-local
+// position, 4-6 direction), `order` (n,) int64 the stable sort of the points
+// by network, `offsets` the (g3 + 1) segment starts in that order, `run_end`
 // the running count of `run`-point runs over the networks, `wpack` the
-// (g3, R) packed parameters (float32, or bfloat16 when `bf16`), `out` the
-// sorted (n, 4) result (rgb, sigma). `grid` is the number of CTAs (at least
-// the number of runs). Returns 0 on success, a cudaError_t code after a
-// failed launch, or -1 when the widths or shapes do not fit this kernel.
-int fused_kilonerf_fwd(const float* pay, const int* offsets, const int* run_end, int g3,
-                       const void* wpack, int R, int P, int D, int hidden, int bf16,
-                       int n, int run, int grid, float* out, void* stream) {
+// (g3, R) packed float32 parameters, `out` the (n, 4) result (rgb, sigma)
+// in point order. `grid` is the number of CTAs (at least the number of
+// runs). Returns 0 on success, a cudaError_t code after a failed launch, or
+// -1 when the widths or shapes do not fit this kernel.
+int fused_kilonerf_fwd(const float* pay, const long long* order, const int* offsets,
+                       const int* run_end, int g3, const float* wpack, int R, int P, int D,
+                       int hidden, int n, int run, int grid, float* out, void* stream) {
   if (hidden != H || P > PMAX || D > DMAX || P < 3 || D < 3 ||
       R != packed_size(P, D) || g3 <= 0 || n <= 0 || run != THREADS || grid <= 0)
     return -1;
-  const Dims dims{P, D, R};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<true, __nv_bfloat16>(pay, offsets, run_end, g3, wpack, dims, grid, out, s);
-  return launch<false, float>(pay, offsets, run_end, g3, wpack, dims, grid, out, s);
+  fused_kilonerf_fwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(pay), order, offsets, run_end, g3, wpack,
+      Dims{P, D, R}, reinterpret_cast<float4*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* fused_kilonerf_fwd_error(int code) {

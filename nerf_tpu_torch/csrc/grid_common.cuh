@@ -1,6 +1,7 @@
-// Trilinear interpolation of a dense voxel grid, one warp per point with the
-// lanes over channels: the device code that the grid-interpolation kernel
-// (fused_grid.cu) and the fused grid render (fused_grid_render.cu) share.
+// Trilinear interpolation of a dense voxel grid: the device code that the
+// grid-interpolation kernel (fused_grid.cu: one warp per point, the lanes
+// over channels, interp_lane) and the fused grid render (fused_grid_render.cu:
+// one thread per point, every channel in its registers, interp_row) share.
 //
 // The grid is a dense (R, R, R, C) array, row-major, C <= 32 channels a row
 // (Plenoxels: 1 density + 3 x 9 SH coefficients = 28), float32 or its
@@ -22,8 +23,8 @@
 // the fits bit with its fallback) exists because Mosaic has no in-kernel
 // gather; the H100 gathers, so each lane reads its channel of the eight
 // corner rows directly (a row is 112 bytes in float32, 56 in bfloat16; a
-// warp's reads of one row are one or two 128-byte lines) and the L2 cache
-// takes the place of the window.
+// warp's reads of one row are one or two 128-byte lines), or a thread reads
+// whole rows as vectors, and the L2 cache takes the place of the window.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -86,6 +87,61 @@ __device__ __forceinline__ float interp_lane(const void* g, int r, int c, long l
 #pragma unroll
   for (int k = 0; k < 8; ++k) acc = __fadd_rn(acc, __fmul_rn(w[k], v[k]));
   return acc;
+}
+
+// Row `row` of a grid of C channels into x[0..C-1] as float32, read as the
+// widest vectors the row's byte stride keeps aligned (16 bytes for 28
+// float32 channels, 8 for 28 bfloat16 ones; the grid itself 16-byte
+// aligned). A bfloat16 value is the high half of its float32.
+template <bool BF16, int C>
+__device__ __forceinline__ void load_row_vec(const void* g, long long row, float (&x)[C]) {
+  constexpr int ES = BF16 ? 2 : 4, RB = C * ES;
+  constexpr int VB = RB % 16 == 0 ? 16 : (RB % 8 == 0 ? 8 : (RB % 4 == 0 ? 4 : 2));
+  constexpr int NV = RB / VB, WORDS = VB >= 4 ? VB / 4 : 1;
+  const char* p = static_cast<const char*>(g) + row * RB;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    unsigned u[WORDS];
+    if constexpr (VB == 16) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p) + i);
+      u[0] = q.x; u[1] = q.y; u[2] = q.z; u[3] = q.w;
+    } else if constexpr (VB == 8) {
+      const uint2 q = __ldg(reinterpret_cast<const uint2*>(p) + i);
+      u[0] = q.x; u[1] = q.y;
+    } else if constexpr (VB == 4) {
+      u[0] = __ldg(reinterpret_cast<const unsigned*>(p) + i);
+    } else {
+      u[0] = __ldg(reinterpret_cast<const unsigned short*>(p) + i);
+    }
+#pragma unroll
+    for (int j = 0; j < WORDS; ++j) {
+      if constexpr (BF16) {
+        x[i * (VB / 2) + 2 * j] = __uint_as_float(u[j] << 16);
+        if constexpr (VB >= 4) x[i * (VB / 2) + 2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
+      } else {
+        x[i * (VB / 4) + j] = __uint_as_float(u[j]);
+      }
+    }
+  }
+}
+
+// Every channel of the interpolated row at one point, for a thread that owns
+// the point: the eight corner rows read as vectors (load_row_vec), and each
+// channel summed over k in order exactly as interp_lane sums its lane's, so
+// that both give the same bits.
+template <bool BF16, int C>
+__device__ __forceinline__ void interp_row(const void* g, int r, long long base,
+                                           const float w[8], float (&v)[C]) {
+  const long long rr = static_cast<long long>(r) * r;
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) v[ch] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float x[C];
+    load_row_vec<BF16, C>(g, base + ((k & 4) ? rr : 0) + ((k & 2) ? r : 0) + (k & 1), x);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) v[ch] = __fadd_rn(v[ch], __fmul_rn(w[k], x[ch]));
+  }
 }
 
 }  // namespace grid

@@ -18,7 +18,10 @@ grad under autograd raises.
 
 The kernel is ``csrc/fused_grid_render.cu`` (replacing
 ``_grid_render_kernel``; it shares ``csrc/grid_common.cuh`` with the
-row-17 kernel). On CPU tensors the plain version runs; on CUDA tensors the
+row-17 kernel). It takes the rays, the view directions, t and the two
+affine scalars, and computes the affine and the SH basis itself: a tile is
+one launch. On CPU tensors the plain composition runs (``cells_affine``,
+``sh_basis``, ``_expand_basis``, ``grid_render_plain``); on CUDA tensors the
 kernel launches or the call raises (``NotImplementedError`` for C > 32 or
 R < 2), never the plain version; ``FusedGridRender.launches`` counts the
 launches. The baked FastNeRF branch (``_factor_sel``, relu density) waits
@@ -59,6 +62,14 @@ def _expand_basis(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x.new_zeros((num, 1)), body, x.new_zeros((num, pad))], dim=1)
 
 
+def cells_affine(rays_o: torch.Tensor, rays_d: torch.Tensor, scale: float,
+                 off: float) -> tuple:
+    """``(o', d')`` (R, 3): the ray -> cell affine of ``FusedGridRender.affine``'s
+    scalars applied as the kernel applies them (float32, ``scale * o + off``
+    and ``scale * d``)."""
+    return (scale * rays_o + off).contiguous(), (scale * rays_d).contiguous()
+
+
 def grid_render_plain(src: torch.Tensor, o_aff: torch.Tensor, d_aff: torch.Tensor,
                       t: torch.Tensor, bexp: torch.Tensor, sel: np.ndarray) -> tuple:
     """The kernel's function in plain PyTorch: ``(rgb, acc, depth,
@@ -85,7 +96,8 @@ def grid_render_plain(src: torch.Tensor, o_aff: torch.Tensor, d_aff: torch.Tenso
 def _library() -> ctypes.CDLL:
     lib = library("fused_grid_render")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.grid_render.argtypes = [vp] * 6 + [ci] * 5 + [vp] * 5
+    cf = ctypes.c_float
+    lib.grid_render.argtypes = [vp] * 4 + [cf, cf, vp] + [ci] * 6 + [vp] * 5
     lib.grid_render.restype = ci
     lib.grid_render_error.argtypes = [ci]
     lib.grid_render_error.restype = ctypes.c_char_p
@@ -111,20 +123,17 @@ class FusedGridRender:
         its interpolation reads, made once."""
         return params if isinstance(params, PlenoxelsPack) else params.precompute()
 
-    def affine(self, rays_o: torch.Tensor, rays_d: torch.Tensor, r: int) -> tuple:
-        """``(o', d')``: cell coordinate g = o' + d' t of each ray, the
-        normalisation and the domain folded in (nerf_tpu's ``_cells``)."""
+    def affine(self, r: int) -> tuple:
+        """``(scale, off)``: a ray's sample at t lies at cell coordinate
+        g = (scale o + off) + (scale d) t, the normalisation and the domain
+        folded in (nerf_tpu's ``_cells``); computed on the host."""
         lo, hi = self.domain
         ext = hi - lo
         if self.normalize:
             s_n = 2.0 / (self.far - self.near)
             o_n = -2.0 * self.near / (self.far - self.near) - 1.0
-            scale = (r - 1.0) * s_n / ext
-            off = (r - 1.0) * (o_n - lo) / ext
-        else:
-            scale = (r - 1.0) / ext
-            off = (r - 1.0) * (-lo) / ext
-        return (scale * rays_o + off).contiguous(), (scale * rays_d).contiguous()
+            return (r - 1.0) * s_n / ext, (r - 1.0) * (o_n - lo) / ext
+        return (r - 1.0) / ext, (r - 1.0) * (-lo) / ext
 
     def __call__(self, params, rays_o: torch.Tensor, rays_d: torch.Tensor,
                  viewdirs: torch.Tensor, t: torch.Tensor) -> dict:
@@ -136,23 +145,27 @@ class FusedGridRender:
                 "under torch.no_grad() or train through the module")
         src = grid.detach() if pack.packed is None else pack.packed
         r, _ = check_grid(src, ROW)
-        o_aff, d_aff = self.affine(rays_o.float(), rays_d.float(), r)
-        bexp = _expand_basis(sh_basis(viewdirs.float(), self.sh_degree)).contiguous()
-        t = t.float().contiguous()
+        scale, off = self.affine(r)
+        rays_o, rays_d = rays_o.float().contiguous(), rays_d.float().contiguous()
+        viewdirs, t = viewdirs.float().contiguous(), t.float().contiguous()
         if t.device.type == "cpu":
+            o_aff, d_aff = cells_affine(rays_o, rays_d, scale, off)
+            bexp = _expand_basis(sh_basis(viewdirs, self.sh_degree)).contiguous()
             rgb, acc, depth, w = grid_render_plain(src, o_aff, d_aff, t, bexp, self.sel)
         elif t.device.type == "cuda":
-            rgb, acc, depth, w = self._launch(src, o_aff, d_aff, t, bexp)
+            rgb, acc, depth, w = self._launch(src, rays_o, rays_d, viewdirs, t, scale, off)
         else:
             raise ValueError(f"the fused grid render runs on cuda or cpu, not {t.device}")
         return {"rgb": rgb, "acc": acc, "depth": depth, "weights": w}
 
-    def _launch(self, src, o_aff, d_aff, t, bexp) -> tuple:
+    def _launch(self, src, rays_o, rays_d, viewdirs, t, scale: float, off: float) -> tuple:
         r, c = src.shape[0], src.shape[-1]
         num_rays, s = t.shape
         dev = t.device
-        if not (src.device == o_aff.device == bexp.device == dev):
-            raise ValueError(f"grid on {src.device}, rays on {o_aff.device}, t on {dev}")
+        if not (src.device == rays_o.device == rays_d.device == viewdirs.device == dev):
+            raise ValueError(f"grid on {src.device}, rays on {rays_o.device}, t on {dev}")
+        if c != 1 + 3 * (self.sh_degree + 1) ** 2:
+            raise ValueError(f"grid of {c} channels for SH degree {self.sh_degree}")
         rgb = torch.empty((num_rays, 3), dtype=torch.float32, device=dev)
         acc = torch.empty((num_rays,), dtype=torch.float32, device=dev)
         depth = torch.empty_like(acc)
@@ -164,10 +177,10 @@ class FusedGridRender:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             code = lib.grid_render(
-                o_aff.data_ptr(), d_aff.data_ptr(), t.data_ptr(), bexp.data_ptr(),
-                self.sel.ctypes.data, src.data_ptr(), r, c, int(src.dtype == torch.bfloat16),
-                num_rays, s, rgb.data_ptr(), acc.data_ptr(), depth.data_ptr(),
-                w.data_ptr(), stream)
+                rays_o.data_ptr(), rays_d.data_ptr(), viewdirs.data_ptr(), t.data_ptr(),
+                scale, off, src.data_ptr(), r, c, self.sh_degree,
+                int(src.dtype == torch.bfloat16), num_rays, s, rgb.data_ptr(),
+                acc.data_ptr(), depth.data_ptr(), w.data_ptr(), stream)
         if code != 0:
             raise RuntimeError("fused grid render kernel: " + lib.grid_render_error(code).decode())
         type(self).launches += 1

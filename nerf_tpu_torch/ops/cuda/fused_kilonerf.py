@@ -3,8 +3,11 @@
 Two kernels, each replacing one of ``nerf_tpu/ops/pallas/fused_kilonerf.py``
 (their sources say what bounds each on an H100 and how the design answers):
 
-  * ``csrc/fused_kilonerf_fwd.cu`` (``_fwd_kernel_mx``): every point through
-    its voxel's tiny MLP, over points sorted by network;
+  * ``_fwd_kernel_mx``: every point through its voxel's tiny MLP, over
+    points sorted by network, read through the sort order and written in
+    point order; in bfloat16 on the tensor cores
+    (``csrc/fused_kilonerf_fwd_tc.cu``), in float32 on the CUDA cores
+    (``csrc/fused_kilonerf_fwd.cu``);
   * ``csrc/fused_kilonerf_bwd.cu`` (``_bwd_kernel_mk``): each network's
     weight and bias gradients from the (rgb, sigma) cotangent of its
     points, summed without atomics (per-piece partials added in order).
@@ -13,16 +16,19 @@ This module holds
 
   * the dispatch glue, stock PyTorch as in the JAX package (outside its
     kernels too): ``voxel_of``, one stable sort by network carrying the
-    point index, segment offsets (``bincount`` + ``cumsum``), the sorted
-    (n, 8) payload, and the gather back to point order by the inverse
-    permutation (its VJP is the gather by the sort order);
+    point index, segment offsets (``bincount`` + ``cumsum``) and the (n, 8)
+    payload in point order. The forward kernels read it through the sort
+    and write their output in point order, so the forward runs no gather;
+    the backward, which reads a sorted payload and a sorted cotangent,
+    gathers both by the sort order when it runs;
   * ``pack_f32`` / ``cast_packed``: the parameters as one (G^3, R) block
     per network, differentiable float32 (autograd maps the kernel's packed
     gradient back onto each layer's ``w``/``b``) and cast whole to the
     compute dtype as the TPU kernel casts its block, biases included;
   * the plain PyTorch versions ``kilonerf_fwd_plain`` and
     ``kilonerf_bwd_plain`` (batched matmuls over tiles of one network's
-    points), with the kernels' arithmetic and rounding: matmul inputs
+    points; outputs and cotangents in point order), with the kernels'
+    arithmetic and rounding: matmul inputs
     rounded to the compute dtype, float32 sums, the density from the
     unrounded x2 and the rounded density row, the cosine as sin(x + pi/2);
   * ``KiloNeRFField``: the field ``(points, dirs) -> (rgb, sigma)`` of one
@@ -40,6 +46,7 @@ import ctypes
 import functools
 import math
 from dataclasses import dataclass
+from functools import cached_property
 
 import torch
 
@@ -53,7 +60,7 @@ from nerf_tpu_torch.models.kilonerf import (
 from nerf_tpu_torch.ops.cuda.build import library
 from nerf_tpu_torch.ops.cuda.fused_render import _encode
 
-FWD_RUN = 128       # points per forward CTA (csrc/fused_kilonerf_fwd.cu)
+FWD_RUN = 128       # points per forward CTA (csrc/fused_kilonerf_fwd{,_tc}.cu)
 BWD_RUN = 512       # points per backward piece (csrc/fused_kilonerf_bwd.cu)
 PLAIN_TILE = 128    # points per tile of the plain versions' batched matmuls
 HIDDEN, PMAX, DMAX = 32, 64, 32   # the widths the kernels take
@@ -95,13 +102,12 @@ def unpack(wpack: torch.Tensor, h: int, p: int, d: int) -> dict:
 
 @dataclass(frozen=True)
 class Dispatch:
-    """Points sorted by network: ``order`` (n,) the sort, ``inv`` its
-    inverse, ``pay`` the sorted (n, 8) payload (cols 0-2 voxel-local
-    position, 4-6 direction), ``counts`` (G^3,) points per network and
-    ``offsets`` (G^3 + 1,) int32 segment starts."""
+    """Points sorted by network: ``order`` (n,) the stable sort, ``pay``
+    the (n, 8) payload in point order (cols 0-2 voxel-local position, 4-6
+    direction), ``counts`` (G^3,) points per network and ``offsets``
+    (G^3 + 1,) int32 segment starts in sorted order."""
 
     order: torch.Tensor
-    inv: torch.Tensor
     pay: torch.Tensor
     counts: torch.Tensor
     offsets: torch.Tensor
@@ -109,6 +115,12 @@ class Dispatch:
     @property
     def n(self) -> int:
         return self.order.shape[0]
+
+    @cached_property
+    def sorted_pay(self) -> torch.Tensor:
+        """The payload in sorted order, made on first use: the backward
+        kernel and the plain versions read it; the forward kernels do not."""
+        return self.pay[self.order].contiguous()
 
 
 @torch.no_grad()
@@ -118,16 +130,13 @@ def dispatch(model: KiloNeRFModel, points: torch.Tensor, dirs: torch.Tensor) -> 
     n = points.shape[0]
     vid, local = model.voxel_of(points.float())
     order = torch.sort(vid, stable=True).indices
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(n, device=order.device)
     pay = torch.zeros((n, 8), dtype=torch.float32, device=points.device)
     pay[:, :3] = local
     pay[:, 4:7] = dirs
     counts = torch.bincount(vid, minlength=model.num_networks)
     offsets = torch.zeros(model.num_networks + 1, dtype=torch.int32, device=points.device)
     offsets[1:] = torch.cumsum(counts, 0)
-    return Dispatch(order=order, inv=inv, pay=pay[order].contiguous(), counts=counts,
-                    offsets=offsets)
+    return Dispatch(order=order, pay=pay, counts=counts, offsets=offsets)
 
 
 def run_end(counts: torch.Tensor, run: int) -> torch.Tensor:
@@ -135,6 +144,15 @@ def run_end(counts: torch.Tensor, run: int) -> torch.Tensor:
     run: ``csrc/fused_kilonerf_common.cuh::find_run``)."""
     return torch.cumsum(torch.div(counts + run - 1, run, rounding_mode="floor"),
                         0).to(torch.int32)
+
+
+def run_plan(counts: torch.Tensor, n: int, run: int) -> tuple:
+    """``(run_end, ctas)`` of a kernel over ``n`` points in runs of ``run``
+    points of one network: the running count of runs, and a grid that
+    covers any placement of the points (ceil(n / run) full runs plus one
+    ragged run a network), so that no count is read back to the host; CTAs
+    past the last run return at once."""
+    return run_end(counts, run), -(-n // run) + counts.shape[0]
 
 
 # ---------------------------------------------------------------- plain
@@ -168,7 +186,7 @@ def _acts(wc: torch.Tensor, disp: Dispatch, tiles: _Tiles, h: int,
     cdt = wc.dtype
     p, d = 3 * (1 + 2 * pos_freqs), 3 * (1 + 2 * dir_freqs)
     v = {k: x[tiles.gid] for k, x in unpack(wc.float(), h, p, d).items()}
-    pay = pad_rows(disp.pay)[tiles.src]                      # (tiles, t, 8)
+    pay = pad_rows(disp.sorted_pay)[tiles.src]               # (tiles, t, 8)
 
     def r(x):
         return round_to(x, cdt)
@@ -198,20 +216,21 @@ def packed_size(h: int, pos_freqs: int, dir_freqs: int) -> int:
 
 def kilonerf_fwd_plain(wc: torch.Tensor, disp: Dispatch, h: int, pos_freqs: int,
                        dir_freqs: int) -> torch.Tensor:
-    """The forward kernel's function in plain PyTorch: the sorted (n, 4)
-    float32 (rgb, sigma) of the dispatch's payload; ``wc`` the packing as
-    ``cast_packed`` gives it, ``h`` the width."""
+    """The forward kernels' function in plain PyTorch: the (n, 4) float32
+    (rgb, sigma) of the dispatch's points, in point order; ``wc`` the
+    packing as ``cast_packed`` gives it, ``h`` the width."""
     tiles = _tiles(disp, PLAIN_TILE)
     a = _acts(wc, disp, tiles, h, pos_freqs, dir_freqs)
     out = torch.cat([a["rgb"], torch.relu(a["sigma_pre"])[..., None]], dim=-1)
-    return out.reshape(-1, 4)[tiles.pos]
+    out = out.reshape(-1, 4)[tiles.pos]
+    return torch.empty_like(out).index_copy(0, disp.order, out)
 
 
 def kilonerf_bwd_plain(wc: torch.Tensor, disp: Dispatch, cot: torch.Tensor, h: int,
                        pos_freqs: int, dir_freqs: int) -> torch.Tensor:
     """The backward kernel's function in plain PyTorch: the (G^3, R)
     float32 gradient, in the packed layout, of sum(cot * [rgb, sigma]) over
-    the sorted points (``cot`` the sorted (n, 4) cotangent). Matrix
+    the points (``cot`` the (n, 4) cotangent in point order). Matrix
     gradients are products of rounded activations and rounded cotangents,
     bias gradients (and the density row's) float32 sums of unrounded ones
     (``_bwd_tile_multi``); networks without points get exact zeros."""
@@ -219,7 +238,7 @@ def kilonerf_bwd_plain(wc: torch.Tensor, disp: Dispatch, cot: torch.Tensor, h: i
     tiles = _tiles(disp, PLAIN_TILE)
     a = _acts(wc, disp, tiles, h, pos_freqs, dir_freqs)
     v = a["w"]
-    g = pad_rows(cot)[tiles.src]                              # (tiles, t, 4)
+    g = pad_rows(cot[disp.order])[tiles.src]                  # (tiles, t, 4)
 
     def r(x):
         return round_to(x, cdt)
@@ -270,11 +289,12 @@ def kilonerf_bwd_plain(wc: torch.Tensor, disp: Dispatch, cot: torch.Tensor, h: i
 def _library(name: str) -> ctypes.CDLL:
     lib = library(name)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    if name == "fused_kilonerf_fwd":
-        lib.fused_kilonerf_fwd.argtypes = [vp] * 3 + [ci, vp] + [ci] * 8 + [vp, vp]
-        lib.fused_kilonerf_fwd.restype = ci
-        lib.fused_kilonerf_fwd_error.argtypes = [ci]
-        lib.fused_kilonerf_fwd_error.restype = ctypes.c_char_p
+    if name.startswith("fused_kilonerf_fwd"):
+        fn, err = getattr(lib, name), getattr(lib, name + "_error")
+        fn.argtypes = [vp] * 4 + [ci, vp] + [ci] * 7 + [vp, vp]
+        fn.restype = ci
+        err.argtypes = [ci]
+        err.restype = ctypes.c_char_p
     else:
         lib.fused_kilonerf_bwd.argtypes = [vp] * 4 + [ci, vp] + [ci] * 8 + [vp] * 3
         lib.fused_kilonerf_bwd.restype = ci
@@ -296,7 +316,7 @@ class _FieldFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, wpack, field, disp):
         wc = cast_packed(wpack, field.cdt)
-        out = field._forward(wc, disp)[disp.inv]
+        out = field._forward(wc, disp)
         ctx.field, ctx.disp, ctx.wc = field, disp, wc
         return out[:, :3], out[:, 3]
 
@@ -308,7 +328,7 @@ class _FieldFn(torch.autograd.Function):
             cot[:, :3] = g_rgb
         if g_sigma is not None:
             cot[:, 3] = g_sigma
-        return ctx.field._backward(ctx.wc, disp, cot[disp.order].contiguous()), None, None
+        return ctx.field._backward(ctx.wc, disp, cot), None, None
 
 
 # ---------------------------------------------------------------- wrapper
@@ -340,6 +360,11 @@ class KiloNeRFField:
         with torch.no_grad():
             return KiloNeRFField(self.model, cast_packed(pack_f32(self.model), self.cdt))
 
+    def fwd_library(self) -> str:
+        """The forward's kernel library: bfloat16 on the tensor cores,
+        float32 on the CUDA cores."""
+        return "fused_kilonerf_fwd_tc" if self.cdt == torch.bfloat16 else "fused_kilonerf_fwd"
+
     def supported(self) -> bool:
         """The widths the kernels cover: hidden 32, encodings of at most
         64 / 32 columns (L <= 10 / 4)."""
@@ -356,7 +381,7 @@ class KiloNeRFField:
             if wc is None:
                 with torch.no_grad():
                     wc = cast_packed(pack_f32(self.model), self.cdt)
-            out = self._forward(wc, disp)[disp.inv]
+            out = self._forward(wc, disp)
             rgb, sigma = out[:, :3], out[:, 3]
         return rgb.reshape(*shape, 3), sigma.reshape(shape)
 
@@ -394,22 +419,22 @@ class KiloNeRFField:
 
     def _launch_fwd(self, wc: torch.Tensor, disp: Dispatch) -> torch.Tensor:
         self._check(wc, disp)
-        n, g3 = disp.n, self.model.num_networks
+        n = disp.n
         out = torch.empty((n, 4), dtype=torch.float32, device=disp.pay.device)
         if n == 0:
             return out
-        ends = run_end(disp.counts, FWD_RUN)
-        grid = -(-n // FWD_RUN) + g3
-        lib = _library("fused_kilonerf_fwd")
+        ends, grid = run_plan(disp.counts, n, FWD_RUN)
+        name = self.fwd_library()
+        lib = _library(name)
         with torch.cuda.device(disp.pay.device):
             stream = torch.cuda.current_stream().cuda_stream
-            code = lib.fused_kilonerf_fwd(
-                disp.pay.data_ptr(), disp.offsets.data_ptr(), ends.data_ptr(), g3,
-                wc.data_ptr(), wc.shape[1], self.real_p, self.real_d, self.h,
-                int(self.cdt == torch.bfloat16), n, FWD_RUN, grid, out.data_ptr(), stream)
+            code = getattr(lib, name)(
+                disp.pay.data_ptr(), disp.order.data_ptr(), disp.offsets.data_ptr(),
+                ends.data_ptr(), self.model.num_networks, wc.data_ptr(), wc.shape[1],
+                self.real_p, self.real_d, self.h, n, FWD_RUN, grid, out.data_ptr(), stream)
         if code != 0:
             raise RuntimeError("KiloNeRF forward kernel: "
-                               + lib.fused_kilonerf_fwd_error(code).decode())
+                               + getattr(lib, name + "_error")(code).decode())
         type(self).launches += 1
         return out
 
@@ -424,15 +449,14 @@ class KiloNeRFField:
         if n == 0:
             return out
         lib = _library("fused_kilonerf_bwd")
-        ends = run_end(disp.counts, BWD_RUN)
-        grid = -(-n // BWD_RUN) + g3
+        ends, grid = run_plan(disp.counts, n, BWD_RUN)
         partial = torch.empty((grid, lib.fused_kilonerf_partial_floats()),
                               dtype=torch.float32, device=cot.device)
-        cot = cot.contiguous()
+        cot = cot[disp.order].contiguous()
         with torch.cuda.device(cot.device):
             stream = torch.cuda.current_stream().cuda_stream
             code = lib.fused_kilonerf_bwd(
-                disp.pay.data_ptr(), cot.data_ptr(), disp.offsets.data_ptr(),
+                disp.sorted_pay.data_ptr(), cot.data_ptr(), disp.offsets.data_ptr(),
                 ends.data_ptr(), g3, wc.data_ptr(), wc.shape[1], self.real_p,
                 self.real_d, self.h, int(self.cdt == torch.bfloat16), n, BWD_RUN, grid,
                 partial.data_ptr(), out.data_ptr(), stream)

@@ -13,19 +13,34 @@
   ones stay on the CUDA-core kernels at one.
 * The scatter-add (row 19) sorts its keys by a radix sort whose passes and
   digit width follow from the number of rows.
+* The KiloNeRF forward (row 15) runs in bfloat16 on the tensor cores
+  (``csrc/fused_kilonerf_fwd_tc.cu``) and in float32 on the CUDA cores, both
+  over 128-point runs of one network whose plan follows from the counts.
+* The grid render (row 18) takes two affine scalars computed on the host;
+  they are held against nerf_tpu's ``FusedGridRender._cells``.
 
 The kernels themselves run only on the card (``tests/test_torch_port_cuda.py``).
 """
 
 from __future__ import annotations
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from nerf_tpu.models.plenoxels import PlenoxelsModel as JaxPlenoxels
+from nerf_tpu.ops.pallas.fused_grid_render import make_fused_grid_render as jax_grid_render
+
 from nerf_tpu_torch.models.gabor import GaborModel
+from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
+from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
 from nerf_tpu_torch.models.siren import SirenModel
 from nerf_tpu_torch.ops.cuda import build, fused_render, fused_render_gabor, fused_render_siren
+from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedGridRender, cells_affine
+from nerf_tpu_torch.ops.cuda.fused_kilonerf import (
+    FWD_RUN, KiloNeRFField, dispatch, run_plan)
 from nerf_tpu_torch.ops.cuda.fused_render import (
     TC_BYTES_PER_POINT, FusedNerfRender, FusedRender, fwd_rays_per_cta, launch_plan)
 from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
@@ -183,14 +198,75 @@ def test_fwd_library_routes_bf16_to_the_tensor_cores(family, cdt, monkeypatch):
 
 
 def test_build_lists_the_tensor_core_forward_renders():
-    """Twenty-two libraries, one per .cu source, the three tensor-core
-    forward renders and the SIREN's tensor-core train pass beside the
-    CUDA-core ones they took bfloat16 from."""
-    assert len(build.LIBS) == len(set(build.LIBS)) == 22
+    """Twenty-three libraries, one per .cu source, the three tensor-core
+    forward renders, the SIREN's tensor-core train pass and the KiloNeRF
+    tensor-core forward beside the CUDA-core ones they took bfloat16 from."""
+    assert len(build.LIBS) == len(set(build.LIBS)) == 23
     for name in ("fused_render_fwd_tc", "fused_render_gabor_fwd_tc",
                  "fused_render_siren_fwd_tc", "fused_render_siren_train_tc",
+                 "fused_kilonerf_fwd_tc", "fused_kilonerf_fwd",
                  "fused_render_fwd", "fused_render_gabor_fwd",
                  "fused_render_siren_fwd", "fused_render_siren_train"):
         assert name in build.LIBS
     sources = {p.stem for p in build._CSRC.glob("*.cu")}
     assert sources == set(build.LIBS)
+
+
+@pytest.mark.parametrize("counts, ends, ctas", [
+    ([300, 0, 128, 1], [3, 3, 4, 5], 8),          # ragged, empty and one-point runs
+    ([0, 0, 0, 37], [0, 0, 0, 1], 5),             # 37 points, one network
+    ([5000, 0, 0, 0], [40, 40, 40, 40], 44),      # every point in one voxel
+])
+def test_kilonerf_fwd_launch_plan(counts, ends, ctas):
+    """Row 15's plan: the running count of 128-point runs of one network
+    (a CTA's run, find_run), and a grid of ceil(n / 128) + G^3 CTAs that
+    covers any placement of n points without reading the counts back."""
+    counts = torch.tensor(counts)
+    got_ends, got_ctas = run_plan(counts, int(counts.sum()), FWD_RUN)
+    assert got_ends.dtype == torch.int32 and got_ends.tolist() == ends
+    assert got_ctas == ctas >= ends[-1]
+
+
+def test_kilonerf_fwd_launch_plan_at_the_camera_set():
+    """At 262,144 points of a 1024 x 256 camera set over the 512 networks of
+    the kilonerf config, the plan holds at most 2,048 + 512 runs; the
+    bfloat16 forward goes to the tensor-core library, float32 to the
+    CUDA-core one."""
+    gen = torch.Generator().manual_seed(0)
+    pts = torch.rand(262144, 3, generator=gen) * 2.0 - 1.0
+    pts[:200000] = pts[:200000] * 0.1 - 0.5                # a skewed scene
+    model = KiloNeRFModel(grid_res=8, hidden_dim=32, compute_dtype="bfloat16")
+    disp = dispatch(model, pts, torch.nn.functional.normalize(pts, dim=-1))
+    ends, ctas = run_plan(disp.counts, disp.n, FWD_RUN)
+    assert ctas == 2048 + 512
+    runs = int(ends[-1])
+    assert runs == sum(-(-int(c) // FWD_RUN) for c in disp.counts) <= ctas
+    assert KiloNeRFField(model).fwd_library() == "fused_kilonerf_fwd_tc"
+    assert KiloNeRFField(KiloNeRFModel(grid_res=2)).fwd_library() == "fused_kilonerf_fwd"
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_grid_render_affine_scalars_match_nerf_tpu_cells(normalize):
+    """The two scalars FusedGridRender.affine computes on the host, applied
+    as the kernel applies them (scale * o + off, scale * d, then + d' t and
+    the clamp), give nerf_tpu's _cells at every sample: 16 rays x 24 samples
+    over lego_siren.txt's grid domain at R = 16, with and without the
+    [near, far] normalisation."""
+    domain, near, far, r = (-2.75, -1.25), 2.0, 6.0, 16
+    rng = np.random.default_rng(3)
+    o = rng.normal(size=(16, 3)).astype(np.float32) * 2.0
+    d = rng.normal(size=(16, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.sort(rng.uniform(near, far, (16, 24)).astype(np.float32), axis=-1)
+    jfr = jax_grid_render(JaxPlenoxels(grid_res=r, domain=domain), near, far,
+                          normalize=normalize, interpret=True, force=True)
+    want = np.stack([np.asarray(x) for x in jfr._cells(jnp.asarray(o), jnp.asarray(d),
+                                                        jnp.asarray(t))], axis=-1)
+    fr = FusedGridRender(PlenoxelsModel(grid_res=r, domain=domain), near, far, normalize)
+    scale, off = fr.affine(r)
+    assert isinstance(scale, float) and isinstance(off, float)
+    o_aff, d_aff = cells_affine(torch.from_numpy(o), torch.from_numpy(d), scale, off)
+    got = (o_aff[:, None, :] + d_aff[:, None, :] * torch.from_numpy(t)[..., None]).clamp(
+        0.0, r - 1.0)
+    assert bool(((got > 0.0) & (got < r - 1.0)).any())
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=4 * np.spacing(np.float32(r)))
