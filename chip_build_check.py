@@ -8,7 +8,10 @@ A change to the kernel pieces that several kernels share
 computing what they computed. This script runs, on seeded inputs with the
 checkout it is given, the NeRF and SIREN forward renders, train passes and
 render backwards and the GaborNet forward render (300 x 37 and 1024 x 64,
-float32 and bfloat16); the KiloNeRF field's parameter gradients under a
+float32 and bfloat16); the GaborNet train pass in float32 (row 12's
+CUDA-core kernel) at those shapes, and its field forward and backward (rows
+13 and 14, both dtypes) at 5,003 and 37 points; the KiloNeRF field's
+parameter gradients under a
 loss linear in its outputs (row 16's kernel, which the forward's outputs do
 not reach) and its float32 outputs (row 15's CUDA-core kernel); the grid
 interpolation of row 17 at training-ray and image-ray points; and row 19's
@@ -91,6 +94,43 @@ def kilonerf(torch, dev, res: dict) -> None:
                 res[f"kilonerf fwd {cdt} {n} sigma"] = sigma.detach().cpu()
 
 
+def gabor_train_and_field(torch, dev, res: dict) -> None:
+    """Row 12 in float32 (loss, rgb, acc, weights, the gradients and
+    dA..dR) at 300 x 37 and 1024 x 64; rows 13 and 14 in both dtypes (rgb
+    and sigma; the weight and bank gradients and the point and direction
+    cotangents of a seeded cotangent) at 5,003 and 37 points."""
+    from nerf_tpu_torch.models.gabor import GaborModel
+    from nerf_tpu_torch.ops.cuda.fused_gabor import GaborField
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender, gabor_coeffs
+
+    for cdt in ("float32", "bfloat16"):
+        model = GaborModel(compute_dtype=cdt,
+                           generator=torch.Generator().manual_seed(7)).to(dev)
+        if cdt == "float32":
+            fr = FusedGaborRender(model, 2.0, 6.0)
+            gp = fr.pack(model)
+            for r, s in ((300, 37), (1024, 64)):
+                ro, rd, t, tgt = _inputs(torch, dev, r, s, r + s)
+                coeffs = gabor_coeffs(*gp.filters, *fr.affine(ro, rd))
+                loss, rgb, acc, weights, (gw, gv), dcoef = fr._train(
+                    gp.packed, coeffs, rd, t, tgt, True)
+                for k, v in (("loss", loss), ("rgb", rgb), ("acc", acc), ("weights", weights),
+                             ("gw", gw), ("gv", gv), ("dcoef", dcoef)):
+                    res[f"gabor train {cdt} {r}x{s} {k}"] = v.cpu()
+        field = GaborField(model).pack()
+        for n in (5003, 37):
+            ro, rd, t, _ = _inputs(torch, dev, n, 1, n)
+            pts = 0.5 * (ro + t * rd)
+            rgb, sigma = field._forward(field.packed, pts, rd)
+            res[f"gabor field fwd {cdt} {n} rgb"] = rgb.cpu()
+            res[f"gabor field fwd {cdt} {n} sigma"] = sigma.cpu()
+            cot = torch.randn(n, 4, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(n + 1))
+            for k, v in zip(("gw", "gv", "gf", "dpts", "ddirs"),
+                            field._backward(field.packed, pts, rd, cot)):
+                res[f"gabor field bwd {cdt} {n} {k}"] = v.cpu()
+
+
 def grids(torch, dev, res: dict) -> None:
     """Row 17 on a seeded 64^3 x 28 grid (float32 and its bfloat16 copy) at
     2,048 x 16 points of random rays and of one view's rays; row 19 at
@@ -154,6 +194,8 @@ def save(out: str, checkout: str) -> int:
                 ro, rd, t, _ = _inputs(torch, dev, r, s, r + s)
                 for k, v in gr(gabor, ro, rd, rd, t).items():
                     res[f"gabor fwd {cdt} {r}x{s} {k}"] = v.cpu()
+    with torch.no_grad():
+        gabor_train_and_field(torch, dev, res)
     kilonerf(torch, dev, res)
     with torch.no_grad():
         grids(torch, dev, res)

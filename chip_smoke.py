@@ -8,9 +8,10 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
   1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
   2. the build of every kernel library from the sources in the checkout
      (one nvcc per source, started together), timed, and the count of
-     tensor-core instructions in the SASS of the six bf16 libraries on
-     the tensor cores (the NeRF and SIREN train passes, the NeRF, SIREN and
-     GaborNet forward renders, the KiloNeRF forward; cuobjdump);
+     tensor-core instructions in the SASS of the eight bf16 libraries on
+     the tensor cores (the NeRF, SIREN and GaborNet train passes, the
+     NeRF, SIREN and GaborNet forward renders, the KiloNeRF and GaborNet
+     field forwards; cuobjdump);
   3. every kernel against its plain PyTorch version on the card (TF32 off):
      the forward render at the serving shapes (8192 rays x 64 and 192
      samples), the train pass and the render backward at the training
@@ -66,13 +67,14 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      bf16, 1024 x 256, the 1<<20 pool, warm-up, 50 chained steps timed to a
      host fetch) in rays/s;
  10. the GaborNet kernels against their plain versions on the card (TF32
-     off): the forward render at 1024 x 256, 1000 x 256 and 1024 x 37 (in
-     bfloat16 on the tensor cores, run twice for identical bits, timed
-     beside the CUDA-core kernel it replaced), the
-     train pass at 1024 x 256 (loss, rgb, acc, weights, every weight
+     off): the forward render and the train pass at 1024 x 256, 1000 x 256
+     and 1024 x 37 (the train pass: loss, rgb, acc, weights, every weight
      gradient, the coefficient cotangents dA..dR, and the filter gradients
-     after autograd through the prep), float32 and bfloat16, timed in turns
-     against their plain versions and their bound;
+     after autograd through the prep), float32 and bfloat16 (in bfloat16
+     both on the tensor cores, run twice for identical bits and timed
+     beside the CUDA-core kernels they replaced; the forward render's rgb,
+     acc and weights equal to the train pass's on a 1024 x 64 batch), timed
+     in turns at 1024 x 256 against their plain versions and their bound;
  11. serving configs/lego_siren.txt with model_type = gabor (GaborNet, 8
      stages, hidden 256, coarse-only 256 samples, chunk 1024, bf16) as in 8:
      157 Gabor forward launches per request, one image held against the
@@ -135,7 +137,9 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      point sets: rgb, sigma and every gradient (weights, the GaborNet's
      filter banks after autograd through the packing, points, directions);
      each timed in turns at 65,536 and 16,384 points (runs of 20 launches
-     per pair of events) against its bound;
+     per pair of events) against its bound; the bfloat16 GaborNet forward
+     runs on the tensor cores, twice for identical bits at every point set,
+     its time printed beside the CUDA-core kernel's it replaced;
  21. serving lego_siren.txt and its GaborNet variant with --occupancy 64
      from phase 9's and phase 12's checkpoints: four field-kernel launches
      per bake, the grid equal to the one baked through the plain version,
@@ -242,10 +246,17 @@ ROW11_BF16_CUDA_CORE_MS = 10.264
 # PERF.md's earlier times, NVIDIA H100 80GB HBM3, 700.00 W).
 ROW6_BF16_CUDA_CORE_MS = 8.977
 ROW8_BF16_CUDA_CORE_MS = 38.388
+# Rows 12 and 13's bfloat16 GaborNet train pass and field forward on the CUDA
+# cores, before they moved to the tensor cores (csrc/fused_render_gabor_train.cu
+# at 1024 x 256, csrc/fused_gabor_fwd.cu at 65,536 / 16,384 points; PERF.md's
+# earlier times, NVIDIA H100 80GB HBM3, 700.00 W).
+ROW12_BF16_CUDA_CORE_MS = 41.833
+ROW13_BF16_CUDA_CORE_MS = {65536: 2.901, 16384: 0.728}
 # the libraries of the bf16 kernels on the tensor cores (phase 2 reads
 # their SASS)
 TC_LIBS = ("fused_render_train_tc", "fused_render_fwd_tc", "fused_render_gabor_fwd_tc",
-           "fused_render_siren_fwd_tc", "fused_render_siren_train_tc", "fused_kilonerf_fwd_tc")
+           "fused_render_siren_fwd_tc", "fused_render_siren_train_tc", "fused_kilonerf_fwd_tc",
+           "fused_render_gabor_train_tc", "fused_gabor_fwd_tc")
 # per-sample MACs of the backward's skipped input-gradient products
 # (dz1 w1^T, dz6 w6p^T, dzr0 wr0d^T at the real widths 63/63/27)
 SKIPPED_MACS = 256 * 63 + 256 * 63 + 128 * 27
@@ -1100,19 +1111,21 @@ def check_siren_kernels(torch, dev):
 
 
 def check_gabor_kernels(torch, dev):
-    """The GaborNet forward at 1024 x 256 (lego_siren.txt's chunk and
-    samples), 1000 x 256 (ragged) and 1024 x 37 (odd S: chunks span rays);
-    the train pass at 1024 x 256, its coefficient cotangents dA..dR (max abs
-    over max |d| per coefficient) and the filter gradients after autograd
-    through the prep (as grad_errors); float32 and bfloat16, TF32 off; the
-    tolerances of the NeRF kernels. The bfloat16 forward runs on the tensor
-    cores (csrc/fused_render_gabor_fwd_tc.cu): two launches must give the
-    same bits at each shape, and its time is printed beside the CUDA-core
-    kernel's it replaced."""
+    """The GaborNet forward and train pass at 1024 x 256 (lego_siren.txt's
+    chunk, step and samples), 1000 x 256 (ragged) and 1024 x 37 (odd S:
+    chunks span rays); the train pass's coefficient cotangents dA..dR (max
+    abs over max |d| per coefficient) and the filter gradients after
+    autograd through the prep (as grad_errors); float32 and bfloat16, TF32
+    off; the tolerances of the NeRF kernels. In bfloat16 both run on the
+    tensor cores (csrc/fused_render_gabor_fwd_tc.cu,
+    csrc/fused_render_gabor_train_tc.cu): two launches of each must give
+    the same bits at each shape, their times at 1024 x 256 are printed
+    beside the CUDA-core kernels' they replaced, and the forward's rgb, acc
+    and weights must equal the train pass's (one chain) on a 1024 x 64
+    batch."""
     from nerf_tpu_torch.models.gabor import GaborModel
     from nerf_tpu_torch.ops.cuda.fused_render_gabor import (
-        FusedGaborRender, fused_gabor_render_plain, fused_gabor_train_plain,
-        gabor_coeffs, grad_views, stack_filters)
+        FusedGaborRender, fused_gabor_render_plain, gabor_coeffs)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1126,7 +1139,6 @@ def check_gabor_kernels(torch, dev):
         packed = gpack.packed
         weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
                         + packed.vec.numel() * 4)
-        grad_bytes = (packed.wmat.numel() + packed.vec.numel()) * 4
         worst = 0.0
         for r, s in ((R_SIREN, S_SIREN), (1000, S_SIREN), (R_SIREN, 37)):
             ro, rd, t, _ = camera_batch(torch, dev, r, s, 5000 + r + s)
@@ -1188,46 +1200,105 @@ def check_gabor_kernels(torch, dev):
             worst = max(worst, max(errs.values()))
         results[("fused_render_gabor_fwd", cdt)]["err"] = worst
 
-        # the train pass at lego_siren.txt's shape, then the filter gradients
+        # the train pass at the forward's shapes, then the filter gradients
         # through the prep from each side's dA..dR
-        r, s = R_TRAIN, S_SIREN
-        cam, rd, t, tgt = camera_batch(torch, dev, r, s, 6000 + s)
-        o_aff, d_aff = fr.affine(cam, rd)
-        filters = stack_filters(model)
-        coeffs = gabor_coeffs(*filters, o_aff, d_aff)
-        cdet = coeffs.detach()
-        with torch.no_grad():
-            ref = fused_gabor_train_plain(packed, cdet, rd, t, tgt, True, k)
-            got = fr._train(packed, cdet, rd, t, tgt, True)
+        tc = fr.grad_library(True) == "fused_render_gabor_train_tc"
+        worst = 0.0
+        for r, s in ((R_TRAIN, S_SIREN), (1000, S_SIREN), (R_TRAIN, 37)):
+            worst = max(worst, check_gabor_train(torch, dev, model, fr, packed, cdt, r, s,
+                                                 tc, results))
+        results[("fused_render_gabor_train", cdt)]["err"] = worst
+    # the bf16 forward render and train pass run one chain: on one batch
+    # their rgb, acc and compositing weights are equal bit for bit
+    rays_o, rays_d, t, target = camera_batch(torch, dev, R_TRAIN, 64, 6064)
+    with torch.no_grad():
+        coeffs = gabor_coeffs(*gpack.filters, *fr.affine(rays_o, rays_d))
+        out = fr._forward(packed, coeffs, rays_d, t)
+        _, rgb, acc, weights, _, _ = fr._train(packed, coeffs, rays_d, t, target, True)
+        torch.cuda.synchronize()
+    diff = {"rgb": float((out[0] - rgb).abs().max()), "acc": float((out[1] - acc).abs().max()),
+            "weights": float((out[3] - weights).abs().max())}
+    say(f"kernel fused_render_gabor_fwd bfloat16 R={R_TRAIN} S=64 against the train pass "
+        f"({fr.grad_library(True)}): max abs "
+        + " ".join(f"{n}={v:.3e}" for n, v in diff.items()) + " (want 0: one chain)")
+    if any(diff.values()):
+        fail(f"the bf16 GaborNet forward render and train pass disagree: {diff}")
+    return results
+
+
+def check_gabor_train(torch, dev, model, fr, packed, cdt: str, r: int, s: int, tc: bool,
+                      results: dict) -> float:
+    """Phase 10's train pass at r x s (``tc``: the bfloat16 one on the tensor
+    cores, launched twice for identical bits): loss, rgb, acc, weights, every
+    weight gradient, dA..dR and the filter gradients through the prep
+    against the plain version; at 1024 x 256 also timed in turns against it
+    and the bound into ``results``. Returns the worst error."""
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import (
+        fused_gabor_train_plain, gabor_coeffs, grad_views, stack_filters)
+
+    k = fr.consts
+    weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
+                    + packed.vec.numel() * 4)
+    grad_bytes = (packed.wmat.numel() + packed.vec.numel()) * 4
+    cam, rd, t, tgt = camera_batch(torch, dev, r, s, 6000 + s + r - R_TRAIN)
+    o_aff, d_aff = fr.affine(cam, rd)
+    filters = stack_filters(model)
+    coeffs = gabor_coeffs(*filters, o_aff, d_aff)
+    cdet = coeffs.detach()
+    with torch.no_grad():
+        ref = fused_gabor_train_plain(packed, cdet, rd, t, tgt, True, k)
+        got = fr._train(packed, cdet, rd, t, tgt, True)
+        if tc:
+            again = fr._train(packed, cdet, rd, t, tgt, True)
             torch.cuda.synchronize()
-        errs = {"loss": float(abs(got[0] - ref[0]) / abs(ref[0]))}
-        for i, name in ((1, "rgb"), (2, "acc"), (3, "weights")):
-            if not torch.isfinite(got[i]).all():
-                fail(f"gabor train kernel {cdt}: non-finite {name}")
-            errs[name] = float((got[i] - ref[i]).abs().max())
-        gerr = grad_errors(torch, got[4], ref[4], grad_views)
-        if not torch.isfinite(got[5]).all():
-            fail(f"gabor train kernel {cdt}: non-finite coefficient cotangents")
-        derr = {f"d{c}": float((got[5][j] - ref[5][j]).abs().max() / ref[5][j].abs().max())
-                for j, c in enumerate("ABPQR")}
-        h = model.hidden_dim
+            if not all(torch.equal(x, y) for x, y in zip(got[:4] + got[4] + got[5:],
+                                                         again[:4] + again[4] + again[5:])):
+                fail(f"gabor train kernel {cdt} R={r} S={s}: two launches differ")
+            del again
+        torch.cuda.synchronize()
+    errs = {"loss": float(abs(got[0] - ref[0]) / abs(ref[0]))}
+    for i, name in ((1, "rgb"), (2, "acc"), (3, "weights")):
+        if not torch.isfinite(got[i]).all():
+            fail(f"gabor train kernel {cdt} R={r} S={s}: non-finite {name}")
+        errs[name] = float((got[i] - ref[i]).abs().max())
+    gerr = grad_errors(torch, got[4], ref[4], grad_views)
+    if not torch.isfinite(got[5]).all():
+        fail(f"gabor train kernel {cdt} R={r} S={s}: non-finite coefficient cotangents")
+    derr = {f"d{c}": float((got[5][j] - ref[5][j]).abs().max() / ref[5][j].abs().max())
+            for j, c in enumerate("ABPQR")}
+    h = model.hidden_dim
 
-        def per_stage(grads):
-            om, ph, mu, ga = grads
-            out = {}
-            for i in range(model.num_layers):
-                cols = slice(i * h, (i + 1) * h)
-                out.update({f"omega{i}": om[:, cols], f"phi{i}": ph[cols],
-                            f"mu{i}": mu[cols], f"gamma{i}": ga[cols]})
-            return out
+    def per_stage(grads):
+        om, ph, mu, ga = grads
+        out = {}
+        for i in range(model.num_layers):
+            cols = slice(i * h, (i + 1) * h)
+            out.update({f"omega{i}": om[:, cols], f"phi{i}": ph[cols],
+                        f"mu{i}": mu[cols], f"gamma{i}": ga[cols]})
+        return out
 
-        ref_f = per_stage(torch.autograd.grad(coeffs, filters, ref[5], retain_graph=True))
-        got_f = per_stage(torch.autograd.grad(coeffs, filters, got[5]))
-        floor = 1e-2 * max(float(v.abs().max()) for v in ref_f.values())
-        ferr = {n: float((got_f[n] - ref_f[n]).abs().max())
-                / max(float(ref_f[n].abs().max()), floor) for n in ref_f}
-        del ref, got, ref_f, got_f, coeffs, filters
-        torch.cuda.empty_cache()
+    ref_f = per_stage(torch.autograd.grad(coeffs, filters, ref[5], retain_graph=True))
+    got_f = per_stage(torch.autograd.grad(coeffs, filters, got[5]))
+    floor = 1e-2 * max(float(v.abs().max()) for v in ref_f.values())
+    ferr = {n: float((got_f[n] - ref_f[n]).abs().max())
+            / max(float(ref_f[n].abs().max()), floor) for n in ref_f}
+    del ref, got, ref_f, got_f, coeffs, filters
+    torch.cuda.empty_cache()
+    bad = {n: v for n, v in errs.items() if v > TOL[cdt]["rgb"]}
+    for label, e in (("train", gerr), ("dA..dR", derr), ("filters", ferr)):
+        w = max(e, key=e.get)
+        say(f"kernel gabor {label} {cdt} R={r} S={s}: gradient error (max abs "
+            f"over max |g|) worst {w}={e[w]:.3e} (tol {GRAD_TOL[cdt]:.0e}), "
+            f"median {statistics.median(e.values()):.3e}"
+            + ("" if label == "filters" else "; " + " ".join(
+                f"{n}={v:.1e}" for n, v in e.items())))
+        bad.update({f"{label}:{n}": v for n, v in e.items() if v > GRAD_TOL[cdt]})
+    say(f"kernel gabor train {cdt} R={r} S={s}: "
+        + " ".join(f"{n}={v:.3e}" for n, v in errs.items())
+        + f" (tol {TOL[cdt]['rgb']:.0e})" + (", two launches bit-identical" if tc else ""))
+    if bad:
+        fail(f"gabor train kernel {cdt} R={r} S={s} disagrees: {bad}")
+    if (r, s) == (R_TRAIN, S_SIREN):
         with torch.no_grad():
             fns = {"plain": lambda: fused_gabor_train_plain(packed, cdet, rd, t, tgt,
                                                              True, k),
@@ -1238,33 +1309,21 @@ def check_gabor_kernels(torch, dev):
             for which in ("plain", "kernel", "kernel", "plain"):
                 times[which] += time_calls(torch, fns[which], 2)
             torch.cuda.empty_cache()
-        bad = {n: v for n, v in errs.items() if v > TOL[cdt]["rgb"]}
-        for label, e in (("train", gerr), ("dA..dR", derr), ("filters", ferr)):
-            w = max(e, key=e.get)
-            say(f"kernel gabor {label} {cdt} R={r} S={s}: gradient error (max abs "
-                f"over max |g|) worst {w}={e[w]:.3e} (tol {GRAD_TOL[cdt]:.0e}), "
-                f"median {statistics.median(e.values()):.3e}"
-                + ("" if label == "filters" else "; " + " ".join(
-                    f"{n}={v:.1e}" for n, v in e.items())))
-            bad.update({f"{label}:{n}": v for n, v in e.items() if v > GRAD_TOL[cdt]})
-        say(f"kernel gabor train {cdt} R={r} S={s}: "
-            + " ".join(f"{n}={v:.3e}" for n, v in errs.items())
-            + f" (tol {TOL[cdt]['rgb']:.0e})")
         ms = statistics.median(times["kernel"])
         plain_ms = statistics.median(times["plain"])
         bms, by = bound_ms(r, s, cdt, weight_bytes + r * GABOR_COEF_BYTES,
                            3 * GABOR_MACS - GABOR_SKIPPED, 2 * GABOR_TRIG,
                            grad_bytes + r * GABOR_COEF_BYTES, True)
-        say(f"kernel fused_render_gabor_train {cdt} R={r} S={s}: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), share of bound "
+        say(f"kernel fused_render_gabor_train {cdt} R={r} S={s}: kernel {ms:.3f} ms"
+            + (f" (tensor cores; the CUDA-core kernel it replaced "
+               f"{ROW12_BF16_CUDA_CORE_MS:.3f} ms, x{ROW12_BF16_CUDA_CORE_MS / ms:.2f}; "
+               f"two launches bit-identical)" if tc else "")
+            + f", plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), share of bound "
             f"{bms / ms:.4f}")
-        worst = max(list(gerr.values()) + list(derr.values()) + list(ferr.values())
-                    + list(errs.values()))
         results[("fused_render_gabor_train", cdt)] = dict(
-            err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
-        if bad:
-            fail(f"gabor train kernel {cdt} disagrees: {bad}")
-    return results
+            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    return max(list(gerr.values()) + list(derr.values()) + list(ferr.values())
+               + list(errs.values()))
 
 
 # ---------------------------------------------------------------- phase 13
@@ -1630,6 +1689,42 @@ def bank_grads(torch, model, gf) -> dict:
     return {name: g for (name, _), g in zip(names, grads)}
 
 
+def row14_recomputed_forward(torch, field, pts, dirs):
+    """rgb and sigma of the forward that row 14 (the GaborNet field
+    backward, on the CUDA cores) recomputes, read from its stash after one
+    launch with a zero cotangent: each CTA's scratch ends in N_COLS = 16
+    per-point columns (fused_render_gabor_common.cuh), of which C_SIGP = 0
+    holds sigma_pre and C_RGB = 1..3 the rgb (render_common.cuh); sigma =
+    relu(sigma_pre) * sigma_mul as the forward forms it."""
+    from nerf_tpu_torch.ops.cuda.fused_gabor import _library, _names, grad_sizes
+
+    pk, k = field.packed, field.consts
+    packed, n, dev = pk.packed, pts.shape[0], pts.device
+    lib = _library("fused_gabor_bwd")
+    per_point, npart, n_out = grad_sizes(lib.gabor_field_bwd_sizes)
+    run, grid = field._runs(n, dev)
+    wmat_t = torch.cat([packed.mats[m].t().reshape(-1) for m in _names(field.n)[0]])
+    scratch = torch.empty(grid * run * per_point, dtype=torch.float32, device=dev)
+    partial = torch.empty(grid * npart, dtype=torch.float32, device=dev)
+    out = torch.empty(n_out, dtype=torch.float32, device=dev)
+    dpts, ddirs = (torch.empty(n, 3, dtype=torch.float32, device=dev) for _ in range(2))
+    cot = torch.zeros(n, 4, dtype=torch.float32, device=dev)
+    code = lib.gabor_field_bwd(
+        pts.data_ptr(), dirs.data_ptr(), cot.data_ptr(), packed.wmat.data_ptr(),
+        wmat_t.data_ptr(), packed.vec.data_ptr(), pk.filters.data_ptr(),
+        packed.wmat.numel(), packed.vec.numel(), pk.filters.numel(),
+        int(field.cdt == torch.bfloat16), n, run, run, field.real_d, k.sigma_mul,
+        k.rgb_mul, scratch.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        dpts.data_ptr(), ddirs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        fail("GaborNet field backward kernel: " + lib.gabor_field_bwd_error(code).decode())
+    torch.cuda.synchronize()
+    cols = scratch.view(grid, per_point, run)[:, per_point - 16:]
+    sigma = torch.clamp_min(cols[:, 0].reshape(-1)[:n], 0.0) * k.sigma_mul
+    rgb = cols[:, 1:4].permute(0, 2, 1).reshape(-1, 3)[:n]
+    return rgb, sigma
+
+
 def check_siren_gabor_field_kernels(torch, dev):
     """The SIREN and GaborNet field kernels (forward and backward) against
     their plain versions on every phase-17 point set, float32 and bfloat16
@@ -1657,6 +1752,8 @@ def check_siren_gabor_field_kernels(torch, dev):
             grad_bytes = (packed.wmat.numel() + packed.vec.numel() + n_f) * 4
             tol_out, tol_grad, tol_pt = SG_TOL.get(
                 (family, cdt), (TOL[cdt]["rgb"], GRAD_TOL[cdt], FIELD_PT_TOL[cdt]))
+            # the bf16 GaborNet forward on the tensor cores (row 13)
+            tc_fwd = getattr(field, "fwd_library", lambda: "")() == "fused_gabor_fwd_tc"
             worst = {"fwd": 0.0, "bwd": 0.0}
             for label, (pts, dirs) in sets.items():
                 n = pts.shape[0]
@@ -1665,9 +1762,28 @@ def check_siren_gabor_field_kernels(torch, dev):
                 with torch.no_grad():
                     ref = plain_fwd(pk, pts, dirs)
                     out = field._forward(pk, pts, dirs)
+                    if tc_fwd:
+                        again = field._forward(pk, pts, dirs)
+                        torch.cuda.synchronize()
+                        if not all(torch.equal(x, y) for x, y in zip(out, again)):
+                            fail(f"{family} field forward {cdt} {label}: two launches "
+                                 "differ")
+                        del again
                     ref_g = plain_bwd(pk, pts, dirs, cot)
                     got_g = field._backward(pk, pts, dirs, cot)
                     torch.cuda.synchronize()
+                    if family == "gabor" and n == 16384:
+                        # the forward row 14's gradient is taken at (its
+                        # recompute on the CUDA cores) against the one row
+                        # 13 returns; in float32 both are one chain, so a
+                        # zero there shows the stash was read right
+                        rec = row14_recomputed_forward(torch, field, pts, dirs)
+                        say(f"kernel gabor field {cdt} {label}: row 14's recomputed "
+                            f"forward against row 13's: max abs rgb "
+                            f"{float((rec[0] - out[0]).abs().max()):.3e}, sigma "
+                            f"{float((rec[1] - out[1]).abs().max()):.3e} (max sigma "
+                            f"{float(out[1].abs().max()):.3g})")
+                        del rec
                     if n < 1000:
                         # the plain version itself at these points inside a
                         # larger batch (its products in another order)
@@ -1710,7 +1826,8 @@ def check_siren_gabor_field_kernels(torch, dev):
                     + "; ".join(f"{k} cotangent error 99.9% {q:.3e} (tol "
                                 f"{tol_pt:.0e}), worst {m:.3e}"
                                 for k, (q, m) in pt.items())
-                    + f"; points beyond the tol: {bad_pts} of {n}")
+                    + f"; points beyond the tol: {bad_pts} of {n}"
+                    + ("; forward two launches bit-identical" if tc_fwd else ""))
                 if (max(errs.values()) > tol_out or gerr[w] > tol_grad
                         or max(q for q, _ in pt.values()) > tol_pt
                         or bad_pts > 0.001 * n):
@@ -1747,9 +1864,13 @@ def check_siren_gabor_field_kernels(torch, dev):
                     bms, by = field_bound_ms(
                         n, cdt, weight_bytes, grad_bytes if name.endswith("bwd") else None,
                         family)
-                    say(f"kernel {name} {cdt} {label}: kernel {ms:.3f} ms, plain "
-                        f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), share of bound "
-                        f"{bms / ms:.4f}")
+                    was = (ROW13_BF16_CUDA_CORE_MS[n]
+                           if tc_fwd and name == "fused_gabor_fwd" else None)
+                    say(f"kernel {name} {cdt} {label}: kernel {ms:.3f} ms"
+                        + (f" (tensor cores; the CUDA-core kernel it replaced {was:.3f} "
+                           f"ms, x{was / ms:.2f})" if was else "")
+                        + f", plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), share "
+                        f"of bound {bms / ms:.4f}")
                     results[(name, cdt, n)] = dict(ms=ms, plain_ms=plain_ms,
                                                    bound_ms=bms, bound_by=by)
             for name, key in ((f"{kname}_fwd", "fwd"), (f"{kname}_bwd", "bwd")):
@@ -3094,9 +3215,7 @@ def main() -> int:
     for name, line, launched in (
             ("fused_render_gabor_fwd", 166, gabor_launches),
             ("fused_render_gabor_train", 186, gabor_trained["train_launches"])):
-        source = {"fused_render_gabor_fwd": "fused_render_gabor_fwd_tc.cu"}.get(name,
-                                                                               f"{name}.cu")
-        kernels.append(row(name, source, f"{nerf_tpu}fused_render_gabor.py:{line}",
+        kernels.append(row(name, f"{name}_tc.cu", f"{nerf_tpu}fused_render_gabor.py:{line}",
                            launched, gabor_checks[(name, "bfloat16")],
                            max(gabor_checks[(name, c)]["err"]
                                for c in ("float32", "bfloat16"))))
@@ -3124,7 +3243,8 @@ def main() -> int:
                  fwd_launched, 65536),
                 (f"fused_{family}_bwd", {"siren": 117, "gabor": 110}[family],
                  sg_distilled[family]["bwd"], 16384)):
-            kernels.append(row(name, f"{name}.cu", f"{nerf_tpu}fused_{family}.py:{line}",
+            source = "fused_gabor_fwd_tc.cu" if name == "fused_gabor_fwd" else f"{name}.cu"
+            kernels.append(row(name, source, f"{nerf_tpu}fused_{family}.py:{line}",
                                launched, sg_checks[(name, "bfloat16", n)],
                                max(sg_checks[(name, c, n)]["err"]
                                    for c in ("float32", "bfloat16"))))

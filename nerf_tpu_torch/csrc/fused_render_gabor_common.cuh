@@ -134,10 +134,10 @@ struct Stash {
   int cap;
 };
 
-// The filters of ray samples (the render kernels): g = sin(A + t B) *
-// exp(P + t Q + t^2 R) from the coefficients of the point's ray, zero past
-// the chunk's valid points (row -1).
-template <bool FAST>
+// The filters of ray samples (the float32 render kernels; the bfloat16 ones
+// are fused_render_gabor_tc_common.cuh's): g = sin(A + t B) * exp(P + t Q +
+// t^2 R) from the coefficients of the point's ray, zero past the chunk's
+// valid points (row -1).
 struct RayFilters {
   const Gabor& gp;
   const float* t_s;
@@ -162,7 +162,7 @@ struct RayFilters {
     const float rv[4] = {rr.x, rr.y, rr.z, rr.w};
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const Filter f = filter_at<FAST>(av[u], bv[u], pv[u], qv[u], rv[u], tv, t2);
+      const Filter f = filter_at<false>(av[u], bv[u], pv[u], qv[u], rv[u], tv, t2);
       g[u] = __fmul_rn(f.sn, f.E);
     }
   }
@@ -283,9 +283,8 @@ struct PointFilters {
 
 // The view direction's encoding (exact sine) of ray samples [chunk0, chunk0
 // + nvalid) (nvalid <= P) and their per-point columns (t, t^2, delta, the
-// ray's coefficient row) into shared memory; zero (row -1) past nvalid.
-// Ends past a barrier.
-template <bool BF16>
+// ray's coefficient row) into shared memory, for the float32 render
+// kernels; zero (row -1) past nvalid. Ends past a barrier.
 __device__ void load_ray_chunk(const RayInputs& in, int chunk0, int nvalid,
                                float* smem) {
   float* denc = smem + SM_DENC;
@@ -302,7 +301,6 @@ __device__ void load_ray_chunk(const RayInputs& in, int chunk0, int nvalid,
       const int ray = (chunk0 + p) / S;
       const int d = c < 3 ? c : (c - 3) % 3;
       v = encode_col<false>(in.viewdirs[ray * 3 + d], c);
-      if (BF16) v = round_bf16(v);
     }
     denc[c * LDA + p] = v;
   }
@@ -452,16 +450,17 @@ __device__ void mlp_chunk(const float* __restrict__ vec, const WT* __restrict__ 
   __syncthreads();
 }
 
-// The forward of ray samples [chunk0, chunk0 + nvalid) (nvalid <= P): leaves
-// t, delta, sigma and rgb of each point in shared memory (see mlp_chunk).
-template <bool BF16, bool STASH, typename WT>
+// The float32 forward of ray samples [chunk0, chunk0 + nvalid) (nvalid <=
+// P): leaves t, delta, sigma and rgb of each point in shared memory (see
+// mlp_chunk).
+template <bool STASH>
 __device__ void forward_chunk(const RayInputs& in, const Gabor& gp,
-                              const WT* __restrict__ wmat, int chunk0, int nvalid,
+                              const float* __restrict__ wmat, int chunk0, int nvalid,
                               float* smem, const Stash& st, size_t l0) {
-  load_ray_chunk<BF16>(in, chunk0, nvalid, smem);
-  const RayFilters<BF16> filt{gp, smem + SM_T, smem + SM_T2,
-                              reinterpret_cast<const int*>(smem + SM_ROW)};
-  mlp_chunk<BF16, STASH>(in.vec, wmat, gp.sigma_mul, gp.rgb_mul, filt, smem, st, l0);
+  load_ray_chunk(in, chunk0, nvalid, smem);
+  const RayFilters filt{gp, smem + SM_T, smem + SM_T2,
+                        reinterpret_cast<const int*>(smem + SM_ROW)};
+  mlp_chunk<false, STASH>(in.vec, wmat, gp.sigma_mul, gp.rgb_mul, filt, smem, st, l0);
 }
 
 // ---------------------------------------------------------------- backward

@@ -72,7 +72,7 @@ fused_gabor_fwd_kernel(RayInputs in, Gabor gp, const float* __restrict__ wmat,
 
   for (int chunk0 = ray0 * S; chunk0 < pt_end; chunk0 += P) {
     const int nvalid = min(P, pt_end - chunk0);
-    forward_chunk<false, false>(in, gp, wmat, chunk0, nvalid, smem, none, 0);
+    forward_chunk<false>(in, gp, wmat, chunk0, nvalid, smem, none, 0);
     if (tid == 0)
       composite_chunk(sums, t_s, delta_s, sig_s, rgb_s, chunk0, nvalid, S,
                       rgb_out, acc_out, depth_out, weights_out);

@@ -1,0 +1,433 @@
+// The GaborNet network on Hopper's tensor cores (sm_90a), over one 64-point
+// chunk, shared by the bfloat16 forward render (fused_render_gabor_fwd_tc.cu,
+// which composites each chunk straight away), the bfloat16 train pass
+// (fused_render_gabor_train_tc.cu, which stashes what its backward needs)
+// and the bfloat16 field forward (fused_gabor_fwd_tc.cu, which writes each
+// point's rgb and sigma). One chain, so the train pass's forward is the
+// forward render's bit for bit and the field's differs only in its filters.
+//
+// The chain is nerf_tpu/ops/pallas/fused_render_gabor.py::_mlp_tile in
+// bfloat16, at its rounding points (fused_render_gabor_common.cuh states the
+// network). Each stage's product u_i = z_{i-1} W_{i-1} (and wre, wr0f, wr0d)
+// is render_tc.cuh's gemm_fwd: the chunk's bf16 activation tile in shared
+// memory times the weights streamed through a ring of cp.async stages,
+// mma.sync m16n8k16 with float32 sums. Its epilogue evaluates the filter of
+// each accumulator element (row = point, column = neuron) in registers, each
+// operation rounded on its own (the degree-11 fast_sin of the TPU kernel's
+// _trig, expf without fast math; the filters never rounded), forms z_i =
+// (u_i + b) g_i in float32 (z_1 = g_1 has no product) and stores z_i rounded
+// to bf16 as the next product's operand. The filters come from
+//   * the ray's coefficients (the renders), exactly as
+//     fused_render_gabor_common.cuh::filter_at<true>. Where a chunk lies in
+//     one ray (every chunk at S = 256, lego_siren.txt's samples) each thread
+//     loads a column pair's five coefficients once (__ldg float2, through L1:
+//     the 8 lanes of a column group read the same addresses) and evaluates
+//     its 8 rows from them; where a chunk spans rays (S = 37, a ragged last
+//     CTA) or is short, each row loads them by its own ray (-1 past the
+//     chunk's points: zero filters);
+//   * the point and the raw filter banks (the field), exactly as
+//     point_filter_at<true>: x rounded to bf16 as _mm rounds pts8, |x|^2 from
+//     the unrounded point, the banks float32, loaded once a column pair.
+// The density is the float32 reduction of the UNROUNDED z_8 against ws (each
+// thread over its columns, the 4 lanes of a row by shuffle, the 8 warps in
+// order), plus bs, relu, times sigma_mul; the feature product reads the
+// rounded z_8. The rgb head's 128 x 3 layer and the sigmoid run on the CUDA
+// cores.
+// With STASH each stage's epilogue also writes u_i = acc + b (float32, the
+// filter cotangent's factor) and the unrounded z_8 (the ws gradient) from
+// its registers, and the chunk's rounded tiles go to the stash after each
+// product.
+
+#pragma once
+
+#include "render_tc.cuh"
+#include "fused_render_gabor_common.cuh"
+
+namespace gabor {
+
+// Shared memory (bytes) of a forward CTA: the activation tile (each stage's
+// z overwrites its input once the product has read it), the direction
+// encoding, the weight stages, the density partials, the chunk's per-point
+// columns (GC_*, floats, TC_P each) and each point's coefficient row (the
+// renders). A render's columns: t, t^2, delta, sigma (after the ReLU), rgb
+// (3); a field's: its rounded point (GC_X .. GC_X + 2, over t, t^2 and
+// delta) and |x|^2 (GC_XX), sigma, rgb. Two CTAs share an SM.
+constexpr int GB_ACT = 0;
+constexpr int GB_DENC = GB_ACT + TC_P * LDS * 2;
+constexpr int GB_WST = GB_DENC + TC_P * LDD * 2;
+constexpr int GB_SIG = GB_WST + WST_FWD_BYTES;
+constexpr int GB_COL = GB_SIG + WARPS * TC_P * 4;
+constexpr int GC_T = 0, GC_T2 = 1, GC_DELTA = 2, GC_SIGMA = 3, GC_RGB = 4, N_GC = 7;
+constexpr int GC_X = 0, GC_XX = 7;
+constexpr int GB_ROW = GB_COL + (N_GC + 1) * TC_P * 4;
+constexpr int SMEM_GABOR_TC = GB_ROW + TC_P * 4;
+static_assert(2 * (SMEM_GABOR_TC + 1024) <= 233472, "two forward CTAs share an SM");
+
+struct GSmem {
+  bf16* act;
+  bf16* denc;
+  bf16* wst;
+  float* sig;
+  float* col;
+  int* row;       // the point's ray * NH, -1 past the chunk's points (renders)
+};
+
+__device__ __forceinline__ GSmem carve_gsmem(unsigned char* sb) {
+  return GSmem{reinterpret_cast<bf16*>(sb + GB_ACT), reinterpret_cast<bf16*>(sb + GB_DENC),
+               reinterpret_cast<bf16*>(sb + GB_WST), reinterpret_cast<float*>(sb + GB_SIG),
+               reinterpret_cast<float*>(sb + GB_COL), reinterpret_cast<int*>(sb + GB_ROW)};
+}
+
+// One train CTA's device-memory stash, point-major with the CTA-local point
+// as the row: z_1..z_8 rounded (the products' bf16 operands), feat and the
+// two dz buffers (bf16, 256 columns), y (128), denc (32), then u_2..u_8 and
+// the unrounded z_8 (float32, 256) and the per-point columns (float32,
+// N_COLS x cap; render_common.cuh C_*). The filters are not stashed: the
+// backward evaluates them again from the coefficients, bit for bit.
+struct TcStash {
+  bf16* z[NL];
+  bf16* feat;
+  bf16* dz[2];
+  bf16* y;
+  bf16* denc;
+  float* u[NL - 1];
+  float* z8f;
+  float* cols;
+};
+constexpr int TC_BYTES_PER_POINT = 2 * (11 * H + HR + DP) + 4 * (NL * H + N_COLS);
+static_assert(TC_BYTES_PER_POINT % 16 == 0, "stash rows must stay 16-byte aligned");
+constexpr int NPART = (N_TOT + 1 + 3) / 4 * 4;    // a train CTA's partial: gradients, loss
+
+__device__ inline TcStash carve_tc_stash(unsigned char* p, int cap) {
+  TcStash s;
+  const size_t c = static_cast<size_t>(cap);
+  auto take_b = [&](int cols) {
+    bf16* r = reinterpret_cast<bf16*>(p);
+    p += c * cols * 2;
+    return r;
+  };
+  auto take_f = [&](int cols) {
+    float* r = reinterpret_cast<float*>(p);
+    p += c * cols * 4;
+    return r;
+  };
+  for (int i = 0; i < NL; ++i) s.z[i] = take_b(H);
+  s.feat = take_b(H);
+  s.dz[0] = take_b(H);
+  s.dz[1] = take_b(H);
+  s.y = take_b(HR);
+  s.denc = take_b(DP);
+  for (int i = 0; i < NL - 1; ++i) s.u[i] = take_f(H);
+  s.z8f = take_f(H);
+  s.cols = take_f(N_COLS);
+  return s;
+}
+
+// The direction encoding (exact sine, rounded to bf16; point-major) of ray
+// samples [chunk0, chunk0 + nvalid) and their columns t, t^2, delta and
+// coefficient row, zero (row -1) past nvalid, as
+// fused_render_gabor_common.cuh::load_ray_chunk with the encoding rounded to
+// bf16. Ends past a barrier.
+__device__ inline void load_chunk(const RayInputs& in, int chunk0, int nvalid, const GSmem& sm) {
+  const int tid = threadIdx.x, S = in.S;
+  for (int idx = tid; idx < TC_P * DP; idx += THREADS) {
+    const int p = idx / DP, c = idx % DP;
+    float v = 0.f;
+    if (p < nvalid && c < in.real_d) {
+      const int ray = (chunk0 + p) / S;
+      const int d = c < 3 ? c : (c - 3) % 3;
+      v = encode_col<false>(in.viewdirs[ray * 3 + d], c);
+    }
+    sm.denc[p * LDD + c] = __float2bfloat16_rn(v);
+  }
+  if (tid < TC_P) {
+    const int g = chunk0 + tid;
+    float tv = 0.f, dv = 0.f;
+    int row = -1;
+    if (tid < nvalid) {
+      tv = in.t[g];
+      dv = (g % S == S - 1) ? 1e10f : __fsub_rn(in.t[g + 1], tv);
+      row = (g / S) * NH;
+    }
+    sm.col[GC_T * TC_P + tid] = tv;
+    sm.col[GC_T2 * TC_P + tid] = __fmul_rn(tv, tv);
+    sm.col[GC_DELTA * TC_P + tid] = dv;
+    sm.row[tid] = row;
+  }
+  __syncthreads();
+}
+
+// The field points [p0, p0 + nvalid) into shared memory, zero past nvalid,
+// as fused_render_gabor_common.cuh::load_point_chunk<true>: each point
+// rounded to bf16 and its |x|^2 from the unrounded coordinates, and the
+// direction encoding (exact sine) rounded to bf16. Ends past a barrier.
+__device__ inline void load_point_chunk_tc(const float* __restrict__ pts,
+                                           const float* __restrict__ dirs, int p0, int nvalid,
+                                           int real_d, const GSmem& sm) {
+  const int tid = threadIdx.x;
+  if (tid < TC_P) {
+    float x[3] = {0.f, 0.f, 0.f};
+    if (tid < nvalid)
+      for (int c = 0; c < 3; ++c) x[c] = pts[static_cast<size_t>(p0 + tid) * 3 + c];
+    for (int c = 0; c < 3; ++c) sm.col[(GC_X + c) * TC_P + tid] = round_bf16(x[c]);
+    sm.col[GC_XX * TC_P + tid] =
+        __fadd_rn(__fadd_rn(__fmul_rn(x[0], x[0]), __fmul_rn(x[1], x[1])), __fmul_rn(x[2], x[2]));
+  }
+  for (int idx = tid; idx < TC_P * DP; idx += THREADS) {
+    const int p = idx / DP, c = idx % DP;
+    float v = 0.f;
+    if (p < nvalid && c < real_d) {
+      const int d = c < 3 ? c : (c - 3) % 3;
+      v = encode_col<false>(dirs[static_cast<size_t>(p0 + p) * 3 + d], c);
+    }
+    sm.denc[p * LDD + c] = __float2bfloat16_rn(v);
+  }
+  __syncthreads();
+}
+
+// The five coefficients (A, B, P, Q, R) of two neighbouring columns at c.
+__device__ __forceinline__ void load_coef(float2 (&k)[NCOEF], const float* c, size_t plane) {
+#pragma unroll
+  for (int i = 0; i < NCOEF; ++i) k[i] = __ldg(reinterpret_cast<const float2*>(c + i * plane));
+}
+
+// The filters of ray samples, stage `coef` (gp.coef + stage * H): `column`
+// takes a column pair, `pair` gives g of both columns at a row. UNIFORM:
+// every point of the chunk lies in the ray whose coefficient row is base_u.
+template <bool UNIFORM>
+struct RayFilterTc {
+  const float* coef;
+  size_t plane;
+  int base_u;
+  const GSmem& sm;
+  float2 k[NCOEF];
+  int col;
+
+  __device__ __forceinline__ void column(int c) {
+    col = c;
+    if constexpr (UNIFORM) load_coef(k, coef + base_u + c, plane);
+  }
+  __device__ __forceinline__ void pair(int row, float& g0, float& g1) {
+    const int base = UNIFORM ? base_u : sm.row[row];
+    g0 = g1 = 0.f;
+    if (UNIFORM || base >= 0) {
+      if constexpr (!UNIFORM) load_coef(k, coef + base + col, plane);
+      const float tv = sm.col[GC_T * TC_P + row], t2 = sm.col[GC_T2 * TC_P + row];
+      const Filter f0 = filter_at<true>(k[0].x, k[1].x, k[2].x, k[3].x, k[4].x, tv, t2);
+      const Filter f1 = filter_at<true>(k[0].y, k[1].y, k[2].y, k[3].y, k[4].y, tv, t2);
+      g0 = __fmul_rn(f0.sn, f0.E);
+      g1 = __fmul_rn(f1.sn, f1.E);
+    }
+  }
+};
+
+// The filters of field points from the banks of one stage (fs = fpack +
+// stage * F_STRIDE), zero past nvalid.
+struct PointFilterTc {
+  const float* fs;
+  const GSmem& sm;
+  int nvalid;
+  float2 om[3], mu[3], ph, m2, hg;   // hg = -gamma / 2
+
+  __device__ __forceinline__ void column(int c) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      om[d] = __ldg(reinterpret_cast<const float2*>(fs + F_OM + d * H + c));
+      mu[d] = __ldg(reinterpret_cast<const float2*>(fs + F_MU + d * H + c));
+    }
+    ph = __ldg(reinterpret_cast<const float2*>(fs + F_PH + c));
+    m2 = __ldg(reinterpret_cast<const float2*>(fs + F_M2 + c));
+    const float2 gam = __ldg(reinterpret_cast<const float2*>(fs + F_GAM + c));
+    hg = make_float2(__fmul_rn(-0.5f, gam.x), __fmul_rn(-0.5f, gam.y));
+  }
+  // point_filter_at<true>'s operations, in its order
+  static __device__ __forceinline__ float one(float x0, float x1, float x2, float xx, float om0,
+                                              float om1, float om2, float mu0, float mu1,
+                                              float mu2, float ph, float m2, float hg) {
+    const float s = fmaf(x2, om2, fmaf(x1, om1, __fmul_rn(x0, om0)));
+    const float xm = fmaf(x2, mu2, fmaf(x1, mu1, __fmul_rn(x0, mu0)));
+    const float sinarg = __fadd_rn(s, ph);
+    const float q = __fadd_rn(__fsub_rn(xx, __fmul_rn(2.f, xm)), m2);
+    return __fmul_rn(fast_sin(sinarg), expf(__fmul_rn(hg, q)));
+  }
+  __device__ __forceinline__ void pair(int row, float& g0, float& g1) const {
+    g0 = g1 = 0.f;
+    if (row >= nvalid) return;
+    const float x0 = sm.col[GC_X * TC_P + row], x1 = sm.col[(GC_X + 1) * TC_P + row];
+    const float x2 = sm.col[(GC_X + 2) * TC_P + row], xx = sm.col[GC_XX * TC_P + row];
+    g0 = one(x0, x1, x2, xx, om[0].x, om[1].x, om[2].x, mu[0].x, mu[1].x, mu[2].x, ph.x, m2.x,
+             hg.x);
+    g1 = one(x0, x1, x2, xx, om[0].y, om[1].y, om[2].y, mu[0].y, mu[1].y, mu[2].y, ph.y, m2.y,
+             hg.y);
+  }
+};
+
+// The epilogue of a stage over the warp's 64 x 32 tile: for each
+// accumulator element the filter g from `filt`, then z = g (first) or z =
+// (acc + bias) g, stored rounded to bf16 into the activation tile; the last
+// stage also adds z . ws of the thread's columns into sp, in float32 on the
+// unrounded z. STASH: u = acc + bias to us and, last, the unrounded z to
+// z8f (float32, row l0 + row, stride H).
+template <bool STASH, typename Filt>
+__device__ __forceinline__ void stage_epilogue_tc(float (&acc)[4][4][4], Filt& filt, bool first,
+                                                  bool last, const float* __restrict__ bias,
+                                                  const float* __restrict__ ws, const GSmem& sm,
+                                                  float (&sp)[4][2], float* us, float* z8f,
+                                                  size_t l0) {
+  const int l = threadIdx.x & 31, g = l >> 2, c = l & 3;
+  const int n0 = (threadIdx.x >> 5) * 32;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + j * 8 + 2 * c;
+    filt.column(col);
+    float b0 = 0.f, b1 = 0.f, w0 = 0.f, w1 = 0.f;
+    if (!first) {
+      b0 = __ldg(bias + col);
+      b1 = __ldg(bias + col + 1);
+    }
+    if (last) {
+      w0 = __ldg(ws + col);
+      w1 = __ldg(ws + col + 1);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + g + 8 * h;
+        float g0, g1;
+        filt.pair(row, g0, g1);
+        float z0 = g0, z1 = g1;
+        if (!first) {
+          const float u0 = acc[mt][j][2 * h] + b0, u1 = acc[mt][j][2 * h + 1] + b1;
+          z0 = __fmul_rn(u0, g0);
+          z1 = __fmul_rn(u1, g1);
+          if constexpr (STASH)
+            *reinterpret_cast<float2*>(us + (l0 + row) * H + col) = make_float2(u0, u1);
+        }
+        if (last) {
+          sp[mt][h] = fmaf(z0, w0, sp[mt][h]);
+          sp[mt][h] = fmaf(z1, w1, sp[mt][h]);
+          if constexpr (STASH)
+            *reinterpret_cast<float2*>(z8f + (l0 + row) * H + col) = make_float2(z0, z1);
+        }
+        put2(sm.act + row * LDS + col, z0, z1);
+      }
+  }
+}
+
+// The network of the chunk whose inputs are in shared memory, each stage's
+// filter epilogue `epilogue(acc, stage, first, last, bias, ws, sp)` (0-based
+// stage). Leaves sigma (after the ReLU, times sigma_mul) and rgb of each
+// point in the columns GC_SIGMA and GC_RGB; with STASH they go to the
+// stash's per-point columns instead (sigma before the ReLU, C_SIGP), with
+// the chunk's tiles (z_i, feat, y) at rows l0.. (`cap` rows a column). Ends
+// past a barrier.
+template <bool STASH, typename Epi>
+__device__ __forceinline__ void network_tc(const float* __restrict__ vec,
+                                           const bf16* __restrict__ wmat, float sigma_mul,
+                                           float rgb_mul, const GSmem& sm, const TcStash& st,
+                                           size_t l0, int cap, Epi epilogue) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float acc[4][4][4];
+  float sp[4][2] = {};
+  // ---- stages: z_1 = g_1, then z_i = (z_{i-1} W_{i-1} + b_{i-1}) g_i ----
+#pragma unroll 1
+  for (int l = 1; l <= NL; ++l) {
+    const bool first = l == 1, last = l == NL;
+    zero_acc(acc);
+    if (!first) gemm_fwd<H, H>(acc, sm.act, LDS, wmat + off_w(l - 1), sm.wst);
+    const float* bias = first ? nullptr : vec + (l - 2) * H;
+    const float* ws = last ? vec + OFF_WS : nullptr;
+    epilogue(acc, l - 1, first, last, bias, ws, sp);
+    if constexpr (STASH) {
+      __syncthreads();
+      tile_out(sm.act, LDS, H, st.z[l - 1], l0);
+    }
+  }
+  // ---- the density row: z_8 . ws by row, the 8 warps in order ----
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = sp[mt][h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if ((lane & 3) == 0) sm.sig[warp * TC_P + mt * 16 + (lane >> 2) + 8 * h] = v;
+    }
+  __syncthreads();
+  if (tid < TC_P) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s += sm.sig[w * TC_P + tid];
+    if constexpr (STASH)
+      st.cols[C_SIGP * static_cast<size_t>(cap) + l0 + tid] = s + __ldg(vec + OFF_BS);
+    else
+      sm.col[GC_SIGMA * TC_P + tid] = fmaxf(s + __ldg(vec + OFF_BS), 0.f) * sigma_mul;
+  }
+  // ---- feature remap: no activation ----
+  zero_acc(acc);
+  gemm_fwd<H, H>(acc, sm.act, LDS, wmat + OFF_WRE, sm.wst);
+  store_act<4>(acc, vec + OFF_BRE, false, sm.act);
+  if constexpr (STASH) {
+    __syncthreads();
+    tile_out(sm.act, LDS, H, st.feat, l0);
+  }
+  // ---- rgb head: relu layer on [feat, denc], then the output ----
+  {
+    float acc2[4][2][4];
+    zero_acc(acc2);
+    gemm_fwd<H, HR>(acc2, sm.act, LDS, wmat + OFF_WR0F, sm.wst);
+    gemm_fwd<DP, HR>(acc2, sm.denc, LDD, wmat + OFF_WR0D, sm.wst);
+    store_act<2>(acc2, vec + OFF_BR0, true, sm.act);
+  }
+  __syncthreads();
+  if constexpr (STASH) tile_out(sm.act, LDS, HR, st.y, l0);
+  if (tid < 3 * TC_P) {
+    const int ch = tid / TC_P, p = tid % TC_P;
+    float z = 0.f;
+    for (int k = 0; k < HR; ++k)
+      z = fmaf(__bfloat162float(sm.act[p * LDS + k]),
+               __bfloat162float(wmat[OFF_WR1 + k * 8 + ch]), z);
+    z = (z + __ldg(vec + OFF_BR1 + ch)) * rgb_mul;
+    const float r = 1.f / (1.f + expf(-z));
+    if constexpr (STASH)
+      st.cols[(C_RGB + ch) * static_cast<size_t>(cap) + l0 + p] = r;
+    else
+      sm.col[(GC_RGB + ch) * TC_P + p] = r;
+  }
+  __syncthreads();
+}
+
+// The forward of ray samples [chunk0, chunk0 + nvalid) (nvalid <= 64). STASH
+// (the train pass): what the backward needs to the stash `st` at rows l0..
+// (`cap` rows a column). Else (the forward render): t, delta, sigma and rgb
+// in the shared-memory columns, nothing to device memory. Ends past a
+// barrier.
+template <bool STASH>
+__device__ void forward_chunk_gabor_tc(const RayInputs& in, const Gabor& gp,
+                                       const bf16* __restrict__ wmat, int chunk0, int nvalid,
+                                       const GSmem& sm, const TcStash& st, size_t l0, int cap) {
+  const int S = in.S;
+  load_chunk(in, chunk0, nvalid, sm);
+  if constexpr (STASH) tile_out(sm.denc, LDD, DP, st.denc, l0);
+  const int ray_first = chunk0 / S;
+  const bool uniform = nvalid == TC_P && (chunk0 + TC_P - 1) / S == ray_first;
+  const int base_u = ray_first * NH;
+  network_tc<STASH>(
+      in.vec, wmat, gp.sigma_mul, gp.rgb_mul, sm, st, l0, cap,
+      [&](float (&acc)[4][4][4], int stage, bool first, bool last, const float* bias,
+          const float* ws, float (&sp)[4][2]) {
+        float* us = STASH && !first ? st.u[stage - 1] : nullptr;
+        float* z8f = STASH ? st.z8f : nullptr;
+        const float* coef = gp.coef + stage * H;
+        if (uniform) {
+          RayFilterTc<true> f{coef, gp.plane, base_u, sm};
+          stage_epilogue_tc<STASH>(acc, f, first, last, bias, ws, sm, sp, us, z8f, l0);
+        } else {
+          RayFilterTc<false> f{coef, gp.plane, base_u, sm};
+          stage_epilogue_tc<STASH>(acc, f, first, last, bias, ws, sm, sp, us, z8f, l0);
+        }
+      });
+}
+
+}  // namespace gabor

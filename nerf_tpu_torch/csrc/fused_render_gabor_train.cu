@@ -1,7 +1,8 @@
 // Fused GaborNet train pass for Hopper (sm_90a).
 //
 // Replaces: nerf_tpu/ops/pallas/fused_render_gabor.py::_train_kernel
-// (FusedGaborRender.train): forward, white-background MSE (loss partial and
+// (FusedGaborRender.train) in float32 mode; its bfloat16 mode is
+// fused_render_gabor_train_tc.cu, on the tensor cores. Forward, white-background MSE (loss partial and
 // its analytic per-ray cotangent, fused_render.py::_mse_cotangent), the
 // backward through compositing (fused_render.py::_composite_bwd) and the
 // network backward, one pass over the rays. It gives the 23 float32 weight
@@ -20,9 +21,7 @@
 // kernel also skips (dzr0 wr0d^T: input gradients are not wanted):
 // 1,680,000 MACs, and 8,192 transcendentals (the forward's sine and
 // exponential of each filter element, the backward's sine and cosine).
-// float32 mode runs on the CUDA cores (67 TFLOP/s); bfloat16 mode rounds at
-// the TPU kernel's points and sums in float32, also on the CUDA cores in
-// this first version (its bound is the tensor cores' 989 TFLOP/s).
+// float32 mode runs on the CUDA cores (67 TFLOP/s).
 //
 // Design: the SIREN train kernel's (fused_render_siren_train.cu), for the
 // same reasons (a chunk's activations do not fit on chip, a ray's cotangent
@@ -53,13 +52,6 @@
 //   4. A second small kernel adds the per-CTA partials (and loss terms) in
 //      CTA order. Nothing is atomic, so a step is deterministic from run to
 //      run.
-// Rounding in bfloat16 mode follows _train_kernel: both operands of every
-// dW product and the dz of every dz W^T are rounded to bf16 (mmT_acc,
-// dact), sums are float32, the bias, ws and bs gradients are float32 sums
-// of the unrounded values, z_8, sigma_pre and the rgb sigmoid are read in
-// float32, and the coefficient cotangents are float32 sums (the TPU sums
-// bf16 hi/lo halves, about float32).
-//
 // Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared library
 // with a plain C interface (loaded by ctypes).
 
@@ -78,7 +70,6 @@ constexpr int FLOATS_PER_POINT = floats_per_point<2>();
 // stage > 0, dz replaced in place by du = dz * g; the ray's sums of the five
 // coefficient cotangents go to dcoef. Rows past the CTA's points are left
 // alone (their dz is zero).
-template <bool BF16>
 __device__ void filter_cotangents(const RayInputs& in, const Gabor& gp, int ray0,
                                   int nr, int stage, float* dz, const float* u,
                                   float* __restrict__ dcoef) {
@@ -95,14 +86,14 @@ __device__ void filter_cotangents(const RayInputs& in, const Gabor& gp, int ray0
       const size_t l = static_cast<size_t>(r) * S + i;
       const float tv = in.t[ray * S + i];
       const float t2 = __fmul_rn(tv, tv);
-      const Filter f = filter_at<BF16>(a, b, p, q, rr, tv, t2);
+      const Filter f = filter_at<false>(a, b, p, q, rr, tv, t2);
       const float d = dz[l * LDZ + c];
       float dg = d;
       if (stage > 0) {
         dg = __fmul_rn(d, u[l * H + c]);
         dz[l * LDZ + c] = __fmul_rn(d, __fmul_rn(f.sn, f.E));
       }
-      const float dsa = __fmul_rn(__fmul_rn(dg, cosine<BF16>(f.sinarg)), f.E);
+      const float dsa = __fmul_rn(__fmul_rn(dg, cosine<false>(f.sinarg)), f.E);
       const float de = __fmul_rn(__fmul_rn(dg, f.sn), f.E);
       sa = __fadd_rn(sa, dsa);
       sb = __fadd_rn(sb, __fmul_rn(dsa, tv));
@@ -118,10 +109,9 @@ __device__ void filter_cotangents(const RayInputs& in, const Gabor& gp, int ray0
   }
 }
 
-template <bool BF16, typename WT>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_gabor_train_kernel(RayInputs in, Gabor gp, const WT* __restrict__ wmat,
-                         const WT* __restrict__ wmat_t,
+fused_gabor_train_kernel(RayInputs in, Gabor gp, const float* __restrict__ wmat,
+                         const float* __restrict__ wmat_t,
                          const float* __restrict__ target, float white_bg,
                          float scale, int rays_per_cta, int cap,
                          float* __restrict__ scratch, float* __restrict__ partial,
@@ -146,7 +136,7 @@ fused_gabor_train_kernel(RayInputs in, Gabor gp, const WT* __restrict__ wmat,
 
   // ---- 1. forward, stashing what the backward needs ----
   for (int c0 = 0; c0 < npts; c0 += P)
-    forward_chunk<BF16, true>(in, gp, wmat, ray0 * S + c0, min(P, npts - c0), smem,
+    forward_chunk<true>(in, gp, wmat, ray0 * S + c0, min(P, npts - c0), smem,
                               sc.st, static_cast<size_t>(c0));
 
   // ---- 2. compositing, cotangent, compositing backward (thread per ray) ----
@@ -161,26 +151,24 @@ fused_gabor_train_kernel(RayInputs in, Gabor gp, const WT* __restrict__ wmat,
 
   // ---- 3. backward: the heads, then stage by stage, each stage's filter
   //      cotangents per ray ----
-  net_backward<BF16>(sc, cz, vec, wmat, wmat_t, part, cap_c, smem,
-                     [](const float*) {},
-                     [&](int stage, float* dz, const float* u) {
-                       filter_cotangents<BF16>(in, gp, ray0, nr, stage, dz, u, dcoef);
-                       __syncthreads();
-                     });
+  net_backward<false>(sc, cz, vec, wmat, wmat_t, part, cap_c, smem,
+                      [](const float*) {},
+                      [&](int stage, float* dz, const float* u) {
+                        filter_cotangents(in, gp, ray0, nr, stage, dz, u, dcoef);
+                        __syncthreads();
+                      });
 }
 
-template <bool BF16, typename WT>
 int launch(const RayInputs& in, const Gabor& gp, const void* wmat, const void* wmat_t,
            const float* target, float white_bg, float scale, int rays_per_cta,
            int cap, float* scratch, float* partial, float* out, float* dcoef,
            float* rgb, float* acc, float* weights, cudaStream_t stream) {
-  auto kernel = fused_gabor_train_kernel<BF16, WT>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      fused_gabor_train_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (in.num_rays + rays_per_cta - 1) / rays_per_cta;
-  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      in, gp, static_cast<const WT*>(wmat), static_cast<const WT*>(wmat_t), target,
+  fused_gabor_train_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
+      in, gp, static_cast<const float*>(wmat), static_cast<const float*>(wmat_t), target,
       white_bg, scale, rays_per_cta, cap, scratch, partial, dcoef, rgb, acc, weights);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -207,10 +195,11 @@ void fused_gabor_train_sizes(int* floats_per_point, int* npart, int* n_out) {
 // grid * npart, `out` n_out, where grid = ceil(num_rays / rays_per_cta) and
 // cap >= ceil(rays_per_cta * S / 64) * 64. Returns 0 on success, a
 // cudaError_t code after a failed launch, or -1 when the packed buffers or
-// the shapes do not fit this kernel.
+// the shapes do not fit this kernel. float32 only: the bfloat16 pass is
+// fused_render_gabor_train_tc.cu's.
 int fused_gabor_train(const float* coef, const float* viewdirs, const float* t,
                       const void* wmat, const void* wmat_t, const float* vec,
-                      int n_w, int n_b, int bf16, const float* target,
+                      int n_w, int n_b, const float* target,
                       float white_bg, float scale, int num_rays, int S,
                       int rays_per_cta, int cap, int real_d, float sigma_mul,
                       float rgb_mul, float* scratch, float* partial, float* out,
@@ -223,13 +212,8 @@ int fused_gabor_train(const float* coef, const float* viewdirs, const float* t,
   const RayInputs in{nullptr, nullptr, viewdirs, t, vec, num_rays, S, 0, real_d};
   const Gabor gp{coef, static_cast<size_t>(num_rays) * NH, sigma_mul, rgb_mul};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<true, __nv_bfloat16>(in, gp, wmat, wmat_t, target, white_bg, scale,
-                                       rays_per_cta, cap, scratch, partial, out,
-                                       dcoef, rgb, acc, weights, s);
-  return launch<false, float>(in, gp, wmat, wmat_t, target, white_bg, scale,
-                              rays_per_cta, cap, scratch, partial, out, dcoef, rgb,
-                              acc, weights, s);
+  return launch(in, gp, wmat, wmat_t, target, white_bg, scale, rays_per_cta, cap, scratch,
+                partial, out, dcoef, rgb, acc, weights, s);
 }
 
 const char* fused_gabor_train_error(int code) {

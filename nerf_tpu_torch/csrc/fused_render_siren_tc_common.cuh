@@ -110,17 +110,6 @@ struct TcStash {
   float* cols;
 };
 
-// Rows l0 .. l0 + 63 of a device array of `ncols` columns from a [64][ncols]
-// shared-memory tile of row stride lds (16-byte copies).
-__device__ __forceinline__ void tile_out(const bf16* s, int lds, int ncols, bf16* g, size_t l0) {
-  const int cpr = ncols / 8;
-  for (int e = threadIdx.x; e < TC_P * cpr; e += THREADS) {
-    const int r = e / cpr, q = (e % cpr) * 8;
-    *reinterpret_cast<uint4*>(g + (l0 + r) * ncols + q) =
-        *reinterpret_cast<const uint4*>(s + r * lds + q);
-  }
-}
-
 // The inputs of ray samples [chunk0, chunk0 + nvalid) into shared memory,
 // zero past nvalid, as fused_render_siren_common.cuh::load_ray_chunk<true>:
 // the raw positions rounded to bf16 (float32 columns), the direction

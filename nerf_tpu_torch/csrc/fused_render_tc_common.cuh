@@ -59,17 +59,6 @@ struct FwdSmem {
   float* col;     // the forward render's columns (COL_*), else unused
 };
 
-// Rows l0 .. l0 + 63 of a device array of `ncols` columns from a [64][ncols]
-// shared-memory tile of row stride lds (16-byte copies).
-__device__ __forceinline__ void tile_out(const bf16* s, int lds, int ncols, bf16* g, size_t l0) {
-  const int cpr = ncols / 8;
-  for (int e = threadIdx.x; e < TC_P * cpr; e += THREADS) {
-    const int r = e / cpr, q = (e % cpr) * 8;
-    *reinterpret_cast<uint4*>(g + (l0 + r) * ncols + q) =
-        *reinterpret_cast<const uint4*>(s + r * lds + q);
-  }
-}
-
 // The encodings of ray samples [chunk0, chunk0 + nvalid) into shared memory,
 // point-major, rounded to bf16, zero past nvalid (as fused_render_common.cuh
 // ::encode_ray_chunk<true>); with COLS also their t and delta columns

@@ -15,7 +15,8 @@
 //                output in registers: a weight gradient.
 // Every product rounds nothing itself: its operands are bf16 as stored, and
 // its sums are float32 (the tensor cores' accumulation). each_pair walks a
-// warp's accumulators with their rows and columns, for the epilogues.
+// warp's accumulators with their rows and columns, for the epilogues;
+// tile_out copies a chunk's tile to a train pass's stash.
 
 #pragma once
 
@@ -119,6 +120,17 @@ __device__ __forceinline__ void store_act(float (&acc)[4][NT][4], const float* _
                   }
                   put2(out + row * LDS + col, x0, x1);
                 });
+}
+
+// Rows l0 .. l0 + 63 of a device array of `ncols` columns from a [64][ncols]
+// shared-memory tile of row stride lds (16-byte copies).
+__device__ __forceinline__ void tile_out(const bf16* s, int lds, int ncols, bf16* g, size_t l0) {
+  const int cpr = ncols / 8;
+  for (int e = threadIdx.x; e < TC_P * cpr; e += THREADS) {
+    const int r = e / cpr, q = (e % cpr) * 8;
+    *reinterpret_cast<uint4*>(g + (l0 + r) * ncols + q) =
+        *reinterpret_cast<const uint4*>(s + r * lds + q);
+  }
 }
 
 template <int MT, int NT>

@@ -3,16 +3,19 @@
 Two kernels, each replacing one of ``nerf_tpu/ops/pallas/fused_gabor.py``
 (their sources say what bounds each on an H100 and how the design answers):
 
-  * ``csrc/fused_gabor_fwd.cu`` (``_fwd_kernel``): the filter banks
-    evaluated at given points and the multiplicative filter network, rgb
-    and sigma out;
+  * the forward (``_fwd_kernel``): the filter banks evaluated at given
+    points and the multiplicative filter network, rgb and sigma out; in
+    bfloat16 on the tensor cores (``csrc/fused_gabor_fwd_tc.cu``, the
+    GaborNet render's chain with the point filters in each product's
+    epilogue), in float32 ``csrc/fused_gabor_fwd.cu``;
   * ``csrc/fused_gabor_bwd.cu`` (``_bwd_kernel``): from the (rgb, sigma)
     cotangent, the 23 float32 weight and bias gradients, the gradients of
     every filter bank (per-CTA partials added in order, no atomics) and the
     point and direction cotangents.
 
 Both run the GaborNet render kernels' network and backward
-(``csrc/fused_render_gabor_common.cuh``) on the linear and head layout of
+(``csrc/fused_render_gabor_common.cuh``; the bfloat16 forward
+``csrc/fused_render_gabor_tc_common.cuh``) on the linear and head layout of
 ``fused_render_gabor.py::pack_f32`` / ``cast_packed``, with the filter
 banks packed beside it (``pack_filters``): per stage omega (3 x h), phi,
 mu^T (3 x h), |mu|^2 and gamma, float32, built with differentiable torch
@@ -182,15 +185,21 @@ def gabor_field_bwd_plain(pk: GaborFieldPack, pts: torch.Tensor, dirs: torch.Ten
 # ---------------------------------------------------------------- libraries
 
 
+# the forward's library -> its C entry point (the same arguments)
+_FWD_ENTRY = {"fused_gabor_fwd": "gabor_field_fwd",
+              "fused_gabor_fwd_tc": "gabor_field_fwd_tc"}
+
+
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
     lib = library(name)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "fused_gabor_fwd":
-        lib.gabor_field_fwd.argtypes = [vp] * 5 + [ci] * 6 + [cf] * 2 + [vp] * 3
-        lib.gabor_field_fwd.restype = ci
-        lib.gabor_field_fwd_error.argtypes = [ci]
-        lib.gabor_field_fwd_error.restype = ctypes.c_char_p
+    if name in _FWD_ENTRY:
+        fn, err = getattr(lib, _FWD_ENTRY[name]), getattr(lib, _FWD_ENTRY[name] + "_error")
+        fn.argtypes = [vp] * 5 + [ci] * 5 + [cf] * 2 + [vp] * 3
+        fn.restype = ci
+        err.argtypes = [ci]
+        err.restype = ctypes.c_char_p
     else:
         lib.gabor_field_bwd.argtypes = [vp] * 7 + [ci] * 8 + [cf] * 2 + [vp] * 6
         lib.gabor_field_bwd.restype = ci
@@ -248,6 +257,18 @@ class GaborField(FusedField):
     def _plain_backward(self, pk: GaborFieldPack, pts, dirs, cot):
         return gabor_field_bwd_plain(pk, pts, dirs, cot, self.consts)
 
+    def fwd_library(self) -> str:
+        """The forward's kernel library: bfloat16 on the tensor cores,
+        float32 on the CUDA cores (the backward runs on the CUDA cores in
+        both)."""
+        return "fused_gabor_fwd_tc" if self.cdt == torch.bfloat16 else "fused_gabor_fwd"
+
+    def _fwd_entry(self):
+        """(function, error string) of the forward."""
+        name = self.fwd_library()
+        lib, entry = _library(name), _FWD_ENTRY[name]
+        return getattr(lib, entry), getattr(lib, entry + "_error")
+
     def _packed_args(self, pk: GaborFieldPack) -> tuple:
         return (("wmat", pk.packed.wmat, pk.packed.wmat.shape, self.cdt),
                 ("vec", pk.packed.vec, pk.packed.vec.shape, torch.float32),
@@ -263,18 +284,16 @@ class GaborField(FusedField):
             return rgb, sigma
         pts, dirs = pts.contiguous(), dirs.contiguous()
         packed, k = pk.packed, self.consts
-        lib = _library("fused_gabor_fwd")
+        fn, err = self._fwd_entry()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            code = lib.gabor_field_fwd(
+            code = fn(
                 pts.data_ptr(), dirs.data_ptr(), packed.wmat.data_ptr(),
                 packed.vec.data_ptr(), pk.filters.data_ptr(), packed.wmat.numel(),
-                packed.vec.numel(), pk.filters.numel(), int(self.cdt == torch.bfloat16),
-                n, self.real_d, k.sigma_mul, k.rgb_mul, rgb.data_ptr(),
+                packed.vec.numel(), pk.filters.numel(), n, self.real_d, k.sigma_mul, k.rgb_mul, rgb.data_ptr(),
                 sigma.data_ptr(), stream)
         if code != 0:
-            raise RuntimeError("GaborNet field forward kernel: "
-                               + lib.gabor_field_fwd_error(code).decode())
+            raise RuntimeError("GaborNet field forward kernel: " + err(code).decode())
         type(self).launches += 1
         return rgb, sigma
 

@@ -659,17 +659,11 @@ class FusedRender:
         dev = t.device
         o_aff, d_aff, viewdirs, t, given = (
             x.detach().contiguous() for x in (o_aff, d_aff, viewdirs, t, given))
-        fn, err, (per_point, npart, n_out) = self._grad_entry()
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        rays_per_cta, grid, cap = launch_plan(num_rays, s, n_sm)
+        fn, err, sizes = self._grad_entry()
+        (rays_per_cta, cap), scratch, partial, out, rgb, acc, weights = (
+            self._grad_buffers(t, sizes, torch.float32))
         # transposed matrices (same offsets) for the dz W^T products
         wmat_t = torch.cat([packed.mats[k].t().reshape(-1) for k in self.mat_names])
-        scratch = torch.empty(grid * cap * per_point, dtype=torch.float32, device=dev)
-        partial = torch.empty(grid * npart, dtype=torch.float32, device=dev)
-        out = torch.empty(n_out, dtype=torch.float32, device=dev)
-        rgb = torch.empty((num_rays, 3), dtype=torch.float32, device=dev)
-        acc = torch.empty((num_rays,), dtype=torch.float32, device=dev)
-        weights = torch.empty((num_rays, s), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             code = fn(
@@ -681,13 +675,9 @@ class FusedRender:
                 rays_per_cta, cap, *self._family_args(), scratch.data_ptr(),
                 partial.data_ptr(), out.data_ptr(), rgb.data_ptr(),
                 acc.data_ptr(), weights.data_ptr(), stream)
-        if code != 0:
-            raise RuntimeError(f"{type(self).__name__} "
-                               + ("train kernel: " if train else "backward kernel: ")
-                               + err(code).decode())
-        n_w = packed.wmat.numel()
-        return ((out[:n_w], out[n_w:n_out - 1]), out[n_out - 1], rgb, acc,
-                weights)
+        grads, loss = self._grad_split("train" if train else "backward", err, code,
+                                       packed, out)
+        return grads, loss, rgb, acc, weights
 
     def _launch_train_tc(self, packed: Packed, o_aff, d_aff, viewdirs, t, target,
                          white_bg: bool):
@@ -697,21 +687,13 @@ class FusedRender:
         num_rays, s = t.shape
         self._check(packed, self._ray_args(o_aff, d_aff, viewdirs, t) + (
             ("given", target, (num_rays, 3), torch.float32),))
-        dev = t.device
         o_aff, d_aff, viewdirs, t, target = (
             x.detach().contiguous() for x in (o_aff, d_aff, viewdirs, t, target))
         fn, err, sizes = self._train_tc_entry()
-        per_point, npart, n_out = grad_sizes(sizes)
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        rays_per_cta, grid, cap = launch_plan(num_rays, s, n_sm)
-        scratch = torch.empty(grid * cap * per_point, dtype=torch.uint8, device=dev)
-        partial = torch.empty(grid * npart, dtype=torch.float32, device=dev)
-        out = torch.empty(n_out, dtype=torch.float32, device=dev)
-        rgb = torch.empty((num_rays, 3), dtype=torch.float32, device=dev)
-        acc = torch.empty((num_rays,), dtype=torch.float32, device=dev)
-        weights = torch.empty((num_rays, s), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
+        (rays_per_cta, cap), scratch, partial, out, rgb, acc, weights = (
+            self._grad_buffers(t, grad_sizes(sizes), torch.uint8))
+        with torch.cuda.device(t.device):
+            stream = torch.cuda.current_stream(t.device).cuda_stream
             code = fn(
                 o_aff.data_ptr(), d_aff.data_ptr(), viewdirs.data_ptr(), t.data_ptr(),
                 packed.wmat.data_ptr(), packed.vec.data_ptr(), packed.wmat.numel(),
@@ -719,10 +701,36 @@ class FusedRender:
                 1.0 / (3.0 * num_rays), num_rays, s, rays_per_cta, cap,
                 *self._family_args(), scratch.data_ptr(), partial.data_ptr(),
                 out.data_ptr(), rgb.data_ptr(), acc.data_ptr(), weights.data_ptr(), stream)
+        grads, loss = self._grad_split("train", err, code, packed, out)
+        return grads, loss, rgb, acc, weights
+
+    def _grad_buffers(self, t, sizes: tuple, stash_dtype):
+        """The launch plan and buffers of a train or backward launch over
+        ``t``'s rays: ``((rays_per_cta, cap), scratch, partial, out, rgb,
+        acc, weights)``. ``sizes`` is the library's (stash entries a point,
+        floats a CTA partial, output floats), a stash entry a
+        ``stash_dtype`` (a float32, or a byte of a tensor-core stash)."""
+        num_rays, s = t.shape
+        dev = t.device
+        per_point, npart, n_out = sizes
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        rays_per_cta, grid, cap = launch_plan(num_rays, s, n_sm)
+
+        def empty(*shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        return ((rays_per_cta, cap), empty(grid * cap * per_point, dtype=stash_dtype),
+                empty(grid * npart), empty(n_out), empty(num_rays, 3), empty(num_rays),
+                empty(num_rays, s))
+
+    def _grad_split(self, what: str, err, code: int, packed: Packed, out):
+        """``((gw, gv), loss)`` of a train or backward launch's output, or
+        the ``what`` kernel's error (``err`` of ``code``) raised."""
         if code != 0:
-            raise RuntimeError(f"{type(self).__name__} train kernel: " + err(code).decode())
+            raise RuntimeError(f"{type(self).__name__} {what} kernel: "
+                               + err(code).decode())
         n_w = packed.wmat.numel()
-        return ((out[:n_w], out[n_w:n_out - 1]), out[n_out - 1], rgb, acc, weights)
+        return (out[:n_w], out[n_w:-1]), out[-1]
 
 
 class FusedNerfRender(FusedRender):

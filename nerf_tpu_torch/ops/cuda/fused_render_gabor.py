@@ -9,9 +9,12 @@ each on an H100 and how the design answers):
   * the forward render (``_fwd_kernel``): in bfloat16 on the tensor cores
     (``csrc/fused_render_gabor_fwd_tc.cu``), in float32
     ``csrc/fused_render_gabor_fwd.cu``;
-  * ``csrc/fused_render_gabor_train.cu`` (``_train_kernel``): forward,
-    white-background MSE and the full backward in one pass, with the
-    per-ray cotangents of the filter coefficients.
+  * the train pass (``_train_kernel``): forward, white-background MSE and
+    the full backward in one pass, with the per-ray cotangents of the
+    filter coefficients; in bfloat16 on the tensor cores
+    (``csrc/fused_render_gabor_train_tc.cu``: a forward and a backward
+    kernel over a stash of ``TC_BYTES_PER_POINT`` bytes a point), in
+    float32 ``csrc/fused_render_gabor_train.cu``.
 
 With x = o' + t d' (the affine-mapped ray), every input of a Gabor filter
 g_i(x) = sin(x . omega_i + phi_i) exp(-gamma_i/2 ||x - mu_i||^2) is a
@@ -69,11 +72,17 @@ from nerf_tpu_torch.ops.cuda.fused_render import (
     _views,
     fwd_rays_per_cta,
     grad_sizes,
+    launch_plan,
     trig,
 )
 
 NUM_LAYERS = 8           # filter stages the kernels take
 NUM_COEFFS = 5           # A, B, P, Q, R
+# stash bytes a point of the bfloat16 train pass on the tensor cores
+# (csrc/fused_render_gabor_tc_common.cuh::TcStash: z1..z8, feat and two dz
+# buffers of 256, y (128) and denc (32) in bf16; u2..u8 and z8 of 256 and
+# the 16 per-point columns in float32)
+TC_BYTES_PER_POINT = 2 * (11 * 256 + 128 + DP) + 4 * (8 * 256 + 16)
 
 
 def _names(n: int) -> tuple[tuple, tuple]:
@@ -373,6 +382,9 @@ def fused_gabor_train_plain(packed: Packed, coeffs, viewdirs, t, target,
 # the forward render's library -> its C entry point
 _FWD_ENTRY = {"fused_render_gabor_fwd": "fused_gabor_fwd",
               "fused_render_gabor_fwd_tc": "fused_gabor_fwd_tc"}
+# the train pass's
+_TRAIN_ENTRY = {"fused_render_gabor_train": "fused_gabor_train",
+                "fused_render_gabor_train_tc": "fused_gabor_train_tc"}
 
 
 @functools.cache
@@ -386,13 +398,17 @@ def _library(name: str) -> ctypes.CDLL:
         err.argtypes = [ci]
         err.restype = ctypes.c_char_p
     else:
-        lib.fused_gabor_train.argtypes = ([vp] * 6 + [ci] * 3 + [vp, cf, cf]
-                                          + [ci] * 5 + [cf] * 2 + [vp] * 8)
-        lib.fused_gabor_train.restype = ci
-        lib.fused_gabor_train_error.argtypes = [ci]
-        lib.fused_gabor_train_error.restype = ctypes.c_char_p
-        lib.fused_gabor_train_sizes.argtypes = [ctypes.POINTER(ci)] * 3
-        lib.fused_gabor_train_sizes.restype = None
+        entry = _TRAIN_ENTRY[name]
+        fn, err = getattr(lib, entry), getattr(lib, entry + "_error")
+        sizes = getattr(lib, entry + "_sizes")
+        # the tensor-core pass takes no transposed matrices
+        head = [vp] * (5 if name.endswith("_tc") else 6) + [ci] * 2
+        fn.argtypes = head + [vp, cf, cf] + [ci] * 5 + [cf] * 2 + [vp] * 8
+        fn.restype = ci
+        err.argtypes = [ci]
+        err.restype = ctypes.c_char_p
+        sizes.argtypes = [ctypes.POINTER(ci)] * 3
+        sizes.restype = None
     return lib
 
 
@@ -558,43 +574,57 @@ class FusedGaborRender(FusedRender):
         type(self).launches += 1
         return rgb, acc, depth, weights
 
+    def grad_library(self, train: bool) -> str:
+        """The library of a train pass: the bfloat16 one runs on the tensor
+        cores, the float32 one on the CUDA cores. ``train`` is kept for the
+        other families' interface: a GaborNet has no render backward (nor
+        has nerf_tpu's: its render route's VJP raises), so only True is
+        legal."""
+        if not train:
+            raise NotImplementedError("the GaborNet fused render has no backward "
+                                      "kernel; train through .train")
+        if self.cdt == torch.bfloat16:
+            return "fused_render_gabor_train_tc"
+        return "fused_render_gabor_train"
+
+    def _train_entry(self):
+        """(function, error string, sizes, tensor cores?) of the train pass
+        on the library ``grad_library`` names."""
+        name = self.grad_library(True)
+        lib, entry = _library(name), _TRAIN_ENTRY[name]
+        return (getattr(lib, entry), getattr(lib, entry + "_error"),
+                getattr(lib, entry + "_sizes"), name.endswith("_tc"))
+
     def _launch_train(self, packed: Packed, coeffs, viewdirs, t, target, white_bg):
+        """One launch of the train pass on the library ``grad_library``
+        names: ``(loss, rgb, acc, weights, (gw, gv), dcoef)``."""
         num_rays, s = t.shape
         self._check(packed, self._gabor_args(coeffs, viewdirs, t)
                     + (("target", target, (num_rays, 3), torch.float32),))
-        dev = t.device
         coeffs, viewdirs, t, target = (x.detach().contiguous()
                                        for x in (coeffs, viewdirs, t, target))
-        lib = _library("fused_render_gabor_train")
-        per_point, npart, n_out = grad_sizes(lib.fused_gabor_train_sizes)
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        rays_per_cta = -(-num_rays // n_sm)
-        grid = -(-num_rays // rays_per_cta)
-        cap = -(-rays_per_cta * s // 64) * 64
-        # transposed matrices (same offsets) for the dz W^T products
-        wmat_t = torch.cat([packed.mats[k].t().reshape(-1) for k in self.mat_names])
-        scratch = torch.empty(grid * cap * per_point, dtype=torch.float32, device=dev)
-        partial = torch.empty(grid * npart, dtype=torch.float32, device=dev)
-        out = torch.empty(n_out, dtype=torch.float32, device=dev)
+        fn, err, sizes, tc = self._train_entry()
+        (rays_per_cta, cap), scratch, partial, out, rgb, acc, weights = self._grad_buffers(
+            t, grad_sizes(sizes), torch.uint8 if tc else torch.float32)
         dcoef = torch.empty_like(coeffs)
-        rgb = torch.empty((num_rays, 3), dtype=torch.float32, device=dev)
-        acc = torch.empty((num_rays,), dtype=torch.float32, device=dev)
-        weights = torch.empty((num_rays, s), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            code = lib.fused_gabor_train(
-                coeffs.data_ptr(), viewdirs.data_ptr(), t.data_ptr(),
-                packed.wmat.data_ptr(), wmat_t.data_ptr(), packed.vec.data_ptr(),
-                packed.wmat.numel(), packed.vec.numel(),
-                int(self.cdt == torch.bfloat16), target.data_ptr(),
-                1.0 if white_bg else 0.0, 1.0 / (3.0 * num_rays), num_rays, s,
-                rays_per_cta, cap, self.real_d, self.consts.sigma_mul,
+        if tc:
+            # bfloat16 on the tensor cores: a forward and a backward kernel
+            # over a byte stash
+            mats = (packed.wmat.data_ptr(),)
+        else:
+            # float32 on the CUDA cores, with transposed matrices (same
+            # offsets) for the dz W^T products
+            wmat_t = torch.cat([packed.mats[k].t().reshape(-1) for k in self.mat_names])
+            mats = (packed.wmat.data_ptr(), wmat_t.data_ptr())
+        with torch.cuda.device(t.device):
+            stream = torch.cuda.current_stream(t.device).cuda_stream
+            code = fn(
+                coeffs.data_ptr(), viewdirs.data_ptr(), t.data_ptr(), *mats,
+                packed.vec.data_ptr(), packed.wmat.numel(), packed.vec.numel(),
+                target.data_ptr(), 1.0 if white_bg else 0.0, 1.0 / (3.0 * num_rays),
+                num_rays, s, rays_per_cta, cap, self.real_d, self.consts.sigma_mul,
                 self.consts.rgb_mul, scratch.data_ptr(), partial.data_ptr(),
                 out.data_ptr(), dcoef.data_ptr(), rgb.data_ptr(), acc.data_ptr(),
                 weights.data_ptr(), stream)
-        if code != 0:
-            raise RuntimeError("FusedGaborRender train kernel: "
-                               + lib.fused_gabor_train_error(code).decode())
-        n_w = packed.wmat.numel()
-        return (out[n_out - 1], rgb, acc, weights,
-                (out[:n_w], out[n_w:n_out - 1]), dcoef)
+        grads, loss = self._grad_split("train", err, code, packed, out)
+        return loss, rgb, acc, weights, grads, dcoef

@@ -583,14 +583,22 @@ def test_gabor_kernel_matches_plain(dev, cdt, shape):
 
 
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(5, 13), (7, 37), (300, 37)])
+@pytest.mark.parametrize("shape", [(5, 13), (7, 37), (300, 37), (1024, 256), (1000, 256),
+                                   (1024, 37)])
 @pytest.mark.parametrize("white_bg", [True, False])
 def test_gabor_train_kernel_matches_plain(dev, cdt, shape, white_bg):
-    """Loss, rgb, acc, weights, the 23 weight gradients and dA..dR."""
+    """Loss, rgb, acc, weights, the 23 weight gradients and dA..dR; few
+    rays (idle CTAs), chunks that span rays (S = 13, 37), lego_siren.txt's
+    step (1024 x 256) and a ragged ray count (1000 x 256). The bfloat16
+    pass runs on the tensor cores (fused_render_gabor_train_tc), and two
+    launches of it give the same bits."""
     from nerf_tpu_torch.ops.cuda.fused_render_gabor import (
         FusedGaborRender, fused_gabor_train_plain, grad_views)
 
     model, fr = _gabor(cdt, 4, dev)
+    tc = cdt == "bfloat16"
+    assert fr.grad_library(True) == ("fused_render_gabor_train_tc" if tc
+                                     else "fused_render_gabor_train")
     ro, rd, t = _inputs(*shape, dev, seed=1)
     tgt = torch.rand(shape[0], 3, device=dev,
                      generator=torch.Generator(device=dev).manual_seed(2))
@@ -599,8 +607,14 @@ def test_gabor_train_kernel_matches_plain(dev, cdt, shape, white_bg):
         packed = fr.pack(model).packed
         before = FusedGaborRender.train_launches
         got = fr._train(packed, coeffs, rd, t, tgt, white_bg)
+        if tc:
+            again = fr._train(packed, coeffs, rd, t, tgt, white_bg)
         torch.cuda.synchronize()
-        assert FusedGaborRender.train_launches == before + 1
+        assert FusedGaborRender.train_launches == before + (2 if tc else 1)
+        if tc:
+            for x, y in zip(got[:4] + got[4] + got[5:], again[:4] + again[4] + again[5:]):
+                assert torch.equal(x, y)
+            del again
         ref = fused_gabor_train_plain(packed, coeffs, rd, t, tgt, white_bg, fr.consts)
     torch.testing.assert_close(got[0], ref[0], rtol=GABOR_TOL[cdt], atol=0)
     for i in (1, 2, 3):
@@ -616,6 +630,50 @@ def test_gabor_train_kernel_matches_plain(dev, cdt, shape, white_bg):
     for j in range(5):
         err = float((got[5][j] - ref[5][j]).abs().max())
         assert err <= GABOR_GRAD_TOL[cdt] * float(ref[5][j].abs().max()), (j, err)
+
+
+def test_bf16_gabor_render_and_train_pass_run_one_chain(dev):
+    """The bfloat16 GaborNet forward render (fused_render_gabor_fwd_tc) and
+    train pass (fused_render_gabor_train_tc) share their forward chain: on
+    one 1024 x 64 batch their rgb, acc and compositing weights are equal bit
+    for bit."""
+    model, fr = _gabor("bfloat16", 3, dev)
+    ro, rd, t = _inputs(1024, 64, dev, seed=8)
+    tgt = torch.rand(1024, 3, device=dev, generator=torch.Generator(device=dev).manual_seed(9))
+    coeffs = _gabor_coeffs(fr, model, ro, rd)
+    with torch.no_grad():
+        packed = fr.pack(model).packed
+        rgb, acc, _, weights = fr._forward(packed, coeffs, rd, t)
+        _, rgb_t, acc_t, weights_t, _, _ = fr._train(packed, coeffs, rd, t, tgt, True)
+    assert torch.equal(rgb, rgb_t) and torch.equal(acc, acc_t)
+    assert torch.equal(weights, weights_t)
+
+
+@pytest.mark.parametrize("n", [65536, 16384, 1000, 37])
+def test_bf16_gabor_field_fwd_tc_matches_plain_and_is_deterministic(dev, n):
+    """The bfloat16 GaborNet field forward on the tensor cores
+    (fused_gabor_fwd_tc) at a bake's 65,536 points, the distillation batch
+    and two ragged chunks: rgb within TOL and sigma within TOL of max(1,
+    max |sigma|) of its plain version (chip_smoke.py's phase 20), and two
+    launches give the same bits."""
+    from nerf_tpu_torch.ops.cuda.fused_gabor import GaborField, gabor_field_plain
+
+    model = _sg_model("gabor", "bfloat16", dev)
+    field = GaborField(model).pack()
+    assert field.fwd_library() == "fused_gabor_fwd_tc"
+    pts, dirs = _field_points(n, dev, seed=n + 1)
+    before = GaborField.launches
+    with torch.no_grad():
+        rgb, sigma = field._forward(field.packed, pts, dirs)
+        rgb2, sigma2 = field._forward(field.packed, pts, dirs)
+        ref_rgb, ref_sigma = gabor_field_plain(field.packed, pts, dirs, field.consts)
+    torch.cuda.synchronize()
+    assert GaborField.launches - before == 2
+    assert torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)
+    assert bool(torch.isfinite(rgb).all()) and bool(torch.isfinite(sigma).all())
+    torch.testing.assert_close(rgb, ref_rgb, atol=TOL["bfloat16"], rtol=0)
+    scale = max(1.0, float(ref_sigma.abs().max()))
+    torch.testing.assert_close(sigma, ref_sigma, atol=TOL["bfloat16"] * scale, rtol=0)
 
 
 def test_gabor_kernels_refuse_unsupported_shapes_and_the_render_vjp(dev):

@@ -1,16 +1,20 @@
 """Host-side plans and routes of the port's kernels, checked on the CPU.
 
-* The bfloat16 train passes of NeRF and SIREN (PERF.md rows 5 and 8) run
-  on the tensor cores (``csrc/fused_render_train_tc.cu``,
-  ``csrc/fused_render_siren_train_tc.cu``); the float32 train passes and
-  the render backwards (rows 4 and 7) stay on ``csrc/fused_render_train.cu``
-  and ``csrc/fused_render_siren_train.cu``. Their launch plan and the bytes
-  of their stashes are computed here, on the host.
+* The bfloat16 train passes of NeRF, SIREN and GaborNet (PERF.md rows 5, 8
+  and 12) run on the tensor cores (``csrc/fused_render_train_tc.cu``,
+  ``csrc/fused_render_siren_train_tc.cu``,
+  ``csrc/fused_render_gabor_train_tc.cu``); the float32 train passes and
+  the render backwards (rows 4 and 7) stay on ``csrc/fused_render_train.cu``,
+  ``csrc/fused_render_siren_train.cu`` and
+  ``csrc/fused_render_gabor_train.cu``. Their launch plan and the bytes of
+  their stashes are computed here, on the host.
 * The bfloat16 forward renders of NeRF, SIREN and GaborNet (rows 3, 6 and
   11) run on the tensor cores (``csrc/fused_render_fwd_tc.cu``,
   ``csrc/fused_render_siren_fwd_tc.cu``,
   ``csrc/fused_render_gabor_fwd_tc.cu``) at two CTAs an SM; the float32
   ones stay on the CUDA-core kernels at one.
+* The GaborNet field forward (row 13) runs in bfloat16 on the tensor cores
+  (``csrc/fused_gabor_fwd_tc.cu``) and in float32 on the CUDA cores.
 * The scatter-add (row 19) sorts its keys by a radix sort whose passes and
   digit width follow from the number of rows.
 * The KiloNeRF forward (row 15) runs in bfloat16 on the tensor cores
@@ -37,7 +41,8 @@ from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
 from nerf_tpu_torch.models.siren import SirenModel
-from nerf_tpu_torch.ops.cuda import build, fused_render, fused_render_gabor, fused_render_siren
+from nerf_tpu_torch.ops.cuda import (
+    build, fused_gabor, fused_render, fused_render_gabor, fused_render_siren)
 from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedGridRender, cells_affine
 from nerf_tpu_torch.ops.cuda.fused_kilonerf import (
     FWD_RUN, KiloNeRFField, dispatch, run_plan)
@@ -53,6 +58,9 @@ F32_STASH_BYTES = 4 * (9 * 256 + 256 + 128 + 2 * 64 + 2 * 256 + 12)
 # the SIREN's, FLOATS_PER_POINT of fused_render_siren_common.cuh
 # (2 x 8 x 256 + 256 + 2 x 128 + 64 + 2 x 256 + 16)
 SIREN_F32_STASH_BYTES = 4 * (2 * 8 * 256 + 256 + 2 * 128 + 64 + 2 * 256 + 16)
+# the GaborNet's, floats_per_point<2>() of fused_render_gabor_common.cuh
+# (8 x 256 + 7 x 256 + 256 + 128 + 64 + 2 x 256 + 16)
+GABOR_F32_STASH_BYTES = 4 * (8 * 256 + 7 * 256 + 256 + 128 + 64 + 2 * 256 + 16)
 
 
 @pytest.mark.parametrize("shape, plan", [
@@ -91,6 +99,19 @@ def test_siren_train_stash_bytes():
     assert grid * cap * fused_render_siren.TC_BYTES_PER_POINT == 4_127_195_136
 
 
+def test_gabor_train_stash_bytes():
+    """The GaborNet tensor-core pass keeps 14,208 bytes a point (u2..u8 and
+    z8 float32: the filter cotangent's factor and the ws gradient; the
+    filters evaluated again, not stashed), 0.738 of the CUDA-core kernel's
+    float32 stash; 3.7 GB at lego_siren.txt's 1024 x 256 on 132 SMs."""
+    assert fused_render_gabor.TC_BYTES_PER_POINT == 14_208
+    assert fused_render_gabor.TC_BYTES_PER_POINT % 16 == 0
+    assert fused_render_gabor.TC_BYTES_PER_POINT / GABOR_F32_STASH_BYTES == pytest.approx(
+        0.7375, abs=1e-4)
+    _, grid, cap = launch_plan(1024, 256, 132)
+    assert grid * cap * fused_render_gabor.TC_BYTES_PER_POINT == 3_724_541_952
+
+
 @pytest.mark.parametrize("num_rows, plan", [
     (1, (1, 1)), (2, (1, 2)), (255, (1, 8)), (256, (2, 5)), (5000, (2, 7)),
     (128 ** 3, (3, 8)), (2 ** 24 + 3000, (4, 7)), (2 ** 31 - 2, (4, 8)),
@@ -111,14 +132,32 @@ def test_scatter_radix_plan(num_rows, plan):
     pytest.param("float32", "nerf", id="float32"),
     pytest.param("bfloat16", "nerf", id="bfloat16"),
     pytest.param("float32", "siren", id="siren-float32"),
-    pytest.param("bfloat16", "siren", id="siren-bfloat16")])
+    pytest.param("bfloat16", "siren", id="siren-bfloat16"),
+    pytest.param("float32", "gabor", id="gabor-float32"),
+    pytest.param("bfloat16", "gabor", id="gabor-bfloat16")])
 def test_bf16_train_pass_routes_to_the_tensor_core_library(cdt, family, monkeypatch):
     """Only the bfloat16 train pass goes to the tensor-core library
-    (fused_render_train_tc, fused_render_siren_train_tc); the float32 train
-    pass and the render backward (both dtypes) keep the CUDA-core one. The
-    dispatch of _launch_grad is checked with both launchers replaced (no
-    card here)."""
+    (fused_render_train_tc, fused_render_siren_train_tc,
+    fused_render_gabor_train_tc); the float32 train pass and the render
+    backward (both dtypes) keep the CUDA-core one, and a GaborNet has no
+    render backward. The dispatch of _launch_grad is checked with both
+    launchers replaced, and the entry the GaborNet's _launch_train takes
+    with the libraries replaced (no card here)."""
     gen = torch.Generator().manual_seed(0)
+    if family == "gabor":
+        cls, lib = FusedGaborRender, "fused_render_gabor_train"
+        model = GaborModel(compute_dtype=cdt, generator=gen)
+        fr = cls(model, 2.0, 6.0)
+        tc = cdt == "bfloat16"
+        assert fr.grad_library(True) == (lib + "_tc" if tc else lib)
+        with pytest.raises(NotImplementedError, match="no backward"):
+            fr.grad_library(False)
+        assert lib + "_tc" in build.LIBS and lib in build.LIBS
+        monkeypatch.setattr(fused_render_gabor, "_library", _FakeLib)
+        lib, entry = (lib + "_tc", "fused_gabor_train_tc") if tc else (lib, "fused_gabor_train")
+        assert fr._train_entry() == (f"{lib}:{entry}", f"{lib}:{entry}_error",
+                                     f"{lib}:{entry}_sizes", tc)
+        return
     if family == "nerf":
         cls, lib = FusedNerfRender, "fused_render_train"
         fr = cls(NeRFModel(compute_dtype=cdt, generator=gen), 2.0, 6.0)
@@ -198,18 +237,37 @@ def test_fwd_library_routes_bf16_to_the_tensor_cores(family, cdt, monkeypatch):
 
 
 def test_build_lists_the_tensor_core_forward_renders():
-    """Twenty-three libraries, one per .cu source, the three tensor-core
-    forward renders, the SIREN's tensor-core train pass and the KiloNeRF
-    tensor-core forward beside the CUDA-core ones they took bfloat16 from."""
-    assert len(build.LIBS) == len(set(build.LIBS)) == 23
+    """Twenty-five libraries, one per .cu source, the three tensor-core
+    forward renders, the SIREN's and GaborNet's tensor-core train passes,
+    and the KiloNeRF and GaborNet tensor-core field forwards beside the
+    CUDA-core ones they took bfloat16 from."""
+    assert len(build.LIBS) == len(set(build.LIBS)) == 25
     for name in ("fused_render_fwd_tc", "fused_render_gabor_fwd_tc",
                  "fused_render_siren_fwd_tc", "fused_render_siren_train_tc",
-                 "fused_kilonerf_fwd_tc", "fused_kilonerf_fwd",
+                 "fused_render_gabor_train_tc", "fused_kilonerf_fwd_tc",
+                 "fused_gabor_fwd_tc", "fused_kilonerf_fwd",
                  "fused_render_fwd", "fused_render_gabor_fwd",
-                 "fused_render_siren_fwd", "fused_render_siren_train"):
+                 "fused_render_siren_fwd", "fused_render_siren_train",
+                 "fused_render_gabor_train", "fused_gabor_fwd"):
         assert name in build.LIBS
     sources = {p.stem for p in build._CSRC.glob("*.cu")}
     assert sources == set(build.LIBS)
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_gabor_field_fwd_routes_bf16_to_the_tensor_cores(cdt, monkeypatch):
+    """The GaborNet field forward goes to fused_gabor_fwd_tc in bfloat16 and
+    to fused_gabor_fwd in float32 (one C signature, the entry named after
+    the library's); the launch's entry is checked with the libraries
+    replaced (no card here)."""
+    field = fused_gabor.GaborField(GaborModel(compute_dtype=cdt,
+                                              generator=torch.Generator().manual_seed(0)))
+    tc = cdt == "bfloat16"
+    lib = "fused_gabor_fwd_tc" if tc else "fused_gabor_fwd"
+    entry = "gabor_field_fwd_tc" if tc else "gabor_field_fwd"
+    assert field.fwd_library() == lib and lib in build.LIBS
+    monkeypatch.setattr(fused_gabor, "_library", _FakeLib)
+    assert field._fwd_entry() == (f"{lib}:{entry}", f"{lib}:{entry}_error")
 
 
 @pytest.mark.parametrize("counts, ends, ctas", [
