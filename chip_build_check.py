@@ -10,8 +10,9 @@ checkout it is given, the NeRF and SIREN forward renders, train passes and
 render backwards and the GaborNet forward render (300 x 37 and 1024 x 64,
 float32 and bfloat16); the GaborNet train pass in float32 (row 12's
 CUDA-core kernel) at those shapes, and its field forward and backward (rows
-13 and 14, both dtypes) at 5,003 and 37 points; the KiloNeRF field's
-parameter gradients under a
+13 and 14, both dtypes) at 5,003 and 37 points; the NeRF and SIREN field
+forward and backward (rows 1, 2, 9 and 10, both dtypes) at those points;
+the KiloNeRF field's parameter gradients under a
 loss linear in its outputs (row 16's kernel, which the forward's outputs do
 not reach) and its float32 outputs (row 15's CUDA-core kernel); the grid
 interpolation of row 17 at training-ray and image-ray points; and row 19's
@@ -131,6 +132,34 @@ def gabor_train_and_field(torch, dev, res: dict) -> None:
                 res[f"gabor field bwd {cdt} {n} {k}"] = v.cpu()
 
 
+def nerf_siren_field(torch, dev, res: dict) -> None:
+    """Rows 1, 2, 9 and 10 in both dtypes (rgb and sigma; the weight
+    gradients and the point and direction cotangents of a seeded cotangent)
+    at 5,003 and 37 points."""
+    from nerf_tpu_torch.models.nerf import NeRFModel
+    from nerf_tpu_torch.models.siren import SirenModel
+    from nerf_tpu_torch.ops.cuda.fused_nerf import NerfField
+    from nerf_tpu_torch.ops.cuda.fused_siren import SirenField
+
+    for family, model_cls, field_cls in (("nerf", NeRFModel, NerfField),
+                                         ("siren", SirenModel, SirenField)):
+        for cdt in ("float32", "bfloat16"):
+            model = model_cls(compute_dtype=cdt,
+                              generator=torch.Generator().manual_seed(7)).to(dev)
+            field = field_cls(model).pack()
+            for n in (5003, 37):
+                ro, rd, t, _ = _inputs(torch, dev, n, 1, n)
+                pts = 0.5 * (ro + t * rd)
+                rgb, sigma = field._forward(field.packed, pts, rd)
+                res[f"{family} field fwd {cdt} {n} rgb"] = rgb.cpu()
+                res[f"{family} field fwd {cdt} {n} sigma"] = sigma.cpu()
+                cot = torch.randn(n, 4, device=dev,
+                                  generator=torch.Generator(device=dev).manual_seed(n + 1))
+                for k, v in zip(("gw", "gv", "dpts", "ddirs"),
+                                field._backward(field.packed, pts, rd, cot)):
+                    res[f"{family} field bwd {cdt} {n} {k}"] = v.cpu()
+
+
 def grids(torch, dev, res: dict) -> None:
     """Row 17 on a seeded 64^3 x 28 grid (float32 and its bfloat16 copy) at
     2,048 x 16 points of random rays and of one view's rays; row 19 at
@@ -196,6 +225,7 @@ def save(out: str, checkout: str) -> int:
                     res[f"gabor fwd {cdt} {r}x{s} {k}"] = v.cpu()
     with torch.no_grad():
         gabor_train_and_field(torch, dev, res)
+        nerf_siren_field(torch, dev, res)
     kilonerf(torch, dev, res)
     with torch.no_grad():
         grids(torch, dev, res)

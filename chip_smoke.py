@@ -8,10 +8,10 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
   1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
   2. the build of every kernel library from the sources in the checkout
      (one nvcc per source, started together), timed, and the count of
-     tensor-core instructions in the SASS of the eight bf16 libraries on
+     tensor-core instructions in the SASS of the ten bf16 libraries on
      the tensor cores (the NeRF, SIREN and GaborNet train passes, the
-     NeRF, SIREN and GaborNet forward renders, the KiloNeRF and GaborNet
-     field forwards; cuobjdump);
+     NeRF, SIREN and GaborNet forward renders, the KiloNeRF, NeRF, SIREN
+     and GaborNet field forwards; cuobjdump);
   3. every kernel against its plain PyTorch version on the card (TF32 off):
      the forward render at the serving shapes (8192 rays x 64 and 192
      samples), the train pass and the render backward at the training
@@ -115,8 +115,14 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      normal-then-normalised directions (the distillation draw), 1,000 and
      37 points (ragged chunks); both timed in turns at 65,536 and 16,384
      points (runs of 20 launches per pair of events) against their bound;
+     the bfloat16 forward runs on the tensor cores, twice for identical
+     bits at every point set, its time printed beside the CUDA-core
+     kernel's it replaced; at 16,384 points the forward that the backward
+     recomputes (on the CUDA cores) is read from its stash and held beside
+     the forward's output;
  18. serving lego.txt with --occupancy 64 from phase 5's trained
-     checkpoint: the bake's four field-kernel launches and occupied share,
+     checkpoint: the bake's four field-kernel launches, its wall time
+     (median of three bakes through the packed field) and occupied share,
      the kernel-baked grid against the grids baked through the field's
      plain version (equal) and through the module (cells counted), three
      400x400 requests (40 render launches each, no field launch), each
@@ -130,19 +136,21 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      backward launches), then 200 photometric steps with occupancy_res = 64
      and occupancy_interval = 100 (the mse at 190 under half of that at 0),
      a bit-identical resume from step 100, the step's rate and a profile of
-     one occupancy-guided step;
+     one occupancy-guided step; the wall time of a distillation step;
  20. the SIREN and GaborNet field kernels (forward and backward) against
      their plain versions on the card (TF32 off), lego_siren.txt's model
      (hidden 256, 8 layers / stages), float32 and bfloat16, on phase 17's
      point sets: rgb, sigma and every gradient (weights, the GaborNet's
      filter banks after autograd through the packing, points, directions);
      each timed in turns at 65,536 and 16,384 points (runs of 20 launches
-     per pair of events) against its bound; the bfloat16 GaborNet forward
-     runs on the tensor cores, twice for identical bits at every point set,
-     its time printed beside the CUDA-core kernel's it replaced;
+     per pair of events) against its bound; the bfloat16 forwards run on
+     the tensor cores, twice for identical bits at every point set, their
+     times printed beside the CUDA-core kernels' they replaced; at 16,384
+     points each backward's recomputed forward as in 17;
  21. serving lego_siren.txt and its GaborNet variant with --occupancy 64
      from phase 9's and phase 12's checkpoints: four field-kernel launches
-     per bake, the grid equal to the one baked through the plain version,
+     per bake, its wall time as in 18, the grid equal to the one baked
+     through the plain version,
      three 400x400 requests (157 render launches each, no field launch),
      each within mean abs 1e-2 of the unfused render with the same grid,
      their times and a profile of one;
@@ -152,7 +160,8 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      16,384 points (the loss falls; 100 teacher forward, 100 student
      forward and 100 student backward launches), then 100 photometric
      steps (the mse at 90 under that at 0; one validation image, 157
-     forward launches) and the step's rate.
+     forward launches), the step's rate and the wall time of a
+     distillation step.
 
  23. the voxel-grid kernels against their plain versions on the card (TF32
      off), a 128^3 x 28 grid (the plenoxels config's) with seeded values:
@@ -190,6 +199,7 @@ imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -252,11 +262,22 @@ ROW8_BF16_CUDA_CORE_MS = 38.388
 # earlier times, NVIDIA H100 80GB HBM3, 700.00 W).
 ROW12_BF16_CUDA_CORE_MS = 41.833
 ROW13_BF16_CUDA_CORE_MS = {65536: 2.901, 16384: 0.728}
+# Rows 1 and 9's bfloat16 NeRF and SIREN field forwards on the CUDA cores,
+# before they moved to the tensor cores (csrc/fused_nerf_fwd.cu and
+# csrc/fused_siren_fwd.cu at 65,536 / 16,384 points; PERF.md's earlier
+# times, NVIDIA H100 80GB HBM3, 700.00 W).
+ROW1_BF16_CUDA_CORE_MS = {65536: 2.663, 16384: 0.670}
+ROW9_BF16_CUDA_CORE_MS = {65536: 2.104, 16384: 0.526}
+# the bf16 field forwards' CUDA-core times by library, printed beside the
+# tensor-core kernels' in phases 17 and 20
+FIELD_WAS_MS = {"fused_nerf_fwd": ROW1_BF16_CUDA_CORE_MS, "fused_siren_fwd": ROW9_BF16_CUDA_CORE_MS,
+                "fused_gabor_fwd": ROW13_BF16_CUDA_CORE_MS}
 # the libraries of the bf16 kernels on the tensor cores (phase 2 reads
 # their SASS)
 TC_LIBS = ("fused_render_train_tc", "fused_render_fwd_tc", "fused_render_gabor_fwd_tc",
            "fused_render_siren_fwd_tc", "fused_render_siren_train_tc", "fused_kilonerf_fwd_tc",
-           "fused_render_gabor_train_tc", "fused_gabor_fwd_tc")
+           "fused_render_gabor_train_tc", "fused_gabor_fwd_tc", "fused_nerf_fwd_tc",
+           "fused_siren_fwd_tc")
 # per-sample MACs of the backward's skipped input-gradient products
 # (dz1 w1^T, dz6 w6p^T, dzr0 wr0d^T at the real widths 63/63/27)
 SKIPPED_MACS = 256 * 63 + 256 * 63 + 128 * 27
@@ -1563,6 +1584,8 @@ def check_nerf_field_kernels(torch, dev):
         weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
                         + packed.vec.numel() * 4)
         grad_bytes = (packed.wmat.numel() + packed.vec.numel()) * 4
+        # the bf16 forward on the tensor cores (row 1)
+        tc_fwd = field.fwd_library() == "fused_nerf_fwd_tc"
         worst = {"fwd": 0.0, "bwd": 0.0}
         for label, (pts, dirs) in sets.items():
             n = pts.shape[0]
@@ -1571,9 +1594,17 @@ def check_nerf_field_kernels(torch, dev):
             with torch.no_grad():
                 ref = nerf_field_plain(packed, pts, dirs, 10, 4)
                 out = field._forward(packed, pts, dirs)
+                if tc_fwd:
+                    again = field._forward(packed, pts, dirs)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(x, y) for x, y in zip(out, again)):
+                        fail(f"nerf field forward {cdt} {label}: two launches differ")
+                    del again
                 ref_g = nerf_field_bwd_plain(packed, pts, dirs, cot, 10, 4)
                 got_g = field._backward(packed, pts, dirs, cot)
                 torch.cuda.synchronize()
+                if n == 16384:
+                    say_recompute_gap(torch, "nerf", field, packed, pts, dirs, out, cdt, label)
             for x in out + got_g:
                 if not torch.isfinite(x).all():
                     fail(f"nerf field kernels {cdt} {label}: non-finite output or gradient")
@@ -1594,7 +1625,8 @@ def check_nerf_field_kernels(torch, dev):
                 + "; ".join(f"{k} cotangent error 99.9% {q:.3e} (tol "
                             f"{FIELD_PT_TOL[cdt]:.0e}), worst {m:.3e}"
                             for k, (q, m) in pt.items())
-                + f"; points beyond the tol: {bad_pts} of {n}")
+                + f"; points beyond the tol: {bad_pts} of {n}"
+                + ("; forward two launches bit-identical" if tc_fwd else ""))
             if (max(errs.values()) > TOL[cdt]["rgb"] or gerr[w] > GRAD_TOL[cdt]
                     or max(q for q, _ in pt.values()) > FIELD_PT_TOL[cdt]
                     or bad_pts > 0.001 * n):
@@ -1631,9 +1663,12 @@ def check_nerf_field_kernels(torch, dev):
                 plain_ms = statistics.median(times[(name, "plain")])
                 bms, by = field_bound_ms(n, cdt, weight_bytes,
                                          grad_bytes if name.endswith("bwd") else None)
-                say(f"kernel {name} {cdt} {label}: kernel {ms:.3f} ms, plain "
-                    f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), share of bound "
-                    f"{bms / ms:.4f}")
+                was = FIELD_WAS_MS[name][n] if tc_fwd and name.endswith("fwd") else None
+                say(f"kernel {name} {cdt} {label}: kernel {ms:.3f} ms"
+                    + (f" (tensor cores; the CUDA-core kernel it replaced {was:.3f} ms, "
+                       f"x{was / ms:.2f})" if was else "")
+                    + f", plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), share of "
+                    f"bound {bms / ms:.4f}")
                 results[(name, cdt, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                                bound_by=by)
         for name, key in (("fused_nerf_fwd", "fwd"), ("fused_nerf_bwd", "bwd")):
@@ -1689,40 +1724,82 @@ def bank_grads(torch, model, gf) -> dict:
     return {name: g for (name, _), g in zip(names, grads)}
 
 
-def row14_recomputed_forward(torch, field, pts, dirs):
-    """rgb and sigma of the forward that row 14 (the GaborNet field
-    backward, on the CUDA cores) recomputes, read from its stash after one
-    launch with a zero cotangent: each CTA's scratch ends in N_COLS = 16
-    per-point columns (fused_render_gabor_common.cuh), of which C_SIGP = 0
-    holds sigma_pre and C_RGB = 1..3 the rgb (render_common.cuh); sigma =
-    relu(sigma_pre) * sigma_mul as the forward forms it."""
-    from nerf_tpu_torch.ops.cuda.fused_gabor import _library, _names, grad_sizes
+def recomputed_forward(torch, family: str, field, packed, pts, dirs):
+    """rgb and sigma of the forward that a field backward (row 2, 10 or 14
+    for ``family`` "nerf", "siren" or "gabor"; on the CUDA cores)
+    recomputes, read from its stash after one launch with a zero cotangent
+    on ``packed``: each CTA's scratch ends in its per-point columns (N_COLS:
+    12 for the NeRF, fused_render_common.cuh; 16 for the SIREN and the
+    GaborNet), of which C_SIGP = 0 holds sigma_pre and C_RGB = 1..3 the rgb
+    (render_common.cuh); sigma = relu(sigma_pre), times sigma_mul for the
+    SIREN and the GaborNet, as the forward forms it."""
+    from nerf_tpu_torch.ops.cuda import fused_gabor, fused_nerf, fused_siren
+    from nerf_tpu_torch.ops.cuda.fused_render import grad_sizes
 
-    pk, k = field.packed, field.consts
-    packed, n, dev = pk.packed, pts.shape[0], pts.device
-    lib = _library("fused_gabor_bwd")
-    per_point, npart, n_out = grad_sizes(lib.gabor_field_bwd_sizes)
+    n, dev = pts.shape[0], pts.device
+    mats = packed.packed if family == "gabor" else packed
+    mod, entry = {"nerf": (fused_nerf, "fused_nerf_bwd"),
+                  "siren": (fused_siren, "siren_field_bwd"),
+                  "gabor": (fused_gabor, "gabor_field_bwd")}[family]
+    names = fused_gabor._names(field.n)[0] if family == "gabor" else mod._MATS
+    lib = mod._library(f"fused_{family}_bwd")
+    if family == "nerf":
+        vals = [ctypes.c_int() for _ in range(4)]
+        lib.fused_nerf_bwd_sizes(*(ctypes.byref(v) for v in vals))
+        per_point, npart, n_out, _ = (v.value for v in vals)
+    else:
+        per_point, npart, n_out = grad_sizes(getattr(lib, entry + "_sizes"))
     run, grid = field._runs(n, dev)
-    wmat_t = torch.cat([packed.mats[m].t().reshape(-1) for m in _names(field.n)[0]])
+    wmat_t = torch.cat([mats.mats[m].t().reshape(-1) for m in names])
     scratch = torch.empty(grid * run * per_point, dtype=torch.float32, device=dev)
     partial = torch.empty(grid * npart, dtype=torch.float32, device=dev)
     out = torch.empty(n_out, dtype=torch.float32, device=dev)
     dpts, ddirs = (torch.empty(n, 3, dtype=torch.float32, device=dev) for _ in range(2))
     cot = torch.zeros(n, 4, dtype=torch.float32, device=dev)
-    code = lib.gabor_field_bwd(
-        pts.data_ptr(), dirs.data_ptr(), cot.data_ptr(), packed.wmat.data_ptr(),
-        wmat_t.data_ptr(), packed.vec.data_ptr(), pk.filters.data_ptr(),
-        packed.wmat.numel(), packed.vec.numel(), pk.filters.numel(),
-        int(field.cdt == torch.bfloat16), n, run, run, field.real_d, k.sigma_mul,
-        k.rgb_mul, scratch.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        dpts.data_ptr(), ddirs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    bf16 = int(field.cdt == torch.bfloat16)
+    head = (pts.data_ptr(), dirs.data_ptr(), cot.data_ptr(), mats.wmat.data_ptr(),
+            wmat_t.data_ptr())
+    tail = (scratch.data_ptr(), partial.data_ptr(), out.data_ptr(), dpts.data_ptr(),
+            ddirs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    n_w, n_b = mats.wmat.numel(), mats.vec.numel()
+    if family == "nerf":
+        wt_in = fused_nerf.input_transposes(mats)
+        args = (wt_in.data_ptr(), mats.vec.data_ptr(), n_w, n_b, wt_in.numel(), bf16, n,
+                run, run, field.real_p, field.real_d)
+        sigma_mul = 1.0
+    else:
+        k = field.consts
+        filters = (packed.filters.data_ptr(),) if family == "gabor" else ()
+        n_f = (packed.filters.numel(),) if family == "gabor" else ()
+        w0s = () if family == "gabor" else (k.w0, k.hidden_w0)
+        args = (mats.vec.data_ptr(), *filters, n_w, n_b, *n_f, bf16, n, run, run,
+                field.real_d, *w0s, k.sigma_mul, k.rgb_mul)
+        sigma_mul = k.sigma_mul
+    code = getattr(lib, entry)(*head, *args, *tail)
     if code != 0:
-        fail("GaborNet field backward kernel: " + lib.gabor_field_bwd_error(code).decode())
+        fail(f"{family} field backward kernel: "
+             + getattr(lib, entry + "_error")(code).decode())
     torch.cuda.synchronize()
-    cols = scratch.view(grid, per_point, run)[:, per_point - 16:]
-    sigma = torch.clamp_min(cols[:, 0].reshape(-1)[:n], 0.0) * k.sigma_mul
+    n_cols = 12 if family == "nerf" else 16
+    cols = scratch.view(grid, per_point, run)[:, per_point - n_cols:]
+    sigma = torch.clamp_min(cols[:, 0].reshape(-1)[:n], 0.0) * sigma_mul
     rgb = cols[:, 1:4].permute(0, 2, 1).reshape(-1, 3)[:n]
     return rgb, sigma
+
+
+def say_recompute_gap(torch, family: str, field, packed, pts, dirs, out, cdt: str,
+                      label: str) -> None:
+    """Print how far the forward that the family's field backward
+    recomputes (``recomputed_forward``) lies from the forward kernel's
+    output ``out``: in float32 both are one chain, so a zero there shows
+    the stash was read right; in bfloat16 the forward runs on the tensor
+    cores and the recompute on the CUDA cores."""
+    rows = {"nerf": (2, 1), "siren": (10, 9), "gabor": (14, 13)}[family]
+    rec = recomputed_forward(torch, family, field, packed, pts, dirs)
+    say(f"kernel {family} field {cdt} {label}: row {rows[0]}'s recomputed forward "
+        f"against row {rows[1]}'s: max abs rgb {float((rec[0] - out[0]).abs().max()):.3e}, "
+        f"sigma {float((rec[1] - out[1]).abs().max()):.3e} (max sigma "
+        f"{float(out[1].abs().max()):.3g})")
 
 
 def check_siren_gabor_field_kernels(torch, dev):
@@ -1752,8 +1829,8 @@ def check_siren_gabor_field_kernels(torch, dev):
             grad_bytes = (packed.wmat.numel() + packed.vec.numel() + n_f) * 4
             tol_out, tol_grad, tol_pt = SG_TOL.get(
                 (family, cdt), (TOL[cdt]["rgb"], GRAD_TOL[cdt], FIELD_PT_TOL[cdt]))
-            # the bf16 GaborNet forward on the tensor cores (row 13)
-            tc_fwd = getattr(field, "fwd_library", lambda: "")() == "fused_gabor_fwd_tc"
+            # the bf16 forwards on the tensor cores (rows 9 and 13)
+            tc_fwd = field.fwd_library() == f"{kname}_fwd_tc"
             worst = {"fwd": 0.0, "bwd": 0.0}
             for label, (pts, dirs) in sets.items():
                 n = pts.shape[0]
@@ -1772,18 +1849,10 @@ def check_siren_gabor_field_kernels(torch, dev):
                     ref_g = plain_bwd(pk, pts, dirs, cot)
                     got_g = field._backward(pk, pts, dirs, cot)
                     torch.cuda.synchronize()
-                    if family == "gabor" and n == 16384:
-                        # the forward row 14's gradient is taken at (its
-                        # recompute on the CUDA cores) against the one row
-                        # 13 returns; in float32 both are one chain, so a
-                        # zero there shows the stash was read right
-                        rec = row14_recomputed_forward(torch, field, pts, dirs)
-                        say(f"kernel gabor field {cdt} {label}: row 14's recomputed "
-                            f"forward against row 13's: max abs rgb "
-                            f"{float((rec[0] - out[0]).abs().max()):.3e}, sigma "
-                            f"{float((rec[1] - out[1]).abs().max()):.3e} (max sigma "
-                            f"{float(out[1].abs().max()):.3g})")
-                        del rec
+                    if n == 16384:
+                        # the forward the backward's gradient is taken at
+                        say_recompute_gap(torch, family, field, pk, pts, dirs, out, cdt,
+                                          label)
                     if n < 1000:
                         # the plain version itself at these points inside a
                         # larger batch (its products in another order)
@@ -1864,8 +1933,7 @@ def check_siren_gabor_field_kernels(torch, dev):
                     bms, by = field_bound_ms(
                         n, cdt, weight_bytes, grad_bytes if name.endswith("bwd") else None,
                         family)
-                    was = (ROW13_BF16_CUDA_CORE_MS[n]
-                           if tc_fwd and name == "fused_gabor_fwd" else None)
+                    was = FIELD_WAS_MS[name][n] if tc_fwd and name.endswith("fwd") else None
                     say(f"kernel {name} {cdt} {label}: kernel {ms:.3f} ms"
                         + (f" (tensor cores; the CUDA-core kernel it replaced {was:.3f} "
                            f"ms, x{was / ms:.2f})" if was else "")
@@ -2166,6 +2234,46 @@ def profile_step(torch, state, pool, settings, cfg, kernel: str,
 # ---------------------------------------------------------------- phase 18
 
 
+def bake_wall_ms(torch, field, domain, dev) -> float:
+    """Wall ms of a 64^3 occupancy bake through ``field`` (a packed field
+    wrapper: four forward launches of 65,536 points), each bake ended by a
+    synchronize: the median of three after one warm-up bake."""
+    from nerf_tpu_torch.ops.occupancy import bake_occupancy, sigma_field
+
+    times = []
+    with torch.no_grad():
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bake_occupancy(sigma_field(field), grid_res=64, domain=domain, device=dev)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def distill_step_ms(torch, cfg, dev, steps: int = 20) -> float:
+    """Wall ms of one distillation step of ``cfg`` (its teacher checkpoint,
+    a fresh seeded student, both through the field kernels, the batch of
+    ``cfg.distill_batch`` points and the student's Adam step): ``steps``
+    chained steps after one warm-up step, ended by a synchronize."""
+    from nerf_tpu_torch.models.registry import grid_domain
+    from nerf_tpu_torch.train.distill import load_teacher, make_distill_step
+    from nerf_tpu_torch.train.state import create_train_state
+    from nerf_tpu_torch.train.step import fused_field_for
+
+    state = create_train_state(cfg, device=dev)
+    teacher = load_teacher(cfg, cfg.distill_from, dev)
+    student = fused_field_for(state.params)
+    args = (student, teacher, cfg.distill_batch, cfg.seed, grid_domain(cfg))
+    make_distill_step(*args, 1)(state)
+    run = make_distill_step(*args, steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(state)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
 def serve_occupancy(torch, dev, tmp: str, ckpt: str) -> dict:
     """Phase 18: lego.txt served from phase 5's trained checkpoint with
     --occupancy 64. The bake: four NeRF field forward launches (64^3 points
@@ -2218,8 +2326,10 @@ def serve_occupancy(torch, dev, tmp: str, ckpt: str) -> dict:
         kern_m = bake(field, threshold=med, dilate=0)
         plain_m = bake(plain_field, threshold=med, dilate=0)
     share = float(grid.mean())
+    bake_ms = bake_wall_ms(torch, field, domain, dev)
     say(f"serve occupancy: the 64^3 bake launched the NeRF field forward {bake_launches} "
-        f"times (service set-up {setup:.2f} s); occupied share {share:.4f} (before "
+        f"times ({field.fwd_library()}; service set-up {setup:.2f} s; a bake {bake_ms:.3f} "
+        f"ms wall, median of 3); occupied share {share:.4f} (before "
         f"dilation {float(kern0.mean()):.4f}); cells that differ from the plain-version "
         f"bake: {int((grid != plain).sum())} dilated, {int((kern0 != plain0).sum())} "
         f"before dilation; cells the module bake flips: {int((grid != module).sum())}")
@@ -2361,6 +2471,9 @@ def train_distill_occupancy(torch, dev, tmp: str, teacher: str) -> dict:
         f"at 0 -> {loss[190]:.6f} at 190 (ratio {loss[190] / loss[0]:.4f}); lego.txt "
         f"occupancy-guided step {step_rps:.0f} rays/s ({cfg.num_random_rays} rays, "
         f"{cfg.num_samples}+{cfg.num_fine_samples} samples, {cfg.compute_dtype})")
+    step_ms = distill_step_ms(torch, cfg, dev)
+    say(f"train: a lego.txt distillation step (16384 points: teacher and student "
+        f"forward, student backward, Adam) {step_ms:.3f} ms wall (20 chained steps)")
     check_resume(torch, dev, tmp, cfg, "nerf", loss, tag="distill_occ")
     state = create_train_state(cfg, device=dev)
     scene = load_scene(cfg, device=dev)
@@ -2418,8 +2531,10 @@ def serve_occupancy_sg(torch, dev, tmp: str, family: str, ckpt: str) -> dict:
             sigma_field(lambda p, d: plain_fwd(field.packed, p, d)), grid_res=64,
             domain=grid_domain(cfg), device=dev)
     diff = int((grid != plain).sum())
+    bake_ms = bake_wall_ms(torch, field, grid_domain(cfg), dev)
     say(f"serve occupancy {family}: the 64^3 bake launched the {family} field forward "
-        f"{bake_launches} times (service set-up {setup:.2f} s); occupied share "
+        f"{bake_launches} times ({field.fwd_library()}; service set-up {setup:.2f} s; a "
+        f"bake {bake_ms:.3f} ms wall, median of 3); occupied share "
         f"{float(grid.mean()):.4f}; cells that differ from the plain-version bake: "
         f"{diff} of 262144")
     if diff:
@@ -2503,6 +2618,10 @@ def train_distill_cross(torch, dev, tmp: str, student: str, teacher: str) -> dic
         fail(f"{student} after distillation: mse at 90 ({loss[90]}) is not under that "
              f"at 0 ({loss[0]})")
     step_rps = scal["rays_per_sec"][90]
+    step_ms = distill_step_ms(torch, cfg, dev)
+    say(f"train: a {student} distillation step from the {t_field.family} teacher "
+        f"(16384 points: teacher and student forward, student backward, Adam) "
+        f"{step_ms:.3f} ms wall (20 chained steps)")
     say(f"train: {student} distill loss {dl[0]:.6f} at 0 -> {dl[99]:.6f} at 99; mse "
         f"{loss[0]:.6f} at 0 -> {loss[90]:.6f} at 90 (ratio {loss[90] / loss[0]:.4f}); "
         f"photometric step {step_rps:.0f} rays/s ({cfg.num_random_rays} rays, "
@@ -3231,7 +3350,8 @@ def main() -> int:
             ("fused_nerf_fwd", 233,
              occ_served["bake_launches"] + distilled["fwd_launches"], 65536),
             ("fused_nerf_bwd", 333, distilled["bwd_launches"], 16384)):
-        kernels.append(row(name, f"{name}.cu", f"{nerf_tpu}fused_nerf.py:{line}",
+        source = f"{name}_tc.cu" if name.endswith("_fwd") else f"{name}.cu"
+        kernels.append(row(name, source, f"{nerf_tpu}fused_nerf.py:{line}",
                            launched, field_checks[(name, "bfloat16", n)],
                            max(field_checks[(name, c, n)]["err"]
                                for c in ("float32", "bfloat16"))))
@@ -3243,7 +3363,7 @@ def main() -> int:
                  fwd_launched, 65536),
                 (f"fused_{family}_bwd", {"siren": 117, "gabor": 110}[family],
                  sg_distilled[family]["bwd"], 16384)):
-            source = "fused_gabor_fwd_tc.cu" if name == "fused_gabor_fwd" else f"{name}.cu"
+            source = f"{name}_tc.cu" if name.endswith("_fwd") else f"{name}.cu"
             kernels.append(row(name, source, f"{nerf_tpu}fused_{family}.py:{line}",
                                launched, sg_checks[(name, "bfloat16", n)],
                                max(sg_checks[(name, c, n)]["err"]

@@ -6,17 +6,23 @@ swept on one GPU.
 plain version's sequential k order, every hidden-layer element whose sine
 lies within ``TIE_ULPS`` * 2^-24 * w0 (|acc + b| + 1) of the midpoint between
 two bf16 values, so that it rounds as the plain version's does. This script
-builds the SIREN forward render and train pass (``fused_render_siren_fwd_tc``,
-``fused_render_siren_train_tc``) from copies of the sources with
-``TIE_ULPS`` replaced by each value given, and prints for each value:
+builds the SIREN forward render, train pass and field forward
+(``fused_render_siren_fwd_tc``, ``fused_render_siren_train_tc``,
+``fused_siren_fwd_tc``) from copies of the sources with ``TIE_ULPS``
+replaced by each value given, and prints for each value:
 
   * the forward render's max abs error against ``fused_siren_render_plain``
     at 1024 x 256, 1000 x 256 and 1024 x 37, for two seeded SIRENs;
   * the train pass's against ``fused_siren_train_plain`` at 1024 x 256 and
     133 x 64: loss (relative), rgb, acc, weights, and the worst gradient
     over its max (floored at 1e-2 of the largest);
-  * both kernels' times at 1024 x 256 (medians of 7 and 5 launches), in two
-    passes over the values, the second in reverse order.
+  * the field forward's against ``siren_field_plain`` (rgb, and sigma over
+    max(1, max sigma)) on the first 65,536 points of the 64^3 occupancy
+    lattice (a bake's chunk) and at 16,384, 1,000 and 37 uniform points,
+    for the same two SIRENs;
+  * the three kernels' times (the renders at 1024 x 256, medians of 7 and
+    5 launches; the field forward at 65,536 lattice points, median of 7),
+    in two passes over the values, the second in reverse order.
 
     python3 chip_tie_margin.py [TIE_ULPS ...]     (integers; default: 0 4 8 16 32 64)
 
@@ -35,7 +41,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-LIBS = ("fused_render_siren_fwd_tc", "fused_render_siren_train_tc")
+LIBS = ("fused_render_siren_fwd_tc", "fused_render_siren_train_tc", "fused_siren_fwd_tc")
 LINE = "constexpr float TIE_ULPS = 32.f;"
 
 
@@ -76,6 +82,8 @@ def main() -> int:
     from nerf_tpu_torch.models.siren import SirenModel
     from nerf_tpu_torch.ops.cuda import build
     from nerf_tpu_torch.ops.cuda import fused_render_siren as frs
+    from nerf_tpu_torch.ops.cuda import fused_siren as fs
+    from nerf_tpu_torch.ops.occupancy import lattice
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -85,9 +93,10 @@ def main() -> int:
     library = build.library
 
     def use(v):
-        frs.library = lambda name: (ctypes.CDLL(str(dirs[v] / f"{name}.so"))
-                                    if name in LIBS else library(name))
-        frs._library.cache_clear()
+        for mod in (frs, fs):
+            mod.library = lambda name: (ctypes.CDLL(str(dirs[v] / f"{name}.so"))
+                                        if name in LIBS else library(name))
+            mod._library.cache_clear()
 
     def inputs(r, s, seed):
         rng = np.random.default_rng(seed)
@@ -101,6 +110,16 @@ def main() -> int:
         model = SirenModel(compute_dtype="bfloat16",
                            generator=torch.Generator().manual_seed(seed)).to(dev)
         return model, frs.FusedSirenRender(model, 2.0, 6.0)
+
+    def field_points(n, seed):
+        if n == 65536:
+            pts = lattice(64, (-2.75, -1.25), dev)[:n]
+            return pts, torch.tensor([0.0, 0.0, 1.0], device=dev).expand(n, 3).contiguous()
+        rng = np.random.default_rng(seed)
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        return tuple(torch.from_numpy(x.astype(np.float32)).to(dev)
+                     for x in (rng.uniform(-2.75, -1.25, (n, 3)), d))
 
     def median_ms(fn, reps):
         out = []
@@ -131,6 +150,19 @@ def main() -> int:
                     print(f"TIE_ULPS={v} forward SIREN seed {mseed} {r}x{s}: " + " ".join(
                         f"{n}={float((a - b).abs().max()):.3e}" for n, a, b in
                         zip(("rgb", "acc", "depth", "weights"), got, refs[key])), flush=True)
+                field = fs.SirenField(model).pack()
+                for n in (65536, 16384, 1000, 37):
+                    pts, d = field_points(n, iseed + n)
+                    key = ("field", mseed, n)
+                    if key not in refs:
+                        refs[key] = fs.siren_field_plain(field.packed, pts, d, field.consts)
+                    rgb, sigma = field._forward(field.packed, pts, d)
+                    ref_rgb, ref_sigma = refs[key]
+                    scale = max(1.0, float(ref_sigma.abs().max()))
+                    print(f"TIE_ULPS={v} field forward SIREN seed {mseed} {n}: "
+                          f"rgb={float((rgb - ref_rgb).abs().max()):.3e} "
+                          f"sigma={float((sigma - ref_sigma).abs().max()) / scale:.3e} "
+                          f"(over {scale:.3g})", flush=True)
             model, fr = siren(4)
             packed = fr.pack(model)
             for r, s in ((1024, 256), (133, 64)):
@@ -164,14 +196,19 @@ def main() -> int:
             o_aff, d_aff = fr.affine(ro, rd)
             tgt = torch.rand(1024, 3, device=dev,
                              generator=torch.Generator(device=dev).manual_seed(2))
+            field = fs.SirenField(model).pack()
+            pts, d = field_points(65536, 0)
             fwd = lambda: fr._forward(packed, o_aff, d_aff, rd, t)  # noqa: E731
             train = lambda: fr._train(packed, o_aff, d_aff, rd, t, tgt, True)  # noqa: E731
-            fwd(), train()
-            times.setdefault(v, []).append((median_ms(fwd, 7), median_ms(train, 5)))
+            fld = lambda: field._forward(field.packed, pts, d)  # noqa: E731
+            fwd(), train(), fld()
+            times.setdefault(v, []).append((median_ms(fwd, 7), median_ms(train, 5),
+                                            median_ms(fld, 7)))
     for v in values:
         print(f"TIE_ULPS={v} 1024x256: forward "
-              + " / ".join(f"{a:.3f}" for a, _ in times[v]) + " ms, train pass "
-              + " / ".join(f"{b:.3f}" for _, b in times[v]) + " ms", flush=True)
+              + " / ".join(f"{a:.3f}" for a, _, _ in times[v]) + " ms, train pass "
+              + " / ".join(f"{b:.3f}" for _, b, _ in times[v]) + " ms; field forward at "
+              "65536: " + " / ".join(f"{c:.3f}" for _, _, c in times[v]) + " ms", flush=True)
     return 0
 
 

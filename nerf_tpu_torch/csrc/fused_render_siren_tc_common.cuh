@@ -1,17 +1,20 @@
 // The SIREN family's forward chain on Hopper's tensor cores (sm_90a), over
-// one 64-point chunk of ray samples, shared by the bfloat16 train pass
-// (fused_render_siren_train_tc.cu, which stashes what its backward needs)
-// and the bfloat16 forward render (fused_render_siren_fwd_tc.cu, which keeps
+// one 64-point chunk, shared by the bfloat16 train pass
+// (fused_render_siren_train_tc.cu, which stashes what its backward needs),
+// the bfloat16 forward render (fused_render_siren_fwd_tc.cu, which keeps
 // each point's density and colour in shared memory and composites them
-// straight away). One chain, so the train pass's forward outputs are the
-// forward render's bit for bit.
+// straight away) and the bfloat16 field forward (fused_siren_fwd_tc.cu,
+// which writes them out in point order). One chain, so the train pass's
+// forward outputs are the forward render's bit for bit. The chunk's input
+// stage is a loader policy: ray samples (load_chunk_tc) or given points and
+// directions (load_point_chunk_tc).
 //
 // The chain is nerf_tpu/ops/pallas/fused_siren.py::_mlp_tile in bfloat16,
 // at its rounding points:
-//   * the raw positions p = o_aff + t d_aff rounded to bf16, and layer 1
-//     (K = 3) on the CUDA cores in mlp_chunk's fmaf order (x0 w0, then x1
-//     w1, then x2 w2): at w0 = 30 one ulp of the argument flips bf16
-//     roundings downstream;
+//   * the raw positions (p = o_aff + t d_aff, or the given points) rounded
+//     to bf16, and layer 1 (K = 3) on the CUDA cores in mlp_chunk's fmaf
+//     order (x0 w0, then x1 w1, then x2 w2): at w0 = 30 one ulp of the
+//     argument flips bf16 roundings downstream;
 //   * layers 2..8, the feature remap and the rgb head's [feat, denc]
 //     product on render_tc.cuh's gemm_fwd (mma.sync m16n8k16, bf16
 //     operands, float32 sums), each sine layer's epilogue in the
@@ -153,6 +156,33 @@ __device__ void load_chunk_tc(const RayInputs& in, int chunk0, int nvalid, const
   __syncthreads();
 }
 
+// The inputs of field points [p0, p0 + nvalid), given with their
+// directions, into shared memory, zero past nvalid, as
+// fused_render_siren_common.cuh::load_point_chunk<true>: the raw points
+// rounded to bf16 (float32 columns), the direction encoding (exact sine)
+// rounded to bf16 (point-major). Ends past a barrier.
+__device__ void load_point_chunk_tc(const float* __restrict__ pts,
+                                    const float* __restrict__ dirs, int p0, int nvalid,
+                                    int real_d, const TcSmem& sm) {
+  const int tid = threadIdx.x;
+  if (tid < 3 * TC_P) {
+    const int c = tid / TC_P, p = tid % TC_P;
+    float v = 0.f;
+    if (p < nvalid) v = round_bf16(pts[static_cast<size_t>(p0 + p) * 3 + c]);
+    sm.col[(SC_POS + c) * TC_P + p] = v;
+  }
+  for (int idx = tid; idx < TC_P * DP; idx += THREADS) {
+    const int p = idx / DP, c = idx % DP;
+    float v = 0.f;
+    if (p < nvalid && c < real_d) {
+      const int d = c < 3 ? c : (c - 3) % 3;
+      v = encode_col<false>(dirs[static_cast<size_t>(p0 + p) * 3 + d], c);
+    }
+    sm.denc[p * LDD + c] = __float2bfloat16_rn(v);
+  }
+  __syncthreads();
+}
+
 // Whether h = fast_sin(w0 s) is a near tie (see the header), m = w0
 // TIE_ULPS 2^-24: within m (|s| + 1) of the midpoint between its two bf16
 // neighbours (h and the midpoint share sign and exponent, so their
@@ -248,22 +278,23 @@ __device__ __forceinline__ void sine_tc(float (&acc)[4][NT][4], int n0,
   }
 }
 
-// The forward of ray samples [chunk0, chunk0 + nvalid). STASH (the train
-// pass): what the backward needs to the stash `st` at rows l0.., sigma_pre,
-// rgb and the rounded positions to its per-point columns (`cap` long).
-// Else (the forward render): t, delta, sigma (after the ReLU, times
+// The forward of one chunk whose inputs `load()` puts in shared memory (the
+// rounded positions and the direction encoding, and the ray loader's t and
+// delta columns; it ends past a barrier). STASH (the train pass): what the
+// backward needs to the stash `st` at rows l0.., sigma_pre, rgb and the
+// rounded positions to its per-point columns (`cap` long). Else (the
+// forward render and the field forward): sigma (after the ReLU, times
 // sigma_mul) and rgb to the shared-memory columns sm.col (SC_*), nothing to
 // device memory. Ends past a barrier.
-template <bool STASH>
-__device__ void forward_chunk_siren_tc(const RayInputs& in, const Siren& sp,
-                                       const bf16* __restrict__ wmat, int chunk0, int nvalid,
-                                       const TcSmem& sm, const TcStash& st, size_t l0, int cap) {
-  const float* __restrict__ vec = in.vec;
+template <bool STASH, typename Load>
+__device__ void forward_chain_siren_tc(Load load, const float* __restrict__ vec, const Siren& sp,
+                                       const bf16* __restrict__ wmat, const TcSmem& sm,
+                                       const TcStash& st, size_t l0, int cap) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3, n0 = warp * 32;
   const size_t cz = static_cast<size_t>(cap);
   if (tid < 2) sm.tie_n[tid] = 0;
-  load_chunk_tc<!STASH>(in, chunk0, nvalid, sm);
+  load();
   const float* pos = sm.col + SC_POS * TC_P;
   if constexpr (STASH) {
     tile_out(sm.denc, LDD, DP, st.denc, l0);
@@ -374,6 +405,17 @@ __device__ void forward_chunk_siren_tc(const RayInputs& in, const Siren& sp,
       sm.col[(SC_RGB + ch) * TC_P + p] = r;
   }
   __syncthreads();
+}
+
+// The forward of ray samples [chunk0, chunk0 + nvalid): forward_chain_siren_tc
+// with the ray loader (the forward render's also fills the t and delta
+// columns).
+template <bool STASH>
+__device__ void forward_chunk_siren_tc(const RayInputs& in, const Siren& sp,
+                                       const bf16* __restrict__ wmat, int chunk0, int nvalid,
+                                       const TcSmem& sm, const TcStash& st, size_t l0, int cap) {
+  forward_chain_siren_tc<STASH>([&] { load_chunk_tc<!STASH>(in, chunk0, nvalid, sm); }, in.vec,
+                                sp, wmat, sm, st, l0, cap);
 }
 
 }  // namespace siren

@@ -1,9 +1,12 @@
 // The NeRF family's forward chain on Hopper's tensor cores (sm_90a), over
-// one 64-point chunk of ray samples, shared by the bfloat16 train pass
+// one 64-point chunk, shared by the bfloat16 train pass
 // (fused_render_train_tc.cu, which stashes every activation for its
-// backward) and the bfloat16 forward render (fused_render_fwd_tc.cu, which
+// backward), the bfloat16 forward render (fused_render_fwd_tc.cu, which
 // keeps each point's density and colour in shared memory and composites
-// them straight away).
+// them straight away) and the bfloat16 field forward (fused_nerf_fwd_tc.cu,
+// which writes them out in point order). The chunk's input stage is a
+// loader policy: ray samples (encode_chunk) or given points and directions
+// (encode_point_chunk_tc).
 //
 // The chain is nerf_tpu/ops/pallas/fused_nerf.py::_mlp_tile in bfloat16:
 // the encodings rounded to bf16, the 11 products (mma.sync m16n8k16 on
@@ -103,18 +106,50 @@ __device__ void encode_chunk(const RayInputs& in, int chunk0, int nvalid, const 
   __syncthreads();
 }
 
-// The forward of ray samples [chunk0, chunk0 + nvalid). STASH (the train
-// pass): every activation to the stash `st` at rows l0.., sigma_pre and rgb
-// to its per-point columns (`cap` long). Else (the forward render): t,
-// delta, sigma (after the ReLU) and rgb to the shared-memory columns
-// sm.col (COL_*), nothing to device memory. Ends past a barrier.
-template <bool STASH>
-__device__ void forward_chunk_tc(const RayInputs& in, const bf16* __restrict__ wmat, int chunk0,
-                                 int nvalid, const FwdSmem& sm, const TcStash& st, size_t l0,
-                                 int cap) {
-  const float* __restrict__ vec = in.vec;
+// The encodings of field points [p0, p0 + nvalid), given with their
+// directions, into shared memory, point-major, rounded to bf16, zero past
+// nvalid, as fused_render_common.cuh::encode_point_chunk<true>: both
+// through the degree-11 sine, as the TPU field kernel's _forward_tile (the
+// ray loader encodes the view direction with the exact sine). Ends past a
+// barrier.
+__device__ void encode_point_chunk_tc(const float* __restrict__ pts,
+                                      const float* __restrict__ dirs, int p0, int nvalid,
+                                      int real_p, int real_d, const FwdSmem& sm) {
+  const int tid = threadIdx.x;
+  for (int idx = tid; idx < TC_P * PP; idx += THREADS) {
+    const int p = idx / PP, c = idx % PP;
+    float v = 0.f;
+    if (p < nvalid && c < real_p) {
+      const int d = c < 3 ? c : (c - 3) % 3;
+      v = encode_col<true>(pts[static_cast<size_t>(p0 + p) * 3 + d], c);
+    }
+    sm.penc[p * LDP + c] = __float2bfloat16_rn(v);
+  }
+  for (int idx = tid; idx < TC_P * DP; idx += THREADS) {
+    const int p = idx / DP, c = idx % DP;
+    float v = 0.f;
+    if (p < nvalid && c < real_d) {
+      const int d = c < 3 ? c : (c - 3) % 3;
+      v = encode_col<true>(dirs[static_cast<size_t>(p0 + p) * 3 + d], c);
+    }
+    sm.denc[p * LDD + c] = __float2bfloat16_rn(v);
+  }
+  __syncthreads();
+}
+
+// The forward of one chunk whose inputs `load()` puts in shared memory (the
+// encodings, and the ray loader's t and delta columns; it ends past a
+// barrier). STASH (the train pass): every activation to the stash `st` at
+// rows l0.., sigma_pre and rgb to its per-point columns (`cap` long). Else
+// (the forward render and the field forward): sigma (after the ReLU) and
+// rgb to the shared-memory columns sm.col (COL_*), nothing to device
+// memory. Ends past a barrier.
+template <bool STASH, typename Load>
+__device__ void forward_chain_tc(Load load, const float* __restrict__ vec,
+                                 const bf16* __restrict__ wmat, const FwdSmem& sm,
+                                 const TcStash& st, size_t l0, int cap) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  encode_chunk<!STASH>(in, chunk0, nvalid, sm);
+  load();
   if constexpr (STASH) {
     tile_out(sm.penc, LDP, PP, st.penc, l0);
     tile_out(sm.denc, LDD, DP, st.denc, l0);
@@ -218,6 +253,17 @@ __device__ void forward_chunk_tc(const RayInputs& in, const bf16* __restrict__ w
       sm.col[(COL_RGB + c) * TC_P + p] = r;
   }
   __syncthreads();
+}
+
+// The forward of ray samples [chunk0, chunk0 + nvalid): forward_chain_tc
+// with the ray loader (the forward render's also fills the t and delta
+// columns).
+template <bool STASH>
+__device__ void forward_chunk_tc(const RayInputs& in, const bf16* __restrict__ wmat, int chunk0,
+                                 int nvalid, const FwdSmem& sm, const TcStash& st, size_t l0,
+                                 int cap) {
+  forward_chain_tc<STASH>([&] { encode_chunk<!STASH>(in, chunk0, nvalid, sm); }, in.vec, wmat,
+                          sm, st, l0, cap);
 }
 
 }  // namespace nerf

@@ -4,13 +4,16 @@ Two kernels, each replacing one of ``nerf_tpu/ops/pallas/fused_nerf.py``
 (their sources say what bounds each on an H100 and how the design answers):
 
   * ``csrc/fused_nerf_fwd.cu`` (``_fwd_kernel``): positional and direction
-    encoding and the NeRF MLP of given points, rgb and sigma out;
+    encoding and the NeRF MLP of given points, rgb and sigma out; in
+    bfloat16 on the tensor cores, ``csrc/fused_nerf_fwd_tc.cu`` (the NeRF
+    forward render's chain, ``csrc/fused_render_tc_common.cuh``);
   * ``csrc/fused_nerf_bwd.cu`` (``_bwd_kernel``): from the (rgb, sigma)
     cotangent, the 28 float32 weight and bias gradients (per-CTA partials
     added in order, no atomics) and the point and direction cotangents.
 
 Both run the MLP chain of the NeRF render kernels
-(``csrc/fused_render_common.cuh``) on the packed layout of
+(``csrc/fused_render_common.cuh``; the bfloat16 forward the tensor-core
+one) on the packed layout of
 ``fused_render.py::pack_f32`` / ``cast_packed`` (``nerf_tpu``'s
 ``pack_params`` order), so ``models/convert.py::load_jax_params`` carries
 JAX weights across unchanged. This module holds
@@ -114,15 +117,21 @@ def nerf_field_bwd_plain(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
 # ---------------------------------------------------------------- libraries
 
 
+# the forward's libraries; each names its C entry point after itself (the
+# same arguments)
+_FWD_LIBS = ("fused_nerf_fwd", "fused_nerf_fwd_tc")
+
+
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
     lib = library(name)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    if name == "fused_nerf_fwd":
-        lib.fused_nerf_fwd.argtypes = [vp] * 4 + [ci] * 6 + [vp] * 3
-        lib.fused_nerf_fwd.restype = ci
-        lib.fused_nerf_fwd_error.argtypes = [ci]
-        lib.fused_nerf_fwd_error.restype = ctypes.c_char_p
+    if name in _FWD_LIBS:
+        fn, err = getattr(lib, name), getattr(lib, name + "_error")
+        fn.argtypes = [vp] * 4 + [ci] * 6 + [vp] * 3
+        fn.restype = ci
+        err.argtypes = [ci]
+        err.restype = ctypes.c_char_p
     else:
         lib.fused_nerf_bwd.argtypes = [vp] * 7 + [ci] * 9 + [vp] * 6
         lib.fused_nerf_bwd.restype = ci
@@ -185,6 +194,18 @@ class NerfField(FusedField):
         return nerf_field_bwd_plain(packed, pts, dirs, cot, self.pos_freqs,
                                     self.dir_freqs)
 
+    def fwd_library(self) -> str:
+        """The forward's kernel library: bfloat16 on the tensor cores,
+        float32 on the CUDA cores (the backward runs on the CUDA cores in
+        both)."""
+        return "fused_nerf_fwd_tc" if self.cdt == torch.bfloat16 else "fused_nerf_fwd"
+
+    def _fwd_entry(self):
+        """(function, error string) of the forward."""
+        name = self.fwd_library()
+        lib = _library(name)
+        return getattr(lib, name), getattr(lib, name + "_error")
+
     def _launch_fwd(self, packed: Packed, pts: torch.Tensor, dirs: torch.Tensor):
         n = pts.shape[0]
         self._check(packed, pts, dirs)
@@ -194,17 +215,16 @@ class NerfField(FusedField):
         if n == 0:
             return rgb, sigma
         pts, dirs = pts.contiguous(), dirs.contiguous()
-        lib = _library("fused_nerf_fwd")
+        fn, err = self._fwd_entry()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            code = lib.fused_nerf_fwd(
+            code = fn(
                 pts.data_ptr(), dirs.data_ptr(), packed.wmat.data_ptr(),
                 packed.vec.data_ptr(), packed.wmat.numel(), packed.vec.numel(),
                 int(self.cdt == torch.bfloat16), n, self.real_p, self.real_d,
                 rgb.data_ptr(), sigma.data_ptr(), stream)
         if code != 0:
-            raise RuntimeError("NeRF field forward kernel: "
-                               + lib.fused_nerf_fwd_error(code).decode())
+            raise RuntimeError("NeRF field forward kernel: " + err(code).decode())
         type(self).launches += 1
         return rgb, sigma
 

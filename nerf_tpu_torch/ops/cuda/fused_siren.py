@@ -4,13 +4,16 @@ Two kernels, each replacing one of ``nerf_tpu/ops/pallas/fused_siren.py``
 (their sources say what bounds each on an H100 and how the design answers):
 
   * ``csrc/fused_siren_fwd.cu`` (``_fwd_kernel``): the 8-layer sine MLP of
-    given points and directions, rgb and sigma out;
+    given points and directions, rgb and sigma out; in bfloat16 on the
+    tensor cores, ``csrc/fused_siren_fwd_tc.cu`` (the SIREN forward render's
+    chain, ``csrc/fused_render_siren_tc_common.cuh``);
   * ``csrc/fused_siren_bwd.cu`` (``_bwd_kernel``): from the (rgb, sigma)
     cotangent, the 25 float32 weight and bias gradients (per-CTA partials
     added in order, no atomics) and the point and direction cotangents.
 
 Both run the SIREN render kernels' chain and backward
-(``csrc/fused_render_siren_common.cuh``) on the packed layout of
+(``csrc/fused_render_siren_common.cuh``; the bfloat16 forward the
+tensor-core chain) on the packed layout of
 ``fused_render_siren.py::pack_f32`` / ``cast_packed`` (``nerf_tpu``'s
 ``pack_params`` order), so ``models/convert.py::load_jax_params`` carries
 JAX weights across unchanged. This module holds
@@ -94,15 +97,21 @@ def siren_field_bwd_plain(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
 # ---------------------------------------------------------------- libraries
 
 
+# the forward's library -> its C entry point (the same arguments)
+_FWD_ENTRY = {"fused_siren_fwd": "siren_field_fwd",
+              "fused_siren_fwd_tc": "siren_field_fwd_tc"}
+
+
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
     lib = library(name)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "fused_siren_fwd":
-        lib.siren_field_fwd.argtypes = [vp] * 4 + [ci] * 5 + [cf] * 4 + [vp] * 3
-        lib.siren_field_fwd.restype = ci
-        lib.siren_field_fwd_error.argtypes = [ci]
-        lib.siren_field_fwd_error.restype = ctypes.c_char_p
+    if name in _FWD_ENTRY:
+        fn, err = getattr(lib, _FWD_ENTRY[name]), getattr(lib, _FWD_ENTRY[name] + "_error")
+        fn.argtypes = [vp] * 4 + [ci] * 5 + [cf] * 4 + [vp] * 3
+        fn.restype = ci
+        err.argtypes = [ci]
+        err.restype = ctypes.c_char_p
     else:
         lib.siren_field_bwd.argtypes = [vp] * 6 + [ci] * 7 + [cf] * 4 + [vp] * 6
         lib.siren_field_bwd.restype = ci
@@ -160,6 +169,18 @@ class SirenField(FusedField):
     def _plain_backward(self, packed: Packed, pts, dirs, cot):
         return siren_field_bwd_plain(packed, pts, dirs, cot, self.consts)
 
+    def fwd_library(self) -> str:
+        """The forward's kernel library: bfloat16 on the tensor cores,
+        float32 on the CUDA cores (the backward runs on the CUDA cores in
+        both)."""
+        return "fused_siren_fwd_tc" if self.cdt == torch.bfloat16 else "fused_siren_fwd"
+
+    def _fwd_entry(self):
+        """(function, error string) of the forward."""
+        name = self.fwd_library()
+        lib, entry = _library(name), _FWD_ENTRY[name]
+        return getattr(lib, entry), getattr(lib, entry + "_error")
+
     def _launch_fwd(self, packed: Packed, pts: torch.Tensor, dirs: torch.Tensor):
         self._check(packed, pts, dirs)
         n = pts.shape[0]
@@ -170,17 +191,16 @@ class SirenField(FusedField):
             return rgb, sigma
         pts, dirs = pts.contiguous(), dirs.contiguous()
         k = self.consts
-        lib = _library("fused_siren_fwd")
+        fn, err = self._fwd_entry()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            code = lib.siren_field_fwd(
+            code = fn(
                 pts.data_ptr(), dirs.data_ptr(), packed.wmat.data_ptr(),
                 packed.vec.data_ptr(), packed.wmat.numel(), packed.vec.numel(),
                 int(self.cdt == torch.bfloat16), n, self.real_d, k.w0, k.hidden_w0,
                 k.sigma_mul, k.rgb_mul, rgb.data_ptr(), sigma.data_ptr(), stream)
         if code != 0:
-            raise RuntimeError("SIREN field forward kernel: "
-                               + lib.siren_field_fwd_error(code).decode())
+            raise RuntimeError("SIREN field forward kernel: " + err(code).decode())
         type(self).launches += 1
         return rgb, sigma
 

@@ -676,6 +676,46 @@ def test_bf16_gabor_field_fwd_tc_matches_plain_and_is_deterministic(dev, n):
     torch.testing.assert_close(sigma, ref_sigma, atol=TOL["bfloat16"] * scale, rtol=0)
 
 
+@pytest.mark.parametrize("n", [65536, 16384, 1000, 37])
+@pytest.mark.parametrize("family", ["nerf", "siren"])
+def test_bf16_nerf_siren_field_fwd_tc_matches_plain_and_is_deterministic(dev, family, n):
+    """The bfloat16 NeRF and SIREN field forwards on the tensor cores
+    (fused_nerf_fwd_tc, fused_siren_fwd_tc) at a bake's 65,536 points, the
+    distillation batch and two ragged chunks: two launches of the
+    tensor-core library give the same bits, and rgb and sigma are within
+    chip_smoke.py's phase-17 / phase-20 tolerances of their plain versions
+    (NeRF: TOL absolute; SIREN: SG_TOL's 1e-2, sigma over max(1, max
+    |sigma|))."""
+    from nerf_tpu_torch.ops.cuda.fused_nerf import NerfField, nerf_field_plain
+    from nerf_tpu_torch.ops.cuda.fused_siren import SirenField, siren_field_plain
+
+    if family == "nerf":
+        model = NeRFModel(compute_dtype="bfloat16",
+                          generator=torch.Generator().manual_seed(3)).to(dev)
+        wrapper, tol, scaled = NerfField, TOL["bfloat16"], False
+        field = wrapper(model).pack()
+        plain = lambda p, d: nerf_field_plain(field.packed, p, d, 10, 4)  # noqa: E731
+    else:
+        model = _sg_model("siren", "bfloat16", dev)
+        wrapper, tol, scaled = SirenField, 1e-2, True
+        field = wrapper(model).pack()
+        plain = lambda p, d: siren_field_plain(field.packed, p, d, field.consts)  # noqa: E731
+    assert field.fwd_library() == f"fused_{family}_fwd_tc"
+    pts, dirs = _field_points(n, dev, seed=n + 1)
+    before = wrapper.launches
+    with torch.no_grad():
+        rgb, sigma = field._forward(field.packed, pts, dirs)
+        rgb2, sigma2 = field._forward(field.packed, pts, dirs)
+        ref_rgb, ref_sigma = plain(pts, dirs)
+    torch.cuda.synchronize()
+    assert wrapper.launches - before == 2
+    assert torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)
+    assert bool(torch.isfinite(rgb).all()) and bool(torch.isfinite(sigma).all())
+    torch.testing.assert_close(rgb, ref_rgb, atol=tol, rtol=0)
+    scale = max(1.0, float(ref_sigma.abs().max())) if scaled else 1.0
+    torch.testing.assert_close(sigma, ref_sigma, atol=tol * scale, rtol=0)
+
+
 def test_gabor_kernels_refuse_unsupported_shapes_and_the_render_vjp(dev):
     """Hidden 256 with 8 stages only (the plain versions take any shape on
     the CPU); the forward render under autograd raises before launching."""

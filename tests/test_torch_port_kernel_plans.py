@@ -13,8 +13,10 @@
   ``csrc/fused_render_siren_fwd_tc.cu``,
   ``csrc/fused_render_gabor_fwd_tc.cu``) at two CTAs an SM; the float32
   ones stay on the CUDA-core kernels at one.
-* The GaborNet field forward (row 13) runs in bfloat16 on the tensor cores
-  (``csrc/fused_gabor_fwd_tc.cu``) and in float32 on the CUDA cores.
+* The NeRF, SIREN and GaborNet field forwards (rows 1, 9 and 13) run in
+  bfloat16 on the tensor cores (``csrc/fused_nerf_fwd_tc.cu``,
+  ``csrc/fused_siren_fwd_tc.cu``, ``csrc/fused_gabor_fwd_tc.cu``) and in
+  float32 on the CUDA cores.
 * The scatter-add (row 19) sorts its keys by a radix sort whose passes and
   digit width follow from the number of rows.
 * The KiloNeRF forward (row 15) runs in bfloat16 on the tensor cores
@@ -42,7 +44,8 @@ from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
 from nerf_tpu_torch.models.siren import SirenModel
 from nerf_tpu_torch.ops.cuda import (
-    build, fused_gabor, fused_render, fused_render_gabor, fused_render_siren)
+    build, fused_gabor, fused_nerf, fused_render, fused_render_gabor, fused_render_siren,
+    fused_siren)
 from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedGridRender, cells_affine
 from nerf_tpu_torch.ops.cuda.fused_kilonerf import (
     FWD_RUN, KiloNeRFField, dispatch, run_plan)
@@ -237,36 +240,48 @@ def test_fwd_library_routes_bf16_to_the_tensor_cores(family, cdt, monkeypatch):
 
 
 def test_build_lists_the_tensor_core_forward_renders():
-    """Twenty-five libraries, one per .cu source, the three tensor-core
+    """Twenty-seven libraries, one per .cu source, the three tensor-core
     forward renders, the SIREN's and GaborNet's tensor-core train passes,
-    and the KiloNeRF and GaborNet tensor-core field forwards beside the
-    CUDA-core ones they took bfloat16 from."""
-    assert len(build.LIBS) == len(set(build.LIBS)) == 25
+    and the KiloNeRF, NeRF, SIREN and GaborNet tensor-core field forwards
+    beside the CUDA-core ones they took bfloat16 from."""
+    assert len(build.LIBS) == len(set(build.LIBS)) == 27
     for name in ("fused_render_fwd_tc", "fused_render_gabor_fwd_tc",
                  "fused_render_siren_fwd_tc", "fused_render_siren_train_tc",
                  "fused_render_gabor_train_tc", "fused_kilonerf_fwd_tc",
+                 "fused_nerf_fwd_tc", "fused_siren_fwd_tc",
                  "fused_gabor_fwd_tc", "fused_kilonerf_fwd",
                  "fused_render_fwd", "fused_render_gabor_fwd",
                  "fused_render_siren_fwd", "fused_render_siren_train",
-                 "fused_render_gabor_train", "fused_gabor_fwd"):
+                 "fused_render_gabor_train", "fused_nerf_fwd", "fused_siren_fwd",
+                 "fused_gabor_fwd"):
         assert name in build.LIBS
     sources = {p.stem for p in build._CSRC.glob("*.cu")}
     assert sources == set(build.LIBS)
 
 
-@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
-def test_gabor_field_fwd_routes_bf16_to_the_tensor_cores(cdt, monkeypatch):
-    """The GaborNet field forward goes to fused_gabor_fwd_tc in bfloat16 and
-    to fused_gabor_fwd in float32 (one C signature, the entry named after
-    the library's); the launch's entry is checked with the libraries
-    replaced (no card here)."""
-    field = fused_gabor.GaborField(GaborModel(compute_dtype=cdt,
-                                              generator=torch.Generator().manual_seed(0)))
+# the field forwards' (family, module, wrapper, model, C entry of the
+# CUDA-core library); the GaborNet's cases keep their ids of one parameter
+_FIELD_FWD = {"nerf": (fused_nerf, "NerfField", NeRFModel, "fused_nerf_fwd"),
+              "siren": (fused_siren, "SirenField", SirenModel, "siren_field_fwd"),
+              "gabor": (fused_gabor, "GaborField", GaborModel, "gabor_field_fwd")}
+
+
+@pytest.mark.parametrize("family,cdt", [
+    pytest.param(f, c, id=c if f == "gabor" else f"{f}-{c}")
+    for f in ("nerf", "siren", "gabor") for c in ("float32", "bfloat16")])
+def test_gabor_field_fwd_routes_bf16_to_the_tensor_cores(family, cdt, monkeypatch):
+    """The NeRF, SIREN and GaborNet field forwards go to fused_{nerf,siren,
+    gabor}_fwd_tc in bfloat16 and to fused_{nerf,siren,gabor}_fwd in float32
+    (one C signature, the entry named after the library's); the launch's
+    entry is checked with the libraries replaced (no card here)."""
+    module, wrapper, model_cls, entry = _FIELD_FWD[family]
+    field = getattr(module, wrapper)(model_cls(compute_dtype=cdt,
+                                               generator=torch.Generator().manual_seed(0)))
     tc = cdt == "bfloat16"
-    lib = "fused_gabor_fwd_tc" if tc else "fused_gabor_fwd"
-    entry = "gabor_field_fwd_tc" if tc else "gabor_field_fwd"
+    lib = f"fused_{family}_fwd" + ("_tc" if tc else "")
+    entry += "_tc" if tc else ""
     assert field.fwd_library() == lib and lib in build.LIBS
-    monkeypatch.setattr(fused_gabor, "_library", _FakeLib)
+    monkeypatch.setattr(module, "_library", _FakeLib)
     assert field._fwd_entry() == (f"{lib}:{entry}", f"{lib}:{entry}_error")
 
 
