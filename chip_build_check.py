@@ -8,9 +8,9 @@ A change to the kernel pieces that several kernels share
 computing what they computed. This script runs, on seeded inputs with the
 checkout it is given, the NeRF and SIREN forward renders, train passes and
 render backwards and the GaborNet forward render (300 x 37 and 1024 x 64,
-float32 and bfloat16); the GaborNet train pass in float32 (row 12's
-CUDA-core kernel) at those shapes, and its field forward and backward (rows
-13 and 14, both dtypes) at 5,003 and 37 points; the NeRF and SIREN field
+float32 and bfloat16); the GaborNet train pass (row 12, both dtypes) at
+those shapes, and its field forward and backward (rows 13 and 14, both
+dtypes) at 5,003 and 37 points; the NeRF and SIREN field
 forward and backward (rows 1, 2, 9 and 10, both dtypes) at those points;
 the KiloNeRF field's parameter gradients under a
 loss linear in its outputs (row 16's kernel, which the forward's outputs do
@@ -96,10 +96,10 @@ def kilonerf(torch, dev, res: dict) -> None:
 
 
 def gabor_train_and_field(torch, dev, res: dict) -> None:
-    """Row 12 in float32 (loss, rgb, acc, weights, the gradients and
-    dA..dR) at 300 x 37 and 1024 x 64; rows 13 and 14 in both dtypes (rgb
-    and sigma; the weight and bank gradients and the point and direction
-    cotangents of a seeded cotangent) at 5,003 and 37 points."""
+    """Row 12 (loss, rgb, acc, weights, the gradients and dA..dR) at 300 x
+    37 and 1024 x 64, rows 13 and 14 (rgb and sigma; the weight and bank
+    gradients and the point and direction cotangents of a seeded
+    cotangent) at 5,003 and 37 points, each in both dtypes."""
     from nerf_tpu_torch.models.gabor import GaborModel
     from nerf_tpu_torch.ops.cuda.fused_gabor import GaborField
     from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender, gabor_coeffs
@@ -107,17 +107,16 @@ def gabor_train_and_field(torch, dev, res: dict) -> None:
     for cdt in ("float32", "bfloat16"):
         model = GaborModel(compute_dtype=cdt,
                            generator=torch.Generator().manual_seed(7)).to(dev)
-        if cdt == "float32":
-            fr = FusedGaborRender(model, 2.0, 6.0)
-            gp = fr.pack(model)
-            for r, s in ((300, 37), (1024, 64)):
-                ro, rd, t, tgt = _inputs(torch, dev, r, s, r + s)
-                coeffs = gabor_coeffs(*gp.filters, *fr.affine(ro, rd))
-                loss, rgb, acc, weights, (gw, gv), dcoef = fr._train(
-                    gp.packed, coeffs, rd, t, tgt, True)
-                for k, v in (("loss", loss), ("rgb", rgb), ("acc", acc), ("weights", weights),
-                             ("gw", gw), ("gv", gv), ("dcoef", dcoef)):
-                    res[f"gabor train {cdt} {r}x{s} {k}"] = v.cpu()
+        fr = FusedGaborRender(model, 2.0, 6.0)
+        gp = fr.pack(model)
+        for r, s in ((300, 37), (1024, 64)):
+            ro, rd, t, tgt = _inputs(torch, dev, r, s, r + s)
+            coeffs = gabor_coeffs(*gp.filters, *fr.affine(ro, rd))
+            loss, rgb, acc, weights, (gw, gv), dcoef = fr._train(
+                gp.packed, coeffs, rd, t, tgt, True)
+            for k, v in (("loss", loss), ("rgb", rgb), ("acc", acc), ("weights", weights),
+                         ("gw", gw), ("gv", gv), ("dcoef", dcoef)):
+                res[f"gabor train {cdt} {r}x{s} {k}"] = v.cpu()
         field = GaborField(model).pack()
         for n in (5003, 37):
             ro, rd, t, _ = _inputs(torch, dev, n, 1, n)

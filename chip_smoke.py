@@ -8,10 +8,11 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
   1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
   2. the build of every kernel library from the sources in the checkout
      (one nvcc per source, started together), timed, and the count of
-     tensor-core instructions in the SASS of the ten bf16 libraries on
+     tensor-core instructions in the SASS of the twelve bf16 libraries on
      the tensor cores (the NeRF, SIREN and GaborNet train passes, the
      NeRF, SIREN and GaborNet forward renders, the KiloNeRF, NeRF, SIREN
-     and GaborNet field forwards; cuobjdump);
+     and GaborNet field forwards, the NeRF and GaborNet field backwards;
+     cuobjdump);
   3. every kernel against its plain PyTorch version on the card (TF32 off):
      the forward render at the serving shapes (8192 rays x 64 and 192
      samples), the train pass and the render backward at the training
@@ -115,11 +116,13 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      normal-then-normalised directions (the distillation draw), 1,000 and
      37 points (ragged chunks); both timed in turns at 65,536 and 16,384
      points (runs of 20 launches per pair of events) against their bound;
-     the bfloat16 forward runs on the tensor cores, twice for identical
-     bits at every point set, its time printed beside the CUDA-core
-     kernel's it replaced; at 16,384 points the forward that the backward
-     recomputes (on the CUDA cores) is read from its stash and held beside
-     the forward's output;
+     the bfloat16 forward and backward run on the tensor cores, each twice
+     for identical bits at every point set, their times printed beside the
+     CUDA-core kernels' they replaced; the forward that the bfloat16
+     backward recomputes is read from its stash at every point set and
+     must equal the forward's output bit for bit (in float32 at 16,384
+     points, where both are one chain); the bfloat16 backward also timed
+     at each run of RUN_SWEEP (points a CTA: grid, partial bytes, ms);
  18. serving lego.txt with --occupancy 64 from phase 5's trained
      checkpoint: the bake's four field-kernel launches, its wall time
      (median of three bakes through the packed field) and occupied share,
@@ -145,8 +148,10 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      each timed in turns at 65,536 and 16,384 points (runs of 20 launches
      per pair of events) against its bound; the bfloat16 forwards run on
      the tensor cores, twice for identical bits at every point set, their
-     times printed beside the CUDA-core kernels' they replaced; at 16,384
-     points each backward's recomputed forward as in 17;
+     times printed beside the CUDA-core kernels' they replaced, and so does
+     the GaborNet's bfloat16 backward, with its recompute and its run
+     sweep as in 17; the SIREN's backward stays on the CUDA cores, its
+     recomputed forward printed beside the forward's at 16,384 points;
  21. serving lego_siren.txt and its GaborNet variant with --occupancy 64
      from phase 9's and phase 12's checkpoints: four field-kernel launches
      per bake, its wall time as in 18, the grid equal to the one baked
@@ -268,16 +273,32 @@ ROW13_BF16_CUDA_CORE_MS = {65536: 2.901, 16384: 0.728}
 # times, NVIDIA H100 80GB HBM3, 700.00 W).
 ROW1_BF16_CUDA_CORE_MS = {65536: 2.663, 16384: 0.670}
 ROW9_BF16_CUDA_CORE_MS = {65536: 2.104, 16384: 0.526}
-# the bf16 field forwards' CUDA-core times by library, printed beside the
+# Rows 2 and 14's bfloat16 NeRF and GaborNet field backwards on the CUDA
+# cores, before they moved to the tensor cores (csrc/fused_nerf_bwd.cu and
+# csrc/fused_gabor_bwd.cu at 65,536 / 16,384 points; PERF.md's earlier
+# times, NVIDIA H100 80GB HBM3, 700.00 W).
+ROW2_BF16_CUDA_CORE_MS = {65536: 10.905, 16384: 3.061}
+ROW14_BF16_CUDA_CORE_MS = {65536: 13.440, 16384: 3.544}
+# the bf16 field kernels' CUDA-core times by kernel, printed beside the
 # tensor-core kernels' in phases 17 and 20
 FIELD_WAS_MS = {"fused_nerf_fwd": ROW1_BF16_CUDA_CORE_MS, "fused_siren_fwd": ROW9_BF16_CUDA_CORE_MS,
-                "fused_gabor_fwd": ROW13_BF16_CUDA_CORE_MS}
+                "fused_gabor_fwd": ROW13_BF16_CUDA_CORE_MS,
+                "fused_nerf_bwd": ROW2_BF16_CUDA_CORE_MS,
+                "fused_gabor_bwd": ROW14_BF16_CUDA_CORE_MS}
+# The field backwards' runs (points a CTA) swept in phases 17 and 20 on the
+# tensor-core route, beside the plan's own (FusedField._runs).
+RUN_SWEEP = (128, 256, 512, 1024)
+# Where the CUDA-core field backwards' stash keeps its per-point columns
+# (C_SIGP, then C_RGB: render_common.cuh), from a row's end: N_COLS = 12 for
+# the NeRF, 16 for the SIREN and the GaborNet (the tensor-core ones:
+# fused_nerf.py / fused_gabor.py TC_BWD_COLS_AT).
+STASH_COLS = {"fused_nerf_bwd": -12, "fused_siren_bwd": -16, "fused_gabor_bwd": -16}
 # the libraries of the bf16 kernels on the tensor cores (phase 2 reads
 # their SASS)
 TC_LIBS = ("fused_render_train_tc", "fused_render_fwd_tc", "fused_render_gabor_fwd_tc",
            "fused_render_siren_fwd_tc", "fused_render_siren_train_tc", "fused_kilonerf_fwd_tc",
            "fused_render_gabor_train_tc", "fused_gabor_fwd_tc", "fused_nerf_fwd_tc",
-           "fused_siren_fwd_tc")
+           "fused_siren_fwd_tc", "fused_nerf_bwd_tc", "fused_gabor_bwd_tc")
 # per-sample MACs of the backward's skipped input-gradient products
 # (dz1 w1^T, dz6 w6p^T, dzr0 wr0d^T at the real widths 63/63/27)
 SKIPPED_MACS = 256 * 63 + 256 * 63 + 128 * 27
@@ -1565,7 +1586,9 @@ def check_nerf_field_kernels(torch, dev):
     (max abs), the weight gradients (grad_errors) and the point and
     direction cotangents (max abs over max |g|) of a random cotangent; both
     timed in turns (plain, kernel, kernel, plain) at 65,536 and 16,384
-    points against their bound."""
+    points against their bound. The tensor-core kernels (bfloat16) run
+    twice for identical bits; the backward's recompute must be the
+    forward's output, and its runs are swept (sweep_runs)."""
     from nerf_tpu_torch.models.nerf import NeRFModel
     from nerf_tpu_torch.ops.cuda.fused_nerf import (
         NerfField, nerf_field_bwd_plain, nerf_field_plain)
@@ -1584,8 +1607,9 @@ def check_nerf_field_kernels(torch, dev):
         weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
                         + packed.vec.numel() * 4)
         grad_bytes = (packed.wmat.numel() + packed.vec.numel()) * 4
-        # the bf16 forward on the tensor cores (row 1)
-        tc_fwd = field.fwd_library() == "fused_nerf_fwd_tc"
+        # the bf16 forward and backward on the tensor cores (rows 1 and 2)
+        libs = {"fused_nerf_fwd": field.fwd_library(), "fused_nerf_bwd": field.bwd_library()}
+        tc_fwd, tc_bwd = (libs[k].endswith("_tc") for k in ("fused_nerf_fwd", "fused_nerf_bwd"))
         worst = {"fwd": 0.0, "bwd": 0.0}
         for label, (pts, dirs) in sets.items():
             n = pts.shape[0]
@@ -1603,7 +1627,10 @@ def check_nerf_field_kernels(torch, dev):
                 ref_g = nerf_field_bwd_plain(packed, pts, dirs, cot, 10, 4)
                 got_g = field._backward(packed, pts, dirs, cot)
                 torch.cuda.synchronize()
-                if n == 16384:
+                if tc_bwd:
+                    check_bwd_twice(torch, "nerf", field, packed, pts, dirs, cot, got_g, cdt,
+                                    label)
+                if n == 16384 or tc_bwd:
                     say_recompute_gap(torch, "nerf", field, packed, pts, dirs, out, cdt, label)
             for x in out + got_g:
                 if not torch.isfinite(x).all():
@@ -1626,7 +1653,8 @@ def check_nerf_field_kernels(torch, dev):
                             f"{FIELD_PT_TOL[cdt]:.0e}), worst {m:.3e}"
                             for k, (q, m) in pt.items())
                 + f"; points beyond the tol: {bad_pts} of {n}"
-                + ("; forward two launches bit-identical" if tc_fwd else ""))
+                + ("; forward two launches bit-identical" if tc_fwd else "")
+                + ("; backward two launches bit-identical" if tc_bwd else ""))
             if (max(errs.values()) > TOL[cdt]["rgb"] or gerr[w] > GRAD_TOL[cdt]
                     or max(q for q, _ in pt.values()) > FIELD_PT_TOL[cdt]
                     or bad_pts > 0.001 * n):
@@ -1637,6 +1665,8 @@ def check_nerf_field_kernels(torch, dev):
             torch.cuda.empty_cache()
             if n not in (65536, 16384):
                 continue
+            if tc_bwd:
+                sweep_runs(torch, "nerf", field, packed, pts, dirs, cot, f"{cdt} {label}")
             with torch.no_grad():
                 fns = {
                     ("fused_nerf_fwd", "plain"):
@@ -1663,14 +1693,14 @@ def check_nerf_field_kernels(torch, dev):
                 plain_ms = statistics.median(times[(name, "plain")])
                 bms, by = field_bound_ms(n, cdt, weight_bytes,
                                          grad_bytes if name.endswith("bwd") else None)
-                was = FIELD_WAS_MS[name][n] if tc_fwd and name.endswith("fwd") else None
-                say(f"kernel {name} {cdt} {label}: kernel {ms:.3f} ms"
+                was = FIELD_WAS_MS[name][n] if libs[name].endswith("_tc") else None
+                say(f"kernel {name} {cdt} {label}: kernel {ms:.3f} ms ({libs[name]})"
                     + (f" (tensor cores; the CUDA-core kernel it replaced {was:.3f} ms, "
                        f"x{was / ms:.2f})" if was else "")
                     + f", plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), share of "
                     f"bound {bms / ms:.4f}")
                 results[(name, cdt, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                               bound_by=by)
+                                               bound_by=by, library=libs[name])
         for name, key in (("fused_nerf_fwd", "fwd"), ("fused_nerf_bwd", "bwd")):
             for n in (65536, 16384):
                 results[(name, cdt, n)]["err"] = worst[key]
@@ -1726,62 +1756,27 @@ def bank_grads(torch, model, gf) -> dict:
 
 def recomputed_forward(torch, family: str, field, packed, pts, dirs):
     """rgb and sigma of the forward that a field backward (row 2, 10 or 14
-    for ``family`` "nerf", "siren" or "gabor"; on the CUDA cores)
-    recomputes, read from its stash after one launch with a zero cotangent
-    on ``packed``: each CTA's scratch ends in its per-point columns (N_COLS:
-    12 for the NeRF, fused_render_common.cuh; 16 for the SIREN and the
-    GaborNet), of which C_SIGP = 0 holds sigma_pre and C_RGB = 1..3 the rgb
-    (render_common.cuh); sigma = relu(sigma_pre), times sigma_mul for the
-    SIREN and the GaborNet, as the forward forms it."""
-    from nerf_tpu_torch.ops.cuda import fused_gabor, fused_nerf, fused_siren
-    from nerf_tpu_torch.ops.cuda.fused_render import grad_sizes
+    for ``family`` "nerf", "siren" or "gabor", through the library its
+    ``bwd_library()`` names) recomputes, read from its stash after one
+    launch with a zero cotangent on ``packed``: each CTA's stash holds its
+    per-point columns where STASH_COLS (or TC_BWD_COLS_AT) says, C_SIGP = 0
+    the sigma_pre and
+    C_RGB = 1..3 the rgb (render_common.cuh); sigma = relu(sigma_pre),
+    times sigma_mul for the SIREN and the GaborNet, as the forward forms
+    it."""
+    from nerf_tpu_torch.ops.cuda import fused_gabor, fused_nerf
 
-    n, dev = pts.shape[0], pts.device
-    mats = packed.packed if family == "gabor" else packed
-    mod, entry = {"nerf": (fused_nerf, "fused_nerf_bwd"),
-                  "siren": (fused_siren, "siren_field_bwd"),
-                  "gabor": (fused_gabor, "gabor_field_bwd")}[family]
-    names = fused_gabor._names(field.n)[0] if family == "gabor" else mod._MATS
-    lib = mod._library(f"fused_{family}_bwd")
-    if family == "nerf":
-        vals = [ctypes.c_int() for _ in range(4)]
-        lib.fused_nerf_bwd_sizes(*(ctypes.byref(v) for v in vals))
-        per_point, npart, n_out, _ = (v.value for v in vals)
-    else:
-        per_point, npart, n_out = grad_sizes(getattr(lib, entry + "_sizes"))
-    run, grid = field._runs(n, dev)
-    wmat_t = torch.cat([mats.mats[m].t().reshape(-1) for m in names])
-    scratch = torch.empty(grid * run * per_point, dtype=torch.float32, device=dev)
-    partial = torch.empty(grid * npart, dtype=torch.float32, device=dev)
-    out = torch.empty(n_out, dtype=torch.float32, device=dev)
-    dpts, ddirs = (torch.empty(n, 3, dtype=torch.float32, device=dev) for _ in range(2))
-    cot = torch.zeros(n, 4, dtype=torch.float32, device=dev)
-    bf16 = int(field.cdt == torch.bfloat16)
-    head = (pts.data_ptr(), dirs.data_ptr(), cot.data_ptr(), mats.wmat.data_ptr(),
-            wmat_t.data_ptr())
-    tail = (scratch.data_ptr(), partial.data_ptr(), out.data_ptr(), dpts.data_ptr(),
-            ddirs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    n_w, n_b = mats.wmat.numel(), mats.vec.numel()
-    if family == "nerf":
-        wt_in = fused_nerf.input_transposes(mats)
-        args = (wt_in.data_ptr(), mats.vec.data_ptr(), n_w, n_b, wt_in.numel(), bf16, n,
-                run, run, field.real_p, field.real_d)
-        sigma_mul = 1.0
-    else:
-        k = field.consts
-        filters = (packed.filters.data_ptr(),) if family == "gabor" else ()
-        n_f = (packed.filters.numel(),) if family == "gabor" else ()
-        w0s = () if family == "gabor" else (k.w0, k.hidden_w0)
-        args = (mats.vec.data_ptr(), *filters, n_w, n_b, *n_f, bf16, n, run, run,
-                field.real_d, *w0s, k.sigma_mul, k.rgb_mul)
-        sigma_mul = k.sigma_mul
-    code = getattr(lib, entry)(*head, *args, *tail)
-    if code != 0:
-        fail(f"{family} field backward kernel: "
-             + getattr(lib, entry + "_error")(code).decode())
+    n = pts.shape[0]
+    stash = {}
+    field._backward(packed, pts, dirs, torch.zeros(n, 4, device=pts.device), stash=stash)
     torch.cuda.synchronize()
-    n_cols = 12 if family == "nerf" else 16
-    cols = scratch.view(grid, per_point, run)[:, per_point - n_cols:]
+    run, grid, per_point = stash["run"], stash["grid"], stash["per_point"]
+    at = {"fused_nerf_bwd_tc": fused_nerf.TC_BWD_COLS_AT,
+          "fused_gabor_bwd_tc": fused_gabor.TC_BWD_COLS_AT,
+          **STASH_COLS}[field.bwd_library()] % per_point
+    cols = stash["scratch"].view(grid, per_point * run)[:, at * run:(at + 4) * run]
+    cols = cols.reshape(grid, 4, run)
+    sigma_mul = 1.0 if family == "nerf" else field.consts.sigma_mul
     sigma = torch.clamp_min(cols[:, 0].reshape(-1)[:n], 0.0) * sigma_mul
     rgb = cols[:, 1:4].permute(0, 2, 1).reshape(-1, 3)[:n]
     return rgb, sigma
@@ -1792,14 +1787,61 @@ def say_recompute_gap(torch, family: str, field, packed, pts, dirs, out, cdt: st
     """Print how far the forward that the family's field backward
     recomputes (``recomputed_forward``) lies from the forward kernel's
     output ``out``: in float32 both are one chain, so a zero there shows
-    the stash was read right; in bfloat16 the forward runs on the tensor
-    cores and the recompute on the CUDA cores."""
+    the stash was read right; in bfloat16 rows 2 and 14 run their forward's
+    own tensor-core chain, so anything but a zero fails, and row 10
+    recomputes on the CUDA cores the tensor-core forward of row 9."""
     rows = {"nerf": (2, 1), "siren": (10, 9), "gabor": (14, 13)}[family]
     rec = recomputed_forward(torch, family, field, packed, pts, dirs)
+    gap = (float((rec[0] - out[0]).abs().max()), float((rec[1] - out[1]).abs().max()))
     say(f"kernel {family} field {cdt} {label}: row {rows[0]}'s recomputed forward "
-        f"against row {rows[1]}'s: max abs rgb {float((rec[0] - out[0]).abs().max()):.3e}, "
-        f"sigma {float((rec[1] - out[1]).abs().max()):.3e} (max sigma "
-        f"{float(out[1].abs().max()):.3g})")
+        f"({field.bwd_library()}) against row {rows[1]}'s: max abs rgb {gap[0]:.3e}, "
+        f"sigma {gap[1]:.3e} (max sigma {float(out[1].abs().max()):.3g})")
+    if field.bwd_library().endswith("_tc") and max(gap) != 0.0:
+        fail(f"{family} field {cdt} {label}: row {rows[0]}'s recompute is not row "
+             f"{rows[1]}'s forward")
+
+
+def check_bwd_twice(torch, family: str, field, packed, pts, dirs, cot, got, cdt: str,
+                    label: str) -> None:
+    """A tensor-core field backward launched again on the same inputs gives
+    the same bits (no float atomics)."""
+    again = field._backward(packed, pts, dirs, cot)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"{family} field backward {cdt} {label}: two launches differ")
+
+
+def sweep_runs(torch, family: str, field, packed, pts, dirs, cot, label: str) -> None:
+    """Time a tensor-core field backward at each run of RUN_SWEEP and the
+    plan's own: per run the grid, the gradient partials' bytes (written
+    once and read back once by the in-order sum) and the card ms (the
+    median of two timed runs of FIELD_BATCH launches); then a profile of
+    FIELD_BATCH launches at the plan's run, by kernel."""
+    n, dev = pts.shape[0], pts.device
+    sizes = field._bwd_entry()[2]
+    vals = [ctypes.c_int() for _ in sizes.argtypes]
+    sizes(*(ctypes.byref(v) for v in vals))
+    npart = vals[1].value
+    plan_run = field._bwd_plan(n, dev, None)[0]
+    for run in sorted({*RUN_SWEEP, plan_run}):
+        if run > n:
+            continue
+        with torch.no_grad():
+            field._backward(packed, pts, dirs, cot, run=run)       # warm-up
+            ms = statistics.median(t / FIELD_BATCH for t in time_calls(
+                torch, lambda: [field._backward(packed, pts, dirs, cot, run=run)
+                                for _ in range(FIELD_BATCH)], 2))
+        grid = -(-n // run)
+        say(f"kernel {field.bwd_library()} {label} run sweep: run {run}"
+            f"{' (the plan)' if run == plan_run else ''}, grid {grid}, partials "
+            f"{grid * npart * 4 / 1e6:.1f} MB, {ms:.3f} ms")
+    with torch.no_grad():
+        profile_device(torch, lambda: [field._backward(packed, pts, dirs, cot)
+                                       for _ in range(FIELD_BATCH)],
+                       ("bwd_tc_fwd", "bwd_tc_bwd", "reduce_partials"),
+                       f"{FIELD_BATCH} launches of {field.bwd_library()} {label} (its three "
+                       "kernels: the forward that stashes, the backward, the in-order sum)")
+    torch.cuda.empty_cache()
 
 
 def check_siren_gabor_field_kernels(torch, dev):
@@ -1808,7 +1850,10 @@ def check_siren_gabor_field_kernels(torch, dev):
     with TF32 off: rgb, sigma, the weight gradients, the GaborNet's filter
     banks after autograd through the packing, and the point and direction
     cotangents of a random cotangent; each timed in turns (plain, kernel,
-    kernel, plain) at 65,536 and 16,384 points against its bound."""
+    kernel, plain) at 65,536 and 16,384 points against its bound. The
+    tensor-core kernels (bfloat16; the SIREN's backward stays on the CUDA
+    cores) run twice for identical bits; the GaborNet backward's recompute
+    must be the forward's output, and its runs are swept (sweep_runs)."""
     from nerf_tpu_torch.ops.cuda import fused_render_gabor, fused_render_siren
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1829,8 +1874,11 @@ def check_siren_gabor_field_kernels(torch, dev):
             grad_bytes = (packed.wmat.numel() + packed.vec.numel() + n_f) * 4
             tol_out, tol_grad, tol_pt = SG_TOL.get(
                 (family, cdt), (TOL[cdt]["rgb"], GRAD_TOL[cdt], FIELD_PT_TOL[cdt]))
-            # the bf16 forwards on the tensor cores (rows 9 and 13)
-            tc_fwd = field.fwd_library() == f"{kname}_fwd_tc"
+            # the bf16 forwards on the tensor cores (rows 9 and 13), and the
+            # GaborNet's backward (row 14)
+            libs = {f"{kname}_fwd": field.fwd_library(), f"{kname}_bwd": field.bwd_library()}
+            tc_fwd = libs[f"{kname}_fwd"].endswith("_tc")
+            tc_bwd = libs[f"{kname}_bwd"].endswith("_tc")
             worst = {"fwd": 0.0, "bwd": 0.0}
             for label, (pts, dirs) in sets.items():
                 n = pts.shape[0]
@@ -1849,7 +1897,10 @@ def check_siren_gabor_field_kernels(torch, dev):
                     ref_g = plain_bwd(pk, pts, dirs, cot)
                     got_g = field._backward(pk, pts, dirs, cot)
                     torch.cuda.synchronize()
-                    if n == 16384:
+                    if tc_bwd:
+                        check_bwd_twice(torch, family, field, pk, pts, dirs, cot, got_g, cdt,
+                                        label)
+                    if n == 16384 or tc_bwd:
                         # the forward the backward's gradient is taken at
                         say_recompute_gap(torch, family, field, pk, pts, dirs, out, cdt,
                                           label)
@@ -1896,7 +1947,8 @@ def check_siren_gabor_field_kernels(torch, dev):
                                 f"{tol_pt:.0e}), worst {m:.3e}"
                                 for k, (q, m) in pt.items())
                     + f"; points beyond the tol: {bad_pts} of {n}"
-                    + ("; forward two launches bit-identical" if tc_fwd else ""))
+                    + ("; forward two launches bit-identical" if tc_fwd else "")
+                    + ("; backward two launches bit-identical" if tc_bwd else ""))
                 if (max(errs.values()) > tol_out or gerr[w] > tol_grad
                         or max(q for q, _ in pt.values()) > tol_pt
                         or bad_pts > 0.001 * n):
@@ -1908,6 +1960,8 @@ def check_siren_gabor_field_kernels(torch, dev):
                 torch.cuda.empty_cache()
                 if n not in (65536, 16384):
                     continue
+                if tc_bwd:
+                    sweep_runs(torch, family, field, pk, pts, dirs, cot, f"{cdt} {label}")
                 with torch.no_grad():
                     fns = {
                         (f"{kname}_fwd", "plain"): lambda: plain_fwd(pk, pts, dirs),
@@ -1933,14 +1987,15 @@ def check_siren_gabor_field_kernels(torch, dev):
                     bms, by = field_bound_ms(
                         n, cdt, weight_bytes, grad_bytes if name.endswith("bwd") else None,
                         family)
-                    was = FIELD_WAS_MS[name][n] if tc_fwd and name.endswith("fwd") else None
-                    say(f"kernel {name} {cdt} {label}: kernel {ms:.3f} ms"
+                    was = FIELD_WAS_MS[name][n] if libs[name].endswith("_tc") else None
+                    say(f"kernel {name} {cdt} {label}: kernel {ms:.3f} ms ({libs[name]})"
                         + (f" (tensor cores; the CUDA-core kernel it replaced {was:.3f} "
                            f"ms, x{was / ms:.2f})" if was else "")
                         + f", plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), share "
                         f"of bound {bms / ms:.4f}")
                     results[(name, cdt, n)] = dict(ms=ms, plain_ms=plain_ms,
-                                                   bound_ms=bms, bound_by=by)
+                                                   bound_ms=bms, bound_by=by,
+                                                   library=libs[name])
             for name, key in ((f"{kname}_fwd", "fwd"), (f"{kname}_bwd", "bwd")):
                 for n in (65536, 16384):
                     results[(name, cdt, n)]["err"] = worst[key]
@@ -3350,7 +3405,7 @@ def main() -> int:
             ("fused_nerf_fwd", 233,
              occ_served["bake_launches"] + distilled["fwd_launches"], 65536),
             ("fused_nerf_bwd", 333, distilled["bwd_launches"], 16384)):
-        source = f"{name}_tc.cu" if name.endswith("_fwd") else f"{name}.cu"
+        source = field_checks[(name, "bfloat16", n)]["library"] + ".cu"
         kernels.append(row(name, source, f"{nerf_tpu}fused_nerf.py:{line}",
                            launched, field_checks[(name, "bfloat16", n)],
                            max(field_checks[(name, c, n)]["err"]
@@ -3363,7 +3418,7 @@ def main() -> int:
                  fwd_launched, 65536),
                 (f"fused_{family}_bwd", {"siren": 117, "gabor": 110}[family],
                  sg_distilled[family]["bwd"], 16384)):
-            source = f"{name}_tc.cu" if name.endswith("_fwd") else f"{name}.cu"
+            source = sg_checks[(name, "bfloat16", n)]["library"] + ".cu"
             kernels.append(row(name, source, f"{nerf_tpu}fused_{family}.py:{line}",
                                launched, sg_checks[(name, "bfloat16", n)],
                                max(sg_checks[(name, c, n)]["err"]

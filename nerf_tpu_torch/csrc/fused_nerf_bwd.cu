@@ -1,22 +1,24 @@
-// NeRF field backward for Hopper (sm_90a): the vector-Jacobian product of
-// fused_nerf_fwd.cu's function, in one kernel and an in-order sum.
+// NeRF field backward for Hopper (sm_90a) in float32: the vector-Jacobian
+// product of fused_nerf_fwd.cu's function, in one kernel and an in-order
+// sum.
 //
 // Replaces: nerf_tpu/ops/pallas/fused_nerf.py::_bwd_kernel (the custom VJP
 // of make_fused_nerf_apply's apply: a NeRF distillation student's
-// gradient). Same function: from the cotangent of (rgb, sigma) of every
-// point, recompute the forward (_forward_tile), run _mlp_bwd_core with its
-// input gradients, then _encode_bwd: the 28 float32 weight and bias
-// gradients of the packed layout (fused_render_common.cuh), and the point
-// and direction cotangents (N, 3) each. _encode_bwd takes the EXACT cosine
-// in both modes (cosf here), as the TPU kernel does.
+// gradient) in float32 mode; bfloat16 runs on the tensor cores
+// (fused_nerf_bwd_tc.cu). Same function: from the cotangent of (rgb,
+// sigma) of every point, recompute the forward (_forward_tile), run
+// _mlp_bwd_core with its input gradients, then _encode_bwd: the 28 float32
+// weight and bias gradients of the packed layout (fused_render_common.cuh),
+// and the point and direction cotangents (N, 3) each. _encode_bwd takes the EXACT cosine
+// (cosf), as the TPU kernel does in both modes.
 //
 // What bounds it on this card: operations. A point costs three times the
 // forward's 658,944 MACs (the recomputed forward, the dz W^T products with
 // the three input products dz1 w1^T, dz6 w6p^T and dzr0 wr0d^T, and the
 // A^T dz gradient products), against 40 bytes in and 24 out a point plus
-// the weights and their float32 gradients. float32 runs on the CUDA cores
-// (67 TFLOP/s); bfloat16's bound is the tensor cores' 989 TFLOP/s, which
-// this first version, on the CUDA cores too, stays far from.
+// the weights and their float32 gradients, on the CUDA cores' 67 TFLOP/s in
+// float32. This library takes float32 only: bfloat16 runs on the tensor
+// cores in fused_nerf_bwd_tc.cu.
 //
 // Design (that of fused_render_train.cu, without the compositing):
 //   1. A CTA owns a run of points (the wrapper gives about one run an SM,
@@ -45,12 +47,11 @@ using namespace nerf;
 
 constexpr int FLOATS_PER_POINT = floats_per_point<3>();
 
-template <bool BF16, typename WT>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_nerf_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
                       const float* __restrict__ cot, const float* __restrict__ vec,
-                      const WT* __restrict__ wmat, const WT* __restrict__ wmat_t,
-                      const WT* __restrict__ wt_in, int n, int pts_per_cta, int cap,
+                      const float* __restrict__ wmat, const float* __restrict__ wmat_t,
+                      const float* __restrict__ wt_in, int n, int pts_per_cta, int cap,
                       int real_p, int real_d, float* __restrict__ scratch,
                       float* __restrict__ partial, float* __restrict__ dpts,
                       float* __restrict__ ddirs) {
@@ -69,9 +70,9 @@ fused_nerf_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ d
 
   // ---- 1. forward, stashing every activation ----
   for (int c0 = 0; c0 < npts; c0 += P) {
-    encode_point_chunk<BF16>(pts, dirs, p_begin + c0, min(P, npts - c0), real_p, real_d,
-                             smem);
-    mlp_chunk<BF16, true>(vec, wmat, smem, sc.st, static_cast<size_t>(c0));
+    encode_point_chunk<false>(pts, dirs, p_begin + c0, min(P, npts - c0), real_p, real_d,
+                              smem);
+    mlp_chunk<false, true>(vec, wmat, smem, sc.st, static_cast<size_t>(c0));
   }
 
   // ---- 2. the heads' backward: dzr1 = g_rgb r (1 - r), dsig = g_sigma
@@ -94,7 +95,7 @@ fused_nerf_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ d
   __syncthreads();
 
   // ---- 3. MLP backward with the input products ----
-  mlp_backward<BF16, true>(sc, cz, vec, wmat, wmat_t, wt_in, part, cap_c, smem);
+  mlp_backward<false, true>(sc, cz, vec, wmat, wmat_t, wt_in, part, cap_c, smem);
 
   // ---- 4. the encodings' backward (_encode_bwd, exact cosine) ----
   const float* dx6 = sc.dz[2];        // dz6 w6p^T | dzr0 wr0d^T
@@ -105,34 +106,24 @@ fused_nerf_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ d
     const int d = pos ? k : k - 3;
     const size_t row = static_cast<size_t>(l) * LDZ;
     const size_t at = static_cast<size_t>(p_begin + l) * 3 + d;
-    const float x = pos ? pts[at] : dirs[at];
     // the cotangent of encoding column c: dpenc = dz6 w6p^T + dz1 w1^T
     auto g = [&](int c) { return pos ? dx6[row + c] + dx1[row + c] : dx6[row + HR + c]; };
-    float s = 0.f;
-    for (int c = 3 + d; c < (pos ? real_p : real_d); c += 3) {
-      const int j = (c - 3) / 6;
-      const float phase = (((c - 3) / 3) & 1) ? HALF_PI : 0.f;
-      const float scale = static_cast<float>(1 << j);
-      const float arg = __fadd_rn(__fmul_rn(x, scale), phase);
-      s = fmaf(g(c) * cosf(arg), scale, s);
-    }
-    (pos ? dpts : ddirs)[at] = g(d) + s;
+    (pos ? dpts : ddirs)[at] =
+        encode_bwd_at(g, pos ? pts[at] : dirs[at], d, pos ? real_p : real_d);
   }
 }
 
-template <bool BF16, typename WT>
 int launch(const float* pts, const float* dirs, const float* cot, const float* vec,
            const void* wmat, const void* wmat_t, const void* wt_in, int n,
            int pts_per_cta, int cap, int real_p, int real_d, float* scratch,
            float* partial, float* out, float* dpts, float* ddirs, cudaStream_t stream) {
-  auto kernel = fused_nerf_bwd_kernel<BF16, WT>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      fused_nerf_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (n + pts_per_cta - 1) / pts_per_cta;
-  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      pts, dirs, cot, vec, static_cast<const WT*>(wmat), static_cast<const WT*>(wmat_t),
-      static_cast<const WT*>(wt_in), n, pts_per_cta, cap, real_p, real_d, scratch,
+  fused_nerf_bwd_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
+      pts, dirs, cot, vec, static_cast<const float*>(wmat), static_cast<const float*>(wmat_t),
+      static_cast<const float*>(wt_in), n, pts_per_cta, cap, real_p, real_d, scratch,
       partial, dpts, ddirs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -156,9 +147,10 @@ void fused_nerf_bwd_sizes(int* per_point, int* npart, int* n_out, int* n_t_in) {
 
 // `cot` is the (n, 4) cotangent [g_rgb, g_sigma]; `wmat_t` the packed
 // matrices transposed (same offsets), `wt_in` w1^T, w6p^T and wr0d^T each
-// zero-padded to 128 columns. `scratch` holds grid * cap * per_point floats,
-// `partial` grid * npart, `out` n_out, where grid = ceil(n / pts_per_cta)
-// and cap >= ceil(pts_per_cta / 64) * 64 is a multiple of 64. Writes the
+// zero-padded to 128 columns; `bf16` must be 0 (fused_nerf_bwd_tc takes
+// bfloat16). `scratch` holds grid * cap * per_point floats, `partial` grid
+// * npart, `out` n_out, where grid = ceil(n / pts_per_cta) and cap >=
+// ceil(pts_per_cta / 64) * 64 is a multiple of 64. Writes the
 // gradients to `out` and the point and direction cotangents (n, 3) each.
 // Returns 0 on success, a cudaError_t code after a failed launch, or -1
 // when the packed buffers or the shapes do not fit this kernel.
@@ -170,15 +162,11 @@ int fused_nerf_bwd(const float* pts, const float* dirs, const float* cot,
                    void* stream) {
   if (n_w != N_W || n_b != N_B || n_t != N_T_IN || n <= 0 || pts_per_cta <= 0 ||
       cap % P != 0 || cap < (pts_per_cta + P - 1) / P * P || real_p < 3 ||
-      real_p > PP || real_d < 3 || real_d > DP)
+      real_p > PP || real_d < 3 || real_d > DP || bf16 != 0)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<true, __nv_bfloat16>(pts, dirs, cot, vec, wmat, wmat_t, wt_in, n,
-                                       pts_per_cta, cap, real_p, real_d, scratch,
-                                       partial, out, dpts, ddirs, s);
-  return launch<false, float>(pts, dirs, cot, vec, wmat, wmat_t, wt_in, n, pts_per_cta,
-                              cap, real_p, real_d, scratch, partial, out, dpts, ddirs, s);
+  return launch(pts, dirs, cot, vec, wmat, wmat_t, wt_in, n, pts_per_cta, cap, real_p, real_d,
+                scratch, partial, out, dpts, ddirs, s);
 }
 
 const char* fused_nerf_bwd_error(int code) {

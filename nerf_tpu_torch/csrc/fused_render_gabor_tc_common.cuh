@@ -5,6 +5,9 @@
 // and the bfloat16 field forward (fused_gabor_fwd_tc.cu, which writes each
 // point's rgb and sigma). One chain, so the train pass's forward is the
 // forward render's bit for bit and the field's differs only in its filters.
+// The train pass's network backward closes the file, shared with the
+// bfloat16 field backward (fused_gabor_bwd_tc.cu), which runs the field
+// forward's chain with STASH.
 //
 // The chain is nerf_tpu/ops/pallas/fused_render_gabor.py::_mlp_tile in
 // bfloat16, at its rounding points (fused_render_gabor_common.cuh states the
@@ -78,12 +81,14 @@ __device__ __forceinline__ GSmem carve_gsmem(unsigned char* sb) {
                reinterpret_cast<float*>(sb + GB_COL), reinterpret_cast<int*>(sb + GB_ROW)};
 }
 
-// One train CTA's device-memory stash, point-major with the CTA-local point
-// as the row: z_1..z_8 rounded (the products' bf16 operands), feat and the
-// two dz buffers (bf16, 256 columns), y (128), denc (32), then u_2..u_8 and
-// the unrounded z_8 (float32, 256) and the per-point columns (float32,
-// N_COLS x cap; render_common.cuh C_*). The filters are not stashed: the
-// backward evaluates them again from the coefficients, bit for bit.
+// One backward CTA's device-memory stash (the train pass's and the field
+// backward's), point-major with the CTA-local point as the row: z_1..z_8
+// rounded (the products' bf16 operands), feat and the two dz buffers (bf16,
+// 256 columns), y (128), denc (32), then u_2..u_8 and the unrounded z_8
+// (float32, 256) and the per-point columns (float32, N_COLS x cap;
+// render_common.cuh C_*, the field's point cotangent at C_DP). The filters
+// are not stashed: the backward evaluates them again from the coefficients
+// or the point, bit for bit.
 struct TcStash {
   bf16* z[NL];
   bf16* feat;
@@ -240,15 +245,26 @@ struct PointFilterTc {
     const float2 gam = __ldg(reinterpret_cast<const float2*>(fs + F_GAM + c));
     hg = make_float2(__fmul_rn(-0.5f, gam.x), __fmul_rn(-0.5f, gam.y));
   }
-  // point_filter_at<true>'s operations, in its order
+  // point_filter_at<true>'s operations, in its order: the filter element
+  // with the backward's factors (full) or its value g (one)
+  static __device__ __forceinline__ PointFilter full(float x0, float x1, float x2, float xx,
+                                                     float om0, float om1, float om2, float mu0,
+                                                     float mu1, float mu2, float ph, float m2,
+                                                     float hg) {
+    PointFilter f;
+    const float s = fmaf(x2, om2, fmaf(x1, om1, __fmul_rn(x0, om0)));
+    const float xm = fmaf(x2, mu2, fmaf(x1, mu1, __fmul_rn(x0, mu0)));
+    f.sinarg = __fadd_rn(s, ph);
+    f.q = __fadd_rn(__fsub_rn(xx, __fmul_rn(2.f, xm)), m2);
+    f.E = expf(__fmul_rn(hg, f.q));
+    f.sn = fast_sin(f.sinarg);
+    return f;
+  }
   static __device__ __forceinline__ float one(float x0, float x1, float x2, float xx, float om0,
                                               float om1, float om2, float mu0, float mu1,
                                               float mu2, float ph, float m2, float hg) {
-    const float s = fmaf(x2, om2, fmaf(x1, om1, __fmul_rn(x0, om0)));
-    const float xm = fmaf(x2, mu2, fmaf(x1, mu1, __fmul_rn(x0, mu0)));
-    const float sinarg = __fadd_rn(s, ph);
-    const float q = __fadd_rn(__fsub_rn(xx, __fmul_rn(2.f, xm)), m2);
-    return __fmul_rn(fast_sin(sinarg), expf(__fmul_rn(hg, q)));
+    const PointFilter f = full(x0, x1, x2, xx, om0, om1, om2, mu0, mu1, mu2, ph, m2, hg);
+    return __fmul_rn(f.sn, f.E);
   }
   __device__ __forceinline__ void pair(int row, float& g0, float& g1) const {
     g0 = g1 = 0.f;
@@ -428,6 +444,257 @@ __device__ void forward_chunk_gabor_tc(const RayInputs& in, const Gabor& gp,
           stage_epilogue_tc<STASH>(acc, f, first, last, bias, ws, sm, sp, us, z8f, l0);
         }
       });
+}
+
+// ---------------------------------------------------------------- backward
+// The network backward of the bfloat16 train pass
+// (fused_render_gabor_train_tc.cu), shared with the bfloat16 field backward
+// (fused_gabor_bwd_tc.cu). Each dz W^T is a tensor-core product chunk by
+// chunk against the packed W itself (gemm_dact), each weight gradient A^T
+// du one product over all the CTA's points (dweight_tc). The two callers
+// differ in where a filter comes from and where its cotangents go: the
+// stages policy of backward and dact_filter (the train pass's RayStages:
+// the filter from the ray's coefficients, the rays' coefficient
+// cotangents; the field's PointStages: the filter from the point, the
+// banks' gradients and the point cotangent).
+
+// Shared memory (bytes) of a backward kernel: two activation tiles (a dz
+// chunk, the staged output), the u tile (float32 [64][LDU]), the weight
+// stages of a dz W^T product, a chunk's per-point columns (the heads' dzr1
+// and dsig; a filter stage's dsig with the train pass's t, t^2 and local
+// ray or the field's rounded point and |x|^2), a reduction buffer, and
+// each column's running sums (the train pass's coefficient cotangents of
+// the ray in progress, 5 x 256; the field's bank gradients, 9 x 256). The
+// weight gradients' stages overlay the activation and u tiles.
+constexpr int LDU = H + 8;                        // row stride (floats) of the u tile
+constexpr int BB_ACT0 = 0;
+constexpr int BB_ACT1 = BB_ACT0 + TC_P * LDS * 2;
+constexpr int BB_U = BB_ACT1 + TC_P * LDS * 2;
+constexpr int BB_WST = BB_U + TC_P * LDU * 4;
+constexpr int BB_COL = BB_WST + WST_DACT_BYTES;
+constexpr int BC_T = 0, BC_T2 = 1, BC_DSIG = 2, BC_RAY = 3, BC_X = 4, BC_XX = 7;
+constexpr int N_BC = 8;
+constexpr int NRUN = 9;                           // running sums a column
+constexpr int BB_RED = BB_COL + N_BC * TC_P * 4;
+constexpr int BB_RUN = BB_RED + 4 * THREADS * 4;
+constexpr int SMEM_BWD = BB_RUN + NRUN * H * 4;
+static_assert(SMEM_BWD <= 232448, "exceeds the per-block shared memory");
+static_assert(DW_STAGE_BYTES <= BB_WST, "weight-gradient stages fit");
+
+struct BwdSmem {
+  bf16* act0;
+  bf16* act1;
+  float* u;
+  bf16* wst;
+  float* col;
+  float* red;
+  float* run;
+};
+
+// colsum[col] = the column sums cs of each thread's columns, over the
+// warp's 8 row groups (lanes of the same column pair) by shuffles.
+__device__ __forceinline__ void write_colsum(float (&cs)[4][2], float* colsum) {
+  const int lane = threadIdx.x & 31, n0 = (threadIdx.x >> 5) * 32;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float v = cs[j][u];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane < 4) colsum[n0 + j * 8 + 2 * lane + u] = v;
+    }
+}
+
+// dz_out = dz_in W^T over the CTA's points l < cap_c, chunk by chunk: dz_in
+// (KP columns) and dz_out (256) bf16 with stride LDZ, W (256 x KP) the
+// packed matrix. The unrounded values are summed by column into colsum
+// (256), in a fixed order; dz_out gets them rounded. Ends past a barrier.
+template <int KP>
+__device__ void dact_plain(const bf16* __restrict__ dz_in, const bf16* __restrict__ w,
+                           bf16* __restrict__ dz_out, float* __restrict__ colsum, int cap_c,
+                           const BwdSmem& sm) {
+  const int tid = threadIdx.x, n0 = (tid >> 5) * 32;
+  float cs[4][2] = {};
+  for (int l0 = 0; l0 < cap_c; l0 += TC_P) {
+    constexpr int CPR = KP / 8;
+    for (int e = tid; e < TC_P * CPR; e += THREADS) {
+      const int r = e / CPR, q = (e % CPR) * 8;
+      cp_async16(sm.act0 + r * LDS + q, dz_in + static_cast<size_t>(l0 + r) * LDZ + q);
+    }
+    cp_async_commit();
+    float acc[4][4][4];
+    zero_acc(acc);
+    gemm_dact<KP>(acc, sm.act0, w, sm.wst);
+    each_pair<4>(acc, n0, [&](int, int j, int, int row, int col, float& v0, float& v1) {
+      cs[j][0] += v0;
+      cs[j][1] += v1;
+      put2(sm.act1 + row * LDS + col, v0, v1);
+    });
+    __syncthreads();
+    tile_out(sm.act1, LDS, H, dz_out, static_cast<size_t>(l0));
+  }
+  write_colsum(cs, colsum);
+  __syncthreads();
+}
+
+// Filter stage `stage` (0-based) of the multiplicative chain's backward
+// over the CTA's points l < cap_c, chunk by chunk: dz = dz_in W^T (+ dsig
+// ws: DSIG) on the tensor cores, dz_in bf16 (256 columns, stride LDZ) and W
+// (256 x 256) the packed matrix, with the chunk's u (float32, uref) staged
+// beside it and the policy's per-point columns (stages.columns, a thread a
+// row); then the policy's filter epilogue (stages.chunk). Not FIRST: du to
+// dz_out (bf16) and its column sums (the bias gradient) to colsum. After
+// each chunk stages.after_chunk, after the last stages.end_stage.
+// Ends past a barrier.
+template <bool FIRST, bool DSIG, typename Stages>
+__device__ void dact_filter(const bf16* __restrict__ dz_in, const bf16* __restrict__ w,
+                            const float* __restrict__ uref, int stage,
+                            const float* __restrict__ dsig, const float* __restrict__ wsig,
+                            bf16* __restrict__ dz_out, float* __restrict__ colsum,
+                            const Stages& stages, int cap_c, const BwdSmem& sm) {
+  const int tid = threadIdx.x;
+  float cs[4][2] = {};
+  for (int l0 = 0; l0 < cap_c; l0 += TC_P) {
+    for (int e = tid; e < TC_P * (H / 8); e += THREADS) {
+      const int r = e / (H / 8), q = (e % (H / 8)) * 8;
+      cp_async16(sm.act0 + r * LDS + q, dz_in + static_cast<size_t>(l0 + r) * LDZ + q);
+    }
+    if constexpr (!FIRST) {
+      for (int e = tid; e < TC_P * (H / 4); e += THREADS) {
+        const int r = e / (H / 4), q = (e % (H / 4)) * 4;
+        cp_async16(sm.u + r * LDU + q, uref + static_cast<size_t>(l0 + r) * H + q);
+      }
+    }
+    cp_async_commit();
+    if (tid < TC_P) {
+      stages.columns(l0, sm);
+      if constexpr (DSIG) sm.col[BC_DSIG * TC_P + tid] = dsig[l0 + tid];
+    }
+    float acc[4][4][4];
+    zero_acc(acc);
+    gemm_dact<H>(acc, sm.act0, w, sm.wst);
+    stages.template chunk<FIRST, DSIG>(acc, stage, l0, wsig, sm, cs);
+    __syncthreads();
+    if constexpr (!FIRST) tile_out(sm.act1, LDS, H, dz_out, static_cast<size_t>(l0));
+    stages.after_chunk(l0, sm);
+  }
+  if constexpr (!FIRST) write_colsum(cs, colsum);
+  stages.end_stage(stage, sm);
+  __syncthreads();
+}
+
+// The network backward (_train_kernel's; fused_gabor.py::_bwd_kernel's
+// chain) over the CTA's points l < cap_c from the stash and the cotangent
+// columns dzr1 and dsig, into the CTA's partial (offsets of the packed
+// layout, the vectors from N_W). The policy `stages` takes each filter
+// stage's epilogue (dact_filter) and stages.on_dzr0(dzr0) once dzr0 is
+// complete (st.dz[0], 128 columns; it may use the activation tiles and the
+// weight stages, and ends past a barrier): the train pass's gives the rays'
+// coefficient cotangents, the field's the banks' gradients and the point
+// and direction cotangents.
+template <typename Stages>
+__device__ void backward(const TcStash& st, int cap, const float* __restrict__ vec,
+                         const bf16* __restrict__ wmat, float* __restrict__ part, int cap_c,
+                         const BwdSmem& sm, const Stages& stages) {
+  const int tid = threadIdx.x;
+  const size_t cz = static_cast<size_t>(cap);
+  const float* dsig = st.cols + C_DSIG * cz;
+  const float* dzr1 = st.cols + C_DZR1 * cz;
+  float* pvec = part + N_W;
+  // rgb output layer (CUDA cores), chunk by chunk: dzr0 = (r(dzr1) wr1^T)
+  // (y > 0) to dz[0] (128 columns), with its column sums (br0) and wr1 =
+  // r(y)^T r(dzr1) in two halves of each chunk's points; br1 and bs (the
+  // sums of dzr1 and dsig) by four threads over the staged columns
+  {
+    const int k = tid & (HR - 1), half = tid / HR;
+    const float w0 = __bfloat162float(wmat[OFF_WR1 + k * 8 + 0]);
+    const float w1 = __bfloat162float(wmat[OFF_WR1 + k * 8 + 1]);
+    const float w2 = __bfloat162float(wmat[OFF_WR1 + k * 8 + 2]);
+    const bf16* __restrict__ y = st.y;
+    bf16* __restrict__ dz0 = st.dz[0];
+    float* col_s = sm.col;              // [4][64]: dzr1 (3), dsig
+    float sb = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f, sx = 0.f;
+    for (int l0 = 0; l0 < cap_c; l0 += TC_P) {
+      if (tid < 4 * TC_P) {
+        const int c = tid / TC_P, p = tid % TC_P;
+        col_s[tid] = c < 3 ? dzr1[c * cz + l0 + p] : dsig[l0 + p];
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int j = 0; j < TC_P / 2; ++j) {
+        const int p = half + 2 * j;
+        const size_t l = static_cast<size_t>(l0 + p);
+        const float yv = __bfloat162float(y[l * HR + k]);
+        const float d0 = round_bf16(col_s[p]), d1 = round_bf16(col_s[TC_P + p]),
+                    d2 = round_bf16(col_s[2 * TC_P + p]);
+        float dy = fmaf(d0, w0, 0.f);
+        dy = fmaf(d1, w1, dy);
+        dy = fmaf(d2, w2, dy);
+        const float v = yv > 0.f ? dy : 0.f;
+        dz0[l * LDZ + k] = __float2bfloat16_rn(v);
+        sb += v;
+        s0 = fmaf(yv, d0, s0);
+        s1 = fmaf(yv, d1, s1);
+        s2 = fmaf(yv, d2, s2);
+      }
+      if (tid < 4)
+        for (int p = 0; p < TC_P; ++p) sx += col_s[tid * TC_P + p];
+      __syncthreads();
+    }
+    float* red = sm.red;                // [4][256]: br0, wr1 (3) by thread
+    red[tid] = sb;
+    red[THREADS + tid] = s0;
+    red[2 * THREADS + tid] = s1;
+    red[3 * THREADS + tid] = s2;
+    __syncthreads();
+    if (tid < HR) {
+      pvec[OFF_BR0 + tid] = red[tid] + red[tid + HR];
+      float* o = part + OFF_WR1 + tid * 8;
+      for (int c = 0; c < 3; ++c)
+        o[c] = red[(1 + c) * THREADS + tid] + red[(1 + c) * THREADS + tid + HR];
+      for (int c = 3; c < 8; ++c) o[c] = 0.f;
+    } else if (tid < HR + 8) {
+      pvec[OFF_BR1 + tid - HR] = 0.f;
+    }
+    __syncthreads();
+    if (tid < 3) pvec[OFF_BR1 + tid] = sx;
+    if (tid == 3) pvec[OFF_BS] = sx;
+  }
+  // the density row: ws = z8^T dsig, a column loop on the unrounded z8
+  {
+    float s = 0.f;
+#pragma unroll 8
+    for (int l = 0; l < cap_c; ++l) s = fmaf(st.z8f[static_cast<size_t>(l) * H + tid], dsig[l], s);
+    pvec[OFF_WS + tid] = s;
+  }
+  stages.on_dzr0(st.dz[0]);
+  // rgb hidden layer: wr0f, wr0d; dfeat = dzr0 wr0f^T (bre)
+  dweight_tc<H, HR, 4, 2>(st.feat, H, H, st.dz[0], cap_c, part + OFF_WR0F, sm.act0);
+  dweight_tc<DP, HR, 1, 8>(st.denc, DP, DP, st.dz[0], cap_c, part + OFF_WR0D, sm.act0);
+  dact_plain<HR>(st.dz[0], wmat + OFF_WR0F, st.dz[1], pvec + OFF_BRE, cap_c, sm);
+  // feature remap: wre from r(z8); dz8 = dfeat wre^T + dsig ws, then stage
+  // 8's filter cotangents and du8 (b7)
+  dweight_tc<128, H, 2, 4>(st.z[NL - 1], H, H, st.dz[1], cap_c, part + OFF_WRE, sm.act0);
+  dact_filter<false, true>(st.dz[1], wmat + OFF_WRE, st.u[NL - 2], NL - 1, dsig, vec + OFF_WS,
+                           st.dz[0], pvec + (NL - 2) * H, stages, cap_c, sm);
+  // stages 7..2 (0-based 6..1): w_s from z_s and du_{s+1}; dz_s = du_{s+1}
+  // w_s^T, the stage's filter cotangents and du_s (b_{s-1})
+  bf16* cur = st.dz[0];
+  bf16* nxt = st.dz[1];
+#pragma unroll 1
+  for (int s = NL - 1; s >= 2; --s) {
+    dweight_tc<128, H, 2, 4>(st.z[s - 1], H, H, cur, cap_c, part + off_w(s), sm.act0);
+    dact_filter<false, false>(cur, wmat + off_w(s), st.u[s - 2], s - 1, nullptr, nullptr, nxt,
+                              pvec + (s - 2) * H, stages, cap_c, sm);
+    bf16* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  // stage 1: w_1, then dg_1 = dz_1 (no weight before it)
+  dweight_tc<128, H, 2, 4>(st.z[0], H, H, cur, cap_c, part + off_w(1), sm.act0);
+  dact_filter<true, false>(cur, wmat + off_w(1), nullptr, 0, nullptr, nullptr, nullptr, nullptr,
+                           stages, cap_c, sm);
 }
 
 }  // namespace gabor

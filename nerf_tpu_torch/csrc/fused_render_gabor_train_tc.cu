@@ -27,7 +27,10 @@
 // W, 0.021 of the bound.
 //
 // Design: rows 5 and 8's split (fused_render_train_tc.cu,
-// fused_render_siren_train_tc.cu), on render_tc.cuh's products:
+// fused_render_siren_train_tc.cu), on render_tc.cuh's products; the network
+// backward of step 3 is fused_render_gabor_tc_common.cuh's, shared with the
+// bf16 field backward (fused_gabor_bwd_tc.cu), this file's RayStages its
+// filter epilogue:
 //   1. Forward kernel, two CTAs a backward CTA's rays, each every other
 //      64-point chunk of them (two CTAs share an SM): row 11's chain
 //      (fused_render_gabor_tc_common.cuh::forward_chunk_gabor_tc<true>,
@@ -88,38 +91,10 @@ namespace gabor {
 namespace {
 
 constexpr int FWD_SPLIT = 2;                      // forward CTAs a backward CTA's points
-
-// Shared memory (bytes) of the backward kernel: two activation tiles (a dz
-// chunk, the staged output), the u tile (float32 [64][LDU]), the weight
-// stages of a dz W^T product, a chunk's per-point columns (the heads' dzr1
-// and dsig; a filter stage's t, t^2, dsig and local ray), a reduction
-// buffer, and each column's running coefficient cotangents of the ray in
-// progress (5 x 256). The weight gradients' stages overlay the activation
-// and u tiles; the per-ray losses of the compositing pass the second
+// The backward kernel's plan is fused_render_gabor_tc_common.cuh's
+// (SMEM_BWD); the compositing pass keeps its per-ray losses in the second
 // activation tile.
-constexpr int LDU = H + 8;                        // row stride (floats) of the u tile
-constexpr int BB_ACT0 = 0;
-constexpr int BB_ACT1 = BB_ACT0 + TC_P * LDS * 2;
-constexpr int BB_U = BB_ACT1 + TC_P * LDS * 2;
-constexpr int BB_WST = BB_U + TC_P * LDU * 4;
-constexpr int BB_COL = BB_WST + WST_DACT_BYTES;
-constexpr int BC_T = 0, BC_T2 = 1, BC_DSIG = 2, BC_RAY = 3, N_BC = 4;
-constexpr int BB_RED = BB_COL + N_BC * TC_P * 4;
-constexpr int BB_RUN = BB_RED + 4 * THREADS * 4;
-constexpr int SMEM_BWD = BB_RUN + NCOEF * H * 4;
-static_assert(SMEM_BWD <= 232448, "exceeds the per-block shared memory");
-static_assert(DW_STAGE_BYTES <= BB_WST, "weight-gradient stages fit");
-constexpr int MAX_RAYS_PER_CTA = TC_P * LDS * 2 / 4;   // per-ray losses in ACT1
-
-struct BwdSmem {
-  bf16* act0;
-  bf16* act1;
-  float* u;
-  bf16* wst;
-  float* col;
-  float* red;
-  float* run;
-};
+constexpr int MAX_RAYS_PER_CTA = TC_P * LDS * 2 / 4;
 
 // A backward CTA's rays: their samples' t, coefficients and coefficient
 // cotangents from its first ray, and its points (whole rays).
@@ -130,53 +105,6 @@ struct RaySpan {
   size_t plane;
   int S, npts;
 };
-
-// colsum[col] = the column sums cs of each thread's columns, over the
-// warp's 8 row groups (lanes of the same column pair) by shuffles.
-__device__ __forceinline__ void write_colsum(float (&cs)[4][2], float* colsum) {
-  const int lane = threadIdx.x & 31, n0 = (threadIdx.x >> 5) * 32;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      float v = cs[j][u];
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane < 4) colsum[n0 + j * 8 + 2 * lane + u] = v;
-    }
-}
-
-// dz_out = dz_in W^T over the CTA's points l < cap_c, chunk by chunk: dz_in
-// (KP columns) and dz_out (256) bf16 with stride LDZ, W (256 x KP) the
-// packed matrix. The unrounded values are summed by column into colsum
-// (256), in a fixed order; dz_out gets them rounded. Ends past a barrier.
-template <int KP>
-__device__ void dact_plain(const bf16* __restrict__ dz_in, const bf16* __restrict__ w,
-                           bf16* __restrict__ dz_out, float* __restrict__ colsum, int cap_c,
-                           const BwdSmem& sm) {
-  const int tid = threadIdx.x, n0 = (tid >> 5) * 32;
-  float cs[4][2] = {};
-  for (int l0 = 0; l0 < cap_c; l0 += TC_P) {
-    constexpr int CPR = KP / 8;
-    for (int e = tid; e < TC_P * CPR; e += THREADS) {
-      const int r = e / CPR, q = (e % CPR) * 8;
-      cp_async16(sm.act0 + r * LDS + q, dz_in + static_cast<size_t>(l0 + r) * LDZ + q);
-    }
-    cp_async_commit();
-    float acc[4][4][4];
-    zero_acc(acc);
-    gemm_dact<KP>(acc, sm.act0, w, sm.wst);
-    each_pair<4>(acc, n0, [&](int, int j, int, int row, int col, float& v0, float& v1) {
-      cs[j][0] += v0;
-      cs[j][1] += v1;
-      put2(sm.act1 + row * LDS + col, v0, v1);
-    });
-    __syncthreads();
-    tile_out(sm.act1, LDS, H, dz_out, static_cast<size_t>(l0));
-  }
-  write_colsum(cs, colsum);
-  __syncthreads();
-}
 
 // The epilogue of filter stage `stage` (0-based) over a chunk from l0, the
 // warp's 64 x 32 tile of dz = acc (+ dsig ws: DSIG). FIRST (stage 0): dg =
@@ -300,164 +228,35 @@ __device__ __forceinline__ void filter_chunk(float (&acc)[4][4][4], int stage, i
   }
 }
 
-// Filter stage `stage` (0-based) of the multiplicative chain's backward
-// over the CTA's points l < cap_c, chunk by chunk: dz = dz_in W^T (+ dsig
-// ws: DSIG) on the tensor cores, dz_in bf16 (256 columns, stride LDZ) and W
-// (256 x 256) the packed matrix, with the chunk's u (float32, uref) staged
-// beside it; then filter_chunk. Not FIRST: du to dz_out (bf16) and its
-// column sums (the bias gradient) to colsum. Ends past a barrier.
-template <bool FIRST, bool DSIG>
-__device__ void dact_filter(const bf16* __restrict__ dz_in, const bf16* __restrict__ w,
-                            const float* __restrict__ uref, int stage,
-                            const float* __restrict__ dsig, const float* __restrict__ wsig,
-                            bf16* __restrict__ dz_out, float* __restrict__ colsum,
-                            const RaySpan& rs, int cap_c, const BwdSmem& sm) {
-  const int tid = threadIdx.x;
-  float cs[4][2] = {};
-  for (int l0 = 0; l0 < cap_c; l0 += TC_P) {
-    for (int e = tid; e < TC_P * (H / 8); e += THREADS) {
-      const int r = e / (H / 8), q = (e % (H / 8)) * 8;
-      cp_async16(sm.act0 + r * LDS + q, dz_in + static_cast<size_t>(l0 + r) * LDZ + q);
-    }
-    if constexpr (!FIRST) {
-      for (int e = tid; e < TC_P * (H / 4); e += THREADS) {
-        const int r = e / (H / 4), q = (e % (H / 4)) * 4;
-        cp_async16(sm.u + r * LDU + q, uref + static_cast<size_t>(l0 + r) * H + q);
-      }
-    }
-    cp_async_commit();
-    if (tid < TC_P) {
-      const int l = l0 + tid;
-      const bool valid = l < rs.npts;
-      const float tv = valid ? rs.t[l] : 0.f;
-      sm.col[BC_T * TC_P + tid] = tv;
-      sm.col[BC_T2 * TC_P + tid] = __fmul_rn(tv, tv);
-      if constexpr (DSIG) sm.col[BC_DSIG * TC_P + tid] = dsig[l];
-      reinterpret_cast<int*>(sm.col + BC_RAY * TC_P)[tid] = valid ? l / rs.S : -1;
-    }
-    float acc[4][4][4];
-    zero_acc(acc);
-    gemm_dact<H>(acc, sm.act0, w, sm.wst);
+// The train pass's filter stages (the backward's policy): each chunk's t,
+// t^2 and local ray columns, then filter_chunk; nothing after a chunk or a
+// stage (a ray's sums are written as its last sample passes).
+struct RayStages {
+  RaySpan rs;
+
+  __device__ void on_dzr0(const bf16*) const {}
+  __device__ __forceinline__ void columns(int l0, const BwdSmem& sm) const {
+    const int tid = threadIdx.x, l = l0 + tid;
+    const bool valid = l < rs.npts;
+    const float tv = valid ? rs.t[l] : 0.f;
+    sm.col[BC_T * TC_P + tid] = tv;
+    sm.col[BC_T2 * TC_P + tid] = __fmul_rn(tv, tv);
+    reinterpret_cast<int*>(sm.col + BC_RAY * TC_P)[tid] = valid ? l / rs.S : -1;
+  }
+  template <bool FIRST, bool DSIG>
+  __device__ __forceinline__ void chunk(float (&acc)[4][4][4], int stage, int l0,
+                                        const float* __restrict__ wsig, const BwdSmem& sm,
+                                        float (&cs)[4][2]) const {
     const int r_first = l0 / rs.S;
     const int r_last = (min(l0 + TC_P, rs.npts) - 1) / rs.S;
     if (l0 + TC_P <= rs.npts && r_first == r_last)
       filter_chunk<FIRST, DSIG, true>(acc, stage, l0, r_first, r_last, wsig, rs, sm, cs);
     else
       filter_chunk<FIRST, DSIG, false>(acc, stage, l0, r_first, r_last, wsig, rs, sm, cs);
-    __syncthreads();
-    if constexpr (!FIRST) tile_out(sm.act1, LDS, H, dz_out, static_cast<size_t>(l0));
   }
-  if constexpr (!FIRST) write_colsum(cs, colsum);
-  __syncthreads();
-}
-
-// The network backward (_train_kernel's, without input gradients) over the
-// CTA's points l < cap_c from the stash and the cotangent columns dzr1 and
-// dsig, into the CTA's partial (offsets of the packed layout, the vectors
-// from N_W) and the rays' coefficient cotangents.
-__device__ void backward(const TcStash& st, int cap, const RaySpan& rs,
-                         const float* __restrict__ vec, const bf16* __restrict__ wmat,
-                         float* __restrict__ part, int cap_c, const BwdSmem& sm) {
-  const int tid = threadIdx.x;
-  const size_t cz = static_cast<size_t>(cap);
-  const float* dsig = st.cols + C_DSIG * cz;
-  const float* dzr1 = st.cols + C_DZR1 * cz;
-  float* pvec = part + N_W;
-  // rgb output layer (CUDA cores), chunk by chunk: dzr0 = (r(dzr1) wr1^T)
-  // (y > 0) to dz[0] (128 columns), with its column sums (br0) and wr1 =
-  // r(y)^T r(dzr1) in two halves of each chunk's points; br1 and bs (the
-  // sums of dzr1 and dsig) by four threads over the staged columns
-  {
-    const int k = tid & (HR - 1), half = tid / HR;
-    const float w0 = __bfloat162float(wmat[OFF_WR1 + k * 8 + 0]);
-    const float w1 = __bfloat162float(wmat[OFF_WR1 + k * 8 + 1]);
-    const float w2 = __bfloat162float(wmat[OFF_WR1 + k * 8 + 2]);
-    const bf16* __restrict__ y = st.y;
-    bf16* __restrict__ dz0 = st.dz[0];
-    float* col_s = sm.col;              // [4][64]: dzr1 (3), dsig
-    float sb = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f, sx = 0.f;
-    for (int l0 = 0; l0 < cap_c; l0 += TC_P) {
-      if (tid < 4 * TC_P) {
-        const int c = tid / TC_P, p = tid % TC_P;
-        col_s[tid] = c < 3 ? dzr1[c * cz + l0 + p] : dsig[l0 + p];
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int j = 0; j < TC_P / 2; ++j) {
-        const int p = half + 2 * j;
-        const size_t l = static_cast<size_t>(l0 + p);
-        const float yv = __bfloat162float(y[l * HR + k]);
-        const float d0 = round_bf16(col_s[p]), d1 = round_bf16(col_s[TC_P + p]),
-                    d2 = round_bf16(col_s[2 * TC_P + p]);
-        float dy = fmaf(d0, w0, 0.f);
-        dy = fmaf(d1, w1, dy);
-        dy = fmaf(d2, w2, dy);
-        const float v = yv > 0.f ? dy : 0.f;
-        dz0[l * LDZ + k] = __float2bfloat16_rn(v);
-        sb += v;
-        s0 = fmaf(yv, d0, s0);
-        s1 = fmaf(yv, d1, s1);
-        s2 = fmaf(yv, d2, s2);
-      }
-      if (tid < 4)
-        for (int p = 0; p < TC_P; ++p) sx += col_s[tid * TC_P + p];
-      __syncthreads();
-    }
-    float* red = sm.red;                // [4][256]: br0, wr1 (3) by thread
-    red[tid] = sb;
-    red[THREADS + tid] = s0;
-    red[2 * THREADS + tid] = s1;
-    red[3 * THREADS + tid] = s2;
-    __syncthreads();
-    if (tid < HR) {
-      pvec[OFF_BR0 + tid] = red[tid] + red[tid + HR];
-      float* o = part + OFF_WR1 + tid * 8;
-      for (int c = 0; c < 3; ++c)
-        o[c] = red[(1 + c) * THREADS + tid] + red[(1 + c) * THREADS + tid + HR];
-      for (int c = 3; c < 8; ++c) o[c] = 0.f;
-    } else if (tid < HR + 8) {
-      pvec[OFF_BR1 + tid - HR] = 0.f;
-    }
-    __syncthreads();
-    if (tid < 3) pvec[OFF_BR1 + tid] = sx;
-    if (tid == 3) pvec[OFF_BS] = sx;
-  }
-  // the density row: ws = z8^T dsig, a column loop on the unrounded z8
-  {
-    float s = 0.f;
-#pragma unroll 8
-    for (int l = 0; l < cap_c; ++l) s = fmaf(st.z8f[static_cast<size_t>(l) * H + tid], dsig[l], s);
-    pvec[OFF_WS + tid] = s;
-  }
-  // rgb hidden layer: wr0f, wr0d; dfeat = dzr0 wr0f^T (bre)
-  dweight_tc<H, HR, 4, 2>(st.feat, H, H, st.dz[0], cap_c, part + OFF_WR0F, sm.act0);
-  dweight_tc<DP, HR, 1, 8>(st.denc, DP, DP, st.dz[0], cap_c, part + OFF_WR0D, sm.act0);
-  dact_plain<HR>(st.dz[0], wmat + OFF_WR0F, st.dz[1], pvec + OFF_BRE, cap_c, sm);
-  // feature remap: wre from r(z8); dz8 = dfeat wre^T + dsig ws, then stage
-  // 8's filter cotangents and du8 (b7)
-  dweight_tc<128, H, 2, 4>(st.z[NL - 1], H, H, st.dz[1], cap_c, part + OFF_WRE, sm.act0);
-  dact_filter<false, true>(st.dz[1], wmat + OFF_WRE, st.u[NL - 2], NL - 1, dsig, vec + OFF_WS,
-                           st.dz[0], pvec + (NL - 2) * H, rs, cap_c, sm);
-  // stages 7..2 (0-based 6..1): w_s from z_s and du_{s+1}; dz_s = du_{s+1}
-  // w_s^T, the stage's filter cotangents and du_s (b_{s-1})
-  bf16* cur = st.dz[0];
-  bf16* nxt = st.dz[1];
-#pragma unroll 1
-  for (int s = NL - 1; s >= 2; --s) {
-    dweight_tc<128, H, 2, 4>(st.z[s - 1], H, H, cur, cap_c, part + off_w(s), sm.act0);
-    dact_filter<false, false>(cur, wmat + off_w(s), st.u[s - 2], s - 1, nullptr, nullptr, nxt,
-                              pvec + (s - 2) * H, rs, cap_c, sm);
-    bf16* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  // stage 1: w_1, then dg_1 = dz_1 (no weight before it)
-  dweight_tc<128, H, 2, 4>(st.z[0], H, H, cur, cap_c, part + off_w(1), sm.act0);
-  dact_filter<true, false>(cur, wmat + off_w(1), nullptr, 0, nullptr, nullptr, nullptr, nullptr,
-                           rs, cap_c, sm);
-}
-
-static_assert(THREADS == H, "the column loops give each thread one of the 256 columns");
+  __device__ void after_chunk(int, const BwdSmem&) const {}
+  __device__ void end_stage(int, const BwdSmem&) const {}
+};
 
 // Step 1: the forward of FWD_SPLIT CTAs a backward CTA's rays, each every
 // FWD_SPLIT-th 64-point chunk of them, into that CTA's stash.
@@ -517,7 +316,7 @@ fused_gabor_train_tc_bwd(RayInputs in, Gabor gp, const bf16* __restrict__ wmat,
   const size_t first = static_cast<size_t>(ray0) * NH;
   const RaySpan rs{in.t + static_cast<size_t>(ray0) * S, gp.coef + first, dcoef + first, gp.plane,
                    S, nr * S};
-  backward(st, cap, rs, in.vec, wmat, part, cap_c, sm);
+  backward(st, cap, in.vec, wmat, part, cap_c, sm, RayStages{rs});
 }
 
 int launch_train_tc(const float* coef, const float* viewdirs, const float* t, const void* wmat,

@@ -6,7 +6,8 @@
 // them straight away) and the bfloat16 field forward (fused_nerf_fwd_tc.cu,
 // which writes them out in point order). The chunk's input stage is a
 // loader policy: ray samples (encode_chunk) or given points and directions
-// (encode_point_chunk_tc).
+// (encode_point_chunk_tc). The train pass's MLP backward closes the file,
+// shared with the bfloat16 field backward (fused_nerf_bwd_tc.cu).
 //
 // The chain is nerf_tpu/ops/pallas/fused_nerf.py::_mlp_tile in bfloat16:
 // the encodings rounded to bf16, the 11 products (mma.sync m16n8k16 on
@@ -264,6 +265,293 @@ __device__ void forward_chunk_tc(const RayInputs& in, const bf16* __restrict__ w
                                  int cap) {
   forward_chain_tc<STASH>([&] { encode_chunk<!STASH>(in, chunk0, nvalid, sm); }, in.vec, wmat,
                           sm, st, l0, cap);
+}
+
+// ---------------------------------------------------------------- backward
+// The MLP backward of the bfloat16 train pass (fused_render_train_tc.cu),
+// shared with the bfloat16 field backward (fused_nerf_bwd_tc.cu), which
+// adds the three input products through the hooks. Each dz W^T is a
+// tensor-core product chunk by chunk against the packed W itself (no
+// transposed copy), with the chunk's dz and ReLU mask staged into shared
+// memory; its epilogue adds dsig w10s where due, applies the mask, sums the
+// unrounded dz by column (the bias gradient; with h9 dsig, the w10s
+// gradient) and stores dz rounded to bf16. Each weight gradient A^T dz is
+// one tensor-core product over all the CTA's points (dweight_tc), written
+// once per CTA.
+
+// Shared memory (bytes) of the backward kernel: two activation tiles (a dz
+// chunk, the staged output), a mask tile (the ReLU masks, float32
+// [64][LDM] or bf16 [64][LDS]), the weight stages of a dz W^T product, a
+// chunk's per-point cotangent columns, a reduction buffer. The weight
+// gradients' stages overlay the activation and mask tiles; the per-ray
+// losses of the train pass's compositing the second activation tile.
+constexpr int LDM = H + 8;                     // row stride (floats) of the mask
+constexpr int BB_ACT0 = 0;
+constexpr int BB_ACT1 = BB_ACT0 + TC_P * LDS * 2;
+constexpr int BB_MASK = BB_ACT1 + TC_P * LDS * 2;
+constexpr int BB_WST = BB_MASK + TC_P * LDM * 4;
+constexpr int BB_COL = BB_WST + WST_DACT_BYTES;
+constexpr int BB_RED = BB_COL + 4 * TC_P * 4;
+constexpr int SMEM_BWD = BB_RED + 4 * THREADS * 4;
+static_assert(SMEM_BWD <= 232448, "exceeds the per-block shared memory");
+static_assert(DW_STAGE_BYTES <= BB_WST, "weight-gradient stages fit");
+
+// Bytes a point of the stash (TcStash), `cap` rows each.
+constexpr int TC_BYTES_PER_POINT = 2 * (12 * H + HR + PP + DP) + 4 * (H + N_COLS);
+static_assert(TC_BYTES_PER_POINT % 16 == 0, "stash rows must stay 16-byte aligned");
+
+__device__ inline TcStash carve_tc_stash(unsigned char* p, int cap) {
+  TcStash s;
+  const size_t c = static_cast<size_t>(cap);
+  auto take = [&](int cols) {
+    bf16* r = reinterpret_cast<bf16*>(p);
+    p += c * cols * 2;
+    return r;
+  };
+  for (int i = 0; i < 8; ++i) s.h[i] = take(H);
+  s.h9b = take(H);
+  s.feat = take(H);
+  s.dz[0] = take(H);
+  s.dz[1] = take(H);
+  s.y = take(HR);
+  s.penc = take(PP);
+  s.denc = take(DP);
+  s.h9f = reinterpret_cast<float*>(p);
+  p += c * H * 4;
+  s.cols = reinterpret_cast<float*>(p);
+  return s;
+}
+
+struct BwdSmem {
+  bf16* act0;
+  bf16* act1;
+  void* mask;
+  bf16* wst;
+  float* col;
+  float* red;
+};
+
+enum class Mask { None, Bf16, F32 };
+
+// dz_out = EPI(dz_in W^T (+ dsig w10s)) over the CTA's points l < cap_c,
+// chunk by chunk: dz_in (KP columns) and dz_out (256) bf16 with stride
+// LDZ, W (256 x KP) the packed matrix; EPI the ReLU mask of mref > 0 (bf16
+// or float32, 256 columns). Each chunk's dz, mask and dsig are staged into
+// shared memory with its first weight tiles. The unrounded values are
+// summed by column into colsum (256), in a fixed order; dz_out gets them
+// rounded. DSIG (the feature head, whose mask is h9 in float32) also sums
+// h9 dsig by column into w10s_out (the w10s gradient). Ends past a
+// barrier.
+template <int KP, Mask MK, bool DSIG>
+__device__ void dact_tc(const bf16* __restrict__ dz_in, const bf16* __restrict__ w,
+                        const void* mref, const float* __restrict__ dsig,
+                        const float* __restrict__ wsig, bf16* __restrict__ dz_out,
+                        float* __restrict__ colsum, float* __restrict__ w10s_out, int cap_c,
+                        const BwdSmem& sm) {
+  static_assert(!DSIG || MK == Mask::F32, "the w10s sums read h9 in float32");
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int n0 = (tid >> 5) * 32;
+  const bf16* mask_b = static_cast<const bf16*>(sm.mask);
+  const float* mask_f = static_cast<const float*>(sm.mask);
+  float cs[4][2] = {}, ws[4][2] = {};
+  for (int l0 = 0; l0 < cap_c; l0 += TC_P) {
+    constexpr int CPR = KP / 8;
+    for (int e = tid; e < TC_P * CPR; e += THREADS) {
+      const int r = e / CPR, q = (e % CPR) * 8;
+      cp_async16(sm.act0 + r * LDS + q, dz_in + static_cast<size_t>(l0 + r) * LDZ + q);
+    }
+    if constexpr (MK == Mask::Bf16) {
+      const bf16* m = static_cast<const bf16*>(mref);
+      for (int e = tid; e < TC_P * (H / 8); e += THREADS) {
+        const int r = e / (H / 8), q = (e % (H / 8)) * 8;
+        cp_async16(static_cast<bf16*>(sm.mask) + r * LDS + q,
+                   m + static_cast<size_t>(l0 + r) * H + q);
+      }
+    } else if constexpr (MK == Mask::F32) {
+      const float* m = static_cast<const float*>(mref);
+      for (int e = tid; e < TC_P * (H / 4); e += THREADS) {
+        const int r = e / (H / 4), q = (e % (H / 4)) * 4;
+        cp_async16(static_cast<float*>(sm.mask) + r * LDM + q,
+                   m + static_cast<size_t>(l0 + r) * H + q);
+      }
+    }
+    if constexpr (DSIG) {
+      if (tid < TC_P / 4) cp_async16(sm.col + tid * 4, dsig + l0 + tid * 4);
+    }
+    cp_async_commit();
+    float acc[4][4][4];
+    zero_acc(acc);
+    gemm_dact<KP>(acc, sm.act0, w, sm.wst);
+    each_pair<4>(acc, n0, [&](int, int j, int, int row, int col, float& v0, float& v1) {
+      float x0 = v0, x1 = v1;
+      if constexpr (DSIG) {
+        const float ds = sm.col[row];
+        x0 = x0 + ds * __ldg(wsig + col);
+        x1 = x1 + ds * __ldg(wsig + col + 1);
+      }
+      if constexpr (MK == Mask::Bf16) {
+        const __nv_bfloat162 m = *reinterpret_cast<const __nv_bfloat162*>(mask_b + row * LDS + col);
+        x0 = __low2float(m) > 0.f ? x0 : 0.f;
+        x1 = __high2float(m) > 0.f ? x1 : 0.f;
+      } else if constexpr (MK == Mask::F32) {
+        const float2 m = *reinterpret_cast<const float2*>(mask_f + row * LDM + col);
+        x0 = m.x > 0.f ? x0 : 0.f;
+        x1 = m.y > 0.f ? x1 : 0.f;
+        if constexpr (DSIG) {
+          const float ds = sm.col[row];
+          ws[j][0] = fmaf(m.x, ds, ws[j][0]);
+          ws[j][1] = fmaf(m.y, ds, ws[j][1]);
+        }
+      }
+      cs[j][0] += x0;
+      cs[j][1] += x1;
+      put2(sm.act1 + row * LDS + col, x0, x1);
+    });
+    __syncthreads();
+    tile_out(sm.act1, LDS, H, dz_out, static_cast<size_t>(l0));
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float v = cs[j][u], x = ws[j][u];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+        x += __shfl_xor_sync(0xffffffffu, x, off);
+      }
+      if (lane < 4) {
+        colsum[n0 + j * 8 + 2 * lane + u] = v;
+        if constexpr (DSIG) w10s_out[n0 + j * 8 + 2 * lane + u] = x;
+      }
+    }
+  __syncthreads();
+}
+
+// The packed offset of hidden layer i's matrix (i = 2..9).
+__device__ __forceinline__ int hidden_off(int i) {
+  switch (i) {
+    case 2: return OFF_W2;
+    case 3: return OFF_W3;
+    case 4: return OFF_W4;
+    case 5: return OFF_W5;
+    case 6: return OFF_W6H;
+    case 7: return OFF_W7;
+    case 8: return OFF_W8;
+    default: return OFF_W9;
+  }
+}
+
+// The train pass's backward takes no input product.
+struct NoBwdHooks {
+  __device__ void on_dzr0(const bf16*) const {}
+  __device__ void on_dz6(const bf16*) const {}
+  __device__ void on_dz1(const bf16*) const {}
+};
+
+// The MLP backward (fused_nerf.py::_mlp_bwd_core) over the CTA's points l <
+// cap_c from the stash and the cotangent columns dzr1 and dsig, into the
+// CTA's partial (offsets of the packed layout, the vectors from N_W). The
+// input products are the hooks': hk.on_dzr0(dzr0) once dzr0 is complete
+// (st.dz[0], 128 columns), hk.on_dz6(dz6) and hk.on_dz1(dz1) once those
+// are (256 columns); each may use the activation tiles and the weight
+// stages, and ends past a barrier. The train pass takes NoBwdHooks.
+template <typename Hooks>
+__device__ void backward(const TcStash& st, int cap, const float* __restrict__ vec,
+                         const bf16* __restrict__ wmat, float* __restrict__ part, int cap_c,
+                         const BwdSmem& sm, const Hooks& hk) {
+  const int tid = threadIdx.x;
+  const size_t cz = static_cast<size_t>(cap);
+  const float* dsig = st.cols + C_DSIG * cz;
+  const float* dzr1 = st.cols + C_DZR1 * cz;
+  float* pvec = part + N_W;
+  // rgb output layer (CUDA cores), chunk by chunk: dzr0 = (r(dzr1) wr1^T)
+  // * (y > 0) to dz[0] (128 columns), with its column sums (br0) and wr1 =
+  // r(y)^T r(dzr1) in two halves of each chunk's points; br1 and b10s
+  // (the sums of dzr1 and dsig) by four threads over the staged columns
+  {
+    const int k = tid & (HR - 1), half = tid / HR;
+    const float w0 = __bfloat162float(wmat[OFF_WR1 + k * 8 + 0]);
+    const float w1 = __bfloat162float(wmat[OFF_WR1 + k * 8 + 1]);
+    const float w2 = __bfloat162float(wmat[OFF_WR1 + k * 8 + 2]);
+    const bf16* __restrict__ y = st.y;
+    bf16* __restrict__ dz0 = st.dz[0];
+    float* col_s = sm.col;              // [4][64]: dzr1 (3), dsig
+    float sb = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f, sx = 0.f;
+    for (int l0 = 0; l0 < cap_c; l0 += TC_P) {
+      if (tid < 4 * TC_P) {
+        const int c = tid / TC_P, p = tid % TC_P;
+        col_s[tid] = c < 3 ? dzr1[c * cz + l0 + p] : dsig[l0 + p];
+      }
+      __syncthreads();
+      float yv[TC_P / 2];
+#pragma unroll
+      for (int j = 0; j < TC_P / 2; ++j)
+        yv[j] = __bfloat162float(y[static_cast<size_t>(l0 + half + 2 * j) * HR + k]);
+#pragma unroll
+      for (int j = 0; j < TC_P / 2; ++j) {
+        const int p = half + 2 * j;
+        const float d0 = round_bf16(col_s[p]), d1 = round_bf16(col_s[TC_P + p]),
+                    d2 = round_bf16(col_s[2 * TC_P + p]);
+        float dy = fmaf(d0, w0, 0.f);
+        dy = fmaf(d1, w1, dy);
+        dy = fmaf(d2, w2, dy);
+        const float v = yv[j] > 0.f ? dy : 0.f;
+        dz0[static_cast<size_t>(l0 + p) * LDZ + k] = __float2bfloat16_rn(v);
+        sb += v;
+        s0 = fmaf(yv[j], d0, s0);
+        s1 = fmaf(yv[j], d1, s1);
+        s2 = fmaf(yv[j], d2, s2);
+      }
+      if (tid < 4)
+        for (int p = 0; p < TC_P; ++p) sx += col_s[tid * TC_P + p];
+      __syncthreads();
+    }
+    float* red = sm.red;                // [4][256]: br0, wr1 (3) by thread
+    red[tid] = sb;
+    red[THREADS + tid] = s0;
+    red[2 * THREADS + tid] = s1;
+    red[3 * THREADS + tid] = s2;
+    __syncthreads();
+    if (tid < HR) {
+      pvec[OFF_BR0 + tid] = red[tid] + red[tid + HR];
+      float* o = part + OFF_WR1 + tid * 8;
+      for (int c = 0; c < 3; ++c) o[c] = red[(1 + c) * THREADS + tid] + red[(1 + c) * THREADS + tid + HR];
+      for (int c = 3; c < 8; ++c) o[c] = 0.f;
+    } else if (tid < HR + 8) {
+      pvec[OFF_BR1 + tid - HR] = 0.f;
+    }
+    __syncthreads();
+    if (tid < 3) pvec[OFF_BR1 + tid] = sx;
+    if (tid == 3) pvec[OFF_B10S] = sx;
+  }
+  hk.on_dzr0(st.dz[0]);
+  // rgb hidden layer: wr0f, wr0d; dfeat = dzr0 wr0f^T (b10f)
+  dweight_tc<H, HR, 4, 2>(st.feat, H, H, st.dz[0], cap_c, part + OFF_WR0F, sm.act0);
+  dweight_tc<DP, HR, 1, 8>(st.denc, DP, DP, st.dz[0], cap_c, part + OFF_WR0D, sm.act0);
+  dact_tc<HR, Mask::None, false>(st.dz[0], wmat + OFF_WR0F, nullptr, nullptr, nullptr, st.dz[1],
+                                 pvec + OFF_B10F, nullptr, cap_c, sm);
+  // feature head: w10f; dz9 = (dfeat w10f^T + dsig w10s) * (h9 > 0) (b9),
+  // and w10s = h9^T dsig
+  dweight_tc<128, H, 2, 4>(st.h9b, H, H, st.dz[1], cap_c, part + OFF_W10F, sm.act0);
+  dact_tc<H, Mask::F32, true>(st.dz[1], wmat + OFF_W10F, st.h9f, dsig, vec + OFF_W10S, st.dz[0],
+                              pvec + 8 * H, pvec + OFF_W10S, cap_c, sm);
+  // block2 and block1: w_i from h_{i-1}; dz_{i-1} = dz_i w_i^T * (h_{i-1} > 0)
+  bf16* cur = st.dz[0];
+  bf16* nxt = st.dz[1];
+  for (int i = 9; i >= 2; --i) {
+    const int off = hidden_off(i);
+    dweight_tc<128, H, 2, 4>(st.h[i - 2], H, H, cur, cap_c, part + off, sm.act0);
+    if (i == 6) dweight_tc<PP, H, 1, 8>(st.penc, PP, PP, cur, cap_c, part + OFF_W6P, sm.act0);
+    dact_tc<H, Mask::Bf16, false>(cur, wmat + off, st.h[i - 2], nullptr, nullptr, nxt,
+                                  pvec + (i - 2) * H, nullptr, cap_c, sm);
+    if (i == 6) hk.on_dz6(cur);
+    bf16* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  dweight_tc<PP, H, 1, 8>(st.penc, PP, PP, cur, cap_c, part + OFF_W1, sm.act0);
+  hk.on_dz1(cur);
 }
 
 }  // namespace nerf

@@ -517,6 +517,22 @@ __device__ __forceinline__ void colsum(const float* B, int n, int cap_c, float* 
   }
 }
 
+// _encode_bwd at coordinate d of x: g(d) + the sum over its sine columns c
+// of g(c) cos(2^j x + phase) 2^j, with the exact cosine (as the TPU kernels
+// take it in both modes); g(c) is encoding column c's cotangent.
+template <typename G>
+__device__ __forceinline__ float encode_bwd_at(G g, float x, int d, int real) {
+  float s = 0.f;
+  for (int c = 3 + d; c < real; c += 3) {
+    const int j = (c - 3) / 6;
+    const float phase = (((c - 3) / 3) & 1) ? HALF_PI : 0.f;
+    const float scale = static_cast<float>(1 << j);
+    const float arg = __fadd_rn(__fmul_rn(x, scale), phase);
+    s = fmaf(g(c) * cosf(arg), scale, s);
+  }
+  return g(d) + s;
+}
+
 // The direction cotangent of the field kernels' points [p0, p0 + npts)
 // (fused_siren.py / fused_gabor.py: _encode_bwd of dzr0 wr0d^T), one thread
 // a (point, coordinate): each encoding column's cotangent g_c = sum_k
@@ -537,16 +553,7 @@ __device__ void direction_cotangent(const float* dzr0, const WT* __restrict__ wr
       return s;
     };
     const size_t at = static_cast<size_t>(p0 + l) * 3 + d;
-    const float x = dirs[at];
-    float s = 0.f;
-    for (int c = 3 + d; c < real_d; c += 3) {
-      const int j = (c - 3) / 6;
-      const float phase = (((c - 3) / 3) & 1) ? HALF_PI : 0.f;
-      const float scale = static_cast<float>(1 << j);
-      const float arg = __fadd_rn(__fmul_rn(x, scale), phase);
-      s = fmaf(g(c) * cosf(arg), scale, s);
-    }
-    ddirs[at] = g(d) + s;
+    ddirs[at] = encode_bwd_at(g, dirs[at], d, real_d);
   }
 }
 

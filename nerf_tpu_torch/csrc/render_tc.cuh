@@ -16,7 +16,9 @@
 // Every product rounds nothing itself: its operands are bf16 as stored, and
 // its sums are float32 (the tensor cores' accumulation). each_pair walks a
 // warp's accumulators with their rows and columns, for the epilogues;
-// tile_out copies a chunk's tile to a train pass's stash.
+// tile_out copies a chunk's tile to a train pass's stash. The field
+// backwards' input products and the encodings' backward over a chunk
+// (input_product, encode_bwd_rows, direction_cotangent_tc) close the file.
 
 #pragma once
 
@@ -330,6 +332,79 @@ __device__ void dweight_tc(const bf16* __restrict__ A, int lda, int M,
                 make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
         }
   }
+}
+
+// ---------------------------------------------------------------- inputs
+// The field backwards' input products and the encodings' backward
+// (nerf_tpu/ops/pallas/fused_nerf.py::_encode_bwd): a chunk's cotangent of
+// the encoding columns is a narrow product dz W_in^T (64, 32 or 64 live
+// columns), taken on gemm_fwd against W_in^T zero-padded to 128 columns.
+
+constexpr int LDG = PP + 4;        // row stride (floats) of an encoding-cotangent tile
+
+// One thread a (row, coordinate) of a chunk whose first point is p0 and
+// whose encoding cotangents are the tile g ([64][LDG] floats, shared
+// memory): out = _encode_bwd at x, both (n, 3), for rows < nvalid.
+__device__ __forceinline__ void encode_bwd_rows(const float* g, const float* __restrict__ x,
+                                                size_t p0, int nvalid, int real,
+                                                float* __restrict__ out) {
+  const int tid = threadIdx.x;
+  if (tid < 3 * TC_P) {
+    const int row = tid / 3, d = tid % 3;
+    if (row < nvalid) {
+      const size_t at = (p0 + row) * 3 + d;
+      out[at] = encode_bwd_at([&](int c) { return g[row * LDG + c]; }, x[at], d, real);
+    }
+  }
+}
+
+// For each 64-point chunk of rows [0, nrows) (a multiple of 64): acc = dz
+// W_in^T, dz the chunk's first K columns (bf16, stride LDZ, staged into
+// a_s) and W_in^T (K x 128, row-major, bf16) on gemm_fwd; then epi(l0, acc)
+// (the warp's 64 x 16 accumulators from column warp * 16), a barrier, and
+// after(l0). Ends past a barrier.
+template <int K, typename Epi, typename After>
+__device__ void input_product(const bf16* __restrict__ dz, int nrows,
+                              const bf16* __restrict__ w_t, bf16* a_s, bf16* wst, Epi epi,
+                              After after) {
+  constexpr int CPR = K / 8;
+  for (int l0 = 0; l0 < nrows; l0 += TC_P) {
+    for (int e = threadIdx.x; e < TC_P * CPR; e += THREADS) {
+      const int r = e / CPR, q = (e % CPR) * 8;
+      cp_async16(a_s + r * LDS + q, dz + static_cast<size_t>(l0 + r) * LDZ + q);
+    }
+    cp_async_commit();
+    float acc[4][2][4];
+    zero_acc(acc);
+    gemm_fwd<K, HR>(acc, a_s, LDS, w_t, wst);
+    epi(l0, acc);
+    __syncthreads();
+    after(l0);
+  }
+  __syncthreads();
+}
+
+// The direction cotangent of a field CTA's points [p0, p0 + npts): ddirs =
+// _encode_bwd of dzr0 wr0d^T, dzr0 (bf16, 128 columns at stride LDZ, rows <
+// cap_c) and wr0d_t = wr0d^T zero-padded to 128 x 128; the chunk's DP live
+// columns go through the float32 tile g_s. Starts and ends past a barrier.
+__device__ inline void direction_cotangent_tc(const bf16* __restrict__ dzr0,
+                                              const bf16* __restrict__ wr0d_t,
+                                              const float* __restrict__ dirs, int p0, int npts,
+                                              int cap_c, int real_d, float* __restrict__ ddirs,
+                                              bf16* a_s, float* g_s, bf16* wst) {
+  input_product<HR>(
+      dzr0, cap_c, wr0d_t, a_s, wst,
+      [&](int, float (&acc)[4][2][4]) {
+        each_pair<2>(acc, (threadIdx.x >> 5) * 16,
+                     [&](int, int, int, int row, int col, float& v0, float& v1) {
+                       if (col < DP) *reinterpret_cast<float2*>(g_s + row * LDG + col) =
+                           make_float2(v0, v1);
+                     });
+      },
+      [&](int l0) {
+        encode_bwd_rows(g_s, dirs, static_cast<size_t>(p0 + l0), npts - l0, real_d, ddirs);
+      });
 }
 
 }  // namespace nerf

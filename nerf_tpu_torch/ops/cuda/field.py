@@ -11,7 +11,9 @@ It never falls back from one to the other. Under autograd (the model's
 parameters, or the points or directions, requiring grad) the field is
 differentiable through ``_FieldFn``, whose backward is the backward kernel;
 each subclass's ``launches`` and ``bwd_launches`` count its kernels'
-launches over all instances.
+launches over all instances. ``fwd_library()`` and ``bwd_library()`` name
+the library each launch takes (bfloat16 on the tensor cores where a family
+has one).
 """
 
 from __future__ import annotations
@@ -61,7 +63,8 @@ class FusedField:
     a ``Packed``, and ``_plain_forward`` / ``_plain_backward`` /
     ``_launch_fwd`` / ``_launch_bwd`` (the plain versions and the kernel
     launches, each ``(packed, pts, dirs[, cot])``; the backward returns
-    ``(*grads, dpts, ddirs)``, one gradient per parameter tensor)."""
+    ``(*grads, dpts, ddirs)``, one gradient per parameter tensor, and its
+    launch takes ``run`` and ``stash`` as ``_backward`` does)."""
 
     launches = 0
     bwd_launches = 0
@@ -113,12 +116,16 @@ class FusedField:
         return self._launch_fwd(packed, pts, dirs)
 
     def _backward(self, packed, pts: torch.Tensor, dirs: torch.Tensor,
-                  cot: torch.Tensor):
+                  cot: torch.Tensor, run: int | None = None, stash: dict | None = None):
         """``(*grads, dpts, ddirs)``: the float32 gradients of
-        ``params_f32``'s tensors, then the point and direction cotangents."""
+        ``params_f32``'s tensors, then the point and direction cotangents.
+        On the card ``run`` replaces the plan's points a CTA (``_bwd_plan``;
+        a multiple of 64), and a ``stash`` dict receives the launch's
+        ``scratch`` (float32), ``run``, ``grid`` and ``per_point`` (floats a
+        point of a CTA's stash), for reading the recomputed forward."""
         if self._route(pts) == "cpu":
             return self._plain_backward(packed, pts, dirs, cot)
-        return self._launch_bwd(packed, pts, dirs, cot)
+        return self._launch_bwd(packed, pts, dirs, cot, run, stash)
 
     def _packed_args(self, packed) -> tuple:
         """(name, tensor, shape, dtype) of each tensor of a ``Packed``
@@ -151,5 +158,16 @@ class FusedField:
         """``(run, grid)`` of a backward kernel: about one run of points an
         SM, whole 64-point chunks."""
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        run = -(-(-(-n // n_sm)) // 64) * 64
-        return run, -(-n // run)
+        return bwd_runs(n, n_sm)
+
+    def _bwd_plan(self, n: int, dev, run: int | None) -> tuple[int, int]:
+        """``(run, grid)`` of this backward launch: ``_runs``' or the given
+        run's."""
+        return self._runs(n, dev) if run is None else (run, -(-n // run))
+
+
+def bwd_runs(n: int, n_sm: int) -> tuple[int, int]:
+    """``(run, grid)``: about one run of ``n`` points on each of ``n_sm``
+    SMs, whole 64-point chunks."""
+    run = -(-(-(-n // n_sm)) // 64) * 64
+    return run, -(-n // run)

@@ -8,13 +8,18 @@ Two kernels, each replacing one of ``nerf_tpu/ops/pallas/fused_gabor.py``
     bfloat16 on the tensor cores (``csrc/fused_gabor_fwd_tc.cu``, the
     GaborNet render's chain with the point filters in each product's
     epilogue), in float32 ``csrc/fused_gabor_fwd.cu``;
-  * ``csrc/fused_gabor_bwd.cu`` (``_bwd_kernel``): from the (rgb, sigma)
-    cotangent, the 23 float32 weight and bias gradients, the gradients of
-    every filter bank (per-CTA partials added in order, no atomics) and the
-    point and direction cotangents.
+  * the backward (``_bwd_kernel``): from the (rgb, sigma) cotangent, the
+    23 float32 weight and bias gradients, the gradients of every filter
+    bank (per-CTA partials added in order, no atomics) and the point and
+    direction cotangents; in bfloat16 on the tensor cores
+    (``csrc/fused_gabor_bwd_tc.cu``, the GaborNet train pass's split: a
+    forward kernel on the field forward's chain that stashes, then the train
+    pass's backward with the filters, the banks' gradients and the point
+    cotangent in each dz W^T product's epilogue), in float32
+    ``csrc/fused_gabor_bwd.cu``.
 
 Both run the GaborNet render kernels' network and backward
-(``csrc/fused_render_gabor_common.cuh``; the bfloat16 forward
+(``csrc/fused_render_gabor_common.cuh``; in bfloat16
 ``csrc/fused_render_gabor_tc_common.cuh``) on the linear and head layout of
 ``fused_render_gabor.py::pack_f32`` / ``cast_packed``, with the filter
 banks packed beside it (``pack_filters``): per stage omega (3 x h), phi,
@@ -52,6 +57,7 @@ import functools
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from nerf_tpu_torch.models.common import round_to
 from nerf_tpu_torch.ops.cuda.build import library
@@ -66,6 +72,7 @@ from nerf_tpu_torch.ops.cuda.fused_render import (
 )
 from nerf_tpu_torch.ops.cuda.fused_render_gabor import (
     NUM_LAYERS,
+    TC_BYTES_PER_POINT,
     GaborConsts,
     _names,
     cast_packed,
@@ -75,6 +82,11 @@ from nerf_tpu_torch.ops.cuda.fused_render_gabor import (
 )
 
 HIDDEN = 256      # the width the kernels take
+# the bfloat16 backward's stash a point (csrc/fused_gabor_bwd_tc.cu): the
+# GaborNet train pass's, its 16 per-point float32 columns last (the point
+# cotangent among them); TC_BWD_COLS_AT floats of a row precede the columns
+TC_BWD_BYTES_PER_POINT = TC_BYTES_PER_POINT
+TC_BWD_COLS_AT = TC_BYTES_PER_POINT // 4 - 16
 BANK_ROWS = 9     # omega (3), phi, mu^T (3), |mu|^2, gamma: rows of h a stage
 
 
@@ -185,29 +197,41 @@ def gabor_field_bwd_plain(pk: GaborFieldPack, pts: torch.Tensor, dirs: torch.Ten
 # ---------------------------------------------------------------- libraries
 
 
-# the forward's library -> its C entry point (the same arguments)
+# each library -> its C entry point (the two of a direction take the same
+# arguments)
 _FWD_ENTRY = {"fused_gabor_fwd": "gabor_field_fwd",
               "fused_gabor_fwd_tc": "gabor_field_fwd_tc"}
+_BWD_ENTRY = {"fused_gabor_bwd": "gabor_field_bwd",
+              "fused_gabor_bwd_tc": "gabor_field_bwd_tc"}
 
 
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
     lib = library(name)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    entry = {**_FWD_ENTRY, **_BWD_ENTRY}[name]
+    fn, err = getattr(lib, entry), getattr(lib, entry + "_error")
     if name in _FWD_ENTRY:
-        fn, err = getattr(lib, _FWD_ENTRY[name]), getattr(lib, _FWD_ENTRY[name] + "_error")
         fn.argtypes = [vp] * 5 + [ci] * 5 + [cf] * 2 + [vp] * 3
-        fn.restype = ci
-        err.argtypes = [ci]
-        err.restype = ctypes.c_char_p
     else:
-        lib.gabor_field_bwd.argtypes = [vp] * 7 + [ci] * 8 + [cf] * 2 + [vp] * 6
-        lib.gabor_field_bwd.restype = ci
-        lib.gabor_field_bwd_error.argtypes = [ci]
-        lib.gabor_field_bwd_error.restype = ctypes.c_char_p
-        lib.gabor_field_bwd_sizes.argtypes = [ctypes.POINTER(ci)] * 3
-        lib.gabor_field_bwd_sizes.restype = None
+        fn.argtypes = [vp] * 7 + [ci] * 8 + [cf] * 2 + [vp] * 6
+        sizes = getattr(lib, entry + "_sizes")
+        sizes.argtypes = [ctypes.POINTER(ci)] * 3
+        sizes.restype = None
+    fn.restype = ci
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
     return lib
+
+
+def direction_transpose(packed: Packed) -> torch.Tensor:
+    """wr0d^T zero-padded to 128 x 128 in the compute dtype, the
+    tensor-core backward's direction product (``csrc/render_tc.cuh``'s
+    direction_cotangent_tc), built once a packing."""
+    if "wr0d_t" not in packed.derived:
+        w = packed.mats["wr0d"]
+        packed.derived["wr0d_t"] = F.pad(w.t(), (0, w.shape[1] - w.shape[0])).contiguous()
+    return packed.derived["wr0d_t"]
 
 
 # ---------------------------------------------------------------- wrapper
@@ -259,15 +283,25 @@ class GaborField(FusedField):
 
     def fwd_library(self) -> str:
         """The forward's kernel library: bfloat16 on the tensor cores,
-        float32 on the CUDA cores (the backward runs on the CUDA cores in
-        both)."""
+        float32 on the CUDA cores."""
         return "fused_gabor_fwd_tc" if self.cdt == torch.bfloat16 else "fused_gabor_fwd"
+
+    def bwd_library(self) -> str:
+        """The backward's kernel library: bfloat16 on the tensor cores,
+        float32 on the CUDA cores."""
+        return "fused_gabor_bwd_tc" if self.cdt == torch.bfloat16 else "fused_gabor_bwd"
 
     def _fwd_entry(self):
         """(function, error string) of the forward."""
         name = self.fwd_library()
         lib, entry = _library(name), _FWD_ENTRY[name]
         return getattr(lib, entry), getattr(lib, entry + "_error")
+
+    def _bwd_entry(self):
+        """(function, error string, sizes) of the backward."""
+        name = self.bwd_library()
+        lib, entry = _library(name), _BWD_ENTRY[name]
+        return tuple(getattr(lib, entry + s) for s in ("", "_error", "_sizes"))
 
     def _packed_args(self, pk: GaborFieldPack) -> tuple:
         return (("wmat", pk.packed.wmat, pk.packed.wmat.shape, self.cdt),
@@ -298,7 +332,7 @@ class GaborField(FusedField):
         return rgb, sigma
 
     def _launch_bwd(self, pk: GaborFieldPack, pts: torch.Tensor, dirs: torch.Tensor,
-                    cot: torch.Tensor):
+                    cot: torch.Tensor, run: int | None = None, stash: dict | None = None):
         self._check(pk, pts, dirs, cot)
         n = pts.shape[0]
         dev = pts.device
@@ -310,24 +344,29 @@ class GaborField(FusedField):
             return (torch.zeros(n_w, device=dev), torch.zeros(n_b, device=dev),
                     torch.zeros(n_f, device=dev), dpts, ddirs)
         pts, dirs, cot = pts.contiguous(), dirs.contiguous(), cot.contiguous()
-        lib = _library("fused_gabor_bwd")
-        per_point, npart, n_out = grad_sizes(lib.gabor_field_bwd_sizes)
-        run, grid = self._runs(n, dev)
-        wmat_t = torch.cat([packed.mats[m].t().reshape(-1) for m in _names(self.n)[0]])
+        fn, err, sizes = self._bwd_entry()
+        per_point, npart, n_out = grad_sizes(sizes)
+        run, grid = self._bwd_plan(n, dev, run)
+        # the second matrix argument: the tensor-core kernel's direction
+        # product (its other products read the packed W itself), the
+        # CUDA-core kernel's transposed matrices
+        wmat_t = (direction_transpose(packed) if self.bwd_library().endswith("_tc") else
+                  torch.cat([packed.mats[m].t().reshape(-1) for m in _names(self.n)[0]]))
         scratch = torch.empty(grid * run * per_point, dtype=torch.float32, device=dev)
         partial = torch.empty(grid * npart, dtype=torch.float32, device=dev)
         out = torch.empty(n_out, dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            code = lib.gabor_field_bwd(
+            code = fn(
                 pts.data_ptr(), dirs.data_ptr(), cot.data_ptr(), packed.wmat.data_ptr(),
                 wmat_t.data_ptr(), packed.vec.data_ptr(), pk.filters.data_ptr(), n_w,
                 n_b, n_f, int(self.cdt == torch.bfloat16), n, run, run, self.real_d,
                 k.sigma_mul, k.rgb_mul, scratch.data_ptr(), partial.data_ptr(),
                 out.data_ptr(), dpts.data_ptr(), ddirs.data_ptr(), stream)
         if code != 0:
-            raise RuntimeError("GaborNet field backward kernel: "
-                               + lib.gabor_field_bwd_error(code).decode())
+            raise RuntimeError("GaborNet field backward kernel: " + err(code).decode())
         type(self).bwd_launches += 1
+        if stash is not None:
+            stash.update(scratch=scratch, run=run, grid=grid, per_point=per_point)
         return (out[:n_w], out[n_w:n_w + n_b], out[n_w + n_b:n_w + n_b + n_f],
                 dpts, ddirs)

@@ -9,11 +9,14 @@ Two kernels, each replacing one of ``nerf_tpu/ops/pallas/fused_nerf.py``
     forward render's chain, ``csrc/fused_render_tc_common.cuh``);
   * ``csrc/fused_nerf_bwd.cu`` (``_bwd_kernel``): from the (rgb, sigma)
     cotangent, the 28 float32 weight and bias gradients (per-CTA partials
-    added in order, no atomics) and the point and direction cotangents.
+    added in order, no atomics) and the point and direction cotangents; in
+    bfloat16 on the tensor cores, ``csrc/fused_nerf_bwd_tc.cu`` (the NeRF
+    train pass's split: a forward kernel on the forward's own chain that
+    stashes, then the train pass's backward with the three input products).
 
 Both run the MLP chain of the NeRF render kernels
-(``csrc/fused_render_common.cuh``; the bfloat16 forward the tensor-core
-one) on the packed layout of
+(``csrc/fused_render_common.cuh``; in bfloat16 the tensor-core one,
+``csrc/fused_render_tc_common.cuh``) on the packed layout of
 ``fused_render.py::pack_f32`` / ``cast_packed`` (``nerf_tpu``'s
 ``pack_params`` order), so ``models/convert.py::load_jax_params`` carries
 JAX weights across unchanged. This module holds
@@ -48,6 +51,7 @@ from nerf_tpu_torch.ops.cuda.field import FusedField
 from nerf_tpu_torch.ops.cuda.fused_render import (
     DP,
     PP,
+    TC_BYTES_PER_POINT,
     Packed,
     _HALF_PI,
     _MATS,
@@ -60,6 +64,11 @@ from nerf_tpu_torch.ops.cuda.fused_render import (
 )
 
 HIDDEN = 256      # the width the kernels take
+# the bfloat16 backward's stash a point (csrc/fused_nerf_bwd_tc.cu): the
+# NeRF train pass's (its 12 per-point float32 columns last), then dz6 w6p^T
+# (PP float32 columns); TC_BWD_COLS_AT floats of a row precede the columns
+TC_BWD_BYTES_PER_POINT = TC_BYTES_PER_POINT + 4 * PP
+TC_BWD_COLS_AT = TC_BYTES_PER_POINT // 4 - 12
 
 
 # ---------------------------------------------------------------- plain
@@ -117,8 +126,8 @@ def nerf_field_bwd_plain(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
 # ---------------------------------------------------------------- libraries
 
 
-# the forward's libraries; each names its C entry point after itself (the
-# same arguments)
+# the forward's and the backward's libraries; each names its C entry point
+# after itself (the two of a direction take the same arguments)
 _FWD_LIBS = ("fused_nerf_fwd", "fused_nerf_fwd_tc")
 
 
@@ -126,29 +135,31 @@ _FWD_LIBS = ("fused_nerf_fwd", "fused_nerf_fwd_tc")
 def _library(name: str) -> ctypes.CDLL:
     lib = library(name)
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn, err = getattr(lib, name), getattr(lib, name + "_error")
     if name in _FWD_LIBS:
-        fn, err = getattr(lib, name), getattr(lib, name + "_error")
         fn.argtypes = [vp] * 4 + [ci] * 6 + [vp] * 3
-        fn.restype = ci
-        err.argtypes = [ci]
-        err.restype = ctypes.c_char_p
     else:
-        lib.fused_nerf_bwd.argtypes = [vp] * 7 + [ci] * 9 + [vp] * 6
-        lib.fused_nerf_bwd.restype = ci
-        lib.fused_nerf_bwd_error.argtypes = [ci]
-        lib.fused_nerf_bwd_error.restype = ctypes.c_char_p
-        lib.fused_nerf_bwd_sizes.argtypes = [ctypes.POINTER(ci)] * 4
-        lib.fused_nerf_bwd_sizes.restype = None
+        fn.argtypes = [vp] * 7 + [ci] * 9 + [vp] * 6
+        sizes = getattr(lib, name + "_sizes")
+        sizes.argtypes = [ctypes.POINTER(ci)] * 4
+        sizes.restype = None
+    fn.restype = ci
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
     return lib
 
 
 def input_transposes(packed: Packed) -> torch.Tensor:
-    """The backward kernel's input-product matrices in the compute dtype:
+    """The backward kernels' input-product matrices in the compute dtype:
     w1^T and w6p^T (256 rows) and wr0d^T (128 rows), each zero-padded to
-    128 columns (``csrc/fused_render_common.cuh``'s OFF_T_*)."""
-    hr = packed.mats["wr1"].shape[0]
-    return torch.cat([F.pad(packed.mats[k].t(), (0, hr - packed.mats[k].shape[0])
-                            ).reshape(-1) for k in ("w1", "w6p", "wr0d")])
+    128 columns (``csrc/fused_render_common.cuh``'s OFF_T_*), built once a
+    packing."""
+    if "input_t" not in packed.derived:
+        hr = packed.mats["wr1"].shape[0]
+        packed.derived["input_t"] = torch.cat(
+            [F.pad(packed.mats[k].t(), (0, hr - packed.mats[k].shape[0])).reshape(-1)
+             for k in ("w1", "w6p", "wr0d")])
+    return packed.derived["input_t"]
 
 
 # ---------------------------------------------------------------- wrapper
@@ -196,15 +207,25 @@ class NerfField(FusedField):
 
     def fwd_library(self) -> str:
         """The forward's kernel library: bfloat16 on the tensor cores,
-        float32 on the CUDA cores (the backward runs on the CUDA cores in
-        both)."""
+        float32 on the CUDA cores."""
         return "fused_nerf_fwd_tc" if self.cdt == torch.bfloat16 else "fused_nerf_fwd"
+
+    def bwd_library(self) -> str:
+        """The backward's kernel library: bfloat16 on the tensor cores,
+        float32 on the CUDA cores."""
+        return "fused_nerf_bwd_tc" if self.cdt == torch.bfloat16 else "fused_nerf_bwd"
 
     def _fwd_entry(self):
         """(function, error string) of the forward."""
         name = self.fwd_library()
         lib = _library(name)
         return getattr(lib, name), getattr(lib, name + "_error")
+
+    def _bwd_entry(self):
+        """(function, error string, sizes) of the backward."""
+        name = self.bwd_library()
+        lib = _library(name)
+        return tuple(getattr(lib, name + s) for s in ("", "_error", "_sizes"))
 
     def _launch_fwd(self, packed: Packed, pts: torch.Tensor, dirs: torch.Tensor):
         n = pts.shape[0]
@@ -229,7 +250,7 @@ class NerfField(FusedField):
         return rgb, sigma
 
     def _launch_bwd(self, packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
-                    cot: torch.Tensor):
+                    cot: torch.Tensor, run: int | None = None, stash: dict | None = None):
         n = pts.shape[0]
         self._check(packed, pts, dirs, cot)
         dev = pts.device
@@ -240,12 +261,14 @@ class NerfField(FusedField):
             return (torch.zeros(n_w, device=dev), torch.zeros(n_b, device=dev),
                     dpts, ddirs)
         pts, dirs, cot = pts.contiguous(), dirs.contiguous(), cot.contiguous()
-        lib = _library("fused_nerf_bwd")
+        fn, err, sizes = self._bwd_entry()
         vals = [ctypes.c_int() for _ in range(4)]
-        lib.fused_nerf_bwd_sizes(*(ctypes.byref(v) for v in vals))
+        sizes(*(ctypes.byref(v) for v in vals))
         per_point, npart, n_out, n_t = (v.value for v in vals)
-        run, grid = self._runs(n, dev)
-        wmat_t = torch.cat([packed.mats[k].t().reshape(-1) for k in _MATS])
+        run, grid = self._bwd_plan(n, dev, run)
+        # the tensor-core products read the packed W itself
+        wmat_t = (None if self.bwd_library().endswith("_tc") else
+                  torch.cat([packed.mats[k].t().reshape(-1) for k in _MATS]))
         wt_in = input_transposes(packed)
         if wt_in.numel() != n_t:
             raise ValueError(f"input transposes: {wt_in.numel()} values, want {n_t}")
@@ -254,15 +277,17 @@ class NerfField(FusedField):
         out = torch.empty(n_out, dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            code = lib.fused_nerf_bwd(
+            code = fn(
                 pts.data_ptr(), dirs.data_ptr(), cot.data_ptr(), packed.wmat.data_ptr(),
-                wmat_t.data_ptr(), wt_in.data_ptr(), packed.vec.data_ptr(), n_w, n_b,
+                None if wmat_t is None else wmat_t.data_ptr(), wt_in.data_ptr(),
+                packed.vec.data_ptr(), n_w, n_b,
                 n_t, int(self.cdt == torch.bfloat16), n, run, run, self.real_p,
                 self.real_d, scratch.data_ptr(), partial.data_ptr(), out.data_ptr(),
                 dpts.data_ptr(), ddirs.data_ptr(), stream)
         if code != 0:
-            raise RuntimeError("NeRF field backward kernel: "
-                               + lib.fused_nerf_bwd_error(code).decode())
+            raise RuntimeError("NeRF field backward kernel: " + err(code).decode())
         type(self).bwd_launches += 1
+        if stash is not None:
+            stash.update(scratch=scratch, run=run, grid=grid, per_point=per_point)
         return out[:n_w], out[n_w:n_w + n_b], dpts, ddirs
 

@@ -42,7 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 import torch.nn.functional as F
@@ -92,13 +92,16 @@ def _views(flat: torch.Tensor, shapes: dict, names) -> dict:
 class Packed:
     """A model in its family's kernel layout. ``wmat`` holds every matrix in
     the compute dtype, ``vec`` the biases and the density-head row (float32,
-    the row rounded to the compute dtype); ``mats``/``vecs`` are views."""
+    the row rounded to the compute dtype); ``mats``/``vecs`` are views.
+    ``derived`` keeps what a kernel reads besides, built from them once a
+    packing (the field backwards' transposed input-product matrices)."""
 
     wmat: torch.Tensor
     vec: torch.Tensor
     mats: dict
     vecs: dict
     cdt: torch.dtype
+    derived: dict = field(default_factory=dict, compare=False, repr=False)
 
 
 def pack_f32(model) -> tuple[torch.Tensor, torch.Tensor]:

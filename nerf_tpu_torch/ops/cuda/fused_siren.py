@@ -171,9 +171,18 @@ class SirenField(FusedField):
 
     def fwd_library(self) -> str:
         """The forward's kernel library: bfloat16 on the tensor cores,
-        float32 on the CUDA cores (the backward runs on the CUDA cores in
-        both)."""
+        float32 on the CUDA cores."""
         return "fused_siren_fwd_tc" if self.cdt == torch.bfloat16 else "fused_siren_fwd"
+
+    def bwd_library(self) -> str:
+        """The backward's kernel library: the CUDA cores in both dtypes
+        (ROADMAP.md queue 2 holds its move to the tensor cores)."""
+        return "fused_siren_bwd"
+
+    def _bwd_entry(self):
+        """(function, error string, sizes) of the backward."""
+        lib = _library(self.bwd_library())
+        return lib.siren_field_bwd, lib.siren_field_bwd_error, lib.siren_field_bwd_sizes
 
     def _fwd_entry(self):
         """(function, error string) of the forward."""
@@ -205,7 +214,7 @@ class SirenField(FusedField):
         return rgb, sigma
 
     def _launch_bwd(self, packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
-                    cot: torch.Tensor):
+                    cot: torch.Tensor, run: int | None = None, stash: dict | None = None):
         self._check(packed, pts, dirs, cot)
         n = pts.shape[0]
         dev = pts.device
@@ -217,16 +226,16 @@ class SirenField(FusedField):
                     dpts, ddirs)
         pts, dirs, cot = pts.contiguous(), dirs.contiguous(), cot.contiguous()
         k = self.consts
-        lib = _library("fused_siren_bwd")
-        per_point, npart, n_out = grad_sizes(lib.siren_field_bwd_sizes)
-        run, grid = self._runs(n, dev)
+        fn, err, sizes = self._bwd_entry()
+        per_point, npart, n_out = grad_sizes(sizes)
+        run, grid = self._bwd_plan(n, dev, run)
         wmat_t = torch.cat([packed.mats[m].t().reshape(-1) for m in _MATS])
         scratch = torch.empty(grid * run * per_point, dtype=torch.float32, device=dev)
         partial = torch.empty(grid * npart, dtype=torch.float32, device=dev)
         out = torch.empty(n_out, dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            code = lib.siren_field_bwd(
+            code = fn(
                 pts.data_ptr(), dirs.data_ptr(), cot.data_ptr(), packed.wmat.data_ptr(),
                 wmat_t.data_ptr(), packed.vec.data_ptr(), n_w, n_b,
                 int(self.cdt == torch.bfloat16), n, run, run, self.real_d, k.w0,
@@ -234,7 +243,8 @@ class SirenField(FusedField):
                 partial.data_ptr(), out.data_ptr(), dpts.data_ptr(), ddirs.data_ptr(),
                 stream)
         if code != 0:
-            raise RuntimeError("SIREN field backward kernel: "
-                               + lib.siren_field_bwd_error(code).decode())
+            raise RuntimeError("SIREN field backward kernel: " + err(code).decode())
         type(self).bwd_launches += 1
+        if stash is not None:
+            stash.update(scratch=scratch, run=run, grid=grid, per_point=per_point)
         return out[:n_w], out[n_w:n_w + n_b], dpts, ddirs

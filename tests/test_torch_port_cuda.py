@@ -1342,6 +1342,119 @@ def test_siren_gabor_field_kernels_match_plain_versions(dev, family, cdt, n):
         assert float(torch.quantile(e, 0.999)) <= gtol
 
 
+def _nerf_cotangents_f64(packed, pts, dirs, cot):
+    """The point and direction cotangents of nerf_field_bwd_plain with
+    its rounding points (every product operand rounded to bf16) but every
+    sum in float64: the reference the tensor-core NeRF backward's
+    cotangents are held to. Tensor-core sums of bf16 products round
+    otherwise than IEEE float32 sums, so near-zero pre-activations take
+    other ReLU masks in the kernel than in the float32 plain version, and
+    the two then lie about twice as far apart as either lies from this
+    reference (the CUDA-core kernel, IEEE float32 sums too, agreed with
+    the plain version to 1e-7 at the 99.9th percentile)."""
+    from nerf_tpu_torch.ops.cuda.fused_nerf import _encode_bwd
+    from nerf_tpu_torch.ops.cuda.fused_render import DP, PP, _encode, fast_sin
+
+    def r(x):
+        return x.to(torch.bfloat16).double()
+
+    m = {k: v.double() for k, v in packed.mats.items()}
+    v = {k: x.double() for k, x in packed.vecs.items()}
+    penc = r(_encode(pts, 10, PP, fast_sin))
+    denc = r(_encode(dirs, 4, DP, fast_sin))
+    h, x = {}, penc
+    for i in range(1, 9):
+        z = x @ m["w6h" if i == 6 else f"w{i}"] + v[f"b{i}"]
+        x = h[i] = r(torch.relu(z + penc @ m["w6p"] if i == 6 else z))
+    h9 = torch.relu(x @ m["w9"] + v["b9"])
+    y = r(torch.relu(r(r(h9) @ m["w10f"] + v["b10f"]) @ m["wr0f"] + denc @ m["wr0d"]
+                     + v["br0"]))
+    rgb = torch.sigmoid(y @ m["wr1"] + v["br1"])[:, :3]
+    sigma_pre = h9 @ v["w10s"] + v["b10s"]
+    cot = cot.double()
+    dsig = torch.where(sigma_pre > 0, cot[:, 3], torch.zeros_like(sigma_pre))[:, None]
+    dz = (r(cot[:, :3] * rgb * (1.0 - rgb)) @ m["wr1"][:, :3].T) * (y > 0)
+    ddenc = r(dz) @ m["wr0d"].T
+    dz = (r(r(dz) @ m["wr0f"].T) @ m["w10f"].T + dsig * v["w10s"]) * (h9 > 0)
+    for i in range(9, 1, -1):
+        if i == 6:
+            dpenc = r(dz) @ m["w6p"].T
+        dz = (r(dz) @ m["w6h" if i == 6 else f"w{i}"].T) * (h[i - 1] > 0)
+    dpenc = dpenc + r(dz) @ m["w1"].T
+    return _encode_bwd(dpenc.float(), pts, 10), _encode_bwd(ddenc.float(), dirs, 4)
+
+
+@pytest.mark.parametrize("n", [65536, 16384, 1000, 37])
+@pytest.mark.parametrize("family", ["nerf", "gabor"])
+def test_bf16_nerf_gabor_field_bwd_tc_matches_plain_and_is_deterministic(dev, family, n):
+    """The bfloat16 NeRF and GaborNet field backwards on the tensor cores
+    (fused_nerf_bwd_tc, fused_gabor_bwd_tc) at a bake's 65,536 points, the
+    distillation batch and two ragged chunks: every gradient (weights, the
+    GaborNet's filter banks) within GRAD_TOL of its max (floored at 1e-2 of
+    the largest) of the plain version's; the point and direction
+    cotangents within chip_smoke.py's FIELD_PT_TOL (5e-3 of the max at the
+    99.9th percentile, at most 0.1% of the points beyond it: a point whose
+    ReLU mask flips moves alone) of the plain version's (GaborNet, whose
+    filter chain has no ReLU) or of its float64-sum twin
+    (_nerf_cotangents_f64: NeRF); two launches give the same bits; and the
+    forward the backward recomputes, read from its stash, is the forward
+    kernel's output bit for bit."""
+    from nerf_tpu_torch.ops.cuda import fused_gabor, fused_nerf
+
+    if family == "nerf":
+        model = NeRFModel(compute_dtype="bfloat16",
+                          generator=torch.Generator().manual_seed(3)).to(dev)
+        mod, wrapper, sigma_mul = fused_nerf, fused_nerf.NerfField, 1.0
+        field = wrapper(model).pack()
+        plain = lambda p, d, c: fused_nerf.nerf_field_bwd_plain(  # noqa: E731
+            field.packed, p, d, c, 10, 4)
+    else:
+        mod, (wrapper, _, plain_bwd) = fused_gabor, _sg_wrapper("gabor")
+        field = wrapper(_sg_model("gabor", "bfloat16", dev)).pack()
+        sigma_mul = field.consts.sigma_mul
+        plain = lambda p, d, c: plain_bwd(field.packed, p, d, c, field.consts)  # noqa: E731
+    assert field.bwd_library() == f"fused_{family}_bwd_tc"
+    pts, dirs = _field_points(n, dev, seed=n + 2)
+    cot = torch.randn(n, 4, device=dev, generator=torch.Generator(device=dev).manual_seed(n))
+    before = wrapper.bwd_launches
+    stash = {}
+    with torch.no_grad():
+        out = field._forward(field.packed, pts, dirs)
+        got = field._backward(field.packed, pts, dirs, cot)
+        again = field._backward(field.packed, pts, dirs, cot, stash=stash)
+        ref = plain(pts, dirs, cot)
+        ref_cot = (_nerf_cotangents_f64(field.packed, pts, dirs, cot) if family == "nerf"
+                   else ref[-2:])
+    torch.cuda.synchronize()
+    assert wrapper.bwd_launches - before == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    floor = 1e-2 * max(float(g.abs().max()) for g in ref[:-2])
+    for a, b in zip(got[:-2], ref[:-2]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= GRAD_TOL["bfloat16"] * max(
+            float(b.abs().max()), floor)
+    def pt_err(a, b):
+        e = (a - b).abs().max(dim=1).values / b.abs().max()
+        return float(torch.quantile(e, 0.999)), int((e > 5e-3).sum())
+
+    for name, a, b, c in zip(("points", "dirs"), got[-2:], ref_cot, ref[-2:]):
+        assert bool(torch.isfinite(a).all())
+        q, beyond = pt_err(a, b)
+        if family == "nerf":
+            # with -s: the kernel's and the float32 plain version's distance
+            # from the float64-sum reference, and from each other
+            print(f"\nnerf {name} cotangent at {n} points, 99.9%% / points beyond 5e-3: "
+                  "kernel vs float64 sums %.3e / %d, plain vs float64 sums %.3e / %d, "
+                  "kernel vs plain %.3e / %d" % (q, beyond, *pt_err(c, b), *pt_err(a, c)))
+        assert q <= 5e-3 and beyond <= 0.001 * n
+    run, grid, per_point = stash["run"], stash["grid"], stash["per_point"]
+    at = mod.TC_BWD_COLS_AT
+    cols = stash["scratch"].view(grid, per_point * run)[:, at * run:(at + 4) * run]
+    cols = cols.reshape(grid, 4, run)
+    assert torch.equal(torch.clamp_min(cols[:, 0].reshape(-1)[:n], 0.0) * sigma_mul, out[1])
+    assert torch.equal(cols[:, 1:4].permute(0, 2, 1).reshape(-1, 3)[:n], out[0])
+
+
 @pytest.mark.parametrize("family,kw", [("siren", {"hidden_dim": 128}),
                                        ("gabor", {"hidden_dim": 128}),
                                        ("gabor", {"num_layers": 4})])

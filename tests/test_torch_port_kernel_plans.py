@@ -115,6 +115,36 @@ def test_gabor_train_stash_bytes():
     assert grid * cap * fused_render_gabor.TC_BYTES_PER_POINT == 3_724_541_952
 
 
+@pytest.mark.parametrize("n, run, grid", [
+    (16384, 128, 128),     # a distillation step's batch
+    (65536, 512, 128),     # a bake's chunk
+    (1000, 64, 16),        # ragged
+    (37, 64, 1),
+])
+def test_field_bwd_tc_plan_and_stash_bytes(n, run, grid):
+    """The tensor-core field backwards (rows 2 and 14 in bfloat16) take
+    about one run of points an SM on 132 SMs, whole 64-point chunks, as the
+    CUDA-core ones; a CTA's stash holds its run: the NeRF's 7,920 bytes a
+    point (the train pass's 7,664 and dz6 w6p^T in float32), the
+    GaborNet's 14,208 (the train pass's, the point cotangent among its
+    columns); 130 MB / 233 MB at the distillation batch. Each CTA writes
+    one gradient partial (2.65 MB / 2.33 MB)."""
+    from nerf_tpu_torch.ops.cuda.field import bwd_runs
+
+    assert bwd_runs(n, 132) == (run, grid)
+    assert run % 64 == 0 and grid * run >= n > (grid - 1) * run
+    assert fused_nerf.TC_BWD_BYTES_PER_POINT == TC_BYTES_PER_POINT + 4 * 64 == 7920
+    assert fused_gabor.TC_BWD_BYTES_PER_POINT == fused_render_gabor.TC_BYTES_PER_POINT == 14_208
+    assert fused_nerf.TC_BWD_COLS_AT * 4 == 7920 - 4 * 64 - 4 * 12
+    assert fused_gabor.TC_BWD_COLS_AT * 4 == 14_208 - 4 * 16
+    stash = {"nerf": grid * run * fused_nerf.TC_BWD_BYTES_PER_POINT,
+             "gabor": grid * run * fused_gabor.TC_BWD_BYTES_PER_POINT}
+    if n == 16384:
+        assert stash == {"nerf": 129_761_280, "gabor": 232_783_872}
+    if n == 65536:
+        assert stash == {"nerf": 519_045_120, "gabor": 931_135_488}
+
+
 @pytest.mark.parametrize("num_rows, plan", [
     (1, (1, 1)), (2, (1, 2)), (255, (1, 8)), (256, (2, 5)), (5000, (2, 7)),
     (128 ** 3, (3, 8)), (2 ** 24 + 3000, (4, 7)), (2 ** 31 - 2, (4, 8)),
@@ -240,11 +270,12 @@ def test_fwd_library_routes_bf16_to_the_tensor_cores(family, cdt, monkeypatch):
 
 
 def test_build_lists_the_tensor_core_forward_renders():
-    """Twenty-seven libraries, one per .cu source, the three tensor-core
+    """Twenty-nine libraries, one per .cu source, the three tensor-core
     forward renders, the SIREN's and GaborNet's tensor-core train passes,
-    and the KiloNeRF, NeRF, SIREN and GaborNet tensor-core field forwards
-    beside the CUDA-core ones they took bfloat16 from."""
-    assert len(build.LIBS) == len(set(build.LIBS)) == 27
+    the KiloNeRF, NeRF, SIREN and GaborNet tensor-core field forwards and
+    the NeRF and GaborNet tensor-core field backwards beside the CUDA-core
+    ones they took bfloat16 from."""
+    assert len(build.LIBS) == len(set(build.LIBS)) == 29
     for name in ("fused_render_fwd_tc", "fused_render_gabor_fwd_tc",
                  "fused_render_siren_fwd_tc", "fused_render_siren_train_tc",
                  "fused_render_gabor_train_tc", "fused_kilonerf_fwd_tc",
@@ -253,17 +284,21 @@ def test_build_lists_the_tensor_core_forward_renders():
                  "fused_render_fwd", "fused_render_gabor_fwd",
                  "fused_render_siren_fwd", "fused_render_siren_train",
                  "fused_render_gabor_train", "fused_nerf_fwd", "fused_siren_fwd",
-                 "fused_gabor_fwd"):
+                 "fused_gabor_fwd", "fused_nerf_bwd_tc", "fused_gabor_bwd_tc",
+                 "fused_nerf_bwd", "fused_gabor_bwd"):
         assert name in build.LIBS
     sources = {p.stem for p in build._CSRC.glob("*.cu")}
     assert sources == set(build.LIBS)
 
 
-# the field forwards' (family, module, wrapper, model, C entry of the
-# CUDA-core library); the GaborNet's cases keep their ids of one parameter
-_FIELD_FWD = {"nerf": (fused_nerf, "NerfField", NeRFModel, "fused_nerf_fwd"),
-              "siren": (fused_siren, "SirenField", SirenModel, "siren_field_fwd"),
-              "gabor": (fused_gabor, "GaborField", GaborModel, "gabor_field_fwd")}
+# the field kernels' (family, module, wrapper, model, C entry of the
+# CUDA-core forward library, of the backward's); the GaborNet's cases keep
+# their ids of one parameter
+_FIELD_FWD = {"nerf": (fused_nerf, "NerfField", NeRFModel, "fused_nerf_fwd", "fused_nerf_bwd"),
+              "siren": (fused_siren, "SirenField", SirenModel, "siren_field_fwd",
+                        "siren_field_bwd"),
+              "gabor": (fused_gabor, "GaborField", GaborModel, "gabor_field_fwd",
+                        "gabor_field_bwd")}
 
 
 @pytest.mark.parametrize("family,cdt", [
@@ -272,17 +307,26 @@ _FIELD_FWD = {"nerf": (fused_nerf, "NerfField", NeRFModel, "fused_nerf_fwd"),
 def test_gabor_field_fwd_routes_bf16_to_the_tensor_cores(family, cdt, monkeypatch):
     """The NeRF, SIREN and GaborNet field forwards go to fused_{nerf,siren,
     gabor}_fwd_tc in bfloat16 and to fused_{nerf,siren,gabor}_fwd in float32
-    (one C signature, the entry named after the library's); the launch's
-    entry is checked with the libraries replaced (no card here)."""
-    module, wrapper, model_cls, entry = _FIELD_FWD[family]
+    (one C signature, the entry named after the library's); the NeRF and
+    GaborNet backwards to fused_{nerf,gabor}_bwd_tc in bfloat16 and to
+    fused_{nerf,gabor}_bwd in float32, the SIREN's to fused_siren_bwd in
+    both. The launches' entries are checked with the libraries replaced (no
+    card here)."""
+    module, wrapper, model_cls, entry, bwd_entry = _FIELD_FWD[family]
     field = getattr(module, wrapper)(model_cls(compute_dtype=cdt,
                                                generator=torch.Generator().manual_seed(0)))
     tc = cdt == "bfloat16"
     lib = f"fused_{family}_fwd" + ("_tc" if tc else "")
     entry += "_tc" if tc else ""
     assert field.fwd_library() == lib and lib in build.LIBS
+    bwd_tc = tc and family != "siren"
+    bwd_lib = f"fused_{family}_bwd" + ("_tc" if bwd_tc else "")
+    bwd_entry += "_tc" if bwd_tc else ""
+    assert field.bwd_library() == bwd_lib and bwd_lib in build.LIBS
     monkeypatch.setattr(module, "_library", _FakeLib)
     assert field._fwd_entry() == (f"{lib}:{entry}", f"{lib}:{entry}_error")
+    assert field._bwd_entry() == tuple(f"{bwd_lib}:{bwd_entry}{s}"
+                                       for s in ("", "_error", "_sizes"))
 
 
 @pytest.mark.parametrize("counts, ends, ctas", [
