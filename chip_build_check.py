@@ -15,9 +15,12 @@ forward and backward (rows 1, 2, 9 and 10, both dtypes) at those points;
 the KiloNeRF field's parameter gradients under a
 loss linear in its outputs (row 16's kernel, which the forward's outputs do
 not reach) and its float32 outputs (row 15's CUDA-core kernel); the grid
-interpolation of row 17 at training-ray and image-ray points; and row 19's
-sums at uniform, clustered and one-row ids. It saves every output and
-compares two such files with ``torch.equal``:
+interpolation of row 17 at training-ray and image-ray points; row 18's
+fused grid render in its SH form (a Plenoxels grid) and, where the
+checkout has it, its factor form (a baked FastNeRF cache), both dtypes; and
+row 19's sums at uniform, clustered and one-row ids. It saves every output
+and compares two such files with ``torch.equal``, listing the outputs that
+only one file holds (a form the other checkout lacks) apart:
 
     # in each checkout (this one, and e.g. the parent unpacked by
     # `git archive` into a directory .gitignore lists)
@@ -161,9 +164,9 @@ def nerf_siren_field(torch, dev, res: dict) -> None:
 
 def grids(torch, dev, res: dict) -> None:
     """Row 17 on a seeded 64^3 x 28 grid (float32 and its bfloat16 copy) at
-    2,048 x 16 points of random rays and of one view's rays; row 19 at
-    131,072 x 28 rows of uniform ids, of ids in a few hundred rows and of
-    one id."""
+    2,048 x 16 points of random rays and of one view's rays; row 18 at those
+    rays (``grid_render``); row 19 at 131,072 x 28 rows of uniform ids, of
+    ids in a few hundred rows and of one id."""
     from nerf_tpu_torch.ops.cuda.fused_grid import grid_interp, pack_grid
     from nerf_tpu_torch.ops.cuda.scatter_add import scatter_add_rows
 
@@ -183,12 +186,43 @@ def grids(torch, dev, res: dict) -> None:
             src = pack_grid(grid, dtype)
             src = grid if src is None else src
             res[f"grid_interp {dtype} {label}"] = grid_interp(src, pts.reshape(-1, 3)).cpu()
+    grid_render(torch, dev, res, ro, rd, t, cam, view)
     rows, n = 64 ** 3, 131072
     vals = torch.randn(n, 28, generator=g, device=dev)
     for label, ids in (("uniform", torch.randint(0, rows, (n,), generator=g, device=dev)),
                        ("clustered", torch.randint(0, 300, (n,), generator=g, device=dev) * 7),
                        ("one id", torch.full((n,), 4242, device=dev, dtype=torch.long))):
         res[f"scatter_add {label}"] = scatter_add_rows(ids, vals, rows).cpu()
+
+
+def grid_render(torch, dev, res: dict, ro, rd, t, cam, view) -> None:
+    """Row 18 at 2,048 x 16 random and one view's rays: the SH form on a
+    seeded 64^3 x 28 Plenoxels grid, and the factor form on the 64^3 bake
+    of a seeded FastNeRF (hidden 64), each in float32 and bfloat16."""
+    from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
+    from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedGridRender
+
+    renders = {}
+    for dtype in ("float32", "bfloat16"):
+        model = PlenoxelsModel(grid_res=64, interp_dtype=dtype).to(dev)
+        g = torch.Generator(device=dev).manual_seed(18)
+        model.grid.normal_(0.0, 0.7, generator=g)
+        renders[f"sh {dtype}"] = (FusedGridRender(model, 2.0, 6.0), model.precompute())
+    try:
+        from nerf_tpu_torch.models.fastnerf import BakedFastNeRF, FastNeRFModel
+        from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedFactorRender
+    except ImportError:
+        pass                              # a checkout without the factor form
+    else:
+        cache = FastNeRFModel(hidden_dim=64, generator=torch.Generator().manual_seed(18)
+                              ).to(dev).bake(grid_res=64, dir_res=16)
+        f32 = BakedFastNeRF(cache.pos_grid, cache.beta_grid, cache.num_factors)
+        renders["factors float32"] = (FusedFactorRender(f32, 2.0, 6.0), f32)
+        renders["factors bfloat16"] = (FusedFactorRender(cache, 2.0, 6.0), cache)
+    for name, (fr, params) in renders.items():
+        for label, o, d in (("random", ro, rd), ("view", cam, view)):
+            for k, v in fr(params, o.contiguous(), d, d, t).items():
+                res[f"grid_render {name} {label} {k}"] = v.cpu()
 
 
 def save(out: str, checkout: str) -> int:
@@ -238,16 +272,16 @@ def compare(a_path: str, b_path: str) -> int:
     import torch
 
     a, b = torch.load(a_path), torch.load(b_path)
-    if set(a) != set(b):
-        print(f"chip_build_check: the files hold other outputs: "
-              f"{sorted(set(a) ^ set(b))}", file=sys.stderr)
-        return 1
-    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    for path, only in ((a_path, sorted(set(a) - set(b))), (b_path, sorted(set(b) - set(a)))):
+        if only:
+            print(f"chip_build_check: {len(only)} outputs only in {path}: {only}")
+    shared = [k for k in a if k in b]
+    differ = [k for k in shared if not torch.equal(a[k], b[k])]
     for k in differ:
         print(f"  differs: {k}, max abs {float((a[k] - b[k]).abs().max()):.3e}")
-    print(f"chip_build_check: {len(a) - len(differ)} of {len(a)} outputs "
+    print(f"chip_build_check: {len(shared) - len(differ)} of {len(shared)} shared outputs "
           f"bit-identical")
-    return 1 if differ else 0
+    return 1 if differ or not shared else 0
 
 
 def main(argv) -> int:

@@ -195,10 +195,32 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      whose checkpoint reads grid_res 128 and whose resume restores 128^3;
  26. bench.py's train_plenoxels (S = 64), train_plenoxels_occ (S = 16, an
      all-ones 32^3 prior) and render_plenoxels_dense (400x400, S = 256)
-     protocols in rays/s.
+     protocols in rays/s;
+ 27. row 18's factor form (the baked FastNeRF cache) against its plain
+     version on the card (TF32 off): a seeded full-width FastNeRF (hidden
+     256, D = 8, L = 10/4) baked at 128^3 / dir_res 64 (the bake's wall
+     time), 1024 x 256, 1000 x 256, 1024 x 37, 1024 x 1 and 64 x 1000
+     tile-ordered camera rays, float32 and bfloat16, two launches compared
+     bit for bit, the kernel's device time from a CUDA graph of 20 calls,
+     the wrapper (beta included) and the plain version timed in turns,
+     against the bytes bound;
+ 28. FastNeRF on configs/lego.txt (model_type = fastnerf: full width, 64 +
+     128 samples, bf16): fit() for 200 iterations through the module
+     (finite losses, the mse at 190 under that at 0), a bit-identical
+     resume from step 100, a profile of one step; then RenderService with
+     bake = 128 behind the HTTP server: 40 factor-form launches a 400x400
+     request, no matrix-product kernel in a request (torch.profiler), one
+     image within mean abs 1e-2 of the unfused render of the same cache
+     (the module with float32 interpolation); the bake's wall time and the
+     request times;
+ 29. PlenOctrees on configs/lego.txt (model_type = plenoctree, SH degree
+     2: 28 channels) as in 28, served with bake = 128 through row 18's SH
+     form (40 launches a request), one image within mean abs 1e-2 of the
+     unfused render of the baked grid.
 
 The last lines are a JSON object of per-kernel numbers (all nineteen
-kernels), the card, and ``{"ok": true, "device": {...}}``. Needs a CUDA device and this checkout;
+kernels, row 18 in its two forms), the card, and ``{"ok": true,
+"device": {...}}``. Needs a CUDA device and this checkout;
 imports nothing of JAX or of the JAX package.
 """
 
@@ -418,6 +440,8 @@ SCATTER_ULPS = 256     # the scatter kernel's chunk, K
 # grid_res 128, sh_degree 2, interp_dtype bfloat16)
 PLENOXELS_OVERRIDES = {"learning_rate": 0.01}
 UPSAMPLE = (64, 128)   # phase 25's coarse-to-fine fit: from 64^3, to 128^3 at 50
+BAKE_R = 128           # phases 27-29: the caches' resolution (serve.py --bake 128)
+BAKE_ITERS = 200       # phases 28-29: fit() iterations of FastNeRF and PlenOctree
 
 
 def fail(msg: str) -> None:
@@ -3177,6 +3201,228 @@ def bench_plenoxels(torch, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 27
+
+
+def fastnerf_cache(torch, dev, seed: int = 27):
+    """The phase-27 cache: a seeded full-width FastNeRF (hidden 256, D = 8,
+    L = 10/4, float32) over lego.txt's grid_domain baked at BAKE_R^3 /
+    dir_res 64 (TF32 off), and the bake's wall time in ms."""
+    from nerf_tpu_torch.models.fastnerf import FastNeRFModel
+
+    model = FastNeRFModel(domain=FIELD_DOMAIN,
+                          generator=torch.Generator().manual_seed(seed)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = model.bake(grid_res=BAKE_R, dir_res=64)
+    torch.cuda.synchronize()
+    return cache, (time.perf_counter() - t0) * 1e3
+
+
+def check_factor_render_kernel(torch, dev) -> dict:
+    """Row 18's factor form (csrc/fused_grid_render.cu, FusedFactorRender)
+    against its plain composition (BakedFastNeRF.beta, _expand_basis with
+    repeat_block=False, grid_render_plain with relu density) on phase 27's
+    cache at the phase-23 shapes (tile-ordered camera rays), float32
+    (pos_grid) and bfloat16 (its copy packed_pos); two launches compared bit
+    for bit; the kernel's device time from a CUDA graph of 20 calls between
+    events, the wrapper (beta included) and the plain version timed in
+    turns, against the bytes bound. No single PyTorch call computes this
+    function (no library time)."""
+    from nerf_tpu_torch.models.fastnerf import BakedFastNeRF
+    from nerf_tpu_torch.ops.cuda.fused_grid_render import (
+        FusedFactorRender, _expand_basis, cells_affine, grid_render_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cache, bake_ms = fastnerf_cache(torch, dev)
+    d_dim, c = cache.num_factors, cache.pos_grid.shape[-1]
+    say(f"kernel grid_render factors: cache of a seeded FastNeRF (hidden 256, D = {d_dim}, "
+        f"L = 10/4) baked at {BAKE_R}^3 x {c} / dir_res 64 in {bake_ms:.1f} ms wall "
+        f"({cache.pos_grid.numel() * 4 / 1e6:.1f} MB float32, "
+        f"{cache.packed_pos.numel() * 2 / 1e6:.1f} MB bfloat16)")
+    results = {}
+    for cdt in ("float32", "bfloat16"):
+        baked = cache if cdt == "bfloat16" else BakedFastNeRF(
+            cache.pos_grid, cache.beta_grid, d_dim, domain=cache.domain)
+        fr = FusedFactorRender(baked, 2.0, 6.0)
+        _, src = fr.grids(baked)
+        scale, off = fr.affine(BAKE_R)
+        for n, s in ((1024, 256), (1000, 256), (1024, 37), (1024, 1), (64, 1000)):
+            o, d, t = image_rays(torch, dev, n, s, seed=n + s + 27)
+            o_aff, d_aff = cells_affine(o, d, scale, off)
+            with torch.no_grad():
+                beta = baked.beta(d).contiguous()
+
+            def plain():
+                bexp = _expand_basis(baked.beta(d), repeat_block=False).contiguous()
+                return grid_render_plain(src, o_aff, d_aff, t, bexp, fr.sel, relu_sigma=True)
+
+            def kern():
+                return fr._launch(src, o, d, beta, t, scale, off)
+
+            def wrapper():
+                return fr(baked, o, d, d, t)
+
+            with torch.no_grad():
+                ref, out, again = plain(), wrapper(), kern()
+                torch.cuda.synchronize()
+                errs = {}
+                for i, k in enumerate(("rgb", "acc", "depth", "weights")):
+                    if not torch.isfinite(out[k]).all():
+                        fail(f"grid_render factors {cdt} {n}x{s}: non-finite {k}")
+                    errs[k] = float((out[k] - ref[i]).abs().max())
+                same = all(torch.equal(out[k], again[i])
+                           for i, k in enumerate(("rgb", "acc", "depth", "weights")))
+                ms = timed(torch, {"plain": plain, "wrapper": wrapper},
+                           ("plain", "wrapper", "wrapper", "plain"))
+                kms = device_ms(torch, kern)
+                cells = (o_aff[:, None, :] + d_aff[:, None, :] * t[..., None]).clamp(0, BAKE_R - 1)
+                rows = distinct_rows(torch, cells, BAKE_R)
+            nbytes = n * (24 + 4 * d_dim + 20) + 2 * n * s * 4 + rows * c * src.element_size()
+            bms = nbytes / PEAK_BYTES * 1e3
+            bad = {k: v for k, v in errs.items() if v > GRID_RENDER_TOL[k]}
+            say(f"kernel grid_render factors {cdt} {n}x{s}: max_abs_err "
+                + " ".join(f"{k}={v:.3e}(tol {GRID_RENDER_TOL[k]:.0e})" for k, v in errs.items())
+                + f"; two launches identical: {same} | kernel {kms:.4f} ms on the device "
+                f"(a CUDA graph); a call through the wrapper (beta included) "
+                f"{ms['wrapper']:.4f} ms; plain {ms['plain']:.4f} ms, bound {bms:.4f} ms "
+                f"(bytes; {rows} distinct rows), share of bound {bms / kms:.4f}")
+            if bad or not same:
+                fail(f"grid_render factors {cdt} {n}x{s} disagrees with its plain version "
+                     f"{bad} or is not deterministic (identical: {same})")
+            results[(cdt, n, s)] = dict(err=max(errs.values()), ms=kms, wrapper_ms=ms["wrapper"],
+                                        plain_ms=ms["plain"], library_ms=None, bound_ms=bms,
+                                        bound_by="bytes")
+            del ref, out, again
+            torch.cuda.empty_cache()
+        del baked, fr, src
+        torch.cuda.empty_cache()
+    del cache
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------- phases 28-29
+
+
+def matmul_kernels(torch, fn) -> list | None:
+    """Names of the device kernels of ``fn()`` that are matrix products
+    (gemm, cutlass, xmma), from a torch.profiler trace; None where the trace
+    holds no device event (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        return None
+    return sorted({e.name for e in dev_events
+                   if any(k in e.name.lower() for k in ("gemm", "cutlass", "xmma"))})
+
+
+def bake_and_serve(torch, dev, tmp: str, family: str) -> dict:
+    """Phase 28 (``family`` fastnerf) or 29 (plenoctree): fit() on
+    configs/lego.txt with that model_type for BAKE_ITERS iterations (logs
+    every 10, validation and saves every 100; finite losses, the mse at the
+    last logged iteration under that at 0), a bit-identical resume from
+    step 100, a profile of one step; then the final checkpoint served by
+    RenderService with bake = BAKE_R behind the HTTP server (serve's
+    requests): 2 x ceil(160000/8192) = 40 launches of row 18's factor form
+    (fastnerf) or SH form (plenoctree) a request, no matrix product on the
+    card in a request, one image within mean abs 1e-2 of the unfused
+    render of the same cache (the module, float32 interpolation)."""
+    import copy
+    import dataclasses
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.data.pipeline import load_scene
+    from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedFactorRender, FusedGridRender
+    from nerf_tpu_torch.serve import RenderService
+    from nerf_tpu_torch.train.loop import fit, render_settings_from_config
+
+    fused_cls = FusedFactorRender if family == "fastnerf" else FusedGridRender
+    base = parse_config_file(os.path.join(ROOT, "configs", "lego.txt"))
+    cfg = dataclasses.replace(
+        base, model_type=family, dataset_path=os.path.join(tmp, "scene"), num_iters=BAKE_ITERS,
+        log_interval=10, val_interval=100, save_interval=100,
+        save_path=os.path.join(tmp, f"train_models_{family}"),
+        log_dir=os.path.join(tmp, f"train_logs_{family}"))
+    label = f"lego.txt (model_type = {family})"
+    lines: list = []
+    fused_cls.launches = 0
+    t0 = time.perf_counter()
+    state = fit(cfg, device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    say(f"train: fit {label} {BAKE_ITERS} iterations in {time.perf_counter() - t0:.1f} s "
+        f"through the module (no kernel: row 18 launches {fused_cls.launches})")
+    for line in lines:
+        if "[Iter" in line or "Validation" in line:
+            say(f"  {line}")
+    last = BAKE_ITERS - 10
+    scal = read_scalars(cfg.log_dir)
+    loss, rps = scal["loss"], scal["rays_per_sec"][last]
+    if sorted(loss) != list(range(0, BAKE_ITERS, 10)) or not all(
+            math.isfinite(v) for v in loss.values()):
+        fail(f"{label} logged mse {loss}")
+    if not loss[last] < loss[0]:
+        fail(f"{label}: mse at {last} ({loss[last]}) is not under that at 0 ({loss[0]})")
+    say(f"train: mse {loss[0]:.6f} at 0 -> {loss[last]:.6f} at {last} (ratio "
+        f"{loss[last] / loss[0]:.4f}); {label} step {rps:.0f} rays/s "
+        f"({cfg.num_random_rays} rays, {cfg.num_samples}+{cfg.num_fine_samples} samples, "
+        f"{cfg.compute_dtype})")
+    check_resume(torch, dev, tmp, cfg, family, loss)
+    scene = load_scene(cfg, device=dev)
+    profile_step(torch, state, scene.pool, render_settings_from_config(cfg), cfg, "gemm",
+                 label)
+    del state, scene
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(cfg.save_path, f"{family}_model_{BAKE_ITERS:06d}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc = RenderService.from_checkpoint(cfg, ckpt, bake=BAKE_R, device=dev, log=say)
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    cache = svc.params[0] if family == "fastnerf" else svc.params[0].model
+    if svc.params[1] is not None or any(isinstance(m, torch.nn.Linear)
+                                        for m in cache.modules()):
+        fail(f"{label} --bake {BAKE_R}: the served params hold a network")
+    say(f"serve: {label} --bake {BAKE_R}: service built in {bake_s:.2f} s wall "
+        f"(checkpoint load and the {BAKE_R}^3 bake)")
+    if family == "plenoctree":
+        # cells whose raw density nerf_tpu's float32 expm1 turns to inf (the
+        # port stores softplus^-1(sigma) = sigma there, models/plenoctree.py)
+        big = int((cache.grid[..., 0] > 88.7).sum())
+        say(f"serve: {label} --bake {BAKE_R}: {big} of {cache.grid[..., 0].numel()} cells of "
+            f"density above 88.7 (raw stored as sigma, not nerf_tpu's inf)")
+
+    def reference(params):
+        # the unfused render of the same cache: the module, float32
+        # interpolation (row 17's float32 mode), no fused grid render
+        if family == "fastnerf":
+            from nerf_tpu_torch.models.fastnerf import BakedFastNeRF
+
+            return BakedFastNeRF(params.pos_grid, params.beta_grid, params.num_factors,
+                                 use_grid_kernel=False, domain=params.domain)
+        ref = copy.copy(params.model)
+        ref.interp_dtype = "float32"
+        return ref
+
+    launches = serve(torch, dev, tmp, "lego.txt", fused_cls, "grid_render_kernel", family,
+                     svc=svc, reference=reference)
+    found = matmul_kernels(torch, lambda: svc.render_pose(svc.orbit_pose(3), key_idx=3))
+    say(f"serve: {label} --bake {BAKE_R}: matrix-product kernels in one request: "
+        + ("not measured (no device events)" if found is None else f"{found}"))
+    if found:
+        fail(f"{label} --bake {BAKE_R}: a request ran matrix products {found}")
+    del svc, cache
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_rps": rps, "bake_s": bake_s}
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -3321,6 +3567,7 @@ def main() -> int:
     interp_checks = check_grid_interp_kernel(torch, dev)
     scatter_checks = check_scatter_kernel(torch, dev)
     render_checks = check_grid_render_kernel(torch, dev)
+    factor_checks = check_factor_render_kernel(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = serve(torch, dev, tmp, "lego.txt", FusedNerfRender,
                          "fused_render_fwd")
@@ -3349,6 +3596,7 @@ def main() -> int:
                         for f in ("gabor", "siren")}
         grid_served = serve_plenoxels(torch, dev, tmp)
         grid_trained = train_plenoxels(torch, dev, tmp)
+        baked = {f: bake_and_serve(torch, dev, tmp, f) for f in ("fastnerf", "plenoctree")}
     bench_headline(torch, dev)
     bench_siren(torch, dev)
     bench_gabor(torch, dev)
@@ -3428,8 +3676,12 @@ def main() -> int:
              interp_checks[("float32", "train", 256)],
              max(v["err"] for v in interp_checks.values())),
             ("grid_render", "fused_grid_render.cu", "fused_grid_render.py:76",
-             grid_served + grid_trained["grid_render"], render_checks[("bfloat16", 1024, 256)],
+             grid_served + grid_trained["grid_render"] + baked["plenoctree"]["launches"],
+             render_checks[("bfloat16", 1024, 256)],
              max(v["err"] for v in render_checks.values())),
+            ("grid_render_factors", "fused_grid_render.cu", "fused_grid_render.py:76",
+             baked["fastnerf"]["launches"], factor_checks[("bfloat16", 1024, 256)],
+             max(v["err"] for v in factor_checks.values())),
             ("scatter_add", "scatter_add.cu", "scatter_add.py:56", grid_trained["scatter_add"],
              scatter_checks["step"], max(v["err"] for v in scatter_checks.values()))):
         kernels.append(dict(row(name, source, f"{nerf_tpu}{line}", launched, c, err),

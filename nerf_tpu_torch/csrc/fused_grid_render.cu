@@ -3,23 +3,29 @@
 // decode and volume compositing, in one kernel.
 //
 // Replaces: nerf_tpu/ops/pallas/fused_grid_render.py::_grid_render_kernel
-// (class FusedGridRender). Same function, per ray and sample s:
+// (class FusedGridRender), in both its forms: SH (Plenoxels grids, the baked
+// PlenOctree cache) and factors (the baked FastNeRF cache), a template
+// parameter here. Same function, per ray and sample s:
 //   o'_a   = scale * o_a + off, d'_a = scale * d_a   the ray -> cell affine
 //            (the normalisation and the domain folded into two scalars on
 //            the host, FusedGridRender.affine; nerf_tpu's _cells)
 //   g_a    = clamp(o'_a + d'_a * t_s, 0, R - 1)
 //   v      = trilinear(grid, g)                   grid_common.cuh, float32
 //            or the bfloat16 mode
-//   sigma  = softplus(v_0) = max(v_0, 0) + log1p(exp(-|v_0|))
-//   rgb_c  = sigmoid(sum_l v_{1 + c*L + l} * Y_l(viewdir)), the real SH
-//            basis of degree 0-2 (L = 1, 4 or 9; C = 1 + 3L channels)
+//   SH:      sigma = softplus(v_0) = max(v_0, 0) + log1p(exp(-|v_0|))
+//            rgb_c = sigmoid(sum_l v_{1 + c*L + l} * Y_l(viewdir)), the real
+//            SH basis of degree 0-2 (L = 1, 4 or 9; C = 1 + 3L channels)
 //            computed here as models/plenoxels.py::sh_basis computes it
+//   factors: sigma = max(v_0, 0)
+//            rgb_c = sigmoid(sum_d v_{1 + 3d + c} * beta_d), D = 1..10
+//            factors (C = 1 + 3D), beta the ray's row of the cache's
+//            direction grid, computed before the launch
+//            (models/fastnerf.py::BakedFastNeRF.beta), as nerf_tpu computes
+//            its basis outside its pallas_call
 //   1 - alpha = exp(-sigma * delta_s), delta_s = t_{s+1} - t_s, 1e10 last
 //   w_s    = T_s * alpha_s, T_s = prod_{j<s} (1 - alpha_j)
 // and the outputs rgb = sum w_s rgb_s, acc = sum w_s, depth = sum w_s t_s
-// and the (R, S) weights. The white background is the caller's. (The TPU
-// kernel's relu density and factor layout serve the baked FastNeRF cache,
-// which is not ported yet.)
+// and the (R, S) weights. The white background is the caller's.
 //
 // What bounds it on this card: bytes. A ray reads its origin, direction and
 // view direction (36 bytes) and its S samples' t (4 each) and writes its
@@ -27,7 +33,8 @@
 // are read at least once (at most R^3 rows). At 1024 rays x 256 samples of a
 // 128^3 x 28 grid: 2.2 MB plus the distinct rows touched, under 1 us at
 // 3.35 TB/s. The 8 x 28 multiply-adds a sample are 0.002 ms of float32
-// CUDA-core time.
+// CUDA-core time. The factor form reads beta (4 D bytes a ray) in place of
+// the view direction and a 25-channel row (D = 8): the same bound.
 //
 // Design: parallel over samples. A CTA owns one ray and gives each thread
 // one sample of a block of up to 256 (the CTA walks longer rays block by
@@ -62,6 +69,7 @@ namespace {
 
 constexpr int MAX_THREADS = 256;   // samples a block: 8 warps
 constexpr int MAX_WARPS = MAX_THREADS / 32;
+constexpr int MAX_FACTORS = 10;    // the factor form's D: 1 + 3D <= 32 channels
 
 // models/plenoxels.py's SH constants, rounded to float32 as PyTorch rounds
 // a Python scalar against a float32 tensor
@@ -96,10 +104,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <bool BF16, int L>
+// FACTORS false: the SH form of degree 0-2 (L = 1, 4, 9 basis terms),
+// `ray_in` the view directions (num_rays, 3); true: the factor form of L = D
+// factors, `ray_in` beta (num_rays, D). C = 1 + 3L channels in both.
+template <bool BF16, int L, bool FACTORS>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
 grid_render_kernel(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
-                   const float* __restrict__ viewdirs, const float* __restrict__ t,
+                   const float* __restrict__ ray_in, const float* __restrict__ t,
                    float scale, float off, const void* __restrict__ g, int r, int s_len,
                    float* __restrict__ rgb_out, float* __restrict__ acc_out,
                    float* __restrict__ depth_out, float* __restrict__ w_out) {
@@ -117,7 +128,12 @@ grid_render_kernel(const float* __restrict__ rays_o, const float* __restrict__ r
     da[a] = __fmul_rn(scale, rays_d[3 * ray + a]);
   }
   float basis[L];
-  sh_basis<L>(viewdirs[3 * ray], viewdirs[3 * ray + 1], viewdirs[3 * ray + 2], basis);
+  if constexpr (FACTORS) {
+#pragma unroll
+    for (int d = 0; d < L; ++d) basis[d] = ray_in[L * ray + d];
+  } else {
+    sh_basis<L>(ray_in[3 * ray], ray_in[3 * ray + 1], ray_in[3 * ray + 2], basis);
+  }
   const float* tr = t + static_cast<long long>(ray) * s_len;
   float* wr = w_out + static_cast<long long>(ray) * s_len;
   float carry = 1.0f;                        // T at the block's first sample
@@ -137,13 +153,15 @@ grid_render_kernel(const float* __restrict__ rays_o, const float* __restrict__ r
       float w8[8], v[C];
       grid::stencil<BF16>(gc[0], gc[1], gc[2], r, base, w8);
       grid::interp_row<BF16, C>(g, r, base, w8, v);
-      const float sigma = __fadd_rn(fmaxf(v[0], 0.0f), log1pf(expf(-fabsf(v[0]))));
+      const float sigma = FACTORS ? fmaxf(v[0], 0.0f)
+                                  : __fadd_rn(fmaxf(v[0], 0.0f), log1pf(expf(-fabsf(v[0]))));
       one_m = expf(__fmul_rn(-sigma, delta));
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         float pre = 0.0f;
 #pragma unroll
-        for (int l = 0; l < L; ++l) pre = __fadd_rn(pre, __fmul_rn(v[1 + c * L + l], basis[l]));
+        for (int l = 0; l < L; ++l)
+          pre = __fadd_rn(pre, __fmul_rn(v[FACTORS ? 1 + 3 * l + c : 1 + c * L + l], basis[l]));
         col[c] = 1.0f / (1.0f + expf(-pre));
       }
     }
@@ -186,61 +204,87 @@ grid_render_kernel(const float* __restrict__ rays_o, const float* __restrict__ r
   }
 }
 
-template <bool BF16, int L>
+template <bool BF16, int L, bool FACTORS>
 void launch(int num_rays, int threads, cudaStream_t s, const float* o, const float* d,
-            const float* vd, const float* t, float scale, float off, const void* g, int r,
+            const float* ray_in, const float* t, float scale, float off, const void* g, int r,
             int s_len, float* rgb, float* acc, float* depth, float* w) {
-  grid_render_kernel<BF16, L><<<num_rays, threads, 0, s>>>(o, d, vd, t, scale, off, g, r, s_len,
-                                                           rgb, acc, depth, w);
+  grid_render_kernel<BF16, L, FACTORS><<<num_rays, threads, 0, s>>>(
+      o, d, ray_in, t, scale, off, g, r, s_len, rgb, acc, depth, w);
 }
 
+// The factor form of K factors, for K = D down to 1.
+template <bool BF16, int K>
+void launch_factors(int k, int num_rays, int threads, cudaStream_t s, const float* o,
+                    const float* d, const float* ray_in, const float* t, float scale, float off,
+                    const void* g, int r, int s_len, float* rgb, float* acc, float* depth,
+                    float* w) {
+  if (k == K)
+    launch<BF16, K, true>(num_rays, threads, s, o, d, ray_in, t, scale, off, g, r, s_len, rgb,
+                          acc, depth, w);
+  else if constexpr (K > 1)
+    launch_factors<BF16, K - 1>(k, num_rays, threads, s, o, d, ray_in, t, scale, off, g, r,
+                                s_len, rgb, acc, depth, w);
+}
+
+// `k`: the SH degree (form 0) or the factor count D (form 1).
 template <bool BF16>
-void launch_degree(int degree, int num_rays, int threads, cudaStream_t s, const float* o,
-                   const float* d, const float* vd, const float* t, float scale, float off,
-                   const void* g, int r, int s_len, float* rgb, float* acc, float* depth,
-                   float* w) {
-  if (degree == 0)
-    launch<BF16, 1>(num_rays, threads, s, o, d, vd, t, scale, off, g, r, s_len, rgb, acc, depth, w);
-  else if (degree == 1)
-    launch<BF16, 4>(num_rays, threads, s, o, d, vd, t, scale, off, g, r, s_len, rgb, acc, depth, w);
+void launch_form(int form, int k, int num_rays, int threads, cudaStream_t s, const float* o,
+                 const float* d, const float* ray_in, const float* t, float scale, float off,
+                 const void* g, int r, int s_len, float* rgb, float* acc, float* depth,
+                 float* w) {
+  if (form == 1)
+    launch_factors<BF16, MAX_FACTORS>(k, num_rays, threads, s, o, d, ray_in, t, scale, off, g,
+                                      r, s_len, rgb, acc, depth, w);
+  else if (k == 0)
+    launch<BF16, 1, false>(num_rays, threads, s, o, d, ray_in, t, scale, off, g, r, s_len, rgb,
+                           acc, depth, w);
+  else if (k == 1)
+    launch<BF16, 4, false>(num_rays, threads, s, o, d, ray_in, t, scale, off, g, r, s_len, rgb,
+                           acc, depth, w);
   else
-    launch<BF16, 9>(num_rays, threads, s, o, d, vd, t, scale, off, g, r, s_len, rgb, acc, depth, w);
+    launch<BF16, 9, false>(num_rays, threads, s, o, d, ray_in, t, scale, off, g, r, s_len, rgb,
+                           acc, depth, w);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Per ray: `rays_o`, `rays_d`, `viewdirs` (num_rays, 3), `t` (num_rays,
-// s_len) sorted sample depths; `scale`, `off` the ray -> cell affine; `grid`
-// the (r, r, r, c) grid (float32, or its bfloat16 copy when `bf16`), 16-byte
-// aligned, of the SH layout of `degree`: c = 1 + 3 (degree + 1)^2, channel
-// 1 + colour * L + l. Outputs rgb (num_rays, 3), acc and depth (num_rays,),
-// weights (num_rays, s_len), all float32. Returns 0 on success, a
-// cudaError_t code after a failed launch, or -1 when the shapes do not fit
-// this kernel.
-int grid_render(const float* rays_o, const float* rays_d, const float* viewdirs,
+// Per ray: `rays_o`, `rays_d` (num_rays, 3), `ray_in` the decode's input
+// (form 0, SH: the view directions (num_rays, 3); form 1, factors: beta
+// (num_rays, k)), `t` (num_rays, s_len) sorted sample depths; `scale`, `off`
+// the ray -> cell affine; `grid` the (r, r, r, c) grid (float32, or its
+// bfloat16 copy when `bf16`), 16-byte aligned, of the form's layout: SH of
+// degree k (0-2), c = 1 + 3 (k + 1)^2, channel 1 + colour * L + l; factors,
+// k = D (1-10), c = 1 + 3D, channel 1 + 3d + colour. Outputs rgb
+// (num_rays, 3), acc and depth (num_rays,), weights (num_rays, s_len), all
+// float32. Returns 0 on success, a cudaError_t code after a failed launch,
+// or -1 when the shapes do not fit this kernel.
+int grid_render(const float* rays_o, const float* rays_d, const float* ray_in,
                 const float* t, float scale, float off, const void* grid, int r, int c,
-                int degree, int bf16, int num_rays, int s_len, float* rgb, float* acc,
+                int form, int k, int bf16, int num_rays, int s_len, float* rgb, float* acc,
                 float* depth, float* weights, void* stream) {
-  if (degree < 0 || degree > 2 || c != 1 + 3 * (degree + 1) * (degree + 1) || r < 2 ||
-      num_rays < 1 || s_len < 1 || reinterpret_cast<uintptr_t>(grid) % 16 != 0)
+  const bool sh_ok = form == 0 && k >= 0 && k <= 2 && c == 1 + 3 * (k + 1) * (k + 1);
+  const bool factors_ok = form == 1 && k >= 1 && k <= MAX_FACTORS && c == 1 + 3 * k;
+  if (!(sh_ok || factors_ok) || r < 2 || num_rays < 1 || s_len < 1 ||
+      reinterpret_cast<uintptr_t>(grid) % 16 != 0)
     return -1;
   const int warps = min(MAX_WARPS, (s_len + 31) / 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    launch_degree<true>(degree, num_rays, 32 * warps, s, rays_o, rays_d, viewdirs, t, scale, off,
-                        grid, r, s_len, rgb, acc, depth, weights);
+    launch_form<true>(form, k, num_rays, 32 * warps, s, rays_o, rays_d, ray_in, t, scale, off,
+                      grid, r, s_len, rgb, acc, depth, weights);
   else
-    launch_degree<false>(degree, num_rays, 32 * warps, s, rays_o, rays_d, viewdirs, t, scale,
-                         off, grid, r, s_len, rgb, acc, depth, weights);
+    launch_form<false>(form, k, num_rays, 32 * warps, s, rays_o, rays_d, ray_in, t, scale, off,
+                       grid, r, s_len, rgb, acc, depth, weights);
   return static_cast<int>(cudaGetLastError());
 }
 
 const char* grid_render_error(int code) {
   if (code == -1)
     return "shapes do not fit the kernel (an SH grid of degree 0-2: C = 1 + 3 (degree + 1)^2 "
-           "<= 28 channels; R >= 2; a 16-byte aligned grid)";
+           "<= 28 channels, or a factor grid of D = 1-10: C = 1 + 3D <= 31 channels; R >= 2; "
+           "a 16-byte aligned grid)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

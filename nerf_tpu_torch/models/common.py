@@ -72,3 +72,38 @@ def siren_init(in_dim: int, out_dim: int, w0: float, is_first: bool,
     with b = 1/in_dim for the first layer, else sqrt(c/in_dim)/w0."""
     bound = (1.0 / in_dim) if is_first else ((c / in_dim) ** 0.5 / w0)
     return _uniform_linear(in_dim, out_dim, bound, generator)
+
+
+def skip_trunk_init(pos_in: int, hidden: int, head_out: int, reference_init: bool,
+                    generator: torch.Generator) -> tuple:
+    """``(trunk1, trunk2, head)``: the 5 + 3 skip-connected field trunk of the
+    grid-bakeable families (FastNeRF's F_pos, PlenOctrees' NeRF-SH), as
+    ``nerf_tpu.models.common.skip_trunk_init``: ``trunk1`` 5 layers from the
+    encoded position, ``trunk2`` 3 layers from [features, encoded position],
+    ``head`` to ``head_out`` columns, column 0 the density. Drawn from
+    ``generator`` in that order; the density bias starts at 0.5 unless
+    ``reference_init``."""
+    trunk1 = nn.ModuleList([linear_init(pos_in, hidden, generator)]
+                           + [linear_init(hidden, hidden, generator) for _ in range(4)])
+    trunk2 = nn.ModuleList([linear_init(hidden + pos_in, hidden, generator)]
+                           + [linear_init(hidden, hidden, generator) for _ in range(2)])
+    head = linear_init(hidden, head_out, generator)
+    if not reference_init:
+        with torch.no_grad():
+            head.bias[0] = 0.5
+    return trunk1, trunk2, head
+
+
+def skip_trunk_apply(model: nn.Module, p_enc: torch.Tensor,
+                     compute_dtype: torch.dtype) -> tuple:
+    """The trunk of ``skip_trunk_init`` (``model.trunk1``, ``trunk2``,
+    ``head``) on encoded positions: ``(sigma (...,), tail (..., head_out -
+    1))``, the relu density of head column 0 and the family's raw tail."""
+    x = p_enc
+    for lyr in model.trunk1:
+        x = torch.relu(linear(lyr, x, compute_dtype))
+    x = torch.cat([x, p_enc], dim=-1)
+    for lyr in model.trunk2:
+        x = torch.relu(linear(lyr, x, compute_dtype))
+    x = linear(model.head, x, compute_dtype)
+    return torch.relu(x[..., 0]), x[..., 1:]

@@ -9,13 +9,16 @@ of shape (in, out); ``nn.Linear`` stores (out, in). A NeRF is ``{"block1":
 "trunk", "rgb1", "rgb2"}`` of ``{"w", "b"}`` batched over the networks
 (``w`` (G^3, in, out), the layout the port keeps, so nothing is
 transposed), a Plenoxels model ``{"grid": (R, R, R, C)}`` (the port's
-``grid`` parameter as it is). ``load_jax_params`` copies
+``grid`` parameter as it is), a PlenOctree ``{"trunk1": [5 layers],
+"trunk2": [3], "head"}`` and a FastNeRF the same with ``"dir": [2]``.
+``load_jax_params`` copies
 such a tree (as numpy arrays) into the port's module; ``export_jax_params``
 is its inverse, ``export_jax_grads`` gives the ``.grad``s the same way, and
 ``load_jax_opt_state`` copies optax's Adam moments. Each picks the family
 from the module's type (the moments from their tree's keys) and maps every
 layer by its name in the tree, never by leaf position: JAX flattens dicts
-in sorted-key order.
+in sorted-key order. ``load_jax_baked`` builds a ``BakedFastNeRF`` from
+nerf_tpu's baked FastNeRF cache.
 """
 
 from __future__ import annotations
@@ -24,16 +27,27 @@ import numpy as np
 import torch
 from torch import nn
 
+from nerf_tpu_torch.models.fastnerf import BakedFastNeRF, FastNeRFModel
 from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.kilonerf import LAYERS as KILO_LAYERS
 from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
+from nerf_tpu_torch.models.plenoctree import PlenOctreeModel
 from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
 from nerf_tpu_torch.models.siren import SirenModel
+from nerf_tpu_torch.ops.cuda.fused_grid import LANES, pack_grid
 
 _BLOCKS = (("block1", "block1"), ("block2", "block2"), ("rgb", "rgb_head"))
 _HEADS = ("sigma", "remap", "rgb0", "rgb1")     # SIREN's and GaborNet's
 # a Gabor filter's leaves in the port's parameter order
 FILTER_LEAVES = ("omega", "phi", "mu", "gamma")
+_TRUNK = (("trunk1", 5), ("trunk2", 3))         # the skip trunk's lists
+
+
+def _trunk_paths(with_dir: bool) -> list[tuple]:
+    """The tree paths of a skip-trunk family (FastNeRF with its ``dir``
+    net, PlenOctree without), in the port module's parameter order."""
+    return ([(name, i) for name, n in _TRUNK for i in range(n)] + [("head",)]
+            + ([("dir", 0), ("dir", 1)] if with_dir else []))
 
 
 def _paths(module) -> list[tuple]:
@@ -45,6 +59,8 @@ def _paths(module) -> list[tuple]:
     if isinstance(module, GaborModel):
         return ([("linears", i) for i in range(len(module.linears))]
                 + [(k,) for k in _HEADS])
+    if isinstance(module, (FastNeRFModel, PlenOctreeModel)):
+        return _trunk_paths(isinstance(module, FastNeRFModel))
     return [(jax_name, i) for jax_name, torch_name in _BLOCKS
             for i in range(len(module.linears(getattr(module, torch_name))))]
 
@@ -55,6 +71,9 @@ def _linears(module) -> list[nn.Linear]:
         return list(module.base) + [getattr(module, k) for k in _HEADS]
     if isinstance(module, GaborModel):
         return list(module.linears) + [getattr(module, k) for k in _HEADS]
+    if isinstance(module, (FastNeRFModel, PlenOctreeModel)):
+        return ([*module.trunk1, *module.trunk2, module.head]
+                + (list(module.dir) if isinstance(module, FastNeRFModel) else []))
     return [lyr for _, torch_name in _BLOCKS
             for lyr in module.linears(getattr(module, torch_name))]
 
@@ -163,6 +182,8 @@ def _flat_in_param_order(tree: dict) -> list[np.ndarray]:
                 for k in FILTER_LEAVES]
         paths = [("linears", i) for i in range(len(tree["linears"]))] + [
             (k,) for k in _HEADS]
+    elif "trunk1" in tree:
+        paths = _trunk_paths("dir" in tree)
     elif "base" in tree:
         paths = [("base", i) for i in range(len(tree["base"]))] + [
             (k,) for k in _HEADS]
@@ -188,3 +209,19 @@ def load_jax_opt_state(optimizer, opt_state, trees: int = 2) -> None:
         "count": int(np.asarray(adam.count)),
         "mu": [torch.from_numpy(np.array(x, np.float32)) for x in mu],
         "nu": [torch.from_numpy(np.array(x, np.float32)) for x in nu]})
+
+
+def load_jax_baked(baked, device: str | torch.device = "cpu") -> BakedFastNeRF:
+    """A ``BakedFastNeRF`` on ``device`` from nerf_tpu's baked FastNeRF
+    cache (its ``pos_grid``, ``beta_grid``, ``num_factors``,
+    ``use_grid_kernel`` and ``domain``; array-likes), with the bfloat16 copy
+    that the port's ``bake`` makes (nerf_tpu's ``packed_pos`` is in its
+    Pallas brick layout and is not read)."""
+    pos = torch.from_numpy(np.asarray(baked.pos_grid, np.float32).copy()).to(device)
+    beta = torch.from_numpy(np.asarray(baked.beta_grid, np.float32).copy()).to(device)
+    packed = None
+    if baked.use_grid_kernel and pos.shape[-1] <= LANES:
+        packed = pack_grid(pos, "bfloat16")
+    return BakedFastNeRF(pos, beta, int(baked.num_factors),
+                         use_grid_kernel=bool(baked.use_grid_kernel), packed_pos=packed,
+                         domain=tuple(baked.domain))

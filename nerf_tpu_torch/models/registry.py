@@ -1,7 +1,7 @@
-"""Model construction by name. ``nerf``, ``siren``, ``gabor``, ``kilonerf``
-and ``plenoxels`` are ported; every other family of
-``nerf_tpu.models.registry`` raises and names the ROADMAP row (queue 1)
-that will port it."""
+"""Model construction by name. ``nerf``, ``siren``, ``gabor``, ``kilonerf``,
+``plenoxels``, ``fastnerf`` and ``plenoctree`` are ported; ``ngp``, the one
+other family of ``nerf_tpu.models.registry``, raises and names the ROADMAP
+row (queue 1) that will port it."""
 
 from __future__ import annotations
 
@@ -10,20 +10,19 @@ import inspect
 import torch
 from torch import nn
 
+from nerf_tpu_torch.models.fastnerf import FastNeRFModel
 from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
+from nerf_tpu_torch.models.plenoctree import PlenOctreeModel
 from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
 from nerf_tpu_torch.models.siren import SirenModel
 
 MODEL_REGISTRY = {"nerf": NeRFModel, "siren": SirenModel, "gabor": GaborModel,
-                  "kilonerf": KiloNeRFModel, "plenoxels": PlenoxelsModel}
+                  "kilonerf": KiloNeRFModel, "plenoxels": PlenoxelsModel,
+                  "fastnerf": FastNeRFModel, "plenoctree": PlenOctreeModel}
 
-_NOT_YET = {
-    "fastnerf": "row 13 (grid families)",
-    "plenoctree": "row 13 (grid families)",
-    "ngp": "row 13 (grid families)",
-}
+_NOT_YET = {"ngp": "row 13 (grid families)"}
 
 
 def create_model(model_type: str, generator: torch.Generator | None = None,

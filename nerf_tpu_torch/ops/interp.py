@@ -14,8 +14,8 @@ points (N, 3) in [-1, 1]^3, coordinates clamped to the grid's border
     atomics, so a training step is deterministic); the point cotangent in
     PyTorch, zero where the clamp is active, only when asked for.
 
-``bilinear`` (FastNeRF's direction grid) waits for ROADMAP queue 1 item
-4(c).
+``bilinear`` (FastNeRF's direction grid) is plain PyTorch under autograd,
+as nerf_tpu leaves it to XLA: the grid is small and no kernel reaches it.
 """
 
 from __future__ import annotations
@@ -93,3 +93,21 @@ def trilinear(grid: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Trilinear interpolation of ``grid`` (R, R, R, C) at points ``p``
     (N, 3) in [-1, 1]^3 -> (N, C) float32, differentiable in both."""
     return Trilinear.apply(grid, p, None)
+
+
+def bilinear(grid: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Bilinear interpolation of ``grid`` (H, W, C) at float coordinates
+    ``(u, v)`` (N,) -> (N, C), as ``nerf_tpu.ops.interp.bilinear``: the base
+    cell ``u0 = clip(floor(u), 0, H - 2)``, ``v0 = clip(floor(v), 0, W - 2)``
+    and the fractions ``u - u0``, ``v - v0`` taken from the clipped base (so
+    a coordinate past the border extrapolates linearly from the last cell);
+    the two corners along v lerped first, then along u."""
+    h, w = grid.shape[0], grid.shape[1]
+    u0 = torch.floor(u).long().clamp(0, h - 2)
+    v0 = torch.floor(v).long().clamp(0, w - 2)
+    fu, fv = (u - u0)[:, None], (v - v0)[:, None]
+    out = 0.0
+    for du in (0, 1):
+        val = (1.0 - fv) * grid[u0 + du, v0] + fv * grid[u0 + du, v0 + 1]
+        out = out + (fu if du else 1.0 - fu) * val
+    return out

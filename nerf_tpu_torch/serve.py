@@ -4,8 +4,10 @@ Counterpart of ``nerf_tpu.serve``. ``RenderService`` owns the full-image
 renderer (the fused render kernel on the card; the field kernels for
 KiloNeRF; the fused grid render for Plenoxels, over rays in 8x8 pixel
 blocks), optionally guided by an occupancy prior baked once at start-up
-(``--occupancy``), and renders arbitrary camera poses; ``serve_http`` wraps
-a service in a stdlib threaded HTTP server:
+(``--occupancy``), optionally from an MLP-free cache baked once at start-up
+(``--bake``: a FastNeRF or PlenOctree checkpoint, rendered through the
+fused grid render's factor or SH form), and renders arbitrary camera
+poses; ``serve_http`` wraps a service in a stdlib threaded HTTP server:
 
     GET /health            -> {"status": "ok", ...}
     GET /pose/<idx>        -> PNG of orbit pose idx
@@ -41,20 +43,23 @@ from nerf_tpu_torch.utils.png import encode_png
 
 def build_renderer(model, fine_model, cfg: Config, settings, bake: int = 0,
                    occupancy: int = 0, log=print):
-    """The renderer behind ``RenderService``: ``(renderer, render_params)``,
-    called as ``renderer(*render_params, rays_o, rays_d, generator,
-    viewdirs=...)``. With ``occupancy = R`` an R^3 occupancy prior is baked
-    first, from the fine model of a hierarchical config (else the model),
-    through the field of ``fused_field_for`` (the NeRF, SIREN or GaborNet
-    field kernels at hidden 256 on the card; a Plenoxels model's module),
-    over ``grid_domain(cfg)``, as
-    nerf_tpu's ``build_renderer`` does; the renderer's coarse pass then
-    samples from it (``renderer.occupancy``). Baked caches are not
-    ported."""
-    if bake:
-        raise NotImplementedError(
-            "bake: baked caches (fastnerf/plenoctree) are not ported to "
-            "nerf_tpu_torch yet (ROADMAP.md queue 1, row 13)")
+    """The renderer behind ``RenderService``, as nerf_tpu's
+    ``build_renderer``: ``(renderer, render_params)``, called as
+    ``renderer(*render_params, rays_o, rays_d, generator, viewdirs=...)``.
+    With ``occupancy = R`` an R^3 occupancy prior is baked first, from the
+    fine model of a hierarchical config (else the model), through the field
+    of ``fused_field_for`` (the NeRF, SIREN or GaborNet field kernels at
+    hidden 256 on the card; a grid family's module), over
+    ``grid_domain(cfg)``; the renderer's coarse pass then samples from it
+    (``renderer.occupancy``). With ``bake = R`` the same model (the fine
+    one of a hierarchical config) is baked into its R^3 cache, which then
+    renders both passes: a FastNeRF into a ``BakedFastNeRF``, a PlenOctree
+    into a Plenoxels model whose render-time copy is made here, once; any
+    other family raises ``ValueError``."""
+    src = fine_model if cfg.num_fine_samples > 0 and fine_model is not None else model
+    if bake and not hasattr(src, "bake"):
+        raise ValueError(f"bake: model '{cfg.model_type}' has no baked cache "
+                         "(fastnerf and plenoctree bake)")
     occ = None
     if occupancy:
         from nerf_tpu_torch.models.registry import grid_domain
@@ -65,16 +70,20 @@ def build_renderer(model, fine_model, cfg: Config, settings, bake: int = 0,
         )
 
         log(f"Baking a {occupancy}^3 occupancy prior...")
-        src = (fine_model if cfg.num_fine_samples > 0 and fine_model is not None
-               else model)
         field = packed_field(fused_field_for(src)) if cfg.use_pallas else src
         dom = grid_domain(cfg)
         occ = OccupancyGrid(
             grid=bake_occupancy(sigma_field(field), grid_res=occupancy, domain=dom,
                                 device=next(src.parameters()).device),
             domain=dom)
-    renderer = make_eval_render(model, settings, fused=cfg.use_pallas, occupancy=occ)
-    return renderer, (model, fine_model)
+    if not bake:
+        renderer = make_eval_render(model, settings, fused=cfg.use_pallas, occupancy=occ)
+        return renderer, (model, fine_model)
+    log(f"Baking {cfg.model_type} field into a {bake}^3 cache...")
+    baked = src.bake(grid_res=bake)
+    params = baked.precompute() if hasattr(baked, "precompute") else baked
+    renderer = make_eval_render(baked, settings, fused=cfg.use_pallas, occupancy=occ)
+    return renderer, (params, None)
 
 
 def request_seed(seed: int, key_idx: int) -> int:
@@ -244,7 +253,7 @@ def make_http_server(service: RenderService, port: int = 0,
 
 def main(argv=None) -> None:
     """``nerf-tpu-torch-serve --config cfg.txt --checkpoint ckpt [--port 8000]
-    [--occupancy RES] [--hw H W] [--device cuda|cpu]``"""
+    [--occupancy RES] [--bake RES] [--hw H W] [--device cuda|cpu]``"""
     import argparse
 
     parser = argparse.ArgumentParser(description=main.__doc__)
@@ -257,13 +266,16 @@ def main(argv=None) -> None:
     parser.add_argument("--occupancy", type=int, default=0,
                         help="bake a RES^3 occupancy prior and sample the coarse "
                              "pass from it (0: off)")
+    parser.add_argument("--bake", type=int, default=0,
+                        help="bake a fastnerf / plenoctree checkpoint into a RES^3 "
+                             "MLP-free cache and serve that (0: off)")
     parser.add_argument("--hw", type=int, nargs=2, default=None)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; cuda without a card raises")
     args = parser.parse_args(argv)
 
     svc = RenderService.from_checkpoint(
-        args.config, args.checkpoint, occupancy=args.occupancy,
+        args.config, args.checkpoint, bake=args.bake, occupancy=args.occupancy,
         hw=tuple(args.hw) if args.hw else None, device=args.device)
     svc.render_pose(svc.orbit_pose(0))   # build the kernel before traffic
     serve_http(svc, port=args.port, host=args.host)

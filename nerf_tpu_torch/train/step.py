@@ -24,7 +24,9 @@ the loss and its gradient through autograd. A Plenoxels model trains
 through its module (its ``apply`` reaches the grid-interpolation kernel and
 the scatter-add of its backward itself) and renders full images through
 the eval-only fused grid render (``ops/cuda/fused_grid_render.py``), which
-training routes skip, as nerf_tpu's ``for_train`` does. With an occupancy
+training routes skip, as nerf_tpu's ``for_train`` does; so does a baked
+FastNeRF cache (its factor form). A live FastNeRF or PlenOctree model
+takes the module route (nerf_tpu has no kernel for either). With an occupancy
 grid (the ``occ_grid`` step argument) the coarse samples come from the
 prior (``ops/occupancy.py``); a ``regularizer`` (the grid families' TV
 prior, ``train/loop.py::make_regularizer``) adds to the loss; with
@@ -40,10 +42,12 @@ import numpy as np
 import torch
 
 from nerf_tpu_torch.data.pipeline import RayBatch, RayPool
+from nerf_tpu_torch.models.fastnerf import BakedFastNeRF, FastNeRFModel
 from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
-from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
+from nerf_tpu_torch.models.plenoctree import PlenOctreeModel
+from nerf_tpu_torch.models.plenoxels import PlenoxelsModel, PlenoxelsPack
 from nerf_tpu_torch.models.siren import SirenModel
 from nerf_tpu_torch.ops.cuda.fused_gabor import GaborField
 from nerf_tpu_torch.ops.cuda.fused_grid import tile_ray_order
@@ -76,6 +80,10 @@ def step_seed(seed: int, step: int, stream: int) -> int:
 
 _FUSED = {NeRFModel: FusedNerfRender, SirenModel: FusedSirenRender,
           GaborModel: FusedGaborRender}
+# no field kernel in nerf_tpu for these; the caches (a Plenoxels model, a
+# baked FastNeRF) render through the eval-only fused grid render
+_GRID_CACHES = (PlenoxelsModel, BakedFastNeRF)
+_MODULE_FIELDS = _GRID_CACHES + (PlenoxelsPack, FastNeRFModel, PlenOctreeModel)
 
 
 def fused_render_for(model, settings: RenderSettings) -> FusedRender:
@@ -135,7 +143,8 @@ def fused_field_for(model):
     family's field kernels (``NerfField``, ``SirenField``, ``GaborField``)
     where they cover the shape (hidden 256; a GaborNet of 8 stages);
     otherwise the module, as on the CPU and wherever nerf_tpu takes no field
-    kernel (a Plenoxels model: its ``apply`` reaches the grid kernel).
+    kernel (a Plenoxels model or a baked FastNeRF cache, whose ``apply``
+    reaches the grid kernel; a live FastNeRF or PlenOctree model).
     Raises ``NotImplementedError`` on the card where nerf_tpu would take a
     field kernel at a shape the port's do not cover (naming its row of
     PERF.md's table: any of the three at hidden 512, a GaborNet of another
@@ -143,7 +152,7 @@ def fused_field_for(model):
     if isinstance(model, KiloNeRFModel):
         h = model.hidden_dim
         return KiloNeRFField(model) if 8 <= h <= 128 and h % 8 == 0 else model
-    if isinstance(model, PlenoxelsModel):
+    if isinstance(model, _MODULE_FIELDS):
         return model
     if type(model) not in _FIELDS:
         raise NotImplementedError(
@@ -170,18 +179,20 @@ def packed_field(field):
 def _kernel_route(model, settings: RenderSettings, use_kernels: bool,
                   for_train: bool = True):
     """``(fused_render, field)``: the family's fused render where nerf_tpu
-    takes one (``_tpu_kernel_width``; for a Plenoxels model the eval-only
-    fused grid render, which a training route skips), else
-    ``fused_field_for`` as the field factory (the field route); raises for
-    a family the port does not have; ``(None, None)`` for the module
-    path."""
+    takes one (``_tpu_kernel_width``; for a Plenoxels model or a baked
+    FastNeRF cache the eval-only fused grid render, which a training route
+    skips), else ``fused_field_for`` as the field factory (the field route:
+    the module for a live FastNeRF or PlenOctree model); raises for a
+    family the port does not have; ``(None, None)`` for the module path."""
     if not use_kernels:
         return None, None
-    if isinstance(model, PlenoxelsModel):
+    if isinstance(model, _GRID_CACHES):
         fr = make_fused_grid_render(model, settings.near, settings.far,
                                     normalize=settings.normalize_positions)
         if fr is not None and not (for_train and fr.eval_only):
             return fr, None
+        return None, fused_field_for
+    if isinstance(model, (FastNeRFModel, PlenOctreeModel)):
         return None, fused_field_for
     if not isinstance(model, (NeRFModel, SirenModel, GaborModel, KiloNeRFModel)):
         raise NotImplementedError(
@@ -340,14 +351,15 @@ def make_eval_render(model, settings: RenderSettings, fused: bool = True,
     family's fused render where nerf_tpu takes one (eval-only renders
     included), else the field of ``fused_field_for`` (the field route);
     otherwise the module. A model's ``precompute`` hook (the Plenoxels
-    grid's bfloat16 copy) runs once per image. For a model that
+    grid's bfloat16 copy) runs once per image, unless the params come with
+    it (a ``PlenoxelsPack``, as a baked PlenOctree cache is served; a baked
+    FastNeRF cache carries its copy). For a model that
     ``wants_tile_order`` (with its grid kernels), ``hw = (h, w)`` of a
     whole image reorders the rays into 8x8 pixel blocks
     (``tile_ray_order``) and the outputs back. With ``occupancy`` the
     coarse samples come from that prior. Memory is bounded by
     ``settings.chunk_size`` ray tiles."""
     fused_render, field = _kernel_route(model, settings, fused, for_train=False)
-    precompute = hasattr(model, "precompute")
     tile_order = (getattr(model, "wants_tile_order", False)
                   and getattr(model, "use_grid_kernel", True))
     perm_cache: dict = {}
@@ -360,7 +372,7 @@ def make_eval_render(model, settings: RenderSettings, fused: bool = True,
             return fused_render.pack(p)
         if field is not None:
             p = packed_field(field(p))
-        return p.precompute() if precompute else p
+        return p.precompute() if hasattr(p, "precompute") else p
 
     @torch.no_grad()
     def render(params, fine_params, rays_o: torch.Tensor, rays_d: torch.Tensor,

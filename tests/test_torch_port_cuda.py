@@ -1685,6 +1685,73 @@ def test_grid_kernels_refuse_unsupported_shapes(dev):
     assert before == (GridKernel.launches, ScatterKernel.launches, FusedGridRender.launches)
 
 
+def _factor_cache(dev, num_factors=8, r=16, packed=True):
+    """A baked FastNeRF cache on the card: a seeded FastNeRF (hidden 32)
+    over the default grid_domain baked at r^3 / dir_res 8, with its
+    bfloat16 copy or without (the float32 mode)."""
+    from nerf_tpu_torch.models.fastnerf import BakedFastNeRF, FastNeRFModel
+
+    model = FastNeRFModel(hidden_dim=32, num_factors=num_factors, domain=(-2.75, -1.25),
+                          generator=torch.Generator().manual_seed(num_factors)).to(dev)
+    with torch.no_grad():
+        cache = model.bake(grid_res=r, dir_res=8)
+    if packed:
+        return cache
+    return BakedFastNeRF(cache.pos_grid, cache.beta_grid, num_factors, domain=cache.domain)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1024, 256), (1000, 37)])
+def test_factor_render_kernel_matches_plain(dev, dtype, shape):
+    """Row 18's factor form (a baked FastNeRF cache of 16^3 x 25, D = 8)
+    against its plain version on the card, camera rays towards the origin:
+    rgb, acc and weights within 1e-5, depth within 1e-4 (the SH form's
+    bounds: the same scans and sums in another order than the plain
+    version's); one launch; two launches bit-identical."""
+    from nerf_tpu_torch.ops.cuda.fused_grid_render import (
+        FusedFactorRender, _expand_basis, cells_affine, grid_render_plain)
+
+    cache = _factor_cache(dev, packed=dtype == "bfloat16")
+    n, s = shape
+    ro, rd, t = _inputs(n, s, dev, seed=n + s)
+    rd = torch.nn.functional.normalize(-ro + 0.3 * rd, dim=-1)
+    fr = FusedFactorRender(cache, NEAR, FAR)
+    with torch.no_grad():
+        before = FusedFactorRender.launches
+        got = fr(cache, ro, rd, rd, t)
+        again = fr(cache, ro, rd, rd, t)
+        torch.cuda.synchronize()
+        assert FusedFactorRender.launches == before + 2
+        _, src = fr.grids(cache)
+        assert src.dtype == getattr(torch, dtype)
+        o_aff, d_aff = cells_affine(ro, rd, *fr.affine(16))
+        bexp = _expand_basis(cache.beta(rd), repeat_block=False)
+        ref = grid_render_plain(src, o_aff, d_aff, t, bexp, fr.sel, relu_sigma=True)
+    for i, k in enumerate(("rgb", "acc", "depth", "weights")):
+        assert got[k].shape == ref[i].shape and torch.isfinite(got[k]).all()
+        assert torch.equal(got[k], again[k]), k
+        torch.testing.assert_close(got[k], ref[i], atol=1e-4 if k == "depth" else 1e-5, rtol=0)
+
+
+def test_factor_render_refuses_unsupported_shapes(dev):
+    """The factor form on the card: 11 factors (34 channels) or a grid of
+    one cell a side raise NotImplementedError naming row 18 before any
+    launch; make_fused_grid_render gives such a cache no render (None)."""
+    from nerf_tpu_torch.models.fastnerf import BakedFastNeRF
+    from nerf_tpu_torch.ops.cuda.fused_grid_render import (
+        FusedFactorRender, make_fused_grid_render)
+
+    wide = _factor_cache(dev, num_factors=11, r=4, packed=False)
+    one = BakedFastNeRF(torch.zeros(1, 1, 1, 25, device=dev), torch.zeros(8, 16, 8, device=dev), 8)
+    ro, rd, t = _inputs(4, 8, dev)
+    before = FusedFactorRender.launches
+    for cache in (wide, one):
+        with torch.no_grad(), pytest.raises(NotImplementedError, match="row 18"):
+            FusedFactorRender(cache, NEAR, FAR)(cache, ro, rd, rd, t)
+    assert FusedFactorRender.launches == before
+    assert make_fused_grid_render(wide, NEAR, FAR) is None
+
+
 def test_plenoxels_train_step_and_eval_on_card_match_cpu(dev):
     """Two coarse-only 32-sample steps with TV of the same float32 Plenoxels
     state (grid 12, lr 0.01) on one batch (perturb off), on the card (one

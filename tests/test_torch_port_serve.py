@@ -161,12 +161,14 @@ def test_http_routes(services):
 
 
 def test_bake_and_occupancy_are_not_ported(services):
-    """Baked caches still raise and name their ROADMAP row; occupancy
-    priors are ported now (tests/test_torch_port_occupancy.py): the
+    """Baked caches are ported now for the families that bake (tests/
+    test_torch_port_fastnerf.py, test_torch_port_plenoctree.py): a NeRF has
+    none and raises ValueError, as nerf_tpu's build_renderer does;
+    occupancy priors are ported (tests/test_torch_port_occupancy.py): the
     renderer samples from a baked grid."""
     cfg = services["cfg"]
     m = model_from_config(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="bake: model 'nerf' has no baked cache"):
         build_renderer(m, None, cfg, None, bake=32)
     renderer, params = build_renderer(m, None, cfg, render_settings_from_config(cfg),
                                       occupancy=8, log=lambda *a: None)

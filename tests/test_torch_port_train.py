@@ -353,13 +353,27 @@ def test_scan_steps_equal_single_steps(scene_root):
 
 
 @pytest.mark.parametrize("field,value,row", [
-    ("model_type", "fastnerf", "row 13"), ("multihost", True, "row 14"),
-    ("model_type", "plenoctree", "row 13"), ("mesh_shape", "2,1", "row 14"),
+    ("multihost", True, "row 14"), ("mesh_shape", "2,1", "row 14"),
     ("dataset_type", "llff", "row 9"), ("model_type", "ngp", "row 13")])
 def test_fit_refuses_unported_options(scene_root, field, value, row):
     cfg = dataclasses.replace(_cfg(scene_root), **{field: value})
     with pytest.raises(NotImplementedError, match=row):
         fit(cfg, device="cpu", log=lambda *_: None)
+
+
+@pytest.mark.parametrize("family", ["fastnerf", "plenoctree"])
+def test_fit_takes_the_bakeable_families(scene_root, family):
+    """FastNeRF and PlenOctree, which fit refused before they were ported,
+    train through their modules: two finite iterations and a final
+    checkpoint of the family."""
+    cfg = dataclasses.replace(_cfg(scene_root), model_type=family, num_iters=2,
+                              save_path=os.path.join(scene_root, f"bakeable_{family}"))
+    lines: list = []
+    state = fit(cfg, device="cpu", log=lines.append)
+    mses = _mses(lines)
+    assert sorted(mses) == [0, 1] and all(np.isfinite(list(mses.values())))
+    assert type(state.params).__name__.lower().startswith(family)
+    assert os.path.exists(os.path.join(cfg.save_path, f"{family}_model_000002"))
 
 
 @pytest.mark.parametrize("field,value,match", [
