@@ -14,7 +14,7 @@ dtypes) at 5,003 and 37 points; the NeRF and SIREN field
 forward and backward (rows 1, 2, 9 and 10, both dtypes) at those points;
 the KiloNeRF field's parameter gradients under a
 loss linear in its outputs (row 16's kernel, which the forward's outputs do
-not reach) and its float32 outputs (row 15's CUDA-core kernel); the grid
+not reach) and its outputs (row 15, both dtypes); the grid
 interpolation of row 17 at training-ray and image-ray points; row 18's
 fused grid render in its SH form (a Plenoxels grid) and, where the
 checkout has it, its factor form (a baked FastNeRF cache), both dtypes; and
@@ -73,8 +73,8 @@ def render(torch, dev, fr, model, label: str, res: dict) -> None:
 
 
 def kilonerf(torch, dev, res: dict) -> None:
-    """Row 16's parameter gradients (both dtypes) and row 15's float32
-    outputs, in point order, at 5,003 camera-ray points and 37 points."""
+    """Row 16's parameter gradients and row 15's outputs (both dtypes, the
+    outputs in point order) at 5,003 camera-ray points and 37 points."""
     from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
     from nerf_tpu_torch.ops.cuda.fused_kilonerf import KiloNeRFField
 
@@ -93,9 +93,8 @@ def kilonerf(torch, dev, res: dict) -> None:
             (torch.sum(rgb * a) + torch.sum(sigma * b)).backward()
             for name, p in model.named_parameters():
                 res[f"kilonerf bwd {cdt} {n} {name}"] = p.grad.cpu()
-            if cdt == "float32":
-                res[f"kilonerf fwd {cdt} {n} rgb"] = rgb.detach().cpu()
-                res[f"kilonerf fwd {cdt} {n} sigma"] = sigma.detach().cpu()
+            res[f"kilonerf fwd {cdt} {n} rgb"] = rgb.detach().cpu()
+            res[f"kilonerf fwd {cdt} {n} sigma"] = sigma.detach().cpu()
 
 
 def gabor_train_and_field(torch, dev, res: dict) -> None:

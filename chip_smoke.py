@@ -8,11 +8,11 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
   1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
   2. the build of every kernel library from the sources in the checkout
      (one nvcc per source, started together), timed, and the count of
-     tensor-core instructions in the SASS of the twelve bf16 libraries on
-     the tensor cores (the NeRF, SIREN and GaborNet train passes, the
+     tensor-core instructions in the SASS of the fourteen bf16 libraries
+     on the tensor cores (the NeRF, SIREN and GaborNet train passes, the
      NeRF, SIREN and GaborNet forward renders, the KiloNeRF, NeRF, SIREN
-     and GaborNet field forwards, the NeRF and GaborNet field backwards;
-     cuobjdump);
+     and GaborNet field forwards and backwards; cuobjdump): a library
+     without one fails;
   3. every kernel against its plain PyTorch version on the card (TF32 off):
      the forward render at the serving shapes (8192 rays x 64 and 192
      samples), the train pass and the render backward at the training
@@ -91,11 +91,14 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      10/4, float32 and bfloat16, on 1024 x 256 camera-ray samples
      normalised like the renderer's, 16,384 points uniform over the domain
      (the distillation batch), 5,000 points in one voxel and 37 points
-     (empty networks: exactly zero gradients), two forward launches
-     compared bit for bit, the bf16 forward's HMMA count; at the camera
-     set the forward's device time from a CUDA graph of 20 calls between
-     events, the backward and both plain versions timed in turns (runs of
-     20 launches per pair of events), against their bound;
+     (empty networks: exactly zero gradients), two forward and two
+     backward launches compared bit for bit, the bf16 forward's and
+     backward's HMMA counts (both on the tensor cores), and the (rgb,
+     sigma) the bf16 backward recomputes (its debug output) equal to the
+     forward's bit for bit; at the camera set the forward's device time
+     from a CUDA graph of 20 calls between events, the backward and both
+     plain versions timed in turns (runs of 20 launches per pair of
+     events), against their bound;
  14. serving the kilonerf config (lego_siren.txt with model_type =
      kilonerf, hidden_dim = 32, grid_res = 8: coarse-only 256 samples,
      chunk 1024, bf16) as in 8: 157 forward launches per request, one
@@ -148,10 +151,10 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      each timed in turns at 65,536 and 16,384 points (runs of 20 launches
      per pair of events) against its bound; the bfloat16 forwards run on
      the tensor cores, twice for identical bits at every point set, their
-     times printed beside the CUDA-core kernels' they replaced, and so does
-     the GaborNet's bfloat16 backward, with its recompute and its run
-     sweep as in 17; the SIREN's backward stays on the CUDA cores, its
-     recomputed forward printed beside the forward's at 16,384 points;
+     times printed beside the CUDA-core kernels' they replaced, and so do
+     the SIREN's and the GaborNet's bfloat16 backwards, with their
+     recompute (equal to the forward's output bit for bit at every point
+     set) and their run sweep as in 17;
  21. serving lego_siren.txt and its GaborNet variant with --occupancy 64
      from phase 9's and phase 12's checkpoints: four field-kernel launches
      per bake, its wall time as in 18, the grid equal to the one baked
@@ -301,11 +304,16 @@ ROW9_BF16_CUDA_CORE_MS = {65536: 2.104, 16384: 0.526}
 # times, NVIDIA H100 80GB HBM3, 700.00 W).
 ROW2_BF16_CUDA_CORE_MS = {65536: 10.905, 16384: 3.061}
 ROW14_BF16_CUDA_CORE_MS = {65536: 13.440, 16384: 3.544}
+# Row 10's bfloat16 SIREN field backward on the CUDA cores, before it moved
+# to the tensor cores (csrc/fused_siren_bwd.cu at 65,536 / 16,384 points;
+# PERF.md's earlier times, NVIDIA H100 80GB HBM3, 700.00 W).
+ROW10_BF16_CUDA_CORE_MS = {65536: 10.057, 16384: 2.721}
 # the bf16 field kernels' CUDA-core times by kernel, printed beside the
 # tensor-core kernels' in phases 17 and 20
 FIELD_WAS_MS = {"fused_nerf_fwd": ROW1_BF16_CUDA_CORE_MS, "fused_siren_fwd": ROW9_BF16_CUDA_CORE_MS,
                 "fused_gabor_fwd": ROW13_BF16_CUDA_CORE_MS,
                 "fused_nerf_bwd": ROW2_BF16_CUDA_CORE_MS,
+                "fused_siren_bwd": ROW10_BF16_CUDA_CORE_MS,
                 "fused_gabor_bwd": ROW14_BF16_CUDA_CORE_MS}
 # The field backwards' runs (points a CTA) swept in phases 17 and 20 on the
 # tensor-core route, beside the plan's own (FusedField._runs).
@@ -313,14 +321,15 @@ RUN_SWEEP = (128, 256, 512, 1024)
 # Where the CUDA-core field backwards' stash keeps its per-point columns
 # (C_SIGP, then C_RGB: render_common.cuh), from a row's end: N_COLS = 12 for
 # the NeRF, 16 for the SIREN and the GaborNet (the tensor-core ones:
-# fused_nerf.py / fused_gabor.py TC_BWD_COLS_AT).
+# fused_nerf.py / fused_siren.py / fused_gabor.py TC_BWD_COLS_AT).
 STASH_COLS = {"fused_nerf_bwd": -12, "fused_siren_bwd": -16, "fused_gabor_bwd": -16}
 # the libraries of the bf16 kernels on the tensor cores (phase 2 reads
 # their SASS)
 TC_LIBS = ("fused_render_train_tc", "fused_render_fwd_tc", "fused_render_gabor_fwd_tc",
            "fused_render_siren_fwd_tc", "fused_render_siren_train_tc", "fused_kilonerf_fwd_tc",
            "fused_render_gabor_train_tc", "fused_gabor_fwd_tc", "fused_nerf_fwd_tc",
-           "fused_siren_fwd_tc", "fused_nerf_bwd_tc", "fused_gabor_bwd_tc")
+           "fused_siren_fwd_tc", "fused_nerf_bwd_tc", "fused_gabor_bwd_tc",
+           "fused_siren_bwd_tc", "fused_kilonerf_bwd_tc")
 # per-sample MACs of the backward's skipped input-gradient products
 # (dz1 w1^T, dz6 w6p^T, dzr0 wr0d^T at the real widths 63/63/27)
 SKIPPED_MACS = 256 * 63 + 256 * 63 + 128 * 27
@@ -1442,8 +1451,11 @@ def check_kilonerf_kernels(torch, dev):
     """Both KiloNeRF kernels against their plain versions on every phase-13
     point set, float32 and bfloat16 with TF32 off: outputs in point order
     (max abs) and gradients (max abs over max |g| per tensor), the exact
-    zeros of empty networks, two forward launches compared bit for bit; the
-    HMMA count of the bfloat16 forward's library (0 fails); at the camera
+    zeros of empty networks, two forward and two backward launches
+    compared bit for bit, and in bfloat16 the (rgb, sigma) the backward
+    recomputes (its debug output) equal to the forward's bit for bit; the
+    HMMA count of the bfloat16 forward's and backward's libraries (0
+    fails); at the camera
     set the forward's device time (``device_ms``) and the backward timed in
     turns with the plain versions (plain, kernel, kernel, plain), against
     their bound, with the times PERF.md §6 records for the earlier kernels
@@ -1456,15 +1468,16 @@ def check_kilonerf_kernels(torch, dev):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    path = {b.name: str(b.path) for b in build.build()}["fused_kilonerf_fwd_tc"]
-    mma = tensor_core_instructions(path)
-    if mma is None:
-        say("kernel fused_kilonerf_fwd bfloat16: SASS not read (no cuobjdump): HMMA not measured")
-    else:
-        say(f"kernel fused_kilonerf_fwd bfloat16: fused_kilonerf_fwd_tc SASS holds {mma[0]} "
-            f"HMMA and {mma[1]} HGMMA instructions")
+    paths = {b.name: str(b.path) for b in build.build()}
+    for name in ("fused_kilonerf_fwd", "fused_kilonerf_bwd"):
+        mma = tensor_core_instructions(paths[name + "_tc"])
+        if mma is None:
+            say(f"kernel {name} bfloat16: SASS not read (no cuobjdump): HMMA not measured")
+            continue
+        say(f"kernel {name} bfloat16: {name}_tc SASS holds {mma[0]} HMMA and {mma[1]} HGMMA "
+            "instructions")
         if mma[0] == 0:
-            fail("fused_kilonerf_fwd_tc, the bf16 KiloNeRF forward, holds no HMMA instruction")
+            fail(f"{name}_tc, a bf16 KiloNeRF kernel, holds no HMMA instruction")
     was = {("fused_kilonerf_fwd", "bfloat16"): 0.291, ("fused_kilonerf_fwd", "float32"): 0.286,
            ("fused_kilonerf_bwd", "bfloat16"): 1.498, ("fused_kilonerf_bwd", "float32"): 1.404}
     results = {}
@@ -1488,6 +1501,14 @@ def check_kilonerf_kernels(torch, dev):
                 same = torch.equal(out, field._forward(wc, disp))
                 ref_g = kilonerf_bwd_plain(wc, disp, cot, 32, 10, 4)
                 got_g = field._backward(wc, disp, cot)
+                same_g = torch.equal(got_g, field._backward(wc, disp, cot))
+                rec_same = None
+                if cdt == "bfloat16":
+                    # the forward the backward recomputes, from its debug output
+                    rec = torch.empty(n, 4, device=dev)
+                    field._launch_bwd(wc, disp, cot, rec=rec)
+                    rec_same = torch.equal(rec, out)
+                    del rec
                 torch.cuda.synchronize()
             if not (torch.isfinite(out).all() and torch.isfinite(got_g).all()):
                 fail(f"kilonerf kernels {cdt} {label}: non-finite output or gradient")
@@ -1504,10 +1525,13 @@ def check_kilonerf_kernels(torch, dev):
                 f"worst {w}={gerr[w]:.3e} (tol {KILO_GRAD_TOL[cdt]:.0e}), median "
                 f"{statistics.median(gerr.values()):.3e}; {int(empty.sum())} empty "
                 f"networks, gradients exactly 0: {zeros}; two forward launches identical: "
-                f"{same}")
-            if err > KILO_TOL[cdt] or gerr[w] > KILO_GRAD_TOL[cdt] or not zeros or not same:
-                fail(f"kilonerf kernels {cdt} {label} disagree with their plain versions "
-                     "or are not deterministic")
+                f"{same}, two backward launches identical: {same_g}"
+                + ("" if rec_same is None else
+                   f"; the backward's recompute is the forward's bit for bit: {rec_same}"))
+            if (err > KILO_TOL[cdt] or gerr[w] > KILO_GRAD_TOL[cdt] or not zeros or not same
+                    or not same_g or rec_same is False):
+                fail(f"kilonerf kernels {cdt} {label} disagree with their plain versions, "
+                     "are not deterministic or recompute another forward")
             worst["fwd"] = max(worst["fwd"], err)
             worst["bwd"] = max(worst["bwd"], gerr[w])
             if label.startswith("camera"):
@@ -1788,7 +1812,7 @@ def recomputed_forward(torch, family: str, field, packed, pts, dirs):
     C_RGB = 1..3 the rgb (render_common.cuh); sigma = relu(sigma_pre),
     times sigma_mul for the SIREN and the GaborNet, as the forward forms
     it."""
-    from nerf_tpu_torch.ops.cuda import fused_gabor, fused_nerf
+    from nerf_tpu_torch.ops.cuda import fused_gabor, fused_nerf, fused_siren
 
     n = pts.shape[0]
     stash = {}
@@ -1796,6 +1820,7 @@ def recomputed_forward(torch, family: str, field, packed, pts, dirs):
     torch.cuda.synchronize()
     run, grid, per_point = stash["run"], stash["grid"], stash["per_point"]
     at = {"fused_nerf_bwd_tc": fused_nerf.TC_BWD_COLS_AT,
+          "fused_siren_bwd_tc": fused_siren.TC_BWD_COLS_AT,
           "fused_gabor_bwd_tc": fused_gabor.TC_BWD_COLS_AT,
           **STASH_COLS}[field.bwd_library()] % per_point
     cols = stash["scratch"].view(grid, per_point * run)[:, at * run:(at + 4) * run]
@@ -1811,9 +1836,8 @@ def say_recompute_gap(torch, family: str, field, packed, pts, dirs, out, cdt: st
     """Print how far the forward that the family's field backward
     recomputes (``recomputed_forward``) lies from the forward kernel's
     output ``out``: in float32 both are one chain, so a zero there shows
-    the stash was read right; in bfloat16 rows 2 and 14 run their forward's
-    own tensor-core chain, so anything but a zero fails, and row 10
-    recomputes on the CUDA cores the tensor-core forward of row 9."""
+    the stash was read right; in bfloat16 rows 2, 10 and 14 run their
+    forward's own tensor-core chain, so anything but a zero fails."""
     rows = {"nerf": (2, 1), "siren": (10, 9), "gabor": (14, 13)}[family]
     rec = recomputed_forward(torch, family, field, packed, pts, dirs)
     gap = (float((rec[0] - out[0]).abs().max()), float((rec[1] - out[1]).abs().max()))
@@ -1875,9 +1899,9 @@ def check_siren_gabor_field_kernels(torch, dev):
     banks after autograd through the packing, and the point and direction
     cotangents of a random cotangent; each timed in turns (plain, kernel,
     kernel, plain) at 65,536 and 16,384 points against its bound. The
-    tensor-core kernels (bfloat16; the SIREN's backward stays on the CUDA
-    cores) run twice for identical bits; the GaborNet backward's recompute
-    must be the forward's output, and its runs are swept (sweep_runs)."""
+    tensor-core kernels (every bfloat16 one) run twice for identical bits;
+    the backwards' recompute must be the forward's output, and their runs
+    are swept (sweep_runs)."""
     from nerf_tpu_torch.ops.cuda import fused_render_gabor, fused_render_siren
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1898,8 +1922,8 @@ def check_siren_gabor_field_kernels(torch, dev):
             grad_bytes = (packed.wmat.numel() + packed.vec.numel() + n_f) * 4
             tol_out, tol_grad, tol_pt = SG_TOL.get(
                 (family, cdt), (TOL[cdt]["rgb"], GRAD_TOL[cdt], FIELD_PT_TOL[cdt]))
-            # the bf16 forwards on the tensor cores (rows 9 and 13), and the
-            # GaborNet's backward (row 14)
+            # the bf16 forwards and backwards on the tensor cores (rows 9,
+            # 10, 13 and 14)
             libs = {f"{kname}_fwd": field.fwd_library(), f"{kname}_bwd": field.bwd_library()}
             tc_fwd = libs[f"{kname}_fwd"].endswith("_tc")
             tc_bwd = libs[f"{kname}_bwd"].endswith("_tc")
@@ -3644,7 +3668,8 @@ def main() -> int:
     for name, source, line, launched in (
             ("fused_kilonerf_fwd", "fused_kilonerf_fwd_tc.cu", 367,
              kilo_launches + kilo_trained["fwd_launches"]),
-            ("fused_kilonerf_bwd", "fused_kilonerf_bwd.cu", 394, kilo_trained["bwd_launches"])):
+            ("fused_kilonerf_bwd", "fused_kilonerf_bwd_tc.cu", 394,
+             kilo_trained["bwd_launches"])):
         kernels.append(row(name, source, f"{nerf_tpu}fused_kilonerf.py:{line}",
                            launched, kilo_checks[(name, "bfloat16")],
                            max(kilo_checks[(name, c)]["err"]

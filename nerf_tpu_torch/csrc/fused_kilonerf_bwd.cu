@@ -2,28 +2,27 @@
 // network's parameters from the (rgb, sigma) cotangent of its points.
 //
 // Replaces: nerf_tpu/ops/pallas/fused_kilonerf.py::_bwd_kernel_mk (the
-// backward of make_fused_kilonerf_apply). Same function: recompute each
-// point's forward, push the cotangent back through rgb2, rgb1, the trunk
-// and its density row, l2 and l1 (ReLU masks from the forward), and sum
-// each network's weight and bias gradients over its points. The matrix
-// gradients take the products of bf16-rounded activations and cotangents in
-// bfloat16 mode, as the TPU kernel's `mmT`; the bias gradients and the
-// density row's (x2 * dsigma) are float32 sums of the unrounded values, as
-// its `acc_row`. Positions and directions get no gradient (the JAX VJP
-// returns zeros for them).
+// backward of make_fused_kilonerf_apply) in float32; bfloat16 runs on the
+// tensor cores (fused_kilonerf_bwd_tc.cu), and this entry refuses it. Same
+// function: recompute each point's forward, push the cotangent back through
+// rgb2, rgb1, the trunk and its density row, l2 and l1 (ReLU masks from the
+// forward), and sum each network's weight and bias gradients over its
+// points, in float32 (the TPU kernel's `mmT` and `acc_row`). Positions and
+// directions get no gradient (the JAX VJP returns zeros for them).
 //
 // What bounds it on this card: operations. Three times the forward's 6,080
 // MACs a point (the recompute, the cotangent products dz W^T, the gradient
 // products A^T dz), 9.6 GFLOP at 262,144 points: 0.14 ms on the float32
-// CUDA cores, 0.010 ms on the bf16 tensor cores; the bytes are the payload
-// and cotangent in, the weights in and the gradients out (38 MB, 11 us).
+// CUDA cores; the bytes are the payload and cotangent in, the weights in
+// and the gradients out (38 MB, 11 us).
 //
 // Design:
 //   * no float atomics, so a step is deterministic (chip_smoke.py checks a
 //     bit-identical resume): a CTA owns a piece of at most 512 sorted points
 //     of one network and writes its own partial of that network's
 //     gradients; a second kernel adds each network's partials in piece
-//     order and writes zeros for a network without points;
+//     order and writes zeros for a network without points
+//     (fused_kilonerf_common.cuh::fused_kilonerf_reduce_kernel);
 //   * per 128-point sub-tile, phase A takes one point per thread: the
 //     forward and the cotangent chain in registers, the activations (A) and
 //     cotangents (Z) the gradient products need into that point's rows of
@@ -71,20 +70,19 @@ constexpr int RH = H / WARPS;         // 8
 
 // Phase A: one point through the forward and back to dz1, its A and Z rows
 // written. `g` is its (rgb, sigma) cotangent.
-template <bool BF16>
 __device__ __forceinline__ void point_backward(const float* __restrict__ w, const float* loc,
                                                const float* dir, float4 g, const Dims& dims,
                                                float* arow, float* zrow) {
   float rgb[3], sigma_pre;
   unsigned mask_x1, mask_y;
-  point_forward<BF16, true>(w, loc, dir, dims, arow, rgb, sigma_pre, mask_x1, mask_y);
+  point_forward<true>(w, loc, dir, dims, arow, rgb, sigma_pre, mask_x1, mask_y);
   const float gr[3] = {g.x, g.y, g.z};
   float dzr2[3];
 #pragma unroll
   for (int m = 0; m < 3; ++m) dzr2[m] = gr[m] * rgb[m] * (1.0f - rgb[m]);
   const float dsig = sigma_pre > 0.0f ? g.w : 0.0f;
   store4(zrow + Z_DZR2, dzr2[0], dzr2[1], dzr2[2], dsig);
-  const float r0 = rnd<BF16>(dzr2[0]), r1 = rnd<BF16>(dzr2[1]), r2 = rnd<BF16>(dzr2[2]);
+  const float r0 = dzr2[0], r1 = dzr2[1], r2 = dzr2[2];
 
   float dz[H], rz[H];
   // through rgb2 and the ReLU of y
@@ -97,13 +95,13 @@ __device__ __forceinline__ void point_backward(const float* __restrict__ w, cons
   store32(zrow + Z_DZY, dz);
   // through rgb1's feature rows: dfeat = dzy Wr1f^T
 #pragma unroll
-  for (int j = 0; j < H; ++j) rz[j] = rnd<BF16>(dz[j]);
+  for (int j = 0; j < H; ++j) rz[j] = dz[j];
 #pragma unroll
   for (int k = 0; k < H; ++k) dz[k] = dot_row(rz, w + S_WR1F + k * H);
   store32(zrow + Z_DFEAT, dz);
   // through the trunk (features and density row) and the ReLU of x2
 #pragma unroll
-  for (int j = 0; j < H; ++j) rz[j] = rnd<BF16>(dz[j]);
+  for (int j = 0; j < H; ++j) rz[j] = dz[j];
 #pragma unroll
   for (int k = 0; k < H; k += 4) {
     const float4 x2 = *reinterpret_cast<const float4*>(arow + A_X2 + k);
@@ -117,7 +115,7 @@ __device__ __forceinline__ void point_backward(const float* __restrict__ w, cons
   store32(zrow + Z_DZ2, dz);
   // through l2 and the ReLU of x1
 #pragma unroll
-  for (int j = 0; j < H; ++j) rz[j] = rnd<BF16>(dz[j]);
+  for (int j = 0; j < H; ++j) rz[j] = dz[j];
 #pragma unroll
   for (int k = 0; k < H; ++k) {
     const float dx1 = dot_row(rz, w + S_W2 + k * H);
@@ -127,24 +125,23 @@ __device__ __forceinline__ void point_backward(const float* __restrict__ w, cons
 }
 
 // acc[0..4*N4-1] += a[0..4*N4-1] * z, with `a` a float4-aligned row of
-// shared memory read as a warp broadcast (rounded on read when ROUND).
-template <int N4, bool ROUND>
+// shared memory read as a warp broadcast.
+template <int N4>
 __device__ __forceinline__ void gemm_rows(float* acc, const float* a, float z) {
 #pragma unroll
   for (int q = 0; q < N4; ++q) {
     const float4 v = *reinterpret_cast<const float4*>(a + 4 * q);
-    acc[4 * q + 0] = fmaf(rnd<ROUND>(v.x), z, acc[4 * q + 0]);
-    acc[4 * q + 1] = fmaf(rnd<ROUND>(v.y), z, acc[4 * q + 1]);
-    acc[4 * q + 2] = fmaf(rnd<ROUND>(v.z), z, acc[4 * q + 2]);
-    acc[4 * q + 3] = fmaf(rnd<ROUND>(v.w), z, acc[4 * q + 3]);
+    acc[4 * q + 0] = fmaf(v.x, z, acc[4 * q + 0]);
+    acc[4 * q + 1] = fmaf(v.y, z, acc[4 * q + 1]);
+    acc[4 * q + 2] = fmaf(v.z, z, acc[4 * q + 2]);
+    acc[4 * q + 3] = fmaf(v.w, z, acc[4 * q + 3]);
   }
 }
 
-template <bool BF16, typename WT>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_kilonerf_bwd_kernel(const float4* __restrict__ pay, const float4* __restrict__ cot,
                           const int* __restrict__ offsets, const int* __restrict__ run_end,
-                          int g3, const WT* __restrict__ wpack, Dims dims,
+                          int g3, const float* __restrict__ wpack, Dims dims,
                           float* __restrict__ partial) {
   extern __shared__ float4 smem4[];
   float* w = reinterpret_cast<float*>(smem4);
@@ -177,7 +174,7 @@ fused_kilonerf_bwd_kernel(const float4* __restrict__ pay, const float4* __restri
       const float4 a = pay[2 * i], b = pay[2 * i + 1];
       const float loc[3] = {a.x, a.y, a.z};
       const float dir[3] = {b.x, b.y, b.z};
-      point_backward<BF16>(w, loc, dir, cot[i], dims, sA + tid * A_STRIDE,
+      point_backward(w, loc, dir, cot[i], dims, sA + tid * A_STRIDE,
                            sZ + tid * Z_STRIDE);
     }
     __syncthreads();
@@ -186,11 +183,11 @@ fused_kilonerf_bwd_kernel(const float4* __restrict__ pay, const float4* __restri
       const float* Z = sZ + t * Z_STRIDE;
       const float dz1 = Z[Z_DZ1 + lane], dz2 = Z[Z_DZ2 + lane];
       const float dfeat = Z[Z_DFEAT + lane], dzy = Z[Z_DZY + lane];
-      gemm_rows<R1 / 4, false>(a1, A + A_PENC + R1 * warp, rnd<BF16>(dz1));
-      gemm_rows<RH / 4, false>(a2, A + A_X1 + RH * warp, rnd<BF16>(dz2));
-      gemm_rows<RH / 4, BF16>(atf, A + A_X2 + RH * warp, rnd<BF16>(dfeat));
-      gemm_rows<RH / 4, false>(ar1f, A + A_FEAT + RH * warp, rnd<BF16>(dzy));
-      gemm_rows<RH / 4, false>(ar1d, A + A_DENC + RH * warp, rnd<BF16>(dzy));
+      gemm_rows<R1 / 4>(a1, A + A_PENC + R1 * warp, dz1);
+      gemm_rows<RH / 4>(a2, A + A_X1 + RH * warp, dz2);
+      gemm_rows<RH / 4>(atf, A + A_X2 + RH * warp, dfeat);
+      gemm_rows<RH / 4>(ar1f, A + A_FEAT + RH * warp, dzy);
+      gemm_rows<RH / 4>(ar1d, A + A_DENC + RH * warp, dzy);
       if (warp == 0) {          // b1, b2
         ex[0] += dz1;
         ex[1] += dz2;
@@ -204,7 +201,7 @@ fused_kilonerf_bwd_kernel(const float4* __restrict__ pay, const float4* __restri
       } else {                  // rgb2
 #pragma unroll
         for (int r = 0; r < 3; ++r)
-          ex[r] = fmaf(A[A_Y + wr2_k[r]], rnd<BF16>(Z[Z_DZR2 + wr2_m[r]]), ex[r]);
+          ex[r] = fmaf(A[A_Y + wr2_k[r]], Z[Z_DZR2 + wr2_m[r]], ex[r]);
       }
     }
     __syncthreads();
@@ -237,41 +234,20 @@ fused_kilonerf_bwd_kernel(const float4* __restrict__ pay, const float4* __restri
   }
 }
 
-// Each network's gradient: the sum of its pieces' partials in piece order
-// (zero when it has no points), written in the packed layout.
-__global__ void __launch_bounds__(256)
-fused_kilonerf_reduce_kernel(const float* __restrict__ partial,
-                             const int* __restrict__ run_end, Dims dims,
-                             float* __restrict__ out) {
-  const int g = blockIdx.x;
-  const int p0 = g > 0 ? run_end[g - 1] : 0, p1 = run_end[g];
-  float* dst = out + static_cast<size_t>(g) * dims.R;
-  for (int s = threadIdx.x; s < NW; s += blockDim.x) {
-    const int k = packed_index(s, dims.P, dims.D);
-    if (k < 0) continue;
-    float sum = 0.0f;
-    for (int p = p0; p < p1; ++p) sum += partial[static_cast<size_t>(p) * NW + s];
-    dst[k] = sum;
-  }
-}
-
-template <bool BF16, typename WT>
 int launch(const float* pay, const float* cot, const int* offsets, const int* run_end,
            int g3, const void* wpack, const Dims& dims, int grid, float* partial,
            float* out, cudaStream_t stream) {
-  auto kernel = fused_kilonerf_bwd_kernel<BF16, WT>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      fused_kilonerf_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
+  fused_kilonerf_bwd_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
       reinterpret_cast<const float4*>(pay), reinterpret_cast<const float4*>(cot),
-      offsets, run_end, g3, static_cast<const WT*>(wpack), dims, partial);
+      offsets, run_end, g3, static_cast<const float*>(wpack), dims, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   fused_kilonerf_reduce_kernel<<<g3, 256, 0, stream>>>(partial, run_end, dims, out);
   return static_cast<int>(cudaGetLastError());
 }
-
 }  // namespace
 
 extern "C" {
@@ -284,7 +260,8 @@ int fused_kilonerf_partial_floats() { return NW; }
 // `run`-point pieces; `partial` (grid, fused_kilonerf_partial_floats())
 // float32 scratch; `out` the (g3, R) float32 gradient in the packed
 // layout. Returns 0 on success, a cudaError_t code after a failed launch,
-// or -1 when the widths or shapes do not fit this kernel.
+// -1 when the widths or shapes do not fit this kernel, or -2 for bfloat16
+// (`bf16` 1), which runs on the tensor cores (fused_kilonerf_bwd_tc.cu).
 int fused_kilonerf_bwd(const float* pay, const float* cot, const int* offsets,
                        const int* run_end, int g3, const void* wpack, int R, int P, int D,
                        int hidden, int bf16, int n, int run, int grid, float* partial,
@@ -292,18 +269,16 @@ int fused_kilonerf_bwd(const float* pay, const float* cot, const int* offsets,
   if (hidden != H || P > PMAX || D > DMAX || P < 3 || D < 3 ||
       R != packed_size(P, D) || g3 <= 0 || n <= 0 || run != PIECE || grid <= 0)
     return -1;
+  if (bf16) return -2;
   const Dims dims{P, D, R};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<true, __nv_bfloat16>(pay, cot, offsets, run_end, g3, wpack, dims, grid,
-                                       partial, out, s);
-  return launch<false, float>(pay, cot, offsets, run_end, g3, wpack, dims, grid, partial,
-                              out, s);
+  return launch(pay, cot, offsets, run_end, g3, wpack, dims, grid, partial, out, s);
 }
 
 const char* fused_kilonerf_bwd_error(int code) {
   if (code == -1) return "widths or shapes do not fit the kernel (hidden 32, encodings "
                          "of at most 64 / 32 columns, 512-point pieces)";
+  if (code == -2) return "bfloat16 runs on the tensor cores (fused_kilonerf_bwd_tc)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,6 +1,7 @@
 // Shared pieces of the KiloNeRF field kernels for Hopper (sm_90a),
-// fused_kilonerf_fwd.cu, fused_kilonerf_bwd.cu and (the run, the encoding
-// and the widths) fused_kilonerf_fwd_tc.cu:
+// fused_kilonerf_fwd.cu, fused_kilonerf_bwd.cu and (the run, the encoding,
+// the widths and the partials' sum) the tensor-core kernels
+// fused_kilonerf_fwd_tc.cu and fused_kilonerf_bwd_tc.cu:
 //   * the per-network parameter block in shared memory (an aligned,
 //     zero-padded float32 copy of the network's slice of the packed buffer)
 //     and the map between the two layouts;
@@ -8,7 +9,8 @@
 //     pieces of fixed length);
 //   * the frequency encoding of one column;
 //   * one point's forward chain, optionally writing the activations the
-//     backward needs into that point's row of shared memory.
+//     backward needs into that point's row of shared memory;
+//   * the sum of a backward's per-run gradient partials, network by network.
 //
 // The packed buffer (ops/cuda/fused_kilonerf.py::pack_f32) holds, per
 // network, every parameter of nerf_tpu_torch/models/kilonerf.py in the JAX
@@ -95,26 +97,13 @@ __device__ __forceinline__ int packed_index(int s, int P, int D) {
   return m < 3 ? o_r2b + m : -1;
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <bool BF16>
-__device__ __forceinline__ float rnd(float x) {
-  return BF16 ? round_bf16(x) : x;
-}
-
-// Copy network g's block into shared memory, pads zeroed. Every thread of
-// the CTA takes part; the caller synchronises.
-template <typename WT>
-__device__ __forceinline__ void stage_weights(float* w, const WT* __restrict__ src,
+// Copy network g's float32 block into shared memory, pads zeroed. Every
+// thread of the CTA takes part; the caller synchronises.
+__device__ __forceinline__ void stage_weights(float* w, const float* __restrict__ src,
                                               const Dims& dims) {
   for (int s = threadIdx.x; s < NW; s += blockDim.x) {
     const int k = packed_index(s, dims.P, dims.D);
-    w[s] = k >= 0 ? to_float(src[k]) : 0.0f;
+    w[s] = k >= 0 ? src[k] : 0.0f;
   }
 }
 
@@ -190,9 +179,8 @@ __device__ __forceinline__ void store32(float* dst, const float* v) {
   for (int q = 0; q < H / 4; ++q) store4(dst + 4 * q, v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
 }
 
-// One point's activations row in the backward's shared memory (floats):
-// the matmul inputs as the products read them (rounded to the compute
-// dtype), but x2 unrounded (the density gradient reads it so).
+// One point's activations row in the CUDA-core backward's shared memory
+// (floats): the matmul inputs as the products read them.
 constexpr int A_PENC = 0;      // PMAX
 constexpr int A_X1 = 64;       // H
 constexpr int A_X2 = 96;       // H, unrounded
@@ -202,14 +190,14 @@ constexpr int A_Y = 192;       // H
 constexpr int A_STRIDE = 228;  // 224 used; 57 float4s, so float4 rows of
                                // neighbouring points hit distinct banks
 
-// The forward chain of one point (nerf_tpu/ops/pallas/fused_kilonerf.py,
-// `_forward_tile_multi` at one expert): matmul inputs rounded to the
-// compute dtype (the weights already are), float32 sums, the bias added
-// after the sum; the density from the unrounded x2 and the (rounded)
-// density row; rgb the float32 sigmoid. Returns rgb, the density
-// pre-activation and the ReLU masks of x1 and y (bit k: unit k active).
-// With STORE the activations go to `arow` (A_* layout).
-template <bool BF16, bool STORE>
+// The float32 forward chain of one point (nerf_tpu/ops/pallas/
+// fused_kilonerf.py, `_forward_tile_multi` at one expert), the CUDA-core
+// kernels' (bfloat16 runs on the tensor cores, fused_kilonerf_tc_common.cuh):
+// float32 sums, the bias added after the sum; the density from x2 and the
+// density row; rgb the sigmoid. Returns rgb, the density pre-activation
+// and the ReLU masks of x1 and y (bit k: unit k active). With STORE the
+// activations go to `arow` (A_* layout).
+template <bool STORE>
 __device__ __forceinline__ void point_forward(const float* __restrict__ w, const float* loc,
                                               const float* dir, const Dims& dims,
                                               float* arow, float* rgb, float& sigma_pre,
@@ -223,7 +211,7 @@ __device__ __forceinline__ void point_forward(const float* __restrict__ w, const
     float v[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      v[u] = c0 + u < dims.P ? rnd<BF16>(enc_value(loc[0], loc[1], loc[2], c0 + u)) : 0.0f;
+      v[u] = c0 + u < dims.P ? enc_value(loc[0], loc[1], loc[2], c0 + u) : 0.0f;
     if (STORE) store4(arow + A_PENC + c0, v[0], v[1], v[2], v[3]);
 #pragma unroll
     for (int u = 0; u < 4; ++u) axpy_row(acc, v[u], w + S_W1 + (c0 + u) * H);
@@ -236,32 +224,26 @@ __device__ __forceinline__ void point_forward(const float* __restrict__ w, const
   }
   // l2
 #pragma unroll
-  for (int j = 0; j < H; ++j) {
-    x[j] = rnd<BF16>(x[j]);
-    acc[j] = 0.0f;
-  }
+  for (int j = 0; j < H; ++j) acc[j] = 0.0f;
   if (STORE) store32(arow + A_X1, x);
 #pragma unroll
   for (int k = 0; k < H; ++k) axpy_row(acc, x[k], w + S_W2 + k * H);
 #pragma unroll
   for (int j = 0; j < H; ++j) x[j] = fmaxf(acc[j] + w[S_B2 + j], 0.0f);
   if (STORE) store32(arow + A_X2, x);
-  // density from the unrounded x2, float32
+  // density from x2
   float s = 0.0f;
 #pragma unroll
   for (int k = 0; k < H; ++k) s = fmaf(x[k], w[S_WTS + k], s);
   sigma_pre = s + w[S_BTS];
   // trunk features
 #pragma unroll
-  for (int j = 0; j < H; ++j) {
-    x[j] = rnd<BF16>(x[j]);
-    acc[j] = 0.0f;
-  }
+  for (int j = 0; j < H; ++j) acc[j] = 0.0f;
 #pragma unroll
   for (int k = 0; k < H; ++k) axpy_row(acc, x[k], w + S_WTF + k * H);
 #pragma unroll
   for (int j = 0; j < H; ++j) {
-    x[j] = rnd<BF16>(acc[j] + w[S_BTF + j]);
+    x[j] = acc[j] + w[S_BTF + j];
     acc[j] = 0.0f;
   }
   if (STORE) store32(arow + A_FEAT, x);
@@ -272,7 +254,7 @@ __device__ __forceinline__ void point_forward(const float* __restrict__ w, const
     float v[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      v[u] = c0 + u < dims.D ? rnd<BF16>(enc_value(dir[0], dir[1], dir[2], c0 + u)) : 0.0f;
+      v[u] = c0 + u < dims.D ? enc_value(dir[0], dir[1], dir[2], c0 + u) : 0.0f;
     if (STORE) store4(arow + A_DENC + c0, v[0], v[1], v[2], v[3]);
 #pragma unroll
     for (int u = 0; u < 4; ++u) axpy_row(acc, v[u], w + S_WR1D + (c0 + u) * H);
@@ -280,9 +262,8 @@ __device__ __forceinline__ void point_forward(const float* __restrict__ w, const
   mask_y = 0u;
 #pragma unroll
   for (int j = 0; j < H; ++j) {
-    const float y = fmaxf(acc[j] + w[S_BR1 + j], 0.0f);
-    if (y > 0.0f) mask_y |= 1u << j;
-    x[j] = rnd<BF16>(y);
+    x[j] = fmaxf(acc[j] + w[S_BR1 + j], 0.0f);
+    if (x[j] > 0.0f) mask_y |= 1u << j;
   }
   if (STORE) store32(arow + A_Y, x);
   // rgb2 and the sigmoid
@@ -297,6 +278,26 @@ __device__ __forceinline__ void point_forward(const float* __restrict__ w, const
   rgb[0] = 1.0f / (1.0f + expf(-(z0 + w[S_BR2 + 0])));
   rgb[1] = 1.0f / (1.0f + expf(-(z1 + w[S_BR2 + 1])));
   rgb[2] = 1.0f / (1.0f + expf(-(z2 + w[S_BR2 + 2])));
+}
+
+// Each network's gradient: the sum of its pieces' partials (NW floats
+// each, the shared-memory layout) in piece order (zero when it has no
+// points), written in the packed layout. The second kernel of both
+// backwards (fused_kilonerf_bwd.cu, fused_kilonerf_bwd_tc.cu).
+__global__ void __launch_bounds__(256)
+fused_kilonerf_reduce_kernel(const float* __restrict__ partial,
+                             const int* __restrict__ run_end, Dims dims,
+                             float* __restrict__ out) {
+  const int g = blockIdx.x;
+  const int p0 = g > 0 ? run_end[g - 1] : 0, p1 = run_end[g];
+  float* dst = out + static_cast<size_t>(g) * dims.R;
+  for (int s = threadIdx.x; s < NW; s += blockDim.x) {
+    const int k = packed_index(s, dims.P, dims.D);
+    if (k < 0) continue;
+    float sum = 0.0f;
+    for (int p = p0; p < p1; ++p) sum += partial[static_cast<size_t>(p) * NW + s];
+    dst[k] = sum;
+  }
 }
 
 }  // namespace kilo

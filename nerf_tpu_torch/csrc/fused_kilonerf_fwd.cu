@@ -61,7 +61,7 @@ fused_kilonerf_fwd_kernel(const float4* __restrict__ pay, const long long* __res
   const float dir[3] = {b.x, b.y, b.z};
   float rgb[3], sigma_pre;
   unsigned m1, my;
-  point_forward<false, false>(w, loc, dir, dims, nullptr, rgb, sigma_pre, m1, my);
+  point_forward<false>(w, loc, dir, dims, nullptr, rgb, sigma_pre, m1, my);
   out[row] = make_float4(rgb[0], rgb[1], rgb[2], fmaxf(sigma_pre, 0.0f));
 }
 

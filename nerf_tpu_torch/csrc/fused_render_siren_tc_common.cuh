@@ -3,11 +3,15 @@
 // (fused_render_siren_train_tc.cu, which stashes what its backward needs),
 // the bfloat16 forward render (fused_render_siren_fwd_tc.cu, which keeps
 // each point's density and colour in shared memory and composites them
-// straight away) and the bfloat16 field forward (fused_siren_fwd_tc.cu,
-// which writes them out in point order). One chain, so the train pass's
-// forward outputs are the forward render's bit for bit. The chunk's input
-// stage is a loader policy: ray samples (load_chunk_tc) or given points and
-// directions (load_point_chunk_tc).
+// straight away), the bfloat16 field forward (fused_siren_fwd_tc.cu, which
+// writes them out in point order) and the bfloat16 field backward
+// (fused_siren_bwd_tc.cu, which stashes as the train pass does). One
+// chain, so the train pass's and the field backward's forward outputs are
+// the forward render's and the field forward's bit for bit. The chunk's
+// input stage is a loader policy: ray samples (load_chunk_tc) or given
+// points and directions (load_point_chunk_tc). The MLP backward over a
+// CTA's stash (backward, at the end), shared by the train pass and the
+// field backward, closes the file.
 //
 // The chain is nerf_tpu/ops/pallas/fused_siren.py::_mlp_tile in bfloat16,
 // at its rounding points:
@@ -417,5 +421,267 @@ __device__ void forward_chunk_siren_tc(const RayInputs& in, const Siren& sp,
   forward_chain_siren_tc<STASH>([&] { load_chunk_tc<!STASH>(in, chunk0, nvalid, sm); }, in.vec,
                                 sp, wmat, sm, st, l0, cap);
 }
+
+// ---------------------------------------------------------------- backward
+// The bf16 MLP backward over a CTA's stashed points, shared by the train
+// pass (fused_render_siren_train_tc.cu, after its compositing backward)
+// and the field backward (fused_siren_bwd_tc.cu, from a given cotangent,
+// with the input products as hooks): each dz W^T on the tensor cores chunk
+// by chunk (dact_tc), each A^T dz once over the CTA's points (dweight_tc).
+
+// Shared memory (bytes) of a backward CTA: two activation tiles (a dz
+// chunk, the staged output), the cosine tile (float32 [64][LDM]), the
+// weight stages of a dz W^T product, a chunk's per-point cotangent columns,
+// a reduction buffer. The weight gradients' stages overlay the activation
+// and cosine tiles; the per-ray losses of the compositing pass the second
+// activation tile.
+constexpr int LDM = H + 8;                     // row stride (floats) of the cosines
+constexpr int BB_ACT0 = 0;
+constexpr int BB_ACT1 = BB_ACT0 + TC_P * LDS * 2;
+constexpr int BB_COS = BB_ACT1 + TC_P * LDS * 2;
+constexpr int BB_WST = BB_COS + TC_P * LDM * 4;
+constexpr int BB_COL = BB_WST + WST_DACT_BYTES;
+constexpr int BB_RED = BB_COL + 4 * TC_P * 4;
+constexpr int SMEM_BWD = BB_RED + 4 * THREADS * 4;
+static_assert(SMEM_BWD <= 232448, "exceeds the per-block shared memory");
+static_assert(DW_STAGE_BYTES <= BB_WST, "weight-gradient stages fit");
+
+// A backward CTA's stash (TcStash), `cap` rows of each block: 15,744 bytes a
+// point, the per-point columns (N_COLS floats) last.
+constexpr int TC_BYTES_PER_POINT = 2 * (11 * H + HR + DP) + 4 * (9 * H + HR + N_COLS);
+static_assert(TC_BYTES_PER_POINT % 16 == 0, "stash rows must stay 16-byte aligned");
+
+__device__ inline TcStash carve_stash(unsigned char* p, int cap) {
+  TcStash s;
+  const size_t c = static_cast<size_t>(cap);
+  auto take_b = [&](int cols) {
+    bf16* r = reinterpret_cast<bf16*>(p);
+    p += c * cols * 2;
+    return r;
+  };
+  auto take_f = [&](int cols) {
+    float* r = reinterpret_cast<float*>(p);
+    p += c * cols * 4;
+    return r;
+  };
+  for (int i = 0; i < NL; ++i) s.h[i] = take_b(H);
+  s.feat = take_b(H);
+  s.dz[0] = take_b(H);
+  s.dz[1] = take_b(H);
+  s.y = take_b(HR);
+  s.denc = take_b(DP);
+  s.h8f = take_f(H);
+  for (int i = 0; i < NL; ++i) s.c[i] = take_f(H);
+  s.cr0 = take_f(HR);
+  s.cols = take_f(N_COLS);
+  return s;
+}
+
+struct BwdSmem {
+  bf16* act0;
+  bf16* act1;
+  float* cos;
+  bf16* wst;
+  float* col;
+  float* red;
+};
+
+// dz_out = EPI(dz_in W^T) over the CTA's points l < cap_c, chunk by chunk:
+// dz_in (KP columns) and dz_out (256) bf16 with stride LDZ, W (256 x KP) the
+// packed matrix. COS: EPI(x) = ((x (+ dsig ws)) w0) cos, the cosine from
+// cref (float32, 256 columns), staged into shared memory with the chunk's dz
+// (and dsig) and its first weight tiles; else EPI(x) = x. The unrounded
+// values are summed by column into colsum (256), in a fixed order; dz_out
+// gets them rounded. Ends past a barrier.
+template <int KP, bool COS, bool DSIG>
+__device__ void dact_tc(const bf16* __restrict__ dz_in, const bf16* __restrict__ w,
+                        const float* __restrict__ cref, float w0, const float* __restrict__ dsig,
+                        const float* __restrict__ wsig, bf16* __restrict__ dz_out,
+                        float* __restrict__ colsum, int cap_c, const BwdSmem& sm) {
+  static_assert(COS || !DSIG, "dsig ws joins the sine layer's epilogue");
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int n0 = (tid >> 5) * 32;
+  float cs[4][2] = {};
+  for (int l0 = 0; l0 < cap_c; l0 += TC_P) {
+    constexpr int CPR = KP / 8;
+    for (int e = tid; e < TC_P * CPR; e += THREADS) {
+      const int r = e / CPR, q = (e % CPR) * 8;
+      cp_async16(sm.act0 + r * LDS + q, dz_in + static_cast<size_t>(l0 + r) * LDZ + q);
+    }
+    if constexpr (COS) {
+      for (int e = tid; e < TC_P * (H / 4); e += THREADS) {
+        const int r = e / (H / 4), q = (e % (H / 4)) * 4;
+        cp_async16(sm.cos + r * LDM + q, cref + static_cast<size_t>(l0 + r) * H + q);
+      }
+    }
+    if constexpr (DSIG) {
+      if (tid < TC_P / 4) cp_async16(sm.col + tid * 4, dsig + l0 + tid * 4);
+    }
+    cp_async_commit();
+    float acc[4][4][4];
+    zero_acc(acc);
+    gemm_dact<KP>(acc, sm.act0, w, sm.wst);
+    each_pair<4>(acc, n0, [&](int, int j, int, int row, int col, float& v0, float& v1) {
+      float x0 = v0, x1 = v1;
+      if constexpr (DSIG) {
+        const float ds = sm.col[row];
+        x0 = __fadd_rn(x0, __fmul_rn(ds, __ldg(wsig + col)));
+        x1 = __fadd_rn(x1, __fmul_rn(ds, __ldg(wsig + col + 1)));
+      }
+      if constexpr (COS) {
+        const float2 m = *reinterpret_cast<const float2*>(sm.cos + row * LDM + col);
+        x0 = __fmul_rn(__fmul_rn(x0, w0), m.x);
+        x1 = __fmul_rn(__fmul_rn(x1, w0), m.y);
+      }
+      cs[j][0] += x0;
+      cs[j][1] += x1;
+      put2(sm.act1 + row * LDS + col, x0, x1);
+    });
+    __syncthreads();
+    tile_out(sm.act1, LDS, H, dz_out, static_cast<size_t>(l0));
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float v = cs[j][u];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane < 4) colsum[n0 + j * 8 + 2 * lane + u] = v;
+    }
+  __syncthreads();
+}
+
+// The train pass's hooks: no input products.
+struct NoBwdHooks {
+  __device__ void on_dzr0(const bf16*) const {}
+  __device__ void on_dz1(const bf16*) const {}
+};
+
+// The MLP backward (fused_siren.py::_mlp_bwd_core) over the CTA's points l
+// < cap_c from the stash and the cotangent columns dzr1 and dsig, into the
+// CTA's partial (offsets of the packed layout, the vectors from N_W). The
+// input products are the hooks': hk.on_dzr0(dzr0) once dzr0 is complete
+// (st.dz[0], 128 columns at stride LDZ) and hk.on_dz1(dz1) at the end (256
+// columns); each starts past a barrier. on_dzr0 may use sm.act0, sm.act1
+// and sm.wst and must end past a barrier. The train pass takes
+// NoBwdHooks.
+template <typename Hooks>
+__device__ void backward(const TcStash& st, int cap, const Siren& sp,
+                         const float* __restrict__ vec, const bf16* __restrict__ wmat,
+                         float* __restrict__ part, int cap_c, const BwdSmem& sm,
+                         const Hooks& hk) {
+  const int tid = threadIdx.x;
+  const size_t cz = static_cast<size_t>(cap);
+  const float* dsig = st.cols + C_DSIG * cz;
+  const float* dzr1 = st.cols + C_DZR1 * cz;
+  float* pvec = part + N_W;
+  // rgb output layer (CUDA cores), chunk by chunk: dzr0 = ((r(dzr1) wr1^T)
+  // w0h) cr0 to dz[0] (128 columns), with its column sums (br0) and wr1 =
+  // r(y)^T r(dzr1) in two halves of each chunk's points; br1 and bs (the
+  // sums of dzr1 and dsig) by four threads over the staged columns
+  {
+    const int k = tid & (HR - 1), half = tid / HR;
+    const float w0 = __bfloat162float(wmat[OFF_WR1 + k * 8 + 0]);
+    const float w1 = __bfloat162float(wmat[OFF_WR1 + k * 8 + 1]);
+    const float w2 = __bfloat162float(wmat[OFF_WR1 + k * 8 + 2]);
+    const bf16* __restrict__ y = st.y;
+    const float* __restrict__ cr0 = st.cr0;
+    bf16* __restrict__ dz0 = st.dz[0];
+    float* col_s = sm.col;              // [4][64]: dzr1 (3), dsig
+    float sb = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f, sx = 0.f;
+    for (int l0 = 0; l0 < cap_c; l0 += TC_P) {
+      if (tid < 4 * TC_P) {
+        const int c = tid / TC_P, p = tid % TC_P;
+        col_s[tid] = c < 3 ? dzr1[c * cz + l0 + p] : dsig[l0 + p];
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int j = 0; j < TC_P / 2; ++j) {
+        const int p = half + 2 * j;
+        const size_t l = static_cast<size_t>(l0 + p);
+        const float yv = __bfloat162float(y[l * HR + k]);
+        const float d0 = round_bf16(col_s[p]), d1 = round_bf16(col_s[TC_P + p]),
+                    d2 = round_bf16(col_s[2 * TC_P + p]);
+        float dy = fmaf(d0, w0, 0.f);
+        dy = fmaf(d1, w1, dy);
+        dy = fmaf(d2, w2, dy);
+        const float v = __fmul_rn(__fmul_rn(dy, sp.w0h), cr0[l * HR + k]);
+        dz0[l * LDZ + k] = __float2bfloat16_rn(v);
+        sb += v;
+        s0 = fmaf(yv, d0, s0);
+        s1 = fmaf(yv, d1, s1);
+        s2 = fmaf(yv, d2, s2);
+      }
+      if (tid < 4)
+        for (int p = 0; p < TC_P; ++p) sx += col_s[tid * TC_P + p];
+      __syncthreads();
+    }
+    float* red = sm.red;                // [4][256]: br0, wr1 (3) by thread
+    red[tid] = sb;
+    red[THREADS + tid] = s0;
+    red[2 * THREADS + tid] = s1;
+    red[3 * THREADS + tid] = s2;
+    __syncthreads();
+    if (tid < HR) {
+      pvec[OFF_BR0 + tid] = red[tid] + red[tid + HR];
+      float* o = part + OFF_WR1 + tid * 8;
+      for (int c = 0; c < 3; ++c) o[c] = red[(1 + c) * THREADS + tid] + red[(1 + c) * THREADS + tid + HR];
+      for (int c = 3; c < 8; ++c) o[c] = 0.f;
+    } else if (tid < HR + 8) {
+      pvec[OFF_BR1 + tid - HR] = 0.f;
+    }
+    __syncthreads();
+    if (tid < 3) pvec[OFF_BR1 + tid] = sx;
+    if (tid == 3) pvec[OFF_BS] = sx;
+  }
+  hk.on_dzr0(st.dz[0]);
+  // the density row: ws = h8^T dsig, a column loop on the unrounded h8
+  {
+    float s = 0.f;
+#pragma unroll 8
+    for (int l = 0; l < cap_c; ++l) s = fmaf(st.h8f[static_cast<size_t>(l) * H + tid], dsig[l], s);
+    pvec[OFF_WS + tid] = s;
+  }
+  // rgb sine layer: wr0f, wr0d; dfeat = dzr0 wr0f^T (bre)
+  dweight_tc<H, HR, 4, 2>(st.feat, H, H, st.dz[0], cap_c, part + OFF_WR0F, sm.act0);
+  dweight_tc<DP, HR, 1, 8>(st.denc, DP, DP, st.dz[0], cap_c, part + OFF_WR0D, sm.act0);
+  dact_tc<HR, false, false>(st.dz[0], wmat + OFF_WR0F, nullptr, 1.f, nullptr, nullptr, st.dz[1],
+                            pvec + OFF_BRE, cap_c, sm);
+  // feature remap: wre from r(h8); dz8 = ((dfeat wre^T + dsig ws) w0h) c8 (b8)
+  dweight_tc<128, H, 2, 4>(st.h[NL - 1], H, H, st.dz[1], cap_c, part + OFF_WRE, sm.act0);
+  dact_tc<H, true, true>(st.dz[1], wmat + OFF_WRE, st.c[NL - 1], sp.w0h, dsig, vec + OFF_WS,
+                         st.dz[0], pvec + (NL - 1) * H, cap_c, sm);
+  // sine layers 8..2: w_l from h_{l-1}; dz_{l-1} = ((dz_l w_l^T) w0_{l-1}) c_{l-1}
+  bf16* cur = st.dz[0];
+  bf16* nxt = st.dz[1];
+  for (int l = NL; l >= 2; --l) {
+    dweight_tc<128, H, 2, 4>(st.h[l - 2], H, H, cur, cap_c, part + off_w(l), sm.act0);
+    dact_tc<H, true, false>(cur, wmat + off_w(l), st.c[l - 2], l == 2 ? sp.w0 : sp.w0h, nullptr,
+                            nullptr, nxt, pvec + (l - 2) * H, cap_c, sm);
+    bf16* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  // first layer: dW1 = r(pos)^T r(dz1) (rows 3..7 zero), a column loop
+  {
+    const float* pos = st.cols + C_POS * cz;
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+#pragma unroll 8
+    for (int l = 0; l < cap_c; ++l) {
+      const float d = __bfloat162float(cur[static_cast<size_t>(l) * LDZ + tid]);
+      s0 = fmaf(pos[l], d, s0);
+      s1 = fmaf(pos[cz + l], d, s1);
+      s2 = fmaf(pos[2 * cz + l], d, s2);
+    }
+    part[OFF_W1 + 0 * H + tid] = s0;
+    part[OFF_W1 + 1 * H + tid] = s1;
+    part[OFF_W1 + 2 * H + tid] = s2;
+    for (int k = 3; k < 8; ++k) part[OFF_W1 + k * H + tid] = 0.f;
+  }
+  hk.on_dz1(cur);
+}
+
+static_assert(THREADS == H, "the column loops give each thread one of the 256 columns");
 
 }  // namespace siren

@@ -10,13 +10,15 @@
 // rows of the three coordinates) and the direction cotangent, _encode_bwd
 // of dzr0 wr0d^T with the EXACT cosine (cosf) in both modes.
 //
+// It takes the float32 mode; bfloat16 runs on the tensor cores
+// (fused_siren_bwd_tc.cu), and this entry refuses it.
+//
 // What bounds it on this card: operations. A point costs three times the
 // forward's 561,920 MACs (the recomputed forward, the dz W^T products with
 // the two input products, and the A^T dz gradient products) and 2,176
 // sines and as many cosines, against 40 bytes in and 24 out a point plus
-// the weights and their float32 gradients. float32 runs on the CUDA cores
-// (67 TFLOP/s); bfloat16's bound is the tensor cores' 989 TFLOP/s, which
-// this first version, on the CUDA cores too, stays far from.
+// the weights and their float32 gradients, on the CUDA cores (67 TFLOP/s
+// in float32).
 //
 // Design (that of fused_render_siren_train.cu, without the compositing):
 //   1. A CTA owns a run of points (the wrapper gives about one run an SM,
@@ -31,11 +33,11 @@
 //   3. The MLP backward over all the CTA's points, the SIREN train kernel's
 //      own (fused_render_siren_common.cuh::mlp_backward); once dzr0 is
 //      complete, one thread a (point, coordinate) takes the direction
-//      cotangent: the encoding columns' cotangents dzr0 wr0d^T (dzr0
-//      rounded to bf16 in bfloat16 mode, float32 sums over the 128 columns)
-//      and dx = g_x + sum_c g_c cos(2^j x + phase) 2^j.
+//      cotangent: the encoding columns' cotangents dzr0 wr0d^T (float32
+//      sums over the 128 columns) and dx = g_x + sum_c g_c cos(2^j x +
+//      phase) 2^j.
 //   4. One thread a (point, coordinate): the point cotangent dz1 w1^T over
-//      the 256 columns (dz1 rounded in bfloat16 mode).
+//      the 256 columns.
 //   5. A second small kernel adds the per-CTA gradient partials in CTA
 //      order. Nothing is atomic, so a step is deterministic from run to run.
 // Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared library
@@ -47,11 +49,10 @@ namespace {
 
 using namespace siren;
 
-template <bool BF16, typename WT>
 __global__ void __launch_bounds__(THREADS, 1)
 siren_field_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
                        const float* __restrict__ cot, const float* __restrict__ vec,
-                       const WT* __restrict__ wmat, const WT* __restrict__ wmat_t,
+                       const float* __restrict__ wmat, const float* __restrict__ wmat_t,
                        Siren sp, int n, int pts_per_cta, int cap, int real_d,
                        float* __restrict__ scratch, float* __restrict__ partial,
                        float* __restrict__ dpts, float* __restrict__ ddirs) {
@@ -70,8 +71,8 @@ siren_field_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ 
 
   // ---- 1. forward, stashing what the backward needs ----
   for (int c0 = 0; c0 < npts; c0 += P) {
-    load_point_chunk<BF16>(pts, dirs, p_begin + c0, min(P, npts - c0), real_d, smem);
-    mlp_chunk<BF16, true>(vec, wmat, sp, smem, sc.st, static_cast<size_t>(c0));
+    load_point_chunk<false>(pts, dirs, p_begin + c0, min(P, npts - c0), real_d, smem);
+    mlp_chunk<false, true>(vec, wmat, sp, smem, sc.st, static_cast<size_t>(c0));
   }
 
   // ---- 2. the heads' backward: dzr1 = ((g_rgb r) (1 - r)) rgb_mul, dsig =
@@ -95,10 +96,10 @@ siren_field_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ 
 
   // ---- 3. MLP backward; the direction cotangent from dzr0 ----
   auto direction = [&](const float* dzr0) {
-    direction_cotangent<BF16>(dzr0, wmat + OFF_WR0D, dirs, p_begin, npts, real_d, ddirs);
+    direction_cotangent<false>(dzr0, wmat + OFF_WR0D, dirs, p_begin, npts, real_d, ddirs);
   };
   const float* dz1 =
-      mlp_backward<BF16>(sc, cz, vec, wmat, wmat_t, sp, part, cap_c, smem,
+      mlp_backward<false>(sc, cz, vec, wmat, wmat_t, sp, part, cap_c, smem,
                          direction);
 
   // ---- 4. the point cotangent dz1 w1^T ----
@@ -106,26 +107,21 @@ siren_field_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ 
     const int l = idx / 3, k = idx % 3;
     const float* row = dz1 + static_cast<size_t>(l) * LDZ;
     float s = 0.f;
-    for (int c = 0; c < H; ++c) {
-      const float v = BF16 ? round_bf16(row[c]) : row[c];
-      s = fmaf(v, load1(wmat + OFF_W1 + k * H + c), s);
-    }
+    for (int c = 0; c < H; ++c) s = fmaf(row[c], load1(wmat + OFF_W1 + k * H + c), s);
     dpts[static_cast<size_t>(p_begin + l) * 3 + k] = s;
   }
 }
 
-template <bool BF16, typename WT>
 int launch(const float* pts, const float* dirs, const float* cot, const float* vec,
            const void* wmat, const void* wmat_t, const Siren& sp, int n,
            int pts_per_cta, int cap, int real_d, float* scratch, float* partial,
            float* out, float* dpts, float* ddirs, cudaStream_t stream) {
-  auto kernel = siren_field_bwd_kernel<BF16, WT>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      siren_field_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (n + pts_per_cta - 1) / pts_per_cta;
-  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      pts, dirs, cot, vec, static_cast<const WT*>(wmat), static_cast<const WT*>(wmat_t),
+  siren_field_bwd_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
+      pts, dirs, cot, vec, static_cast<const float*>(wmat), static_cast<const float*>(wmat_t),
       sp, n, pts_per_cta, cap, real_d, scratch, partial, dpts, ddirs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -151,8 +147,9 @@ void siren_field_bwd_sizes(int* per_point, int* npart, int* n_out) {
 // ceil(n / pts_per_cta) and cap >= ceil(pts_per_cta / 64) * 64 is a
 // multiple of 64. Writes the gradients to `out` and the point and direction
 // cotangents (n, 3) each. Returns 0 on success, a cudaError_t code after a
-// failed launch, or -1 when the packed buffers or the shapes do not fit
-// this kernel.
+// failed launch, -1 when the packed buffers or the shapes do not fit this
+// kernel, or -2 for bfloat16 (`bf16` 1), which runs on the tensor cores
+// (fused_siren_bwd_tc.cu).
 int siren_field_bwd(const float* pts, const float* dirs, const float* cot,
                     const void* wmat, const void* wmat_t, const float* vec, int n_w,
                     int n_b, int bf16, int n, int pts_per_cta, int cap, int real_d,
@@ -162,18 +159,16 @@ int siren_field_bwd(const float* pts, const float* dirs, const float* cot,
   if (n_w != N_W || n_b != N_B || n <= 0 || pts_per_cta <= 0 || cap % P != 0 ||
       cap < (pts_per_cta + P - 1) / P * P || real_d < 3 || real_d > DP)
     return -1;
+  if (bf16) return -2;
   const Siren sp{w0, w0h, sigma_mul, rgb_mul};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<true, __nv_bfloat16>(pts, dirs, cot, vec, wmat, wmat_t, sp, n,
-                                       pts_per_cta, cap, real_d, scratch, partial, out,
-                                       dpts, ddirs, s);
-  return launch<false, float>(pts, dirs, cot, vec, wmat, wmat_t, sp, n, pts_per_cta,
-                              cap, real_d, scratch, partial, out, dpts, ddirs, s);
+  return launch(pts, dirs, cot, vec, wmat, wmat_t, sp, n, pts_per_cta, cap, real_d, scratch,
+                partial, out, dpts, ddirs, s);
 }
 
 const char* siren_field_bwd_error(int code) {
   if (code == -1) return "packed weights or shapes do not fit the kernel";
+  if (code == -2) return "bfloat16 runs on the tensor cores (fused_siren_bwd_tc)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -23,9 +23,8 @@ _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 # one library per .cu source: the NeRF, SIREN and GaborNet forward renders
 # and train passes (each in bfloat16 on the tensor cores; NeRF and SIREN
 # with the render backward), the KiloNeRF, NeRF, SIREN and GaborNet field
-# forward and backward (each forward, and the NeRF and GaborNet backwards,
-# in bfloat16 on the tensor cores), and the voxel grids' interpolation,
-# fused grid render and sorted scatter-add
+# forward and backward (each in bfloat16 on the tensor cores too), and the
+# voxel grids' interpolation, fused grid render and sorted scatter-add
 LIBS = ("fused_render_fwd", "fused_render_fwd_tc", "fused_render_train",
         "fused_render_train_tc",
         "fused_render_siren_fwd", "fused_render_siren_fwd_tc",
@@ -33,8 +32,9 @@ LIBS = ("fused_render_fwd", "fused_render_fwd_tc", "fused_render_train",
         "fused_render_gabor_fwd", "fused_render_gabor_fwd_tc",
         "fused_render_gabor_train", "fused_render_gabor_train_tc",
         "fused_kilonerf_fwd", "fused_kilonerf_fwd_tc", "fused_kilonerf_bwd",
+        "fused_kilonerf_bwd_tc",
         "fused_nerf_fwd", "fused_nerf_fwd_tc", "fused_nerf_bwd", "fused_nerf_bwd_tc",
-        "fused_siren_fwd", "fused_siren_fwd_tc", "fused_siren_bwd",
+        "fused_siren_fwd", "fused_siren_fwd_tc", "fused_siren_bwd", "fused_siren_bwd_tc",
         "fused_gabor_fwd", "fused_gabor_fwd_tc", "fused_gabor_bwd", "fused_gabor_bwd_tc",
         "fused_grid", "fused_grid_render", "scatter_add")
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build"

@@ -8,19 +8,23 @@ Two kernels, each replacing one of ``nerf_tpu/ops/pallas/fused_kilonerf.py``
     point order; in bfloat16 on the tensor cores
     (``csrc/fused_kilonerf_fwd_tc.cu``), in float32 on the CUDA cores
     (``csrc/fused_kilonerf_fwd.cu``);
-  * ``csrc/fused_kilonerf_bwd.cu`` (``_bwd_kernel_mk``): each network's
-    weight and bias gradients from the (rgb, sigma) cotangent of its
-    points, summed without atomics (per-piece partials added in order).
+  * ``_bwd_kernel_mk``: each network's weight and bias gradients from the
+    (rgb, sigma) cotangent of its points, summed without atomics (per-run
+    partials added in order); in bfloat16 on the tensor cores
+    (``csrc/fused_kilonerf_bwd_tc.cu``: row 15's chain recomputes the
+    forward, the payload and the cotangent read through the sort order),
+    in float32 on the CUDA cores (``csrc/fused_kilonerf_bwd.cu``).
 
 This module holds
 
   * the dispatch glue, stock PyTorch as in the JAX package (outside its
     kernels too): ``voxel_of``, one stable sort by network carrying the
     point index, segment offsets (``bincount`` + ``cumsum``) and the (n, 8)
-    payload in point order. The forward kernels read it through the sort
-    and write their output in point order, so the forward runs no gather;
-    the backward, which reads a sorted payload and a sorted cotangent,
-    gathers both by the sort order when it runs;
+    payload in point order. The forward kernels and the bfloat16 backward
+    read it through the sort (the forwards write their output in point
+    order), so they run no gather; the float32 backward, which reads a
+    sorted payload and a sorted cotangent, gathers both by the sort order
+    when it runs;
   * ``pack_f32`` / ``cast_packed``: the parameters as one (G^3, R) block
     per network, differentiable float32 (autograd maps the kernel's packed
     gradient back onto each layer's ``w``/``b``) and cast whole to the
@@ -61,7 +65,7 @@ from nerf_tpu_torch.ops.cuda.build import library
 from nerf_tpu_torch.ops.cuda.fused_render import _encode
 
 FWD_RUN = 128       # points per forward CTA (csrc/fused_kilonerf_fwd{,_tc}.cu)
-BWD_RUN = 512       # points per backward piece (csrc/fused_kilonerf_bwd.cu)
+BWD_RUN = 512       # points per backward run (csrc/fused_kilonerf_bwd{,_tc}.cu)
 PLAIN_TILE = 128    # points per tile of the plain versions' batched matmuls
 HIDDEN, PMAX, DMAX = 32, 64, 32   # the widths the kernels take
 
@@ -118,8 +122,9 @@ class Dispatch:
 
     @cached_property
     def sorted_pay(self) -> torch.Tensor:
-        """The payload in sorted order, made on first use: the backward
-        kernel and the plain versions read it; the forward kernels do not."""
+        """The payload in sorted order, made on first use: the float32
+        backward kernel and the plain versions read it; the forward kernels
+        and the bfloat16 backward do not."""
         return self.pay[self.order].contiguous()
 
 
@@ -177,12 +182,24 @@ def _tiles(disp: Dispatch, t: int) -> _Tiles:
     return _Tiles(gid=gid, src=src, pos=pos)
 
 
+def unit_masks(masks: torch.Tensor, h: int) -> tuple:
+    """The (..., 4) int32 ReLU masks of ``fused_kilonerf_bwd_tc``'s debug
+    output (bit k of columns 0-2: unit k of x1, x2, y on; column 3: sigma
+    > 0) as bool tensors (..., h) x 3 and (...,)."""
+    bits = torch.arange(h, device=masks.device)
+    m = [(masks[..., i, None] >> bits) & 1 == 1 for i in range(3)]
+    return (*m, masks[..., 3] != 0)
+
+
 def _acts(wc: torch.Tensor, disp: Dispatch, tiles: _Tiles, h: int,
-          pos_freqs: int, dir_freqs: int) -> dict:
+          pos_freqs: int, dir_freqs: int, masks: torch.Tensor | None = None) -> dict:
     """Every activation of the kernels' forward in the tile layout
     (tiles, t, width), float32, and the per-tile weights (``"w"``): matmul
     inputs rounded to the packing's dtype as the kernels round them (the
-    weights already are), x2 and the density pre-activation unrounded."""
+    weights already are), x2 and the density pre-activation unrounded; the
+    ReLU masks of x1, x2, y and sigma (``"m1"``, ``"m2"``, ``"my"``,
+    ``"msig"``: pre-activation > 0, or the given (n, 4) ``masks`` in point
+    order, ``unit_masks``' layout, where a check imposes another forward's)."""
     cdt = wc.dtype
     p, d = 3 * (1 + 2 * pos_freqs), 3 * (1 + 2 * dir_freqs)
     v = {k: x[tiles.gid] for k, x in unpack(wc.float(), h, p, d).items()}
@@ -194,16 +211,24 @@ def _acts(wc: torch.Tensor, disp: Dispatch, tiles: _Tiles, h: int,
     def b(name):
         return v[name][:, None, :]
 
+    given = None if masks is None else unit_masks(pad_rows(masks[disp.order])[tiles.src], h)
+
+    def act(name, pre):
+        m = pre > 0 if given is None else given[("m1", "m2", "my").index(name)]
+        a[name] = m
+        return torch.where(m, pre, torch.zeros_like(pre))
+
     a = {"w": v}
     a["penc"] = r(_encode(pay[..., :3], pos_freqs, p, torch.sin))
     a["denc"] = r(_encode(pay[..., 4:7], dir_freqs, d, torch.sin))
-    a["x1"] = torch.relu(a["penc"] @ v["l1.w"] + b("l1.b"))
-    a["x2"] = torch.relu(r(a["x1"]) @ v["l2.w"] + b("l2.b"))
+    a["x1"] = act("m1", a["penc"] @ v["l1.w"] + b("l1.b"))
+    a["x2"] = act("m2", r(a["x1"]) @ v["l2.w"] + b("l2.b"))
     wt, bt = v["trunk.w"], v["trunk.b"]
     a["sigma_pre"] = torch.sum(a["x2"] * wt[:, None, :, h], dim=-1) + bt[:, None, h]
+    a["msig"] = a["sigma_pre"] > 0 if given is None else given[3]
     a["feat"] = r(a["x2"]) @ wt[..., :h] + bt[:, None, :h]
     wr1 = v["rgb1.w"]
-    a["y"] = torch.relu(r(a["feat"]) @ wr1[:, :h] + a["denc"] @ wr1[:, h:] + b("rgb1.b"))
+    a["y"] = act("my", r(a["feat"]) @ wr1[:, :h] + a["denc"] @ wr1[:, h:] + b("rgb1.b"))
     a["rgb"] = torch.sigmoid(r(a["y"]) @ v["rgb2.w"] + b("rgb2.b"))
     return a
 
@@ -227,16 +252,18 @@ def kilonerf_fwd_plain(wc: torch.Tensor, disp: Dispatch, h: int, pos_freqs: int,
 
 
 def kilonerf_bwd_plain(wc: torch.Tensor, disp: Dispatch, cot: torch.Tensor, h: int,
-                       pos_freqs: int, dir_freqs: int) -> torch.Tensor:
+                       pos_freqs: int, dir_freqs: int,
+                       masks: torch.Tensor | None = None) -> torch.Tensor:
     """The backward kernel's function in plain PyTorch: the (G^3, R)
     float32 gradient, in the packed layout, of sum(cot * [rgb, sigma]) over
     the points (``cot`` the (n, 4) cotangent in point order). Matrix
     gradients are products of rounded activations and rounded cotangents,
     bias gradients (and the density row's) float32 sums of unrounded ones
-    (``_bwd_tile_multi``); networks without points get exact zeros."""
+    (``_bwd_tile_multi``); networks without points get exact zeros.
+    ``masks`` (``_acts``) imposes another forward's ReLU masks."""
     cdt = wc.dtype
     tiles = _tiles(disp, PLAIN_TILE)
-    a = _acts(wc, disp, tiles, h, pos_freqs, dir_freqs)
+    a = _acts(wc, disp, tiles, h, pos_freqs, dir_freqs, masks)
     v = a["w"]
     g = pad_rows(cot[disp.order])[tiles.src]                  # (tiles, t, 4)
 
@@ -254,22 +281,22 @@ def kilonerf_bwd_plain(wc: torch.Tensor, disp: Dispatch, cot: torch.Tensor, h: i
     dzr2 = g[..., :3] * rgb * (1.0 - rgb)
     grads["rgb2.w"] = mm_t(a["y"], dzr2)
     grads["rgb2.b"] = colsum(dzr2)
-    dzy = (r(dzr2) @ v["rgb2.w"].transpose(1, 2)) * (a["y"] > 0)
+    dzy = (r(dzr2) @ v["rgb2.w"].transpose(1, 2)) * a["my"]
     wr1 = v["rgb1.w"]
     grads["rgb1.w"] = torch.cat([mm_t(a["feat"], dzy), mm_t(a["denc"], dzy)], dim=1)
     grads["rgb1.b"] = colsum(dzy)
     dfeat = r(dzy) @ wr1[:, :h].transpose(1, 2)
-    dsig = g[..., 3] * (a["sigma_pre"] > 0)
+    dsig = g[..., 3] * a["msig"]
     wt = v["trunk.w"]
     grads["trunk.w"] = torch.cat(
         [mm_t(a["x2"], dfeat), torch.sum(a["x2"] * dsig[..., None], dim=1)[..., None]],
         dim=2)
     grads["trunk.b"] = torch.cat([colsum(dfeat), dsig.sum(dim=1)[:, None]], dim=1)
     dx2 = r(dfeat) @ wt[..., :h].transpose(1, 2) + dsig[..., None] * wt[:, None, :, h]
-    dz2 = dx2 * (a["x2"] > 0)
+    dz2 = dx2 * a["m2"]
     grads["l2.w"] = mm_t(a["x1"], dz2)
     grads["l2.b"] = colsum(dz2)
-    dz1 = (r(dz2) @ v["l2.w"].transpose(1, 2)) * (a["x1"] > 0)
+    dz1 = (r(dz2) @ v["l2.w"].transpose(1, 2)) * a["m1"]
     grads["l1.w"] = mm_t(a["penc"], dz1)
     grads["l1.b"] = colsum(dz1)
     g3 = disp.counts.shape[0]
@@ -295,13 +322,20 @@ def _library(name: str) -> ctypes.CDLL:
         fn.restype = ci
         err.argtypes = [ci]
         err.restype = ctypes.c_char_p
-    else:
+    elif name == "fused_kilonerf_bwd":
         lib.fused_kilonerf_bwd.argtypes = [vp] * 4 + [ci, vp] + [ci] * 8 + [vp] * 3
         lib.fused_kilonerf_bwd.restype = ci
         lib.fused_kilonerf_bwd_error.argtypes = [ci]
         lib.fused_kilonerf_bwd_error.restype = ctypes.c_char_p
         lib.fused_kilonerf_partial_floats.argtypes = []
         lib.fused_kilonerf_partial_floats.restype = ci
+    else:
+        lib.fused_kilonerf_bwd_tc.argtypes = [vp] * 5 + [ci, vp] + [ci] * 8 + [vp] * 5
+        lib.fused_kilonerf_bwd_tc.restype = ci
+        lib.fused_kilonerf_bwd_tc_error.argtypes = [ci]
+        lib.fused_kilonerf_bwd_tc_error.restype = ctypes.c_char_p
+        lib.fused_kilonerf_bwd_tc_partial_floats.argtypes = []
+        lib.fused_kilonerf_bwd_tc_partial_floats.restype = ci
     return lib
 
 
@@ -364,6 +398,21 @@ class KiloNeRFField:
         """The forward's kernel library: bfloat16 on the tensor cores,
         float32 on the CUDA cores."""
         return "fused_kilonerf_fwd_tc" if self.cdt == torch.bfloat16 else "fused_kilonerf_fwd"
+
+    def bwd_library(self) -> str:
+        """The backward's kernel library: bfloat16 on the tensor cores,
+        float32 on the CUDA cores."""
+        return "fused_kilonerf_bwd_tc" if self.cdt == torch.bfloat16 else "fused_kilonerf_bwd"
+
+    def _bwd_entry(self):
+        """(function, error string, partial floats) of the backward: the
+        tensor-core entry reads the point-order payload and cotangent
+        through the sort order, the CUDA-core one sorted copies."""
+        name = self.bwd_library()
+        lib = _library(name)
+        floats = ("fused_kilonerf_bwd_tc_partial_floats" if name.endswith("_tc")
+                  else "fused_kilonerf_partial_floats")
+        return getattr(lib, name), getattr(lib, name + "_error"), getattr(lib, floats)
 
     def supported(self) -> bool:
         """The widths the kernels cover: hidden 32, encodings of at most
@@ -438,7 +487,13 @@ class KiloNeRFField:
         type(self).launches += 1
         return out
 
-    def _launch_bwd(self, wc: torch.Tensor, disp: Dispatch, cot: torch.Tensor) -> torch.Tensor:
+    def _launch_bwd(self, wc: torch.Tensor, disp: Dispatch, cot: torch.Tensor,
+                    rec: torch.Tensor | None = None,
+                    masks: torch.Tensor | None = None) -> torch.Tensor:
+        """The backward kernel's (G^3, R) gradient. ``rec`` (float32) and
+        ``masks`` (int32), (n, 4) tensors that only a check passes (the
+        bfloat16 kernel only), get the (rgb, sigma) the kernel recomputes and
+        its ReLU masks (``unit_masks``), in point order."""
         self._check(wc, disp)
         n, g3 = disp.n, self.model.num_networks
         if tuple(cot.shape) != (n, 4) or cot.dtype != torch.float32 or \
@@ -448,20 +503,34 @@ class KiloNeRFField:
         out = torch.zeros((g3, wc.shape[1]), dtype=torch.float32, device=cot.device)
         if n == 0:
             return out
-        lib = _library("fused_kilonerf_bwd")
+        tc = self.bwd_library().endswith("_tc")
+        for what, x, dtype in (("rec", rec, torch.float32), ("masks", masks, torch.int32)):
+            if x is not None and (not tc or tuple(x.shape) != (n, 4) or x.dtype != dtype
+                                  or x.device != cot.device or not x.is_contiguous()):
+                raise ValueError(f"{what}: the bfloat16 kernel's contiguous {dtype} (n, 4) "
+                                 f"on {cot.device} only")
+        fn, err, floats = self._bwd_entry()
         ends, grid = run_plan(disp.counts, n, BWD_RUN)
-        partial = torch.empty((grid, lib.fused_kilonerf_partial_floats()),
-                              dtype=torch.float32, device=cot.device)
-        cot = cot[disp.order].contiguous()
+        partial = torch.empty((grid, floats()), dtype=torch.float32, device=cot.device)
         with torch.cuda.device(cot.device):
             stream = torch.cuda.current_stream().cuda_stream
-            code = lib.fused_kilonerf_bwd(
-                disp.sorted_pay.data_ptr(), cot.data_ptr(), disp.offsets.data_ptr(),
-                ends.data_ptr(), g3, wc.data_ptr(), wc.shape[1], self.real_p,
-                self.real_d, self.h, int(self.cdt == torch.bfloat16), n, BWD_RUN, grid,
-                partial.data_ptr(), out.data_ptr(), stream)
+            if tc:
+                # the payload and the cotangent read through the sort order
+                cot = cot.contiguous()
+                code = fn(
+                    disp.pay.data_ptr(), disp.order.data_ptr(), cot.data_ptr(),
+                    disp.offsets.data_ptr(), ends.data_ptr(), g3, wc.data_ptr(),
+                    wc.shape[1], self.real_p, self.real_d, self.h, 1, n, BWD_RUN, grid,
+                    partial.data_ptr(), out.data_ptr(),
+                    *(None if x is None else x.data_ptr() for x in (rec, masks)), stream)
+            else:
+                cot = cot[disp.order].contiguous()
+                code = fn(
+                    disp.sorted_pay.data_ptr(), cot.data_ptr(), disp.offsets.data_ptr(),
+                    ends.data_ptr(), g3, wc.data_ptr(), wc.shape[1], self.real_p,
+                    self.real_d, self.h, 0, n, BWD_RUN, grid, partial.data_ptr(),
+                    out.data_ptr(), stream)
         if code != 0:
-            raise RuntimeError("KiloNeRF backward kernel: "
-                               + lib.fused_kilonerf_bwd_error(code).decode())
+            raise RuntimeError("KiloNeRF backward kernel: " + err(code).decode())
         type(self).bwd_launches += 1
         return out

@@ -9,11 +9,14 @@ Two kernels, each replacing one of ``nerf_tpu/ops/pallas/fused_siren.py``
     chain, ``csrc/fused_render_siren_tc_common.cuh``);
   * ``csrc/fused_siren_bwd.cu`` (``_bwd_kernel``): from the (rgb, sigma)
     cotangent, the 25 float32 weight and bias gradients (per-CTA partials
-    added in order, no atomics) and the point and direction cotangents.
+    added in order, no atomics) and the point and direction cotangents; in
+    bfloat16 on the tensor cores, ``csrc/fused_siren_bwd_tc.cu`` (the SIREN
+    train pass's split: a forward kernel on the forward's own chain that
+    stashes, then the train pass's backward with the two input products).
 
 Both run the SIREN render kernels' chain and backward
-(``csrc/fused_render_siren_common.cuh``; the bfloat16 forward the
-tensor-core chain) on the packed layout of
+(``csrc/fused_render_siren_common.cuh``; in bfloat16 the tensor-core ones,
+``csrc/fused_render_siren_tc_common.cuh``) on the packed layout of
 ``fused_render_siren.py::pack_f32`` / ``cast_packed`` (``nerf_tpu``'s
 ``pack_params`` order), so ``models/convert.py::load_jax_params`` carries
 JAX weights across unchanged. This module holds
@@ -42,14 +45,16 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from nerf_tpu_torch.ops.cuda.build import library
 from nerf_tpu_torch.ops.cuda.field import FusedField
 from nerf_tpu_torch.ops.cuda.fused_nerf import _encode_bwd
-from nerf_tpu_torch.ops.cuda.fused_render import DP, Packed, _encode, grad_sizes
+from nerf_tpu_torch.ops.cuda.fused_render import DP, Packed, _encode
 from nerf_tpu_torch.ops.cuda.fused_render_siren import (
     _MATS,
     NUM_LAYERS,
+    TC_BYTES_PER_POINT,
     SirenConsts,
     cast_packed,
     mlp_acts,
@@ -58,6 +63,11 @@ from nerf_tpu_torch.ops.cuda.fused_render_siren import (
 )
 
 HIDDEN = 256      # the width the kernels take
+# the bfloat16 backward's stash a point (csrc/fused_siren_bwd_tc.cu): the
+# SIREN train pass's, its 16 per-point float32 columns last; TC_BWD_COLS_AT
+# floats of a row precede the columns
+TC_BWD_BYTES_PER_POINT = TC_BYTES_PER_POINT
+TC_BWD_COLS_AT = TC_BYTES_PER_POINT // 4 - 16
 
 
 # ---------------------------------------------------------------- plain
@@ -97,29 +107,45 @@ def siren_field_bwd_plain(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
 # ---------------------------------------------------------------- libraries
 
 
-# the forward's library -> its C entry point (the same arguments)
+# each library -> its C entry point (the two forwards take the same
+# arguments; the tensor-core backward adds the input-product matrix)
 _FWD_ENTRY = {"fused_siren_fwd": "siren_field_fwd",
               "fused_siren_fwd_tc": "siren_field_fwd_tc"}
+_BWD_ENTRY = {"fused_siren_bwd": "siren_field_bwd",
+              "fused_siren_bwd_tc": "siren_field_bwd_tc"}
 
 
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
     lib = library(name)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    entry = {**_FWD_ENTRY, **_BWD_ENTRY}[name]
+    fn, err = getattr(lib, entry), getattr(lib, entry + "_error")
     if name in _FWD_ENTRY:
-        fn, err = getattr(lib, _FWD_ENTRY[name]), getattr(lib, _FWD_ENTRY[name] + "_error")
         fn.argtypes = [vp] * 4 + [ci] * 5 + [cf] * 4 + [vp] * 3
-        fn.restype = ci
-        err.argtypes = [ci]
-        err.restype = ctypes.c_char_p
+    elif name == "fused_siren_bwd":
+        fn.argtypes = [vp] * 6 + [ci] * 7 + [cf] * 4 + [vp] * 6
     else:
-        lib.siren_field_bwd.argtypes = [vp] * 6 + [ci] * 7 + [cf] * 4 + [vp] * 6
-        lib.siren_field_bwd.restype = ci
-        lib.siren_field_bwd_error.argtypes = [ci]
-        lib.siren_field_bwd_error.restype = ctypes.c_char_p
-        lib.siren_field_bwd_sizes.argtypes = [ctypes.POINTER(ci)] * 3
-        lib.siren_field_bwd_sizes.restype = None
+        fn.argtypes = [vp] * 7 + [ci] * 8 + [cf] * 4 + [vp] * 6
+    fn.restype = ci
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
+    if name in _BWD_ENTRY:
+        sizes = getattr(lib, entry + "_sizes")
+        sizes.argtypes = [ctypes.POINTER(ci)] * (4 if name.endswith("_tc") else 3)
+        sizes.restype = None
     return lib
+
+
+def input_transposes(packed: Packed) -> torch.Tensor:
+    """The tensor-core backward's input-product matrix in the compute
+    dtype: wr0d^T (128 rows) zero-padded to 128 columns, built once a
+    packing (the point cotangent's dz1 w1^T runs on the CUDA cores from the
+    packed w1)."""
+    if "input_t" not in packed.derived:
+        w = packed.mats["wr0d"]
+        packed.derived["input_t"] = F.pad(w.t(), (0, w.shape[1] - w.shape[0])).reshape(-1)
+    return packed.derived["input_t"]
 
 
 # ---------------------------------------------------------------- wrapper
@@ -175,14 +201,15 @@ class SirenField(FusedField):
         return "fused_siren_fwd_tc" if self.cdt == torch.bfloat16 else "fused_siren_fwd"
 
     def bwd_library(self) -> str:
-        """The backward's kernel library: the CUDA cores in both dtypes
-        (ROADMAP.md queue 2 holds its move to the tensor cores)."""
-        return "fused_siren_bwd"
+        """The backward's kernel library: bfloat16 on the tensor cores,
+        float32 on the CUDA cores."""
+        return "fused_siren_bwd_tc" if self.cdt == torch.bfloat16 else "fused_siren_bwd"
 
     def _bwd_entry(self):
         """(function, error string, sizes) of the backward."""
-        lib = _library(self.bwd_library())
-        return lib.siren_field_bwd, lib.siren_field_bwd_error, lib.siren_field_bwd_sizes
+        name = self.bwd_library()
+        lib, entry = _library(name), _BWD_ENTRY[name]
+        return tuple(getattr(lib, entry + s) for s in ("", "_error", "_sizes"))
 
     def _fwd_entry(self):
         """(function, error string) of the forward."""
@@ -227,9 +254,24 @@ class SirenField(FusedField):
         pts, dirs, cot = pts.contiguous(), dirs.contiguous(), cot.contiguous()
         k = self.consts
         fn, err, sizes = self._bwd_entry()
-        per_point, npart, n_out = grad_sizes(sizes)
+        tc = self.bwd_library().endswith("_tc")
+        vals = [ctypes.c_int() for _ in range(4 if tc else 3)]
+        sizes(*(ctypes.byref(v) for v in vals))
+        per_point, npart, n_out = (v.value for v in vals[:3])
         run, grid = self._bwd_plan(n, dev, run)
-        wmat_t = torch.cat([packed.mats[m].t().reshape(-1) for m in _MATS])
+        # the arguments between the packed W and the dtype flag: the
+        # tensor-core entry's (wmat_t, not read: its products read the
+        # packed W itself; wt_in; vec; n_w; n_b; n_t), the CUDA-core one's
+        # (wmat_t, vec, n_w, n_b)
+        if tc:
+            wt_in = input_transposes(packed)
+            if wt_in.numel() != vals[3].value:
+                raise ValueError(f"input transposes: {wt_in.numel()} values, want "
+                                 f"{vals[3].value}")
+            mid = (None, wt_in.data_ptr(), packed.vec.data_ptr(), n_w, n_b, wt_in.numel())
+        else:
+            wmat_t = torch.cat([packed.mats[m].t().reshape(-1) for m in _MATS])
+            mid = (wmat_t.data_ptr(), packed.vec.data_ptr(), n_w, n_b)
         scratch = torch.empty(grid * run * per_point, dtype=torch.float32, device=dev)
         partial = torch.empty(grid * npart, dtype=torch.float32, device=dev)
         out = torch.empty(n_out, dtype=torch.float32, device=dev)
@@ -237,8 +279,7 @@ class SirenField(FusedField):
             stream = torch.cuda.current_stream(dev).cuda_stream
             code = fn(
                 pts.data_ptr(), dirs.data_ptr(), cot.data_ptr(), packed.wmat.data_ptr(),
-                wmat_t.data_ptr(), packed.vec.data_ptr(), n_w, n_b,
-                int(self.cdt == torch.bfloat16), n, run, run, self.real_d, k.w0,
+                *mid, int(self.cdt == torch.bfloat16), n, run, run, self.real_d, k.w0,
                 k.hidden_w0, k.sigma_mul, k.rgb_mul, scratch.data_ptr(),
                 partial.data_ptr(), out.data_ptr(), dpts.data_ptr(), ddirs.data_ptr(),
                 stream)

@@ -807,6 +807,49 @@ def _kilo_points(kind, n, dev, seed=0):
     return pts, dirs
 
 
+# A bf16 pre-activation within this share of the sum of its terms'
+# magnitudes of 0 lies within reach of bf16 roundings flipped upstream (each
+# moves its term by one bf16 step, at most 2^-7 of it): the tensor-core
+# kernel's sums, which round otherwise than the plain version's float32
+# ones, may give it either sign.
+KILO_BF16_TIE = 2.0 ** -7
+
+
+def _kilo_bf16_mask_flips(wc, disp, masks):
+    """Where the bf16 backward kernel's ReLU masks ``masks`` (its debug
+    output, point order) differ from the plain version's: ``(flips, ties)``,
+    bool (n, 97) in sorted order over the units of x1, x2, the density and
+    y, ``ties`` the units whose plain pre-activation lies within
+    KILO_BF16_TIE of its terms' magnitudes of 0."""
+    from nerf_tpu_torch.ops.cuda.fused_kilonerf import PLAIN_TILE, _acts, _tiles, unit_masks
+
+    tiles = _tiles(disp, PLAIN_TILE)
+    a = _acts(wc, disp, tiles, 32, 10, 4)
+    v = a["w"]
+
+    def r(x):
+        return x.to(torch.bfloat16).float()
+
+    def b(k, cols=slice(None)):
+        return v[k][:, None, cols]
+
+    x1r, fr, wt, wr1 = r(a["x1"]), r(a["feat"]), v["trunk.w"], v["rgb1.w"]
+    pre = torch.cat([a["penc"] @ v["l1.w"] + b("l1.b"), x1r @ v["l2.w"] + b("l2.b"),
+                     a["sigma_pre"][..., None],
+                     fr @ wr1[:, :32] + a["denc"] @ wr1[:, 32:] + b("rgb1.b")], dim=-1)
+    mag = torch.cat([a["penc"].abs() @ v["l1.w"].abs() + b("l1.b").abs(),
+                     x1r @ v["l2.w"].abs() + b("l2.b").abs(),
+                     a["x2"] @ wt[:, :, 32:].abs() + b("trunk.b", slice(32, None)).abs(),
+                     fr.abs() @ wr1[:, :32].abs() + a["denc"].abs() @ wr1[:, 32:].abs()
+                     + b("rgb1.b").abs()], dim=-1)
+    plain = torch.cat([a["m1"], a["m2"], a["msig"][..., None], a["my"]], dim=-1)
+    m1, m2, my, msig = unit_masks(masks[disp.order], 32)
+    kernel = torch.cat([m1, m2, msig[:, None], my], dim=-1)
+    flips = plain.reshape(-1, KILO_UNITS)[tiles.pos] != kernel
+    ties = (pre.abs() <= KILO_BF16_TIE * mag).reshape(-1, KILO_UNITS)[tiles.pos]
+    return flips, ties
+
+
 def _kilo_grad_errors(got, ref):
     from nerf_tpu_torch.ops.cuda.fused_kilonerf import unpack
 
@@ -823,7 +866,14 @@ def test_kilonerf_kernels_match_plain(dev, cdt, kind, n):
     """Both kernels against their plain versions at ragged counts, 37
     points (most of the 512 networks empty: their gradients exactly 0),
     every point in one voxel (one network's runs and pieces) and the
-    1024 x 256 serving/training count; one launch each."""
+    1024 x 256 serving/training count; one launch each. The bf16 backward
+    runs on the tensor cores, whose sums round otherwise than the plain
+    version's float32 ones: at a bf16 tie (KILO_BF16_TIE) a ReLU mask may
+    flip, and one flip at a point of large activations moves its network's
+    gradient by up to 1.2e-2 of the max (the camera set). So its gradient
+    is held to the plain version's at the kernel's own masks (its debug
+    output), and every mask it flips must lie at a tie, on at most 0.1% of
+    the points."""
     from nerf_tpu_torch.ops.cuda.fused_kilonerf import (
         KiloNeRFField, cast_packed, dispatch, kilonerf_bwd_plain, kilonerf_fwd_plain,
         pack_f32)
@@ -851,6 +901,20 @@ def test_kilonerf_kernels_match_plain(dev, cdt, kind, n):
                                                                     before[1] + 1)
     assert out.shape == (n, 4) and torch.isfinite(out).all() and torch.isfinite(grad).all()
     assert float((out - ref).abs().max()) <= KILO_TOL[cdt] * max(1.0, float(ref.abs().max()))
+    if cdt == "bfloat16":
+        masks = torch.empty(n, 4, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            assert torch.equal(field._launch_bwd(wc, disp, cot, masks=masks), grad)
+            flips, ties = _kilo_bf16_mask_flips(wc, disp, masks)
+            at_masks = kilonerf_bwd_plain(wc, disp, cot, 32, 10, 4, masks=masks)
+        print(f"\nrow 16 bf16 {kind} {n}: {int(flips.sum())} ReLU masks unlike the plain "
+              f"version's at {int(flips.any(1).sum())} points, {int((flips & ~ties).sum())} "
+              f"away from a tie; error over max |g| against the plain version "
+              f"{max(_kilo_grad_errors(grad, ref_g).values()):.3e}, at the kernel's masks "
+              f"{max(_kilo_grad_errors(grad, at_masks).values()):.3e}")
+        assert not bool((flips & ~ties).any())
+        assert int(flips.any(1).sum()) <= 0.001 * n
+        ref_g = at_masks
     errs = _kilo_grad_errors(grad, ref_g)
     assert max(errs.values()) <= KILO_GRAD_TOL[cdt], errs
     empty = disp.counts == 0
@@ -1073,6 +1137,48 @@ def test_kilonerf_bwd_kernel_gap_is_relu_ties(dev, pairing):
           f"{before}, with the flips {after}")
     assert own_set <= on_tie, "a plain ReLU mask unlike float64's away from a tie"
     assert max(after.values()) <= KILO_GRAD_TOL["float32"], after
+
+
+@pytest.mark.parametrize("kind,n", [("uniform", 1000), ("uniform", 37), ("voxel", 700),
+                                    ("camera", 5003), ("camera", 262144)])
+def test_bf16_kilonerf_bwd_tc_matches_plain_recomputes_row_15(dev, kind, n):
+    """Row 16 in bfloat16 on the tensor cores (fused_kilonerf_bwd_tc) at
+    test_kilonerf_kernels_match_plain's point sets with other points and
+    cotangents: the gradient within KILO_GRAD_TOL of the plain version's at
+    the kernel's own ReLU masks (its masks unlike the plain version's only
+    at bf16 ties, on at most 0.1% of the points; see
+    test_kilonerf_kernels_match_plain), networks without points exactly 0,
+    two launches bit-identical, the payload and the cotangent read through
+    the sort (no sorted copy made), and the (rgb, sigma) it recomputes,
+    from its debug output, row 15's output bit for bit."""
+    from nerf_tpu_torch.ops.cuda.fused_kilonerf import (
+        KiloNeRFField, cast_packed, dispatch, kilonerf_bwd_plain, pack_f32)
+
+    model = _kilo("bfloat16", 3, dev)
+    field = KiloNeRFField(model)
+    assert field.bwd_library() == "fused_kilonerf_bwd_tc"
+    pts, dirs = _kilo_points(kind, n, dev, seed=n + 1)
+    disp = dispatch(model, pts, dirs)
+    wc = cast_packed(pack_f32(model), model.cdt)
+    cot = torch.randn(n, 4, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    rec = torch.full((n, 4), float("nan"), device=dev)
+    masks = torch.empty(n, 4, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        out = field._forward(wc, disp)
+        grad = field._backward(wc, disp, cot)
+        again = field._launch_bwd(wc, disp, cot, rec=rec, masks=masks)
+        torch.cuda.synchronize()
+        assert "sorted_pay" not in vars(disp)
+        ref_g = kilonerf_bwd_plain(wc, disp, cot, 32, 10, 4, masks=masks)
+        flips, ties = _kilo_bf16_mask_flips(wc, disp, masks)
+    assert torch.isfinite(grad).all()
+    assert torch.equal(grad, again)
+    assert torch.equal(rec, out)
+    assert not bool((flips & ~ties).any())
+    assert int(flips.any(1).sum()) <= 0.001 * n
+    errs = _kilo_grad_errors(grad, ref_g)
+    assert max(errs.values()) <= KILO_GRAD_TOL["bfloat16"], errs
+    assert bool((grad[disp.counts == 0] == 0).all())
 
 
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
@@ -1385,21 +1491,21 @@ def _nerf_cotangents_f64(packed, pts, dirs, cot):
 
 
 @pytest.mark.parametrize("n", [65536, 16384, 1000, 37])
-@pytest.mark.parametrize("family", ["nerf", "gabor"])
+@pytest.mark.parametrize("family", ["nerf", "gabor", "siren"])
 def test_bf16_nerf_gabor_field_bwd_tc_matches_plain_and_is_deterministic(dev, family, n):
-    """The bfloat16 NeRF and GaborNet field backwards on the tensor cores
-    (fused_nerf_bwd_tc, fused_gabor_bwd_tc) at a bake's 65,536 points, the
-    distillation batch and two ragged chunks: every gradient (weights, the
-    GaborNet's filter banks) within GRAD_TOL of its max (floored at 1e-2 of
-    the largest) of the plain version's; the point and direction
-    cotangents within chip_smoke.py's FIELD_PT_TOL (5e-3 of the max at the
-    99.9th percentile, at most 0.1% of the points beyond it: a point whose
-    ReLU mask flips moves alone) of the plain version's (GaborNet, whose
-    filter chain has no ReLU) or of its float64-sum twin
-    (_nerf_cotangents_f64: NeRF); two launches give the same bits; and the
-    forward the backward recomputes, read from its stash, is the forward
-    kernel's output bit for bit."""
-    from nerf_tpu_torch.ops.cuda import fused_gabor, fused_nerf
+    """The bfloat16 NeRF, GaborNet and SIREN field backwards on the tensor
+    cores (fused_nerf_bwd_tc, fused_gabor_bwd_tc, fused_siren_bwd_tc) at a
+    bake's 65,536 points, the distillation batch and two ragged chunks:
+    every gradient (weights, the GaborNet's filter banks) within GRAD_TOL
+    of its max (floored at 1e-2 of the largest) of the plain version's; the
+    point and direction cotangents within chip_smoke.py's FIELD_PT_TOL
+    (5e-3 of the max at the 99.9th percentile, at most 0.1% of the points
+    beyond it: a point whose ReLU mask flips moves alone) of the plain
+    version's (GaborNet and SIREN, whose chains have no ReLU but the
+    density's) or of its float64-sum twin (_nerf_cotangents_f64: NeRF); two
+    launches give the same bits; and the forward the backward recomputes,
+    read from its stash, is the forward kernel's output bit for bit."""
+    from nerf_tpu_torch.ops.cuda import fused_gabor, fused_nerf, fused_siren
 
     if family == "nerf":
         model = NeRFModel(compute_dtype="bfloat16",
@@ -1409,8 +1515,9 @@ def test_bf16_nerf_gabor_field_bwd_tc_matches_plain_and_is_deterministic(dev, fa
         plain = lambda p, d, c: fused_nerf.nerf_field_bwd_plain(  # noqa: E731
             field.packed, p, d, c, 10, 4)
     else:
-        mod, (wrapper, _, plain_bwd) = fused_gabor, _sg_wrapper("gabor")
-        field = wrapper(_sg_model("gabor", "bfloat16", dev)).pack()
+        mod = fused_gabor if family == "gabor" else fused_siren
+        wrapper, _, plain_bwd = _sg_wrapper(family)
+        field = wrapper(_sg_model(family, "bfloat16", dev)).pack()
         sigma_mul = field.consts.sigma_mul
         plain = lambda p, d, c: plain_bwd(field.packed, p, d, c, field.consts)  # noqa: E731
     assert field.bwd_library() == f"fused_{family}_bwd_tc"

@@ -13,15 +13,16 @@
   ``csrc/fused_render_siren_fwd_tc.cu``,
   ``csrc/fused_render_gabor_fwd_tc.cu``) at two CTAs an SM; the float32
   ones stay on the CUDA-core kernels at one.
-* The NeRF, SIREN and GaborNet field forwards (rows 1, 9 and 13) run in
-  bfloat16 on the tensor cores (``csrc/fused_nerf_fwd_tc.cu``,
-  ``csrc/fused_siren_fwd_tc.cu``, ``csrc/fused_gabor_fwd_tc.cu``) and in
-  float32 on the CUDA cores.
+* The NeRF, SIREN and GaborNet field forwards and backwards (rows 1, 9, 13,
+  2, 10 and 14) run in bfloat16 on the tensor cores
+  (``csrc/fused_{nerf,siren,gabor}_{fwd,bwd}_tc.cu``) and in float32 on
+  the CUDA cores.
 * The scatter-add (row 19) sorts its keys by a radix sort whose passes and
   digit width follow from the number of rows.
-* The KiloNeRF forward (row 15) runs in bfloat16 on the tensor cores
-  (``csrc/fused_kilonerf_fwd_tc.cu``) and in float32 on the CUDA cores, both
-  over 128-point runs of one network whose plan follows from the counts.
+* The KiloNeRF forward and backward (rows 15 and 16) run in bfloat16 on
+  the tensor cores (``csrc/fused_kilonerf_{fwd,bwd}_tc.cu``) and in float32
+  on the CUDA cores, over 128-point (forward) and 512-point (backward) runs
+  of one network whose plan follows from the counts.
 * The grid render (row 18) takes two affine scalars computed on the host;
   they are held against nerf_tpu's ``FusedGridRender._cells``.
 
@@ -47,8 +48,9 @@ from nerf_tpu_torch.ops.cuda import (
     build, fused_gabor, fused_nerf, fused_render, fused_render_gabor, fused_render_siren,
     fused_siren)
 from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedGridRender, cells_affine
+from nerf_tpu_torch.ops.cuda import fused_kilonerf
 from nerf_tpu_torch.ops.cuda.fused_kilonerf import (
-    FWD_RUN, KiloNeRFField, dispatch, run_plan)
+    BWD_RUN, FWD_RUN, KiloNeRFField, dispatch, run_plan)
 from nerf_tpu_torch.ops.cuda.fused_render import (
     TC_BYTES_PER_POINT, FusedNerfRender, FusedRender, fwd_rays_per_cta, launch_plan)
 from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
@@ -122,27 +124,32 @@ def test_gabor_train_stash_bytes():
     (37, 64, 1),
 ])
 def test_field_bwd_tc_plan_and_stash_bytes(n, run, grid):
-    """The tensor-core field backwards (rows 2 and 14 in bfloat16) take
+    """The tensor-core field backwards (rows 2, 10 and 14 in bfloat16) take
     about one run of points an SM on 132 SMs, whole 64-point chunks, as the
     CUDA-core ones; a CTA's stash holds its run: the NeRF's 7,920 bytes a
-    point (the train pass's 7,664 and dz6 w6p^T in float32), the
+    point (the train pass's 7,664 and dz6 w6p^T in float32), the SIREN's
+    15,744 (the train pass's: the point cotangent needs no column) and the
     GaborNet's 14,208 (the train pass's, the point cotangent among its
-    columns); 130 MB / 233 MB at the distillation batch. Each CTA writes
-    one gradient partial (2.65 MB / 2.33 MB)."""
+    columns); 130 MB / 258 MB / 233 MB at the distillation batch. Each CTA
+    writes one gradient partial (2.65 MB / 2.3 MB / 2.33 MB)."""
     from nerf_tpu_torch.ops.cuda.field import bwd_runs
 
     assert bwd_runs(n, 132) == (run, grid)
     assert run % 64 == 0 and grid * run >= n > (grid - 1) * run
     assert fused_nerf.TC_BWD_BYTES_PER_POINT == TC_BYTES_PER_POINT + 4 * 64 == 7920
     assert fused_gabor.TC_BWD_BYTES_PER_POINT == fused_render_gabor.TC_BYTES_PER_POINT == 14_208
+    assert fused_siren.TC_BWD_BYTES_PER_POINT == fused_render_siren.TC_BYTES_PER_POINT == 15_744
     assert fused_nerf.TC_BWD_COLS_AT * 4 == 7920 - 4 * 64 - 4 * 12
     assert fused_gabor.TC_BWD_COLS_AT * 4 == 14_208 - 4 * 16
+    assert fused_siren.TC_BWD_COLS_AT * 4 == 15_744 - 4 * 16
     stash = {"nerf": grid * run * fused_nerf.TC_BWD_BYTES_PER_POINT,
+             "siren": grid * run * fused_siren.TC_BWD_BYTES_PER_POINT,
              "gabor": grid * run * fused_gabor.TC_BWD_BYTES_PER_POINT}
     if n == 16384:
-        assert stash == {"nerf": 129_761_280, "gabor": 232_783_872}
+        assert stash == {"nerf": 129_761_280, "siren": 257_949_696, "gabor": 232_783_872}
     if n == 65536:
-        assert stash == {"nerf": 519_045_120, "gabor": 931_135_488}
+        assert stash == {"nerf": 519_045_120, "siren": 1_031_798_784,
+                         "gabor": 931_135_488}
 
 
 @pytest.mark.parametrize("num_rows, plan", [
@@ -270,12 +277,11 @@ def test_fwd_library_routes_bf16_to_the_tensor_cores(family, cdt, monkeypatch):
 
 
 def test_build_lists_the_tensor_core_forward_renders():
-    """Twenty-nine libraries, one per .cu source, the three tensor-core
+    """Thirty-one libraries, one per .cu source, the three tensor-core
     forward renders, the SIREN's and GaborNet's tensor-core train passes,
-    the KiloNeRF, NeRF, SIREN and GaborNet tensor-core field forwards and
-    the NeRF and GaborNet tensor-core field backwards beside the CUDA-core
-    ones they took bfloat16 from."""
-    assert len(build.LIBS) == len(set(build.LIBS)) == 29
+    and the KiloNeRF, NeRF, SIREN and GaborNet tensor-core field forwards
+    and backwards beside the CUDA-core ones they took bfloat16 from."""
+    assert len(build.LIBS) == len(set(build.LIBS)) == 31
     for name in ("fused_render_fwd_tc", "fused_render_gabor_fwd_tc",
                  "fused_render_siren_fwd_tc", "fused_render_siren_train_tc",
                  "fused_render_gabor_train_tc", "fused_kilonerf_fwd_tc",
@@ -285,7 +291,8 @@ def test_build_lists_the_tensor_core_forward_renders():
                  "fused_render_siren_fwd", "fused_render_siren_train",
                  "fused_render_gabor_train", "fused_nerf_fwd", "fused_siren_fwd",
                  "fused_gabor_fwd", "fused_nerf_bwd_tc", "fused_gabor_bwd_tc",
-                 "fused_nerf_bwd", "fused_gabor_bwd"):
+                 "fused_nerf_bwd", "fused_gabor_bwd", "fused_siren_bwd_tc",
+                 "fused_kilonerf_bwd_tc", "fused_siren_bwd", "fused_kilonerf_bwd"):
         assert name in build.LIBS
     sources = {p.stem for p in build._CSRC.glob("*.cu")}
     assert sources == set(build.LIBS)
@@ -307,11 +314,10 @@ _FIELD_FWD = {"nerf": (fused_nerf, "NerfField", NeRFModel, "fused_nerf_fwd", "fu
 def test_gabor_field_fwd_routes_bf16_to_the_tensor_cores(family, cdt, monkeypatch):
     """The NeRF, SIREN and GaborNet field forwards go to fused_{nerf,siren,
     gabor}_fwd_tc in bfloat16 and to fused_{nerf,siren,gabor}_fwd in float32
-    (one C signature, the entry named after the library's); the NeRF and
-    GaborNet backwards to fused_{nerf,gabor}_bwd_tc in bfloat16 and to
-    fused_{nerf,gabor}_bwd in float32, the SIREN's to fused_siren_bwd in
-    both. The launches' entries are checked with the libraries replaced (no
-    card here)."""
+    (one C signature, the entry named after the library's); the backwards
+    to fused_{nerf,siren,gabor}_bwd_tc in bfloat16 and to
+    fused_{nerf,siren,gabor}_bwd in float32. The launches' entries are
+    checked with the libraries replaced (no card here)."""
     module, wrapper, model_cls, entry, bwd_entry = _FIELD_FWD[family]
     field = getattr(module, wrapper)(model_cls(compute_dtype=cdt,
                                                generator=torch.Generator().manual_seed(0)))
@@ -319,9 +325,8 @@ def test_gabor_field_fwd_routes_bf16_to_the_tensor_cores(family, cdt, monkeypatc
     lib = f"fused_{family}_fwd" + ("_tc" if tc else "")
     entry += "_tc" if tc else ""
     assert field.fwd_library() == lib and lib in build.LIBS
-    bwd_tc = tc and family != "siren"
-    bwd_lib = f"fused_{family}_bwd" + ("_tc" if bwd_tc else "")
-    bwd_entry += "_tc" if bwd_tc else ""
+    bwd_lib = f"fused_{family}_bwd" + ("_tc" if tc else "")
+    bwd_entry += "_tc" if tc else ""
     assert field.bwd_library() == bwd_lib and bwd_lib in build.LIBS
     monkeypatch.setattr(module, "_library", _FakeLib)
     assert field._fwd_entry() == (f"{lib}:{entry}", f"{lib}:{entry}_error")
@@ -346,9 +351,10 @@ def test_kilonerf_fwd_launch_plan(counts, ends, ctas):
 
 def test_kilonerf_fwd_launch_plan_at_the_camera_set():
     """At 262,144 points of a 1024 x 256 camera set over the 512 networks of
-    the kilonerf config, the plan holds at most 2,048 + 512 runs; the
-    bfloat16 forward goes to the tensor-core library, float32 to the
-    CUDA-core one."""
+    the kilonerf config, the forward's plan holds at most 2,048 + 512 runs
+    and the backward's (512-point runs) at most 512 + 512; the bfloat16
+    forward and backward go to the tensor-core libraries, float32 to the
+    CUDA-core ones."""
     gen = torch.Generator().manual_seed(0)
     pts = torch.rand(262144, 3, generator=gen) * 2.0 - 1.0
     pts[:200000] = pts[:200000] * 0.1 - 0.5                # a skewed scene
@@ -358,8 +364,31 @@ def test_kilonerf_fwd_launch_plan_at_the_camera_set():
     assert ctas == 2048 + 512
     runs = int(ends[-1])
     assert runs == sum(-(-int(c) // FWD_RUN) for c in disp.counts) <= ctas
+    ends, ctas = run_plan(disp.counts, disp.n, BWD_RUN)
+    assert ctas == 512 + 512
+    assert int(ends[-1]) == sum(-(-int(c) // BWD_RUN) for c in disp.counts) <= ctas
+    assert int(ends[-1]) < runs
     assert KiloNeRFField(model).fwd_library() == "fused_kilonerf_fwd_tc"
-    assert KiloNeRFField(KiloNeRFModel(grid_res=2)).fwd_library() == "fused_kilonerf_fwd"
+    assert KiloNeRFField(model).bwd_library() == "fused_kilonerf_bwd_tc"
+    f32 = KiloNeRFField(KiloNeRFModel(grid_res=2))
+    assert (f32.fwd_library(), f32.bwd_library()) == ("fused_kilonerf_fwd",
+                                                       "fused_kilonerf_bwd")
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_kilonerf_bwd_routes_bf16_to_the_tensor_cores(cdt, monkeypatch):
+    """The KiloNeRF backward (row 16) goes to fused_kilonerf_bwd_tc in
+    bfloat16 (whose entry reads the point-order payload and cotangent
+    through the sort) and to fused_kilonerf_bwd in float32, each with its
+    partial-size entry; checked with the libraries replaced (no card
+    here)."""
+    model = KiloNeRFModel(grid_res=2, hidden_dim=32, compute_dtype=cdt)
+    field = KiloNeRFField(model)
+    lib = "fused_kilonerf_bwd" + ("_tc" if cdt == "bfloat16" else "")
+    assert field.bwd_library() == lib and lib in build.LIBS
+    monkeypatch.setattr(fused_kilonerf, "_library", _FakeLib)
+    floats = lib + "_partial_floats" if lib.endswith("_tc") else "fused_kilonerf_partial_floats"
+    assert field._bwd_entry() == (f"{lib}:{lib}", f"{lib}:{lib}_error", f"{lib}:{floats}")
 
 
 @pytest.mark.parametrize("normalize", [True, False])
