@@ -15,7 +15,8 @@ forward and backward (rows 1, 2, 9 and 10, both dtypes) at those points;
 the KiloNeRF field's parameter gradients under a
 loss linear in its outputs (row 16's kernel, which the forward's outputs do
 not reach) and its outputs (row 15, both dtypes); the grid
-interpolation of row 17 at training-ray and image-ray points; row 18's
+interpolation of row 17 at training-ray and image-ray points (28 channels)
+and at 1, 5, 25 and 32 channels; row 18's
 fused grid render in its SH form (a Plenoxels grid) and, where the
 checkout has it, its factor form (a baked FastNeRF cache), both dtypes; and
 row 19's sums at uniform, clustered and one-row ids. It saves every output
@@ -163,7 +164,8 @@ def nerf_siren_field(torch, dev, res: dict) -> None:
 
 def grids(torch, dev, res: dict) -> None:
     """Row 17 on a seeded 64^3 x 28 grid (float32 and its bfloat16 copy) at
-    2,048 x 16 points of random rays and of one view's rays; row 18 at those
+    2,048 x 16 points of random rays and of one view's rays, and on 24^3
+    grids of 1, 5, 25 and 32 channels at 5,003 points; row 18 at those
     rays (``grid_render``); row 19 at 131,072 x 28 rows of uniform ids, of
     ids in a few hundred rows and of one id."""
     from nerf_tpu_torch.ops.cuda.fused_grid import grid_interp, pack_grid
@@ -185,6 +187,15 @@ def grids(torch, dev, res: dict) -> None:
             src = pack_grid(grid, dtype)
             src = grid if src is None else src
             res[f"grid_interp {dtype} {label}"] = grid_interp(src, pts.reshape(-1, 3)).cpu()
+    # other channel counts (the baked FastNeRF cache's 25, the ends of 1..32)
+    gc = torch.Generator(device=dev).manual_seed(170)
+    pts = 2.4 * torch.rand(5003, 3, generator=gc, device=dev) - 1.2
+    for c in (1, 5, 25, 32):
+        grid_c = torch.randn(24, 24, 24, c, generator=gc, device=dev)
+        for dtype in ("float32", "bfloat16"):
+            src = pack_grid(grid_c, dtype)
+            src = grid_c if src is None else src
+            res[f"grid_interp {dtype} C={c}"] = grid_interp(src, pts).cpu()
     grid_render(torch, dev, res, ro, rd, t, cam, view)
     rows, n = 64 ** 3, 131072
     vals = torch.randn(n, 28, generator=g, device=dev)

@@ -274,6 +274,10 @@ GRAD_TOL = {"float32": 5e-3, "bfloat16": 5e-2}
 # earlier times, NVIDIA H100 80GB HBM3, 700.00 W), printed beside the
 # tensor-core kernel's time.
 ROW5_BF16_CUDA_CORE_MS = {64: 10.851, 192: 30.608, 256: 40.164}
+# Row 4's bfloat16 render backward on the CUDA cores (the backward entry of
+# csrc/fused_render_train.cu at 1024 rays x S; PERF.md row 4's earlier times,
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside the tensor-core kernel.
+ROW4_BF16_CUDA_CORE_MS = {64: 10.811, 192: 30.558, 256: 40.304}
 # Rows 3 and 11's bfloat16 forward renders on the CUDA cores, before they
 # moved to the tensor cores (csrc/fused_render_fwd.cu at 8192 rays x S,
 # csrc/fused_render_gabor_fwd.cu at 1024 x 256; PERF.md's earlier times,
@@ -431,7 +435,8 @@ SG_FIELD = {"siren": {"macs": SIREN_MACS, "trig": (SIREN_TRIG + 24, 2 * SIREN_TR
 # 128^3 x 28 grid (1 density + 3 x 9 SH channels) over lego_siren.txt's
 # grid_domain. Row 17 and its plain version take the same float32 operations
 # in the same order (grid_common.cuh rounds each product and sum alone, as
-# PyTorch's elementwise ops do): 1e-6 on values of a few units. Row 18 adds
+# PyTorch's elementwise ops do): bit for bit, within 1e-6 on values of a
+# few units a fortiori. Row 18 adds
 # exp, log1p and the sigmoid (libm against PyTorch's, an ulp or two) and
 # the plain version's cumprod and sums in another order: 1e-5 on rgb, acc
 # and weights (in [0, 1]), 1e-4 on depth (t up to 6). Row 19 is held to
@@ -441,6 +446,12 @@ SG_FIELD = {"siren": {"macs": SIREN_MACS, "trig": (SIREN_TRIG + 24, 2 * SIREN_TR
 GRID_R, GRID_C = 128, 28
 GRID_DOMAIN = (-2.75, -1.25)     # grid_domain of lego_siren.txt's settings
 GRID_TOL = 1e-6
+# Row 17 before its redesign (a warp a point, the lanes over channels) at
+# 1024 x 256 points, by kind and mode, a call timed by events through the
+# wrapper (PERF.md row 17's earlier times, NVIDIA H100 80GB HBM3, 700.00 W),
+# printed beside the thread-a-point kernel's time so taken.
+ROW17_WARP_MS = {("train", "float32"): 0.0837, ("train", "bfloat16"): 0.0802,
+                 ("image", "float32"): 0.0693, ("image", "bfloat16"): 0.0752}
 GRID_RENDER_TOL = {"rgb": 1e-5, "acc": 1e-5, "weights": 1e-5, "depth": 1e-4}
 GRID_BATCH = 20        # launches per timed run of a grid kernel
 SCATTER_ULPS = 256     # the scatter kernel's chunk, K
@@ -887,9 +898,11 @@ def check_grad_kernels(torch, dev):
     """The train pass and the render backward against their plain
     versions at 1024 rays x S in {64, 192, 256}, and the two backward
     routes (train kernel; backward kernel from the MSE head's cotangent)
-    against each other. The bfloat16 train pass runs on the tensor cores
-    (csrc/fused_render_train_tc.cu): two launches must give the same bits,
-    and its time is printed beside the CUDA-core kernel's it replaced."""
+    against each other. In bfloat16 both run on the tensor cores
+    (csrc/fused_render_train_tc.cu): two launches of each must give the
+    same bits, the compositing weights the render backward recomputes must
+    equal the bf16 forward render's (row 3) bit for bit, and their times
+    are printed beside the CUDA-core kernels' they replaced."""
     from nerf_tpu_torch.models.nerf import NeRFModel
     from nerf_tpu_torch.ops.cuda.fused_render import (
         FusedNerfRender, fused_render_bwd_plain, fused_train_plain)
@@ -935,6 +948,23 @@ def check_grad_kernels(torch, dev):
                                                10, 4)
                 got_b = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
                 torch.cuda.synchronize()
+                if cdt == "bfloat16":
+                    # two launches, the second with the recomputed weights
+                    # written out, against the forward render's weights
+                    grads_d, _, _, _, w_bwd = fr._launch_grad(
+                        packed, o_aff, d_aff, rd, t, g_ray, False, False, True)
+                    w_fwd = fr._forward(packed, o_aff, d_aff, rd, t)[3]
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(x, y) for x, y in zip(got_b, grads_d)):
+                        fail(f"backward kernel {cdt} S={s}: two launches differ")
+                    w_gap = float((w_bwd - w_fwd).abs().max())
+                    say(f"kernel bwd {cdt} R={R_TRAIN} S={s}: two launches bit-identical; "
+                        f"recomputed weights equal to the forward render's: "
+                        f"{torch.equal(w_bwd, w_fwd)} (max abs {w_gap:.3e})")
+                    if not torch.equal(w_bwd, w_fwd):
+                        fail(f"backward kernel {cdt} S={s}: the recomputed weights are not "
+                             f"the forward render's (max abs {w_gap:.3e})")
+                    del grads_d, w_bwd, w_fwd
                 berr = grad_errors(torch, got_b, ref_b)
                 cross = grad_errors(torch, got_b, got[4])
                 del ref, got, ref_b, got_b
@@ -977,12 +1007,12 @@ def check_grad_kernels(torch, dev):
                                    3 * mlp_macs(256, 63, 27) - SKIPPED_MACS,
                                    grad_bytes=grad_bytes,
                                    train=name == "fused_render_train")
-                tc = name == "fused_render_train" and cdt == "bfloat16"
+                was = (ROW5_BF16_CUDA_CORE_MS if name == "fused_render_train"
+                       else ROW4_BF16_CUDA_CORE_MS)
                 say(f"kernel {name} {cdt} R={R_TRAIN} S={s}: kernel {ms:.3f} ms"
                     + (f" (tensor cores; the CUDA-core kernel it replaced "
-                       f"{ROW5_BF16_CUDA_CORE_MS[s]:.3f} ms, x"
-                       f"{ROW5_BF16_CUDA_CORE_MS[s] / ms:.2f}; two launches "
-                       f"bit-identical)" if tc else "")
+                       f"{was[s]:.3f} ms, x{was[s] / ms:.2f}; two launches "
+                       f"bit-identical)" if cdt == "bfloat16" else "")
                     + f", plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), "
                     f"share of bound {bms / ms:.4f}")
                 e = gerr if name == "fused_render_train" else berr
@@ -2825,12 +2855,15 @@ def device_ms(torch, fn, reps: int = GRID_BATCH) -> float:
 
 
 def check_grid_interp_kernel(torch, dev) -> dict:
-    """Row 17 (csrc/fused_grid.cu) against its plain version: 1024 x 64 and
-    1024 x 256 points of random training rays and of tile-ordered camera
-    rays, float32 and bfloat16, on a 128^3 x 28 grid; timed in turns
-    (plain, kernel, library, library, kernel, plain) with F.grid_sample on
-    the grid laid out as (1, C, R, R, R) (made once, outside the timing)
-    as the library call, against the bytes bound."""
+    """Row 17 (csrc/fused_grid.cu) against its plain version, bit for bit:
+    1024 x 64 and 1024 x 256 points of random training rays and of
+    tile-ordered camera rays, float32 and bfloat16, on a 128^3 x 28 grid;
+    timed in turns (plain, kernel, library, library, kernel, plain) by
+    events through the wrapper, with F.grid_sample on the grid laid out as
+    (1, C, R, R, R) (made once, outside the timing) as the library call,
+    and the kernel and the library call on the device (``device_ms``, in
+    turns); against the bytes bound, and at 1024 x 256 beside the
+    warp-a-point kernel's times it replaced."""
     import torch.nn.functional as F
 
     from nerf_tpu_torch.ops.cuda.fused_grid import (
@@ -2866,24 +2899,35 @@ def check_grid_interp_kernel(torch, dev) -> dict:
                     if not torch.isfinite(out).all():
                         fail(f"grid_interp {cdt} {kind} S={s}: non-finite output")
                     err = float((out - ref).abs().max())
+                    same = torch.equal(out, ref)
                     lib_err = float((libv - interp_cells_plain(grid, cells_of(flat, GRID_R)))
                                     .abs().max())
                     ms = timed(torch, {"plain": plain, "kernel": kern, "library": lib},
                                ("plain", "kernel", "library", "library", "kernel", "plain"))
+                    dms = {"kernel": [], "library": []}
+                    for name in ("kernel", "library", "library", "kernel"):
+                        dms[name].append(device_ms(torch, kern if name == "kernel" else lib))
+                    kms, lms = statistics.median(dms["kernel"]), statistics.median(dms["library"])
                     rows = distinct_rows(torch, cells_of(flat, GRID_R), GRID_R)
                 n = flat.shape[0]
                 nbytes = n * 12 + n * GRID_C * 4 + rows * GRID_C * src.element_size()
                 bms = nbytes / PEAK_BYTES * 1e3
+                was = ROW17_WARP_MS.get((kind, cdt)) if s == 256 else None
                 say(f"kernel grid_interp {cdt} {kind} 1024x{s}: max_abs_err {err:.3e} "
-                    f"(tol {GRID_TOL:.0e}) | kernel {ms['kernel']:.4f} ms, plain "
-                    f"{ms['plain']:.4f} ms, library (F.grid_sample, float32) "
-                    f"{ms['library']:.4f} ms (vs float32 plain {lib_err:.1e}), bound {bms:.4f} ms "
-                    f"(bytes; {rows} distinct rows), share of bound {bms / ms['kernel']:.4f}")
-                if err > GRID_TOL:
-                    fail(f"grid_interp {cdt} {kind} S={s} disagrees with its plain version")
-                results[(cdt, kind, s)] = dict(err=err, ms=ms["kernel"], plain_ms=ms["plain"],
-                                               library_ms=ms["library"], bound_ms=bms,
-                                               bound_by="bytes")
+                    f"(tol {GRID_TOL:.0e}), bit-identical to the plain version: {same} | "
+                    f"kernel {kms:.4f} ms on the device (a CUDA graph), {ms['kernel']:.4f} ms "
+                    f"a call timed by events through the wrapper"
+                    + (f" (the warp-a-point kernel it replaced: {was:.4f} ms so timed, "
+                       f"PERF.md §6)" if was else "")
+                    + f"; plain {ms['plain']:.4f} ms, library (F.grid_sample, float32) "
+                    f"{lms:.4f} ms on the device, {ms['library']:.4f} ms by events (vs float32 "
+                    f"plain {lib_err:.1e}); bound {bms:.4f} ms (bytes; {rows} distinct rows), "
+                    f"share of bound {bms / kms:.4f}")
+                if not same or err > GRID_TOL:
+                    fail(f"grid_interp {cdt} {kind} S={s} is not its plain version bit for "
+                         f"bit (max abs {err:.3e})")
+                results[(cdt, kind, s)] = dict(err=err, ms=kms, plain_ms=ms["plain"],
+                                               library_ms=lms, bound_ms=bms, bound_by="bytes")
                 del ref, out, libv
                 torch.cuda.empty_cache()
         del model, grid, src, lib_grid
@@ -3641,7 +3685,7 @@ def main() -> int:
                    max(c["err"] for c in checks.values()))]
     for name, source, line, launched in (
             ("fused_render_train", "fused_render_train_tc.cu", 315, trained["train_launches"]),
-            ("fused_render_bwd", "fused_render_train.cu", 242, trained["bwd_launches"])):
+            ("fused_render_bwd", "fused_render_train_tc.cu", 242, trained["bwd_launches"])):
         kernels.append(row(name, source,
                            f"{nerf_tpu}fused_render.py:{line}", launched,
                            grad_checks[(name, "bfloat16", 192)],

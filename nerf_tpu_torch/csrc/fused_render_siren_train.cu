@@ -98,7 +98,8 @@ fused_siren_grad_kernel(RayInputs in, Siren sp, const WT* __restrict__ wmat,
   // ---- 2. compositing, cotangent, compositing backward (thread per ray) ----
   float* lossr = smem + SM_ACT1;
   composite_rays<TRAIN>(in, ray0, nr, cap_c, cols, cz, sp.sigma_mul, sp.rgb_mul,
-                        given, white_bg, scale, rgb_out, acc_out, weights_out, lossr);
+                        given, white_bg, scale, rgb_out, acc_out,
+                        TRAIN ? weights_out : nullptr, lossr);
   if (tid == 0) {
     float s = 0.f;
     if (TRAIN)

@@ -1,8 +1,8 @@
 // Fused NeRF train pass and render backward for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of nerf_tpu/ops/pallas/fused_render.py:
-//   * _train_kernel (FusedNerfRender.train) in float32 mode (its bfloat16
-//     mode is fused_render_train_tc.cu): forward, white-background MSE
+// Replaces two TPU kernels of nerf_tpu/ops/pallas/fused_render.py in
+// float32 mode (their bfloat16 modes are fused_render_train_tc.cu's):
+//   * _train_kernel (FusedNerfRender.train): forward, white-background MSE
 //     (loss partial and its analytic per-ray cotangent, _mse_cotangent),
 //     the backward through compositing (_composite_bwd) and the MLP
 //     backward (fused_nerf.py::_mlp_bwd_core without input gradients),
@@ -17,11 +17,7 @@
 // What bounds it on this card: operations. A sample costs the forward's
 // 658,944 MACs plus twice that for the backward, less the three products
 // the TPU kernel also skips (dz1 w1^T, dz6 w6p^T, dzr0 wr0d^T): about 1.95M
-// MACs. float32 mode runs on the CUDA cores (67 TFLOP/s); bfloat16 mode
-// (the render backward only: the bfloat16 train pass runs on the tensor
-// cores, fused_render_train_tc.cu) rounds at the TPU kernel's points and
-// sums in float32, also on the CUDA cores (its bound is the tensor cores'
-// 989 TFLOP/s).
+// MACs, on the CUDA cores (67 TFLOP/s in float32).
 //
 // Design. The TPU kernel keeps a whole-ray tile's activations in VMEM and
 // adds into one gradient block across a grid that runs in order. Neither
@@ -48,12 +44,6 @@
 //   4. A second small kernel adds the per-CTA partials (and loss terms) in
 //      CTA order. Nothing is atomic, so a step is deterministic from run to
 //      run.
-// Rounding in bfloat16 mode follows _mlp_bwd_core: both operands of every
-// dW product and the dz of every dz W^T are rounded to bf16, sums are
-// float32, the bias, w10s and b10s gradients are float32 sums of the
-// unrounded values, and h9, sigma_pre and the rgb sigmoid are read in
-// float32.
-//
 // Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared
 // library with a plain C interface (loaded by ctypes).
 
@@ -65,10 +55,10 @@ using namespace nerf;
 
 constexpr int FLOATS_PER_POINT = floats_per_point<2>();
 
-template <bool BF16, bool TRAIN, typename WT>
+template <bool TRAIN>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_render_grad_kernel(RayInputs in, const WT* __restrict__ wmat,
-                         const WT* __restrict__ wmat_t,
+fused_render_grad_kernel(RayInputs in, const float* __restrict__ wmat,
+                         const float* __restrict__ wmat_t,
                          const float* __restrict__ given, float white_bg,
                          float scale, int rays_per_cta, int cap,
                          float* __restrict__ scratch, float* __restrict__ partial,
@@ -91,13 +81,13 @@ fused_render_grad_kernel(RayInputs in, const WT* __restrict__ wmat,
 
   // ---- 1. forward, stashing every activation ----
   for (int c0 = 0; c0 < npts; c0 += P)
-    forward_chunk<BF16, true>(in, wmat, ray0 * S + c0, min(P, npts - c0), smem,
+    forward_chunk<false, true>(in, wmat, ray0 * S + c0, min(P, npts - c0), smem,
                               sc.st, static_cast<size_t>(c0));
 
   // ---- 2. compositing, cotangent, compositing backward (thread per ray) ----
   float* lossr = smem + SM_ACT1;
   composite_rays<TRAIN>(in, ray0, nr, cap_c, cols, cz, 1.f, 1.f, given, white_bg,
-                        scale, rgb_out, acc_out, weights_out, lossr);
+                        scale, rgb_out, acc_out, TRAIN ? weights_out : nullptr, lossr);
   if (tid == 0) {
     float s = 0.f;
     if (TRAIN)
@@ -106,22 +96,22 @@ fused_render_grad_kernel(RayInputs in, const WT* __restrict__ wmat,
   }
 
   // ---- 3. MLP backward, layer by layer over the CTA's points ----
-  mlp_backward<BF16, false>(sc, cz, in.vec, wmat, wmat_t, static_cast<const WT*>(nullptr),
-                            part, cap_c, smem);
+  mlp_backward<false, false>(sc, cz, in.vec, wmat, wmat_t, static_cast<const float*>(nullptr),
+                             part, cap_c, smem);
 }
 
-template <bool BF16, bool TRAIN, typename WT>
+template <bool TRAIN>
 int launch(const RayInputs& in, const void* wmat, const void* wmat_t,
            const float* given, float white_bg, float scale, int rays_per_cta,
            int cap, float* scratch, float* partial, float* out, float* rgb,
            float* acc, float* weights, cudaStream_t stream) {
-  auto kernel = fused_render_grad_kernel<BF16, TRAIN, WT>;
+  auto kernel = fused_render_grad_kernel<TRAIN>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (in.num_rays + rays_per_cta - 1) / rays_per_cta;
   kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      in, static_cast<const WT*>(wmat), static_cast<const WT*>(wmat_t), given,
+      in, static_cast<const float*>(wmat), static_cast<const float*>(wmat_t), given,
       white_bg, scale, rays_per_cta, cap, scratch, partial, rgb, acc, weights);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -141,15 +131,15 @@ void fused_render_grad_sizes(int* floats_per_point, int* npart, int* n_out) {
   *n_out = N_TOT + 1;
 }
 
-// train != 0: `given` is the (R, 3) target and rgb/acc/weights are written
-// (float32 only: fused_render_train_tc.cu has the bfloat16 train pass);
-// train == 0: `given` is the (R, 8) cotangent [g_rgb, g_acc, g_depth, 0..]
-// and only the gradients are. `scratch` holds grid * cap * floats_per_point
+// float32 only (fused_render_train_tc.cu has both in bfloat16). train != 0:
+// `given` is the (R, 3) target and rgb/acc/weights are written; train == 0:
+// `given` is the (R, 8) cotangent [g_rgb, g_acc, g_depth, 0..] and only the
+// gradients are. `scratch` holds grid * cap * floats_per_point
 // floats, `partial` grid * npart, `out` n_out, where grid =
 // ceil(num_rays / rays_per_cta) and cap >= ceil(rays_per_cta * S / 64) * 64.
 // Returns 0 on success, a cudaError_t code after a failed launch, -1 when
-// the packed buffers or the shapes do not fit this kernel, or -2 for a
-// bfloat16 train pass.
+// the packed buffers or the shapes do not fit this kernel, or -2 for
+// bfloat16 (both runs are fused_render_train_tc.cu's).
 int fused_render_grad(const float* o_aff, const float* d_aff,
                       const float* viewdirs, const float* t, const void* wmat,
                       const void* wmat_t, const float* vec, int n_w, int n_b,
@@ -158,30 +148,25 @@ int fused_render_grad(const float* o_aff, const float* d_aff,
                       int cap, int real_p, int real_d, float* scratch,
                       float* partial, float* out, float* rgb, float* acc,
                       float* weights, void* stream) {
+  if (bf16) return -2;   // fused_render_train_tc.cu runs both in bf16
   if (n_w != N_W || n_b != N_B || num_rays <= 0 || S <= 0 ||
       rays_per_cta <= 0 || rays_per_cta > H * LDA || real_p > PP ||
       real_d > DP || cap % P != 0 || cap < (rays_per_cta * S + P - 1) / P * P)
     return -1;
   const RayInputs in{o_aff, d_aff, viewdirs, t, vec, num_rays, S, real_p, real_d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (train) return -2;   // fused_render_train_tc.cu runs the bf16 train pass
-    return launch<true, false, __nv_bfloat16>(in, wmat, wmat_t, given, white_bg,
-                                              scale, rays_per_cta, cap, scratch,
-                                              partial, out, rgb, acc, weights, s);
-  }
   if (train)
-    return launch<false, true, float>(in, wmat, wmat_t, given, white_bg, scale,
-                                      rays_per_cta, cap, scratch, partial, out,
-                                      rgb, acc, weights, s);
-  return launch<false, false, float>(in, wmat, wmat_t, given, white_bg, scale,
-                                     rays_per_cta, cap, scratch, partial, out,
-                                     rgb, acc, weights, s);
+    return launch<true>(in, wmat, wmat_t, given, white_bg, scale, rays_per_cta, cap,
+                        scratch, partial, out, rgb, acc, weights, s);
+  return launch<false>(in, wmat, wmat_t, given, white_bg, scale, rays_per_cta, cap,
+                       scratch, partial, out, rgb, acc, weights, s);
 }
 
 const char* fused_render_grad_error(int code) {
   if (code == -1) return "packed weights or shapes do not fit the kernel";
-  if (code == -2) return "the bfloat16 train pass runs in fused_render_train_tc";
+  if (code == -2)
+    return "bfloat16 runs on the tensor cores: the train pass in fused_render_train_tc, the "
+           "render backward in fused_render_bwd_tc (both in the fused_render_train_tc library)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,14 +1,26 @@
-// Fused NeRF train pass in bfloat16 on Hopper's tensor cores (sm_90a).
+// Fused NeRF train pass and render backward in bfloat16 on Hopper's tensor
+// cores (sm_90a).
 //
-// Replaces: nerf_tpu/ops/pallas/fused_render.py::_train_kernel
-// (FusedNerfRender.train) in bfloat16 mode: the forward of the NeRF MLP
-// over a (rays, samples) batch, white-background MSE (loss partial and its
-// per-ray cotangent, _mse_cotangent), the backward through compositing
-// (_composite_bwd) and the MLP backward (fused_nerf.py::_mlp_bwd_core
-// without input gradients), in one pass. It gives the 28 float32 weight
-// gradients of the packed layout (fused_render_common.cuh), the loss, rgb,
-// acc and the compositing weights. The float32 mode and the render
-// backward stay in fused_render_train.cu.
+// Replaces two TPU kernels of nerf_tpu/ops/pallas/fused_render.py in
+// bfloat16 mode:
+//   * _train_kernel (FusedNerfRender.train): the forward of the NeRF MLP
+//     over a (rays, samples) batch, white-background MSE (loss partial and
+//     its per-ray cotangent, _mse_cotangent), the backward through
+//     compositing (_composite_bwd) and the MLP backward
+//     (fused_nerf.py::_mlp_bwd_core without input gradients), in one pass;
+//   * _bwd_kernel (the custom VJP of FusedNerfRender.__call__): the same,
+//     with the per-ray cotangent [g_rgb, g_acc, g_depth] given instead of
+//     the MSE head, and the depth cotangent reaching dL/dw as g_depth * t.
+// Both give the 28 float32 weight gradients of the packed layout
+// (fused_render_common.cuh), the train pass also the loss, rgb, acc and the
+// compositing weights. One forward kernel and one backward template, two
+// entry points (fused_render_train_tc, fused_render_bwd_tc). The forward is
+// row 3's chain (the bf16 forward render, fused_render_fwd_tc.cu), so the
+// render backward takes its gradient at the very forward that the render
+// returned: the weights it recomputes equal the render's bit for bit. The
+// float32 modes stay in fused_render_train.cu. The render backward's
+// CUDA-core kernel took 10.811 / 30.558 / 40.304 ms at 1024 rays x 64 / 192
+// / 256 samples (NVIDIA H100 80GB HBM3, 700 W).
 //
 // What bounds it on this card: operations. A sample costs the forward's
 // 658,944 MACs plus twice that for the backward, less the three input
@@ -102,10 +114,14 @@ fused_render_train_tc_fwd(RayInputs in, const bf16* __restrict__ wmat, int rays_
                            static_cast<size_t>(c0), cap);
 }
 
-// Steps 2 and 3: compositing, the MSE cotangent and the compositing
-// backward (a thread a ray), then the MLP backward over the CTA's points.
+// Steps 2 and 3: compositing, the cotangent (TRAIN: the MSE head on the
+// (R, 3) target `given`; else the given (R, 8) [g_rgb, g_acc, g_depth, 0..])
+// and the compositing backward (a thread a ray), then the MLP backward over
+// the CTA's points. The render backward writes no loss (0) and no rgb or
+// acc, and the compositing weights only where `weights_out` is not null.
+template <bool TRAIN>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_render_train_tc_bwd(RayInputs in, const bf16* __restrict__ wmat, const float* __restrict__ target,
+fused_render_train_tc_bwd(RayInputs in, const bf16* __restrict__ wmat, const float* __restrict__ given,
                  float white_bg, float scale, int rays_per_cta, int cap,
                  unsigned char* __restrict__ scratch, float* __restrict__ partial,
                  float* __restrict__ rgb_out, float* __restrict__ acc_out,
@@ -125,15 +141,46 @@ fused_render_train_tc_bwd(RayInputs in, const bf16* __restrict__ wmat, const flo
       carve_tc_stash(scratch + static_cast<size_t>(blockIdx.x) * cap * TC_BYTES_PER_POINT, cap);
   float* part = partial + static_cast<size_t>(blockIdx.x) * NPART;
   float* lossr = reinterpret_cast<float*>(sm.act1);
-  composite_rays<true>(in, ray0, nr, cap_c, st.cols, static_cast<size_t>(cap), 1.f, 1.f, target,
-                       white_bg, scale, rgb_out, acc_out, weights_out, lossr);
+  composite_rays<TRAIN>(in, ray0, nr, cap_c, st.cols, static_cast<size_t>(cap), 1.f, 1.f, given,
+                        white_bg, scale, rgb_out, acc_out, weights_out, lossr);
   if (threadIdx.x == 0) {
     float s = 0.f;
-    for (int r = 0; r < nr; ++r) s += lossr[r];
+    if (TRAIN)
+      for (int r = 0; r < nr; ++r) s += lossr[r];
     part[N_TOT] = scale * s;
   }
   __syncthreads();
   backward(st, cap, in.vec, wmat, part, cap_c, sm, NoBwdHooks{});
+}
+
+// The stashing forward, then the backward of TRAIN's kind, then the sum of
+// the per-CTA partials.
+template <bool TRAIN>
+int launch(const RayInputs& in, const void* wmat, const float* given, float white_bg,
+           float scale, int rays_per_cta, int cap, void* scratch, float* partial, float* out,
+           float* rgb, float* acc, float* weights, cudaStream_t s) {
+  if (in.num_rays <= 0 || in.S <= 0 || rays_per_cta <= 0 || rays_per_cta > MAX_RAYS_PER_CTA ||
+      in.real_p > PP || in.real_d > DP || cap % TC_P != 0 ||
+      cap < (rays_per_cta * in.S + TC_P - 1) / TC_P * TC_P)
+    return -1;
+  cudaError_t err =
+      cudaFuncSetAttribute(fused_render_train_tc_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_FWD);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(fused_render_train_tc_bwd<TRAIN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BWD);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (in.num_rays + rays_per_cta - 1) / rays_per_cta;
+  fused_render_train_tc_fwd<<<grid * FWD_SPLIT, THREADS, SMEM_FWD, s>>>(
+      in, static_cast<const bf16*>(wmat), rays_per_cta, cap, static_cast<unsigned char*>(scratch));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_render_train_tc_bwd<TRAIN><<<grid, THREADS, SMEM_BWD, s>>>(
+      in, static_cast<const bf16*>(wmat), given, white_bg, scale, rays_per_cta, cap,
+      static_cast<unsigned char*>(scratch), partial, rgb, acc, weights);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_partials<N_TOT, NPART><<<(N_TOT + 1 + 255) / 256, 256, 0, s>>>(partial, grid, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -161,30 +208,29 @@ int fused_render_train_tc(const float* o_aff, const float* d_aff, const float* v
                           int rays_per_cta, int cap, int real_p, int real_d, void* scratch,
                           float* partial, float* out, float* rgb, float* acc, float* weights,
                           void* stream) {
-  if (n_w != N_W || n_b != N_B || num_rays <= 0 || S <= 0 || rays_per_cta <= 0 ||
-      rays_per_cta > MAX_RAYS_PER_CTA || real_p > PP || real_d > DP || cap % TC_P != 0 ||
-      cap < (rays_per_cta * S + TC_P - 1) / TC_P * TC_P)
-    return -1;
+  if (n_w != N_W || n_b != N_B) return -1;
   const RayInputs in{o_aff, d_aff, viewdirs, t, vec, num_rays, S, real_p, real_d};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      cudaFuncSetAttribute(fused_render_train_tc_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_FWD);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(fused_render_train_tc_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_BWD);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (num_rays + rays_per_cta - 1) / rays_per_cta;
-  fused_render_train_tc_fwd<<<grid * FWD_SPLIT, THREADS, SMEM_FWD, s>>>(
-      in, static_cast<const bf16*>(wmat), rays_per_cta, cap, static_cast<unsigned char*>(scratch));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_render_train_tc_bwd<<<grid, THREADS, SMEM_BWD, s>>>(
-      in, static_cast<const bf16*>(wmat), target, white_bg, scale, rays_per_cta, cap,
-      static_cast<unsigned char*>(scratch), partial, rgb, acc, weights);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_partials<N_TOT, NPART><<<(N_TOT + 1 + 255) / 256, 256, 0, s>>>(partial, grid, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(in, wmat, target, white_bg, scale, rays_per_cta, cap, scratch, partial,
+                      out, rgb, acc, weights, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 render backward (the replaced CUDA-core kernel's
+// fused_render_grad with train = 0): the gradients of the forward render
+// from the given (R, 8) cotangent [g_rgb, g_acc, g_depth, 0..], into `out`
+// (its loss slot 0); buffers and sizes as fused_render_train_tc's. Its
+// forward is row 3's chain (fused_render_fwd_tc.cu), so with `weights_dbg`
+// not null the compositing weights it recomputes, (R, S), are written there
+// for a check against the forward render's; pass null otherwise. Returns as
+// fused_render_train_tc.
+int fused_render_bwd_tc(const float* o_aff, const float* d_aff, const float* viewdirs,
+                        const float* t, const void* wmat, const float* vec, int n_w, int n_b,
+                        const float* given, int num_rays, int S, int rays_per_cta, int cap,
+                        int real_p, int real_d, void* scratch, float* partial, float* out,
+                        float* weights_dbg, void* stream) {
+  if (n_w != N_W || n_b != N_B) return -1;
+  const RayInputs in{o_aff, d_aff, viewdirs, t, vec, num_rays, S, real_p, real_d};
+  return launch<false>(in, wmat, given, 0.f, 0.f, rays_per_cta, cap, scratch, partial, out,
+                       nullptr, nullptr, weights_dbg, static_cast<cudaStream_t>(stream));
 }
 
 const char* fused_render_train_tc_error(int code) {

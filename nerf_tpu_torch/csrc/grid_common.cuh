@@ -1,7 +1,7 @@
 // Trilinear interpolation of a dense voxel grid: the device code that the
-// grid-interpolation kernel (fused_grid.cu: one warp per point, the lanes
-// over channels, interp_lane) and the fused grid render (fused_grid_render.cu:
-// one thread per point, every channel in its registers, interp_row) share.
+// grid-interpolation kernel (fused_grid.cu) and the fused grid render
+// (fused_grid_render.cu) share, both one thread per point with every
+// channel in its registers (interp_row).
 //
 // The grid is a dense (R, R, R, C) array, row-major, C <= 32 channels a row
 // (Plenoxels: 1 density + 3 x 9 SH coefficients = 28), float32 or its
@@ -9,7 +9,7 @@
 // [0, R-1]) selects the cell x0 = clamp(floor(g), 0, R-2) and the fraction
 // f = g - x0; the eight corners (dx, dy, dz) in {0, 1}^3, k = dx*4 + dy*2 +
 // dz, carry the weight w_k = (wx * wy) * wz with wx = 1 - f or f. Every
-// lane c < C sums w_k * grid[corner_k, c] over k in order, in float32.
+// channel c < C sums w_k * grid[corner_k, c] over k in order, in float32.
 //
 // float32 mode reads float32 rows with float32 weights. bfloat16 mode is
 // the TPU kernel's (nerf_tpu/ops/pallas/fused_grid.py::_interp_seg): the
@@ -21,10 +21,9 @@
 //
 // The TPU kernels' plan (8^3 sub-bricks, the 16^3 window, tent matmuls and
 // the fits bit with its fallback) exists because Mosaic has no in-kernel
-// gather; the H100 gathers, so each lane reads its channel of the eight
-// corner rows directly (a row is 112 bytes in float32, 56 in bfloat16; a
-// warp's reads of one row are one or two 128-byte lines), or a thread reads
-// whole rows as vectors, and the L2 cache takes the place of the window.
+// gather; the H100 gathers, so a thread reads the eight corner rows of its
+// point directly as vectors (a row is 112 bytes in float32, 56 in
+// bfloat16), and the L2 cache takes the place of the window.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,7 +31,7 @@
 
 namespace grid {
 
-constexpr int LANES = 32;          // channels a warp covers
+constexpr int MAX_C = 32;          // channels a grid row holds at most
 constexpr unsigned FULL = 0xffffffffu;
 
 // The cell coordinate of a position p in [-1, 1]: clamp((p + 1) * half, 0,
@@ -64,29 +63,6 @@ __device__ __forceinline__ void stencil(float gx, float gy, float gz, int r,
     if (BF16) wk = __bfloat162float(__float2bfloat16_rn(wk));
     w[k] = wk;
   }
-}
-
-template <bool BF16>
-__device__ __forceinline__ float load_row(const void* g, long long row, int c, int lane) {
-  if (BF16)
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(g)[row * c + lane]);
-  return static_cast<const float*>(g)[row * c + lane];
-}
-
-// Lane ``lane``'s channel of the interpolated row (0 for lane >= c).
-template <bool BF16>
-__device__ __forceinline__ float interp_lane(const void* g, int r, int c, long long base,
-                                             const float w[8], int lane) {
-  if (lane >= c) return 0.0f;
-  const long long rr = static_cast<long long>(r) * r;
-  float v[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k)     // eight independent loads in flight
-    v[k] = load_row<BF16>(g, base + ((k & 4) ? rr : 0) + ((k & 2) ? r : 0) + (k & 1), c, lane);
-  float acc = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) acc = __fadd_rn(acc, __fmul_rn(w[k], v[k]));
-  return acc;
 }
 
 // Row `row` of a grid of C channels into x[0..C-1] as float32, read as the
@@ -127,8 +103,7 @@ __device__ __forceinline__ void load_row_vec(const void* g, long long row, float
 
 // Every channel of the interpolated row at one point, for a thread that owns
 // the point: the eight corner rows read as vectors (load_row_vec), and each
-// channel summed over k in order exactly as interp_lane sums its lane's, so
-// that both give the same bits.
+// channel summed over k in order from 0, one rounding an operation.
 template <bool BF16, int C>
 __device__ __forceinline__ void interp_row(const void* g, int r, long long base,
                                            const float w[8], float (&v)[C]) {

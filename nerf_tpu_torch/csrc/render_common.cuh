@@ -259,7 +259,8 @@ constexpr int C_SIGP = 0, C_RGB = 1, C_T = 4, C_ONEM = 5, C_W = 6,
 // from the stashed density pre-activation (sigma = relu(sigma_pre) *
 // sigma_mul) and rgb, then the per-ray cotangent (TRAIN: the MSE head of
 // nerf_tpu/ops/pallas/fused_render.py::_mse_cotangent, with the per-ray
-// squared errors in lossr; else the given (R, 8) [g_rgb, g_acc, g_depth]),
+// squared errors in lossr; else the given (R, 8) [g_rgb, g_acc, g_depth],
+// and the weights only where weights_out is not null),
 // then the compositing backward (_composite_bwd) in reverse sample order:
 // the sigmoid input's cotangent dzr1 (times rgb_mul) and the density
 // pre-activation's dsig (times sigma_mul, zero where relu is off). Rows
@@ -289,7 +290,7 @@ __device__ void composite_rays(const RayInputs& in, int ray0, int nr, int cap_c,
       cols[C_T * cz + l] = T;
       cols[C_ONEM * cz + l] = one_m;
       cols[C_W * cz + l] = w;
-      if (TRAIN) weights_out[g] = w;
+      if (TRAIN || weights_out != nullptr) weights_out[g] = w;
       s0 = fmaf(w, cols[(C_RGB + 0) * cz + l], s0);
       s1 = fmaf(w, cols[(C_RGB + 1) * cz + l], s1);
       s2 = fmaf(w, cols[(C_RGB + 2) * cz + l], s2);

@@ -130,6 +130,8 @@ def grid_interp(src: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     points, src = points.contiguous(), src.detach().contiguous()
+    if src.data_ptr() % 16:             # the kernel reads rows as 16-byte vectors
+        src = src.clone()
     lib = _library()
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream

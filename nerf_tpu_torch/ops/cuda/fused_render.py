@@ -11,8 +11,11 @@ Three kernels, each replacing one of ``nerf_tpu/ops/pallas/fused_render.py``
     the full backward in one pass; in bfloat16 on the tensor cores
     (``csrc/fused_render_train_tc.cu``), in float32 the train entry of
     ``csrc/fused_render_train.cu``;
-  * ``csrc/fused_render_train.cu``, backward entry (``_bwd_kernel``): the
-    parameter gradients of the forward render from a per-ray cotangent.
+  * the render backward (``_bwd_kernel``): the parameter gradients of the
+    forward render from a per-ray cotangent; in bfloat16 the backward entry
+    of ``csrc/fused_render_train_tc.cu`` (the forward render's own chain on
+    the tensor cores, so the gradient is taken at the forward the render
+    returned), in float32 that of ``csrc/fused_render_train.cu``.
 
 This module holds
 
@@ -394,6 +397,8 @@ def _library(name: str) -> ctypes.CDLL:
         lib.fused_render_train_tc.argtypes = ([vp] * 6 + [ci] * 2 + [vp, cf, cf]
                                               + [ci] * 6 + [vp] * 7)
         lib.fused_render_train_tc.restype = ci
+        lib.fused_render_bwd_tc.argtypes = [vp] * 6 + [ci] * 2 + [vp] + [ci] * 6 + [vp] * 5
+        lib.fused_render_bwd_tc.restype = ci
         lib.fused_render_train_tc_error.argtypes = [ci]
         lib.fused_render_train_tc_error.restype = ctypes.c_char_p
         lib.fused_render_train_tc_sizes.argtypes = [ctypes.POINTER(ci)] * 3
@@ -506,9 +511,10 @@ class FusedRender:
     its libraries' entry points (``_fwd_entry``: the function, its error
     string and the CTAs it runs on an SM; ``_grad_entry``; where its
     bfloat16 train pass runs on the tensor cores, ``_train_tc_entry``:
-    the function, its error string and its sizes), the library of each
+    the function, its error string and its sizes, and where its bfloat16
+    render backward does too, ``_bwd_tc_entry``), the library of each
     gradient launch (``grad_library``: a name ending in ``_tc`` is the
-    tensor-core train pass), the family arguments of all of them
+    tensor-core library), the family arguments of all of them
     (``_family_args``) and its matrix names in buffer order
     (``mat_names``).
     """
@@ -640,14 +646,15 @@ class FusedRender:
         return rgb, acc, depth, weights
 
     def _launch_grad(self, packed: Packed, o_aff, d_aff, viewdirs, t,
-                     given, train: bool, white_bg: bool):
+                     given, train: bool, white_bg: bool, debug_weights: bool = False):
         """One launch of the train pass (``given`` the (R,3) target) or of
         the render backward (``given`` the (R,8) cotangent), on the
         library ``grad_library`` names. Returns ``((gw, gv), loss, rgb,
-        acc, weights)``."""
+        acc, weights)``; ``debug_weights``: a tensor-core render backward
+        also writes the compositing weights it recomputes (a check)."""
         if self.grad_library(train).endswith("_tc"):
             return self._launch_train_tc(packed, o_aff, d_aff, viewdirs, t, given,
-                                         white_bg)
+                                         train, white_bg, debug_weights)
         return self._launch_grad_cuda_core(packed, o_aff, d_aff, viewdirs, t, given,
                                            train, white_bg)
 
@@ -682,29 +689,39 @@ class FusedRender:
                                        packed, out)
         return grads, loss, rgb, acc, weights
 
-    def _launch_train_tc(self, packed: Packed, o_aff, d_aff, viewdirs, t, target,
-                         white_bg: bool):
-        """One launch of the family's bfloat16 train pass on the tensor cores
-        (``_train_tc_entry``: the function, its error string and its sizes);
-        returns as ``_launch_grad``."""
+    def _launch_train_tc(self, packed: Packed, o_aff, d_aff, viewdirs, t, given,
+                         train: bool, white_bg: bool, debug_weights: bool = False):
+        """One launch of the family's bfloat16 train pass (``train``:
+        ``_train_tc_entry``) or render backward (``_bwd_tc_entry``) on the
+        tensor cores (each entry the function, its error string and its
+        sizes); returns as ``_launch_grad``. The render backward gives no
+        rgb or acc (None), and its weights (else None) with
+        ``debug_weights`` only."""
         num_rays, s = t.shape
         self._check(packed, self._ray_args(o_aff, d_aff, viewdirs, t) + (
-            ("given", target, (num_rays, 3), torch.float32),))
-        o_aff, d_aff, viewdirs, t, target = (
-            x.detach().contiguous() for x in (o_aff, d_aff, viewdirs, t, target))
-        fn, err, sizes = self._train_tc_entry()
+            ("given", given, (num_rays, 3 if train else 8), torch.float32),))
+        o_aff, d_aff, viewdirs, t, given = (
+            x.detach().contiguous() for x in (o_aff, d_aff, viewdirs, t, given))
+        fn, err, sizes = self._train_tc_entry() if train else self._bwd_tc_entry()
         (rays_per_cta, cap), scratch, partial, out, rgb, acc, weights = (
             self._grad_buffers(t, grad_sizes(sizes), torch.uint8))
+        head = (o_aff.data_ptr(), d_aff.data_ptr(), viewdirs.data_ptr(), t.data_ptr(),
+                packed.wmat.data_ptr(), packed.vec.data_ptr(), packed.wmat.numel(),
+                packed.vec.numel(), given.data_ptr())
+        plan = (num_rays, s, rays_per_cta, cap, *self._family_args(), scratch.data_ptr(),
+                partial.data_ptr(), out.data_ptr())
         with torch.cuda.device(t.device):
             stream = torch.cuda.current_stream(t.device).cuda_stream
-            code = fn(
-                o_aff.data_ptr(), d_aff.data_ptr(), viewdirs.data_ptr(), t.data_ptr(),
-                packed.wmat.data_ptr(), packed.vec.data_ptr(), packed.wmat.numel(),
-                packed.vec.numel(), target.data_ptr(), 1.0 if white_bg else 0.0,
-                1.0 / (3.0 * num_rays), num_rays, s, rays_per_cta, cap,
-                *self._family_args(), scratch.data_ptr(), partial.data_ptr(),
-                out.data_ptr(), rgb.data_ptr(), acc.data_ptr(), weights.data_ptr(), stream)
-        grads, loss = self._grad_split("train", err, code, packed, out)
+            if train:
+                code = fn(*head, 1.0 if white_bg else 0.0, 1.0 / (3.0 * num_rays), *plan,
+                          rgb.data_ptr(), acc.data_ptr(), weights.data_ptr(), stream)
+            else:
+                rgb = acc = None
+                weights = weights if debug_weights else None
+                code = fn(*head, *plan, None if weights is None else weights.data_ptr(),
+                          stream)
+        grads, loss = self._grad_split("train" if train else "backward", err, code,
+                                       packed, out)
         return grads, loss, rgb, acc, weights
 
     def _grad_buffers(self, t, sizes: tuple, stash_dtype):
@@ -799,14 +816,19 @@ class FusedNerfRender(FusedRender):
                 grad_sizes(lib.fused_render_grad_sizes))
 
     def grad_library(self, train: bool) -> str:
-        """The library of a train pass (``train``) or render backward: the
-        bfloat16 train pass runs on the tensor cores, the others on the
-        CUDA cores."""
-        if train and self.cdt == torch.bfloat16:
+        """The library of a train pass (``train``) or render backward: in
+        bfloat16 both run on the tensor cores (one library, two entries),
+        in float32 on the CUDA cores."""
+        if self.cdt == torch.bfloat16:
             return "fused_render_train_tc"
         return "fused_render_train"
 
     def _train_tc_entry(self):
         lib = _library("fused_render_train_tc")
         return (lib.fused_render_train_tc, lib.fused_render_train_tc_error,
+                lib.fused_render_train_tc_sizes)
+
+    def _bwd_tc_entry(self):
+        lib = _library("fused_render_train_tc")
+        return (lib.fused_render_bwd_tc, lib.fused_render_train_tc_error,
                 lib.fused_render_train_tc_sizes)

@@ -247,6 +247,56 @@ def test_backward_kernel_matches_plain_and_autograd(dev, cdt, shape):
                                grad_views(*got, 256)["w1"][:63])
 
 
+@pytest.mark.parametrize("shape", [(133, 64), (64, 192), (300, 37)])
+def test_bf16_render_backward_tc_matches_plain_and_recomputes_row_3(dev, shape):
+    """Row 4 in bfloat16 on the tensor cores (fused_render_bwd_tc): within
+    GRAD_TOL of the plain version, from a cotangent whose acc column is
+    zero on half the rays; two launches give the same bits; one backward
+    launch; and the compositing weights it recomputes equal the bf16
+    forward render's (row 3) bit for bit, since both run one chain and
+    composite with the same expressions."""
+    model = NeRFModel(compute_dtype="bfloat16",
+                      generator=torch.Generator().manual_seed(12)).to(dev)
+    fr = FusedNerfRender(model, NEAR, FAR)
+    assert fr.grad_library(False) == "fused_render_train_tc"
+    ro, rd, t = _inputs(*shape, dev, seed=13)
+    g_ray = torch.randn(shape[0], 8, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(14))
+    g_ray[:, 5:] = 0
+    g_ray[::2, 3] = 0
+    with torch.no_grad():
+        packed = fr.pack(model)
+        o_aff, d_aff = fr.affine(ro, rd)
+        before = FusedNerfRender.bwd_launches
+        got = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+        again = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+        torch.cuda.synchronize()
+        assert FusedNerfRender.bwd_launches == before + 2
+        ref = fused_render_bwd_plain(packed, o_aff, d_aff, rd, t, g_ray, 10, 4)
+        grads, loss, rgb, acc, weights = fr._launch_grad(
+            packed, o_aff, d_aff, rd, t, g_ray, False, False, True)
+        fwd = fr._forward(packed, o_aff, d_aff, rd, t)
+        torch.cuda.synchronize()
+    _assert_grads(got, ref, "bfloat16")
+    for x, y, z in zip(got, again, grads):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    assert float(loss) == 0.0 and rgb is None and acc is None
+    assert torch.equal(weights, fwd[3]), float((weights - fwd[3]).abs().max())
+
+
+def test_cuda_core_render_grad_refuses_bf16(dev):
+    """The CUDA-core library's entry refuses bfloat16 (-2) for the train
+    pass and the render backward alike, naming the tensor-core entries."""
+    from nerf_tpu_torch.ops.cuda.fused_render import _library
+
+    lib = _library("fused_render_train")
+    for train in (1, 0):
+        code = lib.fused_render_grad(*[None] * 7, 0, 0, 1, train, None, 0.0, 0.0,
+                                     1, 1, 1, 64, 63, 27, *[None] * 7)
+        assert code == -2
+    assert "fused_render_bwd_tc" in lib.fused_render_grad_error(-2).decode()
+
+
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
 def test_train_step_on_card_matches_cpu(dev, cdt):
     """Two hierarchical 8+16 steps of the same state on one batch (perturb
@@ -1615,25 +1665,35 @@ def _grid_points(kind, n, dev, seed=0):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("r,kind,n", [(16, "uniform", 5000), (7, "uniform", 37),
-                                      (2, "uniform", 1), (16, "lines", 1000)])
-def test_grid_interp_kernel_matches_plain(dev, dtype, r, kind, n):
-    """Row 17 against its plain version on the card: the same float32
-    operations in the same order (no fused multiply-add), so to 1e-6 of
-    the values (measured equal on the H100); one launch."""
+                                      (2, "uniform", 1), (16, "lines", 1000),
+                                      (32, "uniform", 70001), (9, "offset", 300)])
+@pytest.mark.parametrize("c", [1, 5, 25, 28, 32])
+def test_grid_interp_kernel_matches_plain(dev, dtype, r, kind, n, c):
+    """Row 17 against its plain version on the card, bit for bit: a thread
+    a point does the same float32 operations in the same order (no fused
+    multiply-add). Every C the dispatch covers at its ends and in use (25:
+    the baked FastNeRF cache, 28: Plenoxels), batches that are no whole
+    number of 128-point CTAs, and points that start 12 bytes past a 16-byte
+    boundary ("offset": the positions read one float a thread); one
+    launch."""
     from nerf_tpu_torch.ops.cuda.fused_grid import (
         GridKernel, cells_of, grid_interp, interp_cells_plain, pack_grid)
 
-    grid = torch.randn(r, r, r, 28, device=dev, generator=torch.Generator(device=dev).manual_seed(r))
+    grid = torch.randn(r, r, r, c, device=dev, generator=torch.Generator(device=dev).manual_seed(r))
     src = pack_grid(grid, dtype)
     src = grid if src is None else src
-    pts = _grid_points(kind, n, dev, seed=n)
+    if kind == "offset":
+        pts = _grid_points("uniform", n + 1, dev, seed=n)[1:]
+        assert pts.data_ptr() % 16 != 0
+    else:
+        pts = _grid_points(kind, n, dev, seed=n)
     before = GridKernel.launches
     got = grid_interp(src, pts)
     torch.cuda.synchronize()
     assert GridKernel.launches == before + 1
     ref = interp_cells_plain(src, cells_of(pts, r))
-    assert got.shape == (pts.shape[0], 28) and torch.isfinite(got).all()
-    torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
+    assert got.shape == (pts.shape[0], c) and torch.isfinite(got).all()
+    assert torch.equal(got, ref), float((got - ref).abs().max())
 
 
 @pytest.mark.parametrize("case", ["uniform", "runs", "one_id", "channels", "few_rows",

@@ -1,12 +1,13 @@
 """Host-side plans and routes of the port's kernels, checked on the CPU.
 
 * The bfloat16 train passes of NeRF, SIREN and GaborNet (PERF.md rows 5, 8
-  and 12) run on the tensor cores (``csrc/fused_render_train_tc.cu``,
+  and 12) and the bfloat16 NeRF render backward (row 4) run on the tensor
+  cores (``csrc/fused_render_train_tc.cu``,
   ``csrc/fused_render_siren_train_tc.cu``,
-  ``csrc/fused_render_gabor_train_tc.cu``); the float32 train passes and
-  the render backwards (rows 4 and 7) stay on ``csrc/fused_render_train.cu``,
-  ``csrc/fused_render_siren_train.cu`` and
-  ``csrc/fused_render_gabor_train.cu``. Their launch plan and the bytes of
+  ``csrc/fused_render_gabor_train_tc.cu``); the float32 train passes, the
+  float32 NeRF render backward and the SIREN's in both dtypes (row 7) stay
+  on ``csrc/fused_render_train.cu``, ``csrc/fused_render_siren_train.cu``
+  and ``csrc/fused_render_gabor_train.cu``. Their launch plan and the bytes of
   their stashes are computed here, on the host.
 * The bfloat16 forward renders of NeRF, SIREN and GaborNet (rows 3, 6 and
   11) run on the tensor cores (``csrc/fused_render_fwd_tc.cu``,
@@ -176,11 +177,12 @@ def test_scatter_radix_plan(num_rows, plan):
     pytest.param("float32", "gabor", id="gabor-float32"),
     pytest.param("bfloat16", "gabor", id="gabor-bfloat16")])
 def test_bf16_train_pass_routes_to_the_tensor_core_library(cdt, family, monkeypatch):
-    """Only the bfloat16 train pass goes to the tensor-core library
+    """The bfloat16 train pass goes to the tensor-core library
     (fused_render_train_tc, fused_render_siren_train_tc,
-    fused_render_gabor_train_tc); the float32 train pass and the render
-    backward (both dtypes) keep the CUDA-core one, and a GaborNet has no
-    render backward. The dispatch of _launch_grad is checked with both
+    fused_render_gabor_train_tc), and so does the bfloat16 NeRF render
+    backward (fused_render_train_tc); the float32 train pass, the float32
+    NeRF render backward and the SIREN's in both dtypes keep the CUDA-core
+    one, and a GaborNet has no render backward. The dispatch of _launch_grad is checked with both
     launchers replaced, and the entry the GaborNet's _launch_train takes
     with the libraries replaced (no card here)."""
     gen = torch.Generator().manual_seed(0)
@@ -205,8 +207,9 @@ def test_bf16_train_pass_routes_to_the_tensor_core_library(cdt, family, monkeypa
         cls, lib = FusedSirenRender, "fused_render_siren_train"
         fr = cls(SirenModel(compute_dtype=cdt, generator=gen), 2.0, 6.0)
     tc = cdt == "bfloat16"
+    tc_bwd = tc and family == "nerf"
     assert fr.grad_library(True) == (lib + "_tc" if tc else lib)
-    assert fr.grad_library(False) == lib
+    assert fr.grad_library(False) == (lib + "_tc" if tc_bwd else lib)
     assert lib + "_tc" in build.LIBS and lib in build.LIBS
     calls = []
     monkeypatch.setattr(cls, "_launch_train_tc", lambda self, *a: calls.append("tc"))
@@ -215,7 +218,57 @@ def test_bf16_train_pass_routes_to_the_tensor_core_library(cdt, family, monkeypa
     x = torch.zeros(2, 3)
     for train in (True, False):
         fr._launch_grad(None, x, x, x, torch.zeros(2, 4), x, train, True)
-    assert calls == (["tc", "cuda-core"] if tc else ["cuda-core", "cuda-core"])
+    assert calls == ["tc" if tc else "cuda-core", "tc" if tc_bwd else "cuda-core"]
+
+
+class _Recorded(Exception):
+    """Raised by a replaced buffer plan, once a launch has picked its entry."""
+
+
+@pytest.mark.parametrize("cdt, family, want", [
+    pytest.param("bfloat16", "nerf", "fused_render_train_tc:fused_render_bwd_tc",
+                 id="nerf-bfloat16"),
+    pytest.param("float32", "nerf", "fused_render_train:fused_render_grad",
+                 id="nerf-float32"),
+    pytest.param("bfloat16", "siren", "fused_render_siren_train:fused_siren_grad",
+                 id="siren-bfloat16"),
+    pytest.param("float32", "siren", "fused_render_siren_train:fused_siren_grad",
+                 id="siren-float32")])
+def test_render_backward_takes_its_entry(cdt, family, want, monkeypatch):
+    """The entry point a render backward launches, with the libraries
+    replaced (no card here): the bfloat16 NeRF's is fused_render_bwd_tc,
+    beside the tensor-core train pass in its library (row 4); the float32
+    NeRF's and the SIREN's in both dtypes (row 7) the CUDA-core
+    fused_*_grad. Each library is one of LIBS."""
+    gen = torch.Generator().manual_seed(0)
+    if family == "nerf":
+        cls, mod = FusedNerfRender, fused_render
+        fr = cls(NeRFModel(compute_dtype=cdt, generator=gen), 2.0, 6.0)
+    else:
+        cls, mod = FusedSirenRender, fused_render_siren
+        fr = cls(SirenModel(compute_dtype=cdt, generator=gen), 2.0, 6.0)
+    for m in {mod, fused_render}:
+        monkeypatch.setattr(m, "_library", _FakeLib)
+        monkeypatch.setattr(m, "grad_sizes", lambda sizes: sizes)
+    picked = []
+    for attr in ("_grad_entry", "_train_tc_entry", "_bwd_tc_entry"):
+        if hasattr(cls, attr):
+            entry = getattr(cls, attr)
+            monkeypatch.setattr(cls, attr, lambda self, entry=entry: (
+                picked.append(entry(self)[0]), entry(self))[1])
+
+    def buffers(self, t, sizes, stash_dtype):
+        raise _Recorded
+
+    monkeypatch.setattr(FusedRender, "_grad_buffers", buffers)
+    monkeypatch.setattr(FusedRender, "_check", lambda self, packed, named: None)
+    x, t, g = torch.zeros(2, 3), torch.zeros(2, 4), torch.zeros(2, 8)
+    with pytest.raises(_Recorded):
+        fr._launch_grad(None, x, x, x, t, g, False, False)
+    assert picked == [want]
+    lib = want.split(":")[0]
+    assert fr.grad_library(False) == lib
+    assert lib in build.LIBS
 
 
 @pytest.mark.parametrize("shape, plan", [

@@ -52,7 +52,8 @@ from nerf_tpu_torch.models.convert import (
 )
 from nerf_tpu_torch.models.plenoxels import PlenoxelsModel, sh_basis
 from nerf_tpu_torch.models.registry import model_from_config
-from nerf_tpu_torch.ops.cuda.fused_grid import GridKernel, tile_ray_order, trilinear_rays
+from nerf_tpu_torch.ops.cuda.fused_grid import (
+    GridKernel, cells_of, interp_cells_plain, tile_ray_order, trilinear_rays)
 from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedGridRender, make_fused_grid_render
 from nerf_tpu_torch.ops.cuda.scatter_add import ScatterKernel, scatter_add_rows
 from nerf_tpu_torch.ops.interp import trilinear
@@ -142,6 +143,24 @@ def test_trilinear_values_and_gradients_match_jax(extent):
     np.testing.assert_allclose(tp.grad.numpy(), gp, rtol=0, atol=1e-5 * np.abs(gp).max())
     outside = (np.abs(p) >= 1.0)
     assert (tp.grad.numpy()[outside] == 0).all() and outside.any() == (extent > 1)
+
+
+@pytest.mark.parametrize("c", [1, 25, 28, 32])
+def test_interp_cells_plain_matches_jax_trilinear(c):
+    """Row 17's plain version (the float32 arithmetic of
+    csrc/grid_common.cuh, which the kernel holds bit for bit) at every
+    channel count the kernel's dispatch has in use or at its ends (1, the
+    baked FastNeRF cache's 25, Plenoxels' 28, 32): 600 points (not a whole
+    number of the kernel's 128-point CTAs) over [-1.2, 1.2]^3 of a 6^3 x C
+    grid against nerf_tpu's trilinear, within 1e-6 as the 28-channel test
+    above (the port weights (wx wy) wz, nerf_tpu lerps pairs)."""
+    rng = np.random.default_rng(c)
+    g = rng.normal(size=(6, 6, 6, c)).astype(np.float32)
+    p = rng.uniform(-1.2, 1.2, (600, 3)).astype(np.float32)
+    want = np.asarray(jax_trilinear(jnp.asarray(g), jnp.asarray(p)))
+    got = interp_cells_plain(_t(g), cells_of(_t(p), 6)).numpy()
+    assert got.shape == want.shape == (600, c)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("case", ["uniform", "duplicates", "one_row"])
