@@ -50,11 +50,12 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      off): the forward render at configs/lego_siren.txt's chunk and samples
      (1024 rays x 256), a ragged ray count (1000 x 256) and an odd S (1024 x
      37), the train pass and the render backward at 1024 x 256, float32 and
-     bfloat16 (the bfloat16 forward render and train pass on the tensor
-     cores, each run twice for identical bits and timed beside the
-     CUDA-core kernel it replaced; the forward render's rgb, acc and
-     weights equal to the train pass's on one 1024 x 64 batch), timed in
-     turns against their plain versions and their bound;
+     bfloat16 (in bfloat16 all three on the tensor cores, each run twice
+     for identical bits and timed beside the CUDA-core kernel it replaced;
+     the forward render's rgb, acc and weights equal to the train pass's on
+     one 1024 x 64 batch, and the compositing weights the render backward
+     recomputes equal to the forward render's at 1024 x 256 and 1024 x
+     37), timed in turns against their plain versions and their bound;
   8. serving configs/lego_siren.txt (SIREN, coarse-only 256 samples, chunk
      1024, bf16) as in 4: each image request must give a 400x400 PNG and
      launch the SIREN forward kernel exactly ceil(160000/1024) = 157 times,
@@ -219,7 +220,18 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
  29. PlenOctrees on configs/lego.txt (model_type = plenoctree, SH degree
      2: 28 channels) as in 28, served with bake = 128 through row 18's SH
      form (40 launches a request), one image within mean abs 1e-2 of the
-     unfused render of the baked grid.
+     unfused render of the baked grid;
+ 30. the eval CLI (nerf_tpu_torch.cli.eval_cli.main, in-process, on the
+     card) from the checkpoints of phases 5, 9 and 28: (a) 4 lego.txt orbit
+     frames at 400x400 with --video orbit.gif (40 forward launches a frame,
+     each frame within mean abs 1e-2 of the unfused render of the same pose,
+     the GIF read back as the quantised frames); (b) lego_siren.txt with
+     --metrics over the test split (157 launches a view, metrics.json
+     finite with nerf_tpu's keys, each view's PSNR inside the interval its
+     pred_*.png allows); (c) the FastNeRF checkpoint with --bake 128 (40
+     factor-form launches a frame); (d) lego_siren.txt with --occupancy 64,
+     one frame (4 field launches for the bake, 157 render launches); each
+     part's wall ms a frame beside the card.
 
 The last lines are a JSON object of per-kernel numbers (all nineteen
 kernels, row 18 in its two forms), the card, and ``{"ok": true,
@@ -290,6 +302,11 @@ ROW11_BF16_CUDA_CORE_MS = 10.264
 # PERF.md's earlier times, NVIDIA H100 80GB HBM3, 700.00 W).
 ROW6_BF16_CUDA_CORE_MS = 8.977
 ROW8_BF16_CUDA_CORE_MS = 38.388
+# Row 7's bfloat16 SIREN render backward on the CUDA cores, before it moved
+# to the tensor cores (the backward entry of csrc/fused_render_siren_train.cu
+# at 1024 x 256; PERF.md row 7's earlier time, NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside the tensor-core kernel.
+ROW7_BF16_CUDA_CORE_MS = 38.406
 # Rows 12 and 13's bfloat16 GaborNet train pass and field forward on the CUDA
 # cores, before they moved to the tensor cores (csrc/fused_render_gabor_train.cu
 # at 1024 x 256, csrc/fused_gabor_fwd.cu at 65,536 / 16,384 points; PERF.md's
@@ -1141,6 +1158,13 @@ def check_siren_kernels(torch, dev):
             ref_b = fused_siren_render_bwd_plain(packed, o_aff, d_aff, rd, t, g_ray, k)
             got_b = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
             torch.cuda.synchronize()
+            if cdt == "bfloat16":
+                again_b = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(got_b, again_b)):
+                    fail(f"siren backward kernel {cdt}: two launches differ")
+                del again_b
+                check_siren_bwd_weights(torch, dev, fr, packed, o_aff, d_aff, rd, t, g_ray)
             berr = grad_errors(torch, got_b, ref_b, grad_views)
             cross = grad_errors(torch, got_b, got[4], grad_views)
             del ref, got, ref_b, got_b
@@ -1179,12 +1203,13 @@ def check_siren_kernels(torch, dev):
             bms, by = bound_ms(r, s, cdt, weight_bytes,
                                3 * SIREN_MACS - SIREN_SKIPPED, 2 * SIREN_TRIG,
                                grad_bytes, name == "fused_render_siren_train")
-            tc = (name == "fused_render_siren_train"
-                  and fr.grad_library(True) == "fused_render_siren_train_tc")
+            tc = fr.grad_library(name == "fused_render_siren_train").endswith("_tc")
+            was = (ROW8_BF16_CUDA_CORE_MS if name == "fused_render_siren_train"
+                   else ROW7_BF16_CUDA_CORE_MS)
             say(f"kernel {name} {cdt} R={r} S={s}: kernel {ms:.3f} ms"
                 + (f" (tensor cores; the CUDA-core kernel it replaced "
-                   f"{ROW8_BF16_CUDA_CORE_MS:.3f} ms, x{ROW8_BF16_CUDA_CORE_MS / ms:.2f}; "
-                   f"two launches bit-identical)" if tc else "")
+                   f"{was:.3f} ms, x{was / ms:.2f}; two launches bit-identical)"
+                   if tc else "")
                 + f", plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), share of "
                 f"bound {bms / ms:.4f}")
             e = gerr if name == "fused_render_siren_train" else berr
@@ -1210,6 +1235,31 @@ def check_siren_kernels(torch, dev):
     if any(diff.values()):
         fail(f"the bf16 SIREN forward render and train pass disagree: {diff}")
     return results
+
+
+def check_siren_bwd_weights(torch, dev, fr, packed, o_aff, d_aff, rd, t, g_ray) -> None:
+    """Row 7 in bfloat16 (the render backward entry of
+    csrc/fused_render_siren_train_tc.cu) runs row 6's forward chain: the
+    compositing weights it recomputes, written out by a debug launch, must
+    equal the bf16 forward render's bit for bit, at the batch given and at
+    an odd S (1024 x 37, cotangent drawn from a seed)."""
+    r37 = R_TRAIN
+    ro37, rd37, t37, _ = camera_batch(torch, dev, r37, 37, 4037)
+    oa37, da37 = fr.affine(ro37, rd37)
+    g37 = torch.randn(r37, 8, generator=torch.Generator(device=dev).manual_seed(37),
+                      device=dev) * 1e-3
+    g37[:, 5:] = 0.0
+    for (oa, da, d, tt, g) in ((o_aff, d_aff, rd, t, g_ray), (oa37, da37, rd37, t37, g37)):
+        _, _, _, _, w_bwd = fr._launch_grad(packed, oa, da, d, tt, g, False, False, True)
+        w_fwd = fr._forward(packed, oa, da, d, tt)[3]
+        torch.cuda.synchronize()
+        gap = float((w_bwd - w_fwd).abs().max())
+        same = torch.equal(w_bwd, w_fwd)
+        say(f"kernel siren bwd bfloat16 R={tt.shape[0]} S={tt.shape[1]}: recomputed weights "
+            f"equal to the forward render's: {same} (max abs {gap:.3e})")
+        if not same:
+            fail(f"siren backward kernel bfloat16 S={tt.shape[1]}: the recomputed weights "
+                 f"are not the forward render's (max abs {gap:.3e})")
 
 
 # ---------------------------------------------------------------- phase 10
@@ -3491,6 +3541,194 @@ def bake_and_serve(torch, dev, tmp: str, family: str) -> dict:
     return {"launches": launches, "step_rps": rps, "bake_s": bake_s}
 
 
+# ---------------------------------------------------------------- phase 30
+
+
+def write_eval_config(tmp: str, base: str, name: str, **overrides) -> str:
+    """configs/``base`` with the synthetic scene and ``overrides`` appended
+    (a later key wins), written as ``name`` in ``tmp``; returns its path."""
+    with open(os.path.join(ROOT, "configs", base)) as f:
+        text = f.read()
+    keys = {"dataset_path": os.path.join(tmp, "scene"), **overrides}
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        f.write(text + "\n" + "".join(f"{k} = {v}\n" for k, v in keys.items()))
+    return path
+
+
+def run_eval_cli(argv: list, counters: dict, label: str) -> dict:
+    """``nerf_tpu_torch.cli.eval_cli.main(argv)`` in-process on the card
+    (its default device). Every line it logs is printed; at each frame or
+    view line the launch counts of ``counters`` (name -> wrapper class) are
+    read. Returns the lines, the per-frame launches of each counter (from
+    the counts before the call, the bake's launches included in the first)
+    and the per-frame wall ms it printed."""
+    import re
+
+    from nerf_tpu_torch.cli.eval_cli import main as eval_main
+
+    lines, at = [], []
+    start = {k: c.launches for k, c in counters.items()}
+
+    def log(line):
+        line = str(line)
+        lines.append(line)
+        say(f"eval {label}: {line}")
+        if re.match(r"(frame|view) \d+/\d+: ", line):
+            at.append({k: c.launches for k, c in counters.items()})
+
+    eval_main(argv, log=log)
+    per = {k: [b[k] - a[k] for a, b in zip([start] + at[:-1], at)] for k in counters}
+    ms = [float(m.group(1)) for m in (re.search(r"\(([0-9.]+) ms\)$", x) for x in lines
+                                      if re.match(r"(frame|view) \d+/\d+: ", x)) if m]
+    return {"lines": lines, "per_frame": per, "ms": ms}
+
+
+def psnr_bounds(pred_u8, gt) -> tuple:
+    """The PSNR interval of a float image in [0, 1] whose 8-bit PNG
+    (``(x * 255).astype(uint8)``) is ``pred_u8``, against ``gt``: each
+    value lies in [u, u + 1] / 255 (widened by 1e-3 of a step for the
+    float32 product), so its squared error lies between the interval's
+    least and largest."""
+    u = pred_u8.astype(np.float64)
+    lo, hi = (u - 1e-3) / 255.0, (u + 1.0 + 1e-3) / 255.0
+    g = np.asarray(gt, np.float64)
+    near = np.where(g < lo, lo - g, np.where(g > hi, g - hi, 0.0))
+    far = np.maximum(np.abs(lo - g), np.abs(hi - g))
+    mse_lo, mse_hi = float(np.mean(near ** 2)), float(np.mean(far ** 2))
+    psnr = lambda m: math.inf if m <= 0 else -10.0 * math.log10(m)   # noqa: E731
+    return psnr(mse_hi * (1 + 1e-5)), psnr(mse_lo * (1 - 1e-5))
+
+
+def eval_cli(torch, dev, tmp: str, card: str) -> dict:
+    """Phase 30: the eval CLI (``python -m nerf_tpu_torch.cli.eval_cli``)
+    on the card, in-process through ``main``, from the checkpoints of
+    earlier phases. (a) lego.txt (phase 5's checkpoint), 4 orbit frames at
+    400 x 400 with --video: 40 NeRF forward launches a frame, each frame
+    within mean abs 1e-2 of the unfused render of the same pose and key
+    (RenderService with use_pallas = false), the GIF read back by
+    utils/gif.py as 4 frames equal to the PNGs as quantised; (b)
+    lego_siren.txt (phase 9's) with --metrics over the test split: 157
+    SIREN forward launches a view, metrics.json finite with nerf_tpu's
+    keys, each view's PSNR inside the interval its pred_*.png allows; (c)
+    FastNeRF (phase 28's) with --bake 128: 40 factor-form launches a frame;
+    (d) lego_siren.txt with --occupancy 64, one frame: the bake's 4 SIREN
+    field launches and 157 render launches. Prints each part's wall ms a
+    frame beside the card; returns the launches of each kernel."""
+    import dataclasses
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.data.blender import load_blender
+    from nerf_tpu_torch.data.poses import spherical_orbit
+    from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedFactorRender
+    from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
+    from nerf_tpu_torch.ops.cuda.fused_siren import SirenField
+    from nerf_tpu_torch.serve import RenderService
+    from nerf_tpu_torch.utils.gif import quantize, read_gif
+    from nerf_tpu_torch.utils.png import read_png
+
+    per_image = {"lego": 2 * math.ceil(HW * HW / 8192), "siren": math.ceil(HW * HW / 1024)}
+    ckpt = {"nerf": os.path.join(tmp, "train_models_nerf", "nerf_model_000200"),
+            "siren": os.path.join(tmp, "train_models_siren", "siren_model_000200"),
+            "fastnerf": os.path.join(tmp, "train_models_fastnerf",
+                                     f"fastnerf_model_{BAKE_ITERS:06d}")}
+    walls, launched = {}, {}
+
+    def expect(label, per_frame: dict, want: dict) -> None:
+        for k, w in want.items():
+            if per_frame[k] != w:
+                fail(f"eval {label}: {k} launches a frame {per_frame[k]}, want {w}")
+
+    # (a) lego.txt orbit with --video
+    cfg_path = write_eval_config(tmp, "lego.txt", "eval_lego.txt", num_render_poses=4)
+    out = os.path.join(tmp, "eval_orbit")
+    gif = os.path.join(out, "orbit.gif")
+    res = run_eval_cli(["--config", cfg_path, "--checkpoint", ckpt["nerf"], "--output", out,
+                        "--video", gif], {"nerf": FusedNerfRender}, "(a) lego.txt orbit")
+    expect("(a)", res["per_frame"], {"nerf": [per_image["lego"]] * 4})
+    launched["fused_render_fwd"] = sum(res["per_frame"]["nerf"])
+    walls["a"] = res["ms"]
+    ref = RenderService.from_checkpoint(
+        dataclasses.replace(parse_config_file(cfg_path), use_pallas=False), ckpt["nerf"],
+        device=dev, log=lambda *a: None)
+    poses = spherical_orbit(4)
+    frames = []
+    for i in range(4):
+        frame = read_png(os.path.join(out, f"frame_{i:04d}.png"))
+        if frame.shape != (HW, HW, 3):
+            fail(f"eval (a): frame {i} shape {frame.shape}")
+        want = ref.render_pose(poses[i], key_idx=i)
+        diff = np.abs(frame.astype(np.float32) / 255.0 - want)
+        say(f"eval (a) frame {i} vs the unfused render: mean abs {diff.mean():.3e} "
+            f"(tol {SERVE_TOL_MEAN:.0e}), max abs {diff.max():.3e}")
+        if not diff.mean() <= SERVE_TOL_MEAN:
+            fail(f"eval (a): frame {i} disagrees with the unfused render")
+        frames.append(frame)
+    del ref
+    shown = read_gif(gif)
+    same = [np.array_equal(s, pal[idx]) for s, (idx, pal) in
+            zip(shown, (quantize(f) for f in frames))]
+    say(f"eval (a) {os.path.basename(gif)}: {len(shown)} frames read back, equal to the "
+        f"quantised PNGs: {same}")
+    if len(shown) != 4 or not all(same):
+        fail("eval (a): the GIF does not hold the orbit's frames")
+
+    # (b) lego_siren.txt --metrics over the test split
+    cfg_path = write_eval_config(tmp, "lego_siren.txt", "eval_siren.txt")
+    out = os.path.join(tmp, "eval_metrics")
+    res = run_eval_cli(["--config", cfg_path, "--checkpoint", ckpt["siren"], "--output", out,
+                        "--metrics"], {"siren": FusedSirenRender}, "(b) lego_siren.txt --metrics")
+    cfg = parse_config_file(cfg_path)
+    gt, _, _ = load_blender(cfg.dataset_path, mode="test",
+                            white_background=cfg.white_background, half_res=cfg.half_res)
+    expect("(b)", res["per_frame"], {"siren": [per_image["siren"]] * len(gt)})
+    launched["fused_render_siren_fwd"] = sum(res["per_frame"]["siren"])
+    walls["b"] = res["ms"]
+    with open(os.path.join(out, "metrics.json")) as f:
+        m = json.load(f)
+    if (set(m) != {"num_views", "mean_psnr", "mean_ssim", "views"}
+            or m["num_views"] != len(gt) or len(m["views"]) != len(gt) or not len(gt)):
+        fail(f"eval (b): metrics.json {sorted(m)} with {m.get('num_views')} views")
+    for v in m["views"]:
+        vals = [v["mse"], v["psnr"], v["ssim"], m["mean_psnr"], m["mean_ssim"]]
+        if not all(math.isfinite(x) for x in vals):
+            fail(f"eval (b): metrics.json holds non-finite values {v}")
+        pred = read_png(os.path.join(out, f"pred_{v['view']:03d}.png"))
+        lo, hi = psnr_bounds(pred, gt[v["view"]])
+        png_psnr = -10.0 * math.log10(float(np.mean((pred / 255.0 - gt[v["view"]]) ** 2)))
+        say(f"eval (b) view {v['view']}: PSNR {v['psnr']:.4f} (from pred_*.png "
+            f"{png_psnr:.4f}, the PNG allows [{lo:.4f}, {hi:.4f}]), SSIM {v['ssim']:.4f}")
+        if not lo <= v["psnr"] <= hi:
+            fail(f"eval (b): view {v['view']}'s PSNR is not its pred_*.png's")
+
+    # (c) FastNeRF --bake 128
+    cfg_path = write_eval_config(tmp, "lego.txt", "eval_fastnerf.txt", model_type="fastnerf",
+                                 num_render_poses=2)
+    res = run_eval_cli(["--config", cfg_path, "--checkpoint", ckpt["fastnerf"], "--output",
+                        os.path.join(tmp, "eval_bake"), "--bake", str(BAKE_R)],
+                       {"factor": FusedFactorRender}, f"(c) fastnerf --bake {BAKE_R}")
+    expect("(c)", res["per_frame"], {"factor": [per_image["lego"]] * 2})
+    launched["grid_render_factors"] = sum(res["per_frame"]["factor"])
+    walls["c"] = res["ms"]
+
+    # (d) lego_siren.txt --occupancy 64, one frame
+    cfg_path = write_eval_config(tmp, "lego_siren.txt", "eval_occ.txt", num_render_poses=1)
+    res = run_eval_cli(["--config", cfg_path, "--checkpoint", ckpt["siren"], "--output",
+                        os.path.join(tmp, "eval_occ"), "--occupancy", "64"],
+                       {"siren": FusedSirenRender, "field": SirenField},
+                       "(d) lego_siren.txt --occupancy 64")
+    expect("(d)", res["per_frame"], {"siren": [per_image["siren"]], "field": [4]})
+    launched["fused_render_siren_fwd"] += sum(res["per_frame"]["siren"])
+    launched["fused_siren_fwd"] = sum(res["per_frame"]["field"])
+    walls["d"] = res["ms"]
+    for part, ms in walls.items():
+        say(f"eval ({part}): {statistics.median(ms):.1f} ms a frame wall (median of "
+            f"{len(ms)}: {', '.join(f'{x:.1f}' for x in ms)}; render, host copy and PNG "
+            f"write), {card}")
+    return launched
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -3665,6 +3903,7 @@ def main() -> int:
         grid_served = serve_plenoxels(torch, dev, tmp)
         grid_trained = train_plenoxels(torch, dev, tmp)
         baked = {f: bake_and_serve(torch, dev, tmp, f) for f in ("fastnerf", "plenoctree")}
+        evaluated = eval_cli(torch, dev, tmp, card)
     bench_headline(torch, dev)
     bench_siren(torch, dev)
     bench_gabor(torch, dev)
@@ -3680,7 +3919,8 @@ def main() -> int:
 
     nerf_tpu = "nerf_tpu/ops/pallas/"
     kernels = [row("fused_render_fwd", "fused_render_fwd_tc.cu",
-                   f"{nerf_tpu}fused_render.py:222", launches,
+                   f"{nerf_tpu}fused_render.py:222",
+                   launches + evaluated["fused_render_fwd"],
                    checks[("bfloat16", 192)],
                    max(c["err"] for c in checks.values()))]
     for name, source, line, launched in (
@@ -3693,10 +3933,10 @@ def main() -> int:
                                if k[0] == name)))
     for name, source, line, launched in (
             ("fused_render_siren_fwd", "fused_render_siren_fwd_tc.cu", 60,
-             siren_launches),
+             siren_launches + evaluated["fused_render_siren_fwd"]),
             ("fused_render_siren_train", "fused_render_siren_train_tc.cu", 110,
              siren_trained["train_launches"]),
-            ("fused_render_siren_bwd", "fused_render_siren_train.cu", 82,
+            ("fused_render_siren_bwd", "fused_render_siren_train_tc.cu", 82,
              siren_trained["bwd_launches"])):
         kernels.append(row(name, source, f"{nerf_tpu}fused_render_siren.py:{line}",
                            launched, siren_checks[(name, "bfloat16")],
@@ -3729,7 +3969,8 @@ def main() -> int:
                                for c in ("float32", "bfloat16"))))
     for family, other in (("siren", "gabor"), ("gabor", "siren")):
         fwd_launched = (sg_served[family]["bake_launches"] + sg_distilled[family]["fwd"]
-                        + sg_distilled[other]["teacher_fwd"])
+                        + sg_distilled[other]["teacher_fwd"]
+                        + evaluated.get(f"fused_{family}_fwd", 0))
         for name, line, launched, n in (
                 (f"fused_{family}_fwd", {"siren": 103, "gabor": 96}[family],
                  fwd_launched, 65536),
@@ -3749,7 +3990,8 @@ def main() -> int:
              render_checks[("bfloat16", 1024, 256)],
              max(v["err"] for v in render_checks.values())),
             ("grid_render_factors", "fused_grid_render.cu", "fused_grid_render.py:76",
-             baked["fastnerf"]["launches"], factor_checks[("bfloat16", 1024, 256)],
+             baked["fastnerf"]["launches"] + evaluated["grid_render_factors"],
+             factor_checks[("bfloat16", 1024, 256)],
              max(v["err"] for v in factor_checks.values())),
             ("scatter_add", "scatter_add.cu", "scatter_add.py:56", grid_trained["scatter_add"],
              scatter_checks["step"], max(v["err"] for v in scatter_checks.values()))):

@@ -1,8 +1,8 @@
 // Fused SIREN train pass and render backward for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of nerf_tpu/ops/pallas/fused_render_siren.py:
-//   * _train_kernel (FusedSirenRender.train) in float32 mode (its bfloat16
-//     mode is fused_render_siren_train_tc.cu): forward, white-background MSE
+// Replaces two TPU kernels of nerf_tpu/ops/pallas/fused_render_siren.py in
+// float32 mode (their bfloat16 modes are fused_render_siren_train_tc.cu's):
+//   * _train_kernel (FusedSirenRender.train): forward, white-background MSE
 //     (loss partial and its analytic per-ray cotangent,
 //     fused_render.py::_mse_cotangent), the backward through compositing
 //     (fused_render.py::_composite_bwd) and the MLP backward
@@ -18,12 +18,8 @@
 // What bounds it on this card: operations. A sample costs the forward's
 // 561,920 MACs plus twice that for the backward, less the two products the
 // TPU kernel also skips (dz1 w1^T and dzr0 wr0d^T: input gradients are not
-// wanted): 1,681,536 MACs, and 2,176 sines and as many cosines. float32
-// mode runs on the CUDA cores (67 TFLOP/s); bfloat16 mode (the render
-// backward only: the bfloat16 train pass runs on the tensor cores,
-// fused_render_siren_train_tc.cu) rounds at the TPU kernel's points and
-// sums in float32, also on the CUDA cores (its bound is the tensor cores'
-// 989 TFLOP/s).
+// wanted): 1,681,536 MACs, and 2,176 sines and as many cosines, on the CUDA
+// cores (67 TFLOP/s in float32).
 //
 // Design: the NeRF train kernel's (fused_render_train.cu), for the same
 // reasons: a chunk's activations do not fit on chip, a ray's cotangent
@@ -51,10 +47,6 @@
 //   4. A second small kernel adds the per-CTA partials (and loss terms) in
 //      CTA order. Nothing is atomic, so a step is deterministic from run to
 //      run.
-// Rounding in bfloat16 mode follows _mlp_bwd_core: both operands of every
-// dW product and the dz of every dz W^T are rounded to bf16, sums are
-// float32, the bias, ws and bs gradients are float32 sums of the unrounded
-// values, and h8, sigma_pre and the rgb sigmoid are read in float32.
 //
 // Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared library
 // with a plain C interface (loaded by ctypes).
@@ -65,10 +57,10 @@ namespace {
 
 using namespace siren;
 
-template <bool BF16, bool TRAIN, typename WT>
+template <bool TRAIN>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_siren_grad_kernel(RayInputs in, Siren sp, const WT* __restrict__ wmat,
-                        const WT* __restrict__ wmat_t,
+fused_siren_grad_kernel(RayInputs in, Siren sp, const float* __restrict__ wmat,
+                        const float* __restrict__ wmat_t,
                         const float* __restrict__ given, float white_bg,
                         float scale, int rays_per_cta, int cap,
                         float* __restrict__ scratch, float* __restrict__ partial,
@@ -92,8 +84,8 @@ fused_siren_grad_kernel(RayInputs in, Siren sp, const WT* __restrict__ wmat,
 
   // ---- 1. forward, stashing what the backward needs ----
   for (int c0 = 0; c0 < npts; c0 += P)
-    forward_chunk<BF16, true>(in, wmat, sp, ray0 * S + c0, min(P, npts - c0), smem,
-                              sc.st, static_cast<size_t>(c0));
+    forward_chunk<false, true>(in, wmat, sp, ray0 * S + c0, min(P, npts - c0), smem,
+                               sc.st, static_cast<size_t>(c0));
 
   // ---- 2. compositing, cotangent, compositing backward (thread per ray) ----
   float* lossr = smem + SM_ACT1;
@@ -108,22 +100,22 @@ fused_siren_grad_kernel(RayInputs in, Siren sp, const WT* __restrict__ wmat,
   }
 
   // ---- 3. MLP backward, layer by layer over the CTA's points ----
-  mlp_backward<BF16>(sc, cz, vec, wmat, wmat_t, sp, part, cap_c, smem,
-                     [](const float*) {});
+  mlp_backward<false>(sc, cz, vec, wmat, wmat_t, sp, part, cap_c, smem,
+                      [](const float*) {});
 }
 
-template <bool BF16, bool TRAIN, typename WT>
+template <bool TRAIN>
 int launch(const RayInputs& in, const Siren& sp, const void* wmat,
            const void* wmat_t, const float* given, float white_bg, float scale,
            int rays_per_cta, int cap, float* scratch, float* partial, float* out,
            float* rgb, float* acc, float* weights, cudaStream_t stream) {
-  auto kernel = fused_siren_grad_kernel<BF16, TRAIN, WT>;
+  auto kernel = fused_siren_grad_kernel<TRAIN>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (in.num_rays + rays_per_cta - 1) / rays_per_cta;
   kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      in, sp, static_cast<const WT*>(wmat), static_cast<const WT*>(wmat_t), given,
+      in, sp, static_cast<const float*>(wmat), static_cast<const float*>(wmat_t), given,
       white_bg, scale, rays_per_cta, cap, scratch, partial, rgb, acc, weights);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -144,15 +136,15 @@ void fused_siren_grad_sizes(int* floats_per_point, int* npart, int* n_out) {
   *n_out = N_TOT + 1;
 }
 
-// train != 0: `given` is the (R, 3) target and rgb/acc/weights are written
-// (float32 only: fused_render_siren_train_tc.cu has the bfloat16 train
-// pass); train == 0: `given` is the (R, 8) cotangent [g_rgb, g_acc,
-// g_depth, 0..] and only the gradients are. `scratch` holds grid * cap *
+// float32 only (fused_render_siren_train_tc.cu has both in bfloat16).
+// train != 0: `given` is the (R, 3) target and rgb/acc/weights are written;
+// train == 0: `given` is the (R, 8) cotangent [g_rgb, g_acc, g_depth, 0..]
+// and only the gradients are. `scratch` holds grid * cap *
 // floats_per_point floats, `partial` grid * npart, `out` n_out, where grid
 // = ceil(num_rays / rays_per_cta) and cap >= ceil(rays_per_cta * S / 64) *
 // 64. Returns 0 on success, a cudaError_t code after a failed launch, -1
 // when the packed buffers or the shapes do not fit this kernel, or -2 for
-// a bfloat16 train pass.
+// bfloat16 (both runs are fused_render_siren_train_tc.cu's).
 int fused_siren_grad(const float* o_aff, const float* d_aff,
                      const float* viewdirs, const float* t, const void* wmat,
                      const void* wmat_t, const float* vec, int n_w, int n_b,
@@ -161,6 +153,7 @@ int fused_siren_grad(const float* o_aff, const float* d_aff,
                      int real_d, float w0, float w0h, float sigma_mul,
                      float rgb_mul, float* scratch, float* partial, float* out,
                      float* rgb, float* acc, float* weights, void* stream) {
+  if (bf16) return -2;   // fused_render_siren_train_tc.cu runs both in bf16
   if (n_w != N_W || n_b != N_B || num_rays <= 0 || S <= 0 ||
       rays_per_cta <= 0 || rays_per_cta > H * LDA || real_d > DP ||
       cap % P != 0 || cap < (rays_per_cta * S + P - 1) / P * P)
@@ -168,24 +161,19 @@ int fused_siren_grad(const float* o_aff, const float* d_aff,
   const RayInputs in{o_aff, d_aff, viewdirs, t, vec, num_rays, S, 0, real_d};
   const Siren sp{w0, w0h, sigma_mul, rgb_mul};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (train) return -2;   // fused_render_siren_train_tc.cu runs the bf16 train pass
-    return launch<true, false, __nv_bfloat16>(in, sp, wmat, wmat_t, given, white_bg,
-                                              scale, rays_per_cta, cap, scratch,
-                                              partial, out, rgb, acc, weights, s);
-  }
   if (train)
-    return launch<false, true, float>(in, sp, wmat, wmat_t, given, white_bg, scale,
-                                      rays_per_cta, cap, scratch, partial, out, rgb,
-                                      acc, weights, s);
-  return launch<false, false, float>(in, sp, wmat, wmat_t, given, white_bg, scale,
-                                     rays_per_cta, cap, scratch, partial, out, rgb,
-                                     acc, weights, s);
+    return launch<true>(in, sp, wmat, wmat_t, given, white_bg, scale, rays_per_cta,
+                        cap, scratch, partial, out, rgb, acc, weights, s);
+  return launch<false>(in, sp, wmat, wmat_t, given, white_bg, scale, rays_per_cta,
+                       cap, scratch, partial, out, rgb, acc, weights, s);
 }
 
 const char* fused_siren_grad_error(int code) {
   if (code == -1) return "packed weights or shapes do not fit the kernel";
-  if (code == -2) return "the bfloat16 train pass runs in fused_render_siren_train_tc";
+  if (code == -2)
+    return "bfloat16 runs on the tensor cores: the train pass in fused_siren_train_tc, the "
+           "render backward in fused_siren_render_bwd_tc (both in the "
+           "fused_render_siren_train_tc library)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

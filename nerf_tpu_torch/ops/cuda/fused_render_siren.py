@@ -14,9 +14,12 @@ each on an H100 and how the design answers):
     (``csrc/fused_render_siren_train_tc.cu``, the forward render's chain in
     ``csrc/fused_render_siren_tc_common.cuh``), in float32 the train entry
     of ``csrc/fused_render_siren_train.cu``;
-  * ``csrc/fused_render_siren_train.cu``, backward entry (``_bwd_kernel``):
-    the parameter gradients of the forward render from a per-ray cotangent,
-    in both dtypes.
+  * the render backward (``_bwd_kernel``): the parameter gradients of the
+    forward render from a per-ray cotangent; in bfloat16 the backward entry
+    of ``csrc/fused_render_siren_train_tc.cu`` (the forward render's own
+    chain on the tensor cores, so the gradient is taken at the forward the
+    render returned), in float32 that of
+    ``csrc/fused_render_siren_train.cu``.
 
 This module is the counterpart of ``fused_render_siren.py`` and of the parts
 of ``nerf_tpu/ops/pallas/fused_siren.py`` that it uses:
@@ -326,6 +329,9 @@ def _library(name: str) -> ctypes.CDLL:
         fn.argtypes = [vp] * 6 + [ci] * 7 + [cf] * 4 + [vp] * 5
     elif name == "fused_render_siren_train_tc":
         fn.argtypes = [vp] * 6 + [ci] * 2 + [vp, cf, cf] + [ci] * 5 + [cf] * 4 + [vp] * 7
+        lib.fused_siren_render_bwd_tc.argtypes = ([vp] * 6 + [ci] * 2 + [vp] + [ci] * 5
+                                                  + [cf] * 4 + [vp] * 5)
+        lib.fused_siren_render_bwd_tc.restype = ci
         lib.fused_siren_train_tc_sizes.argtypes = [ctypes.POINTER(ci)] * 3
         lib.fused_siren_train_tc_sizes.restype = None
     else:
@@ -411,15 +417,20 @@ class FusedSirenRender(FusedRender):
                 grad_sizes(lib.fused_siren_grad_sizes))
 
     def grad_library(self, train: bool) -> str:
-        """The library of a train pass (``train``) or render backward: the
-        bfloat16 train pass runs on the tensor cores, the float32 one and
-        the render backward (both dtypes) on the CUDA cores."""
-        if train and self.cdt == torch.bfloat16:
+        """The library of a train pass (``train``) or render backward: in
+        bfloat16 both run on the tensor cores (one library, two entries),
+        in float32 on the CUDA cores."""
+        if self.cdt == torch.bfloat16:
             return "fused_render_siren_train_tc"
         return "fused_render_siren_train"
 
     def _train_tc_entry(self):
         lib = _library("fused_render_siren_train_tc")
         return (lib.fused_siren_train_tc, lib.fused_siren_train_tc_error,
+                lib.fused_siren_train_tc_sizes)
+
+    def _bwd_tc_entry(self):
+        lib = _library("fused_render_siren_train_tc")
+        return (lib.fused_siren_render_bwd_tc, lib.fused_siren_train_tc_error,
                 lib.fused_siren_train_tc_sizes)
 

@@ -86,6 +86,19 @@ def build_renderer(model, fine_model, cfg: Config, settings, bake: int = 0,
     return renderer, (params, None)
 
 
+def checkpoint_config(config, checkpoint: str) -> Config:
+    """``config`` (a config file path or a ``Config``, not modified) with
+    the checkpoint's ``model_type`` and ``grid_res`` from its metadata (a
+    grid may have been upsampled mid-training): the configuration that the
+    service and the eval CLI build their models from."""
+    cfg = (dataclasses.replace(config) if isinstance(config, Config)
+           else parse_config_file(config))
+    meta = read_metadata(checkpoint)
+    cfg.model_type = meta.get("model_type", cfg.model_type).lower()
+    cfg.grid_res = int(meta.get("grid_res", cfg.grid_res))
+    return cfg
+
+
 def request_seed(seed: int, key_idx: int) -> int:
     """One 63-bit generator seed per (config seed, request key)."""
     state = np.random.SeedSequence([int(seed), int(key_idx)]).generate_state(2)
@@ -117,11 +130,7 @@ class RenderService:
         """``config`` is a config file path or a ``Config``; the dataset's
         first test frame supplies H/W/focal (override with ``hw``)."""
         dev = resolve_device(device)
-        cfg = (dataclasses.replace(config) if isinstance(config, Config)
-               else parse_config_file(config))
-        meta = read_metadata(checkpoint)
-        cfg.model_type = meta.get("model_type", cfg.model_type).lower()
-        cfg.grid_res = int(meta.get("grid_res", cfg.grid_res))
+        cfg = checkpoint_config(config, checkpoint)
         if cfg.dataset_type != "blender":
             raise NotImplementedError(
                 f"dataset_type {cfg.dataset_type!r} is not ported to "

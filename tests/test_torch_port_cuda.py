@@ -516,6 +516,103 @@ def test_bf16_siren_train_library_sizes(dev):
     assert tc[1:] == old[1:]
 
 
+@pytest.mark.parametrize("shape", [(1024, 256), (1024, 37), (133, 64)])
+def test_bf16_siren_render_backward_tc_matches_plain_and_recomputes_row_6(dev, shape):
+    """Row 7 in bfloat16 on the tensor cores (fused_siren_render_bwd_tc):
+    every gradient within GRAD_TOL of its max (floored at 1e-2 of the
+    largest) against the plain version, from a cotangent whose acc column
+    is zero on half the rays; two launches give the same bits; and the
+    compositing weights it recomputes equal the bf16 forward render's (row
+    6) bit for bit, since both run one chain and composite with the same
+    expressions."""
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import (
+        FusedSirenRender, fused_siren_render_bwd_plain, grad_views)
+
+    model, fr = _siren("bfloat16", 12, dev)
+    assert fr.grad_library(False) == "fused_render_siren_train_tc"
+    ro, rd, t = _inputs(*shape, dev, seed=13)
+    g_ray = 1e-3 * torch.randn(shape[0], 8, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(14))
+    g_ray[:, 5:] = 0
+    g_ray[::2, 3] = 0
+    with torch.no_grad():
+        packed = fr.pack(model)
+        o_aff, d_aff = fr.affine(ro, rd)
+        before = FusedSirenRender.bwd_launches
+        got = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+        again = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+        torch.cuda.synchronize()
+        assert FusedSirenRender.bwd_launches == before + 2
+        ref = fused_siren_render_bwd_plain(packed, o_aff, d_aff, rd, t, g_ray, fr.consts)
+        grads, loss, rgb, acc, weights = fr._launch_grad(
+            packed, o_aff, d_aff, rd, t, g_ray, False, False, True)
+        fwd = fr._forward(packed, o_aff, d_aff, rd, t)
+        torch.cuda.synchronize()
+    g, r = grad_views(*got, 256), grad_views(*ref, 256)
+    floor = 1e-2 * max(float(v.abs().max()) for v in r.values())
+    for k in r:
+        assert torch.isfinite(g[k]).all(), k
+        scale = max(float(r[k].abs().max()), floor)
+        err = float((g[k] - r[k]).abs().max())
+        assert err <= GRAD_TOL["bfloat16"] * scale, (k, err, scale)
+    for x, y, z in zip(got, again, grads):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    assert float(loss) == 0.0 and rgb is None and acc is None
+    assert torch.equal(weights, fwd[3]), float((weights - fwd[3]).abs().max())
+
+
+def test_cuda_core_siren_grad_refuses_bf16(dev):
+    """The SIREN CUDA-core library's entry refuses bfloat16 (-2) for the
+    train pass and the render backward alike, naming the tensor-core
+    entries."""
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import _library
+
+    lib = _library("fused_render_siren_train")
+    for train in (1, 0):
+        code = lib.fused_siren_grad(*[None] * 7, 0, 0, 1, train, None, 0.0, 0.0,
+                                    1, 1, 1, 64, 27, 30.0, 30.0, 1.0, 1.0, *[None] * 7)
+        assert code == -2
+    assert "fused_siren_render_bwd_tc" in lib.fused_siren_grad_error(-2).decode()
+
+
+def test_eval_cli_renders_a_lego_frame_through_the_kernel(dev, tmp_path):
+    """The port's eval CLI on the card (its default device): one orbit
+    frame of a seeded configs/lego.txt model at 400 x 400 is 2 x
+    ceil(160000 / 8192) = 40 launches of the bf16 forward render (row 3),
+    written as a 400 x 400 PNG of finite values."""
+    import json
+    import os
+
+    from nerf_tpu_torch.cli.eval_cli import main as eval_main
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.models.registry import model_from_config
+    from nerf_tpu_torch.utils.checkpoint import save_checkpoint
+    from nerf_tpu_torch.utils.png import read_png, write_png
+
+    scene = tmp_path / "scene"
+    (scene / "test").mkdir(parents=True)
+    write_png(str(scene / "test" / "r_0.png"), np.full((400, 400, 4), 255, np.uint8))
+    (scene / "transforms_test.json").write_text(json.dumps({
+        "camera_angle_x": 0.6911112070083618,
+        "frames": [{"file_path": "./test/r_0", "transform_matrix": np.eye(4).tolist()}]}))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "configs", "lego.txt")) as f:
+        text = f.read()
+    cfg_path = tmp_path / "lego.txt"
+    cfg_path.write_text(text + f"\ndataset_path = {scene}\nnum_render_poses = 1\n")
+    cfg = parse_config_file(str(cfg_path))
+    gen = torch.Generator().manual_seed(cfg.seed)
+    ckpt = save_checkpoint(model_from_config(cfg, generator=gen),
+                           model_from_config(cfg, generator=gen), str(tmp_path / "models"),
+                           "nerf", 0)
+    before = FusedNerfRender.launches
+    eval_main(["--config", str(cfg_path), "--checkpoint", ckpt,
+               "--output", str(tmp_path / "frames")], log=lambda *a: None)
+    assert FusedNerfRender.launches == before + 40
+    frame = read_png(str(tmp_path / "frames" / "frame_0000.png"))
+    assert frame.shape == (400, 400, 3)
+
+
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(300, 37), (7, 13)])
 def test_siren_backward_kernel_matches_plain_and_autograd(dev, cdt, shape):

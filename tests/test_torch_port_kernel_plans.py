@@ -1,13 +1,13 @@
 """Host-side plans and routes of the port's kernels, checked on the CPU.
 
 * The bfloat16 train passes of NeRF, SIREN and GaborNet (PERF.md rows 5, 8
-  and 12) and the bfloat16 NeRF render backward (row 4) run on the tensor
-  cores (``csrc/fused_render_train_tc.cu``,
+  and 12) and the bfloat16 NeRF and SIREN render backwards (rows 4 and 7)
+  run on the tensor cores (``csrc/fused_render_train_tc.cu``,
   ``csrc/fused_render_siren_train_tc.cu``,
-  ``csrc/fused_render_gabor_train_tc.cu``); the float32 train passes, the
-  float32 NeRF render backward and the SIREN's in both dtypes (row 7) stay
-  on ``csrc/fused_render_train.cu``, ``csrc/fused_render_siren_train.cu``
-  and ``csrc/fused_render_gabor_train.cu``. Their launch plan and the bytes of
+  ``csrc/fused_render_gabor_train_tc.cu``); the float32 train passes and
+  render backwards stay on ``csrc/fused_render_train.cu``,
+  ``csrc/fused_render_siren_train.cu`` and
+  ``csrc/fused_render_gabor_train.cu``. Their launch plan and the bytes of
   their stashes are computed here, on the host.
 * The bfloat16 forward renders of NeRF, SIREN and GaborNet (rows 3, 6 and
   11) run on the tensor cores (``csrc/fused_render_fwd_tc.cu``,
@@ -179,10 +179,10 @@ def test_scatter_radix_plan(num_rows, plan):
 def test_bf16_train_pass_routes_to_the_tensor_core_library(cdt, family, monkeypatch):
     """The bfloat16 train pass goes to the tensor-core library
     (fused_render_train_tc, fused_render_siren_train_tc,
-    fused_render_gabor_train_tc), and so does the bfloat16 NeRF render
-    backward (fused_render_train_tc); the float32 train pass, the float32
-    NeRF render backward and the SIREN's in both dtypes keep the CUDA-core
-    one, and a GaborNet has no render backward. The dispatch of _launch_grad is checked with both
+    fused_render_gabor_train_tc), and so do the bfloat16 NeRF and SIREN
+    render backwards (fused_render_train_tc, fused_render_siren_train_tc);
+    the float32 train pass and render backward keep the CUDA-core one, and
+    a GaborNet has no render backward. The dispatch of _launch_grad is checked with both
     launchers replaced, and the entry the GaborNet's _launch_train takes
     with the libraries replaced (no card here)."""
     gen = torch.Generator().manual_seed(0)
@@ -207,9 +207,8 @@ def test_bf16_train_pass_routes_to_the_tensor_core_library(cdt, family, monkeypa
         cls, lib = FusedSirenRender, "fused_render_siren_train"
         fr = cls(SirenModel(compute_dtype=cdt, generator=gen), 2.0, 6.0)
     tc = cdt == "bfloat16"
-    tc_bwd = tc and family == "nerf"
     assert fr.grad_library(True) == (lib + "_tc" if tc else lib)
-    assert fr.grad_library(False) == (lib + "_tc" if tc_bwd else lib)
+    assert fr.grad_library(False) == (lib + "_tc" if tc else lib)
     assert lib + "_tc" in build.LIBS and lib in build.LIBS
     calls = []
     monkeypatch.setattr(cls, "_launch_train_tc", lambda self, *a: calls.append("tc"))
@@ -218,7 +217,7 @@ def test_bf16_train_pass_routes_to_the_tensor_core_library(cdt, family, monkeypa
     x = torch.zeros(2, 3)
     for train in (True, False):
         fr._launch_grad(None, x, x, x, torch.zeros(2, 4), x, train, True)
-    assert calls == ["tc" if tc else "cuda-core", "tc" if tc_bwd else "cuda-core"]
+    assert calls == ["tc" if tc else "cuda-core"] * 2
 
 
 class _Recorded(Exception):
@@ -230,16 +229,16 @@ class _Recorded(Exception):
                  id="nerf-bfloat16"),
     pytest.param("float32", "nerf", "fused_render_train:fused_render_grad",
                  id="nerf-float32"),
-    pytest.param("bfloat16", "siren", "fused_render_siren_train:fused_siren_grad",
-                 id="siren-bfloat16"),
+    pytest.param("bfloat16", "siren",
+                 "fused_render_siren_train_tc:fused_siren_render_bwd_tc", id="siren-bfloat16"),
     pytest.param("float32", "siren", "fused_render_siren_train:fused_siren_grad",
                  id="siren-float32")])
 def test_render_backward_takes_its_entry(cdt, family, want, monkeypatch):
     """The entry point a render backward launches, with the libraries
-    replaced (no card here): the bfloat16 NeRF's is fused_render_bwd_tc,
-    beside the tensor-core train pass in its library (row 4); the float32
-    NeRF's and the SIREN's in both dtypes (row 7) the CUDA-core
-    fused_*_grad. Each library is one of LIBS."""
+    replaced (no card here): the bfloat16 NeRF's is fused_render_bwd_tc
+    and the bfloat16 SIREN's fused_siren_render_bwd_tc, each beside the
+    tensor-core train pass in its library (rows 4 and 7); the float32
+    ones the CUDA-core fused_*_grad. Each library is one of LIBS."""
     gen = torch.Generator().manual_seed(0)
     if family == "nerf":
         cls, mod = FusedNerfRender, fused_render
@@ -269,6 +268,19 @@ def test_render_backward_takes_its_entry(cdt, family, want, monkeypatch):
     lib = want.split(":")[0]
     assert fr.grad_library(False) == lib
     assert lib in build.LIBS
+
+
+@pytest.mark.parametrize("cdt, want", [
+    pytest.param("bfloat16", "fused_render_siren_train_tc", id="bfloat16"),
+    pytest.param("float32", "fused_render_siren_train", id="float32")])
+def test_siren_render_backward_library(cdt, want):
+    """Row 7's library: in bfloat16 the SIREN render backward shares the
+    tensor-core train pass's library (its own entry there), in float32 it
+    stays on the CUDA-core one; both are built (LIBS)."""
+    fr = FusedSirenRender(SirenModel(compute_dtype=cdt,
+                                     generator=torch.Generator().manual_seed(0)), 2.0, 6.0)
+    assert fr.grad_library(False) == fr.grad_library(True) == want
+    assert want in build.LIBS
 
 
 @pytest.mark.parametrize("shape, plan", [

@@ -160,7 +160,7 @@ def test_http_routes(services):
     assert not thread.is_alive()
 
 
-def test_bake_and_occupancy_are_not_ported(services):
+def test_build_renderer_bake_refuses_nerf_and_bakes_occupancy(services):
     """Baked caches are ported now for the families that bake (tests/
     test_torch_port_fastnerf.py, test_torch_port_plenoctree.py): a NeRF has
     none and raises ValueError, as nerf_tpu's build_renderer does;
