@@ -231,7 +231,30 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      pred_*.png allows); (c) the FastNeRF checkpoint with --bake 128 (40
      factor-form launches a frame); (d) lego_siren.txt with --occupancy 64,
      one frame (4 field launches for the bake, 157 render launches); each
-     part's wall ms a frame beside the card.
+     part's wall ms a frame beside the card;
+ 31. LLFF with NDC rays (configs/fern.txt: NeRF hidden 256, bf16, 64 + 64
+     samples, black background) on a synthetic forward-facing scene at
+     fern's shapes (20 views, images_8/ PNGs of 504x378, poses_bounds.npy
+     with the full 3024x4032 hwf): (a) rows 3 and 5 in this mode against
+     their plain versions (TF32 off), float32 and bfloat16, at 1024 x 128
+     and 8192 x 64 (normalize off, NDC rays and t in [0, 1] from the
+     scene's pool, its world view directions; the train pass with a black
+     and a white background), timed against the plain versions and the
+     bound; (b) fit() 200 iterations (2 train launches a step, 48 forward
+     launches for the validation frame, the mse at 190 under half of that
+     at 0) and a resume from step 100 to 220 that repeats the first run's
+     mse bit for bit; (c) one spiral-pose request over HTTP (a 504x378
+     PNG, 48 launches, within mean abs 1e-2 of the unfused render of the
+     same NDC rays); (d) the eval CLI: 4 spiral frames (48 launches each,
+     each within mean abs 1e-2 of the unfused render) and --metrics over
+     the 3 test views;
+ 32. Instant NGP (configs/ngp_synthetic.txt: 16 levels of 2^19 x 2 hash
+     tables, hidden 256, 64 samples, float32, a 32^3 occupancy prior) on
+     phase 4's scene: the hash rows on the card equal to the CPU's; fit()
+     200 iterations with a rebake at 100 (one scatter-add launch a step:
+     the tables' gradient), the mse falling; a resume from step 100 that
+     repeats the first run's mse bit for bit; a profiled step; one request
+     over HTTP and one eval frame, 400x400 and finite.
 
 The last lines are a JSON object of per-kernel numbers (all nineteen
 kernels, row 18 in its two forms), the card, and ``{"ok": true,
@@ -2238,12 +2261,12 @@ def read_scalars(log_dir: str) -> dict:
 
 
 def check_resume(torch, dev, tmp: str, cfg, name: str, loss: dict,
-                 tag: str | None = None) -> None:
+                 tag: str | None = None, until: int = 120) -> None:
     """A resume from the step-100 checkpoint of ``fit``'s run: the restore
-    is exact, and every resumed step to 120 repeats the first run's mse
-    (``loss``) at the same state.step (the loop restarts at the saved
-    iteration while state.step is one ahead). The resumed run saves and
-    logs under ``tag`` (default ``name``)."""
+    is exact, and every resumed step to ``until`` that the first run logged
+    repeats the first run's mse (``loss``) at the same state.step (the loop
+    restarts at the saved iteration while state.step is one ahead). The
+    resumed run saves and logs under ``tag`` (default ``name``)."""
     import dataclasses
 
     from nerf_tpu_torch.train.loop import fit
@@ -2266,14 +2289,14 @@ def check_resume(torch, dev, tmp: str, cfg, name: str, loss: dict,
     if not same:
         fail("the restored step, parameters or Adam moments differ from the save")
     del probe
-    cfg2 = dataclasses.replace(cfg, num_iters=120, log_interval=1,
+    cfg2 = dataclasses.replace(cfg, num_iters=until, log_interval=1,
                                save_path=os.path.join(tmp, f"resume_models_{tag or name}"),
                                log_dir=os.path.join(tmp, f"resume_logs_{tag or name}"))
     lines2: list = []
     resumed = fit(cfg2, resume_path=ckpt, device=dev, log=lines2.append)
     loss2 = read_scalars(cfg2.log_dir)["loss"]
     pairs = [(i, i + 1) for i in sorted(loss2) if i + 1 in loss]
-    if resumed.step != 121 or len(pairs) != 2:
+    if resumed.step != until + 1 or len(pairs) != sum(100 < j <= until for j in loss):
         fail(f"resume: state.step {resumed.step}, comparable steps {pairs}")
     for i, j in pairs:
         say(f"train: resumed iteration {i} (state.step {i + 2}) mse "
@@ -3729,6 +3752,427 @@ def eval_cli(torch, dev, tmp: str, card: str) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------- phase 31
+
+# fern's shapes (configs/fern.txt, llff_factor 8): 20 views, images_8/ PNGs
+# of 504 x 378, and a poses_bounds.npy whose hwf is the full 3024 x 4032
+# capture (focal 3260.526 px)
+FERN_VIEWS, FERN_HW, FERN_FULL = 20, (378, 504), (3024, 4032, 3260.526)
+FERN_ITERS = 200
+
+
+def write_fern_scene(root: str, seed: int = 31) -> str:
+    """A synthetic forward-facing LLFF scene at fern's shapes: cameras near
+    (0, 0, 4) looking down -z with seeded lateral offsets, a shaded sphere
+    of radius 1 at the origin before a striped wall at z = -3, written as
+    images_8/img_*.png (the port's PNG writer) and poses_bounds.npy
+    ([down, right, back, t | hwf] rows, depth bounds 2.5 / 7.5)."""
+    from nerf_tpu_torch.utils.png import write_png
+
+    rng = np.random.default_rng(seed)
+    h, w = FERN_HW
+    focal = FERN_FULL[2] * w / FERN_FULL[1]
+    os.makedirs(os.path.join(root, "images_8"), exist_ok=True)
+    u, v = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32),
+                       indexing="xy")
+    d = np.stack([u - 0.5 * w, -(v - 0.5 * h), -np.full_like(u, focal)], -1).reshape(-1, 3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rows = []
+    for i in range(FERN_VIEWS):
+        o = np.array([*rng.uniform(-0.5, 0.5, 2), 4.0], np.float32)
+        b = 2.0 * d @ o
+        disc = b * b - 4.0 * (o @ o - 1.0)
+        ts = (-b - np.sqrt(np.maximum(disc, 0.0))) / 2.0
+        hit = (disc > 0) & (ts > 0)
+        tw = (-3.0 - o[2]) / d[:, 2]
+        pw = o + tw[:, None] * d
+        img = np.stack([0.5 + 0.35 * np.sin(2.0 * pw[:, 0]), 0.5 + 0.35 * np.cos(3.0 * pw[:, 1]),
+                        np.full(len(d), 0.6)], -1)
+        p = o + ts[:, None] * d
+        shade = 0.5 + 0.5 * np.clip(p @ np.array([0.3, 0.5, 0.8]), -1, 1)
+        img[hit] = np.array([0.9, 0.3, 0.2]) * shade[hit, None]
+        write_png(os.path.join(root, "images_8", f"img_{i:03d}.png"),
+                  (np.clip(img, 0, 1).reshape(h, w, 3) * 255).astype(np.uint8))
+        m = np.stack([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0], o], axis=1)
+        hwf = np.array([[FERN_FULL[0]], [FERN_FULL[1]], [FERN_FULL[2]]])
+        rows.append(np.concatenate([np.concatenate([m, hwf], 1).reshape(-1), [2.5, 7.5]]))
+    np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows))
+    return root
+
+
+def fern_config(tmp: str, **overrides):
+    """configs/fern.txt on the synthetic scene (``tmp``/fern), saving and
+    logging under ``tmp``."""
+    import dataclasses
+
+    from nerf_tpu_torch.config import parse_config_file
+
+    cfg = parse_config_file(os.path.join(ROOT, "configs", "fern.txt"))
+    return dataclasses.replace(cfg, dataset_path=os.path.join(tmp, "fern"),
+                               save_path=os.path.join(tmp, "fern_models"),
+                               log_dir=os.path.join(tmp, "fern_logs"), **overrides)
+
+
+def ndc_batch(torch, pool, num_rays: int, s: int, seed: int) -> tuple:
+    """(rays_o, rays_d, viewdirs, t, target) of ``num_rays`` rays of an NDC
+    pool drawn with a seeded generator: NDC rays, their world directions,
+    stratified jittered t in [0, 1] (every 4th ray's last sample at exactly
+    t = 1, the far plane), the pixels as targets."""
+    g = torch.Generator(device=pool.rays_o.device).manual_seed(seed)
+    b = pool.sample(g, num_rays)
+    edges = torch.linspace(0.0, 1.0, s + 1, device=b.rays_o.device)
+    t = edges[:-1] + torch.rand(num_rays, s, generator=g, device=b.rays_o.device) / s
+    t[::4, -1] = 1.0
+    return b.rays_o, b.rays_d, b.viewdirs, t, b.rgb
+
+
+def check_ndc_kernels(torch, dev, tmp: str):
+    """Phase 31 (a): rows 3 and 5 in fern.txt's mode against their plain versions (TF32
+    off), float32 and bfloat16, at 1024 x 128 and 8192 x 64: normalize off
+    (the rays are NDC, the positions in [-1, 1]^3 as they are), the world
+    view directions of the pool (not the NDC directions), t in [0, 1]; the
+    train pass with a black and a white background. Each cell under the
+    unchanged TOL / GRAD_TOL, timed in turns against its plain version and
+    its bound. Writes the synthetic fern scene into ``tmp``/fern for phase
+    31."""
+    from nerf_tpu_torch.data.pipeline import load_scene
+    from nerf_tpu_torch.models.nerf import NeRFModel
+    from nerf_tpu_torch.ops.cuda.fused_render import (
+        FusedNerfRender, fused_render_plain, fused_train_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    write_fern_scene(os.path.join(tmp, "fern"))
+    pool = load_scene(fern_config(tmp), device=dev).pool
+    say(f"kernel ndc: the synthetic fern scene written and loaded in "
+        f"{time.perf_counter() - t0:.1f} s ({pool.size} NDC train rays)")
+    results = {}
+    for cdt in ("float32", "bfloat16"):
+        model = NeRFModel(compute_dtype=cdt,
+                          generator=torch.Generator().manual_seed(31)).to(dev)
+        fr = FusedNerfRender(model, 0.0, 1.0, normalize=False)
+        with torch.no_grad():
+            packed = fr.pack(model)
+        weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
+                        + packed.vec.numel() * 4)
+        grad_bytes = (packed.wmat.numel() + packed.vec.numel()) * 4
+        for r, s in ((1024, 128), (8192, 64)):
+            ro, rd, vd, t, tgt = ndc_batch(torch, pool, r, s, 3100 + s)
+            o_aff, d_aff = fr.affine(ro, rd)
+            if not (o_aff is ro and d_aff is rd):
+                fail("kernel ndc: normalize=False changed the rays")
+            pts = ro[:, None] + t[..., None] * rd[:, None]
+            lo, hi = pts.reshape(-1, 3).amin(0).tolist(), pts.reshape(-1, 3).amax(0).tolist()
+            say(f"kernel ndc R={r} S={s}: NDC points x in [{lo[0]:.3f}, {hi[0]:.3f}], y in "
+                f"[{lo[1]:.3f}, {hi[1]:.3f}], z in [{lo[2]:.6f}, {hi[2]:.6f}]; t in "
+                f"[{float(t.min()):.6f}, {float(t.max()):.6f}]")
+            if (lo[2] < -1.0 - 1e-5 or hi[2] > 1.0 + 1e-5
+                    or torch.allclose(vd, rd / rd.norm(dim=-1, keepdim=True))):
+                fail("kernel ndc: the cell's depths leave [-1, 1] or its view "
+                     "directions are the NDC directions")
+            fns = {
+                ("fused_render_fwd", None): (
+                    lambda: fused_render_plain(packed, ro, rd, vd, t, 10, 4),
+                    lambda: fr(packed, ro, rd, vd, t))}
+            for wb in (False, True):
+                fns[("fused_render_train", wb)] = (
+                    lambda wb=wb: fused_train_plain(packed, ro, rd, vd, t, tgt, wb, 10, 4),
+                    lambda wb=wb: fr._train(packed, ro, rd, vd, t, tgt, wb))
+            for (name, wb), (plain, kern) in fns.items():
+                label = (f"kernel {name} ndc {cdt} R={r} S={s}"
+                         + ("" if wb is None else f" white_bg={int(wb)}"))
+                with torch.no_grad():
+                    ref, got = plain(), kern()
+                    torch.cuda.synchronize()
+                    if name == "fused_render_fwd":
+                        keys = ("rgb", "acc", "depth", "weights")
+                        errs = {k: float((got[k] - ref[i]).abs().max())
+                                for i, k in enumerate(keys)}
+                        finite = all(bool(torch.isfinite(got[k]).all()) for k in keys)
+                        bad = {k: v for k, v in errs.items() if not v <= TOL[cdt][k]}
+                    else:
+                        errs = {"loss": float(abs(got[0] - ref[0]) / abs(ref[0]))}
+                        for i, k in ((1, "rgb"), (2, "acc"), (3, "weights")):
+                            errs[k] = float((got[i] - ref[i]).abs().max())
+                        gerr = grad_errors(torch, got[4], ref[4])
+                        finite = all(bool(torch.isfinite(x).all()) for x in got[1:4])
+                        bad = {k: v for k, v in errs.items() if not v <= TOL[cdt]["rgb"]}
+                        bad.update({k: v for k, v in gerr.items() if not v <= GRAD_TOL[cdt]})
+                        errs["grad_worst"] = max(gerr.values())
+                    del ref, got
+                    torch.cuda.empty_cache()
+                    plain(); kern()                        # warm-up
+                    times = {"plain": [], "kernel": []}
+                    for which in ("plain", "kernel", "kernel", "plain"):
+                        times[which] += time_calls(torch, plain if which == "plain" else kern, 2)
+                    torch.cuda.empty_cache()
+                ms = statistics.median(times["kernel"])
+                plain_ms = statistics.median(times["plain"])
+                if name == "fused_render_fwd":
+                    bms, by = bound_ms(r, s, cdt, weight_bytes, mlp_macs(256, 63, 27))
+                else:
+                    bms, by = bound_ms(r, s, cdt, weight_bytes,
+                                       3 * mlp_macs(256, 63, 27) - SKIPPED_MACS,
+                                       grad_bytes=grad_bytes, train=True)
+                say(f"{label}: max_abs_err " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+                    + f" (tol {TOL[cdt]['rgb']:.0e}, depth {TOL[cdt]['depth']:.0e}, gradients "
+                    f"{GRAD_TOL[cdt]:.0e} of max) | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                    f"bound {bms:.3f} ms ({by}), share of bound {bms / ms:.4f}")
+                if bad or not finite:
+                    fail(f"{label} disagrees with its plain version: {bad} (finite {finite})")
+                results[(name, cdt, r, s, wb)] = dict(
+                    err=max(v for k, v in errs.items() if k != "loss"), ms=ms,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    return results
+
+
+def fern(torch, dev, tmp: str, card: str) -> dict:
+    """Phase 31 (b)-(d): configs/fern.txt (LLFF, NDC rays, black background,
+    NeRF hidden 256 in bf16, 64 + 64 samples) on the synthetic fern scene
+    that (a), ``check_ndc_kernels``, wrote. (b) fit() 200 iterations, logs every 10, validation
+    and saves every 100: 2 train launches a step (S = 64 and 128), 48
+    forward launches for the 504 x 378 validation frame, the mse at 190
+    under half of that at 0; then a resume from the step-100 checkpoint to
+    220 that repeats the first run's mse bit for bit. (b) One spiral-pose
+    request over HTTP: a 504 x 378 PNG, 48 forward launches, within mean
+    abs 1e-2 of the unfused render of the same NDC rays. (c) The eval CLI:
+    4 spiral frames (48 launches each, each within mean abs 1e-2 of the
+    unfused render) and --metrics over the 3 test views. Returns the
+    launches of rows 3 and 5 and the walls."""
+    import dataclasses
+
+    from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
+    from nerf_tpu_torch.serve import RenderService, make_http_server
+    from nerf_tpu_torch.train.loop import fit
+    from nerf_tpu_torch.utils.png import decode_png, read_png
+
+    h, w = FERN_HW
+    per_frame = 2 * math.ceil(h * w / 8192)
+    cfg = fern_config(tmp, num_iters=FERN_ITERS, log_interval=10, val_interval=100,
+                      save_interval=100)
+    lines: list = []
+    FusedNerfRender.launches = FusedNerfRender.train_launches = 0
+    FusedNerfRender.bwd_launches = 0          # the main path's counts start here
+    t0 = time.perf_counter()
+    fit(cfg, device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (FusedNerfRender.train_launches, FusedNerfRender.launches,
+              FusedNerfRender.bwd_launches)
+    say(f"fern: fit fern.txt {FERN_ITERS} iterations in {wall:.1f} s; launches: train "
+        f"{counts[0]} ({counts[0] / FERN_ITERS:.0f} a step), forward {counts[1]} (the "
+        f"validation frame), backward {counts[2]}")
+    for line in lines:
+        if "[Iter" in line or "Validation" in line or "Loaded scene" in line:
+            say(f"  {line}")
+    if counts != (2 * FERN_ITERS, per_frame, 0):
+        fail(f"fern: fit launched (train, forward, backward) {counts}, want "
+             f"{(2 * FERN_ITERS, per_frame, 0)}")
+    scal = read_scalars(cfg.log_dir)
+    loss = scal["loss"]
+    last = FERN_ITERS - 10                     # the last logged iteration
+    if not all(math.isfinite(v) for v in loss.values()) or not loss[last] < 0.5 * loss[0]:
+        fail(f"fern: mse at {last} ({loss[last]}) is not under half of that at 0 "
+             f"({loss[0]})")
+    step_rps = scal["rays_per_sec"][last]
+    say(f"fern: mse {loss[0]:.6f} at 0 -> {loss[last]:.6f} at {last} (ratio "
+        f"{loss[last] / loss[0]:.4f}); fern.txt step {step_rps:.0f} rays/s (1024 rays, "
+        f"64+64 samples, bfloat16), {card}")
+    check_resume(torch, dev, tmp, cfg, "nerf", loss, tag="fern", until=220)
+    ckpt = os.path.join(cfg.save_path, f"nerf_model_{FERN_ITERS:06d}")
+    train_launches = 2 * FERN_ITERS
+
+    # (c) one spiral-pose request over HTTP
+    svc = RenderService.from_checkpoint(cfg, ckpt, device=dev, log=say)
+    ref = RenderService.from_checkpoint(dataclasses.replace(cfg, use_pallas=False), ckpt,
+                                        device=dev, log=lambda *a: None)
+    if svc.hw != (h, w) or not svc.ndc or svc.render_poses is None:
+        fail(f"fern: service hw {svc.hw}, ndc {svc.ndc}")
+    server = make_http_server(svc, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        first = FusedNerfRender.launches
+        get(base + "/pose/1")                    # a first request, untimed
+        before = FusedNerfRender.launches
+        t0 = time.perf_counter()
+        code, ctype, body = get(base + "/pose/0")
+        req_ms = (time.perf_counter() - t0) * 1e3
+        n = FusedNerfRender.launches - before
+        served = FusedNerfRender.launches - first
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    img = decode_png(body)
+    if code != 200 or ctype != "image/png" or img.shape != (h, w, 3) or n != per_frame:
+        fail(f"fern /pose/0: {code} {ctype} {img.shape}, {n} launches (want {per_frame})")
+    want = ref.render_pose(svc.orbit_pose(0), key_idx=0)
+    diff = np.abs(img.astype(np.float32) / 255.0 - want)
+    say(f"serve fern.txt /pose/0 (the spiral's first pose): 200 image/png {w}x{h}, {n} "
+        f"kernel launches, {req_ms:.1f} ms, {h * w / req_ms * 1e3:.0f} rays/s; vs the "
+        f"unfused render of the same NDC rays: mean abs {diff.mean():.3e} (tol "
+        f"{SERVE_TOL_MEAN:.0e}), max abs {diff.max():.3e}; {card}")
+    if not diff.mean() <= SERVE_TOL_MEAN:
+        fail("fern: the served image disagrees with the unfused render")
+    fwd_launches = counts[1] + served        # the validation frame, two requests
+    del svc
+
+    # (d) the eval CLI: 4 spiral frames, then --metrics over the test views
+    cfg_path = os.path.join(tmp, "eval_fern.txt")
+    with open(os.path.join(ROOT, "configs", "fern.txt")) as f, open(cfg_path, "w") as g:
+        g.write(f.read() + f"\ndataset_path = {cfg.dataset_path}\nnum_render_poses = 4\n")
+    out = os.path.join(tmp, "eval_fern")
+    res = run_eval_cli(["--config", cfg_path, "--checkpoint", ckpt, "--output", out],
+                       {"nerf": FusedNerfRender}, "(31d) fern.txt spiral")
+    if res["per_frame"]["nerf"] != [per_frame] * 4:
+        fail(f"fern eval: launches a frame {res['per_frame']['nerf']}, want {per_frame}")
+    for i in range(4):
+        frame = read_png(os.path.join(out, f"frame_{i:04d}.png"))
+        want = ref.render_pose(ref.orbit_pose(i), key_idx=i)
+        diff = np.abs(frame.astype(np.float32) / 255.0 - want)
+        say(f"eval (31d) frame {i} vs the unfused render of the same NDC rays: mean abs "
+            f"{diff.mean():.3e} (tol {SERVE_TOL_MEAN:.0e}), max abs {diff.max():.3e}")
+        if frame.shape != (h, w, 3) or not diff.mean() <= SERVE_TOL_MEAN:
+            fail(f"fern eval: frame {i} disagrees with the unfused render")
+    frame_ms = res["ms"]
+    out = os.path.join(tmp, "eval_fern_metrics")
+    res_m = run_eval_cli(["--config", cfg_path, "--checkpoint", ckpt, "--output", out,
+                          "--metrics"], {"nerf": FusedNerfRender}, "(31d) fern.txt --metrics")
+    with open(os.path.join(out, "metrics.json")) as f:
+        m = json.load(f)
+    if (m["num_views"] != 3 or res_m["per_frame"]["nerf"] != [per_frame] * 3
+            or not all(math.isfinite(v["psnr"]) for v in m["views"])):
+        fail(f"fern --metrics: {m['num_views']} views, launches {res_m['per_frame']}")
+    fwd_launches += sum(res["per_frame"]["nerf"]) + sum(res_m["per_frame"]["nerf"])
+    say(f"eval (31d): {statistics.median(frame_ms):.1f} ms a 504x378 spiral frame wall "
+        f"(median of 4: {', '.join(f'{x:.1f}' for x in frame_ms)}), "
+        f"{statistics.median(res_m['ms']):.1f} ms a --metrics view; test-split PSNR "
+        f"{m['mean_psnr']:.4f}, SSIM {m['mean_ssim']:.4f}; {card}")
+    return {"train_launches": train_launches, "fwd_launches": fwd_launches,
+            "step_rps": step_rps, "request_ms": req_ms, "frame_ms": frame_ms}
+
+
+# ---------------------------------------------------------------- phase 32
+
+NGP_ITERS = 200
+
+
+def ngp(torch, dev, tmp: str, card: str) -> dict:
+    """Phase 32: configs/ngp_synthetic.txt (Instant NGP: 16 levels of 2^19 x 2
+    hash tables, the config's hidden 256, 64 samples, float32, lr 1e-2) on
+    the synthetic 400 x 400 Blender scene. The hash rows of 65,536 points on
+    the card equal to the CPU's. fit() 200 iterations with its occupancy
+    prior (32^3, rebaked every 100 optimizer steps, so once mid-run), logs
+    every 10, validation and saves every 100: finite losses, the mse at 190
+    under that at 0, one scatter-add launch a step (row 19: the tables'
+    gradient, C = 2); a resume from the step-100 checkpoint (a rebake) to
+    120 that repeats the first run's mse bit for bit; then one request over
+    HTTP and one eval frame, 400 x 400, finite; torch.profiler traces of a
+    step and a request. Returns the scatter-add launches and the walls."""
+    import dataclasses
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.models.ngp import NGPModel
+    from nerf_tpu_torch.ops.cuda.scatter_add import ScatterKernel
+    from nerf_tpu_torch.serve import RenderService, make_http_server
+    from nerf_tpu_torch.train.loop import fit
+    from nerf_tpu_torch.utils.png import decode_png, read_png
+
+    scene = os.path.join(tmp, "scene")
+    if not os.path.isdir(scene):
+        write_sphere_scene(scene, HW)
+    probe = NGPModel(log2_table=19)
+    pts = (torch.rand(65536, 3, generator=torch.Generator().manual_seed(32)) * 2.2 - 1.1)
+    cpu_rows = torch.stack([r for r, _ in probe._cells(pts)])
+    dev_rows = torch.stack([r for r, _ in probe._cells(pts.to(dev))]).cpu()
+    hashed = sum((int(r) + 1) ** 3 > (1 << 19) for r in probe.level_resolutions())
+    say(f"ngp: hash rows of 65,536 points x 16 levels x 8 corners ({hashed} levels hashed) "
+        f"on the card equal to the CPU's: {torch.equal(cpu_rows, dev_rows)}")
+    if not torch.equal(cpu_rows, dev_rows):
+        fail("ngp: the card's hash rows differ from the CPU's")
+
+    cfg = dataclasses.replace(
+        parse_config_file(os.path.join(ROOT, "configs", "ngp_synthetic.txt")),
+        dataset_path=scene, num_iters=NGP_ITERS, occupancy_interval=100, log_interval=10,
+        val_interval=100, save_interval=100, save_path=os.path.join(tmp, "ngp_models"),
+        log_dir=os.path.join(tmp, "ngp_logs"))
+    lines: list = []
+    ScatterKernel.launches = 0                  # the main path's count starts here
+    t0 = time.perf_counter()
+    state = fit(cfg, device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scatters = ScatterKernel.launches
+    say(f"ngp: fit ngp_synthetic.txt {NGP_ITERS} iterations in {wall:.1f} s; scatter-add "
+        f"launches {scatters} ({scatters / NGP_ITERS:.0f} a step)")
+    for line in lines:
+        if "[Iter" in line or "Validation" in line or "Loaded scene" in line:
+            say(f"  {line}")
+    if scatters != NGP_ITERS:
+        fail(f"ngp: {scatters} scatter-add launches in {NGP_ITERS} steps, want one a step")
+    scal = read_scalars(cfg.log_dir)
+    loss = scal["loss"]
+    last = NGP_ITERS - 10
+    if not all(math.isfinite(v) for v in loss.values()) or not loss[last] < loss[0]:
+        fail(f"ngp: mse at {last} ({loss[last]}) is not under that at 0 ({loss[0]})")
+    step_rps = scal["rays_per_sec"][last]
+    say(f"ngp: mse {loss[0]:.6f} at 0 -> {loss[last]:.6f} at {last} (ratio "
+        f"{loss[last] / loss[0]:.4f}); ngp_synthetic.txt step {step_rps:.0f} rays/s "
+        f"({cfg.num_random_rays} rays, {cfg.num_samples} samples, hidden "
+        f"{cfg.hidden_dim}, {cfg.compute_dtype}, occupancy {cfg.occupancy_res}^3), {card}")
+    check_resume(torch, dev, tmp, cfg, "ngp", loss)
+    # one step under the profiler (without the prior: the step's other work)
+    from nerf_tpu_torch.data.pipeline import load_scene
+    from nerf_tpu_torch.train.loop import render_settings_from_config
+
+    profile_step(torch, state, load_scene(cfg, device=dev).pool,
+                 render_settings_from_config(cfg), cfg, "scatter", "ngp_synthetic.txt")
+    del state
+    ckpt = os.path.join(cfg.save_path, f"ngp_model_{NGP_ITERS:06d}")
+
+    svc = RenderService.from_checkpoint(cfg, ckpt, device=dev, log=say)
+    server = make_http_server(svc, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        get(base + "/pose/1")                    # a first request, untimed
+        t0 = time.perf_counter()
+        code, ctype, body = get(base + "/pose/0")
+        req_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    img = decode_png(body)
+    if code != 200 or ctype != "image/png" or img.shape != (HW, HW, 3):
+        fail(f"ngp /pose/0: {code} {ctype} {img.shape}")
+    say(f"serve ngp_synthetic.txt /pose/0: 200 image/png {HW}x{HW}, {req_ms:.1f} ms, "
+        f"{HW * HW / req_ms * 1e3:.0f} rays/s (the module, no kernel), mean "
+        f"{img.mean() / 255:.4f}; {card}")
+    raw = svc.render_pose(svc.orbit_pose(2), key_idx=2)
+    if not np.isfinite(raw).all():
+        fail("ngp: a rendered frame is not finite")
+    profile_device(torch, lambda: svc.render_pose(svc.orbit_pose(2), key_idx=2),
+                   "index", "one ngp_synthetic.txt request")
+    del svc
+
+    cfg_path = write_eval_config(tmp, "ngp_synthetic.txt", "eval_ngp.txt", num_render_poses=1)
+    out = os.path.join(tmp, "eval_ngp")
+    res = run_eval_cli(["--config", cfg_path, "--checkpoint", ckpt, "--output", out],
+                       {}, "(32) ngp_synthetic.txt")
+    frame = read_png(os.path.join(out, "frame_0000.png"))
+    if frame.shape != (HW, HW, 3):
+        fail(f"ngp eval: frame shape {frame.shape}")
+    say(f"eval (32): {res['ms'][0]:.1f} ms a 400x400 NGP frame wall, mean "
+        f"{frame.mean() / 255:.4f}; {card}")
+    return {"scatter_launches": scatters, "step_rps": step_rps, "request_ms": req_ms,
+            "frame_ms": res["ms"][0]}
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -3904,6 +4348,9 @@ def main() -> int:
         grid_trained = train_plenoxels(torch, dev, tmp)
         baked = {f: bake_and_serve(torch, dev, tmp, f) for f in ("fastnerf", "plenoctree")}
         evaluated = eval_cli(torch, dev, tmp, card)
+        ndc_checks = check_ndc_kernels(torch, dev, tmp)
+        ferned = fern(torch, dev, tmp, card)
+        ngped = ngp(torch, dev, tmp, card)
     bench_headline(torch, dev)
     bench_siren(torch, dev)
     bench_gabor(torch, dev)
@@ -3920,17 +4367,19 @@ def main() -> int:
     nerf_tpu = "nerf_tpu/ops/pallas/"
     kernels = [row("fused_render_fwd", "fused_render_fwd_tc.cu",
                    f"{nerf_tpu}fused_render.py:222",
-                   launches + evaluated["fused_render_fwd"],
+                   launches + evaluated["fused_render_fwd"] + ferned["fwd_launches"],
                    checks[("bfloat16", 192)],
-                   max(c["err"] for c in checks.values()))]
+                   max([c["err"] for c in checks.values()]
+                       + [v["err"] for k, v in ndc_checks.items() if k[0] == "fused_render_fwd"]))]
     for name, source, line, launched in (
-            ("fused_render_train", "fused_render_train_tc.cu", 315, trained["train_launches"]),
+            ("fused_render_train", "fused_render_train_tc.cu", 315,
+             trained["train_launches"] + ferned["train_launches"]),
             ("fused_render_bwd", "fused_render_train_tc.cu", 242, trained["bwd_launches"])):
         kernels.append(row(name, source,
                            f"{nerf_tpu}fused_render.py:{line}", launched,
                            grad_checks[(name, "bfloat16", 192)],
-                           max(v["err"] for k, v in grad_checks.items()
-                               if k[0] == name)))
+                           max([v["err"] for k, v in grad_checks.items() if k[0] == name]
+                               + [v["err"] for k, v in ndc_checks.items() if k[0] == name])))
     for name, source, line, launched in (
             ("fused_render_siren_fwd", "fused_render_siren_fwd_tc.cu", 60,
              siren_launches + evaluated["fused_render_siren_fwd"]),
@@ -3993,7 +4442,8 @@ def main() -> int:
              baked["fastnerf"]["launches"] + evaluated["grid_render_factors"],
              factor_checks[("bfloat16", 1024, 256)],
              max(v["err"] for v in factor_checks.values())),
-            ("scatter_add", "scatter_add.cu", "scatter_add.py:56", grid_trained["scatter_add"],
+            ("scatter_add", "scatter_add.cu", "scatter_add.py:56",
+             grid_trained["scatter_add"] + ngped["scatter_launches"],
              scatter_checks["step"], max(v["err"] for v in scatter_checks.values()))):
         kernels.append(dict(row(name, source, f"{nerf_tpu}{line}", launched, c, err),
                             library_ms=c["library_ms"]))

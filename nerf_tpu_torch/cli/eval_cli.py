@@ -8,7 +8,9 @@ frames.
 Renders a spherical orbit of ``num_render_poses`` cameras (theta sweep at
 phi = -30 deg, radius 4) with the trained field and writes
 ``frame_{i:04d}.png``; the test split's first frame gives H, W and focal.
-With ``--metrics`` it renders the test split instead and writes
+An LLFF scene renders the first ``num_render_poses`` poses of its spiral
+instead (through NDC rays with ``ndc``). With ``--metrics`` it renders the
+test split (an LLFF scene's every 8th view) instead and writes
 ``pred_{i:03d}.png`` and ``metrics.json`` (per-view and mean PSNR / SSIM).
 The checkpoint's ``model_type`` and ``grid_res`` override the config. The
 models, the occupancy prior (``--occupancy``) and the baked cache
@@ -29,6 +31,7 @@ import time
 import numpy as np
 
 from nerf_tpu_torch.data.blender import load_blender
+from nerf_tpu_torch.data.llff import load_llff
 from nerf_tpu_torch.data.poses import spherical_orbit
 from nerf_tpu_torch.serve import RenderService, checkpoint_config
 from nerf_tpu_torch.utils.gif import write_gif
@@ -43,9 +46,13 @@ def _to_u8(img: np.ndarray) -> np.ndarray:
 def _score_test_split(svc: RenderService, cfg, output: str, log) -> None:
     """Render the test split with its own cameras and score each view
     against its ground truth: pred_*.png and metrics.json in ``output``."""
-    images, poses, _ = load_blender(cfg.dataset_path, mode="test",
-                                    white_background=cfg.white_background,
-                                    half_res=cfg.half_res)
+    if cfg.dataset_type == "llff":
+        data = load_llff(cfg.dataset_path, factor=cfg.llff_factor)
+        images, poses = data["images"][data["i_test"]], data["poses"][data["i_test"]]
+    else:
+        images, poses, _ = load_blender(cfg.dataset_path, mode="test",
+                                        white_background=cfg.white_background,
+                                        half_res=cfg.half_res)
     rows = []
     for i in range(images.shape[0]):
         t0 = time.perf_counter()
@@ -119,7 +126,10 @@ def main(argv=None, log=print) -> None:
         _score_test_split(svc, cfg, args.output, log)
         return
 
-    poses = spherical_orbit(cfg.num_render_poses)
+    if svc.render_poses is not None:
+        poses = svc.render_poses[: cfg.num_render_poses]
+    else:
+        poses = spherical_orbit(cfg.num_render_poses)
     frames = []
     for i in range(poses.shape[0]):
         t0 = time.perf_counter()

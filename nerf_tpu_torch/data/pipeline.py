@@ -19,7 +19,9 @@ import numpy as np
 import torch
 
 from nerf_tpu_torch.data.blender import load_blender
+from nerf_tpu_torch.data.llff import load_llff
 from nerf_tpu_torch.data.rays import compute_rays
+from nerf_tpu_torch.ops.ndc import ndc_rays
 
 _M32 = 0xFFFFFFFF
 
@@ -150,25 +152,54 @@ class Scene:
     near: float
     far: float
     white_background: bool
+    ndc: bool = False
+    render_poses: Optional[np.ndarray] = None  # eval path (LLFF spiral)
     name: str = "scene"
 
 
 def load_scene(cfg, device: str | torch.device = "cpu") -> Scene:
-    """The dataset a ``Config`` names, its ray pool on ``device``. Only
-    Blender scenes are ported."""
-    if cfg.dataset_type != "blender":
-        raise NotImplementedError(
-            f"dataset_type {cfg.dataset_type!r} is not ported to "
-            "nerf_tpu_torch yet (ROADMAP.md queue 1, row 9: LLFF and NDC)")
-    images, c2w, focal = load_blender(cfg.dataset_path, mode="train",
-                                      white_background=cfg.white_background,
-                                      half_res=cfg.half_res)
-    val_images, val_c2w, val_focal = load_blender(
-        cfg.dataset_path, mode="val", white_background=cfg.white_background,
-        half_res=cfg.half_res)
-    rays_o, rays_d, rgb = compute_rays(images, c2w, focal)
-    return Scene(pool=build_ray_pool(rays_o, rays_d, rgb, device=device),
-                 val_images=val_images, val_c2w=val_c2w, focal=val_focal,
-                 hw=(images.shape[1], images.shape[2]), near=cfg.near,
-                 far=cfg.far, white_background=cfg.white_background,
-                 name=cfg.dataset_path.rstrip("/").split("/")[-1])
+    """The dataset a ``Config`` names, its ray pool on ``device``: a Blender
+    scene, or an LLFF scene (``cfg.llff_factor``), whose pool holds NDC rays
+    with t in [0, 1] and the pre-warp world directions as ``viewdirs`` when
+    ``cfg.ndc``, else world rays over the scene's depth bounds; an LLFF
+    scene validates on its test split, over black."""
+    name = cfg.dataset_path.rstrip("/").split("/")[-1]
+    if cfg.dataset_type == "blender":
+        images, c2w, focal = load_blender(cfg.dataset_path, mode="train",
+                                          white_background=cfg.white_background,
+                                          half_res=cfg.half_res)
+        val_images, val_c2w, val_focal = load_blender(
+            cfg.dataset_path, mode="val", white_background=cfg.white_background,
+            half_res=cfg.half_res)
+        rays_o, rays_d, rgb = compute_rays(images, c2w, focal)
+        return Scene(pool=build_ray_pool(rays_o, rays_d, rgb, device=device),
+                     val_images=val_images, val_c2w=val_c2w, focal=val_focal,
+                     hw=(images.shape[1], images.shape[2]), near=cfg.near,
+                     far=cfg.far, white_background=cfg.white_background, name=name)
+
+    if cfg.dataset_type == "llff":
+        data = load_llff(cfg.dataset_path, factor=cfg.llff_factor)
+        images, poses = data["images"], data["poses"]
+        h, w = data["hw"]
+        focal = data["focal"]
+        i_train, i_test = data["i_train"], data["i_test"]
+        c2w44 = np.tile(np.eye(4, dtype=np.float32), (poses.shape[0], 1, 1))
+        c2w44[:, :3, :4] = poses
+        rays_o, rays_d, rgb = compute_rays(images, c2w44, focal)
+        if cfg.ndc:
+            world_d = rays_d[i_train]
+            o_ndc, d_ndc = ndc_rays(h, w, focal, 1.0, torch.from_numpy(rays_o[i_train]),
+                                    torch.from_numpy(world_d))
+            pool = build_ray_pool(o_ndc.numpy(), d_ndc.numpy(), rgb[i_train],
+                                  viewdirs=world_d, device=device)
+            near, far = 0.0, 1.0
+        else:
+            pool = build_ray_pool(rays_o[i_train], rays_d[i_train], rgb[i_train],
+                                  device=device)
+            near, far = data["near_world"], data["far_world"]
+        return Scene(pool=pool, val_images=images[i_test], val_c2w=c2w44[i_test],
+                     focal=focal, hw=(h, w), near=near, far=far,
+                     white_background=False, ndc=cfg.ndc,
+                     render_poses=data["render_poses"], name=name)
+
+    raise ValueError(f"Unknown dataset_type: {cfg.dataset_type}")

@@ -10,7 +10,9 @@ of shape (in, out); ``nn.Linear`` stores (out, in). A NeRF is ``{"block1":
 (``w`` (G^3, in, out), the layout the port keeps, so nothing is
 transposed), a Plenoxels model ``{"grid": (R, R, R, C)}`` (the port's
 ``grid`` parameter as it is), a PlenOctree ``{"trunk1": [5 layers],
-"trunk2": [3], "head"}`` and a FastNeRF the same with ``"dir": [2]``.
+"trunk2": [3], "head"}``, a FastNeRF the same with ``"dir": [2]``, and an
+Instant NGP ``{"tables": [(2^T, F) per level], "density": [2 layers],
+"color": [2]}`` (the tables as they are).
 ``load_jax_params`` copies
 such a tree (as numpy arrays) into the port's module; ``export_jax_params``
 is its inverse, ``export_jax_grads`` gives the ``.grad``s the same way, and
@@ -31,6 +33,7 @@ from nerf_tpu_torch.models.fastnerf import BakedFastNeRF, FastNeRFModel
 from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.kilonerf import LAYERS as KILO_LAYERS
 from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
+from nerf_tpu_torch.models.ngp import NGPModel
 from nerf_tpu_torch.models.plenoctree import PlenOctreeModel
 from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
 from nerf_tpu_torch.models.siren import SirenModel
@@ -41,6 +44,7 @@ _HEADS = ("sigma", "remap", "rgb0", "rgb1")     # SIREN's and GaborNet's
 # a Gabor filter's leaves in the port's parameter order
 FILTER_LEAVES = ("omega", "phi", "mu", "gamma")
 _TRUNK = (("trunk1", 5), ("trunk2", 3))         # the skip trunk's lists
+_NGP = [("density", 0), ("density", 1), ("color", 0), ("color", 1)]
 
 
 def _trunk_paths(with_dir: bool) -> list[tuple]:
@@ -61,6 +65,8 @@ def _paths(module) -> list[tuple]:
                 + [(k,) for k in _HEADS])
     if isinstance(module, (FastNeRFModel, PlenOctreeModel)):
         return _trunk_paths(isinstance(module, FastNeRFModel))
+    if isinstance(module, NGPModel):
+        return list(_NGP)
     return [(jax_name, i) for jax_name, torch_name in _BLOCKS
             for i in range(len(module.linears(getattr(module, torch_name))))]
 
@@ -74,6 +80,8 @@ def _linears(module) -> list[nn.Linear]:
     if isinstance(module, (FastNeRFModel, PlenOctreeModel)):
         return ([*module.trunk1, *module.trunk2, module.head]
                 + (list(module.dir) if isinstance(module, FastNeRFModel) else []))
+    if isinstance(module, NGPModel):
+        return [*module.density, *module.color]
     return [lyr for _, torch_name in _BLOCKS
             for lyr in module.linears(getattr(module, torch_name))]
 
@@ -101,6 +109,8 @@ def _tree_of(module, leaf) -> dict:
     if isinstance(module, GaborModel):
         tree["filters"] = [{k: leaf(getattr(f, k)) for k in FILTER_LEAVES}
                            for f in module.filters]
+    if isinstance(module, NGPModel):
+        tree["tables"] = [leaf(t) for t in module.tables]
     return tree
 
 
@@ -137,7 +147,13 @@ def load_jax_params(module, tree: dict) -> None:
     if isinstance(module, GaborModel) and len(tree["filters"]) != len(module.filters):
         raise ValueError(f"filters: tree has {len(tree['filters'])} filters, "
                          f"module {len(module.filters)}")
+    if isinstance(module, NGPModel) and len(tree["tables"]) != len(module.tables):
+        raise ValueError(f"tables: tree has {len(tree['tables'])} levels, "
+                         f"module {len(module.tables)}")
     with torch.no_grad():
+        if isinstance(module, NGPModel):
+            for i, (src, t) in enumerate(zip(tree["tables"], module.tables)):
+                _copy_leaf(t, src, f"tables/{i}")
         if isinstance(module, GaborModel):
             for i, (src, f) in enumerate(zip(tree["filters"], module.filters)):
                 for k in FILTER_LEAVES:
@@ -182,6 +198,9 @@ def _flat_in_param_order(tree: dict) -> list[np.ndarray]:
                 for k in FILTER_LEAVES]
         paths = [("linears", i) for i in range(len(tree["linears"]))] + [
             (k,) for k in _HEADS]
+    elif "tables" in tree:
+        out += [np.asarray(t, np.float32) for t in tree["tables"]]
+        paths = list(_NGP)
     elif "trunk1" in tree:
         paths = _trunk_paths("dir" in tree)
     elif "base" in tree:

@@ -1,7 +1,6 @@
-"""Model construction by name. ``nerf``, ``siren``, ``gabor``, ``kilonerf``,
-``plenoxels``, ``fastnerf`` and ``plenoctree`` are ported; ``ngp``, the one
-other family of ``nerf_tpu.models.registry``, raises and names the ROADMAP
-row (queue 1) that will port it."""
+"""Model construction by name: every family of ``nerf_tpu.models.registry``
+(``nerf``, ``siren``, ``gabor``, ``kilonerf``, ``plenoxels``, ``fastnerf``,
+``plenoctree`` and ``ngp``)."""
 
 from __future__ import annotations
 
@@ -14,15 +13,15 @@ from nerf_tpu_torch.models.fastnerf import FastNeRFModel
 from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
+from nerf_tpu_torch.models.ngp import NGPModel
 from nerf_tpu_torch.models.plenoctree import PlenOctreeModel
 from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
 from nerf_tpu_torch.models.siren import SirenModel
 
 MODEL_REGISTRY = {"nerf": NeRFModel, "siren": SirenModel, "gabor": GaborModel,
                   "kilonerf": KiloNeRFModel, "plenoxels": PlenoxelsModel,
-                  "fastnerf": FastNeRFModel, "plenoctree": PlenOctreeModel}
-
-_NOT_YET = {"ngp": "row 13 (grid families)"}
+                  "fastnerf": FastNeRFModel, "plenoctree": PlenOctreeModel,
+                  "ngp": NGPModel}
 
 
 def create_model(model_type: str, generator: torch.Generator | None = None,
@@ -31,10 +30,6 @@ def create_model(model_type: str, generator: torch.Generator | None = None,
     take are dropped (configs carry shared knobs), as in
     ``nerf_tpu.models.registry.create_model``."""
     model_type = model_type.lower()
-    if model_type in _NOT_YET:
-        raise NotImplementedError(
-            f"model_type {model_type!r} is not ported to nerf_tpu_torch yet "
-            f"(ROADMAP.md queue 1, {_NOT_YET[model_type]})")
     if model_type not in MODEL_REGISTRY:
         raise ValueError(f"Invalid model type: {model_type}")
     cls = MODEL_REGISTRY[model_type]

@@ -7,10 +7,12 @@ blocks), optionally guided by an occupancy prior baked once at start-up
 (``--occupancy``), optionally from an MLP-free cache baked once at start-up
 (``--bake``: a FastNeRF or PlenOctree checkpoint, rendered through the
 fused grid render's factor or SH form), and renders arbitrary camera
-poses; ``serve_http`` wraps a service in a stdlib threaded HTTP server:
+poses (an LLFF scene's through NDC rays with ``cfg.ndc``, the pre-warp
+world directions as view directions); ``serve_http`` wraps a service in a
+stdlib threaded HTTP server:
 
     GET /health            -> {"status": "ok", ...}
-    GET /pose/<idx>        -> PNG of orbit pose idx
+    GET /pose/<idx>        -> PNG of orbit pose idx (LLFF: the spiral's)
     GET /render?m=<12 or 16 comma-separated floats, row-major c2w>  -> PNG
 
 Requests serialise through one lock (a render fills the card); the
@@ -31,9 +33,11 @@ import torch
 
 from nerf_tpu_torch.config import Config, parse_config_file
 from nerf_tpu_torch.data.blender import load_blender
+from nerf_tpu_torch.data.llff import load_llff
 from nerf_tpu_torch.data.poses import spherical_orbit
 from nerf_tpu_torch.data.rays import compute_rays_single
 from nerf_tpu_torch.models.registry import model_from_config
+from nerf_tpu_torch.ops.ndc import ndc_rays
 from nerf_tpu_torch.train.loop import render_settings_from_config
 from nerf_tpu_torch.train.step import fused_field_for, make_eval_render, packed_field
 from nerf_tpu_torch.utils.checkpoint import load_checkpoint, read_metadata
@@ -113,13 +117,18 @@ class RenderService:
     """
 
     def __init__(self, cfg: Config, renderer, render_params, hw, focal: float,
-                 device: torch.device):
+                 device: torch.device, ndc: bool = False,
+                 render_poses: Optional[np.ndarray] = None):
         self.cfg = cfg
         self._renderer = renderer
         self.params = render_params
         self.hw = hw
         self.focal = float(focal)
         self.device = device
+        self.ndc = ndc
+        # LLFF: the loader's forward-facing spiral (a radius-4 orbit would
+        # look away from the cameras)
+        self.render_poses = render_poses
         self._lock = threading.Lock()   # one render on the card at a time
 
     @classmethod
@@ -127,18 +136,29 @@ class RenderService:
                         occupancy: int = 0, hw: Optional[tuple] = None,
                         device: str | torch.device = "cuda",
                         log=print) -> "RenderService":
-        """``config`` is a config file path or a ``Config``; the dataset's
-        first test frame supplies H/W/focal (override with ``hw``)."""
+        """``config`` is a config file path or a ``Config``; the dataset
+        supplies H/W/focal (override with ``hw``): a Blender scene's first
+        test frame, or an LLFF scene (``load_llff``), which also gives the
+        spiral poses and the sampling interval (NDC's [0, 1] with
+        ``cfg.ndc``, else its depth bounds), set before the models are
+        built."""
         dev = resolve_device(device)
         cfg = checkpoint_config(config, checkpoint)
-        if cfg.dataset_type != "blender":
-            raise NotImplementedError(
-                f"dataset_type {cfg.dataset_type!r} is not ported to "
-                "nerf_tpu_torch yet (ROADMAP.md queue 1, row 9)")
-        images, _, focal = load_blender(
-            cfg.dataset_path, mode="test", single_image=True,
-            white_background=cfg.white_background, half_res=cfg.half_res)
-        h, w = images.shape[1:3]
+        render_poses = None
+        if cfg.dataset_type == "llff":
+            data = load_llff(cfg.dataset_path, factor=cfg.llff_factor)
+            h, w = data["hw"]
+            focal = data["focal"]
+            ndc = cfg.ndc
+            render_poses = np.asarray(data["render_poses"])
+            cfg.near, cfg.far = ((0.0, 1.0) if ndc else
+                                 (float(data["near_world"]), float(data["far_world"])))
+        else:
+            images, _, focal = load_blender(
+                cfg.dataset_path, mode="test", single_image=True,
+                white_background=cfg.white_background, half_res=cfg.half_res)
+            h, w = images.shape[1:3]
+            ndc = False
         if hw is not None:
             focal = focal * hw[1] / w   # same field of view
             h, w = hw
@@ -152,12 +172,13 @@ class RenderService:
             fine_model.load_state_dict(state["fine_params"])
             fine_model = fine_model.to(dev).eval()
         model = model.to(dev).eval()
-        settings = render_settings_from_config(cfg)
+        settings = render_settings_from_config(cfg, ndc=ndc)
         renderer, render_params = build_renderer(
             model, fine_model, cfg, settings, bake=bake, occupancy=occupancy, log=log)
         log(f"Loaded {cfg.model_type} from {checkpoint} on {dev} "
-            f"({int(h)}x{int(w)}, {cfg.compute_dtype})")
-        return cls(cfg, renderer, render_params, (int(h), int(w)), focal, dev)
+            f"({int(h)}x{int(w)}, {cfg.compute_dtype}{', NDC' if ndc else ''})")
+        return cls(cfg, renderer, render_params, (int(h), int(w)), focal, dev, ndc=ndc,
+                   render_poses=render_poses)
 
     def render_pose(self, c2w, key_idx: int = 0) -> np.ndarray:
         """Render one camera pose (c2w: (3|4, 4) world-from-camera) ->
@@ -167,16 +188,25 @@ class RenderService:
         c2w = np.asarray(c2w, np.float32)
         m[: c2w.shape[0]] = c2w
         rays_o, rays_d = compute_rays_single(h, w, self.focal, m)
-        rays_o = torch.from_numpy(rays_o).to(self.device)
-        rays_d = torch.from_numpy(rays_d).to(self.device)
+        rays_o, rays_d = torch.from_numpy(rays_o), torch.from_numpy(rays_d)
+        viewdirs = None
+        if self.ndc:
+            viewdirs = rays_d.to(self.device)
+            rays_o, rays_d = ndc_rays(h, w, self.focal, 1.0, rays_o, rays_d)
+        rays_o, rays_d = rays_o.to(self.device), rays_d.to(self.device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(request_seed(self.cfg.seed, key_idx))
         with self._lock:
-            out = self._renderer(*self.params, rays_o, rays_d, gen, hw=(h, w))
+            out = self._renderer(*self.params, rays_o, rays_d, gen, viewdirs=viewdirs,
+                                 hw=(h, w))
             img = out.rgb.reshape(h, w, 3).cpu().numpy()
         return np.clip(img, 0.0, 1.0)
 
     def orbit_pose(self, idx: int) -> np.ndarray:
+        """Pose ``idx`` of the eval path: an LLFF scene's spiral, else the
+        spherical orbit of ``num_render_poses``."""
+        if self.render_poses is not None:
+            return self.render_poses[idx % len(self.render_poses)]
         poses = spherical_orbit(self.cfg.num_render_poses)
         return poses[idx % len(poses)]
 

@@ -47,6 +47,7 @@ import torch
 from nerf_tpu_torch.config import Config
 from nerf_tpu_torch.data.pipeline import load_scene
 from nerf_tpu_torch.data.rays import compute_rays
+from nerf_tpu_torch.ops.ndc import ndc_rays
 from nerf_tpu_torch.render.renderer import RenderSettings
 from nerf_tpu_torch.utils.device import resolve_device
 
@@ -76,8 +77,7 @@ def render_settings_from_config(cfg: Config, ndc: bool = False) -> RenderSetting
 
 def check_ported(cfg: Config) -> None:
     """Raise for config options whose modules are not ported yet, naming
-    the ROADMAP.md (queue 1) row that ports them. (Other model families
-    and LLFF scenes raise where the model and the scene are built.)"""
+    the ROADMAP.md (queue 1) row that ports them."""
     rows = []
     if cfg.mesh_shape.strip() or cfg.multihost:
         rows.append("mesh_shape / multihost (row 14: parallel)")
@@ -183,8 +183,10 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
 
     log("Loading dataset...")
     scene = load_scene(cfg, device=dev)
+    # the scene's interval (LLFF: its bounds, or [0, 1] for NDC) is set
+    # before the model is built: a grid family's domain derives from it
     cfg = dataclasses.replace(cfg, near=float(scene.near), far=float(scene.far))
-    settings = dataclasses.replace(render_settings_from_config(cfg),
+    settings = dataclasses.replace(render_settings_from_config(cfg, ndc=scene.ndc),
                                    white_background=scene.white_background)
     log(f"Loaded scene '{scene.name}': {scene.pool.size} train rays, "
         f"{scene.val_images.shape[0]} val images {scene.hw[0]}x{scene.hw[1]}")
@@ -297,11 +299,15 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
         c2w = np.eye(4, dtype=np.float32)
         c2w[: scene.val_c2w.shape[1]] = scene.val_c2w[idx]
         rays_o, rays_d, _ = compute_rays(val_img[None], c2w[None], scene.focal)
+        rays_o, rays_d = torch.from_numpy(rays_o[0]), torch.from_numpy(rays_d[0])
+        viewdirs = None
+        if scene.ndc:
+            viewdirs = rays_d.to(dev)
+            rays_o, rays_d = ndc_rays(*scene.hw, scene.focal, 1.0, rays_o, rays_d)
         gen = torch.Generator(device=dev)
         gen.manual_seed(step_seed(cfg.seed, step, VALIDATE))
-        out = eval_render(state.params, state.fine_params,
-                          torch.from_numpy(rays_o[0]).to(dev),
-                          torch.from_numpy(rays_d[0]).to(dev), gen, hw=scene.hw)
+        out = eval_render(state.params, state.fine_params, rays_o.to(dev),
+                          rays_d.to(dev), gen, viewdirs=viewdirs, hw=scene.hw)
         pred = out.rgb.reshape(*scene.hw, 3).cpu().numpy()
         val_psnr = float(mse_to_psnr(float(np.mean((pred - val_img) ** 2))))
         logger.log_validation(step, val_psnr, pred)

@@ -25,8 +25,9 @@ through its module (its ``apply`` reaches the grid-interpolation kernel and
 the scatter-add of its backward itself) and renders full images through
 the eval-only fused grid render (``ops/cuda/fused_grid_render.py``), which
 training routes skip, as nerf_tpu's ``for_train`` does; so does a baked
-FastNeRF cache (its factor form). A live FastNeRF or PlenOctree model
-takes the module route (nerf_tpu has no kernel for either). With an occupancy
+FastNeRF cache (its factor form). A live FastNeRF, PlenOctree or Instant
+NGP model takes the module route (nerf_tpu has no kernel for any of them;
+NGP's table gradient is the scatter-add kernel's). With an occupancy
 grid (the ``occ_grid`` step argument) the coarse samples come from the
 prior (``ops/occupancy.py``); a ``regularizer`` (the grid families' TV
 prior, ``train/loop.py::make_regularizer``) adds to the loss; with
@@ -46,6 +47,7 @@ from nerf_tpu_torch.models.fastnerf import BakedFastNeRF, FastNeRFModel
 from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
+from nerf_tpu_torch.models.ngp import NGPModel
 from nerf_tpu_torch.models.plenoctree import PlenOctreeModel
 from nerf_tpu_torch.models.plenoxels import PlenoxelsModel, PlenoxelsPack
 from nerf_tpu_torch.models.siren import SirenModel
@@ -83,7 +85,7 @@ _FUSED = {NeRFModel: FusedNerfRender, SirenModel: FusedSirenRender,
 # no field kernel in nerf_tpu for these; the caches (a Plenoxels model, a
 # baked FastNeRF) render through the eval-only fused grid render
 _GRID_CACHES = (PlenoxelsModel, BakedFastNeRF)
-_MODULE_FIELDS = _GRID_CACHES + (PlenoxelsPack, FastNeRFModel, PlenOctreeModel)
+_MODULE_FIELDS = _GRID_CACHES + (PlenoxelsPack, FastNeRFModel, PlenOctreeModel, NGPModel)
 
 
 def fused_render_for(model, settings: RenderSettings) -> FusedRender:
@@ -144,7 +146,7 @@ def fused_field_for(model):
     where they cover the shape (hidden 256; a GaborNet of 8 stages);
     otherwise the module, as on the CPU and wherever nerf_tpu takes no field
     kernel (a Plenoxels model or a baked FastNeRF cache, whose ``apply``
-    reaches the grid kernel; a live FastNeRF or PlenOctree model).
+    reaches the grid kernel; a live FastNeRF, PlenOctree or NGP model).
     Raises ``NotImplementedError`` on the card where nerf_tpu would take a
     field kernel at a shape the port's do not cover (naming its row of
     PERF.md's table: any of the three at hidden 512, a GaborNet of another
@@ -182,7 +184,7 @@ def _kernel_route(model, settings: RenderSettings, use_kernels: bool,
     takes one (``_tpu_kernel_width``; for a Plenoxels model or a baked
     FastNeRF cache the eval-only fused grid render, which a training route
     skips), else ``fused_field_for`` as the field factory (the field route:
-    the module for a live FastNeRF or PlenOctree model); raises for a
+    the module for a live FastNeRF, PlenOctree or NGP model); raises for a
     family the port does not have; ``(None, None)`` for the module path."""
     if not use_kernels:
         return None, None
@@ -192,7 +194,7 @@ def _kernel_route(model, settings: RenderSettings, use_kernels: bool,
         if fr is not None and not (for_train and fr.eval_only):
             return fr, None
         return None, fused_field_for
-    if isinstance(model, (FastNeRFModel, PlenOctreeModel)):
+    if isinstance(model, (FastNeRFModel, PlenOctreeModel, NGPModel)):
         return None, fused_field_for
     if not isinstance(model, (NeRFModel, SirenModel, GaborModel, KiloNeRFModel)):
         raise NotImplementedError(

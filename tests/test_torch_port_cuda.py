@@ -2072,3 +2072,168 @@ def test_plenoxels_train_step_and_eval_on_card_match_cpu(dev):
     cpu_again = make_eval_render(st_cpu, settings)(st_cpu, None, o, d, hw=(16, 8))
     torch.testing.assert_close(outs[1].rgb.cpu(), cpu_again.rgb, atol=1e-5, rtol=0)
     torch.testing.assert_close(outs[1].acc.cpu(), cpu_again.acc, atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------- LLFF / NDC and NGP
+
+
+def _ndc_inputs(num_rays, num_samples, dev, seed=0):
+    """fern.txt's kernel inputs: world rays of seeded forward-facing cameras
+    (504 x 378 pixels, focal 407.6, centres within 0.3 of the origin looking
+    down -z), warped to NDC; their world directions as view directions; t
+    stratified in [0, 1], every 4th ray's last sample at exactly 1."""
+    from nerf_tpu_torch.ops.ndc import ndc_rays
+
+    rng = np.random.default_rng(seed)
+    o = np.concatenate([rng.uniform(-0.3, 0.3, (num_rays, 2)), np.zeros((num_rays, 1))], -1)
+    u, v = rng.uniform(0, 504, num_rays), rng.uniform(0, 378, num_rays)
+    d = np.stack([u - 252.0, -(v - 189.0), -np.full(num_rays, 407.6)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (torch.from_numpy(x.astype(np.float32)) for x in (o, d))
+    ro, rd = ndc_rays(378, 504, 407.6, 1.0, o, d)
+    t = (np.arange(num_samples) + rng.uniform(size=(num_rays, num_samples))) / num_samples
+    t[::4, -1] = 1.0
+    return tuple(x.to(dev) for x in (ro, rd, d, torch.from_numpy(t.astype(np.float32))))
+
+
+@pytest.mark.parametrize("white_bg", [False, True])
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1024, 128), (257, 64)])
+def test_ndc_render_and_train_kernels_match_plain(dev, cdt, shape, white_bg):
+    """Rows 3 and 5 in fern.txt's mode: normalize off (NDC rays passed
+    through), world view directions, t in [0, 1]; the forward render
+    within TOL of its plain version (depth 10 x), the train pass's loss,
+    rgb and acc within TOL and each gradient within GRAD_TOL of its max,
+    with a black or a white background."""
+    model = NeRFModel(compute_dtype=cdt, generator=torch.Generator().manual_seed(20)).to(dev)
+    fr = FusedNerfRender(model, 0.0, 1.0, normalize=False)
+    ro, rd, vd, t = _ndc_inputs(*shape, dev, seed=shape[1])
+    tgt = torch.rand(shape[0], 3, generator=torch.Generator().manual_seed(3)).to(dev)
+    with torch.no_grad():
+        packed = fr.pack(model)
+        assert fr.affine(ro, rd) == (ro, rd)
+        got = fr(packed, ro, rd, vd, t)
+        ref = fused_render_plain(packed, ro, rd, vd, t, 10, 4)
+        loss, rgb, acc, _, grads = fr._train(packed, ro, rd, vd, t, tgt, white_bg)
+        ref_t = fused_train_plain(packed, ro, rd, vd, t, tgt, white_bg, 10, 4)
+        torch.cuda.synchronize()
+    tol = TOL[cdt]
+    for i, k in enumerate(("rgb", "acc", "depth", "weights")):
+        assert torch.isfinite(got[k]).all()
+        torch.testing.assert_close(got[k], ref[i], atol=tol * (10 if k == "depth" else 1),
+                                   rtol=0)
+    torch.testing.assert_close(loss, ref_t[0], rtol=tol, atol=0)
+    torch.testing.assert_close(rgb, ref_t[1], atol=tol, rtol=0)
+    torch.testing.assert_close(acc, ref_t[2], atol=tol, rtol=0)
+    g, r = grad_views(*grads, 256), grad_views(*ref_t[4], 256)
+    floor = 1e-2 * max(float(v.abs().max()) for v in r.values())
+    for k in r:
+        assert torch.isfinite(g[k]).all(), k
+        err = float((g[k] - r[k]).abs().max()) / max(float(r[k].abs().max()), floor)
+        assert err <= GRAD_TOL[cdt], (k, err)
+
+
+def test_ngp_hash_rows_on_card_equal_cpu(dev):
+    """Every corner row of 65,536 points at all 16 levels (2^19 tables: 5
+    direct, 11 hashed) equal on the card and on the CPU, and the encoding
+    within 1e-10 (a few ulps of the +-1e-4 features)."""
+    from nerf_tpu_torch.models.ngp import NGPModel
+
+    m = NGPModel(domain=(-2.75, -1.25), generator=torch.Generator().manual_seed(0))
+    p = torch.rand(65536, 3, generator=torch.Generator().manual_seed(1)) * 1.6 - 2.8
+    cpu = torch.stack([r for r, _ in m._cells(p)])
+    card = torch.stack([r for r, _ in m._cells(p.to(dev))])
+    assert torch.equal(cpu, card.cpu())
+    with torch.no_grad():
+        enc_cpu = m.encode(p)
+        enc_card = m.to(dev).encode(p.to(dev)).cpu()
+    torch.testing.assert_close(enc_card, enc_cpu, atol=1e-10, rtol=0)
+
+
+def _write_scenes(root, kind):
+    """A small scene written with the port's PNG writer: ``llff`` (12
+    forward-facing 32 x 40 views and poses_bounds.npy) or ``blender`` (one
+    24 x 24 frame a split)."""
+    import json
+    import os
+
+    from nerf_tpu_torch.utils.png import write_png
+
+    rng = np.random.default_rng(4)
+    os.makedirs(root, exist_ok=True)
+    if kind == "llff":
+        os.makedirs(os.path.join(root, "images"))
+        rows = []
+        for i in range(12):
+            img = (rng.uniform(size=(32, 40, 3)) * 64 + 96).astype(np.uint8)
+            img[8:24, 12:28] = (200, 60, 40)
+            write_png(os.path.join(root, "images", f"img_{i:03d}.png"), img)
+            t = np.array([*rng.uniform(-0.4, 0.4, 2), 4.0])
+            m = np.stack([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0], t], 1)
+            rows.append(np.concatenate([np.concatenate([m, [[32], [40], [35.0]]], 1)
+                                        .reshape(-1), [2.5, 5.5]]))
+        np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows))
+        return root
+    for split, theta in (("train", 0.3), ("val", 1.9), ("test", 3.5)):
+        os.makedirs(os.path.join(root, split))
+        img = np.zeros((24, 24, 4), np.uint8)
+        img[6:18, 6:18] = (220, 80, 50, 255)
+        write_png(os.path.join(root, split, "r_0.png"), img)
+        c, s = np.cos(theta), np.sin(theta)
+        c2w = [[c, 0.0, s, 4.0 * s], [0.0, 1.0, 0.0, 0.0], [-s, 0.0, c, 4.0 * c],
+               [0.0, 0.0, 0.0, 1.0]]
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.69, "frames": [
+                {"file_path": f"./{split}/r_0", "transform_matrix": c2w}]}, f)
+    return root
+
+
+def _losses(log_dir):
+    import os
+
+    out = {}
+    (run,) = os.listdir(log_dir)
+    with open(os.path.join(log_dir, run, "train.log")) as f:
+        for line in f:
+            if line.startswith("scalar loss "):
+                _, _, step, value = line.split()
+                out[int(step)] = float(value)
+    return out
+
+
+@pytest.mark.parametrize("config", ["fern.txt", "ngp_synthetic.txt"])
+def test_short_fit_resumes_bit_for_bit(dev, config, tmp_path):
+    """fern.txt (LLFF, NDC, bf16 kernels; 2 train launches a step) and
+    ngp_synthetic.txt (its occupancy prior rebaked at the checkpoint's
+    step; one scatter-add launch a step) trained 6 iterations on small
+    scenes with a save at 3; the run resumed from it repeats the first
+    run's mse at iterations 4 and 5 bit for bit."""
+    import dataclasses
+    import os
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.ops.cuda.scatter_add import ScatterKernel
+    from nerf_tpu_torch.train.loop import fit
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    llff = config == "fern.txt"
+    scene = _write_scenes(str(tmp_path / "scene"), "llff" if llff else "blender")
+    cfg = dataclasses.replace(
+        parse_config_file(os.path.join(repo, "configs", config)), dataset_path=scene,
+        num_iters=6, save_interval=3, log_interval=1, val_interval=1000,
+        save_path=str(tmp_path / "models"), log_dir=str(tmp_path / "logs"),
+        **({"llff_factor": 1} if llff else {"num_random_rays": 256, "num_samples": 16,
+                                            "occupancy_interval": 3}))
+    before = (FusedNerfRender.train_launches, ScatterKernel.launches)
+    fit(cfg, device=dev, log=lambda *a: None)
+    launched = (FusedNerfRender.train_launches - before[0], ScatterKernel.launches - before[1])
+    assert launched == ((12, 0) if llff else (0, 6))
+    first = _losses(cfg.log_dir)
+    cfg2 = dataclasses.replace(cfg, log_dir=str(tmp_path / "logs2"),
+                               save_path=str(tmp_path / "models2"))
+    fit(cfg2, resume_path=os.path.join(cfg.save_path, f"{cfg.model_type}_model_000003"),
+        device=dev, log=lambda *a: None)
+    again = _losses(cfg2.log_dir)
+    assert sorted(first) == list(range(6)) and sorted(again) == [3, 4, 5]
+    assert all(np.isfinite(list(first.values())))
+    assert again[3] == first[4] and again[4] == first[5]

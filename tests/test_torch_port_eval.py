@@ -1,8 +1,8 @@
 """The port's eval CLI (``nerf_tpu_torch.cli.eval_cli``) against nerf_tpu's
 (``nerf_tpu.cli.eval_cli``, the pure-JAX path) on the CPU: orbit frames,
 ``--metrics``, ``--video`` and ``--bake`` from checkpoints of the same
-parameters, ``ssim`` against nerf_tpu's, and the refusals (LLFF, a card
-that is not there)."""
+parameters, ``ssim`` against nerf_tpu's, and the refusals (an LLFF JPEG
+frame, a card that is not there)."""
 
 from __future__ import annotations
 
@@ -191,13 +191,20 @@ def test_bake_matches_nerf_tpu_and_nerf_refuses(root, nerf):
 
 
 def test_llff_and_missing_card_raise(root, nerf):
-    """(f) An LLFF config raises NotImplementedError naming ROADMAP.md's
-    row 9; the default device (cuda) without a card raises RuntimeError."""
+    """(f) An LLFF scene with a JPEG frame raises NotImplementedError saying
+    that the port decodes PNG only; the default device (cuda) without a
+    card raises RuntimeError."""
+    from tests.synthetic import make_synthetic_llff_scene
+
+    scene = make_synthetic_llff_scene(os.path.join(root, "llff_jpeg"), h=8, w=8,
+                                      num_images=2)
+    first = os.path.join(scene, "images", "img_000.png")
+    os.rename(first, first[:-4] + ".jpg")
     llff = os.path.join(root, "llff.txt")
     with open(nerf["port_cfg"]) as f, open(llff, "w") as g:
-        g.write(f.read() + "dataset_type = llff\n")
+        g.write(f.read() + f"dataset_type = llff\ndataset_path = {scene}\nllff_factor = 1\n")
     base = ["--checkpoint", nerf["port_ckpt"], "--output", os.path.join(root, "raised")]
-    with pytest.raises(NotImplementedError, match="row 9"):
+    with pytest.raises(NotImplementedError, match="PNG frames only"):
         eval_main(["--config", llff, "--device", "cpu"] + base, **QUIET)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -158,17 +158,16 @@ def test_model_from_config():
     assert m.cdt == torch.bfloat16
 
 
-@pytest.mark.parametrize("family", ["ngp"])
-def test_unported_families_raise(family):
+def test_registry_has_every_nerf_tpu_family():
+    """Every family of nerf_tpu's registry builds by its name in the port."""
     from nerf_tpu.models.registry import MODEL_REGISTRY
+    from nerf_tpu_torch.models.registry import MODEL_REGISTRY as PORT_REGISTRY
 
-    assert family in MODEL_REGISTRY
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model(family)
+    assert set(PORT_REGISTRY) == set(MODEL_REGISTRY)
 
 
 @pytest.mark.parametrize("family", ["nerf", "siren", "gabor", "kilonerf", "plenoxels",
-                                    "fastnerf", "plenoctree"])
+                                    "fastnerf", "plenoctree", "ngp"])
 def test_ported_families_build_from_a_config(family):
     """Each ported family builds from a config by name (the JAX registry's
     names), knobs it does not take dropped, and renders a batch."""

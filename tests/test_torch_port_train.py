@@ -353,8 +353,7 @@ def test_scan_steps_equal_single_steps(scene_root):
 
 
 @pytest.mark.parametrize("field,value,row", [
-    ("multihost", True, "row 14"), ("mesh_shape", "2,1", "row 14"),
-    ("dataset_type", "llff", "row 9"), ("model_type", "ngp", "row 13")])
+    ("multihost", True, "row 14"), ("mesh_shape", "2,1", "row 14")])
 def test_fit_refuses_unported_options(scene_root, field, value, row):
     cfg = dataclasses.replace(_cfg(scene_root), **{field: value})
     with pytest.raises(NotImplementedError, match=row):
