@@ -18,7 +18,8 @@ models, the occupancy prior (``--occupancy``) and the baked cache
 frame is the image the service gives for the same pose and key. ``--video``
 writes a looping GIF (``utils/gif.py``; another extension writes the
 ``.gif`` beside it). ``--device`` defaults to ``cuda`` and raises without a
-card; ``cpu`` runs the kernels' plain versions.
+card; ``cpu`` runs the kernels' plain versions. On a host with several
+cards each frame's tiles split over all of them (``_eval_devices``).
 """
 
 from __future__ import annotations
@@ -27,8 +28,11 @@ import argparse
 import json
 import os
 import time
+from typing import Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from nerf_tpu_torch.data.blender import load_blender
 from nerf_tpu_torch.data.llff import load_llff
@@ -37,6 +41,16 @@ from nerf_tpu_torch.serve import RenderService, checkpoint_config
 from nerf_tpu_torch.utils.gif import write_gif
 from nerf_tpu_torch.utils.metrics import mse_to_psnr, ssim
 from nerf_tpu_torch.utils.png import write_png
+
+
+def _eval_devices(device: str) -> Optional[list]:
+    """Every visible card for split frame renders on a host with several
+    (``make_eval_render``'s ``devices``); None on one card, on the CPU and
+    under a process group, as nerf_tpu's ``_eval_mesh``."""
+    if (torch.device(device).type != "cuda" or dist.is_initialized()
+            or torch.cuda.device_count() < 2):
+        return None
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def _to_u8(img: np.ndarray) -> np.ndarray:
@@ -116,7 +130,7 @@ def main(argv=None, log=print) -> None:
     try:
         svc = RenderService.from_checkpoint(cfg, args.checkpoint, bake=args.bake,
                                             occupancy=args.occupancy, device=args.device,
-                                            log=log)
+                                            log=log, devices=_eval_devices(args.device))
     except ValueError as e:
         if not str(e).startswith("bake:"):
             raise

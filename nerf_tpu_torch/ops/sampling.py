@@ -16,20 +16,21 @@ import torch
 def stratified_sample(near: float, far: float, num_samples: int, num_rays: int,
                       jitter_mode: str = "per_ray", perturb: bool = True,
                       generator: torch.Generator | None = None,
-                      device: torch.device | str = "cpu") -> torch.Tensor:
+                      device: torch.device | str = "cpu",
+                      u: torch.Tensor | None = None) -> torch.Tensor:
     """Stratified t-samples, (num_rays, num_samples). ``shared`` draws one
-    jitter vector for all rays; ``perturb=False`` takes bin midpoints."""
+    jitter vector for all rays; ``perturb=False`` takes bin midpoints. ``u``
+    gives the jitter ((num_rays or 1, num_samples) in [0, 1)) instead of a
+    draw from ``generator``."""
     edges = torch.linspace(near, far, num_samples + 1, dtype=torch.float32,
                            device=device)
     lower = edges[:-1]
     width = edges[1:] - edges[:-1]
     if not perturb:
         u = torch.full((1, num_samples), 0.5, dtype=torch.float32, device=device)
-    elif jitter_mode == "shared":
-        u = torch.rand((1, num_samples), generator=generator, device=device)
-    else:
-        u = torch.rand((num_rays, num_samples), generator=generator,
-                       device=device)
+    elif u is None:
+        rows = 1 if jitter_mode == "shared" else num_rays
+        u = torch.rand((rows, num_samples), generator=generator, device=device)
     t = lower[None, :] + width[None, :] * u
     return t.expand(num_rays, num_samples).contiguous()
 

@@ -9,7 +9,11 @@ family (one kernel on the card, its plain version on the CPU) or through the
 unfused path: a field (the model's forward, or a field of
 ``train/step.py::fused_field_for`` such as ``KiloNeRFField``) + ``composite``.
 ``render_image`` bounds memory by a Python loop over ``chunk_size`` ray
-tiles. With an ``occupancy`` prior (``ops/occupancy.py``) the coarse pass
+tiles. A render's random numbers are its ``Uniforms``, drawn from the
+generator before the passes in the order the passes take them, or given:
+a rank of a data-parallel step renders its rows of the global batch with
+its rows of the global batch's draws (``Uniforms.rows``), so it takes the
+samples the one-rank step takes for those rays. With an ``occupancy`` prior (``ops/occupancy.py``) the coarse pass
 draws its samples from the prior's inverse CDF instead of uniform
 stratification; everything after it is unchanged.
 """
@@ -77,24 +81,69 @@ def _render_pass(params, rays_o, rays_d, viewdirs, t, settings: RenderSettings,
                      white_background=settings.white_background)
 
 
-def _coarse_t(settings: RenderSettings, rays_o, rays_d,
-              generator: Optional[torch.Generator],
+class Uniforms(NamedTuple):
+    """The uniform draws of one render of R rays, in [0, 1): the coarse
+    pass's jitter ((R, S); (1, S) for ``shared`` jitter) and the fine pass's
+    inverse-CDF draws ((R, Nf); (R, S + Nf) for ``resample``). None where
+    the render draws nothing (``perturb`` off, no fine pass)."""
+
+    coarse: Optional[torch.Tensor]
+    fine: Optional[torch.Tensor]
+
+    def rows(self, lo: int, hi: int) -> "Uniforms":
+        """The draws of rays ``lo:hi`` (a shared jitter row is every ray's)."""
+        return Uniforms(*(u if u is None or u.shape[0] == 1 else u[lo:hi]
+                          for u in self))
+
+    def to(self, device) -> "Uniforms":
+        return Uniforms(*(u if u is None else u.to(device) for u in self))
+
+
+def draw_uniforms(settings: RenderSettings, num_rays: int,
+                  generator: Optional[torch.Generator], device,
+                  occupancy: bool = False) -> Uniforms:
+    """The ``Uniforms`` of a render of ``num_rays`` rays on ``device`` (with
+    an occupancy prior when ``occupancy``), drawn from ``generator``."""
+    if not settings.perturb:
+        return Uniforms(None, None)
+    s = settings.num_samples
+    shared = settings.jitter_mode == "shared" and not occupancy
+    coarse = torch.rand((1 if shared else num_rays, s), generator=generator,
+                        device=device)
+    fine = None
+    if settings.num_fine_samples > 0:
+        nf = settings.num_fine_samples + (s if settings.fine_sampling == "resample"
+                                          else 0)
+        fine = torch.rand((num_rays, nf), generator=generator, device=device)
+    return Uniforms(coarse, fine)
+
+
+def _uniforms(settings: RenderSettings, rays_o, generator, occupancy,
+              uniforms: Optional[Uniforms]) -> Uniforms:
+    if uniforms is not None:
+        return uniforms
+    return draw_uniforms(settings, rays_o.shape[0], generator, rays_o.device,
+                         occupancy is not None)
+
+
+def _coarse_t(settings: RenderSettings, rays_o, rays_d, u: Optional[torch.Tensor],
               occupancy: Optional[OccupancyGrid]) -> torch.Tensor:
-    """The coarse pass's t: stratified, or drawn from the occupancy prior."""
+    """The coarse pass's t: stratified, or drawn from the occupancy prior,
+    with the jitter ``u``."""
     if occupancy is not None:
         return occupancy_t(occupancy, rays_o, rays_d, settings.near, settings.far,
                            settings.num_samples,
                            normalize=settings.normalize_positions,
-                           perturb=settings.perturb, generator=generator)
+                           perturb=settings.perturb, u=u)
     return stratified_sample(settings.near, settings.far, settings.num_samples,
                              rays_o.shape[0], jitter_mode=settings.jitter_mode,
-                             perturb=settings.perturb, generator=generator,
-                             device=rays_o.device)
+                             perturb=settings.perturb, device=rays_o.device, u=u)
 
 
 def _fine_t(settings: RenderSettings, t, weights,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """The fine pass's t from the coarse weights (no gradient)."""
+            u: Optional[torch.Tensor]) -> torch.Tensor:
+    """The fine pass's t from the coarse weights (no gradient) and the draws
+    ``u``."""
     t_mid = 0.5 * (t[..., 1:] + t[..., :-1])
     w_mid = weights[..., 1:-1].detach()
     if settings.fine_sampling == "resample":
@@ -102,8 +151,7 @@ def _fine_t(settings: RenderSettings, t, weights,
         num_rays = t.shape[0]
         base = torch.arange(mf, dtype=torch.float32, device=t.device)[None, :]
         if settings.perturb:
-            jit = torch.rand((num_rays, mf), generator=generator,
-                             device=t.device) * (1.0 - 1e-5)
+            jit = u * (1.0 - 1e-5)
         else:
             jit = torch.full((1, mf), 0.5, dtype=torch.float32, device=t.device)
         u = ((base + jit) / mf).expand(num_rays, mf)
@@ -112,7 +160,8 @@ def _fine_t(settings: RenderSettings, t, weights,
         raise ValueError(f"fine_sampling must be 'merge' or 'resample', got "
                          f"{settings.fine_sampling!r}")
     t_fine = sample_pdf(t_mid, w_mid, settings.num_fine_samples,
-                        deterministic=not settings.perturb, generator=generator)
+                        deterministic=not settings.perturb,
+                        u=u * (1.0 - 1e-5) if settings.perturb else None)
     return merge_samples(t, t_fine.detach())
 
 
@@ -121,22 +170,24 @@ def render_rays(params, rays_o: torch.Tensor, rays_d: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 fine_params=None, viewdirs: Optional[torch.Tensor] = None,
                 fused_render=None,
-                occupancy: Optional[OccupancyGrid] = None) -> RenderOutput:
+                occupancy: Optional[OccupancyGrid] = None,
+                uniforms: Optional[Uniforms] = None) -> RenderOutput:
     """Render a batch of rays (R, 3). ``params`` / ``fine_params`` are
     fields (models, or callables ``(points, dirs) -> (rgb, sigma)``) or what
     ``fused_render`` takes. ``generator`` (on the rays' device) drives the
-    stratified (or occupancy) jitter and the inverse-CDF draws;
-    ``fine_params`` defaults to ``params``; ``viewdirs`` defaults to
-    normalised ``rays_d``."""
+    stratified (or occupancy) jitter and the inverse-CDF draws, unless
+    ``uniforms`` gives them; ``fine_params`` defaults to ``params``;
+    ``viewdirs`` defaults to normalised ``rays_d``."""
     if viewdirs is None:
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    t = _coarse_t(settings, rays_o, rays_d, generator, occupancy)
+    u = _uniforms(settings, rays_o, generator, occupancy, uniforms)
+    t = _coarse_t(settings, rays_o, rays_d, u.coarse, occupancy)
     coarse = _render_pass(params, rays_o, rays_d, viewdirs, t, settings,
                           fused_render)
     if settings.num_fine_samples <= 0:
         return RenderOutput(rgb=coarse.rgb, depth=coarse.depth, acc=coarse.acc,
                             disparity=coarse.disparity, rgb_coarse=coarse.rgb)
-    t_all = _fine_t(settings, t, coarse.weights, generator)
+    t_all = _fine_t(settings, t, coarse.weights, u.fine)
     fine = _render_pass(fine_params if fine_params is not None else params,
                         rays_o, rays_d, viewdirs, t_all, settings, fused_render)
     return RenderOutput(rgb=fine.rgb, depth=fine.depth, acc=fine.acc,
@@ -148,7 +199,8 @@ def render_rays_train(fused_render, params, rays_o: torch.Tensor,
                       target: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
                       fine_params=None, viewdirs: Optional[torch.Tensor] = None,
-                      occupancy: Optional[OccupancyGrid] = None
+                      occupancy: Optional[OccupancyGrid] = None,
+                      uniforms: Optional[Uniforms] = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """The training loss through the fused train pass(es), as
     ``nerf_tpu.render.renderer.render_rays_train``: ``(loss, mse)`` with
@@ -156,15 +208,16 @@ def render_rays_train(fused_render, params, rays_o: torch.Tensor,
     mse). Each pass is one train-kernel launch on the card (forward, MSE
     and backward together); ``loss.backward()`` hands the parameters the
     gradients that pass computed. The fine samples come from the coarse
-    pass's weights, which carry no gradient."""
+    pass's weights, which carry no gradient. The draws are ``render_rays``'s."""
     if viewdirs is None:
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    t = _coarse_t(settings, rays_o, rays_d, generator, occupancy)
+    u = _uniforms(settings, rays_o, generator, occupancy, uniforms)
+    t = _coarse_t(settings, rays_o, rays_d, u.coarse, occupancy)
     loss_c, aux_c = fused_render.train(params, rays_o, rays_d, viewdirs, t,
                                        target, settings.white_background)
     if settings.num_fine_samples <= 0:
         return loss_c, loss_c
-    t_all = _fine_t(settings, t, aux_c["weights"], generator)
+    t_all = _fine_t(settings, t, aux_c["weights"], u.fine)
     loss_f, _ = fused_render.train(
         fine_params if fine_params is not None else params, rays_o, rays_d,
         viewdirs, t_all, target, settings.white_background)

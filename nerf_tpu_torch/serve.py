@@ -46,7 +46,7 @@ from nerf_tpu_torch.utils.png import encode_png
 
 
 def build_renderer(model, fine_model, cfg: Config, settings, bake: int = 0,
-                   occupancy: int = 0, log=print):
+                   occupancy: int = 0, log=print, devices: Optional[list] = None):
     """The renderer behind ``RenderService``, as nerf_tpu's
     ``build_renderer``: ``(renderer, render_params)``, called as
     ``renderer(*render_params, rays_o, rays_d, generator, viewdirs=...)``.
@@ -59,7 +59,8 @@ def build_renderer(model, fine_model, cfg: Config, settings, bake: int = 0,
     one of a hierarchical config) is baked into its R^3 cache, which then
     renders both passes: a FastNeRF into a ``BakedFastNeRF``, a PlenOctree
     into a Plenoxels model whose render-time copy is made here, once; any
-    other family raises ``ValueError``."""
+    other family raises ``ValueError``. ``devices`` splits each image's
+    tiles over those devices (``make_eval_render``)."""
     src = fine_model if cfg.num_fine_samples > 0 and fine_model is not None else model
     if bake and not hasattr(src, "bake"):
         raise ValueError(f"bake: model '{cfg.model_type}' has no baked cache "
@@ -81,12 +82,14 @@ def build_renderer(model, fine_model, cfg: Config, settings, bake: int = 0,
                                 device=next(src.parameters()).device),
             domain=dom)
     if not bake:
-        renderer = make_eval_render(model, settings, fused=cfg.use_pallas, occupancy=occ)
+        renderer = make_eval_render(model, settings, fused=cfg.use_pallas, occupancy=occ,
+                                    devices=devices)
         return renderer, (model, fine_model)
     log(f"Baking {cfg.model_type} field into a {bake}^3 cache...")
     baked = src.bake(grid_res=bake)
     params = baked.precompute() if hasattr(baked, "precompute") else baked
-    renderer = make_eval_render(baked, settings, fused=cfg.use_pallas, occupancy=occ)
+    renderer = make_eval_render(baked, settings, fused=cfg.use_pallas, occupancy=occ,
+                                devices=devices)
     return renderer, (params, None)
 
 
@@ -135,13 +138,14 @@ class RenderService:
     def from_checkpoint(cls, config, checkpoint: str, bake: int = 0,
                         occupancy: int = 0, hw: Optional[tuple] = None,
                         device: str | torch.device = "cuda",
-                        log=print) -> "RenderService":
+                        log=print, devices: Optional[list] = None) -> "RenderService":
         """``config`` is a config file path or a ``Config``; the dataset
         supplies H/W/focal (override with ``hw``): a Blender scene's first
         test frame, or an LLFF scene (``load_llff``), which also gives the
         spiral poses and the sampling interval (NDC's [0, 1] with
         ``cfg.ndc``, else its depth bounds), set before the models are
-        built."""
+        built. ``devices`` splits each image's tiles over them, the models
+        on ``device`` and a replica on each other device."""
         dev = resolve_device(device)
         cfg = checkpoint_config(config, checkpoint)
         render_poses = None
@@ -174,7 +178,8 @@ class RenderService:
         model = model.to(dev).eval()
         settings = render_settings_from_config(cfg, ndc=ndc)
         renderer, render_params = build_renderer(
-            model, fine_model, cfg, settings, bake=bake, occupancy=occupancy, log=log)
+            model, fine_model, cfg, settings, bake=bake, occupancy=occupancy, log=log,
+            devices=devices)
         log(f"Loaded {cfg.model_type} from {checkpoint} on {dev} "
             f"({int(h)}x{int(w)}, {cfg.compute_dtype}{', NDC' if ndc else ''})")
         return cls(cfg, renderer, render_params, (int(h), int(w)), focal, dev, ndc=ndc,

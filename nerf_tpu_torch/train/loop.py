@@ -1,4 +1,4 @@
-"""The training loop, as ``nerf_tpu.train.loop.fit`` on one device.
+"""The training loop, as ``nerf_tpu.train.loop.fit``.
 
 Same observable behaviour: seeding, the config summary, interval-driven
 logging, checkpointing and validation under the same conditions, resume,
@@ -23,7 +23,8 @@ counter after a resume, so a run resumed from a checkpoint taken at a
 rebake repeats the first run bit for bit (nerf_tpu's loop keys them off its
 counter and rebakes once more after a resume's first step). With
 ``debug_nans`` a non-finite loss or gradient raises ``FloatingPointError``
-naming the step.
+naming the step. ``multihost`` and ``mesh_shape`` train over several ranks
+(``fit``'s docstring; ``parallel/``).
 
 Grid families (Plenoxels): ``tv_lambda`` / ``tv_sh_lambda`` add the total-
 variation prior to the loss (``make_regularizer``), and ``upsample_steps``
@@ -43,6 +44,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nerf_tpu_torch.config import Config
 from nerf_tpu_torch.data.pipeline import load_scene
@@ -50,6 +52,10 @@ from nerf_tpu_torch.data.rays import compute_rays
 from nerf_tpu_torch.ops.ndc import ndc_rays
 from nerf_tpu_torch.render.renderer import RenderSettings
 from nerf_tpu_torch.utils.device import resolve_device
+
+
+def _quiet(*_) -> None:
+    """The console of a rank that is not the primary."""
 
 
 def resolve_eval_chunk(cfg: Config) -> int:
@@ -77,14 +83,9 @@ def render_settings_from_config(cfg: Config, ndc: bool = False) -> RenderSetting
 
 def check_ported(cfg: Config) -> None:
     """Raise for config options whose modules are not ported yet, naming
-    the ROADMAP.md (queue 1) row that ports them."""
-    rows = []
-    if cfg.mesh_shape.strip() or cfg.multihost:
-        rows.append("mesh_shape / multihost (row 14: parallel)")
-    if rows:
-        raise NotImplementedError(
-            "not ported to nerf_tpu_torch yet (ROADMAP.md queue 1): "
-            + "; ".join(rows))
+    the ROADMAP.md (queue 1) row that ports them. Since ``mesh_shape`` and
+    ``multihost`` (row 14) every option that ``fit`` reads is ported, so
+    nothing raises."""
 
 
 def make_regularizer(cfg: Config, model):
@@ -147,7 +148,18 @@ def print_config_summary(cfg: Config, device: torch.device, log=print) -> None:
 def fit(cfg: Config, resume_path: Optional[str] = None,
         max_steps: Optional[int] = None, device: str | torch.device = "cuda",
         log=print):
-    """Train per the config on ``device``; returns the final TrainState."""
+    """Train per the config on ``device``; returns the final TrainState.
+
+    With ``multihost`` or a ``mesh_shape``, ``fit`` joins the process group
+    (``parallel/multihost.py::init_distributed``: torchrun's environment,
+    or a group its caller made) and, where there is one, trains over the
+    mesh's ``data`` axis as nerf_tpu's GSPMD step does: every rank holds the
+    pool and draws the one-rank step's global batch, renders its slice of
+    it, and the gradients, loss and mse are averaged with one
+    ``all_reduce`` before the update (``parallel/dp.py``), so D ranks train
+    on the one-rank batches. Validation splits the image's tiles over the
+    data ranks. Only the primary rank prints, logs and writes checkpoints;
+    the others wait for its saves at a barrier."""
     from nerf_tpu_torch.train.optim import lr_schedule, make_optimizer
     from nerf_tpu_torch.train.state import create_train_state
     from nerf_tpu_torch.train.step import (
@@ -165,9 +177,21 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
     )
     from nerf_tpu_torch.utils.logging import MetricLogger
     from nerf_tpu_torch.utils.metrics import mse_to_psnr
+    from nerf_tpu_torch.parallel.multihost import barrier
     from nerf_tpu_torch.utils.profiling import Throughput, trace
     from nerf_tpu_torch.utils.timer import format_elapsed_time
 
+    mesh = None
+    if cfg.multihost or cfg.mesh_shape.strip():
+        from nerf_tpu_torch.parallel.mesh import create_mesh
+        from nerf_tpu_torch.parallel.multihost import init_distributed
+
+        init_distributed(device=device)
+        if dist.is_initialized():
+            mesh = create_mesh(cfg.mesh_shape)
+    primary = mesh is None or mesh.rank == 0
+    if not primary:
+        log = _quiet
     dev = resolve_device(device)
     if resume_path is not None:
         # the checkpoint is self-describing: its model_type and (for grid
@@ -176,9 +200,10 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
         cfg = dataclasses.replace(
             cfg, model_type=meta.get("model_type", cfg.model_type).lower(),
             grid_res=int(meta.get("grid_res", cfg.grid_res)))
-    check_ported(cfg)
     np.random.seed(cfg.seed)
     print_config_summary(cfg, dev, log)
+    if mesh is not None:
+        log(f"Mesh: {mesh.shape} (rank {mesh.rank})")
     num_iters = int(max_steps if max_steps is not None else cfg.num_iters)
 
     log("Loading dataset...")
@@ -211,6 +236,14 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
         max_chunk = min(math.gcd(math.gcd(cfg.log_interval, cfg.val_interval),
                                  cfg.save_interval), 100)
     step_fns: dict = {}
+    shard = reduce = val_group = None
+    if mesh is not None:
+        from nerf_tpu_torch.parallel.dp import grad_reducer
+
+        # nerf_tpu's GSPMD step: the one-rank batch, a slice a data rank
+        shard = (mesh.index("data"), mesh.size("data"))
+        reduce = grad_reducer(mesh.group("data"))
+        val_group = mesh.group("data")
 
     occ_opts = None
     if cfg.occupancy_res > 0:
@@ -224,7 +257,7 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
                 model, settings, cfg.num_random_rays, cfg.seed, num_steps=c,
                 use_pallas=cfg.use_pallas, epoch_sampling=cfg.epoch_sampling,
                 occupancy_opts=occ_opts, debug_nans=cfg.debug_nans,
-                regularizer=regularizer)
+                regularizer=regularizer, shard=shard, reduce=reduce)
         return step_fns[c]
 
     # the optimizer step runs ``occ_lead`` ahead of the loop counter (1 after
@@ -252,7 +285,7 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
             candidates.append(upsample_sched[0][0] - 1)
         return min(candidates)
 
-    eval_render = make_eval_render(model, settings, fused=cfg.use_pallas)
+    eval_render = make_eval_render(model, settings, fused=cfg.use_pallas, group=val_group)
 
     def do_upsample(new_res: int) -> None:
         """Resample the grid(s) to ``new_res`` and restart Adam at the new
@@ -263,15 +296,23 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
             m.set_grid(m.upsample(new_res))
         state.optimizer = make_optimizer(
             cfg, [p for m in state.models() for p in m.parameters()])
-        eval_render = make_eval_render(model, settings, fused=cfg.use_pallas)
+        eval_render = make_eval_render(model, settings, fused=cfg.use_pallas,
+                                       group=val_group)
 
     schedule = lr_schedule(cfg.learning_rate, cfg.lr_decay, cfg.lr_decay_factor,
                            cfg.lr_min)
-    os.makedirs(cfg.save_path, exist_ok=True)
+    if primary:
+        os.makedirs(cfg.save_path, exist_ok=True)
     saver = AsyncCheckpointSaver()
-    logger = MetricLogger(log_dir=cfg.log_dir, model_type=cfg.model_type,
-                          dataset_name=scene.name, config_text=str(cfg),
-                          echo=log)
+    logger = MetricLogger(log_dir=cfg.log_dir if primary else None,
+                          model_type=cfg.model_type, dataset_name=scene.name,
+                          config_text=str(cfg), echo=log)
+
+    def save(path_fn, step: int) -> Optional[str]:
+        """Only the primary rank writes; the others wait for it."""
+        path = path_fn(state, cfg.save_path, cfg.model_type, step) if primary else None
+        barrier()
+        return path
     if resume_path is None and cfg.distill_from and cfg.distill_steps > 0:
         from nerf_tpu_torch.train.distill import run_distillation
 
@@ -326,7 +367,7 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
                     f"{new_res}^3 at iteration {pos}")
             boundary = min(next_event(pos) + 1, num_iters)
             c = min(max_chunk, boundary - pos)
-            if cfg.profile_dir and chunk_idx == 2:
+            if cfg.profile_dir and chunk_idx == 2 and primary:
                 with trace(cfg.profile_dir):
                     metrics = get_step_fn(c)(state, scene.pool, occ_grid)
             else:
@@ -344,7 +385,7 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
                     occ_grid = bake_occ()
             if step % cfg.save_interval == 0 and 0 < step < num_iters - 1:
                 with throughput.exclude():
-                    path = saver.save(state, cfg.save_path, cfg.model_type, step)
+                    path = save(saver.save, step)
                 log(f"[{format_elapsed_time(start_time)}] Model saved to "
                     f"{path} at iteration {step}")
             if step % cfg.val_interval == 0 and (step > 0 or cfg.first_step_render):
@@ -353,7 +394,7 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
             pos += c
 
         saver.wait()     # durability before the final (blocking) save
-        final = save_train_state(state, cfg.save_path, cfg.model_type, num_iters)
+        final = save(save_train_state, num_iters)
         elapsed = format_elapsed_time(start_time)
         log(f"[{elapsed}] Training complete!")
         log(f"[{elapsed}] Final model saved to {final}")
@@ -361,7 +402,7 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
         elapsed = format_elapsed_time(start_time)
         log(f"\n[{elapsed}] Keyboard interrupt! Saving current checkpoint...")
         saver.wait()
-        path = save_train_state(state, cfg.save_path, cfg.model_type, step)
+        path = save(save_train_state, step)
         log(f"[{elapsed}] Checkpoint saved to {path}. Exiting training.")
     finally:
         saver.wait()

@@ -37,10 +37,14 @@ before the update.
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import itertools
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nerf_tpu_torch.data.pipeline import RayBatch, RayPool
 from nerf_tpu_torch.models.fastnerf import BakedFastNeRF, FastNeRFModel
@@ -64,6 +68,7 @@ from nerf_tpu_torch.ops.occupancy import OccupancyGrid
 from nerf_tpu_torch.render.renderer import (
     RenderOutput,
     RenderSettings,
+    draw_uniforms,
     render_image,
     render_rays,
     render_rays_train,
@@ -71,6 +76,7 @@ from nerf_tpu_torch.render.renderer import (
 from nerf_tpu_torch.train.state import TrainState
 
 SAMPLE, RENDER, VALIDATE, DISTILL = 0, 1, 2, 3   # generator streams of a step
+SCENE, RANK = 4, 5              # sub-seeds: a scene of a multi-scene run, a rank
 
 
 def step_seed(seed: int, step: int, stream: int) -> int:
@@ -78,6 +84,13 @@ def step_seed(seed: int, step: int, stream: int) -> int:
     state = np.random.SeedSequence([int(seed), int(step), int(stream)]
                                    ).generate_state(2)
     return (int(state[0]) << 31) ^ int(state[1])
+
+
+def sub_seed(seed: int, kind: int, index: int) -> int:
+    """The seed of scene (``kind`` SCENE) or rank (RANK) ``index`` of a run
+    seeded with ``seed``: its steps draw from ``step_seed(sub_seed(...),
+    step, stream)``."""
+    return step_seed(seed, index, 1000 + kind)
 
 
 _FUSED = {NeRFModel: FusedNerfRender, SirenModel: FusedSirenRender,
@@ -238,7 +251,8 @@ def _make_step_body(model, settings: RenderSettings, batch_size: int,
                     seed: int, use_pallas: bool = True,
                     epoch_sampling: bool = False,
                     occupancy_opts: Optional[tuple] = None,
-                    debug_nans: bool = False, regularizer=None):
+                    debug_nans: bool = False, regularizer=None,
+                    shard: Optional[tuple] = None, reduce=None):
     """``(sample, train_on_batch)``: ``sample(state, pool) -> RayBatch``
     draws the batch of ``state.step``; ``train_on_batch(state, batch,
     occ_grid=None) -> metrics`` renders, takes the loss and its gradient,
@@ -248,6 +262,14 @@ def _make_step_body(model, settings: RenderSettings, batch_size: int,
     for a model without one, the field route (its field under autograd);
     without, the unfused module path under autograd.
 
+    ``shard = (i, n)`` makes this the i-th of n data-parallel ranks of the
+    same step (nerf_tpu's GSPMD step): ``sample`` draws the global batch of
+    ``batch_size`` rays as one rank would and keeps rows ``i * batch_size /
+    n`` onwards, and the render takes those rows of the global batch's
+    draws. ``reduce(state, loss, mse) -> (loss, mse)`` runs between the
+    backward pass and the update (``parallel/dp.py``: the gradients and
+    metrics averaged over the ranks).
+
     ``occupancy_opts = (domain, num_bins, floor)`` gives meaning to the
     ``occ_grid`` argument: an (R, R, R, 1) {0, 1} prior (``fit`` rebakes it
     at intervals) from which the coarse pass draws its samples.
@@ -255,6 +277,12 @@ def _make_step_body(model, settings: RenderSettings, batch_size: int,
     With ``debug_nans`` a non-finite loss or gradient raises
     ``FloatingPointError`` before the update."""
     fused_render, field = _kernel_route(model, settings, use_pallas)
+    rows = None
+    if shard is not None:
+        if batch_size % shard[1]:
+            raise ValueError(f"batch_size {batch_size} not divisible by {shard[1]}")
+        local = batch_size // shard[1]
+        rows = (shard[0] * local, (shard[0] + 1) * local)
 
     def _occ(occ_grid) -> Optional[OccupancyGrid]:
         if occ_grid is None:
@@ -265,24 +293,31 @@ def _make_step_body(model, settings: RenderSettings, batch_size: int,
 
     def sample(state: TrainState, pool: RayPool) -> RayBatch:
         if epoch_sampling:
-            return pool.sample_epoch(seed, state.step, batch_size)
-        gen = _generator(pool.rays_o.device, step_seed(seed, state.step, SAMPLE))
-        return pool.sample(gen, batch_size)
+            batch = pool.sample_epoch(seed, state.step, batch_size)
+        else:
+            gen = _generator(pool.rays_o.device, step_seed(seed, state.step, SAMPLE))
+            batch = pool.sample(gen, batch_size)
+        return batch if rows is None else RayBatch(*(x[rows[0]:rows[1]] for x in batch))
 
     def loss_fn(state: TrainState, batch: RayBatch, gen, occupancy):
+        uniforms = None
+        if rows is not None:
+            uniforms = draw_uniforms(settings, batch_size, gen, batch.rays_o.device,
+                                     occupancy is not None).rows(*rows)
         if fused_render is not None:
             return render_rays_train(
                 fused_render, state.params, batch.rays_o, batch.rays_d,
                 settings, batch.rgb, generator=gen,
                 fine_params=state.fine_params, viewdirs=batch.viewdirs,
-                occupancy=occupancy)
+                occupancy=occupancy, uniforms=uniforms)
         params, fine = state.params, state.fine_params
         if field is not None:
             params = field(params)
             fine = field(fine) if fine is not None else None
         out = render_rays(params, batch.rays_o, batch.rays_d, settings,
                           generator=gen, fine_params=fine,
-                          viewdirs=batch.viewdirs, occupancy=occupancy)
+                          viewdirs=batch.viewdirs, occupancy=occupancy,
+                          uniforms=uniforms)
         mse = torch.mean((out.rgb - batch.rgb) ** 2)
         loss = mse
         if settings.num_fine_samples > 0:
@@ -297,12 +332,14 @@ def _make_step_body(model, settings: RenderSettings, batch_size: int,
         if regularizer is not None:
             loss = loss + regularizer(state)
         loss.backward()
+        loss, mse = loss.detach(), mse.detach()
+        if reduce is not None:
+            loss, mse = reduce(state, loss, mse)
         if debug_nans:
             check_finite(f"step {state.step}", loss, state.models())
         state.optimizer.step()
         state.step += 1
-        mse = mse.detach()
-        return {"loss": loss.detach(), "mse": mse, "psnr": -10.0 * torch.log10(mse)}
+        return {"loss": loss, "mse": mse, "psnr": -10.0 * torch.log10(mse)}
 
     return sample, train_on_batch
 
@@ -311,13 +348,14 @@ def make_train_step(model, settings: RenderSettings, batch_size: int,
                     seed: int, use_pallas: bool = True,
                     epoch_sampling: bool = False,
                     occupancy_opts: Optional[tuple] = None,
-                    debug_nans: bool = False, regularizer=None):
+                    debug_nans: bool = False, regularizer=None,
+                    shard: Optional[tuple] = None, reduce=None):
     """``step(state, pool, occ_grid=None) -> metrics``: one iteration,
     ``state`` updated in place (``_make_step_body`` for the options)."""
     sample, train_on_batch = _make_step_body(model, settings, batch_size, seed,
                                              use_pallas, epoch_sampling,
                                              occupancy_opts, debug_nans,
-                                             regularizer)
+                                             regularizer, shard, reduce)
 
     def step(state: TrainState, pool: RayPool, occ_grid=None) -> dict:
         return train_on_batch(state, sample(state, pool), occ_grid)
@@ -329,13 +367,15 @@ def make_scan_train_step(model, settings: RenderSettings, batch_size: int,
                          seed: int, num_steps: int, use_pallas: bool = True,
                          epoch_sampling: bool = False,
                          occupancy_opts: Optional[tuple] = None,
-                         debug_nans: bool = False, regularizer=None):
+                         debug_nans: bool = False, regularizer=None,
+                         shard: Optional[tuple] = None, reduce=None):
     """``step_n(state, pool, occ_grid=None) -> metrics``: ``num_steps``
     iterations in a Python loop, each metric stacked to ``(num_steps,)``.
     The draws key off ``state.step``, so N steps here equal N single
     steps."""
     step = make_train_step(model, settings, batch_size, seed, use_pallas,
-                           epoch_sampling, occupancy_opts, debug_nans, regularizer)
+                           epoch_sampling, occupancy_opts, debug_nans, regularizer,
+                           shard, reduce)
 
     def step_n(state: TrainState, pool: RayPool, occ_grid=None) -> dict:
         ms = [step(state, pool, occ_grid) for _ in range(num_steps)]
@@ -344,8 +384,38 @@ def make_scan_train_step(model, settings: RenderSettings, batch_size: int,
     return step_n
 
 
+class _Replicas:
+    """Copies of models on other devices for a split render. A copy is made
+    once and made again only when the model asked for is another object, or
+    its tensors were written in place since (their ``_version``), so a fixed
+    model (served, evaluated) is copied once, not once a frame."""
+
+    def __init__(self):
+        self._held: dict = {}
+
+    def get(self, p, device: torch.device, slot: str):
+        """``p`` (a model or None) on ``device``: itself where it lies
+        there, else the copy held for ``slot`` on ``device``."""
+        if p is None:
+            return None
+        tensors = list(itertools.chain(p.parameters(), p.buffers()))
+        if tensors[0].device == device:
+            return p
+        version = tuple(t._version for t in tensors)
+        held = self._held.get((slot, device))
+        if held is None or held[0] is not p or held[1] != version:
+            held = self._held[(slot, device)] = (p, version, copy.deepcopy(p).to(device))
+        return held[2]
+
+
+def _device_scope(device: torch.device):
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
 def make_eval_render(model, settings: RenderSettings, fused: bool = True,
-                     occupancy: Optional[OccupancyGrid] = None):
+                     occupancy: Optional[OccupancyGrid] = None,
+                     devices: Optional[list] = None, group=None):
     """Returns ``render(params, fine_params, rays_o, rays_d, generator=None,
     viewdirs=None, hw=None) -> RenderOutput``, where ``params``/
     ``fine_params`` are models of ``model``'s family (``fine_params`` None:
@@ -360,8 +430,18 @@ def make_eval_render(model, settings: RenderSettings, fused: bool = True,
     whole image reorders the rays into 8x8 pixel blocks
     (``tile_ray_order``) and the outputs back. With ``occupancy`` the
     coarse samples come from that prior. Memory is bounded by
-    ``settings.chunk_size`` ray tiles."""
+    ``settings.chunk_size`` ray tiles.
+
+    The tiles split over ``devices`` (a list: tile k renders on device
+    k mod n, on a replica of the models there; nerf_tpu's mesh render) or
+    over the ranks of the process group ``group`` (tile k on its rank k mod
+    n, the image summed over the group, where every other rank's rows are
+    zeros). Each tile's draws come from ``generator`` in tile order, as the
+    one-device render takes them, so a split image equals the one-device
+    image bit for bit."""
     fused_render, field = _kernel_route(model, settings, fused, for_train=False)
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None
     tile_order = (getattr(model, "wants_tile_order", False)
                   and getattr(model, "use_grid_kernel", True))
     perm_cache: dict = {}
@@ -392,13 +472,58 @@ def make_eval_render(model, settings: RenderSettings, fused: bool = True,
                                    torch.from_numpy(np.argsort(p)).to(rays_o.device))
             perm, inv = perm_cache[key]
             rays_o, rays_d, viewdirs = rays_o[perm], rays_d[perm], viewdirs[perm]
-        out = render_image(prepare(params), rays_o, rays_d, settings,
-                           generator=generator, fine_params=prepare(fine_params),
-                           viewdirs=viewdirs, fused_render=fused_render,
-                           occupancy=occupancy)
+        if devices is None and group is None:
+            out = render_image(prepare(params), rays_o, rays_d, settings,
+                               generator=generator, fine_params=prepare(fine_params),
+                               viewdirs=viewdirs, fused_render=fused_render,
+                               occupancy=occupancy)
+        else:
+            out = split_render(params, fine_params, rays_o, rays_d, viewdirs, generator)
         if inv is not None:
             out = RenderOutput(*(x[inv] for x in out))
         return out
+
+    replicas = _Replicas()
+    occ_on = ({} if devices is None or occupancy is None else
+              {d: occupancy._replace(grid=occupancy.grid.to(d))
+               for d in map(torch.device, devices)})
+
+    def split_render(params, fine_params, rays_o, rays_d, viewdirs, generator):
+        if devices is not None:
+            parts = [(d, prepare(replicas.get(params, d, "coarse")),
+                      prepare(replicas.get(fine_params, d, "fine")), occ_on.get(d))
+                     for d in map(torch.device, devices)]
+            mine = range(len(parts))
+        else:
+            here = (rays_o.device, prepare(params), prepare(fine_params), occupancy)
+            parts = [here] * dist.get_world_size(group)
+            mine = [dist.get_rank(group)]
+        n, tile = rays_o.shape[0], settings.chunk_size
+        outs = {}
+        for k, lo in enumerate(range(0, n, tile)):
+            hi = min(lo + tile, n)
+            u = draw_uniforms(settings, hi - lo, generator, rays_o.device,
+                              occupancy is not None)
+            if k % len(parts) not in mine:
+                continue
+            d, p, fp, occ = parts[k % len(parts)]
+            with _device_scope(d):
+                outs[lo] = render_rays(p, rays_o[lo:hi].to(d), rays_d[lo:hi].to(d),
+                                       settings, fine_params=fp,
+                                       viewdirs=viewdirs[lo:hi].to(d),
+                                       fused_render=fused_render, occupancy=occ,
+                                       uniforms=u.to(d))
+        if devices is not None:
+            return RenderOutput(*(torch.cat([o[j].to(rays_o.device) for o in outs.values()])
+                                  for j in range(len(RenderOutput._fields))))
+        # one buffer of every field (rgb 3, depth, acc, disparity, rgb_coarse 3)
+        flat = torch.zeros(n, 9, device=rays_o.device)
+        for lo, o in outs.items():
+            flat[lo:lo + o.rgb.shape[0]] = torch.cat(
+                [o.rgb, o.depth[:, None], o.acc[:, None], o.disparity[:, None],
+                 o.rgb_coarse], dim=1)
+        dist.all_reduce(flat, group=group)
+        return RenderOutput(flat[:, :3], flat[:, 3], flat[:, 4], flat[:, 5], flat[:, 6:])
 
     render.occupancy = occupancy
     return render

@@ -8,7 +8,10 @@ and moments), beside a ``.meta.json`` sidecar with the step, the model
 type and, for a family that has one (KiloNeRF), ``grid_res``, as
 ``nerf_tpu.utils.checkpoint`` lays them out; resume, serving and a
 distillation teacher read the family and ``grid_res`` back from it.
-Serving reads only the models. The file is written under a temporary name and renamed, so a
+Serving reads only the models. A multi-scene run writes one payload of all
+its scenes, each tensor stacked along a leading scene axis
+(``scenes_payload``), with ``num_scenes``, ``scenes`` and
+``base_model_type`` in its sidecar. The file is written under a temporary name and renamed, so a
 checkpoint that exists is complete. ``AsyncCheckpointSaver`` copies the
 tensors to the CPU and writes on a thread while training goes on.
 Checkpoints of the JAX package (Orbax directories) are not read here.
@@ -38,7 +41,8 @@ def _cpu_state(module) -> dict:
     return {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
 
 
-def _write(payload: dict, save_path: str, model_type: str, step: int) -> str:
+def _write(payload: dict, save_path: str, model_type: str, step: int,
+           extra: Optional[dict] = None) -> str:
     path = _state_path(save_path, model_type, step)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
@@ -47,6 +51,7 @@ def _write(payload: dict, save_path: str, model_type: str, step: int) -> str:
     meta = {"step": int(step), "model_type": model_type}
     if "grid_res" in payload:
         meta["grid_res"] = payload["grid_res"]
+    meta.update(extra or {})
     with open(path + ".meta.json", "w") as f:
         json.dump(meta, f)
     return path
@@ -74,27 +79,73 @@ def save_checkpoint(model, fine_model, save_path: str, model_type: str,
                            train_step), save_path, model_type, step)
 
 
+def save_payload(payload: dict, save_path: str, model_type: str, step: int,
+                 extra: Optional[dict] = None) -> str:
+    """Write a payload (``scenes_payload``) with ``extra`` metadata;
+    returns the checkpoint path."""
+    return _write(payload, save_path, model_type, step, extra)
+
+
 def save_train_state(state, save_path: str, model_type: str, step: int) -> str:
     """Save a whole ``TrainState`` (models, optimizer, step counter) under
     the loop's ``step``."""
-    return save_checkpoint(state.params, state.fine_params, save_path,
-                           model_type, step, optimizer=state.optimizer,
-                           train_step=state.step)
+    return _write(train_payload(state, model_type, step), save_path, model_type, step)
 
 
 def restore_train_state(state, path: str):
     """Load a checkpoint written by ``save_train_state`` into ``state`` in
     place (models, optimizer, step counter); returns ``state``."""
-    ckpt = load_checkpoint(path)
+    return restore_payload(state, load_checkpoint(path), path)
+
+
+def restore_payload(state, ckpt: dict, what: str):
+    """``restore_train_state`` from a loaded payload (``what`` names it in
+    errors)."""
     if "optimizer" not in ckpt:
-        raise ValueError(f"{path} holds models only, not a training state")
+        raise ValueError(f"{what} holds models only, not a training state")
     state.params.load_state_dict(ckpt["params"])
     if state.fine_params is not None:
         state.fine_params.load_state_dict(ckpt["fine_params"])
     elif ckpt["fine_params"]:
-        raise ValueError(f"{path} has a fine model; this state has none")
+        raise ValueError(f"{what} has a fine model; this state has none")
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["train_step"])
+    return state
+
+
+def train_payload(state, model_type: str, step: int) -> dict:
+    """What ``save_train_state`` writes, on the CPU."""
+    return _payload(state.params, state.fine_params, model_type, step,
+                    state.optimizer, state.step)
+
+
+def scenes_payload(parts: list) -> dict:
+    """One payload of several scenes' ``train_payload``s (a multi-scene run,
+    in scene order), as ``nerf_tpu``'s scene-stacked state: every tensor
+    stacked along a leading scene axis (the Adam counts and step counters,
+    equal across scenes, stay scalars)."""
+    def stack(key):
+        return {k: torch.stack([p[key][k] for p in parts]) for k in parts[0][key]}
+
+    out = dict(parts[0], params=stack("params"), fine_params=stack("fine_params"),
+               num_scenes=len(parts))
+    out["optimizer"] = {"count": parts[0]["optimizer"]["count"],
+                        **{m: [torch.stack(xs) for xs in
+                               zip(*(p["optimizer"][m] for p in parts))]
+                           for m in ("mu", "nu")}}
+    return out
+
+
+def restore_scene(state, ckpt: dict, scene: int):
+    """Scene ``scene`` of a ``scenes_payload`` (as ``load_checkpoint`` gives
+    it) into ``state`` in place; returns ``state``."""
+    opt = ckpt["optimizer"]
+    restore_payload(state, {
+        "params": {k: v[scene] for k, v in ckpt["params"].items()},
+        "fine_params": {k: v[scene] for k, v in ckpt["fine_params"].items()},
+        "optimizer": {"count": opt["count"], "mu": [x[scene] for x in opt["mu"]],
+                      "nu": [x[scene] for x in opt["nu"]]},
+        "train_step": ckpt["train_step"]}, "a multi-scene checkpoint")
     return state
 
 
@@ -109,13 +160,18 @@ class AsyncCheckpointSaver:
         self._error: Optional[BaseException] = None
 
     def save(self, state, save_path: str, model_type: str, step: int) -> str:
+        return self.save_payload(train_payload(state, model_type, step), save_path,
+                                 model_type, step)
+
+    def save_payload(self, payload: dict, save_path: str, model_type: str, step: int,
+                     extra: Optional[dict] = None) -> str:
+        """``save`` of a payload already on the CPU (``scenes_payload``),
+        with ``extra`` metadata."""
         self.wait()
-        payload = _payload(state.params, state.fine_params, model_type, step,
-                           state.optimizer, state.step)
 
         def run():
             try:
-                _write(payload, save_path, model_type, step)
+                _write(payload, save_path, model_type, step, extra)
             except Exception as e:  # noqa: BLE001 — re-raised by wait()
                 self._error = e
 

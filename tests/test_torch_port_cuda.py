@@ -2237,3 +2237,123 @@ def test_short_fit_resumes_bit_for_bit(dev, config, tmp_path):
     assert sorted(first) == list(range(6)) and sorted(again) == [3, 4, 5]
     assert all(np.isfinite(list(first.values())))
     assert again[3] == first[4] and again[4] == first[5]
+
+
+def test_multiscene_fit_equals_independent_scene_steps(dev, tmp_path):
+    """fit_multiscene of lego.txt's model (bf16 train kernel, 64 + 128) over
+    two small scenes, 3 iterations: each scene's final state equals three
+    steps of its own one-scene step seeded with scene_seed, from the same
+    initial state, bit for bit (2 train launches a scene a step)."""
+    import dataclasses
+    import os
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.data.pipeline import load_scene
+    from nerf_tpu_torch.parallel.multiscene import scene_seed
+    from nerf_tpu_torch.train.loop import render_settings_from_config
+    from nerf_tpu_torch.train.multiscene_loop import fit_multiscene
+    from nerf_tpu_torch.train.step import make_train_step
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    scenes = [_write_scenes(str(tmp_path / f"scene{i}"), "blender") for i in range(2)]
+    cfg = dataclasses.replace(
+        parse_config_file(os.path.join(repo, "configs", "lego.txt")), num_iters=3,
+        num_random_rays=256, log_interval=1, val_interval=1000, save_interval=1000,
+        save_path=str(tmp_path / "models"), log_dir=str(tmp_path / "logs"))
+    before = FusedNerfRender.train_launches
+    states = fit_multiscene(cfg, scenes, device=dev, log=lambda *a: None)
+    assert FusedNerfRender.train_launches - before == 2 * 2 * 3
+    for i, (scene, got) in enumerate(zip(scenes, states)):
+        pool = load_scene(dataclasses.replace(cfg, dataset_path=scene), device=dev).pool
+        cfg_i = dataclasses.replace(cfg, near=2.0, far=6.0)
+        st = create_train_state(cfg_i, seed=scene_seed(cfg.seed, i), device=dev)
+        step = make_train_step(st.params, render_settings_from_config(cfg_i),
+                               cfg.num_random_rays, scene_seed(cfg.seed, i))
+        for _ in range(3):
+            step(st, pool)
+        assert st.step == got.step == 3
+        for a, b in zip(list(st.params.parameters()) + list(st.fine_params.parameters())
+                        + st.optimizer.mu + st.optimizer.nu,
+                        list(got.params.parameters()) + list(got.fine_params.parameters())
+                        + got.optimizer.mu + got.optimizer.nu):
+            assert torch.equal(a, b)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_nccl_world_one_fit_equals_undistributed(dev, tmp_path):
+    """fit with multihost = true in an NCCL group of one rank (every step's
+    gradients through one all_reduce) equals the same fit without a group
+    bit for bit: the losses and the final parameters."""
+    import dataclasses
+    import os
+
+    import torch.distributed as dist
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.parallel.multihost import init_distributed
+    from nerf_tpu_torch.train.loop import fit
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    scene = _write_scenes(str(tmp_path / "scene"), "blender")
+    base = dataclasses.replace(
+        parse_config_file(os.path.join(repo, "configs", "lego.txt")), dataset_path=scene,
+        num_iters=4, num_random_rays=256, log_interval=1, val_interval=1000,
+        save_interval=1000)
+    runs = {}
+    for name in ("plain", "nccl"):
+        cfg = dataclasses.replace(base, multihost=name == "nccl",
+                                  save_path=str(tmp_path / name / "models"),
+                                  log_dir=str(tmp_path / name / "logs"))
+        if name == "nccl":
+            init_distributed(f"tcp://localhost:{_free_port()}", world_size=1, rank=0,
+                             backend="nccl")
+        try:
+            state = fit(cfg, device=dev, log=lambda *a: None)
+            if name == "nccl":
+                assert dist.get_backend() == "nccl"
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        runs[name] = (state, _losses(cfg.log_dir))
+    (a, la), (b, lb) = runs["plain"], runs["nccl"]
+    assert la == lb and sorted(la) == [0, 1, 2, 3]
+    for x, y in zip(list(a.params.parameters()) + list(a.fine_params.parameters()),
+                    list(b.params.parameters()) + list(b.fine_params.parameters())):
+        assert torch.equal(x, y)
+
+
+def test_interchange_round_trip_of_a_card_state(dev, tmp_path):
+    """A lego.txt train state on the card, saved, exported to a reference
+    .pth (coarse and fine) and imported back: the models equal the card's
+    bit for bit, the step is kept, and the .pth's tensors lie on the CPU."""
+    import os
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.utils.checkpoint import load_checkpoint, save_train_state
+    from nerf_tpu_torch.utils.torch_export import export_torch_checkpoint
+    from nerf_tpu_torch.utils.torch_import import import_torch_checkpoint
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = parse_config_file(os.path.join(repo, "configs", "lego.txt"))
+    state = create_train_state(cfg, device=dev)
+    for p in state.optimizer.mu:
+        p.normal_()
+    state.step = 11
+    ckpt = save_train_state(state, str(tmp_path / "m"), "nerf", 10)
+    for fine, model in ((False, state.params), (True, state.fine_params)):
+        pth = export_torch_checkpoint(ckpt, cfg, str(tmp_path / f"{fine}.pth"), use_fine=fine)
+        sd = torch.load(pth, weights_only=True)
+        assert sd["step"] == 11
+        assert all(v.device.type == "cpu" for v in sd["model_state_dict"].values())
+        back = load_checkpoint(import_torch_checkpoint(pth, cfg, str(tmp_path / f"i{fine}")))
+        assert back["train_step"] == 11
+        for k, v in model.state_dict().items():
+            assert torch.equal(back["params"][k], v.cpu())
+            assert torch.equal(back["fine_params"][k], v.cpu())

@@ -352,12 +352,23 @@ def test_scan_steps_equal_single_steps(scene_root):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("field,value,row", [
-    ("multihost", True, "row 14"), ("mesh_shape", "2,1", "row 14")])
-def test_fit_refuses_unported_options(scene_root, field, value, row):
-    cfg = dataclasses.replace(_cfg(scene_root), **{field: value})
-    with pytest.raises(NotImplementedError, match=row):
-        fit(cfg, device="cpu", log=lambda *_: None)
+def test_config_fields_read_nowhere_are_only_donate_state():
+    """Every field of the port's Config is read (as an attribute) by some
+    module of nerf_tpu_torch/ besides config.py, except donate_state: JAX
+    buffer donation, which has no counterpart. mesh_shape and multihost
+    are read by fit and fit_multiscene since the parallel layer."""
+    import nerf_tpu_torch
+
+    root = os.path.dirname(nerf_tpu_torch.__file__)
+    text = ""
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py") and os.path.join(d, f) != os.path.join(root, "config.py"):
+                with open(os.path.join(d, f)) as fh:
+                    text += fh.read()
+    unread = [f.name for f in dataclasses.fields(Config)
+              if not re.search(rf"\.{f.name}\b", text)]
+    assert unread == ["donate_state"]
 
 
 @pytest.mark.parametrize("family", ["fastnerf", "plenoctree"])
