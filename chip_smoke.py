@@ -274,7 +274,20 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      in float32, and over the first 10 steps in bfloat16 (its later drift
      printed), and
      fit_multiscene on scene:2,data:1 equal to (b)'s first two scenes bit
-     for bit, and gloo's all_reduce time.
+     for bit, and gloo's all_reduce time;
+ 34. event files and JPEG frames: (a) the TensorBoard event files of phase
+     5's fit and phase 33 (b)'s run, read by a record reader written here
+     (both CRC32Cs of every record, the Event protobuf): every train.log
+     scalar as one float32 event, val/render within one level of each val
+     PNG, the config text, scene{i}/val_render of each scene; MetricLogger's
+     log_train and log_validation timed on the host; (b) the JPEG fixtures
+     of tests/data/jpeg/ decoded to their committed hashes, one 1008x756
+     frame timed, and configs/fern.txt on the committed JPEG capture
+     (tests/data/jpeg/llff: 20 images/ JPEGs, llff_factor 2, downsampled
+     to 504x378 on load): load_scene timed, fit() 200 iterations (2 train
+     launches a step, the mse at 190 under half of that at 0) and one
+     spiral request over HTTP (48 launches, within mean abs 1e-2 of the
+     unfused render).
 
 The last lines are a JSON object of per-kernel numbers (all nineteen
 kernels, row 18 in its two forms), the card, and ``{"ok": true,
@@ -3796,24 +3809,21 @@ FERN_VIEWS, FERN_HW, FERN_FULL = 20, (378, 504), (3024, 4032, 3260.526)
 FERN_ITERS = 200
 
 
-def write_fern_scene(root: str, seed: int = 31) -> str:
-    """A synthetic forward-facing LLFF scene at fern's shapes: cameras near
-    (0, 0, 4) looking down -z with seeded lateral offsets, a shaded sphere
-    of radius 1 at the origin before a striped wall at z = -3, written as
-    images_8/img_*.png (the port's PNG writer) and poses_bounds.npy
-    ([down, right, back, t | hwf] rows, depth bounds 2.5 / 7.5)."""
-    from nerf_tpu_torch.utils.png import write_png
-
+def fern_views(hw: tuple, hwf: tuple, seed: int = 31):
+    """The views of a synthetic forward-facing LLFF scene, rendered at
+    ``hw`` with the focal of the capture ``hwf`` (h, w, focal) scaled to
+    that width: cameras near (0, 0, 4) looking down -z with seeded lateral
+    offsets, a shaded sphere of radius 1 at the origin before a striped
+    wall at z = -3. Yields (uint8 image, poses_bounds row: [down, right,
+    back, t | hwf], depth bounds 2.5 / 7.5)."""
     rng = np.random.default_rng(seed)
-    h, w = FERN_HW
-    focal = FERN_FULL[2] * w / FERN_FULL[1]
-    os.makedirs(os.path.join(root, "images_8"), exist_ok=True)
+    h, w = hw
+    focal = hwf[2] * w / hwf[1]
     u, v = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32),
                        indexing="xy")
     d = np.stack([u - 0.5 * w, -(v - 0.5 * h), -np.full_like(u, focal)], -1).reshape(-1, 3)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    rows = []
-    for i in range(FERN_VIEWS):
+    for _ in range(FERN_VIEWS):
         o = np.array([*rng.uniform(-0.5, 0.5, 2), 4.0], np.float32)
         b = 2.0 * d @ o
         disc = b * b - 4.0 * (o @ o - 1.0)
@@ -3826,11 +3836,22 @@ def write_fern_scene(root: str, seed: int = 31) -> str:
         p = o + ts[:, None] * d
         shade = 0.5 + 0.5 * np.clip(p @ np.array([0.3, 0.5, 0.8]), -1, 1)
         img[hit] = np.array([0.9, 0.3, 0.2]) * shade[hit, None]
-        write_png(os.path.join(root, "images_8", f"img_{i:03d}.png"),
-                  (np.clip(img, 0, 1).reshape(h, w, 3) * 255).astype(np.uint8))
         m = np.stack([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0], o], axis=1)
-        hwf = np.array([[FERN_FULL[0]], [FERN_FULL[1]], [FERN_FULL[2]]])
-        rows.append(np.concatenate([np.concatenate([m, hwf], 1).reshape(-1), [2.5, 7.5]]))
+        col = np.array([[hwf[0]], [hwf[1]], [hwf[2]]])
+        yield ((np.clip(img, 0, 1).reshape(h, w, 3) * 255).astype(np.uint8),
+               np.concatenate([np.concatenate([m, col], 1).reshape(-1), [2.5, 7.5]]))
+
+
+def write_fern_scene(root: str, seed: int = 31) -> str:
+    """``fern_views`` at fern's shapes, written as images_8/img_*.png (the
+    port's PNG writer) and poses_bounds.npy."""
+    from nerf_tpu_torch.utils.png import write_png
+
+    os.makedirs(os.path.join(root, "images_8"), exist_ok=True)
+    rows = []
+    for i, (img, row) in enumerate(fern_views(FERN_HW, FERN_FULL, seed)):
+        write_png(os.path.join(root, "images_8", f"img_{i:03d}.png"), img)
+        rows.append(row)
     np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows))
     return root
 
@@ -3962,6 +3983,57 @@ def check_ndc_kernels(torch, dev, tmp: str):
     return results
 
 
+def serve_spiral_pose(torch, dev, cfg, ckpt: str, label: str, card: str) -> tuple:
+    """An LLFF checkpoint served over HTTP on loopback: a first request
+    (/pose/1, untimed), then /pose/0 (the spiral's first pose), timed: a
+    PNG of the scene's size in 2 x ceil(h w / 8192) forward launches, within
+    mean abs ``SERVE_TOL_MEAN`` of the unfused render of the same NDC rays.
+    Returns (ms of the timed request, the launches of both, the unfused
+    service)."""
+    import dataclasses
+
+    from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
+    from nerf_tpu_torch.serve import RenderService, make_http_server
+    from nerf_tpu_torch.utils.png import decode_png
+
+    svc = RenderService.from_checkpoint(cfg, ckpt, device=dev, log=say)
+    ref = RenderService.from_checkpoint(dataclasses.replace(cfg, use_pallas=False), ckpt,
+                                        device=dev, log=lambda *a: None)
+    h, w = svc.hw
+    per_frame = 2 * math.ceil(h * w / 8192)
+    if not svc.ndc or svc.render_poses is None:
+        fail(f"{label}: service hw {svc.hw}, ndc {svc.ndc}")
+    server = make_http_server(svc, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        first = FusedNerfRender.launches
+        get(base + "/pose/1")                    # a first request, untimed
+        before = FusedNerfRender.launches
+        t0 = time.perf_counter()
+        code, ctype, body = get(base + "/pose/0")
+        req_ms = (time.perf_counter() - t0) * 1e3
+        n = FusedNerfRender.launches - before
+        served = FusedNerfRender.launches - first
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    img = decode_png(body)
+    if code != 200 or ctype != "image/png" or img.shape != (h, w, 3) or n != per_frame:
+        fail(f"{label} /pose/0: {code} {ctype} {img.shape}, {n} launches (want {per_frame})")
+    want = ref.render_pose(svc.orbit_pose(0), key_idx=0)
+    diff = np.abs(img.astype(np.float32) / 255.0 - want)
+    say(f"serve {label} /pose/0 (the spiral's first pose): 200 image/png {w}x{h}, {n} "
+        f"kernel launches, {req_ms:.1f} ms, {h * w / req_ms * 1e3:.0f} rays/s; vs the "
+        f"unfused render of the same NDC rays: mean abs {diff.mean():.3e} (tol "
+        f"{SERVE_TOL_MEAN:.0e}), max abs {diff.max():.3e}; {card}")
+    if not diff.mean() <= SERVE_TOL_MEAN:
+        fail(f"{label}: the served image disagrees with the unfused render")
+    return req_ms, served, ref
+
+
 def fern(torch, dev, tmp: str, card: str) -> dict:
     """Phase 31 (b)-(d): configs/fern.txt (LLFF, NDC rays, black background,
     NeRF hidden 256 in bf16, 64 + 64 samples) on the synthetic fern scene
@@ -3975,12 +4047,9 @@ def fern(torch, dev, tmp: str, card: str) -> dict:
     4 spiral frames (48 launches each, each within mean abs 1e-2 of the
     unfused render) and --metrics over the 3 test views. Returns the
     launches of rows 3 and 5 and the walls."""
-    import dataclasses
-
     from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
-    from nerf_tpu_torch.serve import RenderService, make_http_server
     from nerf_tpu_torch.train.loop import fit
-    from nerf_tpu_torch.utils.png import decode_png, read_png
+    from nerf_tpu_torch.utils.png import read_png
 
     h, w = FERN_HW
     per_frame = 2 * math.ceil(h * w / 8192)
@@ -4019,41 +4088,8 @@ def fern(torch, dev, tmp: str, card: str) -> dict:
     train_launches = 2 * FERN_ITERS
 
     # (c) one spiral-pose request over HTTP
-    svc = RenderService.from_checkpoint(cfg, ckpt, device=dev, log=say)
-    ref = RenderService.from_checkpoint(dataclasses.replace(cfg, use_pallas=False), ckpt,
-                                        device=dev, log=lambda *a: None)
-    if svc.hw != (h, w) or not svc.ndc or svc.render_poses is None:
-        fail(f"fern: service hw {svc.hw}, ndc {svc.ndc}")
-    server = make_http_server(svc, port=0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    try:
-        base = f"http://127.0.0.1:{server.server_address[1]}"
-        first = FusedNerfRender.launches
-        get(base + "/pose/1")                    # a first request, untimed
-        before = FusedNerfRender.launches
-        t0 = time.perf_counter()
-        code, ctype, body = get(base + "/pose/0")
-        req_ms = (time.perf_counter() - t0) * 1e3
-        n = FusedNerfRender.launches - before
-        served = FusedNerfRender.launches - first
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    img = decode_png(body)
-    if code != 200 or ctype != "image/png" or img.shape != (h, w, 3) or n != per_frame:
-        fail(f"fern /pose/0: {code} {ctype} {img.shape}, {n} launches (want {per_frame})")
-    want = ref.render_pose(svc.orbit_pose(0), key_idx=0)
-    diff = np.abs(img.astype(np.float32) / 255.0 - want)
-    say(f"serve fern.txt /pose/0 (the spiral's first pose): 200 image/png {w}x{h}, {n} "
-        f"kernel launches, {req_ms:.1f} ms, {h * w / req_ms * 1e3:.0f} rays/s; vs the "
-        f"unfused render of the same NDC rays: mean abs {diff.mean():.3e} (tol "
-        f"{SERVE_TOL_MEAN:.0e}), max abs {diff.max():.3e}; {card}")
-    if not diff.mean() <= SERVE_TOL_MEAN:
-        fail("fern: the served image disagrees with the unfused render")
+    req_ms, served, ref = serve_spiral_pose(torch, dev, cfg, ckpt, "fern.txt", card)
     fwd_launches = counts[1] + served        # the validation frame, two requests
-    del svc
 
     # (d) the eval CLI: 4 spiral frames, then --metrics over the test views
     cfg_path = os.path.join(tmp, "eval_fern.txt")
@@ -4614,6 +4650,330 @@ def parallel(torch, dev, tmp: str, card: str, lego_ckpt: str, single_rps: float)
             + gloo["train_launches"]}
 
 
+# ---------------------------------------------------------------- phase 34
+
+JPEG_DIR = os.path.join(ROOT, "tests", "data", "jpeg")   # make_fixtures.py's output
+JPEG_FULL_HW = (756, 1008)     # the JPEG capture's frames (llff/images/img_*.jpg)
+JPEG_FACTOR = 2                # configs/fern.txt's llff_factor on it: 504 x 378
+LOG_REPS = 20                  # timed logger calls (median)
+
+
+def _crc32c_table() -> list:
+    """CRC-32C (Castagnoli), written here apart from the port's."""
+    table = []
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ (0x82F63B78 * (c & 1))
+        table.append(c)
+    return table
+
+
+def masked_crc32c(data: bytes, table: list) -> int:
+    c = 0xFFFFFFFF
+    for b in data:
+        c = table[(c ^ b) & 0xFF] ^ (c >> 8)
+    c ^= 0xFFFFFFFF
+    return (((c >> 15) | (c << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def pb_fields(buf: bytes) -> dict:
+    """Protobuf wire format -> {field: [values]}: varints as ints,
+    length-delimited fields as bytes, fixed64 / fixed32 as their raw bytes."""
+    def varint(pos: int) -> tuple:
+        n = shift = 0
+        while True:
+            b = buf[pos]
+            n |= (b & 0x7F) << shift
+            pos += 1
+            shift += 7
+            if not b & 0x80:
+                return n, pos
+
+    out: dict = {}
+    pos = 0
+    while pos < len(buf):
+        key, pos = varint(pos)
+        wire = key & 7
+        if wire == 0:
+            v, pos = varint(pos)
+        elif wire == 1:
+            v, pos = buf[pos:pos + 8], pos + 8
+        elif wire == 2:
+            n, pos = varint(pos)
+            v, pos = buf[pos:pos + n], pos + n
+        elif wire == 5:
+            v, pos = buf[pos:pos + 4], pos + 4
+        else:
+            fail(f"events: wire type {wire} in a message")
+        out.setdefault(key >> 3, []).append(v)
+    return out
+
+
+def read_events(path: str) -> list:
+    """A TensorBoard event file: each record's framing (uint64 length, its
+    masked CRC32C, the data, the data's masked CRC32C) checked, each Event
+    parsed (wall_time 1, step 2, file_version 3, summary 5; Summary.Value:
+    tag 1, simple_value 2, image 4, tensor 8, metadata 9). Returns a dict an
+    event: ``step``, ``file_version`` and ``values``, a list of (tag, kind,
+    payload) with kind ``scalar`` (the float32), ``image`` (height, width,
+    colorspace, png) or ``tensor`` (dtype, shape, strings, plugin)."""
+    import struct
+
+    table = _crc32c_table()
+    with open(path, "rb") as f:
+        buf = f.read()
+    events, pos = [], 0
+    while pos < len(buf):
+        if pos + 12 > len(buf):
+            fail(f"events: {path} ends inside a record header at byte {pos}")
+        header = buf[pos:pos + 8]
+        (n,) = struct.unpack("<Q", header)
+        (hcrc,) = struct.unpack("<I", buf[pos + 8:pos + 12])
+        data = buf[pos + 12:pos + 12 + n]
+        tail = buf[pos + 12 + n:pos + 16 + n]
+        if len(data) != n or len(tail) != 4:
+            fail(f"events: {path} ends inside a record at byte {pos}")
+        if hcrc != masked_crc32c(header, table) or struct.unpack("<I", tail)[0] != \
+                masked_crc32c(data, table):
+            fail(f"events: a bad CRC in the record at byte {pos} of {path}")
+        pos += 16 + n
+        ev = pb_fields(data)
+        if 1 not in ev:
+            fail("events: an event without wall_time")
+        e = {"step": ev.get(2, [0])[0], "file_version": ev.get(3, [None])[0], "values": []}
+        for summary in ev.get(5, []):
+            for raw in pb_fields(summary).get(1, []):
+                v = pb_fields(raw)
+                tag = v[1][0].decode()
+                if 2 in v:
+                    e["values"].append((tag, "scalar", struct.unpack("<f", v[2][0])[0]))
+                elif 4 in v:
+                    img = pb_fields(v[4][0])
+                    e["values"].append((tag, "image", {
+                        "height": img.get(1, [0])[0], "width": img.get(2, [0])[0],
+                        "colorspace": img.get(3, [0])[0], "png": img[4][0]}))
+                elif 8 in v:
+                    t = pb_fields(v[8][0])
+                    md = pb_fields(v[9][0]) if 9 in v else {}
+                    plugin = pb_fields(md[1][0])[1][0] if 1 in md else None
+                    dims = pb_fields(t[2][0]).get(2, []) if 2 in t else []
+                    e["values"].append((tag, "tensor", {
+                        "dtype": t.get(1, [0])[0], "strings": t.get(8, []), "plugin": plugin,
+                        "shape": [pb_fields(d).get(1, [0])[0] for d in dims]}))
+        events.append(e)
+    return events
+
+
+def run_events(log_dir: str) -> tuple:
+    """(run directory, its events) of the one run under ``log_dir``."""
+    (run,) = os.listdir(log_dir)
+    run_dir = os.path.join(log_dir, run)
+    names = [f for f in os.listdir(run_dir) if f.startswith("events.out.tfevents.")]
+    if len(names) != 1:
+        fail(f"events: {run_dir} holds {len(names)} event files, want 1")
+    events = read_events(os.path.join(run_dir, names[0]))
+    if not events or events[0]["file_version"] != b"brain.Event:2":
+        fail(f"events: the first record of {names[0]} is not brain.Event:2")
+    return run_dir, events
+
+
+def check_events(torch, tmp: str, card: str) -> dict:
+    """Phase 34 (a): the event files of phase 5's lego.txt fit and of
+    phase 33 (b)'s multi-scene run, read by ``read_events``: each
+    ``scalar`` line of train.log has one scalar event of its tag and step
+    with ``simple_value == float32(value)`` (and no other scalar event);
+    each validation step's ``val/render`` a 400 x 400 RGB PNG within one
+    level of that step's val PNG (the event truncates, the PNG rounds); the
+    config text equal to config.txt; ``scene{i}/val_render`` of every scene
+    at the multi-scene validation. Then ``MetricLogger.log_train`` and
+    ``log_validation`` (a 400 x 400 render) timed on the host, median of
+    ``LOG_REPS``, with events and without."""
+    from nerf_tpu_torch.utils.logging import MetricLogger
+    from nerf_tpu_torch.utils.png import decode_png, read_png
+
+    run_dir, events = run_events(os.path.join(tmp, "train_logs_nerf"))
+    by_kind: dict = {"scalar": {}, "image": {}, "tensor": {}}
+    for e in events[1:]:
+        for tag, kind, payload in e["values"]:
+            by_kind[kind].setdefault((tag, e["step"]), []).append(payload)
+    lines = []
+    with open(os.path.join(run_dir, "train.log")) as f:
+        for line in f:
+            if line.startswith("scalar "):
+                _, tag, step, value = line.split()
+                lines.append((tag, int(step), float(value)))
+    for tag, step, value in lines:
+        got = by_kind["scalar"].get((tag, step), [])
+        if got != [float(np.float32(value))]:
+            fail(f"events: scalar {tag} at {step}: events {got}, train.log {value!r}")
+    n_scalar = sum(len(v) for v in by_kind["scalar"].values())
+    if n_scalar != len(lines):
+        fail(f"events: {n_scalar} scalar events, {len(lines)} scalar lines in train.log")
+    val_steps = sorted(int(f[4:11]) for f in os.listdir(run_dir) if f.startswith("val_"))
+    if not val_steps or sorted(s for t, s in by_kind["image"] if t == "val/render") != val_steps:
+        fail(f"events: val/render at {sorted(by_kind['image'])}, val PNGs at {val_steps}")
+    worst = 0
+    for step in val_steps:
+        (img,) = by_kind["image"][("val/render", step)]
+        px = decode_png(img["png"])
+        want = read_png(os.path.join(run_dir, f"val_{step:07d}.png"))
+        if (img["height"], img["width"], img["colorspace"]) != (HW, HW, 3) or px.shape != want.shape:
+            fail(f"events: val/render at {step} is {img['height']}x{img['width']}x"
+                 f"{img['colorspace']}, its PNG {px.shape}")
+        worst = max(worst, int(np.abs(px.astype(np.int32) - want).max()))
+    if worst > 1:
+        fail(f"events: val/render differs from its val PNG by {worst} levels")
+    with open(os.path.join(run_dir, "config.txt"), "rb") as f:
+        config = f.read()
+    text = by_kind["tensor"].get(("config/text_summary", 0), [])
+    if text != [{"dtype": 7, "strings": [config], "plugin": b"text", "shape": [1]}]:
+        fail("events: the config text event is not config.txt as a DT_STRING [1] of the "
+             "text plugin")
+    size = sum(os.path.getsize(os.path.join(run_dir, f)) for f in os.listdir(run_dir)
+               if f.startswith("events.out"))
+    say(f"events (34a): lego.txt fit: {len(events)} records ({size} bytes), every record's "
+        f"CRCs good; {n_scalar} scalar events = the {len(lines)} scalar lines of train.log "
+        f"(float32); val/render at {val_steps}, {HW}x{HW}, within {worst} level of the val "
+        f"PNGs; the config text = config.txt")
+
+    ms_dir, ms_events = run_events(os.path.join(tmp, "ms_logs"))
+    ms_images = {(tag, e["step"]): p for e in ms_events for tag, kind, p in e["values"]
+                 if kind == "image"}
+    want = {(f"scene{i}/val_render", 100) for i in range(MS_SCENES)}
+    if set(ms_images) != want or any((p["height"], p["width"]) != (HW, HW)
+                                     for p in ms_images.values()):
+        fail(f"events: the multi-scene run's images {sorted(ms_images)}, want {sorted(want)}")
+    say(f"events (34a): the multi-scene run (33b): {len(ms_events)} records, "
+        f"scene0..{MS_SCENES - 1}/val_render at 100, each {HW}x{HW}")
+
+    image = read_png(os.path.join(run_dir, f"val_{val_steps[0]:07d}.png")).astype(
+        np.float32) / 255.0
+    timed = {}
+    for events_on in (True, False):
+        lg = MetricLogger(log_dir=os.path.join(tmp, f"logger_timing_{events_on}"),
+                          config_text=config.decode(), enable_tensorboard=events_on,
+                          echo=lambda *a: None)
+        train_ms, val_ms = [], []
+        for i in range(LOG_REPS):
+            t0 = time.perf_counter()
+            lg.log_train(i, 5e-4, 0.01 + i * 1e-4)
+            train_ms.append((time.perf_counter() - t0) * 1e3)
+        for i in range(LOG_REPS):
+            t0 = time.perf_counter()
+            lg.log_validation(i, 20.0 + i, image)
+            val_ms.append((time.perf_counter() - t0) * 1e3)
+        lg.close()
+        timed[events_on] = (statistics.median(train_ms), statistics.median(val_ms))
+    png_bytes = len(by_kind["image"][("val/render", val_steps[0])][0]["png"])
+    say(f"events (34a): MetricLogger on the host, median of {LOG_REPS}: log_train "
+        f"{timed[True][0]:.3f} ms with events ({timed[False][0]:.3f} without), "
+        f"log_validation of a {HW}x{HW} render {timed[True][1]:.2f} ms with events "
+        f"({timed[False][1]:.2f} without; its event's PNG {png_bytes} bytes); {card}")
+    return {"log_train_ms": timed[True][0], "log_validation_ms": timed[True][1]}
+
+
+def jpeg_scene(torch, dev, tmp: str, card: str) -> dict:
+    """Phase 34 (b): the committed JPEG fixtures decoded on the card's host
+    to their committed pixel hashes; one 1008 x 756 4:2:0 frame of the JPEG
+    capture timed; configs/fern.txt at full width on that capture
+    (``images/`` only) with ``llff_factor = 2``, which downsamples the
+    frames to 504 x 378 on load: ``load_scene`` timed, fit() 200 iterations
+    (2 row-5 launches a step, the mse at 190 under half of that at 0, 48
+    row-3 launches for the validation frame) and one spiral request over
+    HTTP (48 row-3 launches, within mean abs 1e-2 of the unfused render).
+    Returns the launches of rows 3 and 5 and the times."""
+    import dataclasses
+    import hashlib
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.data.pipeline import load_scene
+    from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
+    from nerf_tpu_torch.train.loop import fit
+    from nerf_tpu_torch.utils.jpeg import read_jpeg
+
+    with open(os.path.join(JPEG_DIR, "sha256.json")) as f:
+        hashes = json.load(f)
+    for name, want in sorted(hashes.items()):
+        px = read_jpeg(os.path.join(JPEG_DIR, name))
+        if (list(px.shape) != want["shape"]
+                or hashlib.sha256(px.tobytes()).hexdigest() != want["sha256"]):
+            fail(f"jpeg: {name} does not decode to its committed hash")
+    say(f"jpeg (34b): {len(hashes)} fixtures decode to their committed hashes "
+        f"({', '.join(sorted(hashes))})")
+    scene_dir = os.path.join(JPEG_DIR, "llff")
+    frame = os.path.join(scene_dir, "images", "img_000.jpg")
+    frame_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        px = read_jpeg(frame)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    if px.shape != JPEG_FULL_HW + (3,):
+        fail(f"jpeg: {frame} decoded to {px.shape}")
+    say(f"jpeg (34b): one {JPEG_FULL_HW[1]}x{JPEG_FULL_HW[0]} 4:2:0 frame "
+        f"({os.path.getsize(frame)} bytes) decoded in {statistics.median(frame_ms):.1f} ms "
+        f"(median of 3: {', '.join(f'{x:.1f}' for x in frame_ms)}) on the host; {card}")
+
+    cfg = parse_config_file(os.path.join(ROOT, "configs", "fern.txt"))
+    cfg = dataclasses.replace(cfg, dataset_path=scene_dir, llff_factor=JPEG_FACTOR,
+                              num_iters=FERN_ITERS, log_interval=10, val_interval=100,
+                              save_interval=100, save_path=os.path.join(tmp, "jpeg_models"),
+                              log_dir=os.path.join(tmp, "jpeg_logs"))
+    t0 = time.perf_counter()
+    scene = load_scene(cfg, device=dev)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    n_views = len(os.listdir(os.path.join(scene_dir, "images")))
+    if scene.hw != FERN_HW or not scene.ndc:
+        fail(f"jpeg: load_scene gave hw {scene.hw}, ndc {scene.ndc}; want {FERN_HW}, NDC")
+    say(f"jpeg (34b): load_scene(fern.txt, llff_factor {JPEG_FACTOR}) on {n_views} JPEG "
+        f"frames of {JPEG_FULL_HW[1]}x{JPEG_FULL_HW[0]} (images/ only, downsampled to "
+        f"{FERN_HW[1]}x{FERN_HW[0]}): {load_ms:.0f} ms; {card}")
+    del scene
+
+    h, w = FERN_HW
+    per_frame = 2 * math.ceil(h * w / 8192)
+    lines: list = []
+    FusedNerfRender.launches = FusedNerfRender.train_launches = 0
+    FusedNerfRender.bwd_launches = 0          # the main path's counts start here
+    t0 = time.perf_counter()
+    fit(cfg, device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (FusedNerfRender.train_launches, FusedNerfRender.launches,
+              FusedNerfRender.bwd_launches)
+    for line in lines:
+        if "[Iter" in line or "Validation" in line or "Loaded scene" in line:
+            say(f"  {line}")
+    if counts != (2 * FERN_ITERS, per_frame, 0):
+        fail(f"jpeg: fit launched (train, forward, backward) {counts}, want "
+             f"{(2 * FERN_ITERS, per_frame, 0)}")
+    loss = read_scalars(cfg.log_dir)["loss"]
+    last = FERN_ITERS - 10
+    if not all(math.isfinite(v) for v in loss.values()) or not loss[last] < 0.5 * loss[0]:
+        fail(f"jpeg: mse at {last} ({loss[last]}) is not under half of that at 0 ({loss[0]})")
+    step_rps = read_scalars(cfg.log_dir)["rays_per_sec"][last]
+    say(f"jpeg (34b): fit fern.txt on the JPEG capture {FERN_ITERS} iterations in "
+        f"{wall:.1f} s (the scene's load included); launches: train {counts[0]} "
+        f"({counts[0] // FERN_ITERS} a step), forward {counts[1]}; mse {loss[0]:.6f} at 0 -> "
+        f"{loss[last]:.6f} at {last} (ratio {loss[last] / loss[0]:.4f}); step {step_rps:.0f} "
+        f"rays/s; {card}")
+    ckpt = os.path.join(cfg.save_path, f"nerf_model_{FERN_ITERS:06d}")
+    req_ms, served, _ = serve_spiral_pose(torch, dev, cfg, ckpt, "fern.txt (JPEG capture)",
+                                          card)
+    return {"train_launches": counts[0], "fwd_launches": counts[1] + served,
+            "frame_ms": statistics.median(frame_ms), "load_ms": load_ms,
+            "request_ms": req_ms}
+
+
+def phase34(torch, dev, tmp: str, card: str) -> dict:
+    """Phase 34: the event files (a), JPEG frames (b)."""
+    t0 = time.perf_counter()
+    out = dict(check_events(torch, tmp, card), **jpeg_scene(torch, dev, tmp, card))
+    say(f"phase 34: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -4793,6 +5153,7 @@ def main() -> int:
         ferned = fern(torch, dev, tmp, card)
         ngped = ngp(torch, dev, tmp, card)
         par = parallel(torch, dev, tmp, card, lego_ckpt, trained["step_rps"])
+        jpeg = phase34(torch, dev, tmp, card)
     bench_headline(torch, dev)
     bench_siren(torch, dev)
     bench_gabor(torch, dev)
@@ -4810,13 +5171,14 @@ def main() -> int:
     kernels = [row("fused_render_fwd", "fused_render_fwd_tc.cu",
                    f"{nerf_tpu}fused_render.py:222",
                    launches + evaluated["fused_render_fwd"] + ferned["fwd_launches"]
-                   + par["fwd_launches"],
+                   + par["fwd_launches"] + jpeg["fwd_launches"],
                    checks[("bfloat16", 192)],
                    max([c["err"] for c in checks.values()]
                        + [v["err"] for k, v in ndc_checks.items() if k[0] == "fused_render_fwd"]))]
     for name, source, line, launched in (
             ("fused_render_train", "fused_render_train_tc.cu", 315,
-             trained["train_launches"] + ferned["train_launches"] + par["train_launches"]),
+             trained["train_launches"] + ferned["train_launches"] + par["train_launches"]
+             + jpeg["train_launches"]),
             ("fused_render_bwd", "fused_render_train_tc.cu", 242, trained["bwd_launches"])):
         kernels.append(row(name, source,
                            f"{nerf_tpu}fused_render.py:{line}", launched,

@@ -1,8 +1,9 @@
 """Blender-synthetic dataset loader (``transforms_{split}.json`` format), as
 ``nerf_tpu.data.blender``: each frame's PNG scaled to [0,1], RGBA composited
 over a white (or black) background, focal ``0.5*W / tan(0.5*camera_angle_x)``,
-``single_image`` for the first frame only, optional 2x ``half_res``. PNGs
-are read by the port's stdlib decoder (``utils/png.py``).
+``single_image`` for the first frame only, optional 2x ``half_res``. Frames
+(PNG, or JPEG where ``transforms_*.json`` names ``.jpg`` files, as capture
+tools write them) are read by the port's own decoders (``data/frames.py``).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import os
 
 import numpy as np
 
-from nerf_tpu_torch.utils.png import read_png
+from nerf_tpu_torch.data.frames import read_frame
 
 
 def _downsample2x(img: np.ndarray) -> np.ndarray:
@@ -46,7 +47,7 @@ def load_blender(
         img_path = os.path.join(dataset_path, rel)
         if not os.path.splitext(img_path)[1]:
             img_path += ".png"
-        img = read_png(img_path).astype(np.float32) / 255.0
+        img = read_frame(img_path).astype(np.float32) / 255.0
         if img.ndim == 2:
             img = np.repeat(img[..., None], 3, axis=-1)
         if img.shape[-1] == 4:

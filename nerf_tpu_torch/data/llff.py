@@ -11,11 +11,11 @@ bit for bit the JAX package's:
   * holds out every 8th view as the test split;
   * makes a spiral render path for novel views.
 
-Frames are read by the port's stdlib PNG decoder (``utils/png.py``). The
-file listing keeps ``.jpg`` / ``.jpeg`` beside ``.png``, so the count check
-against the poses is the JAX package's; a JPEG frame raises
-``NotImplementedError``: the port decodes PNG only. Use with
-``ops/ndc.py::ndc_rays`` and t in [0, 1].
+Frames (``.png``, ``.jpg``, ``.jpeg``, as the JAX package lists them) are
+read by the port's own decoders (``data/frames.py``: ``utils/png.py`` and
+``utils/jpeg.py``, which gives imageio's pixels), so a capture that ships
+only an ``images/`` folder of JPEGs loads and is downsampled here as the
+JAX package does. Use with ``ops/ndc.py::ndc_rays`` and t in [0, 1].
 """
 
 from __future__ import annotations
@@ -24,16 +24,7 @@ import os
 
 import numpy as np
 
-from nerf_tpu_torch.utils.png import read_png
-
-
-def _imread(path: str) -> np.ndarray:
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: the port decodes PNG frames only (no JPEG codec without "
-            "a package); convert the scene's frames to PNG, e.g. an "
-            "images_{factor}/ folder of PNGs beside poses_bounds.npy")
-    return read_png(path)
+from nerf_tpu_torch.data.frames import read_frame
 
 
 def _downsample(img: np.ndarray, factor: int) -> np.ndarray:
@@ -109,7 +100,7 @@ def load_llff(
 
     images = []
     for name in names:
-        img = _imread(os.path.join(img_dir, name)).astype(np.float32) / 255.0
+        img = read_frame(os.path.join(img_dir, name)).astype(np.float32) / 255.0
         if img.ndim == 2:
             img = np.repeat(img[..., None], 3, axis=-1)
         img = img[..., :3]

@@ -147,8 +147,11 @@ def print_config_summary(cfg: Config, device: torch.device, log=print) -> None:
 
 def fit(cfg: Config, resume_path: Optional[str] = None,
         max_steps: Optional[int] = None, device: str | torch.device = "cuda",
-        log=print):
+        log=print, enable_tensorboard: bool = True):
     """Train per the config on ``device``; returns the final TrainState.
+    With ``cfg.log_dir``, the run's directory holds ``train.log`` and the
+    validation PNGs and, with ``enable_tensorboard``, a TensorBoard event
+    file (``utils/logging.py::MetricLogger``).
 
     With ``multihost`` or a ``mesh_shape``, ``fit`` joins the process group
     (``parallel/multihost.py::init_distributed``: torchrun's environment,
@@ -306,7 +309,8 @@ def fit(cfg: Config, resume_path: Optional[str] = None,
     saver = AsyncCheckpointSaver()
     logger = MetricLogger(log_dir=cfg.log_dir if primary else None,
                           model_type=cfg.model_type, dataset_name=scene.name,
-                          config_text=str(cfg), echo=log)
+                          config_text=str(cfg), enable_tensorboard=enable_tensorboard,
+                          echo=log)
 
     def save(path_fn, step: int) -> Optional[str]:
         """Only the primary rank writes; the others wait for it."""

@@ -73,12 +73,16 @@ def _gather_payload(states: list, scenes: range, mesh, model_type: str, step: in
 
 def fit_multiscene(cfg: Config, dataset_paths: Sequence[str],
                    resume_path: Optional[str] = None, max_steps: Optional[int] = None,
-                   device: str | torch.device = "cuda", log=print) -> list:
+                   device: str | torch.device = "cuda", log=print,
+                   enable_tensorboard: bool = True) -> list:
     """Train one model per scene together. ``cfg`` gives the shared schedule
     and model, ``dataset_paths`` the scenes. The mesh comes from
     ``cfg.mesh_shape`` (e.g. ``"scene:2,data:1"``), or puts the scenes on
     the ``scene`` axis when the ranks divide among them, else every rank on
-    ``data``. Returns this rank's scenes' TrainStates."""
+    ``data``. With ``cfg.log_dir`` and ``enable_tensorboard``, the primary
+    rank also writes a TensorBoard event file, each validation's per-scene
+    images (``scene{i}/val_render``) among its events. Returns this rank's
+    scenes' TrainStates."""
     from nerf_tpu_torch.train.optim import lr_schedule
     from nerf_tpu_torch.train.state import create_train_state
     from nerf_tpu_torch.train.step import VALIDATE, make_eval_render, step_seed
@@ -200,10 +204,17 @@ def fit_multiscene(cfg: Config, dataset_paths: Sequence[str],
     saver = AsyncCheckpointSaver()
     logger = MetricLogger(log_dir=cfg.log_dir if primary else None,
                           model_type=f"{cfg.model_type}_x{num_scenes}",
-                          dataset_name="multiscene", config_text=str(cfg), echo=log)
+                          dataset_name="multiscene", config_text=str(cfg),
+                          enable_tensorboard=enable_tensorboard, echo=log)
+    # every rank gathers the validation images for the primary's events; the
+    # argument, not the rank's own log_dir, decides, so all ranks join
+    log_images = enable_tensorboard
+    max_hw = tuple(max(s.hw[k] for s in scenes) for k in (0, 1))
 
     def run_validation(step: int) -> None:
         psnrs = torch.zeros(len(mine), dtype=torch.float64, device=dev)
+        preds = (torch.zeros((len(mine), *max_hw, 3), dtype=torch.float32, device=dev)
+                 if log_images else None)
         for i, s in enumerate(scenes):
             idx = np.random.randint(s.val_images.shape[0])    # every rank, every scene
             if i not in mine:
@@ -222,11 +233,19 @@ def fit_multiscene(cfg: Config, dataset_paths: Sequence[str],
             st = states[mine.index(i)]
             out = val_render(st.params, st.fine_params, ro.to(dev), rd.to(dev), gen,
                              viewdirs=viewdirs, hw=s.hw)
-            pred = out.rgb.reshape(*s.hw, 3).cpu().numpy()
+            pred = out.rgb.reshape(*s.hw, 3)
+            if preds is not None:
+                preds[mine.index(i), : s.hw[0], : s.hw[1]] = pred.float()
+            pred = pred.cpu().numpy()
             psnrs[mine.index(i)] = float(mse_to_psnr(float(np.mean((pred - img) ** 2))))
         psnrs = gather_scene_values(psnrs, num_scenes, mesh).cpu().numpy()
+        if preds is not None:
+            preds = gather_scene_values(preds, num_scenes, mesh).cpu().numpy()
         for i, p in enumerate(psnrs):
             logger.log_scalar(f"scene{i}/val_psnr", float(p), step)
+            if preds is not None:
+                h, w = scenes[i].hw
+                logger.log_image(f"scene{i}/val_render", preds[i, :h, :w], step)
         logger.log_scalar("val/psnr", float(np.mean(psnrs)), step)
         log(f"[Validation Step] Iter {step}  PSNR: {float(np.mean(psnrs)):.2f} "
             f"(scenes {', '.join(f'{p:.2f}' for p in psnrs)})")

@@ -6,6 +6,7 @@ frame, a card that is not there)."""
 
 from __future__ import annotations
 
+import io
 import json
 import os
 
@@ -191,20 +192,24 @@ def test_bake_matches_nerf_tpu_and_nerf_refuses(root, nerf):
 
 
 def test_llff_and_missing_card_raise(root, nerf):
-    """(f) An LLFF scene with a JPEG frame raises NotImplementedError saying
-    that the port decodes PNG only; the default device (cuda) without a
-    card raises RuntimeError."""
+    """(f) An LLFF scene with a JPEG frame the port does not decode (an
+    arithmetic-coded SOF9 frame) raises NotImplementedError naming the
+    marker; the default device (cuda) without a card raises RuntimeError."""
     from tests.synthetic import make_synthetic_llff_scene
 
     scene = make_synthetic_llff_scene(os.path.join(root, "llff_jpeg"), h=8, w=8,
                                       num_images=2)
     first = os.path.join(scene, "images", "img_000.png")
-    os.rename(first, first[:-4] + ".jpg")
+    buf = io.BytesIO()
+    imageio.imwrite(buf, imageio.imread(first)[..., :3], format="jpeg")
+    os.remove(first)
+    with open(first[:-4] + ".jpg", "wb") as f:      # SOF0 -> SOF9
+        f.write(buf.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1))
     llff = os.path.join(root, "llff.txt")
     with open(nerf["port_cfg"]) as f, open(llff, "w") as g:
         g.write(f.read() + f"dataset_type = llff\ndataset_path = {scene}\nllff_factor = 1\n")
     base = ["--checkpoint", nerf["port_ckpt"], "--output", os.path.join(root, "raised")]
-    with pytest.raises(NotImplementedError, match="PNG frames only"):
+    with pytest.raises(NotImplementedError, match="SOF9"):
         eval_main(["--config", llff, "--device", "cpu"] + base, **QUIET)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
+from tensorboard.backend.event_processing import event_accumulator
 
 from nerf_tpu.config import Config as JaxConfig
 from nerf_tpu.data import pipeline as jpipe
@@ -302,7 +303,7 @@ def test_fit_multiscene_runs_and_resumes(root, one_process):
     and final stacked checkpoints. A resume from the step-2 checkpoint
     restarts at iteration 2 with state.step one ahead (3), as nerf_tpu's
     loop does, so its run to 3 ends on the first run's final states bit for
-    bit."""
+    bit. The event file holds each scene's validation image."""
     ms = one_process["ms"]
     scal = _scalars(ms.log_dir)
     assert sorted(scal["scene0/mse"]) == sorted(scal["scene1/mse"]) == [0, 1, 2, 3]
@@ -310,6 +311,13 @@ def test_fit_multiscene_runs_and_resumes(root, one_process):
     assert sorted(scal["scene0/val_psnr"]) == sorted(scal["val/psnr"]) == [2]
     np.testing.assert_allclose(scal["val/psnr"][2], np.mean(
         [scal["scene0/val_psnr"][2], scal["scene1/val_psnr"][2]]))
+    (run,) = os.listdir(ms.log_dir)
+    acc = event_accumulator.EventAccumulator(os.path.join(ms.log_dir, run),
+                                             size_guidance={event_accumulator.IMAGES: 0})
+    acc.Reload()
+    for i in range(2):          # nerf_tpu's per-scene image events
+        assert [(e.step, e.height, e.width) for e in acc.Images(f"scene{i}/val_render")] == [
+            (2, 16, 16)]
     final = load_checkpoint(_ms_ckpt(ms, 4))
     assert final["num_scenes"] == 2 and final["train_step"] == 4
     assert all(v.shape[0] == 2 for v in final["params"].values())
