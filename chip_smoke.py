@@ -7,7 +7,8 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
 
   1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
   2. the build of every kernel library from the sources in the checkout
-     (one nvcc per source, started together), timed, and the count of
+     (one nvcc per source, started together with phase 35's NeRF
+     libraries at the wider shapes), timed, and the count of
      tensor-core instructions in the SASS of the fourteen bf16 libraries
      on the tensor cores (the NeRF, SIREN and GaborNet train passes, the
      NeRF, SIREN and GaborNet forward renders, the KiloNeRF, NeRF, SIREN
@@ -288,9 +289,30 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      launches a step, the mse at 190 under half of that at 0) and one
      spiral request over HTTP (48 launches, within mean abs 1e-2 of the
      unfused render).
+ 35. the NeRF kernels at the wider shapes nerf_tpu's take (each shape's
+     libraries built in phase 2 with its plan's -D flags,
+     nerf_tpu_torch/ops/cuda/nerf_plan.py): (a) rows 1-5 at hidden 512, 768
+     and 1024 (L = 10 / 4) and 512 and 1024 with L = 12 / 6 (p_pad 128,
+     d_pad 64), float32 and bfloat16, against their plain versions (row 3
+     at 8192 x 64, rows 4-5 at 1024 x 64 and 192, rows 1-2 at 65,536,
+     16,384 and 37 points; the bf16 field backward under WIDE_FIELD_TOL
+     beside the plain version's own spread from float64 sums, the f32 one
+     at 1024 under WIDE_F32_GRAD_TOL), each twice for identical bits, timed
+     against its bound; (b) configs/lego.txt at hidden_dim = 1024 on the
+     synthetic scene: fit() 200 iterations (the mse falls), a resume 50 ->
+     60 bit for bit, two render-route steps (rows 3 and 4), one
+     --occupancy 64 request (row 1's bake at 1024) and one eval CLI frame,
+     each within mean abs 1e-2 of the unfused render; (c) fit() with
+     distill_from = (b)'s checkpoint: 20 distillation steps of 16,384
+     points (the teacher's row 1 and the student's rows 1 and 2, both at
+     1024; the loss falls), then 10 iterations. The launches of rows 1-5
+     on (b) and (c) are the wrappers' counts by shape (shape_launches).
+     ``python3 chip_smoke.py --phase 35`` runs the build and phase 35
+     alone.
 
 The last lines are a JSON object of per-kernel numbers (all nineteen
-kernels, row 18 in its two forms), the card, and ``{"ok": true,
+kernels, row 18 in its two forms; rows 1-5 with their numbers at each
+phase-35 shape under "widths"), the card, and ``{"ok": true,
 "device": {...}}``. Needs a CUDA device and this checkout;
 imports nothing of JAX or of the JAX package.
 """
@@ -764,7 +786,8 @@ def get(url: str) -> tuple:
 
 def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
           model_type: str | None = None, overrides: dict | None = None,
-          svc=None, compare: tuple = ("/pose/1",), init=None, reference=None):
+          svc=None, compare: tuple = ("/pose/1",), init=None, reference=None,
+          routes: tuple = ("/pose/0", "/pose/1", "/render")):
     """Phase 4 (``config`` lego.txt, the NeRF kernels), 8 (lego_siren.txt,
     the SIREN kernels), 11 (lego_siren.txt with ``model_type`` gabor, the
     GaborNet kernels) or 14 (the kilonerf config: lego_siren.txt with
@@ -774,8 +797,9 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
     lego.txt already built with an occupancy prior, every request in
     ``compare``); or phase 24 (the plenoxels config, ``init`` applied to
     the seeded model before the save, the unfused render through
-    ``reference(model)``); returns the kernel launches of the three image
-    requests."""
+    ``reference(model)``); or phase 35 (``svc`` lego.txt at hidden 1024
+    with an occupancy prior, the one request of ``routes``, no profile);
+    returns the kernel launches of the image requests."""
     label = config if model_type is None else f"{config} (model_type = {model_type})"
     import dataclasses
 
@@ -826,7 +850,7 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
         health = json.loads(body)
         if code != 200 or health["status"] != "ok" or health["hw"] != [HW, HW]:
             fail(f"/health: {code} {health}")
-        for route in ("/pose/0", "/pose/1", f"/render?m={m}"):
+        for route in (r if r != "/render" else f"/render?m={m}" for r in routes):
             before = fused_cls.launches
             t0 = time.perf_counter()
             code, ctype, body = get(base + route)
@@ -849,7 +873,7 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
         server.server_close()
         thread.join(timeout=30)
     launches = fused_cls.launches
-    if launches != 3 * per_image:
+    if launches != len(routes) * per_image:
         fail(f"{label}: main path launched the kernel {launches} times")
 
     # served images against the unfused render of the same request (with
@@ -881,8 +905,9 @@ def serve(torch, dev, tmp: str, config: str, fused_cls, kernel: str,
         f"{len(times)}), {HW * HW / med:.0f} rays/s, {per_image} launches "
         f"per request, model {label} ({cfg.compute_dtype}, "
         f"{cfg.num_samples}+{cfg.num_fine_samples})")
-    profile_device(torch, lambda: svc.render_pose(svc.orbit_pose(2), key_idx=2),
-                   kernel, f"one {label} request")
+    if len(routes) > 1:
+        profile_device(torch, lambda: svc.render_pose(svc.orbit_pose(2), key_idx=2),
+                       kernel, f"one {label} request")
     return launches
 
 
@@ -949,15 +974,18 @@ def profile_device(torch, fn, kernel: str, what: str) -> None:
 # ---------------------------------------------------------------- phase 3b
 
 
-def grad_errors(torch, got, ref, views=None) -> dict:
+def grad_errors(torch, got, ref, views=None, hidden: int = 256, pads=None) -> dict:
     """Per gradient tensor, max |kernel - plain| over max |plain|, the max
     floored at 1e-2 of the model's largest gradient element (b10s is one
     sum of terms of both signs, whose residue alone is no scale). ``views``
-    names the tensors of a flat pair (default: the NeRF layout)."""
-    from nerf_tpu_torch.ops.cuda.fused_render import grad_views
+    names the tensors of a flat pair (default: the NeRF layout at
+    ``hidden`` with the encodings padded to ``pads``)."""
+    from nerf_tpu_torch.ops.cuda.fused_render import DP, PP, grad_views
 
-    views = views or grad_views
-    g, r = views(*got, 256), views(*ref, 256)
+    if views is None:
+        g, r = (grad_views(*x, hidden, pads or (PP, DP)) for x in (got, ref))
+    else:
+        g, r = views(*got, 256), views(*ref, 256)
     floor = 1e-2 * max(float(v.abs().max()) for v in r.values())
     out = {}
     for k in r:
@@ -1718,16 +1746,18 @@ def check_kilonerf_kernels(torch, dev):
 
 
 def field_bound_ms(n: int, cdt: str, weight_bytes: int,
-                   grad_bytes: int | None = None, family: str = "nerf") -> tuple:
+                   grad_bytes: int | None = None, family: str = "nerf",
+                   macs: int | None = None) -> tuple:
     """Least time of a field forward (``grad_bytes`` None) or backward over
-    ``n`` points (the NeRF field's, or ``family`` "siren" / "gabor"): the
-    products (2 operations a MAC) over the compute dtype's peak and the
+    ``n`` points (the NeRF field's, its forward's MACs a point ``macs``,
+    lego.txt's by default; or ``family`` "siren" / "gabor"): the products
+    (2 operations a MAC) over the compute dtype's peak and the
     transcendentals over the float32 CUDA-core rate (their sum in float32,
     the larger in bfloat16), against the bytes that must move (see
     FIELD_TRIG and SG_FIELD)."""
     fwd = grad_bytes is None
     if family == "nerf":
-        macs = mlp_macs(256, 63, 27) * (1 if fwd else 3)
+        macs = (macs or mlp_macs(256, 63, 27)) * (1 if fwd else 3)
         trig = FIELD_TRIG * (1 if fwd else 2)
     else:
         macs = SG_FIELD[family]["macs"] * (1 if fwd else 3)
@@ -2294,23 +2324,24 @@ def read_scalars(log_dir: str) -> dict:
 
 
 def check_resume(torch, dev, tmp: str, cfg, name: str, loss: dict,
-                 tag: str | None = None, until: int = 120) -> None:
-    """A resume from the step-100 checkpoint of ``fit``'s run: the restore
-    is exact, and every resumed step to ``until`` that the first run logged
-    repeats the first run's mse (``loss``) at the same state.step (the loop
-    restarts at the saved iteration while state.step is one ahead). The
-    resumed run saves and logs under ``tag`` (default ``name``)."""
+                 tag: str | None = None, until: int = 120, at: int = 100) -> None:
+    """A resume from the step-``at`` checkpoint of ``fit``'s run: the
+    restore is exact, and every resumed step to ``until`` that the first run
+    logged repeats the first run's mse (``loss``) at the same state.step
+    (the loop restarts at the saved iteration while state.step is one
+    ahead). The resumed run saves and logs under ``tag`` (default
+    ``name``)."""
     import dataclasses
 
     from nerf_tpu_torch.train.loop import fit
     from nerf_tpu_torch.train.state import create_train_state
     from nerf_tpu_torch.utils.checkpoint import load_checkpoint, restore_train_state
 
-    ckpt = os.path.join(cfg.save_path, f"{name}_model_000100")
+    ckpt = os.path.join(cfg.save_path, f"{name}_model_{at:06d}")
     saved = load_checkpoint(ckpt)
     probe = create_train_state(cfg, device=dev)
     restore_train_state(probe, ckpt)
-    same = probe.step == saved["train_step"] == 101
+    same = probe.step == saved["train_step"] == at + 1
     for m, sd in ((probe.params, saved["params"]), (probe.fine_params, saved["fine_params"])):
         if m is None:
             same &= sd == {}
@@ -2329,7 +2360,7 @@ def check_resume(torch, dev, tmp: str, cfg, name: str, loss: dict,
     resumed = fit(cfg2, resume_path=ckpt, device=dev, log=lines2.append)
     loss2 = read_scalars(cfg2.log_dir)["loss"]
     pairs = [(i, i + 1) for i in sorted(loss2) if i + 1 in loss]
-    if resumed.step != until + 1 or len(pairs) != sum(100 < j <= until for j in loss):
+    if resumed.step != until + 1 or len(pairs) != sum(at < j <= until for j in loss):
         fail(f"resume: state.step {resumed.step}, comparable steps {pairs}")
     for i, j in pairs:
         say(f"train: resumed iteration {i} (state.step {i + 2}) mse "
@@ -4974,6 +5005,554 @@ def phase34(torch, dev, tmp: str, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 35
+
+# The NeRF family's five kernels (rows 1-5) at the wider shapes nerf_tpu's
+# take: hidden 512, 768 and 1024 at lego.txt's encodings (L = 10 / 4:
+# p_pad 64, d_pad 32), and hidden 512 and 1024 with wider ones (L = 12 / 6:
+# p_pad 128, d_pad 64; at 1024 the largest shared-memory plan). Each
+# shape's libraries are built from the checkout with its plan's -D flags
+# (nerf_tpu_torch/ops/cuda/nerf_plan.py); tests/test_torch_port_cuda.py
+# holds every shape the kernels take against the plain versions.
+WIDE_CASES = ((512, 10, 4), (768, 10, 4), (1024, 10, 4), (512, 12, 6), (1024, 12, 6))
+# Row 3 at the serving chunk (8192 rays) x 64 samples: at 192 the plain
+# version's activations at hidden 1024 (every layer of 1.6M samples in
+# float32 kept for the comparison) would hold about 70 GB. Rows 4 and 5 at
+# the training batch (1024 rays) x 64 and 192 samples (256 cut likewise),
+# rows 1 and 2 at 65,536, 16,384 and 37 points (1,000 cut for time).
+WIDE_FWD = (8192, 64)
+WIDE_TRAIN_S = (64, 192)
+WIDE_FIELD_N = (65536, 16384, 37)
+WIDE_REPS = 2          # timed calls a turn (plain, kernel, kernel, plain)
+# The bfloat16 field backward at hidden 512-1024 (row 2) against its plain
+# version: weight gradients within 1e-1 of their max (GRAD_TOL's 5e-2 at
+# 256) and the point and direction cotangents within 5e-2 at the 99.9th
+# percentile with at most 5% of the points (and at least 4) beyond
+# FIELD_PT_TOL's 5e-3 (0.1% and 5e-3 at 256). Wider layers put more
+# bf16-rounded values on each point's path, so a float32 sum in another
+# order flips more roundings, and a flip moves that point's cotangent by a
+# few percent of the max: the plain version itself departs from the same
+# arithmetic with float64 sums (and the same bf16 roundings) by 2.4e-3 /
+# 1.2e-2 / 2.0e-2 / 2.3e-2 at the 99.9th percentile at hidden 256 / 512 /
+# 768 / 1024, 0.09% / 0.31% / 0.79% / 1.32% of 16,384 points beyond 5e-3
+# (plain_rounding_spread on an NVIDIA H100 80GB HBM3 at 700 W), and the
+# kernel departs from the plain version by as much: 2.0e-2 / 2.6e-2 /
+# 2.4e-2 on those points at 512 / 768 / 1024, up to 3.9% of 65,536 lattice
+# points beyond 5e-3 and 3 of 37 points at 1024, weight gradients up to
+# 8.0e-2 (b8 over 37 points at 1024; the same card).
+WIDE_FIELD_TOL = {"float32": (GRAD_TOL["float32"], FIELD_PT_TOL["float32"], 0.001, 0),
+                  "bfloat16": (1e-1, 5e-2, 0.05, 4)}
+# The float32 field backward's weight gradients at hidden 1024: within 1e-2
+# of their max (GRAD_TOL's 5e-3 at 256-768). On the 65,536 lattice points
+# the plain version itself departs from the same arithmetic in float64 by
+# up to 4.2e-3 (w9, L = 10 / 4) and 4.7e-3 (w6p, L = 12 / 6) of the max, and
+# the kernel by 5.3e-3 (b9, L = 12 / 6; NVIDIA H100 80GB HBM3 at 700 W): a
+# 1024-long float32 sum in another order moves a layer's pre-activations
+# near zero across it, and a bias gradient sums its masked column over
+# every point. Each run prints the plain version's distance at 1024.
+WIDE_F32_GRAD_TOL = {1024: 1e-2}
+
+
+def plain_rounding_spread(torch, packed, pts, dirs, cot, lp: int, ld: int) -> tuple:
+    """The bf16 field backward's plain version against itself with float64
+    sums (``nerf_field_bwd_plain(..., sums=torch.float64)``: the same
+    encodings and rounding points): the 99.9th percentile of each point's
+    cotangent error (max abs over its point and direction coordinates, each
+    over its max |g|) and the share of points beyond 5e-3."""
+    from nerf_tpu_torch.ops.cuda.fused_nerf import nerf_field_bwd_plain
+
+    with torch.no_grad():
+        ref = nerf_field_bwd_plain(packed, pts, dirs, cot, lp, ld)
+        exact = nerf_field_bwd_plain(packed, pts, dirs, cot, lp, ld, sums=torch.float64)
+    e = torch.maximum(*((ref[i] - exact[i]).abs().max(dim=1).values / exact[i].abs().max()
+                        for i in (2, 3)))
+    return float(torch.quantile(e, 0.999)), float((e > 5e-3).float().mean())
+
+
+def wide_shapes():
+    """(hidden, L, L_d, plan) of every phase-35 case."""
+    from nerf_tpu_torch.ops.cuda.nerf_plan import enc_pads, plan
+
+    return [(h, lp, ld, plan(h, *enc_pads(lp, ld))) for h, lp, ld in WIDE_CASES]
+
+
+def build_wide(torch) -> tuple:
+    """Every library at the default shape (phase 2's) and phase 35's: the
+    eight NeRF libraries at each case's shape, one nvcc each, all started
+    together. Returns the default ones' BuildInfo."""
+    from nerf_tpu_torch.ops.cuda import build
+
+    t0 = time.perf_counter()
+    wide = [job for *_, pl in wide_shapes() for job in pl.builds]
+    infos = build.build_shaped([(name, "", ()) for name in build.LIBS] + wide)
+    say(f"build: phase 35's {len(wide)} NeRF libraries at hidden 512-1024 in "
+        f"{time.perf_counter() - t0:.1f} s (with the default ones, one nvcc each, in "
+        "parallel)")
+    for (name, tag, _), info in zip(wide, infos[len(build.LIBS):]):
+        spills = [ln.strip() for ln in info.log.splitlines()
+                  if "registers" in ln or "spill" in ln]
+        say(f"build: {name} {tag} {info.seconds:.1f} s; " + " | ".join(spills))
+    return infos[:len(build.LIBS)]
+
+
+def timed_turns(torch, fns: dict, reps: int = WIDE_REPS) -> dict:
+    """Median ms of each of ``fns`` ((name, "plain" | "kernel") -> callable),
+    after one warm-up call each, timed in turns plain, kernel, kernel,
+    plain."""
+    times = {k: [] for k in fns}
+    for f in fns.values():
+        f()
+    for name in {k[0] for k in fns}:
+        for which in ("plain", "kernel", "kernel", "plain"):
+            times[(name, which)] += time_calls(torch, fns[(name, which)], reps)
+    torch.cuda.empty_cache()
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def check_wide_kernels(torch, dev, card: str) -> dict:
+    """Phase 35 (a): rows 1-5 against their plain versions at every
+    WIDE_CASES shape, float32 and bfloat16, TF32 off, under the tolerances
+    of phases 3 and 17 (TOL, GRAD_TOL, FIELD_PT_TOL; the bf16 field
+    backward under WIDE_FIELD_TOL, beside the plain version's own spread
+    from float64 sums): the forward render (8192 x 64), the train pass and
+    the render backward (1024 x 64 and 192), the field forward and backward
+    (65,536, 16,384 and 37 points); the tensor-core ones run twice for
+    identical bits. Each case's ms (median of turns), its plain version's
+    and its bound (mlp_macs at the case's widths) are printed beside the
+    card. Returns them by (row, case, dtype) with each row's worst error."""
+    from nerf_tpu_torch.models.nerf import NeRFModel
+    from nerf_tpu_torch.ops.cuda.fused_nerf import (
+        NerfField, nerf_field_bwd_plain, nerf_field_plain)
+    from nerf_tpu_torch.ops.cuda.fused_render import (
+        FusedNerfRender, fused_render_bwd_plain, fused_render_plain, fused_train_plain,
+        pack_f32)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    results = {}
+    sets = field_point_sets(torch, dev)
+    sets = {k: v for k, v in sets.items() if v[0].shape[0] in WIDE_FIELD_N}
+    if "uniform 16384" in sets:
+        # the bf16 field backward's own rounding spread at hidden 256, beside
+        # the wider widths' (WIDE_FIELD_TOL)
+        pts, dirs = sets["uniform 16384"]
+        model = NeRFModel(compute_dtype="bfloat16",
+                          generator=torch.Generator().manual_seed(35)).to(dev)
+        with torch.no_grad():
+            fpacked = NerfField(model).cast(*pack_f32(model))
+        cot = torch.randn(16384, 4, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(16384))
+        q, frac = plain_rounding_spread(torch, fpacked, pts, dirs, cot, 10, 4)
+        say(f"phase 35 nerf field h256 L10/4 bfloat16 uniform 16384: the plain version "
+            f"against its float64 sums: 99.9% {q:.3e}, {frac:.4f} of the points beyond 5e-3")
+        del model, fpacked
+    for h, lp, ld, pl in wide_shapes():
+        case = f"h{h} L{lp}/{ld}"
+        real_p, real_d = 3 * (1 + 2 * lp), 3 * (1 + 2 * ld)
+        macs = mlp_macs(h, real_p, real_d)
+        skipped = 2 * h * real_p + (h // 2) * real_d
+        for cdt in ("float32", "bfloat16"):
+            tc = cdt == "bfloat16"
+            model = NeRFModel(hidden_dim=h, pos_encoding_dim=lp, dir_encoding_dim=ld,
+                              compute_dtype=cdt,
+                              generator=torch.Generator().manual_seed(35)).to(dev)
+            fr = FusedNerfRender(model, 2.0, 6.0, normalize=True)
+            field = NerfField(model)
+            with torch.no_grad():
+                packed = fr.pack(model)
+            if not (fr.supported() and field.supported()):
+                fail(f"phase 35 {case}: the kernels do not take the shape")
+            weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
+                            + packed.vec.numel() * 4)
+            grad_bytes = (packed.wmat.numel() + packed.vec.numel()) * 4
+            tol, gtol = TOL[cdt], GRAD_TOL[cdt]
+
+            def gerrs(got, ref):
+                return grad_errors(torch, got, ref, hidden=h, pads=fr.pads)
+
+            # ---- row 3: the forward render
+            r, s = WIDE_FWD
+            cam, rd, t, _ = camera_batch(torch, dev, r, s, 3500 + s)
+            o_aff, d_aff = fr.affine(cam, rd)
+            with torch.no_grad():
+                ref = fused_render_plain(packed, o_aff, d_aff, rd, t, lp, ld)
+                out = fr(packed, cam, rd, rd, t)
+                again = fr(packed, cam, rd, rd, t)
+                torch.cuda.synchronize()
+                if not all(torch.equal(out[k], again[k]) for k in out):
+                    fail(f"phase 35 fused_render_fwd {case} {cdt}: two launches differ")
+                errs = {k: float((out[k] - ref[i]).abs().max())
+                        for i, k in enumerate(("rgb", "acc", "depth", "weights"))}
+                if not all(torch.isfinite(out[k]).all() for k in out):
+                    fail(f"phase 35 fused_render_fwd {case} {cdt}: non-finite output")
+                del ref, out, again
+                torch.cuda.empty_cache()
+                tm = timed_turns(torch, {
+                    ("fwd", "plain"): lambda: fused_render_plain(packed, o_aff, d_aff, rd, t,
+                                                                 lp, ld),
+                    ("fwd", "kernel"): lambda: fr(packed, cam, rd, rd, t)})
+            bms, by = bound_ms(r, s, cdt, weight_bytes, macs)
+            say(f"phase 35 kernel fused_render_fwd {case} {cdt} R={r} S={s} "
+                f"({fr.fwd_library()} {pl.tag}): max_abs_err "
+                + " ".join(f"{k}={v:.3e}(tol {tol[k]:.0e})" for k, v in errs.items())
+                + f" | kernel {tm['fwd', 'kernel']:.3f} ms, two launches bit-identical, plain "
+                f"{tm['fwd', 'plain']:.3f} ms, bound {bms:.3f} ms ({by}), share "
+                f"{bms / tm['fwd', 'kernel']:.4f}; {card}")
+            if any(v > tol[k] for k, v in errs.items()):
+                fail(f"phase 35 fused_render_fwd {case} {cdt} disagrees: {errs}")
+            results[("fused_render_fwd", case, cdt)] = dict(
+                err=max(errs.values()), ms=tm["fwd", "kernel"], plain_ms=tm["fwd", "plain"],
+                bound_ms=bms, bound_by=by)
+
+            # ---- rows 5 and 4: the train pass and the render backward
+            for s in WIDE_TRAIN_S:
+                cam, rd, t, tgt = camera_batch(torch, dev, R_TRAIN, s, 3600 + s)
+                o_aff, d_aff = fr.affine(cam, rd)
+                with torch.no_grad():
+                    ref = fused_train_plain(packed, o_aff, d_aff, rd, t, tgt, True, lp, ld)
+                    got = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+                    again = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(x, y) for x, y in zip(got[:4] + got[4],
+                                                                 again[:4] + again[4])):
+                        fail(f"phase 35 train {case} {cdt} S={s}: two launches differ")
+                    del again
+                    errs = {"loss": float(abs(got[0] - ref[0]) / abs(ref[0]))}
+                    for i, k in ((1, "rgb"), (2, "acc"), (3, "weights")):
+                        errs[k] = float((got[i] - ref[i]).abs().max())
+                    gerr = gerrs(got[4], ref[4])
+                    scale = 1.0 / (3.0 * R_TRAIN)
+                    g_ray = torch.zeros(R_TRAIN, 8, device=dev)
+                    g_ray[:, :3] = 2.0 * scale * (ref[1] + (1.0 - ref[2])[:, None] - tgt)
+                    g_ray[:, 3] = -g_ray[:, :3].sum(-1)
+                    ref_b = fused_render_bwd_plain(packed, o_aff, d_aff, rd, t, g_ray, lp, ld)
+                    got_b = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+                    again_b = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(x, y) for x, y in zip(got_b, again_b)):
+                        fail(f"phase 35 render backward {case} {cdt} S={s}: two launches "
+                             "differ")
+                    berr = gerrs(got_b, ref_b)
+                    cross = gerrs(got_b, got[4])
+                    del ref, got, ref_b, got_b, again_b
+                    torch.cuda.empty_cache()
+                    tm = timed_turns(torch, {
+                        ("train", "plain"): lambda: fused_train_plain(
+                            packed, o_aff, d_aff, rd, t, tgt, True, lp, ld),
+                        ("train", "kernel"): lambda: fr._train(
+                            packed, o_aff, d_aff, rd, t, tgt, True),
+                        ("bwd", "plain"): lambda: fused_render_bwd_plain(
+                            packed, o_aff, d_aff, rd, t, g_ray, lp, ld),
+                        ("bwd", "kernel"): lambda: fr._backward(
+                            packed, o_aff, d_aff, rd, t, g_ray)})
+                bad = {k: v for k, v in errs.items() if v > tol["rgb"]}
+                for label, e in (("train", gerr), ("bwd", berr), ("bwd vs train", cross)):
+                    worst = max(e, key=e.get)
+                    say(f"phase 35 kernel {label} {case} {cdt} R={R_TRAIN} S={s}: gradient "
+                        f"error worst {worst}={e[worst]:.3e} (tol {gtol:.0e}), median "
+                        f"{statistics.median(e.values()):.3e}")
+                    bad.update({f"{label}:{k}": v for k, v in e.items() if v > gtol})
+                say(f"phase 35 kernel train {case} {cdt} R={R_TRAIN} S={s}: "
+                    + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+                    + f" (tol {tol['rgb']:.0e}); two launches of each bit-identical")
+                for name, key, e in (("fused_render_train", "train", gerr),
+                                     ("fused_render_bwd", "bwd", berr)):
+                    bms, by = bound_ms(R_TRAIN, s, cdt, weight_bytes, 3 * macs - skipped,
+                                       grad_bytes=grad_bytes,
+                                       train=name == "fused_render_train")
+                    ms, plain_ms = tm[key, "kernel"], tm[key, "plain"]
+                    say(f"phase 35 kernel {name} {case} {cdt} R={R_TRAIN} S={s} "
+                        f"({fr.grad_library(key == 'train')} {pl.tag}): kernel {ms:.3f} ms, "
+                        f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), share "
+                        f"{bms / ms:.4f}; {card}")
+                    worst = max(list(e.values())
+                                + (list(errs.values()) if key == "train" else []))
+                    results[(name, case, cdt, s)] = dict(err=worst, ms=ms, plain_ms=plain_ms,
+                                                         bound_ms=bms, bound_by=by)
+                if bad:
+                    fail(f"phase 35 train/backward {case} {cdt} S={s} disagree: {bad}")
+
+            # ---- rows 1 and 2: the field forward and backward
+            with torch.no_grad():
+                fpacked = field.cast(*pack_f32(model))
+            for label, (pts, dirs) in sets.items():
+                n = pts.shape[0]
+                cot = torch.randn(n, 4, device=dev,
+                                  generator=torch.Generator(device=dev).manual_seed(n))
+                with torch.no_grad():
+                    ref = nerf_field_plain(fpacked, pts, dirs, lp, ld)
+                    out = field._forward(fpacked, pts, dirs)
+                    again = field._forward(fpacked, pts, dirs)
+                    ref_g = nerf_field_bwd_plain(fpacked, pts, dirs, cot, lp, ld)
+                    got_g = field._backward(fpacked, pts, dirs, cot)
+                    again_g = field._backward(fpacked, pts, dirs, cot)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(x, y) for x, y in zip(out + got_g, again + again_g)):
+                        fail(f"phase 35 field {case} {cdt} {label}: two launches differ")
+                    del again, again_g
+                for x in out + got_g:
+                    if not torch.isfinite(x).all():
+                        fail(f"phase 35 field {case} {cdt} {label}: non-finite output")
+                errs = {"rgb": float((out[0] - ref[0]).abs().max()),
+                        "sigma": float((out[1] - ref[1]).abs().max())}
+                gerr = gerrs(got_g[:2], ref_g[:2])
+                w = max(gerr, key=gerr.get)
+                ftol, ptol, share, least = WIDE_FIELD_TOL[cdt]
+                own = ""
+                if not tc and h in WIDE_F32_GRAD_TOL:
+                    ftol = WIDE_F32_GRAD_TOL[h]
+                    if n == 65536:
+                        with torch.no_grad():
+                            exact = nerf_field_bwd_plain(fpacked, pts, dirs, cot, lp, ld,
+                                                         sums=torch.float64)
+                        e_own = gerrs(ref_g[:2], exact[:2])
+                        w_own = max(e_own, key=e_own.get)
+                        own = (f"; the plain version's weight gradients against their "
+                               f"float64 sums: worst {w_own}={e_own[w_own]:.3e}")
+                        del exact
+                pt, bad_pts = {}, 0
+                for name, i in (("points", 2), ("dirs", 3)):
+                    e = (got_g[i] - ref_g[i]).abs().max(dim=1).values / ref_g[i].abs().max()
+                    pt[name] = float(torch.quantile(e, 0.999))
+                    bad_pts = max(bad_pts, int((e > FIELD_PT_TOL[cdt]).sum()))
+                spread = ""
+                if tc and n == 16384:
+                    q, frac = plain_rounding_spread(torch, fpacked, pts, dirs, cot, lp, ld)
+                    spread = (f"; the plain version against its float64 sums: 99.9% {q:.3e}, "
+                              f"{frac:.4f} of the points beyond 5e-3")
+                say(f"phase 35 kernel nerf field {case} {cdt} {label}: forward rgb="
+                    f"{errs['rgb']:.3e} sigma={errs['sigma']:.3e} (tol {tol['rgb']:.0e}); "
+                    f"weight gradient worst {w}={gerr[w]:.3e} (tol {ftol:.0e}); point / "
+                    f"direction cotangent 99.9% {pt['points']:.3e} / {pt['dirs']:.3e} (tol "
+                    f"{ptol:.0e}), {bad_pts} points beyond {FIELD_PT_TOL[cdt]:.0e} (at most "
+                    f"{max(share * n, least):.0f}); two launches of each bit-identical{spread}"
+                    f"{own}")
+                if (max(errs.values()) > tol["rgb"] or gerr[w] > ftol
+                        or max(pt.values()) > ptol or bad_pts > max(share * n, least)):
+                    fail(f"phase 35 nerf field {case} {cdt} {label} disagrees with its plain "
+                         "versions")
+                for name, e in (("fused_nerf_fwd", max(errs.values())),
+                                ("fused_nerf_bwd", max(gerr[w], *pt.values()))):
+                    key = (name, case, cdt)
+                    results.setdefault(key, {"err": 0.0})
+                    results[key]["err"] = max(results[key]["err"], e)
+                del ref, out, ref_g, got_g
+                torch.cuda.empty_cache()
+                if n == 37:
+                    continue
+                with torch.no_grad():
+                    tm = timed_turns(torch, {
+                        ("fwd", "plain"): lambda: nerf_field_plain(fpacked, pts, dirs, lp, ld),
+                        ("fwd", "kernel"): lambda: field._forward(fpacked, pts, dirs),
+                        ("bwd", "plain"): lambda: nerf_field_bwd_plain(
+                            fpacked, pts, dirs, cot, lp, ld),
+                        ("bwd", "kernel"): lambda: field._backward(fpacked, pts, dirs, cot)})
+                for name, key in (("fused_nerf_fwd", "fwd"), ("fused_nerf_bwd", "bwd")):
+                    bms, by = field_bound_ms(n, cdt, weight_bytes,
+                                             grad_bytes if key == "bwd" else None,
+                                             macs=macs)
+                    ms, plain_ms = tm[key, "kernel"], tm[key, "plain"]
+                    say(f"phase 35 kernel {name} {case} {cdt} {label} "
+                        f"({getattr(field, key + '_library')()} {pl.tag}): kernel {ms:.3f} "
+                        f"ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), share "
+                        f"{bms / ms:.4f}; {card}")
+                    results[(name, case, cdt)].update(
+                        {n: dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)})
+            del model, fr, field, packed, fpacked
+            torch.cuda.empty_cache()
+    say(f"phase 35 (a): {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+WIDE_LEGO_H = 1024     # (b): lego.txt at hidden 1024 (mip-NeRF 360's NeRF MLP width)
+WIDE_ITERS = 200       # (b): fit() iterations
+WIDE_SAVE = 50         # (b): the checkpoint a resume starts from (to WIDE_SAVE + 10)
+WIDE_DISTILL = 20      # (c): distillation steps of 16,384 points
+WIDE_TUNE = 10         # (c): photometric iterations after them
+# the wrappers' counters (FusedNerfRender's, NerfField's) by row
+WIDE_COUNTERS = {"FusedNerfRender": {"launches": "fused_render_fwd",
+                                     "train_launches": "fused_render_train",
+                                     "bwd_launches": "fused_render_bwd"},
+                 "NerfField": {"launches": "fused_nerf_fwd", "bwd_launches": "fused_nerf_bwd"}}
+
+
+def wide_lego(torch, dev, tmp: str, card: str) -> dict:
+    """Phase 35 (b): configs/lego.txt at hidden_dim = 1024 (bfloat16, 64 +
+    128 samples, 1024 rays), written as the phase's own config, on the
+    synthetic 400 x 400 scene: fit() WIDE_ITERS iterations (two train-pass
+    launches a step; the mse falls), a resume from WIDE_SAVE bit for bit,
+    two steps of the render route (the forward render and its backward
+    kernel), the checkpoint served with --occupancy 64 (the bake's four
+    field launches at 1024; the request within mean abs 1e-2 of the unfused
+    render) and one eval CLI frame (within mean abs 1e-2 of the unfused
+    render); then (c) fit() with distill_from = that checkpoint: nerf_tpu's
+    load_teacher builds the teacher over the student's config, so teacher
+    and student are both at 1024 (WIDE_DISTILL distillation steps: the
+    teacher's field forward, the student's forward and backward; the loss
+    falls), then WIDE_TUNE photometric iterations. Returns the launches of
+    rows 1-5 by (row, plan tag, dtype) as the wrappers counted them
+    (``shape_launches``), every one at hidden 1024 in bfloat16."""
+    import dataclasses
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.data.pipeline import load_scene
+    from nerf_tpu_torch.data.poses import spherical_orbit
+    from nerf_tpu_torch.ops.cuda.fused_nerf import NerfField
+    from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
+    from nerf_tpu_torch.ops.cuda.nerf_plan import enc_pads, plan
+    from nerf_tpu_torch.render.renderer import render_rays
+    from nerf_tpu_torch.serve import RenderService
+    from nerf_tpu_torch.train.loop import fit, render_settings_from_config
+    from nerf_tpu_torch.train.state import create_train_state
+    from nerf_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    scene = os.path.join(tmp, "scene")
+    if not os.path.isdir(scene):
+        write_sphere_scene(scene, HW)
+    label = f"lego.txt at hidden {WIDE_LEGO_H}"
+    path = write_eval_config(
+        tmp, "lego.txt", f"lego_h{WIDE_LEGO_H}.txt", hidden_dim=WIDE_LEGO_H,
+        num_iters=WIDE_ITERS, log_interval=10, val_interval=10 * WIDE_ITERS,
+        save_interval=WIDE_SAVE, save_path=os.path.join(tmp, "wide_models"),
+        log_dir=os.path.join(tmp, "wide_logs"), num_render_poses=1)
+    cfg = parse_config_file(path)
+    if (cfg.hidden_dim, cfg.compute_dtype, cfg.num_samples, cfg.num_fine_samples,
+            cfg.num_random_rays) != (WIDE_LEGO_H, "bfloat16", 64, 128, 1024):
+        fail(f"phase 35 config: {cfg}")
+    lines: list = []
+    FusedNerfRender.launches = FusedNerfRender.train_launches = 0
+    FusedNerfRender.bwd_launches = 0           # the main path's counts start here
+    FusedNerfRender.shape_launches.clear()
+    NerfField.shape_launches.clear()
+    t0 = time.perf_counter()
+    fit(cfg, device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (FusedNerfRender.train_launches, FusedNerfRender.launches,
+              FusedNerfRender.bwd_launches)
+    for line in lines:
+        if "[Iter" in line:
+            say(f"  {line}")
+    if counts != (2 * WIDE_ITERS, 0, 0):
+        fail(f"phase 35 fit {label} launched (train, forward, backward) {counts}")
+    scal = read_scalars(cfg.log_dir)
+    loss = scal["loss"]
+    last = max(loss)
+    if not all(math.isfinite(v) for v in loss.values()) or not loss[last] < loss[0]:
+        fail(f"phase 35 {label}: the mse does not fall ({loss})")
+    say(f"phase 35 train: fit {label} {WIDE_ITERS} iterations in {wall:.1f} s, "
+        f"{counts[0]} train-pass launches; mse {loss[0]:.6f} at 0 -> {loss[last]:.6f} at "
+        f"{last} (ratio {loss[last] / loss[0]:.4f}); step {scal['rays_per_sec'][last]:.0f} "
+        f"rays/s; {card}")
+    check_resume(torch, dev, tmp, cfg, "nerf", loss, tag="wide", at=WIDE_SAVE,
+                 until=WIDE_SAVE + 10)
+
+    # the render route: the forward render and its backward kernel at 1024
+    ckpt = os.path.join(cfg.save_path, f"nerf_model_{WIDE_ITERS:06d}")
+    state = create_train_state(cfg, device=dev)
+    data = load_scene(cfg, device=dev)
+    settings = render_settings_from_config(cfg)
+    fr = FusedNerfRender(state.params, cfg.near, cfg.far)
+    FusedNerfRender.launches = FusedNerfRender.bwd_launches = 0
+    mses = []
+    for i in range(2):
+        g = torch.Generator(device=dev).manual_seed(cfg.seed + i)
+        batch = data.pool.sample(g, cfg.num_random_rays)
+        for m in state.models():
+            m.zero_grad(set_to_none=True)
+        out = render_rays(state.params, batch.rays_o, batch.rays_d, settings, generator=g,
+                          fine_params=state.fine_params, viewdirs=batch.viewdirs,
+                          fused_render=fr)
+        mse = torch.mean((out.rgb - batch.rgb) ** 2)
+        (mse + torch.mean((out.rgb_coarse - batch.rgb) ** 2)).backward()
+        state.optimizer.step()
+        mses.append(float(mse.detach()))
+    counts = (FusedNerfRender.launches, FusedNerfRender.bwd_launches)
+    say(f"phase 35 train: {label} render route 2 steps, mse {mses}; launches forward "
+        f"{counts[0]}, backward {counts[1]}")
+    if counts != (4, 4) or not all(math.isfinite(v) for v in mses):
+        fail(f"phase 35 {label} render route launched {counts}, want (4, 4)")
+    del state, data, out
+    torch.cuda.empty_cache()
+
+    # served with --occupancy 64: the bake through row 1 at 1024
+    NerfField.launches = 0
+    svc = RenderService.from_checkpoint(cfg, ckpt, occupancy=64, device=dev, log=say)
+    if NerfField.launches != 4:
+        fail(f"phase 35 --occupancy 64 bake: {NerfField.launches} field launches, want 4")
+    serve(torch, dev, tmp, label, FusedNerfRender, "fused_render_fwd", svc=svc,
+          compare=("/pose/1",), routes=("/pose/1",))
+    del svc
+    torch.cuda.empty_cache()
+
+    # one eval CLI frame
+    out_dir = os.path.join(tmp, "wide_eval")
+    res = run_eval_cli(["--config", path, "--checkpoint", ckpt, "--output", out_dir],
+                       {"nerf": FusedNerfRender}, f"phase 35 {label}")
+    per_image = 2 * math.ceil(HW * HW / cfg.chunk_size)
+    if res["per_frame"]["nerf"] != [per_image]:
+        fail(f"phase 35 eval: launches a frame {res['per_frame']['nerf']}, want [{per_image}]")
+    ref = RenderService.from_checkpoint(dataclasses.replace(cfg, use_pallas=False), ckpt,
+                                        device=dev, log=lambda *a: None)
+    frame = read_png(os.path.join(out_dir, "frame_0000.png"))
+    diff = np.abs(frame.astype(np.float32) / 255.0
+                  - ref.render_pose(spherical_orbit(1)[0], key_idx=0))
+    say(f"phase 35 eval {label} frame 0 vs the unfused render: mean abs {diff.mean():.3e} "
+        f"(tol {SERVE_TOL_MEAN:.0e}), max abs {diff.max():.3e}; {res['ms'][0]:.1f} ms")
+    if not diff.mean() <= SERVE_TOL_MEAN:
+        fail("phase 35 eval: the frame disagrees with the unfused render")
+    del ref
+    torch.cuda.empty_cache()
+
+    # (c) fit() distilling that checkpoint into a seeded student first
+    dcfg = dataclasses.replace(
+        cfg, num_iters=WIDE_TUNE, distill_from=ckpt, distill_steps=WIDE_DISTILL,
+        distill_batch=16384, save_path=os.path.join(tmp, "wide_distill_models"),
+        log_dir=os.path.join(tmp, "wide_distill_logs"))
+    lines = []
+    NerfField.launches = NerfField.bwd_launches = 0
+    FusedNerfRender.launches = FusedNerfRender.train_launches = 0
+    FusedNerfRender.bwd_launches = 0
+    t0 = time.perf_counter()
+    fit(dcfg, device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (NerfField.launches, NerfField.bwd_launches)
+    render = (FusedNerfRender.train_launches, FusedNerfRender.launches,
+              FusedNerfRender.bwd_launches)
+    for line in lines:
+        if "Distill" in line:
+            say(f"  {line}")
+    dl = read_scalars(dcfg.log_dir).get("distill_loss", {})
+    say(f"phase 35 distill: fit {label} with distill_from the hidden-{WIDE_LEGO_H} "
+        f"checkpoint, {WIDE_DISTILL} steps of 16384 points, then {WIDE_TUNE} iterations, in "
+        f"{wall:.1f} s; loss {dl.get(0)} at 0 -> {dl.get(WIDE_DISTILL - 1)} at "
+        f"{WIDE_DISTILL - 1}; field launches forward {counts[0]} (teacher and student), "
+        f"backward {counts[1]}; render train {render[0]}")
+    if counts != (2 * WIDE_DISTILL, WIDE_DISTILL) or render != (2 * WIDE_TUNE, 0, 0):
+        fail(f"phase 35 distillation: field launches {counts}, want ({2 * WIDE_DISTILL}, "
+             f"{WIDE_DISTILL}); render (train, forward, backward) {render}")
+    if sorted(dl) != list(range(WIDE_DISTILL)) or not dl[WIDE_DISTILL - 1] < dl[0]:
+        fail(f"phase 35 distillation: the loss does not fall ({dl})")
+
+    # rows 1-5 by shape, as the wrappers counted them through (b) and (c)
+    launched = {(WIDE_COUNTERS[cls.__name__][counter], tag, cdt): n
+                for cls in (FusedNerfRender, NerfField)
+                for (counter, tag, cdt), n in cls.shape_launches.items()}
+    say(f"phase 35 (b)-(c) launches by shape: "
+        + ", ".join(f"{k[0]} {k[1]} {k[2]} {n}" for k, n in sorted(launched.items())))
+    tag = plan(WIDE_LEGO_H, *enc_pads(cfg.pos_encoding_dim, cfg.dir_encoding_dim)).tag
+    rows = [r for by_counter in WIDE_COUNTERS.values() for r in by_counter.values()]
+    if (set(launched) != {(r, tag, "bfloat16") for r in rows}
+            or min(launched.values()) < 1):
+        fail(f"phase 35 (b)-(c): want every one of rows 1-5 at {tag} bfloat16 and no other "
+             f"shape, launched {launched}")
+    say(f"phase 35 (b)-(c): {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -5058,7 +5637,51 @@ def bench_gabor(torch, dev) -> float:
                        "protocol, flat GaborNet bf16 1024x256)")
 
 
-def main() -> int:
+def wide_rows(wide: dict, launched: dict) -> dict:
+    """Rows 1-5's entries at the phase-35 shapes, by row: each case's
+    time, plain time, bound and error (bfloat16 and float32; the train pass
+    and render backward at 1024 x 192, the fields at 65,536 points) and its
+    launches on phase 35's main path (``launched``, by (row, plan tag,
+    dtype), as the wrappers counted them)."""
+    rows = {}
+    for h, lp, ld, pl in wide_shapes():
+        case = f"h{h} L{lp}/{ld}"
+        for name in ("fused_render_fwd", "fused_render_train", "fused_render_bwd",
+                     "fused_nerf_fwd", "fused_nerf_bwd"):
+            for cdt in ("bfloat16", "float32"):
+                if name in ("fused_render_train", "fused_render_bwd"):
+                    c = wide[(name, case, cdt, WIDE_TRAIN_S[-1])]
+                elif name.startswith("fused_nerf"):
+                    c = dict(wide[(name, case, cdt)][65536], err=wide[(name, case, cdt)]["err"])
+                else:
+                    c = wide[(name, case, cdt)]
+                rows.setdefault(name, {})[f"{pl.tag} {cdt}"] = {
+                    "launches": launched.get((name, pl.tag, cdt), 0),
+                    "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+                    "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
+    return rows
+
+
+def phase35_only(torch, dev, card: str) -> int:
+    """``chip_smoke.py --phase 35``: the build and phase 35 alone, then its
+    rows' numbers and the last line."""
+    build_wide(torch)
+    wide = check_wide_kernels(torch, dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        launched = wide_lego(torch, dev, tmp, card)
+    say(json.dumps({"phase35": wide_rows(wide, launched)}))
+    say(f"card: {card}")
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv: list | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--phase", "35"]):
+        print("usage: chip_smoke.py [--phase 35]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -5070,7 +5693,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
-        from nerf_tpu_torch.ops.cuda import build
         from nerf_tpu_torch.ops.cuda.fused_render import FusedNerfRender
         from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
         from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
@@ -5085,11 +5707,13 @@ def main() -> int:
     say(f"card: {card}")
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    if argv:
+        return phase35_only(torch, dev, card)
 
     t0 = time.perf_counter()
-    infos = build.build()
+    infos = build_wide(torch)
     say(f"build: {len(infos)} libraries in {time.perf_counter() - t0:.1f} s "
-        "(one nvcc per source, in parallel)")
+        "(one nvcc per source, in parallel, with phase 35's)")
     for info in infos:
         say(f"build: {info.name} {info.seconds:.1f} s -> "
             f"{os.path.relpath(info.path, ROOT)}")
@@ -5119,6 +5743,7 @@ def main() -> int:
     scatter_checks = check_scatter_kernel(torch, dev)
     render_checks = check_grid_render_kernel(torch, dev)
     factor_checks = check_factor_render_kernel(torch, dev)
+    wide = check_wide_kernels(torch, dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches = serve(torch, dev, tmp, "lego.txt", FusedNerfRender,
                          "fused_render_fwd")
@@ -5154,6 +5779,7 @@ def main() -> int:
         ngped = ngp(torch, dev, tmp, card)
         par = parallel(torch, dev, tmp, card, lego_ckpt, trained["step_rps"])
         jpeg = phase34(torch, dev, tmp, card)
+        wide_launched = wide_lego(torch, dev, tmp, card)
     bench_headline(torch, dev)
     bench_siren(torch, dev)
     bench_gabor(torch, dev)
@@ -5252,6 +5878,11 @@ def main() -> int:
              scatter_checks["step"], max(v["err"] for v in scatter_checks.values()))):
         kernels.append(dict(row(name, source, f"{nerf_tpu}{line}", launched, c, err),
                             library_ms=c["library_ms"]))
+    for k, by_width in wide_rows(wide, wide_launched).items():
+        for entry in kernels:
+            if entry["name"] == k:
+                entry["widths"] = by_width
+                entry["launches"] += sum(w["launches"] for w in by_width.values())
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")
     say(json.dumps({"ok": True, "device": {

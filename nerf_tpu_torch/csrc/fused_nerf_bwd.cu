@@ -107,7 +107,7 @@ fused_nerf_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ d
     const size_t row = static_cast<size_t>(l) * LDZ;
     const size_t at = static_cast<size_t>(p_begin + l) * 3 + d;
     // the cotangent of encoding column c: dpenc = dz6 w6p^T + dz1 w1^T
-    auto g = [&](int c) { return pos ? dx6[row + c] + dx1[row + c] : dx6[row + HR + c]; };
+    auto g = [&](int c) { return pos ? dx6[row + c] + dx1[row + c] : dx6[row + NI + c]; };
     (pos ? dpts : ddirs)[at] =
         encode_bwd_at(g, pos ? pts[at] : dirs[at], d, pos ? real_p : real_d);
   }

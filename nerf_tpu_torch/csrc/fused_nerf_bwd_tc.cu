@@ -64,7 +64,8 @@ using namespace nerf;
 constexpr int FIELD_BYTES_PER_POINT = TC_BYTES_PER_POINT + 4 * PP;
 static_assert(FIELD_BYTES_PER_POINT % 16 == 0, "stash rows must stay 16-byte aligned");
 constexpr int SMEM_FWD = FB_END;
-static_assert(2 * (SMEM_FWD + 1024) <= 233472, "two forward CTAs share an SM");
+static_assert(SMEM_FWD <= 232448 && (!ONE_TILE || 2 * (SMEM_FWD + 1024) <= 233472),
+              "two forward CTAs share an SM at hidden 256, one fits wider");
 
 __device__ __forceinline__ unsigned char* cta_stash(unsigned char* scratch, int b, int cap) {
   return scratch + static_cast<size_t>(b) * cap * FIELD_BYTES_PER_POINT;
@@ -79,9 +80,7 @@ nerf_field_bwd_tc_fwd(const float* __restrict__ pts, const float* __restrict__ d
                       unsigned char* __restrict__ scratch) {
   extern __shared__ float4 smem4[];
   unsigned char* sb = reinterpret_cast<unsigned char*>(smem4);
-  const FwdSmem sm{reinterpret_cast<bf16*>(sb + FB_ACT), reinterpret_cast<bf16*>(sb + FB_PENC),
-                   reinterpret_cast<bf16*>(sb + FB_DENC), reinterpret_cast<bf16*>(sb + FB_WST),
-                   reinterpret_cast<float*>(sb + FB_SIG), nullptr};
+  const FwdSmem sm = fwd_smem(sb, -1);
   const int p0 = blockIdx.x * TC_P;
   const int b = p0 / run;
   const TcStash st = carve_tc_stash(cta_stash(scratch, b, cap), cap);
@@ -111,8 +110,8 @@ struct InputHooks {
   __device__ void on_dz6(const bf16* dz6) const {
     input_product<H>(
         dz6, cap_c, wt_in + OFF_T_W6P, sm.act0, sm.wst,
-        [&](int l0, float (&acc)[4][2][4]) {
-          each_pair<2>(acc, (threadIdx.x >> 5) * 16,
+        [&](int l0, float (&acc)[MT_B][NI / 64][4]) {
+          each_pair<NI / 64>(acc, (threadIdx.x >> 5) * 16,
                        [&](int, int, int, int row, int col, float& v0, float& v1) {
                          if (col < PP)
                            *reinterpret_cast<float2*>(
@@ -126,8 +125,8 @@ struct InputHooks {
     float* g = reinterpret_cast<float*>(sm.act1);
     input_product<H>(
         dz1, cap_c, wt_in + OFF_T_W1, sm.act0, sm.wst,
-        [&](int l0, float (&acc)[4][2][4]) {
-          each_pair<2>(acc, (threadIdx.x >> 5) * 16,
+        [&](int l0, float (&acc)[MT_B][NI / 64][4]) {
+          each_pair<NI / 64>(acc, (threadIdx.x >> 5) * 16,
                        [&](int, int, int, int row, int col, float& v0, float& v1) {
                          if (col < PP) {
                            const float2 a = *reinterpret_cast<const float2*>(

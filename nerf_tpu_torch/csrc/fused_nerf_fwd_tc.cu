@@ -41,7 +41,8 @@ using namespace nerf;
 // per-point columns (COL_*; t and delta unused here).
 constexpr int FB_COL = FB_END;
 constexpr int SMEM_FIELD_TC = FB_COL + N_FWD_COLS * TC_P * 4;
-static_assert(2 * (SMEM_FIELD_TC + 1024) <= 233472, "two field CTAs share an SM");
+static_assert(SMEM_FIELD_TC <= 232448 && (!ONE_TILE || 2 * (SMEM_FIELD_TC + 1024) <= 233472),
+              "two field CTAs share an SM at hidden 256, one fits wider");
 
 __global__ void __launch_bounds__(THREADS, 2)
 nerf_field_fwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
@@ -50,9 +51,7 @@ nerf_field_fwd_tc_kernel(const float* __restrict__ pts, const float* __restrict_
                          float* __restrict__ sigma_out) {
   extern __shared__ float4 smem4[];
   unsigned char* sb = reinterpret_cast<unsigned char*>(smem4);
-  const FwdSmem sm{reinterpret_cast<bf16*>(sb + FB_ACT), reinterpret_cast<bf16*>(sb + FB_PENC),
-                   reinterpret_cast<bf16*>(sb + FB_DENC), reinterpret_cast<bf16*>(sb + FB_WST),
-                   reinterpret_cast<float*>(sb + FB_SIG), reinterpret_cast<float*>(sb + FB_COL)};
+  const FwdSmem sm = fwd_smem(sb, FB_COL);
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * TC_P;
   const int nvalid = min(TC_P, n - p0);

@@ -15,6 +15,12 @@
 // (256 features, one density row reduced in float32 from the unrounded h9),
 // and the view-dependent rgb head. In bfloat16 mode every matmul input and
 // weight is rounded to bf16 and the products are summed in float32.
+//
+// Widths: hidden 256 with 64-point chunks and, built with their plan's -D
+// flags (ops/cuda/nerf_plan.py), 512 with 32-point chunks and 768 and 1024
+// with 16-point chunks (both activation buffers stay in shared memory), the
+// encodings padded to 128 / 64 columns; every product runs in blocks of
+// 256 output columns (the rgb head's of 128).
 
 #pragma once
 
@@ -22,7 +28,10 @@
 
 namespace nerf {
 
-constexpr int PP = 64;        // padded position-encoding width
+#ifndef NERF_PP
+#define NERF_PP 64
+#endif
+constexpr int PP = NERF_PP;   // padded position-encoding width
 
 // Packed matrix buffer: each matrix (K, N) row-major, (in, out) order, K
 // padded with zero rows (w1/w6p to PP, wr0d to DP), wr1 padded to 8 columns.
@@ -52,8 +61,8 @@ constexpr int OFF_B10S = OFF_BR1 + 8;
 constexpr int N_B = OFF_B10S + 1;
 
 // Shared memory (floats) after the two activation buffers: the two
-// encodings, the per-point chunk columns, then the weight stage (2 x KT x H
-// of float32).
+// encodings, the per-point chunk columns, then the weight stage (2 x KT x NB
+// of float32: a product's block of columns).
 constexpr int SM_PENC = SM_ACT1 + H * LDA;
 constexpr int SM_DENC = SM_PENC + PP * LDA;
 constexpr int SM_T = SM_DENC + DP * LDA;
@@ -61,7 +70,7 @@ constexpr int SM_DELTA = SM_T + P;
 constexpr int SM_SIGMA = SM_DELTA + P;
 constexpr int SM_RGB = SM_SIGMA + P;         // 3 x P
 constexpr int SM_WST = SM_RGB + 3 * P;
-constexpr int SMEM_BYTES = SM_WST * 4 + 2 * KT * H * 4;
+constexpr int SMEM_BYTES = SM_WST * 4 + 2 * KT * NB * 4;
 static_assert(SM_WST % 4 == 0, "weight stage must be 16-byte aligned");
 static_assert(SMEM_BYTES <= 232448, "exceeds the per-block shared memory");
 
@@ -167,10 +176,29 @@ __device__ void encode_point_chunk(const float* __restrict__ pts,
   __syncthreads();
 }
 
+// One layer of the chunk, in blocks of NB columns: out = act(in W (+ penc
+// W6p, the skip input) + bias), W (K x H) from its first column, rounded to
+// bf16 in BF16 mode, and with `stash` also to device memory (see epilogue).
+template <int K, bool BF16, bool SKIP, typename WT>
+__device__ __forceinline__ void layer_chunk(const float* in, const WT* __restrict__ w,
+                                            const float* penc, const WT* __restrict__ w6p,
+                                            const float* __restrict__ bias, bool relu,
+                                            float* out, WT* wst, float* stash, size_t l0) {
+  for (int nb = 0; nb < H; nb += NB) {
+    float acc[PT][8];
+    zero<2>(acc);
+    gemm_acc<K, 2>(acc, in, w + nb, wst, H);
+    if constexpr (SKIP) gemm_acc<PP, 2>(acc, penc, w6p + nb, wst, H);
+    epilogue<2, BF16>(acc, bias, relu, out, stash, H, l0, nb);
+  }
+}
+
 // The MLP of the chunk whose encodings are in shared memory: leaves sigma
 // (after the ReLU) and rgb of each of its P points in shared memory. With
 // STASH every activation also goes to `st` at local rows l0.. (all P rows,
-// the ones past the chunk's points from zero encodings).
+// the ones past the chunk's points from zero encodings). Each product runs
+// in blocks of NB output columns (one at hidden 256), the rgb head's in
+// blocks of 128.
 template <bool BF16, bool STASH, typename WT>
 __device__ void mlp_chunk(const float* __restrict__ vec, const WT* __restrict__ wmat,
                           float* smem, const Stash& st, size_t l0) {
@@ -191,59 +219,75 @@ __device__ void mlp_chunk(const float* __restrict__ vec, const WT* __restrict__ 
     }
   }
 #define sh(i) (STASH ? st.h[i] : nullptr)
-
-  float acc2[8][8];
-  float acc1[8][4];
+  const WT* none = nullptr;
   // ---- block1 ----
-  zero<2>(acc2);
-  gemm_acc<PP, 2>(acc2, penc, wmat + OFF_W1, wst);
-  epilogue<2, BF16>(acc2, vec + 0 * H, true, act0, sh(0), H, l0);
-  zero<2>(acc2);
-  gemm_acc<H, 2>(acc2, act0, wmat + OFF_W2, wst);
-  epilogue<2, BF16>(acc2, vec + 1 * H, true, act1, sh(1), H, l0);
-  zero<2>(acc2);
-  gemm_acc<H, 2>(acc2, act1, wmat + OFF_W3, wst);
-  epilogue<2, BF16>(acc2, vec + 2 * H, true, act0, sh(2), H, l0);
-  zero<2>(acc2);
-  gemm_acc<H, 2>(acc2, act0, wmat + OFF_W4, wst);
-  epilogue<2, BF16>(acc2, vec + 3 * H, true, act1, sh(3), H, l0);
-  zero<2>(acc2);
-  gemm_acc<H, 2>(acc2, act1, wmat + OFF_W5, wst);
-  epilogue<2, BF16>(acc2, vec + 4 * H, true, act0, sh(4), H, l0);
+  layer_chunk<PP, BF16, false>(penc, wmat + OFF_W1, nullptr, none, vec + 0 * H, true, act0,
+                               wst, sh(0), l0);
+  layer_chunk<H, BF16, false>(act0, wmat + OFF_W2, nullptr, none, vec + 1 * H, true, act1,
+                              wst, sh(1), l0);
+  layer_chunk<H, BF16, false>(act1, wmat + OFF_W3, nullptr, none, vec + 2 * H, true, act0,
+                              wst, sh(2), l0);
+  layer_chunk<H, BF16, false>(act0, wmat + OFF_W4, nullptr, none, vec + 3 * H, true, act1,
+                              wst, sh(3), l0);
+  layer_chunk<H, BF16, false>(act1, wmat + OFF_W5, nullptr, none, vec + 4 * H, true, act0,
+                              wst, sh(4), l0);
   // ---- block2: skip input, then 3 more layers ----
-  zero<2>(acc2);
-  gemm_acc<H, 2>(acc2, act0, wmat + OFF_W6H, wst);
-  gemm_acc<PP, 2>(acc2, penc, wmat + OFF_W6P, wst);
-  epilogue<2, BF16>(acc2, vec + 5 * H, true, act1, sh(5), H, l0);
-  zero<2>(acc2);
-  gemm_acc<H, 2>(acc2, act1, wmat + OFF_W7, wst);
-  epilogue<2, BF16>(acc2, vec + 6 * H, true, act0, sh(6), H, l0);
-  zero<2>(acc2);
-  gemm_acc<H, 2>(acc2, act0, wmat + OFF_W8, wst);
-  epilogue<2, BF16>(acc2, vec + 7 * H, true, act1, sh(7), H, l0);
-  zero<2>(acc2);
-  gemm_acc<H, 2>(acc2, act1, wmat + OFF_W9, wst);
+  layer_chunk<H, BF16, true>(act0, wmat + OFF_W6H, penc, wmat + OFF_W6P, vec + 5 * H, true,
+                             act1, wst, sh(5), l0);
+  layer_chunk<H, BF16, false>(act1, wmat + OFF_W7, nullptr, none, vec + 6 * H, true, act0,
+                              wst, sh(6), l0);
+  layer_chunk<H, BF16, false>(act0, wmat + OFF_W8, nullptr, none, vec + 7 * H, true, act1,
+                              wst, sh(7), l0);
   {
     // h9 = relu(acc + b9). The density is a float32 reduction of the
-    // UNROUNDED h9 against w10s: each thread sums its 8 columns, the
-    // warp's 32 lanes (same 8 points, all 256 columns) reduce by shuffle.
+    // UNROUNDED h9 against w10s: each thread sums its 8 columns of every
+    // block, the warp's 32 lanes (same PT points, all H columns) reduce by
+    // shuffle.
     const int tx = tid & 31, ty = tid >> 5;
-    float part[8];
+    float part[PT];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) part[i] = 0.f;
+    for (int i = 0; i < PT; ++i) part[i] = 0.f;
+    for (int nb = 0; nb < H; nb += NB) {
+      float acc2[PT][8];
+      zero<2>(acc2);
+      gemm_acc<H, 2>(acc2, act1, wmat + OFF_W9 + nb, wst, H);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = (j >> 2) * 128 + tx * 4 + (j & 3);
-      const float b = __ldg(vec + 8 * H + col);
-      const float ws = __ldg(vec + OFF_W10S + col);
+      for (int j = 0; j < 8; ++j) {
+        const int col = nb + (j >> 2) * 128 + tx * 4 + (j & 3);
+        const float b = __ldg(vec + 8 * H + col);
+        const float ws = __ldg(vec + OFF_W10S + col);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        acc2[i][j] = fmaxf(acc2[i][j] + b, 0.f);
-        part[i] = fmaf(acc2[i][j], ws, part[i]);
+        for (int i = 0; i < PT; ++i) {
+          acc2[i][j] = fmaxf(acc2[i][j] + b, 0.f);
+          part[i] = fmaf(acc2[i][j], ws, part[i]);
+        }
+      }
+      // bias and relu are in; store h9 (rounded in bf16 mode; the stash
+      // keeps it unrounded: the backward reads it in float32)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = q * 4 + u;
+          const int col = nb + q * 128 + tx * 4 + u;
+          float v[PT];
+#pragma unroll
+          for (int i = 0; i < PT; ++i) v[i] = BF16 ? round_bf16(acc2[i][j]) : acc2[i][j];
+          store_pts(act0 + col * LDA + ty * PT, v);
+        }
+        if (STASH) {
+#pragma unroll
+          for (int i = 0; i < PT; ++i) {
+            float* g = st.h[8] + (l0 + ty * PT + i) * H + nb + q * 128 + tx * 4;
+            *reinterpret_cast<float4*>(g) =
+                make_float4(acc2[i][q * 4], acc2[i][q * 4 + 1], acc2[i][q * 4 + 2],
+                            acc2[i][q * 4 + 3]);
+          }
+        }
       }
     }
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < PT; ++i) {
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         part[i] += __shfl_xor_sync(0xffffffffu, part[i], off);
@@ -251,48 +295,23 @@ __device__ void mlp_chunk(const float* __restrict__ vec, const WT* __restrict__ 
     if (tx == 0) {
       const float b10s = __ldg(vec + OFF_B10S);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        sig_s[ty * 8 + i] = fmaxf(part[i] + b10s, 0.f);
-        if (STASH) st.sigma_pre[l0 + ty * 8 + i] = part[i] + b10s;
-      }
-    }
-    // bias and relu are in; store h9 (rounded in bf16 mode; the stash
-    // keeps it unrounded: the backward reads it in float32)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int j = q * 4 + u;
-        const int col = q * 128 + tx * 4 + u;
-        float v[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] = BF16 ? round_bf16(acc2[i][j]) : acc2[i][j];
-        float* dst = act0 + col * LDA + ty * 8;
-        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-        *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
-      }
-      if (STASH) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          float* g = st.h[8] + (l0 + ty * 8 + i) * H + q * 128 + tx * 4;
-          *reinterpret_cast<float4*>(g) =
-              make_float4(acc2[i][q * 4], acc2[i][q * 4 + 1], acc2[i][q * 4 + 2],
-                          acc2[i][q * 4 + 3]);
-        }
+      for (int i = 0; i < PT; ++i) {
+        sig_s[ty * PT + i] = fmaxf(part[i] + b10s, 0.f);
+        if (STASH) st.sigma_pre[l0 + ty * PT + i] = part[i] + b10s;
       }
     }
   }
   // feature head: no activation
-  zero<2>(acc2);
-  gemm_acc<H, 2>(acc2, act0, wmat + OFF_W10F, wst);
-  epilogue<2, BF16>(acc2, vec + OFF_B10F, false, act1,
-                    STASH ? st.feat : nullptr, H, l0);
+  layer_chunk<H, BF16, false>(act0, wmat + OFF_W10F, nullptr, none, vec + OFF_B10F, false,
+                              act1, wst, STASH ? st.feat : nullptr, l0);
   // ---- rgb head ----
-  zero<1>(acc1);
-  gemm_acc<H, 1>(acc1, act1, wmat + OFF_WR0F, wst);
-  gemm_acc<DP, 1>(acc1, denc, wmat + OFF_WR0D, wst);
-  epilogue<1, BF16>(acc1, vec + OFF_BR0, true, act0,
-                    STASH ? st.y : nullptr, HR, l0);
+  for (int nb = 0; nb < HR; nb += 128) {
+    float acc1[PT][4];
+    zero<1>(acc1);
+    gemm_acc<H, 1>(acc1, act1, wmat + OFF_WR0F + nb, wst, HR);
+    gemm_acc<DP, 1>(acc1, denc, wmat + OFF_WR0D + nb, wst, HR);
+    epilogue<1, BF16>(acc1, vec + OFF_BR0, true, act0, STASH ? st.y : nullptr, HR, l0, nb);
+  }
 #undef sh
   __syncthreads();
   if (tid < 3 * P) {
@@ -368,18 +387,19 @@ __device__ void back_layer(const float* cur, const WT* __restrict__ wT,
                            float* part_b, int cap_c, float* smem) {
   if (nxt != nullptr)
     dact<H, BF16, Epi::Relu, false>(cur, wT, h_prev, H, nullptr, nullptr, 1.f, nxt,
-                                    cap_c, smem, reinterpret_cast<WT*>(smem + SM_WST));
-  dweight<2, false, BF16>(h_prev, H, H, H, cur, cap_c, part_w, smem);
+                                    cap_c, smem, reinterpret_cast<WT*>(smem + SM_WST), H);
+  dweight<2, false, BF16>(h_prev, H, H, H, cur, cap_c, part_w, smem, H);
   colsum(cur, H, cap_c, part_b);
   __syncthreads();
 }
 
 // Offsets in the field backward's buffer of input-product matrices: w1^T and
-// w6p^T (H rows) and wr0d^T (HR rows), each zero-padded to HR columns.
+// w6p^T (H rows) and wr0d^T (HR rows), each zero-padded to NI columns.
+static_assert(PP <= NI && DP <= NI, "an encoding wider than the input products");
 constexpr int OFF_T_W1 = 0;
-constexpr int OFF_T_W6P = OFF_T_W1 + H * HR;
-constexpr int OFF_T_WR0D = OFF_T_W6P + H * HR;
-constexpr int N_T_IN = OFF_T_WR0D + HR * HR;
+constexpr int OFF_T_W6P = OFF_T_W1 + H * NI;
+constexpr int OFF_T_WR0D = OFF_T_W6P + H * NI;
+constexpr int N_T_IN = OFF_T_WR0D + HR * NI;
 
 // The MLP backward (fused_nerf.py::_mlp_bwd_core) over the CTA's points
 // l < cap_c, layer by layer, from the stash and the cotangent columns dzr1
@@ -390,8 +410,8 @@ constexpr int N_T_IN = OFF_T_WR0D + HR * HR;
 // (offsets of the packed layout, the vectors from N_W); bias and w10s
 // gradients are column sums. With INPUTS (the field backward) also the
 // input products, against `wt_in` (OFF_T_*): dz6 w6p^T into columns
-// [0, HR) and dzr0 wr0d^T into [HR, H) of sc.dz[2], and dz1 w1^T into
-// columns [0, HR) of sc.dz[1]; it then ends past a barrier. Rounding in
+// [0, NI) and dzr0 wr0d^T into [NI, 2 NI) of sc.dz[2], and dz1 w1^T into
+// columns [0, NI) of sc.dz[1]; it then ends past a barrier. Rounding in
 // BF16 mode follows _mlp_bwd_core: both operands of every dW product and
 // the dz of every dz W^T are rounded to bf16, sums are float32, and h9,
 // sigma_pre and the rgb sigmoid are read in float32.
@@ -452,19 +472,19 @@ __device__ void mlp_backward(const Scratch& sc, size_t cz, const float* __restri
   // rgb hidden layer: dfeat = dzr0 wr0f^T; wr0f, wr0d, br0 (and ddenc)
   WT* wst = reinterpret_cast<WT*>(smem + SM_WST);
   dact<HR, BF16, Epi::None, false>(dzA, wmat_t + OFF_WR0F, nullptr, 0, nullptr,
-                                   nullptr, 1.f, dzB, cap_c, smem, wst);
+                                   nullptr, 1.f, dzB, cap_c, smem, wst, H);
   if constexpr (INPUTS)
     dact<HR, BF16, Epi::None, false, WT, 1>(dzA, wt_in + OFF_T_WR0D, nullptr, 0,
-                                            nullptr, nullptr, 1.f, sc.dz[2] + HR,
+                                            nullptr, nullptr, 1.f, sc.dz[2] + NI,
                                             cap_c, smem, wst);
-  dweight<1, false, BF16>(sc.st.feat, H, H, H, dzA, cap_c, part + OFF_WR0F, smem);
-  dweight<1, false, BF16>(sc.st.denc, PP, PP, DP, dzA, cap_c, part + OFF_WR0D, smem);
+  dweight<1, false, BF16>(sc.st.feat, H, H, H, dzA, cap_c, part + OFF_WR0F, smem, HR);
+  dweight<1, false, BF16>(sc.st.denc, PP, PP, DP, dzA, cap_c, part + OFF_WR0D, smem, HR);
   colsum(dzA, HR, cap_c, pvec + OFF_BR0);
   __syncthreads();
   // feature head: dz9 = (dfeat w10f^T + dsig w10s) * (h9 > 0); w10f, b10f
   dact<H, BF16, Epi::Relu, true>(dzB, wmat_t + OFF_W10F, h9, H, dsig, vec + OFF_W10S,
-                                 1.f, dzA, cap_c, smem, wst);
-  dweight<2, BF16, BF16>(h9, H, H, H, dzB, cap_c, part + OFF_W10F, smem);
+                                 1.f, dzA, cap_c, smem, wst, H);
+  dweight<2, BF16, BF16>(h9, H, H, H, dzB, cap_c, part + OFF_W10F, smem, H);
   colsum(dzB, H, cap_c, pvec + OFF_B10F);
   __syncthreads();
   // block2 and block1
@@ -472,7 +492,7 @@ __device__ void mlp_backward(const Scratch& sc, size_t cz, const float* __restri
   back_layer<BF16>(dzB, wmat_t + OFF_W8, sc.st.h[6], dzA, part + OFF_W8, pvec + 7 * H, cap_c, smem);
   back_layer<BF16>(dzA, wmat_t + OFF_W7, sc.st.h[5], dzB, part + OFF_W7, pvec + 6 * H, cap_c, smem);
   // the skip layer: dz5 from w6h; w6h from h5, w6p from the position encoding
-  dweight<2, false, BF16>(sc.st.penc, PP, PP, PP, dzB, cap_c, part + OFF_W6P, smem);
+  dweight<2, false, BF16>(sc.st.penc, PP, PP, PP, dzB, cap_c, part + OFF_W6P, smem, H);
   if constexpr (INPUTS)
     dact<H, BF16, Epi::None, false, WT, 1>(dzB, wt_in + OFF_T_W6P, nullptr, 0, nullptr,
                                            nullptr, 1.f, sc.dz[2], cap_c, smem, wst);
@@ -482,7 +502,7 @@ __device__ void mlp_backward(const Scratch& sc, size_t cz, const float* __restri
   back_layer<BF16>(dzA, wmat_t + OFF_W3, sc.st.h[1], dzB, part + OFF_W3, pvec + 2 * H, cap_c, smem);
   back_layer<BF16>(dzB, wmat_t + OFF_W2, sc.st.h[0], dzA, part + OFF_W2, pvec + 1 * H, cap_c, smem);
   // first layer: w1 from the position encoding (and dz1 w1^T)
-  dweight<2, false, BF16>(sc.st.penc, PP, PP, PP, dzA, cap_c, part + OFF_W1, smem);
+  dweight<2, false, BF16>(sc.st.penc, PP, PP, PP, dzA, cap_c, part + OFF_W1, smem, H);
   colsum(dzA, H, cap_c, pvec + 0 * H);
   if constexpr (INPUTS) {
     dact<H, BF16, Epi::None, false, WT, 1>(dzA, wt_in + OFF_T_W1, nullptr, 0, nullptr,

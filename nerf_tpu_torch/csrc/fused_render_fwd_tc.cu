@@ -47,7 +47,8 @@ using namespace nerf;
 // per-point columns (COL_*).
 constexpr int FB_COL = FB_END;
 constexpr int SMEM_FWD_TC = FB_COL + N_FWD_COLS * TC_P * 4;
-static_assert(2 * (SMEM_FWD_TC + 1024) <= 233472, "two forward CTAs share an SM");
+static_assert(SMEM_FWD_TC <= 232448 && (!ONE_TILE || 2 * (SMEM_FWD_TC + 1024) <= 233472),
+              "two forward CTAs share an SM at hidden 256, one fits wider");
 
 __global__ void __launch_bounds__(THREADS, 2)
 fused_render_fwd_tc_kernel(RayInputs in, const bf16* __restrict__ wmat, int rays_per_cta,
@@ -55,9 +56,7 @@ fused_render_fwd_tc_kernel(RayInputs in, const bf16* __restrict__ wmat, int rays
                            float* __restrict__ depth_out, float* __restrict__ weights_out) {
   extern __shared__ float4 smem4[];
   unsigned char* sb = reinterpret_cast<unsigned char*>(smem4);
-  const FwdSmem sm{reinterpret_cast<bf16*>(sb + FB_ACT), reinterpret_cast<bf16*>(sb + FB_PENC),
-                   reinterpret_cast<bf16*>(sb + FB_DENC), reinterpret_cast<bf16*>(sb + FB_WST),
-                   reinterpret_cast<float*>(sb + FB_SIG), reinterpret_cast<float*>(sb + FB_COL)};
+  const FwdSmem sm = fwd_smem(sb, FB_COL);
   const int S = in.S;
   const int ray0 = blockIdx.x * rays_per_cta;
   const int ray1 = min(ray0 + rays_per_cta, in.num_rays);
@@ -71,7 +70,7 @@ fused_render_fwd_tc_kernel(RayInputs in, const bf16* __restrict__ wmat, int rays
     if (threadIdx.x == 0)
       composite_chunk(sums, sm.col + COL_T * TC_P, sm.col + COL_DELTA * TC_P,
                       sm.col + COL_SIGMA * TC_P, sm.col + COL_RGB * TC_P, chunk0, nvalid, S,
-                      rgb_out, acc_out, depth_out, weights_out);
+                      rgb_out, acc_out, depth_out, weights_out, TC_P);
     __syncthreads();
   }
 }

@@ -84,23 +84,23 @@ using namespace nerf;
 // Shared memory (bytes) of the forward kernel (fused_render_tc_common.cuh's
 // plan without the forward render's columns). Two CTAs share an SM.
 constexpr int SMEM_FWD = FB_END;
-static_assert(2 * (SMEM_FWD + 1024) <= 233472, "two forward CTAs share an SM");
+static_assert(SMEM_FWD <= 232448 && (!ONE_TILE || 2 * (SMEM_FWD + 1024) <= 233472),
+              "two forward CTAs share an SM at hidden 256, one fits wider");
 constexpr int FWD_SPLIT = 2;       // forward CTAs a backward CTA's points
 // The backward kernel's plan is fused_render_tc_common.cuh's (SMEM_BWD);
 // the compositing pass keeps its per-ray losses in the second activation
 // tile.
-constexpr int MAX_RAYS_PER_CTA = TC_P * LDS * 2 / 4;
+constexpr int MAX_RAYS_PER_CTA = TC_PB * LDN * 2 / 4;
 
 // Step 1: the forward of FWD_SPLIT CTAs a backward CTA's rays, each every
-// FWD_SPLIT-th 64-point chunk of them, into that CTA's stash.
+// FWD_SPLIT-th TC_P-point chunk of them, into that CTA's stash (every row
+// the backward reads: its points rounded up to a chunk).
 __global__ void __launch_bounds__(THREADS, 2)
 fused_render_train_tc_fwd(RayInputs in, const bf16* __restrict__ wmat, int rays_per_cta, int cap,
                  unsigned char* __restrict__ scratch) {
   extern __shared__ float4 smem4[];
   unsigned char* sb = reinterpret_cast<unsigned char*>(smem4);
-  const FwdSmem sm{reinterpret_cast<bf16*>(sb + FB_ACT), reinterpret_cast<bf16*>(sb + FB_PENC),
-                   reinterpret_cast<bf16*>(sb + FB_DENC), reinterpret_cast<bf16*>(sb + FB_WST),
-                   reinterpret_cast<float*>(sb + FB_SIG), nullptr};
+  const FwdSmem sm = fwd_smem(sb, -1);
   const int b = blockIdx.x / FWD_SPLIT, part = blockIdx.x % FWD_SPLIT;
   const int S = in.S;
   const int ray0 = b * rays_per_cta;

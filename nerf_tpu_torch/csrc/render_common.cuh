@@ -22,13 +22,32 @@
 
 namespace nerf {
 
-constexpr int H = 256;        // hidden width (the only one supported)
+// The widths are compile-time constants. Every family builds at hidden 256
+// with 32 direction columns and 64-point chunks; the NeRF libraries are also
+// built at the other shapes nerf_tpu's kernels take (hidden 512, 768, 1024,
+// wider encodings), each with the plan of ops/cuda/nerf_plan.py passed as
+// -DNERF_H, -DNERF_PP, -DNERF_DP, -DNERF_P, -DNERF_TC_P and -DNERF_TC_PB.
+#ifndef NERF_H
+#define NERF_H 256
+#endif
+#ifndef NERF_DP
+#define NERF_DP 32
+#endif
+#ifndef NERF_P
+#define NERF_P 64
+#endif
+
+constexpr int H = NERF_H;     // hidden width
 constexpr int HR = H / 2;     // rgb-head width
-constexpr int DP = 32;        // padded direction-encoding width
-constexpr int P = 64;         // points per chunk
+constexpr int DP = NERF_DP;   // padded direction-encoding width
+constexpr int P = NERF_P;     // points per chunk
+constexpr int PT = P / 8;     // points a thread of the register-tiled gemm
 constexpr int LDA = P + 4;    // row stride (floats) of activation tiles
 constexpr int KT = 16;        // weight rows per staged tile
+constexpr int NB = 256;       // columns of a product's block (wider layers take several)
+constexpr int NI = 128;       // columns of the field backwards' input products
 constexpr int THREADS = 256;
+static_assert(H % NB == 0 && PT * 8 == P && (PT == 2 || PT % 4 == 0), "unsupported shape");
 
 // Shared memory (floats) of both families starts with two feature-major
 // activation buffers; each family's plan follows them.
@@ -86,57 +105,82 @@ __device__ __forceinline__ float fast_sin(float x) {
   return __fmul_rn(r, __fadd_rn(9.9999970696e-01f, q));
 }
 
-// Start the cp.async copies of weight rows [kt*KT, kt*KT+KT) into a stage.
+// Start the cp.async copies of weight rows [kt*KT, kt*KT+KT), N columns of
+// rows ldw apart, into a stage.
 template <int N, typename WT>
 __device__ __forceinline__ void stage_tile(const WT* __restrict__ wg, WT* dst,
-                                           int kt) {
+                                           int kt, int ldw) {
   constexpr int TILE = KT * N;
   constexpr int VEC = 16 / sizeof(WT);
   constexpr int COPIES = TILE / VEC / THREADS;
   static_assert(COPIES * VEC * THREADS == TILE, "tile must split evenly");
-  const WT* src = wg + static_cast<size_t>(kt) * TILE;
+  const WT* src = wg + static_cast<size_t>(kt) * KT * ldw;
 #pragma unroll
   for (int c = 0; c < COPIES; ++c) {
     int e = (c * THREADS + threadIdx.x) * VEC;
-    cp_async16(dst + e, src + e);
+    cp_async16(dst + e, src + (e / N) * ldw + e % N);
   }
   cp_async_commit();
 }
 
-// acc[i][j] += sum_k in[k][ty*8+i] * W[k][col(j)] over K rows, where
-// col(j) = (j/4)*128 + tx*4 + j%4. `in_s` is feature-major (stride LDA).
-// Starts and ends with every thread past a barrier, so the caller may write
-// any buffer the previous layer read.
+// PT consecutive floats of a feature-major tile (16-byte aligned).
+__device__ __forceinline__ void load_pts(const float* p, float (&a)[PT]) {
+  if constexpr (PT == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    a[0] = v.x; a[1] = v.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < PT; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      a[i] = v.x; a[i + 1] = v.y; a[i + 2] = v.z; a[i + 3] = v.w;
+    }
+  }
+}
+__device__ __forceinline__ void store_pts(float* p, const float (&v)[PT]) {
+  if constexpr (PT == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < PT; i += 4)
+      *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  }
+}
+
+// acc[i][j] += sum_k in[k][ty*PT+i] * W[k][col(j)] over K rows, where
+// col(j) = (j/4)*128 + tx*4 + j%4 and W's rows are ldw apart (a block of a
+// wider matrix from its first column). `in_s` is feature-major (stride
+// LDA). Starts and ends with every thread past a barrier, so the caller may
+// write any buffer the previous layer read.
 template <int K, int NQ, typename WT>
-__device__ __forceinline__ void gemm_acc(float (&acc)[8][4 * NQ],
+__device__ __forceinline__ void gemm_acc(float (&acc)[PT][4 * NQ],
                                          const float* in_s,
-                                         const WT* __restrict__ wg, WT* wst) {
+                                         const WT* __restrict__ wg, WT* wst,
+                                         int ldw = 128 * NQ) {
   constexpr int N = 128 * NQ;
   constexpr int TILE = KT * N;
   constexpr int NT = K / KT;
   static_assert(NT * KT == K, "K must be a multiple of KT");
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  stage_tile<N>(wg, wst, 0);
+  stage_tile<N>(wg, wst, 0, ldw);
   for (int kt = 0; kt < NT; ++kt) {
     if (kt + 1 < NT) {
-      stage_tile<N>(wg, wst + ((kt + 1) & 1) * TILE, kt + 1);
+      stage_tile<N>(wg, wst + ((kt + 1) & 1) * TILE, kt + 1, ldw);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
     const WT* ws = wst + (kt & 1) * TILE + tx * 4;
-    const float* as = in_s + kt * KT * LDA + ty * 8;
+    const float* as = in_s + kt * KT * LDA + ty * PT;
 #pragma unroll
     for (int k = 0; k < KT; ++k) {
-      float4 a0 = *reinterpret_cast<const float4*>(as + k * LDA);
-      float4 a1 = *reinterpret_cast<const float4*>(as + k * LDA + 4);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float a[PT];
+      load_pts(as + k * LDA, a);
       float w[4 * NQ];
 #pragma unroll
       for (int q = 0; q < NQ; ++q) load4(ws + k * N + q * 128, w + 4 * q);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < PT; ++i) {
 #pragma unroll
         for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
       }
@@ -146,45 +190,44 @@ __device__ __forceinline__ void gemm_acc(float (&acc)[8][4 * NQ],
 }
 
 template <int NQ>
-__device__ __forceinline__ void zero(float (&acc)[8][4 * NQ]) {
+__device__ __forceinline__ void zero(float (&acc)[PT][4 * NQ]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < PT; ++i) {
 #pragma unroll
     for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = 0.f;
   }
 }
 
-// out[col][ty*8+i] = act(acc[i][j] + bias[col]), rounded to bf16 when the
-// value is next a matmul input in bf16 mode. With `stash`, the same values
-// also go to a point-major copy in device memory: row l0+ty*8+i, stride ld.
+// out[nb+col][ty*PT+i] = act(acc[i][j] + bias[nb+col]), rounded to bf16 when
+// the value is next a matmul input in bf16 mode (nb: the block's first
+// column). With `stash`, the same values also go to a point-major copy in
+// device memory: row l0+ty*PT+i, stride ld.
 template <int NQ, bool BF16>
-__device__ __forceinline__ void epilogue(const float (&acc)[8][4 * NQ],
+__device__ __forceinline__ void epilogue(const float (&acc)[PT][4 * NQ],
                                          const float* __restrict__ bias,
                                          bool relu, float* out_s,
                                          float* stash = nullptr, int ld = 0,
-                                         size_t l0 = 0) {
+                                         size_t l0 = 0, int nb = 0) {
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
-    float v[4][8];
+    float v[4][PT];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const int col = q * 128 + tx * 4 + u;
+      const int col = nb + q * 128 + tx * 4 + u;
       const float b = __ldg(bias + col);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < PT; ++i) {
         float x = acc[i][q * 4 + u] + b;
         if (relu) x = fmaxf(x, 0.f);
         v[u][i] = BF16 ? round_bf16(x) : x;
       }
-      float* dst = out_s + col * LDA + ty * 8;
-      *reinterpret_cast<float4*>(dst) = make_float4(v[u][0], v[u][1], v[u][2], v[u][3]);
-      *reinterpret_cast<float4*>(dst + 4) = make_float4(v[u][4], v[u][5], v[u][6], v[u][7]);
+      store_pts(out_s + col * LDA + ty * PT, v[u]);
     }
     if (stash != nullptr) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float* g = stash + (l0 + ty * 8 + i) * ld + q * 128 + tx * 4;
+      for (int i = 0; i < PT; ++i) {
+        float* g = stash + (l0 + ty * PT + i) * ld + nb + q * 128 + tx * 4;
         *reinterpret_cast<float4*>(g) = make_float4(v[0][i], v[1][i], v[2][i], v[3][i]);
       }
     }
@@ -221,20 +264,22 @@ struct RaySums {
 };
 
 // Compositing of one chunk in sample order (thread 0): weights of its
-// points, and rgb/acc/depth of every ray that ends in it.
+// points, and rgb/acc/depth of every ray that ends in it. rgb_s holds the
+// three channels `ld` floats apart (the chunk's points: P, or a tensor-core
+// chunk's TC_P).
 __device__ __forceinline__ void composite_chunk(
     RaySums& c, const float* t_s, const float* delta_s, const float* sig_s,
     const float* rgb_s, int chunk0, int nvalid, int S,
     float* __restrict__ rgb_out, float* __restrict__ acc_out,
-    float* __restrict__ depth_out, float* __restrict__ weights_out) {
+    float* __restrict__ depth_out, float* __restrict__ weights_out, int ld = P) {
   for (int p = 0; p < nvalid; ++p) {
     const int g = chunk0 + p;
     const float one_m = expf(-sig_s[p] * delta_s[p]);
     const float w = c.T * (1.f - one_m);
     weights_out[g] = w;
     c.r = fmaf(w, rgb_s[p], c.r);
-    c.g = fmaf(w, rgb_s[P + p], c.g);
-    c.b = fmaf(w, rgb_s[2 * P + p], c.b);
+    c.g = fmaf(w, rgb_s[ld + p], c.g);
+    c.b = fmaf(w, rgb_s[2 * ld + p], c.b);
     c.a += w;
     c.d = fmaf(w, t_s[p], c.d);
     c.T *= one_m;
@@ -356,14 +401,15 @@ constexpr int LDZ = H;                // row stride of the dz buffers
 enum class Epi { None, Relu, Cos };
 
 // out[l][col] = EPI(sum_n dz[l][n] W[col][n] (+ dsig[l] wsig[col])) for the
-// CTA's points l < cap_c, chunk by chunk, col < 128 * NQ. `wT` is W
-// transposed: K rows of 128 * NQ. The dz chunk is staged (rounded to bf16 in
-// BF16 mode) into the first activation buffer; `wst` is the weight stage.
+// CTA's points l < cap_c, chunk by chunk, col < ntot (blocks of 128 * NQ
+// columns). `wT` is W transposed: K rows of ntot. The dz chunk is staged
+// (rounded to bf16 in BF16 mode) into the first activation buffer; `wst` is
+// the weight stage.
 template <int K, bool BF16, Epi EPI, bool DSIG, typename WT, int NQ = 2>
 __device__ void dact(const float* dz, const WT* __restrict__ wT,
                      const float* mref, int ldm, const float* dsig,
                      const float* __restrict__ wsig, float w0, float* out,
-                     int cap_c, float* smem, WT* wst) {
+                     int cap_c, float* smem, WT* wst, int ntot = 128 * NQ) {
   float* in_s = smem + SM_ACT0;
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
   constexpr int K4 = K / 4;
@@ -381,47 +427,50 @@ __device__ void dact(const float* dz, const WT* __restrict__ wT,
       in_s[(n4 * 4 + 2) * LDA + p] = v.z;
       in_s[(n4 * 4 + 3) * LDA + p] = v.w;
     }
-    float acc[8][4 * NQ];
-    zero<NQ>(acc);
-    gemm_acc<K, NQ>(acc, in_s, wT, wst);
+    for (int nb = 0; nb < ntot; nb += 128 * NQ) {
+      float acc[PT][4 * NQ];
+      zero<NQ>(acc);
+      gemm_acc<K, NQ>(acc, in_s, wT + nb, wst, ntot);
 #pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int col = q * 128 + tx * 4;
+      for (int q = 0; q < NQ; ++q) {
+        const int col = nb + q * 128 + tx * 4;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const size_t row = static_cast<size_t>(l0 + ty * 8 + i);
-        float v[4] = {acc[i][q * 4], acc[i][q * 4 + 1], acc[i][q * 4 + 2],
-                      acc[i][q * 4 + 3]};
-        if (DSIG) {
-          const float ds = dsig[row];
+        for (int i = 0; i < PT; ++i) {
+          const size_t row = static_cast<size_t>(l0 + ty * PT + i);
+          float v[4] = {acc[i][q * 4], acc[i][q * 4 + 1], acc[i][q * 4 + 2],
+                        acc[i][q * 4 + 3]};
+          if (DSIG) {
+            const float ds = dsig[row];
 #pragma unroll
-          for (int u = 0; u < 4; ++u) v[u] = v[u] + ds * __ldg(wsig + col + u);
+            for (int u = 0; u < 4; ++u) v[u] = v[u] + ds * __ldg(wsig + col + u);
+          }
+          if (EPI == Epi::Relu) {
+            const float4 m = *reinterpret_cast<const float4*>(mref + row * ldm + col);
+            v[0] = m.x > 0.f ? v[0] : 0.f;
+            v[1] = m.y > 0.f ? v[1] : 0.f;
+            v[2] = m.z > 0.f ? v[2] : 0.f;
+            v[3] = m.w > 0.f ? v[3] : 0.f;
+          } else if (EPI == Epi::Cos) {
+            const float4 m = *reinterpret_cast<const float4*>(mref + row * ldm + col);
+            v[0] = (v[0] * w0) * m.x;
+            v[1] = (v[1] * w0) * m.y;
+            v[2] = (v[2] * w0) * m.z;
+            v[3] = (v[3] * w0) * m.w;
+          }
+          *reinterpret_cast<float4*>(out + row * LDZ + col) =
+              make_float4(v[0], v[1], v[2], v[3]);
         }
-        if (EPI == Epi::Relu) {
-          const float4 m = *reinterpret_cast<const float4*>(mref + row * ldm + col);
-          v[0] = m.x > 0.f ? v[0] : 0.f;
-          v[1] = m.y > 0.f ? v[1] : 0.f;
-          v[2] = m.z > 0.f ? v[2] : 0.f;
-          v[3] = m.w > 0.f ? v[3] : 0.f;
-        } else if (EPI == Epi::Cos) {
-          const float4 m = *reinterpret_cast<const float4*>(mref + row * ldm + col);
-          v[0] = (v[0] * w0) * m.x;
-          v[1] = (v[1] * w0) * m.y;
-          v[2] = (v[2] * w0) * m.z;
-          v[3] = (v[3] * w0) * m.w;
-        }
-        *reinterpret_cast<float4*>(out + row * LDZ + col) =
-            make_float4(v[0], v[1], v[2], v[3]);
       }
     }
   }
 }
 
-// Stage KT points of an A strip (64 columns from m0) and of B (NN columns).
+// Stage KT points of an A strip (64 columns from m0) and of B (NN columns
+// from n0).
 template <int NQ>
 __device__ __forceinline__ void stage_dw(const float* A, int lda, int m0,
                                          const float* B, int kt, float* as,
-                                         float* bs) {
+                                         float* bs, int n0) {
   constexpr int NN = 128 * NQ;
   const int tid = threadIdx.x;
   {
@@ -433,77 +482,85 @@ __device__ __forceinline__ void stage_dw(const float* A, int lda, int m0,
   for (int c = 0; c < 2 * NQ; ++c) {
     const int e = c * THREADS + tid;
     const int row = e / (32 * NQ), c4 = (e % (32 * NQ)) * 4;
-    cp_async16(bs + row * NN + c4, B + static_cast<size_t>(kt * KT + row) * LDZ + c4);
+    cp_async16(bs + row * NN + c4,
+               B + static_cast<size_t>(kt * KT + row) * LDZ + n0 + c4);
   }
   cp_async_commit();
 }
 
-// dW staging (in the second activation buffer): 2 x KT x 64 + 2 x KT x 256
-static_assert(2 * KT * 64 + 2 * KT * H <= H * LDA, "dW stage does not fit");
+// dW staging (in the second activation buffer): 2 x KT x 64 + 2 x KT x NB
+static_assert(2 * KT * 64 + 2 * KT * NB <= H * LDA, "dW stage does not fit");
 
-// part[m][n] = sum_l A[l][m] B[l][n] for m < mrows, n < 128*NQ, over the
-// CTA's points l < cap_c, in 64-row strips of A (width M, stride lda >= 64
-// past the last strip's start); B has stride LDZ. RA/RB round the operand
-// to bf16 as it is read.
+// part[m][n] = sum_l A[l][m] B[l][n] for m < mrows, n < ntot (blocks of
+// 128*NQ columns; part's rows ntot long), over the CTA's points l < cap_c,
+// in 64-row strips of A (width M, stride lda >= 64 past the last strip's
+// start); B has stride LDZ. RA/RB round the operand to bf16 as it is read.
 template <int NQ, bool RA, bool RB>
 __device__ void dweight(const float* A, int lda, int M, int mrows,
-                        const float* B, int cap_c, float* part, float* smem) {
+                        const float* B, int cap_c, float* part, float* smem,
+                        int ntot = 128 * NQ) {
   constexpr int NN = 128 * NQ;
   float* As = smem + SM_ACT1;             // 2 x KT x 64
   float* Bs = As + 2 * KT * 64;           // 2 x KT x NN
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
   const int nt = cap_c / KT;
   for (int m0 = 0; m0 < M; m0 += 64) {
-    float acc[8][4 * NQ];
-    zero<NQ>(acc);
-    stage_dw<NQ>(A, lda, m0, B, 0, As, Bs);
-    for (int kt = 0; kt < nt; ++kt) {
-      if (kt + 1 < nt) {
-        const int nb = (kt + 1) & 1;
-        stage_dw<NQ>(A, lda, m0, B, kt + 1, As + nb * KT * 64, Bs + nb * KT * NN);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const float* as = As + (kt & 1) * KT * 64 + ty * 8;
-      const float* bs = Bs + (kt & 1) * KT * NN + tx * 4;
+    for (int n0 = 0; n0 < ntot; n0 += NN) {
+      float acc[8][4 * NQ];
 #pragma unroll
-      for (int k = 0; k < KT; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(as + k * 64);
-        const float4 a1 = *reinterpret_cast<const float4*>(as + k * 64 + 4);
-        float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        float b[4 * NQ];
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = 0.f;
+      stage_dw<NQ>(A, lda, m0, B, 0, As, Bs, n0);
+      for (int kt = 0; kt < nt; ++kt) {
+        if (kt + 1 < nt) {
+          const int nb = (kt + 1) & 1;
+          stage_dw<NQ>(A, lda, m0, B, kt + 1, As + nb * KT * 64, Bs + nb * KT * NN, n0);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        const float* as = As + (kt & 1) * KT * 64 + ty * 8;
+        const float* bs = Bs + (kt & 1) * KT * NN + tx * 4;
+#pragma unroll
+        for (int k = 0; k < KT; ++k) {
+          const float4 a0 = *reinterpret_cast<const float4*>(as + k * 64);
+          const float4 a1 = *reinterpret_cast<const float4*>(as + k * 64 + 4);
+          float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          float b[4 * NQ];
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            const float4 bv = *reinterpret_cast<const float4*>(bs + k * NN + q * 128);
+            b[4 * q] = bv.x; b[4 * q + 1] = bv.y; b[4 * q + 2] = bv.z; b[4 * q + 3] = bv.w;
+          }
+          if (RA) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) a[i] = round_bf16(a[i]);
+          }
+          if (RB) {
+#pragma unroll
+            for (int j = 0; j < 4 * NQ; ++j) b[j] = round_bf16(b[j]);
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+#pragma unroll
+            for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          }
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = m0 + ty * 8 + i;
+        if (m >= mrows) continue;
 #pragma unroll
         for (int q = 0; q < NQ; ++q) {
-          const float4 bv = *reinterpret_cast<const float4*>(bs + k * NN + q * 128);
-          b[4 * q] = bv.x; b[4 * q + 1] = bv.y; b[4 * q + 2] = bv.z; b[4 * q + 3] = bv.w;
+          *reinterpret_cast<float4*>(part + static_cast<size_t>(m) * ntot + n0 + q * 128 +
+                                     tx * 4) =
+              make_float4(acc[i][q * 4], acc[i][q * 4 + 1], acc[i][q * 4 + 2],
+                          acc[i][q * 4 + 3]);
         }
-        if (RA) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) a[i] = round_bf16(a[i]);
-        }
-        if (RB) {
-#pragma unroll
-          for (int j = 0; j < 4 * NQ; ++j) b[j] = round_bf16(b[j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + ty * 8 + i;
-      if (m >= mrows) continue;
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        *reinterpret_cast<float4*>(part + static_cast<size_t>(m) * NN + q * 128 + tx * 4) =
-            make_float4(acc[i][q * 4], acc[i][q * 4 + 1], acc[i][q * 4 + 2],
-                        acc[i][q * 4 + 3]);
       }
     }
   }

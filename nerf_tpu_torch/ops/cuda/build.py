@@ -3,8 +3,11 @@
 Every CUDA source under the package's ``csrc/`` is compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, in
 ``build/`` beside the package, on the first CUDA call: one ``nvcc`` per
-source, all started together. The families' modules load their libraries
-with ``library`` and declare their C signatures there.
+source, all started together. The NeRF libraries are also compiled at the
+other shapes they take (``nerf_plan.py``), each on the first launch at that
+shape, with the shape in its file name beside the hash. The families'
+modules load their libraries with ``library`` and declare their C
+signatures there.
 """
 
 from __future__ import annotations
@@ -61,44 +64,78 @@ def _nvcc() -> str:
                        "the kernels are built from source at first use")
 
 
-@functools.cache
-def build() -> tuple[BuildInfo, ...]:
-    """Compile every kernel library into ``build/``: one ``nvcc`` per
-    source, all started together. A library's file name carries the hash of
-    every source in ``csrc/`` and of the flags, so a change to a shared
-    header rebuilds them all. Raises ``RuntimeError`` if any build fails."""
+def _digest(flags: tuple) -> str:
+    """The hash of every source in ``csrc/`` and of the flags: a change to a
+    shared header rebuilds every library."""
     sources = sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
     for p in sources:
         h.update(p.name.encode() + p.read_bytes())
-    digest = h.hexdigest()[:16]
+    return h.hexdigest()[:16]
+
+
+def _compile(jobs: dict) -> dict:
+    """Build each ``(name, defines)`` of ``jobs`` (its output path the value)
+    not yet in ``build/``: one ``nvcc`` per library, all started together.
+    Returns their ``BuildInfo`` by key; raises ``RuntimeError`` if any build
+    fails."""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs, infos = {}, {}
-    for name in LIBS:
-        out = _BUILD_DIR / f"{name}-{digest}.so"
+    running, infos = {}, {}
+    for (name, defines), out in jobs.items():
         if out.exists():
-            infos[name] = BuildInfo(name, out, 0.0, "cached")
+            infos[name, defines] = BuildInfo(name, out, 0.0, "cached")
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, out, time.perf_counter())
+        running[name, defines] = (proc, tmp, out, time.perf_counter())
     errors = []
-    for name, (proc, tmp, out, t0) in jobs.items():
+    for (name, defines), (proc, tmp, out, t0) in running.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+            errors.append(f"nvcc {name}.cu {' '.join(defines)} failed ({proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
-        infos[name] = BuildInfo(name, out, time.perf_counter() - t0, log)
+        infos[name, defines] = BuildInfo(name, out, time.perf_counter() - t0, log)
     if errors:
         raise RuntimeError("\n".join(errors))
-    return tuple(infos[n] for n in LIBS)
+    return infos
 
 
 @functools.cache
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (one of ``LIBS``), building them all
-    first if needed."""
-    return ctypes.CDLL(str({b.name: b.path for b in build()}[name]))
+def build() -> tuple[BuildInfo, ...]:
+    """Compile every kernel library at the default shape into ``build/``:
+    one ``nvcc`` per source, all started together. A library's file name
+    carries the hash of every source in ``csrc/`` and of the flags."""
+    digest = _digest(())
+    infos = _compile({(n, ()): _BUILD_DIR / f"{n}-{digest}.so" for n in LIBS})
+    return tuple(infos[n, ()] for n in LIBS)
+
+
+def _shaped_path(name: str, tag: str, defines: tuple) -> Path:
+    return _BUILD_DIR / f"{name}-{tag}-{_digest(defines)}.so"
+
+
+def build_shaped(wanted) -> tuple[BuildInfo, ...]:
+    """Compile the libraries ``wanted``, each ``(name, tag, defines)``: one
+    of ``LIBS`` at the shape the -D flags ``defines`` set (the NeRF
+    libraries at another width, ``nerf_plan.NerfPlan.defines``), named
+    with ``tag``; empty ``defines`` name the default build. All are started
+    together, with the default shape's libraries if not built yet. Built
+    once; each later call finds them in ``build/``."""
+    digest = _digest(())
+    jobs = {(n, ()): _BUILD_DIR / f"{n}-{digest}.so" for n in LIBS}
+    jobs.update({(n, d): _shaped_path(n, t, d) for n, t, d in wanted if d})
+    infos = _compile(jobs)
+    return tuple(infos[n, d] for n, _, d in wanted)
+
+
+@functools.cache
+def library(name: str, tag: str = "", defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library ``name`` (one of ``LIBS``), at the default shape
+    (building them all first if needed) or, with ``defines``, at the shape
+    they set (``build_shaped``)."""
+    if not defines:
+        return ctypes.CDLL(str({b.name: b.path for b in build()}[name]))
+    return ctypes.CDLL(str(build_shaped(((name, tag, defines),))[0].path))

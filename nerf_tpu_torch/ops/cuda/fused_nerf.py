@@ -33,11 +33,13 @@ JAX weights across unchanged. This module holds
     tensors the plain versions, on CUDA tensors the kernels or a raise,
     never one for the other; differentiable under autograd through the
     backward kernel; ``launches`` and ``bwd_launches`` count the kernels'
-    launches over all instances.
+    launches over all instances, and ``shape_launches`` splits them by
+    shape: ``(counter, plan tag, compute dtype)`` -> launches.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -49,7 +51,6 @@ from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.ops.cuda.build import library
 from nerf_tpu_torch.ops.cuda.field import FusedField
 from nerf_tpu_torch.ops.cuda.fused_render import (
-    DP,
     PP,
     TC_BYTES_PER_POINT,
     Packed,
@@ -61,13 +62,16 @@ from nerf_tpu_torch.ops.cuda.fused_render import (
     mlp_acts,
     mlp_bwd,
     pack_f32,
+    packed_pads,
 )
+from nerf_tpu_torch.ops.cuda.nerf_plan import NerfPlan, covered, enc_pads, plan
 
-HIDDEN = 256      # the width the kernels take
-# the bfloat16 backward's stash a point (csrc/fused_nerf_bwd_tc.cu): the
-# NeRF train pass's (its 12 per-point float32 columns last), then dz6 w6p^T
-# (PP float32 columns); TC_BWD_COLS_AT floats of a row precede the columns
-TC_BWD_BYTES_PER_POINT = TC_BYTES_PER_POINT + 4 * PP
+NI = 128          # columns of the backward's input-product matrices (>= any pad)
+# the bfloat16 backward's stash a point at hidden 256 (csrc/fused_nerf_bwd_tc.cu):
+# the NeRF train pass's (its 12 per-point float32 columns last), then dz6
+# w6p^T (PP float32 columns); TC_BWD_COLS_AT floats of a row precede the
+# columns
+TC_BWD_BYTES_PER_POINT = plan(256, PP, 32).field_tc_bytes_per_point
 TC_BWD_COLS_AT = TC_BYTES_PER_POINT // 4 - 12
 
 
@@ -75,14 +79,16 @@ TC_BWD_COLS_AT = TC_BYTES_PER_POINT // 4 - 12
 
 
 def _acts(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor, pos_freqs: int,
-          dir_freqs: int) -> dict:
+          dir_freqs: int, sums: torch.dtype = torch.float32) -> dict:
     """Every activation of the kernels' forward of points (n, 3) and
     directions (n, 3): both encodings through the kernels' sine, rounded to
-    the compute dtype, then the MLP (``fused_render.py::mlp_acts``)."""
+    the compute dtype, then the MLP (``fused_render.py::mlp_acts``, its
+    sums in ``sums``)."""
     sin = fast_sin if packed.cdt == torch.bfloat16 else torch.sin
-    penc = round_to(_encode(pts, pos_freqs, PP, sin), packed.cdt)
-    denc = round_to(_encode(dirs, dir_freqs, DP, sin), packed.cdt)
-    return mlp_acts(packed, penc, denc)
+    pp, dp = packed_pads(packed)
+    penc = round_to(_encode(pts, pos_freqs, pp, sin), packed.cdt)
+    denc = round_to(_encode(dirs, dir_freqs, dp, sin), packed.cdt)
+    return mlp_acts(packed, penc.to(sums), denc.to(sums))
 
 
 def _encode_bwd(g: torch.Tensor, x: torch.Tensor, num_freqs: int) -> torch.Tensor:
@@ -109,18 +115,22 @@ def nerf_field_plain(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
 
 
 def nerf_field_bwd_plain(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
-                         cot: torch.Tensor, pos_freqs: int, dir_freqs: int):
+                         cot: torch.Tensor, pos_freqs: int, dir_freqs: int,
+                         sums: torch.dtype = torch.float32):
     """The backward kernel's function in plain PyTorch: ``(gw, gv, dpts,
     ddirs)``, the flat float32 gradients of sum(cot * [rgb, sigma]) in the
     packed layout and the point and direction cotangents; ``cot`` is (n,
-    4)."""
-    a = _acts(packed, pts, dirs, pos_freqs, dir_freqs)
+    4). ``sums`` float64 keeps the encodings and every rounding point and
+    takes every product and sum after them in float64: a reference for
+    what a float32 sum in another order does to the bfloat16 roundings."""
+    a = _acts(packed, pts, dirs, pos_freqs, dir_freqs, sums)
     rgb = a["rgb"]
+    cot, pts, dirs = cot.to(sums), pts.to(sums), dirs.to(sums)
     dzr1 = cot[:, :3] * rgb * (1.0 - rgb)
     dsig = torch.where(a["sigma_pre"] > 0, cot[:, 3], torch.zeros_like(cot[:, 3]))
     gw, gv, dpenc, ddenc = mlp_bwd(packed, a, dzr1, dsig, inputs=True)
-    return (gw, gv, _encode_bwd(dpenc, pts, pos_freqs),
-            _encode_bwd(ddenc, dirs, dir_freqs))
+    return (gw, gv, _encode_bwd(dpenc, pts, pos_freqs).float(),
+            _encode_bwd(ddenc, dirs, dir_freqs).float())
 
 
 # ---------------------------------------------------------------- libraries
@@ -132,8 +142,10 @@ _FWD_LIBS = ("fused_nerf_fwd", "fused_nerf_fwd_tc")
 
 
 @functools.cache
-def _library(name: str) -> ctypes.CDLL:
-    lib = library(name)
+def _library(name: str, shape: NerfPlan | None = None) -> ctypes.CDLL:
+    """The library ``name`` with its C signatures declared, at the default
+    shape or at the plan ``shape``'s (built on first use)."""
+    lib = library(name) if shape is None else library(name, shape.tag, shape.defines)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn, err = getattr(lib, name), getattr(lib, name + "_error")
     if name in _FWD_LIBS:
@@ -151,13 +163,12 @@ def _library(name: str) -> ctypes.CDLL:
 
 def input_transposes(packed: Packed) -> torch.Tensor:
     """The backward kernels' input-product matrices in the compute dtype:
-    w1^T and w6p^T (256 rows) and wr0d^T (128 rows), each zero-padded to
-    128 columns (``csrc/fused_render_common.cuh``'s OFF_T_*), built once a
-    packing."""
+    w1^T and w6p^T (hidden rows) and wr0d^T (hidden / 2 rows), each
+    zero-padded to NI columns (``csrc/fused_render_common.cuh``'s OFF_T_*),
+    built once a packing."""
     if "input_t" not in packed.derived:
-        hr = packed.mats["wr1"].shape[0]
         packed.derived["input_t"] = torch.cat(
-            [F.pad(packed.mats[k].t(), (0, hr - packed.mats[k].shape[0])).reshape(-1)
+            [F.pad(packed.mats[k].t(), (0, NI - packed.mats[k].shape[0])).reshape(-1)
              for k in ("w1", "w6p", "wr0d")])
     return packed.derived["input_t"]
 
@@ -173,6 +184,7 @@ class NerfField(FusedField):
 
     launches = 0
     bwd_launches = 0
+    shape_launches: collections.Counter = collections.Counter()
     family = "NeRF"
 
     def __init__(self, model: NeRFModel, packed: Packed | None = None):
@@ -181,22 +193,33 @@ class NerfField(FusedField):
         self.dir_freqs = model.dir_encoding_dim
         self.real_p = 3 * (1 + 2 * self.pos_freqs)
         self.real_d = 3 * (1 + 2 * self.dir_freqs)
+        self.pads = enc_pads(self.pos_freqs, self.dir_freqs)
+        # the kernels' plan at this shape, None outside the shapes they take
+        self.plan = plan(self.h, *self.pads) if covered(self.h, *self.pads) else None
 
     def params_f32(self) -> tuple:
         return pack_f32(self.model)
 
+    def _count(self, counter: str) -> None:
+        """One launch more on the class's ``counter`` and at this shape."""
+        cls = type(self)
+        setattr(cls, counter, getattr(cls, counter) + 1)
+        cls.shape_launches[counter, self.plan.tag, str(self.cdt)[6:]] += 1
+
     def cast(self, wflat: torch.Tensor, vec: torch.Tensor) -> Packed:
-        return cast_packed(wflat, vec, self.cdt, self.h)
+        return cast_packed(wflat, vec, self.cdt, self.h, self.pads)
 
     def supported(self) -> bool:
-        """The shapes the kernels cover: hidden 256 (as the render kernels)
-        and encodings of at most 64 / 32 columns."""
-        return self.h == HIDDEN and self.real_p <= PP and self.real_d <= DP
+        """The shapes the kernels cover (``nerf_plan.covered``): hidden 256,
+        512, 768 or 1024 with encodings padded to at most 128 / 64
+        columns."""
+        return self.plan is not None
 
     def _unsupported(self) -> str:
-        return (f"the NeRF field kernels cover hidden {HIDDEN} with encodings of at "
-                f"most {PP}/{DP} columns; got hidden {self.h}, {self.real_p}/"
-                f"{self.real_d} (run on the CPU, or with use_pallas = false)")
+        return (f"the NeRF field kernels cover hidden 256 to 1024 with encodings "
+                f"padded to at most 128/64 columns; got hidden {self.h}, {self.real_p}/"
+                f"{self.real_d} (ROADMAP.md queue 2; run on the CPU, or with "
+                "use_pallas = false)")
 
     def _plain_forward(self, packed: Packed, pts, dirs):
         return nerf_field_plain(packed, pts, dirs, self.pos_freqs, self.dir_freqs)
@@ -218,13 +241,13 @@ class NerfField(FusedField):
     def _fwd_entry(self):
         """(function, error string) of the forward."""
         name = self.fwd_library()
-        lib = _library(name)
+        lib = _library(name, self.plan)
         return getattr(lib, name), getattr(lib, name + "_error")
 
     def _bwd_entry(self):
         """(function, error string, sizes) of the backward."""
         name = self.bwd_library()
-        lib = _library(name)
+        lib = _library(name, self.plan)
         return tuple(getattr(lib, name + s) for s in ("", "_error", "_sizes"))
 
     def _launch_fwd(self, packed: Packed, pts: torch.Tensor, dirs: torch.Tensor):
@@ -246,7 +269,7 @@ class NerfField(FusedField):
                 rgb.data_ptr(), sigma.data_ptr(), stream)
         if code != 0:
             raise RuntimeError("NeRF field forward kernel: " + err(code).decode())
-        type(self).launches += 1
+        self._count("launches")
         return rgb, sigma
 
     def _launch_bwd(self, packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
@@ -286,7 +309,7 @@ class NerfField(FusedField):
                 dpts.data_ptr(), ddirs.data_ptr(), stream)
         if code != 0:
             raise RuntimeError("NeRF field backward kernel: " + err(code).decode())
-        type(self).bwd_launches += 1
+        self._count("bwd_launches")
         if stash is not None:
             stash.update(scratch=scratch, run=run, grid=grid, per_point=per_point)
         return out[:n_w], out[n_w:n_w + n_b], dpts, ddirs

@@ -42,6 +42,7 @@ libraries are built by ``build.py``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -52,15 +53,17 @@ import torch.nn.functional as F
 
 from nerf_tpu_torch.models.common import round_to
 from nerf_tpu_torch.ops.cuda.build import library
+from nerf_tpu_torch.ops.cuda.nerf_plan import NerfPlan, covered, enc_pads, plan
 from nerf_tpu_torch.ops.sampling import deltas_from_t
 from nerf_tpu_torch.ops.volume import exclusive_cumprod
 
-PP, DP = 64, 32          # padded position / direction encoding widths
-# Stash bytes a point of the bfloat16 train pass on the tensor cores
-# (csrc/fused_render_train_tc.cu: h1..h8, r(h9), feat and two dz buffers of
-# 256 bf16, y 128, penc 64, denc 32, h9 256 and 12 per-point columns in
-# float32); its library's fused_render_train_tc_sizes gives the same.
-TC_BYTES_PER_POINT = 2 * (12 * 256 + 128 + PP + DP) + 4 * (256 + 12)
+PP, DP = 64, 32          # padded position / direction encoding widths at L = 10 / 4
+# Stash bytes a point of the bfloat16 train pass on the tensor cores at
+# hidden 256 (csrc/fused_render_train_tc.cu: h1..h8, r(h9), feat and two dz
+# buffers of 256 bf16, y 128, penc 64, denc 32, h9 256 and 12 per-point
+# columns in float32); its library's fused_render_train_tc_sizes gives the
+# same.
+TC_BYTES_PER_POINT = plan(256, PP, DP).tc_bytes_per_point
 _HALF_PI = math.pi / 2   # rounds to the same float32 phase as the kernel's
 
 # The packed matrices and vectors, in buffer order (must match the OFF_*
@@ -71,12 +74,13 @@ _VECS = ("b1", "b2", "b3", "b4", "b5", "b6", "b7", "b8", "b9", "b10f",
          "w10s", "br0", "br1", "b10s")
 
 
-def _shapes(h: int) -> tuple[dict, dict]:
+def _shapes(h: int, pads: tuple = (PP, DP)) -> tuple[dict, dict]:
     hr = h // 2
-    mats = {"w1": (PP, h), **{f"w{i}": (h, h) for i in range(2, 6)},
-            "w6h": (h, h), "w6p": (PP, h),
+    pp, dp = pads
+    mats = {"w1": (pp, h), **{f"w{i}": (h, h) for i in range(2, 6)},
+            "w6h": (h, h), "w6p": (pp, h),
             **{f"w{i}": (h, h) for i in range(7, 10)},
-            "w10f": (h, h), "wr0f": (h, hr), "wr0d": (DP, hr), "wr1": (hr, 8)}
+            "w10f": (h, h), "wr0f": (h, hr), "wr0d": (dp, hr), "wr1": (hr, 8)}
     vecs = {**{f"b{i}": (h,) for i in range(1, 10)}, "b10f": (h,),
             "w10s": (h,), "br0": (hr,), "br1": (8,), "b10s": (1,)}
     return mats, vecs
@@ -110,8 +114,10 @@ class Packed:
 def pack_f32(model) -> tuple[torch.Tensor, torch.Tensor]:
     """``(wflat, vec)``: every matrix and every vector of ``model`` padded
     and split into the kernel layout, float32 and differentiable (the float32
-    layout of ``nerf_tpu.ops.pallas.fused_nerf.pack_params``)."""
+    layout of ``nerf_tpu.ops.pallas.fused_nerf.pack_params``, its encodings
+    padded as ``make_fused_nerf_apply`` pads them: ``nerf_plan.enc_pads``)."""
     h = model.hidden_dim
+    pp, dp = enc_pads(model.pos_encoding_dim, model.dir_encoding_dim)
     b1 = model.linears(model.block1)
     b2 = model.linears(model.block2)
     r0, r1 = model.linears(model.rgb_head)
@@ -124,12 +130,12 @@ def pack_f32(model) -> tuple[torch.Tensor, torch.Tensor]:
 
     w6, w10, wr0 = w(b2[0]), w(b2[4]), w(r0)
     mats = {
-        "w1": pad_rows(w(b1[0]), PP),
+        "w1": pad_rows(w(b1[0]), pp),
         **{f"w{i}": w(b1[i - 1]) for i in range(2, 6)},
-        "w6h": w6[:h], "w6p": pad_rows(w6[h:], PP),
+        "w6h": w6[:h], "w6p": pad_rows(w6[h:], pp),
         **{f"w{i}": w(b2[i - 6]) for i in range(7, 10)},
         "w10f": w10[:, :h],
-        "wr0f": wr0[:h], "wr0d": pad_rows(wr0[h:], DP),
+        "wr0f": wr0[:h], "wr0d": pad_rows(wr0[h:], dp),
         "wr1": F.pad(w(r1), (0, 8 - r1.weight.shape[0])),
     }
     vecs = {
@@ -147,10 +153,11 @@ def pack_f32(model) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def cast_packed(wflat: torch.Tensor, vec: torch.Tensor, cdt: torch.dtype,
-                hidden: int) -> Packed:
+                hidden: int, pads: tuple = (PP, DP)) -> Packed:
     """The float32 packing as the kernels read it: matrices in ``cdt``, the
-    density row rounded to ``cdt`` (biases stay float32)."""
-    mat_shapes, vec_shapes = _shapes(hidden)
+    density row rounded to ``cdt`` (biases stay float32); ``pads`` the
+    padded encoding widths (``nerf_plan.enc_pads``)."""
+    mat_shapes, vec_shapes = _shapes(hidden, pads)
     o = 10 * hidden                                   # offset of w10s
     vec = torch.cat([vec[:o], round_to(vec[o:o + hidden], cdt),
                      vec[o + hidden:]]).contiguous()
@@ -162,12 +169,19 @@ def cast_packed(wflat: torch.Tensor, vec: torch.Tensor, cdt: torch.dtype,
 def pack_params(model) -> Packed:
     """``model`` in the kernel layout, cast once to its compute dtype."""
     wflat, vec = pack_f32(model)
-    return cast_packed(wflat, vec, model.cdt, model.hidden_dim)
+    return cast_packed(wflat, vec, model.cdt, model.hidden_dim,
+                       enc_pads(model.pos_encoding_dim, model.dir_encoding_dim))
 
 
-def grad_views(gw: torch.Tensor, gv: torch.Tensor, hidden: int) -> dict:
+def packed_pads(packed: Packed) -> tuple[int, int]:
+    """The padded encoding widths of a NeRF packing."""
+    return packed.mats["w1"].shape[0], packed.mats["wr0d"].shape[0]
+
+
+def grad_views(gw: torch.Tensor, gv: torch.Tensor, hidden: int,
+               pads: tuple = (PP, DP)) -> dict:
     """The 28 gradient tensors of a flat ``(gw, gv)`` pair, by name."""
-    mat_shapes, vec_shapes = _shapes(hidden)
+    mat_shapes, vec_shapes = _shapes(hidden, pads)
     return {**_views(gw, mat_shapes, _MATS), **_views(gv, vec_shapes, _VECS)}
 
 
@@ -216,24 +230,26 @@ def _forward_acts(packed: Packed, o_aff, d_aff, viewdirs, t,
     h9 and sigma_pre unrounded, rgb after the sigmoid (3 channels)."""
     cdt = packed.cdt
     sin = fast_sin if cdt == torch.bfloat16 else torch.sin
+    pp, dp = packed_pads(packed)
     p = o_aff[:, None, :] + t[..., None] * d_aff[:, None, :]           # (R,S,3)
-    penc = round_to(_encode(p, pos_freqs, PP, sin), cdt)
-    denc = round_to(_encode(viewdirs, dir_freqs, DP, torch.sin), cdt)
-    return mlp_acts(packed, penc, denc[:, None, :].expand(*t.shape, DP))
+    penc = round_to(_encode(p, pos_freqs, pp, sin), cdt)
+    denc = round_to(_encode(viewdirs, dir_freqs, dp, torch.sin), cdt)
+    return mlp_acts(packed, penc, denc[:, None, :].expand(*t.shape, dp))
 
 
 def mlp_acts(packed: Packed, penc: torch.Tensor, denc: torch.Tensor) -> dict:
     """Every activation of the NeRF MLP of the kernels (``fused_nerf.py::
-    _mlp_tile``) on encodings already rounded to the compute dtype, float32
-    with the encodings' leading shape: matmul inputs rounded as the kernels
+    _mlp_tile``) on encodings already rounded to the compute dtype, with the
+    encodings' leading shape and dtype (float32; float64 gives the same
+    roundings with float64 sums): matmul inputs rounded as the kernels
     round them, h9 and sigma_pre unrounded, rgb after the sigmoid (3
     channels)."""
     cdt = packed.cdt
-    m = {k: v.float() for k, v in packed.mats.items()}
+    m = {k: v.to(penc.dtype) for k, v in packed.mats.items()}
     v = packed.vecs
 
     def r(x):
-        return round_to(x, cdt)
+        return round_to(x, cdt).to(x.dtype)
 
     a = {"penc": penc, "denc": denc}
     x = a["penc"]
@@ -295,11 +311,12 @@ def _composite_bwd(acts: dict, one_m, trans, weights, t, g_ray,
 
 def mlp_bwd(packed: Packed, acts: dict, dzr1, dsig, inputs: bool = False):
     """Backward of the MLP from the cotangents of the sigmoid input and the
-    density (``fused_nerf.py::_mlp_bwd_core``): the flat float32 gradients
+    density (``fused_nerf.py::_mlp_bwd_core``), its sums in their dtype
+    (float32; float64 as ``mlp_acts``): the flat float32 gradients
     ``(gw, gv)`` in the packed layout and, with ``inputs``, the cotangents
     of the two encodings ``(dpenc, ddenc)`` after them."""
     cdt = packed.cdt
-    m = {k: v.float() for k, v in packed.mats.items()}
+    m = {k: v.to(dzr1.dtype) for k, v in packed.mats.items()}
     a = {k: v.reshape(-1, v.shape[-1]) for k, v in acts.items()
          if k not in ("sigma_pre", "rgb")}
     dzr1 = dzr1.reshape(-1, 3)
@@ -307,10 +324,10 @@ def mlp_bwd(packed: Packed, acts: dict, dzr1, dsig, inputs: bool = False):
     hidden = m["w2"].shape[0]
     gw = torch.zeros(packed.wmat.numel(), dtype=torch.float32, device=dzr1.device)
     gv = torch.zeros(packed.vec.numel(), dtype=torch.float32, device=dzr1.device)
-    g = grad_views(gw, gv, hidden)
+    g = grad_views(gw, gv, hidden, packed_pads(packed))
 
     def r(x):
-        return round_to(x, cdt)
+        return round_to(x, cdt).to(x.dtype)
 
     def dw(name, x, dz):
         g[name].copy_(r(x).T @ r(dz))
@@ -384,8 +401,10 @@ def fused_render_bwd_plain(packed: Packed, o_aff, d_aff, viewdirs, t,
 
 
 @functools.cache
-def _library(name: str) -> ctypes.CDLL:
-    lib = library(name)
+def _library(name: str, shape: NerfPlan | None = None) -> ctypes.CDLL:
+    """The library ``name`` with its C signatures declared, at the default
+    shape or at the NeRF plan ``shape``'s (built on first use)."""
+    lib = library(name) if shape is None else library(name, shape.tag, shape.defines)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name in ("fused_render_fwd", "fused_render_fwd_tc"):
         fn, err = getattr(lib, name), getattr(lib, name + "_error")
@@ -586,7 +605,7 @@ class FusedRender:
             return self._plain_backward(packed, o_aff, d_aff, viewdirs, t, g_ray)
         out = self._launch_grad(packed, o_aff, d_aff, viewdirs, t, g_ray,
                                 train=False, white_bg=False)
-        type(self).bwd_launches += 1
+        self._count("bwd_launches")
         return out[0]
 
     def _train(self, packed, o_aff, d_aff, viewdirs, t, target, white_bg):
@@ -596,8 +615,15 @@ class FusedRender:
         (gw, gv), loss, rgb, acc, weights = self._launch_grad(
             packed, o_aff, d_aff, viewdirs, t, target, train=True,
             white_bg=white_bg)
-        type(self).train_launches += 1
+        self._count("train_launches")
         return loss, rgb, acc, weights, (gw, gv)
+
+    def _count(self, counter: str) -> None:
+        """One launch more on the class's ``counter`` (``launches``,
+        ``train_launches`` or ``bwd_launches``), counted where the kernel
+        launched."""
+        cls = type(self)
+        setattr(cls, counter, getattr(cls, counter) + 1)
 
     def _check(self, packed: Packed, named: tuple) -> None:
         if not self.supported():
@@ -642,7 +668,7 @@ class FusedRender:
         if code != 0:
             raise RuntimeError(f"{type(self).__name__} forward kernel: "
                                + err(code).decode())
-        type(self).launches += 1
+        self._count("launches")
         return rgb, acc, depth, weights
 
     def _launch_grad(self, packed: Packed, o_aff, d_aff, viewdirs, t,
@@ -755,34 +781,44 @@ class FusedRender:
 
 class FusedNerfRender(FusedRender):
     """Fused render, train pass and render backward of a NeRF (see
-    ``FusedRender`` for the contract)."""
+    ``FusedRender`` for the contract). ``shape_launches`` splits the three
+    counts by shape: ``(counter, plan tag, compute dtype)`` -> launches."""
 
     launches = 0
     train_launches = 0
     bwd_launches = 0
+    shape_launches: collections.Counter = collections.Counter()
     mat_names = _MATS
 
     def __init__(self, model, near: float, far: float, normalize: bool = True):
         super().__init__(model, near, far, normalize)
         self.pos_freqs = model.pos_encoding_dim
         self.real_p = 3 * (1 + 2 * self.pos_freqs)
+        self.pads = enc_pads(self.pos_freqs, self.dir_freqs)
+        # the kernels' plan at this shape, None outside the shapes they take
+        self.plan = plan(self.h, *self.pads) if covered(self.h, *self.pads) else None
 
     def supported(self) -> bool:
-        """The shapes the kernels cover: hidden 256 (as the TPU kernel's
-        ``supported``) and encodings that fit their padded widths."""
-        return self.h == 256 and self.real_p <= PP and self.real_d <= DP
+        """The shapes the kernels cover (``nerf_plan.covered``): hidden 256,
+        512, 768 or 1024 with encodings padded to at most 128 / 64
+        columns."""
+        return self.plan is not None
 
     def _unsupported(self) -> str:
-        return (f"the fused render kernels cover hidden 256 with encodings of "
-                f"at most {PP}/{DP} columns; got hidden {self.h}, "
-                f"{self.real_p}/{self.real_d} (run on the CPU, or with "
-                "use_pallas = false)")
+        return (f"the fused render kernels cover hidden 256 to 1024 with encodings "
+                f"padded to at most 128/64 columns; got hidden {self.h}, "
+                f"{self.real_p}/{self.real_d} (ROADMAP.md queue 2; run on the CPU, "
+                "or with use_pallas = false)")
+
+    def _count(self, counter: str) -> None:
+        super()._count(counter)
+        type(self).shape_launches[counter, self.plan.tag, str(self.cdt)[6:]] += 1
 
     def pack_f32(self, model):
         return pack_f32(model)
 
     def cast(self, wflat, vec) -> Packed:
-        return cast_packed(wflat, vec, self.cdt, self.h)
+        return cast_packed(wflat, vec, self.cdt, self.h, self.pads)
 
     def _plain_forward(self, packed, o_aff, d_aff, viewdirs, t):
         return fused_render_plain(packed, o_aff, d_aff, viewdirs, t,
@@ -801,17 +837,18 @@ class FusedNerfRender(FusedRender):
 
     def fwd_library(self) -> str:
         """The library of a forward render: the bfloat16 one runs on the
-        tensor cores (two CTAs an SM), the float32 one on the CUDA cores."""
+        tensor cores (two CTAs an SM at hidden 256, one wider: the plan's
+        ``fwd_ctas_per_sm``), the float32 one on the CUDA cores."""
         return "fused_render_fwd_tc" if self.cdt == torch.bfloat16 else "fused_render_fwd"
 
     def _fwd_entry(self):
         name = self.fwd_library()
-        lib = _library(name)
+        lib = _library(name, self.plan)
         return (getattr(lib, name), getattr(lib, name + "_error"),
-                2 if name.endswith("_tc") else 1)
+                self.plan.fwd_ctas_per_sm if name.endswith("_tc") else 1)
 
     def _grad_entry(self):
-        lib = _library("fused_render_train")
+        lib = _library("fused_render_train", self.plan)
         return (lib.fused_render_grad, lib.fused_render_grad_error,
                 grad_sizes(lib.fused_render_grad_sizes))
 
@@ -824,11 +861,11 @@ class FusedNerfRender(FusedRender):
         return "fused_render_train"
 
     def _train_tc_entry(self):
-        lib = _library("fused_render_train_tc")
+        lib = _library("fused_render_train_tc", self.plan)
         return (lib.fused_render_train_tc, lib.fused_render_train_tc_error,
                 lib.fused_render_train_tc_sizes)
 
     def _bwd_tc_entry(self):
-        lib = _library("fused_render_train_tc")
+        lib = _library("fused_render_train_tc", self.plan)
         return (lib.fused_render_bwd_tc, lib.fused_render_train_tc_error,
                 lib.fused_render_train_tc_sizes)

@@ -156,14 +156,17 @@ def fused_field_for(model):
     the card, a NeRF, SIREN or GaborNet that nerf_tpu's
     ``make_fused_*_apply`` takes (``_tpu_kernel_width``) through its
     family's field kernels (``NerfField``, ``SirenField``, ``GaborField``)
-    where they cover the shape (hidden 256; a GaborNet of 8 stages);
+    where they cover the shape (a NeRF at hidden 256 to 1024 with
+    encodings padded to at most 128 / 64 columns, ``nerf_plan.covered``;
+    a SIREN or GaborNet at hidden 256, a GaborNet of 8 stages);
     otherwise the module, as on the CPU and wherever nerf_tpu takes no field
     kernel (a Plenoxels model or a baked FastNeRF cache, whose ``apply``
     reaches the grid kernel; a live FastNeRF, PlenOctree or NGP model).
     Raises ``NotImplementedError`` on the card where nerf_tpu would take a
     field kernel at a shape the port's do not cover (naming its row of
-    PERF.md's table: any of the three at hidden 512, a GaborNet of another
-    depth than 8), and for a family the port does not have."""
+    PERF.md's table: a NeRF above hidden 1024 or with wider encodings, a
+    SIREN or GaborNet at hidden 512, a GaborNet of another depth than 8),
+    and for a family the port does not have."""
     if isinstance(model, KiloNeRFModel):
         h = model.hidden_dim
         return KiloNeRFField(model) if 8 <= h <= 128 and h % 8 == 0 else model

@@ -23,6 +23,7 @@ from nerf_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
 from nerf_tpu.utils.metrics import ssim as jax_ssim
 from tests.synthetic import make_synthetic_blender_scene
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.cli.eval_cli import main as eval_main
 from nerf_tpu_torch.config import parse_config_file
 from nerf_tpu_torch.models.convert import load_jax_params

@@ -24,6 +24,7 @@ from tensorboard.compat.tensorflow_stub.pywrap_tensorflow import masked_crc32c a
 from nerf_tpu.utils.logging import MetricLogger as JaxMetricLogger
 from tests.synthetic import make_synthetic_blender_scene
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.config import Config
 from nerf_tpu_torch.train.loop import fit
 from nerf_tpu_torch.utils import events

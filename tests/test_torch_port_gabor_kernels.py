@@ -37,6 +37,7 @@ from nerf_tpu.models.gabor import GaborModel as JaxGabor
 from nerf_tpu.ops.pallas.fused_render_gabor import make_fused_gabor_render as jax_fused
 from nerf_tpu.ops.pallas.fused_render_gabor import pack_params as jax_pack_params
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.models.convert import export_jax_grads, load_jax_params
 from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.ops.cuda.fused_render import DP, _encode

@@ -29,6 +29,7 @@ from nerf_tpu.utils import torch_export as jax_export
 from nerf_tpu.utils import torch_import as jax_import
 from tests.synthetic import make_synthetic_blender_scene
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.config import Config
 from nerf_tpu_torch.models.convert import (
     _flat_in_param_order,

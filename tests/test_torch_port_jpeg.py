@@ -25,6 +25,7 @@ from nerf_tpu.data.blender import load_blender as jax_load_blender
 from nerf_tpu.data.llff import load_llff as jax_load_llff
 from tests.synthetic import make_synthetic_blender_scene, make_synthetic_llff_scene
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.data.blender import load_blender
 from nerf_tpu_torch.data.frames import read_frame
 from nerf_tpu_torch.data.llff import load_llff

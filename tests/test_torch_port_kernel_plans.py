@@ -26,11 +26,18 @@
   of one network whose plan follows from the counts.
 * The grid render (row 18) takes two affine scalars computed on the host;
   they are held against nerf_tpu's ``FusedGridRender._cells``.
+* The NeRF kernels (rows 1-5) take hidden 256, 512, 768 and 1024 with the
+  encodings padded to 64 or 128 / 32 or 64 columns: each shape's plan
+  (``ops/cuda/nerf_plan.py``) fits an H100's 227 KB of shared memory in
+  every kernel, its stash bytes are the sources' formulas, and outside
+  those shapes the plan and the wrappers raise, naming ROADMAP.md's queue.
 
 The kernels themselves run only on the card (``tests/test_torch_port_cuda.py``).
 """
 
 from __future__ import annotations
+
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +47,7 @@ import torch
 from nerf_tpu.models.plenoxels import PlenoxelsModel as JaxPlenoxels
 from nerf_tpu.ops.pallas.fused_grid_render import make_fused_grid_render as jax_grid_render
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.models.nerf import NeRFModel
@@ -47,13 +55,15 @@ from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
 from nerf_tpu_torch.models.siren import SirenModel
 from nerf_tpu_torch.ops.cuda import (
     build, fused_gabor, fused_nerf, fused_render, fused_render_gabor, fused_render_siren,
-    fused_siren)
+    fused_siren, nerf_plan)
 from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedGridRender, cells_affine
 from nerf_tpu_torch.ops.cuda import fused_kilonerf
 from nerf_tpu_torch.ops.cuda.fused_kilonerf import (
     BWD_RUN, FWD_RUN, KiloNeRFField, dispatch, run_plan)
+from nerf_tpu_torch.ops.cuda.fused_nerf import NerfField
 from nerf_tpu_torch.ops.cuda.fused_render import (
-    TC_BYTES_PER_POINT, FusedNerfRender, FusedRender, fwd_rays_per_cta, launch_plan)
+    TC_BYTES_PER_POINT, FusedNerfRender, FusedRender, fwd_rays_per_cta, launch_plan,
+    pack_params)
 from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
 from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
 from nerf_tpu_torch.ops.cuda.scatter_add import radix_plan
@@ -307,7 +317,7 @@ def test_fwd_launch_plan_at_two_ctas_an_sm(shape, plan):
 class _FakeLib:
     """Stands for a loaded library: each attribute names its entry point."""
 
-    def __init__(self, name):
+    def __init__(self, name, shape=None):
         self.name = name
 
     def __getattr__(self, entry):
@@ -481,3 +491,83 @@ def test_grid_render_affine_scalars_match_nerf_tpu_cells(normalize):
         0.0, r - 1.0)
     assert bool(((got > 0.0) & (got < r - 1.0)).any())
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=4 * np.spacing(np.float32(r)))
+
+
+@pytest.mark.parametrize("h, p_pad, d_pad", list(itertools.product(
+    nerf_plan.WIDTHS, nerf_plan.P_PADS, nerf_plan.D_PADS)))
+def test_plan_fits_shared_memory(h, p_pad, d_pad):
+    """Every kernel of the shape under 227 KB of shared memory; the bf16
+    forward kernels two CTAs an SM at hidden 256 (one tile) and one wider
+    (two tiles); chunks that divide each other and the backward's 32-point
+    k-tiles; stash bytes a point as the sources count them."""
+    pl = nerf_plan.plan(h, p_pad, d_pad)
+    assert max(pl.smem().values()) <= nerf_plan.SMEM_LIMIT
+    assert pl.fwd_ctas_per_sm == (2 if h == 256 else 1)
+    assert pl.tc_p % pl.tc_pb == 0 and pl.tc_p % 32 == 0 and pl.tc_pb % 16 == 0
+    assert pl.p * 8 >= 16 and (h * (pl.p + 4)) >= 2 * 16 * (64 + 256)
+    hr = h // 2
+    assert pl.tc_bytes_per_point == 2 * (12 * h + hr + p_pad + d_pad) + 4 * (h + 12)
+    assert pl.field_tc_bytes_per_point == pl.tc_bytes_per_point + 4 * p_pad
+    assert pl.f32_floats_per_point(2) == 10 * h + hr + 2 * p_pad + 2 * h + 12
+    assert pl.tc_bytes_per_point % 16 == 0 and pl.f32_floats_per_point(3) % 4 == 0
+    assert pl.default == ((h, p_pad, d_pad) == (256, 64, 32))
+    assert (pl.defines == ()) == pl.default
+    assert pl.tag == f"h{h}p{p_pad}d{d_pad}"
+    if pl.default:
+        # the hidden-256 kernels: 7,664 stash bytes a point
+        # (fused_render_train_tc.cu), 3,340 floats (fused_render_train.cu)
+        assert (pl.tc_bytes_per_point, pl.f32_floats_per_point(2)) == (7664, 3340)
+        assert (pl.p, pl.tc_p, pl.tc_pb) == (64, 64, 64)
+
+
+@pytest.mark.parametrize("h, lp, ld", [(1280, 10, 4), (384, 10, 4), (512, 21, 4),
+                                       (512, 10, 11), (2048, 10, 4)])
+def test_plan_refuses_other_shapes(h, lp, ld):
+    """Hidden above 1024 (or not a multiple of 256), more than 128 position
+    or 64 direction columns: no plan, and the wrappers refuse before any
+    launch, naming ROADMAP.md's queue 2."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+        nerf_plan.plan(h, *nerf_plan.enc_pads(lp, ld))
+    model = NeRFModel(hidden_dim=h, pos_encoding_dim=lp, dir_encoding_dim=ld)
+    fr, field = FusedNerfRender(model, 2.0, 6.0), NerfField(model)
+    x, t = torch.zeros(2, 3), torch.zeros(2, 4)
+    for wrapper, launch in ((fr, lambda: fr._launch_fwd(None, x, x, x, t)),
+                            (field, lambda: field._launch_fwd(None, x, x))):
+        assert not wrapper.supported()
+        assert "ROADMAP.md queue 2" in wrapper._unsupported()
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+            launch()
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_nerf_wrappers_count_launches_by_shape(cdt):
+    """Each count of the NeRF wrappers also goes to ``shape_launches`` under
+    (counter, plan tag, dtype): the split by shape that phase 35 of
+    chip_smoke.py reads."""
+    model = NeRFModel(hidden_dim=512, pos_encoding_dim=12, dir_encoding_dim=6,
+                      compute_dtype=cdt)
+    for cls, wrapper, counters in (
+            (FusedNerfRender, FusedNerfRender(model, 2.0, 6.0),
+             ("launches", "train_launches", "bwd_launches")),
+            (NerfField, NerfField(model), ("launches", "bwd_launches"))):
+        for counter in counters:
+            key = (counter, "h512p128d64", cdt)
+            before = (getattr(cls, counter), cls.shape_launches[key])
+            wrapper._count(counter)
+            assert (getattr(cls, counter), cls.shape_launches[key]) == (
+                before[0] + 1, before[1] + 1)
+
+
+def test_enc_pads_follow_nerf_tpu():
+    """nerf_tpu pads the encodings to multiples of 64 and 32 columns
+    (make_fused_nerf_apply's p_pad and d_pad): L = 10 / 4 gives 64 / 32,
+    L = 12 / 6 gives 128 / 64, L = 20 / 10 the widest the kernels take."""
+    assert nerf_plan.enc_pads(10, 4) == (64, 32)
+    assert nerf_plan.enc_pads(12, 6) == (128, 64)
+    assert nerf_plan.enc_pads(20, 10) == (128, 64)
+    assert nerf_plan.enc_pads(21, 11) == (192, 96)
+    packed = pack_params(NeRFModel(hidden_dim=512, pos_encoding_dim=12, dir_encoding_dim=6))
+    assert packed.mats["w1"].shape == (128, 512) and packed.mats["wr0d"].shape == (64, 256)
+    with torch.no_grad():
+        assert float(packed.mats["w1"][75:].abs().max()) == 0.0
+        assert float(packed.mats["wr0d"][39:].abs().max()) == 0.0

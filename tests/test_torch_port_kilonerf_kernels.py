@@ -23,6 +23,7 @@ import torch
 from nerf_tpu.models.kilonerf import KiloNeRFModel as JaxKilo
 from nerf_tpu.ops.pallas.fused_kilonerf import make_fused_kilonerf_apply
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.models.convert import export_jax_grads, load_jax_params
 from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
 from nerf_tpu_torch.ops.cuda.fused_kilonerf import (

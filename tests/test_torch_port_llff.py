@@ -33,6 +33,7 @@ from nerf_tpu.train.loop import render_settings_from_config as jax_settings_from
 from nerf_tpu.train.step import make_eval_render as jax_eval_render
 from tests.synthetic import make_synthetic_llff_scene
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.cli.eval_cli import main as eval_main
 from nerf_tpu_torch.config import Config
 from nerf_tpu_torch.data.llff import load_llff

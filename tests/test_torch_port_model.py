@@ -18,6 +18,7 @@ from nerf_tpu.models import NeRFModel as JaxNeRF
 from nerf_tpu.models.encoding import positional_encoding as jax_pe
 from nerf_tpu.utils.torch_export import nerf_state_dict_entries
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.config import Config, parse_config_file
 from nerf_tpu_torch.models.common import linear, linear_init
 from nerf_tpu_torch.models.convert import export_jax_params, load_jax_params

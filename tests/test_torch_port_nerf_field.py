@@ -46,6 +46,7 @@ from nerf_tpu.ops.pallas.fused_render_gabor import make_fused_gabor_render
 from nerf_tpu.ops.pallas.fused_render_siren import make_fused_siren_render
 from nerf_tpu.ops.pallas.fused_siren import make_fused_siren_apply
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.models.convert import export_jax_grads, load_jax_params
 from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.kilonerf import KiloNeRFModel
@@ -217,7 +218,11 @@ _MODELS = {"nerf": (NeRFModel, JaxNeRF), "siren": (SirenModel, JaxSiren),
     ("nerf", dict(hidden_dim=32), "module", None),
     ("nerf", dict(hidden_dim=128), "module", None),
     ("nerf", dict(hidden_dim=256), NerfField, None),
-    ("nerf", dict(hidden_dim=512), "raise", "row 1"),
+    ("nerf", dict(hidden_dim=512), NerfField, None),
+    ("nerf", dict(hidden_dim=512, pos_encoding_dim=12, dir_encoding_dim=6), NerfField, None),
+    ("nerf", dict(hidden_dim=1024), NerfField, None),
+    ("nerf", dict(hidden_dim=1280), "raise", "row 1"),
+    ("nerf", dict(hidden_dim=512, pos_encoding_dim=21), "raise", "row 1"),
     ("siren", dict(hidden_dim=256, num_layers=8), SirenField, None),
     ("siren", dict(hidden_dim=512, num_layers=8), "raise", "row 9"),
     ("siren", dict(hidden_dim=256, num_layers=4), "module", None),
@@ -228,13 +233,15 @@ _MODELS = {"nerf": (NeRFModel, JaxNeRF), "siren": (SirenModel, JaxSiren),
 def test_route_follows_nerf_tpu(monkeypatch, family, kw, field, row):
     """On the card, the port takes a fused render exactly where nerf_tpu's
     ``make_fused_*_render`` gives one (its own kernels where they cover the
-    shape: hidden 256), and otherwise the field route, whose field is a
-    field kernel where nerf_tpu's ``make_fused_*_apply`` gives one and the
-    port's covers the shape (hidden 256), the module where nerf_tpu gives
-    none, and a raise naming PERF.md's row where nerf_tpu takes a field
-    kernel at a shape the port's do not cover (hidden 512). On
-    the CPU the field is the module wherever nerf_tpu's is (KiloNeRF keeps
-    its field's plain versions)."""
+    shape: a NeRF at hidden 256 to 1024 with encodings padded to at most
+    128 / 64 columns, a SIREN or GaborNet at 256), and otherwise the field
+    route, whose field is a field kernel where nerf_tpu's
+    ``make_fused_*_apply`` gives one and the port's covers the shape, the
+    module where nerf_tpu gives none, and a raise naming PERF.md's row and
+    ROADMAP.md's queue where nerf_tpu takes a field kernel at a shape the
+    port's do not cover (a NeRF at 1280 or with 129 position columns, a
+    SIREN or GaborNet at 512). On the CPU the field is the module wherever
+    nerf_tpu's is (KiloNeRF keeps its field's plain versions)."""
     cls, jcls = _MODELS[family]
     jm, tm = jcls(**kw), cls(**kw)
     tpu_render = family in _RENDER and _RENDER[family](jm, 2.0, 6.0,
@@ -248,13 +255,16 @@ def test_route_follows_nerf_tpu(monkeypatch, family, kw, field, row):
     fr, fac = _kernel_route(tm, settings, True)
     assert (fr is not None) == tpu_render
     if tpu_render:
-        # the port's render kernels cover hidden 256 (a NeRF at 512 raises
-        # at launch, as the NotImplementedError of the shape guard)
-        assert fr.supported() == (kw["hidden_dim"] == 256)
+        # the port's render kernels cover a NeRF at hidden 256 to 1024 with
+        # encodings padded to at most 128 / 64 columns, the SIREN and
+        # GaborNet at 256 (elsewhere a launch raises, as the
+        # NotImplementedError of the shape guard)
+        assert fr.supported() == (field not in ("raise", "module"))
     else:
         assert fac is fused_field_for
     if field == "raise":
-        with pytest.raises(NotImplementedError, match=re.escape(f"PERF.md {row} ")):
+        with pytest.raises(NotImplementedError,
+                           match=re.escape(f"PERF.md {row} ") + ".*ROADMAP.md queue 2"):
             fused_field_for(tm)
     elif field == "module":
         assert fused_field_for(tm) is tm

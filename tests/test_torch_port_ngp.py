@@ -24,6 +24,7 @@ from nerf_tpu.models.common import remap_domain as jax_remap_domain
 from nerf_tpu.models.ngp import NGPModel as JaxNGP
 from tests.synthetic import make_synthetic_blender_scene
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.config import parse_config_file
 from nerf_tpu_torch.models.convert import (
     _flat_in_param_order,

@@ -42,6 +42,7 @@ from nerf_tpu.train.optim import make_optimizer as jax_make_optimizer
 from nerf_tpu.train.step import make_eval_render as jax_eval_render
 from tests.synthetic import make_synthetic_blender_scene
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch import serve
 from nerf_tpu_torch.config import Config
 from nerf_tpu_torch.data.pipeline import RayBatch, RayPool

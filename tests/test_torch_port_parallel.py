@@ -40,6 +40,7 @@ from nerf_tpu.train.state import TrainState as JaxTrainState
 from tests import torch_parallel_worker as worker
 from tests.synthetic import make_synthetic_blender_scene
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.cli import multiscene_cli
 from nerf_tpu_torch.config import Config
 from nerf_tpu_torch.data.pipeline import RayBatch, RayPool

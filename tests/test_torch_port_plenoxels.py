@@ -41,6 +41,7 @@ from nerf_tpu.train.optim import make_optimizer as jax_make_optimizer
 from nerf_tpu.train.step import make_eval_render as jax_eval_render
 from tests.synthetic import make_synthetic_blender_scene
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.config import Config, parse_config_file
 from nerf_tpu_torch.data.pipeline import RayBatch
 from nerf_tpu_torch.models.convert import (

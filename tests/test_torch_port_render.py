@@ -19,6 +19,7 @@ from nerf_tpu.ops.pallas.fused_render import make_fused_nerf_render as jax_fused
 from nerf_tpu.render.renderer import RenderSettings as JaxSettings
 from nerf_tpu.train.step import make_eval_render as jax_eval_render
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.models.convert import load_jax_params
 from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.ops import sampling as tsamp

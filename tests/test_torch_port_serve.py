@@ -30,6 +30,7 @@ from nerf_tpu.train.state import create_train_state
 from nerf_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
 from tests.synthetic import make_synthetic_blender_scene
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.config import Config
 from nerf_tpu_torch.models.convert import load_jax_params
 from nerf_tpu_torch.models.registry import model_from_config

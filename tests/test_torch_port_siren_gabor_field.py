@@ -43,6 +43,7 @@ from nerf_tpu.models.siren import SirenModel as JaxSiren
 from nerf_tpu.ops.pallas.fused_gabor import make_fused_gabor_apply
 from nerf_tpu.ops.pallas.fused_siren import make_fused_siren_apply
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.models.convert import export_jax_grads, load_jax_params
 from nerf_tpu_torch.models.gabor import GaborModel
 from nerf_tpu_torch.models.siren import SirenModel

@@ -35,6 +35,7 @@ from nerf_tpu.models.siren import SirenModel as JaxSiren
 from nerf_tpu.ops.pallas.fused_render_siren import make_fused_siren_render as jax_fused
 from nerf_tpu.ops.pallas.fused_siren import pack_params as jax_pack_params
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.models.convert import export_jax_grads, load_jax_params
 from nerf_tpu_torch.models.siren import SirenModel
 from nerf_tpu_torch.ops.cuda.fused_render_siren import (

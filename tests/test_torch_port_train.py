@@ -27,6 +27,7 @@ from nerf_tpu.train.optim import lr_schedule as jax_lr_schedule
 from nerf_tpu.train.optim import make_optimizer as jax_make_optimizer
 from tests.synthetic import make_synthetic_blender_scene
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.cli import train_cli
 from nerf_tpu_torch.config import Config
 from nerf_tpu_torch.data.pipeline import (

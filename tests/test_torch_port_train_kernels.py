@@ -30,6 +30,7 @@ import torch
 from nerf_tpu.models import NeRFModel as JaxNeRF
 from nerf_tpu.ops.pallas.fused_render import make_fused_nerf_render as jax_fused
 
+from tests.torch_port_threads import one_intra_op_thread  # noqa: F401
 from nerf_tpu_torch.models.convert import export_jax_grads, load_jax_params
 from nerf_tpu_torch.models.nerf import NeRFModel
 from nerf_tpu_torch.ops.cuda.fused_render import (
