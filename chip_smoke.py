@@ -7,8 +7,10 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
 
   1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
   2. the build of every kernel library from the sources in the checkout
-     (one nvcc per source, started together with phase 35's NeRF
-     libraries at the wider shapes), timed, and the count of
+     (one nvcc per source, started together with phase 35's NeRF and
+     phase 36's SIREN libraries at the wider shapes; those run at niceness
+     19 and build while phases 3-34 run, waited for before phase 35), timed,
+     and the count of
      tensor-core instructions in the SASS of the fourteen bf16 libraries
      on the tensor cores (the NeRF, SIREN and GaborNet train passes, the
      NeRF, SIREN and GaborNet forward renders, the KiloNeRF, NeRF, SIREN
@@ -290,16 +292,17 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      spiral request over HTTP (48 launches, within mean abs 1e-2 of the
      unfused render).
  35. the NeRF kernels at the wider shapes nerf_tpu's take (each shape's
-     libraries built in phase 2 with its plan's -D flags,
-     nerf_tpu_torch/ops/cuda/nerf_plan.py): (a) rows 1-5 at hidden 512, 768
-     and 1024 (L = 10 / 4) and 512 and 1024 with L = 12 / 6 (p_pad 128,
-     d_pad 64), float32 and bfloat16, against their plain versions (row 3
+     libraries started in phase 2 with its plan's -D flags,
+     nerf_tpu_torch/ops/cuda/nerf_plan.py): (a) rows 1-5 at hidden 512 and
+     1024 with L = 10 / 4 (p_pad 64, d_pad 32) and with L = 12 / 6 (p_pad
+     128, d_pad 64; hidden 768 in the card tests only), float32 and
+     bfloat16, against their plain versions (row 3
      at 8192 x 64, rows 4-5 at 1024 x 64 and 192, rows 1-2 at 65,536,
      16,384 and 37 points; the bf16 field backward under WIDE_FIELD_TOL
      beside the plain version's own spread from float64 sums, the f32 one
      at 1024 under WIDE_F32_GRAD_TOL), each twice for identical bits, timed
      against its bound; (b) configs/lego.txt at hidden_dim = 1024 on the
-     synthetic scene: fit() 200 iterations (the mse falls), a resume 50 ->
+     synthetic scene: fit() 100 iterations (the mse falls), a resume 50 ->
      60 bit for bit, two render-route steps (rows 3 and 4), one
      --occupancy 64 request (row 1's bake at 1024) and one eval CLI frame,
      each within mean abs 1e-2 of the unfused render; (c) fit() with
@@ -309,17 +312,38 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      on (b) and (c) are the wrappers' counts by shape (shape_launches).
      ``python3 chip_smoke.py --phase 35`` runs the build and phase 35
      alone.
+ 36. the SIREN kernels at the wider shapes nerf_tpu's take (each shape's
+     libraries started in phase 2 with its plan's -D flags,
+     nerf_tpu_torch/ops/cuda/siren_plan.py): (a) rows 6-10 at hidden 512
+     and 1024 (L_d = 4: d_pad 32) and 512 with L_d = 6 (d_pad 64), float32
+     and bfloat16, against their plain versions under phases 7 and 20's
+     tolerances (row 6 at lego_siren.txt's serving chunk, 1024 x 256, rows
+     7-8 at 1024 x 256, rows 9-10 at 65,536 lattice points), each launched
+     twice for identical bits, timed against its bound (siren_macs at the
+     case's widths); hidden 768 is held in tests/test_torch_port_cuda.py
+     only; (b) configs/lego_siren.txt at hidden_dim = 1024 on the synthetic
+     scene: fit() 40 iterations (the mse falls), a resume 20 -> 30 bit for
+     bit, two render-route steps (rows 6 and 7), one --occupancy 64 request
+     (row 9's bake at 1024, then row 6) and one eval CLI frame, each within
+     mean abs 1e-2 of the unfused render; (c) fit() with distill_from =
+     (b)'s checkpoint: 20 distillation steps of 16,384 points (the
+     teacher's row 9 and the student's rows 9 and 10, all at 1024; the loss
+     falls), then 10 iterations. The launches of rows 6-10 on (b) and (c)
+     are the wrappers' counts by shape (shape_launches), every one at
+     h1024d32 bfloat16. ``python3 chip_smoke.py --phase 36`` runs the build
+     (the default libraries and phase 36's) and phase 36 alone.
 
 The last lines are a JSON object of per-kernel numbers (all nineteen
-kernels, row 18 in its two forms; rows 1-5 with their numbers at each
-phase-35 shape under "widths"), the card, and ``{"ok": true,
-"device": {...}}``. Needs a CUDA device and this checkout;
-imports nothing of JAX or of the JAX package.
+kernels, row 18 in its two forms; rows 1-5 and 6-10 with their numbers at
+each phase-35 and phase-36 shape under "widths"), the script's wall time,
+the card, and ``{"ok": true, "device": {...}}``. Needs a CUDA device and
+this checkout; imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import math
 import os
@@ -331,10 +355,13 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()   # the script's wall time runs from here
+LAPS: list = []                  # (phase, wall s) in the order run, for the summary line
 R_CHECK = 8192          # rays per launch at serve (chunk_size of lego.txt)
 HW = 400                # synthetic scene resolution
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
@@ -432,13 +459,37 @@ TC_LIBS = ("fused_render_train_tc", "fused_render_fwd_tc", "fused_render_gabor_f
 # per-sample MACs of the backward's skipped input-gradient products
 # (dz1 w1^T, dz6 w6p^T, dzr0 wr0d^T at the real widths 63/63/27)
 SKIPPED_MACS = 256 * 63 + 256 * 63 + 128 * 27
-# SIREN at the real widths, per sample: forward MACs (3x256, 7 x 256x256,
-# the 256 density row, 256x256, 283x128, 128x3), sines of the forward
-# (8 x 256 + 128; the backward takes as many cosines), and the backward's
-# skipped input products (dz1 w1^T, dzr0 wr0d^T)
-SIREN_MACS = 3 * 256 + 7 * 256 * 256 + 256 + 256 * 256 + 283 * 128 + 128 * 3
-SIREN_TRIG = 8 * 256 + 128
-SIREN_SKIPPED = 256 * 3 + 128 * 27
+
+
+def siren_macs(h: int, real_d: int) -> int:
+    """MACs a sample of the SIREN MLP at hidden ``h`` and its real widths
+    (``real_d`` direction-encoding columns): 3 x h, 7 h x h, the h-long
+    density row, h x h (the remap), (h + real_d) x h/2, h/2 x 3; at
+    lego_siren.txt's hidden 256 and real_d 27, 561,920."""
+    return 3 * h + 7 * h * h + h + h * h + (h + real_d) * (h // 2) + (h // 2) * 3
+
+
+def siren_trig(h: int) -> int:
+    """Sines a sample of the SIREN forward (8 h + h/2; the backward takes as
+    many cosines)."""
+    return 8 * h + h // 2
+
+
+def siren_skipped(h: int, real_d: int) -> int:
+    """MACs a sample of the products the render backward skips (dz1 w1^T,
+    dzr0 wr0d^T)."""
+    return h * 3 + (h // 2) * real_d
+
+
+def siren_field_cost(h: int, real_d: int) -> dict:
+    """SG_FIELD's entry of a SIREN field at hidden ``h``: the forward's MACs
+    a point and the transcendentals of the forward and the backward (the
+    direction encoding's real_d - 3 sines, and as many cosines)."""
+    enc = real_d - 3
+    return {"macs": siren_macs(h, real_d),
+            "trig": (siren_trig(h) + enc, 2 * siren_trig(h) + 2 * enc)}
+
+
 R_SIREN, S_SIREN = 1024, 256   # lego_siren.txt: chunk_size, num_samples
 # GaborNet at the real widths, per sample: forward MACs (7 x 256x256, the
 # 256 density row, 256x256, 283x128, 128x3), transcendentals of the forward
@@ -499,10 +550,10 @@ FIELD_BATCH = 20       # launches per timed run of a field kernel
 FIELD_PT_TOL = {"float32": 1e-4, "bfloat16": 5e-3}
 FIELD_DOMAIN = (-2.75, -1.25)   # grid_domain of lego.txt's settings
 # The SIREN and GaborNet fields (lego_siren.txt's model, hidden 256, 8 layers
-# / stages, L = 4 for the direction), per point: forward MACs (SIREN_MACS;
+# / stages, L = 4 for the direction), per point: forward MACs (siren_macs;
 # GABOR_MACS plus the filters' two 3-long products per element, 8 x 2 x 3 x
 # 256) and transcendentals (SIREN: a sine per layer output and head element,
-# SIREN_TRIG; GaborNet: a sine and an exponential per filter element; both
+# siren_trig; GaborNet: a sine and an exponential per filter element; both
 # the 24 sines of the direction encoding); the backward recomputes the
 # forward and takes the dz W^T products with the input products and the A^T
 # dz products (3 x the forward's MACs), and the derivatives' cosines (SIREN:
@@ -521,7 +572,7 @@ FIELD_DOMAIN = (-2.75, -1.25)   # grid_domain of lego.txt's settings
 # Pallas kernel differ on the CPU (8.8e-4, 3.0e-3, 8.5e-3;
 # tests/test_torch_port_siren_gabor_field.py): 1e-2, 5e-2 and 5e-2.
 SG_TOL = {("siren", "bfloat16"): (1e-2, 5e-2, 5e-2)}
-SG_FIELD = {"siren": {"macs": SIREN_MACS, "trig": (SIREN_TRIG + 24, 2 * SIREN_TRIG + 48)},
+SG_FIELD = {"siren": siren_field_cost(256, 27),
             "gabor": {"macs": GABOR_MACS + 8 * 2 * 3 * 256,
                       "trig": (2 * 8 * 256 + 24, 3 * 8 * 256 + 48)}}
 
@@ -562,6 +613,12 @@ BAKE_ITERS = 200       # phases 28-29: fit() iterations of FastNeRF and PlenOctr
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def lap(phase: str) -> None:
+    """Record the wall time since the previous lap (or the start) as
+    ``phase``'s, for the summary line before the card's."""
+    LAPS.append((phase, time.perf_counter() - T_START - sum(t for _, t in LAPS)))
 
 
 def say(msg: str) -> None:
@@ -979,13 +1036,14 @@ def grad_errors(torch, got, ref, views=None, hidden: int = 256, pads=None) -> di
     floored at 1e-2 of the model's largest gradient element (b10s is one
     sum of terms of both signs, whose residue alone is no scale). ``views``
     names the tensors of a flat pair (default: the NeRF layout at
-    ``hidden`` with the encodings padded to ``pads``)."""
+    ``hidden`` with the encodings padded to ``pads``; a family's
+    ``grad_views`` at ``hidden`` with its own ``pads``)."""
     from nerf_tpu_torch.ops.cuda.fused_render import DP, PP, grad_views
 
     if views is None:
         g, r = (grad_views(*x, hidden, pads or (PP, DP)) for x in (got, ref))
     else:
-        g, r = views(*got, 256), views(*ref, 256)
+        g, r = (views(*x, hidden, *(pads or ())) for x in (got, ref))
     floor = 1e-2 * max(float(v.abs().max()) for v in r.values())
     out = {}
     for k in r:
@@ -1199,7 +1257,8 @@ def check_siren_kernels(torch, dev):
             if timed:
                 ms = statistics.median(times["kernel"])
                 plain_ms = statistics.median(times["plain"])
-                bms, by = bound_ms(r, s, cdt, weight_bytes, SIREN_MACS, SIREN_TRIG)
+                bms, by = bound_ms(r, s, cdt, weight_bytes, siren_macs(256, 27),
+                                   siren_trig(256))
                 line += (f" | kernel {ms:.3f} ms"
                          + (f" (tensor cores; the CUDA-core kernel it replaced "
                             f"{ROW6_BF16_CUDA_CORE_MS:.3f} ms, x"
@@ -1285,7 +1344,8 @@ def check_siren_kernels(torch, dev):
             ms = statistics.median(times[(name, "kernel")])
             plain_ms = statistics.median(times[(name, "plain")])
             bms, by = bound_ms(r, s, cdt, weight_bytes,
-                               3 * SIREN_MACS - SIREN_SKIPPED, 2 * SIREN_TRIG,
+                               3 * siren_macs(256, 27) - siren_skipped(256, 27),
+                               2 * siren_trig(256),
                                grad_bytes, name == "fused_render_siren_train")
             tc = fr.grad_library(name == "fused_render_siren_train").endswith("_tc")
             was = (ROW8_BF16_CUDA_CORE_MS if name == "fused_render_siren_train"
@@ -1747,10 +1807,12 @@ def check_kilonerf_kernels(torch, dev):
 
 def field_bound_ms(n: int, cdt: str, weight_bytes: int,
                    grad_bytes: int | None = None, family: str = "nerf",
-                   macs: int | None = None) -> tuple:
+                   macs: int | None = None, cost: dict | None = None) -> tuple:
     """Least time of a field forward (``grad_bytes`` None) or backward over
     ``n`` points (the NeRF field's, its forward's MACs a point ``macs``,
-    lego.txt's by default; or ``family`` "siren" / "gabor"): the products
+    lego.txt's by default; or ``family`` "siren" / "gabor", at
+    lego_siren.txt's widths or at those of ``cost``, SG_FIELD's entry of
+    another shape): the products
     (2 operations a MAC) over the compute dtype's peak and the
     transcendentals over the float32 CUDA-core rate (their sum in float32,
     the larger in bfloat16), against the bytes that must move (see
@@ -1760,8 +1822,9 @@ def field_bound_ms(n: int, cdt: str, weight_bytes: int,
         macs = (macs or mlp_macs(256, 63, 27)) * (1 if fwd else 3)
         trig = FIELD_TRIG * (1 if fwd else 2)
     else:
-        macs = SG_FIELD[family]["macs"] * (1 if fwd else 3)
-        trig = SG_FIELD[family]["trig"][0 if fwd else 1]
+        cost = cost or SG_FIELD[family]
+        macs = cost["macs"] * (1 if fwd else 3)
+        trig = cost["trig"][0 if fwd else 1]
     nbytes = n * (24 + 16) + weight_bytes
     if grad_bytes is not None:
         nbytes += n * 24 + grad_bytes
@@ -5007,14 +5070,15 @@ def phase34(torch, dev, tmp: str, card: str) -> dict:
 
 # ---------------------------------------------------------------- phase 35
 
-# The NeRF family's five kernels (rows 1-5) at the wider shapes nerf_tpu's
-# take: hidden 512, 768 and 1024 at lego.txt's encodings (L = 10 / 4:
-# p_pad 64, d_pad 32), and hidden 512 and 1024 with wider ones (L = 12 / 6:
-# p_pad 128, d_pad 64; at 1024 the largest shared-memory plan). Each
-# shape's libraries are built from the checkout with its plan's -D flags
-# (nerf_tpu_torch/ops/cuda/nerf_plan.py); tests/test_torch_port_cuda.py
-# holds every shape the kernels take against the plain versions.
-WIDE_CASES = ((512, 10, 4), (768, 10, 4), (1024, 10, 4), (512, 12, 6), (1024, 12, 6))
+# The NeRF family's five kernels (rows 1-5) at four of the wider shapes
+# nerf_tpu's take: hidden 512 and 1024 at lego.txt's encodings (L = 10 / 4:
+# p_pad 64, d_pad 32; 1024 is the shape of (b)'s path) and with wider ones
+# (L = 12 / 6: p_pad 128, d_pad 64; h1024p128d64 is the largest
+# shared-memory plan). Each shape's libraries are built from the checkout
+# with its plan's -D flags (nerf_tpu_torch/ops/cuda/nerf_plan.py), in the
+# background while phases 3-34 run (build_wide); hidden 768 is held
+# against the plain versions in tests/test_torch_port_cuda.py only.
+WIDE_CASES = ((512, 10, 4), (1024, 10, 4), (512, 12, 6), (1024, 12, 6))
 # Row 3 at the serving chunk (8192 rays) x 64 samples: at 192 the plain
 # version's activations at hidden 1024 (every layer of 1.6M samples in
 # float32 kept for the comparison) would hold about 70 GB. Rows 4 and 5 at
@@ -5076,23 +5140,57 @@ def wide_shapes():
     return [(h, lp, ld, plan(h, *enc_pads(lp, ld))) for h, lp, ld in WIDE_CASES]
 
 
-def build_wide(torch) -> tuple:
-    """Every library at the default shape (phase 2's) and phase 35's: the
-    eight NeRF libraries at each case's shape, one nvcc each, all started
-    together. Returns the default ones' BuildInfo."""
+def wide_jobs(phases: tuple) -> list:
+    """``build.build_shaped``'s jobs of ``phases``: phase 35's eight NeRF
+    libraries and phase 36's eight SIREN libraries at each case's shape."""
+    shapes = ((wide_shapes() if 35 in phases else [])
+              + (siren_wide_shapes() if 36 in phases else []))
+    return [job for *_, pl in shapes for job in pl.builds]
+
+
+def say_wide_builds(wide: list, infos) -> None:
+    for (name, tag, _), info in zip(wide, infos):
+        spills = [ln.strip() for ln in info.log.splitlines()
+                  if "registers" in ln or "spill" in ln]
+        say(f"build: {name} {tag}; " + " | ".join(spills))
+
+
+def build_wide(torch, phases: tuple = (35, 36), background: bool = False) -> tuple:
+    """Every library at the default shape (phase 2's) and those of
+    ``phases`` (``wide_jobs``), one nvcc each, all started together.
+    Returns the default ones' BuildInfo. With ``background`` (the whole
+    run) the wide ones run at niceness 19 and are not waited for: phase 2's
+    libraries take the CPU first, and the wide ones build while phases
+    3-34 run on the card (``wait_wide`` waits for them)."""
     from nerf_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    wide = [job for *_, pl in wide_shapes() for job in pl.builds]
+    wide = wide_jobs(phases)
+    if background:
+        build.start_shaped(wide, nice=19)
+        infos = build.build()
+        say(f"build: {len(infos)} default libraries in {time.perf_counter() - t0:.1f} s, "
+            f"phases {phases}' {len(wide)} NeRF and SIREN libraries at hidden 512-1024 "
+            "started with them at niceness 19 (one nvcc each)")
+        return infos
     infos = build.build_shaped([(name, "", ()) for name in build.LIBS] + wide)
-    say(f"build: phase 35's {len(wide)} NeRF libraries at hidden 512-1024 in "
-        f"{time.perf_counter() - t0:.1f} s (with the default ones, one nvcc each, in "
+    say(f"build: phases {phases}' {len(wide)} NeRF and SIREN libraries at hidden 512-1024 "
+        f"in {time.perf_counter() - t0:.1f} s (with the default ones, one nvcc each, in "
         "parallel)")
-    for (name, tag, _), info in zip(wide, infos[len(build.LIBS):]):
-        spills = [ln.strip() for ln in info.log.splitlines()
-                  if "registers" in ln or "spill" in ln]
-        say(f"build: {name} {tag} {info.seconds:.1f} s; " + " | ".join(spills))
+    say_wide_builds(wide, infos[len(build.LIBS):])
     return infos[:len(build.LIBS)]
+
+
+def wait_wide(phases: tuple = (35, 36)) -> None:
+    """Wait for the libraries ``build_wide(..., background=True)`` started."""
+    from nerf_tpu_torch.ops.cuda import build
+
+    t0 = time.perf_counter()
+    wide = wide_jobs(phases)
+    infos = build.build_shaped(wide)
+    say(f"build: phases {phases}' {len(wide)} libraries waited for {time.perf_counter() - t0:.1f}"
+        f" s, {time.perf_counter() - T_START:.1f} s into the run")
+    say_wide_builds(wide, infos)
 
 
 def timed_turns(torch, fns: dict, reps: int = WIDE_REPS) -> dict:
@@ -5366,7 +5464,7 @@ def check_wide_kernels(torch, dev, card: str) -> dict:
 
 
 WIDE_LEGO_H = 1024     # (b): lego.txt at hidden 1024 (mip-NeRF 360's NeRF MLP width)
-WIDE_ITERS = 200       # (b): fit() iterations
+WIDE_ITERS = 100       # (b): fit() iterations
 WIDE_SAVE = 50         # (b): the checkpoint a resume starts from (to WIDE_SAVE + 10)
 WIDE_DISTILL = 20      # (c): distillation steps of 16,384 points
 WIDE_TUNE = 10         # (c): photometric iterations after them
@@ -5553,6 +5651,429 @@ def wide_lego(torch, dev, tmp: str, card: str) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------- phase 36
+
+# The SIREN family's five kernels (rows 6-10) at the wider shapes nerf_tpu's
+# take: hidden 512 and 1024 at lego_siren.txt's direction encoding (L_d = 4:
+# d_pad 32) and hidden 512 with L_d = 6 (d_pad 64). Each shape's libraries
+# are built from the checkout with its plan's -D flags
+# (nerf_tpu_torch/ops/cuda/siren_plan.py); tests/test_torch_port_cuda.py
+# holds every shape the kernels take (hidden 768 too) against the plain
+# versions. Row 6 at lego_siren.txt's serving chunk and rows 7-8 at its
+# training batch (1024 rays x 256 samples), rows 9-10 at a bake's 65,536
+# lattice points; the tolerances of phases 7 and 20 (TOL, GRAD_TOL; SG_TOL
+# for the bf16 field, FIELD_PT_TOL for the f32 one's cotangents).
+SIREN_WIDE_CASES = ((512, 4), (1024, 4), (512, 6))
+SIREN_WIDE_FIELD = "lattice 65536"
+SIREN_WIDE_H = 1024      # (b): lego_siren.txt at hidden 1024
+SIREN_WIDE_ITERS = 40    # (b): fit() iterations (a step ~0.15 s at 1024)
+SIREN_WIDE_SAVE = 20     # (b): the checkpoint a resume starts from (to SAVE + 10)
+SIREN_WIDE_DISTILL = 20  # (c): distillation steps of 16,384 points
+SIREN_WIDE_TUNE = 10     # (c): photometric iterations after them
+# the wrappers' counters (FusedSirenRender's, SirenField's) by row
+SIREN_WIDE_COUNTERS = {"FusedSirenRender": {"launches": "fused_render_siren_fwd",
+                                            "train_launches": "fused_render_siren_train",
+                                            "bwd_launches": "fused_render_siren_bwd"},
+                       "SirenField": {"launches": "fused_siren_fwd",
+                                      "bwd_launches": "fused_siren_bwd"}}
+SIREN_WIDE_ROWS = tuple(r for by in SIREN_WIDE_COUNTERS.values() for r in by.values())
+
+
+def siren_wide_shapes():
+    """(hidden, L_d, plan) of every phase-36 case."""
+    from nerf_tpu_torch.ops.cuda.siren_plan import d_pad, plan
+
+    return [(h, ld, plan(h, d_pad(ld))) for h, ld in SIREN_WIDE_CASES]
+
+
+def check_siren_wide_kernels(torch, dev, card: str) -> dict:
+    """Phase 36 (a): rows 6-10 against their plain versions at every
+    SIREN_WIDE_CASES shape, float32 and bfloat16, TF32 off, under the
+    tolerances of phases 7 and 20: the forward render, the train pass and
+    the render backward at 1024 x 256, the field forward and backward at
+    65,536 lattice points; every kernel launched twice for identical bits.
+    Each case's ms (median of turns), its plain version's and its bound
+    (siren_macs at the case's widths) are printed beside the card. Returns
+    them by (row, case, dtype) with each row's worst error."""
+    from nerf_tpu_torch.models.siren import SirenModel
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import (
+        FusedSirenRender, fused_siren_render_bwd_plain, fused_siren_render_plain,
+        fused_siren_train_plain, grad_views)
+    from nerf_tpu_torch.ops.cuda.fused_siren import (
+        SirenField, siren_field_bwd_plain, siren_field_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    results = {}
+    pts, dirs = field_point_sets(torch, dev)[SIREN_WIDE_FIELD]
+    n = pts.shape[0]
+    cot = torch.randn(n, 4, device=dev, generator=torch.Generator(device=dev).manual_seed(36))
+    for h, ld, pl in siren_wide_shapes():
+        case = f"h{h} L_d{ld}"
+        real_d = 3 * (1 + 2 * ld)
+        macs, trig = siren_macs(h, real_d), siren_trig(h)
+        for cdt in ("float32", "bfloat16"):
+            model = SirenModel(hidden_dim=h, dir_encoding_dim=ld, compute_dtype=cdt,
+                               generator=torch.Generator().manual_seed(36)).to(dev)
+            fr = FusedSirenRender(model, 2.0, 6.0, normalize=True)
+            field = SirenField(model).pack()
+            k = fr.consts
+            with torch.no_grad():
+                packed = fr.pack(model)
+            if not (fr.supported() and field.supported() and fr.plan == pl):
+                fail(f"phase 36 {case}: the kernels do not take the shape")
+            weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
+                            + packed.vec.numel() * 4)
+            grad_bytes = (packed.wmat.numel() + packed.vec.numel()) * 4
+            tol, gtol = TOL[cdt], GRAD_TOL[cdt]
+
+            def gerrs(got, ref):
+                return grad_errors(torch, got, ref, grad_views, hidden=h, pads=(fr.d_pad,))
+
+            # ---- row 6: the forward render
+            r, s = R_SIREN, S_SIREN
+            cam, rd, t, tgt = camera_batch(torch, dev, r, s, 3600 + h + ld)
+            o_aff, d_aff = fr.affine(cam, rd)
+            with torch.no_grad():
+                ref = fused_siren_render_plain(packed, o_aff, d_aff, rd, t, k)
+                out = fr._forward(packed, o_aff, d_aff, rd, t)
+                again = fr._forward(packed, o_aff, d_aff, rd, t)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(out, again)):
+                    fail(f"phase 36 fused_render_siren_fwd {case} {cdt}: two launches differ")
+                if not all(torch.isfinite(x).all() for x in out):
+                    fail(f"phase 36 fused_render_siren_fwd {case} {cdt}: non-finite output")
+                errs = {name: float((out[i] - ref[i]).abs().max())
+                        for i, name in enumerate(("rgb", "acc", "depth", "weights"))}
+                del ref, out, again
+                torch.cuda.empty_cache()
+                tm = timed_turns(torch, {
+                    ("fwd", "plain"): lambda: fused_siren_render_plain(
+                        packed, o_aff, d_aff, rd, t, k),
+                    ("fwd", "kernel"): lambda: fr._forward(packed, o_aff, d_aff, rd, t)})
+            bms, by = bound_ms(r, s, cdt, weight_bytes, macs, trig)
+            say(f"phase 36 kernel fused_render_siren_fwd {case} {cdt} R={r} S={s} "
+                f"({fr.fwd_library()} {pl.tag}): max_abs_err "
+                + " ".join(f"{name}={v:.3e}(tol {tol[name]:.0e})" for name, v in errs.items())
+                + f" | kernel {tm['fwd', 'kernel']:.3f} ms, two launches bit-identical, plain "
+                f"{tm['fwd', 'plain']:.3f} ms, bound {bms:.3f} ms ({by}), share "
+                f"{bms / tm['fwd', 'kernel']:.4f}; {card}")
+            if any(v > tol[name] for name, v in errs.items()):
+                fail(f"phase 36 fused_render_siren_fwd {case} {cdt} disagrees: {errs}")
+            results[("fused_render_siren_fwd", case, cdt)] = dict(
+                err=max(errs.values()), ms=tm["fwd", "kernel"], plain_ms=tm["fwd", "plain"],
+                bound_ms=bms, bound_by=by)
+
+            # ---- rows 8 and 7: the train pass and the render backward
+            r = R_TRAIN
+            with torch.no_grad():
+                ref = fused_siren_train_plain(packed, o_aff, d_aff, rd, t, tgt, True, k)
+                got = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+                again = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(got[:4] + got[4],
+                                                             again[:4] + again[4])):
+                    fail(f"phase 36 train {case} {cdt}: two launches differ")
+                del again
+                errs = {"loss": float(abs(got[0] - ref[0]) / abs(ref[0]))}
+                for i, name in ((1, "rgb"), (2, "acc"), (3, "weights")):
+                    if not torch.isfinite(got[i]).all():
+                        fail(f"phase 36 train {case} {cdt}: non-finite {name}")
+                    errs[name] = float((got[i] - ref[i]).abs().max())
+                gerr = gerrs(got[4], ref[4])
+                g_ray = torch.zeros(r, 8, device=dev)
+                g_ray[:, :3] = 2.0 / (3.0 * r) * (ref[1] + (1.0 - ref[2])[:, None] - tgt)
+                g_ray[:, 3] = -g_ray[:, :3].sum(-1)
+                ref_b = fused_siren_render_bwd_plain(packed, o_aff, d_aff, rd, t, g_ray, k)
+                got_b = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+                again_b = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(got_b, again_b)):
+                    fail(f"phase 36 render backward {case} {cdt}: two launches differ")
+                berr = gerrs(got_b, ref_b)
+                cross = gerrs(got_b, got[4])
+                del ref, got, ref_b, got_b, again_b
+                torch.cuda.empty_cache()
+                tm = timed_turns(torch, {
+                    ("train", "plain"): lambda: fused_siren_train_plain(
+                        packed, o_aff, d_aff, rd, t, tgt, True, k),
+                    ("train", "kernel"): lambda: fr._train(packed, o_aff, d_aff, rd, t, tgt,
+                                                           True),
+                    ("bwd", "plain"): lambda: fused_siren_render_bwd_plain(
+                        packed, o_aff, d_aff, rd, t, g_ray, k),
+                    ("bwd", "kernel"): lambda: fr._backward(packed, o_aff, d_aff, rd, t,
+                                                            g_ray)})
+            bad = {name: v for name, v in errs.items() if v > tol["rgb"]}
+            for label, e in (("train", gerr), ("bwd", berr), ("bwd vs train", cross)):
+                worst = max(e, key=e.get)
+                say(f"phase 36 kernel siren {label} {case} {cdt} R={r} S={s}: gradient "
+                    f"error worst {worst}={e[worst]:.3e} (tol {gtol:.0e}), median "
+                    f"{statistics.median(e.values()):.3e}")
+                bad.update({f"{label}:{name}": v for name, v in e.items() if v > gtol})
+            say(f"phase 36 kernel siren train {case} {cdt} R={r} S={s}: "
+                + " ".join(f"{name}={v:.3e}" for name, v in errs.items())
+                + f" (tol {tol['rgb']:.0e}); two launches of each bit-identical")
+            for name, key, e in (("fused_render_siren_train", "train", gerr),
+                                 ("fused_render_siren_bwd", "bwd", berr)):
+                bms, by = bound_ms(r, s, cdt, weight_bytes,
+                                   3 * macs - siren_skipped(h, real_d), 2 * trig,
+                                   grad_bytes, name == "fused_render_siren_train")
+                ms, plain_ms = tm[key, "kernel"], tm[key, "plain"]
+                say(f"phase 36 kernel {name} {case} {cdt} R={r} S={s} "
+                    f"({fr.grad_library(key == 'train')} {pl.tag}): kernel {ms:.3f} ms, "
+                    f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), share "
+                    f"{bms / ms:.4f}; {card}")
+                worst = max(list(e.values()) + (list(errs.values()) if key == "train" else []))
+                results[(name, case, cdt)] = dict(err=worst, ms=ms, plain_ms=plain_ms,
+                                                  bound_ms=bms, bound_by=by)
+            if bad:
+                fail(f"phase 36 train/backward {case} {cdt} disagree: {bad}")
+
+            # ---- rows 9 and 10: the field forward and backward
+            pk = field.packed
+            tol_out, tol_grad, tol_pt = SG_TOL.get(
+                ("siren", cdt), (TOL[cdt]["rgb"], GRAD_TOL[cdt], FIELD_PT_TOL[cdt]))
+            with torch.no_grad():
+                ref = siren_field_plain(pk, pts, dirs, k)
+                out = field._forward(pk, pts, dirs)
+                again = field._forward(pk, pts, dirs)
+                ref_g = siren_field_bwd_plain(pk, pts, dirs, cot, k)
+                got_g = field._backward(pk, pts, dirs, cot)
+                again_g = field._backward(pk, pts, dirs, cot)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(out + got_g, again + again_g)):
+                    fail(f"phase 36 siren field {case} {cdt}: two launches differ")
+                del again, again_g
+            for x in out + got_g:
+                if not torch.isfinite(x).all():
+                    fail(f"phase 36 siren field {case} {cdt}: non-finite output")
+            smax = max(float(ref[1].abs().max()), 1.0)
+            errs = {"rgb": float((out[0] - ref[0]).abs().max()),
+                    "sigma": float((out[1] - ref[1]).abs().max()) / smax}
+            gerr = gerrs(got_g[:2], ref_g[:2])
+            w = max(gerr, key=gerr.get)
+            pt, bad_pts = {}, 0
+            for name, i in (("points", 2), ("dirs", 3)):
+                e = (got_g[i] - ref_g[i]).abs().max(dim=1).values / ref_g[i].abs().max()
+                pt[name] = float(torch.quantile(e, 0.999))
+                bad_pts = max(bad_pts, int((e > tol_pt).sum()))
+            say(f"phase 36 kernel siren field {case} {cdt} {SIREN_WIDE_FIELD}: forward rgb="
+                f"{errs['rgb']:.3e} sigma={errs['sigma']:.3e} (over max(1, max sigma) = "
+                f"{smax:.3g}; tol {tol_out:.0e}); weight gradient worst {w}={gerr[w]:.3e} "
+                f"(tol {tol_grad:.0e}); point / direction cotangent 99.9% "
+                f"{pt['points']:.3e} / {pt['dirs']:.3e} (tol {tol_pt:.0e}), {bad_pts} points "
+                f"beyond it (at most {0.001 * n:.0f}); two launches of each bit-identical")
+            if (max(errs.values()) > tol_out or gerr[w] > tol_grad
+                    or max(pt.values()) > tol_pt or bad_pts > 0.001 * n):
+                fail(f"phase 36 siren field {case} {cdt} disagrees with its plain versions")
+            del ref, out, ref_g, got_g
+            torch.cuda.empty_cache()
+            with torch.no_grad():
+                tm = timed_turns(torch, {
+                    ("fwd", "plain"): lambda: siren_field_plain(pk, pts, dirs, k),
+                    ("fwd", "kernel"): lambda: field._forward(pk, pts, dirs),
+                    ("bwd", "plain"): lambda: siren_field_bwd_plain(pk, pts, dirs, cot, k),
+                    ("bwd", "kernel"): lambda: field._backward(pk, pts, dirs, cot)})
+            for name, key, err in (("fused_siren_fwd", "fwd", max(errs.values())),
+                                   ("fused_siren_bwd", "bwd", max(gerr[w], *pt.values()))):
+                bms, by = field_bound_ms(n, cdt, weight_bytes,
+                                         grad_bytes if key == "bwd" else None, "siren",
+                                         cost=siren_field_cost(h, real_d))
+                ms, plain_ms = tm[key, "kernel"], tm[key, "plain"]
+                say(f"phase 36 kernel {name} {case} {cdt} {SIREN_WIDE_FIELD} "
+                    f"({getattr(field, key + '_library')()} {pl.tag}): kernel {ms:.3f} ms, "
+                    f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), share "
+                    f"{bms / ms:.4f}; {card}")
+                results[(name, case, cdt)] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                                  bound_ms=bms, bound_by=by)
+            del model, fr, field, packed, pk
+            torch.cuda.empty_cache()
+    say(f"phase 36 (a): {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+def wide_siren(torch, dev, tmp: str, card: str) -> dict:
+    """Phase 36 (b): configs/lego_siren.txt at hidden_dim = 1024 (bfloat16,
+    256 samples, 1024 rays), written as the phase's own config, on the
+    synthetic 400 x 400 scene: fit() SIREN_WIDE_ITERS iterations (one
+    train-pass launch a step; the mse falls), a resume from SIREN_WIDE_SAVE
+    bit for bit, two steps of the render route (the forward render and its
+    backward kernel), the checkpoint served with --occupancy 64 (the bake's
+    four field launches at 1024; the request within mean abs 1e-2 of the
+    unfused render) and one eval CLI frame (within mean abs 1e-2 of the
+    unfused render); then (c) fit() with distill_from = that checkpoint:
+    nerf_tpu's load_teacher builds the teacher over the student's config,
+    so teacher and student are both at 1024 (SIREN_WIDE_DISTILL
+    distillation steps: the teacher's field forward, the student's forward
+    and backward; the loss falls), then SIREN_WIDE_TUNE photometric
+    iterations. Returns the launches of rows 6-10 by (row, plan tag, dtype)
+    as the wrappers counted them (``shape_launches``), every one at hidden
+    1024 in bfloat16."""
+    import dataclasses
+
+    from nerf_tpu_torch.config import parse_config_file
+    from nerf_tpu_torch.data.pipeline import load_scene
+    from nerf_tpu_torch.data.poses import spherical_orbit
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
+    from nerf_tpu_torch.ops.cuda.fused_siren import SirenField
+    from nerf_tpu_torch.ops.cuda.siren_plan import d_pad, plan
+    from nerf_tpu_torch.render.renderer import render_rays
+    from nerf_tpu_torch.serve import RenderService
+    from nerf_tpu_torch.train.loop import fit, render_settings_from_config
+    from nerf_tpu_torch.train.state import create_train_state
+    from nerf_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    scene = os.path.join(tmp, "scene")
+    if not os.path.isdir(scene):
+        write_sphere_scene(scene, HW)
+    label = f"lego_siren.txt at hidden {SIREN_WIDE_H}"
+    path = write_eval_config(
+        tmp, "lego_siren.txt", f"lego_siren_h{SIREN_WIDE_H}.txt", hidden_dim=SIREN_WIDE_H,
+        num_iters=SIREN_WIDE_ITERS, log_interval=10, val_interval=10 * SIREN_WIDE_ITERS,
+        save_interval=SIREN_WIDE_SAVE, save_path=os.path.join(tmp, "wide_siren_models"),
+        log_dir=os.path.join(tmp, "wide_siren_logs"), num_render_poses=1)
+    cfg = parse_config_file(path)
+    if (cfg.model_type, cfg.hidden_dim, cfg.compute_dtype, cfg.num_samples,
+            cfg.num_fine_samples, cfg.num_random_rays) != (
+                "siren", SIREN_WIDE_H, "bfloat16", 256, 0, 1024):
+        fail(f"phase 36 config: {cfg}")
+    lines: list = []
+    FusedSirenRender.launches = FusedSirenRender.train_launches = 0
+    FusedSirenRender.bwd_launches = 0           # the main path's counts start here
+    FusedSirenRender.shape_launches.clear()
+    SirenField.shape_launches.clear()
+    t0 = time.perf_counter()
+    fit(cfg, device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (FusedSirenRender.train_launches, FusedSirenRender.launches,
+              FusedSirenRender.bwd_launches)
+    for line in lines:
+        if "[Iter" in line:
+            say(f"  {line}")
+    if counts != (SIREN_WIDE_ITERS, 0, 0):
+        fail(f"phase 36 fit {label} launched (train, forward, backward) {counts}")
+    scal = read_scalars(cfg.log_dir)
+    loss = scal["loss"]
+    last = max(loss)
+    if not all(math.isfinite(v) for v in loss.values()) or not loss[last] < loss[0]:
+        fail(f"phase 36 {label}: the mse does not fall ({loss})")
+    say(f"phase 36 train: fit {label} {SIREN_WIDE_ITERS} iterations in {wall:.1f} s, "
+        f"{counts[0]} train-pass launches; mse {loss[0]:.6f} at 0 -> {loss[last]:.6f} at "
+        f"{last} (ratio {loss[last] / loss[0]:.4f}); step {scal['rays_per_sec'][last]:.0f} "
+        f"rays/s; {card}")
+    check_resume(torch, dev, tmp, cfg, "siren", loss, tag="wide_siren", at=SIREN_WIDE_SAVE,
+                 until=SIREN_WIDE_SAVE + 10)
+
+    # the render route: the forward render and its backward kernel at 1024
+    ckpt = os.path.join(cfg.save_path, f"siren_model_{SIREN_WIDE_ITERS:06d}")
+    state = create_train_state(cfg, device=dev)
+    data = load_scene(cfg, device=dev)
+    settings = render_settings_from_config(cfg)
+    fr = FusedSirenRender(state.params, cfg.near, cfg.far)
+    FusedSirenRender.launches = FusedSirenRender.bwd_launches = 0
+    mses = []
+    for i in range(2):
+        g = torch.Generator(device=dev).manual_seed(cfg.seed + i)
+        batch = data.pool.sample(g, cfg.num_random_rays)
+        for m in state.models():
+            m.zero_grad(set_to_none=True)
+        out = render_rays(state.params, batch.rays_o, batch.rays_d, settings, generator=g,
+                          viewdirs=batch.viewdirs, fused_render=fr)
+        mse = torch.mean((out.rgb - batch.rgb) ** 2)
+        mse.backward()
+        state.optimizer.step()
+        mses.append(float(mse.detach()))
+    counts = (FusedSirenRender.launches, FusedSirenRender.bwd_launches)
+    say(f"phase 36 train: {label} render route 2 steps, mse {mses}; launches forward "
+        f"{counts[0]}, backward {counts[1]}")
+    if counts != (2, 2) or not all(math.isfinite(v) for v in mses):
+        fail(f"phase 36 {label} render route launched {counts}, want (2, 2)")
+    del state, data, out
+    torch.cuda.empty_cache()
+
+    # served with --occupancy 64: the bake through row 9 at 1024
+    SirenField.launches = 0
+    svc = RenderService.from_checkpoint(cfg, ckpt, occupancy=64, device=dev, log=say)
+    if SirenField.launches != 4:
+        fail(f"phase 36 --occupancy 64 bake: {SirenField.launches} field launches, want 4")
+    serve(torch, dev, tmp, label, FusedSirenRender, "fused_siren_fwd", svc=svc,
+          compare=("/pose/1",), routes=("/pose/1",))
+    del svc
+    torch.cuda.empty_cache()
+
+    # one eval CLI frame
+    out_dir = os.path.join(tmp, "wide_siren_eval")
+    res = run_eval_cli(["--config", path, "--checkpoint", ckpt, "--output", out_dir],
+                       {"siren": FusedSirenRender}, f"phase 36 {label}")
+    per_image = math.ceil(HW * HW / cfg.chunk_size)
+    if res["per_frame"]["siren"] != [per_image]:
+        fail(f"phase 36 eval: launches a frame {res['per_frame']['siren']}, want "
+             f"[{per_image}]")
+    ref = RenderService.from_checkpoint(dataclasses.replace(cfg, use_pallas=False), ckpt,
+                                        device=dev, log=lambda *a: None)
+    frame = read_png(os.path.join(out_dir, "frame_0000.png"))
+    diff = np.abs(frame.astype(np.float32) / 255.0
+                  - ref.render_pose(spherical_orbit(1)[0], key_idx=0))
+    say(f"phase 36 eval {label} frame 0 vs the unfused render: mean abs {diff.mean():.3e} "
+        f"(tol {SERVE_TOL_MEAN:.0e}), max abs {diff.max():.3e}; {res['ms'][0]:.1f} ms")
+    if not diff.mean() <= SERVE_TOL_MEAN:
+        fail("phase 36 eval: the frame disagrees with the unfused render")
+    del ref
+    torch.cuda.empty_cache()
+
+    # (c) fit() distilling that checkpoint into a seeded student first
+    dcfg = dataclasses.replace(
+        cfg, num_iters=SIREN_WIDE_TUNE, distill_from=ckpt, distill_steps=SIREN_WIDE_DISTILL,
+        distill_batch=16384, save_path=os.path.join(tmp, "wide_siren_distill_models"),
+        log_dir=os.path.join(tmp, "wide_siren_distill_logs"))
+    lines = []
+    SirenField.launches = SirenField.bwd_launches = 0
+    FusedSirenRender.launches = FusedSirenRender.train_launches = 0
+    FusedSirenRender.bwd_launches = 0
+    t0 = time.perf_counter()
+    fit(dcfg, device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (SirenField.launches, SirenField.bwd_launches)
+    render = (FusedSirenRender.train_launches, FusedSirenRender.launches,
+              FusedSirenRender.bwd_launches)
+    for line in lines:
+        if "Distill" in line:
+            say(f"  {line}")
+    dl = read_scalars(dcfg.log_dir).get("distill_loss", {})
+    say(f"phase 36 distill: fit {label} with distill_from the hidden-{SIREN_WIDE_H} "
+        f"checkpoint, {SIREN_WIDE_DISTILL} steps of 16384 points, then {SIREN_WIDE_TUNE} "
+        f"iterations, in {wall:.1f} s; loss {dl.get(0)} at 0 -> "
+        f"{dl.get(SIREN_WIDE_DISTILL - 1)} at {SIREN_WIDE_DISTILL - 1}; field launches "
+        f"forward {counts[0]} (teacher and student), backward {counts[1]}; render train "
+        f"{render[0]}")
+    if (counts != (2 * SIREN_WIDE_DISTILL, SIREN_WIDE_DISTILL)
+            or render != (SIREN_WIDE_TUNE, 0, 0)):
+        fail(f"phase 36 distillation: field launches {counts}, want "
+             f"({2 * SIREN_WIDE_DISTILL}, {SIREN_WIDE_DISTILL}); render (train, forward, "
+             f"backward) {render}")
+    if (sorted(dl) != list(range(SIREN_WIDE_DISTILL))
+            or not dl[SIREN_WIDE_DISTILL - 1] < dl[0]):
+        fail(f"phase 36 distillation: the loss does not fall ({dl})")
+
+    # rows 6-10 by shape, as the wrappers counted them through (b) and (c)
+    launched = {(SIREN_WIDE_COUNTERS[cls.__name__][counter], tag, cdt): count
+                for cls in (FusedSirenRender, SirenField)
+                for (counter, tag, cdt), count in cls.shape_launches.items()}
+    say("phase 36 (b)-(c) launches by shape: "
+        + ", ".join(f"{k[0]} {k[1]} {k[2]} {count}" for k, count in sorted(launched.items())))
+    tag = plan(SIREN_WIDE_H, d_pad(cfg.dir_encoding_dim)).tag
+    if (set(launched) != {(r, tag, "bfloat16") for r in SIREN_WIDE_ROWS}
+            or min(launched.values()) < 1):
+        fail(f"phase 36 (b)-(c): want every one of rows 6-10 at {tag} bfloat16 and no other "
+             f"shape, launched {launched}")
+    say(f"phase 36 (b)-(c): {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -5662,14 +6183,39 @@ def wide_rows(wide: dict, launched: dict) -> dict:
     return rows
 
 
-def phase35_only(torch, dev, card: str) -> int:
-    """``chip_smoke.py --phase 35``: the build and phase 35 alone, then its
+def siren_wide_rows(wide: dict, launched: dict) -> dict:
+    """Rows 6-10's entries at the phase-36 shapes, by row: each case's
+    time, plain time, bound and error (bfloat16 and float32; the renders at
+    1024 x 256, the fields at 65,536 points) and its launches on phase 36's
+    main path (``launched``, by (row, plan tag, dtype), as the wrappers
+    counted them)."""
+    rows = {}
+    for h, ld, pl in siren_wide_shapes():
+        case = f"h{h} L_d{ld}"
+        for name in SIREN_WIDE_ROWS:
+            for cdt in ("bfloat16", "float32"):
+                c = wide[(name, case, cdt)]
+                rows.setdefault(name, {})[f"{pl.tag} {cdt}"] = {
+                    "launches": launched.get((name, pl.tag, cdt), 0),
+                    "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+                    "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
+    return rows
+
+
+def phase_only(torch, dev, card: str, phase: int) -> int:
+    """``chip_smoke.py --phase 35`` or ``--phase 36``: the build (the
+    default libraries and the phase's) and that phase alone, then its
     rows' numbers and the last line."""
-    build_wide(torch)
-    wide = check_wide_kernels(torch, dev, card)
+    build_wide(torch, (phase,))
     with tempfile.TemporaryDirectory() as tmp:
-        launched = wide_lego(torch, dev, tmp, card)
-    say(json.dumps({"phase35": wide_rows(wide, launched)}))
+        if phase == 35:
+            wide = check_wide_kernels(torch, dev, card)
+            rows = wide_rows(wide, wide_lego(torch, dev, tmp, card))
+        else:
+            wide = check_siren_wide_kernels(torch, dev, card)
+            rows = siren_wide_rows(wide, wide_siren(torch, dev, tmp, card))
+    say(json.dumps({f"phase{phase}": rows}))
+    say(f"chip_smoke: wall {time.perf_counter() - T_START:.1f} s")
     say(f"card: {card}")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5679,8 +6225,8 @@ def phase35_only(torch, dev, card: str) -> int:
 
 def main(argv: list | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--phase", "35"]):
-        print("usage: chip_smoke.py [--phase 35]", file=sys.stderr)
+    if argv not in ([], ["--phase", "35"], ["--phase", "36"]):
+        print("usage: chip_smoke.py [--phase 35 | --phase 36]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -5708,12 +6254,10 @@ def main(argv: list | None = None) -> int:
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     if argv:
-        return phase35_only(torch, dev, card)
+        return phase_only(torch, dev, card, int(argv[1]))
 
-    t0 = time.perf_counter()
-    infos = build_wide(torch)
-    say(f"build: {len(infos)} libraries in {time.perf_counter() - t0:.1f} s "
-        "(one nvcc per source, in parallel, with phase 35's)")
+    lap("1")
+    infos = build_wide(torch, background=True)
     for info in infos:
         say(f"build: {info.name} {info.seconds:.1f} s -> "
             f"{os.path.relpath(info.path, ROOT)}")
@@ -5721,8 +6265,9 @@ def main(argv: list | None = None) -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 say(f"  ptxas: {line.strip()}")
     paths = {i.name: str(i.path) for i in infos}
-    for name in TC_LIBS:
-        mma = tensor_core_instructions(paths[name])
+    with ThreadPoolExecutor(len(TC_LIBS)) as pool:   # one cuobjdump a library, together
+        counts = list(pool.map(tensor_core_instructions, [paths[n] for n in TC_LIBS]))
+    for name, mma in zip(TC_LIBS, counts):
         if mma is None:
             say(f"build: {name} SASS not read (no cuobjdump): tensor-core "
                 "instructions not measured")
@@ -5731,60 +6276,105 @@ def main(argv: list | None = None) -> int:
         if sum(mma) == 0:
             fail(f"{name}, a bf16 kernel on the tensor cores, holds no tensor-core "
                  "instruction")
-
+    lap("2")
     checks = check_kernel(torch, dev)
+    lap("3")
     grad_checks = check_grad_kernels(torch, dev)
+    lap("3b")
     siren_checks = check_siren_kernels(torch, dev)
+    lap("7")
     gabor_checks = check_gabor_kernels(torch, dev)
+    lap("10")
     kilo_checks = check_kilonerf_kernels(torch, dev)
+    lap("13")
     field_checks = check_nerf_field_kernels(torch, dev)
+    lap("17")
     sg_checks = check_siren_gabor_field_kernels(torch, dev)
+    lap("20")
     interp_checks = check_grid_interp_kernel(torch, dev)
+    lap("23 interp")
     scatter_checks = check_scatter_kernel(torch, dev)
+    lap("23 scatter")
     render_checks = check_grid_render_kernel(torch, dev)
+    lap("23 render")
     factor_checks = check_factor_render_kernel(torch, dev)
-    wide = check_wide_kernels(torch, dev, card)
+    lap("27")
     with tempfile.TemporaryDirectory() as tmp:
         launches = serve(torch, dev, tmp, "lego.txt", FusedNerfRender,
                          "fused_render_fwd")
+        lap("4")
         trained = train(torch, dev, tmp, "lego.txt", FusedNerfRender,
                         "fused_render_train_tc", 0.5)
+        lap("5")
         siren_launches = serve(torch, dev, tmp, "lego_siren.txt", FusedSirenRender,
                                "fused_siren_fwd")
+        lap("8")
         siren_trained = train(torch, dev, tmp, "lego_siren.txt", FusedSirenRender,
                               "fused_siren_grad", 1.0)
+        lap("9")
         gabor_launches = serve(torch, dev, tmp, "lego_siren.txt", FusedGaborRender,
                                "fused_gabor_fwd", "gabor")
+        lap("11")
         gabor_trained = train(torch, dev, tmp, "lego_siren.txt", FusedGaborRender,
                               "fused_gabor_train", 1.0, "gabor")
+        lap("12")
         kilo_launches = serve(torch, dev, tmp, "lego_siren.txt", KiloNeRFField,
                               "fused_kilonerf_fwd", "kilonerf", KILO_OVERRIDES)
+        lap("14")
         kilo_trained = train_kilonerf(torch, dev, tmp)
+        lap("15")
         lego_ckpt = os.path.join(tmp, "train_models_nerf", "nerf_model_000200")
         occ_served = serve_occupancy(torch, dev, tmp, lego_ckpt)
+        lap("18")
         distilled = train_distill_occupancy(torch, dev, tmp, lego_ckpt)
+        lap("19")
         sg_ckpt = {f: os.path.join(tmp, f"train_models_{f}", f"{f}_model_000200")
                    for f in ("siren", "gabor")}
         sg_served = {f: serve_occupancy_sg(torch, dev, tmp, f, sg_ckpt[f])
                      for f in ("siren", "gabor")}
+        lap("21")
         sg_distilled = {f: train_distill_cross(torch, dev, tmp, f,
                                                sg_ckpt["gabor" if f == "siren" else "siren"])
                         for f in ("gabor", "siren")}
+        lap("22")
         grid_served = serve_plenoxels(torch, dev, tmp)
+        lap("24")
         grid_trained = train_plenoxels(torch, dev, tmp)
+        lap("25")
         baked = {f: bake_and_serve(torch, dev, tmp, f) for f in ("fastnerf", "plenoctree")}
+        lap("28-29")
         evaluated = eval_cli(torch, dev, tmp, card)
+        lap("30")
         ndc_checks = check_ndc_kernels(torch, dev, tmp)
+        lap("31 kernels")
         ferned = fern(torch, dev, tmp, card)
+        lap("31")
         ngped = ngp(torch, dev, tmp, card)
+        lap("32")
         par = parallel(torch, dev, tmp, card, lego_ckpt, trained["step_rps"])
+        lap("33")
         jpeg = phase34(torch, dev, tmp, card)
+        lap("34")
+        wait_wide()
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"phase 35: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still held on the card "
+            "after phases 3-34")
+        lap("35-36 build")
+        wide = check_wide_kernels(torch, dev, card)
+        lap("35a")
+        siren_wide = check_siren_wide_kernels(torch, dev, card)
+        lap("36a")
         wide_launched = wide_lego(torch, dev, tmp, card)
+        lap("35bc")
+        siren_wide_launched = wide_siren(torch, dev, tmp, card)
+        lap("36bc")
     bench_headline(torch, dev)
     bench_siren(torch, dev)
     bench_gabor(torch, dev)
     bench_kilonerf(torch, dev)
     bench_plenoxels(torch, dev)
+    lap("benches 6/9/12/15/26")
 
     def row(name, source, line, launched, c, err):
         return {"name": name, "route": "cuda",
@@ -5878,12 +6468,15 @@ def main(argv: list | None = None) -> int:
              scatter_checks["step"], max(v["err"] for v in scatter_checks.values()))):
         kernels.append(dict(row(name, source, f"{nerf_tpu}{line}", launched, c, err),
                             library_ms=c["library_ms"]))
-    for k, by_width in wide_rows(wide, wide_launched).items():
+    for k, by_width in {**wide_rows(wide, wide_launched),
+                        **siren_wide_rows(siren_wide, siren_wide_launched)}.items():
         for entry in kernels:
             if entry["name"] == k:
                 entry["widths"] = by_width
                 entry["launches"] += sum(w["launches"] for w in by_width.values())
     say(json.dumps({"kernels": kernels}))
+    say("chip_smoke: phases' wall s " + ", ".join(f"{k} {t:.1f}" for k, t in LAPS))
+    say(f"chip_smoke: wall {time.perf_counter() - T_START:.1f} s (limit 1200)")
     say(f"card: {card}")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 // The SIREN family's pieces of the fused render and field kernels for Hopper
 // (sm_90a): the packed weight layout, the shared-memory plan, the inputs of
-// one 64-point chunk (ray samples, or field points), its forward, and the
-// MLP backward over a CTA's stashed points. fused_render_siren_fwd.cu
+// one chunk of P points (ray samples, or field points), its forward, and
+// the MLP backward over a CTA's stashed points. fused_render_siren_fwd.cu
 // composites the chunk straight away; fused_render_siren_train.cu also
 // stashes what its backward needs; fused_siren_fwd.cu / fused_siren_bwd.cu
 // (the field) run the same chain and backward on given points. The
@@ -23,6 +23,15 @@
 // cosines of the layers are the degree-11 fast_sin (cos x = fast_sin(x +
 // pi/2)), as the TPU kernels' _trig. In float32 they are sinf/cosf: |w0 z|
 // reaches tens of radians, so no __sinf and no fast math.
+//
+// Widths: hidden 256 with a 32-column direction encoding and 64-point
+// chunks and, built with their plan's -D flags (ops/cuda/siren_plan.py:
+// -DNERF_H, -DNERF_DP, -DNERF_P, ...), hidden 512 with 32-point chunks and
+// 768 and 1024 with 16-point chunks (both activation buffers stay in shared
+// memory), the direction encoding padded to 64 columns; every product runs
+// in blocks of NB = 256 output columns (the rgb head's of 128), the weight
+// stage one block's. A block changes which thread computes an output, not
+// the order of its sum over k, so hidden 256 computes what it did with one.
 
 #pragma once
 
@@ -59,7 +68,8 @@ constexpr int N_B = OFF_BS + 1;
 
 // Shared memory (floats) after the two activation buffers: the raw
 // positions (3 x P, padded to 4 x P), the direction encoding, the per-point
-// chunk columns, then the weight stage (2 x KT x H of float32).
+// chunk columns, then the weight stage (2 x KT x NB of float32: a product's
+// block of columns).
 constexpr int SM_POS = SM_ACT1 + H * LDA;
 constexpr int SM_DENC = SM_POS + 4 * P;
 constexpr int SM_T = SM_DENC + DP * LDA;
@@ -67,7 +77,7 @@ constexpr int SM_DELTA = SM_T + P;
 constexpr int SM_SIGMA = SM_DELTA + P;
 constexpr int SM_RGB = SM_SIGMA + P;         // 3 x P
 constexpr int SM_WST = SM_RGB + 3 * P;
-constexpr int SMEM_BYTES = SM_WST * 4 + 2 * KT * H * 4;
+constexpr int SMEM_BYTES = SM_WST * 4 + 2 * KT * NB * 4;
 static_assert(SM_WST % 4 == 0, "weight stage must be 16-byte aligned");
 static_assert(SMEM_BYTES <= 232448, "exceeds the per-block shared memory");
 
@@ -87,6 +97,7 @@ __device__ __forceinline__ float cosine(float x) {
 }
 
 constexpr int DENC_LD = 64;   // stash stride of denc (dweight reads 64 columns)
+static_assert(DP <= DENC_LD, "a direction encoding wider than its stash");
 
 // Where the train kernels keep one CTA's activations, point-major with the
 // CTA-local point index as the row: h[0..7] = h1..h8 (h1..h7 rounded to the
@@ -108,31 +119,31 @@ struct Stash {
   int cap;
 };
 
-// A sine layer's epilogue: z = acc + bias, arg = w0 z, h = sin(arg);
-// out[col][ty*8+i] = h (rounded to bf16 in bf16 mode). acc is left holding
-// arg. SIGMA (the last layer) also adds h . ws of the thread's columns into
-// part, in float32 on the unrounded h. With STASH, h goes to hs (unrounded
-// when SIGMA, else as stored) and cos(arg) to cs, point-major, row
-// l0+ty*8+i, stride ld.
+// A sine layer's epilogue over a block of 128 NQ columns from column nb: z
+// = acc + bias, arg = w0 z, h = sin(arg); out[col][ty*PT+i] = h (rounded to
+// bf16 in bf16 mode). acc is left holding arg. SIGMA (the last layer) also
+// adds h . ws of the thread's columns into part, in float32 on the
+// unrounded h. With STASH, h goes to hs (unrounded when SIGMA, else as
+// stored) and cos(arg) to cs, point-major, row l0+ty*PT+i, stride ld.
 template <int NQ, bool BF16, bool STASH, bool SIGMA>
-__device__ __forceinline__ void sine_epilogue(float (&acc)[8][4 * NQ],
+__device__ __forceinline__ void sine_epilogue(float (&acc)[PT][4 * NQ],
                                               const float* __restrict__ bias,
                                               float w0, float* out_s, float* hs,
                                               float* cs, int ld, size_t l0,
                                               const float* __restrict__ ws,
-                                              float (&part)[8]) {
+                                              float (&part)[PT], int nb = 0) {
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
-    float v[4][8];
+    float v[4][PT];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const int col = q * 128 + tx * 4 + u;
+      const int col = nb + q * 128 + tx * 4 + u;
       const float b = __ldg(bias + col);
       const float wsv = SIGMA ? __ldg(ws + col) : 0.f;
-      float o[8];
+      float o[PT];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < PT; ++i) {
         const float arg = __fmul_rn(w0, acc[i][q * 4 + u] + b);
         acc[i][q * 4 + u] = arg;
         const float h = sine<BF16>(arg);
@@ -140,14 +151,12 @@ __device__ __forceinline__ void sine_epilogue(float (&acc)[8][4 * NQ],
         o[i] = BF16 ? round_bf16(h) : h;
         v[u][i] = SIGMA ? h : o[i];
       }
-      float* dst = out_s + col * LDA + ty * 8;
-      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
-      *reinterpret_cast<float4*>(dst + 4) = make_float4(o[4], o[5], o[6], o[7]);
+      store_pts(out_s + col * LDA + ty * PT, o);
     }
     if (STASH) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const size_t off = (l0 + ty * 8 + i) * ld + q * 128 + tx * 4;
+      for (int i = 0; i < PT; ++i) {
+        const size_t off = (l0 + ty * PT + i) * ld + nb + q * 128 + tx * 4;
         *reinterpret_cast<float4*>(hs + off) =
             make_float4(v[0][i], v[1][i], v[2][i], v[3][i]);
         *reinterpret_cast<float4*>(cs + off) = make_float4(
@@ -245,7 +254,8 @@ __device__ void load_point_chunk(const float* __restrict__ pts,
 // in shared memory: leaves sigma (after the ReLU and sigma_mul) and rgb of
 // each of its P points in shared memory. With STASH what the backward
 // needs also goes to `st` at local rows l0.. (all P rows, the ones past the
-// chunk's points from zero inputs).
+// chunk's points from zero inputs). Each product runs in blocks of NB
+// output columns (one at hidden 256), the rgb head's in blocks of 128.
 template <bool BF16, bool STASH, typename WT>
 __device__ void mlp_chunk(const float* __restrict__ vec, const WT* __restrict__ wmat,
                           const Siren& sp, float* smem, const Stash& st, size_t l0) {
@@ -272,51 +282,59 @@ __device__ void mlp_chunk(const float* __restrict__ vec, const WT* __restrict__ 
 #define CS(l) (STASH ? st.c[l] : nullptr)
 
   const int tx = tid & 31, ty = tid >> 5;
-  float acc2[8][8];
-  float acc1[8][4];
-  float part[8];
+  float part[PT];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) part[i] = 0.f;
+  for (int i = 0; i < PT; ++i) part[i] = 0.f;
 
   // ---- layer 1 (K = 3): straight from the positions ----
+  for (int nb = 0; nb < H; nb += NB) {
+    float acc2[PT][8];
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    float w[3][4];
+    for (int q = 0; q < 2; ++q) {
+      float w[3][4];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) load4(wmat + OFF_W1 + k * H + q * 128 + tx * 4, w[k]);
+      for (int k = 0; k < 3; ++k)
+        load4(wmat + OFF_W1 + k * H + nb + q * 128 + tx * 4, w[k]);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int p = ty * 8 + i;
-      const float x0 = pos[p], x1 = pos[P + p], x2 = pos[2 * P + p];
+      for (int i = 0; i < PT; ++i) {
+        const int p = ty * PT + i;
+        const float x0 = pos[p], x1 = pos[P + p], x2 = pos[2 * P + p];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float a = fmaf(x0, w[0][u], 0.f);
-        a = fmaf(x1, w[1][u], a);
-        acc2[i][q * 4 + u] = fmaf(x2, w[2][u], a);
+        for (int u = 0; u < 4; ++u) {
+          float a = fmaf(x0, w[0][u], 0.f);
+          a = fmaf(x1, w[1][u], a);
+          acc2[i][q * 4 + u] = fmaf(x2, w[2][u], a);
+        }
       }
     }
+    sine_epilogue<2, BF16, STASH, false>(acc2, vec + 0 * H, sp.w0, act0, HS(0), CS(0), H,
+                                         l0, nullptr, part, nb);
   }
-  sine_epilogue<2, BF16, STASH, false>(acc2, vec + 0 * H, sp.w0, act0, HS(0), CS(0),
-                                       H, l0, nullptr, part);
   // ---- sine layers 2..7, ping-pong between the activation buffers ----
 #pragma unroll 1
   for (int l = 2; l < NL; ++l) {
     const float* src = (l & 1) ? act1 : act0;
     float* dst = (l & 1) ? act0 : act1;
-    zero<2>(acc2);
-    gemm_acc<H, 2>(acc2, src, wmat + off_w(l), wst);
-    sine_epilogue<2, BF16, STASH, false>(acc2, vec + (l - 1) * H, sp.w0h, dst,
-                                         HS(l - 1), CS(l - 1), H, l0, nullptr, part);
+    for (int nb = 0; nb < H; nb += NB) {
+      float acc2[PT][8];
+      zero<2>(acc2);
+      gemm_acc<H, 2>(acc2, src, wmat + off_w(l) + nb, wst, H);
+      sine_epilogue<2, BF16, STASH, false>(acc2, vec + (l - 1) * H, sp.w0h, dst,
+                                           HS(l - 1), CS(l - 1), H, l0, nullptr, part, nb);
+    }
   }
   // ---- layer 8 (act0 -> act1) and the density row ----
-  zero<2>(acc2);
-  gemm_acc<H, 2>(acc2, act0, wmat + off_w(NL), wst);
-  sine_epilogue<2, BF16, STASH, true>(acc2, vec + (NL - 1) * H, sp.w0h, act1,
-                                      HS(NL - 1), CS(NL - 1), H, l0, vec + OFF_WS, part);
-  // each thread summed h8 . ws over its 8 columns; the warp's 32 lanes (same
-  // 8 points, all 256 columns) reduce by shuffle
+  for (int nb = 0; nb < H; nb += NB) {
+    float acc2[PT][8];
+    zero<2>(acc2);
+    gemm_acc<H, 2>(acc2, act0, wmat + off_w(NL) + nb, wst, H);
+    sine_epilogue<2, BF16, STASH, true>(acc2, vec + (NL - 1) * H, sp.w0h, act1,
+                                        HS(NL - 1), CS(NL - 1), H, l0, vec + OFF_WS, part, nb);
+  }
+  // each thread summed h8 . ws over its 8 columns of every block; the warp's
+  // 32 lanes (same PT points, all H columns) reduce by shuffle
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < PT; ++i) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       part[i] += __shfl_xor_sync(0xffffffffu, part[i], off);
@@ -324,23 +342,29 @@ __device__ void mlp_chunk(const float* __restrict__ vec, const WT* __restrict__ 
   if (tx == 0) {
     const float bs = __ldg(vec + OFF_BS);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < PT; ++i) {
       const float sp_pre = part[i] + bs;
-      sig_s[ty * 8 + i] = fmaxf(sp_pre, 0.f) * sp.sigma_mul;
-      if (STASH) st.sigma_pre[l0 + ty * 8 + i] = sp_pre;
+      sig_s[ty * PT + i] = fmaxf(sp_pre, 0.f) * sp.sigma_mul;
+      if (STASH) st.sigma_pre[l0 + ty * PT + i] = sp_pre;
     }
   }
   // ---- feature remap: no activation (act1 -> act0) ----
-  zero<2>(acc2);
-  gemm_acc<H, 2>(acc2, act1, wmat + OFF_WRE, wst);
-  epilogue<2, BF16>(acc2, vec + OFF_BRE, false, act0, STASH ? st.feat : nullptr, H, l0);
+  for (int nb = 0; nb < H; nb += NB) {
+    float acc2[PT][8];
+    zero<2>(acc2);
+    gemm_acc<H, 2>(acc2, act1, wmat + OFF_WRE + nb, wst, H);
+    epilogue<2, BF16>(acc2, vec + OFF_BRE, false, act0, STASH ? st.feat : nullptr, H, l0, nb);
+  }
   // ---- rgb head: sine layer on [feat, denc] (-> act1), then the output ----
-  zero<1>(acc1);
-  gemm_acc<H, 1>(acc1, act0, wmat + OFF_WR0F, wst);
-  gemm_acc<DP, 1>(acc1, denc, wmat + OFF_WR0D, wst);
-  sine_epilogue<1, BF16, STASH, false>(acc1, vec + OFF_BR0, sp.w0h, act1,
-                                       STASH ? st.y : nullptr, STASH ? st.cr0 : nullptr,
-                                       HR, l0, nullptr, part);
+  for (int nb = 0; nb < HR; nb += 128) {
+    float acc1[PT][4];
+    zero<1>(acc1);
+    gemm_acc<H, 1>(acc1, act0, wmat + OFF_WR0F + nb, wst, HR);
+    gemm_acc<DP, 1>(acc1, denc, wmat + OFF_WR0D + nb, wst, HR);
+    sine_epilogue<1, BF16, STASH, false>(acc1, vec + OFF_BR0, sp.w0h, act1,
+                                         STASH ? st.y : nullptr, STASH ? st.cr0 : nullptr,
+                                         HR, l0, nullptr, part, nb);
+  }
 #undef HS
 #undef CS
   __syncthreads();
@@ -414,8 +438,8 @@ __device__ void back_layer(const float* cur, const WT* __restrict__ wT,
                            float* nxt, float* part_w, float* part_b, int cap_c,
                            float* smem) {
   dact<H, BF16, Epi::Cos, false>(cur, wT, c_prev, H, nullptr, nullptr, w0_prev, nxt,
-                                 cap_c, smem, reinterpret_cast<WT*>(smem + SM_WST));
-  dweight<2, false, BF16>(h_prev, H, H, H, cur, cap_c, part_w, smem);
+                                 cap_c, smem, reinterpret_cast<WT*>(smem + SM_WST), H);
+  dweight<2, false, BF16>(h_prev, H, H, H, cur, cap_c, part_w, smem, H);
   colsum(cur, H, cap_c, part_b);
   __syncthreads();
 }
@@ -423,12 +447,13 @@ __device__ void back_layer(const float* cur, const WT* __restrict__ wT,
 // The MLP backward (fused_siren.py::_mlp_bwd_core) over the CTA's points
 // l < cap_c, layer by layer, from the stash and the cotangent columns dzr1
 // (the sigmoid input's, times rgb_mul) and dsig (the density
-// pre-activation's, times sigma_mul): each dz (points x 256, float32,
+// pre-activation's, times sigma_mul): each dz (points x H, float32,
 // unrounded) chunk by chunk into the other dz buffer (dz W^T on the
-// forward's register-tiled gemm against the transposed matrices wmat_t,
-// its epilogue multiplying by w0 and the stashed cosine), and each weight
-// gradient as one product A^T dz over the CTA's points with its 64 x 256
-// output strip in registers, written once per CTA into `part` (offsets of
+// forward's register-tiled gemm against the transposed matrices wmat_t, in
+// blocks of NB columns, its epilogue multiplying by w0 and the stashed
+// cosine), and each weight gradient as one product A^T dz over the CTA's
+// points with its 64 x 256 output strips in registers, written once per
+// CTA into `part` (offsets of
 // the packed layout, the vectors from N_W). The first layer's gradient (K
 // = 3) is a plain column loop; bias, ws and bs gradients are column sums.
 // `on_dzr0(dzr0)` runs once dzr0 (points x HR at stride LDZ) is complete,
@@ -497,10 +522,10 @@ __device__ const float* mlp_backward(const Scratch& sc, size_t cz,
   __syncthreads();
   // rgb sine layer: dfeat = dzr0 wr0f^T; wr0f, wr0d, br0
   dact<HR, BF16, Epi::None, false>(dzA, wmat_t + OFF_WR0F, nullptr, 0, nullptr,
-                                   nullptr, 1.f, dzB, cap_c, smem, wst);
-  dweight<1, false, BF16>(sc.st.feat, H, H, H, dzA, cap_c, part + OFF_WR0F, smem);
+                                   nullptr, 1.f, dzB, cap_c, smem, wst, H);
+  dweight<1, false, BF16>(sc.st.feat, H, H, H, dzA, cap_c, part + OFF_WR0F, smem, HR);
   dweight<1, false, BF16>(sc.st.denc, DENC_LD, DENC_LD, DP, dzA, cap_c,
-                          part + OFF_WR0D, smem);
+                          part + OFF_WR0D, smem, HR);
   colsum(dzA, HR, cap_c, pvec + OFF_BR0);
   __syncthreads();
   on_dzr0(static_cast<const float*>(dzA));
@@ -508,8 +533,8 @@ __device__ const float* mlp_backward(const Scratch& sc, size_t cz,
   // wre from the unrounded h8, bre (dact's first barrier also orders
   // on_dzr0's reads of dzA before its writes)
   dact<H, BF16, Epi::Cos, true>(dzB, wmat_t + OFF_WRE, sc.st.c[NL - 1], H, dsig,
-                                vec + OFF_WS, sp.w0h, dzA, cap_c, smem, wst);
-  dweight<2, BF16, BF16>(h8, H, H, H, dzB, cap_c, part + OFF_WRE, smem);
+                                vec + OFF_WS, sp.w0h, dzA, cap_c, smem, wst, H);
+  dweight<2, BF16, BF16>(h8, H, H, H, dzB, cap_c, part + OFF_WRE, smem, H);
   colsum(dzB, H, cap_c, pvec + OFF_BRE);
   __syncthreads();
   // sine layers 8..2

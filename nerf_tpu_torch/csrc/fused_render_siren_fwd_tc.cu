@@ -25,9 +25,11 @@
 // (fused_render_siren_tc_common.cuh::forward_chunk_siren_tc, shared with
 // fused_render_siren_train_tc.cu, so the two give the same rgb, acc and
 // weights bit for bit). A CTA owns whole rays and walks their samples in
-// chunks of 64 points; two CTAs share an SM (about 110 KB of shared memory
-// each), so that one CTA's sine epilogues and compositing (CUDA cores)
-// overlap the other's products (tensor cores). Layer 1 (K = 3) runs on the
+// chunks of TC_P points (64 up to hidden 512, 32 wider); two CTAs share an
+// SM at hidden 256 with a 32-column direction encoding (about 110 KB of
+// shared memory each), so that one CTA's sine epilogues and compositing
+// (CUDA cores) overlap the other's products (tensor cores); wider shapes
+// take one (siren_plan.py). Layer 1 (K = 3) runs on the
 // CUDA cores straight into the accumulator layout; every other product is
 // render_tc.cuh's gemm_fwd (mma.sync m16n8k16, bf16 operands, float32
 // sums) against the weights streamed through a ring of cp.async stages,
@@ -68,7 +70,7 @@ fused_siren_fwd_tc_kernel(RayInputs in, Siren sp, const bf16* __restrict__ wmat,
     if (threadIdx.x == 0)
       composite_chunk(sums, sm.col + SC_T * TC_P, sm.col + SC_DELTA * TC_P,
                       sm.col + SC_SIGMA * TC_P, sm.col + SC_RGB * TC_P, chunk0, nvalid, S,
-                      rgb_out, acc_out, depth_out, weights_out);
+                      rgb_out, acc_out, depth_out, weights_out, TC_P);
     __syncthreads();
   }
 }

@@ -74,6 +74,14 @@
 // z_l in the backward, would save the 8 KB of cosines a point for 27% more
 // products, 2,048 more sines a point and two accumulator sets live per
 // thread; it waits until the stash's bytes are shown to set the pace.
+// The stash grows with the width (siren_plan.py's tc_bytes_per_point):
+// 31,360 bytes a point at hidden 512 and 62,592 at 1024, 8.2 / 16.4 GB at
+// 1024 x 256, which an 80 GB card holds.
+//
+// Widths: hidden 256 to 1024 and the direction encoding padded to 32 or 64
+// columns, each shape built with its plan's -D flags
+// (fused_render_siren_tc_common.cuh says how the chain and the backward
+// take them).
 //
 // Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared
 // library with a plain C interface (loaded by ctypes).
@@ -84,7 +92,7 @@ namespace siren {
 namespace {
 
 constexpr int FWD_SPLIT = 2;       // forward CTAs a backward CTA's points
-constexpr int MAX_RAYS_PER_CTA = TC_P * LDS * 2 / 4;   // per-ray losses in ACT1
+constexpr int MAX_RAYS_PER_CTA = TC_PB * LDN * 2 / 4;   // per-ray losses in ACT1
 
 // Step 1: the forward of FWD_SPLIT CTAs a backward CTA's rays, each every
 // FWD_SPLIT-th 64-point chunk of them, into that CTA's stash.

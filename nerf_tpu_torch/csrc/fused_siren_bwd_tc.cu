@@ -57,6 +57,10 @@
 // partial is 2.3 MB (NPART floats); the run length sets how many are
 // written and read back.
 //
+// Widths: hidden 256 to 1024 and the direction encoding padded to 32 or 64
+// columns, each shape built with its plan's -D flags (siren_plan.py): the
+// stash a point grows to 62,592 bytes at 1024 (1.0 GB at 16,384 points).
+//
 // Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared
 // library with a plain C interface (loaded by ctypes).
 
@@ -65,8 +69,8 @@
 namespace siren {
 namespace {
 
-// The input-product matrix: wr0d^T (HR x DP) zero-padded to HR x HR.
-constexpr int N_WT_IN = HR * HR;
+// The input-product matrix: wr0d^T (HR x DP) zero-padded to HR x NI.
+constexpr int N_WT_IN = HR * NI;
 
 __device__ __forceinline__ unsigned char* cta_stash(unsigned char* scratch, int b, int cap) {
   return scratch + static_cast<size_t>(b) * cap * TC_BYTES_PER_POINT;
@@ -90,7 +94,7 @@ siren_field_bwd_tc_fwd(const float* __restrict__ pts, const float* __restrict__ 
 
 // The field's input products, as row 8's backward's hooks, over a CTA's
 // points [p0, p0 + npts) (rows < cap_c): wr0d_t is wr0d^T zero-padded to
-// 128 x 128, w1 the packed first layer (its rows 0..2). The direction
+// HR x NI, w1 the packed first layer (its rows 0..2). The direction
 // cotangent's tiles use act1 as floats.
 struct InputHooks {
   const float* dirs;
@@ -106,25 +110,32 @@ struct InputHooks {
                            reinterpret_cast<float*>(sm.act1), sm.wst);
   }
   // dpts = dz1 w1^T (the three coordinates' rows): a warp a point, lane k
-  // columns 8k .. 8k + 7
+  // columns 8k .. 8k + 7 of each block of 256
   __device__ void on_dz1(const bf16* dz1) const {
+    constexpr int NCB = H / NB;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    float w[3][8];
+    float w[NCB][3][8];
 #pragma unroll
-    for (int k = 0; k < 3; ++k)
+    for (int b = 0; b < NCB; ++b)
 #pragma unroll
-      for (int u = 0; u < 8; ++u) w[k][u] = __bfloat162float(w1[k * H + lane * 8 + u]);
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          w[b][k][u] = __bfloat162float(w1[k * H + b * NB + lane * 8 + u]);
     for (int l = warp; l < npts; l += WARPS) {
-      const uint4 pk = *reinterpret_cast<const uint4*>(dz1 + static_cast<size_t>(l) * LDZ +
-                                                       lane * 8);
-      const bf16* d = reinterpret_cast<const bf16*>(&pk);
       float s0 = 0.f, s1 = 0.f, s2 = 0.f;
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const float v = __bfloat162float(d[u]);
-        s0 = fmaf(v, w[0][u], s0);
-        s1 = fmaf(v, w[1][u], s1);
-        s2 = fmaf(v, w[2][u], s2);
+      for (int b = 0; b < NCB; ++b) {
+        const uint4 pk = *reinterpret_cast<const uint4*>(dz1 + static_cast<size_t>(l) * LDZ +
+                                                         b * NB + lane * 8);
+        const bf16* d = reinterpret_cast<const bf16*>(&pk);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const float v = __bfloat162float(d[u]);
+          s0 = fmaf(v, w[b][0][u], s0);
+          s1 = fmaf(v, w[b][1][u], s1);
+          s2 = fmaf(v, w[b][2][u], s2);
+        }
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
@@ -155,7 +166,7 @@ siren_field_bwd_tc_bwd(const float* __restrict__ dirs, const float* __restrict__
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * run;
   const int npts = min(run, n - p0);
-  const int cap_c = (npts + TC_P - 1) / TC_P * TC_P;
+  const int cap_c = (npts + TC_P - 1) / TC_P * TC_P;   // whole forward chunks
   const size_t cz = static_cast<size_t>(cap);
   const TcStash st = carve_stash(cta_stash(scratch, blockIdx.x, cap), cap);
   float* part = partial + static_cast<size_t>(blockIdx.x) * NPART;
@@ -220,7 +231,7 @@ extern "C" {
 // Sizes the caller allocates: scratch floats per stashed point (the stash's
 // bytes / 4), floats per CTA partial, floats of the output (the gradients,
 // then a zero), and the length of the input-product matrix (wr0d^T
-// zero-padded to 128 x 128).
+// zero-padded to HR x 128).
 void siren_field_bwd_tc_sizes(int* per_point, int* npart, int* n_out, int* n_t_in) {
   *per_point = siren::TC_BYTES_PER_POINT / 4;
   *npart = siren::NPART;
@@ -230,7 +241,7 @@ void siren_field_bwd_tc_sizes(int* per_point, int* npart, int* n_out, int* n_t_i
 
 // The bf16 field backward, with siren_field_bwd's arguments and the input
 // products' matrix: `wmat_t` is not read (the products read the packed W
-// itself), `wt_in` holds wr0d^T zero-padded to 128 x 128 (n_t values),
+// itself), `wt_in` holds wr0d^T zero-padded to HR x 128 (n_t values),
 // `bf16` must be 1, and `pts_per_cta` (the run) must be a multiple of 64.
 // `scratch` holds grid * cap * per_point floats, `partial` grid * npart,
 // `out` n_out, where grid = ceil(n / pts_per_cta) and cap >= pts_per_cta

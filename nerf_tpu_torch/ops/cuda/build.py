@@ -3,15 +3,17 @@
 Every CUDA source under the package's ``csrc/`` is compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, in
 ``build/`` beside the package, on the first CUDA call: one ``nvcc`` per
-source, all started together. The NeRF libraries are also compiled at the
-other shapes they take (``nerf_plan.py``), each on the first launch at that
-shape, with the shape in its file name beside the hash. The families'
+source, all started together. The NeRF and SIREN libraries are also
+compiled at the other shapes they take (``nerf_plan.py``,
+``siren_plan.py``), each on the first launch at that shape, with the shape
+in its file name beside the hash. The families'
 modules load their libraries with ``library`` and declare their C
 signatures there.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
 import hashlib
@@ -74,25 +76,56 @@ def _digest(flags: tuple) -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(jobs: dict) -> dict:
-    """Build each ``(name, defines)`` of ``jobs`` (its output path the value)
-    not yet in ``build/``: one ``nvcc`` per library, all started together.
-    Returns their ``BuildInfo`` by key; raises ``RuntimeError`` if any build
-    fails."""
+# builds started and not yet waited for: (name, defines) -> (process,
+# temporary output, output, log file, start time)
+_RUNNING: dict = {}
+
+
+def _start(jobs: dict, nice: int = 0) -> None:
+    """Start one ``nvcc`` for each ``(name, defines)`` of ``jobs`` (its
+    output path the value) neither in ``build/`` nor being built, at
+    niceness ``nice`` (0: the caller's)."""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running, infos = {}, {}
+    prefix = ["nice", "-n", str(nice)] if nice and shutil.which("nice") else []
     for (name, defines), out in jobs.items():
-        if out.exists():
-            infos[name, defines] = BuildInfo(name, out, 0.0, "cached")
+        if out.exists() or (name, defines) in _RUNNING:
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running[name, defines] = (proc, tmp, out, time.perf_counter())
-    errors = []
-    for (name, defines), (proc, tmp, out, t0) in running.items():
-        log, _ = proc.communicate()
+        log = out.with_name(f"{out.stem}.{os.getpid()}.log")
+        with open(log, "w") as f:   # a file, not a pipe: a build waited for late never blocks
+            proc = subprocess.Popen(
+                [*prefix, _nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+                 str(_CSRC / f"{name}.cu")], stdout=f, stderr=subprocess.STDOUT)
+        _RUNNING[name, defines] = (proc, tmp, out, log, time.perf_counter())
+
+
+@atexit.register
+def _stop() -> None:
+    """Kill the builds still running when the process exits."""
+    for proc, tmp, _, log, _ in _RUNNING.values():
+        proc.kill()
+        proc.wait()
+        tmp.unlink(missing_ok=True)
+        log.unlink(missing_ok=True)
+    _RUNNING.clear()
+
+
+def _compile(jobs: dict) -> dict:
+    """Build each ``(name, defines)`` of ``jobs`` (its output path the value)
+    not yet in ``build/``: one ``nvcc`` per library, all started together,
+    or waited for where ``start_shaped`` started it. Returns their
+    ``BuildInfo`` by key (``seconds`` from its start to the wait's end);
+    raises ``RuntimeError`` if any build fails."""
+    _start(jobs)
+    infos, errors = {}, []
+    for (name, defines), out in jobs.items():
+        if (name, defines) not in _RUNNING:
+            infos[name, defines] = BuildInfo(name, out, 0.0, "cached")
+            continue
+        proc, tmp, out, log_path, t0 = _RUNNING.pop((name, defines))
+        proc.wait()
+        log = log_path.read_text()
+        log_path.unlink()
         if proc.returncode != 0:
             errors.append(f"nvcc {name}.cu {' '.join(defines)} failed ({proc.returncode}):\n{log}")
             continue
@@ -119,8 +152,9 @@ def _shaped_path(name: str, tag: str, defines: tuple) -> Path:
 
 def build_shaped(wanted) -> tuple[BuildInfo, ...]:
     """Compile the libraries ``wanted``, each ``(name, tag, defines)``: one
-    of ``LIBS`` at the shape the -D flags ``defines`` set (the NeRF
-    libraries at another width, ``nerf_plan.NerfPlan.defines``), named
+    of ``LIBS`` at the shape the -D flags ``defines`` set (the NeRF and
+    SIREN libraries at another width, ``nerf_plan.NerfPlan.defines`` and
+    ``siren_plan.SirenPlan.defines``), named
     with ``tag``; empty ``defines`` name the default build. All are started
     together, with the default shape's libraries if not built yet. Built
     once; each later call finds them in ``build/``."""
@@ -129,6 +163,16 @@ def build_shaped(wanted) -> tuple[BuildInfo, ...]:
     jobs.update({(n, d): _shaped_path(n, t, d) for n, t, d in wanted if d})
     infos = _compile(jobs)
     return tuple(infos[n, d] for n, _, d in wanted)
+
+
+def start_shaped(wanted, nice: int = 0) -> None:
+    """Start the builds of ``wanted`` (``build_shaped``'s jobs; the default
+    shape's are left out) at niceness ``nice`` and return at once: a later
+    ``build_shaped`` or ``library`` call at those shapes waits for them,
+    and those still running when the process exits are killed. With
+    ``nice`` > 0 the libraries wanted first (``build()``, started after)
+    take the CPU from them."""
+    _start({(n, d): _shaped_path(n, t, d) for n, t, d in wanted if d}, nice)
 
 
 @functools.cache

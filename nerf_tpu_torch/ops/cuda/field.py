@@ -69,6 +69,7 @@ class FusedField:
     launches = 0
     bwd_launches = 0
     family = "field"
+    plan = None        # a family's shape plan (nerf_plan.py, siren_plan.py), if it has one
 
     def __init__(self, model, packed=None):
         self.model = model
@@ -104,6 +105,15 @@ class FusedField:
                     packed = self.cast(*self.params_f32())
             rgb, sigma = self._forward(packed, pts, drs)
         return rgb.reshape(*shape, 3), sigma.reshape(shape)
+
+    def _count(self, counter: str) -> None:
+        """One launch more on the class's ``counter`` (``launches`` or
+        ``bwd_launches``); a family with a shape ``plan`` also counts it in
+        its ``shape_launches`` by ``(counter, plan tag, compute dtype)``."""
+        cls = type(self)
+        setattr(cls, counter, getattr(cls, counter) + 1)
+        if self.plan is not None:
+            cls.shape_launches[counter, self.plan.tag, str(self.cdt)[6:]] += 1
 
     def _route(self, x: torch.Tensor) -> str:
         if x.device.type in ("cpu", "cuda"):

@@ -200,12 +200,6 @@ class NerfField(FusedField):
     def params_f32(self) -> tuple:
         return pack_f32(self.model)
 
-    def _count(self, counter: str) -> None:
-        """One launch more on the class's ``counter`` and at this shape."""
-        cls = type(self)
-        setattr(cls, counter, getattr(cls, counter) + 1)
-        cls.shape_launches[counter, self.plan.tag, str(self.cdt)[6:]] += 1
-
     def cast(self, wflat: torch.Tensor, vec: torch.Tensor) -> Packed:
         return cast_packed(wflat, vec, self.cdt, self.h, self.pads)
 

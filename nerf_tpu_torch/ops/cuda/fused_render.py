@@ -542,6 +542,7 @@ class FusedRender:
     train_launches = 0
     bwd_launches = 0
     mat_names: tuple = ()
+    plan = None        # a family's shape plan (nerf_plan.py, siren_plan.py), if it has one
 
     def __init__(self, model, near: float, far: float, normalize: bool = True):
         self.near, self.far, self.normalize = float(near), float(far), normalize
@@ -621,9 +622,12 @@ class FusedRender:
     def _count(self, counter: str) -> None:
         """One launch more on the class's ``counter`` (``launches``,
         ``train_launches`` or ``bwd_launches``), counted where the kernel
-        launched."""
+        launched; a family with a shape ``plan`` also counts it in its
+        ``shape_launches`` by ``(counter, plan tag, compute dtype)``."""
         cls = type(self)
         setattr(cls, counter, getattr(cls, counter) + 1)
+        if self.plan is not None:
+            cls.shape_launches[counter, self.plan.tag, str(self.cdt)[6:]] += 1
 
     def _check(self, packed: Packed, named: tuple) -> None:
         if not self.supported():
@@ -809,10 +813,6 @@ class FusedNerfRender(FusedRender):
                 f"padded to at most 128/64 columns; got hidden {self.h}, "
                 f"{self.real_p}/{self.real_d} (ROADMAP.md queue 2; run on the CPU, "
                 "or with use_pallas = false)")
-
-    def _count(self, counter: str) -> None:
-        super()._count(counter)
-        type(self).shape_launches[counter, self.plan.tag, str(self.cdt)[6:]] += 1
 
     def pack_f32(self, model):
         return pack_f32(model)

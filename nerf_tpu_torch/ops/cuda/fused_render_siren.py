@@ -26,21 +26,25 @@ of ``nerf_tpu/ops/pallas/fused_siren.py`` that it uses:
 
   * ``pack_f32`` / ``cast_packed`` / ``pack_params``: a ``SirenModel`` in the
     kernels' layout (``fused_siren.py::pack_params``: w1 padded to 8 rows,
-    the rgb head's first matrix split into wr0f and wr0d, wr0d padded to 32
-    rows, wr1/br1 to 8 columns); ``cast_packed`` rounds the matrices and the
-    density row to the compute dtype and keeps the biases float32, as
-    ``_cast_weights`` does;
+    the rgb head's first matrix split into wr0f and wr0d, wr0d padded to
+    d_pad rows, a multiple of 32 (``siren_plan.d_pad``), wr1/br1 to 8
+    columns); ``cast_packed`` rounds the matrices and the density row to
+    the compute dtype and keeps the biases float32, as ``_cast_weights``
+    does;
   * the plain PyTorch versions ``fused_siren_render_plain``,
     ``fused_siren_train_plain`` and ``fused_siren_render_bwd_plain``,
     rounding at the kernels' points (the backward at
     ``fused_siren.py::_mlp_bwd_core``'s) and using the degree-11 sine in
     bfloat16, so that each matches its kernel in either compute dtype;
   * ``FusedSirenRender``: the wrapper, with the contract and the CPU/CUDA
-    routing of ``FusedRender`` (``fused_render.py``).
+    routing of ``FusedRender`` (``fused_render.py``), at every shape of
+    ``siren_plan.py`` (hidden 256 to 1024, d_pad 32 or 64; each shape its
+    own build of the libraries).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -61,15 +65,15 @@ from nerf_tpu_torch.ops.cuda.fused_render import (
     grad_sizes,
     trig,
 )
+from nerf_tpu_torch.ops.cuda.siren_plan import NUM_LAYERS, SirenPlan, covered, d_pad, plan
 
-NUM_LAYERS = 8           # sine layers the kernels take
 W1_ROWS = 8              # w1's contraction dimension, padded from 3
-# Stash bytes a point of the bfloat16 train pass on the tensor cores
-# (csrc/fused_render_siren_train_tc.cu: h1..h8, feat and two dz buffers of
-# 256 bf16, y 128, denc 32; h8 and the cosines c1..c8 256 each, cr0 128 and
-# 16 per-point columns in float32); its library's fused_siren_train_tc_sizes
-# gives the same.
-TC_BYTES_PER_POINT = 2 * (11 * 256 + 128 + DP) + 4 * (9 * 256 + 128 + 16)
+# Stash bytes a point of the bfloat16 train pass on the tensor cores at
+# hidden 256 (csrc/fused_render_siren_train_tc.cu: h1..h8, feat and two dz
+# buffers of 256 bf16, y 128, denc 32; h8 and the cosines c1..c8 256 each,
+# cr0 128 and 16 per-point columns in float32); its library's
+# fused_siren_train_tc_sizes gives the same.
+TC_BYTES_PER_POINT = plan(256, DP).tc_bytes_per_point
 
 # The packed matrices and vectors, in buffer order (must match the OFF_*
 # tables of csrc/fused_render_siren_common.cuh). Matrices are (in, out).
@@ -79,10 +83,10 @@ _VECS = tuple(f"b{i}" for i in range(1, NUM_LAYERS + 1)) + (
     "bre", "ws", "br0", "br1", "bs")
 
 
-def _shapes(h: int) -> tuple[dict, dict]:
+def _shapes(h: int, dp: int = DP) -> tuple[dict, dict]:
     hr = h // 2
     mats = {"w1": (W1_ROWS, h), **{f"w{i}": (h, h) for i in range(2, NUM_LAYERS + 1)},
-            "wre": (h, h), "wr0f": (h, hr), "wr0d": (DP, hr), "wr1": (hr, 8)}
+            "wre": (h, h), "wr0f": (h, hr), "wr0d": (dp, hr), "wr1": (hr, 8)}
     vecs = {**{f"b{i}": (h,) for i in range(1, NUM_LAYERS + 1)}, "bre": (h,),
             "ws": (h,), "br0": (hr,), "br1": (8,), "bs": (1,)}
     return mats, vecs
@@ -110,7 +114,8 @@ class SirenConsts:
 
 def pack_f32(model) -> tuple[torch.Tensor, torch.Tensor]:
     """``(wflat, vec)``: every matrix and every vector of ``model`` padded
-    and split into the kernel layout, float32 and differentiable."""
+    and split into the kernel layout (wr0d to ``siren_plan.d_pad`` rows),
+    float32 and differentiable."""
     h = model.hidden_dim
 
     def w(lyr):
@@ -124,7 +129,7 @@ def pack_f32(model) -> tuple[torch.Tensor, torch.Tensor]:
         "w1": pad_rows(w(model.base[0]), W1_ROWS),
         **{f"w{i}": w(model.base[i - 1]) for i in range(2, NUM_LAYERS + 1)},
         "wre": w(model.remap),
-        "wr0f": wr0[:h], "wr0d": pad_rows(wr0[h:], DP),
+        "wr0f": wr0[:h], "wr0d": pad_rows(wr0[h:], d_pad(model.dir_encoding_dim)),
         "wr1": F.pad(w(model.rgb1), (0, 8 - model.rgb1.weight.shape[0])),
     }
     vecs = {
@@ -141,10 +146,11 @@ def pack_f32(model) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def cast_packed(wflat: torch.Tensor, vec: torch.Tensor, cdt: torch.dtype,
-                hidden: int) -> Packed:
+                hidden: int, dp: int = DP) -> Packed:
     """The float32 packing as the kernels read it: matrices in ``cdt``, the
-    density row ws rounded to ``cdt`` (biases stay float32)."""
-    mat_shapes, vec_shapes = _shapes(hidden)
+    density row ws rounded to ``cdt`` (biases stay float32); ``dp`` the
+    padded direction-encoding width (``siren_plan.d_pad``)."""
+    mat_shapes, vec_shapes = _shapes(hidden, dp)
     o = (NUM_LAYERS + 1) * hidden                     # offset of ws
     vec = torch.cat([vec[:o], round_to(vec[o:o + hidden], cdt),
                      vec[o + hidden:]]).contiguous()
@@ -156,12 +162,13 @@ def cast_packed(wflat: torch.Tensor, vec: torch.Tensor, cdt: torch.dtype,
 def pack_params(model) -> Packed:
     """``model`` in the kernel layout, cast once to its compute dtype."""
     wflat, vec = pack_f32(model)
-    return cast_packed(wflat, vec, model.cdt, model.hidden_dim)
+    return cast_packed(wflat, vec, model.cdt, model.hidden_dim,
+                       d_pad(model.dir_encoding_dim))
 
 
-def grad_views(gw: torch.Tensor, gv: torch.Tensor, hidden: int) -> dict:
+def grad_views(gw: torch.Tensor, gv: torch.Tensor, hidden: int, dp: int = DP) -> dict:
     """The 25 gradient tensors of a flat ``(gw, gv)`` pair, by name."""
-    mat_shapes, vec_shapes = _shapes(hidden)
+    mat_shapes, vec_shapes = _shapes(hidden, dp)
     return {**_views(gw, mat_shapes, _MATS), **_views(gv, vec_shapes, _VECS)}
 
 
@@ -169,7 +176,7 @@ def mlp_acts(packed: Packed, pos: torch.Tensor, denc: torch.Tensor,
              k: SirenConsts) -> dict:
     """Every activation of the kernels' SIREN chain (``fused_siren.py::
     _mlp_tile``) of raw positions ``pos`` (..., 3) and direction encodings
-    ``denc`` (..., DP) (exact sine), float32: matmul inputs rounded to the
+    ``denc`` (..., d_pad) (exact sine), float32: matmul inputs rounded to the
     compute dtype as the kernels round them (the raw positions too), each
     sine layer's argument w0 z, h8 and sigma_pre unrounded, rgb after the
     sigmoid (3 channels)."""
@@ -202,8 +209,9 @@ def _forward_acts(packed: Packed, o_aff, d_aff, viewdirs, t,
                   k: SirenConsts) -> dict:
     """``mlp_acts`` of the samples o_aff + t d_aff (R, S) of the rays."""
     p = o_aff[:, None, :] + t[..., None] * d_aff[:, None, :]           # (R,S,3)
-    denc = _encode(viewdirs, k.dir_freqs, DP, torch.sin)
-    return mlp_acts(packed, p, denc[:, None, :].expand(*t.shape, DP), k)
+    dp = packed.mats["wr0d"].shape[0]
+    denc = _encode(viewdirs, k.dir_freqs, dp, torch.sin)
+    return mlp_acts(packed, p, denc[:, None, :].expand(*t.shape, dp), k)
 
 
 def fused_siren_render_plain(packed: Packed, o_aff: torch.Tensor,
@@ -223,7 +231,7 @@ def mlp_bwd(packed: Packed, acts: dict, dzr1, dsig, k: SirenConsts,
     density pre-activation (``fused_siren.py::_mlp_bwd_core``): the flat
     float32 gradients ``(gw, gv)`` in the packed layout; with ``inputs``
     also the input products ``dpos`` = dz1 w1^T (the 3 coordinates) and
-    ``ddenc`` = dzr0 wr0d^T (DP columns), dz rounded to the compute dtype,
+    ``ddenc`` = dzr0 wr0d^T (d_pad columns), dz rounded to the compute dtype,
     ``(gw, gv, dpos, ddenc)``."""
     cdt = packed.cdt
     _, cos = trig(cdt)
@@ -235,7 +243,7 @@ def mlp_bwd(packed: Packed, acts: dict, dzr1, dsig, k: SirenConsts,
     hidden = m["w2"].shape[0]
     gw = torch.zeros(packed.wmat.numel(), dtype=torch.float32, device=dzr1.device)
     gv = torch.zeros(packed.vec.numel(), dtype=torch.float32, device=dzr1.device)
-    g = grad_views(gw, gv, hidden)
+    g = grad_views(gw, gv, hidden, m["wr0d"].shape[0])
     w0s = k.w0s
 
     def r(x):
@@ -317,8 +325,10 @@ _ENTRY = {"fused_render_siren_fwd": "fused_siren_fwd",
 
 
 @functools.cache
-def _library(name: str) -> ctypes.CDLL:
-    lib = library(name)
+def _library(name: str, shape: SirenPlan | None = None) -> ctypes.CDLL:
+    """The library ``name`` with its C signatures declared, at the default
+    shape or at the SIREN plan ``shape``'s (built on first use)."""
+    lib = library(name) if shape is None else library(name, shape.tag, shape.defines)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     entry = _ENTRY[name]
     fn, err = getattr(lib, entry), getattr(lib, entry + "_error")
@@ -347,11 +357,13 @@ def _library(name: str) -> ctypes.CDLL:
 
 class FusedSirenRender(FusedRender):
     """Fused render, train pass and render backward of a SIREN (see
-    ``FusedRender`` for the contract)."""
+    ``FusedRender`` for the contract). ``shape_launches`` splits the three
+    counts by shape: ``(counter, plan tag, compute dtype)`` -> launches."""
 
     launches = 0
     train_launches = 0
     bwd_launches = 0
+    shape_launches: collections.Counter = collections.Counter()
     mat_names = _MATS
 
     def __init__(self, model, near: float, far: float, normalize: bool = True):
@@ -363,24 +375,27 @@ class FusedSirenRender(FusedRender):
                 "through the module)")
         super().__init__(model, near, far, normalize)
         self.consts = SirenConsts.of(model)
+        self.d_pad = d_pad(self.dir_freqs)
+        # the kernels' plan at this shape, None outside the shapes they take
+        self.plan = plan(self.h, self.d_pad) if covered(self.h, self.d_pad) else None
 
     def supported(self) -> bool:
-        """The shapes the kernels cover: hidden 256 and a direction encoding
-        that fits its padded width. (The TPU kernels also take hidden 512;
-        the port does not yet.)"""
-        return self.h == 256 and self.real_d <= DP
+        """The shapes the kernels cover (``siren_plan.covered``): hidden
+        256, 512, 768 or 1024 with the direction encoding padded to at most
+        64 columns."""
+        return self.plan is not None
 
     def _unsupported(self) -> str:
-        return (f"the fused SIREN kernels cover hidden 256 with a direction "
-                f"encoding of at most {DP} columns; got hidden {self.h}, "
-                f"{self.real_d} columns (hidden 512 is ROADMAP.md queue 2; "
-                "run on the CPU, or with use_pallas = false)")
+        return (f"the fused SIREN kernels cover hidden 256 to 1024 with the direction "
+                f"encoding padded to at most 64 columns; got hidden {self.h}, "
+                f"{self.real_d} columns (ROADMAP.md queue 2; run on the CPU, or with "
+                "use_pallas = false)")
 
     def pack_f32(self, model):
         return pack_f32(model)
 
     def cast(self, wflat, vec) -> Packed:
-        return cast_packed(wflat, vec, self.cdt, self.h)
+        return cast_packed(wflat, vec, self.cdt, self.h, self.d_pad)
 
     def _plain_forward(self, packed, o_aff, d_aff, viewdirs, t):
         return fused_siren_render_plain(packed, o_aff, d_aff, viewdirs, t,
@@ -400,19 +415,21 @@ class FusedSirenRender(FusedRender):
 
     def fwd_library(self) -> str:
         """The library of a forward render: the bfloat16 one runs on the
-        tensor cores (two CTAs an SM), the float32 one on the CUDA cores."""
+        tensor cores (two CTAs an SM at hidden 256 with d_pad 32, else one:
+        the plan's ``fwd_ctas_per_sm``), the float32 one on the CUDA
+        cores."""
         if self.cdt == torch.bfloat16:
             return "fused_render_siren_fwd_tc"
         return "fused_render_siren_fwd"
 
     def _fwd_entry(self):
         name = self.fwd_library()
-        lib, entry = _library(name), _ENTRY[name]
+        lib, entry = _library(name, self.plan), _ENTRY[name]
         return (getattr(lib, entry), getattr(lib, entry + "_error"),
-                2 if name.endswith("_tc") else 1)
+                self.plan.fwd_ctas_per_sm if name.endswith("_tc") else 1)
 
     def _grad_entry(self):
-        lib = _library("fused_render_siren_train")
+        lib = _library("fused_render_siren_train", self.plan)
         return (lib.fused_siren_grad, lib.fused_siren_grad_error,
                 grad_sizes(lib.fused_siren_grad_sizes))
 
@@ -425,12 +442,12 @@ class FusedSirenRender(FusedRender):
         return "fused_render_siren_train"
 
     def _train_tc_entry(self):
-        lib = _library("fused_render_siren_train_tc")
+        lib = _library("fused_render_siren_train_tc", self.plan)
         return (lib.fused_siren_train_tc, lib.fused_siren_train_tc_error,
                 lib.fused_siren_train_tc_sizes)
 
     def _bwd_tc_entry(self):
-        lib = _library("fused_render_siren_train_tc")
+        lib = _library("fused_render_siren_train_tc", self.plan)
         return (lib.fused_siren_render_bwd_tc, lib.fused_siren_train_tc_error,
                 lib.fused_siren_train_tc_sizes)
 

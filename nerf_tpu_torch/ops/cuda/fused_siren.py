@@ -33,14 +33,16 @@ JAX weights across unchanged. This module holds
   * ``SirenField``: the field ``(points, dirs) -> (rgb, sigma)`` of one
     ``SirenModel`` (8 layers), with the contract of ``field.py::
     FusedField``: on CPU tensors the plain versions, on CUDA tensors the
-    kernels (hidden 256) or a raise, never one for the other;
+    kernels (hidden 256 to 1024 with d_pad 32 or 64, ``siren_plan.py``; each
+    shape its own build) or a raise, never one for the other;
     differentiable under autograd through the backward kernel;
     ``launches`` and ``bwd_launches`` count the kernels' launches over all
-    instances.
+    instances, ``shape_launches`` by shape.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -49,8 +51,8 @@ import torch.nn.functional as F
 
 from nerf_tpu_torch.ops.cuda.build import library
 from nerf_tpu_torch.ops.cuda.field import FusedField
-from nerf_tpu_torch.ops.cuda.fused_nerf import _encode_bwd
-from nerf_tpu_torch.ops.cuda.fused_render import DP, Packed, _encode
+from nerf_tpu_torch.ops.cuda.fused_nerf import NI, _encode_bwd
+from nerf_tpu_torch.ops.cuda.fused_render import Packed, _encode
 from nerf_tpu_torch.ops.cuda.fused_render_siren import (
     _MATS,
     NUM_LAYERS,
@@ -61,11 +63,11 @@ from nerf_tpu_torch.ops.cuda.fused_render_siren import (
     mlp_bwd,
     pack_f32,
 )
+from nerf_tpu_torch.ops.cuda.siren_plan import SirenPlan, covered, d_pad, plan
 
-HIDDEN = 256      # the width the kernels take
-# the bfloat16 backward's stash a point (csrc/fused_siren_bwd_tc.cu): the
-# SIREN train pass's, its 16 per-point float32 columns last; TC_BWD_COLS_AT
-# floats of a row precede the columns
+# the bfloat16 backward's stash a point at hidden 256
+# (csrc/fused_siren_bwd_tc.cu): the SIREN train pass's, its 16 per-point
+# float32 columns last; TC_BWD_COLS_AT floats of a row precede the columns
 TC_BWD_BYTES_PER_POINT = TC_BYTES_PER_POINT
 TC_BWD_COLS_AT = TC_BYTES_PER_POINT // 4 - 16
 
@@ -76,9 +78,11 @@ TC_BWD_COLS_AT = TC_BYTES_PER_POINT // 4 - 16
 def _acts(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
           k: SirenConsts) -> dict:
     """Every activation of the kernels' forward of points (n, 3) and
-    directions (n, 3): the direction encoding through the exact sine, then
-    the chain (``fused_render_siren.py::mlp_acts``)."""
-    return mlp_acts(packed, pts, _encode(dirs, k.dir_freqs, DP, torch.sin), k)
+    directions (n, 3): the direction encoding through the exact sine
+    (``packed``'s d_pad columns), then the chain
+    (``fused_render_siren.py::mlp_acts``)."""
+    denc = _encode(dirs, k.dir_freqs, packed.mats["wr0d"].shape[0], torch.sin)
+    return mlp_acts(packed, pts, denc, k)
 
 
 def siren_field_plain(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
@@ -116,8 +120,10 @@ _BWD_ENTRY = {"fused_siren_bwd": "siren_field_bwd",
 
 
 @functools.cache
-def _library(name: str) -> ctypes.CDLL:
-    lib = library(name)
+def _library(name: str, shape: SirenPlan | None = None) -> ctypes.CDLL:
+    """The library ``name`` with its C signatures declared, at the default
+    shape or at the SIREN plan ``shape``'s (built on first use)."""
+    lib = library(name) if shape is None else library(name, shape.tag, shape.defines)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     entry = {**_FWD_ENTRY, **_BWD_ENTRY}[name]
     fn, err = getattr(lib, entry), getattr(lib, entry + "_error")
@@ -139,12 +145,12 @@ def _library(name: str) -> ctypes.CDLL:
 
 def input_transposes(packed: Packed) -> torch.Tensor:
     """The tensor-core backward's input-product matrix in the compute
-    dtype: wr0d^T (128 rows) zero-padded to 128 columns, built once a
+    dtype: wr0d^T (hidden / 2 rows) zero-padded to NI columns, built once a
     packing (the point cotangent's dz1 w1^T runs on the CUDA cores from the
     packed w1)."""
     if "input_t" not in packed.derived:
         w = packed.mats["wr0d"]
-        packed.derived["input_t"] = F.pad(w.t(), (0, w.shape[1] - w.shape[0])).reshape(-1)
+        packed.derived["input_t"] = F.pad(w.t(), (0, NI - w.shape[0])).reshape(-1)
     return packed.derived["input_t"]
 
 
@@ -159,6 +165,7 @@ class SirenField(FusedField):
 
     launches = 0
     bwd_launches = 0
+    shape_launches: collections.Counter = collections.Counter()
     family = "SIREN"
 
     def __init__(self, model, packed: Packed | None = None):
@@ -170,24 +177,27 @@ class SirenField(FusedField):
         super().__init__(model, packed)
         self.consts = SirenConsts.of(model)
         self.real_d = 3 * (1 + 2 * self.consts.dir_freqs)
+        self.d_pad = d_pad(self.consts.dir_freqs)
+        # the kernels' plan at this shape, None outside the shapes they take
+        self.plan = plan(self.h, self.d_pad) if covered(self.h, self.d_pad) else None
 
     def params_f32(self) -> tuple:
         return pack_f32(self.model)
 
     def cast(self, wflat: torch.Tensor, vec: torch.Tensor) -> Packed:
-        return cast_packed(wflat, vec, self.cdt, self.h)
+        return cast_packed(wflat, vec, self.cdt, self.h, self.d_pad)
 
     def supported(self) -> bool:
-        """The shapes the kernels cover: hidden 256 (as the render kernels)
-        and a direction encoding of at most 32 columns. (The TPU kernels
-        also take hidden 512; the port does not yet.)"""
-        return self.h == HIDDEN and self.real_d <= DP
+        """The shapes the kernels cover (``siren_plan.covered``, as the
+        render kernels): hidden 256, 512, 768 or 1024 with the direction
+        encoding padded to at most 64 columns."""
+        return self.plan is not None
 
     def _unsupported(self) -> str:
-        return (f"the SIREN field kernels cover hidden {HIDDEN} with a direction "
-                f"encoding of at most {DP} columns; got hidden {self.h}, "
-                f"{self.real_d} columns (hidden 512 is ROADMAP.md queue 2; run on "
-                "the CPU, or with use_pallas = false)")
+        return (f"the SIREN field kernels cover hidden 256 to 1024 with the direction "
+                f"encoding padded to at most 64 columns; got hidden {self.h}, "
+                f"{self.real_d} columns (ROADMAP.md queue 2; run on the CPU, or with "
+                "use_pallas = false)")
 
     def _plain_forward(self, packed: Packed, pts, dirs):
         return siren_field_plain(packed, pts, dirs, self.consts)
@@ -208,13 +218,13 @@ class SirenField(FusedField):
     def _bwd_entry(self):
         """(function, error string, sizes) of the backward."""
         name = self.bwd_library()
-        lib, entry = _library(name), _BWD_ENTRY[name]
+        lib, entry = _library(name, self.plan), _BWD_ENTRY[name]
         return tuple(getattr(lib, entry + s) for s in ("", "_error", "_sizes"))
 
     def _fwd_entry(self):
         """(function, error string) of the forward."""
         name = self.fwd_library()
-        lib, entry = _library(name), _FWD_ENTRY[name]
+        lib, entry = _library(name, self.plan), _FWD_ENTRY[name]
         return getattr(lib, entry), getattr(lib, entry + "_error")
 
     def _launch_fwd(self, packed: Packed, pts: torch.Tensor, dirs: torch.Tensor):
@@ -237,7 +247,7 @@ class SirenField(FusedField):
                 k.sigma_mul, k.rgb_mul, rgb.data_ptr(), sigma.data_ptr(), stream)
         if code != 0:
             raise RuntimeError("SIREN field forward kernel: " + err(code).decode())
-        type(self).launches += 1
+        self._count("launches")
         return rgb, sigma
 
     def _launch_bwd(self, packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
@@ -285,7 +295,7 @@ class SirenField(FusedField):
                 stream)
         if code != 0:
             raise RuntimeError("SIREN field backward kernel: " + err(code).decode())
-        type(self).bwd_launches += 1
+        self._count("bwd_launches")
         if stash is not None:
             stash.update(scratch=scratch, run=run, grid=grid, per_point=per_point)
         return out[:n_w], out[n_w:n_w + n_b], dpts, ddirs

@@ -54,8 +54,41 @@ def covered(h: int, p_pad: int, d_pad: int) -> bool:
     return h in WIDTHS and p_pad in P_PADS and d_pad in D_PADS
 
 
+class ShapePlan:
+    """What every family's plan shares: the name of its shape (``tag``),
+    whether it is the default one, its -D flags and its builds. A family
+    gives hidden ``h``, the chunks ``p`` / ``tc_p`` / ``tc_pb``, ``libs``
+    and ``pads``: (tag letter, -D suffix, width, default width) of each
+    padded encoding."""
+
+    libs: tuple = ()
+
+    @property
+    def tag(self) -> str:
+        return f"h{self.h}" + "".join(f"{c}{w}" for c, _, w, _ in self.pads)
+
+    @property
+    def default(self) -> bool:
+        """The shape every library is built at (no -D flags)."""
+        return self.h == 256 and all(w == d for *_, w, d in self.pads)
+
+    @property
+    def defines(self) -> tuple:
+        """The -D flags of this shape (none at the default one)."""
+        if self.default:
+            return ()
+        return (f"-DNERF_H={self.h}", *(f"-DNERF_{n}={w}" for _, n, w, _ in self.pads),
+                f"-DNERF_P={self.p}", f"-DNERF_TC_P={self.tc_p}", f"-DNERF_TC_PB={self.tc_pb}")
+
+    @property
+    def builds(self) -> list:
+        """``build.build_shaped``'s jobs of this shape: each of the family's
+        libraries."""
+        return [(name, self.tag, self.defines) for name in self.libs]
+
+
 @dataclass(frozen=True)
-class NerfPlan:
+class NerfPlan(ShapePlan):
     """One shape's plan: hidden ``h``, padded encodings ``p_pad`` /
     ``d_pad``, the float32 chunk ``p`` and the bfloat16 forward and
     backward chunks ``tc_p`` / ``tc_pb`` (points each)."""
@@ -66,29 +99,11 @@ class NerfPlan:
     p: int
     tc_p: int
     tc_pb: int
+    libs = LIBS
 
     @property
-    def tag(self) -> str:
-        return f"h{self.h}p{self.p_pad}d{self.d_pad}"
-
-    @property
-    def default(self) -> bool:
-        """The shape every library is built at (no -D flags)."""
-        return (self.h, self.p_pad, self.d_pad) == (256, 64, 32)
-
-    @property
-    def defines(self) -> tuple:
-        """The -D flags of this shape (none at the default one)."""
-        if self.default:
-            return ()
-        return (f"-DNERF_H={self.h}", f"-DNERF_PP={self.p_pad}",
-                f"-DNERF_DP={self.d_pad}", f"-DNERF_P={self.p}",
-                f"-DNERF_TC_P={self.tc_p}", f"-DNERF_TC_PB={self.tc_pb}")
-
-    @property
-    def builds(self) -> list:
-        """``build.build_shaped``'s jobs of this shape: every NeRF library."""
-        return [(name, self.tag, self.defines) for name in LIBS]
+    def pads(self) -> tuple:
+        return (("p", "PP", self.p_pad, 64), ("d", "DP", self.d_pad, 32))
 
     # -- float32 (fused_render_common.cuh's SM_* plan)
 
@@ -161,6 +176,15 @@ class NerfPlan:
                 "train_fwd_tc": self.smem_train_fwd, "bwd_tc": self.smem_bwd_tc}
 
 
+def chunks(h: int) -> dict:
+    """The chunk rule of every family built at hidden ``h`` (the NeRF's
+    here, the SIREN's in ``siren_plan.py``): the float32 chunk ``p``, the
+    bf16 forward chunk ``tc_p`` and the bf16 backward chunk ``tc_pb``
+    (points each)."""
+    return dict(p=64 if h == 256 else 32 if h == 512 else 16,
+                tc_p=64 if h <= 512 else 32, tc_pb=64 if h == 256 else 32)
+
+
 def plan(h: int, p_pad: int, d_pad: int) -> NerfPlan:
     """The plan of hidden ``h`` with padded encodings ``p_pad`` / ``d_pad``;
     raises ``NotImplementedError`` outside the shapes the kernels take."""
@@ -169,5 +193,4 @@ def plan(h: int, p_pad: int, d_pad: int) -> NerfPlan:
             f"the NeRF kernels take hidden {WIDTHS} with encodings padded to at most "
             f"{P_PADS[-1]}/{D_PADS[-1]} columns; got hidden {h}, {p_pad}/{d_pad} "
             "(ROADMAP.md queue 2)")
-    return NerfPlan(h, p_pad, d_pad, p=64 if h == 256 else 32 if h == 512 else 16,
-                    tc_p=64 if h <= 512 else 32, tc_pb=64 if h == 256 else 32)
+    return NerfPlan(h, p_pad, d_pad, **chunks(h))

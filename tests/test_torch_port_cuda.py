@@ -18,7 +18,7 @@ import torch
 from nerf_tpu_torch.config import Config
 from nerf_tpu_torch.data.pipeline import RayBatch
 from nerf_tpu_torch.models.nerf import NeRFModel
-from nerf_tpu_torch.ops.cuda import nerf_plan
+from nerf_tpu_torch.ops.cuda import nerf_plan, siren_plan
 from nerf_tpu_torch.ops.cuda.fused_render import (
     FusedNerfRender,
     fused_render_bwd_plain,
@@ -362,11 +362,12 @@ SIREN_TOL = {"float32": TOL["float32"], "bfloat16": 5e-3}
 SIREN_GRAD_TOL = {"float32": GRAD_TOL["float32"], "bfloat16": 0.1}
 
 
-def _siren_grads_close(got, ref, cdt):
-    """As _assert_grads, over the SIREN layout's 25 gradient tensors."""
+def _siren_grads_close(got, ref, cdt, hidden=256, dp=32):
+    """As _assert_grads, over the SIREN layout's 25 gradient tensors at
+    hidden ``hidden`` with the direction encoding padded to ``dp``."""
     from nerf_tpu_torch.ops.cuda.fused_render_siren import grad_views as siren_views
 
-    g, r = siren_views(*got, 256), siren_views(*ref, 256)
+    g, r = siren_views(*got, hidden, dp), siren_views(*ref, hidden, dp)
     floor = 1e-2 * max(float(v.abs().max()) for v in r.values())
     for k in r:
         assert torch.isfinite(g[k]).all(), k
@@ -414,7 +415,7 @@ def test_siren_kernel_refuses_unsupported_shapes(dev):
     from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
 
     ro, rd, t = _inputs(4, 8, dev)
-    model, fr = _siren("float32", 0, dev, hidden_dim=512)
+    model, fr = _siren("float32", 0, dev, hidden_dim=1280)
     before = FusedSirenRender.launches
     with torch.no_grad(), pytest.raises(NotImplementedError, match="hidden 256"):
         fr(model, ro, rd, rd, t)
@@ -2606,3 +2607,191 @@ def test_wide_libraries_report_the_plans_sizes(dev, wide_builds):
                                     fr.plan.defines),))[0].path.name
         assert name.startswith(f"fused_render_train_tc-{fr.plan.tag}-")
 
+
+
+# ---------------------------------------------------------------- wider SIRENs
+# Rows 6-10 at every shape the kernels take other than the default one
+# (hidden 256, d_pad 32, tested above): hidden 256 to 1024 with the
+# direction encoding padded to 32 or 64 columns (L_d = 4 / 6;
+# lego_siren.txt's 4), each shape its own build (ops/cuda/siren_plan.py),
+# against the plain versions under the SIREN tolerances above
+# (chip_smoke.py's phase 36 holds four of them at the serving and training
+# shapes).
+
+_SIREN_WIDE = [(h, ld) for h in siren_plan.WIDTHS for ld in (4, 6) if (h, ld) != (256, 4)]
+
+
+@pytest.fixture(scope="module")
+def siren_wide_builds():
+    """Every _SIREN_WIDE shape's eight SIREN libraries, built at once (one
+    nvcc each) before the first test that launches them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from nerf_tpu_torch.ops.cuda import build
+
+    shapes = [siren_plan.plan(h, siren_plan.d_pad(ld)) for h, ld in _SIREN_WIDE]
+    build.build_shaped([job for pl in shapes for job in pl.builds])
+
+
+def _siren_wide(cdt, h, ld, dev):
+    model, fr = _siren(cdt, h + ld, dev, hidden_dim=h, dir_encoding_dim=ld)
+    assert fr.supported() and fr.plan.tag == f"h{h}d{siren_plan.d_pad(ld)}"
+    with torch.no_grad():
+        return model, fr, fr.pack(model)
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h, ld", _SIREN_WIDE)
+def test_wide_siren_forward_render_matches_plain(dev, siren_wide_builds, cdt, h, ld):
+    """Row 6 at 300 rays x 37 samples (chunks that span rays): one launch,
+    counted at its shape, every output within SIREN_TOL (depth ten times),
+    two launches the same bits."""
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import (
+        FusedSirenRender, fused_siren_render_plain)
+
+    model, fr, packed = _siren_wide(cdt, h, ld, dev)
+    ro, rd, t = _inputs(300, 37, dev, seed=h + ld)
+    key = ("launches", fr.plan.tag, cdt)
+    with torch.no_grad():
+        before = (FusedSirenRender.launches, FusedSirenRender.shape_launches[key])
+        got = fr(packed, ro, rd, rd, t)
+        again = fr(packed, ro, rd, rd, t)
+        torch.cuda.synchronize()
+        assert FusedSirenRender.launches == before[0] + 2
+        assert FusedSirenRender.shape_launches[key] == before[1] + 2
+        o_aff, d_aff = fr.affine(ro, rd)
+        ref = fused_siren_render_plain(packed, o_aff, d_aff, rd, t, fr.consts)
+    for i, k in enumerate(("rgb", "acc", "depth", "weights")):
+        assert torch.isfinite(got[k]).all() and torch.equal(got[k], again[k]), k
+        tol = SIREN_TOL[cdt] * (10 if k == "depth" else 1)
+        assert float((got[k] - ref[i]).abs().max()) <= tol, k
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h, ld", _SIREN_WIDE)
+def test_wide_siren_train_pass_and_render_backward_match_plain(dev, siren_wide_builds, cdt,
+                                                               h, ld):
+    """Rows 8 and 7 at 133 rays x 64 samples: the train pass's loss, rgb,
+    acc and weights within SIREN_TOL and its gradients within
+    SIREN_GRAD_TOL; the render backward of the MSE head's cotangent within
+    SIREN_GRAD_TOL of the plain version's; two launches of each the same
+    bits, each counted at its shape."""
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import (
+        FusedSirenRender, fused_siren_render_bwd_plain, fused_siren_train_plain)
+
+    model, fr, packed = _siren_wide(cdt, h, ld, dev)
+    ro, rd, t = _inputs(133, 64, dev, seed=h + ld + 1)
+    tgt = torch.rand(133, 3, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    o_aff, d_aff = fr.affine(ro, rd)
+    keys = [(c, fr.plan.tag, cdt) for c in ("train_launches", "bwd_launches")]
+    with torch.no_grad():
+        before = [FusedSirenRender.shape_launches[k] for k in keys]
+        got = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+        again = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+        ref = fused_siren_train_plain(packed, o_aff, d_aff, rd, t, tgt, True, fr.consts)
+        g_ray = torch.zeros(133, 8, device=dev)
+        g_ray[:, :3] = 2.0 / (3 * 133) * (ref[1] + (1.0 - ref[2])[:, None] - tgt)
+        g_ray[:, 3] = -g_ray[:, :3].sum(-1)
+        got_b = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+        again_b = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+        ref_b = fused_siren_render_bwd_plain(packed, o_aff, d_aff, rd, t, g_ray, fr.consts)
+    torch.cuda.synchronize()
+    assert [FusedSirenRender.shape_launches[k] - b for k, b in zip(keys, before)] == [2, 2]
+    assert all(torch.equal(a, b) for a, b in zip(got[:4] + got[4], again[:4] + again[4]))
+    assert all(torch.equal(a, b) for a, b in zip(got_b, again_b))
+    assert abs(float(got[0]) - float(ref[0])) <= SIREN_TOL[cdt] * abs(float(ref[0]))
+    for a, b in zip(got[1:4], ref[1:4]):
+        assert float((a - b).abs().max()) <= SIREN_TOL[cdt]
+    _siren_grads_close(got[4], ref[4], cdt, h, fr.d_pad)
+    _siren_grads_close(got_b, ref_b, cdt, h, fr.d_pad)
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h, ld", _SIREN_WIDE)
+def test_wide_siren_field_kernels_match_plain(dev, siren_wide_builds, cdt, h, ld):
+    """Rows 9 and 10 at 1,000 points (a ragged last chunk), under
+    test_siren_gabor_field_kernels_match_plain_versions's tolerances: rgb
+    and sigma (over max(1, max |sigma|)), every weight gradient of its max
+    (floored at 1e-2 of the largest) and the point and direction
+    cotangents at the 99.9th percentile; two launches of each the same
+    bits, each counted at its shape."""
+    from nerf_tpu_torch.ops.cuda.fused_siren import (
+        SirenField, siren_field_bwd_plain, siren_field_plain)
+
+    model, fr, _ = _siren_wide(cdt, h, ld, dev)
+    field = SirenField(model).pack()
+    k = field.consts
+    pts, dirs = _field_points(1000, dev, seed=h + ld)
+    cot = torch.randn(1000, 4, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    keys = [(c, fr.plan.tag, cdt) for c in ("launches", "bwd_launches")]
+    before = [SirenField.shape_launches[key] for key in keys]
+    with torch.no_grad():
+        out = field._forward(field.packed, pts, dirs)
+        out2 = field._forward(field.packed, pts, dirs)
+        got = field._backward(field.packed, pts, dirs, cot)
+        again = field._backward(field.packed, pts, dirs, cot)
+        ref_rgb, ref_sigma = siren_field_plain(field.packed, pts, dirs, k)
+        ref = siren_field_bwd_plain(field.packed, pts, dirs, cot, k)
+    torch.cuda.synchronize()
+    assert [SirenField.shape_launches[key] - b for key, b in zip(keys, before)] == [2, 2]
+    assert all(torch.equal(a, b) for a, b in zip(out + got, out2 + again))
+    tol, gtol = (1e-2, 5e-2) if cdt == "bfloat16" else (TOL[cdt], GRAD_TOL[cdt])
+    torch.testing.assert_close(out[0], ref_rgb, atol=tol, rtol=0)
+    scale = max(1.0, float(ref_sigma.abs().max()))
+    torch.testing.assert_close(out[1], ref_sigma, atol=tol * scale, rtol=0)
+    floor = 1e-2 * max(float(g.abs().max()) for g in ref[:-2])
+    for a, b in zip(got[:-2], ref[:-2]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= gtol * max(float(b.abs().max()), floor)
+    for a, b in zip(got[-2:], ref[-2:]):
+        e = (a - b).abs().max(dim=1).values / b.abs().max()
+        assert float(torch.quantile(e, 0.999)) <= gtol
+
+
+def test_wide_siren_libraries_report_the_plans_sizes(dev, siren_wide_builds):
+    """Each shape's SIREN libraries report the stash bytes a point and the
+    gradient floats of its plan (siren_plan.py), built with the shape in the
+    file name."""
+    import ctypes
+
+    from nerf_tpu_torch.ops.cuda import build
+    from nerf_tpu_torch.ops.cuda.fused_render import grad_sizes
+    from nerf_tpu_torch.ops.cuda.fused_siren import SirenField
+
+    for h, ld in _SIREN_WIDE:
+        for cdt in ("bfloat16", "float32"):
+            model, fr, packed = _siren_wide(cdt, h, ld, dev)
+            entry = fr._train_tc_entry()[2] if cdt == "bfloat16" else fr._grad_entry()[2]
+            per_point, _, n_out = grad_sizes(entry) if cdt == "bfloat16" else entry
+            assert per_point == (fr.plan.tc_bytes_per_point if cdt == "bfloat16"
+                                 else fr.plan.f32_floats_per_point)
+            assert n_out == packed.wmat.numel() + packed.vec.numel() + 1
+            sizes = SirenField(model)._bwd_entry()[2]
+            vals = [ctypes.c_int() for _ in range(4 if cdt == "bfloat16" else 3)]
+            sizes(*(ctypes.byref(v) for v in vals))
+            assert vals[0].value * (4 if cdt == "bfloat16" else 1) == per_point
+        name = build.build_shaped((("fused_render_siren_train_tc", fr.plan.tag,
+                                    fr.plan.defines),))[0].path.name
+        assert name.startswith(f"fused_render_siren_train_tc-{fr.plan.tag}-")
+
+
+@pytest.mark.parametrize("h, ld", [(1280, 4), (512, 11)])
+def test_wide_siren_kernels_refuse_unsupported_shapes(dev, h, ld):
+    """Hidden 1280 and a direction encoding padded to 96 columns (both
+    taken by nerf_tpu's kernels): no plan, and every launch on the card
+    raises NotImplementedError naming ROADMAP.md queue 2 before it
+    launches."""
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
+    from nerf_tpu_torch.ops.cuda.fused_siren import SirenField
+
+    model, fr = _siren("bfloat16", 0, dev, hidden_dim=h, dir_encoding_dim=ld)
+    field = SirenField(model)
+    assert fr.plan is None and field.plan is None
+    ro, rd, t = _inputs(4, 8, dev)
+    pts, dirs = _field_points(100, dev)
+    before = (FusedSirenRender.launches, SirenField.launches)
+    with torch.no_grad():
+        for call in (lambda: fr(model, ro, rd, rd, t), lambda: field(pts, dirs)):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+                call()
+    assert (FusedSirenRender.launches, SirenField.launches) == before

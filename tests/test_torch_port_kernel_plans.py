@@ -55,7 +55,7 @@ from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
 from nerf_tpu_torch.models.siren import SirenModel
 from nerf_tpu_torch.ops.cuda import (
     build, fused_gabor, fused_nerf, fused_render, fused_render_gabor, fused_render_siren,
-    fused_siren, nerf_plan)
+    fused_siren, nerf_plan, siren_plan)
 from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedGridRender, cells_affine
 from nerf_tpu_torch.ops.cuda import fused_kilonerf
 from nerf_tpu_torch.ops.cuda.fused_kilonerf import (
@@ -571,3 +571,147 @@ def test_enc_pads_follow_nerf_tpu():
     with torch.no_grad():
         assert float(packed.mats["w1"][75:].abs().max()) == 0.0
         assert float(packed.mats["wr0d"][39:].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------- SIREN plan
+
+
+def _source_consts(defines: dict) -> dict:
+    """Every ``constexpr int`` of the SIREN kernels' headers, in include
+    order (render_common.cuh, fused_render_common.cuh, render_tc.cuh,
+    fused_render_siren_common.cuh, fused_render_siren_tc_common.cuh),
+    evaluated as the compiler does under the -D values ``defines``
+    (NERF_* -> value): the plan the sources' static_asserts hold."""
+    import re
+
+    env = dict(defines)
+    for name in ("render_common.cuh", "fused_render_common.cuh", "render_tc.cuh",
+                 "fused_render_siren_common.cuh", "fused_render_siren_tc_common.cuh"):
+        text = (build._CSRC / name).read_text()
+        text = re.sub(r"//[^\n]*", "", text)
+        for m in re.finditer(r"^#define (NERF_\w+) (\d+)$", text, re.M):
+            env.setdefault(m.group(1), int(m.group(2)))
+        for m in re.finditer(r"^constexpr int (\w+ =[^;]*);", text, re.M):
+            for decl in m.group(1).split(","):
+                key, expr = (x.strip() for x in decl.split("=", 1))
+                expr = re.sub(r"(\w+) > (\w+) \? (\w+) : (\w+)", r"(\3 if \1 > \2 else \4)",
+                              expr.replace("\n", " "))
+                env[key] = eval(expr.replace("/", "//"), {}, env)  # noqa: S307
+    return env
+
+
+def _siren_defines(pl) -> dict:
+    return {f"NERF_{k}": v for k, v in (("H", pl.h), ("DP", pl.d_pad), ("P", pl.p),
+                                        ("TC_P", pl.tc_p), ("TC_PB", pl.tc_pb))}
+
+
+@pytest.mark.parametrize("h, dp", list(itertools.product(siren_plan.WIDTHS,
+                                                         siren_plan.D_PADS)))
+def test_siren_plan_fits_shared_memory(h, dp):
+    """Every SIREN kernel of the shape under 227 KB of shared memory, and
+    each sum the sources' own (SMEM_BYTES, SB_END, SMEM_BWD, the stash
+    bytes a point TC_BYTES_PER_POINT and FLOATS_PER_POINT, evaluated from
+    the headers under the shape's -D flags); the bf16 forward two CTAs an
+    SM at hidden 256 with d_pad 32 and one otherwise; chunks that divide
+    each other and the backward's 32-point k-tiles; the NeRF family's chunk
+    rule; at hidden 1024 about 62.6 KB a point (31.4 KB at 512)."""
+    pl = siren_plan.plan(h, dp)
+    assert max(pl.smem().values()) <= nerf_plan.SMEM_LIMIT
+    src = _source_consts(_siren_defines(pl))
+    assert (src["H"], src["DP"], src["P"], src["TC_P"], src["TC_PB"]) == (
+        h, dp, pl.p, pl.tc_p, pl.tc_pb)
+    assert pl.smem() == {"f32": src["SMEM_BYTES"], "fwd_tc": src["SB_END"],
+                         "bwd_tc": src["SMEM_BWD"]}
+    assert pl.tc_bytes_per_point == src["TC_BYTES_PER_POINT"]
+    assert pl.f32_floats_per_point == src["FLOATS_PER_POINT"]
+    assert src["TC_P"] * src["H"] <= 1 << 16          # a near tie's position in 16 bits
+    assert pl.tie_ulps == src["TIE_ULPS"] == (32 if h == 256 else h // 8)
+    assert pl.fwd_ctas_per_sm == (2 if (h, dp) == (256, 32) else 1)
+    assert pl.tc_p % pl.tc_pb == 0 and pl.tc_p % 32 == 0 and pl.tc_pb % 16 == 0
+    np_ = nerf_plan.plan(h, 64, dp)
+    assert (pl.p, pl.tc_p, pl.tc_pb) == (np_.p, np_.tc_p, np_.tc_pb)
+    assert pl.default == ((h, dp) == (256, 32)) and (pl.defines == ()) == pl.default
+    assert pl.tag == f"h{h}d{dp}"
+    assert [b[0] for b in pl.builds] == list(siren_plan.LIBS)
+    assert set(siren_plan.LIBS) <= set(build.LIBS)
+    if pl.default:
+        # the hidden-256 kernels: 15,744 stash bytes a point
+        # (fused_render_siren_train_tc.cu), 5,200 floats (fused_render_siren_train.cu)
+        assert (pl.tc_bytes_per_point, 4 * pl.f32_floats_per_point) == (
+            15_744, SIREN_F32_STASH_BYTES)
+        assert pl.tc_bytes_per_point == fused_render_siren.TC_BYTES_PER_POINT
+    if h == 1024 and dp == 32:
+        assert pl.tc_bytes_per_point == 62_592
+    if h == 512 and dp == 32:
+        assert pl.tc_bytes_per_point == 31_360
+
+
+def test_siren_stash_is_what_the_library_sizes():
+    """A bf16 SIREN train pass sizes its stash from the library's
+    fused_siren_train_tc_sizes (here a fake that reports the plan's bytes a
+    point): at hidden 1024, lego_siren.txt's step (1024 rays x 256
+    samples on 132 SMs) stashes 262,144 points of 62,592 bytes, 16.4 GB,
+    which an 80 GB card holds."""
+    import ctypes
+
+    fr = FusedSirenRender(SirenModel(hidden_dim=1024, compute_dtype="bfloat16"), 2.0, 6.0)
+
+    def sizes(per_point, npart, n_out):
+        for ptr, v in ((per_point, fr.plan.tc_bytes_per_point), (npart, 4), (n_out, 1)):
+            ctypes.cast(ptr, ctypes.POINTER(ctypes.c_int))[0] = v
+
+    got = fused_render.grad_sizes(sizes)
+    assert got[0] == fr.plan.tc_bytes_per_point == 62_592
+    _, grid, cap = launch_plan(1024, 256, 132)
+    assert grid * cap * got[0] == 16_408_117_248
+
+
+@pytest.mark.parametrize("h, ld", [(1280, 4), (512, 11), (384, 4)])
+def test_siren_plan_refuses_other_shapes(h, ld):
+    """Hidden 1280 (nerf_tpu's kernels take it) or a direction encoding
+    padded to 96 columns (L_d = 11), or a width that is no multiple of 256:
+    no plan, and the wrappers refuse at the launch's check, naming
+    ROADMAP.md's queue 2."""
+    dp = siren_plan.d_pad(ld)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+        siren_plan.plan(h, dp)
+    model = SirenModel(hidden_dim=h, dir_encoding_dim=ld)
+    fr, field = FusedSirenRender(model, 2.0, 6.0), fused_siren.SirenField(model)
+    x, t = torch.zeros(2, 3), torch.zeros(2, 4)
+    for wrapper, launch in ((fr, lambda: fr._launch_fwd(None, x, x, x, t)),
+                            (field, lambda: field._launch_fwd(None, x, x))):
+        assert not wrapper.supported() and wrapper.plan is None
+        assert "ROADMAP.md queue 2" in wrapper._unsupported()
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+            launch()
+
+
+def test_siren_d_pad_follows_nerf_tpu():
+    """nerf_tpu pads the SIREN's direction encoding to a multiple of 32
+    columns (make_fused_siren_apply's d_pad): L_d = 4 gives 32, 5 to 10 give
+    64, 11 gives 96; the packing pads wr0d to it with zero rows."""
+    assert [siren_plan.d_pad(ld) for ld in (0, 4, 5, 6, 10, 11)] == [32, 32, 64, 64, 64, 96]
+    packed = fused_render_siren.pack_params(SirenModel(hidden_dim=512, dir_encoding_dim=6))
+    assert packed.mats["wr0d"].shape == (64, 256) and packed.mats["wr0f"].shape == (512, 256)
+    with torch.no_grad():
+        assert float(packed.mats["wr0d"][39:].abs().max()) == 0.0
+    assert fused_siren.input_transposes(packed).numel() == 256 * 128
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_siren_wrappers_count_launches_by_shape(cdt):
+    """Each count of the SIREN wrappers also goes to ``shape_launches`` under
+    (counter, plan tag, dtype): the split by shape that phase 36 of
+    chip_smoke.py reads."""
+    model = SirenModel(hidden_dim=1024, compute_dtype=cdt)
+    for cls, wrapper, counters in (
+            (FusedSirenRender, FusedSirenRender(model, 2.0, 6.0),
+             ("launches", "train_launches", "bwd_launches")),
+            (fused_siren.SirenField, fused_siren.SirenField(model),
+             ("launches", "bwd_launches"))):
+        for counter in counters:
+            key = (counter, "h1024d32", cdt)
+            before = (getattr(cls, counter), cls.shape_launches[key])
+            wrapper._count(counter)
+            assert (getattr(cls, counter), cls.shape_launches[key]) == (
+                before[0] + 1, before[1] + 1)
