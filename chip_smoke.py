@@ -7,9 +7,10 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
 
   1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
   2. the build of every kernel library from the sources in the checkout
-     (one nvcc per source, started together with phase 35's NeRF and
-     phase 36's SIREN libraries at the wider shapes; those run at niceness
-     19 and build while phases 3-34 run, waited for before phase 35), timed,
+     (one nvcc per source, started together with phase 35's NeRF, phase
+     36's SIREN and phase 37's GaborNet libraries at the wider shapes;
+     those run at niceness 19 and build while phases 3-34 run, waited for
+     before phase 35), timed,
      and the count of
      tensor-core instructions in the SASS of the fourteen bf16 libraries
      on the tensor cores (the NeRF, SIREN and GaborNet train passes, the
@@ -293,17 +294,17 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      unfused render).
  35. the NeRF kernels at the wider shapes nerf_tpu's take (each shape's
      libraries started in phase 2 with its plan's -D flags,
-     nerf_tpu_torch/ops/cuda/nerf_plan.py): (a) rows 1-5 at hidden 512 and
-     1024 with L = 10 / 4 (p_pad 64, d_pad 32) and with L = 12 / 6 (p_pad
-     128, d_pad 64; hidden 768 in the card tests only), float32 and
-     bfloat16, against their plain versions (row 3
+     nerf_tpu_torch/ops/cuda/nerf_plan.py): (a) rows 1-5 at hidden 1024
+     with L = 10 / 4 (p_pad 64, d_pad 32) and at 512 and 1024 with L = 12
+     / 6 (p_pad 128, d_pad 64; 512 at L = 10 / 4 and 768 in the card tests
+     only), float32 and bfloat16, against their plain versions (row 3
      at 8192 x 64, rows 4-5 at 1024 x 64 and 192, rows 1-2 at 65,536,
      16,384 and 37 points; the bf16 field backward under WIDE_FIELD_TOL
      beside the plain version's own spread from float64 sums, the f32 one
      at 1024 under WIDE_F32_GRAD_TOL), each twice for identical bits, timed
      against its bound; (b) configs/lego.txt at hidden_dim = 1024 on the
-     synthetic scene: fit() 100 iterations (the mse falls), a resume 50 ->
-     60 bit for bit, two render-route steps (rows 3 and 4), one
+     synthetic scene: fit() 40 iterations (the mse falls), a resume 20 ->
+     30 bit for bit, two render-route steps (rows 3 and 4), one
      --occupancy 64 request (row 1's bake at 1024) and one eval CLI frame,
      each within mean abs 1e-2 of the unfused render; (c) fit() with
      distill_from = (b)'s checkpoint: 20 distillation steps of 16,384
@@ -314,9 +315,9 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      alone.
  36. the SIREN kernels at the wider shapes nerf_tpu's take (each shape's
      libraries started in phase 2 with its plan's -D flags,
-     nerf_tpu_torch/ops/cuda/siren_plan.py): (a) rows 6-10 at hidden 512
-     and 1024 (L_d = 4: d_pad 32) and 512 with L_d = 6 (d_pad 64), float32
-     and bfloat16, against their plain versions under phases 7 and 20's
+     nerf_tpu_torch/ops/cuda/siren_plan.py): (a) rows 6-10 at hidden 1024
+     (L_d = 4: d_pad 32) and 512 with L_d = 6 (d_pad 64), float32 and
+     bfloat16, against their plain versions under phases 7 and 20's
      tolerances (row 6 at lego_siren.txt's serving chunk, 1024 x 256, rows
      7-8 at 1024 x 256, rows 9-10 at 65,536 lattice points), each launched
      twice for identical bits, timed against its bound (siren_macs at the
@@ -332,10 +333,34 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
      are the wrappers' counts by shape (shape_launches), every one at
      h1024d32 bfloat16. ``python3 chip_smoke.py --phase 36`` runs the build
      (the default libraries and phase 36's) and phase 36 alone.
+ 37. the GaborNet kernels at the wider shapes and depths nerf_tpu's take
+     (each shape's libraries started in phase 2 with its plan's -D flags,
+     nerf_tpu_torch/ops/cuda/gabor_plan.py): (a) rows 11-14 at hidden 512
+     and 1024 (L_d = 4: d_pad 32), 512 with L_d = 6 (d_pad 64) and hidden
+     256 with 4 stages, float32 and bfloat16, against their plain versions
+     under phases 10 and 20's tolerances (rows 11-12 at lego_siren.txt's
+     1024 x 256 and at 1024 x 37, their plain versions over 256 rays a
+     call; rows 13-14 at 65,536 lattice points and 37 points), each
+     launched twice for identical bits, timed against its bound (gabor_macs
+     at the case's widths and depth); hidden 768 and depths 1 and 3 are
+     held in tests/test_torch_port_cuda.py only; (b) configs/lego_siren.txt
+     with model_type = gabor at hidden_dim = 1024: fit() 40 iterations (the
+     mse falls), a resume 20 -> 30 bit for bit, two train-pass steps
+     outside fit (the forward render refuses autograd, as nerf_tpu's), one
+     --occupancy 64 request (row 13's bake at 1024, then row 11) and one
+     eval CLI frame, each within mean abs 1e-2 of the unfused render; (c)
+     fit() with distill_from = (b)'s checkpoint: 20 distillation steps of
+     16,384 points (rows 13 and 14 at 1024; the loss falls), then 10
+     iterations. Every launch of (b) and (c) is counted at h1024d32n8
+     bfloat16. Phases 35-37 share one checker (check_wide_family, a
+     WideFamily a phase) and phases 36-37 one (b)-(c) (wide_sg).
+     ``python3 chip_smoke.py --phase 37`` runs the build and phase 37
+     alone.
 
 The last lines are a JSON object of per-kernel numbers (all nineteen
-kernels, row 18 in its two forms; rows 1-5 and 6-10 with their numbers at
-each phase-35 and phase-36 shape under "widths"), the script's wall time,
+kernels, row 18 in its two forms; rows 1-5, 6-10 and 11-14 with their
+numbers at each phase-35, -36 and -37 shape under "widths"), the script's
+wall time,
 the card, and ``{"ok": true, "device": {...}}``. Needs a CUDA device and
 this checkout; imports nothing of JAX or of the JAX package.
 """
@@ -356,6 +381,7 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -497,10 +523,41 @@ R_SIREN, S_SIREN = 1024, 256   # lego_siren.txt: chunk_size, num_samples
 # takes a sine and a cosine), and the backward's skipped input product
 # (dzr0 wr0d^T). The kernels also read the per-ray coefficients (5 x 8 x
 # 256 floats a ray; the train pass writes as many cotangents).
-GABOR_MACS = 7 * 256 * 256 + 256 + 256 * 256 + 283 * 128 + 128 * 3
-GABOR_TRIG = 2 * 8 * 256
+def gabor_macs(h: int, n: int, real_d: int) -> int:
+    """MACs a sample of the GaborNet at hidden ``h`` with ``n`` stages and
+    ``real_d`` direction-encoding columns: n - 1 h x h, the h-long density
+    row, h x h (the remap), (h + real_d) x h/2, h/2 x 3; at lego_siren.txt's
+    hidden 256, 8 stages and real_d 27, 561,152."""
+    return (n - 1) * h * h + h + h * h + (h + real_d) * (h // 2) + (h // 2) * 3
+
+
+def gabor_trig(h: int, n: int) -> int:
+    """Transcendentals a sample of the GaborNet forward: a sine and an
+    exponential per filter element (the backward takes a sine and a
+    cosine)."""
+    return 2 * n * h
+
+
+def gabor_coef_bytes(h: int, n: int) -> int:
+    """Bytes of a ray's per-stage filter coefficients (A, B, P, Q, R)."""
+    return 5 * n * h * 4
+
+
+def gabor_field_cost(h: int, n: int, real_d: int) -> dict:
+    """SG_FIELD's entry of a GaborNet field at hidden ``h`` with ``n``
+    stages: the forward's MACs a point (the filters' two 3-long products an
+    element too) and the transcendentals of the forward and the backward
+    (sine, exponential and cosine an element; the direction encoding's
+    real_d - 3 sines, and as many cosines)."""
+    enc = real_d - 3
+    return {"macs": gabor_macs(h, n, real_d) + n * 2 * 3 * h,
+            "trig": (2 * n * h + enc, 3 * n * h + 2 * enc)}
+
+
+GABOR_MACS = gabor_macs(256, 8, 27)
+GABOR_TRIG = gabor_trig(256, 8)
 GABOR_SKIPPED = 128 * 27
-GABOR_COEF_BYTES = 5 * 8 * 256 * 4
+GABOR_COEF_BYTES = gabor_coef_bytes(256, 8)
 # KiloNeRF at bench.py's shape (512 networks of hidden 32, L = 10/4), per
 # point: forward MACs (63x32 + 32x32 + 32x33 + 59x32 + 32x3) and sines (the
 # 84 encoding columns past the coordinates, one operation each on the CUDA
@@ -572,9 +629,7 @@ FIELD_DOMAIN = (-2.75, -1.25)   # grid_domain of lego.txt's settings
 # Pallas kernel differ on the CPU (8.8e-4, 3.0e-3, 8.5e-3;
 # tests/test_torch_port_siren_gabor_field.py): 1e-2, 5e-2 and 5e-2.
 SG_TOL = {("siren", "bfloat16"): (1e-2, 5e-2, 5e-2)}
-SG_FIELD = {"siren": siren_field_cost(256, 27),
-            "gabor": {"macs": GABOR_MACS + 8 * 2 * 3 * 256,
-                      "trig": (2 * 8 * 256 + 24, 3 * 8 * 256 + 48)}}
+SG_FIELD = {"siren": siren_field_cost(256, 27), "gabor": gabor_field_cost(256, 8, 27)}
 
 
 # The voxel grids (PERF.md rows 17-19) at the plenoxels config's size: the
@@ -5070,15 +5125,16 @@ def phase34(torch, dev, tmp: str, card: str) -> dict:
 
 # ---------------------------------------------------------------- phase 35
 
-# The NeRF family's five kernels (rows 1-5) at four of the wider shapes
-# nerf_tpu's take: hidden 512 and 1024 at lego.txt's encodings (L = 10 / 4:
-# p_pad 64, d_pad 32; 1024 is the shape of (b)'s path) and with wider ones
-# (L = 12 / 6: p_pad 128, d_pad 64; h1024p128d64 is the largest
+# The NeRF family's five kernels (rows 1-5) at three of the wider shapes
+# nerf_tpu's take: hidden 1024 at lego.txt's encodings (L = 10 / 4: p_pad
+# 64, d_pad 32; the shape of (b)'s path) and hidden 512 and 1024 with wider
+# ones (L = 12 / 6: p_pad 128, d_pad 64; h1024p128d64 is the largest
 # shared-memory plan). Each shape's libraries are built from the checkout
 # with its plan's -D flags (nerf_tpu_torch/ops/cuda/nerf_plan.py), in the
-# background while phases 3-34 run (build_wide); hidden 768 is held
-# against the plain versions in tests/test_torch_port_cuda.py only.
-WIDE_CASES = ((512, 10, 4), (1024, 10, 4), (512, 12, 6), (1024, 12, 6))
+# background while phases 3-34 run (build_wide); hidden 512 at L = 10 / 4
+# and 768 are held against the plain versions in
+# tests/test_torch_port_cuda.py only (kept out of the smoke for its time).
+WIDE_CASES = ((1024, 10, 4), (512, 12, 6), (1024, 12, 6))
 # Row 3 at the serving chunk (8192 rays) x 64 samples: at 192 the plain
 # version's activations at hidden 1024 (every layer of 1.6M samples in
 # float32 kept for the comparison) would hold about 70 GB. Rows 4 and 5 at
@@ -5142,9 +5198,11 @@ def wide_shapes():
 
 def wide_jobs(phases: tuple) -> list:
     """``build.build_shaped``'s jobs of ``phases``: phase 35's eight NeRF
-    libraries and phase 36's eight SIREN libraries at each case's shape."""
+    libraries, phase 36's eight SIREN libraries and phase 37's eight
+    GaborNet libraries at each case's shape."""
     shapes = ((wide_shapes() if 35 in phases else [])
-              + (siren_wide_shapes() if 36 in phases else []))
+              + (siren_wide_shapes() if 36 in phases else [])
+              + (gabor_wide_shapes() if 37 in phases else []))
     return [job for *_, pl in shapes for job in pl.builds]
 
 
@@ -5155,7 +5213,7 @@ def say_wide_builds(wide: list, infos) -> None:
         say(f"build: {name} {tag}; " + " | ".join(spills))
 
 
-def build_wide(torch, phases: tuple = (35, 36), background: bool = False) -> tuple:
+def build_wide(torch, phases: tuple = (35, 36, 37), background: bool = False) -> tuple:
     """Every library at the default shape (phase 2's) and those of
     ``phases`` (``wide_jobs``), one nvcc each, all started together.
     Returns the default ones' BuildInfo. With ``background`` (the whole
@@ -5170,18 +5228,18 @@ def build_wide(torch, phases: tuple = (35, 36), background: bool = False) -> tup
         build.start_shaped(wide, nice=19)
         infos = build.build()
         say(f"build: {len(infos)} default libraries in {time.perf_counter() - t0:.1f} s, "
-            f"phases {phases}' {len(wide)} NeRF and SIREN libraries at hidden 512-1024 "
-            "started with them at niceness 19 (one nvcc each)")
+            f"phases {phases}' {len(wide)} NeRF, SIREN and GaborNet libraries at their "
+            "wider shapes started with them at niceness 19 (one nvcc each)")
         return infos
     infos = build.build_shaped([(name, "", ()) for name in build.LIBS] + wide)
-    say(f"build: phases {phases}' {len(wide)} NeRF and SIREN libraries at hidden 512-1024 "
-        f"in {time.perf_counter() - t0:.1f} s (with the default ones, one nvcc each, in "
-        "parallel)")
+    say(f"build: phases {phases}' {len(wide)} NeRF, SIREN and GaborNet libraries at their "
+        f"wider shapes in {time.perf_counter() - t0:.1f} s (with the default ones, one nvcc "
+        "each, in parallel)")
     say_wide_builds(wide, infos[len(build.LIBS):])
     return infos[:len(build.LIBS)]
 
 
-def wait_wide(phases: tuple = (35, 36)) -> None:
+def wait_wide(phases: tuple = (35, 36, 37)) -> None:
     """Wait for the libraries ``build_wide(..., background=True)`` started."""
     from nerf_tpu_torch.ops.cuda import build
 
@@ -5207,17 +5265,314 @@ def timed_turns(torch, fns: dict, reps: int = WIDE_REPS) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def check_wide_kernels(torch, dev, card: str) -> dict:
-    """Phase 35 (a): rows 1-5 against their plain versions at every
-    WIDE_CASES shape, float32 and bfloat16, TF32 off, under the tolerances
-    of phases 3 and 17 (TOL, GRAD_TOL, FIELD_PT_TOL; the bf16 field
-    backward under WIDE_FIELD_TOL, beside the plain version's own spread
-    from float64 sums): the forward render (8192 x 64), the train pass and
-    the render backward (1024 x 64 and 192), the field forward and backward
-    (65,536, 16,384 and 37 points); the tensor-core ones run twice for
-    identical bits. Each case's ms (median of turns), its plain version's
-    and its bound (mlp_macs at the case's widths) are printed beside the
-    card. Returns them by (row, case, dtype) with each row's worst error."""
+@dataclass
+class WideFamily:
+    """One family's phase (a) at its wider shapes, for check_wide_family:
+    the phase, the family's word in the printed lines ("" for the NeRF),
+    its rows by role ("fwd", "train", optionally "bwd", "field_fwd",
+    "field_bwd"), its cases ((label, plan, setup(cdt) -> a WideCase)), the
+    forward render's shapes ((R, S), the first timed and kept), the train
+    pass's shapes, the field's point
+    sets ((torch, dev) -> {label: (points, dirs)}) and those timed, the
+    cotangent's seed a set, whether sigma is held over max(1, max |sigma|),
+    and an optional prelude ((torch, dev, sets) -> None)."""
+
+    phase: int
+    word: str
+    rows: dict
+    cases: list
+    fwd_shapes: tuple
+    train_shapes: tuple
+    field_sets: object
+    timed_n: tuple
+    cot_seed: object
+    sigma_rel: bool
+    prelude: object = None
+
+    def train_key(self, name, case, cdt, s) -> tuple:
+        """A train or backward row's key in the results: its S too where
+        the family takes several."""
+        return (name, case, cdt) + ((s,) if len(self.train_shapes) > 1 else ())
+
+
+@dataclass
+class WideCase:
+    """One case of a WideFamily in one dtype, as its setup builds it: the
+    wrappers (``fr``, ``field``), whether both take the shape, the batch of
+    a row (``batch(kind, r, s)``, kind "fwd" or "train"), the rows' calls
+    with ``plain`` True for the plain version (``fwd(batch)`` -> (rgb, acc,
+    depth, weights); ``train(batch)`` -> (loss, rgb, acc, weights, grads,
+    ...); ``bwd(batch, g_ray)`` or None; ``field_fwd(pts, dirs)``;
+    ``field_bwd(pts, dirs, cot)`` -> (*grads, dpts, ddirs)), the gradient
+    errors (``gerrs(got, ref)``: grad_errors over the family's layout),
+    further train labels (``train_extra(got, ref)`` -> [(label, errors)]),
+    the bounds (``fwd_bound(r, s)``, ``train_bound(r, s, train)``,
+    ``field_bound(n, key)``) and the field's tolerances (``field_tol(n,
+    label, pts, dirs, cot, ref_g)`` -> (output, gradient, point tol, the
+    count's threshold, its text, points allowed beyond, printed suffix))."""
+
+    fr: object
+    field: object
+    supported: bool
+    batch: object
+    fwd: object
+    train: object
+    bwd: object
+    field_fwd: object
+    field_bwd: object
+    gerrs: object
+    train_extra: object
+    fwd_bound: object
+    train_bound: object
+    field_bound: object
+    field_tol: object
+
+
+def check_wide_family(torch, dev, card: str, fam: WideFamily) -> dict:
+    """Phase (a) of ``fam``: its rows against their plain versions at every
+    case, float32 and bfloat16, TF32 off: the forward render, the train pass
+    (and the render backward where the family has one, with the two
+    backward routes against each other), the field forward and backward on
+    the family's point sets; every kernel launched twice for identical
+    bits. Each case's ms (median of turns), its plain version's and its
+    bound are printed beside the card. Returns them by (row, case, dtype)
+    (the train rows also by S where there are several; the field rows by
+    point count) with each row's worst error."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    P, word, rows = fam.phase, fam.word, fam.rows
+    results = {}
+    sets = fam.field_sets(torch, dev)
+    if fam.prelude is not None:
+        fam.prelude(torch, dev, sets)
+    for case, pl, setup in fam.cases:
+        for cdt in ("float32", "bfloat16"):
+            c = setup(cdt)
+            if not c.supported:
+                fail(f"phase {P} {case}: the kernels do not take the shape")
+            tol, gtol = TOL[cdt], GRAD_TOL[cdt]
+
+            # ---- the forward render
+            name = rows["fwd"]
+            for r, s in fam.fwd_shapes:
+                batch = c.batch("fwd", r, s)
+                timed = (r, s) == fam.fwd_shapes[0]
+                with torch.no_grad():
+                    ref = c.fwd(batch, plain=True)
+                    out = c.fwd(batch)
+                    again = c.fwd(batch)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(x, y) for x, y in zip(out, again)):
+                        fail(f"phase {P} {name} {case} {cdt}: two launches differ")
+                    if not all(torch.isfinite(x).all() for x in out):
+                        fail(f"phase {P} {name} {case} {cdt}: non-finite output")
+                    errs = {k: float((out[i] - ref[i]).abs().max())
+                            for i, k in enumerate(("rgb", "acc", "depth", "weights"))}
+                    del ref, out, again
+                    torch.cuda.empty_cache()
+                    if timed:
+                        tm = timed_turns(torch, {
+                            ("fwd", "plain"): lambda: c.fwd(batch, plain=True),
+                            ("fwd", "kernel"): lambda: c.fwd(batch)})
+                line = (f"phase {P} kernel {name} {case} {cdt} R={r} S={s} "
+                        f"({c.fr.fwd_library()} {pl.tag}): max_abs_err "
+                        + " ".join(f"{k}={v:.3e}(tol {tol[k]:.0e})" for k, v in errs.items()))
+                if timed:
+                    bms, by = c.fwd_bound(r, s)
+                    line += (f" | kernel {tm['fwd', 'kernel']:.3f} ms, two launches "
+                             f"bit-identical, plain {tm['fwd', 'plain']:.3f} ms, bound "
+                             f"{bms:.3f} ms ({by}), share {bms / tm['fwd', 'kernel']:.4f}; "
+                             f"{card}")
+                    results[(name, case, cdt)] = dict(
+                        err=0.0, ms=tm["fwd", "kernel"], plain_ms=tm["fwd", "plain"],
+                        bound_ms=bms, bound_by=by)
+                else:
+                    line += ", two launches bit-identical"
+                say(line)
+                if any(v > tol[k] for k, v in errs.items()):
+                    fail(f"phase {P} {name} {case} {cdt} disagrees: {errs}")
+                entry = results[(name, case, cdt)]
+                entry["err"] = max(entry["err"], *errs.values())
+
+            # ---- the train pass (and the render backward)
+            for r, s in fam.train_shapes:
+                batch = c.batch("train", r, s)
+                with torch.no_grad():
+                    ref = c.train(batch, plain=True)
+                    got = c.train(batch)
+                    again = c.train(batch)
+                    torch.cuda.synchronize()
+                    flat = [x for x in got[:4] + tuple(got[4]) + tuple(got[5:])]
+                    flat2 = [x for x in again[:4] + tuple(again[4]) + tuple(again[5:])]
+                    if not all(torch.equal(x, y) for x, y in zip(flat, flat2)):
+                        fail(f"phase {P} train {case} {cdt} S={s}: two launches differ")
+                    del again, flat, flat2
+                    errs = {"loss": float(abs(got[0] - ref[0]) / abs(ref[0]))}
+                    for i, k in ((1, "rgb"), (2, "acc"), (3, "weights")):
+                        if not torch.isfinite(got[i]).all():
+                            fail(f"phase {P} train {case} {cdt} S={s}: non-finite {k}")
+                        errs[k] = float((got[i] - ref[i]).abs().max())
+                    labels = [("train", c.gerrs(got[4], ref[4]))] + c.train_extra(got, ref)
+                    fns = {("train", "plain"): lambda: c.train(batch, plain=True),
+                           ("train", "kernel"): lambda: c.train(batch)}
+                    if c.bwd is not None:
+                        g_ray = torch.zeros(r, 8, device=dev)
+                        g_ray[:, :3] = 2.0 / (3.0 * r) * (ref[1] + (1.0 - ref[2])[:, None]
+                                                          - batch[3])
+                        g_ray[:, 3] = -g_ray[:, :3].sum(-1)
+                        ref_b = c.bwd(batch, g_ray, plain=True)
+                        got_b = c.bwd(batch, g_ray)
+                        again_b = c.bwd(batch, g_ray)
+                        torch.cuda.synchronize()
+                        if not all(torch.equal(x, y) for x, y in zip(got_b, again_b)):
+                            fail(f"phase {P} render backward {case} {cdt} S={s}: two "
+                                 "launches differ")
+                        labels += [("bwd", c.gerrs(got_b, ref_b)),
+                                   ("bwd vs train", c.gerrs(got_b, got[4]))]
+                        del ref_b, got_b, again_b
+                        fns.update({("bwd", "plain"): lambda: c.bwd(batch, g_ray, plain=True),
+                                    ("bwd", "kernel"): lambda: c.bwd(batch, g_ray)})
+                    del ref, got
+                    torch.cuda.empty_cache()
+                    tm = timed_turns(torch, fns)
+                bad = {k: v for k, v in errs.items() if v > tol["rgb"]}
+                for label, e in labels:
+                    worst = max(e, key=e.get)
+                    say(f"phase {P} kernel {word}{label} {case} {cdt} R={r} S={s}: gradient "
+                        f"error worst {worst}={e[worst]:.3e} (tol {gtol:.0e}), median "
+                        f"{statistics.median(e.values()):.3e}")
+                    bad.update({f"{label}:{k}": v for k, v in e.items() if v > gtol})
+                say(f"phase {P} kernel {word}train {case} {cdt} R={r} S={s}: "
+                    + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+                    + f" (tol {tol['rgb']:.0e}); two launches of each bit-identical")
+                worst = {"train": max([v for lab, e in labels
+                                        if lab not in ("bwd", "bwd vs train")
+                                        for v in e.values()] + list(errs.values())),
+                         "bwd": max(dict(labels).get("bwd", {0: 0.0}).values())}
+                for key in ("train", "bwd"):
+                    if key not in rows:
+                        continue
+                    name = rows[key]
+                    bms, by = c.train_bound(r, s, key == "train")
+                    ms, plain_ms = tm[key, "kernel"], tm[key, "plain"]
+                    say(f"phase {P} kernel {name} {case} {cdt} R={r} S={s} "
+                        f"({c.fr.grad_library(key == 'train')} {pl.tag}): kernel {ms:.3f} ms, "
+                        f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), share "
+                        f"{bms / ms:.4f}; {card}")
+                    results[fam.train_key(name, case, cdt, s)] = dict(
+                        err=worst[key], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+                if bad:
+                    fail(f"phase {P} train/backward {case} {cdt} S={s} disagree: {bad}")
+
+            # ---- the field forward and backward
+            for label, (pts, dirs) in sets.items():
+                n = pts.shape[0]
+                cot = torch.randn(n, 4, device=dev,
+                                  generator=torch.Generator(device=dev).manual_seed(
+                                      fam.cot_seed(n)))
+                with torch.no_grad():
+                    ref = c.field_fwd(pts, dirs, plain=True)
+                    out = c.field_fwd(pts, dirs)
+                    again = c.field_fwd(pts, dirs)
+                    ref_g = c.field_bwd(pts, dirs, cot, plain=True)
+                    got_g = c.field_bwd(pts, dirs, cot)
+                    again_g = c.field_bwd(pts, dirs, cot)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(x, y) for x, y in zip(tuple(out) + tuple(got_g),
+                                                                 tuple(again) + tuple(again_g))):
+                        fail(f"phase {P} {word}field {case} {cdt} {label}: two launches differ")
+                    del again, again_g
+                for x in tuple(out) + tuple(got_g):
+                    if not torch.isfinite(x).all():
+                        fail(f"phase {P} {word}field {case} {cdt} {label}: non-finite output")
+                smax = max(float(ref[1].abs().max()), 1.0) if fam.sigma_rel else 1.0
+                errs = {"rgb": float((out[0] - ref[0]).abs().max()),
+                        "sigma": float((out[1] - ref[1]).abs().max()) / smax}
+                gerr = c.gerrs(got_g[:-2], ref_g[:-2])
+                w = max(gerr, key=gerr.get)
+                tol_out, ftol, ptol, beyond, beyond_text, allowed, suffix = c.field_tol(
+                    n, label, pts, dirs, cot, ref_g)
+                pt, bad_pts = {}, 0
+                for k, g_got, g_ref in (("points", got_g[-2], ref_g[-2]),
+                                        ("dirs", got_g[-1], ref_g[-1])):
+                    e = (g_got - g_ref).abs().max(dim=1).values / g_ref.abs().max()
+                    pt[k] = float(torch.quantile(e, 0.999))
+                    bad_pts = max(bad_pts, int((e > beyond).sum()))
+                sigma_text = (f"sigma={errs['sigma']:.3e} (over max(1, max sigma) = "
+                              f"{smax:.3g}; tol {tol_out:.0e})" if fam.sigma_rel else
+                              f"sigma={errs['sigma']:.3e} (tol {tol_out:.0e})")
+                say(f"phase {P} kernel {word or 'nerf '}field {case} {cdt} {label}: forward "
+                    f"rgb={errs['rgb']:.3e} {sigma_text}; weight gradient worst "
+                    f"{w}={gerr[w]:.3e} (tol {ftol:.0e}); point / direction cotangent 99.9% "
+                    f"{pt['points']:.3e} / {pt['dirs']:.3e} (tol {ptol:.0e}), {bad_pts} points "
+                    f"beyond {beyond_text} (at most {allowed:.0f}); two launches of each "
+                    f"bit-identical{suffix}")
+                if (max(errs.values()) > tol_out or gerr[w] > ftol
+                        or max(pt.values()) > ptol or bad_pts > allowed):
+                    fail(f"phase {P} {word or 'nerf '}field {case} {cdt} {label} disagrees with "
+                         "its plain versions")
+                for name, e in ((rows["field_fwd"], max(errs.values())),
+                                (rows["field_bwd"], max(gerr[w], *pt.values()))):
+                    entry = results.setdefault((name, case, cdt), {"err": 0.0})
+                    entry["err"] = max(entry["err"], e)
+                del ref, out, ref_g, got_g
+                torch.cuda.empty_cache()
+                if n not in fam.timed_n:
+                    continue
+                with torch.no_grad():
+                    tm = timed_turns(torch, {
+                        ("fwd", "plain"): lambda: c.field_fwd(pts, dirs, plain=True),
+                        ("fwd", "kernel"): lambda: c.field_fwd(pts, dirs),
+                        ("bwd", "plain"): lambda: c.field_bwd(pts, dirs, cot, plain=True),
+                        ("bwd", "kernel"): lambda: c.field_bwd(pts, dirs, cot)})
+                for name, key in ((rows["field_fwd"], "fwd"), (rows["field_bwd"], "bwd")):
+                    bms, by = c.field_bound(n, key)
+                    ms, plain_ms = tm[key, "kernel"], tm[key, "plain"]
+                    say(f"phase {P} kernel {name} {case} {cdt} {label} "
+                        f"({getattr(c.field, key + '_library')()} {pl.tag}): kernel {ms:.3f} "
+                        f"ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), share "
+                        f"{bms / ms:.4f}; {card}")
+                    results[(name, case, cdt)][n] = dict(ms=ms, plain_ms=plain_ms,
+                                                         bound_ms=bms, bound_by=by)
+            del c
+            torch.cuda.empty_cache()
+    say(f"phase {P} (a): {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+def family_wide_rows(fam: WideFamily, wide: dict, launched: dict) -> dict:
+    """A family's rows at its phase-(a) shapes, by row: each case's time,
+    plain time, bound and error (bfloat16 and float32; the train rows at
+    the family's last train shape, the fields at their largest timed point
+    set) and its launches on the phase's main path (``launched``, by (row,
+    plan tag, dtype), as the wrappers counted them)."""
+    out = {}
+    s = fam.train_shapes[-1][1]
+    n = max(fam.timed_n)
+    for case, pl, _ in fam.cases:
+        for role, name in fam.rows.items():
+            for cdt in ("bfloat16", "float32"):
+                if role.startswith("field"):
+                    c = dict(wide[(name, case, cdt)][n], err=wide[(name, case, cdt)]["err"])
+                else:
+                    c = wide[fam.train_key(name, case, cdt, s) if role in ("train", "bwd")
+                             else (name, case, cdt)]
+                out.setdefault(name, {})[f"{pl.tag} {cdt}"] = {
+                    "launches": launched.get((name, pl.tag, cdt), 0),
+                    "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+                    "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
+    return out
+
+
+def nerf_wide_family(torch, dev) -> WideFamily:
+    """Phase 35 (a): rows 1-5 at every WIDE_CASES shape under the
+    tolerances of phases 3 and 17 (TOL, GRAD_TOL, FIELD_PT_TOL; the bf16
+    field backward under WIDE_FIELD_TOL, beside the plain version's own
+    spread from float64 sums): the forward render (8192 x 64), the train
+    pass and the render backward (1024 x 64 and 192), the field forward and
+    backward (65,536, 16,384 and 37 points); bounds from mlp_macs at the
+    case's widths."""
     from nerf_tpu_torch.models.nerf import NeRFModel
     from nerf_tpu_torch.ops.cuda.fused_nerf import (
         NerfField, nerf_field_bwd_plain, nerf_field_plain)
@@ -5225,13 +5580,13 @@ def check_wide_kernels(torch, dev, card: str) -> dict:
         FusedNerfRender, fused_render_bwd_plain, fused_render_plain, fused_train_plain,
         pack_f32)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_phase = time.perf_counter()
-    results = {}
-    sets = field_point_sets(torch, dev)
-    sets = {k: v for k, v in sets.items() if v[0].shape[0] in WIDE_FIELD_N}
-    if "uniform 16384" in sets:
+    def sets(torch, dev):
+        return {k: v for k, v in field_point_sets(torch, dev).items()
+                if v[0].shape[0] in WIDE_FIELD_N}
+
+    def prelude(torch, dev, sets):
+        if "uniform 16384" not in sets:
+            return
         # the bf16 field backward's own rounding spread at hidden 256, beside
         # the wider widths' (WIDE_FIELD_TOL)
         pts, dirs = sets["uniform 16384"]
@@ -5244,14 +5599,13 @@ def check_wide_kernels(torch, dev, card: str) -> dict:
         q, frac = plain_rounding_spread(torch, fpacked, pts, dirs, cot, 10, 4)
         say(f"phase 35 nerf field h256 L10/4 bfloat16 uniform 16384: the plain version "
             f"against its float64 sums: 99.9% {q:.3e}, {frac:.4f} of the points beyond 5e-3")
-        del model, fpacked
-    for h, lp, ld, pl in wide_shapes():
-        case = f"h{h} L{lp}/{ld}"
+
+    def setup(h, lp, ld):
         real_p, real_d = 3 * (1 + 2 * lp), 3 * (1 + 2 * ld)
         macs = mlp_macs(h, real_p, real_d)
         skipped = 2 * h * real_p + (h // 2) * real_d
-        for cdt in ("float32", "bfloat16"):
-            tc = cdt == "bfloat16"
+
+        def make(cdt):
             model = NeRFModel(hidden_dim=h, pos_encoding_dim=lp, dir_encoding_dim=ld,
                               compute_dtype=cdt,
                               generator=torch.Generator().manual_seed(35)).to(dev)
@@ -5259,146 +5613,41 @@ def check_wide_kernels(torch, dev, card: str) -> dict:
             field = NerfField(model)
             with torch.no_grad():
                 packed = fr.pack(model)
-            if not (fr.supported() and field.supported()):
-                fail(f"phase 35 {case}: the kernels do not take the shape")
+                fpacked = field.cast(*pack_f32(model))
             weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
                             + packed.vec.numel() * 4)
             grad_bytes = (packed.wmat.numel() + packed.vec.numel()) * 4
-            tol, gtol = TOL[cdt], GRAD_TOL[cdt]
+
+            def batch(kind, r, s):
+                cam, rd, t, tgt = camera_batch(torch, dev, r, s,
+                                               (3500 if kind == "fwd" else 3600) + s)
+                return (cam, rd, t, tgt, *fr.affine(cam, rd))
+
+            def fwd(b, plain=False):
+                cam, rd, t, _, o_aff, d_aff = b
+                if plain:
+                    return fused_render_plain(packed, o_aff, d_aff, rd, t, lp, ld)
+                return tuple(fr(packed, cam, rd, rd, t).values())
+
+            def train(b, plain=False):
+                _, rd, t, tgt, o_aff, d_aff = b
+                if plain:
+                    return fused_train_plain(packed, o_aff, d_aff, rd, t, tgt, True, lp, ld)
+                return fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+
+            def bwd(b, g_ray, plain=False):
+                _, rd, t, _, o_aff, d_aff = b
+                if plain:
+                    return fused_render_bwd_plain(packed, o_aff, d_aff, rd, t, g_ray, lp, ld)
+                return fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
 
             def gerrs(got, ref):
                 return grad_errors(torch, got, ref, hidden=h, pads=fr.pads)
 
-            # ---- row 3: the forward render
-            r, s = WIDE_FWD
-            cam, rd, t, _ = camera_batch(torch, dev, r, s, 3500 + s)
-            o_aff, d_aff = fr.affine(cam, rd)
-            with torch.no_grad():
-                ref = fused_render_plain(packed, o_aff, d_aff, rd, t, lp, ld)
-                out = fr(packed, cam, rd, rd, t)
-                again = fr(packed, cam, rd, rd, t)
-                torch.cuda.synchronize()
-                if not all(torch.equal(out[k], again[k]) for k in out):
-                    fail(f"phase 35 fused_render_fwd {case} {cdt}: two launches differ")
-                errs = {k: float((out[k] - ref[i]).abs().max())
-                        for i, k in enumerate(("rgb", "acc", "depth", "weights"))}
-                if not all(torch.isfinite(out[k]).all() for k in out):
-                    fail(f"phase 35 fused_render_fwd {case} {cdt}: non-finite output")
-                del ref, out, again
-                torch.cuda.empty_cache()
-                tm = timed_turns(torch, {
-                    ("fwd", "plain"): lambda: fused_render_plain(packed, o_aff, d_aff, rd, t,
-                                                                 lp, ld),
-                    ("fwd", "kernel"): lambda: fr(packed, cam, rd, rd, t)})
-            bms, by = bound_ms(r, s, cdt, weight_bytes, macs)
-            say(f"phase 35 kernel fused_render_fwd {case} {cdt} R={r} S={s} "
-                f"({fr.fwd_library()} {pl.tag}): max_abs_err "
-                + " ".join(f"{k}={v:.3e}(tol {tol[k]:.0e})" for k, v in errs.items())
-                + f" | kernel {tm['fwd', 'kernel']:.3f} ms, two launches bit-identical, plain "
-                f"{tm['fwd', 'plain']:.3f} ms, bound {bms:.3f} ms ({by}), share "
-                f"{bms / tm['fwd', 'kernel']:.4f}; {card}")
-            if any(v > tol[k] for k, v in errs.items()):
-                fail(f"phase 35 fused_render_fwd {case} {cdt} disagrees: {errs}")
-            results[("fused_render_fwd", case, cdt)] = dict(
-                err=max(errs.values()), ms=tm["fwd", "kernel"], plain_ms=tm["fwd", "plain"],
-                bound_ms=bms, bound_by=by)
-
-            # ---- rows 5 and 4: the train pass and the render backward
-            for s in WIDE_TRAIN_S:
-                cam, rd, t, tgt = camera_batch(torch, dev, R_TRAIN, s, 3600 + s)
-                o_aff, d_aff = fr.affine(cam, rd)
-                with torch.no_grad():
-                    ref = fused_train_plain(packed, o_aff, d_aff, rd, t, tgt, True, lp, ld)
-                    got = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
-                    again = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
-                    torch.cuda.synchronize()
-                    if not all(torch.equal(x, y) for x, y in zip(got[:4] + got[4],
-                                                                 again[:4] + again[4])):
-                        fail(f"phase 35 train {case} {cdt} S={s}: two launches differ")
-                    del again
-                    errs = {"loss": float(abs(got[0] - ref[0]) / abs(ref[0]))}
-                    for i, k in ((1, "rgb"), (2, "acc"), (3, "weights")):
-                        errs[k] = float((got[i] - ref[i]).abs().max())
-                    gerr = gerrs(got[4], ref[4])
-                    scale = 1.0 / (3.0 * R_TRAIN)
-                    g_ray = torch.zeros(R_TRAIN, 8, device=dev)
-                    g_ray[:, :3] = 2.0 * scale * (ref[1] + (1.0 - ref[2])[:, None] - tgt)
-                    g_ray[:, 3] = -g_ray[:, :3].sum(-1)
-                    ref_b = fused_render_bwd_plain(packed, o_aff, d_aff, rd, t, g_ray, lp, ld)
-                    got_b = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
-                    again_b = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
-                    torch.cuda.synchronize()
-                    if not all(torch.equal(x, y) for x, y in zip(got_b, again_b)):
-                        fail(f"phase 35 render backward {case} {cdt} S={s}: two launches "
-                             "differ")
-                    berr = gerrs(got_b, ref_b)
-                    cross = gerrs(got_b, got[4])
-                    del ref, got, ref_b, got_b, again_b
-                    torch.cuda.empty_cache()
-                    tm = timed_turns(torch, {
-                        ("train", "plain"): lambda: fused_train_plain(
-                            packed, o_aff, d_aff, rd, t, tgt, True, lp, ld),
-                        ("train", "kernel"): lambda: fr._train(
-                            packed, o_aff, d_aff, rd, t, tgt, True),
-                        ("bwd", "plain"): lambda: fused_render_bwd_plain(
-                            packed, o_aff, d_aff, rd, t, g_ray, lp, ld),
-                        ("bwd", "kernel"): lambda: fr._backward(
-                            packed, o_aff, d_aff, rd, t, g_ray)})
-                bad = {k: v for k, v in errs.items() if v > tol["rgb"]}
-                for label, e in (("train", gerr), ("bwd", berr), ("bwd vs train", cross)):
-                    worst = max(e, key=e.get)
-                    say(f"phase 35 kernel {label} {case} {cdt} R={R_TRAIN} S={s}: gradient "
-                        f"error worst {worst}={e[worst]:.3e} (tol {gtol:.0e}), median "
-                        f"{statistics.median(e.values()):.3e}")
-                    bad.update({f"{label}:{k}": v for k, v in e.items() if v > gtol})
-                say(f"phase 35 kernel train {case} {cdt} R={R_TRAIN} S={s}: "
-                    + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
-                    + f" (tol {tol['rgb']:.0e}); two launches of each bit-identical")
-                for name, key, e in (("fused_render_train", "train", gerr),
-                                     ("fused_render_bwd", "bwd", berr)):
-                    bms, by = bound_ms(R_TRAIN, s, cdt, weight_bytes, 3 * macs - skipped,
-                                       grad_bytes=grad_bytes,
-                                       train=name == "fused_render_train")
-                    ms, plain_ms = tm[key, "kernel"], tm[key, "plain"]
-                    say(f"phase 35 kernel {name} {case} {cdt} R={R_TRAIN} S={s} "
-                        f"({fr.grad_library(key == 'train')} {pl.tag}): kernel {ms:.3f} ms, "
-                        f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), share "
-                        f"{bms / ms:.4f}; {card}")
-                    worst = max(list(e.values())
-                                + (list(errs.values()) if key == "train" else []))
-                    results[(name, case, cdt, s)] = dict(err=worst, ms=ms, plain_ms=plain_ms,
-                                                         bound_ms=bms, bound_by=by)
-                if bad:
-                    fail(f"phase 35 train/backward {case} {cdt} S={s} disagree: {bad}")
-
-            # ---- rows 1 and 2: the field forward and backward
-            with torch.no_grad():
-                fpacked = field.cast(*pack_f32(model))
-            for label, (pts, dirs) in sets.items():
-                n = pts.shape[0]
-                cot = torch.randn(n, 4, device=dev,
-                                  generator=torch.Generator(device=dev).manual_seed(n))
-                with torch.no_grad():
-                    ref = nerf_field_plain(fpacked, pts, dirs, lp, ld)
-                    out = field._forward(fpacked, pts, dirs)
-                    again = field._forward(fpacked, pts, dirs)
-                    ref_g = nerf_field_bwd_plain(fpacked, pts, dirs, cot, lp, ld)
-                    got_g = field._backward(fpacked, pts, dirs, cot)
-                    again_g = field._backward(fpacked, pts, dirs, cot)
-                    torch.cuda.synchronize()
-                    if not all(torch.equal(x, y) for x, y in zip(out + got_g, again + again_g)):
-                        fail(f"phase 35 field {case} {cdt} {label}: two launches differ")
-                    del again, again_g
-                for x in out + got_g:
-                    if not torch.isfinite(x).all():
-                        fail(f"phase 35 field {case} {cdt} {label}: non-finite output")
-                errs = {"rgb": float((out[0] - ref[0]).abs().max()),
-                        "sigma": float((out[1] - ref[1]).abs().max())}
-                gerr = gerrs(got_g[:2], ref_g[:2])
-                w = max(gerr, key=gerr.get)
+            def field_tol(n, label, pts, dirs, cot, ref_g):
                 ftol, ptol, share, least = WIDE_FIELD_TOL[cdt]
-                own = ""
-                if not tc and h in WIDE_F32_GRAD_TOL:
+                own = spread = ""
+                if cdt == "float32" and h in WIDE_F32_GRAD_TOL:
                     ftol = WIDE_F32_GRAD_TOL[h]
                     if n == 65536:
                         with torch.no_grad():
@@ -5408,64 +5657,46 @@ def check_wide_kernels(torch, dev, card: str) -> dict:
                         w_own = max(e_own, key=e_own.get)
                         own = (f"; the plain version's weight gradients against their "
                                f"float64 sums: worst {w_own}={e_own[w_own]:.3e}")
-                        del exact
-                pt, bad_pts = {}, 0
-                for name, i in (("points", 2), ("dirs", 3)):
-                    e = (got_g[i] - ref_g[i]).abs().max(dim=1).values / ref_g[i].abs().max()
-                    pt[name] = float(torch.quantile(e, 0.999))
-                    bad_pts = max(bad_pts, int((e > FIELD_PT_TOL[cdt]).sum()))
-                spread = ""
-                if tc and n == 16384:
+                if cdt == "bfloat16" and n == 16384:
                     q, frac = plain_rounding_spread(torch, fpacked, pts, dirs, cot, lp, ld)
                     spread = (f"; the plain version against its float64 sums: 99.9% {q:.3e}, "
                               f"{frac:.4f} of the points beyond 5e-3")
-                say(f"phase 35 kernel nerf field {case} {cdt} {label}: forward rgb="
-                    f"{errs['rgb']:.3e} sigma={errs['sigma']:.3e} (tol {tol['rgb']:.0e}); "
-                    f"weight gradient worst {w}={gerr[w]:.3e} (tol {ftol:.0e}); point / "
-                    f"direction cotangent 99.9% {pt['points']:.3e} / {pt['dirs']:.3e} (tol "
-                    f"{ptol:.0e}), {bad_pts} points beyond {FIELD_PT_TOL[cdt]:.0e} (at most "
-                    f"{max(share * n, least):.0f}); two launches of each bit-identical{spread}"
-                    f"{own}")
-                if (max(errs.values()) > tol["rgb"] or gerr[w] > ftol
-                        or max(pt.values()) > ptol or bad_pts > max(share * n, least)):
-                    fail(f"phase 35 nerf field {case} {cdt} {label} disagrees with its plain "
-                         "versions")
-                for name, e in (("fused_nerf_fwd", max(errs.values())),
-                                ("fused_nerf_bwd", max(gerr[w], *pt.values()))):
-                    key = (name, case, cdt)
-                    results.setdefault(key, {"err": 0.0})
-                    results[key]["err"] = max(results[key]["err"], e)
-                del ref, out, ref_g, got_g
-                torch.cuda.empty_cache()
-                if n == 37:
-                    continue
-                with torch.no_grad():
-                    tm = timed_turns(torch, {
-                        ("fwd", "plain"): lambda: nerf_field_plain(fpacked, pts, dirs, lp, ld),
-                        ("fwd", "kernel"): lambda: field._forward(fpacked, pts, dirs),
-                        ("bwd", "plain"): lambda: nerf_field_bwd_plain(
-                            fpacked, pts, dirs, cot, lp, ld),
-                        ("bwd", "kernel"): lambda: field._backward(fpacked, pts, dirs, cot)})
-                for name, key in (("fused_nerf_fwd", "fwd"), ("fused_nerf_bwd", "bwd")):
-                    bms, by = field_bound_ms(n, cdt, weight_bytes,
-                                             grad_bytes if key == "bwd" else None,
-                                             macs=macs)
-                    ms, plain_ms = tm[key, "kernel"], tm[key, "plain"]
-                    say(f"phase 35 kernel {name} {case} {cdt} {label} "
-                        f"({getattr(field, key + '_library')()} {pl.tag}): kernel {ms:.3f} "
-                        f"ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), share "
-                        f"{bms / ms:.4f}; {card}")
-                    results[(name, case, cdt)].update(
-                        {n: dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)})
-            del model, fr, field, packed, fpacked
-            torch.cuda.empty_cache()
-    say(f"phase 35 (a): {time.perf_counter() - t_phase:.1f} s")
-    return results
+                return (TOL[cdt]["rgb"], ftol, ptol, FIELD_PT_TOL[cdt],
+                        f"{FIELD_PT_TOL[cdt]:.0e}", max(share * n, least), spread + own)
+
+            return WideCase(
+                fr=fr, field=field, supported=fr.supported() and field.supported(),
+                batch=batch, fwd=fwd, train=train, bwd=bwd,
+                field_fwd=lambda pts, dirs, plain=False: (
+                    nerf_field_plain(fpacked, pts, dirs, lp, ld) if plain
+                    else field._forward(fpacked, pts, dirs)),
+                field_bwd=lambda pts, dirs, cot, plain=False: (
+                    nerf_field_bwd_plain(fpacked, pts, dirs, cot, lp, ld) if plain
+                    else field._backward(fpacked, pts, dirs, cot)),
+                gerrs=gerrs, train_extra=lambda got, ref: [],
+                fwd_bound=lambda r, s: bound_ms(r, s, cdt, weight_bytes, macs),
+                train_bound=lambda r, s, train: bound_ms(
+                    r, s, cdt, weight_bytes, 3 * macs - skipped, grad_bytes=grad_bytes,
+                    train=train),
+                field_bound=lambda n, key: field_bound_ms(
+                    n, cdt, weight_bytes, grad_bytes if key == "bwd" else None, macs=macs),
+                field_tol=field_tol)
+
+        return make
+
+    return WideFamily(
+        phase=35, word="", rows=dict(fwd="fused_render_fwd", train="fused_render_train",
+                                     bwd="fused_render_bwd", field_fwd="fused_nerf_fwd",
+                                     field_bwd="fused_nerf_bwd"),
+        cases=[(f"h{h} L{lp}/{ld}", pl, setup(h, lp, ld)) for h, lp, ld, pl in wide_shapes()],
+        fwd_shapes=(WIDE_FWD,), train_shapes=tuple((R_TRAIN, s) for s in WIDE_TRAIN_S),
+        field_sets=sets, timed_n=(65536, 16384), cot_seed=lambda n: n, sigma_rel=False,
+        prelude=prelude)
 
 
 WIDE_LEGO_H = 1024     # (b): lego.txt at hidden 1024 (mip-NeRF 360's NeRF MLP width)
-WIDE_ITERS = 100       # (b): fit() iterations
-WIDE_SAVE = 50         # (b): the checkpoint a resume starts from (to WIDE_SAVE + 10)
+WIDE_ITERS = 40        # (b): fit() iterations
+WIDE_SAVE = 20         # (b): the checkpoint a resume starts from (to WIDE_SAVE + 10)
 WIDE_DISTILL = 20      # (c): distillation steps of 16,384 points
 WIDE_TUNE = 10         # (c): photometric iterations after them
 # the wrappers' counters (FusedNerfRender's, NerfField's) by row
@@ -5653,17 +5884,17 @@ def wide_lego(torch, dev, tmp: str, card: str) -> dict:
 
 # ---------------------------------------------------------------- phase 36
 
-# The SIREN family's five kernels (rows 6-10) at the wider shapes nerf_tpu's
-# take: hidden 512 and 1024 at lego_siren.txt's direction encoding (L_d = 4:
-# d_pad 32) and hidden 512 with L_d = 6 (d_pad 64). Each shape's libraries
-# are built from the checkout with its plan's -D flags
+# The SIREN family's five kernels (rows 6-10) at two of the wider shapes
+# nerf_tpu's take: hidden 1024 at lego_siren.txt's direction encoding (L_d
+# = 4: d_pad 32) and hidden 512 with L_d = 6 (d_pad 64). Each shape's
+# libraries are built from the checkout with its plan's -D flags
 # (nerf_tpu_torch/ops/cuda/siren_plan.py); tests/test_torch_port_cuda.py
-# holds every shape the kernels take (hidden 768 too) against the plain
-# versions. Row 6 at lego_siren.txt's serving chunk and rows 7-8 at its
+# holds every shape the kernels take (512 at L_d = 4 and 768 too) against
+# the plain versions. Row 6 at lego_siren.txt's serving chunk and rows 7-8 at its
 # training batch (1024 rays x 256 samples), rows 9-10 at a bake's 65,536
 # lattice points; the tolerances of phases 7 and 20 (TOL, GRAD_TOL; SG_TOL
 # for the bf16 field, FIELD_PT_TOL for the f32 one's cotangents).
-SIREN_WIDE_CASES = ((512, 4), (1024, 4), (512, 6))
+SIREN_WIDE_CASES = ((1024, 4), (512, 6))
 SIREN_WIDE_FIELD = "lattice 65536"
 SIREN_WIDE_H = 1024      # (b): lego_siren.txt at hidden 1024
 SIREN_WIDE_ITERS = 40    # (b): fit() iterations (a step ~0.15 s at 1024)
@@ -5676,7 +5907,9 @@ SIREN_WIDE_COUNTERS = {"FusedSirenRender": {"launches": "fused_render_siren_fwd"
                                             "bwd_launches": "fused_render_siren_bwd"},
                        "SirenField": {"launches": "fused_siren_fwd",
                                       "bwd_launches": "fused_siren_bwd"}}
-SIREN_WIDE_ROWS = tuple(r for by in SIREN_WIDE_COUNTERS.values() for r in by.values())
+SIREN_WIDE_ROW_ROLES = dict(fwd="fused_render_siren_fwd", train="fused_render_siren_train",
+                            bwd="fused_render_siren_bwd", field_fwd="fused_siren_fwd",
+                            field_bwd="fused_siren_bwd")
 
 
 def siren_wide_shapes():
@@ -5686,15 +5919,11 @@ def siren_wide_shapes():
     return [(h, ld, plan(h, d_pad(ld))) for h, ld in SIREN_WIDE_CASES]
 
 
-def check_siren_wide_kernels(torch, dev, card: str) -> dict:
-    """Phase 36 (a): rows 6-10 against their plain versions at every
-    SIREN_WIDE_CASES shape, float32 and bfloat16, TF32 off, under the
+def siren_wide_family(torch, dev) -> WideFamily:
+    """Phase 36 (a): rows 6-10 at every SIREN_WIDE_CASES shape under the
     tolerances of phases 7 and 20: the forward render, the train pass and
     the render backward at 1024 x 256, the field forward and backward at
-    65,536 lattice points; every kernel launched twice for identical bits.
-    Each case's ms (median of turns), its plain version's and its bound
-    (siren_macs at the case's widths) are printed beside the card. Returns
-    them by (row, case, dtype) with each row's worst error."""
+    65,536 lattice points; bounds from siren_macs at the case's widths."""
     from nerf_tpu_torch.models.siren import SirenModel
     from nerf_tpu_torch.ops.cuda.fused_render_siren import (
         FusedSirenRender, fused_siren_render_bwd_plain, fused_siren_render_plain,
@@ -5702,375 +5931,493 @@ def check_siren_wide_kernels(torch, dev, card: str) -> dict:
     from nerf_tpu_torch.ops.cuda.fused_siren import (
         SirenField, siren_field_bwd_plain, siren_field_plain)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_phase = time.perf_counter()
-    results = {}
-    pts, dirs = field_point_sets(torch, dev)[SIREN_WIDE_FIELD]
-    n = pts.shape[0]
-    cot = torch.randn(n, 4, device=dev, generator=torch.Generator(device=dev).manual_seed(36))
-    for h, ld, pl in siren_wide_shapes():
-        case = f"h{h} L_d{ld}"
+    def setup(h, ld, pl):
         real_d = 3 * (1 + 2 * ld)
         macs, trig = siren_macs(h, real_d), siren_trig(h)
-        for cdt in ("float32", "bfloat16"):
+
+        def make(cdt):
             model = SirenModel(hidden_dim=h, dir_encoding_dim=ld, compute_dtype=cdt,
                                generator=torch.Generator().manual_seed(36)).to(dev)
             fr = FusedSirenRender(model, 2.0, 6.0, normalize=True)
             field = SirenField(model).pack()
-            k = fr.consts
+            pk, k = field.packed, fr.consts
             with torch.no_grad():
                 packed = fr.pack(model)
-            if not (fr.supported() and field.supported() and fr.plan == pl):
-                fail(f"phase 36 {case}: the kernels do not take the shape")
             weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
                             + packed.vec.numel() * 4)
             grad_bytes = (packed.wmat.numel() + packed.vec.numel()) * 4
-            tol, gtol = TOL[cdt], GRAD_TOL[cdt]
+
+            def batch(kind, r, s):
+                cam, rd, t, tgt = camera_batch(torch, dev, r, s, 3600 + h + ld)
+                return (cam, rd, t, tgt, *fr.affine(cam, rd))
+
+            def fwd(b, plain=False):
+                _, rd, t, _, o_aff, d_aff = b
+                if plain:
+                    return fused_siren_render_plain(packed, o_aff, d_aff, rd, t, k)
+                return fr._forward(packed, o_aff, d_aff, rd, t)
+
+            def train(b, plain=False):
+                _, rd, t, tgt, o_aff, d_aff = b
+                if plain:
+                    return fused_siren_train_plain(packed, o_aff, d_aff, rd, t, tgt, True, k)
+                return fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
+
+            def bwd(b, g_ray, plain=False):
+                _, rd, t, _, o_aff, d_aff = b
+                if plain:
+                    return fused_siren_render_bwd_plain(packed, o_aff, d_aff, rd, t, g_ray, k)
+                return fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
+
+            def field_tol(n, *_):
+                tol_out, tol_grad, tol_pt = SG_TOL.get(
+                    ("siren", cdt), (TOL[cdt]["rgb"], GRAD_TOL[cdt], FIELD_PT_TOL[cdt]))
+                return tol_out, tol_grad, tol_pt, tol_pt, "it", 0.001 * n, ""
+
+            return WideCase(
+                fr=fr, field=field,
+                supported=fr.supported() and field.supported() and fr.plan == pl,
+                batch=batch, fwd=fwd, train=train, bwd=bwd,
+                field_fwd=lambda pts, dirs, plain=False: (
+                    siren_field_plain(pk, pts, dirs, k) if plain
+                    else field._forward(pk, pts, dirs)),
+                field_bwd=lambda pts, dirs, cot, plain=False: (
+                    siren_field_bwd_plain(pk, pts, dirs, cot, k) if plain
+                    else field._backward(pk, pts, dirs, cot)),
+                gerrs=lambda got, ref: grad_errors(torch, got, ref, grad_views, hidden=h,
+                                                   pads=(fr.d_pad,)),
+                train_extra=lambda got, ref: [],
+                fwd_bound=lambda r, s: bound_ms(r, s, cdt, weight_bytes, macs, trig),
+                train_bound=lambda r, s, train: bound_ms(
+                    r, s, cdt, weight_bytes, 3 * macs - siren_skipped(h, real_d), 2 * trig,
+                    grad_bytes, train),
+                field_bound=lambda n, key: field_bound_ms(
+                    n, cdt, weight_bytes, grad_bytes if key == "bwd" else None, "siren",
+                    cost=siren_field_cost(h, real_d)),
+                field_tol=field_tol)
+
+        return make
+
+    return WideFamily(
+        phase=36, word="siren ", rows=SIREN_WIDE_ROW_ROLES,
+        cases=[(f"h{h} L_d{ld}", pl, setup(h, ld, pl)) for h, ld, pl in siren_wide_shapes()],
+        fwd_shapes=((R_SIREN, S_SIREN),), train_shapes=((R_TRAIN, S_SIREN),),
+        field_sets=lambda torch, dev: {
+            SIREN_WIDE_FIELD: field_point_sets(torch, dev)[SIREN_WIDE_FIELD]},
+        timed_n=(65536,), cot_seed=lambda n: 36, sigma_rel=True)
+
+
+def gabor_wide_family(torch, dev) -> WideFamily:
+    """Phase 37 (a): rows 11-14 at every GABOR_WIDE_CASES shape under the
+    tolerances of phases 10 and 20 (TOL, GRAD_TOL, FIELD_PT_TOL; dA..dR as
+    phase 10 holds them): the forward render and the train pass at
+    lego_siren.txt's 1024 x 256 and at 1024 x 37 (rays that span a chunk),
+    the field forward and backward at 65,536 lattice points and 37 points;
+    bounds from gabor_macs at the case's widths and depth, the per-ray
+    coefficients read (and their cotangents written) beside the weights; the
+    render rows' plain versions over GABOR_PLAIN_RAYS rays a call."""
+    from nerf_tpu_torch.models.gabor import GaborModel
+    from nerf_tpu_torch.ops.cuda.fused_gabor import (
+        GaborField, gabor_field_bwd_plain, gabor_field_plain)
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import (
+        FusedGaborRender, fused_gabor_render_plain, fused_gabor_train_plain, gabor_coeffs,
+        grad_views)
+
+    def setup(h, ld, n, pl):
+        real_d = 3 * (1 + 2 * ld)
+        macs, trig, coef = gabor_macs(h, n, real_d), gabor_trig(h, n), gabor_coef_bytes(h, n)
+
+        def make(cdt):
+            model = GaborModel(hidden_dim=h, dir_encoding_dim=ld, num_layers=n,
+                               compute_dtype=cdt,
+                               generator=torch.Generator().manual_seed(37)).to(dev)
+            fr = FusedGaborRender(model, 2.0, 6.0, normalize=True)
+            field = GaborField(model).pack()
+            pk, k = field.packed, fr.consts
+            gpack = fr.pack(model)
+            packed = gpack.packed
+            weight_bytes = (packed.wmat.numel() * packed.wmat.element_size()
+                            + packed.vec.numel() * 4)
+            grad_bytes = (packed.wmat.numel() + packed.vec.numel()) * 4
+
+            def batch(kind, r, s):
+                cam, rd, t, tgt = camera_batch(torch, dev, r, s, 3700 + h + ld + n + s)
+                with torch.no_grad():
+                    coeffs = gabor_coeffs(*gpack.filters, *fr.affine(cam, rd))
+                return cam, rd, t, tgt, coeffs
+
+            def fwd(b, plain=False):
+                _, rd, t, _, coeffs = b
+                if plain:
+                    return chunked_gabor_plain(torch, fused_gabor_render_plain, rd.shape[0],
+                                               packed, coeffs, rd, t, k)
+                return fr._forward(packed, coeffs, rd, t)
+
+            def train(b, plain=False):
+                _, rd, t, tgt, coeffs = b
+                if plain:
+                    return chunked_gabor_plain(torch, fused_gabor_train_plain, rd.shape[0],
+                                               packed, coeffs, rd, t, tgt, True, k)
+                return fr._train(packed, coeffs, rd, t, tgt, True)
 
             def gerrs(got, ref):
-                return grad_errors(torch, got, ref, grad_views, hidden=h, pads=(fr.d_pad,))
+                e = grad_errors(torch, got[:2], ref[:2], grad_views, hidden=h,
+                                pads=(n, fr.d_pad))
+                if len(got) == 3:       # the field's: the filter banks' too
+                    bg, br = bank_grads(torch, model, got[2]), bank_grads(torch, model, ref[2])
+                    floor = 1e-2 * max(float(v.abs().max()) for v in br.values())
+                    for name in br:
+                        e[name] = float((bg[name] - br[name]).abs().max()) / max(
+                            float(br[name].abs().max()), floor)
+                return e
 
-            # ---- row 6: the forward render
-            r, s = R_SIREN, S_SIREN
-            cam, rd, t, tgt = camera_batch(torch, dev, r, s, 3600 + h + ld)
-            o_aff, d_aff = fr.affine(cam, rd)
-            with torch.no_grad():
-                ref = fused_siren_render_plain(packed, o_aff, d_aff, rd, t, k)
-                out = fr._forward(packed, o_aff, d_aff, rd, t)
-                again = fr._forward(packed, o_aff, d_aff, rd, t)
-                torch.cuda.synchronize()
-                if not all(torch.equal(x, y) for x, y in zip(out, again)):
-                    fail(f"phase 36 fused_render_siren_fwd {case} {cdt}: two launches differ")
-                if not all(torch.isfinite(x).all() for x in out):
-                    fail(f"phase 36 fused_render_siren_fwd {case} {cdt}: non-finite output")
-                errs = {name: float((out[i] - ref[i]).abs().max())
-                        for i, name in enumerate(("rgb", "acc", "depth", "weights"))}
-                del ref, out, again
-                torch.cuda.empty_cache()
-                tm = timed_turns(torch, {
-                    ("fwd", "plain"): lambda: fused_siren_render_plain(
-                        packed, o_aff, d_aff, rd, t, k),
-                    ("fwd", "kernel"): lambda: fr._forward(packed, o_aff, d_aff, rd, t)})
-            bms, by = bound_ms(r, s, cdt, weight_bytes, macs, trig)
-            say(f"phase 36 kernel fused_render_siren_fwd {case} {cdt} R={r} S={s} "
-                f"({fr.fwd_library()} {pl.tag}): max_abs_err "
-                + " ".join(f"{name}={v:.3e}(tol {tol[name]:.0e})" for name, v in errs.items())
-                + f" | kernel {tm['fwd', 'kernel']:.3f} ms, two launches bit-identical, plain "
-                f"{tm['fwd', 'plain']:.3f} ms, bound {bms:.3f} ms ({by}), share "
-                f"{bms / tm['fwd', 'kernel']:.4f}; {card}")
-            if any(v > tol[name] for name, v in errs.items()):
-                fail(f"phase 36 fused_render_siren_fwd {case} {cdt} disagrees: {errs}")
-            results[("fused_render_siren_fwd", case, cdt)] = dict(
-                err=max(errs.values()), ms=tm["fwd", "kernel"], plain_ms=tm["fwd", "plain"],
-                bound_ms=bms, bound_by=by)
+            def train_extra(got, ref):
+                if not torch.isfinite(got[5]).all():
+                    fail(f"phase 37 gabor train {pl.tag} {cdt}: non-finite dA..dR")
+                return [("dA..dR", {f"d{c}": float((got[5][j] - ref[5][j]).abs().max()
+                                                   / ref[5][j].abs().max())
+                                    for j, c in enumerate("ABPQR")})]
 
-            # ---- rows 8 and 7: the train pass and the render backward
-            r = R_TRAIN
-            with torch.no_grad():
-                ref = fused_siren_train_plain(packed, o_aff, d_aff, rd, t, tgt, True, k)
-                got = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
-                again = fr._train(packed, o_aff, d_aff, rd, t, tgt, True)
-                torch.cuda.synchronize()
-                if not all(torch.equal(x, y) for x, y in zip(got[:4] + got[4],
-                                                             again[:4] + again[4])):
-                    fail(f"phase 36 train {case} {cdt}: two launches differ")
-                del again
-                errs = {"loss": float(abs(got[0] - ref[0]) / abs(ref[0]))}
-                for i, name in ((1, "rgb"), (2, "acc"), (3, "weights")):
-                    if not torch.isfinite(got[i]).all():
-                        fail(f"phase 36 train {case} {cdt}: non-finite {name}")
-                    errs[name] = float((got[i] - ref[i]).abs().max())
-                gerr = gerrs(got[4], ref[4])
-                g_ray = torch.zeros(r, 8, device=dev)
-                g_ray[:, :3] = 2.0 / (3.0 * r) * (ref[1] + (1.0 - ref[2])[:, None] - tgt)
-                g_ray[:, 3] = -g_ray[:, :3].sum(-1)
-                ref_b = fused_siren_render_bwd_plain(packed, o_aff, d_aff, rd, t, g_ray, k)
-                got_b = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
-                again_b = fr._backward(packed, o_aff, d_aff, rd, t, g_ray)
-                torch.cuda.synchronize()
-                if not all(torch.equal(x, y) for x, y in zip(got_b, again_b)):
-                    fail(f"phase 36 render backward {case} {cdt}: two launches differ")
-                berr = gerrs(got_b, ref_b)
-                cross = gerrs(got_b, got[4])
-                del ref, got, ref_b, got_b, again_b
-                torch.cuda.empty_cache()
-                tm = timed_turns(torch, {
-                    ("train", "plain"): lambda: fused_siren_train_plain(
-                        packed, o_aff, d_aff, rd, t, tgt, True, k),
-                    ("train", "kernel"): lambda: fr._train(packed, o_aff, d_aff, rd, t, tgt,
-                                                           True),
-                    ("bwd", "plain"): lambda: fused_siren_render_bwd_plain(
-                        packed, o_aff, d_aff, rd, t, g_ray, k),
-                    ("bwd", "kernel"): lambda: fr._backward(packed, o_aff, d_aff, rd, t,
-                                                            g_ray)})
-            bad = {name: v for name, v in errs.items() if v > tol["rgb"]}
-            for label, e in (("train", gerr), ("bwd", berr), ("bwd vs train", cross)):
-                worst = max(e, key=e.get)
-                say(f"phase 36 kernel siren {label} {case} {cdt} R={r} S={s}: gradient "
-                    f"error worst {worst}={e[worst]:.3e} (tol {gtol:.0e}), median "
-                    f"{statistics.median(e.values()):.3e}")
-                bad.update({f"{label}:{name}": v for name, v in e.items() if v > gtol})
-            say(f"phase 36 kernel siren train {case} {cdt} R={r} S={s}: "
-                + " ".join(f"{name}={v:.3e}" for name, v in errs.items())
-                + f" (tol {tol['rgb']:.0e}); two launches of each bit-identical")
-            for name, key, e in (("fused_render_siren_train", "train", gerr),
-                                 ("fused_render_siren_bwd", "bwd", berr)):
-                bms, by = bound_ms(r, s, cdt, weight_bytes,
-                                   3 * macs - siren_skipped(h, real_d), 2 * trig,
-                                   grad_bytes, name == "fused_render_siren_train")
-                ms, plain_ms = tm[key, "kernel"], tm[key, "plain"]
-                say(f"phase 36 kernel {name} {case} {cdt} R={r} S={s} "
-                    f"({fr.grad_library(key == 'train')} {pl.tag}): kernel {ms:.3f} ms, "
-                    f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), share "
-                    f"{bms / ms:.4f}; {card}")
-                worst = max(list(e.values()) + (list(errs.values()) if key == "train" else []))
-                results[(name, case, cdt)] = dict(err=worst, ms=ms, plain_ms=plain_ms,
-                                                  bound_ms=bms, bound_by=by)
-            if bad:
-                fail(f"phase 36 train/backward {case} {cdt} disagree: {bad}")
+            def field_tol(npts, *_):
+                tol_pt = FIELD_PT_TOL[cdt]
+                return TOL[cdt]["rgb"], GRAD_TOL[cdt], tol_pt, tol_pt, "it", 0.001 * npts, ""
 
-            # ---- rows 9 and 10: the field forward and backward
-            pk = field.packed
-            tol_out, tol_grad, tol_pt = SG_TOL.get(
-                ("siren", cdt), (TOL[cdt]["rgb"], GRAD_TOL[cdt], FIELD_PT_TOL[cdt]))
-            with torch.no_grad():
-                ref = siren_field_plain(pk, pts, dirs, k)
-                out = field._forward(pk, pts, dirs)
-                again = field._forward(pk, pts, dirs)
-                ref_g = siren_field_bwd_plain(pk, pts, dirs, cot, k)
-                got_g = field._backward(pk, pts, dirs, cot)
-                again_g = field._backward(pk, pts, dirs, cot)
-                torch.cuda.synchronize()
-                if not all(torch.equal(x, y) for x, y in zip(out + got_g, again + again_g)):
-                    fail(f"phase 36 siren field {case} {cdt}: two launches differ")
-                del again, again_g
-            for x in out + got_g:
-                if not torch.isfinite(x).all():
-                    fail(f"phase 36 siren field {case} {cdt}: non-finite output")
-            smax = max(float(ref[1].abs().max()), 1.0)
-            errs = {"rgb": float((out[0] - ref[0]).abs().max()),
-                    "sigma": float((out[1] - ref[1]).abs().max()) / smax}
-            gerr = gerrs(got_g[:2], ref_g[:2])
-            w = max(gerr, key=gerr.get)
-            pt, bad_pts = {}, 0
-            for name, i in (("points", 2), ("dirs", 3)):
-                e = (got_g[i] - ref_g[i]).abs().max(dim=1).values / ref_g[i].abs().max()
-                pt[name] = float(torch.quantile(e, 0.999))
-                bad_pts = max(bad_pts, int((e > tol_pt).sum()))
-            say(f"phase 36 kernel siren field {case} {cdt} {SIREN_WIDE_FIELD}: forward rgb="
-                f"{errs['rgb']:.3e} sigma={errs['sigma']:.3e} (over max(1, max sigma) = "
-                f"{smax:.3g}; tol {tol_out:.0e}); weight gradient worst {w}={gerr[w]:.3e} "
-                f"(tol {tol_grad:.0e}); point / direction cotangent 99.9% "
-                f"{pt['points']:.3e} / {pt['dirs']:.3e} (tol {tol_pt:.0e}), {bad_pts} points "
-                f"beyond it (at most {0.001 * n:.0f}); two launches of each bit-identical")
-            if (max(errs.values()) > tol_out or gerr[w] > tol_grad
-                    or max(pt.values()) > tol_pt or bad_pts > 0.001 * n):
-                fail(f"phase 36 siren field {case} {cdt} disagrees with its plain versions")
-            del ref, out, ref_g, got_g
-            torch.cuda.empty_cache()
-            with torch.no_grad():
-                tm = timed_turns(torch, {
-                    ("fwd", "plain"): lambda: siren_field_plain(pk, pts, dirs, k),
-                    ("fwd", "kernel"): lambda: field._forward(pk, pts, dirs),
-                    ("bwd", "plain"): lambda: siren_field_bwd_plain(pk, pts, dirs, cot, k),
-                    ("bwd", "kernel"): lambda: field._backward(pk, pts, dirs, cot)})
-            for name, key, err in (("fused_siren_fwd", "fwd", max(errs.values())),
-                                   ("fused_siren_bwd", "bwd", max(gerr[w], *pt.values()))):
-                bms, by = field_bound_ms(n, cdt, weight_bytes,
-                                         grad_bytes if key == "bwd" else None, "siren",
-                                         cost=siren_field_cost(h, real_d))
-                ms, plain_ms = tm[key, "kernel"], tm[key, "plain"]
-                say(f"phase 36 kernel {name} {case} {cdt} {SIREN_WIDE_FIELD} "
-                    f"({getattr(field, key + '_library')()} {pl.tag}): kernel {ms:.3f} ms, "
-                    f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), share "
-                    f"{bms / ms:.4f}; {card}")
-                results[(name, case, cdt)] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                                  bound_ms=bms, bound_by=by)
-            del model, fr, field, packed, pk
-            torch.cuda.empty_cache()
-    say(f"phase 36 (a): {time.perf_counter() - t_phase:.1f} s")
-    return results
+            return WideCase(
+                fr=fr, field=field,
+                supported=fr.supported() and field.supported() and fr.plan == pl,
+                batch=batch, fwd=fwd, train=train, bwd=None,
+                field_fwd=lambda pts, dirs, plain=False: (
+                    gabor_field_plain(pk, pts, dirs, k) if plain
+                    else field._forward(pk, pts, dirs)),
+                field_bwd=lambda pts, dirs, cot, plain=False: (
+                    gabor_field_bwd_plain(pk, pts, dirs, cot, k) if plain
+                    else field._backward(pk, pts, dirs, cot)),
+                gerrs=gerrs, train_extra=train_extra,
+                fwd_bound=lambda r, s: bound_ms(r, s, cdt, weight_bytes + r * coef, macs, trig),
+                train_bound=lambda r, s, train: bound_ms(
+                    r, s, cdt, weight_bytes + r * coef, 3 * macs - (h // 2) * real_d,
+                    2 * trig, grad_bytes + r * coef, True),
+                field_bound=lambda npts, key: field_bound_ms(
+                    npts, cdt, weight_bytes + n * 9 * h * 4,
+                    grad_bytes + n * 9 * h * 4 if key == "bwd" else None, "gabor",
+                    cost=gabor_field_cost(h, n, real_d)),
+                field_tol=field_tol)
+
+        return make
+
+    return WideFamily(
+        phase=37, word="gabor ", rows=GABOR_WIDE_ROW_ROLES,
+        cases=[(f"h{h} L_d{ld} n{n}", pl, setup(h, ld, n, pl))
+               for h, ld, n, pl in gabor_wide_shapes()],
+        fwd_shapes=((R_SIREN, S_SIREN), (R_SIREN, 37)),
+        train_shapes=((R_TRAIN, 37), (R_TRAIN, S_SIREN)),
+        field_sets=lambda torch, dev: {k: v for k, v in field_point_sets(torch, dev).items()
+                                       if k in GABOR_WIDE_FIELD},
+        timed_n=(65536,), cot_seed=lambda n: 37 + n, sigma_rel=True)
 
 
-def wide_siren(torch, dev, tmp: str, card: str) -> dict:
-    """Phase 36 (b): configs/lego_siren.txt at hidden_dim = 1024 (bfloat16,
-    256 samples, 1024 rays), written as the phase's own config, on the
-    synthetic 400 x 400 scene: fit() SIREN_WIDE_ITERS iterations (one
-    train-pass launch a step; the mse falls), a resume from SIREN_WIDE_SAVE
-    bit for bit, two steps of the render route (the forward render and its
-    backward kernel), the checkpoint served with --occupancy 64 (the bake's
-    four field launches at 1024; the request within mean abs 1e-2 of the
-    unfused render) and one eval CLI frame (within mean abs 1e-2 of the
+@dataclass(frozen=True)
+class SGWide:
+    """Phase 36 / 37 (b)-(c) of the SIREN or GaborNet family (wide_sg): the
+    phase, the family (lego_siren.txt's model_type), the label's words
+    after the config's name, the hidden width, fit()'s iterations, the
+    checkpoint a resume starts from, the distillation steps and the
+    photometric iterations after them, the wrappers (render, field) and
+    their counters by row, the rows' numbers as printed, whether the
+    forward render has a backward kernel, and the plan tag of a config."""
+
+    phase: int
+    family: str
+    label: str
+    h: int
+    iters: int
+    save: int
+    distill: int
+    tune: int
+    render: object
+    field: object
+    counters: dict
+    rows: str
+    render_backward: bool
+    tag: object
+
+
+def siren_sg() -> SGWide:
+    from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
+    from nerf_tpu_torch.ops.cuda.fused_siren import SirenField
+    from nerf_tpu_torch.ops.cuda.siren_plan import d_pad, plan
+
+    return SGWide(36, "siren", "", SIREN_WIDE_H, SIREN_WIDE_ITERS, SIREN_WIDE_SAVE,
+                  SIREN_WIDE_DISTILL, SIREN_WIDE_TUNE, FusedSirenRender, SirenField,
+                  SIREN_WIDE_COUNTERS, "6-10", True,
+                  lambda cfg: plan(cfg.hidden_dim, d_pad(cfg.dir_encoding_dim)).tag)
+
+
+def gabor_sg() -> SGWide:
+    from nerf_tpu_torch.ops.cuda.fused_gabor import GaborField
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
+    from nerf_tpu_torch.ops.cuda.gabor_plan import DEFAULT_LAYERS, d_pad, plan
+
+    return SGWide(37, "gabor", " with model_type = gabor", GABOR_WIDE_H, GABOR_WIDE_ITERS,
+                  GABOR_WIDE_SAVE, GABOR_WIDE_DISTILL, GABOR_WIDE_TUNE, FusedGaborRender,
+                  GaborField, GABOR_WIDE_COUNTERS, "11-14", False,
+                  lambda cfg: plan(cfg.hidden_dim, d_pad(cfg.dir_encoding_dim),
+                                   DEFAULT_LAYERS).tag)
+
+
+# ---------------------------------------------------------------- phase 37
+
+# The GaborNet family's four kernels (rows 11-14) at the wider shapes and
+# depths nerf_tpu's take: hidden 512 and 1024 at lego_siren.txt's direction
+# encoding (L_d = 4: d_pad 32; h1024d32n8 is the shape of (b)'s path),
+# hidden 512 with L_d = 6 (d_pad 64), and 4 stages at hidden 256. Each
+# shape's libraries are built from the checkout with its plan's -D flags
+# (nerf_tpu_torch/ops/cuda/gabor_plan.py); tests/test_torch_port_cuda.py
+# holds more (768, 1, 3 and 4 stages) against the plain versions. Rows 11
+# and 12 at lego_siren.txt's serving chunk and training batch (1024 rays x
+# 256 samples) and at 37 samples (rays that span a chunk), their plain
+# versions over GABOR_PLAIN_RAYS rays a call (at hidden 1024 the plain
+# train pass keeps about 40 float32 activations of every sample, some 43 GB
+# at 1024 x 256 in one call; the loss and gradients of the calls are summed
+# with their rays' weights); rows 13 and 14 at a bake's 65,536 lattice
+# points and at 37 points; the tolerances of phases 10 and 20 (TOL,
+# GRAD_TOL, FIELD_PT_TOL; dA..dR as phase 10 holds them).
+GABOR_WIDE_CASES = ((512, 4, 8), (1024, 4, 8), (512, 6, 8), (256, 4, 4))
+GABOR_WIDE_FIELD = ("lattice 65536", "uniform 37")
+GABOR_PLAIN_RAYS = 256
+GABOR_WIDE_H = 1024      # (b): lego_siren.txt with model_type = gabor at hidden 1024
+GABOR_WIDE_ITERS = 40    # (b): fit() iterations
+GABOR_WIDE_SAVE = 20     # (b): the checkpoint a resume starts from (to SAVE + 10)
+GABOR_WIDE_DISTILL = 20  # (c): distillation steps of 16,384 points
+GABOR_WIDE_TUNE = 10     # (c): photometric iterations after them
+# the wrappers' counters (FusedGaborRender's, GaborField's) by row; the
+# rows by role in phase 37 (a)
+GABOR_WIDE_COUNTERS = {"FusedGaborRender": {"launches": "fused_render_gabor_fwd",
+                                            "train_launches": "fused_render_gabor_train"},
+                       "GaborField": {"launches": "fused_gabor_fwd",
+                                      "bwd_launches": "fused_gabor_bwd"}}
+GABOR_WIDE_ROW_ROLES = dict(fwd="fused_render_gabor_fwd", train="fused_render_gabor_train",
+                            field_fwd="fused_gabor_fwd", field_bwd="fused_gabor_bwd")
+
+
+def gabor_wide_shapes():
+    """(hidden, L_d, stages, plan) of every phase-37 case."""
+    from nerf_tpu_torch.ops.cuda.gabor_plan import d_pad, plan
+
+    return [(h, ld, n, plan(h, d_pad(ld), n)) for h, ld, n in GABOR_WIDE_CASES]
+
+
+def chunked_gabor_plain(torch, fn, num_rays: int, *args):
+    """A GaborNet render's plain version (``fn``: the forward render's or
+    the train pass's, ``args`` its ray-major inputs after the packing, the
+    coefficients (5, R, n h) first) over GABOR_PLAIN_RAYS rays a call: the
+    forward's outputs concatenated; the train pass's loss, weight gradients
+    and coefficient cotangents of each call weighted by its share of the
+    rays (each call's loss is its rays' mean), the rest concatenated."""
+    packed, coeffs, *rest, k = args
+    parts, shares = [], []
+    for i in range(0, num_rays, GABOR_PLAIN_RAYS):
+        j = min(i + GABOR_PLAIN_RAYS, num_rays)
+        parts.append(fn(packed, coeffs[:, i:j], *(x[i:j] if torch.is_tensor(x) else x
+                                                   for x in rest), k))
+        shares.append((j - i) / num_rays)
+    if len(parts[0]) == 4:           # the forward render
+        return tuple(torch.cat(x) for x in zip(*parts))
+    return (sum(p[0] * w for p, w in zip(parts, shares)),
+            *(torch.cat([p[i] for p in parts]) for i in (1, 2, 3)),
+            tuple(sum(p[4][i] * w for p, w in zip(parts, shares)) for i in (0, 1)),
+            torch.cat([p[5] * w for p, w in zip(parts, shares)], dim=1))
+
+
+def wide_sg(torch, dev, tmp: str, card: str, sg: "SGWide") -> dict:
+    """Phase 36 / 37 (b): configs/lego_siren.txt with the family's
+    model_type at hidden_dim = 1024 (bfloat16, 256 samples, 1024 rays),
+    written as the phase's own config, on the synthetic 400 x 400 scene:
+    fit() sg.iters iterations (one train-pass launch a step; the mse falls),
+    a resume from sg.save bit for bit, two steps of the render route (a
+    SIREN's forward render and its backward kernel; a GaborNet's forward
+    render refuses autograd as nerf_tpu's does, and its two steps take the
+    train pass outside fit), the checkpoint served with --occupancy 64 (the
+    bake's four field launches at 1024; the request within mean abs 1e-2 of
+    the unfused render) and one eval CLI frame (within mean abs 1e-2 of the
     unfused render); then (c) fit() with distill_from = that checkpoint:
     nerf_tpu's load_teacher builds the teacher over the student's config,
-    so teacher and student are both at 1024 (SIREN_WIDE_DISTILL
-    distillation steps: the teacher's field forward, the student's forward
-    and backward; the loss falls), then SIREN_WIDE_TUNE photometric
-    iterations. Returns the launches of rows 6-10 by (row, plan tag, dtype)
-    as the wrappers counted them (``shape_launches``), every one at hidden
-    1024 in bfloat16."""
+    so teacher and student are both at 1024 (sg.distill distillation steps:
+    the teacher's field forward, the student's forward and backward; the
+    loss falls), then sg.tune photometric iterations. Returns the launches
+    of the family's rows by (row, plan tag, dtype) as the wrappers counted
+    them (``shape_launches``), every one at hidden 1024 in bfloat16."""
     import dataclasses
 
     from nerf_tpu_torch.config import parse_config_file
     from nerf_tpu_torch.data.pipeline import load_scene
     from nerf_tpu_torch.data.poses import spherical_orbit
-    from nerf_tpu_torch.ops.cuda.fused_render_siren import FusedSirenRender
-    from nerf_tpu_torch.ops.cuda.fused_siren import SirenField
-    from nerf_tpu_torch.ops.cuda.siren_plan import d_pad, plan
-    from nerf_tpu_torch.render.renderer import render_rays
+    from nerf_tpu_torch.render.renderer import render_rays, render_rays_train
     from nerf_tpu_torch.serve import RenderService
     from nerf_tpu_torch.train.loop import fit, render_settings_from_config
     from nerf_tpu_torch.train.state import create_train_state
     from nerf_tpu_torch.utils.png import read_png
 
+    P, fam, H = sg.phase, sg.family, sg.h
+    Render, Field = sg.render, sg.field
     t_phase = time.perf_counter()
     scene = os.path.join(tmp, "scene")
     if not os.path.isdir(scene):
         write_sphere_scene(scene, HW)
-    label = f"lego_siren.txt at hidden {SIREN_WIDE_H}"
+    label = f"lego_siren.txt{sg.label} at hidden {H}"
     path = write_eval_config(
-        tmp, "lego_siren.txt", f"lego_siren_h{SIREN_WIDE_H}.txt", hidden_dim=SIREN_WIDE_H,
-        num_iters=SIREN_WIDE_ITERS, log_interval=10, val_interval=10 * SIREN_WIDE_ITERS,
-        save_interval=SIREN_WIDE_SAVE, save_path=os.path.join(tmp, "wide_siren_models"),
-        log_dir=os.path.join(tmp, "wide_siren_logs"), num_render_poses=1)
+        tmp, "lego_siren.txt", f"lego_{fam}_h{H}.txt", model_type=fam, hidden_dim=H,
+        num_iters=sg.iters, log_interval=10, val_interval=10 * sg.iters,
+        save_interval=sg.save, save_path=os.path.join(tmp, f"wide_{fam}_models"),
+        log_dir=os.path.join(tmp, f"wide_{fam}_logs"), num_render_poses=1)
     cfg = parse_config_file(path)
     if (cfg.model_type, cfg.hidden_dim, cfg.compute_dtype, cfg.num_samples,
             cfg.num_fine_samples, cfg.num_random_rays) != (
-                "siren", SIREN_WIDE_H, "bfloat16", 256, 0, 1024):
-        fail(f"phase 36 config: {cfg}")
+                fam, H, "bfloat16", 256, 0, 1024):
+        fail(f"phase {P} config: {cfg}")
     lines: list = []
-    FusedSirenRender.launches = FusedSirenRender.train_launches = 0
-    FusedSirenRender.bwd_launches = 0           # the main path's counts start here
-    FusedSirenRender.shape_launches.clear()
-    SirenField.shape_launches.clear()
+    Render.launches = Render.train_launches = 0
+    Render.bwd_launches = 0                     # the main path's counts start here
+    Render.shape_launches.clear()
+    Field.shape_launches.clear()
     t0 = time.perf_counter()
     fit(cfg, device=dev, log=lines.append)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = (FusedSirenRender.train_launches, FusedSirenRender.launches,
-              FusedSirenRender.bwd_launches)
+    counts = (Render.train_launches, Render.launches, Render.bwd_launches)
     for line in lines:
         if "[Iter" in line:
             say(f"  {line}")
-    if counts != (SIREN_WIDE_ITERS, 0, 0):
-        fail(f"phase 36 fit {label} launched (train, forward, backward) {counts}")
+    if counts != (sg.iters, 0, 0):
+        fail(f"phase {P} fit {label} launched (train, forward, backward) {counts}")
     scal = read_scalars(cfg.log_dir)
     loss = scal["loss"]
     last = max(loss)
     if not all(math.isfinite(v) for v in loss.values()) or not loss[last] < loss[0]:
-        fail(f"phase 36 {label}: the mse does not fall ({loss})")
-    say(f"phase 36 train: fit {label} {SIREN_WIDE_ITERS} iterations in {wall:.1f} s, "
+        fail(f"phase {P} {label}: the mse does not fall ({loss})")
+    say(f"phase {P} train: fit {label} {sg.iters} iterations in {wall:.1f} s, "
         f"{counts[0]} train-pass launches; mse {loss[0]:.6f} at 0 -> {loss[last]:.6f} at "
         f"{last} (ratio {loss[last] / loss[0]:.4f}); step {scal['rays_per_sec'][last]:.0f} "
         f"rays/s; {card}")
-    check_resume(torch, dev, tmp, cfg, "siren", loss, tag="wide_siren", at=SIREN_WIDE_SAVE,
-                 until=SIREN_WIDE_SAVE + 10)
+    check_resume(torch, dev, tmp, cfg, fam, loss, tag=f"wide_{fam}", at=sg.save,
+                 until=sg.save + 10)
 
-    # the render route: the forward render and its backward kernel at 1024
-    ckpt = os.path.join(cfg.save_path, f"siren_model_{SIREN_WIDE_ITERS:06d}")
+    # the render route at 1024: a SIREN's forward render and its backward
+    # kernel; a GaborNet's forward render has no VJP (nerf_tpu's raises), so
+    # its steps take the train pass outside fit
+    ckpt = os.path.join(cfg.save_path, f"{fam}_model_{sg.iters:06d}")
     state = create_train_state(cfg, device=dev)
     data = load_scene(cfg, device=dev)
     settings = render_settings_from_config(cfg)
-    fr = FusedSirenRender(state.params, cfg.near, cfg.far)
-    FusedSirenRender.launches = FusedSirenRender.bwd_launches = 0
+    fr = Render(state.params, cfg.near, cfg.far)
+    Render.launches = Render.train_launches = Render.bwd_launches = 0
     mses = []
     for i in range(2):
         g = torch.Generator(device=dev).manual_seed(cfg.seed + i)
         batch = data.pool.sample(g, cfg.num_random_rays)
         for m in state.models():
             m.zero_grad(set_to_none=True)
-        out = render_rays(state.params, batch.rays_o, batch.rays_d, settings, generator=g,
-                          viewdirs=batch.viewdirs, fused_render=fr)
-        mse = torch.mean((out.rgb - batch.rgb) ** 2)
+        if sg.render_backward:
+            out = render_rays(state.params, batch.rays_o, batch.rays_d, settings, generator=g,
+                              viewdirs=batch.viewdirs, fused_render=fr)
+            mse = torch.mean((out.rgb - batch.rgb) ** 2)
+        else:
+            try:
+                render_rays(state.params, batch.rays_o, batch.rays_d, settings, generator=g,
+                            viewdirs=batch.viewdirs, fused_render=fr)
+                fail(f"phase {P} {label}: the forward render took autograd")
+            except NotImplementedError:
+                pass
+            out = None          # coarse only: the loss is the mse
+            mse = render_rays_train(fr, state.params, batch.rays_o, batch.rays_d, settings,
+                                    batch.rgb, generator=g, viewdirs=batch.viewdirs)[0]
         mse.backward()
         state.optimizer.step()
         mses.append(float(mse.detach()))
-    counts = (FusedSirenRender.launches, FusedSirenRender.bwd_launches)
-    say(f"phase 36 train: {label} render route 2 steps, mse {mses}; launches forward "
-        f"{counts[0]}, backward {counts[1]}")
-    if counts != (2, 2) or not all(math.isfinite(v) for v in mses):
-        fail(f"phase 36 {label} render route launched {counts}, want (2, 2)")
+    counts = ((Render.launches, Render.bwd_launches) if sg.render_backward
+              else (Render.train_launches,))
+    want = (2, 2) if sg.render_backward else (2,)
+    say(f"phase {P} train: {label} render route 2 steps, mse {mses}; launches "
+        + (f"forward {counts[0]}, backward {counts[1]}" if sg.render_backward else
+           f"train {counts[0]} (the forward render refused autograd, as nerf_tpu's)"))
+    if counts != want or not all(math.isfinite(v) for v in mses):
+        fail(f"phase {P} {label} render route launched {counts}, want {want}")
     del state, data, out
     torch.cuda.empty_cache()
 
-    # served with --occupancy 64: the bake through row 9 at 1024
-    SirenField.launches = 0
+    # served with --occupancy 64: the bake through the field forward at 1024
+    Field.launches = 0
     svc = RenderService.from_checkpoint(cfg, ckpt, occupancy=64, device=dev, log=say)
-    if SirenField.launches != 4:
-        fail(f"phase 36 --occupancy 64 bake: {SirenField.launches} field launches, want 4")
-    serve(torch, dev, tmp, label, FusedSirenRender, "fused_siren_fwd", svc=svc,
+    if Field.launches != 4:
+        fail(f"phase {P} --occupancy 64 bake: {Field.launches} field launches, want 4")
+    serve(torch, dev, tmp, label, Render, f"fused_{fam}_fwd", svc=svc,
           compare=("/pose/1",), routes=("/pose/1",))
     del svc
     torch.cuda.empty_cache()
 
     # one eval CLI frame
-    out_dir = os.path.join(tmp, "wide_siren_eval")
+    out_dir = os.path.join(tmp, f"wide_{fam}_eval")
     res = run_eval_cli(["--config", path, "--checkpoint", ckpt, "--output", out_dir],
-                       {"siren": FusedSirenRender}, f"phase 36 {label}")
+                       {fam: Render}, f"phase {P} {label}")
     per_image = math.ceil(HW * HW / cfg.chunk_size)
-    if res["per_frame"]["siren"] != [per_image]:
-        fail(f"phase 36 eval: launches a frame {res['per_frame']['siren']}, want "
+    if res["per_frame"][fam] != [per_image]:
+        fail(f"phase {P} eval: launches a frame {res['per_frame'][fam]}, want "
              f"[{per_image}]")
     ref = RenderService.from_checkpoint(dataclasses.replace(cfg, use_pallas=False), ckpt,
                                         device=dev, log=lambda *a: None)
     frame = read_png(os.path.join(out_dir, "frame_0000.png"))
     diff = np.abs(frame.astype(np.float32) / 255.0
                   - ref.render_pose(spherical_orbit(1)[0], key_idx=0))
-    say(f"phase 36 eval {label} frame 0 vs the unfused render: mean abs {diff.mean():.3e} "
+    say(f"phase {P} eval {label} frame 0 vs the unfused render: mean abs {diff.mean():.3e} "
         f"(tol {SERVE_TOL_MEAN:.0e}), max abs {diff.max():.3e}; {res['ms'][0]:.1f} ms")
     if not diff.mean() <= SERVE_TOL_MEAN:
-        fail("phase 36 eval: the frame disagrees with the unfused render")
+        fail(f"phase {P} eval: the frame disagrees with the unfused render")
     del ref
     torch.cuda.empty_cache()
 
     # (c) fit() distilling that checkpoint into a seeded student first
     dcfg = dataclasses.replace(
-        cfg, num_iters=SIREN_WIDE_TUNE, distill_from=ckpt, distill_steps=SIREN_WIDE_DISTILL,
-        distill_batch=16384, save_path=os.path.join(tmp, "wide_siren_distill_models"),
-        log_dir=os.path.join(tmp, "wide_siren_distill_logs"))
+        cfg, num_iters=sg.tune, distill_from=ckpt, distill_steps=sg.distill,
+        distill_batch=16384, save_path=os.path.join(tmp, f"wide_{fam}_distill_models"),
+        log_dir=os.path.join(tmp, f"wide_{fam}_distill_logs"))
     lines = []
-    SirenField.launches = SirenField.bwd_launches = 0
-    FusedSirenRender.launches = FusedSirenRender.train_launches = 0
-    FusedSirenRender.bwd_launches = 0
+    Field.launches = Field.bwd_launches = 0
+    Render.launches = Render.train_launches = Render.bwd_launches = 0
     t0 = time.perf_counter()
     fit(dcfg, device=dev, log=lines.append)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = (SirenField.launches, SirenField.bwd_launches)
-    render = (FusedSirenRender.train_launches, FusedSirenRender.launches,
-              FusedSirenRender.bwd_launches)
+    counts = (Field.launches, Field.bwd_launches)
+    render = (Render.train_launches, Render.launches, Render.bwd_launches)
     for line in lines:
         if "Distill" in line:
             say(f"  {line}")
     dl = read_scalars(dcfg.log_dir).get("distill_loss", {})
-    say(f"phase 36 distill: fit {label} with distill_from the hidden-{SIREN_WIDE_H} "
-        f"checkpoint, {SIREN_WIDE_DISTILL} steps of 16384 points, then {SIREN_WIDE_TUNE} "
+    say(f"phase {P} distill: fit {label} with distill_from the hidden-{H} "
+        f"checkpoint, {sg.distill} steps of 16384 points, then {sg.tune} "
         f"iterations, in {wall:.1f} s; loss {dl.get(0)} at 0 -> "
-        f"{dl.get(SIREN_WIDE_DISTILL - 1)} at {SIREN_WIDE_DISTILL - 1}; field launches "
+        f"{dl.get(sg.distill - 1)} at {sg.distill - 1}; field launches "
         f"forward {counts[0]} (teacher and student), backward {counts[1]}; render train "
         f"{render[0]}")
-    if (counts != (2 * SIREN_WIDE_DISTILL, SIREN_WIDE_DISTILL)
-            or render != (SIREN_WIDE_TUNE, 0, 0)):
-        fail(f"phase 36 distillation: field launches {counts}, want "
-             f"({2 * SIREN_WIDE_DISTILL}, {SIREN_WIDE_DISTILL}); render (train, forward, "
+    if counts != (2 * sg.distill, sg.distill) or render != (sg.tune, 0, 0):
+        fail(f"phase {P} distillation: field launches {counts}, want "
+             f"({2 * sg.distill}, {sg.distill}); render (train, forward, "
              f"backward) {render}")
-    if (sorted(dl) != list(range(SIREN_WIDE_DISTILL))
-            or not dl[SIREN_WIDE_DISTILL - 1] < dl[0]):
-        fail(f"phase 36 distillation: the loss does not fall ({dl})")
+    if sorted(dl) != list(range(sg.distill)) or not dl[sg.distill - 1] < dl[0]:
+        fail(f"phase {P} distillation: the loss does not fall ({dl})")
 
-    # rows 6-10 by shape, as the wrappers counted them through (b) and (c)
-    launched = {(SIREN_WIDE_COUNTERS[cls.__name__][counter], tag, cdt): count
-                for cls in (FusedSirenRender, SirenField)
+    # the family's rows by shape, as the wrappers counted them through (b) and (c)
+    launched = {(sg.counters[cls.__name__][counter], tag, cdt): count
+                for cls in (Render, Field)
                 for (counter, tag, cdt), count in cls.shape_launches.items()}
-    say("phase 36 (b)-(c) launches by shape: "
+    say(f"phase {P} (b)-(c) launches by shape: "
         + ", ".join(f"{k[0]} {k[1]} {k[2]} {count}" for k, count in sorted(launched.items())))
-    tag = plan(SIREN_WIDE_H, d_pad(cfg.dir_encoding_dim)).tag
-    if (set(launched) != {(r, tag, "bfloat16") for r in SIREN_WIDE_ROWS}
-            or min(launched.values()) < 1):
-        fail(f"phase 36 (b)-(c): want every one of rows 6-10 at {tag} bfloat16 and no other "
-             f"shape, launched {launched}")
-    say(f"phase 36 (b)-(c): {time.perf_counter() - t_phase:.1f} s")
+    tag = sg.tag(cfg)
+    rows = tuple(r for by in sg.counters.values() for r in by.values())
+    if set(launched) != {(r, tag, "bfloat16") for r in rows} or min(launched.values()) < 1:
+        fail(f"phase {P} (b)-(c): want every one of rows {sg.rows} at {tag} bfloat16 and no "
+             f"other shape, launched {launched}")
+    say(f"phase {P} (b)-(c): {time.perf_counter() - t_phase:.1f} s")
     return launched
 
 
@@ -6158,62 +6505,29 @@ def bench_gabor(torch, dev) -> float:
                        "protocol, flat GaborNet bf16 1024x256)")
 
 
-def wide_rows(wide: dict, launched: dict) -> dict:
-    """Rows 1-5's entries at the phase-35 shapes, by row: each case's
-    time, plain time, bound and error (bfloat16 and float32; the train pass
-    and render backward at 1024 x 192, the fields at 65,536 points) and its
-    launches on phase 35's main path (``launched``, by (row, plan tag,
-    dtype), as the wrappers counted them)."""
-    rows = {}
-    for h, lp, ld, pl in wide_shapes():
-        case = f"h{h} L{lp}/{ld}"
-        for name in ("fused_render_fwd", "fused_render_train", "fused_render_bwd",
-                     "fused_nerf_fwd", "fused_nerf_bwd"):
-            for cdt in ("bfloat16", "float32"):
-                if name in ("fused_render_train", "fused_render_bwd"):
-                    c = wide[(name, case, cdt, WIDE_TRAIN_S[-1])]
-                elif name.startswith("fused_nerf"):
-                    c = dict(wide[(name, case, cdt)][65536], err=wide[(name, case, cdt)]["err"])
-                else:
-                    c = wide[(name, case, cdt)]
-                rows.setdefault(name, {})[f"{pl.tag} {cdt}"] = {
-                    "launches": launched.get((name, pl.tag, cdt), 0),
-                    "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
-                    "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
-    return rows
-
-
-def siren_wide_rows(wide: dict, launched: dict) -> dict:
-    """Rows 6-10's entries at the phase-36 shapes, by row: each case's
-    time, plain time, bound and error (bfloat16 and float32; the renders at
-    1024 x 256, the fields at 65,536 points) and its launches on phase 36's
-    main path (``launched``, by (row, plan tag, dtype), as the wrappers
-    counted them)."""
-    rows = {}
-    for h, ld, pl in siren_wide_shapes():
-        case = f"h{h} L_d{ld}"
-        for name in SIREN_WIDE_ROWS:
-            for cdt in ("bfloat16", "float32"):
-                c = wide[(name, case, cdt)]
-                rows.setdefault(name, {})[f"{pl.tag} {cdt}"] = {
-                    "launches": launched.get((name, pl.tag, cdt), 0),
-                    "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
-                    "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
-    return rows
+def wide_phase(torch, dev, tmp: str, card: str, phase: int) -> dict:
+    """Phase 35, 36 or 37: (a) the family's rows at its wider shapes
+    (check_wide_family), then (b)-(c) its config at hidden 1024 (lego.txt's
+    wide_lego; lego_siren.txt's, SIREN or GaborNet, wide_sg); returns the
+    rows' numbers by row and shape (family_wide_rows)."""
+    fam = {35: nerf_wide_family, 36: siren_wide_family, 37: gabor_wide_family}[phase](torch, dev)
+    wide = check_wide_family(torch, dev, card, fam)
+    lap(f"{phase}a")
+    if phase == 35:
+        launched = wide_lego(torch, dev, tmp, card)
+    else:
+        launched = wide_sg(torch, dev, tmp, card, siren_sg() if phase == 36 else gabor_sg())
+    lap(f"{phase}bc")
+    return family_wide_rows(fam, wide, launched)
 
 
 def phase_only(torch, dev, card: str, phase: int) -> int:
-    """``chip_smoke.py --phase 35`` or ``--phase 36``: the build (the
-    default libraries and the phase's) and that phase alone, then its
-    rows' numbers and the last line."""
+    """``chip_smoke.py --phase 35``, ``36`` or ``37``: the build (the
+    default libraries and the phase's) and that phase alone, then its rows'
+    numbers and the last line."""
     build_wide(torch, (phase,))
     with tempfile.TemporaryDirectory() as tmp:
-        if phase == 35:
-            wide = check_wide_kernels(torch, dev, card)
-            rows = wide_rows(wide, wide_lego(torch, dev, tmp, card))
-        else:
-            wide = check_siren_wide_kernels(torch, dev, card)
-            rows = siren_wide_rows(wide, wide_siren(torch, dev, tmp, card))
+        rows = wide_phase(torch, dev, tmp, card, phase)
     say(json.dumps({f"phase{phase}": rows}))
     say(f"chip_smoke: wall {time.perf_counter() - T_START:.1f} s")
     say(f"card: {card}")
@@ -6225,8 +6539,8 @@ def phase_only(torch, dev, card: str, phase: int) -> int:
 
 def main(argv: list | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--phase", "35"], ["--phase", "36"]):
-        print("usage: chip_smoke.py [--phase 35 | --phase 36]", file=sys.stderr)
+    if argv not in ([], ["--phase", "35"], ["--phase", "36"], ["--phase", "37"]):
+        print("usage: chip_smoke.py [--phase 35 | --phase 36 | --phase 37]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -6360,15 +6674,12 @@ def main(argv: list | None = None) -> int:
         torch.cuda.empty_cache()
         say(f"phase 35: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still held on the card "
             "after phases 3-34")
-        lap("35-36 build")
-        wide = check_wide_kernels(torch, dev, card)
-        lap("35a")
-        siren_wide = check_siren_wide_kernels(torch, dev, card)
-        lap("36a")
-        wide_launched = wide_lego(torch, dev, tmp, card)
-        lap("35bc")
-        siren_wide_launched = wide_siren(torch, dev, tmp, card)
-        lap("36bc")
+        lap("35-37 build")
+        wide_rows = {}
+        for phase in (35, 36, 37):
+            wide_rows.update(wide_phase(torch, dev, tmp, card, phase))
+            gc.collect()
+            torch.cuda.empty_cache()
     bench_headline(torch, dev)
     bench_siren(torch, dev)
     bench_gabor(torch, dev)
@@ -6468,8 +6779,7 @@ def main(argv: list | None = None) -> int:
              scatter_checks["step"], max(v["err"] for v in scatter_checks.values()))):
         kernels.append(dict(row(name, source, f"{nerf_tpu}{line}", launched, c, err),
                             library_ms=c["library_ms"]))
-    for k, by_width in {**wide_rows(wide, wide_launched),
-                        **siren_wide_rows(siren_wide, siren_wide_launched)}.items():
+    for k, by_width in wide_rows.items():
         for entry in kernels:
             if entry["name"] == k:
                 entry["widths"] = by_width

@@ -50,6 +50,12 @@
 //         columns (a fixed shuffle tree), added to the point's column.
 //   4. A second small kernel adds the per-CTA partials in CTA order.
 //      Nothing is atomic, so a step is deterministic from run to run.
+// At other widths and depths (hidden 512-1024, d_pad 64, any number of
+// stages) the plan of ops/cuda/gabor_plan.py comes as -D flags and sets
+// the chunks, the activation tiles and the CTAs an SM
+// (fused_render_gabor_common.cuh, fused_render_gabor_tc_common.cuh); the
+// figures above are the default shape's (hidden 256, 8 stages).
+//
 // Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared library
 // with a plain C interface (loaded by ctypes).
 
@@ -136,8 +142,7 @@ gabor_field_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ 
     const float* fs = fpack + stage * F_STRIDE;
     float* pf = part + N_TOT + stage * F_STRIDE;
     // a. thread = column: bank gradients over the CTA's points
-    {
-      const int c = tid;
+    for (int c = tid; c < H; c += THREADS) {
       const float mhalf_gam = __fmul_rn(-0.5f, __ldg(fs + F_GAM + c));
       float s_om[3] = {0.f, 0.f, 0.f}, s_mu[3] = {0.f, 0.f, 0.f};
       float s_ph = 0.f, s_m2 = 0.f, s_gam = 0.f;

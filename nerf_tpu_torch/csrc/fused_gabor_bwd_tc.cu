@@ -67,6 +67,12 @@
 // gradient partial is 2.32 MB (the 23 gradients and the banks'); the run
 // length sets how many are written and read back.
 //
+// At other widths and depths (hidden 512-1024, d_pad 64, any number of
+// stages) the plan of ops/cuda/gabor_plan.py comes as -D flags and sets
+// the chunks, the activation tiles and the CTAs an SM
+// (fused_render_gabor_common.cuh, fused_render_gabor_tc_common.cuh); the
+// figures above are the default shape's (hidden 256, 8 stages).
+//
 // Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared
 // library with a plain C interface (loaded by ctypes).
 
@@ -78,7 +84,7 @@ namespace {
 constexpr int N_GRAD = N_TOT + N_F;                    // the MLP's, then the banks'
 constexpr int FIELD_NPART = (N_GRAD + 1 + 3) / 4 * 4;  // per-CTA: gradients, a zero
 constexpr int PT_SUMS = 7;    // a point cotangent's sums a row: dsinarg om^T (3), dq mu (3), dq
-static_assert(WARPS * TC_P * PT_SUMS * 4 <= WST_DACT_BYTES, "row sums fit the weight stages");
+static_assert(WARPS * TC_PB * PT_SUMS * 4 <= WST_DACT_BYTES, "row sums fit the weight stages");
 static_assert(C_DP + 3 <= N_COLS, "the point cotangent's columns");
 
 __device__ __forceinline__ unsigned char* cta_stash(unsigned char* scratch, int b, int cap) {
@@ -102,10 +108,10 @@ gabor_field_bwd_tc_fwd(const float* __restrict__ pts, const float* __restrict__ 
   load_point_chunk_tc(pts, dirs, p0, nvalid, real_d, sm);
   tile_out(sm.denc, LDD, DP, st.denc, l0);
   network_tc<true>(vec, wmat, sigma_mul, rgb_mul, sm, st, l0, cap,
-                   [&](float (&acc)[4][4][4], int stage, bool first, bool last,
-                       const float* bias, const float* ws, float (&sp)[4][2]) {
+                   [&](float (&acc)[MT_F][4][4], int nb, int stage, bool first, bool last,
+                       const float* bias, const float* ws, bf16* out, float (&sp)[MT_F][2]) {
                      PointFilterTc f{fpack + stage * F_STRIDE, sm, nvalid};
-                     stage_epilogue_tc<true>(acc, f, first, last, bias, ws, sm, sp,
+                     stage_epilogue_tc<true>(acc, nb, f, first, last, bias, ws, out, sp,
                                              first ? nullptr : st.u[stage - 1], st.z8f, l0);
                    });
 }
@@ -139,13 +145,14 @@ struct PointStages {
     float x[3] = {0.f, 0.f, 0.f};
     if (l < npts)
       for (int k = 0; k < 3; ++k) x[k] = pts[static_cast<size_t>(p0 + l) * 3 + k];
-    for (int k = 0; k < 3; ++k) s.col[(BC_X + k) * TC_P + tid] = round_bf16(x[k]);
-    s.col[BC_XX * TC_P + tid] =
+    for (int k = 0; k < 3; ++k) s.col[(BC_X + k) * TC_PB + tid] = round_bf16(x[k]);
+    s.col[BC_XX * TC_PB + tid] =
         __fadd_rn(__fadd_rn(__fmul_rn(x[0], x[0]), __fmul_rn(x[1], x[1])), __fmul_rn(x[2], x[2]));
   }
 
   // The epilogue of filter stage `stage` over the chunk from l0, the warp's
-  // 64 x 32 tile of dz = acc (+ dsig ws: DSIG). For each element of a real
+  // TC_PB x 32 tile of dz = acc (+ dsig ws: DSIG) in the block of columns
+  // from nb. For each element of a real
   // point: the filter (PointFilterTc::full), dg = dz (FIRST) or dz u, du =
   // dz g, dsinarg, da and dq; du rounded to act1 and summed unrounded into
   // cs; the nine bank gradients of each column into sm.run (the thread's
@@ -153,22 +160,22 @@ struct PointStages {
   // of each row over the thread's 8 columns, then the row's 4 lanes, into
   // the weight stages (after_chunk adds the 8 warps).
   template <bool FIRST, bool DSIG>
-  __device__ __forceinline__ void chunk(float (&acc)[4][4][4], int stage, int l0,
+  __device__ __forceinline__ void chunk(float (&acc)[MT_B][4][4], int nb, int stage, int l0,
                                         const float* __restrict__ wsig, const BwdSmem& s,
                                         float (&cs)[4][2]) const {
     const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3, warp = threadIdx.x >> 5;
     const int n0 = warp * 32, nvalid = npts - l0;
     const float* fs = fpack + stage * F_STRIDE;
-    float pa[4][2][PT_SUMS];
+    float pa[MT_B][2][PT_SUMS];
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < MT_B; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int q = 0; q < PT_SUMS; ++q) pa[mt][h][q] = 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int col = n0 + j * 8 + 2 * c;
+      const int lc = n0 + j * 8 + 2 * c, col = nb + lc;   // in the block, in the layer
       float2 om[3], mu[3];
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
@@ -186,15 +193,15 @@ struct PointStages {
       }
       float sums[NRUN][2] = {};    // om (3), mu (3), phi, |mu|^2, gamma by column
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
+      for (int mt = 0; mt < MT_B; ++mt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = mt * 16 + g + 8 * h;
           float du[2] = {0.f, 0.f};
           if (row < nvalid) {
-            const float xr[3] = {s.col[BC_X * TC_P + row], s.col[(BC_X + 1) * TC_P + row],
-                                 s.col[(BC_X + 2) * TC_P + row]};
-            const float xx = s.col[BC_XX * TC_P + row];
+            const float xr[3] = {s.col[BC_X * TC_PB + row], s.col[(BC_X + 1) * TC_PB + row],
+                                 s.col[(BC_X + 2) * TC_PB + row]};
+            const float xx = s.col[BC_XX * TC_PB + row];
 #pragma unroll
             for (int u = 0; u < 2; ++u) {
               const float o0 = u ? om[0].y : om[0].x, o1 = u ? om[1].y : om[1].x,
@@ -206,10 +213,10 @@ struct PointStages {
                                                         u ? m2.y : m2.x, hg[u]);
               float x = acc[mt][j][2 * h + u];
               if constexpr (DSIG)
-                x = __fadd_rn(x, __fmul_rn(s.col[BC_DSIG * TC_P + row], ws[u]));
+                x = __fadd_rn(x, __fmul_rn(s.col[BC_DSIG * TC_PB + row], ws[u]));
               float dg = x;
               if constexpr (!FIRST) {
-                dg = __fmul_rn(x, s.u[row * LDU + col + u]);
+                dg = __fmul_rn(x, s.u[row * LDU + lc + u]);
                 du[u] = __fmul_rn(x, __fmul_rn(f.sn, f.E));
               }
               const float dsa = __fmul_rn(__fmul_rn(dg, cosine<true>(f.sinarg)), f.E);
@@ -237,7 +244,7 @@ struct PointStages {
           if constexpr (!FIRST) {
             cs[j][0] += du[0];
             cs[j][1] += du[1];
-            put2(s.act1 + row * LDS + col, du[0], du[1]);
+            put2(s.act1 + row * LDN + lc, du[0], du[1]);
           }
         }
 #pragma unroll
@@ -257,7 +264,7 @@ struct PointStages {
     }
     float* red = reinterpret_cast<float*>(s.wst);
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < MT_B; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -265,7 +272,7 @@ struct PointStages {
           float v = pa[mt][h][q];
           v += __shfl_xor_sync(0xffffffffu, v, 1);
           v += __shfl_xor_sync(0xffffffffu, v, 2);
-          if (c == 0) red[(warp * TC_P + mt * 16 + g + 8 * h) * PT_SUMS + q] = v;
+          if (c == 0) red[(warp * TC_PB + mt * 16 + g + 8 * h) * PT_SUMS + q] = v;
         }
   }
 
@@ -275,12 +282,12 @@ struct PointStages {
   __device__ void after_chunk(int l0, const BwdSmem& s) const {
     const float* red = reinterpret_cast<const float*>(s.wst);
     const int tid = threadIdx.x;
-    if (tid < 3 * TC_P) {
+    if (tid < 3 * TC_PB) {
       const int row = tid / 3, k = tid % 3, l = l0 + row;
       if (l < npts) {
         float a = 0.f, m = 0.f, sq = 0.f;
         for (int w = 0; w < WARPS; ++w) {
-          const float* r = red + (w * TC_P + row) * PT_SUMS;
+          const float* r = red + (w * TC_PB + row) * PT_SUMS;
           a += r[k];
           m += r[3 + k];
           sq += r[6];
@@ -296,16 +303,17 @@ struct PointStages {
   // the stage's bank gradients to the partial, a thread a column; the
   // running sums start again at zero
   __device__ void end_stage(int stage, const BwdSmem& s) const {
-    const int col = threadIdx.x;
     float* o = pf + stage * F_STRIDE;
-    for (int k = 0; k < 3; ++k) {
-      o[F_OM + k * H + col] = s.run[k * H + col];
-      o[F_MU + k * H + col] = s.run[(3 + k) * H + col];
+    for (int col = threadIdx.x; col < H; col += THREADS) {
+      for (int k = 0; k < 3; ++k) {
+        o[F_OM + k * H + col] = s.run[k * H + col];
+        o[F_MU + k * H + col] = s.run[(3 + k) * H + col];
+      }
+      o[F_PH + col] = s.run[6 * H + col];
+      o[F_M2 + col] = s.run[7 * H + col];
+      o[F_GAM + col] = s.run[8 * H + col];
+      for (int q = 0; q < NRUN; ++q) s.run[q * H + col] = 0.f;
     }
-    o[F_PH + col] = s.run[6 * H + col];
-    o[F_M2 + col] = s.run[7 * H + col];
-    o[F_GAM + col] = s.run[8 * H + col];
-    for (int q = 0; q < NRUN; ++q) s.run[q * H + col] = 0.f;
   }
 };
 

@@ -33,6 +33,12 @@
 // each of the thread's 8 rows). The chunk's rounded points and |x|^2 sit in
 // shared-memory columns.
 //
+// At other widths and depths (hidden 512-1024, d_pad 64, any number of
+// stages) the plan of ops/cuda/gabor_plan.py comes as -D flags and sets
+// the chunks, the activation tiles and the CTAs an SM
+// (fused_render_gabor_common.cuh, fused_render_gabor_tc_common.cuh); the
+// figures above are the default shape's (hidden 256, 8 stages).
+//
 // Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared
 // library with a plain C interface (loaded by ctypes).
 
@@ -55,11 +61,11 @@ gabor_field_fwd_tc_kernel(const float* __restrict__ pts, const float* __restrict
   const TcStash none{};
   load_point_chunk_tc(pts, dirs, p0, nvalid, real_d, sm);
   network_tc<false>(vec, wmat, sigma_mul, rgb_mul, sm, none, 0, 0,
-                    [&](float (&acc)[4][4][4], int stage, bool first, bool last,
-                        const float* bias, const float* ws, float (&sp)[4][2]) {
+                    [&](float (&acc)[MT_F][4][4], int nb, int stage, bool first, bool last,
+                        const float* bias, const float* ws, bf16* out, float (&sp)[MT_F][2]) {
                       PointFilterTc f{fpack + stage * F_STRIDE, sm, nvalid};
-                      stage_epilogue_tc<false>(acc, f, first, last, bias, ws, sm, sp, nullptr,
-                                               nullptr, 0);
+                      stage_epilogue_tc<false>(acc, nb, f, first, last, bias, ws, out, sp,
+                                               nullptr, nullptr, 0);
                     });
   if (tid < nvalid) sigma_out[p0 + tid] = sm.col[GC_SIGMA * TC_P + tid];
   if (tid < 3 * TC_P) {

@@ -31,6 +31,17 @@
 // the TPU kernels' _trig. In float32 they are sinf/cosf: |A + t B| reaches
 // hundreds of radians, so no __sinf and no fast math. The filters
 // themselves are never rounded to bf16.
+//
+// Widths and depth: hidden 256 with a 32-column direction encoding, 8
+// stages and 64-point chunks and, built with their plan's -D flags
+// (ops/cuda/gabor_plan.py: -DNERF_H, -DNERF_DP, -DNERF_P, ..., and
+// -DGABOR_NL for the stages), hidden 512 with 32-point chunks and 768 and
+// 1024 with 16-point chunks (both activation buffers stay in shared
+// memory), the direction encoding padded to 64 columns, and any number of
+// stages from 1. Every product runs in blocks of NB = 256 output columns
+// (the rgb head's of 128), the weight stage one block's. A block changes
+// which thread computes an output, not the order of its sum over k, so
+// hidden 256 computes what it did with one.
 
 #pragma once
 
@@ -40,14 +51,18 @@ namespace gabor {
 
 using namespace nerf;
 
-constexpr int NL = 8;              // filter stages (the only depth supported)
+#ifndef GABOR_NL
+#define GABOR_NL 8
+#endif
+constexpr int NL = GABOR_NL;       // filter stages
+constexpr int NU = NL > 1 ? NL - 1 : 1;   // slots of the u_2..u_NL stash (none used at NL = 1)
 constexpr int NH = NL * H;         // coefficient columns of one ray
 constexpr int NCOEF = 5;           // A, B, P, Q, R
-static_assert(THREADS == H, "the per-ray passes give each thread one column");
+static_assert(NL >= 1, "a GaborNet has at least one stage");
 
 // Packed matrix buffer: each matrix (K, N) row-major, (in, out) order: w1..w7
 // (H x H), wre, wr0f (H x HR), wr0d (DP x HR, zero rows past the real
-// encoding), wr1 (HR x 8, zero columns past 3).
+// encoding), wr1 (HR x 8, zero columns past 3). For NL = 1 there is no w_i.
 __host__ __device__ constexpr int off_w(int i) { return (i - 1) * H * H; }  // i = 1..7
 constexpr int OFF_WRE = (NL - 1) * H * H;
 constexpr int OFF_WR0F = OFF_WRE + H * H;
@@ -63,12 +78,15 @@ constexpr int OFF_BR0 = (NL + 1) * H;
 constexpr int OFF_BR1 = OFF_BR0 + HR;
 constexpr int OFF_BS = OFF_BR1 + 8;
 constexpr int N_B = OFF_BS + 1;
+static_assert(static_cast<long long>(NL + 2) * H * H < (1LL << 31),
+              "packed offsets exceed an int");
 
 // Shared memory (floats) after the two activation buffers: the direction
 // encoding, the per-point chunk columns (t, t^2, delta, sigma, rgb), each
 // point's coefficient row (int: ray * NH, -1 past the chunk's valid
 // points), the field kernels' points (rounded to the compute dtype) and
-// their squared norms, then the weight stage (2 x KT x H of float32).
+// their squared norms, then the weight stage (2 x KT x NB of float32: a
+// product's block of columns).
 constexpr int SM_DENC = SM_ACT1 + H * LDA;
 constexpr int SM_T = SM_DENC + DP * LDA;
 constexpr int SM_T2 = SM_T + P;
@@ -78,7 +96,7 @@ constexpr int SM_RGB = SM_SIGMA + P;         // 3 x P
 constexpr int SM_ROW = SM_RGB + 3 * P;
 constexpr int SM_X = SM_ROW + P;             // field: points (3 x P), |x|^2 (P)
 constexpr int SM_WST = SM_X + 4 * P;
-constexpr int SMEM_BYTES = SM_WST * 4 + 2 * KT * H * 4;
+constexpr int SMEM_BYTES = SM_WST * 4 + 2 * KT * NB * 4;
 static_assert(SM_WST % 4 == 0, "weight stage must be 16-byte aligned");
 static_assert(SMEM_BYTES <= 232448, "exceeds the per-block shared memory");
 
@@ -115,17 +133,19 @@ __device__ __forceinline__ Filter filter_at(float a, float b, float p, float q,
 }
 
 constexpr int DENC_LD = 64;   // stash stride of denc (dweight reads 64 columns)
+static_assert(DP <= DENC_LD, "a direction encoding wider than its stash");
 
 // Where the train kernel keeps one CTA's activations, point-major with the
 // CTA-local point index as the row: z[0..7] = z_1..z_8 (z_1..z_7 rounded to
 // the compute dtype, as the products read them; z_8 unrounded: the density
-// row reads it in float32), u[0..6] = u_2..u_8 (float32), feat, y, denc
+// row reads it in float32), u[0..6] = u_2..u_8 (float32; NL and NL - 1
+// of them at other depths), feat, y, denc
 // (stride DENC_LD, columns past DP zero), and the per-point columns
 // sigma_pre and rgb (3). The filters are not stashed: the backward
 // evaluates them again from the coefficients, bit for bit.
 struct Stash {
   float* z[NL];
-  float* u[NL - 1];
+  float* u[NU];
   float* feat;
   float* y;
   float* denc;
@@ -168,28 +188,29 @@ struct RayFilters {
   }
 };
 
-// Stage `stage` (0-based) of a chunk, in a gemm's epilogue: for each of the
-// thread's 8 points x 8 columns, the filter g from `filt` (RayFilters, or
-// the field kernels' PointFilters), z = g (FIRST) or z = (acc + bias) * g.
-// The z go to out_s (feature-major, rounded to bf16 in bf16 mode). LAST
-// also adds z . ws of the thread's columns into part, in float32 on the
-// unrounded z. With STASH, z goes to zs (unrounded when LAST, else as
-// stored) and u = acc + bias to us, point-major, row l0+ty*8+i, stride H.
+// Stage `stage` (0-based) of a chunk, in a gemm's epilogue over the block of
+// 256 columns from nb: for each of the thread's PT points x 8 columns, the
+// filter g from `filt` (RayFilters, or the field kernels' PointFilters), z
+// = g (FIRST) or z = (acc + bias) * g. The z go to out_s (feature-major,
+// rounded to bf16 in bf16 mode). LAST also adds z . ws of the thread's
+// columns into part, in float32 on the unrounded z. With STASH, z goes to
+// zs (unrounded when LAST, else as stored) and u = acc + bias to us,
+// point-major, row l0+ty*PT+i, stride H.
 template <bool BF16, bool STASH, bool FIRST, bool LAST, typename Filt>
-__device__ __forceinline__ void stage_epilogue(const float (&acc)[8][8],
+__device__ __forceinline__ void stage_epilogue(const float (&acc)[PT][8],
                                                const float* __restrict__ bias,
                                                const Filt& filt, int stage,
                                                float* out_s, float* zs, float* us,
                                                size_t l0, const float* __restrict__ ws,
-                                               float (&part)[8]) {
+                                               float (&part)[PT], int nb) {
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
-    const int c0 = q * 128 + tx * 4;
-    float o[4][8];
+    const int c0 = nb + q * 128 + tx * 4;
+    float o[4][PT];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int p = ty * 8 + i;
+    for (int i = 0; i < PT; ++i) {
+      const int p = ty * PT + i;
       float g[4];
       filt(stage, p, c0, g);
       float zv[4], uv[4];
@@ -215,11 +236,7 @@ __device__ __forceinline__ void stage_epilogue(const float (&acc)[8][8],
       }
     }
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float* dst = out_s + (c0 + u) * LDA + ty * 8;
-      *reinterpret_cast<float4*>(dst) = make_float4(o[u][0], o[u][1], o[u][2], o[u][3]);
-      *reinterpret_cast<float4*>(dst + 4) = make_float4(o[u][4], o[u][5], o[u][6], o[u][7]);
-    }
+    for (int u = 0; u < 4; ++u) store_pts(out_s + (c0 + u) * LDA + ty * PT, o[u]);
   }
 }
 
@@ -360,7 +377,11 @@ __device__ void load_point_chunk(const float* __restrict__ pts,
 // with the filters of `filt`: leaves sigma (after the ReLU and sigma_mul)
 // and rgb of each of its P points in shared memory. With STASH what the
 // backward needs also goes to `st` at local rows l0.. (all P rows; the
-// ones past the chunk's points have zero filters).
+// ones past the chunk's points have zero filters). Stage 1 writes act0 and
+// stage l >= 2 reads act0 (l even) or act1 (l odd) and writes the other;
+// the remap reads the last stage's buffer zb and writes the other, fb; the
+// rgb head writes y into zb. Each product runs in blocks of NB output
+// columns (one at hidden 256), the rgb head's in blocks of 128.
 template <bool BF16, bool STASH, typename WT, typename Filt>
 __device__ void mlp_chunk(const float* __restrict__ vec, const WT* __restrict__ wmat,
                           float sigma_mul, float rgb_mul, const Filt& filt,
@@ -383,37 +404,44 @@ __device__ void mlp_chunk(const float* __restrict__ vec, const WT* __restrict__ 
 #define US(i) (STASH ? st.u[i] : nullptr)
 
   const int tx = tid & 31, ty = tid >> 5;
-  float acc2[8][8];
-  float acc1[8][4];
-  float part[8];
+  float part[PT];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) part[i] = 0.f;
+  for (int i = 0; i < PT; ++i) part[i] = 0.f;
 
-  // ---- stage 1: z_1 = g_1 (-> act0) ----
-  zero<2>(acc2);
-  stage_epilogue<BF16, STASH, true, false>(acc2, nullptr, filt, 0, act0, ZS(0), nullptr,
-                                           l0, nullptr, part);
-  // ---- stages 2..7, ping-pong between the activation buffers ----
+  // ---- stage 1: z_1 = g_1 (-> act0; with NL = 1 also the density row) ----
+  for (int nb = 0; nb < H; nb += NB) {
+    float acc2[PT][8];
+    zero<2>(acc2);
+    stage_epilogue<BF16, STASH, true, NL == 1>(acc2, nullptr, filt, 0, act0, ZS(0), nullptr,
+                                               l0, NL == 1 ? vec + OFF_WS : nullptr, part, nb);
+  }
+  // ---- stages 2..NL, ping-pong between the activation buffers; stage NL
+  // also sums the density row ----
 #pragma unroll 1
-  for (int l = 2; l < NL; ++l) {
+  for (int l = 2; l <= NL; ++l) {
     const float* src = (l & 1) ? act1 : act0;
     float* dst = (l & 1) ? act0 : act1;
-    zero<2>(acc2);
-    gemm_acc<H, 2>(acc2, src, wmat + off_w(l - 1), wst);
-    stage_epilogue<BF16, STASH, false, false>(acc2, vec + (l - 2) * H, filt, l - 1, dst,
-                                              ZS(l - 1), US(l - 2), l0, nullptr, part);
+    for (int nb = 0; nb < H; nb += NB) {
+      float acc2[PT][8];
+      zero<2>(acc2);
+      gemm_acc<H, 2>(acc2, src, wmat + off_w(l - 1) + nb, wst, H);
+      if (l < NL)
+        stage_epilogue<BF16, STASH, false, false>(acc2, vec + (l - 2) * H, filt, l - 1, dst,
+                                                  ZS(l - 1), US(l - 2), l0, nullptr, part, nb);
+      else
+        stage_epilogue<BF16, STASH, false, true>(acc2, vec + (l - 2) * H, filt, l - 1, dst,
+                                                 ZS(l - 1), US(l - 2), l0, vec + OFF_WS,
+                                                 part, nb);
+    }
   }
-  // ---- stage 8 (act0 -> act1) and the density row ----
-  zero<2>(acc2);
-  gemm_acc<H, 2>(acc2, act0, wmat + off_w(NL - 1), wst);
-  stage_epilogue<BF16, STASH, false, true>(acc2, vec + (NL - 2) * H, filt, NL - 1, act1,
-                                           ZS(NL - 1), US(NL - 2), l0, vec + OFF_WS, part);
 #undef ZS
 #undef US
-  // each thread summed z8 . ws over its 8 columns; the warp's 32 lanes (same
-  // 8 points, all 256 columns) reduce by shuffle
+  float* zb = (NL & 1) ? act0 : act1;
+  float* fb = (NL & 1) ? act1 : act0;
+  // each thread summed z_NL . ws over its 8 columns of every block; the
+  // warp's 32 lanes (same PT points, all H columns) reduce by shuffle
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < PT; ++i) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       part[i] += __shfl_xor_sync(0xffffffffu, part[i], off);
@@ -421,27 +449,33 @@ __device__ void mlp_chunk(const float* __restrict__ vec, const WT* __restrict__ 
   if (tx == 0) {
     const float bs = __ldg(vec + OFF_BS);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < PT; ++i) {
       const float sp_pre = part[i] + bs;
-      sig_s[ty * 8 + i] = fmaxf(sp_pre, 0.f) * sigma_mul;
-      if (STASH) st.sigma_pre[l0 + ty * 8 + i] = sp_pre;
+      sig_s[ty * PT + i] = fmaxf(sp_pre, 0.f) * sigma_mul;
+      if (STASH) st.sigma_pre[l0 + ty * PT + i] = sp_pre;
     }
   }
-  // ---- feature remap: no activation (act1 -> act0) ----
-  zero<2>(acc2);
-  gemm_acc<H, 2>(acc2, act1, wmat + OFF_WRE, wst);
-  epilogue<2, BF16>(acc2, vec + OFF_BRE, false, act0, STASH ? st.feat : nullptr, H, l0);
-  // ---- rgb head: relu layer on [feat, denc] (-> act1), then the output ----
-  zero<1>(acc1);
-  gemm_acc<H, 1>(acc1, act0, wmat + OFF_WR0F, wst);
-  gemm_acc<DP, 1>(acc1, denc, wmat + OFF_WR0D, wst);
-  epilogue<1, BF16>(acc1, vec + OFF_BR0, true, act1, STASH ? st.y : nullptr, HR, l0);
+  // ---- feature remap: no activation (zb -> fb) ----
+  for (int nb = 0; nb < H; nb += NB) {
+    float acc2[PT][8];
+    zero<2>(acc2);
+    gemm_acc<H, 2>(acc2, zb, wmat + OFF_WRE + nb, wst, H);
+    epilogue<2, BF16>(acc2, vec + OFF_BRE, false, fb, STASH ? st.feat : nullptr, H, l0, nb);
+  }
+  // ---- rgb head: relu layer on [feat, denc] (fb -> zb), then the output ----
+  for (int nb = 0; nb < HR; nb += 128) {
+    float acc1[PT][4];
+    zero<1>(acc1);
+    gemm_acc<H, 1>(acc1, fb, wmat + OFF_WR0F + nb, wst, HR);
+    gemm_acc<DP, 1>(acc1, denc, wmat + OFF_WR0D + nb, wst, HR);
+    epilogue<1, BF16>(acc1, vec + OFF_BR0, true, zb, STASH ? st.y : nullptr, HR, l0, nb);
+  }
   __syncthreads();
   if (tid < 3 * P) {
     const int c = tid / P, p = tid % P;
     float z = 0.f;
     for (int k = 0; k < HR; ++k)
-      z = fmaf(act1[k * LDA + p], load1(wmat + OFF_WR1 + k * 8 + c), z);
+      z = fmaf(zb[k * LDA + p], load1(wmat + OFF_WR1 + k * 8 + c), z);
     z = (z + __ldg(vec + OFF_BR1 + c)) * rgb_mul;
     const float r = 1.f / (1.f + expf(-z));
     rgb_s[c * P + p] = r;
@@ -511,14 +545,15 @@ __device__ Scratch carve(float* p, int cap) {
 // l < cap_c, from the stash and the cotangent columns dzr1 (the sigmoid
 // input's, times rgb_mul) and dsig (the density pre-activation's, times
 // sigma_mul): the heads as in the NeRF train kernel (relu rgb head, no
-// activation on the remap), then stage by stage, 8 down to 1.
+// activation on the remap), then stage by stage, NL down to 1.
 // `filters(stage, dz, u)` takes each stage's dz (points x LDZ) to the
 // filter's cotangent dg = dz * u (stage > 0; else dg = dz) and, for stage
 // > 0, replaces dz in place by du = dz * g; it ends past a barrier. Then
 // dW_{i-1} = z_{i-1}^T du_i (one product over the CTA's points with its 64
-// x 256 output strip in registers), db_{i-1} a column sum, and dz_{i-1} =
+// x 256 output strips in registers), db_{i-1} a column sum, and dz_{i-1} =
 // du_i W_{i-1}^T on the forward's gemm against the transposed matrices
-// wmat_t; the gradients go once per CTA into `part` (offsets of the packed
+// wmat_t, in blocks of NB columns; the gradients go once per CTA into
+// `part` (offsets of the packed
 // layout, the vectors from N_W). `on_dzr0(dzr0)` runs once dzr0 (points x
 // HR at stride LDZ) is complete, before its buffer is reused (the field
 // backward takes the direction cotangent there). Rounding in BF16 mode: both
@@ -583,10 +618,10 @@ __device__ void net_backward(const Scratch& sc, size_t cz, const float* __restri
   __syncthreads();
   // rgb hidden layer: dfeat = dzr0 wr0f^T; wr0f, wr0d, br0
   dact<HR, BF16, Epi::None, false>(dzA, wmat_t + OFF_WR0F, nullptr, 0, nullptr,
-                                   nullptr, 1.f, dzB, cap_c, smem, wst);
-  dweight<1, false, BF16>(sc.st.feat, H, H, H, dzA, cap_c, part + OFF_WR0F, smem);
+                                   nullptr, 1.f, dzB, cap_c, smem, wst, H);
+  dweight<1, false, BF16>(sc.st.feat, H, H, H, dzA, cap_c, part + OFF_WR0F, smem, HR);
   dweight<1, false, BF16>(sc.st.denc, DENC_LD, DENC_LD, DP, dzA, cap_c,
-                          part + OFF_WR0D, smem);
+                          part + OFF_WR0D, smem, HR);
   colsum(dzA, HR, cap_c, pvec + OFF_BR0);
   __syncthreads();
   on_dzr0(static_cast<const float*>(dzA));
@@ -594,11 +629,11 @@ __device__ void net_backward(const Scratch& sc, size_t cz, const float* __restri
   // (dact's first barrier also orders on_dzr0's reads of dzA before its
   // writes)
   dact<H, BF16, Epi::None, true>(dzB, wmat_t + OFF_WRE, nullptr, 0, dsig,
-                                 vec + OFF_WS, 1.f, dzA, cap_c, smem, wst);
-  dweight<2, BF16, BF16>(z8, H, H, H, dzB, cap_c, part + OFF_WRE, smem);
+                                 vec + OFF_WS, 1.f, dzA, cap_c, smem, wst, H);
+  dweight<2, BF16, BF16>(z8, H, H, H, dzB, cap_c, part + OFF_WRE, smem, H);
   colsum(dzB, H, cap_c, pvec + OFF_BRE);
   __syncthreads();
-  // stages 8..2: filter cotangents and du in place, then w_{i-1}, b_{i-1}
+  // stages NL..2: filter cotangents and du in place, then w_{i-1}, b_{i-1}
   // and dz_{i-1}
   float* cur = dzA;
   float* nxt = dzB;
@@ -606,10 +641,10 @@ __device__ void net_backward(const Scratch& sc, size_t cz, const float* __restri
   for (int stage = NL - 1; stage >= 1; --stage) {
     filters(stage, cur, static_cast<const float*>(sc.st.u[stage - 1]));
     dweight<2, false, BF16>(sc.st.z[stage - 1], H, H, H, cur, cap_c,
-                            part + off_w(stage), smem);
+                            part + off_w(stage), smem, H);
     colsum(cur, H, cap_c, pvec + (stage - 1) * H);
     dact<H, BF16, Epi::None, false>(cur, wmat_t + off_w(stage), nullptr, 0, nullptr,
-                                    nullptr, 1.f, nxt, cap_c, smem, wst);
+                                    nullptr, 1.f, nxt, cap_c, smem, wst, H);
     __syncthreads();
     float* tmp = cur;
     cur = nxt;

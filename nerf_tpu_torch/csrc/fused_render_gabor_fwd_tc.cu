@@ -36,6 +36,12 @@
 // sample order, carrying T from chunk to chunk
 // (render_common.cuh::composite_chunk).
 //
+// At other widths and depths (hidden 512-1024, d_pad 64, any number of
+// stages) the plan of ops/cuda/gabor_plan.py comes as -D flags and sets
+// the chunks, the activation tiles and the CTAs an SM
+// (fused_render_gabor_common.cuh, fused_render_gabor_tc_common.cuh); the
+// figures above are the default shape's (hidden 256, 8 stages).
+//
 // Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared
 // library with a plain C interface (loaded by ctypes).
 
@@ -63,7 +69,7 @@ fused_gabor_fwd_tc_kernel(RayInputs in, Gabor gp, const bf16* __restrict__ wmat,
     if (threadIdx.x == 0)
       composite_chunk(sums, sm.col + GC_T * TC_P, sm.col + GC_DELTA * TC_P,
                       sm.col + GC_SIGMA * TC_P, sm.col + GC_RGB * TC_P, chunk0, nvalid, S,
-                      rgb_out, acc_out, depth_out, weights_out);
+                      rgb_out, acc_out, depth_out, weights_out, TC_P);
     __syncthreads();
   }
 }

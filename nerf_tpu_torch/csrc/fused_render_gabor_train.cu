@@ -52,6 +52,12 @@
 //   4. A second small kernel adds the per-CTA partials (and loss terms) in
 //      CTA order. Nothing is atomic, so a step is deterministic from run to
 //      run.
+// At other widths and depths (hidden 512-1024, d_pad 64, any number of
+// stages) the plan of ops/cuda/gabor_plan.py comes as -D flags and sets
+// the chunks, the activation tiles and the CTAs an SM
+// (fused_render_gabor_common.cuh, fused_render_gabor_tc_common.cuh); the
+// figures above are the default shape's (hidden 256, 8 stages).
+//
 // Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared library
 // with a plain C interface (loaded by ctypes).
 
@@ -73,8 +79,8 @@ constexpr int FLOATS_PER_POINT = floats_per_point<2>();
 __device__ void filter_cotangents(const RayInputs& in, const Gabor& gp, int ray0,
                                   int nr, int stage, float* dz, const float* u,
                                   float* __restrict__ dcoef) {
-  const int c = threadIdx.x;
   const int S = in.S;
+  for (int c = threadIdx.x; c < H; c += THREADS)
   for (int r = 0; r < nr; ++r) {
     const int ray = ray0 + r;
     const size_t at = static_cast<size_t>(ray) * NH + stage * H + c;

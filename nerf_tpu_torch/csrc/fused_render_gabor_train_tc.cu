@@ -82,6 +82,12 @@
 // The backward's evaluation is filter_at<true> on the same coefficients and
 // t, so it gives the forward's g bit for bit.
 //
+// At other widths and depths (hidden 512-1024, d_pad 64, any number of
+// stages) the plan of ops/cuda/gabor_plan.py comes as -D flags and sets
+// the chunks, the activation tiles and the CTAs an SM
+// (fused_render_gabor_common.cuh, fused_render_gabor_tc_common.cuh); the
+// figures above are the default shape's (hidden 256, 8 stages).
+//
 // Built by nerf_tpu_torch/ops/cuda/build.py with nvcc into a shared
 // library with a plain C interface (loaded by ctypes).
 
@@ -94,7 +100,7 @@ constexpr int FWD_SPLIT = 2;                      // forward CTAs a backward CTA
 // The backward kernel's plan is fused_render_gabor_tc_common.cuh's
 // (SMEM_BWD); the compositing pass keeps its per-ray losses in the second
 // activation tile.
-constexpr int MAX_RAYS_PER_CTA = TC_P * LDS * 2 / 4;
+constexpr int MAX_RAYS_PER_CTA = TC_PB * LDN * 2 / 4;
 
 // A backward CTA's rays: their samples' t, coefficients and coefficient
 // cotangents from its first ray, and its points (whole rays).
@@ -107,7 +113,8 @@ struct RaySpan {
 };
 
 // The epilogue of filter stage `stage` (0-based) over a chunk from l0, the
-// warp's 64 x 32 tile of dz = acc (+ dsig ws: DSIG). FIRST (stage 0): dg =
+// warp's TC_PB x 32 tile of dz = acc (+ dsig ws: DSIG) in the block of
+// columns from nb. FIRST (stage 0): dg =
 // dz. Else dg = dz u and du = dz g (float32), du rounded to the output tile
 // act1 and summed unrounded into cs. Then the coefficient cotangents of
 // each element into its ray's running sums (sm.run), a ray at a time from
@@ -115,19 +122,19 @@ struct RaySpan {
 // is written to dcoef and its sums reset. UNIFORM: the whole chunk lies in
 // ray r_first.
 template <bool FIRST, bool DSIG, bool UNIFORM>
-__device__ __forceinline__ void filter_chunk(float (&acc)[4][4][4], int stage, int l0,
+__device__ __forceinline__ void filter_chunk(float (&acc)[MT_B][4][4], int nb, int stage, int l0,
                                              int r_first, int r_last,
                                              const float* __restrict__ wsig, const RaySpan& rs,
                                              const BwdSmem& sm, float (&cs)[4][2]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
   const int n0 = (threadIdx.x >> 5) * 32;
-  const float* t_s = sm.col + BC_T * TC_P;
-  const float* t2_s = sm.col + BC_T2 * TC_P;
-  const int* ray_s = reinterpret_cast<const int*>(sm.col + BC_RAY * TC_P);
+  const float* t_s = sm.col + BC_T * TC_PB;
+  const float* t2_s = sm.col + BC_T2 * TC_PB;
+  const int* ray_s = reinterpret_cast<const int*>(sm.col + BC_RAY * TC_PB);
   const float* coef = rs.coef + stage * H;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const int col = n0 + j * 8 + 2 * c;
+    const int lc = n0 + j * 8 + 2 * c, col = nb + lc;   // in the block, in the layer
     float ws0 = 0.f, ws1 = 0.f;
     if constexpr (DSIG) {
       ws0 = __ldg(wsig + col);
@@ -135,15 +142,15 @@ __device__ __forceinline__ void filter_chunk(float (&acc)[4][4][4], int stage, i
     }
     float2 k[NCOEF];
     if constexpr (UNIFORM) load_coef(k, coef + static_cast<size_t>(r_first) * NH + col, rs.plane);
-    float va[4][2][2], ve[4][2][2];      // dsinarg and de by (mt, h, column)
+    float va[MT_B][2][2], ve[MT_B][2][2];   // dsinarg and de by (mt, h, column)
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < MT_B; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = mt * 16 + g + 8 * h;
         float x0 = acc[mt][j][2 * h], x1 = acc[mt][j][2 * h + 1];
         if constexpr (DSIG) {
-          const float ds = sm.col[BC_DSIG * TC_P + row];
+          const float ds = sm.col[BC_DSIG * TC_PB + row];
           x0 = __fadd_rn(x0, __fmul_rn(ds, ws0));
           x1 = __fadd_rn(x1, __fmul_rn(ds, ws1));
         }
@@ -156,7 +163,7 @@ __device__ __forceinline__ void filter_chunk(float (&acc)[4][4][4], int stage, i
           const Filter f1 = filter_at<true>(k[0].y, k[1].y, k[2].y, k[3].y, k[4].y, tv, t2);
           float dg0 = x0, dg1 = x1;
           if constexpr (!FIRST) {
-            const float2 um = *reinterpret_cast<const float2*>(sm.u + row * LDU + col);
+            const float2 um = *reinterpret_cast<const float2*>(sm.u + row * LDU + lc);
             dg0 = __fmul_rn(x0, um.x);
             dg1 = __fmul_rn(x1, um.y);
             du0 = __fmul_rn(x0, __fmul_rn(f0.sn, f0.E));
@@ -170,7 +177,7 @@ __device__ __forceinline__ void filter_chunk(float (&acc)[4][4][4], int stage, i
         if constexpr (!FIRST) {
           cs[j][0] += du0;
           cs[j][1] += du1;
-          put2(sm.act1 + row * LDS + col, du0, du1);
+          put2(sm.act1 + row * LDN + lc, du0, du1);
         }
         va[mt][h][0] = a0;
         va[mt][h][1] = a1;
@@ -182,7 +189,7 @@ __device__ __forceinline__ void filter_chunk(float (&acc)[4][4][4], int stage, i
     for (int r = r_first; r <= r_end; ++r) {
       float s[NCOEF][2] = {};
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
+      for (int mt = 0; mt < MT_B; ++mt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = mt * 16 + g + 8 * h;
@@ -208,7 +215,7 @@ __device__ __forceinline__ void filter_chunk(float (&acc)[4][4][4], int stage, i
             s[q][u] += __shfl_xor_sync(0xffffffffu, s[q][u], off);
         }
       if (g == 0) {
-        const bool ends = (r + 1) * rs.S <= l0 + TC_P;
+        const bool ends = (r + 1) * rs.S <= l0 + TC_PB;
         const size_t at = static_cast<size_t>(r) * NH + stage * H + col;
 #pragma unroll
         for (int q = 0; q < NCOEF; ++q)
@@ -239,20 +246,20 @@ struct RayStages {
     const int tid = threadIdx.x, l = l0 + tid;
     const bool valid = l < rs.npts;
     const float tv = valid ? rs.t[l] : 0.f;
-    sm.col[BC_T * TC_P + tid] = tv;
-    sm.col[BC_T2 * TC_P + tid] = __fmul_rn(tv, tv);
-    reinterpret_cast<int*>(sm.col + BC_RAY * TC_P)[tid] = valid ? l / rs.S : -1;
+    sm.col[BC_T * TC_PB + tid] = tv;
+    sm.col[BC_T2 * TC_PB + tid] = __fmul_rn(tv, tv);
+    reinterpret_cast<int*>(sm.col + BC_RAY * TC_PB)[tid] = valid ? l / rs.S : -1;
   }
   template <bool FIRST, bool DSIG>
-  __device__ __forceinline__ void chunk(float (&acc)[4][4][4], int stage, int l0,
+  __device__ __forceinline__ void chunk(float (&acc)[MT_B][4][4], int nb, int stage, int l0,
                                         const float* __restrict__ wsig, const BwdSmem& sm,
                                         float (&cs)[4][2]) const {
     const int r_first = l0 / rs.S;
-    const int r_last = (min(l0 + TC_P, rs.npts) - 1) / rs.S;
-    if (l0 + TC_P <= rs.npts && r_first == r_last)
-      filter_chunk<FIRST, DSIG, true>(acc, stage, l0, r_first, r_last, wsig, rs, sm, cs);
+    const int r_last = (min(l0 + TC_PB, rs.npts) - 1) / rs.S;
+    if (l0 + TC_PB <= rs.npts && r_first == r_last)
+      filter_chunk<FIRST, DSIG, true>(acc, nb, stage, l0, r_first, r_last, wsig, rs, sm, cs);
     else
-      filter_chunk<FIRST, DSIG, false>(acc, stage, l0, r_first, r_last, wsig, rs, sm, cs);
+      filter_chunk<FIRST, DSIG, false>(acc, nb, stage, l0, r_first, r_last, wsig, rs, sm, cs);
   }
   __device__ void after_chunk(int, const BwdSmem&) const {}
   __device__ void end_stage(int, const BwdSmem&) const {}

@@ -3,10 +3,10 @@
 Every CUDA source under the package's ``csrc/`` is compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, in
 ``build/`` beside the package, on the first CUDA call: one ``nvcc`` per
-source, all started together. The NeRF and SIREN libraries are also
-compiled at the other shapes they take (``nerf_plan.py``,
-``siren_plan.py``), each on the first launch at that shape, with the shape
-in its file name beside the hash. The families'
+source, all started together. The NeRF, SIREN and GaborNet libraries are
+also compiled at the other shapes they take (``nerf_plan.py``,
+``siren_plan.py``, ``gabor_plan.py``), each on the first launch at that
+shape, with the shape in its file name beside the hash. The families'
 modules load their libraries with ``library`` and declare their C
 signatures there.
 """
@@ -152,9 +152,10 @@ def _shaped_path(name: str, tag: str, defines: tuple) -> Path:
 
 def build_shaped(wanted) -> tuple[BuildInfo, ...]:
     """Compile the libraries ``wanted``, each ``(name, tag, defines)``: one
-    of ``LIBS`` at the shape the -D flags ``defines`` set (the NeRF and
-    SIREN libraries at another width, ``nerf_plan.NerfPlan.defines`` and
-    ``siren_plan.SirenPlan.defines``), named
+    of ``LIBS`` at the shape the -D flags ``defines`` set (the NeRF, SIREN
+    and GaborNet libraries at another width or depth,
+    ``nerf_plan.NerfPlan.defines``, ``siren_plan.SirenPlan.defines``,
+    ``gabor_plan.GaborPlan.defines``), named
     with ``tag``; empty ``defines`` name the default build. All are started
     together, with the default shape's libraries if not built yet. Built
     once; each later call finds them in ``build/``."""

@@ -69,7 +69,7 @@ class FusedField:
     launches = 0
     bwd_launches = 0
     family = "field"
-    plan = None        # a family's shape plan (nerf_plan.py, siren_plan.py), if it has one
+    plan = None        # a family's shape plan (nerf_plan.py, siren_plan.py, gabor_plan.py)
 
     def __init__(self, model, packed=None):
         self.model = model

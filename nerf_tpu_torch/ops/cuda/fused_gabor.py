@@ -45,13 +45,16 @@ TPU). This module holds
   * ``GaborField``: the field ``(points, dirs) -> (rgb, sigma)`` of one
     ``GaborModel``, with the contract of ``field.py::FusedField``: on CPU
     tensors the plain versions (any width and depth), on CUDA tensors the
-    kernels (hidden 256, 8 stages) or a raise, never one for the other;
-    differentiable under autograd through the backward kernel; ``launches``
-    and ``bwd_launches`` count the kernels' launches over all instances.
+    kernels (hidden 256 to 1024 with d_pad 32 or 64 and any depth,
+    ``gabor_plan.py``; each shape its own build) or a raise, never one for
+    the other; differentiable under autograd through the backward kernel;
+    ``launches`` and ``bwd_launches`` count the kernels' launches over all
+    instances, ``shape_launches`` by shape.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -62,16 +65,14 @@ import torch.nn.functional as F
 from nerf_tpu_torch.models.common import round_to
 from nerf_tpu_torch.ops.cuda.build import library
 from nerf_tpu_torch.ops.cuda.field import FusedField
-from nerf_tpu_torch.ops.cuda.fused_nerf import _encode_bwd
+from nerf_tpu_torch.ops.cuda.fused_nerf import NI, _encode_bwd
 from nerf_tpu_torch.ops.cuda.fused_render import (
-    DP,
     Packed,
     _encode,
     grad_sizes,
     trig,
 )
 from nerf_tpu_torch.ops.cuda.fused_render_gabor import (
-    NUM_LAYERS,
     TC_BYTES_PER_POINT,
     GaborConsts,
     _names,
@@ -80,11 +81,13 @@ from nerf_tpu_torch.ops.cuda.fused_render_gabor import (
     net_bwd,
     pack_f32,
 )
+from nerf_tpu_torch.ops.cuda.gabor_plan import GaborPlan, covered, d_pad, plan
 
-HIDDEN = 256      # the width the kernels take
-# the bfloat16 backward's stash a point (csrc/fused_gabor_bwd_tc.cu): the
-# GaborNet train pass's, its 16 per-point float32 columns last (the point
-# cotangent among them); TC_BWD_COLS_AT floats of a row precede the columns
+# the bfloat16 backward's stash a point at the default shape
+# (csrc/fused_gabor_bwd_tc.cu): the GaborNet train pass's, its 16 per-point
+# float32 columns last (the point cotangent among them); TC_BWD_COLS_AT
+# floats of a row precede the columns (another shape's: its plan's
+# tc_bytes_per_point // 4 - 16)
 TC_BWD_BYTES_PER_POINT = TC_BYTES_PER_POINT
 TC_BWD_COLS_AT = TC_BYTES_PER_POINT // 4 - 16
 BANK_ROWS = 9     # omega (3), phi, mu^T (3), |mu|^2, gamma: rows of h a stage
@@ -145,7 +148,8 @@ def _acts(pk: GaborFieldPack, pts: torch.Tensor, dirs: torch.Tensor,
     """Every activation of the kernels' forward of points (n, 3) and
     directions (n, 3) (``fused_render_gabor.py::net_acts``)."""
     filt = point_filters(pk.filters, pts, k.num_layers, pk.packed.cdt)
-    return net_acts(pk.packed, filt, _encode(dirs, k.dir_freqs, DP, torch.sin), k)
+    denc = _encode(dirs, k.dir_freqs, pk.packed.mats["wr0d"].shape[0], torch.sin)
+    return net_acts(pk.packed, filt, denc, k)
 
 
 def gabor_field_plain(pk: GaborFieldPack, pts: torch.Tensor, dirs: torch.Tensor,
@@ -206,8 +210,10 @@ _BWD_ENTRY = {"fused_gabor_bwd": "gabor_field_bwd",
 
 
 @functools.cache
-def _library(name: str) -> ctypes.CDLL:
-    lib = library(name)
+def _library(name: str, shape: GaborPlan | None = None) -> ctypes.CDLL:
+    """The library ``name`` with its C signatures declared, at the default
+    shape or at the GaborNet plan ``shape``'s (built on first use)."""
+    lib = library(name) if shape is None else library(name, shape.tag, shape.defines)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     entry = {**_FWD_ENTRY, **_BWD_ENTRY}[name]
     fn, err = getattr(lib, entry), getattr(lib, entry + "_error")
@@ -225,12 +231,13 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def direction_transpose(packed: Packed) -> torch.Tensor:
-    """wr0d^T zero-padded to 128 x 128 in the compute dtype, the
-    tensor-core backward's direction product (``csrc/render_tc.cuh``'s
-    direction_cotangent_tc), built once a packing."""
+    """wr0d^T (hidden / 2 rows) zero-padded to NI = 128 columns in the
+    compute dtype, the tensor-core backward's direction product
+    (``csrc/render_tc.cuh``'s direction_cotangent_tc), built once a
+    packing."""
     if "wr0d_t" not in packed.derived:
         w = packed.mats["wr0d"]
-        packed.derived["wr0d_t"] = F.pad(w.t(), (0, w.shape[1] - w.shape[0])).contiguous()
+        packed.derived["wr0d_t"] = F.pad(w.t(), (0, NI - w.shape[0])).contiguous()
     return packed.derived["wr0d_t"]
 
 
@@ -245,6 +252,7 @@ class GaborField(FusedField):
 
     launches = 0
     bwd_launches = 0
+    shape_launches: collections.Counter = collections.Counter()
     family = "GaborNet"
 
     def __init__(self, model, packed: GaborFieldPack | None = None):
@@ -252,28 +260,31 @@ class GaborField(FusedField):
         self.n = model.num_layers
         self.consts = GaborConsts.of(model)
         self.real_d = 3 * (1 + 2 * self.consts.dir_freqs)
+        self.d_pad = d_pad(self.consts.dir_freqs)
+        # the kernels' plan at this shape, None outside the shapes they take
+        self.plan = plan(self.h, self.d_pad, self.n) if covered(
+            self.h, self.d_pad, self.n) else None
 
     def params_f32(self) -> tuple:
         return (*pack_f32(self.model), pack_filters(self.model))
 
     def cast(self, wflat: torch.Tensor, vec: torch.Tensor,
              fpack: torch.Tensor) -> GaborFieldPack:
-        return GaborFieldPack(packed=cast_packed(wflat, vec, self.cdt, self.h, self.n),
-                              filters=fpack.contiguous())
+        return GaborFieldPack(
+            packed=cast_packed(wflat, vec, self.cdt, self.h, self.n, self.d_pad),
+            filters=fpack.contiguous())
 
     def supported(self) -> bool:
-        """The shapes the kernels cover: hidden 256 and 8 stages (as the
-        render kernels) and a direction encoding of at most 32 columns.
-        (The TPU kernels take any depth and hidden 512 too; the port does
-        not yet.)"""
-        return self.h == HIDDEN and self.n == NUM_LAYERS and self.real_d <= DP
+        """The shapes the kernels cover (``gabor_plan.covered``, as the
+        render kernels): hidden 256, 512, 768 or 1024 with the direction
+        encoding padded to at most 64 columns, any number of stages."""
+        return self.plan is not None
 
     def _unsupported(self) -> str:
-        return (f"the GaborNet field kernels cover hidden {HIDDEN} with "
-                f"{NUM_LAYERS} stages and a direction encoding of at most {DP} "
-                f"columns; got hidden {self.h}, {self.n} stages, {self.real_d} "
-                "columns (ROADMAP.md queue 2; run on the CPU, or with use_pallas "
-                "= false)")
+        return (f"the GaborNet field kernels cover hidden 256 to 1024 with the direction "
+                f"encoding padded to at most 64 columns; got hidden {self.h}, {self.n} "
+                f"stages, {self.real_d} columns (ROADMAP.md queue 2; run on the CPU, or "
+                "with use_pallas = false)")
 
     def _plain_forward(self, pk: GaborFieldPack, pts, dirs):
         return gabor_field_plain(pk, pts, dirs, self.consts)
@@ -294,13 +305,13 @@ class GaborField(FusedField):
     def _fwd_entry(self):
         """(function, error string) of the forward."""
         name = self.fwd_library()
-        lib, entry = _library(name), _FWD_ENTRY[name]
+        lib, entry = _library(name, self.plan), _FWD_ENTRY[name]
         return getattr(lib, entry), getattr(lib, entry + "_error")
 
     def _bwd_entry(self):
         """(function, error string, sizes) of the backward."""
         name = self.bwd_library()
-        lib, entry = _library(name), _BWD_ENTRY[name]
+        lib, entry = _library(name, self.plan), _BWD_ENTRY[name]
         return tuple(getattr(lib, entry + s) for s in ("", "_error", "_sizes"))
 
     def _packed_args(self, pk: GaborFieldPack) -> tuple:
@@ -328,7 +339,7 @@ class GaborField(FusedField):
                 sigma.data_ptr(), stream)
         if code != 0:
             raise RuntimeError("GaborNet field forward kernel: " + err(code).decode())
-        type(self).launches += 1
+        self._count("launches")
         return rgb, sigma
 
     def _launch_bwd(self, pk: GaborFieldPack, pts: torch.Tensor, dirs: torch.Tensor,
@@ -365,7 +376,7 @@ class GaborField(FusedField):
                 out.data_ptr(), dpts.data_ptr(), ddirs.data_ptr(), stream)
         if code != 0:
             raise RuntimeError("GaborNet field backward kernel: " + err(code).decode())
-        type(self).bwd_launches += 1
+        self._count("bwd_launches")
         if stash is not None:
             stash.update(scratch=scratch, run=run, grid=grid, per_point=per_point)
         return (out[:n_w], out[n_w:n_w + n_b], out[n_w + n_b:n_w + n_b + n_f],

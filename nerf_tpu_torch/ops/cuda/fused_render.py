@@ -542,7 +542,7 @@ class FusedRender:
     train_launches = 0
     bwd_launches = 0
     mat_names: tuple = ()
-    plan = None        # a family's shape plan (nerf_plan.py, siren_plan.py), if it has one
+    plan = None        # a family's shape plan (nerf_plan.py, siren_plan.py, gabor_plan.py)
 
     def __init__(self, model, near: float, far: float, normalize: bool = True):
         self.near, self.far, self.normalize = float(near), float(far), normalize

@@ -33,10 +33,10 @@ This module holds
   * ``pack_f32`` / ``cast_packed``: the linear and head weights of a
     ``GaborModel`` in the kernels' layout (``fused_render_gabor.py::
     pack_params``: w1..w{n-1}, the density row ws, the remap, the rgb
-    head's first matrix split into wr0f and wr0d with wr0d padded to 32
-    rows, wr1/br1 padded to 8 columns); ``cast_packed`` rounds the matrices
-    and ws to the compute dtype and keeps the biases float32, as
-    ``_cast_weights`` does;
+    head's first matrix split into wr0f and wr0d with wr0d padded to d_pad
+    rows, a multiple of 32 (``gabor_plan.d_pad``), wr1/br1 padded to 8
+    columns); ``cast_packed`` rounds the matrices and ws to the compute
+    dtype and keeps the biases float32, as ``_cast_weights`` does;
   * ``stack_filters`` / ``gabor_coeffs``: the prep (``FusedGaborRender.
     _prep``), batched over the stages: one (R,3) x (3, n h) product per
     coefficient;
@@ -45,14 +45,17 @@ This module holds
     the degree-11 sine in bfloat16, so that each matches its kernel in
     either compute dtype; they take any width and depth;
   * ``FusedGaborRender``: the wrapper (CPU tensors: the plain versions;
-    CUDA tensors: the kernels, which take hidden 256 and 8 stages, or a
-    raise). As in the JAX package the forward render has no gradient:
-    ``__call__`` refuses parameters that require grad, and training goes
-    through ``train``.
+    CUDA tensors: the kernels at every shape of ``gabor_plan.py``, hidden
+    256 to 1024, d_pad 32 or 64 and any depth, each shape its own build of
+    the libraries; elsewhere a raise). As in the JAX package the forward
+    render has no gradient: ``__call__`` refuses parameters that require
+    grad, and training goes through ``train``. ``shape_launches`` counts
+    the launches by shape.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -62,6 +65,7 @@ import torch.nn.functional as F
 
 from nerf_tpu_torch.models.common import round_to
 from nerf_tpu_torch.ops.cuda.build import library
+from nerf_tpu_torch.ops.cuda.gabor_plan import DEFAULT_LAYERS, GaborPlan, covered, d_pad, plan
 from nerf_tpu_torch.ops.cuda.fused_render import (
     DP,
     FusedRender,
@@ -76,13 +80,13 @@ from nerf_tpu_torch.ops.cuda.fused_render import (
     trig,
 )
 
-NUM_LAYERS = 8           # filter stages the kernels take
 NUM_COEFFS = 5           # A, B, P, Q, R
-# stash bytes a point of the bfloat16 train pass on the tensor cores
-# (csrc/fused_render_gabor_tc_common.cuh::TcStash: z1..z8, feat and two dz
-# buffers of 256, y (128) and denc (32) in bf16; u2..u8 and z8 of 256 and
-# the 16 per-point columns in float32)
-TC_BYTES_PER_POINT = 2 * (11 * 256 + 128 + DP) + 4 * (8 * 256 + 16)
+# stash bytes a point of the bfloat16 train pass on the tensor cores at the
+# default shape (csrc/fused_render_gabor_tc_common.cuh::TcStash: z1..z8,
+# feat and two dz buffers of 256, y (128) and denc (32) in bf16; u2..u8 and
+# z8 of 256 and the 16 per-point columns in float32); other shapes'
+# are their plan's tc_bytes_per_point
+TC_BYTES_PER_POINT = plan(256, DP, DEFAULT_LAYERS).tc_bytes_per_point
 
 
 def _names(n: int) -> tuple[tuple, tuple]:
@@ -94,10 +98,10 @@ def _names(n: int) -> tuple[tuple, tuple]:
     return mats, vecs
 
 
-def _shapes(h: int, n: int) -> tuple[dict, dict]:
+def _shapes(h: int, n: int, dp: int = DP) -> tuple[dict, dict]:
     hr = h // 2
     mats = {**{f"w{i}": (h, h) for i in range(1, n)}, "wre": (h, h),
-            "wr0f": (h, hr), "wr0d": (DP, hr), "wr1": (hr, 8)}
+            "wr0f": (h, hr), "wr0d": (dp, hr), "wr1": (hr, 8)}
     vecs = {**{f"b{i}": (h,) for i in range(1, n)}, "bre": (h,), "ws": (h,),
             "br0": (hr,), "br1": (8,), "bs": (1,)}
     return mats, vecs
@@ -129,9 +133,11 @@ class GaborPack:
 
 def pack_f32(model) -> tuple[torch.Tensor, torch.Tensor]:
     """``(wflat, vec)``: the linear and head matrices and vectors of
-    ``model`` padded and split into the kernel layout, float32 and
-    differentiable (the filters travel through the prep)."""
+    ``model`` padded and split into the kernel layout (wr0d to
+    ``gabor_plan.d_pad`` rows), float32 and differentiable (the filters
+    travel through the prep)."""
     h = model.hidden_dim
+    dp = d_pad(model.dir_encoding_dim)
     mat_names, vec_names = _names(model.num_layers)
 
     def w(lyr):
@@ -141,7 +147,7 @@ def pack_f32(model) -> tuple[torch.Tensor, torch.Tensor]:
     mats = {
         **{f"w{i}": w(model.linears[i - 1]) for i in range(1, model.num_layers)},
         "wre": w(model.remap),
-        "wr0f": wr0[:h], "wr0d": F.pad(wr0[h:], (0, 0, 0, DP - (wr0.shape[0] - h))),
+        "wr0f": wr0[:h], "wr0d": F.pad(wr0[h:], (0, 0, 0, dp - (wr0.shape[0] - h))),
         "wr1": F.pad(w(model.rgb1), (0, 8 - model.rgb1.weight.shape[0])),
     }
     vecs = {
@@ -158,10 +164,11 @@ def pack_f32(model) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def cast_packed(wflat: torch.Tensor, vec: torch.Tensor, cdt: torch.dtype,
-                hidden: int, num_layers: int) -> Packed:
+                hidden: int, num_layers: int, dp: int = DP) -> Packed:
     """The float32 packing as the kernels read it: matrices in ``cdt``, the
-    density row ws rounded to ``cdt`` (biases stay float32)."""
-    mat_shapes, vec_shapes = _shapes(hidden, num_layers)
+    density row ws rounded to ``cdt`` (biases stay float32); ``dp`` the
+    padded direction-encoding width (``gabor_plan.d_pad``)."""
+    mat_shapes, vec_shapes = _shapes(hidden, num_layers, dp)
     mat_names, vec_names = _names(num_layers)
     o = num_layers * hidden                           # offset of ws
     vec = torch.cat([vec[:o], round_to(vec[o:o + hidden], cdt),
@@ -172,10 +179,10 @@ def cast_packed(wflat: torch.Tensor, vec: torch.Tensor, cdt: torch.dtype,
 
 
 def grad_views(gw: torch.Tensor, gv: torch.Tensor, hidden: int,
-               num_layers: int = NUM_LAYERS) -> dict:
+               num_layers: int = DEFAULT_LAYERS, dp: int = DP) -> dict:
     """The gradient tensors of a flat ``(gw, gv)`` pair, by name (23 for 8
     stages)."""
-    mat_shapes, vec_shapes = _shapes(hidden, num_layers)
+    mat_shapes, vec_shapes = _shapes(hidden, num_layers, dp)
     mat_names, vec_names = _names(num_layers)
     return {**_views(gw, mat_shapes, mat_names), **_views(gv, vec_shapes, vec_names)}
 
@@ -264,8 +271,9 @@ def _forward_acts(packed: Packed, coeffs, viewdirs, t, k: GaborConsts) -> dict:
     """``net_acts`` of the samples (R, S) of the rays, with their filters
     from the per-ray coefficients."""
     filt = _filters(coeffs, t, k.num_layers, trig(packed.cdt)[0])
-    denc = _encode(viewdirs, k.dir_freqs, DP, torch.sin)
-    return net_acts(packed, filt, denc[:, None, :].expand(*t.shape, DP), k)
+    dp = packed.mats["wr0d"].shape[0]
+    denc = _encode(viewdirs, k.dir_freqs, dp, torch.sin)
+    return net_acts(packed, filt, denc[:, None, :].expand(*t.shape, dp), k)
 
 
 def fused_gabor_render_plain(packed: Packed, coeffs: torch.Tensor,
@@ -295,7 +303,7 @@ def net_bwd(packed: Packed, acts: dict, dzr1, dsig, k: GaborConsts):
 
     gw = torch.zeros(packed.wmat.numel(), dtype=torch.float32, device=dzr1.device)
     gv = torch.zeros(packed.vec.numel(), dtype=torch.float32, device=dzr1.device)
-    g = grad_views(gw, gv, width, n)
+    g = grad_views(gw, gv, width, n, m["wr0d"].shape[0])
 
     def r(x):
         return round_to(x, cdt)
@@ -388,8 +396,10 @@ _TRAIN_ENTRY = {"fused_render_gabor_train": "fused_gabor_train",
 
 
 @functools.cache
-def _library(name: str) -> ctypes.CDLL:
-    lib = library(name)
+def _library(name: str, shape: GaborPlan | None = None) -> ctypes.CDLL:
+    """The library ``name`` with its C signatures declared, at the default
+    shape or at the GaborNet plan ``shape``'s (built on first use)."""
+    lib = library(name) if shape is None else library(name, shape.tag, shape.defines)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name in _FWD_ENTRY:
         fn, err = getattr(lib, _FWD_ENTRY[name]), getattr(lib, _FWD_ENTRY[name] + "_error")
@@ -447,33 +457,40 @@ class FusedGaborRender(FusedRender):
     gradient (``NotImplementedError`` for parameters that require grad, as
     the JAX render route's VJP raises) and that ``params`` may be a
     ``GaborPack``. ``launches`` and ``train_launches`` count the kernels
-    over all instances."""
+    over all instances, ``shape_launches`` by ``(counter, plan tag, compute
+    dtype)``."""
 
     launches = 0
     train_launches = 0
+    shape_launches: collections.Counter = collections.Counter()
 
     def __init__(self, model, near: float, far: float, normalize: bool = True):
         super().__init__(model, near, far, normalize)
         self.n = model.num_layers
         self.consts = GaborConsts.of(model)
         self.mat_names = _names(self.n)[0]
+        self.d_pad = d_pad(self.dir_freqs)
+        # the kernels' plan at this shape, None outside the shapes they take
+        self.plan = plan(self.h, self.d_pad, self.n) if covered(
+            self.h, self.d_pad, self.n) else None
 
     def supported(self) -> bool:
-        """The shapes the kernels cover: hidden 256, 8 stages and a
-        direction encoding that fits its padded width."""
-        return self.h == 256 and self.n == NUM_LAYERS and self.real_d <= DP
+        """The shapes the kernels cover (``gabor_plan.covered``): hidden 256,
+        512, 768 or 1024 with the direction encoding padded to at most 64
+        columns, any number of stages."""
+        return self.plan is not None
 
     def _unsupported(self) -> str:
-        return (f"the fused GaborNet kernels cover hidden 256 with "
-                f"{NUM_LAYERS} stages and a direction encoding of at most {DP} "
-                f"columns; got hidden {self.h}, {self.n} stages, {self.real_d} "
-                "columns (run on the CPU, or with use_pallas = false)")
+        return (f"the fused GaborNet kernels cover hidden 256 to 1024 with the direction "
+                f"encoding padded to at most 64 columns; got hidden {self.h}, {self.n} "
+                f"stages, {self.real_d} columns (ROADMAP.md queue 2; run on the CPU, or "
+                "with use_pallas = false)")
 
     def pack_f32(self, model):
         return pack_f32(model)
 
     def cast(self, wflat, vec) -> Packed:
-        return cast_packed(wflat, vec, self.cdt, self.h, self.n)
+        return cast_packed(wflat, vec, self.cdt, self.h, self.n, self.d_pad)
 
     def pack(self, model) -> GaborPack:
         """``model`` ready to render: packed weights, stacked filters."""
@@ -521,12 +538,13 @@ class FusedGaborRender(FusedRender):
             return fused_gabor_train_plain(packed, coeffs, viewdirs, t, target,
                                            white_bg, self.consts)
         out = self._launch_train(packed, coeffs, viewdirs, t, target, white_bg)
-        type(self).train_launches += 1
+        self._count("train_launches")
         return out
 
     def fwd_library(self) -> str:
         """The library of a forward render: the bfloat16 one runs on the
-        tensor cores (two CTAs an SM), the float32 one on the CUDA cores."""
+        tensor cores (two CTAs an SM at hidden 256, else one: the plan's
+        ``fwd_ctas_per_sm``), the float32 one on the CUDA cores."""
         if self.cdt == torch.bfloat16:
             return "fused_render_gabor_fwd_tc"
         return "fused_render_gabor_fwd"
@@ -534,10 +552,10 @@ class FusedGaborRender(FusedRender):
     def _fwd_entry(self):
         """(function, error string, CTAs an SM) of the forward render."""
         name = self.fwd_library()
-        lib = _library(name)
+        lib = _library(name, self.plan)
         entry = _FWD_ENTRY[name]
         return (getattr(lib, entry), getattr(lib, entry + "_error"),
-                2 if name.endswith("_tc") else 1)
+                self.plan.fwd_ctas_per_sm if name.endswith("_tc") else 1)
 
     def _gabor_args(self, coeffs, viewdirs, t):
         num_rays, s = t.shape
@@ -571,7 +589,7 @@ class FusedGaborRender(FusedRender):
         if code != 0:
             raise RuntimeError("FusedGaborRender forward kernel: "
                                + err(code).decode())
-        type(self).launches += 1
+        self._count("launches")
         return rgb, acc, depth, weights
 
     def grad_library(self, train: bool) -> str:
@@ -591,9 +609,27 @@ class FusedGaborRender(FusedRender):
         """(function, error string, sizes, tensor cores?) of the train pass
         on the library ``grad_library`` names."""
         name = self.grad_library(True)
-        lib, entry = _library(name), _TRAIN_ENTRY[name]
+        lib, entry = _library(name, self.plan), _TRAIN_ENTRY[name]
         return (getattr(lib, entry), getattr(lib, entry + "_error"),
                 getattr(lib, entry + "_sizes"), name.endswith("_tc"))
+
+    def _check_fits(self, t, sizes: tuple, entry_bytes: int) -> None:
+        """Raise ``RuntimeError`` where the train pass's stash and per-CTA
+        gradient partials over ``t``'s rays (``sizes``: the library's stash
+        entries a point, of ``entry_bytes`` each, and floats a partial) would
+        not fit the card: they grow with the width and the depth (56,448
+        stash bytes a point and 36 MB a partial at hidden 1024 with 8
+        stages, 14.8 + 4.6 GB at 1024 x 256)."""
+        num_rays, s = t.shape
+        per_point, npart, _ = sizes
+        props = torch.cuda.get_device_properties(t.device)
+        _, grid, cap = launch_plan(num_rays, s, props.multi_processor_count)
+        need = grid * cap * per_point * entry_bytes + grid * npart * 4
+        if need > props.total_memory:
+            raise RuntimeError(
+                f"the GaborNet train pass at {self.plan.tag} over {num_rays} x {s} samples "
+                f"needs {need / 2**30:.1f} GiB of stash and partials, more than the card's "
+                f"{props.total_memory / 2**30:.1f} GiB; train on fewer rays a step")
 
     def _launch_train(self, packed: Packed, coeffs, viewdirs, t, target, white_bg):
         """One launch of the train pass on the library ``grad_library``
@@ -604,8 +640,10 @@ class FusedGaborRender(FusedRender):
         coeffs, viewdirs, t, target = (x.detach().contiguous()
                                        for x in (coeffs, viewdirs, t, target))
         fn, err, sizes, tc = self._train_entry()
+        sizes = grad_sizes(sizes)
+        self._check_fits(t, sizes, 1 if tc else 4)
         (rays_per_cta, cap), scratch, partial, out, rgb, acc, weights = self._grad_buffers(
-            t, grad_sizes(sizes), torch.uint8 if tc else torch.float32)
+            t, sizes, torch.uint8 if tc else torch.float32)
         dcoef = torch.empty_like(coeffs)
         if tc:
             # bfloat16 on the tensor cores: a forward and a backward kernel

@@ -159,15 +159,16 @@ def fused_field_for(model):
     where they cover the shape (a NeRF at hidden 256 to 1024 with
     encodings padded to at most 128 / 64 columns, ``nerf_plan.covered``;
     a SIREN at hidden 256 to 1024 with the direction encoding padded to at
-    most 64 columns, ``siren_plan.covered``; a GaborNet at hidden 256 and of
-    8 stages);
+    most 64 columns, ``siren_plan.covered``; a GaborNet at hidden 256 to
+    1024 with the direction encoding padded to at most 64 columns and any
+    number of stages, ``gabor_plan.covered``);
     otherwise the module, as on the CPU and wherever nerf_tpu takes no field
     kernel (a Plenoxels model or a baked FastNeRF cache, whose ``apply``
     reaches the grid kernel; a live FastNeRF, PlenOctree or NGP model).
     Raises ``NotImplementedError`` on the card where nerf_tpu would take a
     field kernel at a shape the port's do not cover (naming its row of
-    PERF.md's table: a NeRF or SIREN above hidden 1024 or with wider
-    encodings, a GaborNet at hidden 512 or of another depth than 8),
+    PERF.md's table: a NeRF, SIREN or GaborNet above hidden 1024 or with
+    wider encodings),
     and for a family the port does not have."""
     if isinstance(model, KiloNeRFModel):
         h = model.hidden_dim

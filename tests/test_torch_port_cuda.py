@@ -18,7 +18,7 @@ import torch
 from nerf_tpu_torch.config import Config
 from nerf_tpu_torch.data.pipeline import RayBatch
 from nerf_tpu_torch.models.nerf import NeRFModel
-from nerf_tpu_torch.ops.cuda import nerf_plan, siren_plan
+from nerf_tpu_torch.ops.cuda import gabor_plan, nerf_plan, siren_plan
 from nerf_tpu_torch.ops.cuda.fused_render import (
     FusedNerfRender,
     fused_render_bwd_plain,
@@ -866,18 +866,20 @@ def test_bf16_nerf_siren_field_fwd_tc_matches_plain_and_is_deterministic(dev, fa
 
 
 def test_gabor_kernels_refuse_unsupported_shapes_and_the_render_vjp(dev):
-    """Hidden 256 with 8 stages only (the plain versions take any shape on
-    the CPU); the forward render under autograd raises before launching."""
+    """Hidden 256 to 1024 with d_pad 32 or 64 only (gabor_plan.covered; the
+    plain versions take any shape on the CPU): hidden 128 and 1280 raise
+    before launching, naming ROADMAP.md queue 2; the forward render under
+    autograd raises before launching."""
     from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
 
     ro, rd, t = _inputs(4, 8, dev)
     tgt = torch.rand(4, 3, device=dev)
-    for kw in ({"hidden_dim": 128}, {"num_layers": 4}):
+    for kw in ({"hidden_dim": 128}, {"hidden_dim": 1280}):
         model, fr = _gabor("float32", 0, dev, **kw)
         before = (FusedGaborRender.launches, FusedGaborRender.train_launches)
-        with torch.no_grad(), pytest.raises(NotImplementedError, match="hidden 256"):
+        with torch.no_grad(), pytest.raises(NotImplementedError, match="hidden 256 to 1024"):
             fr(model, ro, rd, rd, t)
-        with pytest.raises(NotImplementedError, match="8 stages"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
             fr.train(model, ro, rd, rd, t, tgt, True)
         assert (FusedGaborRender.launches, FusedGaborRender.train_launches) == before
     model, fr = _gabor("float32", 0, dev)
@@ -1714,11 +1716,11 @@ def test_bf16_nerf_gabor_field_bwd_tc_matches_plain_and_is_deterministic(dev, fa
 
 @pytest.mark.parametrize("family,kw", [("siren", {"hidden_dim": 128}),
                                        ("gabor", {"hidden_dim": 128}),
-                                       ("gabor", {"num_layers": 4})])
+                                       ("gabor", {"hidden_dim": 1280})])
 def test_siren_gabor_field_kernels_refuse_unsupported_shapes(dev, family, kw):
-    """Hidden 256 (and 8 GaborNet stages) only: NotImplementedError for a
-    CUDA tensor before any launch (the plain versions take the shape on the
-    CPU)."""
+    """Hidden 256 to 1024 only (a GaborNet of any depth):
+    NotImplementedError for a CUDA tensor before any launch (the plain
+    versions take the shape on the CPU)."""
     wrapper, _, _ = _sg_wrapper(family)
     model = _sg_model(family, "float32", dev, **kw)
     pts, dirs = _field_points(100, dev)
@@ -2795,3 +2797,202 @@ def test_wide_siren_kernels_refuse_unsupported_shapes(dev, h, ld):
             with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
                 call()
     assert (FusedSirenRender.launches, SirenField.launches) == before
+
+
+# ---------------------------------------------------------------- wider GaborNets
+# Rows 11-14 at shapes the kernels take other than the default one (hidden
+# 256, d_pad 32, 8 stages, tested above): every width with the direction
+# encoding padded to 32 and 64 columns (L_d = 4 / 6; lego_siren.txt's 4) at
+# 8 stages, and other depths (1, 3 and 4 stages at hidden 256, 3 at 512:
+# an odd depth ends its stages in the other activation buffer), each shape
+# its own build (ops/cuda/gabor_plan.py), against the plain versions under
+# the GaborNet tolerances above (chip_smoke.py's phase 37 holds four of
+# them at the serving and training shapes).
+
+_GABOR_WIDE = ([(h, ld, 8) for h in gabor_plan.WIDTHS for ld in (4, 6) if (h, ld) != (256, 4)]
+               + [(256, 4, 1), (256, 4, 3), (256, 4, 4), (512, 6, 3)])
+
+
+@pytest.fixture(scope="module")
+def gabor_wide_builds():
+    """Every _GABOR_WIDE shape's eight GaborNet libraries, built at once
+    (one nvcc each) before the first test that launches them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from nerf_tpu_torch.ops.cuda import build
+
+    shapes = [gabor_plan.plan(h, gabor_plan.d_pad(ld), n) for h, ld, n in _GABOR_WIDE]
+    build.build_shaped([job for pl in shapes for job in pl.builds])
+
+
+def _gabor_wide(cdt, h, ld, n, dev):
+    model, fr = _gabor(cdt, h + ld + n, dev, hidden_dim=h, dir_encoding_dim=ld, num_layers=n)
+    assert fr.supported() and fr.plan.tag == f"h{h}d{gabor_plan.d_pad(ld)}n{n}"
+    with torch.no_grad():
+        return model, fr, fr.pack(model).packed
+
+
+def _gabor_grads_close(got, ref, cdt, h, n, dp):
+    """As _siren_grads_close over the GaborNet layout's gradient tensors."""
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import grad_views
+
+    g, r = grad_views(*got, h, n, dp), grad_views(*ref, h, n, dp)
+    floor = 1e-2 * max(float(v.abs().max()) for v in r.values())
+    for k in r:
+        assert torch.isfinite(g[k]).all(), k
+        scale = max(float(r[k].abs().max()), floor)
+        err = float((g[k] - r[k]).abs().max())
+        assert err <= GABOR_GRAD_TOL[cdt] * scale, (k, err, scale)
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h, ld, n", _GABOR_WIDE)
+def test_wide_gabor_forward_render_matches_plain(dev, gabor_wide_builds, cdt, h, ld, n):
+    """Row 11 at 300 rays x 37 samples (chunks that span rays): one launch,
+    counted at its shape, every output within GABOR_TOL (depth ten times),
+    two launches the same bits."""
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import (
+        FusedGaborRender, fused_gabor_render_plain)
+
+    model, fr, packed = _gabor_wide(cdt, h, ld, n, dev)
+    ro, rd, t = _inputs(300, 37, dev, seed=h + ld + n)
+    coeffs = _gabor_coeffs(fr, model, ro, rd)
+    key = ("launches", fr.plan.tag, cdt)
+    with torch.no_grad():
+        before = (FusedGaborRender.launches, FusedGaborRender.shape_launches[key])
+        got = fr._forward(packed, coeffs, rd, t)
+        again = fr._forward(packed, coeffs, rd, t)
+        torch.cuda.synchronize()
+        assert FusedGaborRender.launches == before[0] + 2
+        assert FusedGaborRender.shape_launches[key] == before[1] + 2
+        ref = fused_gabor_render_plain(packed, coeffs, rd, t, fr.consts)
+    for i, k in enumerate(("rgb", "acc", "depth", "weights")):
+        assert torch.isfinite(got[i]).all() and torch.equal(got[i], again[i]), k
+        tol = GABOR_TOL[cdt] * (10 if k == "depth" else 1)
+        assert float((got[i] - ref[i]).abs().max()) <= tol, k
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h, ld, n", _GABOR_WIDE)
+def test_wide_gabor_train_pass_matches_plain(dev, gabor_wide_builds, cdt, h, ld, n):
+    """Row 12 at 133 rays x 64 samples and at 7 x 37 (chunks that span
+    rays): the loss, rgb, acc and weights within GABOR_TOL, the weight
+    gradients within GABOR_GRAD_TOL and dA..dR within GABOR_GRAD_TOL of
+    their max; two launches the same bits, each counted at its shape."""
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import (
+        FusedGaborRender, fused_gabor_train_plain)
+
+    model, fr, packed = _gabor_wide(cdt, h, ld, n, dev)
+    key = ("train_launches", fr.plan.tag, cdt)
+    for r, s in ((133, 64), (7, 37)):
+        ro, rd, t = _inputs(r, s, dev, seed=h + ld + n + s)
+        tgt = torch.rand(r, 3, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+        coeffs = _gabor_coeffs(fr, model, ro, rd)
+        with torch.no_grad():
+            before = FusedGaborRender.shape_launches[key]
+            got = fr._train(packed, coeffs, rd, t, tgt, True)
+            again = fr._train(packed, coeffs, rd, t, tgt, True)
+            ref = fused_gabor_train_plain(packed, coeffs, rd, t, tgt, True, fr.consts)
+        torch.cuda.synchronize()
+        assert FusedGaborRender.shape_launches[key] == before + 2
+        assert all(torch.equal(a, b)
+                   for a, b in zip(got[:4] + got[4] + got[5:], again[:4] + again[4] + again[5:]))
+        assert abs(float(got[0]) - float(ref[0])) <= GABOR_TOL[cdt] * abs(float(ref[0]))
+        for a, b in zip(got[1:4], ref[1:4]):
+            assert float((a - b).abs().max()) <= GABOR_TOL[cdt]
+        _gabor_grads_close(got[4], ref[4], cdt, h, n, fr.d_pad)
+        assert got[5].shape == coeffs.shape and torch.isfinite(got[5]).all()
+        for j in range(5):
+            err = float((got[5][j] - ref[5][j]).abs().max())
+            assert err <= GABOR_GRAD_TOL[cdt] * float(ref[5][j].abs().max()), (j, err)
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h, ld, n", _GABOR_WIDE)
+def test_wide_gabor_field_kernels_match_plain(dev, gabor_wide_builds, cdt, h, ld, n):
+    """Rows 13 and 14 at 1,000 points (a ragged last chunk), under
+    test_siren_gabor_field_kernels_match_plain_versions's tolerances: rgb
+    and sigma (over max(1, max |sigma|)) within TOL, every gradient
+    (weights, filter banks) within GRAD_TOL of its max (floored at 1e-2 of
+    the largest) and the point and direction cotangents at the 99.9th
+    percentile; two launches of each the same bits, each counted at its
+    shape."""
+    from nerf_tpu_torch.ops.cuda.fused_gabor import (
+        GaborField, gabor_field_bwd_plain, gabor_field_plain)
+
+    model, fr, _ = _gabor_wide(cdt, h, ld, n, dev)
+    field = GaborField(model).pack()
+    assert field.plan == fr.plan
+    k = field.consts
+    pts, dirs = _field_points(1000, dev, seed=h + ld + n)
+    cot = torch.randn(1000, 4, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    keys = [(c, field.plan.tag, cdt) for c in ("launches", "bwd_launches")]
+    before = [GaborField.shape_launches[key] for key in keys]
+    with torch.no_grad():
+        out = field._forward(field.packed, pts, dirs)
+        out2 = field._forward(field.packed, pts, dirs)
+        got = field._backward(field.packed, pts, dirs, cot)
+        again = field._backward(field.packed, pts, dirs, cot)
+        ref_rgb, ref_sigma = gabor_field_plain(field.packed, pts, dirs, k)
+        ref = gabor_field_bwd_plain(field.packed, pts, dirs, cot, k)
+    torch.cuda.synchronize()
+    assert [GaborField.shape_launches[key] - b for key, b in zip(keys, before)] == [2, 2]
+    assert all(torch.equal(a, b) for a, b in zip(out + got, out2 + again))
+    tol, gtol = TOL[cdt], GRAD_TOL[cdt]
+    torch.testing.assert_close(out[0], ref_rgb, atol=tol, rtol=0)
+    scale = max(1.0, float(ref_sigma.abs().max()))
+    torch.testing.assert_close(out[1], ref_sigma, atol=tol * scale, rtol=0)
+    floor = 1e-2 * max(float(g.abs().max()) for g in ref[:-2])
+    for a, b in zip(got[:-2], ref[:-2]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= gtol * max(float(b.abs().max()), floor)
+    for a, b in zip(got[-2:], ref[-2:]):
+        e = (a - b).abs().max(dim=1).values / b.abs().max()
+        assert float(torch.quantile(e, 0.999)) <= gtol
+
+
+def test_wide_gabor_libraries_report_the_plans_sizes(dev, gabor_wide_builds):
+    """Each shape's GaborNet libraries report the stash bytes (floats) a
+    point and the gradient floats of its plan (gabor_plan.py), built with
+    the shape in the file name."""
+    from nerf_tpu_torch.ops.cuda import build
+    from nerf_tpu_torch.ops.cuda.fused_gabor import GaborField
+    from nerf_tpu_torch.ops.cuda.fused_render import grad_sizes
+
+    for h, ld, n in _GABOR_WIDE:
+        for cdt in ("bfloat16", "float32"):
+            model, fr, packed = _gabor_wide(cdt, h, ld, n, dev)
+            assert (packed.wmat.numel(), packed.vec.numel()) == (fr.plan.n_w, fr.plan.n_b)
+            per_point, _, n_out = grad_sizes(fr._train_entry()[2])
+            assert per_point == (fr.plan.tc_bytes_per_point if cdt == "bfloat16"
+                                 else fr.plan.f32_floats_per_point(2))
+            assert n_out == fr.plan.n_w + fr.plan.n_b + 1
+            per_point, _, n_out = grad_sizes(GaborField(model)._bwd_entry()[2])
+            assert per_point == (fr.plan.tc_bytes_per_point // 4 if cdt == "bfloat16"
+                                 else fr.plan.f32_floats_per_point(4))
+            assert n_out == fr.plan.n_w + fr.plan.n_b + 9 * n * h + 1
+        name = build.build_shaped((("fused_render_gabor_train_tc", fr.plan.tag,
+                                    fr.plan.defines),))[0].path.name
+        assert name.startswith(f"fused_render_gabor_train_tc-{fr.plan.tag}-")
+
+
+@pytest.mark.parametrize("h, ld", [(1280, 4), (512, 11)])
+def test_wide_gabor_kernels_refuse_unsupported_shapes(dev, h, ld):
+    """Hidden 1280 and a direction encoding padded to 96 columns (both
+    taken by nerf_tpu's kernels): no plan, and every launch on the card
+    raises NotImplementedError naming ROADMAP.md queue 2 before it
+    launches."""
+    from nerf_tpu_torch.ops.cuda.fused_gabor import GaborField
+    from nerf_tpu_torch.ops.cuda.fused_render_gabor import FusedGaborRender
+
+    model, fr = _gabor("bfloat16", 0, dev, hidden_dim=h, dir_encoding_dim=ld)
+    field = GaborField(model)
+    assert fr.plan is None and field.plan is None
+    ro, rd, t = _inputs(4, 8, dev)
+    pts, dirs = _field_points(100, dev)
+    before = (FusedGaborRender.launches, GaborField.launches)
+    with torch.no_grad():
+        for call in (lambda: fr(model, ro, rd, rd, t), lambda: field(pts, dirs)):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+                call()
+    assert (FusedGaborRender.launches, GaborField.launches) == before

@@ -150,16 +150,16 @@ _FAMILIES = {"nerf": (NeRFModel, JaxNeRF, make_fused_nerf_apply),
     ("nerf", 1024, 8, "kernel"), ("nerf", 1280, 8, "row 1"),
     ("siren", 256, 8, "kernel"), ("siren", 512, 8, "kernel"), ("siren", 1024, 8, "kernel"),
     ("siren", 1280, 8, "row 9"), ("siren", 256, 4, None),
-    ("gabor", 128, 8, None), ("gabor", 256, 8, "kernel"), ("gabor", 512, 8, "row 13"),
-    ("gabor", 256, 4, "row 13")])
+    ("gabor", 128, 8, None), ("gabor", 256, 8, "kernel"), ("gabor", 512, 8, "kernel"),
+    ("gabor", 256, 4, "kernel"), ("gabor", 1024, 1, "kernel"), ("gabor", 1280, 8, "row 13")])
 def test_teacher_field_route_follows_nerf_tpu(monkeypatch, family, hidden, layers, row):
     """A NeRF, SIREN or GaborNet teacher takes a field kernel exactly where
     nerf_tpu's make_fused_*_apply gives one (NeRF and GaborNet by width,
     SIREN by width and 8 layers): on the card a NeRF or SIREN at hidden 256
-    to 1024, a GaborNet at 256 (of 8 stages) takes the port's field wrapper
-    (NerfField, SirenField, GaborField); where the port's kernels do not
-    cover the shape (a NeRF or SIREN at 1280, a GaborNet at 512, a GaborNet
-    of 4 stages) fused_field_for raises and names its row of
+    to 1024, a GaborNet at 256 to 1024 of any depth takes the port's field
+    wrapper (NerfField, SirenField, GaborField); where the port's kernels do
+    not cover the shape (a NeRF, SIREN or GaborNet at 1280) fused_field_for
+    raises and names its row of
     PERF.md's table; elsewhere, and on the CPU, the teacher is its
     module."""
     cls, jcls, make = _FAMILIES[family]

@@ -224,13 +224,17 @@ def test_plain_train_pass_is_the_gradient_of_the_plain_forward():
 
 
 def test_supported_shapes_and_forward_only_render():
-    """The kernels take hidden 256 with 8 stages (the plain versions any
-    width and depth); the forward render has no gradient, as in nerf_tpu."""
-    assert FusedGaborRender(GaborModel(), NEAR, FAR).supported()
-    for kw in ({"hidden_dim": 128}, {"num_layers": 4}):
+    """The kernels take hidden 256 to 1024 with the direction encoding
+    padded to at most 64 columns and any depth (gabor_plan.covered; the
+    plain versions any width and depth); the forward render has no
+    gradient, as in nerf_tpu."""
+    for kw in ({}, {"num_layers": 4}, {"hidden_dim": 512}, {"dir_encoding_dim": 10}):
+        assert FusedGaborRender(GaborModel(**kw), NEAR, FAR).supported()
+    for kw in ({"hidden_dim": 128}, {"hidden_dim": 1280}, {"dir_encoding_dim": 11}):
         fr = FusedGaborRender(GaborModel(**kw), NEAR, FAR)
         assert not fr.supported()
-        assert "hidden 256 with 8 stages" in fr._unsupported()
+        assert "hidden 256 to 1024" in fr._unsupported()
+        assert "ROADMAP.md queue 2" in fr._unsupported()
     tm = GaborModel(hidden_dim=32, num_layers=2)
     fr = FusedGaborRender(tm, NEAR, FAR)
     ro, rd = torch.zeros(2, 3) + 4.0, torch.tensor([[0.0, 0.0, -1.0]] * 2)

@@ -55,7 +55,7 @@ from nerf_tpu_torch.models.plenoxels import PlenoxelsModel
 from nerf_tpu_torch.models.siren import SirenModel
 from nerf_tpu_torch.ops.cuda import (
     build, fused_gabor, fused_nerf, fused_render, fused_render_gabor, fused_render_siren,
-    fused_siren, nerf_plan, siren_plan)
+    fused_siren, gabor_plan, nerf_plan, siren_plan)
 from nerf_tpu_torch.ops.cuda.fused_grid_render import FusedGridRender, cells_affine
 from nerf_tpu_torch.ops.cuda import fused_kilonerf
 from nerf_tpu_torch.ops.cuda.fused_kilonerf import (
@@ -576,26 +576,27 @@ def test_enc_pads_follow_nerf_tpu():
 # ---------------------------------------------------------------- SIREN plan
 
 
-def _source_consts(defines: dict) -> dict:
-    """Every ``constexpr int`` of the SIREN kernels' headers, in include
-    order (render_common.cuh, fused_render_common.cuh, render_tc.cuh,
-    fused_render_siren_common.cuh, fused_render_siren_tc_common.cuh),
-    evaluated as the compiler does under the -D values ``defines``
-    (NERF_* -> value): the plan the sources' static_asserts hold."""
+def _source_consts(defines: dict, family: str = "siren") -> dict:
+    """Every ``constexpr int`` and ``constexpr bool`` of a family's kernel
+    headers, in include order (render_common.cuh, fused_render_common.cuh,
+    render_tc.cuh, fused_render_{family}_common.cuh,
+    fused_render_{family}_tc_common.cuh), evaluated as the compiler does
+    under the -D values ``defines`` (NERF_* and GABOR_* -> value): the plan
+    the sources' static_asserts hold."""
     import re
 
     env = dict(defines)
     for name in ("render_common.cuh", "fused_render_common.cuh", "render_tc.cuh",
-                 "fused_render_siren_common.cuh", "fused_render_siren_tc_common.cuh"):
+                 f"fused_render_{family}_common.cuh", f"fused_render_{family}_tc_common.cuh"):
         text = (build._CSRC / name).read_text()
         text = re.sub(r"//[^\n]*", "", text)
-        for m in re.finditer(r"^#define (NERF_\w+) (\d+)$", text, re.M):
+        for m in re.finditer(r"^#define ((?:NERF|GABOR)_\w+) (\d+)$", text, re.M):
             env.setdefault(m.group(1), int(m.group(2)))
-        for m in re.finditer(r"^constexpr int (\w+ =[^;]*);", text, re.M):
+        for m in re.finditer(r"^constexpr (?:int|bool) (\w+ =[^;]*);", text, re.M):
             for decl in m.group(1).split(","):
                 key, expr = (x.strip() for x in decl.split("=", 1))
-                expr = re.sub(r"(\w+) > (\w+) \? (\w+) : (\w+)", r"(\3 if \1 > \2 else \4)",
-                              expr.replace("\n", " "))
+                expr = re.sub(r"^(.*?) \? (.*?) : (.*)$", r"(\2) if (\1) else (\3)",
+                              " ".join(expr.split()))
                 env[key] = eval(expr.replace("/", "//"), {}, env)  # noqa: S307
     return env
 
@@ -711,6 +712,148 @@ def test_siren_wrappers_count_launches_by_shape(cdt):
              ("launches", "bwd_launches"))):
         for counter in counters:
             key = (counter, "h1024d32", cdt)
+            before = (getattr(cls, counter), cls.shape_launches[key])
+            wrapper._count(counter)
+            assert (getattr(cls, counter), cls.shape_launches[key]) == (
+                before[0] + 1, before[1] + 1)
+
+
+# ---------------------------------------------------------------- GaborNet plan
+
+
+def _gabor_defines(pl) -> dict:
+    return {**_siren_defines(pl), "GABOR_NL": pl.n}
+
+
+@pytest.mark.parametrize("h, dp, n", list(itertools.product(
+    gabor_plan.WIDTHS, gabor_plan.D_PADS, (1, 3, 8))))
+def test_gabor_plan_fits_shared_memory(h, dp, n):
+    """Every GaborNet kernel of the shape under 227 KB of shared memory,
+    and each sum the sources' own (SMEM_BYTES, SMEM_GABOR_TC, SMEM_BWD, the
+    stash bytes a point TC_BYTES_PER_POINT, the packed sizes N_W and N_B,
+    evaluated from the headers under the shape's -D flags); stash rows
+    16-byte aligned in both dtypes; the bf16 forward two CTAs an SM at
+    hidden 256 (one tile) and one wider (two); chunks that divide each other
+    and the backward's 32-point k-tiles; the NeRF family's chunk rule; the
+    depth as -DGABOR_NL; at hidden 1024 with 8 stages 56,448 stash bytes a
+    point."""
+    pl = gabor_plan.plan(h, dp, n)
+    assert max(pl.smem().values()) <= nerf_plan.SMEM_LIMIT
+    src = _source_consts(_gabor_defines(pl), "gabor")
+    assert (src["H"], src["DP"], src["P"], src["TC_P"], src["TC_PB"], src["NL"]) == (
+        h, dp, pl.p, pl.tc_p, pl.tc_pb, n)
+    assert pl.smem() == {"f32": src["SMEM_BYTES"], "fwd_tc": src["SMEM_GABOR_TC"],
+                         "bwd_tc": src["SMEM_BWD"]}
+    assert pl.tc_bytes_per_point == src["TC_BYTES_PER_POINT"]
+    assert (pl.n_w, pl.n_b) == (src["N_W"], src["N_B"])
+    assert src["ONE_TILE"] == pl.one_tile == (h == 256)
+    assert pl.tc_bytes_per_point % 16 == 0
+    assert pl.f32_floats_per_point(2) % 4 == 0 and pl.f32_floats_per_point(4) % 4 == 0
+    assert pl.fwd_ctas_per_sm == (2 if h == 256 else 1)
+    assert pl.tc_p % pl.tc_pb == 0 and pl.tc_p % 32 == 0 and pl.tc_pb % 16 == 0
+    np_ = nerf_plan.plan(h, 64, dp)
+    assert (pl.p, pl.tc_p, pl.tc_pb) == (np_.p, np_.tc_p, np_.tc_pb)
+    assert pl.default == ((h, dp, n) == (256, 32, 8)) and (pl.defines == ()) == pl.default
+    assert pl.tag == f"h{h}d{dp}n{n}"
+    assert pl.default or pl.defines[-1] == f"-DGABOR_NL={n}"
+    assert [b[0] for b in pl.builds] == list(gabor_plan.LIBS)
+    assert set(gabor_plan.LIBS) <= set(build.LIBS)
+    if pl.default:
+        # the hidden-256 kernels: 14,208 stash bytes a point
+        # (fused_render_gabor_train_tc.cu), 4,816 floats (fused_render_gabor_train.cu)
+        assert (pl.tc_bytes_per_point, 4 * pl.f32_floats_per_point(2)) == (
+            14_208, GABOR_F32_STASH_BYTES)
+        assert pl.tc_bytes_per_point == fused_render_gabor.TC_BYTES_PER_POINT
+        assert fused_gabor.TC_BWD_COLS_AT == pl.tc_bytes_per_point // 4 - 16
+    if (h, dp, n) == (1024, 32, 8):
+        assert pl.tc_bytes_per_point == 56_448
+
+
+def test_gabor_stash_and_partials_fit_the_card(monkeypatch):
+    """The bf16 GaborNet train pass at hidden 1024 with 8 stages, at
+    lego_siren.txt's step (1024 rays x 256 samples on 132 SMs): 262,144
+    stashed points of 56,448 bytes (14.8 GB) and 128 partials of the
+    gradients (4.6 GB), which an 80 GB card holds; at 64 stages (nerf_tpu
+    takes any depth) they outgrow it, and the launch raises before it
+    allocates."""
+    class Card:
+        multi_processor_count = 132
+        total_memory = 80 * 10 ** 9
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: Card)
+    t = torch.zeros(1024, 256)
+    for n, fits in ((8, True), (64, False)):
+        fr = FusedGaborRender(GaborModel(hidden_dim=1024, num_layers=n,
+                                         compute_dtype="bfloat16"), 2.0, 6.0)
+        sizes = (fr.plan.tc_bytes_per_point, (fr.plan.n_w + fr.plan.n_b + 1 + 3) // 4 * 4, 0)
+        _, grid, cap = launch_plan(1024, 256, 132)
+        if n == 8:
+            assert grid * cap * sizes[0] == 14_797_504_512
+            assert grid * sizes[1] * 4 == 4_578_875_392
+        if fits:
+            fr._check_fits(t, sizes, 1)
+        else:
+            with pytest.raises(RuntimeError, match="fewer rays a step"):
+                fr._check_fits(t, sizes, 1)
+
+
+@pytest.mark.parametrize("h, ld, n", [(1280, 4, 8), (512, 11, 8), (384, 4, 8),
+                                      (1024, 4, 2046), (256, 4, 0)])
+def test_gabor_plan_refuses_other_shapes(h, ld, n):
+    """Hidden 1280 (nerf_tpu's kernels take it), a direction encoding padded
+    to 96 columns (L_d = 11), a width that is no multiple of 256, a depth
+    whose packed offsets leave a 32-bit int, no stage: no plan, and the
+    wrappers refuse at the launch's check, naming ROADMAP.md's queue 2."""
+    dp = gabor_plan.d_pad(ld)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+        gabor_plan.plan(h, dp, n)
+    assert gabor_plan.covered(1024, 32, 2045) and gabor_plan.covered(256, 32, 1)
+    if n in (0, 2046):
+        return
+    model = GaborModel(hidden_dim=h, dir_encoding_dim=ld, num_layers=n)
+    fr, field = FusedGaborRender(model, 2.0, 6.0), fused_gabor.GaborField(model)
+    x, t = torch.zeros(2, 3), torch.zeros(2, 4)
+    for wrapper, launch in ((fr, lambda: fr._launch_fwd(None, None, x, t)),
+                            (field, lambda: field._launch_fwd(None, x, x))):
+        assert not wrapper.supported() and wrapper.plan is None
+        assert "ROADMAP.md queue 2" in wrapper._unsupported()
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+            launch()
+
+
+def test_gabor_d_pad_and_depth_follow_nerf_tpu():
+    """nerf_tpu pads the GaborNet's direction encoding as the SIREN's (L_d =
+    4 gives 32 columns, 6 gives 64) and packs w1..w{n-1}: the port's packing
+    pads wr0d to d_pad with zero rows, holds n - 1 hidden matrices, and the
+    tensor-core backward's direction product is wr0d^T at hidden / 2 rows
+    by 128."""
+    model = GaborModel(hidden_dim=512, dir_encoding_dim=6, num_layers=3)
+    fr = FusedGaborRender(model, 2.0, 6.0)
+    assert fr.plan.tag == "h512d64n3"
+    packed = fr.pack(model).packed
+    assert packed.mats["wr0d"].shape == (64, 256) and packed.mats["wr0f"].shape == (512, 256)
+    assert [k for k in packed.mats if k.startswith("w") and k[1:].isdigit()] == ["w1", "w2"]
+    assert (packed.wmat.numel(), packed.vec.numel()) == (fr.plan.n_w, fr.plan.n_b)
+    with torch.no_grad():
+        assert float(packed.mats["wr0d"][39:].abs().max()) == 0.0
+    assert fused_gabor.direction_transpose(packed).shape == (256, 128)
+    one = FusedGaborRender(GaborModel(hidden_dim=256, num_layers=1), 2.0, 6.0)
+    assert one.plan.tag == "h256d32n1" and one.mat_names == ("wre", "wr0f", "wr0d", "wr1")
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_gabor_wrappers_count_launches_by_shape(cdt):
+    """Each count of the GaborNet wrappers also goes to ``shape_launches``
+    under (counter, plan tag, dtype): the split by shape that phase 37 of
+    chip_smoke.py reads."""
+    model = GaborModel(hidden_dim=1024, compute_dtype=cdt)
+    for cls, wrapper, counters in (
+            (FusedGaborRender, FusedGaborRender(model, 2.0, 6.0),
+             ("launches", "train_launches")),
+            (fused_gabor.GaborField, fused_gabor.GaborField(model),
+             ("launches", "bwd_launches"))):
+        for counter in counters:
+            key = (counter, "h1024d32n8", cdt)
             before = (getattr(cls, counter), cls.shape_launches[key])
             wrapper._count(counter)
             assert (getattr(cls, counter), cls.shape_launches[key]) == (

@@ -227,7 +227,9 @@ _MODELS = {"nerf": (NeRFModel, JaxNeRF), "siren": (SirenModel, JaxSiren),
     ("siren", dict(hidden_dim=1280, num_layers=8), "raise", "row 9"),
     ("siren", dict(hidden_dim=256, num_layers=4), "module", None),
     ("gabor", dict(hidden_dim=256), GaborField, None),
-    ("gabor", dict(hidden_dim=512), "raise", "row 13"),
+    ("gabor", dict(hidden_dim=512), GaborField, None),
+    ("gabor", dict(hidden_dim=512, num_layers=4, dir_encoding_dim=6), GaborField, None),
+    ("gabor", dict(hidden_dim=1280), "raise", "row 13"),
     ("kilonerf", dict(hidden_dim=32, grid_res=2), KiloNeRFField, None),
     ("kilonerf", dict(hidden_dim=256, grid_res=2), "module", None),
     ("siren", dict(hidden_dim=512, num_layers=8), SirenField, None)])
@@ -236,13 +238,14 @@ def test_route_follows_nerf_tpu(monkeypatch, family, kw, field, row):
     ``make_fused_*_render`` gives one (its own kernels where they cover the
     shape: a NeRF at hidden 256 to 1024 with encodings padded to at most
     128 / 64 columns, a SIREN at 256 to 1024 with the direction encoding
-    padded to at most 64 columns, a GaborNet at 256), and otherwise the field
+    padded to at most 64 columns, a GaborNet at 256 to 1024 with d_pad 32 or
+    64 and any depth), and otherwise the field
     route, whose field is a field kernel where nerf_tpu's
     ``make_fused_*_apply`` gives one and the port's covers the shape, the
     module where nerf_tpu gives none, and a raise naming PERF.md's row and
     ROADMAP.md's queue where nerf_tpu takes a field kernel at a shape the
-    port's do not cover (a NeRF or SIREN at 1280, a NeRF with 129 position
-    columns, a GaborNet at 512). On the CPU the field is the module wherever
+    port's do not cover (a NeRF, SIREN or GaborNet at 1280, a NeRF with 129
+    position columns). On the CPU the field is the module wherever
     nerf_tpu's is (KiloNeRF keeps its field's plain versions)."""
     cls, jcls = _MODELS[family]
     jm, tm = jcls(**kw), cls(**kw)
@@ -258,9 +261,9 @@ def test_route_follows_nerf_tpu(monkeypatch, family, kw, field, row):
     assert (fr is not None) == tpu_render
     if tpu_render:
         # the port's render kernels cover a NeRF at hidden 256 to 1024 with
-        # encodings padded to at most 128 / 64 columns, a SIREN at 256 to
-        # 1024 with d_pad 32 or 64, a GaborNet at 256 (elsewhere a launch
-        # raises, as the NotImplementedError of the shape guard)
+        # encodings padded to at most 128 / 64 columns, a SIREN or GaborNet
+        # at 256 to 1024 with d_pad 32 or 64 (elsewhere a launch raises, as
+        # the NotImplementedError of the shape guard)
         assert fr.supported() == (field not in ("raise", "module"))
     else:
         assert fac is fused_field_for

@@ -56,6 +56,7 @@ from nerf_tpu_torch.render.renderer import RenderSettings
 from nerf_tpu_torch.train.loop import fit, render_settings_from_config
 from nerf_tpu_torch.train.multiscene_loop import fit_multiscene
 from nerf_tpu_torch.train.state import create_train_state
+from nerf_tpu_torch.train import step as step_module
 from nerf_tpu_torch.train.step import _Replicas, make_eval_render, make_train_step
 from nerf_tpu_torch.utils.checkpoint import load_checkpoint, read_metadata
 
@@ -274,9 +275,59 @@ def _one_thread():
         torch.set_num_threads(threads)
 
 
+class _SecondHalf(Exception):
+    """Raised by the second half's reduce hook: that half takes no update."""
+
+
+def _halves_scan_step(model, settings, batch_size, seed, num_steps, **kw):
+    """``make_scan_train_step`` of one process that sums its gradient as
+    ``data:2``'s two ranks do: each step renders the global batch's two
+    halves one after the other (``shard`` (0, 2), then (1, 2), on the same
+    draws), and the update takes (g0 + g1) / 2 and the mean of the two
+    halves' losses, the ``all_reduce`` sum of ``parallel/dp.py::
+    average_grads`` divided by 2. A one-batch gradient sums the rows in
+    another order, and the fine model's first skip layer carries gradients
+    of 1e-9 to 3e-8, at Adam's eps (1e-8), where its update g / (|g| + eps)
+    turns that rounding into parameter gaps of up to 2.5e-5 in 3 steps."""
+    kw = {k: v for k, v in kw.items() if k not in ("shard", "reduce")}
+    second = {}
+
+    def grads(state):
+        return [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                for m in state.models() for p in m.parameters()]
+
+    def reduce1(state, loss, mse):
+        second.update(grads=grads(state), loss=loss, mse=mse)
+        raise _SecondHalf
+
+    sample1, train1 = step_module._make_step_body(model, settings, batch_size, seed,
+                                                  shard=(1, 2), reduce=reduce1, **kw)
+
+    def reduce0(state, loss, mse):
+        first = grads(state)
+        with contextlib.suppress(_SecondHalf):
+            train1(state, sample1(state, second["pool"]), second["occ"])
+        params = [p for m in state.models() for p in m.parameters()]
+        for p, a, b in zip(params, first, second["grads"]):
+            p.grad = (a + b) / 2
+        return (loss + second["loss"]) / 2, (mse + second["mse"]) / 2
+
+    sample0, train0 = step_module._make_step_body(model, settings, batch_size, seed,
+                                                  shard=(0, 2), reduce=reduce0, **kw)
+
+    def step_n(state, pool, occ_grid=None):
+        second.update(pool=pool, occ=occ_grid)
+        ms = [train0(state, sample0(state, pool), occ_grid) for _ in range(num_steps)]
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    return step_n
+
+
 def _one_process(root: str) -> dict:
     cfg = worker.fit_config(root, "one")
-    state = fit(cfg, device="cpu", log=QUIET)
+    with pytest.MonkeyPatch.context() as mp_:
+        mp_.setattr(step_module, "make_scan_train_step", _halves_scan_step)
+        state = fit(cfg, device="cpu", log=QUIET)
     out = {"cfg": cfg, "state": state,
            "val": worker.val_image(state, cfg, worker.val_rays(root))}
     ms = _ms_cfg(root, "one_ms")
@@ -434,7 +485,10 @@ def two_ranks(root, one_process):
 
 def test_fit_data2_matches_one_process(root, one_process, two_ranks):
     """fit on data:2 against one process, 3 steps: the logged losses and
-    every parameter within 1e-6 relative (norms); both ranks identical."""
+    every parameter within 1e-6 relative (norms); both ranks identical. The
+    one process sums the two halves' gradients as the ranks do
+    (``_halves_scan_step``): the test holds the collective and the shards,
+    not the host's row order of a 64-ray gradient."""
     state = one_process["state"]
     for key, model in (("params", state.params), ("fine_params", state.fine_params)):
         for k, v in model.state_dict().items():
